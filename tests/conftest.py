@@ -74,6 +74,10 @@ def pytest_configure(config):
         "chaos: fault-injection tests (SIGTERM/bus faults via SMP_CHAOS); "
         "run with -m chaos",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (a CUDA kernel has no CPU mode); skips without one",
+    )
 
 
 # Known-heavy tests (>=10s single-core, dominated by XLA pipeline compiles),
