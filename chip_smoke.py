@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py --phases B # kernel-vs-plain comparisons only
+    python3 chip_smoke.py --phases T # the training path only
 
 Builds the port's CUDA kernels from ``smdistributed_modelparallel_tpu_torch/
 csrc`` (one nvcc per source, all started together), then:
@@ -13,11 +14,21 @@ csrc`` (one nvcc per source, all started together), then:
      sampled; each kernel's launch count is set to 0 just before and read
      just after, and must show one launch per layer per prefill. A small
      fp32 model is also held against the same weights run on the CPU.
+  T. the training path: ``@smp.step`` + ``smp.DistributedOptimizer`` on
+     GPT-2 124M at full width with random weights from a seed, bf16, batch
+     8 x 1024 tokens in 4 microbatches, AdamW(1e-4), loss mode,
+     ``fused_step_donation`` (``bench.py``'s headline workload); warm-up
+     steps, then timed steps whose kernel launches are counted (48 flash
+     forward, dq and dk/dv launches a step). The loss must fall and stay
+     finite. A small fp32 model trains 3 steps on the card and on the CPU
+     from the same weights; the losses must agree.
   B. every kernel against its plain PyTorch version on the card, at the
-     main path's shape and over a feature sweep, within stated tolerances.
+     main paths' shapes and over a feature sweep, within stated tolerances.
   C. times: kernel, plain version and the one PyTorch library call that
      computes the same function, with CUDA events; and the bound (the least
      time the card could take for the same work).
+  P. (on request) torch.profiler breakdowns of a generate and a training
+     step: device time by kernel and the device's idle share.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -28,6 +39,7 @@ fails.
 import argparse
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -39,7 +51,7 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 
-KERNEL_SOURCES = ["flash_fwd"]
+KERNEL_SOURCES = ["flash_fwd", "flash_bwd"]
 SEED = 1234
 
 
@@ -172,6 +184,107 @@ def phase_a():
     return launches
 
 
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB = 8, 1024, 4
+TRAIN_WARMUP, TRAIN_STEPS = 2, 12
+
+
+def _train_setup(module, microbatches, bf16, device):
+    """``bench.py``'s framework training: smp.init, the model, AdamW with
+    optax.adamw's defaults (weight decay 1e-4, eps 1e-8), and the loss-mode
+    step (mean loss over the predicted positions)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    smp.init({"microbatches": microbatches, "bf16": bf16, "fused_step_donation": True})
+    model = smp.DistributedModel(module, device=device)
+    optimizer = smp.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), model)
+
+    @smp.step
+    def train_step(model, batch_ids):
+        tgt = torch.cat([batch_ids[:, 1:], torch.full_like(batch_ids[:, :1], -100)], dim=1)
+        per = model(batch_ids, targets=tgt)
+        loss = per.sum() / (per.shape[0] * (per.shape[1] - 1))
+        model.backward(loss)
+        return loss
+
+    return model, optimizer, train_step
+
+
+def phase_t():
+    """The training path through the public entry points."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2, gpt2_124m, init_gpt2_weights_
+    from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    module = init_gpt2_weights_(gpt2_124m(device="cuda"), g)
+    model, optimizer, train_step = _train_setup(module, TRAIN_MB, True, "cuda")
+    n_layers = len(module.layers)
+    ids = torch.randint(0, module.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        losses.append(train_step(model, ids).reduce_mean())
+        optimizer.step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"flash_fwd": flash_attention, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(train_step(model, ids).reduce_mean())
+        optimizer.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    per_step = n_layers * TRAIN_MB
+    log(f"[T] GPT-2 124M bf16 training, batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MB} microbatches: "
+        f"{ms:.2f} ms/step, {1e3 / ms:.3f} steps/s, {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f} tokens/s "
+        f"(mean of {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up); peak device memory {peak_gib:.2f} GiB")
+    log(f"[T] loss: first {losses[0]:.4f}, last {losses[-1]:.4f} over {len(losses)} steps")
+    log(f"[T] launches on the main path: {launches} over {TRAIN_STEPS} steps "
+        f"(expected {per_step} each per step: {n_layers} layers x {TRAIN_MB} microbatches)")
+    for name, n in launches.items():
+        if n != per_step * TRAIN_STEPS:
+            raise RuntimeError(f"{name} launched {n} times in {TRAIN_STEPS} steps, expected {per_step * TRAIN_STEPS}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"training loss did not fall or is not finite: {losses}")
+
+    # Small fp32 model: 3 steps on the card (kernel path, T = 128) and on the
+    # CPU (plain path) from the same weights and batch.
+    small = init_gpt2_weights_(gpt2("gpt2_124m", max_len=128, d_model=128, n_layers=2, n_heads=4),
+                               torch.Generator().manual_seed(SEED))
+    ids_s = torch.randint(0, small.vocab_size, (4, 128), generator=torch.Generator().manual_seed(SEED))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        m, opt, step_fn = _train_setup(copy.deepcopy(small), 4, False, device)
+        ls = []
+        for _ in range(3):
+            ls.append(float(step_fn(m, ids_s).reduce_mean()))
+            opt.step()
+        runs[device] = (ls, {k: v.detach().cpu() for k, v in m.state_dict().items()})
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    param_err = max(float((runs["cuda"][1][k] - v).abs().max()) for k, v in runs["cpu"][1].items())
+    log(f"[T] fp32 small model (d 128, 2 layers, seq 128), 3 steps, card vs CPU: losses {runs['cuda'][0]} vs "
+        f"{runs['cpu'][0]}, max rel diff {loss_rel:.3e} (limit 1e-4); params max |diff| {param_err:.3e}")
+    # fp32 throughout; only the summation order differs. The parameters are
+    # reported, not limited: AdamW's first steps move a parameter by ~lr
+    # whatever its gradient's size, so a gradient that is zero but for
+    # rounding (the key bias: softmax ignores a per-row shift) moves by up
+    # to lr in a direction the rounding picks, without moving the loss.
+    if loss_rel > 1e-4:
+        raise RuntimeError("the card's fp32 training step disagrees with the CPU's")
+    smp.reset()
+    return launches, dict(ms=ms, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3, first_loss=losses[0],
+                          last_loss=losses[-1])
+
+
 def _inputs(B, T, S, H, hd, dtype, gen):
     q = torch.randn(B, T, H, hd, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
@@ -182,6 +295,7 @@ def _inputs(B, T, S, H, hd, dtype, gen):
 # (name, B, T, S, H, hd, kwargs). Tolerances below, per dtype.
 CASES = [
     ("main_path_causal", 4, 512, 512, 12, 64, {}),
+    ("train_path_causal", 2, 1024, 1024, 12, 64, {}),
     ("t_lt_s_causal", 2, 200, 333, 4, 64, {}),
     ("t_gt_s_causal_sentinel_rows", 2, 300, 130, 4, 64, dict(block_q=128, block_k=128)),
     ("non_causal", 2, 256, 384, 4, 64, dict(causal=False)),
@@ -200,19 +314,32 @@ CASES = [
 # bf16 against its running row max, the plain version against the final
 # max, so O differs by a few bf16 ulps; LSE stays fp32.
 TOL = {torch.float32: dict(o=1e-4, lse=1e-4), torch.bfloat16: dict(o=2e-2, lse=1e-3)}
+# Backward, as a share of the largest |grad| of the plain version. fp32: the
+# same arithmetic in another summation order (~1e-6). bf16: ds and p are
+# rounded to bf16 after fp32 products summed in another order, so a rounding
+# flip moves a grad by a bf16 ulp of its scale.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+MAIN_CASES = ("main_path_causal", "train_path_causal")  # bf16 only
 
 
 def phase_b():
+    """Every kernel against its plain version: the forward on every case,
+    then the dq and dk/dv kernels on the same inputs, fed the plain
+    forward's O and LSE and a random output gradient."""
     from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
+        attention_delta,
         flash_attention,
+        flash_attention_bwd_reference,
         flash_attention_reference,
+        flash_bwd_dkv,
+        flash_bwd_dq,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    saved = flash_attention.launches
-    main_err, failures = None, []
+    saved = (flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    main_err, bwd_main_err, failures = None, {}, []
     for name, B, T, S, H, hd, kw in CASES:
-        dtypes = [torch.bfloat16] if name == "main_path_causal" else [torch.float32, torch.bfloat16]
+        dtypes = [torch.bfloat16] if name in MAIN_CASES else [torch.float32, torch.bfloat16]
         for dtype in dtypes:
             q, k, v = _inputs(B, T, S, H, hd, dtype, gen)
             kw = dict(kw)
@@ -235,50 +362,140 @@ def phase_b():
             if name == "main_path_causal":
                 main_err = err_o
             if not ok:
-                failures.append(f"{name}/{tag}")
-    flash_attention.launches = saved  # comparison launches do not count
+                failures.append(f"flash_fwd/{name}/{tag}")
+
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            delta = attention_delta(o_ref, do)
+            dq = flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw)
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw)
+            torch.cuda.synchronize()
+            want = flash_attention_bwd_reference(q, k, v, o_ref, do, lse_ref, **kw)
+            for kname, got, ref in (("flash_bwd_dq", (dq,), want[:1]), ("flash_bwd_dkv", (dk, dv), want[1:])):
+                errs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, ref)]
+                scale = max(float(w.float().abs().max()) for w in ref)
+                finite = all(bool(torch.isfinite(g).all()) for g in got)
+                ok = finite and max(errs) <= BWD_TOL[dtype] * max(scale, 1e-6)
+                log(f"[B] {kname:13s} {name:32s} {tag:9s} max|d| {max(errs):.2e} of max|grad| {scale:.2e} "
+                    f"(tol {BWD_TOL[dtype]:.0e} of it) {'ok' if ok else 'FAIL'}")
+                if name == "train_path_causal":
+                    bwd_main_err[kname] = max(errs)
+                if not ok:
+                    failures.append(f"{kname}/{name}/{tag}")
+    # comparison launches do not count
+    flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches = saved
     if failures:
         raise RuntimeError(f"kernel disagrees with its plain version: {failures}")
-    return main_err
+    return main_err, bwd_main_err
+
+
+def _bound(nbytes, flops, dtype):
+    """(bound ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _causal_pairs(T, S):
+    return sum(min(S, r + (S - T) + 1) for r in range(T))  # kept (row, col) pairs
 
 
 def phase_c():
+    """Kernel, plain and library times at the main paths' shapes: the
+    forward at the serving prefill's (B=4, T=512), the backward at the
+    training microbatch's (B=2, T=1024)."""
     import torch.nn.functional as F
 
     from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
+        attention_delta,
         flash_attention,
         flash_attention_reference,
+        flash_bwd_dkv,
+        flash_bwd_dkv_reference,
+        flash_bwd_dq,
+        flash_bwd_dq_reference,
     )
 
-    B, T, S, H, hd, dtype = 4, 512, 512, 12, 64, torch.bfloat16
+    counters = (flash_attention, flash_bwd_dq, flash_bwd_dkv)
+    saved = [fn.launches for fn in counters]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dtype = torch.bfloat16
+    esz = torch.finfo(dtype).bits // 8
+    out = {}
+
+    B, T, S, H, hd = 4, 512, 512, 12, 64
     q, k, v = _inputs(B, T, S, H, hd, dtype, gen)
-    saved = flash_attention.launches
     ms = cuda_time_ms(lambda: flash_attention(q, k, v))
-    flash_attention.launches = saved
     plain_ms = cuda_time_ms(lambda: flash_attention_reference(q, k, v))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    esz = torch.finfo(dtype).bits // 8
     nbytes = 2 * B * T * H * hd * esz + 2 * B * S * H * hd * esz + B * H * T * 4  # q, o, k, v, lse
-    pairs = sum(min(S, r + (S - T) + 1) for r in range(T))  # causal (row, col) pairs
-    flops = 4 * B * H * pairs * hd  # two products of 2 flops per (pair, d)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    flops = 4 * B * H * _causal_pairs(T, S) * hd  # two products of 2 flops per (pair, d)
+    bound_ms, bound_by = _bound(nbytes, flops, dtype)
+    out["flash_fwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     log(f"[C] flash_fwd B={B} T=S={T} H={H} hd={hd} bf16 causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"SDPA {library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
         f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-    return ms, plain_ms, library_ms, bound_ms, bound_by
+
+    B, T, S, H, hd = 2, 1024, 1024, 12, 64
+    q, k, v = _inputs(B, T, S, H, hd, dtype, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    o, lse = flash_attention_reference(q, k, v)
+    delta = attention_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    # One library call computes dq, dk and dv together: the yardstick of
+    # both kernels (compare it with their sum).
+    sdpa_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+    delta_ms = cuda_time_ms(lambda: attention_delta(o, do))
+    product = 2 * B * H * _causal_pairs(T, S) * hd  # one [pairs x hd] product
+    in_bytes = (2 * B * T + 2 * B * S) * H * hd * esz + 2 * B * H * T * 4  # q, do, k, v, lse, delta
+    for name, kernel, plain, n_products, out_bytes in (
+        ("flash_bwd_dq", flash_bwd_dq, flash_bwd_dq_reference, 3, B * T * H * hd * esz),      # s, dp, dq
+        ("flash_bwd_dkv", flash_bwd_dkv, flash_bwd_dkv_reference, 4, 2 * B * S * H * hd * esz),  # s, dp, dv, dk
+    ):
+        ms = cuda_time_ms(lambda: kernel(*args))
+        plain_ms = cuda_time_ms(lambda: plain(*args))
+        bound_ms, bound_by = _bound(in_bytes + out_bytes, n_products * product, dtype)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_bwd_ms)
+        log(f"[C] {name} B={B} T=S={T} H={H} hd={hd} bf16 causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"SDPA backward (dq, dk, dv) {sdpa_bwd_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+            f"({(in_bytes + out_bytes) / 1e6:.2f} MB, {n_products * product / 1e9:.3f} GFLOP)")
+    pair_ms = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
+    log(f"[C] backward per layer and microbatch: delta {delta_ms:.4f} ms + dq + dk/dv {pair_ms:.4f} ms "
+        f"against SDPA backward {sdpa_bwd_ms:.4f} ms")
+    for fn, n in zip(counters, saved):
+        fn.launches = n  # timing launches do not count
+    return out
+
+
+def _profile_report(label, prof, wall_ms, top):
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"[P] {label}: wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms, "
+        f"idle share {1 - device_ms / wall_ms:.3f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[P]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
 def phase_p():
-    """Where one greedy ``generate`` spends its time, by torch.profiler:
-    device time by kernel and the device's idle share of the wall time."""
+    """Where one greedy ``generate`` and one training step spend their
+    time, by torch.profiler: device time by kernel and the device's idle
+    share of the wall time."""
     import smdistributed_modelparallel_tpu_torch as smp
     from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m, init_gpt2_weights_
     from torch.profiler import ProfilerActivity, profile
+
+    def profiled(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        return prof, wall_ms
 
     B, T, NEW = 4, 512, 32
     smp.init({"bf16": True})
@@ -287,25 +504,29 @@ def phase_p():
     prompts = torch.randint(0, 50257, (B, T), generator=g, device="cuda")
     smp.generate(model, prompts, 2)
     for new in (1, NEW):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            smp.generate(model, prompts, new)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_ms = sum(e.self_device_time_total for e in events) / 1e3
-        log(f"[P] generate B={B} T={T} new={new}: wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms, "
-            f"idle share {1 - device_ms / wall_ms:.3f}")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"[P]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        prof, wall_ms = profiled(lambda: smp.generate(model, prompts, new))
+        _profile_report(f"generate B={B} T={T} new={new}", prof, wall_ms, 8)
+
+    model, optimizer, train_step = _train_setup(init_gpt2_weights_(gpt2_124m(device="cuda"), g),
+                                                TRAIN_MB, True, "cuda")
+    ids = torch.randint(0, 50257, (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
+    for _ in range(TRAIN_WARMUP):
+        train_step(model, ids)
+        optimizer.step()
+
+    def one_step():
+        train_step(model, ids)
+        optimizer.step()
+
+    prof, wall_ms = profiled(one_step)
+    _profile_report(f"training step batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MB} microbatches", prof, wall_ms, 14)
     smp.reset()
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="ABC",
-                        help="phases to run: A, B, C (the default, all three) and P (a profile)")
+    parser.add_argument("--phases", default="ABCT",
+                        help="phases to run: A, T, B, C (the default, all four) and P (profiles)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -320,26 +541,35 @@ def main():
     log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     build()
-    launches, err, timing = {}, None, None
+    serve_launches, train_launches, errs, timing = {}, {}, None, None
     if "A" in args.phases:
-        launches = phase_a()
+        serve_launches = phase_a()
+    if "T" in args.phases:
+        train_launches, _ = phase_t()
     if "B" in args.phases:
-        err = phase_b()
+        errs = phase_b()
     if "C" in args.phases:
         timing = phase_c()
     if "P" in args.phases:
         phase_p()
 
-    if not set("ABC") <= set(args.phases):
+    if not set("ABCT") <= set(args.phases):
         return 0  # a partial run prints no result
-    ms, plain_ms, library_ms, bound_ms, bound_by = timing
-    kernels = [dict(
-        name="flash_fwd", route="cuda",
-        source="smdistributed_modelparallel_tpu_torch/csrc/flash_fwd.cu",
-        replaces="smdistributed_modelparallel_tpu/ops/pallas_attention.py:162",
-        launches=launches["flash_fwd"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-    )]
+    fwd_err, bwd_err = errs
+    src = "smdistributed_modelparallel_tpu_torch/csrc/"
+    tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"
+    kernels = [
+        # flash_fwd runs on both main paths: serving's prefills and training.
+        dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu", replaces=tpu + "162",
+             launches=serve_launches["flash_fwd"] + train_launches["flash_fwd"], max_abs_err=fwd_err,
+             **timing["flash_fwd"]),
+        dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu", replaces=tpu + "266",
+             launches=train_launches["flash_bwd_dq"], max_abs_err=bwd_err["flash_bwd_dq"],
+             **timing["flash_bwd_dq"]),
+        dict(name="flash_bwd_dkv", route="cuda", source=src + "flash_bwd.cu", replaces=tpu + "351",
+             launches=train_launches["flash_bwd_dkv"], max_abs_err=bwd_err["flash_bwd_dkv"],
+             **timing["flash_bwd_dkv"]),
+    ]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

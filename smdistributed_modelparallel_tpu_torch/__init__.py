@@ -1,24 +1,45 @@
 """PyTorch/CUDA port of ``smdistributed_modelparallel_tpu`` (``smp``).
 
 The JAX package stays the reference; this package grows beside it slice by
-slice, keeping its public names. This slice serves: ``smp.init``,
-``smp.DistributedModel`` and ``smp.generate`` on the ``TransformerLM`` zoo
-(``models.gpt2``), with the flash-attention forward as a hand-written CUDA
-kernel for Hopper (``csrc/flash_fwd.cu``). Entry points run on ``cuda``
-unless the caller names another device.
+slice, keeping its public names. It serves (``smp.generate``) and trains
+(``@smp.step``, ``smp.DistributedOptimizer``) the ``TransformerLM`` zoo
+(``models.gpt2``) on one device, with flash attention as hand-written CUDA
+kernels for Hopper (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). Entry
+points run on ``cuda`` unless the caller names another device.
 
+    import torch
     import smdistributed_modelparallel_tpu_torch as smp
     from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m
 
-    smp.init({"bf16": True})
+    smp.init({"microbatches": 4, "bf16": True})
     model = smp.DistributedModel(gpt2_124m())
+    optimizer = smp.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), model)
+
+    @smp.step
+    def train_step(model, ids, targets):
+        loss = model(ids, targets=targets).mean()
+        model.backward(loss)
+        return loss
+
+    loss = train_step(model, ids, targets).reduce_mean()
+    optimizer.step()
     out = smp.generate(model, prompt_ids, max_new_tokens=32)
 """
 
+from smdistributed_modelparallel_tpu_torch import amp
 from smdistributed_modelparallel_tpu_torch.backend.config import ModelParallelConfig
+from smdistributed_modelparallel_tpu_torch.backend.split import StepOutput
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.generation import generate
 from smdistributed_modelparallel_tpu_torch.model import DistributedModel
+from smdistributed_modelparallel_tpu_torch.optimizer import DistributedOptimizer
+from smdistributed_modelparallel_tpu_torch.step import step
+from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
+    SMPRuntimeError,
+    SMPValidationError,
+    StepUsageError,
+)
 
 
 def init(config=None, device=None):
@@ -35,15 +56,22 @@ def is_initialized():
 
 
 def reset():
-    """Drop the config and device."""
+    """Drop the config, device, model, optimizer and loss scaler."""
     state.reset()
 
 
 __all__ = [
     "DistributedModel",
+    "DistributedOptimizer",
     "ModelParallelConfig",
+    "SMPRuntimeError",
+    "SMPValidationError",
+    "StepOutput",
+    "StepUsageError",
+    "amp",
     "generate",
     "init",
     "is_initialized",
     "reset",
+    "step",
 ]

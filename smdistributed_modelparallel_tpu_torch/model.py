@@ -2,8 +2,13 @@
 
 Counterpart of ``smdistributed_modelparallel_tpu/model.py`` for one device:
 it wraps a ``torch.nn.Module``, places it on its device and exposes
-``module``, ``state_dict``/``load_state_dict`` and ``generate``. Pipeline
-and tensor parallelism arrive with later slices.
+``module``, ``state_dict``/``load_state_dict``, ``generate`` and the
+training surface: ``backward`` inside an ``@smp.step`` function, ``grads``
+after it, ``parameters``/``num_parameters`` and ``train``/``eval``. Inside
+a step, ``model(...)`` runs the module on the parameters the step engine
+bound for the microbatch (half casts of the fp32 master parameters under
+bf16/fp16), and ``model.backward(loss)`` marks the loss that the engine
+differentiates. Pipeline and tensor parallelism arrive with later slices.
 """
 
 import torch
@@ -12,6 +17,7 @@ from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     SMPRuntimeError,
     SMPValidationError,
+    StepUsageError,
 )
 
 
@@ -40,15 +46,65 @@ class DistributedModel:
             raise SMPValidationError("Call smp.init(config) before DistributedModel().")
         self.device = resolve_device(device)
         self.module = module.to(self.device)
+        self._grads = None          # {name: grad} of the last training step
+        self._grads_finite = None   # bool under fp16 loss scaling
+        self._bound = None          # {name: tensor} bound for the current microbatch
+        self._backward_loss = None
+        self._param_version = 0     # bumped whenever the parameters change
+        self._params_at_step = None
+        self._dropped_updates = 0
+        state.model = self
 
     def __call__(self, *args, **kwargs):
+        if self._bound is not None:
+            return torch.func.functional_call(self.module, self._bound, args, kwargs)
         return self.module(*args, **kwargs)
+
+    def backward(self, loss):
+        """Mark the scalar to differentiate for this microbatch; the step
+        engine differentiates it when the step function returns."""
+        if self._bound is None:
+            raise StepUsageError("model.backward() must be called inside an @smp.step function.")
+        if self._backward_loss is not None:
+            raise StepUsageError("model.backward() called twice in one microbatch.")
+        self._backward_loss = loss
+        return loss
+
+    # -- step-engine hooks ----------------------------------------------
+
+    def _begin_microbatch(self, bound):
+        self._bound = bound
+        self._backward_loss = None
+
+    def _end_microbatch(self):
+        loss = self._backward_loss
+        self._bound = None
+        self._backward_loss = None
+        return loss
+
+    # -- parameters and gradients ----------------------------------------
+
+    @property
+    def grads(self):
+        """``{name: grad}`` of the last training step (microbatch mean, in
+        the parameters' dtype), until ``optimizer.step()`` consumes it."""
+        return self._grads
+
+    def parameters(self):
+        return list(self.module.parameters())
+
+    def named_parameters(self):
+        return list(self.module.named_parameters())
+
+    def num_parameters(self):
+        return sum(p.numel() for p in self.module.parameters())
 
     def state_dict(self):
         return self.module.state_dict()
 
     def load_state_dict(self, state_dict):
         self.module.load_state_dict(state_dict)
+        self._param_version += 1
 
     def generate(self, input_ids, max_new_tokens, **kwargs):
         """Autoregressive sampling through the KV-cache decode path; see
@@ -56,3 +112,15 @@ class DistributedModel:
         from smdistributed_modelparallel_tpu_torch.generation import generate
 
         return generate(self, input_ids, max_new_tokens, **kwargs)
+
+    def train(self):
+        self.module.train()
+        return self
+
+    def eval(self):
+        self.module.eval()
+        return self
+
+    @property
+    def training(self):
+        return self.module.training

@@ -8,9 +8,10 @@ Counterpart of ``smdistributed_modelparallel_tpu/models/transformer_lm.py``
 layer stack is an ``nn.ModuleList`` here.
 
 Supported: learned or no positions, a local-attention ``window``, parallel
-(GPT-J) blocks, pre/post LayerNorm, tied or untied head, and the KV-cache
-decode clone that ``generate`` drives. Not yet ported: rotary positions,
-paged (serving) decoding, training-time dropout and loss mode.
+(GPT-J) blocks, pre/post LayerNorm, tied or untied head, loss mode
+(``model(ids, targets=...)`` -> per-token losses, with label smoothing),
+and the KV-cache decode clone that ``generate`` drives. Not yet ported:
+rotary positions, paged (serving) decoding and training-time dropout.
 """
 
 from typing import Optional
@@ -19,6 +20,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from smdistributed_modelparallel_tpu_torch.backend.state import state
+from smdistributed_modelparallel_tpu_torch.nn.cross_entropy import (
+    fused_lm_head_cross_entropy,
+    masked_vocab_parallel_cross_entropy,
+)
 from smdistributed_modelparallel_tpu_torch.nn.utils import DecodeKVCache
 from smdistributed_modelparallel_tpu_torch.ops.attention import attention_core
 
@@ -96,7 +102,7 @@ class TransformerLayer(nn.Module):
                  paged_block_tokens=None, device=None):
         super().__init__()
         if dropout > 0.0 and not deterministic:
-            raise _not_ported("training-time dropout", "training-step slice")
+            raise _not_ported("training-time dropout", "a later slice")
         self.parallel_block = parallel_block
         self.pre_layernorm = pre_layernorm
         self.post_layernorm = post_layernorm
@@ -161,6 +167,7 @@ class TransformerLM(nn.Module):
         self.pos_type = pos_type
         self.tie_weights = tie_weights
         self.decode = decode
+        self.label_smoothing = label_smoothing
         self.wte = nn.Embedding(vocab_size, d_model, device=device)
         if pos_type == "learned":
             self.wpe = nn.Embedding(max_len, d_model, device=device)
@@ -201,18 +208,32 @@ class TransformerLM(nn.Module):
             x = x + self.wpe(pos)[None]
         return x
 
-    def head(self, x):
+    def head(self, x, targets=None):
         x = self.ln_f(x)
-        if self.tie_weights:
-            return F.linear(x, self.wte.weight)
-        return self.lm_head(x)
+        if targets is not None and self.tie_weights:
+            # Tied head in loss mode: the fused-CE dispatch
+            # (nn/cross_entropy.py) decides whether the logits materialize.
+            return fused_lm_head_cross_entropy(
+                x, self.wte.weight, targets, label_smoothing=self.label_smoothing,
+            )
+        logits = F.linear(x, self.wte.weight) if self.tie_weights else self.lm_head(x)
+        if targets is None:
+            return logits
+        return masked_vocab_parallel_cross_entropy(
+            logits, targets, label_smoothing=self.label_smoothing,
+        )
 
     def forward(self, ids, targets=None):
-        """ids [B, T] -> logits [B, T, V]."""
-        if targets is not None:
-            raise _not_ported("loss mode (targets=...)", "training-step slice")
+        """ids [B, T] -> logits [B, T, V]; with ``targets`` ([B, T] int,
+        -100 = ignored) -> per-token fp32 losses [B, T] instead. Loss mode
+        needs pipeline degree 1, as in the JAX package."""
+        if targets is not None and state.cfg is not None and state.cfg.pipeline_parallel_degree > 1:
+            raise ValueError(
+                "model(ids, targets=...) is not available under "
+                "pipeline parallelism; compute the loss from logits."
+            )
         x = self.embed(ids)
         for layer in self.layers:
             x = layer(x)
-        return self.head(x)
+        return self.head(x, targets)
 

@@ -7,8 +7,11 @@ dispatch:
      CUDA device and the shapes pass the same gate as the JAX package's
      ``_pallas_ok`` (so both packages send the same calls to their kernel);
   2. otherwise plain PyTorch that reproduces the JAX package's jnp body.
-Context parallelism, per-layer local selection and the traced scale
-factors of the JAX entry point arrive with the slices that use them.
+The kernel path is differentiable through the flash backward kernels
+(``flash_attention``'s ``autograd.Function``) and takes attention dropout
+with the kernels' counter hash. Context parallelism, per-layer local
+selection, the traced scale factors of the JAX entry point and the plain
+path's dropout arrive with the slices that use them.
 """
 
 import math
@@ -73,6 +76,8 @@ def attention_core(
     mask=None,
     mask_value: float = -1e4,
     attention_in_fp32: bool = False,
+    dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
 ):
     """Multi-head attention over [B, T, H, hd] q and [B, S, H, hd] k/v.
 
@@ -85,17 +90,30 @@ def attention_core(
       mask_value: additive value for masked positions (default -1e4).
       attention_in_fp32: run the plain path's score product in fp32 (the
         kernel's score math is always fp32).
-    Attention dropout arrives with the training slice.
+      dropout_rate/seed: attention-probability dropout, active when
+        ``dropout_rate > 0`` and ``seed`` (an int the caller draws from an
+        explicit ``torch.Generator``) is given; the JAX package's
+        ``_fold_scale_and_seed`` draws its int32 seed the same way from its
+        rng. Only the kernel path takes it.
     Returns: [B, T, H, hd].
     """
     hd = q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
+    rate = float(dropout_rate) if seed is not None else 0.0
     use_kernel = bias is None and _kernel_ok(q, k, v)
     kpad = _as_key_padding_bias(mask, mask_value) if use_kernel else None
     if use_kernel and (mask is None or kpad is not None):
-        o, _ = flash_attention(q, k, v, kpad, scale=float(scale), causal=causal, window=window)
+        o, _ = flash_attention(q, k, v, kpad, seed=seed if rate > 0.0 else None,
+                               scale=float(scale), causal=causal, window=window,
+                               dropout_rate=rate)
         return o
+    if rate > 0.0:
+        raise NotImplementedError(
+            "attention dropout on the plain attention path (the JAX package's "
+            "jnp dropout in ops/attention.py) is not ported to PyTorch yet; "
+            "only the flash kernel path (CUDA, 128 <= T, S <= 8192) takes it."
+        )
 
     T, S = q.shape[1], k.shape[1]
     compute_dtype = torch.float32 if attention_in_fp32 else q.dtype

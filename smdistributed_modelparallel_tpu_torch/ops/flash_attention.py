@@ -1,11 +1,15 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers and
+their plain versions.
 
-Counterpart of ``smdistributed_modelparallel_tpu/ops/pallas_attention.py``
-(``flash_attention`` and its forward kernel ``_fwd_kernel``). The kernel is
-``csrc/flash_fwd.cu``; ``flash_attention_reference`` is the same function in
-plain PyTorch. ``flash_attention`` runs the plain version for a tensor on the
-CPU and the kernel for a CUDA tensor; it never falls back from one to the
-other.
+Counterpart of ``smdistributed_modelparallel_tpu/ops/pallas_attention.py``:
+``flash_attention`` and its ``custom_vjp``, whose kernels are the forward
+``_fwd_kernel`` and the backward ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``.
+Here they are ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, wired
+together by a ``torch.autograd.Function``. Each kernel's wrapper
+(``flash_attention``'s forward, ``flash_bwd_dq``, ``flash_bwd_dkv``) runs
+its plain PyTorch version for tensors on the CPU and its kernel for CUDA
+tensors; it never falls back from one to the other, and counts its kernel's
+launches in ``.launches``.
 
 Both reproduce the TPU kernel's conventions, so they agree with it bit for
 bit in the dropout mask and to rounding elsewhere:
@@ -17,12 +21,16 @@ bit in the dropout mask and to rounding elsewhere:
     visited v's (padding columns count, with v = 0), as in the TPU kernel;
   - dropout uses the TPU kernel's counter hash, with the flat batch-major
     ``b*H + h`` index (remapped by ``head0``/``head_total``) and the row
-    stride ``counter_len``, which defaults to S rounded up to ``block_k``.
+    stride ``counter_len``, which defaults to S rounded up to ``block_k``;
+  - the backward recomputes p = exp(s - lse) from the saved LSE on the kept
+    pairs only, takes delta = rowsum(dO * O) in fp32, and rounds ds to the
+    operand dtype before dq = ds K and dk = ds^T Q, and the dropped p to
+    dO's dtype before dv = p^T dO.
 
 ``block_q``/``block_k`` are the TPU kernel's tiling (``pallas_attn_block_q/k``
 in the config, else 256/512, clamped as ``_clamp_block`` does). They decide
 the visited kv range and the default dropout stride above, nothing else: the
-CUDA kernel's own tiles are fixed.
+CUDA kernels' own tiles are fixed.
 """
 
 import ctypes
@@ -118,11 +126,47 @@ def _check(q, k, v, kpad_bias, window):
         raise ValueError(f"window must be >= 1 or None, got {window}")
 
 
+def _structural_keep(T, S, causal, window, device):
+    """[T, S] pairs kept by the TPU kernels' ``_tile_mask`` (causal and
+    window band; rows < T and cols < S hold by construction)."""
+    rows = torch.arange(T, device=device)[:, None]
+    cols = torch.arange(S, device=device)[None, :]
+    offset = S - T
+    keep = torch.ones((T, S), dtype=torch.bool, device=device)
+    if causal:
+        keep &= cols <= rows + offset
+        if window is not None:
+            keep &= rows + offset - cols < window
+    elif window is not None:
+        keep &= (rows + offset - cols).abs() < window
+    return keep
+
+
+def _dropout_mask(seed, B, H, T, S, head0, head_total, s_total, rate, device):
+    """[B, H, T, S] dropout keep bits, hashed at the global ``b*H + h``
+    index remapped by ``head0``/``head_total`` (``_bh_remap``)."""
+    b_idx = torch.arange(B, device=device)[:, None]
+    h_idx = torch.arange(H, device=device)[None, :]
+    if head0 is None:
+        bh = b_idx * H + h_idx
+    else:
+        bh = b_idx * (head_total or H) + int(head0) + h_idx
+    rows = torch.arange(T, device=device)[:, None]
+    cols = torch.arange(S, device=device)[None, :]
+    return dropout_keep(seed, bh[:, :, None, None], rows, cols, s_total, rate)
+
+
+def _bhsd(x):
+    """[B, L, H, hd] -> fp32 [B, H, L, hd]."""
+    return x.permute(0, 2, 1, 3).float()
+
+
 def flash_attention_reference(q, k, v, kpad_bias=None, seed=None, head0=None,
                               scale=None, causal=True, window=None,
                               dropout_rate=0.0, block_q=None, block_k=None,
                               head_total=None, counter_len=None):
-    """Plain PyTorch version of the kernel; materialises [B, H, T, S].
+    """Plain PyTorch version of the forward kernel; materialises
+    [B, H, T, S].
 
     Returns ``(o [B, T, H, hd] in q's dtype, lse [B, H, T] fp32)``."""
     _check(q, k, v, kpad_bias, window)
@@ -132,25 +176,14 @@ def flash_attention_reference(q, k, v, kpad_bias=None, seed=None, head0=None,
         scale = 1.0 / math.sqrt(hd)
     bq, bk, s_pad = _ref_tiling(block_q, block_k, T, S)
     dev = q.device
-    qf = q.permute(0, 2, 1, 3).float()
-    kf = k.permute(0, 2, 1, 3).float()
-    vf = v.permute(0, 2, 1, 3).float()
-    s = torch.matmul(qf, kf.transpose(-1, -2))  # fp32: bf16 products are exact
+    s = torch.matmul(_bhsd(q), _bhsd(k).transpose(-1, -2))  # fp32: bf16 products are exact
     if scale != 1.0:
         s = s * float(scale)
     if kpad_bias is not None:
         s = s + kpad_bias.float()[:, None, None, :]
+    s = torch.where(_structural_keep(T, S, causal, window, dev), s, NEG_INF)
     rows = torch.arange(T, device=dev)[:, None]
     cols = torch.arange(S, device=dev)[None, :]
-    offset = S - T
-    keep = torch.ones((T, S), dtype=torch.bool, device=dev)
-    if causal:
-        keep &= cols <= rows + offset
-        if window is not None:
-            keep &= rows + offset - cols < window
-    elif window is not None:
-        keep &= (rows + offset - cols).abs() < window
-    s = torch.where(keep, s, NEG_INF)
     c_lo, c_hi = _kv_range(rows, bq, bk, T, S, s_pad, causal, window)
     s = torch.where((cols >= c_lo) & (cols < c_hi), s, -math.inf)
     m = torch.clamp(s.amax(-1, keepdim=True), min=NEG_INF)
@@ -161,21 +194,121 @@ def flash_attention_reference(q, k, v, kpad_bias=None, seed=None, head0=None,
     l = p.sum(-1, keepdim=True) + torch.where(m == NEG_INF, n_pad, 0.0)
     rate = float(dropout_rate) if seed is not None else 0.0
     if rate > 0.0:
-        b_idx = torch.arange(B, device=dev)[:, None]
-        h_idx = torch.arange(H, device=dev)[None, :]
-        if head0 is None:
-            bh = b_idx * H + h_idx
-        else:
-            bh = b_idx * (head_total or H) + int(head0) + h_idx
         s_total = counter_len if counter_len is not None else s_pad
-        dkeep = dropout_keep(seed, bh[:, :, None, None], rows, cols, s_total, rate)
+        dkeep = _dropout_mask(seed, B, H, T, S, head0, head_total, s_total, rate, dev)
         p = torch.where(dkeep, p, 0.0)
-    acc = torch.matmul(p.to(v.dtype).float(), vf)
+    acc = torch.matmul(p.to(v.dtype).float(), _bhsd(v))
     if rate > 0.0:
         acc = acc * (1.0 / (1.0 - rate))
     o = acc / torch.clamp(l, min=1e-30)
     lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)), LSE_MASKED)
     return o.to(q.dtype).permute(0, 2, 1, 3), lse[..., 0]
+
+
+def _check_cuda(name, q, k, v, *others):
+    """The kernels' contract: one CUDA device, one dtype of fp32/fp16/bf16
+    for q, k, v (and dO), hd <= 256."""
+    tensors = (q, k, v) + others
+    if not (q.is_cuda and all(x.device == q.device for x in tensors)):
+        raise ValueError(f"{name}: q, k, v must share one CUDA device, got {[str(x.device) for x in tensors]}")
+    if q.dtype not in _DTYPE_CODE or any(x.dtype != q.dtype for x in tensors):
+        raise TypeError(f"{name} kernel takes one of {list(_DTYPE_CODE)} for q, k, v; got "
+                        f"{[x.dtype for x in tensors]}")
+    if q.shape[-1] > 256:
+        raise ValueError(f"{name} kernel takes hd <= 256, got {q.shape[-1]}")
+
+
+def _unit_stride(*tensors):
+    return tuple(x if x.stride(-1) == 1 else x.contiguous() for x in tensors)
+
+
+def _dropout_args(seed, dropout_rate, counter_len, s_pad):
+    """(has_dropout, seed, keep threshold, row stride, 1/(1-rate)) as the
+    kernels take them."""
+    rate = float(dropout_rate) if seed is not None else 0.0
+    return (
+        int(rate > 0.0),
+        (int(seed) & 0xFFFFFFFF) if rate > 0.0 else 0,
+        min(int(rate * 4294967296.0), 4294967295),
+        (counter_len if counter_len is not None else s_pad) & 0xFFFFFFFF,
+        1.0 / (1.0 - rate),
+    )
+
+
+def _kpad_arg(kpad_bias, device):
+    """(fp32 contiguous kpad or None, its batch stride: 0 broadcasts)."""
+    if kpad_bias is None:
+        return None, 0
+    kpad = kpad_bias.to(device=device, dtype=torch.float32).contiguous()
+    return kpad, (kpad.stride(0) if kpad.shape[0] > 1 else 0)
+
+
+def _flash_fwd(q, k, v, kpad_bias, seed, head0, scale, causal, window,
+               dropout_rate, block_q, block_k, head_total, counter_len):
+    """The forward kernel's wrapper: the plain version for CPU tensors,
+    ``csrc/flash_fwd.cu`` for CUDA tensors (bf16, fp16 or fp32; hd <= 256),
+    else it raises."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(
+            q, k, v, kpad_bias, seed, head0, scale, causal, window,
+            dropout_rate, block_q, block_k, head_total, counter_len,
+        )
+    _check(q, k, v, kpad_bias, window)
+    _check_cuda("flash_attention", q, k, v)
+    B, T, H, hd = q.shape
+    S = k.shape[1]
+    bq, bk, s_pad = _ref_tiling(block_q, block_k, T, S)
+    if bq % _KERNEL_BLOCK_Q:
+        raise ValueError(f"block_q must be a multiple of {_KERNEL_BLOCK_Q}, got {bq}")
+    q, k, v = _unit_stride(q, k, v)
+    kpad, kpad_sb = _kpad_arg(kpad_bias, q.device)
+    has_dropout, seed_u, threshold, s_total, inv_keep = _dropout_args(seed, dropout_rate, counter_len, s_pad)
+    o = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    lib = _kernel()
+    with torch.cuda.device(q.device):  # the launch goes to the current device
+        err = lib.smp_flash_fwd(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kpad.data_ptr() if kpad is not None else None, o.data_ptr(), lse.data_ptr(),
+            B, T, S, H, hd,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], kpad_sb,
+            float(scale), int(bool(causal)), int(window or 0), has_dropout, seed_u,
+            threshold, s_total, inv_keep,
+            0 if head0 is None else int(head0),
+            H if head0 is None else int(head_total or H),
+            bq, bk, s_pad,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_fwd launch failed: {lib.smp_cuda_error_string(err).decode()}")
+    flash_attention.launches += 1
+    return o, lse
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with the TPU kernels' backward, as ``_fa_fwd`` /
+    ``_fa_bwd`` wire it: the forward saves (q, k, v, o, lse, kpad_bias) and
+    the dropout coordinates; the backward runs ``flash_attention_bwd``.
+    lse is an output that carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kpad_bias, seed, head0, scale, causal, window,
+                dropout_rate, block_q, block_k, head_total, counter_len):
+        o, lse = _flash_fwd(q, k, v, kpad_bias, seed, head0, scale, causal,
+                            window, dropout_rate, block_q, block_k,
+                            head_total, counter_len)
+        ctx.save_for_backward(q, k, v, o, lse, kpad_bias)
+        ctx.coords = (seed, head0, scale, causal, window, dropout_rate,
+                      block_q, block_k, head_total, counter_len)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, kpad_bias = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, kpad_bias, *ctx.coords)
+        return (dq, dk, dv) + (None,) * 11
 
 
 def flash_attention(q, k, v, kpad_bias=None, seed=None, head0=None,
@@ -188,64 +321,221 @@ def flash_attention(q, k, v, kpad_bias=None, seed=None, head0=None,
     ``seed``: integer enabling dropout at ``dropout_rate``.
     ``head0``/``head_total``/``counter_len``: global dropout-hash coordinates
     for head-sharded callers, as in the JAX package. Returns ``(o, lse)``:
-    o [B, T, H, hd] in q's dtype, lse [B, H, T] fp32.
+    o [B, T, H, hd] in q's dtype, differentiable in q, k and v through the
+    backward kernels; lse [B, H, T] fp32, without a gradient.
 
-    A CPU tensor runs ``flash_attention_reference``; a CUDA tensor launches
-    ``csrc/flash_fwd.cu`` (bf16, fp16 or fp32; hd <= 256) or raises.
+    CPU tensors run the plain versions (``flash_attention_reference``,
+    ``flash_attention_bwd_reference``); CUDA tensors launch
+    ``csrc/flash_fwd.cu`` and, in the backward, ``csrc/flash_bwd.cu``
+    (bf16, fp16 or fp32; hd <= 256), or raise.
     """
-    if q.device.type == "cpu":
-        return flash_attention_reference(
-            q, k, v, kpad_bias, seed, head0, scale, causal, window,
-            dropout_rate, block_q, block_k, head_total, counter_len,
-        )
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    block_q, block_k = resolve_blocks(block_q, block_k)  # fixed for the backward
+    return _FlashAttentionFn.apply(
+        q, k, v, kpad_bias, seed, head0, float(scale), causal, window,
+        dropout_rate, block_q, block_k, head_total, counter_len,
+    )
+
+
+flash_attention.launches = 0  # launches of csrc/flash_fwd.cu
+
+
+# ----------------------------------------------------------------------
+# Backward
+# ----------------------------------------------------------------------
+
+
+def attention_delta(o, do):
+    """delta = rowsum(dO * O) in fp32, [B, H, T]: the pass the JAX package
+    runs in XLA outside its backward kernels."""
+    return (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
+def _bwd_terms(q, k, v, do, lse, delta, kpad_bias, seed, head0, scale,
+               causal, window, dropout_rate, block_q, block_k, head_total,
+               counter_len):
+    """(ds, p_drop), fp32 [B, H, T, S], of the TPU backward kernels:
+    p = keep ? exp(s - lse) : 0 recomputed from the saved LSE, dp = dO V^T
+    (dropped and rescaled under dropout), ds = p * (dp - delta) * scale."""
     _check(q, k, v, kpad_bias, window)
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(f"flash_attention: q, k, v must share one CUDA device, got {q.device}, {k.device}, {v.device}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash_attention kernel takes one of {list(_DTYPE_CODE)} for q, k, v; got {q.dtype}, {k.dtype}, {v.dtype}")
     B, T, H, hd = q.shape
     S = k.shape[1]
-    if hd > 256:
-        raise ValueError(f"flash_attention kernel takes hd <= 256, got {hd}")
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
-    bq, bk, s_pad = _ref_tiling(block_q, block_k, T, S)
-    if bq % _KERNEL_BLOCK_Q:
-        raise ValueError(f"block_q must be a multiple of {_KERNEL_BLOCK_Q}, got {bq}")
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
-    kpad = None
+    _, _, s_pad = _ref_tiling(block_q, block_k, T, S)
+    dev = q.device
+    s = torch.matmul(_bhsd(q), _bhsd(k).transpose(-1, -2))
+    if scale != 1.0:
+        s = s * float(scale)
     if kpad_bias is not None:
-        kpad = kpad_bias.to(device=q.device, dtype=torch.float32).contiguous()
+        s = s + kpad_bias.float()[:, None, None, :]
+    keep = _structural_keep(T, S, causal, window, dev)
+    p = torch.where(keep, torch.exp(s - lse.float()[..., None]), 0.0)
+    dp = torch.matmul(_bhsd(do), _bhsd(v).transpose(-1, -2))
     rate = float(dropout_rate) if seed is not None else 0.0
-    o = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    lib = _kernel()
-    with torch.cuda.device(q.device):  # the launch goes to the current device
-        err = lib.smp_flash_fwd(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            kpad.data_ptr() if kpad is not None else None, o.data_ptr(), lse.data_ptr(),
-            B, T, S, H, hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            (kpad.stride(0) if kpad.shape[0] > 1 else 0) if kpad is not None else 0,
-            float(scale), int(bool(causal)), int(window or 0), int(rate > 0.0),
-            (int(seed) & 0xFFFFFFFF) if rate > 0.0 else 0,
-            min(int(rate * 4294967296.0), 4294967295),
-            (counter_len if counter_len is not None else s_pad) & 0xFFFFFFFF,
-            1.0 / (1.0 - rate),
+    p_drop = p
+    if rate > 0.0:
+        s_total = counter_len if counter_len is not None else s_pad
+        dkeep = _dropout_mask(seed, B, H, T, S, head0, head_total, s_total, rate, dev)
+        inv_keep = 1.0 / (1.0 - rate)
+        dp = torch.where(dkeep, dp * inv_keep, 0.0)
+        p_drop = torch.where(dkeep, p * inv_keep, 0.0)
+    ds = p * (dp - delta.float()[..., None]) * float(scale)
+    return ds, p_drop
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, kpad_bias=None, seed=None,
+                           head0=None, scale=None, causal=True, window=None,
+                           dropout_rate=0.0, block_q=None, block_k=None,
+                           head_total=None, counter_len=None):
+    """Plain PyTorch version of the dq kernel: dq = round_k(ds) K, in q's
+    dtype."""
+    ds, _ = _bwd_terms(q, k, v, do, lse, delta, kpad_bias, seed, head0, scale,
+                       causal, window, dropout_rate, block_q, block_k,
+                       head_total, counter_len)
+    return _dq_from(ds, q, k)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, kpad_bias=None, seed=None,
+                            head0=None, scale=None, causal=True, window=None,
+                            dropout_rate=0.0, block_q=None, block_k=None,
+                            head_total=None, counter_len=None):
+    """Plain PyTorch version of the dk/dv kernel: dk = round_q(ds)^T Q and
+    dv = round_dO(p_drop)^T dO, in k's and v's dtypes."""
+    ds, p_drop = _bwd_terms(q, k, v, do, lse, delta, kpad_bias, seed, head0,
+                            scale, causal, window, dropout_rate, block_q,
+                            block_k, head_total, counter_len)
+    return _dkv_from(ds, p_drop, q, k, v, do)
+
+
+def _dq_from(ds, q, k):
+    return torch.matmul(ds.to(k.dtype).float(), _bhsd(k)).to(q.dtype).permute(0, 2, 1, 3)
+
+
+def _dkv_from(ds, p_drop, q, k, v, do):
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), _bhsd(q))
+    dv = torch.matmul(p_drop.to(do.dtype).float().transpose(-1, -2), _bhsd(do))
+    return dk.to(k.dtype).permute(0, 2, 1, 3), dv.to(v.dtype).permute(0, 2, 1, 3)
+
+
+def flash_attention_bwd_reference(q, k, v, o, do, lse, kpad_bias=None,
+                                  seed=None, head0=None, scale=None,
+                                  causal=True, window=None, dropout_rate=0.0,
+                                  block_q=None, block_k=None, head_total=None,
+                                  counter_len=None):
+    """Plain PyTorch version of the two backward kernels with the delta pass
+    before them; materialises [B, H, T, S]. Returns ``(dq, dk, dv)`` in q's,
+    k's and v's dtypes."""
+    delta = attention_delta(o, do)
+    ds, p_drop = _bwd_terms(q, k, v, do, lse, delta, kpad_bias, seed, head0,
+                            scale, causal, window, dropout_rate, block_q,
+                            block_k, head_total, counter_len)
+    return (_dq_from(ds, q, k),) + _dkv_from(ds, p_drop, q, k, v, do)
+
+
+def _bwd_launch(kernel, q, k, v, do, lse, delta, kpad_bias, dq, dk, dv, seed,
+                head0, scale, causal, window, dropout_rate, block_q, block_k,
+                head_total, counter_len):
+    """Launch one kernel of ``csrc/flash_bwd.cu``: ``smp_flash_bwd_dq``
+    into dq, or ``smp_flash_bwd_dkv`` into dk and dv (the unused outputs
+    are None)."""
+    _check(q, k, v, kpad_bias, window)
+    _check_cuda(kernel, q, k, v, do)
+    B, T, H, hd = q.shape
+    S = k.shape[1]
+    if do.shape != q.shape:
+        raise ValueError(f"{kernel}: do must be shaped like q {tuple(q.shape)}, got {tuple(do.shape)}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    _, _, s_pad = _ref_tiling(block_q, block_k, T, S)
+    q, k, v, do = _unit_stride(q, k, v, do)
+    lse = lse.to(device=q.device, dtype=torch.float32).contiguous()
+    delta = delta.to(device=q.device, dtype=torch.float32).contiguous()
+    if lse.shape != (B, H, T) or delta.shape != (B, H, T):
+        raise ValueError(f"{kernel}: lse and delta must be [B, H, T], got {tuple(lse.shape)}, {tuple(delta.shape)}")
+    kpad, kpad_sb = _kpad_arg(kpad_bias, q.device)
+    layouts = (q, k, v, do, q if dq is None else dq, k if dk is None else dk, v if dv is None else dv)
+    strides = (ctypes.c_longlong * 22)(*[st for x in layouts for st in x.stride()[:3]], kpad_sb)
+    outs = [x.data_ptr() for x in (dq, dk, dv) if x is not None]
+    lib = _bwd_kernel()
+    with torch.cuda.device(q.device):
+        err = getattr(lib, f"smp_{kernel}")(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), kpad.data_ptr() if kpad is not None else None,
+            *outs, B, T, S, H, hd, strides, float(scale), int(bool(causal)), int(window or 0),
+            *_dropout_args(seed, dropout_rate, counter_len, s_pad),
             0 if head0 is None else int(head0),
             H if head0 is None else int(head_total or H),
-            bq, bk, s_pad,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: {lib.smp_cuda_error_string(err).decode()}")
-    flash_attention.launches += 1
-    return o, lse
+        raise RuntimeError(f"{kernel} launch failed: {lib.smp_cuda_error_string(err).decode()}")
 
 
-flash_attention.launches = 0
+def flash_bwd_dq(q, k, v, do, lse, delta, kpad_bias=None, seed=None,
+                 head0=None, scale=None, causal=True, window=None,
+                 dropout_rate=0.0, block_q=None, block_k=None,
+                 head_total=None, counter_len=None):
+    """dq of the backward: the plain version for CPU tensors, the dq kernel
+    of ``csrc/flash_bwd.cu`` (``_bwd_dq_kernel``'s counterpart) for CUDA
+    tensors, else it raises. ``lse`` is the forward's, ``delta`` is
+    ``attention_delta(o, do)``."""
+    coords = (seed, head0, scale, causal, window, dropout_rate, block_q,
+              block_k, head_total, counter_len)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, kpad_bias, *coords)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, kpad_bias, dq, None, None, *coords)
+    flash_bwd_dq.launches += 1
+    return dq
 
-_LIB = None
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, kpad_bias=None, seed=None,
+                  head0=None, scale=None, causal=True, window=None,
+                  dropout_rate=0.0, block_q=None, block_k=None,
+                  head_total=None, counter_len=None):
+    """(dk, dv) of the backward: the plain version for CPU tensors, the
+    dk/dv kernel of ``csrc/flash_bwd.cu`` (``_bwd_dkv_kernel``'s
+    counterpart) for CUDA tensors, else it raises."""
+    coords = (seed, head0, scale, causal, window, dropout_rate, block_q,
+              block_k, head_total, counter_len)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, kpad_bias, *coords)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, kpad_bias, None, dk, dv, *coords)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, kpad_bias=None, seed=None,
+                        head0=None, scale=None, causal=True, window=None,
+                        dropout_rate=0.0, block_q=None, block_k=None,
+                        head_total=None, counter_len=None):
+    """Backward of ``flash_attention`` (``_fa_bwd``): ``(dq, dk, dv)`` from
+    the forward's q, k, v, o and lse and the output gradient ``do``. CPU
+    tensors run ``flash_attention_bwd_reference``; CUDA tensors take delta
+    in one fp32 reduction and launch the dq and dk/dv kernels; any other
+    device raises."""
+    coords = (seed, head0, scale, causal, window, dropout_rate, block_q,
+              block_k, head_total, counter_len)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, do, lse, kpad_bias, *coords)
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention_bwd runs on CPU or CUDA tensors, got {q.device}")
+    delta = attention_delta(o, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, kpad_bias, *coords)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, kpad_bias, *coords)
+    return dq, dk, dv
+
+
+_LIB = None  # csrc/flash_fwd.cu, loaded at the first launch
+_BWD_LIB = None  # csrc/flash_bwd.cu
 
 
 def _kernel():
@@ -268,3 +558,23 @@ def _kernel():
         _LIB = lib
     return _LIB
 
+
+def _bwd_kernel():
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        from smdistributed_modelparallel_tpu_torch.ops import _build
+
+        lib = _build.load("flash_bwd")
+        c_int, c_uint, c_float, c_ptr = ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p
+        tail = (
+            [c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+            + [c_float, c_int, c_int, c_int, c_uint, c_uint, c_uint, c_float, c_int, c_int, c_ptr]
+        )
+        lib.smp_flash_bwd_dq.argtypes = [c_int] + [c_ptr] * 8 + tail
+        lib.smp_flash_bwd_dkv.argtypes = [c_int] + [c_ptr] * 9 + tail
+        lib.smp_flash_bwd_dq.restype = c_int
+        lib.smp_flash_bwd_dkv.restype = c_int
+        lib.smp_cuda_error_string.argtypes = [c_int]
+        lib.smp_cuda_error_string.restype = ctypes.c_char_p
+        _BWD_LIB = lib
+    return _BWD_LIB

@@ -10,16 +10,25 @@ Each kernel is held against its plain PyTorch version, which the CPU tests
 hold against the JAX package. Tolerances: fp32 runs the same arithmetic,
 summation order and online softmax aside, so 1e-4; bf16 rounds P to bf16
 against different row maxima, so O to 2e-2 while LSE (fp32) stays 1e-3.
+The backward kernels: fp32 1e-4 and bf16 2e-2 of the largest gradient
+(ds and p are rounded to bf16 after fp32 products summed in another order).
 """
+
+import copy
 
 import pytest
 import torch
 
 import smdistributed_modelparallel_tpu_torch as smp_torch
 from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2, init_gpt2_weights_
+from smdistributed_modelparallel_tpu_torch.ops.attention import attention_core
 from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
+    attention_delta,
     flash_attention,
+    flash_attention_bwd_reference,
     flash_attention_reference,
+    flash_bwd_dkv,
+    flash_bwd_dq,
 )
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
@@ -99,3 +108,107 @@ def test_generate_on_card_matches_cpu(cuda):
     got = smp_torch.generate(gpu, ids, 8).cpu()
     assert flash_attention.launches == before + 2  # one per layer, prefill only
     assert torch.equal(got, want)
+
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_bwd_matches_plain_version(cuda, case, dtype):
+    """dq, dk and dv of the two backward kernels against the plain backward,
+    from the plain forward's O and LSE."""
+    B, T, S, H, hd, kw = CASES[case]
+    kw = dict(kw)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, do = (torch.randn(B, L, H, hd, generator=gen, device=cuda).to(dtype) for L in (T, S, S, T))
+    if kw.pop("kpad", False):
+        kpad = torch.zeros(B, S, device=cuda)
+        kpad[1, :50] = -1e30
+        kpad[2, :] = -1e30
+        kw["kpad_bias"] = kpad
+    o, lse = flash_attention_reference(q, k, v, **kw)
+    delta = attention_delta(o, do)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd_reference(q, k, v, o, do, lse, **kw)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * float(ref.float().abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+def test_attention_core_grad_through_kernels_matches_cpu(cuda):
+    """No detached output: qkv.weight.grad through attention_core's kernel
+    path (flash forward and backward kernels) equals the CPU path's."""
+    torch.manual_seed(0)
+    qkv = torch.nn.Linear(64, 3 * 64)
+    x = torch.randn(2, 160, 64)
+
+    def grad(device):
+        lin = copy.deepcopy(qkv).to(device)
+        q, k, v = lin(x.to(device)).split(64, dim=-1)
+        out = attention_core(*(t.reshape(2, 160, 4, 16) for t in (q, k, v)))
+        assert out.grad_fn is not None
+        (out.float() ** 2).sum().backward()
+        return lin.weight.grad.cpu()
+
+    launches = (flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    got = grad(cuda)
+    assert (flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == tuple(
+        n + 1 for n in launches)
+    want = grad("cpu")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_attention_dropout_on_card_replays_in_backward(cuda):
+    """attention_core's dropout reaches the kernels: with the same seed the
+    forward and the gradient agree with the plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(2, 256, 4, 64, generator=gen, device=cuda).requires_grad_() for _ in range(3))
+    out = attention_core(q, k, v, dropout_rate=0.1, seed=1234)
+    out.sum().backward()
+    o_ref, _ = flash_attention_reference(q.detach(), k.detach(), v.detach(), seed=1234, dropout_rate=0.1)
+    torch.testing.assert_close(out.detach(), o_ref, rtol=0, atol=1e-4)
+    assert torch.isfinite(q.grad).all() and q.grad.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_training_step_on_card_matches_cpu(cuda):
+    """One fp32 training step (loss mode, 2 microbatches, AdamW): the card
+    (flash kernels, T = 128) and the CPU (plain path) agree."""
+    small = init_gpt2_weights_(gpt2("gpt2_124m", vocab_size=97, max_len=128, d_model=64, n_layers=2, n_heads=4),
+                               torch.Generator().manual_seed(0))
+    ids = torch.randint(0, 97, (2, 128), generator=torch.Generator().manual_seed(1))
+    results = {}
+    for device in (cuda, "cpu"):
+        smp_torch.init({"microbatches": 2}, device=device)
+        model = smp_torch.DistributedModel(copy.deepcopy(small))
+        opt = smp_torch.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4, eps=1e-8), model)
+
+        @smp_torch.step
+        def train_step(model, batch):
+            tgt = torch.cat([batch[:, 1:], torch.full_like(batch[:, :1], -100)], dim=1)
+            loss = model(batch, targets=tgt).sum() / (batch.shape[0] * (batch.shape[1] - 1))
+            model.backward(loss)
+            return loss
+
+        loss = float(train_step(model, ids).reduce_mean())
+        grads = {n: g.cpu() for n, g in model.grads.items()}
+        opt.step()
+        results[str(device)] = (loss, grads, {k: v.cpu() for k, v in model.state_dict().items()})
+    (l_gpu, g_gpu, p_gpu), (l_cpu, g_cpu, p_cpu) = results["cuda"], results["cpu"]
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    for name in g_cpu:
+        torch.testing.assert_close(g_gpu[name], g_cpu[name], rtol=1e-4, atol=1e-6, msg=name)
+        # AdamW's first step moves every parameter by ~lr (1e-3) whatever its
+        # gradient's size, so a gradient that is zero but for rounding (the
+        # key bias) may move either way: the update is held to 2 lr.
+        torch.testing.assert_close(p_gpu[name], p_cpu[name], rtol=0, atol=2e-3, msg=name)
