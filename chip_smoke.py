@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py --phases B # kernel-vs-plain comparisons only
     python3 chip_smoke.py --phases T # the training path only
+    python3 chip_smoke.py --phases F # the capacity path (fused cross-entropy) only
 
 Builds the port's CUDA kernels from ``smdistributed_modelparallel_tpu_torch/
 csrc`` (one nvcc per source, all started together), then:
@@ -22,13 +23,24 @@ csrc`` (one nvcc per source, all started together), then:
      forward, dq and dk/dv launches a step). The loss must fall and stay
      finite. A small fp32 model trains 3 steps on the card and on the CPU
      from the same weights; the losses must agree.
+  F. the capacity path: the same training on 32 x 1024 tokens in one
+     microbatch, where the logits would be 3.1 GB of bf16 and the default
+     ``fused_ce: "auto"`` policy engages the fused cross-entropy kernels
+     (1 forward, dx and dW launch and 12 of each flash kernel a step); the
+     same steps with ``fused_ce: False`` (materialized logits) must give the
+     same losses, and one step of the tied head the same hidden-state and
+     ``wte.weight`` gradients; a small fp32 model under ``fused_ce: True``
+     trains 3 steps on the card (kernels) and on the CPU (materialized),
+     losses agreeing.
   B. every kernel against its plain PyTorch version on the card, at the
      main paths' shapes and over a feature sweep, within stated tolerances.
   C. times: kernel, plain version and the one PyTorch library call that
      computes the same function, with CUDA events; and the bound (the least
-     time the card could take for the same work).
-  P. (on request) torch.profiler breakdowns of a generate and a training
-     step: device time by kernel and the device's idle share.
+     time the card could take for the same work). The fused-CE kernels are
+     also held against their plain versions on the timed inputs, the
+     capacity path's N = 32768 included.
+  P. (on request) torch.profiler breakdowns of a generate, a training step
+     and a capacity step: device time by kernel and the device's idle share.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -51,7 +63,8 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 
-KERNEL_SOURCES = ["flash_fwd", "flash_bwd"]
+KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce"]
+DEFAULT_PHASES = "ATFBC"
 SEED = 1234
 
 
@@ -188,13 +201,13 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB = 8, 1024, 4
 TRAIN_WARMUP, TRAIN_STEPS = 2, 12
 
 
-def _train_setup(module, microbatches, bf16, device):
-    """``bench.py``'s framework training: smp.init, the model, AdamW with
-    optax.adamw's defaults (weight decay 1e-4, eps 1e-8), and the loss-mode
-    step (mean loss over the predicted positions)."""
+def _train_setup(module, microbatches, bf16, device, **cfg):
+    """``bench.py``'s framework training: smp.init (with ``cfg`` added), the
+    model, AdamW with optax.adamw's defaults (weight decay 1e-4, eps 1e-8),
+    and the loss-mode step (mean loss over the predicted positions)."""
     import smdistributed_modelparallel_tpu_torch as smp
 
-    smp.init({"microbatches": microbatches, "bf16": bf16, "fused_step_donation": True})
+    smp.init({"microbatches": microbatches, "bf16": bf16, "fused_step_donation": True, **cfg})
     model = smp.DistributedModel(module, device=device)
     optimizer = smp.DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), model)
@@ -214,11 +227,6 @@ def phase_t():
     """The training path through the public entry points."""
     import smdistributed_modelparallel_tpu_torch as smp
     from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2, gpt2_124m, init_gpt2_weights_
-    from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        flash_bwd_dkv,
-        flash_bwd_dq,
-    )
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     module = init_gpt2_weights_(gpt2_124m(device="cuda"), g)
@@ -231,7 +239,7 @@ def phase_t():
         optimizer.step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = {"flash_fwd": flash_attention, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+    counters = _flash_counters()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -283,6 +291,190 @@ def phase_t():
     smp.reset()
     return launches, dict(ms=ms, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3, first_loss=losses[0],
                           last_loss=losses[-1])
+
+
+CAP_BATCH, CAP_SEQ = 32, 1024  # one microbatch of 32k tokens: 3.1 GB of bf16 logits
+CAP_WARMUP, CAP_STEPS = 1, 3
+
+
+def _ce_counters():
+    from smdistributed_modelparallel_tpu_torch.ops.fused_ce import (
+        fused_ce_bwd_dw,
+        fused_ce_bwd_dx,
+        fused_ce_fwd,
+    )
+
+    return {"fused_ce_fwd": fused_ce_fwd, "fused_ce_bwd_dx": fused_ce_bwd_dx, "fused_ce_bwd_dw": fused_ce_bwd_dw}
+
+
+def _flash_counters():
+    from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+    )
+
+    return {"flash_fwd": flash_attention, "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+
+
+def _capacity_run(init, ids, **cfg):
+    """Train a copy of ``init`` on ``ids`` in one microbatch: warm-up steps,
+    then timed steps whose kernel launches are counted."""
+    model, optimizer, train_step = _train_setup(copy.deepcopy(init), 1, True, "cuda", **cfg)
+    losses = []
+    for _ in range(CAP_WARMUP):
+        losses.append(float(train_step(model, ids).reduce_mean()))
+        optimizer.step()
+    counters = {**_flash_counters(), **_ce_counters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(CAP_STEPS):
+        losses.append(float(train_step(model, ids).reduce_mean()))
+        optimizer.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / CAP_STEPS
+    out = dict(ms=ms, tokens_per_s=ids.numel() / ms * 1e3, losses=losses,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches={name: fn.launches for name, fn in counters.items()})
+    del model, optimizer, train_step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_f():
+    """The capacity path: GPT-2 124M trained on 32 x 1024 tokens in one
+    microbatch, where the default ``fused_ce: "auto"`` policy engages the
+    fused cross-entropy kernels; the same steps with ``fused_ce: False``
+    (materialized logits); and a small fp32 model under ``fused_ce: True``
+    on the card and on the CPU."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2, gpt2_124m, init_gpt2_weights_
+    from smdistributed_modelparallel_tpu_torch.nn import cross_entropy as port_ce
+    from smdistributed_modelparallel_tpu_torch.ops.fused_ce import fused_ce_ok
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    init = init_gpt2_weights_(gpt2_124m(device="cuda"), g)
+    n_layers = len(init.layers)
+    ids = torch.randint(0, init.vocab_size, (CAP_BATCH, CAP_SEQ), generator=g, device="cuda")
+    tokens = CAP_BATCH * CAP_SEQ
+
+    smp.init({"microbatches": 1, "bf16": True})
+    probe = torch.empty((tokens, init.config["d_model"]), dtype=torch.bfloat16, device="cuda")
+    logits_mb = tokens * init.vocab_size * 2 / 2**20
+    if not (port_ce._want_fused_ce(probe, init.wte.weight) and fused_ce_ok(probe, init.wte.weight)):
+        raise RuntimeError(f"the default fused_ce policy does not engage the kernels at {logits_mb:.0f} MB of logits")
+    log(f"[F] default fused_ce \"auto\" engages the fused CE kernels: [{tokens}, {init.vocab_size}] bf16 "
+        f"logits would be {logits_mb:.1f} MB > {smp.state.cfg.fused_ce_auto_threshold_mb} MB")
+    del probe
+
+    fused = _capacity_run(init, ids)
+    materialized = _capacity_run(init, ids, fused_ce=False)
+    for label, run in (("fused (auto)", fused), ("materialized (fused_ce: False)", materialized)):
+        log(f"[F] GPT-2 124M bf16, {CAP_BATCH} x {CAP_SEQ} tokens in 1 microbatch, {label}: {run['ms']:.2f} ms/step, "
+            f"{run['tokens_per_s']:.1f} tokens/s (mean of {CAP_STEPS} steps after {CAP_WARMUP} warm-up); "
+            f"peak device memory {run['peak_gib']:.2f} GiB; losses {run['losses']}")
+    launches = fused["launches"]
+    log(f"[F] launches on the capacity path: {launches} over {CAP_STEPS} steps (expected per step: "
+        f"{n_layers} of each flash kernel, 1 of each CE kernel)")
+    want = {**{k: n_layers * CAP_STEPS for k in _flash_counters()}, **{k: CAP_STEPS for k in _ce_counters()}}
+    if launches != want:
+        raise RuntimeError(f"capacity path launches {launches}, expected {want}")
+    if any(materialized["launches"][k] for k in _ce_counters()):
+        raise RuntimeError(f"fused_ce: False launched CE kernels: {materialized['launches']}")
+    losses = fused["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"capacity training loss did not fall or is not finite: {losses}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, materialized["losses"])]
+    log(f"[F] fused vs materialized losses: step 1 rel diff {rel[0]:.3e} (limit 2e-3), max over "
+        f"{len(rel)} steps {max(rel):.3e} (limit 1e-2)")
+    # Step 1 differs only in the CE: the materialized path rounds the logits
+    # to bf16 before its fp32 softmax, the kernels keep them fp32. Later
+    # steps add bf16 gradients summed in other orders, moved by AdamW. This
+    # is a smoke check only: at initialization the logits are ~0.02-scale,
+    # so a wrong kernel could still pass it; the head gradients below, and
+    # phase C's comparison at this shape, hold the kernels themselves.
+    if rel[0] > 2e-3 or max(rel) > 1e-2:
+        raise RuntimeError("the fused and materialized capacity runs disagree")
+    head_err = _capacity_head_grads(init, ids)
+
+    # Small fp32 model, fused_ce: True: the kernels on the card, the
+    # materialized path (with its warning) on the CPU.
+    small = init_gpt2_weights_(gpt2("gpt2_124m", max_len=128, d_model=128, n_layers=2, n_heads=4),
+                               torch.Generator().manual_seed(SEED))
+    ids_s = torch.randint(0, small.vocab_size, (4, 128), generator=torch.Generator().manual_seed(SEED))
+    runs = {}
+    ce = _ce_counters()
+    for device in ("cuda", "cpu"):
+        before = {k: fn.launches for k, fn in ce.items()}
+        m, opt, step_fn = _train_setup(copy.deepcopy(small), 4, False, device, fused_ce=True)
+        ls = []
+        for _ in range(3):
+            ls.append(float(step_fn(m, ids_s).reduce_mean()))
+            opt.step()
+        runs[device] = (ls, {k: fn.launches - before[k] for k, fn in ce.items()})
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    log(f"[F] fp32 small model (d 128, 2 layers, seq 128), fused_ce: True, 3 steps, card (CE kernels, launches "
+        f"{runs['cuda'][1]}) vs CPU (materialized): losses {runs['cuda'][0]} vs {runs['cpu'][0]}, max rel diff "
+        f"{loss_rel:.3e} (limit 1e-4)")
+    # fp32 throughout; only the summation order differs.
+    if loss_rel > 1e-4 or any(n != 12 for n in runs["cuda"][1].values()):
+        raise RuntimeError("the card's fp32 fused-CE training disagrees with the CPU's")
+    smp.reset()
+    return launches, dict(fused=fused, materialized=materialized, head_err=head_err)
+
+
+def _capacity_head_grads(init, ids):
+    """One step of the tied head at the capacity shape, from the model's own
+    bf16 hidden states: the loss gradient of the hidden states and of
+    ``wte.weight`` under the default policy (the fused-CE kernels) against
+    ``fused_ce: False`` (materialized logits). Returns the relative errors."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    module = copy.deepcopy(init).to(torch.bfloat16)
+    smp.init({"microbatches": 1, "bf16": True})
+    with torch.no_grad():
+        h = module.embed(ids)
+        for layer in module.layers:
+            h = layer(h)
+    tgt = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], -100)], dim=1)
+    ce = _ce_counters()
+    grads = {}
+    for label, cfg in (("fused", {}), ("materialized", {"fused_ce": False})):
+        smp.init({"microbatches": 1, "bf16": True, **cfg})
+        before = {k: fn.launches for k, fn in ce.items()}
+        hx = h.detach().requires_grad_()
+        per = module.head(hx, tgt)
+        loss = per.sum() / (ids.shape[0] * (ids.shape[1] - 1))
+        grads[label] = [float(loss.detach())] + list(torch.autograd.grad(loss, (hx, module.wte.weight)))
+        ran = {k: fn.launches - before[k] for k, fn in ce.items()}
+        for k, fn in ce.items():
+            fn.launches = before[k]  # comparison launches do not count
+        want = 1 if label == "fused" else 0
+        if any(n != want for n in ran.values()):
+            raise RuntimeError(f"{label} head launched CE kernels {ran}, expected {want} each")
+        del per, loss, hx
+    errs = {}
+    for i, name in ((1, "hidden"), (2, "wte.weight")):
+        a, b = grads["fused"][i].float(), grads["materialized"][i].float()
+        if not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"non-finite fused {name} gradient")
+        errs[name] = float((a - b).abs().max() / b.abs().max())
+    loss_rel = abs(grads["fused"][0] - grads["materialized"][0]) / abs(grads["materialized"][0])
+    log(f"[F] tied head, one step at [{ids.numel()}, {init.vocab_size}], fused vs materialized: loss rel diff "
+        f"{loss_rel:.3e}; max |dgrad| / max |grad|: hidden {errs['hidden']:.3e}, wte.weight "
+        f"{errs['wte.weight']:.3e} (limit 2e-2)")
+    # Both gradients come back in bf16; the materialized path also rounds the
+    # logits and their gradient to bf16, so a few bf16 ulps of the largest
+    # gradient. A kernel that dropped the target term or scaled g would be
+    # off by the gradient's own size.
+    if max(errs.values()) > 2e-2:
+        raise RuntimeError(f"the fused head's gradients disagree with the materialized head's: {errs}")
+    del grads, h, module
+    torch.cuda.empty_cache()
+    return errs
 
 
 def _inputs(B, T, S, H, hd, dtype, gen):
@@ -383,9 +575,102 @@ def phase_b():
                     failures.append(f"{kname}/{name}/{tag}")
     # comparison launches do not count
     flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches = saved
+    _phase_b_ce(failures)
     if failures:
         raise RuntimeError(f"kernel disagrees with its plain version: {failures}")
     return main_err, bwd_main_err
+
+
+# (name, N, V, D, kwargs) of the fused cross-entropy kernels. D 1600 (GPT-2
+# 1.5B's width) is wider than any one tile; V 200 and N 1000 leave ragged
+# tiles; "oob" puts targets outside [0, V); "gzeros" zeroes g on every fifth
+# row (ignored rows).
+CE_CASES = [
+    ("gpt2_head_n2048", 2048, 50257, 768, {}),
+    ("d1600_smoothing", 1000, 50257, 1600, dict(smoothing=0.1)),
+    ("d64_denom_oob_gzeros", 1000, 200, 64, dict(smoothing=0.1, smooth_denom=333, oob=True, gzeros=True)),
+    ("v200_d1600", 2048, 200, 1600, {}),
+    ("d64_oob_gzeros", 1000, 50257, 64, dict(oob=True, gzeros=True)),
+    ("n2048_d1600_denom_gzeros", 2048, 50257, 1600, dict(smoothing=0.1, smooth_denom=50304, gzeros=True)),
+]
+# The forward statistics are fp32 in both dtypes (bf16 products are exact in
+# fp32; only the summation order differs): 1e-4 of the largest value. dx and
+# dW: fp32 1e-4; bf16 2e-2 of the largest value (they come back rounded to
+# bf16 after fp32 sums in another order).
+CE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def ce_inputs(N, V, D, dtype, gen, kw):
+    """(x, w, targets, g) of a fused-CE case on ``gen``'s device: x [N, D]
+    and w [V, D] in ``dtype``, g in [0, 1) fp32; ``kw`` as in CE_CASES."""
+    x = torch.randn(N, D, generator=gen, device=gen.device).to(dtype)
+    w = (0.1 * torch.randn(V, D, generator=gen, device=gen.device)).to(dtype)
+    t = torch.randint(0, V, (N,), generator=gen, device=gen.device)
+    if kw.get("oob"):
+        t[::7] = -3
+        t[3::7] = V + 100
+    g = torch.rand(N, generator=gen, device=gen.device)
+    if kw.get("gzeros"):
+        g[::5] = 0.0
+    return x, w, t, g
+
+
+def _ce_compare(x, w, t, g, eps=0.0, denom=None):
+    """Each fused-CE kernel against its plain version on one input (dx and
+    dW from the plain forward's lse): {kernel name: (max abs error, ok,
+    detail)}. Tolerances as CE_TOL states."""
+    from smdistributed_modelparallel_tpu_torch.ops.fused_ce import (
+        fused_ce_bwd_dw,
+        fused_ce_bwd_dw_reference,
+        fused_ce_bwd_dx,
+        fused_ce_bwd_dx_reference,
+        fused_ce_fwd,
+        fused_ce_fwd_reference,
+    )
+
+    got = fused_ce_fwd(x, w, t, eps)
+    torch.cuda.synchronize()
+    want = fused_ce_fwd_reference(x, w, t, eps)
+    errs = {}
+    for sname, a, b in zip(("lse", "tgt", "logit_sum"), got, want):
+        if b is not None:
+            errs[sname] = (float((a - b).abs().max()), 1e-4 * max(1.0, float(b.abs().max())))
+    lse = want[0]
+    dx = fused_ce_bwd_dx(x, w, t, lse, g, eps, denom)
+    torch.cuda.synchronize()
+    dw = fused_ce_bwd_dw(x, w, t, lse, g, eps, denom)
+    torch.cuda.synchronize()
+    for gname, a, b in (("dx", dx, fused_ce_bwd_dx_reference(x, w, t, lse, g, eps, denom)),
+                        ("dw", dw, fused_ce_bwd_dw_reference(x, w, t, lse, g, eps, denom))):
+        errs[gname] = (float((a.float() - b.float()).abs().max()),
+                       CE_TOL[x.dtype] * max(float(b.float().abs().max()), 1e-6))
+    finite = all(bool(torch.isfinite(a).all()) for a in (*[s for s in got if s is not None], dx, dw))
+    out = {}
+    for kname, keys in (("fused_ce_fwd", [k for k in ("lse", "tgt", "logit_sum") if k in errs]),
+                        ("fused_ce_bwd_dx", ["dx"]), ("fused_ce_bwd_dw", ["dw"])):
+        ok = finite and all(errs[k][0] <= errs[k][1] for k in keys)
+        detail = ", ".join(f"max|d{k}| {errs[k][0]:.2e} (tol {errs[k][1]:.1e})" for k in keys)
+        out[kname] = (max(errs[k][0] for k in keys), ok, detail)
+    return out
+
+
+def _phase_b_ce(failures):
+    """The three fused-CE kernels against their plain versions over
+    CE_CASES, in fp32 and bf16."""
+    counters = _ce_counters()
+    saved = {k: fn.launches for k, fn in counters.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for name, N, V, D, kw in CE_CASES:
+        eps, denom = float(kw.get("smoothing", 0.0)), kw.get("smooth_denom")
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).removeprefix("torch.")
+            x, w, t, g = ce_inputs(N, V, D, dtype, gen, kw)
+            for kname, (_, ok, detail) in _ce_compare(x, w, t, g, eps, denom).items():
+                log(f"[B] {kname:15s} {name:26s} N={N} V={V} D={D} {tag:9s} {detail} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"{kname}/{name}/{tag}")
+    for k, fn in counters.items():
+        fn.launches = saved[k]  # comparison launches do not count
 
 
 def _bound(nbytes, flops, dtype):
@@ -468,6 +753,86 @@ def phase_c():
         f"against SDPA backward {sdpa_bwd_ms:.4f} ms")
     for fn, n in zip(counters, saved):
         fn.launches = n  # timing launches do not count
+    out.update(_phase_c_ce())
+    return out
+
+
+CE_TIMING_N = (2048, CAP_BATCH * CAP_SEQ)  # phase T's microbatch; the capacity path's
+
+
+def _phase_c_ce():
+    """The fused-CE kernels at the GPT-2 124M head (D 768, V 50257, bf16) at
+    N = 2048 and at the capacity path's N = 32768 (fewer iterations): each
+    kernel against its plain version on the timed inputs (phase B's
+    tolerances; the capacity shape's error goes into the kernels line), then
+    kernel, plain version and the library yardstick, two PyTorch calls (the
+    logits GEMM and ``F.cross_entropy``; for dx and dW together, their
+    autograd backward), since no single call computes this function."""
+    import torch.nn.functional as F
+
+    from smdistributed_modelparallel_tpu_torch.ops.fused_ce import (
+        fused_ce_bwd_dw,
+        fused_ce_bwd_dw_reference,
+        fused_ce_bwd_dx,
+        fused_ce_bwd_dx_reference,
+        fused_ce_fwd,
+        fused_ce_fwd_reference,
+    )
+
+    counters = _ce_counters()
+    saved = {k: fn.launches for k, fn in counters.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dtype = torch.bfloat16
+    D, V = 768, 50257
+    out, failures = {}, []
+    for N in CE_TIMING_N:
+        iters, warmup = (5, 1) if N <= 2048 else (2, 1)
+        x, w, t, _ = ce_inputs(N, V, D, dtype, gen, {})
+        g = torch.full((N,), 1.0 / N, device="cuda")  # the mean loss's cotangent
+        for kname, (err, ok, detail) in _ce_compare(x, w, t, g).items():
+            log(f"[C] {kname:15s} N={N} V={V} D={D} bf16 against its plain version: {detail} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{kname}/N={N}")
+            if N == CAP_BATCH * CAP_SEQ:
+                out[kname] = dict(max_abs_err=err)
+        lse = fused_ce_fwd_reference(x, w, t)[0]
+        xr, wr = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+        lib_loss = F.cross_entropy(xr @ wr.t(), t, reduction="none")
+        lib_fwd_ms = cuda_time_ms(lambda: F.cross_entropy(x @ w.t(), t, reduction="none"), iters, warmup)
+        lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(lib_loss, (xr, wr), g, retain_graph=True),
+                                  iters, warmup)
+        del lib_loss
+        esz = 2
+        in_bytes = (N + V) * D * esz + N * t.element_size()  # x, w, targets
+        flop = 2 * N * V * D  # one [N x V x D] product
+        rows = (
+            ("fused_ce_fwd", lambda: fused_ce_fwd(x, w, t), lambda: fused_ce_fwd_reference(x, w, t),
+             in_bytes + 2 * N * 4, flop, lib_fwd_ms, "logits GEMM + F.cross_entropy"),      # lse, tgt out
+            ("fused_ce_bwd_dx", lambda: fused_ce_bwd_dx(x, w, t, lse, g),
+             lambda: fused_ce_bwd_dx_reference(x, w, t, lse, g),
+             in_bytes + 2 * N * 4 + N * D * esz, 2 * flop, lib_bwd_ms,                       # lse, g in; dx out
+             "their autograd backward, dx and dW together"),
+            ("fused_ce_bwd_dw", lambda: fused_ce_bwd_dw(x, w, t, lse, g),
+             lambda: fused_ce_bwd_dw_reference(x, w, t, lse, g),
+             in_bytes + 2 * N * 4 + V * D * esz, 2 * flop, lib_bwd_ms, "the same call"),   # dW out
+        )
+        for name, kernel, plain, nbytes, flops, library_ms, what in rows:
+            ms = cuda_time_ms(kernel, iters, warmup)
+            plain_ms = cuda_time_ms(plain, iters, warmup)
+            bound_ms, bound_by = _bound(nbytes, flops, dtype)
+            log(f"[C] {name} N={N} V={V} D={D} bf16: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+                f"{plain_ms:.4f} ms, library ({what}) {library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+                f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.1f} GFLOP)")
+            if N == CAP_BATCH * CAP_SEQ:  # the capacity path's shape goes into the kernels line
+                out[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                 library_ms=library_ms)
+        del x, w, t, g, lse, xr, wr
+        torch.cuda.empty_cache()
+    for k, fn in counters.items():
+        fn.launches = saved[k]  # comparison and timing launches do not count
+    if failures:
+        raise RuntimeError(f"fused-CE kernel disagrees with its plain version at the timed shapes: {failures}")
     return out
 
 
@@ -481,8 +846,8 @@ def _profile_report(label, prof, wall_ms, top):
 
 
 def phase_p():
-    """Where one greedy ``generate`` and one training step spend their
-    time, by torch.profiler: device time by kernel and the device's idle
+    """Where one greedy ``generate``, one training step and one capacity
+    step spend their time, by torch.profiler: device time by kernel and the device's idle
     share of the wall time."""
     import smdistributed_modelparallel_tpu_torch as smp
     from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m, init_gpt2_weights_
@@ -520,13 +885,23 @@ def phase_p():
 
     prof, wall_ms = profiled(one_step)
     _profile_report(f"training step batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MB} microbatches", prof, wall_ms, 14)
+    del model, optimizer, train_step
+
+    # The capacity step, under the default policy (fused CE kernels).
+    model, optimizer, train_step = _train_setup(init_gpt2_weights_(gpt2_124m(device="cuda"), g), 1, True, "cuda")
+    ids = torch.randint(0, 50257, (CAP_BATCH, CAP_SEQ), generator=g, device="cuda")
+    for _ in range(CAP_WARMUP):
+        train_step(model, ids)
+        optimizer.step()
+    prof, wall_ms = profiled(one_step)
+    _profile_report(f"capacity step batch {CAP_BATCH} x {CAP_SEQ}, 1 microbatch", prof, wall_ms, 14)
     smp.reset()
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="ABCT",
-                        help="phases to run: A, T, B, C (the default, all four) and P (profiles)")
+    parser.add_argument("--phases", default=DEFAULT_PHASES,
+                        help="phases to run: A, T, F, B, C (the default, all five) and P (profiles)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -541,11 +916,13 @@ def main():
     log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     build()
-    serve_launches, train_launches, errs, timing = {}, {}, None, None
+    serve_launches, train_launches, cap_launches, errs, timing = {}, {}, {}, None, None
     if "A" in args.phases:
         serve_launches = phase_a()
     if "T" in args.phases:
         train_launches, _ = phase_t()
+    if "F" in args.phases:
+        cap_launches, _ = phase_f()
     if "B" in args.phases:
         errs = phase_b()
     if "C" in args.phases:
@@ -553,22 +930,28 @@ def main():
     if "P" in args.phases:
         phase_p()
 
-    if not set("ABCT") <= set(args.phases):
+    if not set(DEFAULT_PHASES) <= set(args.phases):
         return 0  # a partial run prints no result
     fwd_err, bwd_err = errs
+    # Launches on the main paths: serving's prefills (A), training (T) and
+    # the capacity path (F), each counted from 0 just before it.
+    launches = {k: serve_launches.get(k, 0) + train_launches.get(k, 0) + cap_launches[k] for k in cap_launches}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"
+    tpu_ce = "smdistributed_modelparallel_tpu/ops/pallas_ce.py:"
     kernels = [
-        # flash_fwd runs on both main paths: serving's prefills and training.
         dict(name="flash_fwd", route="cuda", source=src + "flash_fwd.cu", replaces=tpu + "162",
-             launches=serve_launches["flash_fwd"] + train_launches["flash_fwd"], max_abs_err=fwd_err,
-             **timing["flash_fwd"]),
+             launches=launches["flash_fwd"], max_abs_err=fwd_err, **timing["flash_fwd"]),
         dict(name="flash_bwd_dq", route="cuda", source=src + "flash_bwd.cu", replaces=tpu + "266",
-             launches=train_launches["flash_bwd_dq"], max_abs_err=bwd_err["flash_bwd_dq"],
+             launches=launches["flash_bwd_dq"], max_abs_err=bwd_err["flash_bwd_dq"],
              **timing["flash_bwd_dq"]),
         dict(name="flash_bwd_dkv", route="cuda", source=src + "flash_bwd.cu", replaces=tpu + "351",
-             launches=train_launches["flash_bwd_dkv"], max_abs_err=bwd_err["flash_bwd_dkv"],
+             launches=launches["flash_bwd_dkv"], max_abs_err=bwd_err["flash_bwd_dkv"],
              **timing["flash_bwd_dkv"]),
+    ] + [  # max_abs_err and times at the capacity path's shape (phase C)
+        dict(name=name, route="cuda", source=src + "fused_ce.cu", replaces=tpu_ce + line,
+             launches=launches[name], **timing[name])
+        for name, line in (("fused_ce_fwd", "46"), ("fused_ce_bwd_dx", "95"), ("fused_ce_bwd_dw", "130"))
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -3,9 +3,10 @@
 The JAX package stays the reference; this package grows beside it slice by
 slice, keeping its public names. It serves (``smp.generate``) and trains
 (``@smp.step``, ``smp.DistributedOptimizer``) the ``TransformerLM`` zoo
-(``models.gpt2``) on one device, with flash attention as hand-written CUDA
-kernels for Hopper (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``). Entry
-points run on ``cuda`` unless the caller names another device.
+(``models.gpt2``) on one device, with flash attention and the fused LM-head
+cross-entropy as hand-written CUDA kernels for Hopper (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``, ``csrc/fused_ce.cu``). Entry points run on ``cuda``
+unless the caller names another device.
 
     import torch
     import smdistributed_modelparallel_tpu_torch as smp
@@ -27,7 +28,7 @@ points run on ``cuda`` unless the caller names another device.
     out = smp.generate(model, prompt_ids, max_new_tokens=32)
 """
 
-from smdistributed_modelparallel_tpu_torch import amp
+from smdistributed_modelparallel_tpu_torch import amp, nn
 from smdistributed_modelparallel_tpu_torch.backend.config import ModelParallelConfig
 from smdistributed_modelparallel_tpu_torch.backend.split import StepOutput
 from smdistributed_modelparallel_tpu_torch.backend.state import state
@@ -72,6 +73,7 @@ __all__ = [
     "generate",
     "init",
     "is_initialized",
+    "nn",
     "reset",
     "step",
 ]

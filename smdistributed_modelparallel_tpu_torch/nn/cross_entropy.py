@@ -2,26 +2,26 @@
 
 Counterpart of ``smdistributed_modelparallel_tpu/nn/cross_entropy.py`` on
 one device (no vocab sharding): the per-token ``vocab_parallel_cross_entropy``
-(a stable log-softmax in fp32), its ``ignore_index`` form, and the tied-head
+(a stable log-softmax in fp32), its ``ignore_index`` form, the
+``DistributedCrossEntropy`` module, and the tied-head
 ``fused_lm_head_cross_entropy`` with the same dispatch policy
 (``_want_fused_ce``: config ``fused_ce`` True/False/"auto", the "auto"
 threshold ``fused_ce_auto_threshold_mb`` on the logits at the activation
 dtype, and the ``SMP_DISABLE_FUSED_CE=1`` escape hatch).
 
-The fused kernels themselves (the JAX package's ``ops/pallas_ce.py``
-forward, dx and dW) are not ported yet. Where the policy picks the
-materialized path, both packages materialize the logits. On the CPU this
-package does what the JAX package does off its accelerator: it
-materializes, and under a forced ``fused_ce: True`` logs the same warning.
-On a CUDA tensor, whenever the policy wants the fused kernel, it raises
-``NotImplementedError``: it never quietly materializes in place of a kernel.
+Where the policy wants the fused kernel and it can run (a CUDA tensor, the
+escape hatch unset), the CE goes through ``ops/fused_ce.fused_lm_head_ce``:
+the forward, dx and dW kernels of ``csrc/fused_ce.cu``, which never
+materialize the logits. Otherwise both packages materialize them; a forced
+``fused_ce: True`` that cannot run logs the JAX package's warning. The
+vocab-parallel composition (tp > 1) arrives with the tensor-parallel slice.
 """
 
-import os
-
 import torch
+from torch import nn
 
 from smdistributed_modelparallel_tpu_torch.backend.state import state
+from smdistributed_modelparallel_tpu_torch.ops import fused_ce as fce
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
 
 
@@ -81,8 +81,7 @@ def fused_lm_head_cross_entropy(hidden, embedding_table, targets,
       embedding_table: [V, D] tied embedding table.
       targets: [...] int ids; ``ignore_index`` entries contribute 0 loss
         and no gradient.
-      block_n/block_v: the fused kernel's tiling (kept for the JAX
-        package's signature; the kernel is not ported).
+      block_n/block_v: the reference tiling (``ops/fused_ce.auto_blocks``).
     Returns: fp32 per-token losses shaped like ``targets``.
     """
     lead = hidden.shape[:-1]
@@ -91,25 +90,40 @@ def fused_lm_head_cross_entropy(hidden, embedding_table, targets,
     t = targets.reshape(-1)
     valid = t != ignore_index
     t_safe = torch.where(valid, t, 0)
-    if _want_fused_ce(x, embedding_table):
-        disabled = os.environ.get("SMP_DISABLE_FUSED_CE", "0") == "1"
-        if _is_cuda(x) and not disabled:
-            raise NotImplementedError(
-                "the fused LM-head cross-entropy kernels (ops/pallas_ce.py "
-                "forward, dx and dW; rows 5-7 of the kernel table in PERF.md) "
-                "are not ported to CUDA yet (slice 2c). The policy wants them "
-                f"for [{x.shape[0]}, {embedding_table.shape[0]}] logits; set "
-                "fused_ce: False (or raise fused_ce_auto_threshold_mb) to "
-                "materialize the logits."
-            )
-        if state.initialized and state.cfg.fused_ce is True:
+    want = _want_fused_ce(x, embedding_table)
+    # fce.fused_ce_ok, with the device test through the _is_cuda seam.
+    disabled = fce.fused_ce_disabled()
+    can = _is_cuda(x) and not disabled
+    if want and can:
+        bn, bv = fce.auto_blocks(D, block_n, block_v)
+        per = fce.fused_lm_head_ce(x, embedding_table, t_safe, bn, bv, float(label_smoothing))
+    else:
+        if want and state.initialized and state.cfg.fused_ce is True:
             why = "SMP_DISABLE_FUSED_CE=1 is set" if disabled else "not running on a CUDA device"
             get_logger().warning(
                 "fused_ce: True requested but the kernel cannot run here "
                 "(%s) — materializing [%d, %d] logits instead.",
                 why, x.shape[0], embedding_table.shape[0],
             )
-    logits = x @ embedding_table.to(x.dtype).t()
-    per = vocab_parallel_cross_entropy(logits, t_safe, label_smoothing=label_smoothing)
+        logits = x @ embedding_table.to(x.dtype).t()
+        per = vocab_parallel_cross_entropy(logits, t_safe, label_smoothing=label_smoothing)
     per = torch.where(valid, per, 0.0)
     return per.reshape(lead)
+
+
+class DistributedCrossEntropy(nn.Module):
+    """Module wrapper matching the reference class surface; reduction over
+    all tokens ("mean", "sum", or anything else for per-token losses)."""
+
+    def __init__(self, reduction="mean", label_smoothing=0.0):
+        super().__init__()
+        self.reduction = reduction
+        self.label_smoothing = label_smoothing
+
+    def forward(self, logits, targets):
+        loss = vocab_parallel_cross_entropy(logits, targets, self.label_smoothing)
+        if self.reduction == "mean":
+            return loss.mean()
+        if self.reduction == "sum":
+            return loss.sum()
+        return loss

@@ -1,0 +1,339 @@
+"""Fused LM-head cross-entropy: the CUDA kernels' wrappers and their plain
+versions.
+
+Counterpart of ``smdistributed_modelparallel_tpu/ops/pallas_ce.py``:
+``fused_lm_head_ce`` and its ``custom_vjp``, whose kernels are the forward
+``_fwd_kernel`` and the backward ``_bwd_dx_kernel`` / ``_bwd_dw_kernel``.
+Here they are the three kernels of ``csrc/fused_ce.cu``, wired together by
+a ``torch.autograd.Function``. Each kernel's wrapper (``fused_ce_fwd``,
+``fused_ce_bwd_dx``, ``fused_ce_bwd_dw``) runs its plain PyTorch version for
+tensors on the CPU and its kernel for CUDA tensors; it never falls back from
+one to the other, and counts its kernel's launches in ``.launches``.
+
+The CE of ``x @ w^T`` (x [N, D], w [V, D], the tied head's layout) never
+materializes the [N, V] logits. Both versions reproduce the TPU kernels'
+conventions:
+  - logits are fp32 products of the fp32-cast inputs; columns >= V are
+    -1e30 and count for nothing;
+  - a target outside [0, V) never hits, so its target logit is 0;
+  - lse = m + log(max(l, 1e-30)) from the online max m and sum-exp l;
+  - the backward recomputes p = exp(logits - lse) from the saved lse and
+    forms dlog = (p - target_mass) * g with target_mass = (1 - eps) onehot +
+    eps / (smooth_denom or V) on the valid columns, rounded in that order;
+    dx and dW are fp32 sums cast to x's and w's dtypes.
+
+``block_n``/``block_v`` are the TPU kernel's tiling and are reference
+coordinates only: ``block_v`` sets the plain versions' vocab chunks (their
+memory is O(N * block_v)). The CUDA kernels' own tiles (64 x 64, D streamed
+32 columns at a time, so every D runs) are stated in ``csrc/fused_ce.cu``.
+"""
+
+import ctypes
+import os
+
+import torch
+
+NEG_INF = -1e30
+
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_KERNEL_TILE = 64  # rows and vocab columns of a tile of csrc/fused_ce.cu
+_MAX_CHUNKS = 16   # bounds the fp32 partial buffers: chunks x rows x D
+
+
+def _chunks(width, lo, hi):
+    """[c0, c1) ranges of ``width``-wide chunks of [lo, hi)."""
+    return [(c, min(c + width, hi)) for c in range(lo, hi, width)]
+
+
+def fused_ce_fwd_reference(x, w, targets, smoothing=0.0, block_v=1024):
+    """Plain PyTorch version of the forward kernel: the online max/sum-exp
+    over ``block_v``-wide vocab chunks, in fp32.
+
+    Returns ``(lse, tgt, logit_sum or None)``, each fp32 [N]."""
+    N = x.shape[0]
+    V = w.shape[0]
+    block_v = min(block_v, V)
+    xf = x.float()
+    t = targets.long()
+    m = torch.full((N,), NEG_INF, dtype=torch.float32, device=x.device)
+    l = torch.zeros(N, dtype=torch.float32, device=x.device)
+    tgt = torch.zeros_like(l)
+    logit_sum = torch.zeros_like(l) if smoothing else None
+    for v0, v1 in _chunks(block_v, 0, V):
+        # The TPU kernel's padding columns (-1e30) add exp(-1e30 - m) = 0.
+        logits = xf @ w[v0:v1].float().t()
+        m_new = torch.maximum(m, logits.amax(dim=1))
+        l = torch.exp(m - m_new) * l + torch.exp(logits - m_new[:, None]).sum(dim=1)
+        m = m_new
+        hit = (t >= v0) & (t < v1)
+        picked = logits.gather(1, torch.where(hit, t - v0, 0)[:, None])[:, 0]
+        tgt = tgt + torch.where(hit, picked, 0.0)
+        if smoothing:
+            logit_sum = logit_sum + logits.sum(dim=1)
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return lse, tgt, logit_sum
+
+
+def _dlog(logits, v0, t, lse, g, smoothing, smooth_denom, V):
+    """(p - target_mass) * g of one vocab chunk, as the TPU kernels form it."""
+    p = torch.exp(logits - lse[:, None])
+    cols = torch.arange(v0, v0 + logits.shape[1], device=logits.device)
+    target_mass = (cols[None, :] == t[:, None]).float()
+    if smoothing:
+        target_mass = (1.0 - smoothing) * target_mass + smoothing / (smooth_denom or V)
+    return (p - target_mass) * g[:, None]
+
+
+def fused_ce_bwd_dx_reference(x, w, targets, lse, g, smoothing=0.0,
+                              smooth_denom=None, block_v=1024):
+    """Plain PyTorch version of the dx kernel: sum over ``block_v``-wide
+    vocab chunks of dlog @ w in fp32, cast to x's dtype."""
+    V = w.shape[0]
+    xf = x.float()
+    t = targets.long()
+    lse = lse.float()
+    g = g.float()
+    dx = torch.zeros(xf.shape, dtype=torch.float32, device=x.device)
+    for v0, v1 in _chunks(min(block_v, V), 0, V):
+        wf = w[v0:v1].float()
+        dx += _dlog(xf @ wf.t(), v0, t, lse, g, smoothing, smooth_denom, V) @ wf
+    return dx.to(x.dtype)
+
+
+def fused_ce_bwd_dw_reference(x, w, targets, lse, g, smoothing=0.0,
+                              smooth_denom=None, block_v=1024):
+    """Plain PyTorch version of the dW kernel: per ``block_v``-wide vocab
+    chunk, dlog^T @ x in fp32, cast to w's dtype."""
+    V = w.shape[0]
+    xf = x.float()
+    t = targets.long()
+    lse = lse.float()
+    g = g.float()
+    dw = torch.empty(w.shape, dtype=w.dtype, device=w.device)
+    for v0, v1 in _chunks(min(block_v, V), 0, V):
+        wf = w[v0:v1].float()
+        dlog = _dlog(xf @ wf.t(), v0, t, lse, g, smoothing, smooth_denom, V)
+        dw[v0:v1] = (dlog.t() @ xf).to(w.dtype)
+    return dw
+
+
+def _assemble_loss(lse, tgt, logit_sum, V, smoothing):
+    if not smoothing:
+        return lse - tgt
+    # loss = (1-eps)*(lse - tgt) + eps*(lse - mean(logits))
+    #      = lse - (1-eps)*tgt - (eps/V)*sum(logits)
+    return lse - (1.0 - smoothing) * tgt - (smoothing / V) * logit_sum
+
+
+# ----------------------------------------------------------------------
+# Kernel wrappers
+# ----------------------------------------------------------------------
+
+
+def _check_cuda(name, x, w, targets, *rows):
+    """The kernels' contract: x [N, D] and w [V, D] of one dtype (fp32, fp16
+    or bf16) and [N] targets and per-row vectors, all on one CUDA device."""
+    tensors = (x, w, targets) + rows
+    if not (x.is_cuda and all(a.device == x.device for a in tensors)):
+        raise ValueError(f"{name}: inputs must share one CUDA device, got {[str(a.device) for a in tensors]}")
+    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
+        raise TypeError(f"{name} kernel takes x and w in one of {list(_DTYPE_CODE)}; got {x.dtype}, {w.dtype}")
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"{name}: x must be [N, D] and w [V, D], got {tuple(x.shape)}, {tuple(w.shape)}")
+    N, V = x.shape[0], w.shape[0]
+    if N < 1 or V < 1:
+        raise ValueError(f"{name}: needs N >= 1 and V >= 1, got N={N}, V={V}")
+    if any(a.shape != (N,) for a in (targets,) + rows):
+        raise ValueError(f"{name}: targets and per-row vectors must be [{N}], got "
+                         f"{[tuple(a.shape) for a in (targets,) + rows]}")
+    if targets.dtype.is_floating_point or targets.dtype == torch.bool:
+        raise TypeError(f"{name}: targets must be integers, got {targets.dtype}")
+
+
+def _chunk_tiles(owned, walked, device):
+    """Tiles of the walked dimension per CTA: enough chunks of it that the
+    grid holds about four CTAs per SM, at most ``_MAX_CHUNKS``."""
+    owned_tiles = -(-owned // _KERNEL_TILE)
+    walked_tiles = -(-walked // _KERNEL_TILE)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    chunks = min(walked_tiles, _MAX_CHUNKS, max(1, -(-4 * sms // owned_tiles)))
+    per = -(-walked_tiles // chunks)
+    return per, -(-walked_tiles // per)
+
+
+def _args(x, w, targets):
+    return x.contiguous(), w.contiguous(), targets.to(torch.int32).contiguous()
+
+
+def fused_ce_fwd(x, w, targets, smoothing=0.0, block_v=1024):
+    """Forward statistics ``(lse, tgt, logit_sum or None)``, fp32 [N]: the
+    plain version for CPU tensors, ``csrc/fused_ce.cu``'s forward kernel
+    (``_fwd_kernel``'s counterpart) for CUDA tensors, else it raises."""
+    if x.device.type == "cpu":
+        return fused_ce_fwd_reference(x, w, targets, smoothing, block_v)
+    _check_cuda("fused_ce_fwd", x, w, targets)
+    x, w, t = _args(x, w, targets)
+    (N, D), V = x.shape, w.shape[0]
+    per, chunks = _chunk_tiles(N, V, x.device)
+    part = torch.empty((4, chunks, N), dtype=torch.float32, device=x.device)
+    lse, tgt = (torch.empty(N, dtype=torch.float32, device=x.device) for _ in range(2))
+    lsum = torch.empty(N, dtype=torch.float32, device=x.device) if smoothing else None
+    lib = _kernel()
+    with torch.cuda.device(x.device):
+        err = lib.smp_fused_ce_fwd(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), t.data_ptr(), N, V, D,
+            int(bool(smoothing)), per, part.data_ptr(), lse.data_ptr(), tgt.data_ptr(),
+            None if lsum is None else lsum.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_ce_fwd launch failed: {lib.smp_cuda_error_string(err).decode()}")
+    fused_ce_fwd.launches += 1
+    return lse, tgt, lsum
+
+
+def _bwd_launch(name, dw, x, w, targets, lse, g, smoothing, smooth_denom):
+    _check_cuda(name, x, w, targets, lse, g)
+    x, w, t = _args(x, w, targets)
+    lse = lse.to(torch.float32).contiguous()
+    g = g.to(torch.float32).contiguous()
+    (N, D), V = x.shape, w.shape[0]
+    owned, walked = (V, N) if dw else (N, V)
+    per, chunks = _chunk_tiles(owned, walked, x.device)
+    part = torch.empty((chunks, owned, D), dtype=torch.float32, device=x.device)
+    out = torch.empty((owned, D), dtype=x.dtype, device=x.device)
+    eps = float(smoothing)
+    lib = _kernel()
+    with torch.cuda.device(x.device):
+        err = lib.smp_fused_ce_bwd(
+            _DTYPE_CODE[x.dtype], int(dw), x.data_ptr(), w.data_ptr(), t.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), N, V, D, int(bool(eps)), 1.0 - eps,
+            eps / (smooth_denom or V) if eps else 0.0, per, part.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.smp_cuda_error_string(err).decode()}")
+    return out
+
+
+def fused_ce_bwd_dx(x, w, targets, lse, g, smoothing=0.0, smooth_denom=None,
+                    block_v=1024):
+    """dx [N, D] in x's dtype: the plain version for CPU tensors, the dx
+    kernel of ``csrc/fused_ce.cu`` (``_bwd_dx_kernel``'s counterpart) for
+    CUDA tensors, else it raises. ``lse`` is the forward's, ``g`` the fp32
+    loss cotangent (0 on ignored rows)."""
+    if x.device.type == "cpu":
+        return fused_ce_bwd_dx_reference(x, w, targets, lse, g, smoothing, smooth_denom, block_v)
+    dx = _bwd_launch("fused_ce_bwd_dx", False, x, w, targets, lse, g, smoothing, smooth_denom)
+    fused_ce_bwd_dx.launches += 1
+    return dx
+
+
+def fused_ce_bwd_dw(x, w, targets, lse, g, smoothing=0.0, smooth_denom=None,
+                    block_v=1024):
+    """dW [V, D] in w's dtype: the plain version for CPU tensors, the dW
+    kernel of ``csrc/fused_ce.cu`` (``_bwd_dw_kernel``'s counterpart) for
+    CUDA tensors, else it raises."""
+    if x.device.type == "cpu":
+        return fused_ce_bwd_dw_reference(x, w, targets, lse, g, smoothing, smooth_denom, block_v)
+    dw = _bwd_launch("fused_ce_bwd_dw", True, x, w, targets, lse, g, smoothing, smooth_denom)
+    fused_ce_bwd_dw.launches += 1
+    return dw
+
+
+fused_ce_fwd.launches = 0     # launches of csrc/fused_ce.cu's forward
+fused_ce_bwd_dx.launches = 0  # ... of its dx kernel
+fused_ce_bwd_dw.launches = 0  # ... of its dW kernel
+
+
+class _FusedCEFn(torch.autograd.Function):
+    """``fused_lm_head_ce`` with the TPU kernels' backward, as ``_fce_fwd`` /
+    ``_fce_bwd`` wire it: the forward saves (x, w, targets, lse); the
+    backward runs the dx and dW kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w, targets, block_v, smoothing):
+        lse, tgt, logit_sum = fused_ce_fwd(x, w, targets, smoothing, block_v)
+        ctx.save_for_backward(x, w, targets, lse)
+        ctx.coords = (smoothing, block_v)
+        return _assemble_loss(lse, tgt, logit_sum, w.shape[0], smoothing)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w, targets, lse = ctx.saved_tensors
+        smoothing, block_v = ctx.coords
+        g = g.float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = fused_ce_bwd_dx(x, w, targets, lse, g, smoothing, None, block_v)
+        if ctx.needs_input_grad[1]:
+            dw = fused_ce_bwd_dw(x, w, targets, lse, g, smoothing, None, block_v)
+        return dx, dw, None, None, None
+
+
+def fused_lm_head_ce(x, w, targets, block_n=256, block_v=1024, label_smoothing=0.0):
+    """Per-token CE of ``x @ w^T`` against ``targets`` without materializing
+    the logits. x: [N, D]; w: [V, D]; targets: [N] int. ``label_smoothing``:
+    HF/T5-convention uniform smoothing. Returns fp32 [N] losses,
+    differentiable in x and w. ``block_n`` keeps the JAX signature: neither
+    the plain versions nor the kernels tile rows by it.
+
+    CPU tensors run the plain versions; CUDA tensors launch
+    ``csrc/fused_ce.cu`` (fp32, fp16 or bf16; any D), or raise. x and w of
+    different dtypes meet in the wider one (both kernels compute in fp32)."""
+    if x.dtype != w.dtype:
+        dtype = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dtype), w.to(dtype)
+    return _FusedCEFn.apply(x, w, targets, block_v, float(label_smoothing))
+
+
+def reference_lm_head_ce(x, w, targets):
+    """Materialized-logits oracle of ``fused_lm_head_ce`` (no smoothing)."""
+    logits = x.float() @ w.float().t()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[:, 0]
+    tgt = logits.gather(-1, targets.long()[:, None])[:, 0]
+    return lse - tgt
+
+
+def auto_blocks(D, block_n=None, block_v=None):
+    """(block_n, block_v) of the reference tiling: the given values, else the
+    TPU kernel's defaults 256 and 1024. The TPU's 12 MiB VMEM budget does not
+    carry over: the CUDA kernels stream D, so every D fits and this never
+    returns None (None would mean "the kernel cannot run here")."""
+    return (256 if block_n is None else block_n, 1024 if block_v is None else block_v)
+
+
+def fused_ce_disabled():
+    """``SMP_DISABLE_FUSED_CE=1``: the operator escape hatch."""
+    return os.environ.get("SMP_DISABLE_FUSED_CE", "0") == "1"
+
+
+def fused_ce_ok(x, w, block_n=None, block_v=None):
+    """Dispatch precondition: x on a CUDA device and the escape hatch unset.
+    Every block configuration runs (see ``auto_blocks``), so ``block_n`` and
+    ``block_v`` only keep the JAX signature. Off the card it is False, as the
+    JAX package's is off its TPU."""
+    return x.is_cuda and not fused_ce_disabled()
+
+
+_LIB = None  # csrc/fused_ce.cu, loaded at the first launch
+
+
+def _kernel():
+    global _LIB
+    if _LIB is None:
+        from smdistributed_modelparallel_tpu_torch.ops import _build
+
+        lib = _build.load("fused_ce")
+        c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+        lib.smp_fused_ce_fwd.argtypes = [c_int] + [c_ptr] * 3 + [c_int] * 5 + [c_ptr] * 5
+        lib.smp_fused_ce_fwd.restype = c_int
+        lib.smp_fused_ce_bwd.argtypes = (
+            [c_int, c_int] + [c_ptr] * 5 + [c_int] * 4 + [c_float, c_float, c_int] + [c_ptr] * 3
+        )
+        lib.smp_fused_ce_bwd.restype = c_int
+        lib.smp_cuda_error_string.argtypes = [c_int]
+        lib.smp_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB

@@ -4,8 +4,9 @@ Per-token losses (plain, masked with -100, label-smoothed) and their
 gradients against ``nn/cross_entropy.py`` of the JAX package; the fused-CE
 dispatch policy ``_want_fused_ce`` decision for decision over sizes, dtypes
 and config values; loss-mode ``TransformerLM(ids, targets=...)`` at
-identical weights; and the port's refusal to materialize logits on a CUDA
-tensor when the policy wants the (not yet ported) fused kernel.
+identical weights; and, on a CUDA tensor, the dispatch to the fused kernels
+(``ops/fused_ce.py``) instead of materialized logits whenever the policy
+wants them.
 
 fp32 on both sides: the losses are the same fp32 log-softmax in another
 summation order, so they agree to 1e-5 on O(1) values (1e-4 through a
@@ -164,20 +165,28 @@ def _ce_inputs():
 @pytest.mark.parametrize("cfg", [{"fused_ce": True}, {"fused_ce_auto_threshold_mb": 1}])
 def test_cuda_refuses_to_materialize_in_place_of_the_kernel(monkeypatch, cfg):
     """On a CUDA tensor (the device check patched here), a policy that wants
-    the fused kernel raises; the escape hatch and fused_ce: False
-    materialize, as in the JAX package."""
+    the fused kernel calls ``ops.fused_ce.fused_lm_head_ce`` (whose wrappers
+    run the plain versions for these CPU tensors) and does not materialize;
+    the escape hatch and fused_ce: False materialize, as in the JAX
+    package."""
+    from smdistributed_modelparallel_tpu_torch.ops import fused_ce as fce
+
+    calls = []
+    orig = fce.fused_lm_head_ce
+    monkeypatch.setattr(fce, "fused_lm_head_ce", lambda *a, **k: calls.append(a[0].shape) or orig(*a, **k))
     monkeypatch.setattr(port_ce, "_is_cuda", lambda x: True)
     monkeypatch.delenv("SMP_DISABLE_FUSED_CE", raising=False)
     h, w, t = _ce_inputs()  # 1024 x 1000 fp32 logits: 3.9 MB
     smp_torch.init(cfg)
-    with pytest.raises(NotImplementedError, match="slice 2c"):
-        port_ce.fused_lm_head_cross_entropy(h, w, t)
     want = port_ce.vocab_parallel_cross_entropy(h @ w.t(), t)
+    torch.testing.assert_close(port_ce.fused_lm_head_cross_entropy(h, w, t), want)
+    assert calls == [(1024, 16)]
     monkeypatch.setenv("SMP_DISABLE_FUSED_CE", "1")
     torch.testing.assert_close(port_ce.fused_lm_head_cross_entropy(h, w, t), want)
     monkeypatch.delenv("SMP_DISABLE_FUSED_CE")
     smp_torch.init({**cfg, "fused_ce": False})
     torch.testing.assert_close(port_ce.fused_lm_head_cross_entropy(h, w, t), want)
+    assert len(calls) == 1
 
 
 def test_cpu_forced_fused_ce_warns_and_materializes():

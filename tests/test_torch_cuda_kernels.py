@@ -12,6 +12,10 @@ summation order and online softmax aside, so 1e-4; bf16 rounds P to bf16
 against different row maxima, so O to 2e-2 while LSE (fp32) stays 1e-3.
 The backward kernels: fp32 1e-4 and bf16 2e-2 of the largest gradient
 (ds and p are rounded to bf16 after fp32 products summed in another order).
+The fused cross-entropy kernels: the forward statistics (fp32 in both
+dtypes) 1e-4 of the largest value; dx and dW 1e-4 (fp32) and 2e-2 (bf16,
+where they come back rounded) of the largest value; the cases, their inputs
+and these tolerances are ``chip_smoke.py``'s phase B sweep.
 """
 
 import copy
@@ -20,7 +24,9 @@ import pytest
 import torch
 
 import smdistributed_modelparallel_tpu_torch as smp_torch
+from chip_smoke import CE_CASES, CE_TOL, ce_inputs
 from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2, init_gpt2_weights_
+from smdistributed_modelparallel_tpu_torch.nn import cross_entropy as port_ce
 from smdistributed_modelparallel_tpu_torch.ops.attention import attention_core
 from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
     attention_delta,
@@ -29,6 +35,15 @@ from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
     flash_bwd_dkv,
     flash_bwd_dq,
+)
+from smdistributed_modelparallel_tpu_torch.ops.fused_ce import (
+    fused_ce_bwd_dw,
+    fused_ce_bwd_dw_reference,
+    fused_ce_bwd_dx,
+    fused_ce_bwd_dx_reference,
+    fused_ce_fwd,
+    fused_ce_fwd_reference,
+    fused_lm_head_ce,
 )
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
@@ -212,3 +227,95 @@ def test_training_step_on_card_matches_cpu(cuda):
         # gradient's size, so a gradient that is zero but for rounding (the
         # key bias) may move either way: the update is held to 2 lr.
         torch.testing.assert_close(p_gpu[name], p_cpu[name], rtol=0, atol=2e-3, msg=name)
+
+
+# Phase B's sweep of the fused cross-entropy kernels, one definition for
+# both: {name: (N, V, D, kwargs)}.
+CE_SWEEP = {name: (N, V, D, kw) for name, N, V, D, kw in CE_CASES}
+
+
+def _ce_case(device, N, V, D, dtype, kw, seed=0):
+    x, w, t, g = ce_inputs(N, V, D, dtype, torch.Generator(device=device).manual_seed(seed), kw)
+    return x, w, t, g, float(kw.get("smoothing", 0.0)), kw.get("smooth_denom")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CE_SWEEP))
+def test_fused_ce_kernels_match_plain_versions(cuda, case, dtype):
+    N, V, D, kw = CE_SWEEP[case]
+    x, w, t, g, eps, denom = _ce_case(cuda, N, V, D, dtype, kw)
+    before = (fused_ce_fwd.launches, fused_ce_bwd_dx.launches, fused_ce_bwd_dw.launches)
+    stats = fused_ce_fwd(x, w, t, eps)
+    torch.cuda.synchronize()
+    want = fused_ce_fwd_reference(x, w, t, eps)
+    for name, got, ref in zip(("lse", "tgt", "logit_sum"), stats, want):
+        if ref is None:
+            assert got is None
+            continue
+        err = float((got - ref).abs().max())
+        assert err <= 1e-4 * max(1.0, float(ref.abs().max())), (name, err)
+    lse = want[0]
+    dx = fused_ce_bwd_dx(x, w, t, lse, g, eps, denom)
+    torch.cuda.synchronize()
+    dw = fused_ce_bwd_dw(x, w, t, lse, g, eps, denom)
+    torch.cuda.synchronize()
+    assert (fused_ce_fwd.launches, fused_ce_bwd_dx.launches, fused_ce_bwd_dw.launches) == tuple(
+        n + 1 for n in before)
+    for name, got, ref in (("dx", dx, fused_ce_bwd_dx_reference(x, w, t, lse, g, eps, denom)),
+                           ("dw", dw, fused_ce_bwd_dw_reference(x, w, t, lse, g, eps, denom))):
+        assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= CE_TOL[dtype] * float(ref.float().abs().max()), (name, err)
+    if kw.get("gzeros"):
+        assert (dx[::5] == 0).all()
+
+
+@pytest.mark.cuda
+def test_fused_ce_kernels_reject_what_they_cannot_run(cuda):
+    x = torch.zeros(8, 16, device=cuda, dtype=torch.float64)
+    t = torch.zeros(8, dtype=torch.long, device=cuda)
+    with pytest.raises(TypeError):
+        fused_ce_fwd(x, x, t)
+    with pytest.raises(TypeError):
+        fused_ce_fwd(x.float(), x.half(), t)
+    with pytest.raises(ValueError):
+        fused_ce_fwd(x.float(), torch.zeros(8, 15, device=cuda), t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label_smoothing", [0.0, 0.1])
+def test_fused_ce_grads_through_kernels_match_cpu(cuda, label_smoothing):
+    """fp32 per-token losses, x.grad and the table's grad through the three
+    kernels (fused_ce: True on the card) against the CPU's materialized
+    path, with ignored rows."""
+    smp_torch.init({"fused_ce": True})
+    N, V, D = 300, 1000, 96
+    x, w, t, _, _, _ = _ce_case("cpu", N, V, D, torch.float32, {})
+    t[::9] = -100
+    runs = {}
+    before = (fused_ce_fwd.launches, fused_ce_bwd_dx.launches, fused_ce_bwd_dw.launches)
+    for device in (cuda, "cpu"):
+        h = x.reshape(3, 100, D).clone().to(device).requires_grad_()
+        table = w.clone().to(device).requires_grad_()
+        per = port_ce.fused_lm_head_cross_entropy(h, table, t.reshape(3, 100).to(device),
+                                                  label_smoothing=label_smoothing)
+        (per.sum() / N).backward()
+        runs[str(device)] = (per.detach().cpu(), h.grad.cpu(), table.grad.cpu())
+    assert (fused_ce_fwd.launches, fused_ce_bwd_dx.launches, fused_ce_bwd_dw.launches) == tuple(
+        n + 1 for n in before)
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert (runs["cuda"][0].reshape(-1)[::9] == 0).all()
+
+
+@pytest.mark.cuda
+def test_fused_lm_head_ce_mixed_dtypes_meet_in_the_wider(cuda):
+    x, w, t, _, _, _ = _ce_case(cuda, 256, 500, 64, torch.float32, {})
+    xb = x.to(torch.bfloat16).requires_grad_()
+    wf = w.clone().requires_grad_()
+    per = fused_lm_head_ce(xb, wf, t)
+    per.sum().backward()
+    assert xb.grad.dtype == torch.bfloat16 and wf.grad.dtype == torch.float32
+    want = fused_ce_fwd_reference(xb.detach().float(), w, t)
+    torch.testing.assert_close(per.detach(), want[0] - want[1], rtol=0, atol=1e-4)
