@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases B # kernel-vs-plain comparisons only
     python3 chip_smoke.py --phases T # the training path only
     python3 chip_smoke.py --phases F # the capacity path (fused cross-entropy) only
+    python3 chip_smoke.py --phases L # the smp.nn path (fused QKV, fused bias-GELU) only
 
 Builds the port's CUDA kernels from ``smdistributed_modelparallel_tpu_torch/
 csrc`` (one nvcc per source, all started together), then:
@@ -32,6 +33,19 @@ csrc`` (one nvcc per source, all started together), then:
      ``wte.weight`` gradients; a small fp32 model under ``fused_ce: True``
      trains 3 steps on the card (kernels) and on the CPU (materialized),
      losses agreeing.
+  L. the ``smp.nn`` path: ``smp.nn.DistributedTransformerLMHead`` at GPT-2
+     124M's published widths (the kwargs ``nn/huggingface/gpt2.config_to_smp``
+     gives, ``fused_bias_gelu=True``, dropouts 0) with random weights from a
+     seed, trained by ``@smp.step`` in logits mode under ``fused_qkv: True``,
+     bf16, 8 x 1024 tokens in 4 microbatches, AdamW; warm-up steps, then
+     timed steps whose launches are counted (48 ``matmul_bias``,
+     ``bias_gelu_fwd`` and ``bias_gelu_bwd`` launches a step, and 48 of each
+     flash kernel). The loss must fall and stay finite. Its unfused twin
+     (``fused_qkv: False``, ``fused_bias_gelu=False``) from the same weights
+     launches none of the three, and its losses and one step's qkv and fc
+     gradients must agree; a small fp32 model under both knobs trains 3
+     steps on the card (kernels) and on the CPU (the unfused path, the same
+     function in fp32), losses agreeing.
   B. every kernel against its plain PyTorch version on the card, at the
      main paths' shapes and over a feature sweep, within stated tolerances.
   C. times: kernel, plain version and the one PyTorch library call that
@@ -39,8 +53,9 @@ csrc`` (one nvcc per source, all started together), then:
      time the card could take for the same work). The fused-CE kernels are
      also held against their plain versions on the timed inputs, the
      capacity path's N = 32768 included.
-  P. (on request) torch.profiler breakdowns of a generate, a training step
-     and a capacity step: device time by kernel and the device's idle share.
+  P. (on request) torch.profiler breakdowns of a generate, a training step,
+     a capacity step and the smp.nn path's fused and unfused steps: device
+     time by kernel and the device's idle share.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -63,8 +78,8 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 
-KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce"]
-DEFAULT_PHASES = "ATFBC"
+KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu"]
+DEFAULT_PHASES = "ATFLBC"
 SEED = 1234
 
 
@@ -477,6 +492,169 @@ def _capacity_head_grads(init, ids):
     return errs
 
 
+# GPT-2 124M as nn/huggingface/gpt2.config_to_smp gives it for GPT-2 small,
+# with the fused bias-GELU on and the dropouts off (bench.py:641-649).
+LM_CFG = dict(
+    num_layers=12, num_attention_heads=12, attention_head_size=64, hidden_size=768, intermediate_size=3072,
+    vocab_size=50257, num_positions=1024, causal_mask_size=1024, pre_layernorm=True, post_layernorm=False,
+    final_layernorm=True, activation="gelu", layernorm_epsilon=1e-5, initializer_range=0.02,
+    attention_dropout_prob=0.0, hidden_dropout_prob=0.0, embedding_dropout_prob=0.0,
+)
+# Gradients held fused against unfused after one step, from the same weights.
+LM_GRADS = [f"transformer.seq_layers.{i}.{m}.{p}" for i in (0, 11) for m in ("attention.qkv", "output.fc")
+            for p in ("weight", "bias")]
+# Fused against unfused, bf16: the fused QKV rounds x w + b once, the
+# unfused product and its bias add round twice, and the fused GELU rounds
+# gelu(x + b) once from fp32 where the unfused add rounds x + b first; so
+# the two runs differ by bf16 roundings (2**-8 relative) of every qkv and fc
+# output, compounded over 12 layers. Step 1's loss: 5e-3 relative; over the
+# steps AdamW moves each parameter by ~lr whatever its gradient's size, so
+# 2e-2. Gradients: 5e-2 of their largest value (a transposed or wrong kernel
+# is off by the gradient's own size).
+LM_LOSS1_TOL, LM_LOSS_TOL, LM_GRAD_TOL = 5e-3, 2e-2, 5e-2
+
+
+def _new_counters():
+    from smdistributed_modelparallel_tpu_torch.ops.bias_gelu import bias_gelu_bwd, bias_gelu_fwd
+    from smdistributed_modelparallel_tpu_torch.ops.matmul_bias import matmul_bias_fwd
+
+    return {"matmul_bias": matmul_bias_fwd, "bias_gelu_fwd": bias_gelu_fwd, "bias_gelu_bwd": bias_gelu_bwd}
+
+
+def _lm_setup(init_state, fused, device, cfg=LM_CFG, microbatches=TRAIN_MB, bf16=True):
+    """``smp.nn.DistributedTransformerLMHead`` of ``cfg`` loaded with
+    ``init_state``, under ``fused_qkv`` and ``fused_bias_gelu`` = ``fused``,
+    with AdamW (optax.adamw's defaults) and the smp.nn training step of
+    bench.py:653-660 (logits mode, mean CE of the shifted tokens)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn import vocab_parallel_cross_entropy
+
+    smp.init({"microbatches": microbatches, "bf16": bf16, "fused_qkv": fused})
+    module = smp.nn.DistributedTransformerLMHead(**cfg, fused_bias_gelu=fused, device="meta")
+    module.load_state_dict({k: v.clone() for k, v in init_state.items()}, assign=True)
+    model = smp.DistributedModel(module, device=device)
+    optimizer = smp.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), model)
+
+    @smp.step
+    def train_step(model, ids):
+        logits = model(ids)
+        loss = vocab_parallel_cross_entropy(logits[:, :-1], ids[:, 1:]).mean()
+        model.backward(loss)
+        return loss
+
+    return model, optimizer, train_step
+
+
+def _lm_run(init_state, ids, fused):
+    """Train from ``init_state`` on ``ids``: the first step's gradients of
+    LM_GRADS, then warm-up and timed steps whose launches are counted."""
+    model, optimizer, train_step = _lm_setup(init_state, fused, "cuda")
+    losses = [float(train_step(model, ids).reduce_mean())]
+    grads = {n: model.grads[n].detach().clone() for n in LM_GRADS}
+    optimizer.step()
+    for _ in range(TRAIN_WARMUP - 1):
+        losses.append(float(train_step(model, ids).reduce_mean()))
+        optimizer.step()
+    counters = {**_flash_counters(), **_new_counters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(train_step(model, ids).reduce_mean())
+        optimizer.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    out = dict(ms=ms, tokens_per_s=ids.numel() / ms * 1e3, losses=[float(x) for x in losses], grads=grads,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches={name: fn.launches for name, fn in counters.items()})
+    del model, optimizer, train_step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_l():
+    """The smp.nn path: GPT-2 124M as ``smp.nn.DistributedTransformerLMHead``
+    trained under ``fused_qkv`` and ``fused_bias_gelu`` (the matmul_bias and
+    bias_gelu kernels), its unfused twin, and a small fp32 model on the card
+    and on the CPU."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    init = init_weights_(smp.nn.DistributedTransformerLMHead(**LM_CFG, device="cuda"), LM_CFG["initializer_range"], g)
+    n_layers = LM_CFG["num_layers"]
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    ids = torch.randint(0, LM_CFG["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
+
+    fused = _lm_run(init_state, ids, True)
+    unfused = _lm_run(init_state, ids, False)
+    for label, run in (("fused (fused_qkv, fused_bias_gelu)", fused), ("unfused twin", unfused)):
+        log(f"[L] smp.nn GPT-2 124M bf16 training, batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MB} "
+            f"microbatches, {label}: {run['ms']:.2f} ms/step, {run['tokens_per_s']:.1f} tokens/s (mean of "
+            f"{TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up); peak device memory {run['peak_gib']:.2f} GiB")
+        log(f"[L]   losses {run['losses']}")
+        log(f"[L]   launches over {TRAIN_STEPS} steps: {run['launches']}")
+    per_step = n_layers * TRAIN_MB
+    want = {k: per_step * TRAIN_STEPS for k in fused["launches"]}
+    if fused["launches"] != want:
+        raise RuntimeError(f"smp.nn path launches {fused['launches']}, expected {want}")
+    if any(unfused["launches"][k] for k in _new_counters()):
+        raise RuntimeError(f"the unfused twin launched fused kernels: {unfused['launches']}")
+    losses = fused["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"smp.nn training loss did not fall or is not finite: {losses}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, unfused["losses"])]
+    grad_err = {n: float((fused["grads"][n] - unfused["grads"][n]).abs().max() / unfused["grads"][n].abs().max())
+                for n in LM_GRADS}
+    log(f"[L] fused vs unfused losses: step 1 rel diff {rel[0]:.3e} (limit {LM_LOSS1_TOL:.0e}), max over "
+        f"{len(rel)} steps {max(rel):.3e} (limit {LM_LOSS_TOL:.0e})")
+    log(f"[L] fused vs unfused step-1 gradients, max |d| / max |grad|: "
+        + ", ".join(f"{n.removeprefix('transformer.seq_layers.')} {e:.3e}" for n, e in grad_err.items())
+        + f" (limit {LM_GRAD_TOL:.0e})")
+    if rel[0] > LM_LOSS1_TOL or max(rel) > LM_LOSS_TOL or max(grad_err.values()) > LM_GRAD_TOL:
+        raise RuntimeError("the fused and unfused smp.nn runs disagree")
+    if not all(bool(torch.isfinite(g).all()) for g in fused["grads"].values()):
+        raise RuntimeError("non-finite fused gradients")
+
+    # Small fp32 model under both knobs: the kernels on the card, the unfused
+    # path on the CPU (the gates are off there; in fp32 it computes the same
+    # function). T = 128 so the flash kernels run on the card too.
+    small_cfg = dict(LM_CFG, num_layers=2, num_attention_heads=4, attention_head_size=32, hidden_size=128,
+                     intermediate_size=512, vocab_size=97, num_positions=128, causal_mask_size=128)
+    small = init_weights_(smp.nn.DistributedTransformerLMHead(**small_cfg), 0.02,
+                          torch.Generator().manual_seed(SEED))
+    small_state = small.state_dict()
+    ids_s = torch.randint(0, 97, (4, 128), generator=torch.Generator().manual_seed(SEED))
+    runs = {}
+    new = _new_counters()
+    for device in ("cuda", "cpu"):
+        before = {k: fn.launches for k, fn in new.items()}
+        m, opt, step_fn = _lm_setup(small_state, True, device, small_cfg, microbatches=2, bf16=False)
+        ls = []
+        for _ in range(3):
+            ls.append(float(step_fn(m, ids_s).reduce_mean()))
+            opt.step()
+        runs[device] = (ls, {k: v.detach().cpu() for k, v in m.state_dict().items()},
+                        {k: fn.launches - before[k] for k, fn in new.items()})
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    param_err = max(float((runs["cuda"][1][k] - v).abs().max()) for k, v in runs["cpu"][1].items())
+    log(f"[L] fp32 small smp.nn model (d 128, 2 layers, seq 128), both knobs, 3 steps, card (launches "
+        f"{runs['cuda'][2]}) vs CPU: losses {runs['cuda'][0]} vs {runs['cpu'][0]}, max rel diff {loss_rel:.3e} "
+        f"(limit 1e-4); params max |diff| {param_err:.3e} (limit 1e-3)")
+    # fp32 throughout; only the summation order differs. AdamW moves a
+    # parameter whose gradient is zero but for rounding (the key bias) by up
+    # to ~lr a step in a direction the rounding picks: 3 steps, 2 lr each.
+    if loss_rel > 1e-4 or param_err > 1e-3 or any(n != 3 * 2 * 2 for n in runs["cuda"][2].values()) \
+            or any(runs["cpu"][2].values()):
+        raise RuntimeError("the card's fp32 smp.nn training disagrees with the CPU's")
+    smp.reset()
+    return fused["launches"], dict(fused=fused, unfused=unfused)
+
+
 def _inputs(B, T, S, H, hd, dtype, gen):
     q = torch.randn(B, T, H, hd, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
@@ -576,9 +754,10 @@ def phase_b():
     # comparison launches do not count
     flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches = saved
     _phase_b_ce(failures)
+    new_err = _phase_b_new(failures)
     if failures:
         raise RuntimeError(f"kernel disagrees with its plain version: {failures}")
-    return main_err, bwd_main_err
+    return main_err, bwd_main_err, new_err
 
 
 # (name, N, V, D, kwargs) of the fused cross-entropy kernels. D 1600 (GPT-2
@@ -673,6 +852,132 @@ def _phase_b_ce(failures):
         fn.launches = saved[k]  # comparison launches do not count
 
 
+# (name, N, D, F, kwargs) of the matmul_bias kernel: the fused QKV of the
+# smp.nn path, no bias, few rows (a decode step's), ragged N, D and F, GPT-2
+# 1.5B's width (D 1600, F 4800), and a bias with zeros.
+MB_CASES = [
+    ("qkv_path", 2048, 768, 2304, {}),
+    ("qkv_path_no_bias", 2048, 768, 2304, dict(bias=False)),
+    ("few_rows_n8", 8, 768, 2304, {}),
+    ("ragged_1000x33x17", 1000, 33, 17, {}),
+    ("d1600_f4800", 512, 1600, 4800, {}),
+    ("bias_zeros", 300, 64, 96, dict(zeros=True)),
+]
+# (name, N, F, kwargs) of the bias_gelu kernels: the MLP epilogue of the
+# smp.nn path, few rows, ragged N and F, GPT-2 1.5B's intermediate width, and
+# b and g with zeros.
+GELU_CASES = [
+    ("mlp_path", 2048, 3072, {}),
+    ("few_rows_n8", 8, 3072, {}),
+    ("ragged_1000x17", 1000, 17, {}),
+    ("d1600_f6400", 512, 6400, {}),
+    ("b_g_zeros", 300, 96, dict(zeros=True)),
+]
+# matmul_bias, as a share of the plain version's largest |y|: fp32 1e-5 (the
+# same fp32 sum in another order); bf16 1e-2 (both round that sum to bf16, so
+# a rounding flip moves one element by a bf16 ulp, 2**-8 of its size).
+# bias_gelu, per element against |y|: the forward fp32 1e-5 + 1e-5 |y| (tanhf
+# against torch's tanh, an ulp or two), bf16 2**-7 |y| + 1e-5 (one rounding to
+# bf16 flipped); the backward's dpre is fp32 in both dtypes, 1e-5 + 1e-5 |y|.
+MB_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+GELU_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2**-7)}  # (abs, rel)
+
+
+def mb_inputs(N, D, F, dtype, gen, kw):
+    """(x [N, D], w [F, D], b [F] or None) of a MB_CASES case on ``gen``'s
+    device, in ``dtype``."""
+    x = torch.randn(N, D, generator=gen, device=gen.device).to(dtype)
+    w = (0.05 * torch.randn(F, D, generator=gen, device=gen.device)).to(dtype)
+    b = None
+    if kw.get("bias", True):
+        b = torch.randn(F, generator=gen, device=gen.device).to(dtype)
+        if kw.get("zeros"):
+            b[::3] = 0
+    return x, w, b
+
+
+def gelu_inputs(N, F, dtype, gen, kw):
+    """(x [N, F], b [F], g [N, F]) of a GELU_CASES case on ``gen``'s device,
+    in ``dtype``."""
+    x = (2.0 * torch.randn(N, F, generator=gen, device=gen.device)).to(dtype)
+    b = torch.randn(F, generator=gen, device=gen.device).to(dtype)
+    g = torch.randn(N, F, generator=gen, device=gen.device).to(dtype)
+    if kw.get("zeros"):
+        b[::3] = 0
+        g[:, ::4] = 0
+    return x, b, g
+
+
+def mb_compare(x, w, b):
+    """matmul_bias against its plain version: (max abs error, ok, detail)."""
+    from smdistributed_modelparallel_tpu_torch.ops.matmul_bias import matmul_bias_fwd, reference_matmul_bias
+
+    y = matmul_bias_fwd(x, w, b)
+    torch.cuda.synchronize()
+    ref = reference_matmul_bias(x, w, b)
+    err = float((y.float() - ref.float()).abs().max())
+    scale = max(float(ref.float().abs().max()), 1e-6)
+    ok = y.dtype == x.dtype and bool(torch.isfinite(y).all()) and err <= MB_TOL[x.dtype] * scale
+    return err, ok, f"max|dy| {err:.2e} of max|y| {scale:.2e} (tol {MB_TOL[x.dtype]:.0e} of it)"
+
+
+def gelu_compare(x, b, g):
+    """The two bias_gelu kernels against their plain versions: {kernel name:
+    (max abs error, ok, detail)}."""
+    from smdistributed_modelparallel_tpu_torch.ops.bias_gelu import (
+        bias_gelu_bwd,
+        bias_gelu_fwd,
+        reference_bias_gelu,
+        reference_bias_gelu_bwd,
+    )
+
+    y = bias_gelu_fwd(x, b)
+    torch.cuda.synchronize()
+    dpre = bias_gelu_bwd(x, b, g)
+    torch.cuda.synchronize()
+    out = {}
+    for name, got, ref, (atol, rtol) in (
+        ("bias_gelu_fwd", y, reference_bias_gelu(x, b), GELU_TOL[x.dtype]),
+        ("bias_gelu_bwd", dpre, reference_bias_gelu_bwd(x, b, g), GELU_TOL[torch.float32]),
+    ):
+        d = (got.float() - ref.float()).abs()
+        ok = got.dtype == ref.dtype and bool(torch.isfinite(got).all()) and bool(
+            (d <= atol + rtol * ref.float().abs()).all())
+        out[name] = (float(d.max()), ok, f"max|d| {float(d.max()):.2e} (tol {atol:.0e} + {rtol:.1e} |y|)")
+    return out
+
+
+def _phase_b_new(failures):
+    """matmul_bias and the bias_gelu kernels against their plain versions
+    over MB_CASES and GELU_CASES, in fp32 and bf16. Returns the errors at the
+    smp.nn path's shapes in bf16."""
+    counters = _new_counters()
+    saved = {k: fn.launches for k, fn in counters.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    path_err = {}
+    for name, N, D, F, kw in MB_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).removeprefix("torch.")
+            err, ok, detail = mb_compare(*mb_inputs(N, D, F, dtype, gen, kw))
+            log(f"[B] matmul_bias     {name:20s} N={N} D={D} F={F} {tag:9s} {detail} {'ok' if ok else 'FAIL'}")
+            if name == "qkv_path" and dtype == torch.bfloat16:
+                path_err["matmul_bias"] = err
+            if not ok:
+                failures.append(f"matmul_bias/{name}/{tag}")
+    for name, N, F, kw in GELU_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).removeprefix("torch.")
+            for kname, (err, ok, detail) in gelu_compare(*gelu_inputs(N, F, dtype, gen, kw)).items():
+                log(f"[B] {kname:15s} {name:20s} N={N} F={F} {tag:9s} {detail} {'ok' if ok else 'FAIL'}")
+                if name == "mlp_path" and dtype == torch.bfloat16:
+                    path_err[kname] = err
+                if not ok:
+                    failures.append(f"{kname}/{name}/{tag}")
+    for k, fn in counters.items():
+        fn.launches = saved[k]  # comparison launches do not count
+    return path_err
+
+
 def _bound(nbytes, flops, dtype):
     """(bound ms, what bounds it): the larger of the bytes over the memory
     rate and the operations over the peak rate of their type."""
@@ -754,6 +1059,73 @@ def phase_c():
     for fn, n in zip(counters, saved):
         fn.launches = n  # timing launches do not count
     out.update(_phase_c_ce())
+    out.update(_phase_c_new())
+    return out
+
+
+def _phase_c_new():
+    """matmul_bias at the smp.nn path's fused QKV (N 2048, D 768, F 2304)
+    and the bias_gelu kernels at its MLP epilogue ([2048, 3072]), bf16:
+    kernel, plain version and one library call computing the same function
+    (``torch.addmm``; ``F.gelu(x + b, approximate="tanh")`` and its autograd
+    backward), which the port never calls; the bound from the bytes each
+    input and output moves once and the operations at their type's peak."""
+    import torch.nn.functional as F
+
+    from smdistributed_modelparallel_tpu_torch.ops.bias_gelu import (
+        bias_gelu_bwd,
+        bias_gelu_fwd,
+        reference_bias_gelu,
+        reference_bias_gelu_bwd,
+    )
+    from smdistributed_modelparallel_tpu_torch.ops.matmul_bias import matmul_bias_fwd, reference_matmul_bias
+
+    counters = _new_counters()
+    saved = {k: fn.launches for k, fn in counters.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dtype, esz = torch.bfloat16, 2
+    out = {}
+
+    N, D, Fo = 2048, 768, 2304
+    x, w, b = mb_inputs(N, D, Fo, dtype, gen, {})
+    ms = cuda_time_ms(lambda: matmul_bias_fwd(x, w, b))
+    plain_ms = cuda_time_ms(lambda: reference_matmul_bias(x, w, b))
+    library_ms = cuda_time_ms(lambda: torch.addmm(b, x, w.t()))
+    nbytes = (N * D + Fo * D + Fo + N * Fo) * esz
+    flops = 2 * N * D * Fo
+    bound_ms, bound_by = _bound(nbytes, flops, dtype)
+    out["matmul_bias"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    log(f"[C] matmul_bias N={N} D={D} F={Fo} bf16: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, library (torch.addmm) {library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+
+    N, Fo = 2048, 3072
+    x, b, g = gelu_inputs(N, Fo, dtype, gen, {})
+    xr, br = x.detach().clone().requires_grad_(), b.detach().clone().requires_grad_()
+    lib_out = F.gelu(xr + br, approximate="tanh")
+    # Operations per element, as the kernels do them in fp32: the forward's
+    # add, cube (3), add, scale, tanh (counted as 1), add, 2 multiplies; the
+    # backward's add, inner (5), tanh, sech2 (2), dinner (4), left (2),
+    # right (3), sum and the product with g.
+    rows = (
+        ("bias_gelu_fwd", lambda: bias_gelu_fwd(x, b), lambda: reference_bias_gelu(x, b),
+         lambda: F.gelu(x + b, approximate="tanh"), 2 * N * Fo * esz + Fo * esz, 10 * N * Fo,
+         "F.gelu(x + b, approximate='tanh')"),
+        ("bias_gelu_bwd", lambda: bias_gelu_bwd(x, b, g), lambda: reference_bias_gelu_bwd(x, b, g),
+         lambda: torch.autograd.grad(lib_out, (xr, br), g, retain_graph=True),
+         N * Fo * (2 * esz + 4) + Fo * esz, 20 * N * Fo, "its autograd backward, dx and db"),
+    )
+    for name, kernel, plain, library, nbytes, flops, what in rows:
+        ms = cuda_time_ms(kernel)
+        plain_ms = cuda_time_ms(plain)
+        library_ms = cuda_time_ms(library)
+        bound_ms, bound_by = _bound(nbytes, flops, torch.float32)  # the operations are fp32
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        log(f"[C] {name} N={N} F={Fo} bf16: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain "
+            f"{plain_ms:.4f} ms, library ({what}) {library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+            f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+    for k, fn in counters.items():
+        fn.launches = saved[k]  # timing launches do not count
     return out
 
 
@@ -895,13 +1267,31 @@ def phase_p():
         optimizer.step()
     prof, wall_ms = profiled(one_step)
     _profile_report(f"capacity step batch {CAP_BATCH} x {CAP_SEQ}, 1 microbatch", prof, wall_ms, 14)
+    del model, optimizer, train_step
+
+    # The smp.nn path's step, fused and unfused, from the same weights.
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+
+    lm = init_weights_(smp.nn.DistributedTransformerLMHead(**LM_CFG, device="cuda"), LM_CFG["initializer_range"], g)
+    lm_state = {k: v.detach().clone() for k, v in lm.state_dict().items()}
+    del lm
+    ids = torch.randint(0, 50257, (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
+    for fused in (True, False):
+        model, optimizer, train_step = _lm_setup(lm_state, fused, "cuda")
+        for _ in range(TRAIN_WARMUP):
+            train_step(model, ids)
+            optimizer.step()
+        prof, wall_ms = profiled(one_step)
+        _profile_report(f"smp.nn step batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MB} microbatches, "
+                        f"{'fused' if fused else 'unfused'}", prof, wall_ms, 16)
+        del model, optimizer, train_step
     smp.reset()
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, T, F, B, C (the default, all five) and P (profiles)")
+                        help="phases to run: A, T, F, L, B, C (the default, all six) and P (profiles)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -916,13 +1306,15 @@ def main():
     log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     build()
-    serve_launches, train_launches, cap_launches, errs, timing = {}, {}, {}, None, None
+    serve_launches, train_launches, cap_launches, lm_launches, errs, timing = {}, {}, {}, {}, None, None
     if "A" in args.phases:
         serve_launches = phase_a()
     if "T" in args.phases:
         train_launches, _ = phase_t()
     if "F" in args.phases:
         cap_launches, _ = phase_f()
+    if "L" in args.phases:
+        lm_launches, _ = phase_l()
     if "B" in args.phases:
         errs = phase_b()
     if "C" in args.phases:
@@ -932,10 +1324,12 @@ def main():
 
     if not set(DEFAULT_PHASES) <= set(args.phases):
         return 0  # a partial run prints no result
-    fwd_err, bwd_err = errs
-    # Launches on the main paths: serving's prefills (A), training (T) and
-    # the capacity path (F), each counted from 0 just before it.
-    launches = {k: serve_launches.get(k, 0) + train_launches.get(k, 0) + cap_launches[k] for k in cap_launches}
+    fwd_err, bwd_err, new_err = errs
+    # Launches on the main paths: serving's prefills (A), training (T), the
+    # capacity path (F) and the smp.nn path (L), each counted from 0 just
+    # before it.
+    paths = (serve_launches, train_launches, cap_launches, lm_launches)
+    launches = {k: sum(p.get(k, 0) for p in paths) for k in {**cap_launches, **lm_launches}}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"
     tpu_ce = "smdistributed_modelparallel_tpu/ops/pallas_ce.py:"
@@ -952,6 +1346,12 @@ def main():
         dict(name=name, route="cuda", source=src + "fused_ce.cu", replaces=tpu_ce + line,
              launches=launches[name], **timing[name])
         for name, line in (("fused_ce_fwd", "46"), ("fused_ce_bwd_dx", "95"), ("fused_ce_bwd_dw", "130"))
+    ] + [  # max_abs_err at the smp.nn path's shapes in bf16 (phase B), times there (phase C)
+        dict(name=name, route="cuda", source=src + source, replaces="smdistributed_modelparallel_tpu/ops/" + replaces,
+             launches=launches[name], max_abs_err=new_err[name], **timing[name])
+        for name, source, replaces in (("matmul_bias", "matmul_bias.cu", "pallas_qkv.py:54"),
+                                       ("bias_gelu_fwd", "bias_gelu.cu", "pallas_gelu.py:54"),
+                                       ("bias_gelu_bwd", "bias_gelu.cu", "pallas_gelu.py:59"))
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
-"""Carry ``TransformerLM`` weights from the JAX package to this one.
+"""Carry ``TransformerLM`` and ``DistributedTransformerLMHead`` weights from
+the JAX package to this one.
 
 ``params_from_jax`` maps the flax parameter tree of
 ``smdistributed_modelparallel_tpu.models.transformer_lm.TransformerLM``
@@ -11,6 +12,15 @@
   - LayerNorm ``scale`` is ``weight``; embeddings are ``embedding`` ->
     ``weight``; the tied head has no weight of its own (it reads
     ``wte.weight``), an untied one is ``lm_head``.
+
+``lm_head_params_from_jax`` does the same for the flax tree of
+``smdistributed_modelparallel_tpu.nn.transformer.DistributedTransformerLMHead``
+onto this package's ``nn.transformer.DistributedTransformerLMHead``, whose
+layer leaves sit under ``transformer/seq_layers/layer/`` with the leading
+[num_layers] axis. Multi-axis kernels become ``nn.Linear`` weights: the qkv
+kernel [D, 3, H, hd] is flattened to [D, 3*H*hd] (columns (c, h, k)) and
+transposed, the output projection [H, hd, D] flattened to [H*hd, D] and
+transposed, and their biases flattened. A leaf it does not know raises.
 """
 
 import numpy as np
@@ -54,5 +64,64 @@ def params_from_jax(params):
                 out[f"layers.{i}.{name}"] = t
         else:
             name, t = _leaf(path, value)
+            out[name] = t
+    return out
+
+
+# Kernels of DistributedTransformerLMHead's tree by module path, with the
+# number of leading (input) axes each contracts; every other axis is output.
+_LMHEAD_KERNELS = {
+    "attention/qkv": 1,             # [D, 3, H, hd]
+    "attention/dense": 2,           # [H, hd, D]
+    "crossattention/query": 1,      # [D, H, hd]
+    "crossattention/key_value": 1,  # [D, 2, H, hd]
+    "crossattention/dense": 2,      # [H, hd, D]
+    "output/fc": 1,                 # [D, F]
+    "output/gate": 1,               # [D, F]
+    "output/proj": 1,               # [F, D]
+    "lm_head": 1,                   # [D, V]
+}
+_LMHEAD_NORMS = {
+    "attention/layernorm", "attention/post_layernorm", "crossattention/layernorm",
+    "crossattention/post_layernorm", "output/layernorm", "output/post_layernorm", "ln_f",
+    "embedding_layernorm",
+}
+_LMHEAD_EMBEDDINGS = {"word_embedding", "position_embedding", "token_type_embedding"}
+_LAYER_PREFIX = "transformer/seq_layers/layer/"
+
+
+def _lm_head_leaf(path, value):
+    """(torch name, tensor) for one leaf of DistributedTransformerLMHead's
+    tree (the layer axis already taken off)."""
+    mod, kind = path.rsplit("/", 1)
+    arr = np.asarray(value)
+    if kind == "kernel" and mod in _LMHEAD_KERNELS:
+        n_in = _LMHEAD_KERNELS[mod]
+        arr = arr.reshape(int(np.prod(arr.shape[:n_in])), -1).T
+        name = "weight"
+    elif kind == "bias" and (mod in _LMHEAD_KERNELS or mod in _LMHEAD_NORMS):
+        arr, name = arr.reshape(-1), "bias"
+    elif kind == "scale" and mod in _LMHEAD_NORMS:
+        name = "weight"
+    elif kind == "embedding" and mod in _LMHEAD_EMBEDDINGS:
+        name = "weight"
+    else:
+        raise KeyError(f"unexpected DistributedTransformerLMHead leaf {path!r}")
+    return f"{mod.replace('/', '.')}.{name}", torch.tensor(np.ascontiguousarray(arr))
+
+
+def lm_head_params_from_jax(params):
+    """flax params of ``DistributedTransformerLMHead`` (nested dict or
+    '/'-joined flat dict of arrays) -> ``state_dict`` of the port's
+    ``DistributedTransformerLMHead``."""
+    out = {}
+    for path, value in _flatten(params).items():
+        if path.startswith(_LAYER_PREFIX):
+            stacked = np.asarray(value)
+            for i in range(stacked.shape[0]):
+                name, t = _lm_head_leaf(path.removeprefix(_LAYER_PREFIX), stacked[i])
+                out[f"transformer.seq_layers.{i}.{name}"] = t
+        else:
+            name, t = _lm_head_leaf(path, value)
             out[name] = t
     return out

@@ -1,10 +1,71 @@
-"""Parameter casting and the decode KV cache.
+"""Helpers of the ``smp.nn`` layers: the tp queries, activation sharding,
+the dropout switch, the fused bias-GELU dispatch, parameter casting and the
+decode KV cache.
 
-Counterparts of ``half_cast`` and ``DecodeKVCache`` in
-``smdistributed_modelparallel_tpu/nn/utils.py``.
+Counterparts on one device of ``smdistributed_modelparallel_tpu/nn/
+utils.py``: ``tp_size``/``tp_enabled``, ``tp_ring_active`` (False until the
+tensor-parallel slice), ``shard_activation`` (the identity: there is no mesh
+to constrain over), ``resolve_deterministic``, ``fused_bias_gelu`` (its
+tp = 1 branch), ``half_cast`` and ``DecodeKVCache``.
 """
 
 import torch
+
+from smdistributed_modelparallel_tpu_torch.backend.state import state
+
+
+def tp_size():
+    if state.cfg is None:
+        return 1
+    return state.cfg.tensor_parallel_degree
+
+
+def tp_enabled():
+    return tp_size() > 1
+
+
+def tp_ring_active():
+    """Whether the overlapped-tp ring path applies: never yet (the ring,
+    ``ops/collective_matmul.py``, arrives with the tensor-parallel slice)."""
+    return False
+
+
+def shard_activation(x, *spec):
+    """Constrain an activation to a partition over the mesh. On one device
+    every axis has size 1, so this is the identity, as the JAX function is
+    for trivial axes."""
+    return x
+
+
+def resolve_deterministic(explicit):
+    """Whether dropout should be skipped: an explicit bool wins; None defers
+    to the wrapping ``DistributedModel``'s train/eval mode (the reference's
+    modules follow ``model.train()``/``.eval()``)."""
+    if explicit is not None:
+        return explicit
+    model = state.model
+    if model is not None:
+        return not model.training
+    return True
+
+
+def fused_bias_gelu(h, b):
+    """Dispatch ``gelu(h + b)`` to the fused kernels (``ops/bias_gelu.py``).
+    At tp = 1 it is a direct call. Callers guard with
+    ``bias_gelu.bias_gelu_ok``."""
+    from smdistributed_modelparallel_tpu_torch.ops.bias_gelu import bias_gelu
+
+    if state.cfg is not None and state.cfg.matmul_precision == "fp8":
+        raise NotImplementedError(
+            "fused_bias_gelu under matmul_precision: fp8 (the fp8 epilogue "
+            "input) is not ported to PyTorch yet (the quant slice)."
+        )
+    if tp_enabled():
+        raise NotImplementedError(
+            "fused_bias_gelu under tensor parallelism (the tp manual region) "
+            "is not ported to PyTorch yet (the tensor-parallel slice)."
+        )
+    return bias_gelu(h, b)
 
 
 def half_cast(state_dict, half):

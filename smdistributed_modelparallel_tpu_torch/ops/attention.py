@@ -9,9 +9,13 @@ dispatch:
   2. otherwise plain PyTorch that reproduces the JAX package's jnp body.
 The kernel path is differentiable through the flash backward kernels
 (``flash_attention``'s ``autograd.Function``) and takes attention dropout
-with the kernels' counter hash. Context parallelism, per-layer local
-selection, the traced scale factors of the JAX entry point and the plain
-path's dropout arrive with the slices that use them.
+with the kernels' counter hash. The ``smp.nn`` layers' per-layer arguments
+(``extra_scale``, ``qk_compensation``, ``local_select``) and the
+``use_pallas_kernels`` switch (``use_pallas``) take the JAX entry point's
+semantics; the layers pass them as Python numbers, which the plain path
+rounds to fp32 where the JAX package's traced fp32 scalars are. Context
+parallelism and the plain path's dropout arrive with the slices that use
+them.
 """
 
 import math
@@ -64,6 +68,11 @@ def _kernel_ok(q, k, v):
     return T >= 128 and S >= 128 and T <= 8192 and S <= 8192 and hd <= 256
 
 
+def _f32(x):
+    """``x`` rounded to fp32, as a Python float."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
 def attention_core(
     q,
     k,
@@ -71,19 +80,35 @@ def attention_core(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    local_select: Optional[bool] = None,
     scale: Optional[float] = None,
+    extra_scale: Optional[float] = None,
+    qk_compensation: Optional[float] = None,
     bias=None,
     mask=None,
     mask_value: float = -1e4,
     attention_in_fp32: bool = False,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
+    use_pallas: bool = True,
 ):
     """Multi-head attention over [B, T, H, hd] q and [B, S, H, hd] k/v.
 
     Args:
       causal/window: static masking (window = local attention band).
-      scale: score scale; default 1/sqrt(hd).
+      local_select: per-layer local/global switch (GPT-Neo
+        ``attention_layers_type``): when given, the causal window band
+        applies only if it is True. Like the JAX gate, it keeps the call on
+        the plain path.
+      scale: score scale; default 1/sqrt(hd). Applied to q before the
+        product so half-precision scores cannot overflow.
+      extra_scale: multiplier on the scale (``scale_attn_by_layer_idx``:
+        1/(layer_idx+1)); the product is taken in fp32. On the kernel path
+        it folds into the kernel's scale.
+      qk_compensation: c of ``query_key_layer_scaling`` (layer_idx+1): the
+        plain path pre-divides q's scale by c and multiplies the fp32 scores
+        back by c. The kernel's score math is fp32 throughout, so, as in the
+        JAX gate, it needs no compensation and keeps the kernel path.
       bias: additive [B|1, H|1, T, S] bias.
       mask: additive or boolean mask broadcastable to [B, 1, T, S]
         (True/0 = keep).
@@ -95,13 +120,17 @@ def attention_core(
         explicit ``torch.Generator``) is given; the JAX package's
         ``_fold_scale_and_seed`` draws its int32 seed the same way from its
         rng. Only the kernel path takes it.
+      use_pallas: False keeps the call off the flash kernels (the config's
+        ``use_pallas_kernels``).
     Returns: [B, T, H, hd].
     """
     hd = q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
+    if extra_scale is not None:
+        scale = _f32(_f32(scale) * _f32(extra_scale))
     rate = float(dropout_rate) if seed is not None else 0.0
-    use_kernel = bias is None and _kernel_ok(q, k, v)
+    use_kernel = use_pallas and bias is None and local_select is None and _kernel_ok(q, k, v)
     kpad = _as_key_padding_bias(mask, mask_value) if use_kernel else None
     if use_kernel and (mask is None or kpad is not None):
         o, _ = flash_attention(q, k, v, kpad, seed=seed if rate > 0.0 else None,
@@ -120,11 +149,17 @@ def attention_core(
     # Pre-scale q in fp32 so a half-precision score product cannot overflow
     # (a Python scale multiplies an fp32 tensor in fp32, as the jnp path's
     # fp32 scalar does, without a host-to-device copy).
-    qc = (q.float() * float(scale)).to(compute_dtype)
+    pre = _f32(scale)
+    if qk_compensation is not None:
+        pre = _f32(pre / _f32(qk_compensation))
+    qc = (q.float() * pre).to(compute_dtype)
     kc = k.to(compute_dtype)
     scores = torch.einsum("bthd,bshd->bhts", qc, kc).float()
+    if qk_compensation is not None:
+        scores = scores * _f32(qk_compensation)
     if causal:
-        cmask = causal_window_mask(T, S, window, device=q.device)
+        banded = window is not None and (local_select is None or bool(local_select))
+        cmask = causal_window_mask(T, S, window if banded else None, device=q.device)
         scores = torch.where(cmask, scores, mask_value)
     elif window is not None:
         # Non-causal local attention: symmetric band of width `window`.

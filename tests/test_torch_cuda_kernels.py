@@ -15,7 +15,9 @@ The backward kernels: fp32 1e-4 and bf16 2e-2 of the largest gradient
 The fused cross-entropy kernels: the forward statistics (fp32 in both
 dtypes) 1e-4 of the largest value; dx and dW 1e-4 (fp32) and 2e-2 (bf16,
 where they come back rounded) of the largest value; the cases, their inputs
-and these tolerances are ``chip_smoke.py``'s phase B sweep.
+and these tolerances are ``chip_smoke.py``'s phase B sweep. So are those of
+``matmul_bias`` and the two ``bias_gelu`` kernels (``MB_CASES``,
+``GELU_CASES``, ``mb_compare``, ``gelu_compare``; tolerances stated there).
 """
 
 import copy
@@ -24,10 +26,24 @@ import pytest
 import torch
 
 import smdistributed_modelparallel_tpu_torch as smp_torch
-from chip_smoke import CE_CASES, CE_TOL, ce_inputs
+from chip_smoke import (
+    CE_CASES,
+    CE_TOL,
+    GELU_CASES,
+    MB_CASES,
+    ce_inputs,
+    gelu_compare,
+    gelu_inputs,
+    mb_compare,
+    mb_inputs,
+)
 from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2, init_gpt2_weights_
 from smdistributed_modelparallel_tpu_torch.nn import cross_entropy as port_ce
+from smdistributed_modelparallel_tpu_torch.nn.transformer import DistributedTransformerLMHead, init_weights_
+from smdistributed_modelparallel_tpu_torch.nn import vocab_parallel_cross_entropy
 from smdistributed_modelparallel_tpu_torch.ops.attention import attention_core
+from smdistributed_modelparallel_tpu_torch.ops.bias_gelu import bias_gelu, bias_gelu_bwd, bias_gelu_fwd
+from smdistributed_modelparallel_tpu_torch.ops.matmul_bias import matmul_bias, matmul_bias_fwd
 from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
     attention_delta,
     flash_attention,
@@ -319,3 +335,104 @@ def test_fused_lm_head_ce_mixed_dtypes_meet_in_the_wider(cuda):
     assert xb.grad.dtype == torch.bfloat16 and wf.grad.dtype == torch.float32
     want = fused_ce_fwd_reference(xb.detach().float(), w, t)
     torch.testing.assert_close(per.detach(), want[0] - want[1], rtol=0, atol=1e-4)
+
+
+# Phase B's sweeps of matmul_bias and the bias_gelu kernels, one definition
+# for both.
+MB_SWEEP = {name: (N, D, F, kw) for name, N, D, F, kw in MB_CASES}
+GELU_SWEEP = {name: (N, F, kw) for name, N, F, kw in GELU_CASES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(MB_SWEEP))
+def test_matmul_bias_kernel_matches_plain_version(cuda, case, dtype):
+    N, D, F, kw = MB_SWEEP[case]
+    x, w, b = mb_inputs(N, D, F, dtype, torch.Generator(device=cuda).manual_seed(0), kw)
+    before = matmul_bias_fwd.launches
+    _, ok, detail = mb_compare(x, w, b)
+    assert matmul_bias_fwd.launches == before + 1
+    assert ok, detail
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(GELU_SWEEP))
+def test_bias_gelu_kernels_match_plain_versions(cuda, case, dtype):
+    N, F, kw = GELU_SWEEP[case]
+    x, b, g = gelu_inputs(N, F, dtype, torch.Generator(device=cuda).manual_seed(1), kw)
+    before = (bias_gelu_fwd.launches, bias_gelu_bwd.launches)
+    results = gelu_compare(x, b, g)
+    assert (bias_gelu_fwd.launches, bias_gelu_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for name, (_, ok, detail) in results.items():
+        assert ok, (name, detail)
+
+
+@pytest.mark.cuda
+def test_matmul_bias_and_bias_gelu_reject_what_they_cannot_run(cuda):
+    x = torch.zeros(8, 16, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        matmul_bias_fwd(x, torch.zeros(4, 16, device=cuda, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        matmul_bias_fwd(x.float(), torch.zeros(4, 16, device=cuda).half())
+    with pytest.raises(ValueError):
+        matmul_bias_fwd(x.float(), torch.zeros(4, 15, device=cuda))
+    with pytest.raises(ValueError):
+        matmul_bias_fwd(x.float(), torch.zeros(4, 16, device=cuda), torch.zeros(4))  # a CPU bias
+    with pytest.raises(TypeError):
+        bias_gelu_fwd(x, torch.zeros(16, device=cuda))
+    with pytest.raises(ValueError):
+        bias_gelu_fwd(x.float(), torch.zeros(15, device=cuda))
+    with pytest.raises(ValueError):
+        bias_gelu_bwd(x.float(), torch.zeros(16, device=cuda), torch.zeros(8, 15, device=cuda))
+
+
+@pytest.mark.cuda
+def test_fused_grads_through_kernels_match_cpu(cuda):
+    """fp32 gradients of x, w and b through ``matmul_bias`` and of x and b
+    through ``bias_gelu`` (the kernels, then their autograd backward) against
+    the CPU's plain versions."""
+    torch.manual_seed(0)
+    x, w, b = torch.randn(300, 64), 0.1 * torch.randn(96, 64), torch.randn(96)
+    runs = {}
+    for device in (cuda, "cpu"):
+        xs, ws, bs = (t.clone().to(device).requires_grad_() for t in (x, w, b))
+        y = bias_gelu(matmul_bias(xs, ws, bs), bs)
+        (y ** 2).sum().backward()
+        runs[str(device)] = [t.grad.cpu() for t in (xs, ws, bs)]
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_smp_nn_fused_step_on_card_matches_cpu(cuda):
+    """One fp32 step of ``DistributedTransformerLMHead`` under ``fused_qkv``
+    and ``fused_bias_gelu`` (2 microbatches, T = 128): the card (the three
+    kernels and the flash kernels) and the CPU (the unfused path, the same
+    function in fp32) give the same loss and gradients."""
+    cfg = dict(num_layers=2, num_attention_heads=4, attention_head_size=16, hidden_size=64, intermediate_size=256,
+               vocab_size=97, num_positions=128, causal_mask_size=128, pre_layernorm=True, post_layernorm=False,
+               final_layernorm=True, attention_dropout_prob=0.0, hidden_dropout_prob=0.0,
+               embedding_dropout_prob=0.0, fused_bias_gelu=True)
+    init = init_weights_(DistributedTransformerLMHead(**cfg), 0.02, torch.Generator().manual_seed(0))
+    ids = torch.randint(0, 97, (2, 128), generator=torch.Generator().manual_seed(1))
+    results = {}
+    before = (matmul_bias_fwd.launches, bias_gelu_fwd.launches, bias_gelu_bwd.launches)
+    for device in (cuda, "cpu"):
+        smp_torch.init({"microbatches": 2, "fused_qkv": True}, device=device)
+        model = smp_torch.DistributedModel(copy.deepcopy(init))
+
+        @smp_torch.step
+        def train_step(model, batch):
+            loss = vocab_parallel_cross_entropy(model(batch)[:, :-1], batch[:, 1:]).mean()
+            model.backward(loss)
+            return loss
+
+        loss = float(train_step(model, ids).reduce_mean())
+        results[str(device)] = (loss, {n: g.cpu() for n, g in model.grads.items()})
+    after = (matmul_bias_fwd.launches, bias_gelu_fwd.launches, bias_gelu_bwd.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (4, 4, 4)  # 2 layers x 2 microbatches, card only
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = results["cuda"], results["cpu"]
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    for name in g_cpu:
+        torch.testing.assert_close(g_gpu[name], g_cpu[name], rtol=1e-4, atol=1e-6, msg=name)
