@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases T # the training path only
     python3 chip_smoke.py --phases F # the capacity path (fused cross-entropy) only
     python3 chip_smoke.py --phases L # the smp.nn path (fused QKV, fused bias-GELU) only
+    python3 chip_smoke.py --phases Q # the smp.nn path under matmul_precision: fp8 only
 
 Builds the port's CUDA kernels from ``smdistributed_modelparallel_tpu_torch/
 csrc`` (one nvcc per source, all started together), then:
@@ -46,6 +47,16 @@ csrc`` (one nvcc per source, all started together), then:
      gradients must agree; a small fp32 model under both knobs trains 3
      steps on the card (kernels) and on the CPU (the unfused path, the same
      function in fp32), losses agreeing.
+  Q. fp8 delayed-scaling training: phase L's model, weights and batch under
+     ``matmul_precision: "fp8"`` with both fused knobs; warm-up steps, then
+     timed steps whose launches are counted (48 ``matmul_fp8`` and no
+     ``matmul_bias`` launch a step, 48 of each bias-GELU and flash kernel).
+     The loss must fall, stay finite and stay within 2e-2 of the bf16 fused
+     step's from the same weights at every step (the JAX package's gate);
+     after the steps the 11 slots the path observes have left scale 1.0 and
+     the other 8 have not. A small fp32 model under fp8 trains 3 steps on
+     the card (kernel) and on the CPU (its plain version, through the fused
+     branch), losses and quant state agreeing.
   B. every kernel against its plain PyTorch version on the card, at the
      main paths' shapes and over a feature sweep, within stated tolerances.
   C. times: kernel, plain version and the one PyTorch library call that
@@ -54,8 +65,8 @@ csrc`` (one nvcc per source, all started together), then:
      also held against their plain versions on the timed inputs, the
      capacity path's N = 32768 included.
   P. (on request) torch.profiler breakdowns of a generate, a training step,
-     a capacity step and the smp.nn path's fused and unfused steps: device
-     time by kernel and the device's idle share.
+     a capacity step and the smp.nn path's fused, unfused and fp8 steps:
+     device time by kernel and the device's idle share.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -64,6 +75,7 @@ fails.
 """
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -71,15 +83,17 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
+import numpy as np
 import torch
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at a 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12, torch.float8_e4m3fn: 1979e12}
 
-KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu"]
-DEFAULT_PHASES = "ATFLBC"
+KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8"]
+DEFAULT_PHASES = "ATFLQBC"
 SEED = 1234
 
 
@@ -521,15 +535,22 @@ def _new_counters():
     return {"matmul_bias": matmul_bias_fwd, "bias_gelu_fwd": bias_gelu_fwd, "bias_gelu_bwd": bias_gelu_bwd}
 
 
-def _lm_setup(init_state, fused, device, cfg=LM_CFG, microbatches=TRAIN_MB, bf16=True):
+def _fp8_counters():
+    from smdistributed_modelparallel_tpu_torch.ops.matmul_fp8 import matmul_fp8
+
+    return {"matmul_fp8": matmul_fp8}
+
+
+def _lm_setup(init_state, fused, device, cfg=LM_CFG, microbatches=TRAIN_MB, bf16=True, **smp_cfg):
     """``smp.nn.DistributedTransformerLMHead`` of ``cfg`` loaded with
-    ``init_state``, under ``fused_qkv`` and ``fused_bias_gelu`` = ``fused``,
-    with AdamW (optax.adamw's defaults) and the smp.nn training step of
-    bench.py:653-660 (logits mode, mean CE of the shifted tokens)."""
+    ``init_state``, under ``fused_qkv`` and ``fused_bias_gelu`` = ``fused``
+    (and ``smp_cfg``'s keys), with AdamW (optax.adamw's defaults) and the
+    smp.nn training step of bench.py:653-660 (logits mode, mean CE of the
+    shifted tokens)."""
     import smdistributed_modelparallel_tpu_torch as smp
     from smdistributed_modelparallel_tpu_torch.nn import vocab_parallel_cross_entropy
 
-    smp.init({"microbatches": microbatches, "bf16": bf16, "fused_qkv": fused})
+    smp.init({"microbatches": microbatches, "bf16": bf16, "fused_qkv": fused, **smp_cfg})
     module = smp.nn.DistributedTransformerLMHead(**cfg, fused_bias_gelu=fused, device="meta")
     module.load_state_dict({k: v.clone() for k, v in init_state.items()}, assign=True)
     model = smp.DistributedModel(module, device=device)
@@ -546,17 +567,20 @@ def _lm_setup(init_state, fused, device, cfg=LM_CFG, microbatches=TRAIN_MB, bf16
     return model, optimizer, train_step
 
 
-def _lm_run(init_state, ids, fused):
+def _lm_run(init_state, ids, fused, **smp_cfg):
     """Train from ``init_state`` on ``ids``: the first step's gradients of
-    LM_GRADS, then warm-up and timed steps whose launches are counted."""
-    model, optimizer, train_step = _lm_setup(init_state, fused, "cuda")
+    LM_GRADS, then warm-up and timed steps whose launches are counted; the
+    quant state after the last step (None outside fp8)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    model, optimizer, train_step = _lm_setup(init_state, fused, "cuda", **smp_cfg)
     losses = [float(train_step(model, ids).reduce_mean())]
     grads = {n: model.grads[n].detach().clone() for n in LM_GRADS}
     optimizer.step()
     for _ in range(TRAIN_WARMUP - 1):
         losses.append(float(train_step(model, ids).reduce_mean()))
         optimizer.step()
-    counters = {**_flash_counters(), **_new_counters()}
+    counters = {**_flash_counters(), **_new_counters(), **_fp8_counters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -567,9 +591,11 @@ def _lm_run(init_state, ids, fused):
         optimizer.step()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    qs = smp.state.quant_state
     out = dict(ms=ms, tokens_per_s=ids.numel() / ms * 1e3, losses=[float(x) for x in losses], grads=grads,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-               launches={name: fn.launches for name, fn in counters.items()})
+               launches={name: fn.launches for name, fn in counters.items()},
+               quant=None if qs is None else qs.state_dict())
     del model, optimizer, train_step
     torch.cuda.empty_cache()
     return out
@@ -599,10 +625,10 @@ def phase_l():
         log(f"[L]   losses {run['losses']}")
         log(f"[L]   launches over {TRAIN_STEPS} steps: {run['launches']}")
     per_step = n_layers * TRAIN_MB
-    want = {k: per_step * TRAIN_STEPS for k in fused["launches"]}
+    want = {**{k: per_step * TRAIN_STEPS for k in {**_flash_counters(), **_new_counters()}}, "matmul_fp8": 0}
     if fused["launches"] != want:
         raise RuntimeError(f"smp.nn path launches {fused['launches']}, expected {want}")
-    if any(unfused["launches"][k] for k in _new_counters()):
+    if any(unfused["launches"][k] for k in {**_new_counters(), **_fp8_counters()}):
         raise RuntimeError(f"the unfused twin launched fused kernels: {unfused['launches']}")
     losses = fused["losses"]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -653,6 +679,122 @@ def phase_l():
         raise RuntimeError("the card's fp32 smp.nn training disagrees with the CPU's")
     smp.reset()
     return fused["launches"], dict(fused=fused, unfused=unfused)
+
+
+# The 11 slots the smp.nn path observes under fp8 (SITE_SLOTS less the
+# linear_* and ring_* seams of the tensor-parallel layers).
+FP8_LIVE_SLOTS = {"qkv.x", "qkv.w", "attn_proj.x", "attn_proj.w", "mlp_fc.x", "mlp_fc.w", "mlp_proj.x",
+                  "mlp_proj.w", "gelu_in.x", "attn_q.x", "attn_k.x"}
+# fp8 against bf16, every step: the JAX package's gate (tests/test_quant.py,
+# rtol 2e-2 on the loss trajectory).
+FP8_LOSS_TOL = 2e-2
+# The small fp32 model, card against CPU, 3 AdamW steps. Only the fp32
+# summation order differs, but that can move an activation across an e4m3 or
+# e5m2 rounding boundary, and AdamW then moves a parameter whose gradient
+# differs in sign by up to 2 lr a step whatever the gradient's size: after
+# two updates up to 4e-4 against weights whose largest is ~0.1, so their
+# maxima, and the activations', by up to ~0.5%. Losses 1e-3 relative; the
+# first step's amax column (the same weights) 1e-5; the whole quant state
+# 2e-2 (measured 8.9e-3 on an H100).
+FP8_SMALL_TOL = dict(loss=1e-3, first=1e-5, state=2e-2)
+
+
+@contextlib.contextmanager
+def _fused_branch_on_cpu():
+    """Send CPU tensors down the fused branch (the ``_is_cuda`` seams of the
+    fused QKV and bias-GELU gates), so the CPU runs the kernels' plain
+    versions where the card runs the kernels."""
+    from smdistributed_modelparallel_tpu_torch.ops import bias_gelu as bg
+    from smdistributed_modelparallel_tpu_torch.ops import matmul_bias as mb
+
+    with mock.patch.object(mb, "_is_cuda", lambda t: True), mock.patch.object(bg, "_is_cuda", lambda t: True):
+        yield
+
+
+def phase_q():
+    """fp8 delayed-scaling training on the smp.nn path: phase L's model,
+    weights and batch under ``matmul_precision: fp8`` with both fused knobs
+    (the fused QKV's fp8 product through ``matmul_fp8``), against the bf16
+    fused step from the same weights; and a small fp32 model under fp8 on the
+    card and on the CPU."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    init = init_weights_(smp.nn.DistributedTransformerLMHead(**LM_CFG, device="cuda"), LM_CFG["initializer_range"], g)
+    n_layers = LM_CFG["num_layers"]
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    ids = torch.randint(0, LM_CFG["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
+
+    base = _lm_run(init_state, ids, True)
+    fp8 = _lm_run(init_state, ids, True, matmul_precision="fp8")
+    for label, run in (("fp8 (matmul_precision: fp8)", fp8), ("bf16", base)):
+        log(f"[Q] smp.nn GPT-2 124M training, both fused knobs, batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+            f"{TRAIN_MB} microbatches, {label}: {run['ms']:.2f} ms/step, {run['tokens_per_s']:.1f} tokens/s (mean "
+            f"of {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up); peak device memory {run['peak_gib']:.2f} GiB")
+        log(f"[Q]   losses {run['losses']}")
+        log(f"[Q]   launches over {TRAIN_STEPS} steps: {run['launches']}")
+    per_step = n_layers * TRAIN_MB
+    want = {**{k: per_step * TRAIN_STEPS for k in {**_flash_counters(), **_new_counters(), **_fp8_counters()}},
+            "matmul_bias": 0}
+    if fp8["launches"] != want:
+        raise RuntimeError(f"fp8 smp.nn path launches {fp8['launches']}, expected {want}")
+    losses = fp8["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"fp8 training loss did not fall or is not finite: {losses}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, base["losses"])]
+    log(f"[Q] fp8 vs bf16 losses: max rel diff over {len(rel)} steps {max(rel):.3e} (limit {FP8_LOSS_TOL:.0e}); "
+        f"per step {[float(f'{r:.3e}') for r in rel]}")
+    if max(rel) > FP8_LOSS_TOL:
+        raise RuntimeError("the fp8 loss trajectory leaves the bf16 one")
+    qs = fp8["quant"]
+    moved = {s for s, sc in zip(qs["slots"], qs["scale"]) if sc != 1.0}
+    idle = [i for i, s in enumerate(qs["slots"]) if s not in FP8_LIVE_SLOTS]
+    log("[Q] quant state after the steps, newest amax / scale: " + ", ".join(
+        f"{s} {h[0]:.4g}/{sc:.4g}" for s, h, sc in zip(qs["slots"], qs["amax_history"], qs["scale"])
+        if s in FP8_LIVE_SLOTS))
+    if moved != FP8_LIVE_SLOTS or (qs["amax_history"][idle] != 0).any():
+        raise RuntimeError(f"fp8 slots that moved: {sorted(moved)}, expected {sorted(FP8_LIVE_SLOTS)}")
+
+    # Small fp32 model under fp8 and both knobs: the kernels on the card, their
+    # plain versions on the CPU (the fused branch, through the _is_cuda seams).
+    small_cfg = dict(LM_CFG, num_layers=2, num_attention_heads=4, attention_head_size=32, hidden_size=128,
+                     intermediate_size=512, vocab_size=97, num_positions=128, causal_mask_size=128)
+    small = init_weights_(smp.nn.DistributedTransformerLMHead(**small_cfg), 0.02,
+                          torch.Generator().manual_seed(SEED))
+    small_state = small.state_dict()
+    ids_s = torch.randint(0, 97, (4, 128), generator=torch.Generator().manual_seed(SEED))
+    runs = {}
+    counter = _fp8_counters()["matmul_fp8"]
+    for device in ("cuda", "cpu"):
+        before = counter.launches
+        with _fused_branch_on_cpu() if device == "cpu" else contextlib.nullcontext():
+            m, opt, step_fn = _lm_setup(small_state, True, device, small_cfg, microbatches=2, bf16=False,
+                                        matmul_precision="fp8")
+            ls = []
+            for _ in range(3):
+                ls.append(float(step_fn(m, ids_s).reduce_mean()))
+                opt.step()
+        runs[device] = (ls, smp.state.quant_state.state_dict(), counter.launches - before)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    q_gpu, q_cpu = runs["cuda"][1], runs["cpu"][1]
+
+    def rel(a, b):
+        return float((abs(a - b) / np.where(b != 0, abs(b), 1.0)).max())
+
+    first_rel = rel(q_gpu["amax_history"][:, 2], q_cpu["amax_history"][:, 2])  # newest first: column 2 is step 1
+    q_rel = max(rel(q_gpu[k], q_cpu[k]) for k in ("amax_history", "scale"))
+    tol = FP8_SMALL_TOL
+    log(f"[Q] fp32 small smp.nn model (d 128, 2 layers, seq 128) under fp8, 3 steps, card (matmul_fp8 launches "
+        f"{runs['cuda'][2]}) vs CPU: losses {runs['cuda'][0]} vs {runs['cpu'][0]}, max rel diff {loss_rel:.3e} "
+        f"(limit {tol['loss']:.0e}); quant state max rel diff: step 1's amax {first_rel:.3e} (limit "
+        f"{tol['first']:.0e}), all {q_rel:.3e} (limit {tol['state']:.0e})")
+    if loss_rel > tol["loss"] or first_rel > tol["first"] or q_rel > tol["state"] or runs["cuda"][2] != 3 * 2 * 2 \
+            or runs["cpu"][2]:
+        raise RuntimeError("the card's fp32 fp8 training disagrees with the CPU's")
+    smp.reset()
+    return fp8["launches"], dict(fp8=fp8, bf16=base)
 
 
 def _inputs(B, T, S, H, hd, dtype, gen):
@@ -755,6 +897,7 @@ def phase_b():
     flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches = saved
     _phase_b_ce(failures)
     new_err = _phase_b_new(failures)
+    new_err["matmul_fp8"] = _phase_b_fp8(failures)
     if failures:
         raise RuntimeError(f"kernel disagrees with its plain version: {failures}")
     return main_err, bwd_main_err, new_err
@@ -978,6 +1121,82 @@ def _phase_b_new(failures):
     return path_err
 
 
+# (name, N, D, F, kwargs) of the matmul_fp8 kernel: the fused QKV of the
+# smp.nn path under fp8 (activation-like operands cast with a delayed scale,
+# and every e4m3 code but NaN: magnitudes up to 448, subnormals, zeros), few
+# rows, ragged N, D and F (D not a multiple of 16: the kernel's byte loads),
+# GPT-2 1.5B's width, and rows of zeros.
+FP8_CASES = [
+    ("qkv_path", 2048, 768, 2304, {}),
+    ("qkv_path_all_codes", 2048, 768, 2304, dict(values="codes")),
+    ("few_rows_n8", 8, 768, 2304, {}),
+    ("ragged_1000x33x17", 1000, 33, 17, dict(values="codes")),
+    ("d1600_f4800", 512, 1600, 4800, {}),
+    ("zero_rows", 300, 64, 96, dict(values="codes", zeros=True)),
+]
+E4M3_NAN_CODES = (0x7F, 0xFF)
+
+
+def fp8_inputs(N, D, F, gen, kw):
+    """(x8 [N, D], w8 [F, D]) float8_e4m3fn of a FP8_CASES case on
+    ``gen``'s device: activation-like N(0, 3) and weight-like N(0, 0.02)
+    values divided by amax / 448 (a delayed scale at its running max) and
+    cast, or with ``values="codes"`` every non-NaN e4m3 code drawn uniformly;
+    ``zeros`` zeroes every third row of x8 and of w8."""
+    if kw.get("values") == "codes":
+        u = torch.randint(0, 256, (N + F, D), generator=gen, device=gen.device, dtype=torch.uint8)
+        for code in E4M3_NAN_CODES:
+            u[u == code] = 0
+        f8 = u.view(torch.float8_e4m3fn)
+        x8, w8 = f8[:N].contiguous(), f8[N:].contiguous()
+    else:
+        x = 3.0 * torch.randn(N, D, generator=gen, device=gen.device)
+        w = 0.02 * torch.randn(F, D, generator=gen, device=gen.device)
+        x8 = (x / (x.abs().max() / 448.0)).clamp(-448.0, 448.0).to(torch.float8_e4m3fn)
+        w8 = (w / (w.abs().max() / 448.0)).clamp(-448.0, 448.0).to(torch.float8_e4m3fn)
+    if kw.get("zeros"):
+        x8.view(torch.uint8)[::3] = 0
+        w8.view(torch.uint8)[::3] = 0
+    return x8, w8
+
+
+def fp8_compare(x8, w8):
+    """matmul_fp8 against its plain version: (max abs error, ok, detail).
+    Each product of two e4m3 values is exact in fp32, so only the order of
+    the fp32 sums differs; any order of a sum of D terms is within D * 2**-24
+    times the sum of their magnitudes of the exact sum, so each element is
+    held to 2 D 2**-24 (|x8| @ |w8|^T) of its own."""
+    from smdistributed_modelparallel_tpu_torch.ops.matmul_fp8 import matmul_fp8, reference_matmul_fp8
+
+    y = matmul_fp8(x8, w8)
+    torch.cuda.synchronize()
+    ref = reference_matmul_fp8(x8, w8)
+    absdot = x8.float().abs().double() @ w8.float().abs().double().t()
+    tol = 2 * x8.shape[1] * 2.0**-24 * absdot
+    d = (y.double() - ref.double()).abs()
+    ok = y.dtype == torch.float32 and bool(torch.isfinite(y).all()) and bool((d <= tol).all())
+    share = float((d / tol.clamp_min(1e-300)).max())
+    return float(d.max()), ok, f"max|dy| {float(d.max()):.2e}, at most {share:.3f} of its element's bound"
+
+
+def _phase_b_fp8(failures):
+    """matmul_fp8 against its plain version over FP8_CASES. Returns the error
+    at the smp.nn path's shape."""
+    counter = _fp8_counters()["matmul_fp8"]
+    saved = counter.launches
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    path_err = None
+    for name, N, D, F, kw in FP8_CASES:
+        err, ok, detail = fp8_compare(*fp8_inputs(N, D, F, gen, kw))
+        log(f"[B] matmul_fp8      {name:20s} N={N} D={D} F={F} e4m3fn    {detail} {'ok' if ok else 'FAIL'}")
+        if name == "qkv_path":
+            path_err = err
+        if not ok:
+            failures.append(f"matmul_fp8/{name}")
+    counter.launches = saved  # comparison launches do not count
+    return path_err
+
+
 def _bound(nbytes, flops, dtype):
     """(bound ms, what bounds it): the larger of the bytes over the memory
     rate and the operations over the peak rate of their type."""
@@ -1060,7 +1279,34 @@ def phase_c():
         fn.launches = n  # timing launches do not count
     out.update(_phase_c_ce())
     out.update(_phase_c_new())
+    out.update(_phase_c_fp8())
     return out
+
+
+def _phase_c_fp8():
+    """matmul_fp8 at the smp.nn path's fused QKV under fp8 (N 2048, D 768, F
+    2304): kernel, plain version and one library call computing the same
+    function, ``torch._scaled_mm`` with unit scales and an fp32 output, which
+    the port never calls; the bound from the bytes of x8, w8 and the fp32 y
+    and the operations at the fp8 peak."""
+    from smdistributed_modelparallel_tpu_torch.ops.matmul_fp8 import matmul_fp8, reference_matmul_fp8
+
+    counter = _fp8_counters()["matmul_fp8"]
+    saved = counter.launches
+    N, D, Fo = 2048, 768, 2304
+    x8, w8 = fp8_inputs(N, D, Fo, torch.Generator(device="cuda").manual_seed(SEED), {})
+    one = torch.ones((), device="cuda")
+    ms = cuda_time_ms(lambda: matmul_fp8(x8, w8))
+    plain_ms = cuda_time_ms(lambda: reference_matmul_fp8(x8, w8))
+    library_ms = cuda_time_ms(lambda: torch._scaled_mm(x8, w8.t(), scale_a=one, scale_b=one, out_dtype=torch.float32))
+    nbytes = N * D + Fo * D + 4 * N * Fo
+    flops = 2 * N * D * Fo
+    bound_ms, bound_by = _bound(nbytes, flops, torch.float8_e4m3fn)
+    log(f"[C] matmul_fp8 N={N} D={D} F={Fo} e4m3fn -> fp32: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
+        f"plain {plain_ms:.4f} ms, library (torch._scaled_mm) {library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    counter.launches = saved  # timing launches do not count
+    return {"matmul_fp8": dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)}
 
 
 def _phase_c_new():
@@ -1276,14 +1522,15 @@ def phase_p():
     lm_state = {k: v.detach().clone() for k, v in lm.state_dict().items()}
     del lm
     ids = torch.randint(0, 50257, (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
-    for fused in (True, False):
-        model, optimizer, train_step = _lm_setup(lm_state, fused, "cuda")
+    for label, fused, smp_cfg in (("fused", True, {}), ("unfused", False, {}),
+                                  ("fused, matmul_precision: fp8", True, {"matmul_precision": "fp8"})):
+        model, optimizer, train_step = _lm_setup(lm_state, fused, "cuda", **smp_cfg)
         for _ in range(TRAIN_WARMUP):
             train_step(model, ids)
             optimizer.step()
         prof, wall_ms = profiled(one_step)
-        _profile_report(f"smp.nn step batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MB} microbatches, "
-                        f"{'fused' if fused else 'unfused'}", prof, wall_ms, 16)
+        _profile_report(f"smp.nn step batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MB} microbatches, {label}", prof,
+                        wall_ms, 16)
         del model, optimizer, train_step
     smp.reset()
 
@@ -1291,7 +1538,7 @@ def phase_p():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, T, F, L, B, C (the default, all six) and P (profiles)")
+                        help="phases to run: A, T, F, L, Q, B, C (the default, all seven) and P (profiles)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1306,7 +1553,8 @@ def main():
     log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     build()
-    serve_launches, train_launches, cap_launches, lm_launches, errs, timing = {}, {}, {}, {}, None, None
+    serve_launches, train_launches, cap_launches, lm_launches, q_launches = {}, {}, {}, {}, {}
+    errs = timing = None
     if "A" in args.phases:
         serve_launches = phase_a()
     if "T" in args.phases:
@@ -1315,6 +1563,8 @@ def main():
         cap_launches, _ = phase_f()
     if "L" in args.phases:
         lm_launches, _ = phase_l()
+    if "Q" in args.phases:
+        q_launches, _ = phase_q()
     if "B" in args.phases:
         errs = phase_b()
     if "C" in args.phases:
@@ -1326,10 +1576,10 @@ def main():
         return 0  # a partial run prints no result
     fwd_err, bwd_err, new_err = errs
     # Launches on the main paths: serving's prefills (A), training (T), the
-    # capacity path (F) and the smp.nn path (L), each counted from 0 just
-    # before it.
-    paths = (serve_launches, train_launches, cap_launches, lm_launches)
-    launches = {k: sum(p.get(k, 0) for p in paths) for k in {**cap_launches, **lm_launches}}
+    # capacity path (F), the smp.nn path (L) and its fp8 run (Q), each
+    # counted from 0 just before it.
+    paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches)
+    launches = {k: sum(p.get(k, 0) for p in paths) for k in {**cap_launches, **lm_launches, **q_launches}}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"
     tpu_ce = "smdistributed_modelparallel_tpu/ops/pallas_ce.py:"
@@ -1346,12 +1596,13 @@ def main():
         dict(name=name, route="cuda", source=src + "fused_ce.cu", replaces=tpu_ce + line,
              launches=launches[name], **timing[name])
         for name, line in (("fused_ce_fwd", "46"), ("fused_ce_bwd_dx", "95"), ("fused_ce_bwd_dw", "130"))
-    ] + [  # max_abs_err at the smp.nn path's shapes in bf16 (phase B), times there (phase C)
+    ] + [  # max_abs_err at the smp.nn path's shapes (bf16; e4m3 for matmul_fp8; phase B), times there (C)
         dict(name=name, route="cuda", source=src + source, replaces="smdistributed_modelparallel_tpu/ops/" + replaces,
              launches=launches[name], max_abs_err=new_err[name], **timing[name])
         for name, source, replaces in (("matmul_bias", "matmul_bias.cu", "pallas_qkv.py:54"),
                                        ("bias_gelu_fwd", "bias_gelu.cu", "pallas_gelu.py:54"),
-                                       ("bias_gelu_bwd", "bias_gelu.cu", "pallas_gelu.py:59"))
+                                       ("bias_gelu_bwd", "bias_gelu.cu", "pallas_gelu.py:59"),
+                                       ("matmul_fp8", "matmul_fp8.cu", "pallas_qkv.py:162"))
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -5,8 +5,12 @@ slice, keeping its public names. It serves (``smp.generate``) and trains
 (``@smp.step``, ``smp.DistributedOptimizer``) the ``TransformerLM`` zoo
 (``models.gpt2``) on one device, with flash attention and the fused LM-head
 cross-entropy as hand-written CUDA kernels for Hopper (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``, ``csrc/fused_ce.cu``). Entry points run on ``cuda``
-unless the caller names another device.
+``csrc/flash_bwd.cu``, ``csrc/fused_ce.cu``), and the ``smp.nn`` transformer
+family at tp = 1, whose fused QKV and bias-GELU are kernels too
+(``csrc/matmul_bias.cu``, ``csrc/bias_gelu.cu``) and which trains under
+``matmul_precision: fp8`` with delayed scaling (``quant``; the fused QKV's
+fp8 product is ``csrc/matmul_fp8.cu``). Entry points run on ``cuda`` unless
+the caller names another device.
 
     import torch
     import smdistributed_modelparallel_tpu_torch as smp
@@ -28,7 +32,7 @@ unless the caller names another device.
     out = smp.generate(model, prompt_ids, max_new_tokens=32)
 """
 
-from smdistributed_modelparallel_tpu_torch import amp, nn
+from smdistributed_modelparallel_tpu_torch import amp, nn, quant
 from smdistributed_modelparallel_tpu_torch.backend.config import ModelParallelConfig
 from smdistributed_modelparallel_tpu_torch.backend.split import StepOutput
 from smdistributed_modelparallel_tpu_torch.backend.state import state
@@ -57,7 +61,8 @@ def is_initialized():
 
 
 def reset():
-    """Drop the config, device, model, optimizer and loss scaler."""
+    """Drop the config, device, model, optimizer, loss scaler and quant
+    state."""
     state.reset()
 
 
@@ -74,6 +79,7 @@ __all__ = [
     "init",
     "is_initialized",
     "nn",
+    "quant",
     "reset",
     "step",
 ]

@@ -4,8 +4,10 @@ Counterpart of ``smdistributed_modelparallel_tpu/backend/state.py``. This
 package runs on one device in one process, so the state is the resolved
 config, whether ``smp.init`` ran, the device that ``smp.init`` named (None:
 a ``DistributedModel`` resolves it to cuda), the current model and
-optimizer, and the fp16 loss scaler (a ``DynamicLossScaler`` when the
-config asks for fp16, as in the JAX package).
+optimizer, the fp16 loss scaler (a ``DynamicLossScaler`` when the config
+asks for fp16, as in the JAX package) and the fp8 delayed-scaling state
+(``quant.QuantState``, created by the first step under
+``matmul_precision: fp8``).
 """
 
 
@@ -32,6 +34,7 @@ class ModelParallelState:
         self.model = None
         self.optimizer = None
         self.loss_scaler = None
+        self.quant_state = None
 
 
 state = ModelParallelState()

@@ -21,6 +21,9 @@ layer leaves sit under ``transformer/seq_layers/layer/`` with the leading
 kernel [D, 3, H, hd] is flattened to [D, 3*H*hd] (columns (c, h, k)) and
 transposed, the output projection [H, hd, D] flattened to [H*hd, D] and
 transposed, and their biases flattened. A leaf it does not know raises.
+
+``quant_state_from_jax`` carries the fp8 delayed-scaling state
+(``QuantState.state_dict()``) across.
 """
 
 import numpy as np
@@ -125,3 +128,18 @@ def lm_head_params_from_jax(params):
             name, t = _lm_head_leaf(path, value)
             out[name] = t
     return out
+
+
+def quant_state_from_jax(sd):
+    """The JAX package's ``QuantState.state_dict()`` (numpy) -> the port's
+    ``quant.QuantState`` state dict, for ``load_state_dict``. Both keep the
+    same format (fp32 ``amax_history`` [slots, history], ``scale`` [slots]
+    and the ``slots`` names), so this checks the shapes and copies; the
+    slot-keyed restore happens in ``load_state_dict``."""
+    slots = [str(s) for s in sd["slots"]]
+    hist = np.array(sd["amax_history"], np.float32)
+    scale = np.array(sd["scale"], np.float32)
+    if hist.ndim != 2 or hist.shape[0] != len(slots) or scale.shape != (len(slots),):
+        raise ValueError(f"malformed QuantState: amax_history {hist.shape}, scale {scale.shape}, "
+                         f"{len(slots)} slots")
+    return {"amax_history": hist, "scale": scale, "slots": slots}

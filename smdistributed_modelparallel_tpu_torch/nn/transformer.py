@@ -4,8 +4,9 @@ Counterpart of ``smdistributed_modelparallel_tpu/nn/transformer.py`` on one
 device (pp = tp = dp = 1), as ``torch.nn`` modules:
 
 - ``DistributedAttentionLayer``: self- or cross-attention; the fused QKV
-  projection (``fused_qkv`` in the config) through ``ops/matmul_bias.py``,
-  or the unfused product with the bias added in the activation dtype;
+  projection (``fused_qkv`` in the config) through ``ops/matmul_bias.py``
+  (``ops/matmul_fp8.py`` under fp8), or the unfused product with the bias
+  added in the activation dtype;
   rotary positions (GPT-J and NeoX), the per-layer ``scale_attn_by_layer_idx``
   and ``query_key_layer_scaling`` factors and ``attention_layers_type``'s
   local/global switch, all handed to ``ops/attention.attention_core``;
@@ -29,6 +30,14 @@ flattened), ``attention.dense`` (the [H, hd, D] kernel), ``output.fc``,
 ``attention/layernorm`` lives in the attention module here
 (``attention.layernorm``) and is applied by the layer, as in flax.
 
+Under ``matmul_precision: fp8`` (inside an ``@smp.step``, where
+``quant.fp8_trace_active()``) the JAX package's fp8 seams run through
+``quant``: the QKV, attention output, MLP fc (and gate) and proj products
+(``fp8_matmul``, slots ``qkv``, ``attn_proj``, ``mlp_fc``, ``mlp_proj``), and
+the fake-quantized score operands (``attn_q.x``, ``attn_k.x``) and bias-GELU
+input (``gelu_in.x``). The cross-attention key/value product stays as built,
+as in the JAX package.
+
 The config keys ``fused_qkv``, ``use_pallas_kernels`` and ``optimize`` are
 read through ``state.cfg``; ``use_pallas_kernels: False`` keeps every kernel
 off, the flash kernels included. Not ported yet, each raising
@@ -44,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from smdistributed_modelparallel_tpu_torch import quant
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.nn.cross_entropy import (
     fused_lm_head_cross_entropy,
@@ -117,10 +127,15 @@ def init_weights_(module, std=0.02, generator=None):
     return module
 
 
-def _linear(x, weight, bias=None):
+def _linear(x, weight, bias=None, site=None):
     """``x @ weight^T`` in x's dtype, then ``+ bias`` in that dtype: the
-    flax einsum with the bias added after the product is rounded."""
-    y = F.linear(x, weight.to(x.dtype))
+    flax einsum with the bias added after the product is rounded. Under an
+    fp8 step the product of a named seam (``site``) is ``quant.fp8_matmul``'s,
+    as the JAX layers' ``_fp8_mm`` seams are."""
+    if site is not None and quant.fp8_trace_active():
+        y = quant.fp8_matmul(x, weight.to(x.dtype), site)
+    else:
+        y = F.linear(x, weight.to(x.dtype))
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
@@ -218,10 +233,16 @@ class DistributedAttentionLayer(nn.Module):
         if self._fused_qkv_wanted(hidden):
             # One kernel against the [3*H*hd, D] weight, bias in the epilogue
             # (rounded to the activation dtype first, as the JAX call site's
-            # qkv_bias.astype(hidden.dtype) does).
-            qkv = mb.matmul_bias(hidden.reshape(-1, D), w, b).reshape(B, T, 3, H, hd)
+            # qkv_bias.astype(hidden.dtype) does). Under an fp8 step, the fp8
+            # rung: e4m3 operands through ops/matmul_fp8, dequant and bias in
+            # the epilogue.
+            if quant.fp8_trace_active():
+                qkv = quant.fp8_matmul(hidden.reshape(-1, D), w, "qkv", bias=b, use_pallas=True)
+            else:
+                qkv = mb.matmul_bias(hidden.reshape(-1, D), w, b)
+            qkv = qkv.reshape(B, T, 3, H, hd)
         else:
-            qkv = F.linear(hidden, w).reshape(B, T, 3, H, hd)
+            qkv = _linear(hidden, w, site="qkv").reshape(B, T, 3, H, hd)
             if b is not None:
                 qkv = qkv + b.reshape(3, H, hd)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -229,7 +250,7 @@ class DistributedAttentionLayer(nn.Module):
     def _cross_qkv(self, hidden, cross_states):
         B, T = hidden.shape[:2]
         H, hd = self.num_attention_heads, self.attention_head_size
-        q = _linear(hidden, self.query.weight).reshape(B, T, H, hd)
+        q = _linear(hidden, self.query.weight, site="qkv").reshape(B, T, H, hd)
         if self.query.bias is not None:
             q = q + self.query.bias.reshape(H, hd).to(q.dtype)
         cs = cross_states.to(torch.promote_types(cross_states.dtype, hidden.dtype))
@@ -262,6 +283,12 @@ class DistributedAttentionLayer(nn.Module):
             # Numerics only: q pre-divided, the fp32 scores multiplied back.
             qk_compensation = layer_idx + 1.0
         _check_dropout(self.attention_dropout_prob, self.deterministic)
+        if quant.fp8_trace_active():
+            # The score operands round to the e4m3 grid with their slots'
+            # delayed scales (straight-through gradient); the attention then
+            # runs as built.
+            q = quant.fake_quant(q, "attn_q.x")
+            k = quant.fake_quant(k, "attn_k.x")
         ctx = attention_core(
             q, k, v,
             causal=self.causal_mask_size is not None and not self.cross_attention,
@@ -275,7 +302,7 @@ class DistributedAttentionLayer(nn.Module):
             attention_in_fp32=self.attention_in_fp32,
             use_pallas=_cfg("use_pallas_kernels", True),
         )
-        out = _linear(ctx.reshape(B, T, -1), self.dense.weight, self.dense.bias)
+        out = _linear(ctx.reshape(B, T, -1), self.dense.weight, self.dense.bias, site="attn_proj")
         _check_dropout(self.hidden_dropout_prob, self.deterministic)
         return out
 
@@ -317,15 +344,15 @@ class DistributedTransformerOutputLayer(nn.Module):
     def forward(self, hidden):
         _check_tp()
         if self._fused_gelu_wanted(hidden):
-            h = _linear(hidden, self.fc.weight)
+            h = _linear(hidden, self.fc.weight, site="mlp_fc")
             # The bias rounded to the activation dtype first, as the JAX call
             # site's fc_bias.astype(h.dtype) does; the kernels widen it.
             h = fused_bias_gelu(h, self.fc.bias.to(h.dtype))
         else:
-            h = _linear(hidden, self.fc.weight, self.fc.bias)
+            h = _linear(hidden, self.fc.weight, self.fc.bias, site="mlp_fc")
             act = _ACTIVATIONS[self.activation]
-            h = act(_linear(hidden, self.gate.weight)) * h if self.gated_mlp else act(h)
-        out = _linear(h, self.proj.weight, self.proj.bias)
+            h = act(_linear(hidden, self.gate.weight, site="mlp_fc")) * h if self.gated_mlp else act(h)
+        out = _linear(h, self.proj.weight, self.proj.bias, site="mlp_proj")
         _check_dropout(self.hidden_dropout_prob, self.deterministic)
         return out
 

@@ -6,11 +6,12 @@ Counterparts on one device of ``smdistributed_modelparallel_tpu/nn/
 utils.py``: ``tp_size``/``tp_enabled``, ``tp_ring_active`` (False until the
 tensor-parallel slice), ``shard_activation`` (the identity: there is no mesh
 to constrain over), ``resolve_deterministic``, ``fused_bias_gelu`` (its
-tp = 1 branch), ``half_cast`` and ``DecodeKVCache``.
+tp = 1 branch, with the fp8 epilogue input), ``half_cast`` and ``DecodeKVCache``.
 """
 
 import torch
 
+from smdistributed_modelparallel_tpu_torch import quant
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 
 
@@ -52,14 +53,15 @@ def resolve_deterministic(explicit):
 def fused_bias_gelu(h, b):
     """Dispatch ``gelu(h + b)`` to the fused kernels (``ops/bias_gelu.py``).
     At tp = 1 it is a direct call. Callers guard with
-    ``bias_gelu.bias_gelu_ok``."""
+    ``bias_gelu.bias_gelu_ok``.
+
+    Under an fp8 step (``matmul_precision: fp8``) the epilogue INPUT rounds to
+    the e4m3 grid with the ``gelu_in.x`` slot's delayed scale (straight-
+    through gradient) before the kernel, as in the JAX package."""
     from smdistributed_modelparallel_tpu_torch.ops.bias_gelu import bias_gelu
 
-    if state.cfg is not None and state.cfg.matmul_precision == "fp8":
-        raise NotImplementedError(
-            "fused_bias_gelu under matmul_precision: fp8 (the fp8 epilogue "
-            "input) is not ported to PyTorch yet (the quant slice)."
-        )
+    if quant.fp8_trace_active():
+        h = quant.fake_quant(h, "gelu_in.x")
     if tp_enabled():
         raise NotImplementedError(
             "fused_bias_gelu under tensor parallelism (the tp manual region) "

@@ -32,11 +32,18 @@ one draw the "NOT learning" warning. (Under ``fused_step_donation`` the JAX
 package installs the update at the step itself; a loop that calls
 ``optimizer.step()`` after every step sees the same parameters in both.)
 
+Under ``matmul_precision: fp8`` the step installs ``quant.step_trace`` around
+the whole microbatch loop (every forward and every ``autograd.grad``): every
+microbatch quantizes with the scales the step started with, the seams fold
+their amax observations into one running max per slot, and after the last
+microbatch ``quant.finalize`` rolls the histories into ``state.quant_state``,
+as the JAX step program returns its quant output. An eval-only step (no
+``model.backward``) rolls its forward slots the same way.
+
 Not ported yet, each raising ``NotImplementedError`` when asked for:
-pipeline parallelism, tensor parallelism, ZeRO-3 (``sharded_params``),
-fp8 matmuls (``matmul_precision: fp8``), shape buckets
-(``SMP_SHAPE_BUCKETS``), the health sentinel (``SMP_HEALTH_CHECK``), the
-executable cache (``SMP_EXEC_CACHE``), the compiled-program audit
+pipeline parallelism, tensor parallelism, ZeRO-3 (``sharded_params``), shape
+buckets (``SMP_SHAPE_BUCKETS``), the health sentinel (``SMP_HEALTH_CHECK``),
+the executable cache (``SMP_EXEC_CACHE``), the compiled-program audit
 (``SMP_HLO_AUDIT``), and the telemetry, chaos, preemption and supervisor
 hooks of the step edge.
 """
@@ -47,6 +54,7 @@ import os
 
 import torch
 
+from smdistributed_modelparallel_tpu_torch import quant
 from smdistributed_modelparallel_tpu_torch.backend.split import (
     StepOutput,
     TensorSplitter,
@@ -97,8 +105,6 @@ def _check_supported(cfg):
         raise _not_ported("tensor_parallel_degree > 1")
     if cfg.zero3_enabled:
         raise _not_ported("sharded_params: zero3 (ZeRO-3)")
-    if cfg.matmul_precision == "fp8":
-        raise _not_ported("matmul_precision: fp8")
     for env, what, asks in _LEFT_OUT_ENV:
         if asks(env):
             raise _not_ported(f"{what} ({env})")
@@ -169,37 +175,41 @@ class StepFunction:
         names = [n for n, t in bound.items() if t.requires_grad]
         acc = None
         outs = []
-        for mb in range(num_mb):
-            mb_args, mb_kwargs = tree_map(
-                lambda x: x.to(model.device) if isinstance(x, torch.Tensor) else x,
-                (microbatch_slice(stacked_args, mb), microbatch_slice(stacked_kwargs, mb)),
-            )
-            model._begin_microbatch(bound)
-            try:
-                with torch.enable_grad() if self._has_backward is not False else torch.no_grad():
-                    out = self.fn(*mb_args, **mb_kwargs)
-            finally:
-                loss = model._end_microbatch()
-            if self._has_backward is None:
-                self._has_backward = loss is not None
-            if self._has_backward:
-                if loss is None:
-                    raise StepUsageError("model.backward(loss) was not called in the step function.")
-                grads = torch.autograd.grad(
-                    loss * loss_scale if loss_scale != 1.0 else loss,
-                    [bound[n] for n in names], allow_unused=True,
+        qs = quant.ensure_state(model.device) if quant.matmul_precision_mode(cfg) == "fp8" else None
+        with quant.step_trace(qs):
+            for mb in range(num_mb):
+                mb_args, mb_kwargs = tree_map(
+                    lambda x: x.to(model.device) if isinstance(x, torch.Tensor) else x,
+                    (microbatch_slice(stacked_args, mb), microbatch_slice(stacked_kwargs, mb)),
                 )
-                if acc is None:
-                    acc = {n: torch.zeros(params[n].shape, dtype=_acc_dtype(params[n].dtype, cfg),
-                                          device=params[n].device) for n in names}
-                for n, g in zip(names, grads):
-                    if g is not None:
-                        acc[n].add_(g)
-            elif loss is not None:
-                raise StepUsageError(
-                    "model.backward() called in a step function whose first run did not call it."
-                )
-            outs.append(tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor) else x, out))
+                model._begin_microbatch(bound)
+                try:
+                    with torch.enable_grad() if self._has_backward is not False else torch.no_grad():
+                        out = self.fn(*mb_args, **mb_kwargs)
+                finally:
+                    loss = model._end_microbatch()
+                if self._has_backward is None:
+                    self._has_backward = loss is not None
+                if self._has_backward:
+                    if loss is None:
+                        raise StepUsageError("model.backward(loss) was not called in the step function.")
+                    grads = torch.autograd.grad(
+                        loss * loss_scale if loss_scale != 1.0 else loss,
+                        [bound[n] for n in names], allow_unused=True,
+                    )
+                    if acc is None:
+                        acc = {n: torch.zeros(params[n].shape, dtype=_acc_dtype(params[n].dtype, cfg),
+                                              device=params[n].device) for n in names}
+                    for n, g in zip(names, grads):
+                        if g is not None:
+                            acc[n].add_(g)
+                elif loss is not None:
+                    raise StepUsageError(
+                        "model.backward() called in a step function whose first run did not call it."
+                    )
+                outs.append(tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor) else x, out))
+            if qs is not None:
+                qs.absorb(quant.finalize(qs))
 
         if self._has_backward:
             if stale:

@@ -17,11 +17,16 @@ dtypes) 1e-4 of the largest value; dx and dW 1e-4 (fp32) and 2e-2 (bf16,
 where they come back rounded) of the largest value; the cases, their inputs
 and these tolerances are ``chip_smoke.py``'s phase B sweep. So are those of
 ``matmul_bias`` and the two ``bias_gelu`` kernels (``MB_CASES``,
-``GELU_CASES``, ``mb_compare``, ``gelu_compare``; tolerances stated there).
+``GELU_CASES``, ``mb_compare``, ``gelu_compare``; tolerances stated there)
+and of ``matmul_fp8`` (``FP8_CASES``, ``fp8_inputs``, ``fp8_compare``: each
+element within the fp32 summation-order bound of its own). The fp8 casts on
+the card equal the CPU's bit for bit, and one fp32 step of the smp.nn model
+under ``matmul_precision: fp8`` agrees with the CPU's.
 """
 
 import copy
 
+import numpy as np
 import pytest
 import torch
 
@@ -29,21 +34,28 @@ import smdistributed_modelparallel_tpu_torch as smp_torch
 from chip_smoke import (
     CE_CASES,
     CE_TOL,
+    FP8_CASES,
     GELU_CASES,
     MB_CASES,
     ce_inputs,
+    fp8_compare,
+    fp8_inputs,
     gelu_compare,
     gelu_inputs,
     mb_compare,
     mb_inputs,
 )
+from smdistributed_modelparallel_tpu_torch import quant
 from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2, init_gpt2_weights_
 from smdistributed_modelparallel_tpu_torch.nn import cross_entropy as port_ce
 from smdistributed_modelparallel_tpu_torch.nn.transformer import DistributedTransformerLMHead, init_weights_
 from smdistributed_modelparallel_tpu_torch.nn import vocab_parallel_cross_entropy
 from smdistributed_modelparallel_tpu_torch.ops.attention import attention_core
 from smdistributed_modelparallel_tpu_torch.ops.bias_gelu import bias_gelu, bias_gelu_bwd, bias_gelu_fwd
+from smdistributed_modelparallel_tpu_torch.ops import bias_gelu as bg_mod
+from smdistributed_modelparallel_tpu_torch.ops import matmul_bias as mb_mod
 from smdistributed_modelparallel_tpu_torch.ops.matmul_bias import matmul_bias, matmul_bias_fwd
+from smdistributed_modelparallel_tpu_torch.ops.matmul_fp8 import matmul_fp8
 from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
     attention_delta,
     flash_attention,
@@ -436,3 +448,94 @@ def test_smp_nn_fused_step_on_card_matches_cpu(cuda):
     assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
     for name in g_cpu:
         torch.testing.assert_close(g_gpu[name], g_cpu[name], rtol=1e-4, atol=1e-6, msg=name)
+
+
+FP8_SWEEP = {name: (N, D, F, kw) for name, N, D, F, kw in FP8_CASES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FP8_SWEEP))
+def test_matmul_fp8_kernel_matches_plain_version(cuda, case):
+    N, D, F, kw = FP8_SWEEP[case]
+    x8, w8 = fp8_inputs(N, D, F, torch.Generator(device=cuda).manual_seed(2), kw)
+    before = matmul_fp8.launches
+    _, ok, detail = fp8_compare(x8, w8)
+    assert matmul_fp8.launches == before + 1
+    assert ok, detail
+
+
+@pytest.mark.cuda
+def test_matmul_fp8_rejects_what_it_cannot_run(cuda):
+    x8 = torch.zeros(8, 16, device=cuda).to(torch.float8_e4m3fn)
+    w8 = torch.zeros(4, 16, device=cuda).to(torch.float8_e4m3fn)
+    with pytest.raises(TypeError):
+        matmul_fp8(x8.float(), w8)
+    with pytest.raises(TypeError):
+        matmul_fp8(x8, w8.to(torch.float8_e5m2))
+    with pytest.raises(ValueError):
+        matmul_fp8(x8, w8[:, :15])
+    with pytest.raises(ValueError):
+        matmul_fp8(x8, w8.cpu())
+
+
+@pytest.mark.cuda
+def test_fp8_casts_on_card_match_cpu(cuda):
+    """``_cast_f8`` (a true division by the slot's scale, a tensor on the
+    card) and ``_cast_e5m2_current`` give the CPU's bits."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(257, 129, generator=g) * torch.exp(torch.empty(257, 129).uniform_(-6, 5, generator=g))
+    qs = quant.QuantState()
+    qs.scale = torch.rand(len(quant.SITE_SLOTS), generator=g) * 0.05 + 1e-4
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        qs.to(device)
+        with quant.step_trace(qs):
+            x8, _ = quant._cast_f8(x.to(device), "qkv.x")
+            xb8, _ = quant._cast_f8(x.to(device, torch.bfloat16), "mlp_fc.x")
+        g8, dg = quant._cast_e5m2_current(x.to(device) * 1e-3)
+        out[device.type] = [t.cpu().view(torch.uint8) for t in (x8, xb8, g8)] + [float(dg)]
+    for got, want in zip(out["cuda"][:3], out["cpu"][:3]):
+        assert torch.equal(got, want)
+    assert out["cuda"][3] == out["cpu"][3]
+
+
+@pytest.mark.cuda
+def test_smp_nn_fp8_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One fp32 step of ``DistributedTransformerLMHead`` under
+    ``matmul_precision: fp8`` and both fused knobs (2 microbatches, T =
+    128): the card (``matmul_fp8``, the bias-GELU and flash kernels) and the
+    CPU (their plain versions, through the fused branch) give the same loss,
+    gradients and quant state. Only the fp32 summation order differs, which
+    can flip an element across an e4m3 rounding boundary: loss 1e-4
+    relative, gradients 1e-2 in relative L2, the amax observations 1e-5."""
+    monkeypatch.setattr(mb_mod, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(bg_mod, "_is_cuda", lambda t: True)
+    cfg = dict(num_layers=2, num_attention_heads=4, attention_head_size=16, hidden_size=64, intermediate_size=256,
+               vocab_size=97, num_positions=128, causal_mask_size=128, pre_layernorm=True, post_layernorm=False,
+               final_layernorm=True, attention_dropout_prob=0.0, hidden_dropout_prob=0.0,
+               embedding_dropout_prob=0.0, fused_bias_gelu=True)
+    init = init_weights_(DistributedTransformerLMHead(**cfg), 0.02, torch.Generator().manual_seed(0))
+    ids = torch.randint(0, 97, (2, 128), generator=torch.Generator().manual_seed(1))
+    results = {}
+    before = (matmul_fp8.launches, matmul_bias_fwd.launches)
+    for device in (cuda, "cpu"):
+        smp_torch.init({"microbatches": 2, "fused_qkv": True, "matmul_precision": "fp8"}, device=device)
+        model = smp_torch.DistributedModel(copy.deepcopy(init))
+
+        @smp_torch.step
+        def train_step(model, batch):
+            loss = vocab_parallel_cross_entropy(model(batch)[:, :-1], batch[:, 1:]).mean()
+            model.backward(loss)
+            return loss
+
+        loss = float(train_step(model, ids).reduce_mean())
+        results[str(device)] = (loss, {n: g.cpu() for n, g in model.grads.items()},
+                                smp_torch.state.quant_state.state_dict())
+    assert (matmul_fp8.launches - before[0], matmul_bias_fwd.launches - before[1]) == (4, 0)  # card only
+    (l_gpu, g_gpu, q_gpu), (l_cpu, g_cpu, q_cpu) = results["cuda"], results["cpu"]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    diff = sum(float(((g_gpu[n] - g) ** 2).sum()) for n, g in g_cpu.items())
+    norm = sum(float((g ** 2).sum()) for g in g_cpu.values())
+    assert (diff / norm) ** 0.5 <= 1e-2
+    np.testing.assert_allclose(q_gpu["amax_history"], q_cpu["amax_history"], rtol=1e-5, atol=0)
+    np.testing.assert_allclose(q_gpu["scale"], q_cpu["scale"], rtol=1e-5, atol=0)
