@@ -7,6 +7,8 @@
     python3 chip_smoke.py --phases F # the capacity path (fused cross-entropy) only
     python3 chip_smoke.py --phases L # the smp.nn path (fused QKV, fused bias-GELU) only
     python3 chip_smoke.py --phases Q # the smp.nn path under matmul_precision: fp8 only
+    python3 chip_smoke.py --phases R # context-parallel training (two ranks on one card) only
+    python3 chip_smoke.py --phases N # the same with the ranks on two cards (NCCL); needs two cards
 
 Builds the port's CUDA kernels from ``smdistributed_modelparallel_tpu_torch/
 csrc`` (one nvcc per source, all started together), then:
@@ -57,13 +59,30 @@ csrc`` (one nvcc per source, all started together), then:
      the other 8 have not. A small fp32 model under fp8 trains 3 steps on
      the card (kernel) and on the CPU (its plain version, through the fused
      branch), losses and quant state agreeing.
+  R. context-parallel training: two ranks spawned on cuda:0 (the spawn
+     start method, after the kernels are built here; gloo between them,
+     with host copies of CUDA tensors) train GPT-2 124M at full width with
+     learned positions for 4096 tokens (``gpt2_124m(max_len=4096)``, random
+     weights from a seed, bf16, B 2, 2048 tokens a rank, one microbatch,
+     AdamW, a masked-mean loss) for 3 steps under
+     ``context_parallel_impl: ring``, then one step under Ulysses; this
+     process trains the same weights and batch at cp = 1. The losses must
+     agree within 1e-2 at every step, and each rank must launch each
+     ids-mode kernel (the ring's forward, dq and dk/dv) 24 times a step (12
+     layers x 2 ring steps); the Ulysses step launches the plain flash
+     kernels instead.
   B. every kernel against its plain PyTorch version on the card, at the
-     main paths' shapes and over a feature sweep, within stated tolerances.
+     main paths' shapes and over a feature sweep, within stated tolerances;
+     the ids-mode kernels on phase R's ring pairs (each rank's diagonal and
+     off-diagonal step, key padding, dropout with a head remap) and a sweep.
   C. times: kernel, plain version and the one PyTorch library call that
      computes the same function, with CUDA events; and the bound (the least
-     time the card could take for the same work). The fused-CE kernels are
+     time the card could take for the same work; the ids-mode kernels against
+     SDPA with the mask built from the ids). The fused-CE kernels are
      also held against their plain versions on the timed inputs, the
      capacity path's N = 32768 included.
+  N. (on request, on a machine with two cards) phase R with the ranks on
+     cuda:0 and cuda:1, which then talk over NCCL.
   P. (on request) torch.profiler breakdowns of a generate, a training step,
      a capacity step and the smp.nn path's fused, unfused and fp8 steps:
      device time by kernel and the device's idle share.
@@ -79,7 +98,9 @@ import contextlib
 import copy
 import json
 import math
+import multiprocessing as mp
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -93,7 +114,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12, torch.float8_e4m3fn: 1979e12}
 
 KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8"]
-DEFAULT_PHASES = "ATFLQBC"
+DEFAULT_PHASES = "ATFLQRBC"
 SEED = 1234
 
 
@@ -898,6 +919,7 @@ def phase_b():
     _phase_b_ce(failures)
     new_err = _phase_b_new(failures)
     new_err["matmul_fp8"] = _phase_b_fp8(failures)
+    new_err.update(_phase_b_ids(failures))
     if failures:
         raise RuntimeError(f"kernel disagrees with its plain version: {failures}")
     return main_err, bwd_main_err, new_err
@@ -1197,6 +1219,427 @@ def _phase_b_fp8(failures):
     return path_err
 
 
+# ----------------------------------------------------------------------
+# Ids mode: kernels 1-3 over one (q block, kv block) pair of a cp ring step
+# ----------------------------------------------------------------------
+
+
+def zig_ids(dev, Tl, n, device="cuda"):
+    """Global row ids of rank ``dev``'s zigzag block (half-chunks dev and
+    2n-1-dev of Tl / 2 rows each)."""
+    half = Tl // 2
+    ar = torch.arange(half, device=device)
+    return torch.cat([dev * half + ar, (2 * n - 1 - dev) * half + ar])
+
+
+# (name, B, Tl, H, hd, n ranks, q's rank, kv's rank, kwargs). The first six
+# are phase R's ring pairs at its shape (B 2, Tl 2048 of T 4096, 12 heads,
+# hd 64): each rank's diagonal and off-diagonal step, key padding, and
+# dropout with the global stride and a head remap; then n = 4, non-causal,
+# hd 128 and 256, and a ragged contiguous (non-zigzag) block.
+IDS_CASES = [
+    ("r0_diag", 2, 2048, 12, 64, 2, 0, 0, {}),
+    ("r0_off", 2, 2048, 12, 64, 2, 0, 1, {}),
+    ("r1_diag", 2, 2048, 12, 64, 2, 1, 1, {}),
+    ("r1_off", 2, 2048, 12, 64, 2, 1, 0, {}),
+    ("r0_diag_kpad", 2, 2048, 12, 64, 2, 0, 0, dict(kpad=True)),
+    ("r1_off_dropout_head_remap", 2, 2048, 12, 64, 2, 1, 0,
+     dict(dropout_rate=0.1, seed=20261017, counter_len=4096, head0=6, head_total=24)),
+    ("n4_r1_src2", 1, 256, 4, 64, 4, 1, 2, {}),
+    ("noncausal_hd128", 2, 384, 4, 128, 2, 1, 0, dict(causal=False)),
+    ("hd256", 1, 256, 2, 256, 2, 0, 0, {}),
+    ("ragged_tl200_contiguous", 1, 200, 3, 64, 2, 1, 0, dict(contiguous=True)),
+]
+IDS_PATH_CASES = ("r0_diag", "r0_off", "r1_diag", "r1_off", "r0_diag_kpad", "r1_off_dropout_head_remap")
+
+
+def ids_inputs(B, Tl, H, hd, n, me, src, dtype, gen, kw):
+    """(q, k, v, dO, kpad, q_ids, kv_ids, kernel kwargs) of one ring pair."""
+    kw = dict(kw, scale=1.0 / math.sqrt(hd))
+    kw.setdefault("causal", True)
+    q, k, v, do = (torch.randn(B, Tl, H, hd, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    if kw.pop("contiguous", False):
+        qi = me * Tl + torch.arange(Tl, device="cuda")
+        ki = src * Tl + torch.arange(Tl, device="cuda")
+    else:
+        qi, ki = zig_ids(me, Tl, n), zig_ids(src, Tl, n)
+    kpad = None
+    if kw.pop("kpad", False):
+        kpad = torch.zeros(B, Tl, device="cuda")
+        kpad[0, 1024:1200] = -1e30  # rows whose kept keys are all padded
+        kpad[1, ::7] = -1e30
+    return q, k, v, do, kpad, qi, ki, kw
+
+
+def ids_compare(q, k, v, do, kpad, qi, ki, kw):
+    """Each ids-mode kernel against its plain version on one pair; the
+    backward fed the plain forward's o (as the global output) and lse.
+    Returns ({kernel: error}, ok, detail)."""
+    from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
+        attention_delta,
+        flash_bwd_dkv_ids,
+        flash_bwd_dkv_ids_reference,
+        flash_bwd_dq_ids,
+        flash_bwd_dq_ids_reference,
+        flash_fwd_with_ids,
+        flash_fwd_with_ids_reference,
+    )
+
+    dtype = q.dtype
+    o, lse = flash_fwd_with_ids(q, k, v, kpad, qi, ki, **kw)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_fwd_with_ids_reference(q, k, v, kpad, qi, ki, **kw)
+    err_o = float((o - o_ref).abs().max())
+    err_lse = float((lse - lse_ref).abs().max())
+    o_in = o_ref.to(dtype)
+    delta = attention_delta(o_in, do)
+    args = (q, k, v, do, lse_ref, delta, kpad, qi, ki)
+    dq = flash_bwd_dq_ids(*args, **kw)
+    dk, dv = flash_bwd_dkv_ids(*args, **kw)
+    torch.cuda.synchronize()
+    want = (flash_bwd_dq_ids_reference(*args, **kw),) + flash_bwd_dkv_ids_reference(*args, **kw)
+    rel = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-6) for g, w in zip((dq, dk, dv), want)]
+    outs = (o, dq, dk, dv)
+    ok = (all(x.dtype == torch.float32 and bool(torch.isfinite(x).all()) for x in outs)
+          and err_o <= TOL[dtype]["o"] and err_lse <= TOL[dtype]["lse"] and max(rel) <= BWD_TOL[dtype])
+    detail = (f"max|dO| {err_o:.2e} max|dLSE| {err_lse:.2e} (tol {TOL[dtype]['o']:.0e}, {TOL[dtype]['lse']:.0e}); "
+              f"dq, dk, dv {rel[0]:.1e}, {rel[1]:.1e}, {rel[2]:.1e} of max|grad| (tol {BWD_TOL[dtype]:.0e})")
+    errs = {"flash_fwd_ids": err_o, "flash_bwd_dq_ids": float((dq - want[0]).abs().max()),
+            "flash_bwd_dkv_ids": max(float((dk - want[1]).abs().max()), float((dv - want[2]).abs().max()))}
+    return errs, ok, detail
+
+
+def _ids_counters():
+    from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_ids,
+        flash_bwd_dq_ids,
+        flash_fwd_with_ids,
+    )
+
+    return {"flash_fwd_ids": flash_fwd_with_ids, "flash_bwd_dq_ids": flash_bwd_dq_ids,
+            "flash_bwd_dkv_ids": flash_bwd_dkv_ids}
+
+
+def _phase_b_ids(failures):
+    """The ids-mode kernels against their plain versions over IDS_CASES:
+    phase R's pairs in bf16, the others in fp32 and bf16. Returns the
+    largest error over phase R's four plain ring pairs (bf16)."""
+    counters = _ids_counters()
+    saved = {k: fn.launches for k, fn in counters.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    path_err = {k: 0.0 for k in counters}
+    for name, B, Tl, H, hd, n, me, src, kw in IDS_CASES:
+        dtypes = [torch.bfloat16] if name in IDS_PATH_CASES else [torch.float32, torch.bfloat16]
+        for dtype in dtypes:
+            tag = str(dtype).removeprefix("torch.")
+            errs, ok, detail = ids_compare(*ids_inputs(B, Tl, H, hd, n, me, src, dtype, gen, kw))
+            log(f"[B] flash ids {name:26s} B={B} Tl={Tl} H={H} hd={hd} {tag:9s} {detail} {'ok' if ok else 'FAIL'}")
+            if name in IDS_PATH_CASES[:4]:
+                path_err = {k: max(path_err[k], errs[k]) for k in path_err}
+            if not ok:
+                failures.append(f"flash_ids/{name}/{tag}")
+    for k, fn in counters.items():
+        fn.launches = saved[k]  # comparison launches do not count
+    return path_err
+
+
+def _kept_pairs(qi, ki):
+    """(row, col) pairs a causal ids-mode call keeps: the operations it
+    needs (the bound counts what these inputs need)."""
+    return int((ki[None, :] <= qi[:, None]).sum())
+
+
+def _phase_c_ids():
+    """The ids-mode kernels at phase R's shape (B 2, Tl 2048, H 12, hd 64,
+    bf16), each the mean of rank 0's two ring steps (the diagonal and the
+    off-diagonal pair): kernel, plain version and the one library call that
+    computes the same function, SDPA with the boolean mask built from the
+    ids (and its autograd backward); the bound from the kept pairs' products
+    and the bytes each input and output moves once."""
+    import torch.nn.functional as F
+
+    from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
+        attention_delta,
+        flash_bwd_dkv_ids,
+        flash_bwd_dkv_ids_reference,
+        flash_bwd_dq_ids,
+        flash_bwd_dq_ids_reference,
+        flash_fwd_with_ids,
+        flash_fwd_with_ids_reference,
+    )
+
+    counters = _ids_counters()
+    saved = {k: fn.launches for k, fn in counters.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, Tl, H, hd, n = 2, CP_T // CP_N, 12, 64, CP_N
+    dtype, esz = torch.bfloat16, 2
+    acc = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0) for k in counters}
+    bound_by = {}
+    for src in range(n):
+        q, k, v, do, kpad, qi, ki, kw = ids_inputs(B, Tl, H, hd, n, 0, src, dtype, gen, {})
+        o, lse = flash_fwd_with_ids_reference(q, k, v, kpad, qi, ki, **kw)
+        o_in = o.to(dtype)
+        delta = attention_delta(o_in, do)
+        args = (q, k, v, do, lse, delta, None, qi, ki)
+        mask = ki[None, :] <= qi[:, None]
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=kw["scale"])
+        dot = do.transpose(1, 2)
+        product = 2 * B * H * _kept_pairs(qi, ki) * hd  # one [kept pairs x hd] product
+        in_bytes = 4 * B * Tl * H * hd * esz + 2 * Tl * 4  # q, k, v, (dO) and the ids
+        rows = (
+            ("flash_fwd_ids", lambda: flash_fwd_with_ids(q, k, v, None, qi, ki, **kw),
+             lambda: flash_fwd_with_ids_reference(q, k, v, None, qi, ki, **kw),
+             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=kw["scale"]),
+             2 * product, 3 * B * Tl * H * hd * esz + 2 * Tl * 4 + B * Tl * H * hd * 4 + B * H * Tl * 4),
+            ("flash_bwd_dq_ids", lambda: flash_bwd_dq_ids(*args, **kw), lambda: flash_bwd_dq_ids_reference(*args, **kw),
+             lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True),
+             3 * product, in_bytes + 2 * B * H * Tl * 4 + B * Tl * H * hd * 4),
+            ("flash_bwd_dkv_ids", lambda: flash_bwd_dkv_ids(*args, **kw),
+             lambda: flash_bwd_dkv_ids_reference(*args, **kw),
+             lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True),
+             4 * product, in_bytes + 2 * B * H * Tl * 4 + 2 * B * Tl * H * hd * 4),
+        )
+        for name, kernel, plain, library, flops, nbytes in rows:
+            bound_ms, bound_by[name] = _bound(nbytes, flops, dtype)
+            t = dict(ms=cuda_time_ms(kernel), plain_ms=cuda_time_ms(plain, iters=5), bound_ms=bound_ms,
+                     library_ms=cuda_time_ms(library))
+            log(f"[C] {name} ring step {src} of rank 0 (B={B} Tl={Tl} H={H} hd={hd} bf16, {_kept_pairs(qi, ki)} "
+                f"kept pairs of {Tl * Tl}): kernel {t['ms']:.4f} ms ({flops / t['ms'] / 1e9:.2f} TFLOP/s), plain "
+                f"{t['plain_ms']:.4f} ms, library (SDPA with the ids mask) {t['library_ms']:.4f} ms; bound "
+                f"{bound_ms:.4f} ms by {bound_by[name]} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+            for key in t:
+                acc[name][key] += t[key] / n
+    for k, fn in counters.items():
+        fn.launches = saved[k]  # timing launches do not count
+    return {name: dict(acc[name], bound_by=bound_by[name]) for name in acc}
+
+
+# ----------------------------------------------------------------------
+# Phase R: context-parallel training, two ranks on one card
+# ----------------------------------------------------------------------
+
+CP_B, CP_T, CP_N, CP_MB, CP_STEPS = 2, 4096, 2, 1, 3
+CP_LOSS_TOL = 1e-2
+
+
+def _cp_model_and_batch(device):
+    """GPT-2 124M at 4096 positions with random weights from SEED, and the
+    batch: ids and targets shifted by one (-100 last)."""
+    from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m, init_gpt2_weights_
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    module = init_gpt2_weights_(gpt2_124m(max_len=CP_T, device=device), g)
+    ids = torch.randint(0, module.vocab_size, (CP_B, CP_T), generator=g, device=device)
+    tgt = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], -100)], dim=1)
+    return module, ids, tgt
+
+
+def _cp_train(cfg, device, steps):
+    """``steps`` AdamW steps of the masked-mean loss through the public
+    entry points: (losses, ms per step, launches by kernel)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    from smdistributed_modelparallel_tpu_torch.backend.state import state
+
+    smp.init({"microbatches": CP_MB, "bf16": True, **cfg}, device=device)
+    group = state.group("cp")
+    module, ids, tgt = _cp_model_and_batch(state.device)
+    model = smp.DistributedModel(module)
+    optimizer = smp.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), model)
+
+    @smp.step
+    def train_step(model, ids_, tgt_):
+        count = (tgt_ != -100).sum()
+        loss = model(ids_, targets=tgt_).sum() / count
+        model.backward(loss, num_tokens=count)
+        return loss
+
+    counters = {**_flash_counters(), **_ids_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(train_step(model, ids, tgt).reduce_mean()))
+        optimizer.step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    smp.reset()
+    return losses, ms, launches, group.transport if group is not None else None
+
+
+def _free_port():
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def _rank_main(rank, world, port, fn, args, queue):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.set_num_threads(1)
+        queue.put((rank, fn(rank, world, *args), None))
+    except BaseException:  # reported to the parent, which raises; the rank exits non-zero
+        import traceback
+
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(world, fn, *args, timeout=600):
+    """Run ``fn(rank, world, *args)`` in ``world`` processes started with
+    the spawn method (a forked child must not inherit a CUDA context), each
+    holding the launcher variables of one torch.distributed world
+    (``LOCAL_RANK`` = rank); return the results by rank. Raises if a rank
+    raised, died or did not exit."""
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_main, args=(r, world, port, fn, args, queue)) for r in range(world)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        for _ in procs:
+            rank, res, err = queue.get(timeout=timeout)
+            results[rank] = res
+            if err:
+                errors.append(f"rank {rank}:\n{err}")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                errors.append(f"rank process {p.pid} did not exit")
+            elif p.exitcode != 0:
+                errors.append(f"rank process {p.pid} exited with {p.exitcode}")
+    if errors:
+        raise RuntimeError("ranks failed:\n" + "\n".join(errors))
+    return [results[r] for r in range(world)]
+
+
+def _cp_rank(rank, world, device):
+    """One cp rank on ``device`` (cuda:0 named explicitly for ranks that
+    share the card, since LOCAL_RANK 1 names no card there; None for
+    cuda:LOCAL_RANK): the ring run, then one Ulysses step, then the
+    breakdown."""
+    out = {impl: _cp_train({"context_parallel_degree": world, "ddp": True, "context_parallel_impl": impl},
+                           device, steps)
+           for impl, steps in (("ring", CP_STEPS), ("ulysses", 1))}
+    out["breakdown"] = _cp_breakdown(world, device)
+    return out
+
+
+def _cp_breakdown(world, device):
+    """This rank's wall ms, at phase R's shapes, of one layer's ring
+    attention (forward and backward, exchanges included) and of the step's
+    gradient all-reduce (GPT-2 124M at 4096 positions, fp32)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.backend.state import state
+    from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m
+    from smdistributed_modelparallel_tpu_torch.ops.context_parallel import cp_attention
+
+    smp.init({"context_parallel_degree": world, "ddp": True}, device=device)
+    gen = torch.Generator(device=state.device).manual_seed(SEED + state.rank)
+    q, k, v, do = (torch.randn(CP_B, CP_T // world, 12, 64, generator=gen, device=state.device).to(torch.bfloat16)
+                   for _ in range(4))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    n_params = sum(p.numel() for p in gpt2_124m(max_len=CP_T, device="meta").parameters())
+    grads = torch.zeros(n_params, device=state.device)
+
+    def wall_ms(fn, iters):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    def layer():
+        o = cp_attention(q, k, v, scale=0.125, causal=True)
+        torch.autograd.grad(o, (q, k, v), do)
+
+    out = dict(ring_layer_ms=wall_ms(layer, 3), all_reduce_ms=wall_ms(lambda: state.group("cp").all_reduce(grads), 2),
+               n_params=n_params)
+    smp.reset()
+    return out
+
+
+def phase_r(device="cuda:0"):
+    """Context-parallel training: two spawned cp ranks on ``device`` (one
+    card, gloo with host copies between them), or with ``device=None`` on
+    cuda:0 and cuda:1 (NCCL; phase N, on a machine with two cards), train
+    GPT-2 124M at 4096 tokens (B 2, Tl 2048 a rank) for CP_STEPS AdamW steps
+    on the ring, then one step under Ulysses; this process runs the same
+    weights and batch at cp = 1. The losses must agree within CP_LOSS_TOL
+    and each rank must launch each ids-mode kernel 12 layers x 2 ring steps
+    x microbatches a step."""
+    if device is None and torch.cuda.device_count() < CP_N:
+        raise RuntimeError(f"cp ranks on separate cards need {CP_N} cards, found {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    results = run_ranks(CP_N, _cp_rank, device)
+    ranks_s = time.perf_counter() - t0
+    base_losses, base_ms, base_launches, _ = _cp_train({}, "cuda", CP_STEPS)
+
+    n_layers = 12
+    per_step = n_layers * CP_N * CP_MB
+    launches = dict(base_launches)
+    for rank in range(CP_N):
+        for impl in ("ring", "ulysses"):
+            for k, n in results[rank][impl][2].items():
+                launches[k] += n
+    transport = results[0]["ring"][3]
+    where = f"{CP_N} ranks on {device}" if device else f"ranks on cuda:0-{CP_N - 1}"
+    log(f"[R] GPT-2 124M bf16, B={CP_B} x T={CP_T} ({CP_T // CP_N} tokens a rank), {CP_MB} microbatch, AdamW; "
+        f"{where}, transport {transport}{' (host copies of CUDA tensors)' if transport == 'gloo' else ''}; "
+        f"ranks took {ranks_s:.1f} s with start-up")
+    worst = 0.0
+    for rank in range(CP_N):
+        losses, ms, counts, _ = results[rank]["ring"]
+        gap = max(abs(a - b) for a, b in zip(losses, base_losses))
+        worst = max(worst, gap)
+        log(f"[R] rank {rank} ring: losses {losses}, cp = 1 {base_losses}, largest difference {gap:.3e} "
+            f"(limit {CP_LOSS_TOL:.0e}); ms/step {[round(x, 2) for x in ms]}; launches {counts}")
+        for k in _ids_counters():
+            if counts[k] != per_step * CP_STEPS:
+                raise RuntimeError(f"rank {rank}: {k} launched {counts[k]} times in {CP_STEPS} steps, "
+                                   f"expected {per_step * CP_STEPS}")
+        u_losses, u_ms, u_counts, _ = results[rank]["ulysses"]
+        u_gap = abs(u_losses[0] - base_losses[0])
+        worst = max(worst, u_gap)
+        log(f"[R] rank {rank} ulysses: step-1 loss {u_losses[0]}, cp = 1 {base_losses[0]}, difference "
+            f"{u_gap:.3e}; {u_ms[0]:.2f} ms; launches {u_counts}")
+        if u_counts["flash_fwd"] != n_layers * CP_MB or u_counts["flash_fwd_ids"] != 0:
+            raise RuntimeError(f"rank {rank}: Ulysses launches {u_counts}")
+    for rank in range(CP_N):
+        bd = results[rank]["breakdown"]
+        log(f"[R] rank {rank} breakdown: one layer's ring attention, forward and backward with its exchanges, "
+            f"{bd['ring_layer_ms']:.2f} ms ({n_layers} layers: {n_layers * bd['ring_layer_ms']:.1f} ms a step); "
+            f"the gradient all-reduce ({bd['n_params']} fp32) {bd['all_reduce_ms']:.2f} ms")
+    cp_ms = sum(results[0]["ring"][1][1:]) / (CP_STEPS - 1)
+    one_ms = sum(base_ms[1:]) / (CP_STEPS - 1)
+    log(f"[R] ms/step (mean of steps 2-{CP_STEPS}): cp = 2 {cp_ms:.2f}, cp = 1 {one_ms:.2f}; "
+        f"cp = 1 launches {base_launches}")
+    if worst > CP_LOSS_TOL or not all(math.isfinite(x) for x in base_losses):
+        raise RuntimeError(f"cp = 2 losses differ from cp = 1 by {worst:.3e} (limit {CP_LOSS_TOL})")
+    return launches, dict(cp_ms=cp_ms, one_ms=one_ms, gap=worst, transport=transport)
+
+
 def _bound(nbytes, flops, dtype):
     """(bound ms, what bounds it): the larger of the bytes over the memory
     rate and the operations over the peak rate of their type."""
@@ -1280,6 +1723,7 @@ def phase_c():
     out.update(_phase_c_ce())
     out.update(_phase_c_new())
     out.update(_phase_c_fp8())
+    out.update(_phase_c_ids())
     return out
 
 
@@ -1538,7 +1982,8 @@ def phase_p():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, T, F, L, Q, B, C (the default, all seven) and P (profiles)")
+                        help="phases to run: A, T, F, L, Q, R, B, C (the default, all eight), P (profiles) and N (phase R's "
+             "ranks on two cards, over NCCL)")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1553,7 +1998,7 @@ def main():
     log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     build()
-    serve_launches, train_launches, cap_launches, lm_launches, q_launches = {}, {}, {}, {}, {}
+    serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches = {}, {}, {}, {}, {}, {}
     errs = timing = None
     if "A" in args.phases:
         serve_launches = phase_a()
@@ -1565,6 +2010,10 @@ def main():
         lm_launches, _ = phase_l()
     if "Q" in args.phases:
         q_launches, _ = phase_q()
+    if "R" in args.phases:
+        cp_launches, _ = phase_r()
+    if "N" in args.phases:
+        phase_r(device=None)
     if "B" in args.phases:
         errs = phase_b()
     if "C" in args.phases:
@@ -1576,10 +2025,12 @@ def main():
         return 0  # a partial run prints no result
     fwd_err, bwd_err, new_err = errs
     # Launches on the main paths: serving's prefills (A), training (T), the
-    # capacity path (F), the smp.nn path (L) and its fp8 run (Q), each
-    # counted from 0 just before it.
-    paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches)
-    launches = {k: sum(p.get(k, 0) for p in paths) for k in {**cap_launches, **lm_launches, **q_launches}}
+    # capacity path (F), the smp.nn path (L), its fp8 run (Q) and the
+    # context-parallel run (R: both ranks and the cp = 1 run), each counted
+    # from 0 just before it.
+    paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches)
+    launches = {k: sum(p.get(k, 0) for p in paths)
+                for k in {**cap_launches, **lm_launches, **q_launches, **cp_launches}}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"
     tpu_ce = "smdistributed_modelparallel_tpu/ops/pallas_ce.py:"
@@ -1603,6 +2054,12 @@ def main():
                                        ("bias_gelu_fwd", "bias_gelu.cu", "pallas_gelu.py:54"),
                                        ("bias_gelu_bwd", "bias_gelu.cu", "pallas_gelu.py:59"),
                                        ("matmul_fp8", "matmul_fp8.cu", "pallas_qkv.py:162"))
+    ] + [  # max_abs_err over phase R's ring pairs (bf16; phase B), times there (C)
+        dict(name=name, route="cuda", source=src + source, replaces=tpu + line, launches=launches[name],
+             max_abs_err=new_err[name], **timing[name])
+        for name, source, line in (("flash_fwd_ids", "flash_fwd.cu", "796"),
+                                   ("flash_bwd_dq_ids", "flash_bwd.cu", "821"),
+                                   ("flash_bwd_dkv_ids", "flash_bwd.cu", "821"))
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

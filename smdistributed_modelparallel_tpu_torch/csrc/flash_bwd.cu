@@ -53,6 +53,16 @@
 //     backward has no softmax.
 // Not yet used: wgmma, TMA, cp.async pipelining. These kernels run on the
 // CUDA cores and are far from their bound; making them fast is later work.
+//
+// Ids mode (q_ids, kv_ids non-null) replaces the same two TPU kernels with
+// has_ids=True (flash_bwd_with_ids: one (q block, kv block) pair of a
+// context-parallel ring step, from the GLOBAL lse and delta): keep(r, c) is
+// r < T && c < S && (!causal || kv_ids[c] <= q_ids[r]), dropout hashes the
+// ids with the counter_len stride, and dq, dk and dv are written in fp32
+// (the ring accumulates them in fp32). The TPU kernels skip a reference
+// block pair whose smallest column id exceeds its largest row id; such a
+// pair is all masked (p = 0), so these kernels skip at their own 64-row
+// tiles instead, which is exact.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -99,7 +109,9 @@ struct Params {
   const float* lse;   // [B, H, T] fp32
   const float* delta; // [B, H, T] fp32
   const float* kpad;  // [B or 1, S] fp32, or null
-  void* dq;           // [B, T, H, hd]
+  const int* q_ids;   // [T] global row ids, or null: ids mode when set
+  const int* kv_ids;  // [S] global column ids
+  void* dq;           // [B, T, H, hd]; fp32 in ids mode, as dk and dv
   void* dk;           // [B, S, H, hd]
   void* dv;           // [B, S, H, hd]
   int B, T, S, H, hd;
@@ -120,34 +132,69 @@ struct Params {
   int head0, head_total;  // dropout hash coordinates
 };
 
-// _tile_mask for one (row, col); r, c >= 0.
-__device__ __forceinline__ bool kept(const Params& p, int r, int c) {
+constexpr int IDS_NONE = 1 << 30;  // above every id
+
+// _tile_mask for one (row, col), or _ids_mask with the ids qid, kid; r, c >= 0.
+__device__ __forceinline__ bool kept(const Params& p, int r, int c, int qid, int kid) {
   if (r >= p.T || c >= p.S) return false;
+  if (p.q_ids) return !p.causal || kid <= qid;
   const int d = r + (p.S - p.T) - c;  // >= 0 on and below the causal diagonal
   if (p.causal) return d >= 0 && (p.window <= 0 || d < p.window);
   return p.window <= 0 || abs(d) < p.window;
 }
 
+// Rows [r0, r0 + BT) of an id vector of `n` entries into shared memory,
+// IDS_NONE past n; then the largest (or smallest) valid one, read from
+// shared memory by every thread after the caller's __syncthreads().
+template <int BT>
+__device__ __forceinline__ void load_ids(int* dst, const int* src, int r0, int n) {
+  for (int i = threadIdx.x; i < BT; i += NT) dst[i] = r0 + i < n ? src[r0 + i] : IDS_NONE;
+}
+
+template <int BT>
+__device__ __forceinline__ int ids_max(const int* ids) {
+  int m = -1;
+  for (int i = 0; i < BT; ++i) m = max(m, ids[i] == IDS_NONE ? -1 : ids[i]);
+  return m;
+}
+
+template <int BT>
+__device__ __forceinline__ int ids_min(const int* ids) {
+  int m = IDS_NONE;
+  for (int i = 0; i < BT; ++i) m = min(m, ids[i]);
+  return m;
+}
+
 // ds and p_drop of one (row, col), in the reference's fp32 order. The
 // __f*_rn intrinsics keep nvcc from contracting a multiply and an add into
 // an FMA the reference does not do.
+// (hrow, hcol) are the dropout hash's row and column: the local indices, or
+// the ids in ids mode.
 __device__ __forceinline__ void grad_pair(const Params& p, float s, float dp, float lse,
-                                          float delta, int r, int c, const float* kpad,
-                                          uint32_t bh_hash, float& ds, float& p_drop) {
+                                          float delta, int r, int c, int hrow, int hcol,
+                                          const float* kpad, uint32_t bh_hash, float& ds,
+                                          float& p_drop) {
   float pr = 0.f;
-  if (kept(p, r, c)) {
+  if (kept(p, r, c, hrow, hcol)) {
     float x = __fmul_rn(s, p.scale);
     if (kpad) x = __fadd_rn(x, kpad[c]);
     pr = expf(__fsub_rn(x, lse));
   }
   p_drop = pr;
   if (p.has_dropout) {
-    const bool keep = dropout_bits(p.seed, bh_hash, (uint32_t)r, (uint32_t)c, p.s_total) >=
+    const bool keep = dropout_bits(p.seed, bh_hash, (uint32_t)hrow, (uint32_t)hcol, p.s_total) >=
                       p.keep_threshold;
     dp = keep ? __fmul_rn(dp, p.inv_keep) : 0.f;
     p_drop = keep ? __fmul_rn(pr, p.inv_keep) : 0.f;
   }
   ds = __fmul_rn(__fmul_rn(pr, __fsub_rn(dp, delta)), p.scale);
+}
+
+// One output element: fp32 in ids mode, else the input dtype.
+template <typename E>
+__device__ __forceinline__ void store(const Params& p, void* base, long long at, float x) {
+  if (p.q_ids) static_cast<float*>(base)[at] = x;
+  else static_cast<E*>(base)[at] = from_f<E>(x);
 }
 
 // Rows [r0, r0 + BT) of a [rows, hd] operand into an fp32 tile, zero-filled
@@ -215,6 +262,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   float* sK = sDO + BT * LD;
   float* sV = sK + BT * LD;
   float* sDS = sV + BT * LD;
+  int* sQid = reinterpret_cast<int*>(sDS + BT * LDS);  // ids mode
+  int* sKid = sQid + BT;
 
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
@@ -233,6 +282,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
 
   load_tile<E, HD, BT>(sQ, q, p.q_st, r0, T, p.hd);
   load_tile<E, HD, BT>(sDO, dout, p.do_st, r0, T, p.hd);
+  const bool ids = p.q_ids != nullptr;
+  if (ids) load_ids<BT>(sQid, p.q_ids, r0, T);
   float lse[R], delta[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -244,7 +295,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   // Columns kept by some row of this tile.
   const int r_last = min(r0 + BT, T) - 1;
   int c_begin = 0, c_end = S;
-  if (p.causal) {
+  if (ids) {
+    // every tile; under causal those with no kept pair are skipped below
+  } else if (p.causal) {
     c_end = min(S, r_last + off + 1);
     if (p.window > 0) c_begin = max(0, r0 + off - p.window + 1);
   } else if (p.window > 0) {
@@ -258,8 +311,18 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
+  int rmax = 0;
+  if (ids) {
+    __syncthreads();
+    rmax = ids_max<BT>(sQid);
+  }
   for (int c0 = c_begin; c0 < c_end; c0 += BT) {
     __syncthreads();  // the previous K tile and ds tile are no longer read
+    if (ids) {
+      load_ids<BT>(sKid, p.kv_ids, c0, S);
+      __syncthreads();
+      if (p.causal && ids_min<BT>(sKid) > rmax) continue;  // no kept pair
+    }
     load_tile<E, HD, BT>(sK, k, p.k_st, c0, S, p.hd);
     load_tile<E, HD, BT>(sV, v, p.v_st, c0, S, p.hd);
     __syncthreads();
@@ -270,9 +333,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < R; ++j) {
+        const int rr = ty + 16 * i, cc = tx + 16 * j;
         float ds, p_drop;
-        grad_pair(p, s[i][j], dp[i][j], lse[i], delta[i], r0 + ty + 16 * i, c0 + tx + 16 * j,
-                  kpad, bh_hash, ds, p_drop);
+        grad_pair(p, s[i][j], dp[i][j], lse[i], delta[i], r0 + rr, c0 + cc,
+                  ids ? sQid[rr] : r0 + rr, ids ? sKid[cc] : c0 + cc, kpad, bh_hash, ds, p_drop);
         sDS[(ty + 16 * i) * LDS + tx + 16 * j] = to_f<E>(from_f<E>(ds));  // rounded to k's dtype
       }
     __syncthreads();
@@ -291,7 +355,6 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
     }
   }
 
-  E* dq = static_cast<E*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int r = r0 + ty + 16 * i;
@@ -299,7 +362,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < p.hd) dq[r * p.dq_st + d] = from_f<E>(acc[i][j]);
+      if (d < p.hd) store<E>(p, p.dq, b * p.dq_sb + h * p.dq_sh + r * p.dq_st + d, acc[i][j]);
     }
   }
 }
@@ -319,6 +382,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
   float* sDS = sP + BT * LDS;  // ds, rounded to q's dtype: [q row][kv col]
   float* sL = sDS + BT * LDS;
   float* sD = sL + BT;
+  int* sKid = reinterpret_cast<int*>(sD + BT);  // ids mode
+  int* sQid = sKid + BT;
 
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
@@ -339,11 +404,20 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
 
   load_tile<E, HD, BT>(sK, k, p.k_st, c0, S, p.hd);
   load_tile<E, HD, BT>(sV, v, p.v_st, c0, S, p.hd);
+  const bool ids = p.q_ids != nullptr;
+  int cmin = 0;
+  if (ids) {
+    load_ids<BT>(sKid, p.kv_ids, c0, S);
+    __syncthreads();
+    cmin = ids_min<BT>(sKid);
+  }
 
   // Rows that keep some column of this tile.
   const int c_last = min(c0 + BT, S) - 1;
   int r_begin = 0, r_end = T;
-  if (p.causal) {
+  if (ids) {
+    // every tile; under causal those with no kept pair are skipped below
+  } else if (p.causal) {
     r_begin = max(0, c0 - off);
     if (p.window > 0) r_end = min(T, c_last - off + p.window);
   } else if (p.window > 0) {
@@ -359,6 +433,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
 
   for (int r0 = r_begin; r0 < r_end; r0 += BT) {
     __syncthreads();  // the previous Q/dO/P/ds tiles are no longer read
+    if (ids) {
+      load_ids<BT>(sQid, p.q_ids, r0, T);
+      __syncthreads();
+      if (p.causal && cmin > ids_max<BT>(sQid)) continue;  // no kept pair
+    }
     load_tile<E, HD, BT>(sQ, q, p.q_st, r0, T, p.hd);
     load_tile<E, HD, BT>(sDO, dout, p.do_st, r0, T, p.hd);
     for (int rr = threadIdx.x; rr < BT; rr += NT) {
@@ -374,10 +453,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
     for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const int rr = ty + 16 * i;
+        const int rr = ty + 16 * i, cc = tx + 16 * j;
         float ds, p_drop;
-        grad_pair(p, s[i][j], dp[i][j], sL[rr], sD[rr], r0 + rr, c0 + tx + 16 * j, kpad,
-                  bh_hash, ds, p_drop);
+        grad_pair(p, s[i][j], dp[i][j], sL[rr], sD[rr], r0 + rr, c0 + cc,
+                  ids ? sQid[rr] : r0 + rr, ids ? sKid[cc] : c0 + cc, kpad, bh_hash, ds, p_drop);
         sP[rr * LDS + tx + 16 * j] = to_f<E>(from_f<E>(p_drop));
         sDS[rr * LDS + tx + 16 * j] = to_f<E>(from_f<E>(ds));
       }
@@ -404,8 +483,6 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
     }
   }
 
-  E* dkp = static_cast<E*>(p.dk) + b * p.dk_sb + h * p.dk_sh;
-  E* dvp = static_cast<E*>(p.dv) + b * p.dv_sb + h * p.dv_sh;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int c = c0 + ty + 16 * i;
@@ -414,8 +491,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
       if (d < p.hd) {
-        dkp[c * p.dk_st + d] = from_f<E>(dk[i][j]);
-        dvp[c * p.dv_st + d] = from_f<E>(dv[i][j]);
+        store<E>(p, p.dk, b * p.dk_sb + h * p.dk_sh + c * p.dk_st + d, dk[i][j]);
+        store<E>(p, p.dv, b * p.dv_sb + h * p.dv_sh + c * p.dv_st + d, dv[i][j]);
       }
     }
   }
@@ -423,12 +500,12 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
 
 template <int HD, int BT>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (size_t)(4 * BT * (HD + 4) + BT * (BT + 4));
+  return sizeof(float) * (size_t)(4 * BT * (HD + 4) + BT * (BT + 4) + 2 * BT);
 }
 
 template <int HD, int BT>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (size_t)(4 * BT * (HD + 4) + 2 * BT * (BT + 4) + 2 * BT);
+  return sizeof(float) * (size_t)(4 * BT * (HD + 4) + 2 * BT * (BT + 4) + 4 * BT);
 }
 
 template <typename E, int HD, int BT>
@@ -465,6 +542,8 @@ cudaError_t launch(const Params& p, bool dq, cudaStream_t stream) {
 
 int launch_any(int dtype, const Params& p, bool dq, void* stream) {
   if (p.hd < 1 || p.hd > 256) return (int)cudaErrorInvalidValue;
+  if ((p.q_ids == nullptr) != (p.kv_ids == nullptr) || (p.q_ids && p.window > 0))
+    return (int)cudaErrorInvalidValue;
   if (p.B * p.H == 0 || p.T == 0 || p.S == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -476,14 +555,15 @@ int launch_any(int dtype, const Params& p, bool dq, void* stream) {
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* delta, const float* kpad, void* dq, void* dk,
+                   const float* lse, const float* delta, const float* kpad, const int* q_ids,
+                   const int* kv_ids, void* dq, void* dk,
                    void* dv, int B, int T, int S, int H, int hd, const long long* st,
                    float scale, int causal, int window, int has_dropout, unsigned int seed,
                    unsigned int keep_threshold, unsigned int s_total, float inv_keep, int head0,
                    int head_total) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.dout = dout;
-  p.lse = lse; p.delta = delta; p.kpad = kpad;
+  p.lse = lse; p.delta = delta; p.kpad = kpad; p.q_ids = q_ids; p.kv_ids = kv_ids;
   p.dq = dq; p.dk = dk; p.dv = dv;
   p.B = B; p.T = T; p.S = S; p.H = H; p.hd = hd;
   p.q_sb = st[0]; p.q_st = st[1]; p.q_sh = st[2];
@@ -509,26 +589,29 @@ extern "C" {
 // dv, then kpad's batch stride (0 to broadcast one row); the head-dim
 // stride is 1. window <= 0 means none. smp_flash_bwd_dq writes dq only,
 // smp_flash_bwd_dkv dk and dv only (the other output pointers may be null).
-// Each returns a cudaError_t (0 = launched).
+// q_ids/kv_ids (int32 [T]/[S]) select ids mode (no window; fp32 outputs),
+// null for the plain kernels. Each returns a cudaError_t (0 = launched).
 int smp_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v, const void* dout,
-                     const float* lse, const float* delta, const float* kpad, void* dq, int B,
+                     const float* lse, const float* delta, const float* kpad,
+                     const int* q_ids, const int* kv_ids, void* dq, int B,
                      int T, int S, int H, int hd, const long long* strides, float scale,
                      int causal, int window, int has_dropout, unsigned int seed,
                      unsigned int keep_threshold, unsigned int s_total, float inv_keep, int head0,
                      int head_total, void* stream) {
-  const Params p = make_params(q, k, v, dout, lse, delta, kpad, dq, nullptr, nullptr, B, T, S,
+  const Params p = make_params(q, k, v, dout, lse, delta, kpad, q_ids, kv_ids, dq, nullptr, nullptr, B, T, S,
                                H, hd, strides, scale, causal, window, has_dropout, seed,
                                keep_threshold, s_total, inv_keep, head0, head_total);
   return launch_any(dtype, p, true, stream);
 }
 
 int smp_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v, const void* dout,
-                      const float* lse, const float* delta, const float* kpad, void* dk,
+                      const float* lse, const float* delta, const float* kpad,
+                      const int* q_ids, const int* kv_ids, void* dk,
                       void* dv, int B, int T, int S, int H, int hd, const long long* strides,
                       float scale, int causal, int window, int has_dropout, unsigned int seed,
                       unsigned int keep_threshold, unsigned int s_total, float inv_keep,
                       int head0, int head_total, void* stream) {
-  const Params p = make_params(q, k, v, dout, lse, delta, kpad, nullptr, dk, dv, B, T, S, H,
+  const Params p = make_params(q, k, v, dout, lse, delta, kpad, q_ids, kv_ids, nullptr, dk, dv, B, T, S, H,
                                hd, strides, scale, causal, window, has_dropout, seed,
                                keep_threshold, s_total, inv_keep, head0, head_total);
   return launch_any(dtype, p, false, stream);

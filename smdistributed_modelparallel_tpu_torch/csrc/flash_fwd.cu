@@ -47,6 +47,31 @@
 // Not yet used: wgmma, TMA, cp.async pipelining, warp specialisation. This
 // kernel runs on the CUDA cores and is far from its bound; making it fast is
 // later work.
+//
+// Ids mode (q_ids, kv_ids non-null) replaces the same TPU kernel with
+// has_ids=True (flash_fwd_with_ids: one (q block, kv block) pair of a
+// context-parallel ring step):
+//   - keep(r, c) = r < T && c < S && (!causal || kv_ids[c] <= q_ids[r]): the
+//     causal relation of the global (zigzag-ordered) ids, no window;
+//   - the visited range is every reference kv block, except that under
+//     causal a block whose smallest valid column id exceeds the largest
+//     valid row id of the reference q block is skipped, as the TPU kernel's
+//     runtime skip does (_ids_rmax, _ids_cmin). The decision is made per
+//     reference block (ref_bk, 256 by default), never per 64-column tile: a
+//     row whose visited columns are all masked averages every visited v, so
+//     the granularity shows in the output. The padding columns of the last
+//     reference block count only when that block is visited;
+//   - inside a visited block, a 64-column tile with no kept pair is skipped
+//     when there is no kpad and every row of this CTA keeps some column (its
+//     smallest id is at least the smallest kv id): the tile then contributes
+//     exactly 0;
+//   - dropout hashes (q_ids[r], kv_ids[c]) with the counter_len stride;
+//   - o is written in fp32, for the ring's fp32 merge.
+// Bound at the context-parallel path's ring pair (B=2, Tl=2048, H=12,
+// hd=64, bf16, causal): the zigzag diagonal pair keeps ~half its pairs
+// (~3.3 GFLOP over ~13 MB: 3.4 us of tensor-core time against 3.9 us of
+// memory time), the off-diagonal pair half of them fully and half not at
+// all; chip_smoke.py computes the bound of each measured pair.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -95,12 +120,30 @@ __device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t bh, uin
   return x;
 }
 
+constexpr int IDS_NONE = 1 << 30;  // above every id
+
+// Minimum of one int per thread over the CTA, returned to every thread;
+// `red` is NT / 32 ints of shared memory.
+__device__ __forceinline__ int block_min(int v, int* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
+  __syncthreads();  // an earlier call no longer reads red
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = red[0];
+#pragma unroll
+  for (int w = 1; w < NT / 32; ++w) v = min(v, red[w]);
+  return v;
+}
+
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   const float* kpad;  // [B or 1, S] fp32, or null
-  void* o;            // [B, T, H, hd], q's dtype
+  const int* q_ids;   // [T] global row ids, or null: ids mode when set
+  const int* kv_ids;  // [S] global column ids
+  void* o;            // [B, T, H, hd]: q's dtype, fp32 in ids mode
   float* lse;         // [B, H, T] fp32
   int B, T, S, H, hd;
   long long q_sb, q_st, q_sh;
@@ -127,6 +170,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   float* sK = sQ + BM * LD;
   float* sV = sK + BN * LD;
   float* sP = sV + BN * LD;
+  int* sQid = reinterpret_cast<int*>(sP + BM * LDP);  // ids mode: this CTA's row ids
+  int* sKid = sQid + BM;                               // and the current tile's column ids
+  int* sRed = sKid + BN;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -139,6 +185,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   const int offset = S - T;
   const bool has_window = p.window > 0;
   const int window = p.window;
+  const bool ids = p.q_ids != nullptr;
 
   const E* q = static_cast<const E*>(p.q) + b * p.q_sb + h * p.q_sh;
   const E* k = static_cast<const E*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -150,39 +197,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
     const int r = r0 + rr;
     sQ[rr * LD + d] = (r < T && d < hd) ? to_f<E>(q[r * p.q_st + d]) : 0.f;
   }
-
-  // The reference kv range of this tile's rows (_kv_bounds of the reference
-  // q block that holds them; BM divides ref_bq, so it is one block).
-  const int q_lo = (r0 / p.ref_bq) * p.ref_bq;
-  const int q_hi = q_lo + p.ref_bq;
-  const int num_kv = p.s_pad / p.ref_bk;
-  int hi_blk = num_kv;
-  if (p.causal) {
-    hi_blk = min(num_kv, floor_div(q_hi - 1 + offset, p.ref_bk) + 1);
-  } else if (has_window) {
-    hi_blk = min(num_kv, floor_div(q_hi - 1 + offset + window - 1, p.ref_bk) + 1);
-  }
-  const int lo_blk = has_window ? max(0, floor_div(q_lo + offset - window + 1, p.ref_bk)) : 0;
-  const int c_lo = lo_blk * p.ref_bk;
-  const int c_hi = hi_blk * p.ref_bk;
-  const int c_end = min(c_hi, S);
-  const int n_pad = max(0, c_hi - max(S, c_lo));  // visited padding columns
-
-  // Tighten to this tile's band when that is exact (see the header).
-  const int r_last = min(r0 + BM, T) - 1;
-  bool dense = kpad == nullptr;
-  if (p.causal) {
-    dense = dense && r0 + offset >= 0;
-  } else if (has_window) {
-    dense = dense && r0 + offset > -window && r_last + offset < S - 1 + window;
-  }
-  int k_begin = c_lo, k_end = c_end;
-  if (dense) {
-    if (p.causal) k_end = min(k_end, r_last + offset + 1);
-    else if (has_window) k_end = min(k_end, r_last + offset + window);
-    if (has_window) k_begin = max(k_begin, r0 + offset - window + 1);
-    k_begin = (k_begin / BN) * BN;
-  }
+  if (ids && tid < BM) sQid[tid] = r0 + tid < T ? p.q_ids[r0 + tid] : IDS_NONE;
 
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -194,7 +209,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   }
   const uint32_t bh_hash = (uint32_t)(b * p.head_total + p.head0 + h);
 
-  for (int c0 = k_begin; c0 < k_end; c0 += BN) {
+  // One 64-column tile at c0: columns >= c_end are not visited (-inf).
+  auto tile = [&](int c0, int c_end) {
     __syncthreads();  // the previous tile is no longer read
     for (int e = tid; e < BN * HD; e += NT) {
       const int cc = e / HD, d = e % HD;
@@ -203,6 +219,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
       sK[cc * LD + d] = in ? to_f<E>(k[c * p.k_st + d]) : 0.f;
       sV[cc * LD + d] = in ? to_f<E>(v[c * p.v_st + d]) : 0.f;
     }
+    if (ids && tid < BN) sKid[tid] = c0 + tid < S ? p.kv_ids[c0 + tid] : IDS_NONE;
     __syncthreads();
 
     float s[4][4];
@@ -230,17 +247,21 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = r0 + ty + 16 * i;
+      const int rr = ty + 16 * i;
+      const int r = r0 + rr;
       float mt = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int c = c0 + tx + 16 * j;
+        const int cc = tx + 16 * j;
+        const int c = c0 + cc;
         float x;
         if (c >= c_end) {
           x = -INFINITY;  // outside the reference range: not visited
         } else {
           bool keep = r < T;
-          if (p.causal) {
+          if (ids) {
+            keep = keep && (!p.causal || sKid[cc] <= sQid[rr]);
+          } else if (p.causal) {
             keep = keep && c <= r + offset;
             if (has_window) keep = keep && r + offset - c < window;
           } else if (has_window) {
@@ -266,11 +287,12 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
         float pj = expf(s[i][j] - m_new);
         rs += pj;
         if (p.has_dropout) {
-          const int c = c0 + tx + 16 * j;
-          if (dropout_bits(p.seed, bh_hash, (uint32_t)r, (uint32_t)c, p.s_total) < p.keep_threshold)
-            pj = 0.f;
+          const int cc = tx + 16 * j;
+          const uint32_t hrow = ids ? (uint32_t)sQid[rr] : (uint32_t)r;
+          const uint32_t hcol = ids ? (uint32_t)sKid[cc] : (uint32_t)(c0 + cc);
+          if (dropout_bits(p.seed, bh_hash, hrow, hcol, p.s_total) < p.keep_threshold) pj = 0.f;
         }
-        sP[(ty + 16 * i) * LDP + tx + 16 * j] = to_f<E>(from_f<E>(pj));
+        sP[rr * LDP + tx + 16 * j] = to_f<E>(from_f<E>(pj));
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
@@ -293,9 +315,78 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pr[i], vv, acc[i][j]);
       }
     }
+  };
+
+  // The reference tiling's q block that holds this CTA's rows (BM divides
+  // ref_bq, so it is one block) and its kv blocks.
+  const int q_lo = (r0 / p.ref_bq) * p.ref_bq;
+  const int num_kv = p.s_pad / p.ref_bk;
+  int n_pad = 0;  // visited padding columns [S, s_pad)
+  if (ids) {
+    // The reference q block's largest valid row id, this CTA's smallest,
+    // and the smallest kv id, which every row that keeps a column reaches.
+    int mx = -1, mn = IDS_NONE;
+    for (int r = q_lo + tid; r < min(q_lo + p.ref_bq, T); r += NT) mx = max(mx, p.q_ids[r]);
+    for (int c = tid; c < S; c += NT) mn = min(mn, p.kv_ids[c]);
+    const int rmax_ref = -block_min(-mx, sRed);
+    const int kv_min = block_min(mn, sRed);
+    const int rmin_cta = block_min(tid < BM ? sQid[tid] : IDS_NONE, sRed);
+    const bool dense = p.causal && kpad == nullptr && rmin_cta >= kv_min;
+    int rmax_cta = -1;
+    if (dense) {
+      for (int rr = 0; rr < BM; ++rr) rmax_cta = max(rmax_cta, sQid[rr] == IDS_NONE ? -1 : sQid[rr]);
+    }
+    for (int j = 0; j < num_kv; ++j) {
+      const int cb = j * p.ref_bk;
+      const int ce = min(cb + p.ref_bk, S);
+      if (p.causal) {
+        int cm = IDS_NONE;
+        for (int c = cb + tid; c < ce; c += NT) cm = min(cm, p.kv_ids[c]);
+        if (block_min(cm, sRed) > rmax_ref) continue;  // the reference kernel skips this block
+      }
+      if (j == num_kv - 1) n_pad = p.s_pad - S;
+      for (int c0 = cb; c0 < ce; c0 += BN) {
+        if (dense) {
+          int cm = IDS_NONE;
+          for (int c = c0; c < min(c0 + BN, ce); ++c) cm = min(cm, p.kv_ids[c]);
+          if (cm > rmax_cta) continue;  // no kept pair, and every row keeps one elsewhere
+        }
+        tile(c0, ce);
+      }
+    }
+  } else {
+    // The reference kv range of this tile's rows (_kv_bounds).
+    const int q_hi = q_lo + p.ref_bq;
+    int hi_blk = num_kv;
+    if (p.causal) {
+      hi_blk = min(num_kv, floor_div(q_hi - 1 + offset, p.ref_bk) + 1);
+    } else if (has_window) {
+      hi_blk = min(num_kv, floor_div(q_hi - 1 + offset + window - 1, p.ref_bk) + 1);
+    }
+    const int lo_blk = has_window ? max(0, floor_div(q_lo + offset - window + 1, p.ref_bk)) : 0;
+    const int c_lo = lo_blk * p.ref_bk;
+    const int c_hi = hi_blk * p.ref_bk;
+    const int c_end = min(c_hi, S);
+    n_pad = max(0, c_hi - max(S, c_lo));
+
+    // Tighten to this tile's band when that is exact (see the header).
+    const int r_last = min(r0 + BM, T) - 1;
+    bool dense = kpad == nullptr;
+    if (p.causal) {
+      dense = dense && r0 + offset >= 0;
+    } else if (has_window) {
+      dense = dense && r0 + offset > -window && r_last + offset < S - 1 + window;
+    }
+    int k_begin = c_lo, k_end = c_end;
+    if (dense) {
+      if (p.causal) k_end = min(k_end, r_last + offset + 1);
+      else if (has_window) k_end = min(k_end, r_last + offset + window);
+      if (has_window) k_begin = max(k_begin, r0 + offset - window + 1);
+      k_begin = (k_begin / BN) * BN;
+    }
+    for (int c0 = k_begin; c0 < k_end; c0 += BN) tile(c0, c_end);
   }
 
-  E* o = static_cast<E*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + ty + 16 * i;
@@ -307,7 +398,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < hd) o[r * p.o_st + d] = from_f<E>(__fmul_rn(acc[i][j], p.inv_keep) / denom);
+      if (d >= hd) continue;
+      const float val = __fmul_rn(acc[i][j], p.inv_keep) / denom;
+      const long long at = b * p.o_sb + h * p.o_sh + r * p.o_st + d;
+      if (ids) static_cast<float*>(p.o)[at] = val;
+      else static_cast<E*>(p.o)[at] = from_f<E>(val);
     }
     if (tx == 0) p.lse[(long long)bh * T + r] = li > 0.f ? m[i] + logf(denom) : LSE_MASKED;
   }
@@ -316,7 +411,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
 template <typename E, int HD>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int LD = HD + 4;
-  const size_t smem = sizeof(float) * (size_t)(BM * LD + 2 * BN * LD + BM * LDP);
+  const size_t smem = sizeof(float) * (size_t)(BM * LD + 2 * BN * LD + BM * LDP + BM + BN + NT / 32);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<E, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -337,9 +432,11 @@ cudaError_t launch_hd(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 fp32, 1 fp16, 2 bf16. Strides are in elements; the head-dim
-// stride is 1. window <= 0 means none. Returns a cudaError_t (0 = launched).
+// stride is 1. window <= 0 means none. q_ids/kv_ids (int32 [T]/[S]) select
+// ids mode (no window; o is fp32), null for the plain kernel. Returns a
+// cudaError_t (0 = launched).
 int smp_flash_fwd(int dtype, const void* q, const void* k, const void* v, const float* kpad,
-                  void* o, float* lse, int B, int T, int S, int H, int hd, long long q_sb,
+                  const int* q_ids, const int* kv_ids, void* o, float* lse, int B, int T, int S, int H, int hd, long long q_sb,
                   long long q_st, long long q_sh, long long k_sb, long long k_st, long long k_sh,
                   long long v_sb, long long v_st, long long v_sh, long long o_sb, long long o_st,
                   long long o_sh, long long kpad_sb, float scale, int causal, int window,
@@ -348,8 +445,10 @@ int smp_flash_fwd(int dtype, const void* q, const void* k, const void* v, const 
                   int ref_bk, int s_pad, void* stream) {
   if (hd < 1 || hd > 256 || ref_bq % BM != 0 || ref_bk < 1 || s_pad % ref_bk != 0)
     return (int)cudaErrorInvalidValue;
+  if ((q_ids == nullptr) != (kv_ids == nullptr) || (q_ids && (window > 0 || ref_bk % BN != 0)))
+    return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
-  Params p{q,    k,    v,    kpad, o,    lse,     B,       T,        S,        H,
+  Params p{q,    k,    v,    kpad, q_ids, kv_ids, o,    lse,     B,       T,        S,        H,
            hd,   q_sb, q_st, q_sh, k_sb, k_st,    k_sh,    v_sb,     v_st,     v_sh,
            o_sb, o_st, o_sh, kpad_sb, scale, causal, window, has_dropout, seed, keep_threshold,
            s_total, inv_keep, head0, head_total, ref_bq, ref_bk, s_pad};

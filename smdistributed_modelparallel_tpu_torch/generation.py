@@ -122,6 +122,9 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
 
     Returns: [B, T + max_new_tokens] — prompts with continuations.
     """
+    # Under context parallelism every rank decodes whole sequences, as the
+    # JAX package's program computes them on the global arrays: the same
+    # tokens on every rank (only a step shards the sequence).
     if state.cfg is not None and state.cfg.pipeline_parallel_degree > 1:
         raise _not_ported("pipeline_parallel_degree > 1")
     if max_new_tokens < 1:

@@ -14,6 +14,7 @@ differentiates. Pipeline and tensor parallelism arrive with later slices.
 import torch
 
 from smdistributed_modelparallel_tpu_torch.backend.state import state
+from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     SMPRuntimeError,
     SMPValidationError,
@@ -46,6 +47,11 @@ class DistributedModel:
             raise SMPValidationError("Call smp.init(config) before DistributedModel().")
         self.device = resolve_device(device)
         self.module = module.to(self.device)
+        group = state.group(CP_AXIS)
+        if group is not None:
+            # Parameters are replicated over cp: every rank starts from the
+            # group's first rank's.
+            group.flat_(group.broadcast, [*self.module.parameters(), *self.module.buffers()])
         self._grads = None          # {name: grad} of the last training step
         self._grads_finite = None   # bool under fp16 loss scaling
         self._bound = None          # {name: tensor} bound for the current microbatch
@@ -60,14 +66,22 @@ class DistributedModel:
             return torch.func.functional_call(self.module, self._bound, args, kwargs)
         return self.module(*args, **kwargs)
 
-    def backward(self, loss):
+    def backward(self, loss, num_tokens=None):
         """Mark the scalar to differentiate for this microbatch; the step
-        engine differentiates it when the step function returns."""
+        engine differentiates it when the step function returns.
+
+        ``num_tokens``: under context parallelism, the number of tokens this
+        rank's ``loss`` averages over, when it is a mean over a token mask
+        (its denominator); the step then weighs the ranks' losses and
+        gradients by these counts, as the global masked mean does. None:
+        the ranks weigh equally (a plain mean over equal shards). Ignored
+        without context parallelism."""
         if self._bound is None:
             raise StepUsageError("model.backward() must be called inside an @smp.step function.")
         if self._backward_loss is not None:
             raise StepUsageError("model.backward() called twice in one microbatch.")
         self._backward_loss = loss
+        self._num_tokens = num_tokens
         return loss
 
     # -- step-engine hooks ----------------------------------------------
@@ -75,12 +89,15 @@ class DistributedModel:
     def _begin_microbatch(self, bound):
         self._bound = bound
         self._backward_loss = None
+        self._num_tokens = None
 
     def _end_microbatch(self):
-        loss = self._backward_loss
+        """(the marked loss, its ``num_tokens``)."""
+        loss, num_tokens = self._backward_loss, self._num_tokens
         self._bound = None
         self._backward_loss = None
-        return loss
+        self._num_tokens = None
+        return loss, num_tokens
 
     # -- parameters and gradients ----------------------------------------
 

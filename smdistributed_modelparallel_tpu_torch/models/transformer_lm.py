@@ -200,7 +200,9 @@ class TransformerLM(nn.Module):
     def embed(self, ids):
         x = self.wte(ids)
         if self.pos_type == "learned":
-            start = 0
+            # Under context parallelism a step holds the rank's shard of
+            # each sequence, which starts at cp_rank * Tl.
+            start = state.sequence_offset(ids.shape[-1])
             if self.decode:
                 start = self.position_index
                 self.position_index = start + ids.shape[-1]

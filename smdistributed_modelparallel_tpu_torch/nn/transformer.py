@@ -271,7 +271,7 @@ class DistributedAttentionLayer(nn.Module):
         q, k, v = (shard_activation(t) for t in (q, k, v))
         if self.rotary_dim is not None and not self.cross_attention:
             q, k = apply_rotary(q, k, self.rotary_dim, base=self.rotary_emb_base or 10000.0,
-                                neox_style=self.gpt_neox_type_rotary)
+                                neox_style=self.gpt_neox_type_rotary, offset=state.sequence_offset(T))
 
         hd = self.attention_head_size
         scale = 1.0 / math.sqrt(hd) if self.scale_attention_scores else 1.0
@@ -588,13 +588,22 @@ class DistributedTransformerLMHead(nn.Module):
         x = self.word_embedding(input_ids)
         if self.use_positional_embedding:
             pad = self.position_ids_from_padding
+            T = input_ids.shape[-1]
             if pad is not None:
+                if state.cp_sharded:
+                    raise NotImplementedError(
+                        "position_ids_from_padding under context parallelism (a cumulative count "
+                        "across the sequence shards) is not ported to PyTorch yet (a later "
+                        "context-parallel slice)."
+                    )
                 # RoBERTa-style pad-aware positions (HF
                 # create_position_ids_from_input_ids).
                 ne = (input_ids != pad).long()
                 pos = torch.cumsum(ne, dim=-1) * ne + pad
             else:
-                pos = torch.arange(input_ids.shape[-1], device=input_ids.device)[None, :]
+                # Under context parallelism the shard starts at cp_rank * T.
+                start = state.sequence_offset(T)
+                pos = torch.arange(start, start + T, device=input_ids.device)[None, :]
             x = x + self.position_embedding(pos)
         if self.num_token_types > 0 and token_type_ids is not None:
             x = x + self.token_type_embedding(token_type_ids)

@@ -13,9 +13,17 @@ with the kernels' counter hash. The ``smp.nn`` layers' per-layer arguments
 (``extra_scale``, ``qk_compensation``, ``local_select``) and the
 ``use_pallas_kernels`` switch (``use_pallas``) take the JAX entry point's
 semantics; the layers pass them as Python numbers, which the plain path
-rounds to fp32 where the JAX package's traced fp32 scalars are. Context
-parallelism and the plain path's dropout arrive with the slices that use
-them.
+rounds to fp32 where the JAX package's traced fp32 scalars are. The plain
+path's dropout arrives with the slice that uses it.
+
+Context parallelism. While an ``@smp.step`` runs on the rank's sequence shard
+(``state.cp_sharded``), attention goes to the cp ring or Ulysses
+(``ops/context_parallel.cp_attention``) under the JAX package's conditions: no
+bias, a mask only as key padding, no ``local_select``, no window, T == S and
+one dtype. Where they fail, the JAX package falls through to GSPMD on the
+global arrays; the port holds only the local shard, where the same
+fall-through would attend over the shard alone and give a wrong answer
+without a word, so each uncovered case raises instead.
 """
 
 import math
@@ -24,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.ops.flash_attention import flash_attention
 
 
@@ -66,6 +75,31 @@ def _kernel_ok(q, k, v):
         return False
     T, S, hd = q.shape[1], k.shape[1], q.shape[-1]
     return T >= 128 and S >= 128 and T <= 8192 and S <= 8192 and hd <= 256
+
+
+def _cp_dispatch(q, k, v, causal, window, local_select, scale, bias, mask, mask_value, rate, seed,
+                 use_pallas):
+    """Attention over the rank's sequence shard: ``cp_attention``, or an
+    error naming what it does not cover."""
+    from smdistributed_modelparallel_tpu_torch.ops.context_parallel import cp_attention
+
+    kpad = _as_key_padding_bias(mask, mask_value)
+    uncovered = [what for what, bad in (
+        ("an additive bias", bias is not None),
+        ("a mask that varies along the query axis", mask is not None and kpad is None),
+        ("per-layer local/global selection (local_select)", local_select is not None),
+        ("a local-attention window", window is not None),
+        (f"T != S ({q.shape[1]} != {k.shape[1]})", q.shape[1] != k.shape[1]),
+        ("mixed q/k/v dtypes", not (q.dtype == k.dtype == v.dtype)),
+        ("use_pallas_kernels: False (the JAX package's plain ring body)", not use_pallas),
+    ) if bad]
+    if uncovered:
+        raise NotImplementedError(
+            f"context parallelism (cp = {state.topology.cp_size}) does not cover {', '.join(uncovered)}: the "
+            "JAX package attends over the global sequence there, and this rank holds only its shard."
+        )
+    return cp_attention(q, k, v, scale=float(scale), causal=causal, kpad=kpad, dropout_rate=rate,
+                        seed=seed if rate > 0.0 else None)
 
 
 def _f32(x):
@@ -130,6 +164,9 @@ def attention_core(
     if extra_scale is not None:
         scale = _f32(_f32(scale) * _f32(extra_scale))
     rate = float(dropout_rate) if seed is not None else 0.0
+    if state.cp_sharded:
+        return _cp_dispatch(q, k, v, causal, window, local_select, scale, bias, mask, mask_value, rate,
+                            seed, use_pallas)
     use_kernel = use_pallas and bias is None and local_select is None and _kernel_ok(q, k, v)
     kpad = _as_key_padding_bias(mask, mask_value) if use_kernel else None
     if use_kernel and (mask is None or kpad is not None):

@@ -5,7 +5,9 @@ Counterpart of ``smdistributed_modelparallel_tpu/ops/pallas_attention.py``:
 ``flash_attention`` and its ``custom_vjp``, whose kernels are the forward
 ``_fwd_kernel`` and the backward ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``.
 Here they are ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, wired
-together by a ``torch.autograd.Function``. Each kernel's wrapper
+together by a ``torch.autograd.Function``, and their ids mode
+(``flash_fwd_with_ids``, ``flash_bwd_dq_ids``, ``flash_bwd_dkv_ids``: one
+pair of a context-parallel ring step, section below). Each kernel's wrapper
 (``flash_attention``'s forward, ``flash_bwd_dq``, ``flash_bwd_dkv``) runs
 its plain PyTorch version for tensors on the CPU and its kernel for CUDA
 tensors; it never falls back from one to the other, and counts its kernel's
@@ -47,14 +49,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _KERNEL_BLOCK_Q = 64  # query rows per CTA of csrc/flash_fwd.cu
 
 
-def resolve_blocks(block_q, block_k):
+def resolve_blocks(block_q, block_k, default_k=512):
     """Reference tiling: an explicit argument wins, else the config's
-    ``pallas_attn_block_{q,k}``, else the TPU kernel's default 256/512."""
+    ``pallas_attn_block_{q,k}``, else the TPU kernel's default 256 and
+    ``default_k`` (512; 256 in ids mode)."""
     cfg = state.cfg
     if block_q is None:
         block_q = (cfg.pallas_attn_block_q if cfg else None) or 256
     if block_k is None:
-        block_k = (cfg.pallas_attn_block_k if cfg else None) or 512
+        block_k = (cfg.pallas_attn_block_k if cfg else None) or default_k
     return block_q, block_k
 
 
@@ -142,18 +145,18 @@ def _structural_keep(T, S, causal, window, device):
     return keep
 
 
-def _dropout_mask(seed, B, H, T, S, head0, head_total, s_total, rate, device):
+def _dropout_mask(seed, B, H, rows, cols, head0, head_total, s_total, rate):
     """[B, H, T, S] dropout keep bits, hashed at the global ``b*H + h``
-    index remapped by ``head0``/``head_total`` (``_bh_remap``)."""
+    index remapped by ``head0``/``head_total`` (``_bh_remap``) and at the
+    row and column indices ``rows`` [T] and ``cols`` [S] (int64)."""
+    device = rows.device
     b_idx = torch.arange(B, device=device)[:, None]
     h_idx = torch.arange(H, device=device)[None, :]
     if head0 is None:
         bh = b_idx * H + h_idx
     else:
         bh = b_idx * (head_total or H) + int(head0) + h_idx
-    rows = torch.arange(T, device=device)[:, None]
-    cols = torch.arange(S, device=device)[None, :]
-    return dropout_keep(seed, bh[:, :, None, None], rows, cols, s_total, rate)
+    return dropout_keep(seed, bh[:, :, None, None], rows[:, None], cols[None, :], s_total, rate)
 
 
 def _bhsd(x):
@@ -195,7 +198,8 @@ def flash_attention_reference(q, k, v, kpad_bias=None, seed=None, head0=None,
     rate = float(dropout_rate) if seed is not None else 0.0
     if rate > 0.0:
         s_total = counter_len if counter_len is not None else s_pad
-        dkeep = _dropout_mask(seed, B, H, T, S, head0, head_total, s_total, rate, dev)
+        dkeep = _dropout_mask(seed, B, H, torch.arange(T, device=dev), torch.arange(S, device=dev),
+                              head0, head_total, s_total, rate)
         p = torch.where(dkeep, p, 0.0)
     acc = torch.matmul(p.to(v.dtype).float(), _bhsd(v))
     if rate > 0.0:
@@ -269,7 +273,7 @@ def _flash_fwd(q, k, v, kpad_bias, seed, head0, scale, causal, window,
     with torch.cuda.device(q.device):  # the launch goes to the current device
         err = lib.smp_flash_fwd(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            kpad.data_ptr() if kpad is not None else None, o.data_ptr(), lse.data_ptr(),
+            kpad.data_ptr() if kpad is not None else None, None, None, o.data_ptr(), lse.data_ptr(),
             B, T, S, H, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], kpad_sb,
             float(scale), int(bool(causal)), int(window or 0), has_dropout, seed_u,
@@ -377,7 +381,8 @@ def _bwd_terms(q, k, v, do, lse, delta, kpad_bias, seed, head0, scale,
     p_drop = p
     if rate > 0.0:
         s_total = counter_len if counter_len is not None else s_pad
-        dkeep = _dropout_mask(seed, B, H, T, S, head0, head_total, s_total, rate, dev)
+        dkeep = _dropout_mask(seed, B, H, torch.arange(T, device=dev), torch.arange(S, device=dev),
+                              head0, head_total, s_total, rate)
         inv_keep = 1.0 / (1.0 - rate)
         dp = torch.where(dkeep, dp * inv_keep, 0.0)
         p_drop = torch.where(dkeep, p * inv_keep, 0.0)
@@ -436,10 +441,11 @@ def flash_attention_bwd_reference(q, k, v, o, do, lse, kpad_bias=None,
 
 def _bwd_launch(kernel, q, k, v, do, lse, delta, kpad_bias, dq, dk, dv, seed,
                 head0, scale, causal, window, dropout_rate, block_q, block_k,
-                head_total, counter_len):
+                head_total, counter_len, ids=(None, None)):
     """Launch one kernel of ``csrc/flash_bwd.cu``: ``smp_flash_bwd_dq``
     into dq, or ``smp_flash_bwd_dkv`` into dk and dv (the unused outputs
-    are None)."""
+    are None); ``ids`` (int32 q_ids, kv_ids) selects ids mode, whose
+    outputs are fp32."""
     _check(q, k, v, kpad_bias, window)
     _check_cuda(kernel, q, k, v, do)
     B, T, H, hd = q.shape
@@ -463,6 +469,7 @@ def _bwd_launch(kernel, q, k, v, do, lse, delta, kpad_bias, dq, dk, dv, seed,
         err = getattr(lib, f"smp_{kernel}")(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), kpad.data_ptr() if kpad is not None else None,
+            *(x.data_ptr() if x is not None else None for x in ids),
             *outs, B, T, S, H, hd, strides, float(scale), int(bool(causal)), int(window or 0),
             *_dropout_args(seed, dropout_rate, counter_len, s_pad),
             0 if head0 is None else int(head0),
@@ -534,6 +541,267 @@ def flash_attention_bwd(q, k, v, o, do, lse, kpad_bias=None, seed=None,
     return dq, dk, dv
 
 
+# ----------------------------------------------------------------------
+# Index-vector ("ids") mode: one (q block, kv block) pair of a cp ring
+# ----------------------------------------------------------------------
+#
+# Counterparts of the JAX package's ``flash_fwd_with_ids`` and
+# ``flash_bwd_with_ids`` (``pallas_attention.py:796``, ``:821``): the same
+# kernels with ``has_ids=True``. Not autograd surfaces: the ring
+# (``ops/context_parallel.py``) calls the forward per ring step, merging
+# partials online, and the backward per step with the global lse. What
+# ids mode changes from the plain entry points:
+#   - the mask: padding by local index, causal by the global ids ``q_ids``
+#     [T] and ``kv_ids`` [S] (``_ids_mask``; no window in ids mode);
+#   - the visited range: every reference kv block, but under causal a block
+#     whose smallest valid column id exceeds the largest valid row id of
+#     the reference q block is skipped (``_ids_rmax``/``_ids_cmin``). This
+#     decides which rows average the visited v's (all masked) and which get
+#     0 and the 1e30 sentinel (nothing visited);
+#   - dropout hashes the global ids with the ``counter_len`` stride;
+#   - o, dq, dk and dv come back in fp32, for the ring's fp32 accumulators;
+#   - the reference kv block defaults to 256, not 512.
+
+
+def _ids_tiling(block_q, block_k, T, S):
+    """(block_q, block_k, s_pad) of the TPU kernel in ids mode."""
+    block_q, block_k = resolve_blocks(block_q, block_k, default_k=256)
+    block_q = _clamp_block(block_q, T)
+    block_k = _clamp_block(block_k, S)
+    return block_q, block_k, -(-S // block_k) * block_k
+
+
+def _check_ids(q, k, q_ids, kv_ids):
+    if q_ids.shape != (q.shape[1],) or kv_ids.shape != (k.shape[1],):
+        raise ValueError(f"q_ids must be [T] and kv_ids [S], got {tuple(q_ids.shape)}, {tuple(kv_ids.shape)} "
+                         f"for T={q.shape[1]}, S={k.shape[1]}")
+
+
+def _ids_visited(q_ids, kv_ids, bq, bk, causal):
+    """([T, S] visited pairs, [T] whether the last reference kv block, which
+    holds the padding columns, is visited): every block, or under causal
+    the blocks whose smallest column id is at most the largest row id of
+    the row's reference q block."""
+    T, S = q_ids.shape[0], kv_ids.shape[0]
+    dev = q_ids.device
+    if not causal:
+        return torch.ones((T, S), dtype=torch.bool, device=dev), torch.ones(T, dtype=torch.bool, device=dev)
+    nq, nk = -(-T // bq), -(-S // bk)
+    rmax = torch.full((nq * bq,), -1, dtype=torch.int64, device=dev)
+    rmax[:T] = q_ids
+    rmax = rmax.view(nq, bq).amax(1)
+    cmin = torch.full((nk * bk,), 2**30, dtype=torch.int64, device=dev)
+    cmin[:S] = kv_ids
+    cmin = cmin.view(nk, bk).amin(1)
+    vis = cmin[None, :] <= rmax[:, None]  # [nq, nk]
+    rows = torch.arange(T, device=dev) // bq
+    cols = torch.arange(S, device=dev) // bk
+    return vis[rows][:, cols], vis[rows, nk - 1]
+
+
+def flash_fwd_with_ids_reference(q, k, v, kpad_bias, q_ids, kv_ids, *, scale, causal, seed=None,
+                                 dropout_rate=0.0, counter_len=None, block_q=None, block_k=None,
+                                 head0=None, head_total=None):
+    """Plain PyTorch version of the ids-mode forward kernel; materialises
+    [B, H, T, S]. Returns ``(o [B, T, H, hd] fp32, lse [B, H, T] fp32)``."""
+    _check(q, k, v, kpad_bias, None)
+    _check_ids(q, k, q_ids, kv_ids)
+    B, T, H, hd = q.shape
+    S = k.shape[1]
+    bq, bk, s_pad = _ids_tiling(block_q, block_k, T, S)
+    q_ids, kv_ids = q_ids.long(), kv_ids.long()
+    s = torch.matmul(_bhsd(q), _bhsd(k).transpose(-1, -2))
+    if scale != 1.0:
+        s = s * float(scale)
+    if kpad_bias is not None:
+        s = s + kpad_bias.float()[:, None, None, :]
+    if causal:
+        s = torch.where(kv_ids[None, :] <= q_ids[:, None], s, NEG_INF)
+    visited, last_visited = _ids_visited(q_ids, kv_ids, bq, bk, causal)
+    s = torch.where(visited, s, -math.inf)
+    m = torch.clamp(s.amax(-1, keepdim=True), min=NEG_INF)
+    p = torch.exp(s - m)
+    # Visited padding columns [S, s_pad) score -1e30 (v = 0): p = 1 only
+    # when every visited score is -1e30.
+    n_pad = torch.where(last_visited, float(s_pad - S), 0.0)[:, None]
+    l = p.sum(-1, keepdim=True) + torch.where(m == NEG_INF, n_pad, 0.0)
+    rate = float(dropout_rate) if seed is not None else 0.0
+    if rate > 0.0:
+        s_total = counter_len if counter_len is not None else s_pad
+        p = torch.where(_dropout_mask(seed, B, H, q_ids, kv_ids, head0, head_total, s_total, rate), p, 0.0)
+    acc = torch.matmul(p.to(v.dtype).float(), _bhsd(v))
+    if rate > 0.0:
+        acc = acc * (1.0 / (1.0 - rate))
+    o = acc / torch.clamp(l, min=1e-30)
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)), LSE_MASKED)
+    return o.permute(0, 2, 1, 3), lse[..., 0]
+
+
+def _bwd_terms_ids(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, seed, head0, scale, causal,
+                   dropout_rate, block_q, block_k, head_total, counter_len):
+    """(ds, p_drop), fp32 [B, H, T, S], of the ids-mode backward kernels.
+    The visited range decides nothing here: a skipped block is all masked
+    (p = 0)."""
+    _check(q, k, v, kpad_bias, None)
+    _check_ids(q, k, q_ids, kv_ids)
+    B, T, H, hd = q.shape
+    S = k.shape[1]
+    _, _, s_pad = _ids_tiling(block_q, block_k, T, S)
+    q_ids, kv_ids = q_ids.long(), kv_ids.long()
+    s = torch.matmul(_bhsd(q), _bhsd(k).transpose(-1, -2))
+    if scale != 1.0:
+        s = s * float(scale)
+    if kpad_bias is not None:
+        s = s + kpad_bias.float()[:, None, None, :]
+    p = torch.exp(s - lse.float()[..., None])
+    if causal:
+        p = torch.where(kv_ids[None, :] <= q_ids[:, None], p, 0.0)
+    dp = torch.matmul(_bhsd(do), _bhsd(v).transpose(-1, -2))
+    rate = float(dropout_rate) if seed is not None else 0.0
+    p_drop = p
+    if rate > 0.0:
+        s_total = counter_len if counter_len is not None else s_pad
+        dkeep = _dropout_mask(seed, B, H, q_ids, kv_ids, head0, head_total, s_total, rate)
+        inv_keep = 1.0 / (1.0 - rate)
+        dp = torch.where(dkeep, dp * inv_keep, 0.0)
+        p_drop = torch.where(dkeep, p * inv_keep, 0.0)
+    ds = p * (dp - delta.float()[..., None]) * float(scale)
+    return ds, p_drop
+
+
+def flash_bwd_dq_ids_reference(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, *, scale, causal,
+                               seed=None, dropout_rate=0.0, counter_len=None, block_q=None,
+                               block_k=None, head0=None, head_total=None):
+    """Plain PyTorch version of the ids-mode dq kernel: dq = round_k(ds) K,
+    fp32."""
+    ds, _ = _bwd_terms_ids(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, seed, head0, scale,
+                           causal, dropout_rate, block_q, block_k, head_total, counter_len)
+    return torch.matmul(ds.to(k.dtype).float(), _bhsd(k)).permute(0, 2, 1, 3)
+
+
+def flash_bwd_dkv_ids_reference(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, *, scale, causal,
+                                seed=None, dropout_rate=0.0, counter_len=None, block_q=None,
+                                block_k=None, head0=None, head_total=None):
+    """Plain PyTorch version of the ids-mode dk/dv kernel: dk =
+    round_q(ds)^T Q and dv = round_dO(p_drop)^T dO, fp32."""
+    ds, p_drop = _bwd_terms_ids(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, seed, head0, scale,
+                                causal, dropout_rate, block_q, block_k, head_total, counter_len)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), _bhsd(q))
+    dv = torch.matmul(p_drop.to(do.dtype).float().transpose(-1, -2), _bhsd(do))
+    return dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
+def _ids_arg(ids, device):
+    return ids.to(device=device, dtype=torch.int32).contiguous()
+
+
+def flash_fwd_with_ids(q, k, v, kpad_bias, q_ids, kv_ids, *, scale, causal, seed=None,
+                       dropout_rate=0.0, counter_len=None, block_q=None, block_k=None, head0=None,
+                       head_total=None):
+    """One blockwise forward over a (q block, kv block) pair with global
+    ids: ``(o [B, T, H, hd] fp32, lse [B, H, T] fp32 with the 1e30
+    sentinel)``. The plain version for CPU tensors, ``csrc/flash_fwd.cu`` in
+    ids mode for CUDA tensors (bf16, fp16 or fp32; hd <= 256), else it
+    raises."""
+    if q.device.type == "cpu":
+        return flash_fwd_with_ids_reference(
+            q, k, v, kpad_bias, q_ids, kv_ids, scale=scale, causal=causal, seed=seed,
+            dropout_rate=dropout_rate, counter_len=counter_len, block_q=block_q, block_k=block_k,
+            head0=head0, head_total=head_total)
+    _check(q, k, v, kpad_bias, None)
+    _check_ids(q, k, q_ids, kv_ids)
+    _check_cuda("flash_fwd_with_ids", q, k, v)
+    B, T, H, hd = q.shape
+    S = k.shape[1]
+    bq, bk, s_pad = _ids_tiling(block_q, block_k, T, S)
+    if bq % _KERNEL_BLOCK_Q or bk % _KERNEL_BLOCK_Q:
+        raise ValueError(f"ids mode takes reference blocks that are multiples of {_KERNEL_BLOCK_Q}, got {bq}, {bk}")
+    q, k, v = _unit_stride(q, k, v)
+    kpad, kpad_sb = _kpad_arg(kpad_bias, q.device)
+    qi, ki = _ids_arg(q_ids, q.device), _ids_arg(kv_ids, q.device)
+    has_dropout, seed_u, threshold, s_total, inv_keep = _dropout_args(seed, dropout_rate, counter_len, s_pad)
+    o = torch.empty((B, T, H, hd), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    lib = _kernel()
+    with torch.cuda.device(q.device):
+        err = lib.smp_flash_fwd(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kpad.data_ptr() if kpad is not None else None, qi.data_ptr(), ki.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), B, T, S, H, hd,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], kpad_sb,
+            float(scale), int(bool(causal)), 0, has_dropout, seed_u, threshold, s_total, inv_keep,
+            0 if head0 is None else int(head0),
+            H if head0 is None else int(head_total or H),
+            bq, bk, s_pad,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_fwd (ids) launch failed: {lib.smp_cuda_error_string(err).decode()}")
+    flash_fwd_with_ids.launches += 1
+    return o, lse
+
+
+def flash_bwd_dq_ids(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, *, scale, causal, seed=None,
+                     dropout_rate=0.0, counter_len=None, block_q=None, block_k=None, head0=None,
+                     head_total=None):
+    """dq (fp32) of one ring pair: the plain version for CPU tensors, the dq
+    kernel of ``csrc/flash_bwd.cu`` in ids mode for CUDA tensors, else it
+    raises."""
+    kw = dict(scale=scale, causal=causal, seed=seed, dropout_rate=dropout_rate, counter_len=counter_len,
+              block_q=block_q, block_k=block_k, head0=head0, head_total=head_total)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_ids_reference(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, **kw)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _bwd_launch_ids("flash_bwd_dq", q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, dq, None, None, kw)
+    flash_bwd_dq_ids.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_ids(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, *, scale, causal, seed=None,
+                      dropout_rate=0.0, counter_len=None, block_q=None, block_k=None, head0=None,
+                      head_total=None):
+    """(dk, dv) (fp32) of one ring pair: the plain version for CPU tensors,
+    the dk/dv kernel of ``csrc/flash_bwd.cu`` in ids mode for CUDA tensors,
+    else it raises."""
+    kw = dict(scale=scale, causal=causal, seed=seed, dropout_rate=dropout_rate, counter_len=counter_len,
+              block_q=block_q, block_k=block_k, head0=head0, head_total=head_total)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_ids_reference(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, **kw)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    _bwd_launch_ids("flash_bwd_dkv", q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, None, dk, dv, kw)
+    flash_bwd_dkv_ids.launches += 1
+    return dk, dv
+
+
+flash_fwd_with_ids.launches = 0  # launches of csrc/flash_fwd.cu in ids mode
+flash_bwd_dq_ids.launches = 0
+flash_bwd_dkv_ids.launches = 0
+
+
+def flash_bwd_with_ids(q, k, v, o, do, lse, kpad_bias, q_ids, kv_ids, *, scale, causal, seed=None,
+                       dropout_rate=0.0, counter_len=None, block_q=None, block_k=None, head0=None,
+                       head_total=None):
+    """Backward of one ring pair given the global output ``o``, its
+    gradient ``do`` and the global lse [B, H, T] (1e30 sentinel rows):
+    ``(dq, dk, dv)`` in fp32, with delta = rowsum(dO * O) taken first in one
+    fp32 reduction."""
+    kw = dict(scale=scale, causal=causal, seed=seed, dropout_rate=dropout_rate, counter_len=counter_len,
+              block_q=block_q, block_k=block_k, head0=head0, head_total=head_total)
+    delta = attention_delta(o, do)
+    dq = flash_bwd_dq_ids(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, **kw)
+    dk, dv = flash_bwd_dkv_ids(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, **kw)
+    return dq, dk, dv
+
+
+def _bwd_launch_ids(kernel, q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, dq, dk, dv, kw):
+    _check_ids(q, k, q_ids, kv_ids)
+    bq, bk, s_pad = _ids_tiling(kw["block_q"], kw["block_k"], q.shape[1], k.shape[1])
+    _bwd_launch(kernel, q, k, v, do, lse, delta, kpad_bias, dq, dk, dv, kw["seed"], kw["head0"],
+                kw["scale"], kw["causal"], None, kw["dropout_rate"], bq, bk, kw["head_total"],
+                kw["counter_len"], ids=(_ids_arg(q_ids, q.device), _ids_arg(kv_ids, q.device)))
+
+
 _LIB = None  # csrc/flash_fwd.cu, loaded at the first launch
 _BWD_LIB = None  # csrc/flash_bwd.cu
 
@@ -548,7 +816,7 @@ def _kernel():
             ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
         )
         lib.smp_flash_fwd.argtypes = (
-            [c_int] + [c_ptr] * 6 + [c_int] * 5 + [c_ll] * 13
+            [c_int] + [c_ptr] * 8 + [c_int] * 5 + [c_ll] * 13
             + [c_float, c_int, c_int, c_int, c_uint, c_uint, c_uint, c_float]
             + [c_int] * 5 + [c_ptr]
         )
@@ -570,8 +838,8 @@ def _bwd_kernel():
             [c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
             + [c_float, c_int, c_int, c_int, c_uint, c_uint, c_uint, c_float, c_int, c_int, c_ptr]
         )
-        lib.smp_flash_bwd_dq.argtypes = [c_int] + [c_ptr] * 8 + tail
-        lib.smp_flash_bwd_dkv.argtypes = [c_int] + [c_ptr] * 9 + tail
+        lib.smp_flash_bwd_dq.argtypes = [c_int] + [c_ptr] * 10 + tail
+        lib.smp_flash_bwd_dkv.argtypes = [c_int] + [c_ptr] * 11 + tail
         lib.smp_flash_bwd_dq.restype = c_int
         lib.smp_flash_bwd_dkv.restype = c_int
         lib.smp_cuda_error_string.argtypes = [c_int]

@@ -40,14 +40,46 @@ microbatch ``quant.finalize`` rolls the histories into ``state.quant_state``,
 as the JAX step program returns its quant output. An eval-only step (no
 ``model.backward``) rolls its forward slots the same way.
 
+Context parallelism (``context_parallel_degree`` > 1). Every rank is handed
+the full global batch, as the JAX user's code is; after the microbatch split
+the step slices dimension 1 (the sequence) of every split input with at least
+two dimensions to the rank's contiguous shard, as the JAX package's
+``batch_spec`` shards it over cp, and runs the microbatches with
+``state.cp_sharded`` set: attention goes over the cp ring (or Ulysses) and
+positions start at the shard's offset. The parameters are replicated over cp
+(``DistributedModel`` broadcasts them from the group's first rank). After the
+last microbatch the accumulated gradients are summed over the cp group in one
+flat buffer, so that they are the gradient of the global-mean loss:
+  - each rank's loss is a mean over its shard. By default the ranks weigh
+    equally (a plain mean over equal shards). A loss that averages over a
+    token mask passes its count, ``model.backward(loss, num_tokens=n)``; the
+    rank's gradient and loss are then weighted by n over the group's total,
+    as the global masked mean weighs them;
+  - the ``StepOutput`` leaves are combined over the group: the marked loss
+    with those weights, other values of at most one dimension by their mean,
+    and values of two or more dimensions (per-token values) gathered along
+    dimension 1, the sequence; so ``reduce_mean()`` gives the JAX package's
+    global loss;
+  - a loss that shifts along the sequence inside the step (``logits[:, :-1]``
+    against ``ids[:, 1:]``) cannot be computed on a shard: the last token of a
+    shard predicts the first of the next. Under cp the step takes the
+    ``(ids, targets)`` form, with targets shifted by the caller before the
+    step, as loss mode (``model(ids, targets=...)``) does.
+Under cp the step refuses data parallelism beside cp (rdp > 1, the
+data-parallel slice), fp16 (the loss scaler's overflow flag would have to
+agree across ranks) and ``matmul_precision: fp8`` (amax would need a
+cross-rank max).
+
 Not ported yet, each raising ``NotImplementedError`` when asked for:
-pipeline parallelism, tensor parallelism, ZeRO-3 (``sharded_params``), shape
+pipeline parallelism, tensor parallelism, data parallelism (rdp > 1),
+expert parallelism, ZeRO-3 (``sharded_params``), shape
 buckets (``SMP_SHAPE_BUCKETS``), the health sentinel (``SMP_HEALTH_CHECK``),
 the executable cache (``SMP_EXEC_CACHE``), the compiled-program audit
 (``SMP_HLO_AUDIT``), and the telemetry, chaos, preemption and supervisor
 hooks of the step edge.
 """
 
+import contextlib
 import functools
 import inspect
 import os
@@ -56,14 +88,17 @@ import torch
 
 from smdistributed_modelparallel_tpu_torch import quant
 from smdistributed_modelparallel_tpu_torch.backend.split import (
+    DeferredSplit,
+    NonSplit,
     StepOutput,
     TensorSplitter,
     microbatch_slice,
     tree_map,
 )
 from smdistributed_modelparallel_tpu_torch.backend.state import state
+from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS
 from smdistributed_modelparallel_tpu_torch.model import DistributedModel
-from smdistributed_modelparallel_tpu_torch.utils.exceptions import StepUsageError
+from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError, StepUsageError
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
 
 logger = get_logger()
@@ -103,6 +138,26 @@ def _check_supported(cfg):
         raise _not_ported("pipeline_parallel_degree > 1")
     if cfg.tensor_parallel_degree > 1:
         raise _not_ported("tensor_parallel_degree > 1")
+    if state.topology.rdp_size > 1:
+        raise NotImplementedError(
+            f"@smp.step: data parallelism (rdp = {state.topology.rdp_size} replicas) is not ported to "
+            "PyTorch yet (the data-parallel slice)."
+        )
+    if cfg.expert_parallel_degree > 1:
+        raise NotImplementedError(
+            "@smp.step: expert_parallel_degree > 1 is not ported to PyTorch yet (the MoE slice)."
+        )
+    if cfg.context_parallel_degree > 1:
+        if cfg.fp16:
+            raise NotImplementedError(
+                "@smp.step: fp16 under context parallelism (the loss scaler's overflow flag would have to "
+                "agree across the cp ranks) is not ported to PyTorch yet (a later context-parallel slice)."
+            )
+        if quant.matmul_precision_mode(cfg) == "fp8":
+            raise NotImplementedError(
+                "@smp.step: matmul_precision: fp8 under context parallelism (amax would need a cross-rank "
+                "max) is not ported to PyTorch yet (a later context-parallel slice)."
+            )
     if cfg.zero3_enabled:
         raise _not_ported("sharded_params: zero3 (ZeRO-3)")
     for env, what, asks in _LEFT_OUT_ENV:
@@ -126,9 +181,85 @@ def _positional_names(fn, n):
     return names[:n]
 
 
+def _shard_sequence(tree, index, n):
+    """The rank's contiguous shard of the dimension after the split axis of
+    every split leaf that has one (a stacked leaf carries the [num_mb] axis
+    in front)."""
+
+    def cut(leaf, axis, stacked):
+        dim = axis + 1 + int(stacked)
+        if not isinstance(leaf, torch.Tensor) or leaf.dim() <= dim:
+            return leaf
+        if leaf.shape[dim] % n:
+            raise SMPValidationError(
+                f"Sequence length {leaf.shape[dim]} (dimension {dim} of a split input) must be divisible "
+                f"by context_parallel_degree {n}."
+            )
+        step = leaf.shape[dim] // n
+        return torch.narrow(leaf, dim, index * step, step)
+
+    return tree_map(lambda x: DeferredSplit(cut(x.value, x.axis, x.stacked), x.axis, x.num_mb, x.stacked)
+                    if isinstance(x, DeferredSplit) else x,
+                    tree, is_leaf=lambda x: isinstance(x, (NonSplit, DeferredSplit)))
+
+
+class _LossLeaf:
+    """An output leaf that is the loss ``model.backward`` marked."""
+
+    def __init__(self, value):
+        self.value = value
+
+
+def _combine_over_cp(stacked, group, weights):
+    """The cp group's view of the per-rank [num_mb, ...] outputs: the marked
+    loss weighted by this rank's ``weights`` [num_mb] and summed, other
+    values of at most one dimension per microbatch averaged, per-token
+    values gathered along the sequence."""
+
+    def combine(x):
+        loss = isinstance(x, _LossLeaf)
+        x = x.value if loss else x
+        if group is None or not isinstance(x, torch.Tensor) or not x.is_floating_point():
+            return x
+        if x.dim() >= 3:
+            return group.all_gather(x, dim=2)
+        if loss:
+            w = weights.to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
+            return group.all_reduce(x.float() * w).to(x.dtype)
+        return group.all_reduce(x.float()).div_(group.size).to(x.dtype)
+
+    return tree_map(combine, stacked, is_leaf=lambda x: isinstance(x, _LossLeaf))
+
+
+@contextlib.contextmanager
+def _cp_sharded_off():
+    """Clear ``state.cp_sharded`` when the microbatch loop ends."""
+    try:
+        yield
+    finally:
+        state.cp_sharded = False
+
+
+def _loss_weight(group, num_tokens):
+    """This rank's weight of a microbatch's loss in the group's: its share
+    of the tokens the group's loss averages over, equal shares when the
+    loss did not give its count."""
+    if group is None:
+        return 1.0
+    if num_tokens is None:
+        return 1.0 / group.size
+    mine = torch.as_tensor(num_tokens, dtype=torch.float64).reshape(1).cpu()
+    total = float(group.all_reduce(mine.clone())[0])
+    if total <= 0:
+        raise SMPValidationError("model.backward(num_tokens=...) counts no token on any cp rank.")
+    return float(mine[0]) / total
+
+
 def _stack_outputs(outs):
     """Per-microbatch output trees -> one tree of [num_mb, ...] leaves."""
     first = outs[0]
+    if isinstance(first, _LossLeaf):
+        return _LossLeaf(_stack_outputs([o.value for o in outs]))
     if isinstance(first, dict):
         return {k: _stack_outputs([o[k] for o in outs]) for k in first}
     if isinstance(first, (list, tuple)):
@@ -159,6 +290,9 @@ class StepFunction:
         stacked_args, stacked_kwargs = splitter.stack_microbatches(
             args, kwargs, _positional_names(self.fn, len(args))
         )
+        group = state.group(CP_AXIS)
+        if group is not None:
+            stacked_args, stacked_kwargs = _shard_sequence((stacked_args, stacked_kwargs), group.index, group.size)
         # Forgot-optimizer.step() detector: unconsumed grads with the
         # parameters untouched since the previous training step.
         stale = model._grads is not None and model._params_at_step == model._param_version
@@ -175,8 +309,10 @@ class StepFunction:
         names = [n for n, t in bound.items() if t.requires_grad]
         acc = None
         outs = []
+        weights = []  # this rank's share of each microbatch's loss over the cp group
         qs = quant.ensure_state(model.device) if quant.matmul_precision_mode(cfg) == "fp8" else None
-        with quant.step_trace(qs):
+        state.cp_sharded = group is not None
+        with quant.step_trace(qs), _cp_sharded_off():
             for mb in range(num_mb):
                 mb_args, mb_kwargs = tree_map(
                     lambda x: x.to(model.device) if isinstance(x, torch.Tensor) else x,
@@ -187,14 +323,19 @@ class StepFunction:
                     with torch.enable_grad() if self._has_backward is not False else torch.no_grad():
                         out = self.fn(*mb_args, **mb_kwargs)
                 finally:
-                    loss = model._end_microbatch()
+                    loss, num_tokens = model._end_microbatch()
+                weights.append(_loss_weight(group, num_tokens))
                 if self._has_backward is None:
                     self._has_backward = loss is not None
                 if self._has_backward:
                     if loss is None:
                         raise StepUsageError("model.backward(loss) was not called in the step function.")
+                    # Under cp the loss is scaled by this rank's share before
+                    # the backward: the ring carries its cotangents to the
+                    # other ranks' k/v, whose gradients land there.
+                    scale = loss_scale * weights[-1] * (group.size if group is not None else 1)
                     grads = torch.autograd.grad(
-                        loss * loss_scale if loss_scale != 1.0 else loss,
+                        loss * scale if scale != 1.0 else loss,
                         [bound[n] for n in names], allow_unused=True,
                     )
                     if acc is None:
@@ -207,7 +348,9 @@ class StepFunction:
                     raise StepUsageError(
                         "model.backward() called in a step function whose first run did not call it."
                     )
-                outs.append(tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor) else x, out))
+                outs.append(tree_map(
+                    lambda x: (_LossLeaf(x.detach()) if x is loss else x.detach()) if isinstance(x, torch.Tensor)
+                    else x, out))
             if qs is not None:
                 qs.absorb(quant.finalize(qs))
 
@@ -223,12 +366,15 @@ class StepFunction:
                     )
             model._params_at_step = model._param_version
             divisor = float(num_mb * loss_scale)
+            if group is not None:
+                group.flat_(group.all_reduce, [acc[n] for n in names])
+                divisor *= group.size
             model._grads = {n: (acc[n] / divisor).to(params[n].dtype) for n in names}
             model._grads_finite = (
                 all(bool(torch.isfinite(g).all()) for g in model._grads.values())
                 if cfg.fp16 else None
             )
-        return StepOutput(_stack_outputs(outs))
+        return StepOutput(_combine_over_cp(_stack_outputs(outs), group, torch.tensor(weights)))
 
 
 def step(fn=None, *, non_split_inputs=None, input_split_axes=None):

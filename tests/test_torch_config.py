@@ -87,3 +87,77 @@ def test_environment_injection_like_jax(monkeypatch, env):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     assert ModelParallelConfig().as_dict() == JaxConfig().as_dict()
+
+
+DEGREE_REFUSED = [
+    {"context_parallel_degree": 2},
+    {"expert_parallel_degree": 2},
+    {"tensor_parallel_degree": 2, "ddp": True},
+]
+
+
+@pytest.mark.parametrize("cfg", DEGREE_REFUSED, ids=[json.dumps(c) for c in DEGREE_REFUSED])
+def test_degree_check_refuses_like_jax(cfg):
+    """At one device both packages refuse, at smp.init, degrees whose
+    product does not divide the device count, with the same error."""
+    import smdistributed_modelparallel_tpu as jax_smp
+    import smdistributed_modelparallel_tpu_torch as smp_torch
+    from smdistributed_modelparallel_tpu.utils.exceptions import DeviceCountError as JaxDeviceCountError
+    from smdistributed_modelparallel_tpu_torch.utils.exceptions import DeviceCountError
+
+    try:
+        with pytest.raises(JaxDeviceCountError) as want:
+            jax_smp.init({**cfg, "_device_count_override": 1})
+        with pytest.raises(DeviceCountError) as got:
+            smp_torch.init(cfg)
+        assert str(got.value) == str(want.value)
+        # The override shrinks the port's count as it does the JAX mesh.
+        with pytest.raises(DeviceCountError):
+            smp_torch.init({**cfg, "_device_count_override": 1})
+    finally:
+        jax_smp.reset()
+        smp_torch.reset()
+
+
+def test_device_count_override_may_not_exceed_the_devices():
+    """Neither package builds a topology over more devices than it has."""
+    import jax
+
+    import smdistributed_modelparallel_tpu as jax_smp
+    import smdistributed_modelparallel_tpu_torch as smp_torch
+
+    try:
+        with pytest.raises(ValueError):
+            jax_smp.init({"_device_count_override": 2 * len(jax.devices())})
+        with pytest.raises(ValueError, match="exceeds"):
+            smp_torch.init({"_device_count_override": 2})
+        smp_torch.init({"_device_count_override": 1})
+        assert smp_torch.size() == 1 and smp_torch.cp_size() == 1 and smp_torch.get_cp_group() == [0]
+    finally:
+        jax_smp.reset()
+        smp_torch.reset()
+
+
+TOPOLOGIES = [
+    {"context_parallel_degree": 2, "ddp": True},
+    {"context_parallel_degree": 4, "tensor_parallel_degree": 2, "ddp": True},
+    {"context_parallel_degree": 2, "pipeline_parallel_degree": 2, "microbatches": 2, "ddp": True,
+     "placement_strategy": "spread"},
+    {"expert_parallel_degree": 2, "context_parallel_degree": 2, "ddp": True},
+]
+
+
+@pytest.mark.parametrize("cfg", TOPOLOGIES, ids=[json.dumps(c) for c in TOPOLOGIES])
+def test_topology_coords_and_cp_groups_match_jax(cfg):
+    """Over 8 devices the port's rank grid gives every rank the JAX mesh's
+    coordinates and cp group."""
+    from smdistributed_modelparallel_tpu.backend.topology import DeviceTopology as JaxTopology
+    from smdistributed_modelparallel_tpu_torch.backend.topology import DeviceTopology
+
+    want = JaxTopology(JaxConfig(cfg))
+    got = DeviceTopology(ModelParallelConfig(cfg), 8)
+    assert got.axis_names == want.axis_names and got.axis_sizes == want.axis_sizes
+    for r in range(8):
+        assert got.coords(r) == want.coords(r)
+        assert got.axis_group(r, "cp") == want.axis_group(r, "cp")
+    assert sorted(r for g in got.axis_groups("cp") for r in g) == list(range(8))

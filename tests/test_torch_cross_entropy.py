@@ -148,8 +148,15 @@ def test_loss_mode_transformer_matches_jax(variant):
                                rtol=1e-4, atol=1e-5)
 
 
-def test_loss_mode_refused_under_pipeline_parallelism():
-    smp_torch.init({"pipeline_parallel_degree": 2, "microbatches": 2})
+def test_loss_mode_refused_under_pipeline_parallelism(monkeypatch):
+    # One device cannot hold pp = 2: smp.init refuses it, as the JAX package
+    # does. The model's own refusal is held on the config installed past
+    # that check.
+    cfg = {"pipeline_parallel_degree": 2, "microbatches": 2}
+    with pytest.raises(smp_torch.utils.exceptions.DeviceCountError):
+        smp_torch.init(cfg)
+    smp_torch.init({})
+    monkeypatch.setattr(smp_torch.state, "cfg", smp_torch.ModelParallelConfig(cfg))
     with pytest.raises(ValueError, match="pipeline parallelism"):
         TransformerLM(**LM)(torch.zeros((1, 4), dtype=torch.long), targets=torch.zeros((1, 4), dtype=torch.long))
 

@@ -21,7 +21,11 @@ and these tolerances are ``chip_smoke.py``'s phase B sweep. So are those of
 and of ``matmul_fp8`` (``FP8_CASES``, ``fp8_inputs``, ``fp8_compare``: each
 element within the fp32 summation-order bound of its own). The fp8 casts on
 the card equal the CPU's bit for bit, and one fp32 step of the smp.nn model
-under ``matmul_precision: fp8`` agrees with the CPU's.
+under ``matmul_precision: fp8`` agrees with the CPU's. The ids-mode flash
+kernels (one pair of a context-parallel ring step) run ``chip_smoke.py``'s
+``IDS_CASES`` (``ids_inputs``, ``ids_compare``; the flash tolerances above,
+the outputs fp32), and cp = 2 attention in two ranks on the card agrees with
+full attention on the CPU.
 """
 
 import copy
@@ -36,14 +40,18 @@ from chip_smoke import (
     CE_TOL,
     FP8_CASES,
     GELU_CASES,
+    IDS_CASES,
     MB_CASES,
     ce_inputs,
     fp8_compare,
     fp8_inputs,
     gelu_compare,
     gelu_inputs,
+    ids_compare,
+    ids_inputs,
     mb_compare,
     mb_inputs,
+    run_ranks,
 )
 from smdistributed_modelparallel_tpu_torch import quant
 from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2, init_gpt2_weights_
@@ -539,3 +547,67 @@ def test_smp_nn_fp8_step_on_card_matches_cpu(cuda, monkeypatch):
     assert (diff / norm) ** 0.5 <= 1e-2
     np.testing.assert_allclose(q_gpu["amax_history"], q_cpu["amax_history"], rtol=1e-5, atol=0)
     np.testing.assert_allclose(q_gpu["scale"], q_cpu["scale"], rtol=1e-5, atol=0)
+
+
+IDS_SWEEP = {c[0]: c[1:] for c in IDS_CASES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(IDS_SWEEP))
+def test_flash_ids_kernels_match_plain_versions(cuda, case, dtype):
+    B, Tl, H, hd, n, me, src, kw = IDS_SWEEP[case]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    errs, ok, detail = ids_compare(*ids_inputs(B, Tl, H, hd, n, me, src, dtype, gen, kw))
+    assert ok, detail
+
+
+@pytest.mark.cuda
+def test_flash_ids_rejects_what_it_cannot_run(cuda):
+    from smdistributed_modelparallel_tpu_torch.ops.flash_attention import flash_fwd_with_ids
+
+    q = torch.zeros(1, 256, 2, 64, device=cuda)
+    ids = torch.arange(256, device=cuda)
+    with pytest.raises(ValueError, match="q_ids"):
+        flash_fwd_with_ids(q, q, q, None, ids[:100], ids, scale=1.0, causal=True)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        flash_fwd_with_ids(q, q, q, None, ids, ids, scale=1.0, causal=True, block_k=96)
+
+
+def _cp_card_worker(rank, world):
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.ops.context_parallel import cp_attention
+    from smdistributed_modelparallel_tpu_torch.ops.flash_attention import flash_fwd_with_ids
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, g = (torch.randn(2, 512, 4, 64, generator=gen) for _ in range(4))
+    sl = slice(rank * 256, (rank + 1) * 256)
+    out = {}
+    for impl in ("ring", "ulysses"):
+        smp.init({"context_parallel_degree": world, "ddp": True, "context_parallel_impl": impl}, device="cuda:0")
+        ql, kl, vl = (x[:, sl].cuda().requires_grad_() for x in (q, k, v))
+        flash_fwd_with_ids.launches = 0
+        o = cp_attention(ql, kl, vl, scale=0.125, causal=True)
+        (o * g[:, sl].cuda()).sum().backward()
+        out[impl] = [x.detach().cpu().numpy() for x in (o, ql.grad, kl.grad, vl.grad)]
+        out[impl + "_launches"] = flash_fwd_with_ids.launches
+    return out
+
+
+@pytest.mark.cuda
+def test_cp2_attention_on_card_matches_full_attention_on_cpu(cuda):
+    """Two ranks on cuda:0 over gloo (host copies): the ring on the ids-mode
+    kernels and Ulysses on the plain ones, fp32, against the plain full
+    attention on the CPU: outputs 1e-4, gradients 1e-4 of the largest."""
+    per_rank = run_ranks(2, _cp_card_worker)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, g = (torch.randn(2, 512, 4, 64, generator=gen) for _ in range(4))
+    qt, kt, vt = (x.clone().requires_grad_() for x in (q, k, v))
+    o, _ = flash_attention(qt, kt, vt, scale=0.125, causal=True)
+    (o * g).sum().backward()
+    want = [x.detach().numpy() for x in (o, qt.grad, kt.grad, vt.grad)]
+    for impl in ("ring", "ulysses"):
+        got = [np.concatenate([r[impl][i] for r in per_rank], axis=1) for i in range(4)]
+        for a, b in zip(got, want):
+            assert float(np.abs(a - b).max()) <= 1e-4 * max(float(np.abs(b).max()), 1.0), impl
+    assert [r["ring_launches"] for r in per_rank] == [2, 2]

@@ -41,6 +41,7 @@ from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.convert import params_from_jax
 from smdistributed_modelparallel_tpu_torch.fp16.loss_scaler import DynamicLossScaler, LossScaler
 from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m
+from smdistributed_modelparallel_tpu_torch.utils.exceptions import DeviceCountError
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
 from tests.models import MLP, softmax_xent
 
@@ -479,7 +480,16 @@ def test_step_before_init_raises():
 def test_left_out_features_raise(monkeypatch, cfg, env):
     if env is not None:
         monkeypatch.setenv(*env)
-    smp.init(cfg, device="cpu")
+    if cfg.get("pipeline_parallel_degree", 1) * cfg.get("tensor_parallel_degree", 1) > 1:
+        # One device cannot hold these degrees: smp.init refuses them, as the
+        # JAX package does. The step's own refusal is held on the config
+        # installed past that check.
+        with pytest.raises(DeviceCountError):
+            smp.init(cfg, device="cpu")
+        smp.init({}, device="cpu")
+        monkeypatch.setattr(state, "cfg", smp.ModelParallelConfig(cfg))
+    else:
+        smp.init(cfg, device="cpu")
     model = smp.DistributedModel(TorchMLP())
     if cfg.get("matmul_precision") == "fp8":
         # Ported since (quant.py): the step trains under fp8. This MLP has no
