@@ -41,18 +41,20 @@ csrc`` (one nvcc per source, all started together), then:
      gives, ``fused_bias_gelu=True``, dropouts 0) with random weights from a
      seed, trained by ``@smp.step`` in logits mode under ``fused_qkv: True``,
      bf16, 8 x 1024 tokens in 4 microbatches, AdamW; warm-up steps, then
-     timed steps whose launches are counted (48 ``matmul_bias``,
-     ``bias_gelu_fwd`` and ``bias_gelu_bwd`` launches a step, and 48 of each
-     flash kernel). The loss must fall and stay finite. Its unfused twin
-     (``fused_qkv: False``, ``fused_bias_gelu=False``) from the same weights
+     timed steps whose launches are counted (48 ``matmul_bias`` launches a
+     step on its tensor-core route and none on its CUDA-core route, 48
+     ``bias_gelu_fwd`` and ``bias_gelu_bwd``, and 48 of each flash kernel).
+     The loss must fall and stay finite. Its unfused twin (``fused_qkv:
+     False``, ``fused_bias_gelu=False``) from the same weights
      launches none of the three, and its losses and one step's qkv and fc
      gradients must agree; a small fp32 model under both knobs trains 3
      steps on the card (kernels) and on the CPU (the unfused path, the same
      function in fp32), losses agreeing.
   Q. fp8 delayed-scaling training: phase L's model, weights and batch under
      ``matmul_precision: "fp8"`` with both fused knobs; warm-up steps, then
-     timed steps whose launches are counted (48 ``matmul_fp8`` and no
-     ``matmul_bias`` launch a step, 48 of each bias-GELU and flash kernel).
+     timed steps whose launches are counted (48 ``matmul_fp8`` launches a
+     step on its tensor-core route, none on its CUDA-core route and no
+     ``matmul_bias`` launch, 48 of each bias-GELU and flash kernel).
      The loss must fall, stay finite and stay within 2e-2 of the bf16 fused
      step's from the same weights at every step (the JAX package's gate);
      after the steps the 11 slots the path observes have left scale 1.0 and
@@ -75,10 +77,17 @@ csrc`` (one nvcc per source, all started together), then:
      main paths' shapes and over a feature sweep, within stated tolerances;
      the ids-mode kernels on phase R's ring pairs (each rank's diagonal and
      off-diagonal step, key padding, dropout with a head remap) and a sweep.
+     ``matmul_bias`` and ``matmul_fp8`` print the route each case took
+     (tensor cores or CUDA cores), which must be their ``_route``'s;
+     ``matmul_bias`` runs its sweep in fp32, bf16 and fp16.
   C. times: kernel, plain version and the one PyTorch library call that
      computes the same function, with CUDA events; and the bound (the least
      time the card could take for the same work; the ids-mode kernels against
-     SDPA with the mask built from the ids). The fused-CE kernels are
+     SDPA with the mask built from the ids). ``matmul_bias`` and
+     ``matmul_fp8`` (tens of microseconds, less than the host needs to launch
+     one from Python) are timed by CUDA-graph replay: the wrapper the path
+     calls (``ms``), its bare kernel launch (``kernel_ms``) and its
+     CUDA-core kernel (``simt_ms``). The fused-CE kernels are
      also held against their plain versions on the timed inputs, the
      capacity path's N = 32768 included.
   N. (on request, on a machine with two cards) phase R with the ranks on
@@ -137,6 +146,34 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def cuda_graph_time_ms(fn, iters=20, replays=5):
+    """Mean device time of ``fn()``: ``iters`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events. For kernels of a
+    few tens of microseconds, whose eager launches from Python (tens of
+    microseconds of host work each) would leave the card idle between them,
+    so ``cuda_time_ms`` would time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as capture requires
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def build():
     from smdistributed_modelparallel_tpu_torch.ops import _build
 
@@ -148,6 +185,14 @@ def build():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] {len(KERNEL_SOURCES)} source(s) built in {secs:.1f} s")
+    # Tensor-core instructions in each library's machine code (HGMMA: wgmma on
+    # 16-bit operands, QGMMA: on fp8), where the toolkit has cuobjdump.
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        for name in KERNEL_SOURCES:
+            sass = subprocess.run([cuobjdump, "-sass", str(_build._target(name)[1])], capture_output=True,
+                                  text=True).stdout
+            log(f"[build] {name}: {sass.count('HGMMA')} HGMMA, {sass.count('QGMMA')} QGMMA instructions (cuobjdump)")
 
 
 def phase_a():
@@ -562,6 +607,36 @@ def _fp8_counters():
     return {"matmul_fp8": matmul_fp8}
 
 
+class _SimtCounter:
+    """The CUDA-core route's launch count of a wrapper (``.simt_launches``),
+    read and set as ``.launches`` like the other counters."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.simt_launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.simt_launches = n
+
+
+def _simt_counters():
+    """The CUDA-core routes of ``matmul_bias`` and ``matmul_fp8``: the main
+    paths' shapes must take the tensor cores and launch neither."""
+    return {k + "_simt": _SimtCounter(fn) for k, fn in (*_new_counters().items(), *_fp8_counters().items())
+            if hasattr(fn, "simt_launches")}
+
+
+def _route_taken(fn, before):
+    """Which route ``fn`` (a wrapper with ``.launches`` and
+    ``.simt_launches``) launched since its counts were ``before``."""
+    moved = (fn.launches - before[0], fn.simt_launches - before[1])
+    return {(1, 0): "wgmma", (0, 1): "simt"}.get(moved, f"launches moved by {moved}")
+
+
 def _lm_setup(init_state, fused, device, cfg=LM_CFG, microbatches=TRAIN_MB, bf16=True, **smp_cfg):
     """``smp.nn.DistributedTransformerLMHead`` of ``cfg`` loaded with
     ``init_state``, under ``fused_qkv`` and ``fused_bias_gelu`` = ``fused``
@@ -601,7 +676,7 @@ def _lm_run(init_state, ids, fused, **smp_cfg):
     for _ in range(TRAIN_WARMUP - 1):
         losses.append(float(train_step(model, ids).reduce_mean()))
         optimizer.step()
-    counters = {**_flash_counters(), **_new_counters(), **_fp8_counters()}
+    counters = {**_flash_counters(), **_new_counters(), **_fp8_counters(), **_simt_counters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -646,10 +721,11 @@ def phase_l():
         log(f"[L]   losses {run['losses']}")
         log(f"[L]   launches over {TRAIN_STEPS} steps: {run['launches']}")
     per_step = n_layers * TRAIN_MB
-    want = {**{k: per_step * TRAIN_STEPS for k in {**_flash_counters(), **_new_counters()}}, "matmul_fp8": 0}
+    want = {**{k: per_step * TRAIN_STEPS for k in {**_flash_counters(), **_new_counters()}}, "matmul_fp8": 0,
+            **{k: 0 for k in _simt_counters()}}  # the tensor-core route: no CUDA-core launch
     if fused["launches"] != want:
         raise RuntimeError(f"smp.nn path launches {fused['launches']}, expected {want}")
-    if any(unfused["launches"][k] for k in {**_new_counters(), **_fp8_counters()}):
+    if any(unfused["launches"][k] for k in {**_new_counters(), **_fp8_counters(), **_simt_counters()}):
         raise RuntimeError(f"the unfused twin launched fused kernels: {unfused['launches']}")
     losses = fused["losses"]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -677,7 +753,7 @@ def phase_l():
     small_state = small.state_dict()
     ids_s = torch.randint(0, 97, (4, 128), generator=torch.Generator().manual_seed(SEED))
     runs = {}
-    new = _new_counters()
+    new = {**_new_counters(), "matmul_bias_simt": _simt_counters()["matmul_bias_simt"]}
     for device in ("cuda", "cpu"):
         before = {k: fn.launches for k, fn in new.items()}
         m, opt, step_fn = _lm_setup(small_state, True, device, small_cfg, microbatches=2, bf16=False)
@@ -695,8 +771,9 @@ def phase_l():
     # fp32 throughout; only the summation order differs. AdamW moves a
     # parameter whose gradient is zero but for rounding (the key bias) by up
     # to ~lr a step in a direction the rounding picks: 3 steps, 2 lr each.
-    if loss_rel > 1e-4 or param_err > 1e-3 or any(n != 3 * 2 * 2 for n in runs["cuda"][2].values()) \
-            or any(runs["cpu"][2].values()):
+    # fp32 operands take matmul_bias's CUDA-core route (no TF32).
+    want_small = {k: 0 if k == "matmul_bias" else 3 * 2 * 2 for k in new}
+    if loss_rel > 1e-4 or param_err > 1e-3 or runs["cuda"][2] != want_small or any(runs["cpu"][2].values()):
         raise RuntimeError("the card's fp32 smp.nn training disagrees with the CPU's")
     smp.reset()
     return fused["launches"], dict(fused=fused, unfused=unfused)
@@ -758,7 +835,7 @@ def phase_q():
         log(f"[Q]   launches over {TRAIN_STEPS} steps: {run['launches']}")
     per_step = n_layers * TRAIN_MB
     want = {**{k: per_step * TRAIN_STEPS for k in {**_flash_counters(), **_new_counters(), **_fp8_counters()}},
-            "matmul_bias": 0}
+            "matmul_bias": 0, **{k: 0 for k in _simt_counters()}}  # the tensor-core route only
     if fp8["launches"] != want:
         raise RuntimeError(f"fp8 smp.nn path launches {fp8['launches']}, expected {want}")
     losses = fp8["losses"]
@@ -1017,9 +1094,11 @@ def _phase_b_ce(failures):
         fn.launches = saved[k]  # comparison launches do not count
 
 
-# (name, N, D, F, kwargs) of the matmul_bias kernel: the fused QKV of the
-# smp.nn path, no bias, few rows (a decode step's), ragged N, D and F, GPT-2
-# 1.5B's width (D 1600, F 4800), and a bias with zeros.
+# (name, N, D, F, kwargs) of the matmul_bias kernels: the fused QKV of the
+# smp.nn path, no bias, few rows (a decode step's), ragged N, D and F (D 33:
+# the CUDA-core route), GPT-2 1.5B's width (D 1600, F 4800), a bias with
+# zeros, and ragged N and F on the tensor-core route (a partial last tile both
+# ways; a partial last row tile at the path's F).
 MB_CASES = [
     ("qkv_path", 2048, 768, 2304, {}),
     ("qkv_path_no_bias", 2048, 768, 2304, dict(bias=False)),
@@ -1027,6 +1106,8 @@ MB_CASES = [
     ("ragged_1000x33x17", 1000, 33, 17, {}),
     ("d1600_f4800", 512, 1600, 4800, {}),
     ("bias_zeros", 300, 64, 96, dict(zeros=True)),
+    ("ragged_1000x768x2300", 1000, 768, 2300, {}),
+    ("qkv_path_n2047", 2047, 768, 2304, {}),
 ]
 # (name, N, F, kwargs) of the bias_gelu kernels: the MLP epilogue of the
 # smp.nn path, few rows, ragged N and F, GPT-2 1.5B's intermediate width, and
@@ -1040,11 +1121,14 @@ GELU_CASES = [
 ]
 # matmul_bias, as a share of the plain version's largest |y|: fp32 1e-5 (the
 # same fp32 sum in another order); bf16 1e-2 (both round that sum to bf16, so
-# a rounding flip moves one element by a bf16 ulp, 2**-8 of its size).
+# a rounding flip moves one element by a bf16 ulp, 2**-8 of its size); fp16
+# 1e-3 (the same with an fp16 ulp, at most 2**-10 of an element's size: one
+# flip passes, an operand rounded to bf16 on the way, ~2**-9 of each product,
+# does not).
 # bias_gelu, per element against |y|: the forward fp32 1e-5 + 1e-5 |y| (tanhf
 # against torch's tanh, an ulp or two), bf16 2**-7 |y| + 1e-5 (one rounding to
 # bf16 flipped); the backward's dpre is fp32 in both dtypes, 1e-5 + 1e-5 |y|.
-MB_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+MB_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-3}
 GELU_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2**-7)}  # (abs, rel)
 
 
@@ -1074,16 +1158,21 @@ def gelu_inputs(N, F, dtype, gen, kw):
 
 
 def mb_compare(x, w, b):
-    """matmul_bias against its plain version: (max abs error, ok, detail)."""
-    from smdistributed_modelparallel_tpu_torch.ops.matmul_bias import matmul_bias_fwd, reference_matmul_bias
+    """matmul_bias against its plain version: (max abs error, ok, detail).
+    The route the wrapper took (which counter moved) must be ``_route``'s."""
+    from smdistributed_modelparallel_tpu_torch.ops import matmul_bias as mb
 
-    y = matmul_bias_fwd(x, w, b)
+    want = mb._route(x.dtype, x.shape[1], x.data_ptr(), w.data_ptr())
+    before = (mb.matmul_bias_fwd.launches, mb.matmul_bias_fwd.simt_launches)
+    y = mb.matmul_bias_fwd(x, w, b)
     torch.cuda.synchronize()
-    ref = reference_matmul_bias(x, w, b)
+    taken = _route_taken(mb.matmul_bias_fwd, before)
+    ref = mb.reference_matmul_bias(x, w, b)
     err = float((y.float() - ref.float()).abs().max())
     scale = max(float(ref.float().abs().max()), 1e-6)
-    ok = y.dtype == x.dtype and bool(torch.isfinite(y).all()) and err <= MB_TOL[x.dtype] * scale
-    return err, ok, f"max|dy| {err:.2e} of max|y| {scale:.2e} (tol {MB_TOL[x.dtype]:.0e} of it)"
+    ok = taken == want and y.dtype == x.dtype and bool(torch.isfinite(y).all()) and err <= MB_TOL[x.dtype] * scale
+    return err, ok, (f"route {taken:5s} (_route: {want}) max|dy| {err:.2e} of max|y| {scale:.2e} "
+                     f"(tol {MB_TOL[x.dtype]:.0e} of it)")
 
 
 def gelu_compare(x, b, g):
@@ -1114,14 +1203,14 @@ def gelu_compare(x, b, g):
 
 def _phase_b_new(failures):
     """matmul_bias and the bias_gelu kernels against their plain versions
-    over MB_CASES and GELU_CASES, in fp32 and bf16. Returns the errors at the
-    smp.nn path's shapes in bf16."""
-    counters = _new_counters()
+    over MB_CASES (fp32, bf16, fp16) and GELU_CASES (fp32, bf16). Returns the
+    errors at the smp.nn path's shapes in bf16."""
+    counters = {**_new_counters(), **_simt_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     path_err = {}
     for name, N, D, F, kw in MB_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in MB_TOL:
             tag = str(dtype).removeprefix("torch.")
             err, ok, detail = mb_compare(*mb_inputs(N, D, F, dtype, gen, kw))
             log(f"[B] matmul_bias     {name:20s} N={N} D={D} F={F} {tag:9s} {detail} {'ok' if ok else 'FAIL'}")
@@ -1143,11 +1232,13 @@ def _phase_b_new(failures):
     return path_err
 
 
-# (name, N, D, F, kwargs) of the matmul_fp8 kernel: the fused QKV of the
+# (name, N, D, F, kwargs) of the matmul_fp8 kernels: the fused QKV of the
 # smp.nn path under fp8 (activation-like operands cast with a delayed scale,
 # and every e4m3 code but NaN: magnitudes up to 448, subnormals, zeros), few
-# rows, ragged N, D and F (D not a multiple of 16: the kernel's byte loads),
-# GPT-2 1.5B's width, and rows of zeros.
+# rows, ragged N, D and F (D not a multiple of 16: the CUDA-core route's byte
+# loads), GPT-2 1.5B's width, rows of zeros, and ragged N and F on the
+# tensor-core route (a partial last tile both ways; a partial last row tile
+# at the path's F, every code).
 FP8_CASES = [
     ("qkv_path", 2048, 768, 2304, {}),
     ("qkv_path_all_codes", 2048, 768, 2304, dict(values="codes")),
@@ -1155,6 +1246,8 @@ FP8_CASES = [
     ("ragged_1000x33x17", 1000, 33, 17, dict(values="codes")),
     ("d1600_f4800", 512, 1600, 4800, {}),
     ("zero_rows", 300, 64, 96, dict(values="codes", zeros=True)),
+    ("ragged_1000x768x2300", 1000, 768, 2300, {}),
+    ("n2047_all_codes", 2047, 768, 2304, dict(values="codes")),
 ]
 E4M3_NAN_CODES = (0x7F, 0xFF)
 
@@ -1182,40 +1275,56 @@ def fp8_inputs(N, D, F, gen, kw):
     return x8, w8
 
 
-def fp8_compare(x8, w8):
-    """matmul_fp8 against its plain version: (max abs error, ok, detail).
-    Each product of two e4m3 values is exact in fp32, so only the order of
-    the fp32 sums differs; any order of a sum of D terms is within D * 2**-24
-    times the sum of their magnitudes of the exact sum, so each element is
-    held to 2 D 2**-24 (|x8| @ |w8|^T) of its own."""
-    from smdistributed_modelparallel_tpu_torch.ops.matmul_fp8 import matmul_fp8, reference_matmul_fp8
+def fp8_bound(x8, w8, y):
+    """``y`` against the plain version of ``x8 @ w8^T``: (max abs error,
+    within the bound, largest share of an element's bound). Each product of
+    two e4m3 values is exact in fp32, so only the order of the fp32 sums
+    differs; any order of a sum of D terms is within D * 2**-24 times the sum
+    of their magnitudes of the exact sum, so each element is held to 2 D
+    2**-24 (|x8| @ |w8|^T) of its own."""
+    from smdistributed_modelparallel_tpu_torch.ops.matmul_fp8 import reference_matmul_fp8
 
-    y = matmul_fp8(x8, w8)
-    torch.cuda.synchronize()
     ref = reference_matmul_fp8(x8, w8)
     absdot = x8.float().abs().double() @ w8.float().abs().double().t()
     tol = 2 * x8.shape[1] * 2.0**-24 * absdot
     d = (y.double() - ref.double()).abs()
     ok = y.dtype == torch.float32 and bool(torch.isfinite(y).all()) and bool((d <= tol).all())
-    share = float((d / tol.clamp_min(1e-300)).max())
-    return float(d.max()), ok, f"max|dy| {float(d.max()):.2e}, at most {share:.3f} of its element's bound"
+    return float(d.max()), ok, float((d / tol.clamp_min(1e-300)).max())
+
+
+def fp8_compare(x8, w8):
+    """matmul_fp8 against its plain version (``fp8_bound``): (max abs error,
+    ok, detail). The route the wrapper took must be ``_route``'s."""
+    from smdistributed_modelparallel_tpu_torch.ops import matmul_fp8 as mf
+
+    want = mf._route(x8.shape[1], x8.data_ptr(), w8.data_ptr())
+    before = (mf.matmul_fp8.launches, mf.matmul_fp8.simt_launches)
+    y = mf.matmul_fp8(x8, w8)
+    torch.cuda.synchronize()
+    taken = _route_taken(mf.matmul_fp8, before)
+    err, ok, share = fp8_bound(x8, w8, y)
+    return err, ok and taken == want, (f"route {taken:5s} (_route: {want}) max|dy| {err:.2e}, at most {share:.3f} "
+                                       f"of its element's bound")
 
 
 def _phase_b_fp8(failures):
     """matmul_fp8 against its plain version over FP8_CASES. Returns the error
     at the smp.nn path's shape."""
+    from smdistributed_modelparallel_tpu_torch.ops import matmul_fp8 as mf
+
     counter = _fp8_counters()["matmul_fp8"]
-    saved = counter.launches
+    saved = (counter.launches, counter.simt_launches)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     path_err = None
     for name, N, D, F, kw in FP8_CASES:
-        err, ok, detail = fp8_compare(*fp8_inputs(N, D, F, gen, kw))
+        x8, w8 = fp8_inputs(N, D, F, gen, kw)
+        err, ok, detail = fp8_compare(x8, w8)
         log(f"[B] matmul_fp8      {name:20s} N={N} D={D} F={F} e4m3fn    {detail} {'ok' if ok else 'FAIL'}")
         if name == "qkv_path":
             path_err = err
         if not ok:
             failures.append(f"matmul_fp8/{name}")
-    counter.launches = saved  # comparison launches do not count
+    counter.launches, counter.simt_launches = saved  # comparison launches do not count
     return path_err
 
 
@@ -1729,28 +1838,39 @@ def phase_c():
 
 def _phase_c_fp8():
     """matmul_fp8 at the smp.nn path's fused QKV under fp8 (N 2048, D 768, F
-    2304): kernel, plain version and one library call computing the same
-    function, ``torch._scaled_mm`` with unit scales and an fp32 output, which
-    the port never calls; the bound from the bytes of x8, w8 and the fp32 y
-    and the operations at the fp8 peak."""
-    from smdistributed_modelparallel_tpu_torch.ops.matmul_fp8 import matmul_fp8, reference_matmul_fp8
+    2304), all by CUDA-graph replay (``cuda_graph_time_ms``) in one call: the
+    wrapper as the path calls it, its tensor-core kernel's bare launch, the
+    CUDA-core kernel, the plain version and one library call computing the
+    same function, ``torch._scaled_mm`` with unit scales and an fp32 output,
+    which the port never calls; the wrapper's eager time beside them (CUDA
+    events, host launch cost included); the bound from the bytes of x8, w8
+    and the fp32 y and the operations at the fp8 peak."""
+    from smdistributed_modelparallel_tpu_torch.ops import matmul_fp8 as mf
 
-    counter = _fp8_counters()["matmul_fp8"]
-    saved = counter.launches
     N, D, Fo = 2048, 768, 2304
     x8, w8 = fp8_inputs(N, D, Fo, torch.Generator(device="cuda").manual_seed(SEED), {})
+    route = mf._route(D, x8.data_ptr(), w8.data_ptr())
+    y = torch.empty((N, Fo), device="cuda")
     one = torch.ones((), device="cuda")
-    ms = cuda_time_ms(lambda: matmul_fp8(x8, w8))
-    plain_ms = cuda_time_ms(lambda: reference_matmul_fp8(x8, w8))
-    library_ms = cuda_time_ms(lambda: torch._scaled_mm(x8, w8.t(), scale_a=one, scale_b=one, out_dtype=torch.float32))
+    saved = (mf.matmul_fp8.launches, mf.matmul_fp8.simt_launches)
+    ms = cuda_graph_time_ms(lambda: mf.matmul_fp8(x8, w8))
+    kernel_ms = cuda_graph_time_ms(lambda: mf._launch(route, x8, w8, y))
+    simt_ms = cuda_graph_time_ms(lambda: mf._launch("simt", x8, w8, y))
+    plain_ms = cuda_graph_time_ms(lambda: mf.reference_matmul_fp8(x8, w8))
+    library_ms = cuda_graph_time_ms(
+        lambda: torch._scaled_mm(x8, w8.t(), scale_a=one, scale_b=one, out_dtype=torch.float32))
+    eager_ms = cuda_time_ms(lambda: mf.matmul_fp8(x8, w8))
+    mf.matmul_fp8.launches, mf.matmul_fp8.simt_launches = saved  # timing launches do not count
     nbytes = N * D + Fo * D + 4 * N * Fo
     flops = 2 * N * D * Fo
     bound_ms, bound_by = _bound(nbytes, flops, torch.float8_e4m3fn)
-    log(f"[C] matmul_fp8 N={N} D={D} F={Fo} e4m3fn -> fp32: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
-        f"plain {plain_ms:.4f} ms, library (torch._scaled_mm) {library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-    counter.launches = saved  # timing launches do not count
-    return {"matmul_fp8": dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)}
+    log(f"[C] matmul_fp8 N={N} D={D} F={Fo} e4m3fn -> fp32, device times by CUDA-graph replay: the wrapper "
+        f"({route}) {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), its bare kernel {kernel_ms:.4f} ms, CUDA-core "
+        f"kernel {simt_ms:.4f} ms, plain {plain_ms:.4f} ms, library (torch._scaled_mm) {library_ms:.4f} ms; the "
+        f"wrapper eager {eager_ms:.4f} ms (CUDA events); bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    return {"matmul_fp8": dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                               kernel_ms=kernel_ms, simt_ms=simt_ms, path_route=route, eager_ms=eager_ms)}
 
 
 def _phase_c_new():
@@ -1768,26 +1888,40 @@ def _phase_c_new():
         reference_bias_gelu,
         reference_bias_gelu_bwd,
     )
+    from smdistributed_modelparallel_tpu_torch.ops import matmul_bias as mb
     from smdistributed_modelparallel_tpu_torch.ops.matmul_bias import matmul_bias_fwd, reference_matmul_bias
 
-    counters = _new_counters()
+    counters = {**_new_counters(), **_simt_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dtype, esz = torch.bfloat16, 2
     out = {}
 
+    # matmul_bias: device times by CUDA-graph replay in one call: the wrapper
+    # as the path calls it (its bf16 bias read by the kernel as it is), its
+    # tensor-core kernel's bare launch, the CUDA-core kernel, the plain
+    # version and torch.addmm; the wrapper's eager time (CUDA events, host
+    # launch cost included) beside.
     N, D, Fo = 2048, 768, 2304
     x, w, b = mb_inputs(N, D, Fo, dtype, gen, {})
-    ms = cuda_time_ms(lambda: matmul_bias_fwd(x, w, b))
-    plain_ms = cuda_time_ms(lambda: reference_matmul_bias(x, w, b))
-    library_ms = cuda_time_ms(lambda: torch.addmm(b, x, w.t()))
+    y = torch.empty((N, Fo), dtype=dtype, device="cuda")
+    route = mb._route(dtype, D, x.data_ptr(), w.data_ptr())
+    ms = cuda_graph_time_ms(lambda: matmul_bias_fwd(x, w, b))
+    kernel_ms = cuda_graph_time_ms(lambda: mb._launch(route, x, w, b, y))
+    simt_ms = cuda_graph_time_ms(lambda: mb._launch("simt", x, w, b, y))
+    plain_ms = cuda_graph_time_ms(lambda: reference_matmul_bias(x, w, b))
+    library_ms = cuda_graph_time_ms(lambda: torch.addmm(b, x, w.t()))
+    eager_ms = cuda_time_ms(lambda: matmul_bias_fwd(x, w, b))
     nbytes = (N * D + Fo * D + Fo + N * Fo) * esz
     flops = 2 * N * D * Fo
     bound_ms, bound_by = _bound(nbytes, flops, dtype)
-    out["matmul_bias"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-    log(f"[C] matmul_bias N={N} D={D} F={Fo} bf16: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
-        f"{plain_ms:.4f} ms, library (torch.addmm) {library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    out["matmul_bias"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                              kernel_ms=kernel_ms, simt_ms=simt_ms, path_route=route, eager_ms=eager_ms)
+    log(f"[C] matmul_bias N={N} D={D} F={Fo} bf16, device times by CUDA-graph replay: the wrapper ({route}) "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), its bare kernel {kernel_ms:.4f} ms, CUDA-core kernel "
+        f"{simt_ms:.4f} ms, plain {plain_ms:.4f} ms, library (torch.addmm) {library_ms:.4f} ms; the wrapper eager "
+        f"{eager_ms:.4f} ms (CUDA events); bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
+        f"{flops / 1e9:.3f} GFLOP)")
 
     N, Fo = 2048, 3072
     x, b, g = gelu_inputs(N, Fo, dtype, gen, {})

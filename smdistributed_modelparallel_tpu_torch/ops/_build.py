@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under ``_build/`` (listed
-in ``.gitignore``), named by a hash of its source and flags so an edited
-source is rebuilt, and loaded with ``ctypes``. Nothing is built when the
-package is imported, and nothing falls back when a build fails: the error
-carries nvcc's output.
+in ``.gitignore``), named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags so an edited source is rebuilt, and loaded
+with ``ctypes``. Nothing is built when the package is imported, and nothing
+falls back when a build fails: the error carries nvcc's output.
 """
 
 import ctypes
@@ -44,7 +44,8 @@ def _nvcc():
 
 def _target(name):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

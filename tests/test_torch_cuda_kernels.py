@@ -19,7 +19,10 @@ and these tolerances are ``chip_smoke.py``'s phase B sweep. So are those of
 ``matmul_bias`` and the two ``bias_gelu`` kernels (``MB_CASES``,
 ``GELU_CASES``, ``mb_compare``, ``gelu_compare``; tolerances stated there)
 and of ``matmul_fp8`` (``FP8_CASES``, ``fp8_inputs``, ``fp8_compare``: each
-element within the fp32 summation-order bound of its own). The fp8 casts on
+element within the fp32 summation-order bound of its own). Both matrix
+products have a tensor-core and a CUDA-core kernel; the comparisons hold
+the route each case took to ``_route``'s, the ragged shapes reach the
+tensor cores, and the two routes agree on the same inputs. The fp8 casts on
 the card equal the CPU's bit for bit, and one fp32 step of the smp.nn model
 under ``matmul_precision: fp8`` agrees with the CPU's. The ids-mode flash
 kernels (one pair of a context-parallel ring step) run ``chip_smoke.py``'s
@@ -42,7 +45,9 @@ from chip_smoke import (
     GELU_CASES,
     IDS_CASES,
     MB_CASES,
+    MB_TOL,
     ce_inputs,
+    fp8_bound,
     fp8_compare,
     fp8_inputs,
     gelu_compare,
@@ -62,6 +67,7 @@ from smdistributed_modelparallel_tpu_torch.ops.attention import attention_core
 from smdistributed_modelparallel_tpu_torch.ops.bias_gelu import bias_gelu, bias_gelu_bwd, bias_gelu_fwd
 from smdistributed_modelparallel_tpu_torch.ops import bias_gelu as bg_mod
 from smdistributed_modelparallel_tpu_torch.ops import matmul_bias as mb_mod
+from smdistributed_modelparallel_tpu_torch.ops import matmul_fp8 as mf_mod
 from smdistributed_modelparallel_tpu_torch.ops.matmul_bias import matmul_bias, matmul_bias_fwd
 from smdistributed_modelparallel_tpu_torch.ops.matmul_fp8 import matmul_fp8
 from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
@@ -364,14 +370,14 @@ GELU_SWEEP = {name: (N, F, kw) for name, N, F, kw in GELU_CASES}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("case", sorted(MB_SWEEP))
 def test_matmul_bias_kernel_matches_plain_version(cuda, case, dtype):
     N, D, F, kw = MB_SWEEP[case]
     x, w, b = mb_inputs(N, D, F, dtype, torch.Generator(device=cuda).manual_seed(0), kw)
-    before = matmul_bias_fwd.launches
-    _, ok, detail = mb_compare(x, w, b)
-    assert matmul_bias_fwd.launches == before + 1
+    before = matmul_bias_fwd.launches + matmul_bias_fwd.simt_launches
+    _, ok, detail = mb_compare(x, w, b)  # which also holds the route taken to _route's
+    assert matmul_bias_fwd.launches + matmul_bias_fwd.simt_launches == before + 1
     assert ok, detail
 
 
@@ -408,6 +414,23 @@ def test_matmul_bias_and_bias_gelu_reject_what_they_cannot_run(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wgmma", "simt"])
+@pytest.mark.parametrize("b_dtype", [torch.float32, torch.float16, torch.bfloat16, torch.float64],
+                         ids=["fp32", "fp16", "bf16", "fp64"])
+def test_matmul_bias_reads_each_bias_dtype(cuda, monkeypatch, route, b_dtype):
+    """bf16 operands (ragged N and F) with a bias of each dtype (read as it
+    is in bf16 and fp32, cast to fp32 first otherwise), on both routes, within
+    MB_TOL of the plain version (which widens the bias to fp32 as well)."""
+    x, w, _ = mb_inputs(1000, 768, 2300, torch.bfloat16, torch.Generator(device=cuda).manual_seed(7), {})
+    b = torch.randn(2300, generator=torch.Generator(device=cuda).manual_seed(8), device=cuda).to(b_dtype)
+    monkeypatch.setattr(mb_mod, "_route", lambda *a: route)
+    y = matmul_bias_fwd(x, w, b)
+    ref = mb_mod.reference_matmul_bias(x, w, b)
+    err = float((y.float() - ref.float()).abs().max())
+    assert y.dtype == torch.bfloat16 and err <= MB_TOL[torch.bfloat16] * float(ref.float().abs().max()), err
+
+
+@pytest.mark.cuda
 def test_fused_grads_through_kernels_match_cpu(cuda):
     """fp32 gradients of x, w and b through ``matmul_bias`` and of x and b
     through ``bias_gelu`` (the kernels, then their autograd backward) against
@@ -437,7 +460,11 @@ def test_smp_nn_fused_step_on_card_matches_cpu(cuda):
     init = init_weights_(DistributedTransformerLMHead(**cfg), 0.02, torch.Generator().manual_seed(0))
     ids = torch.randint(0, 97, (2, 128), generator=torch.Generator().manual_seed(1))
     results = {}
-    before = (matmul_bias_fwd.launches, bias_gelu_fwd.launches, bias_gelu_bwd.launches)
+    def launches():  # fp32 operands take matmul_bias's CUDA-core route
+        return (matmul_bias_fwd.launches, matmul_bias_fwd.simt_launches, bias_gelu_fwd.launches,
+                bias_gelu_bwd.launches)
+
+    before = launches()
     for device in (cuda, "cpu"):
         smp_torch.init({"microbatches": 2, "fused_qkv": True}, device=device)
         model = smp_torch.DistributedModel(copy.deepcopy(init))
@@ -450,8 +477,8 @@ def test_smp_nn_fused_step_on_card_matches_cpu(cuda):
 
         loss = float(train_step(model, ids).reduce_mean())
         results[str(device)] = (loss, {n: g.cpu() for n, g in model.grads.items()})
-    after = (matmul_bias_fwd.launches, bias_gelu_fwd.launches, bias_gelu_bwd.launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (4, 4, 4)  # 2 layers x 2 microbatches, card only
+    after = launches()
+    assert tuple(a - b for a, b in zip(after, before)) == (0, 4, 4, 4)  # 2 layers x 2 microbatches, card only
     (l_gpu, g_gpu), (l_cpu, g_cpu) = results["cuda"], results["cpu"]
     assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
     for name in g_cpu:
@@ -466,10 +493,66 @@ FP8_SWEEP = {name: (N, D, F, kw) for name, N, D, F, kw in FP8_CASES}
 def test_matmul_fp8_kernel_matches_plain_version(cuda, case):
     N, D, F, kw = FP8_SWEEP[case]
     x8, w8 = fp8_inputs(N, D, F, torch.Generator(device=cuda).manual_seed(2), kw)
-    before = matmul_fp8.launches
-    _, ok, detail = fp8_compare(x8, w8)
-    assert matmul_fp8.launches == before + 1
+    before = matmul_fp8.launches + matmul_fp8.simt_launches
+    _, ok, detail = fp8_compare(x8, w8)  # which also holds the route taken to _route's
+    assert matmul_fp8.launches + matmul_fp8.simt_launches == before + 1
     assert ok, detail
+
+
+# Ragged N and F (a partial last tile in both directions; a partial last row
+# tile at the path's F) reach the tensor-core routes.
+RAGGED_TC = {"ragged_1000x768x2300": (1000, 768, 2300), "n2047_f2304": (2047, 768, 2304)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RAGGED_TC))
+@pytest.mark.parametrize("kernel", ["matmul_bias_bf16", "matmul_bias_fp16", "matmul_fp8"])
+def test_tensor_core_route_on_ragged_shapes(cuda, case, kernel):
+    N, D, F = RAGGED_TC[case]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    if kernel == "matmul_fp8":
+        fn, compare, inputs = matmul_fp8, fp8_compare, fp8_inputs(N, D, F, gen, dict(values="codes"))
+    else:
+        dtype = torch.bfloat16 if kernel.endswith("bf16") else torch.float16
+        fn, compare, inputs = matmul_bias_fwd, mb_compare, mb_inputs(N, D, F, dtype, gen, {})
+    before = (fn.launches, fn.simt_launches)
+    _, ok, detail = compare(*inputs)
+    assert (fn.launches - before[0], fn.simt_launches - before[1]) == (1, 0), detail
+    assert ok, detail
+
+
+@pytest.mark.cuda
+def test_matmul_bias_routes_agree(cuda, monkeypatch):
+    """The tensor-core and CUDA-core kernels on the same bf16 inputs (ragged
+    N and F) agree within MB_TOL of the largest |y|."""
+    x, w, b = mb_inputs(1000, 768, 2300, torch.bfloat16, torch.Generator(device=cuda).manual_seed(5), {})
+    assert mb_mod._route(x.dtype, 768, x.data_ptr(), w.data_ptr()) == "wgmma"
+    tc = matmul_bias_fwd(x, w, b)
+    monkeypatch.setattr(mb_mod, "_route", lambda *a: "simt")
+    before = matmul_bias_fwd.simt_launches
+    simt = matmul_bias_fwd(x, w, b)
+    assert matmul_bias_fwd.simt_launches == before + 1
+    err = float((tc.float() - simt.float()).abs().max())
+    assert err <= MB_TOL[torch.bfloat16] * float(simt.float().abs().max()), err
+
+
+@pytest.mark.cuda
+def test_matmul_fp8_routes_agree(cuda, monkeypatch):
+    """The tensor-core and CUDA-core kernels on the same e4m3 inputs (every
+    code, ragged N and F) each hold every element to its fp32 summation-order
+    bound, so they agree within twice that bound."""
+    x8, w8 = fp8_inputs(1000, 768, 2300, torch.Generator(device=cuda).manual_seed(6), dict(values="codes"))
+    assert mf_mod._route(768, x8.data_ptr(), w8.data_ptr()) == "wgmma"
+    tc = matmul_fp8(x8, w8)
+    monkeypatch.setattr(mf_mod, "_route", lambda *a: "simt")
+    before = matmul_fp8.simt_launches
+    simt = matmul_fp8(x8, w8)
+    assert matmul_fp8.simt_launches == before + 1
+    for y in (tc, simt):
+        _, ok, share = fp8_bound(x8, w8, y)
+        assert ok, share
+    absdot = x8.float().abs().double() @ w8.float().abs().double().t()
+    assert bool(((tc.double() - simt.double()).abs() <= 2 * (2 * 768 * 2.0**-24 * absdot)).all())
 
 
 @pytest.mark.cuda

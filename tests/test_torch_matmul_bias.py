@@ -111,3 +111,65 @@ def test_wrapper_counts_only_kernel_launches():
     mb.matmul_bias(tx.requires_grad_(), tw, tb).sum().backward()
     assert mb.matmul_bias_fwd.launches == before
     assert mb._LIB is None  # nothing is built for CPU tensors
+
+
+# _route: bf16 and fp16 operands whose rows are a multiple of 16 bytes on
+# 16-byte aligned bases go to the tensor cores (TMA's rules); fp32 (no TF32 in
+# the contract), a D of other row bytes, or a base off by a storage offset go
+# to the CUDA cores.
+@pytest.mark.parametrize("dtype,D,offset,want", [
+    (torch.bfloat16, 768, 0, "wgmma"),
+    (torch.float16, 768, 0, "wgmma"),
+    (torch.bfloat16, 8, 0, "wgmma"),
+    (torch.float32, 768, 0, "simt"),
+    (torch.float32, 33, 0, "simt"),
+    (torch.bfloat16, 33, 0, "simt"),
+    (torch.float16, 36, 0, "simt"),
+    (torch.bfloat16, 0, 0, "simt"),
+    (torch.bfloat16, 768, 1, "simt"),
+    (torch.float16, 768, 8, "wgmma"),
+], ids=lambda v: str(v).removeprefix("torch."))
+def test_route_by_dtype_row_bytes_and_alignment(dtype, D, offset, want):
+    base = torch.empty(4 * max(D, 1) + 16, dtype=dtype)
+    x = base[offset:offset + 2 * D].view(2, D) if D else base[:0].view(0, 0)
+    assert x.is_contiguous()
+    assert mb._route(dtype, D, x.data_ptr(), base.data_ptr()) == want
+    assert mb._route(dtype, D, base.data_ptr(), x.data_ptr()) == want  # either operand
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.float16, 64, "wgmma"), (torch.float32, 64, "simt"),
+    (torch.bfloat16, 33, "simt"),
+], ids=lambda v: str(v).removeprefix("torch."))
+def test_launches_counted_by_route(monkeypatch, dtype, D, want):
+    """Through the ``_is_cuda`` seam (meta tensors stand in for the card's):
+    the tensor-core route counts in ``.launches``, the CUDA-core route in
+    ``.simt_launches``, one launch each, and CPU tensors count in neither."""
+    launched = []
+    monkeypatch.setattr(mb, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(mb, "_launch", lambda route, x, w, b, y: launched.append(route))
+    x, w, b = (torch.empty(s, dtype=dtype, device="meta") for s in ((5, D), (7, D), (7,)))
+    before = (mb.matmul_bias_fwd.launches, mb.matmul_bias_fwd.simt_launches)
+    y = mb.matmul_bias_fwd(x, w, b)
+    assert y.shape == (5, 7) and y.dtype == dtype and launched == [want]
+    moved = (mb.matmul_bias_fwd.launches - before[0], mb.matmul_bias_fwd.simt_launches - before[1])
+    assert moved == ((1, 0) if want == "wgmma" else (0, 1))
+    mb.matmul_bias_fwd(torch.zeros(5, D, dtype=dtype), torch.zeros(7, D, dtype=dtype))  # the plain version
+    assert launched == [want]
+    assert (mb.matmul_bias_fwd.launches - before[0], mb.matmul_bias_fwd.simt_launches - before[1]) == moved
+
+
+@pytest.mark.parametrize("b_dtype,want", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32), (torch.float16, torch.float32),
+    (torch.float64, torch.float32),
+], ids=lambda v: str(v).removeprefix("torch."))
+def test_bias_reaches_the_kernel_uncast(monkeypatch, b_dtype, want):
+    """The kernels read a bias in x's dtype or in fp32 as it is, so the path
+    (bf16 operands, a bf16 bias) casts no bias per call; another dtype is
+    widened, or rounded, to fp32 as the plain version does."""
+    seen = []
+    monkeypatch.setattr(mb, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(mb, "_launch", lambda route, x, w, b, y: seen.append((b.dtype, b.shape, b.is_contiguous())))
+    x, w = (torch.empty(s, dtype=torch.bfloat16, device="meta") for s in ((5, 64), (7, 64)))
+    mb.matmul_bias_fwd(x, w, torch.empty(1, 7, dtype=b_dtype, device="meta"))
+    assert seen == [(want, (7,), True)]

@@ -96,3 +96,35 @@ def test_wrapper_counts_only_kernel_launches():
     mf.matmul_fp8(tx, tw)
     assert mf.matmul_fp8.launches == before
     assert mf._LIB is None  # nothing is built for CPU tensors
+
+
+# _route: e4m3 operands with D a positive multiple of 16 (16-byte rows) on
+# 16-byte aligned bases go to the tensor cores; the rest to the CUDA cores.
+@pytest.mark.parametrize("D,offset,want", [
+    (768, 0, "wgmma"), (16, 0, "wgmma"), (1600, 0, "wgmma"), (33, 0, "simt"), (8, 0, "simt"), (0, 0, "simt"),
+    (768, 1, "simt"), (768, 8, "simt"), (768, 16, "wgmma"),
+])
+def test_route_by_row_bytes_and_alignment(D, offset, want):
+    base = torch.zeros(4 * max(D, 1) + 32, dtype=torch.uint8).view(torch.float8_e4m3fn)
+    x8 = base[offset:offset + 2 * D].view(2, D) if D else base[:0].view(0, 0)
+    assert mf._route(D, x8.data_ptr(), base.data_ptr()) == want
+    assert mf._route(D, base.data_ptr(), x8.data_ptr()) == want  # either operand
+
+
+@pytest.mark.parametrize("D,want", [(64, "wgmma"), (33, "simt")])
+def test_launches_counted_by_route(monkeypatch, D, want):
+    """Through the ``_is_cuda`` seam (meta tensors stand in for the card's):
+    the tensor-core route counts in ``.launches``, the CUDA-core route in
+    ``.simt_launches``, one launch each, and CPU tensors count in neither."""
+    launched = []
+    monkeypatch.setattr(mf, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(mf, "_launch", lambda route, x8, w8, y: launched.append(route))
+    x8, w8 = (torch.empty(s, dtype=torch.float8_e4m3fn, device="meta") for s in ((5, D), (7, D)))
+    before = (mf.matmul_fp8.launches, mf.matmul_fp8.simt_launches)
+    y = mf.matmul_fp8(x8, w8)
+    assert y.shape == (5, 7) and y.dtype == torch.float32 and launched == [want]
+    moved = (mf.matmul_fp8.launches - before[0], mf.matmul_fp8.simt_launches - before[1])
+    assert moved == ((1, 0) if want == "wgmma" else (0, 1))
+    mf.matmul_fp8(torch.zeros(5, D).to(torch.float8_e4m3fn), torch.zeros(7, D).to(torch.float8_e4m3fn))
+    assert launched == [want]
+    assert (mf.matmul_fp8.launches - before[0], mf.matmul_fp8.simt_launches - before[1]) == moved
