@@ -24,8 +24,9 @@ csrc`` (one nvcc per source, all started together), then:
      8 x 1024 tokens in 4 microbatches, AdamW(1e-4), loss mode,
      ``fused_step_donation`` (``bench.py``'s headline workload); warm-up
      steps, then timed steps whose kernel launches are counted (48 flash
-     forward, dq and dk/dv launches a step). The loss must fall and stay
-     finite. A small fp32 model trains 3 steps on the card and on the CPU
+     forward, dq and dk/dv launches a step; every flash-backward launch of
+     T, F, L, Q and R on the tensor cores, none on the CUDA cores). The loss
+     must fall and stay finite. A small fp32 model trains 3 steps on the card and on the CPU
      from the same weights; the losses must agree.
   F. the capacity path: the same training on 32 x 1024 tokens in one
      microbatch, where the logits would be 3.1 GB of bf16 and the default
@@ -77,17 +78,23 @@ csrc`` (one nvcc per source, all started together), then:
      main paths' shapes and over a feature sweep, within stated tolerances;
      the ids-mode kernels on phase R's ring pairs (each rank's diagonal and
      off-diagonal step, key padding, dropout with a head remap) and a sweep.
-     ``matmul_bias`` and ``matmul_fp8`` print the route each case took
-     (tensor cores or CUDA cores), which must be their ``_route``'s;
-     ``matmul_bias`` runs its sweep in fp32, bf16 and fp16.
+     ``matmul_bias``, ``matmul_fp8`` and the flash backward (plain and ids
+     mode) print the route each case took (tensor cores or CUDA cores),
+     which must be their ``_route``'s: the flash backward takes the tensor
+     cores for fp16 and bf16 at hd 64, where it is also held against its
+     CUDA-core kernel forced on the same inputs and a repeat launch must give
+     equal bits; ``matmul_bias`` runs its sweep in fp32, bf16 and fp16, the
+     flash backward FP16_BWD_CASES in fp16.
   C. times: kernel, plain version and the one PyTorch library call that
      computes the same function, with CUDA events; and the bound (the least
      time the card could take for the same work; the ids-mode kernels against
-     SDPA with the mask built from the ids). ``matmul_bias`` and
-     ``matmul_fp8`` (tens of microseconds, less than the host needs to launch
-     one from Python) are timed by CUDA-graph replay: the wrapper the path
-     calls (``ms``), its bare kernel launch (``kernel_ms``) and its
-     CUDA-core kernel (``simt_ms``). The fused-CE kernels are
+     SDPA with the mask built from the ids). ``matmul_bias``, ``matmul_fp8``
+     and the flash backward (tens of microseconds, less than the host needs
+     to launch one from Python) are timed by CUDA-graph replay: the wrapper
+     the path calls (``ms``), the matrix products' bare kernel launch
+     (``kernel_ms``) and the CUDA-core kernel (``simt_ms``); with the flash
+     backward also its plain version and SDPA's backward, captured on the
+     stream its forward ran on. The fused-CE kernels are
      also held against their plain versions on the timed inputs, the
      capacity path's N = 32768 included.
   N. (on request, on a machine with two cards) phase R with the ranks on
@@ -109,6 +116,7 @@ import json
 import math
 import multiprocessing as mp
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -146,20 +154,22 @@ def cuda_time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def cuda_graph_time_ms(fn, iters=20, replays=5):
+def cuda_graph_time_ms(fn, iters=20, replays=5, stream=None):
     """Mean device time of ``fn()``: ``iters`` calls captured in one CUDA
     graph, replayed ``replays`` times between CUDA events. For kernels of a
     few tens of microseconds, whose eager launches from Python (tens of
     microseconds of host work each) would leave the card idle between them,
-    so ``cuda_time_ms`` would time the host."""
-    side = torch.cuda.Stream()
+    so ``cuda_time_ms`` would time the host. ``stream``: the stream to warm
+    up and capture on (a new one by default); autograd runs a backward on
+    its forward's stream, so a backward is captured there (sdpa_bwd_ms)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the capture, as capture requires
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -174,6 +184,34 @@ def cuda_graph_time_ms(fn, iters=20, replays=5):
     return start.elapsed_time(end) / (iters * replays)
 
 
+def sdpa_bwd_ms(q, k, v, do, **sdpa_kw):
+    """Device ms of the backward of one ``scaled_dot_product_attention``
+    (dq, dk and dv together) on [B, L, H, hd] q, k, v and dO, by graph
+    replay: its forward runs on a side stream, where autograd then runs the
+    backward, so the capture holds only the backward's kernels."""
+    import torch.nn.functional as F
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+        dot = do.transpose(1, 2)
+    return cuda_graph_time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), stream=side)
+
+
+def bwd_times(kernel, plain, args, kw):
+    """Device ms by graph replay of a backward wrapper on its route (``ms``),
+    forced onto the CUDA-core route (``simt_ms``), and its plain version
+    (``plain_ms``; fewer calls a graph: it materializes [B, H, T, S])."""
+    from smdistributed_modelparallel_tpu_torch.ops import flash_attention as fa
+
+    ms = cuda_graph_time_ms(lambda: kernel(*args, **kw))
+    with mock.patch.object(fa, "_route", lambda *a: "simt"):
+        simt_ms = cuda_graph_time_ms(lambda: kernel(*args, **kw))
+    return dict(ms=ms, simt_ms=simt_ms, plain_ms=cuda_graph_time_ms(lambda: plain(*args, **kw), iters=5, replays=2))
+
+
 def build():
     from smdistributed_modelparallel_tpu_torch.ops import _build
 
@@ -181,11 +219,14 @@ def build():
     logs = _build.build_all(KERNEL_SOURCES)
     secs = time.perf_counter() - t0
     for name, text in logs.items():
+        kernel = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = _kernel_name(line)
+            elif any(w in line for w in ("registers", "spill", "warning", "Performance")):
+                log(f"[build] {name}: {kernel}: {line.strip()}")
     log(f"[build] {len(KERNEL_SOURCES)} source(s) built in {secs:.1f} s")
-    # Tensor-core instructions in each library's machine code (HGMMA: wgmma on
+    # Tensor-core instructions in each kernel's machine code (HGMMA: wgmma on
     # 16-bit operands, QGMMA: on fp8), where the toolkit has cuobjdump.
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if os.path.exists(cuobjdump):
@@ -193,6 +234,29 @@ def build():
             sass = subprocess.run([cuobjdump, "-sass", str(_build._target(name)[1])], capture_output=True,
                                   text=True).stdout
             log(f"[build] {name}: {sass.count('HGMMA')} HGMMA, {sass.count('QGMMA')} QGMMA instructions (cuobjdump)")
+            for section in sass.split("Function : ")[1:]:
+                if "GMMA" in section:
+                    log(f"[build] {name}:   {_kernel_name(section.splitlines()[0])}: {section.count('HGMMA')} HGMMA, "
+                        f"{section.count('QGMMA')} QGMMA")
+
+
+def _kernel_name(mangled):
+    """The kernel's name and template arguments from a mangled symbol in
+    nvcc's or cuobjdump's output."""
+    m = re.search(r"_ZN?(\d+)", mangled)
+    if not m:
+        return mangled.strip()[:80]
+    at = m.end() + int(m.group(1))
+    name = mangled[m.end():at]
+    if name.startswith("_GLOBAL__N"):  # an anonymous namespace: the kernel's name follows
+        m = re.match(r"\d+", mangled[at:])
+        name, at = mangled[at + m.end():at + m.end() + int(m.group())], at + m.end() + int(m.group())
+    targs = re.match(r"I((?:13__nv_bfloat16|6__half|f|Li\d+E)+)E", mangled[at:])
+    if not targs:
+        return name
+    names = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+    args = [names.get(a, a[2:-1]) for a in re.findall(r"13__nv_bfloat16|6__half|Li\d+E|f", targs.group(1))]
+    return f"{name}<{', '.join(args)}>"
 
 
 def phase_a():
@@ -334,7 +398,7 @@ def phase_t():
         optimizer.step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = _flash_counters()
+    counters = {**_flash_counters(), **_bwd_simt_counters()}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -353,9 +417,11 @@ def phase_t():
     log(f"[T] loss: first {losses[0]:.4f}, last {losses[-1]:.4f} over {len(losses)} steps")
     log(f"[T] launches on the main path: {launches} over {TRAIN_STEPS} steps "
         f"(expected {per_step} each per step: {n_layers} layers x {TRAIN_MB} microbatches)")
-    for name, n in launches.items():
-        if n != per_step * TRAIN_STEPS:
-            raise RuntimeError(f"{name} launched {n} times in {TRAIN_STEPS} steps, expected {per_step * TRAIN_STEPS}")
+    for name in _flash_counters():  # .launches: the backward's counts are its tensor-core route's
+        if launches[name] != per_step * TRAIN_STEPS:
+            raise RuntimeError(f"{name} launched {launches[name]} times in {TRAIN_STEPS} steps, "
+                               f"expected {per_step * TRAIN_STEPS}")
+    _check_bwd_route("training path", launches)
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise RuntimeError(f"training loss did not fall or is not finite: {losses}")
 
@@ -420,7 +486,7 @@ def _capacity_run(init, ids, **cfg):
     for _ in range(CAP_WARMUP):
         losses.append(float(train_step(model, ids).reduce_mean()))
         optimizer.step()
-    counters = {**_flash_counters(), **_ce_counters()}
+    counters = {**_flash_counters(), **_ce_counters(), **_bwd_simt_counters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -474,7 +540,8 @@ def phase_f():
     launches = fused["launches"]
     log(f"[F] launches on the capacity path: {launches} over {CAP_STEPS} steps (expected per step: "
         f"{n_layers} of each flash kernel, 1 of each CE kernel)")
-    want = {**{k: n_layers * CAP_STEPS for k in _flash_counters()}, **{k: CAP_STEPS for k in _ce_counters()}}
+    want = {**{k: n_layers * CAP_STEPS for k in _flash_counters()}, **{k: CAP_STEPS for k in _ce_counters()},
+            **{k: 0 for k in _bwd_simt_counters()}}  # the flash backward on tensor cores only
     if launches != want:
         raise RuntimeError(f"capacity path launches {launches}, expected {want}")
     if any(materialized["launches"][k] for k in _ce_counters()):
@@ -624,10 +691,38 @@ class _SimtCounter:
 
 
 def _simt_counters():
-    """The CUDA-core routes of ``matmul_bias`` and ``matmul_fp8``: the main
-    paths' shapes must take the tensor cores and launch neither."""
-    return {k + "_simt": _SimtCounter(fn) for k, fn in (*_new_counters().items(), *_fp8_counters().items())
-            if hasattr(fn, "simt_launches")}
+    """The CUDA-core routes of ``matmul_bias``, ``matmul_fp8`` and the flash
+    backward kernels (plain and ids mode): the main paths' shapes must take
+    the tensor cores and launch none of them."""
+    wrappers = (*_new_counters().items(), *_fp8_counters().items(), *_bwd_counters().items())
+    return {k + "_simt": _SimtCounter(fn) for k, fn in wrappers if hasattr(fn, "simt_launches")}
+
+
+def _bwd_counters():
+    """The flash backward wrappers, plain and ids mode (two routes each)."""
+    from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv,
+        flash_bwd_dkv_ids,
+        flash_bwd_dq,
+        flash_bwd_dq_ids,
+    )
+
+    return {"flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv, "flash_bwd_dq_ids": flash_bwd_dq_ids,
+            "flash_bwd_dkv_ids": flash_bwd_dkv_ids}
+
+
+def _bwd_simt_counters():
+    """The flash backward wrappers' CUDA-core routes: every main path's
+    flash backward runs on the tensor cores, so these stay at 0."""
+    return {k: c for k, c in _simt_counters().items() if k.startswith("flash_bwd")}
+
+
+def _check_bwd_route(label, launches):
+    """Raise unless ``launches`` (counts by name) holds no CUDA-core flash
+    backward launch."""
+    simt = {k: n for k, n in launches.items() if k.startswith("flash_bwd") and k.endswith("_simt") and n}
+    if simt:
+        raise RuntimeError(f"{label}: flash backward launches on the CUDA-core route: {simt}")
 
 
 def _route_taken(fn, before):
@@ -927,15 +1022,66 @@ TOL = {torch.float32: dict(o=1e-4, lse=1e-4), torch.bfloat16: dict(o=2e-2, lse=1
 # Backward, as a share of the largest |grad| of the plain version. fp32: the
 # same arithmetic in another summation order (~1e-6). bf16: ds and p are
 # rounded to bf16 after fp32 products summed in another order, so a rounding
-# flip moves a grad by a bf16 ulp of its scale.
-BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# flip moves a grad by a bf16 ulp of its scale. fp16 (FP16_BWD_CASES, the
+# backward alone): the same flips move it by an fp16 ulp, 2**-11 against
+# bf16's 2**-8, so the bf16 limit over 8.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2.5e-3}
 MAIN_CASES = ("main_path_causal", "train_path_causal")  # bf16 only
+FP16_BWD_CASES = ("train_path_causal", "hd128")
+
+
+def bwd_route(dtype, hd):
+    """The backward route ``ops.flash_attention._route`` gives contiguous
+    q, k, v and dO: the tensor cores for fp16 and bf16 at hd 64."""
+    return "wgmma" if dtype in (torch.bfloat16, torch.float16) and hd == 64 else "simt"
+
+
+def bwd_check(run, want, wrappers, route, tol, per_output=False):
+    """The backward kernels' wrappers (``run()`` gives (dq, dk, dv) through
+    ``wrappers``, the dq and dk/dv wrapper) against the plain version's
+    ``want``: each within ``tol`` of the largest |grad| (of its kernel's
+    outputs, or with ``per_output`` of its own), and on ``route``. On the
+    tensor-core route also against the CUDA-core route forced on the same
+    inputs (same limit), and a second launch for equal bits. Returns
+    ({wrapper name: max |error| against the plain version}, ok, detail)."""
+    from smdistributed_modelparallel_tpu_torch.ops import flash_attention as fa
+
+    before = [(w.launches, w.simt_launches) for w in wrappers]
+    got = run()
+    torch.cuda.synchronize()
+    taken = [_route_taken(w, b) for w, b in zip(wrappers, before)]
+    scales = [float(w.float().abs().max()) for w in want]
+    if not per_output:
+        scales = [scales[0]] + [max(scales[1:])] * 2
+
+    def rel(outs):  # the largest error of any output against the plain version, per its scale
+        return max(float((g.float() - w.float()).abs().max()) / max(sc, 1e-6)
+                   for g, w, sc in zip(outs, want, scales))
+
+    err_plain = rel(got)
+    ok = all(bool(torch.isfinite(x).all()) for x in got) and taken == [route, route] and err_plain <= tol
+    detail = f"route {'/'.join(taken)}; {err_plain:.2e} of max|grad| against the plain version"
+    if route == "wgmma":
+        again = run()
+        with mock.patch.object(fa, "_route", lambda *a: "simt"):
+            simt = run()
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        err_simt = max(float((g.float() - c.float()).abs().max()) / max(sc, 1e-6)
+                       for g, c, sc in zip(got, simt, scales))
+        ok = ok and equal and err_simt <= tol
+        detail += f", {err_simt:.2e} against the CUDA-core route, repeat {'bit-equal' if equal else 'DIFFERS'}"
+    errs = {wrappers[0].__name__: float((got[0].float() - want[0].float()).abs().max()),
+            wrappers[1].__name__: max(float((g.float() - w.float()).abs().max()) for g, w in zip(got[1:], want[1:]))}
+    return errs, ok, detail + f" (tol {tol:.1e})"
 
 
 def phase_b():
     """Every kernel against its plain version: the forward on every case,
     then the dq and dk/dv kernels on the same inputs, fed the plain
-    forward's O and LSE and a random output gradient."""
+    forward's O and LSE and a random output gradient (bwd_check: the route
+    each case takes, and on the tensor cores the CUDA-core route and a
+    repeat launch); the backward alone in fp16 on FP16_BWD_CASES."""
     from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
         attention_delta,
         flash_attention,
@@ -946,10 +1092,13 @@ def phase_b():
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    saved = (flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    counters = {"flash_fwd": flash_attention, **_bwd_counters(), **_bwd_simt_counters()}
+    saved = {k: fn.launches for k, fn in counters.items()}
     main_err, bwd_main_err, failures = None, {}, []
     for name, B, T, S, H, hd, kw in CASES:
         dtypes = [torch.bfloat16] if name in MAIN_CASES else [torch.float32, torch.bfloat16]
+        if name in FP16_BWD_CASES:
+            dtypes.append(torch.float16)
         for dtype in dtypes:
             q, k, v = _inputs(B, T, S, H, hd, dtype, gen)
             kw = dict(kw)
@@ -959,40 +1108,36 @@ def phase_b():
                 kpad[2, :] = -1e30     # a fully padded sequence
                 kw["kpad_bias"] = kpad
                 del kw["kpad"]
-            o, lse = flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
-            o_ref, lse_ref = flash_attention_reference(q, k, v, **kw)
-            err_o = float((o.float() - o_ref.float()).abs().max())
-            err_lse = float((lse - lse_ref).abs().max())
-            tol = TOL[dtype]
-            ok = err_o <= tol["o"] and err_lse <= tol["lse"] and bool(torch.isfinite(o).all())
             tag = str(dtype).removeprefix("torch.")
-            log(f"[B] flash_fwd {name:32s} {tag:9s} max|dO| {err_o:.2e} (tol {tol['o']:.0e}) "
-                f"max|dLSE| {err_lse:.2e} (tol {tol['lse']:.0e}) {'ok' if ok else 'FAIL'}")
-            if name == "main_path_causal":
-                main_err = err_o
-            if not ok:
-                failures.append(f"flash_fwd/{name}/{tag}")
+            o_ref, lse_ref = flash_attention_reference(q, k, v, **kw)
+            if dtype != torch.float16:  # fp16: the backward alone
+                o, lse = flash_attention(q, k, v, **kw)
+                torch.cuda.synchronize()
+                err_o = float((o.float() - o_ref.float()).abs().max())
+                err_lse = float((lse - lse_ref).abs().max())
+                tol = TOL[dtype]
+                ok = err_o <= tol["o"] and err_lse <= tol["lse"] and bool(torch.isfinite(o).all())
+                log(f"[B] flash_fwd {name:32s} {tag:9s} max|dO| {err_o:.2e} (tol {tol['o']:.0e}) "
+                    f"max|dLSE| {err_lse:.2e} (tol {tol['lse']:.0e}) {'ok' if ok else 'FAIL'}")
+                if name == "main_path_causal":
+                    main_err = err_o
+                if not ok:
+                    failures.append(f"flash_fwd/{name}/{tag}")
 
             do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
             delta = attention_delta(o_ref, do)
-            dq = flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw)
-            dk, dv = flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw)
-            torch.cuda.synchronize()
             want = flash_attention_bwd_reference(q, k, v, o_ref, do, lse_ref, **kw)
-            for kname, got, ref in (("flash_bwd_dq", (dq,), want[:1]), ("flash_bwd_dkv", (dk, dv), want[1:])):
-                errs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, ref)]
-                scale = max(float(w.float().abs().max()) for w in ref)
-                finite = all(bool(torch.isfinite(g).all()) for g in got)
-                ok = finite and max(errs) <= BWD_TOL[dtype] * max(scale, 1e-6)
-                log(f"[B] {kname:13s} {name:32s} {tag:9s} max|d| {max(errs):.2e} of max|grad| {scale:.2e} "
-                    f"(tol {BWD_TOL[dtype]:.0e} of it) {'ok' if ok else 'FAIL'}")
-                if name == "train_path_causal":
-                    bwd_main_err[kname] = max(errs)
-                if not ok:
-                    failures.append(f"{kname}/{name}/{tag}")
-    # comparison launches do not count
-    flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches = saved
+            errs, ok, detail = bwd_check(
+                lambda: (flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw),) + flash_bwd_dkv(q, k, v, do, lse_ref, delta,
+                                                                                           **kw),
+                want, (flash_bwd_dq, flash_bwd_dkv), bwd_route(dtype, hd), BWD_TOL[dtype])
+            log(f"[B] flash_bwd dq, dk/dv {name:32s} {tag:9s} {detail} {'ok' if ok else 'FAIL'}")
+            if name == "train_path_causal" and dtype == torch.bfloat16:
+                bwd_main_err = errs
+            if not ok:
+                failures.append(f"flash_bwd/{name}/{tag}")
+    for key, fn in counters.items():
+        fn.launches = saved[key]  # comparison launches do not count
     _phase_b_ce(failures)
     new_err = _phase_b_new(failures)
     new_err["matmul_fp8"] = _phase_b_fp8(failures)
@@ -1403,19 +1548,20 @@ def ids_compare(q, k, v, do, kpad, qi, ki, kw):
     o_in = o_ref.to(dtype)
     delta = attention_delta(o_in, do)
     args = (q, k, v, do, lse_ref, delta, kpad, qi, ki)
-    dq = flash_bwd_dq_ids(*args, **kw)
-    dk, dv = flash_bwd_dkv_ids(*args, **kw)
-    torch.cuda.synchronize()
     want = (flash_bwd_dq_ids_reference(*args, **kw),) + flash_bwd_dkv_ids_reference(*args, **kw)
-    rel = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-6) for g, w in zip((dq, dk, dv), want)]
-    outs = (o, dq, dk, dv)
-    ok = (all(x.dtype == torch.float32 and bool(torch.isfinite(x).all()) for x in outs)
-          and err_o <= TOL[dtype]["o"] and err_lse <= TOL[dtype]["lse"] and max(rel) <= BWD_TOL[dtype])
+    outs = []
+
+    def run():
+        outs[:] = (flash_bwd_dq_ids(*args, **kw),) + flash_bwd_dkv_ids(*args, **kw)
+        return tuple(outs)
+
+    errs, ok_bwd, detail_bwd = bwd_check(run, want, (flash_bwd_dq_ids, flash_bwd_dkv_ids), bwd_route(dtype, q.shape[-1]),
+                                         BWD_TOL[dtype], per_output=True)
+    ok = (ok_bwd and all(x.dtype == torch.float32 and bool(torch.isfinite(x).all()) for x in (o, *outs))
+          and err_o <= TOL[dtype]["o"] and err_lse <= TOL[dtype]["lse"])
     detail = (f"max|dO| {err_o:.2e} max|dLSE| {err_lse:.2e} (tol {TOL[dtype]['o']:.0e}, {TOL[dtype]['lse']:.0e}); "
-              f"dq, dk, dv {rel[0]:.1e}, {rel[1]:.1e}, {rel[2]:.1e} of max|grad| (tol {BWD_TOL[dtype]:.0e})")
-    errs = {"flash_fwd_ids": err_o, "flash_bwd_dq_ids": float((dq - want[0]).abs().max()),
-            "flash_bwd_dkv_ids": max(float((dk - want[1]).abs().max()), float((dv - want[2]).abs().max()))}
-    return errs, ok, detail
+              f"dq, dk, dv: {detail_bwd}")
+    return {"flash_fwd_ids": err_o, **errs}, ok, detail
 
 
 def _ids_counters():
@@ -1433,10 +1579,10 @@ def _phase_b_ids(failures):
     """The ids-mode kernels against their plain versions over IDS_CASES:
     phase R's pairs in bf16, the others in fp32 and bf16. Returns the
     largest error over phase R's four plain ring pairs (bf16)."""
-    counters = _ids_counters()
+    counters = {**_ids_counters(), **_bwd_simt_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    path_err = {k: 0.0 for k in counters}
+    path_err = {k: 0.0 for k in _ids_counters()}
     for name, B, Tl, H, hd, n, me, src, kw in IDS_CASES:
         dtypes = [torch.bfloat16] if name in IDS_PATH_CASES else [torch.float32, torch.bfloat16]
         for dtype in dtypes:
@@ -1463,10 +1609,14 @@ def _phase_c_ids():
     bf16), each the mean of rank 0's two ring steps (the diagonal and the
     off-diagonal pair): kernel, plain version and the one library call that
     computes the same function, SDPA with the boolean mask built from the
-    ids (and its autograd backward); the bound from the kept pairs' products
-    and the bytes each input and output moves once."""
+    ids; the bound from the kept pairs' products and the bytes each input
+    and output moves once. The forward by CUDA events; the backward by
+    CUDA-graph replay (bwd_times: on its route and forced onto the CUDA
+    cores), against SDPA's backward (dq, dk and dv together) timed once per
+    ring step."""
     import torch.nn.functional as F
 
+    from smdistributed_modelparallel_tpu_torch.ops import flash_attention as fa
     from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
         attention_delta,
         flash_bwd_dkv_ids,
@@ -1477,13 +1627,15 @@ def _phase_c_ids():
         flash_fwd_with_ids_reference,
     )
 
-    counters = _ids_counters()
+    counters = {**_ids_counters(), **_bwd_simt_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     B, Tl, H, hd, n = 2, CP_T // CP_N, 12, 64, CP_N
     dtype, esz = torch.bfloat16, 2
-    acc = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0) for k in counters}
-    bound_by = {}
+    acc = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0) for k in _ids_counters()}
+    for k in ("flash_bwd_dq_ids", "flash_bwd_dkv_ids"):
+        acc[k]["simt_ms"] = 0.0
+    bound_by, route = {}, None
     for src in range(n):
         q, k, v, do, kpad, qi, ki, kw = ids_inputs(B, Tl, H, hd, n, 0, src, dtype, gen, {})
         o, lse = flash_fwd_with_ids_reference(q, k, v, kpad, qi, ki, **kw)
@@ -1491,37 +1643,46 @@ def _phase_c_ids():
         delta = attention_delta(o_in, do)
         args = (q, k, v, do, lse, delta, None, qi, ki)
         mask = ki[None, :] <= qi[:, None]
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=kw["scale"])
-        dot = do.transpose(1, 2)
-        product = 2 * B * H * _kept_pairs(qi, ki) * hd  # one [kept pairs x hd] product
+        route = fa._route(q, k, v, do)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        fwd = dict(ms=cuda_time_ms(lambda: flash_fwd_with_ids(q, k, v, None, qi, ki, **kw)),
+                   plain_ms=cuda_time_ms(lambda: flash_fwd_with_ids_reference(q, k, v, None, qi, ki, **kw), iters=5),
+                   library_ms=cuda_time_ms(
+                       lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=kw["scale"])))
+        lib_bwd_ms = sdpa_bwd_ms(q, k, v, do, attn_mask=mask, scale=kw["scale"])
+        pairs = _kept_pairs(qi, ki)
+        product = 2 * B * H * pairs * hd  # one [kept pairs x hd] product
         in_bytes = 4 * B * Tl * H * hd * esz + 2 * Tl * 4  # q, k, v, (dO) and the ids
         rows = (
-            ("flash_fwd_ids", lambda: flash_fwd_with_ids(q, k, v, None, qi, ki, **kw),
-             lambda: flash_fwd_with_ids_reference(q, k, v, None, qi, ki, **kw),
-             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=kw["scale"]),
-             2 * product, 3 * B * Tl * H * hd * esz + 2 * Tl * 4 + B * Tl * H * hd * 4 + B * H * Tl * 4),
-            ("flash_bwd_dq_ids", lambda: flash_bwd_dq_ids(*args, **kw), lambda: flash_bwd_dq_ids_reference(*args, **kw),
-             lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True),
+            ("flash_fwd_ids", fwd, 2 * product,
+             3 * B * Tl * H * hd * esz + 2 * Tl * 4 + B * Tl * H * hd * 4 + B * H * Tl * 4),
+            ("flash_bwd_dq_ids", dict(bwd_times(flash_bwd_dq_ids, flash_bwd_dq_ids_reference, args, kw),
+                                      library_ms=lib_bwd_ms),
              3 * product, in_bytes + 2 * B * H * Tl * 4 + B * Tl * H * hd * 4),
-            ("flash_bwd_dkv_ids", lambda: flash_bwd_dkv_ids(*args, **kw),
-             lambda: flash_bwd_dkv_ids_reference(*args, **kw),
-             lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True),
+            ("flash_bwd_dkv_ids", dict(bwd_times(flash_bwd_dkv_ids, flash_bwd_dkv_ids_reference, args, kw),
+                                       library_ms=lib_bwd_ms),
              4 * product, in_bytes + 2 * B * H * Tl * 4 + 2 * B * Tl * H * hd * 4),
         )
-        for name, kernel, plain, library, flops, nbytes in rows:
+        for name, t, flops, nbytes in rows:
             bound_ms, bound_by[name] = _bound(nbytes, flops, dtype)
-            t = dict(ms=cuda_time_ms(kernel), plain_ms=cuda_time_ms(plain, iters=5), bound_ms=bound_ms,
-                     library_ms=cuda_time_ms(library))
-            log(f"[C] {name} ring step {src} of rank 0 (B={B} Tl={Tl} H={H} hd={hd} bf16, {_kept_pairs(qi, ki)} "
-                f"kept pairs of {Tl * Tl}): kernel {t['ms']:.4f} ms ({flops / t['ms'] / 1e9:.2f} TFLOP/s), plain "
-                f"{t['plain_ms']:.4f} ms, library (SDPA with the ids mask) {t['library_ms']:.4f} ms; bound "
-                f"{bound_ms:.4f} ms by {bound_by[name]} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-            for key in t:
+            t = dict(t, bound_ms=bound_ms)
+            how = ("CUDA events" if name == "flash_fwd_ids" else
+                   f"CUDA-graph replay: the wrapper ({route}); CUDA-core kernel {t['simt_ms']:.4f} ms")
+            log(f"[C] {name} ring step {src} of rank 0 (B={B} Tl={Tl} H={H} hd={hd} bf16, {pairs} kept pairs of "
+                f"{Tl * Tl}; {how}): kernel {t['ms']:.4f} ms ({flops / t['ms'] / 1e9:.2f} TFLOP/s), plain "
+                f"{t['plain_ms']:.4f} ms, library (SDPA with the ids mask{'' if name == 'flash_fwd_ids' else ', its backward'}) "
+                f"{t['library_ms']:.4f} ms; bound {bound_ms:.4f} ms by {bound_by[name]} ({nbytes / 1e6:.2f} MB, "
+                f"{flops / 1e9:.3f} GFLOP)")
+            for key in acc[name]:
                 acc[name][key] += t[key] / n
-    for k, fn in counters.items():
-        fn.launches = saved[k]  # timing launches do not count
-    return {name: dict(acc[name], bound_by=bound_by[name]) for name in acc}
+        log(f"[C] ring step {src} of rank 0: dq + dk/dv {rows[1][1]['ms'] + rows[2][1]['ms']:.4f} ms against SDPA's "
+            f"backward with the ids mask {lib_bwd_ms:.4f} ms")
+    for key, fn in counters.items():
+        fn.launches = saved[key]  # timing launches do not count
+    out = {name: dict(acc[name], bound_by=bound_by[name]) for name in acc}
+    for name in ("flash_bwd_dq_ids", "flash_bwd_dkv_ids"):
+        out[name]["path_route"] = route
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -1565,7 +1726,7 @@ def _cp_train(cfg, device, steps):
         model.backward(loss, num_tokens=count)
         return loss
 
-    counters = {**_flash_counters(), **_ids_counters()}
+    counters = {**_flash_counters(), **_ids_counters(), **_bwd_simt_counters()}
     for fn in counters.values():
         fn.launches = 0
     losses, ms = [], []
@@ -1735,6 +1896,8 @@ def phase_r(device="cuda:0"):
             f"{u_gap:.3e}; {u_ms[0]:.2f} ms; launches {u_counts}")
         if u_counts["flash_fwd"] != n_layers * CP_MB or u_counts["flash_fwd_ids"] != 0:
             raise RuntimeError(f"rank {rank}: Ulysses launches {u_counts}")
+        _check_bwd_route(f"rank {rank} ring", counts)
+        _check_bwd_route(f"rank {rank} ulysses", u_counts)
     for rank in range(CP_N):
         bd = results[rank]["breakdown"]
         log(f"[R] rank {rank} breakdown: one layer's ring attention, forward and backward with its exchanges, "
@@ -1744,6 +1907,7 @@ def phase_r(device="cuda:0"):
     one_ms = sum(base_ms[1:]) / (CP_STEPS - 1)
     log(f"[R] ms/step (mean of steps 2-{CP_STEPS}): cp = 2 {cp_ms:.2f}, cp = 1 {one_ms:.2f}; "
         f"cp = 1 launches {base_launches}")
+    _check_bwd_route("cp = 1", base_launches)
     if worst > CP_LOSS_TOL or not all(math.isfinite(x) for x in base_losses):
         raise RuntimeError(f"cp = 2 losses differ from cp = 1 by {worst:.3e} (limit {CP_LOSS_TOL})")
     return launches, dict(cp_ms=cp_ms, one_ms=one_ms, gap=worst, transport=transport)
@@ -1777,8 +1941,10 @@ def phase_c():
         flash_bwd_dq_reference,
     )
 
-    counters = (flash_attention, flash_bwd_dq, flash_bwd_dkv)
-    saved = [fn.launches for fn in counters]
+    from smdistributed_modelparallel_tpu_torch.ops import flash_attention as fa
+
+    counters = {"flash_fwd": flash_attention, **_bwd_counters(), **_bwd_simt_counters()}
+    saved = {k: fn.launches for k, fn in counters.items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dtype = torch.bfloat16
     esz = torch.finfo(dtype).bits // 8
@@ -1804,31 +1970,33 @@ def phase_c():
     o, lse = flash_attention_reference(q, k, v)
     delta = attention_delta(o, do)
     args = (q, k, v, do, lse, delta)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2)
-    # One library call computes dq, dk and dv together: the yardstick of
-    # both kernels (compare it with their sum).
-    sdpa_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True))
-    delta_ms = cuda_time_ms(lambda: attention_delta(o, do))
+    # The backward by CUDA-graph replay in one call: each wrapper on its route
+    # and forced onto the CUDA-core route, the plain versions, and one library
+    # call computing dq, dk and dv together, the yardstick of both kernels
+    # (compare it with their sum).
+    route = fa._route(q, k, v, do)
+    sdpa_ms = sdpa_bwd_ms(q, k, v, do, is_causal=True)
+    delta_ms = cuda_graph_time_ms(lambda: attention_delta(o, do))
     product = 2 * B * H * _causal_pairs(T, S) * hd  # one [pairs x hd] product
     in_bytes = (2 * B * T + 2 * B * S) * H * hd * esz + 2 * B * H * T * 4  # q, do, k, v, lse, delta
     for name, kernel, plain, n_products, out_bytes in (
         ("flash_bwd_dq", flash_bwd_dq, flash_bwd_dq_reference, 3, B * T * H * hd * esz),      # s, dp, dq
         ("flash_bwd_dkv", flash_bwd_dkv, flash_bwd_dkv_reference, 4, 2 * B * S * H * hd * esz),  # s, dp, dv, dk
     ):
-        ms = cuda_time_ms(lambda: kernel(*args))
-        plain_ms = cuda_time_ms(lambda: plain(*args))
+        t = bwd_times(kernel, plain, args, {})
         bound_ms, bound_by = _bound(in_bytes + out_bytes, n_products * product, dtype)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_bwd_ms)
-        log(f"[C] {name} B={B} T=S={T} H={H} hd={hd} bf16 causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"SDPA backward (dq, dk, dv) {sdpa_bwd_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-            f"({(in_bytes + out_bytes) / 1e6:.2f} MB, {n_products * product / 1e9:.3f} GFLOP)")
+        out[name] = dict(t, bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_ms, path_route=route)
+        log(f"[C] {name} B={B} T=S={T} H={H} hd={hd} bf16 causal, device times by CUDA-graph replay: the wrapper "
+            f"({route}) {t['ms']:.4f} ms ({n_products * product / t['ms'] / 1e9:.2f} TFLOP/s), CUDA-core kernel "
+            f"{t['simt_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA backward (dq, dk, dv) {sdpa_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({(in_bytes + out_bytes) / 1e6:.2f} MB, "
+            f"{n_products * product / 1e9:.3f} GFLOP)")
     pair_ms = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
     log(f"[C] backward per layer and microbatch: delta {delta_ms:.4f} ms + dq + dk/dv {pair_ms:.4f} ms "
-        f"against SDPA backward {sdpa_bwd_ms:.4f} ms")
-    for fn, n in zip(counters, saved):
-        fn.launches = n  # timing launches do not count
+        f"({out['flash_bwd_dq']['simt_ms'] + out['flash_bwd_dkv']['simt_ms']:.4f} ms on CUDA cores) against SDPA "
+        f"backward {sdpa_ms:.4f} ms")
+    for key, fn in counters.items():
+        fn.launches = saved[key]  # timing launches do not count
     out.update(_phase_c_ce())
     out.update(_phase_c_new())
     out.update(_phase_c_fp8())

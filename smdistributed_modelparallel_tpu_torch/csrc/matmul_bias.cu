@@ -185,8 +185,8 @@ matmul_bias_wgmma_kernel(const __grid_constant__ CUtensorMap mx, const __grid_co
         const int s = it % STAGES;
         mbar_wait(full + 8 * s, (it / STAGES) & 1);
         const uint32_t a = st + s * STAGE + wg * 64 * ROW_BYTES, b0 = st + s * STAGE + A_TILE, b1 = b0 + B_TILE;
-        fence_acc(d0);
-        fence_acc(d1);
+        fence_regs(d0);
+        fence_regs(d1);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
@@ -195,13 +195,13 @@ matmul_bias_wgmma_kernel(const __grid_constant__ CUtensorMap mx, const __grid_co
         }
         wgmma_commit();
         wgmma_wait<1>();  // block kb - 1 is done: release its stage while block kb runs
-        fence_acc(d0);
-        fence_acc(d1);
+        fence_regs(d0);
+        fence_regs(d1);
         if (kb > 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
       }
       wgmma_wait<0>();
-      fence_acc(d0);
-      fence_acc(d1);
+      fence_regs(d0);
+      fence_regs(d1);
       mbar_arrive(empty + 8 * ((it - 1) % STAGES));  // the producer is loading the next tile meanwhile
       const int r0 = tiles.m0(t) + 64 * wg, n0 = tiles.n0(t);
       store_tile<E>(d0, staging, y, b, N, F, r0, n0, wg);

@@ -268,7 +268,7 @@ matmul_fp8_wgmma_kernel(const __grid_constant__ CUtensorMap mx, const __grid_con
       for (int kb = 0; kb < kblocks; ++kb, ++it) {
         const uint32_t fa = smem_u32(extra + (kb & 1) * (FA + FB));
         const uint32_t a = fa + wg * 64 * 128, bt = fa + FA;
-        fence_acc(d);
+        fence_regs(d);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
@@ -278,7 +278,7 @@ matmul_fp8_wgmma_kernel(const __grid_constant__ CUtensorMap mx, const __grid_con
         wgmma_commit();
         if (kb + 1 < kblocks) widen(it + 1, (kb + 1) & 1);  // overlaps this block's wgmma
         wgmma_wait<0>();
-        fence_acc(d);
+        fence_regs(d);
         // Both warpgroups' wgmma of block kb are done (its pair may be
         // overwritten by block kb + 2) and pair kb + 1 is written.
         bar_sync(1, CONSUMERS);

@@ -1,6 +1,9 @@
-// Shared pieces of the tensor-core matrix products (csrc/matmul_bias.cu,
-// csrc/matmul_fp8.cu) for Hopper (sm_90a): TMA tensor maps and loads,
-// mbarriers, wgmma descriptors and instructions, and the output-tile store.
+// Shared pieces of the tensor-core kernels (csrc/matmul_bias.cu,
+// csrc/matmul_fp8.cu, csrc/flash_bwd.cu) for Hopper (sm_90a): TMA tensor maps
+// and loads, mbarriers, wgmma descriptors and instructions, and the
+// output-tile store. The flash backward's pieces (a 4-D map over a
+// [B, L, H, 64] operand, m64n64k16 wgmma with A from shared memory or from
+// registers, the MN-major descriptor) are at the end of the file.
 //
 // The common shape: a persistent grid, one CTA of three warpgroups on each SM,
 // walks the output tiles of an "NT" product (x [N, K] and w [F, K], both
@@ -168,11 +171,20 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma (issued before, waited for after).
-__device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
+// Keeps the compiler from moving reads or writes of a wgmma's registers
+// (accumulators; with the overloads below, A fragments and descriptors)
+// across the asynchronous wgmma (issued before, waited for after).
+template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void fence_regs(uint64_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+l"(d[i])::"memory");
 }
 
 #define SMP_ACC8(i)                                                                                    \
@@ -334,5 +346,130 @@ inline int persistent_grid(int N, int F, int tile_cols) {
   const long long tiles = static_cast<long long>((N + BM - 1) / BM) * ((F + tile_cols - 1) / tile_cols);
   return static_cast<int>(tiles < sms ? tiles : sms);
 }
+
+// ------------------------------------------------- attention (flash_bwd.cu)
+//
+// An attention operand [B, L, H, 64] of 16-bit elements with element strides
+// (sb, sl, sh) along batch, row and head (the head dim contiguous) is read in
+// [64 rows, 64] boxes of one (batch, head): 64 rows of 128 bytes, the
+// 128-byte swizzle, rows past L as zeros. The map's dimensions are (64, L, H,
+// B), so the row stride need not be the largest (q, k and v may be views into
+// a fused QKV output). TMA's rules: a 16-byte aligned base, strides that are
+// multiples of 16 bytes.
+
+constexpr int HEAD_TILE = 64 * ROW_BYTES;  // bytes of one [64, 64] 16-bit tile
+
+inline bool encode_bthd(CUtensorMap* map, CUtensorMapDataType type, const void* base, int L, int H, int B,
+                        long long sl, long long sh, long long sb) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sl) * 2, static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The box of rows r0 .. r0 + 63 of head h of batch b.
+__device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar, int r0, int h,
+                                              int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(r0), "r"(h), "r"(b)
+      : "memory");
+}
+
+// wgmma descriptor of an MN-major operand: a [64 k-rows, 64] tile whose 64
+// columns (the product's N) are one 128-byte swizzled row. Its 8-row groups
+// along k are 1024 bytes apart. The two offset fields are that stride and the
+// stride between 64-column blocks along N; with one such block they are both
+// set to 1024. A 16-row k-step advances the start address by 2048 bytes.
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// The descriptors of the four 16-deep k-steps of a [64, 64] tile at addr:
+// K-major (k-steps 32 bytes apart) or MN-major (2048 bytes apart).
+__device__ __forceinline__ void k_steps(uint64_t (&d)[4], uint32_t addr, bool mn_major) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) d[kk] = mn_major ? desc_sw128_mn(addr + 2048 * kk) : desc_sw128(addr + 32 * kk);
+  fence_regs(d);
+}
+
+// Two fp32 values rounded to a packed pair of 16-bit values (the first in the
+// low half): one register of a wgmma A fragment.
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+#define SMP_ACC32                                                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),   \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define SMP_ACC32_STR                                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, " \
+  "%23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, both K-major in shared memory
+// (128-byte swizzle); scale_d = 0 overwrites d. T: __nv_bfloat16 or __half.
+template <typename T> __device__ __forceinline__ void wgmma_n64_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_n64_ss<__nv_bfloat16>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SMP_ACC32_STR ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SMP_ACC32
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_n64_ss<__half>(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " SMP_ACC32_STR ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SMP_ACC32
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (a[0..3], the
+// fragment of 16 columns of an m64n64 accumulator, see pack2), B MN-major in
+// shared memory (desc_sw128_mn; the transpose bit).
+template <typename T> __device__ __forceinline__ void wgmma_n64_rs(float (&d)[32], const uint32_t* a, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_n64_rs<__nv_bfloat16>(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SMP_ACC32_STR ", {%32, %33, %34, %35}, %36, p, 1, 1, "
+      "1;\n}\n"
+      : SMP_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_n64_rs<__half>(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " SMP_ACC32_STR ", {%32, %33, %34, %35}, %36, p, 1, 1, "
+      "1;\n}\n"
+      : SMP_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef SMP_ACC32
+#undef SMP_ACC32_STR
+
+template <typename T> struct TmaType;
+template <> struct TmaType<__nv_bfloat16> { static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16; };
+template <> struct TmaType<__half> { static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16; };
 
 }  // namespace smp_tc

@@ -13,6 +13,13 @@ its plain PyTorch version for tensors on the CPU and its kernel for CUDA
 tensors; it never falls back from one to the other, and counts its kernel's
 launches in ``.launches``.
 
+The backward has two kernels for each pass, one contract, and ``_route``
+picks by the operands alone: ``"wgmma"`` (tensor cores fed by TMA) for fp16
+and bf16 with hd 64 on TMA-ready strides, ``"simt"`` (the CUDA cores) for
+the rest. A route never gives way to the other when a build or a launch
+fails. The backward wrappers (plain and ids mode) count tensor-core
+launches in ``.launches`` and CUDA-core launches in ``.simt_launches``.
+
 Both reproduce the TPU kernel's conventions, so they agree with it bit for
 bit in the dropout mask and to rounding elsewhere:
   - masked scores are -1e30, not -inf; the scale multiplies the fp32 scores
@@ -209,11 +216,17 @@ def flash_attention_reference(q, k, v, kpad_bias=None, seed=None, head0=None,
     return o.to(q.dtype).permute(0, 2, 1, 3), lse[..., 0]
 
 
+def _is_cuda(x):
+    """Whether a kernel would run on a CUDA device (one seam, so the CPU
+    tests can take the card's branch with meta tensors)."""
+    return x.is_cuda
+
+
 def _check_cuda(name, q, k, v, *others):
     """The kernels' contract: one CUDA device, one dtype of fp32/fp16/bf16
     for q, k, v (and dO), hd <= 256."""
     tensors = (q, k, v) + others
-    if not (q.is_cuda and all(x.device == q.device for x in tensors)):
+    if not (_is_cuda(q) and all(x.device == q.device for x in tensors)):
         raise ValueError(f"{name}: q, k, v must share one CUDA device, got {[str(x.device) for x in tensors]}")
     if q.dtype not in _DTYPE_CODE or any(x.dtype != q.dtype for x in tensors):
         raise TypeError(f"{name} kernel takes one of {list(_DTYPE_CODE)} for q, k, v; got "
@@ -439,13 +452,35 @@ def flash_attention_bwd_reference(q, k, v, o, do, lse, kpad_bias=None,
     return (_dq_from(ds, q, k),) + _dkv_from(ds, p_drop, q, k, v, do)
 
 
+_TC_HEAD_DIM = 64  # the head dim the tensor-core backward kernels take
+
+
+def _route(q, k, v, do):
+    """The backward kernel that takes q, k, v and dO (each with a unit
+    head-dim stride): ``"wgmma"`` (tensor cores fed by TMA) for fp16 or bf16
+    with hd 64, 16-byte aligned bases and batch, row and head strides that
+    are positive multiples of 16 bytes, which are TMA's rules (q, k and v may
+    be views into a fused QKV output); else ``"simt"`` (the CUDA cores): fp32
+    (the tensor cores give fp32 only as TF32, which the contract excludes)
+    and every other head dim. hd 128 stays on the CUDA cores: at n = 128
+    the dk and dv accumulators (64 registers a thread each) with the score
+    tiles and A fragments (96) exceed the 216 registers a consumer thread
+    has in this design."""
+    if q.dtype not in (torch.bfloat16, torch.float16) or q.shape[-1] != _TC_HEAD_DIM:
+        return "simt"
+    for x in (q, k, v, do):
+        if x.data_ptr() % 16 or any(st <= 0 or st % 8 for st in x.stride()[:3]):
+            return "simt"
+    return "wgmma"
+
+
 def _bwd_launch(kernel, q, k, v, do, lse, delta, kpad_bias, dq, dk, dv, seed,
                 head0, scale, causal, window, dropout_rate, block_q, block_k,
                 head_total, counter_len, ids=(None, None)):
-    """Launch one kernel of ``csrc/flash_bwd.cu``: ``smp_flash_bwd_dq``
-    into dq, or ``smp_flash_bwd_dkv`` into dk and dv (the unused outputs
-    are None); ``ids`` (int32 q_ids, kv_ids) selects ids mode, whose
-    outputs are fp32."""
+    """Launch one kernel of ``csrc/flash_bwd.cu`` on ``_route``'s route:
+    ``smp_flash_bwd_dq`` into dq, or ``smp_flash_bwd_dkv`` into dk and dv
+    (the unused outputs are None); ``ids`` (int32 q_ids, kv_ids) selects ids
+    mode, whose outputs are fp32. Returns the route."""
     _check(q, k, v, kpad_bias, window)
     _check_cuda(kernel, q, k, v, do)
     B, T, H, hd = q.shape
@@ -464,20 +499,37 @@ def _bwd_launch(kernel, q, k, v, do, lse, delta, kpad_bias, dq, dk, dv, seed,
     layouts = (q, k, v, do, q if dq is None else dq, k if dk is None else dk, v if dv is None else dv)
     strides = (ctypes.c_longlong * 22)(*[st for x in layouts for st in x.stride()[:3]], kpad_sb)
     outs = [x.data_ptr() for x in (dq, dk, dv) if x is not None]
+    route = _route(q, k, v, do)
+    _launch(route, kernel, q.device, (
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), kpad.data_ptr() if kpad is not None else None,
+        *(x.data_ptr() if x is not None else None for x in ids),
+        *outs, B, T, S, H, hd, strides, float(scale), int(bool(causal)), int(window or 0),
+        *_dropout_args(seed, dropout_rate, counter_len, s_pad),
+        0 if head0 is None else int(head0),
+        H if head0 is None else int(head_total or H),
+    ))
+    return route
+
+
+def _launch(route, kernel, device, args):
+    """Call ``smp_<kernel>`` with ``route``'s kernel on ``device``'s current
+    stream; raise if the launch was refused."""
     lib = _bwd_kernel()
-    with torch.cuda.device(q.device):
-        err = getattr(lib, f"smp_{kernel}")(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), kpad.data_ptr() if kpad is not None else None,
-            *(x.data_ptr() if x is not None else None for x in ids),
-            *outs, B, T, S, H, hd, strides, float(scale), int(bool(causal)), int(window or 0),
-            *_dropout_args(seed, dropout_rate, counter_len, s_pad),
-            0 if head0 is None else int(head0),
-            H if head0 is None else int(head_total or H),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    with torch.cuda.device(device):
+        err = getattr(lib, f"smp_{kernel}")(int(route == "wgmma"), *args,
+                                            torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: {lib.smp_cuda_error_string(err).decode()}")
+        raise RuntimeError(f"{kernel} ({route}) launch failed: {lib.smp_cuda_error_string(err).decode()}")
+
+
+def _count(fn, route):
+    """One launch of ``fn``'s kernel: ``.launches`` counts the tensor-core
+    route, ``.simt_launches`` the CUDA-core route."""
+    if route == "wgmma":
+        fn.launches += 1
+    else:
+        fn.simt_launches += 1
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, kpad_bias=None, seed=None,
@@ -493,8 +545,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, kpad_bias=None, seed=None,
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, kpad_bias, *coords)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, kpad_bias, dq, None, None, *coords)
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, kpad_bias, dq, None, None, *coords))
     return dq
 
 
@@ -511,13 +562,14 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, kpad_bias=None, seed=None,
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, kpad_bias, *coords)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, kpad_bias, None, dk, dv, *coords)
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, kpad_bias, None, dk, dv, *coords))
     return dk, dv
 
 
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches = 0  # launches of the tensor-core dq kernel
+flash_bwd_dq.simt_launches = 0  # launches of the CUDA-core dq kernel
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.simt_launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, kpad_bias=None, seed=None,
@@ -752,8 +804,8 @@ def flash_bwd_dq_ids(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, *, scale
     if q.device.type == "cpu":
         return flash_bwd_dq_ids_reference(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, **kw)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _bwd_launch_ids("flash_bwd_dq", q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, dq, None, None, kw)
-    flash_bwd_dq_ids.launches += 1
+    _count(flash_bwd_dq_ids,
+           _bwd_launch_ids("flash_bwd_dq", q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, dq, None, None, kw))
     return dq
 
 
@@ -769,14 +821,16 @@ def flash_bwd_dkv_ids(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, *, scal
         return flash_bwd_dkv_ids_reference(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, **kw)
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
-    _bwd_launch_ids("flash_bwd_dkv", q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, None, dk, dv, kw)
-    flash_bwd_dkv_ids.launches += 1
+    _count(flash_bwd_dkv_ids,
+           _bwd_launch_ids("flash_bwd_dkv", q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, None, dk, dv, kw))
     return dk, dv
 
 
 flash_fwd_with_ids.launches = 0  # launches of csrc/flash_fwd.cu in ids mode
-flash_bwd_dq_ids.launches = 0
+flash_bwd_dq_ids.launches = 0  # tensor-core launches, as flash_bwd_dq's
+flash_bwd_dq_ids.simt_launches = 0
 flash_bwd_dkv_ids.launches = 0
+flash_bwd_dkv_ids.simt_launches = 0
 
 
 def flash_bwd_with_ids(q, k, v, o, do, lse, kpad_bias, q_ids, kv_ids, *, scale, causal, seed=None,
@@ -797,9 +851,9 @@ def flash_bwd_with_ids(q, k, v, o, do, lse, kpad_bias, q_ids, kv_ids, *, scale, 
 def _bwd_launch_ids(kernel, q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, dq, dk, dv, kw):
     _check_ids(q, k, q_ids, kv_ids)
     bq, bk, s_pad = _ids_tiling(kw["block_q"], kw["block_k"], q.shape[1], k.shape[1])
-    _bwd_launch(kernel, q, k, v, do, lse, delta, kpad_bias, dq, dk, dv, kw["seed"], kw["head0"],
-                kw["scale"], kw["causal"], None, kw["dropout_rate"], bq, bk, kw["head_total"],
-                kw["counter_len"], ids=(_ids_arg(q_ids, q.device), _ids_arg(kv_ids, q.device)))
+    return _bwd_launch(kernel, q, k, v, do, lse, delta, kpad_bias, dq, dk, dv, kw["seed"], kw["head0"],
+                       kw["scale"], kw["causal"], None, kw["dropout_rate"], bq, bk, kw["head_total"],
+                       kw["counter_len"], ids=(_ids_arg(q_ids, q.device), _ids_arg(kv_ids, q.device)))
 
 
 _LIB = None  # csrc/flash_fwd.cu, loaded at the first launch
@@ -838,8 +892,8 @@ def _bwd_kernel():
             [c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
             + [c_float, c_int, c_int, c_int, c_uint, c_uint, c_uint, c_float, c_int, c_int, c_ptr]
         )
-        lib.smp_flash_bwd_dq.argtypes = [c_int] + [c_ptr] * 10 + tail
-        lib.smp_flash_bwd_dkv.argtypes = [c_int] + [c_ptr] * 11 + tail
+        lib.smp_flash_bwd_dq.argtypes = [c_int, c_int] + [c_ptr] * 10 + tail
+        lib.smp_flash_bwd_dkv.argtypes = [c_int, c_int] + [c_ptr] * 11 + tail
         lib.smp_flash_bwd_dq.restype = c_int
         lib.smp_flash_bwd_dkv.restype = c_int
         lib.smp_cuda_error_string.argtypes = [c_int]

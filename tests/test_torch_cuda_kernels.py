@@ -22,7 +22,10 @@ and of ``matmul_fp8`` (``FP8_CASES``, ``fp8_inputs``, ``fp8_compare``: each
 element within the fp32 summation-order bound of its own). Both matrix
 products have a tensor-core and a CUDA-core kernel; the comparisons hold
 the route each case took to ``_route``'s, the ragged shapes reach the
-tensor cores, and the two routes agree on the same inputs. The fp8 casts on
+tensor cores, and the two routes agree on the same inputs. So do the flash
+backward's (``bwd_check``): its tensor-core kernels at hd 64 in bf16 and fp16,
+plain and ids mode, on chip_smoke's cases and ragged lengths, against the
+plain version, the CUDA-core kernels and a repeat launch (equal bits). The fp8 casts on
 the card equal the CPU's bit for bit, and one fp32 step of the smp.nn model
 under ``matmul_precision: fp8`` agrees with the CPU's. The ids-mode flash
 kernels (one pair of a context-parallel ring step) run ``chip_smoke.py``'s
@@ -39,6 +42,8 @@ import torch
 
 import smdistributed_modelparallel_tpu_torch as smp_torch
 from chip_smoke import (
+    BWD_TOL as SMOKE_BWD_TOL,
+    CASES as SMOKE_CASES,
     CE_CASES,
     CE_TOL,
     FP8_CASES,
@@ -52,6 +57,8 @@ from chip_smoke import (
     fp8_inputs,
     gelu_compare,
     gelu_inputs,
+    bwd_check,
+    bwd_route,
     ids_compare,
     ids_inputs,
     mb_compare,
@@ -66,6 +73,7 @@ from smdistributed_modelparallel_tpu_torch.nn import vocab_parallel_cross_entrop
 from smdistributed_modelparallel_tpu_torch.ops.attention import attention_core
 from smdistributed_modelparallel_tpu_torch.ops.bias_gelu import bias_gelu, bias_gelu_bwd, bias_gelu_fwd
 from smdistributed_modelparallel_tpu_torch.ops import bias_gelu as bg_mod
+from smdistributed_modelparallel_tpu_torch.ops import flash_attention as fa_mod
 from smdistributed_modelparallel_tpu_torch.ops import matmul_bias as mb_mod
 from smdistributed_modelparallel_tpu_torch.ops import matmul_fp8 as mf_mod
 from smdistributed_modelparallel_tpu_torch.ops.matmul_bias import matmul_bias, matmul_bias_fwd
@@ -187,16 +195,87 @@ def test_flash_bwd_matches_plain_version(cuda, case, dtype):
         kw["kpad_bias"] = kpad
     o, lse = flash_attention_reference(q, k, v, **kw)
     delta = attention_delta(o, do)
-    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    counter = "launches" if bwd_route(dtype, hd) == "wgmma" else "simt_launches"  # the route's count
+    before = (getattr(flash_bwd_dq, counter), getattr(flash_bwd_dkv, counter))
     dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
-    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    assert (getattr(flash_bwd_dq, counter), getattr(flash_bwd_dkv, counter)) == (before[0] + 1, before[1] + 1)
     want = flash_attention_bwd_reference(q, k, v, o, do, lse, **kw)
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         err = float((got.float() - ref.float()).abs().max())
         assert err <= BWD_TOL[dtype] * float(ref.float().abs().max()), (name, err)
+
+
+def _bwd_case(name, dtype, cuda):
+    """chip_smoke.CASES' case: (run, want, route, tol) for bwd_check."""
+    _, B, T, S, H, hd, kw = next(c for c in SMOKE_CASES if c[0] == name)
+    kw = dict(kw)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(B, L, H, hd, generator=gen, device=cuda).to(dtype) for L in (T, S, S, T))
+    if kw.pop("kpad", None):
+        kpad = torch.zeros(B, S, device=cuda)
+        kpad[1, :50] = -1e30
+        kpad[2, :] = -1e30
+        kw["kpad_bias"] = kpad
+    o, lse = flash_attention_reference(q, k, v, **kw)
+    delta = attention_delta(o, do)
+    want = flash_attention_bwd_reference(q, k, v, o, do, lse, **kw)
+
+    def run():
+        return (flash_bwd_dq(q, k, v, do, lse, delta, **kw),) + flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+
+    return run, want, bwd_route(dtype, hd), SMOKE_BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("case", [c[0] for c in SMOKE_CASES])
+def test_flash_bwd_routes_agree_and_repeat_bit_equal(cuda, case, dtype):
+    """Every chip_smoke case in bf16 and fp16 on ``_route``'s route: the
+    tensor cores at hd 64, where the kernels agree with the CUDA-core kernels
+    forced on the same inputs and a second launch gives equal bits; the CUDA
+    cores elsewhere. Both against the plain version (BWD_TOL)."""
+    run, want, route, tol = _bwd_case(case, dtype, cuda)
+    _, ok, detail = bwd_check(run, want, (flash_bwd_dq, flash_bwd_dkv), route, tol)
+    assert ok, detail
+
+
+# Ragged lengths on the tensor cores: partial first and last tiles, T above
+# and below S, one row past a tile.
+RAGGED_BWD = {"t1000": (1, 1000, 1000, 2), "t77_s130": (2, 77, 130, 3), "t65_s63": (2, 65, 63, 2),
+              "t1_s200": (1, 1, 200, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("case", sorted(RAGGED_BWD))
+def test_flash_bwd_tensor_cores_on_ragged_lengths(cuda, case, causal):
+    B, T, S, H = RAGGED_BWD[case]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (torch.randn(B, L, H, 64, generator=gen, device=cuda).to(torch.bfloat16) for L in (T, S, S, T))
+    o, lse = flash_attention_reference(q, k, v, causal=causal)
+    delta = attention_delta(o, do)
+    want = flash_attention_bwd_reference(q, k, v, o, do, lse, causal=causal)
+    run = lambda: (flash_bwd_dq(q, k, v, do, lse, delta, causal=causal),) + flash_bwd_dkv(  # noqa: E731
+        q, k, v, do, lse, delta, causal=causal)
+    _, ok, detail = bwd_check(run, want, (flash_bwd_dq, flash_bwd_dkv), "wgmma", SMOKE_BWD_TOL[torch.bfloat16])
+    assert ok, detail
+
+
+@pytest.mark.cuda
+def test_flash_bwd_tensor_core_route_refuses_what_it_cannot_run(cuda, monkeypatch):
+    """Forced onto the tensor cores, fp32 and hd 128 are refused by the
+    kernel's entry and the wrapper raises: no route stands in for the other."""
+    monkeypatch.setattr(fa_mod, "_route", lambda *a: "wgmma")
+    for dtype, hd in ((torch.float32, 64), (torch.bfloat16, 128)):
+        q = torch.zeros(1, 128, 2, hd, device=cuda, dtype=dtype)
+        lse = delta = torch.zeros(1, 2, 128, device=cuda)
+        with pytest.raises(RuntimeError, match="wgmma"):
+            flash_bwd_dq(q, q, q, q, lse, delta)
+        with pytest.raises(RuntimeError, match="wgmma"):
+            flash_bwd_dkv(q, q, q, q, lse, delta)
 
 
 @pytest.mark.cuda
@@ -215,10 +294,12 @@ def test_attention_core_grad_through_kernels_matches_cpu(cuda):
         (out.float() ** 2).sum().backward()
         return lin.weight.grad.cpu()
 
-    launches = (flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    def count():  # fp32: the backward takes the CUDA-core route
+        return (flash_attention.launches, flash_bwd_dq.simt_launches, flash_bwd_dkv.simt_launches)
+
+    launches = count()
     got = grad(cuda)
-    assert (flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == tuple(
-        n + 1 for n in launches)
+    assert count() == tuple(n + 1 for n in launches)
     want = grad("cpu")
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
