@@ -31,12 +31,13 @@ csrc`` (one nvcc per source, all started together), then:
   F. the capacity path: the same training on 32 x 1024 tokens in one
      microbatch, where the logits would be 3.1 GB of bf16 and the default
      ``fused_ce: "auto"`` policy engages the fused cross-entropy kernels
-     (1 forward, dx and dW launch and 12 of each flash kernel a step); the
-     same steps with ``fused_ce: False`` (materialized logits) must give the
-     same losses, and one step of the tied head the same hidden-state and
+     (1 forward, dx and dW launch and 12 of each flash kernel a step; dx and
+     dW on their tensor-core route, none on the CUDA cores); the same steps
+     with ``fused_ce: False`` (materialized logits) must give the same
+     losses, and one step of the tied head the same hidden-state and
      ``wte.weight`` gradients; a small fp32 model under ``fused_ce: True``
-     trains 3 steps on the card (kernels) and on the CPU (materialized),
-     losses agreeing.
+     trains 3 steps on the card (kernels; dx and dW on the CUDA cores) and
+     on the CPU (materialized), losses agreeing.
   L. the ``smp.nn`` path: ``smp.nn.DistributedTransformerLMHead`` at GPT-2
      124M's published widths (the kwargs ``nn/huggingface/gpt2.config_to_smp``
      gives, ``fused_bias_gelu=True``, dropouts 0) with random weights from a
@@ -78,13 +79,14 @@ csrc`` (one nvcc per source, all started together), then:
      main paths' shapes and over a feature sweep, within stated tolerances;
      the ids-mode kernels on phase R's ring pairs (each rank's diagonal and
      off-diagonal step, key padding, dropout with a head remap) and a sweep.
-     ``matmul_bias``, ``matmul_fp8`` and the flash backward (plain and ids
-     mode) print the route each case took (tensor cores or CUDA cores),
-     which must be their ``_route``'s: the flash backward takes the tensor
-     cores for fp16 and bf16 at hd 64, where it is also held against its
-     CUDA-core kernel forced on the same inputs and a repeat launch must give
-     equal bits; ``matmul_bias`` runs its sweep in fp32, bf16 and fp16, the
-     flash backward FP16_BWD_CASES in fp16.
+     ``matmul_bias``, ``matmul_fp8``, the flash backward (plain and ids
+     mode) and the fused-CE backward print the route each case took (tensor
+     cores or CUDA cores), which must be their ``_route``'s: the flash
+     backward takes the tensor cores for fp16 and bf16 at hd 64, the CE
+     backward for bf16, where each is also held against its CUDA-core kernel
+     forced on the same inputs and a repeat launch must give equal bits;
+     ``matmul_bias`` runs its sweep in fp32, bf16 and fp16, the flash
+     backward FP16_BWD_CASES in fp16.
   C. times: kernel, plain version and the one PyTorch library call that
      computes the same function, with CUDA events; and the bound (the least
      time the card could take for the same work; the ids-mode kernels against
@@ -96,7 +98,8 @@ csrc`` (one nvcc per source, all started together), then:
      backward also its plain version and SDPA's backward, captured on the
      stream its forward ran on. The fused-CE kernels are
      also held against their plain versions on the timed inputs, the
-     capacity path's N = 32768 included.
+     capacity path's N = 32768 included, and the CE backward's wrappers are
+     timed on their route and forced onto the CUDA cores in the same call.
   N. (on request, on a machine with two cards) phase R with the ranks on
      cuda:0 and cuda:1, which then talk over NCCL.
   P. (on request) torch.profiler breakdowns of a generate, a training step,
@@ -251,11 +254,11 @@ def _kernel_name(mangled):
     if name.startswith("_GLOBAL__N"):  # an anonymous namespace: the kernel's name follows
         m = re.match(r"\d+", mangled[at:])
         name, at = mangled[at + m.end():at + m.end() + int(m.group())], at + m.end() + int(m.group())
-    targs = re.match(r"I((?:13__nv_bfloat16|6__half|f|Li\d+E)+)E", mangled[at:])
+    targs = re.match(r"I((?:13__nv_bfloat16|6__half|f|Li\d+E|Lb[01]E)+)E", mangled[at:])
     if not targs:
         return name
-    names = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
-    args = [names.get(a, a[2:-1]) for a in re.findall(r"13__nv_bfloat16|6__half|Li\d+E|f", targs.group(1))]
+    names = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32", "Lb0E": "false", "Lb1E": "true"}
+    args = [names.get(a, a[2:-1]) for a in re.findall(r"13__nv_bfloat16|6__half|Li\d+E|Lb[01]E|f", targs.group(1))]
     return f"{name}<{', '.join(args)}>"
 
 
@@ -468,6 +471,14 @@ def _ce_counters():
     return {"fused_ce_fwd": fused_ce_fwd, "fused_ce_bwd_dx": fused_ce_bwd_dx, "fused_ce_bwd_dw": fused_ce_bwd_dw}
 
 
+def _ce_simt_counters():
+    """The CUDA-core routes of the fused-CE backward (dx, dW): the capacity
+    path's bf16 shapes take the tensor cores and launch none of them."""
+    from smdistributed_modelparallel_tpu_torch.ops.fused_ce import fused_ce_bwd_dw, fused_ce_bwd_dx
+
+    return {"fused_ce_bwd_dx_simt": _SimtCounter(fused_ce_bwd_dx), "fused_ce_bwd_dw_simt": _SimtCounter(fused_ce_bwd_dw)}
+
+
 def _flash_counters():
     from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -486,7 +497,7 @@ def _capacity_run(init, ids, **cfg):
     for _ in range(CAP_WARMUP):
         losses.append(float(train_step(model, ids).reduce_mean()))
         optimizer.step()
-    counters = {**_flash_counters(), **_ce_counters(), **_bwd_simt_counters()}
+    counters = {**_flash_counters(), **_ce_counters(), **_ce_simt_counters(), **_bwd_simt_counters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -539,9 +550,9 @@ def phase_f():
             f"peak device memory {run['peak_gib']:.2f} GiB; losses {run['losses']}")
     launches = fused["launches"]
     log(f"[F] launches on the capacity path: {launches} over {CAP_STEPS} steps (expected per step: "
-        f"{n_layers} of each flash kernel, 1 of each CE kernel)")
+        f"{n_layers} of each flash kernel, 1 of each CE kernel, the CE and flash backward on tensor cores)")
     want = {**{k: n_layers * CAP_STEPS for k in _flash_counters()}, **{k: CAP_STEPS for k in _ce_counters()},
-            **{k: 0 for k in _bwd_simt_counters()}}  # the flash backward on tensor cores only
+            **{k: 0 for k in {**_ce_simt_counters(), **_bwd_simt_counters()}}}  # the backward on tensor cores only
     if launches != want:
         raise RuntimeError(f"capacity path launches {launches}, expected {want}")
     if any(materialized["launches"][k] for k in _ce_counters()):
@@ -568,7 +579,7 @@ def phase_f():
                                torch.Generator().manual_seed(SEED))
     ids_s = torch.randint(0, small.vocab_size, (4, 128), generator=torch.Generator().manual_seed(SEED))
     runs = {}
-    ce = _ce_counters()
+    ce = {**_ce_counters(), **_ce_simt_counters()}
     for device in ("cuda", "cpu"):
         before = {k: fn.launches for k, fn in ce.items()}
         m, opt, step_fn = _train_setup(copy.deepcopy(small), 4, False, device, fused_ce=True)
@@ -581,8 +592,11 @@ def phase_f():
     log(f"[F] fp32 small model (d 128, 2 layers, seq 128), fused_ce: True, 3 steps, card (CE kernels, launches "
         f"{runs['cuda'][1]}) vs CPU (materialized): losses {runs['cuda'][0]} vs {runs['cpu'][0]}, max rel diff "
         f"{loss_rel:.3e} (limit 1e-4)")
-    # fp32 throughout; only the summation order differs.
-    if loss_rel > 1e-4 or any(n != 12 for n in runs["cuda"][1].values()):
+    # fp32 throughout; only the summation order differs. fp32 dx and dW run
+    # on the CUDA cores: 12 launches each there, none on the tensor cores.
+    want_small = {"fused_ce_fwd": 12, "fused_ce_bwd_dx": 0, "fused_ce_bwd_dw": 0, "fused_ce_bwd_dx_simt": 12,
+                  "fused_ce_bwd_dw_simt": 12}
+    if loss_rel > 1e-4 or runs["cuda"][1] != want_small:
         raise RuntimeError("the card's fp32 fused-CE training disagrees with the CPU's")
     smp.reset()
     return launches, dict(fused=fused, materialized=materialized, head_err=head_err)
@@ -602,7 +616,7 @@ def _capacity_head_grads(init, ids):
         for layer in module.layers:
             h = layer(h)
     tgt = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], -100)], dim=1)
-    ce = _ce_counters()
+    ce = {**_ce_counters(), **_ce_simt_counters()}
     grads = {}
     for label, cfg in (("fused", {}), ("materialized", {"fused_ce": False})):
         smp.init({"microbatches": 1, "bf16": True, **cfg})
@@ -614,9 +628,9 @@ def _capacity_head_grads(init, ids):
         ran = {k: fn.launches - before[k] for k, fn in ce.items()}
         for k, fn in ce.items():
             fn.launches = before[k]  # comparison launches do not count
-        want = 1 if label == "fused" else 0
-        if any(n != want for n in ran.values()):
-            raise RuntimeError(f"{label} head launched CE kernels {ran}, expected {want} each")
+        want = {k: int(label == "fused" and not k.endswith("_simt")) for k in ce}  # dx, dW on tensor cores
+        if ran != want:
+            raise RuntimeError(f"{label} head launched CE kernels {ran}, expected {want}")
         del per, loss, hx
     errs = {}
     for i, name in ((1, "hidden"), (2, "wte.weight")):
@@ -1164,6 +1178,17 @@ CE_CASES = [
 # dW: fp32 1e-4; bf16 2e-2 of the largest value (they come back rounded to
 # bf16 after fp32 sums in another order).
 CE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The CE backward's tensor-core route against its CUDA-core route on the same
+# inputs: both round an fp32 sum once to bf16, so one bf16 ulp at the largest
+# value (2^-8 of it, 3.9e-3) plus the order of the sums and the hi/lo residual
+# of dlog (~2^-17): 8e-3 of max|grad|.
+CE_SIMT_TOL = 8e-3
+
+
+def ce_route(dtype, D):
+    """The backward route ``ops.fused_ce._route`` gives contiguous x and w:
+    the tensor cores for bf16 with D a multiple of 8 up to 2048."""
+    return "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 and 0 < D <= 2048 else "simt"
 
 
 def ce_inputs(N, V, D, dtype, gen, kw):
@@ -1184,46 +1209,55 @@ def ce_inputs(N, V, D, dtype, gen, kw):
 def _ce_compare(x, w, t, g, eps=0.0, denom=None):
     """Each fused-CE kernel against its plain version on one input (dx and
     dW from the plain forward's lse): {kernel name: (max abs error, ok,
-    detail)}. Tolerances as CE_TOL states."""
-    from smdistributed_modelparallel_tpu_torch.ops.fused_ce import (
-        fused_ce_bwd_dw,
-        fused_ce_bwd_dw_reference,
-        fused_ce_bwd_dx,
-        fused_ce_bwd_dx_reference,
-        fused_ce_fwd,
-        fused_ce_fwd_reference,
-    )
+    detail)}. Tolerances as CE_TOL states. dx and dW must take ``ce_route``'s
+    route; on the tensor cores each is also held against its CUDA-core
+    kernel forced on the same inputs (CE_SIMT_TOL) and a second launch must
+    give equal bits."""
+    from smdistributed_modelparallel_tpu_torch.ops import fused_ce as fc
 
-    got = fused_ce_fwd(x, w, t, eps)
+    got = fc.fused_ce_fwd(x, w, t, eps)
     torch.cuda.synchronize()
-    want = fused_ce_fwd_reference(x, w, t, eps)
+    want = fc.fused_ce_fwd_reference(x, w, t, eps)
     errs = {}
     for sname, a, b in zip(("lse", "tgt", "logit_sum"), got, want):
         if b is not None:
             errs[sname] = (float((a - b).abs().max()), 1e-4 * max(1.0, float(b.abs().max())))
+    finite = all(bool(torch.isfinite(a).all()) for a in got if a is not None)
+    keys = [k for k in ("lse", "tgt", "logit_sum") if k in errs]
+    out = {"fused_ce_fwd": (max(errs[k][0] for k in keys), finite and all(errs[k][0] <= errs[k][1] for k in keys),
+                            ", ".join(f"max|d{k}| {errs[k][0]:.2e} (tol {errs[k][1]:.1e})" for k in keys))}
     lse = want[0]
-    dx = fused_ce_bwd_dx(x, w, t, lse, g, eps, denom)
-    torch.cuda.synchronize()
-    dw = fused_ce_bwd_dw(x, w, t, lse, g, eps, denom)
-    torch.cuda.synchronize()
-    for gname, a, b in (("dx", dx, fused_ce_bwd_dx_reference(x, w, t, lse, g, eps, denom)),
-                        ("dw", dw, fused_ce_bwd_dw_reference(x, w, t, lse, g, eps, denom))):
-        errs[gname] = (float((a.float() - b.float()).abs().max()),
-                       CE_TOL[x.dtype] * max(float(b.float().abs().max()), 1e-6))
-    finite = all(bool(torch.isfinite(a).all()) for a in (*[s for s in got if s is not None], dx, dw))
-    out = {}
-    for kname, keys in (("fused_ce_fwd", [k for k in ("lse", "tgt", "logit_sum") if k in errs]),
-                        ("fused_ce_bwd_dx", ["dx"]), ("fused_ce_bwd_dw", ["dw"])):
-        ok = finite and all(errs[k][0] <= errs[k][1] for k in keys)
-        detail = ", ".join(f"max|d{k}| {errs[k][0]:.2e} (tol {errs[k][1]:.1e})" for k in keys)
-        out[kname] = (max(errs[k][0] for k in keys), ok, detail)
+    route = ce_route(x.dtype, x.shape[1])
+    for kname, fn, plain in (("fused_ce_bwd_dx", fc.fused_ce_bwd_dx, fc.fused_ce_bwd_dx_reference),
+                             ("fused_ce_bwd_dw", fc.fused_ce_bwd_dw, fc.fused_ce_bwd_dw_reference)):
+        before = (fn.launches, fn.simt_launches)
+        a = fn(x, w, t, lse, g, eps, denom)
+        torch.cuda.synchronize()
+        taken = _route_taken(fn, before)
+        b = plain(x, w, t, lse, g, eps, denom)
+        scale = max(float(b.float().abs().max()), 1e-6)
+        err = float((a.float() - b.float()).abs().max())
+        ok = bool(torch.isfinite(a).all()) and taken == route and err <= CE_TOL[x.dtype] * scale
+        detail = f"route {taken}; max|d{kname[-2:]}| {err:.2e} (tol {CE_TOL[x.dtype] * scale:.1e})"
+        if route == "wgmma":
+            again = fn(x, w, t, lse, g, eps, denom)
+            with mock.patch.object(fc, "_route", lambda *a_: "simt"):
+                simt = fn(x, w, t, lse, g, eps, denom)
+            torch.cuda.synchronize()
+            equal = torch.equal(a, again)
+            err_simt = float((a.float() - simt.float()).abs().max()) / max(float(simt.float().abs().max()), 1e-6)
+            ok = ok and equal and err_simt <= CE_SIMT_TOL
+            detail += (f", {err_simt:.2e} of max|grad| against the CUDA-core route (tol {CE_SIMT_TOL:.0e}), "
+                       f"repeat {'bit-equal' if equal else 'DIFFERS'}")
+        out[kname] = (err, ok, detail)
     return out
 
 
 def _phase_b_ce(failures):
     """The three fused-CE kernels against their plain versions over
-    CE_CASES, in fp32 and bf16."""
-    counters = _ce_counters()
+    CE_CASES, in fp32 (the backward on the CUDA cores) and bf16 (on the
+    tensor cores)."""
+    counters = {**_ce_counters(), **_ce_simt_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for name, N, V, D, kw in CE_CASES:
@@ -2131,23 +2165,21 @@ def _phase_c_ce():
     tolerances; the capacity shape's error goes into the kernels line), then
     kernel, plain version and the library yardstick, two PyTorch calls (the
     logits GEMM and ``F.cross_entropy``; for dx and dW together, their
-    autograd backward), since no single call computes this function."""
+    autograd backward), since no single call computes this function. The
+    backward's wrappers run on their route (the tensor cores) and forced
+    onto the CUDA cores in the same call."""
     import torch.nn.functional as F
 
-    from smdistributed_modelparallel_tpu_torch.ops.fused_ce import (
-        fused_ce_bwd_dw,
-        fused_ce_bwd_dw_reference,
-        fused_ce_bwd_dx,
-        fused_ce_bwd_dx_reference,
-        fused_ce_fwd,
-        fused_ce_fwd_reference,
-    )
+    from smdistributed_modelparallel_tpu_torch.ops import fused_ce as fc
 
-    counters = _ce_counters()
+    counters = {**_ce_counters(), **_ce_simt_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dtype = torch.bfloat16
     D, V = 768, 50257
+    for dw in (False, True):
+        log(f"[C] fused_ce_bwd_{'dw' if dw else 'dx'} tensor-core route at D={D}: clusters of {-(-D // 256)} CTAs, "
+            f"{fc.max_clusters(torch.device('cuda'), dw, D)} resident at once (cudaOccupancyMaxActiveClusters)")
     out, failures = {}, []
     for N in CE_TIMING_N:
         iters, warmup = (5, 1) if N <= 2048 else (2, 1)
@@ -2160,7 +2192,7 @@ def _phase_c_ce():
                 failures.append(f"{kname}/N={N}")
             if N == CAP_BATCH * CAP_SEQ:
                 out[kname] = dict(max_abs_err=err)
-        lse = fused_ce_fwd_reference(x, w, t)[0]
+        lse = fc.fused_ce_fwd_reference(x, w, t)[0]
         xr, wr = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
         lib_loss = F.cross_entropy(xr @ wr.t(), t, reduction="none")
         lib_fwd_ms = cuda_time_ms(lambda: F.cross_entropy(x @ w.t(), t, reduction="none"), iters, warmup)
@@ -2171,26 +2203,35 @@ def _phase_c_ce():
         in_bytes = (N + V) * D * esz + N * t.element_size()  # x, w, targets
         flop = 2 * N * V * D  # one [N x V x D] product
         rows = (
-            ("fused_ce_fwd", lambda: fused_ce_fwd(x, w, t), lambda: fused_ce_fwd_reference(x, w, t),
+            ("fused_ce_fwd", lambda: fc.fused_ce_fwd(x, w, t), lambda: fc.fused_ce_fwd_reference(x, w, t),
              in_bytes + 2 * N * 4, flop, lib_fwd_ms, "logits GEMM + F.cross_entropy"),      # lse, tgt out
-            ("fused_ce_bwd_dx", lambda: fused_ce_bwd_dx(x, w, t, lse, g),
-             lambda: fused_ce_bwd_dx_reference(x, w, t, lse, g),
+            ("fused_ce_bwd_dx", lambda: fc.fused_ce_bwd_dx(x, w, t, lse, g),
+             lambda: fc.fused_ce_bwd_dx_reference(x, w, t, lse, g),
              in_bytes + 2 * N * 4 + N * D * esz, 2 * flop, lib_bwd_ms,                       # lse, g in; dx out
              "their autograd backward, dx and dW together"),
-            ("fused_ce_bwd_dw", lambda: fused_ce_bwd_dw(x, w, t, lse, g),
-             lambda: fused_ce_bwd_dw_reference(x, w, t, lse, g),
+            ("fused_ce_bwd_dw", lambda: fc.fused_ce_bwd_dw(x, w, t, lse, g),
+             lambda: fc.fused_ce_bwd_dw_reference(x, w, t, lse, g),
              in_bytes + 2 * N * 4 + V * D * esz, 2 * flop, lib_bwd_ms, "the same call"),   # dW out
         )
         for name, kernel, plain, nbytes, flops, library_ms, what in rows:
             ms = cuda_time_ms(kernel, iters, warmup)
             plain_ms = cuda_time_ms(plain, iters, warmup)
             bound_ms, bound_by = _bound(nbytes, flops, dtype)
-            log(f"[C] {name} N={N} V={V} D={D} bf16: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
-                f"{plain_ms:.4f} ms, library ({what}) {library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-                f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.1f} GFLOP)")
+            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+            line = f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s)"
+            if name != "fused_ce_fwd":  # the backward: its route, and the CUDA-core kernel forced
+                with mock.patch.object(fc, "_route", lambda *a: "simt"):
+                    timing["simt_ms"] = cuda_time_ms(kernel, iters, warmup)
+                timing["path_route"] = fc._route(x, w)
+                # The tensor-core kernel issues 3 products of 2 N V D (z, dlog's hi and lo parts).
+                line = (f"wrapper ({timing['path_route']}) {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s of the "
+                        f"function's, {1.5 * flops / ms / 1e9:.2f} issued), CUDA-core kernel "
+                        f"{timing['simt_ms']:.4f} ms ({flops / timing['simt_ms'] / 1e9:.2f} TFLOP/s)")
+            log(f"[C] {name} N={N} V={V} D={D} bf16: {line}, plain {plain_ms:.4f} ms, library ({what}) "
+                f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
+                f"{flops / 1e9:.1f} GFLOP)")
             if N == CAP_BATCH * CAP_SEQ:  # the capacity path's shape goes into the kernels line
-                out[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                 library_ms=library_ms)
+                out[name].update(timing)
         del x, w, t, g, lse, xr, wr
         torch.cuda.empty_cache()
     for k, fn in counters.items():

@@ -24,8 +24,22 @@ conventions:
 
 ``block_n``/``block_v`` are the TPU kernel's tiling and are reference
 coordinates only: ``block_v`` sets the plain versions' vocab chunks (their
-memory is O(N * block_v)). The CUDA kernels' own tiles (64 x 64, D streamed
-32 columns at a time, so every D runs) are stated in ``csrc/fused_ce.cu``.
+memory is O(N * block_v)); the CUDA kernels' own tiles are stated in
+``csrc/fused_ce.cu``.
+
+The forward has one kernel, on the CUDA cores (64 x 64 tiles of z, D
+streamed 32 columns at a time, so every D runs). The backward has two for
+each of dx and dW, one contract, and ``_route`` picks by the operands alone:
+``"wgmma"`` (tensor cores fed by TMA: a cluster of ceil(D / 256) CTAs splits
+D, each holds its 256 columns of the fp32 sum of 128 owned rows in
+registers, and fp32 dlog enters the products as a bf16 hi/lo pair) for bf16
+x and w, contiguous, D a multiple of 8 up to 2048 on 16-byte aligned bases;
+``"simt"`` (the CUDA cores, 64 x 64 tiles, D streamed) for the rest. fp32
+has no tensor-core form in the contract (TF32 keeps 11 bits), and fp16
+would flush dlog (~p / N, often below 6e-5) into its subnormals. A route
+never gives way to the other when a build or a launch fails.
+``fused_ce_bwd_dx.launches`` / ``fused_ce_bwd_dw.launches`` count the
+tensor-core launches, ``.simt_launches`` the CUDA-core ones.
 """
 
 import ctypes
@@ -38,6 +52,8 @@ NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _KERNEL_TILE = 64  # rows and vocab columns of a tile of csrc/fused_ce.cu
 _MAX_CHUNKS = 16   # bounds the fp32 partial buffers: chunks x rows x D
+_TC_OWNED = 128    # owned rows of a tensor-core cluster
+_TC_MAX_D = 2048   # 256 columns a CTA, 8 CTAs a cluster (the portable limit)
 
 
 def _chunks(width, lo, hi):
@@ -134,7 +150,7 @@ def _check_cuda(name, x, w, targets, *rows):
     """The kernels' contract: x [N, D] and w [V, D] of one dtype (fp32, fp16
     or bf16) and [N] targets and per-row vectors, all on one CUDA device."""
     tensors = (x, w, targets) + rows
-    if not (x.is_cuda and all(a.device == x.device for a in tensors)):
+    if not (_is_cuda(x) and all(a.device == x.device for a in tensors)):
         raise ValueError(f"{name}: inputs must share one CUDA device, got {[str(a.device) for a in tensors]}")
     if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
         raise TypeError(f"{name} kernel takes x and w in one of {list(_DTYPE_CODE)}; got {x.dtype}, {w.dtype}")
@@ -151,14 +167,68 @@ def _check_cuda(name, x, w, targets, *rows):
 
 
 def _chunk_tiles(owned, walked, device):
-    """Tiles of the walked dimension per CTA: enough chunks of it that the
-    grid holds about four CTAs per SM, at most ``_MAX_CHUNKS``."""
+    """Tiles of the walked dimension per CTA of the CUDA-core kernels: enough
+    chunks of it that the grid holds about four CTAs per SM, at most
+    ``_MAX_CHUNKS``."""
     owned_tiles = -(-owned // _KERNEL_TILE)
     walked_tiles = -(-walked // _KERNEL_TILE)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     chunks = min(walked_tiles, _MAX_CHUNKS, max(1, -(-4 * sms // owned_tiles)))
     per = -(-walked_tiles // chunks)
     return per, -(-walked_tiles // per)
+
+
+def _cluster_chunks(owned, walked, max_clusters):
+    """(tiles per chunk, chunks) of the walked dimension for the tensor-core
+    backward, whose grid is one cluster per (128 owned rows, chunk) and of
+    which ``max_clusters`` fit the card at once: the fewest chunks (at most
+    ``_MAX_CHUNKS``) whose clusters fill at least 85% of the card's last
+    wave, else the chunk count that fills it best. One chunk needs no fp32
+    partial buffer."""
+    blocks = -(-owned // _TC_OWNED)
+    walked_tiles = -(-walked // _KERNEL_TILE)
+    mc = max(1, max_clusters)
+
+    def fill(c):
+        return blocks * c / (-(-blocks * c // mc) * mc)
+
+    candidates = range(1, min(_MAX_CHUNKS, walked_tiles) + 1)
+    chunks = next((c for c in candidates if fill(c) >= 0.85), None)
+    if chunks is None:
+        chunks = max(candidates, key=lambda c: (fill(c), -c))
+    per = -(-walked_tiles // chunks)
+    return per, -(-walked_tiles // per)
+
+
+_MAX_CLUSTERS = {}  # (device index, dw, D) -> cudaOccupancyMaxActiveClusters
+
+
+def max_clusters(device, dw, D):
+    """How many clusters of the tensor-core dx (or, with ``dw``, dW) kernel
+    at this D the card holds at once."""
+    key = (torch.device(device).index, bool(dw), int(D))
+    if key not in _MAX_CLUSTERS:
+        lib = _kernel()
+        with torch.cuda.device(device):
+            n = lib.smp_fused_ce_bwd_wgmma_clusters(int(bool(dw)), int(D))
+        if n <= 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: {lib.smp_cuda_error_string(-n).decode()}")
+        _MAX_CLUSTERS[key] = n
+    return _MAX_CLUSTERS[key]
+
+
+def _route(x, w):
+    """The backward kernel that takes x [N, D] and w [V, D]: ``"wgmma"``
+    (tensor cores fed by TMA) for bf16, contiguous, D a multiple of 8 (rows
+    of 16 bytes, TMA's rule) up to 2048 (a cluster of at most 8 CTAs of 256
+    columns) on 16-byte aligned bases; else ``"simt"`` (the CUDA cores): fp32
+    and fp16 (see the module docstring), ragged or misaligned operands."""
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        return "simt"
+    D = x.shape[-1]
+    if not (0 < D <= _TC_MAX_D and D % 8 == 0 and x.is_contiguous() and w.is_contiguous()):
+        return "simt"
+    return "wgmma" if x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 else "simt"
 
 
 def _args(x, w, targets):
@@ -169,7 +239,7 @@ def fused_ce_fwd(x, w, targets, smoothing=0.0, block_v=1024):
     """Forward statistics ``(lse, tgt, logit_sum or None)``, fp32 [N]: the
     plain version for CPU tensors, ``csrc/fused_ce.cu``'s forward kernel
     (``_fwd_kernel``'s counterpart) for CUDA tensors, else it raises."""
-    if x.device.type == "cpu":
+    if not _is_cuda(x):
         return fused_ce_fwd_reference(x, w, targets, smoothing, block_v)
     _check_cuda("fused_ce_fwd", x, w, targets)
     x, w, t = _args(x, w, targets)
@@ -191,58 +261,86 @@ def fused_ce_fwd(x, w, targets, smoothing=0.0, block_v=1024):
     return lse, tgt, lsum
 
 
-def _bwd_launch(name, dw, x, w, targets, lse, g, smoothing, smooth_denom):
+def _bwd_launch(fn, dw, x, w, targets, lse, g, smoothing, smooth_denom):
+    """dx (or, with ``dw``, dW) from ``_route``'s kernel, counted on ``fn``:
+    ``.launches`` for the tensor cores, ``.simt_launches`` for the CUDA
+    cores."""
+    name = fn.__name__
     _check_cuda(name, x, w, targets, lse, g)
+    route = _route(x, w)
     x, w, t = _args(x, w, targets)
     lse = lse.to(torch.float32).contiguous()
     g = g.to(torch.float32).contiguous()
+    out = torch.empty((w.shape[0] if dw else x.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
+    eps = float(smoothing)
+    _launch(route, dw, x, w, t, lse, g, eps, eps / (smooth_denom or w.shape[0]) if eps else 0.0, out)
+    if route == "wgmma":
+        fn.launches += 1
+    else:
+        fn.simt_launches += 1
+    return out
+
+
+def _launch(route, dw, x, w, t, lse, g, eps, eps_d, out):
+    """Launch ``route``'s dx (dW with ``dw``) kernel of ``csrc/fused_ce.cu``
+    into ``out`` on x's device and current stream, with the fp32 partial
+    buffer its walk chunks need; raise if the launch was refused."""
     (N, D), V = x.shape, w.shape[0]
     owned, walked = (V, N) if dw else (N, V)
-    per, chunks = _chunk_tiles(owned, walked, x.device)
-    part = torch.empty((chunks, owned, D), dtype=torch.float32, device=x.device)
-    out = torch.empty((owned, D), dtype=x.dtype, device=x.device)
-    eps = float(smoothing)
     lib = _kernel()
+    if route == "wgmma":
+        per, chunks = _cluster_chunks(owned, walked, max_clusters(x.device, dw, D))
+        entry = lib.smp_fused_ce_bwd_wgmma
+    else:
+        per, chunks = _chunk_tiles(owned, walked, x.device)
+        entry = lib.smp_fused_ce_bwd
+    part = None
+    if chunks > 1 or route == "simt":
+        part = torch.empty((chunks, owned, D), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.smp_fused_ce_bwd(
+        err = entry(
             _DTYPE_CODE[x.dtype], int(dw), x.data_ptr(), w.data_ptr(), t.data_ptr(),
-            lse.data_ptr(), g.data_ptr(), N, V, D, int(bool(eps)), 1.0 - eps,
-            eps / (smooth_denom or V) if eps else 0.0, per, part.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), N, V, D, int(bool(eps)), 1.0 - eps, eps_d, per,
+            None if part is None else part.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: {lib.smp_cuda_error_string(err).decode()}")
-    return out
+        name = "fused_ce_bwd_dw" if dw else "fused_ce_bwd_dx"
+        raise RuntimeError(f"{name} ({route}) launch failed: {lib.smp_cuda_error_string(err).decode()}")
 
 
 def fused_ce_bwd_dx(x, w, targets, lse, g, smoothing=0.0, smooth_denom=None,
                     block_v=1024):
-    """dx [N, D] in x's dtype: the plain version for CPU tensors, the dx
-    kernel of ``csrc/fused_ce.cu`` (``_bwd_dx_kernel``'s counterpart) for
-    CUDA tensors, else it raises. ``lse`` is the forward's, ``g`` the fp32
-    loss cotangent (0 on ignored rows)."""
-    if x.device.type == "cpu":
+    """dx [N, D] in x's dtype: the plain version for CPU tensors, one of the
+    dx kernels of ``csrc/fused_ce.cu`` (``_bwd_dx_kernel``'s counterparts;
+    ``_route`` picks) for CUDA tensors, else it raises. ``lse`` is the
+    forward's, ``g`` the fp32 loss cotangent (0 on ignored rows)."""
+    if not _is_cuda(x):
         return fused_ce_bwd_dx_reference(x, w, targets, lse, g, smoothing, smooth_denom, block_v)
-    dx = _bwd_launch("fused_ce_bwd_dx", False, x, w, targets, lse, g, smoothing, smooth_denom)
-    fused_ce_bwd_dx.launches += 1
-    return dx
+    return _bwd_launch(fused_ce_bwd_dx, False, x, w, targets, lse, g, smoothing, smooth_denom)
 
 
 def fused_ce_bwd_dw(x, w, targets, lse, g, smoothing=0.0, smooth_denom=None,
                     block_v=1024):
-    """dW [V, D] in w's dtype: the plain version for CPU tensors, the dW
-    kernel of ``csrc/fused_ce.cu`` (``_bwd_dw_kernel``'s counterpart) for
-    CUDA tensors, else it raises."""
-    if x.device.type == "cpu":
+    """dW [V, D] in w's dtype: the plain version for CPU tensors, one of the
+    dW kernels of ``csrc/fused_ce.cu`` (``_bwd_dw_kernel``'s counterparts;
+    ``_route`` picks) for CUDA tensors, else it raises."""
+    if not _is_cuda(x):
         return fused_ce_bwd_dw_reference(x, w, targets, lse, g, smoothing, smooth_denom, block_v)
-    dw = _bwd_launch("fused_ce_bwd_dw", True, x, w, targets, lse, g, smoothing, smooth_denom)
-    fused_ce_bwd_dw.launches += 1
-    return dw
+    return _bwd_launch(fused_ce_bwd_dw, True, x, w, targets, lse, g, smoothing, smooth_denom)
 
 
-fused_ce_fwd.launches = 0     # launches of csrc/fused_ce.cu's forward
-fused_ce_bwd_dx.launches = 0  # ... of its dx kernel
-fused_ce_bwd_dw.launches = 0  # ... of its dW kernel
+fused_ce_fwd.launches = 0          # launches of csrc/fused_ce.cu's forward
+fused_ce_bwd_dx.launches = 0       # ... of its tensor-core dx kernel
+fused_ce_bwd_dx.simt_launches = 0  # ... of its CUDA-core dx kernel
+fused_ce_bwd_dw.launches = 0       # ... of its tensor-core dW kernel
+fused_ce_bwd_dw.simt_launches = 0  # ... of its CUDA-core dW kernel
+
+
+def _is_cuda(x):
+    """Whether the kernels would run on a CUDA device (one seam, so the CPU
+    tests can take the card's branch)."""
+    return x.is_cuda
 
 
 class _FusedCEFn(torch.autograd.Function):
@@ -279,7 +377,8 @@ def fused_lm_head_ce(x, w, targets, block_n=256, block_v=1024, label_smoothing=0
     the plain versions nor the kernels tile rows by it.
 
     CPU tensors run the plain versions; CUDA tensors launch
-    ``csrc/fused_ce.cu`` (fp32, fp16 or bf16; any D), or raise. x and w of
+    ``csrc/fused_ce.cu`` (fp32, fp16 or bf16; any D; the backward on the
+    tensor cores where ``_route`` allows), or raise. x and w of
     different dtypes meet in the wider one (both kernels compute in fp32)."""
     if x.dtype != w.dtype:
         dtype = torch.promote_types(x.dtype, w.dtype)
@@ -329,10 +428,11 @@ def _kernel():
         c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
         lib.smp_fused_ce_fwd.argtypes = [c_int] + [c_ptr] * 3 + [c_int] * 5 + [c_ptr] * 5
         lib.smp_fused_ce_fwd.restype = c_int
-        lib.smp_fused_ce_bwd.argtypes = (
-            [c_int, c_int] + [c_ptr] * 5 + [c_int] * 4 + [c_float, c_float, c_int] + [c_ptr] * 3
-        )
-        lib.smp_fused_ce_bwd.restype = c_int
+        for entry in (lib.smp_fused_ce_bwd, lib.smp_fused_ce_bwd_wgmma):
+            entry.argtypes = [c_int, c_int] + [c_ptr] * 5 + [c_int] * 4 + [c_float, c_float, c_int] + [c_ptr] * 3
+            entry.restype = c_int
+        lib.smp_fused_ce_bwd_wgmma_clusters.argtypes = [c_int, c_int]
+        lib.smp_fused_ce_bwd_wgmma_clusters.restype = c_int
         lib.smp_cuda_error_string.argtypes = [c_int]
         lib.smp_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

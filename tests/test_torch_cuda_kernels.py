@@ -15,7 +15,11 @@ The backward kernels: fp32 1e-4 and bf16 2e-2 of the largest gradient
 The fused cross-entropy kernels: the forward statistics (fp32 in both
 dtypes) 1e-4 of the largest value; dx and dW 1e-4 (fp32) and 2e-2 (bf16,
 where they come back rounded) of the largest value; the cases, their inputs
-and these tolerances are ``chip_smoke.py``'s phase B sweep. So are those of
+and these tolerances are ``chip_smoke.py``'s phase B sweep. Its backward has
+a tensor-core kernel (bf16) and a CUDA-core kernel for each of dx and dW:
+in bf16 every case runs on the tensor cores, agrees with the CUDA-core
+kernels forced on the same inputs (``CE_SIMT_TOL``) and repeats bit for bit
+(``_ce_compare``). So are those of
 ``matmul_bias`` and the two ``bias_gelu`` kernels (``MB_CASES``,
 ``GELU_CASES``, ``mb_compare``, ``gelu_compare``; tolerances stated there)
 and of ``matmul_fp8`` (``FP8_CASES``, ``fp8_inputs``, ``fp8_compare``: each
@@ -46,6 +50,7 @@ from chip_smoke import (
     CASES as SMOKE_CASES,
     CE_CASES,
     CE_TOL,
+    _ce_compare,
     FP8_CASES,
     GELU_CASES,
     IDS_CASES,
@@ -73,6 +78,7 @@ from smdistributed_modelparallel_tpu_torch.nn import vocab_parallel_cross_entrop
 from smdistributed_modelparallel_tpu_torch.ops.attention import attention_core
 from smdistributed_modelparallel_tpu_torch.ops.bias_gelu import bias_gelu, bias_gelu_bwd, bias_gelu_fwd
 from smdistributed_modelparallel_tpu_torch.ops import bias_gelu as bg_mod
+from smdistributed_modelparallel_tpu_torch.ops import fused_ce as ce_mod
 from smdistributed_modelparallel_tpu_torch.ops import flash_attention as fa_mod
 from smdistributed_modelparallel_tpu_torch.ops import matmul_bias as mb_mod
 from smdistributed_modelparallel_tpu_torch.ops import matmul_fp8 as mf_mod
@@ -368,7 +374,14 @@ def _ce_case(device, N, V, D, dtype, kw, seed=0):
 def test_fused_ce_kernels_match_plain_versions(cuda, case, dtype):
     N, V, D, kw = CE_SWEEP[case]
     x, w, t, g, eps, denom = _ce_case(cuda, N, V, D, dtype, kw)
-    before = (fused_ce_fwd.launches, fused_ce_bwd_dx.launches, fused_ce_bwd_dw.launches)
+    # The backward's launches count on its route's counter: bf16 the tensor
+    # cores (.launches), fp32 the CUDA cores (.simt_launches).
+    counter = "launches" if dtype == torch.bfloat16 else "simt_launches"
+
+    def count():
+        return (fused_ce_fwd.launches, getattr(fused_ce_bwd_dx, counter), getattr(fused_ce_bwd_dw, counter))
+
+    before = count()
     stats = fused_ce_fwd(x, w, t, eps)
     torch.cuda.synchronize()
     want = fused_ce_fwd_reference(x, w, t, eps)
@@ -383,8 +396,7 @@ def test_fused_ce_kernels_match_plain_versions(cuda, case, dtype):
     torch.cuda.synchronize()
     dw = fused_ce_bwd_dw(x, w, t, lse, g, eps, denom)
     torch.cuda.synchronize()
-    assert (fused_ce_fwd.launches, fused_ce_bwd_dx.launches, fused_ce_bwd_dw.launches) == tuple(
-        n + 1 for n in before)
+    assert count() == tuple(n + 1 for n in before)
     for name, got, ref in (("dx", dx, fused_ce_bwd_dx_reference(x, w, t, lse, g, eps, denom)),
                            ("dw", dw, fused_ce_bwd_dw_reference(x, w, t, lse, g, eps, denom))):
         assert got.dtype == ref.dtype == dtype and got.shape == ref.shape
@@ -417,7 +429,11 @@ def test_fused_ce_grads_through_kernels_match_cpu(cuda, label_smoothing):
     x, w, t, _, _, _ = _ce_case("cpu", N, V, D, torch.float32, {})
     t[::9] = -100
     runs = {}
-    before = (fused_ce_fwd.launches, fused_ce_bwd_dx.launches, fused_ce_bwd_dw.launches)
+
+    def count():  # fp32: the backward takes the CUDA-core route
+        return (fused_ce_fwd.launches, fused_ce_bwd_dx.simt_launches, fused_ce_bwd_dw.simt_launches)
+
+    before = count()
     for device in (cuda, "cpu"):
         h = x.reshape(3, 100, D).clone().to(device).requires_grad_()
         table = w.clone().to(device).requires_grad_()
@@ -425,11 +441,41 @@ def test_fused_ce_grads_through_kernels_match_cpu(cuda, label_smoothing):
                                                   label_smoothing=label_smoothing)
         (per.sum() / N).backward()
         runs[str(device)] = (per.detach().cpu(), h.grad.cpu(), table.grad.cpu())
-    assert (fused_ce_fwd.launches, fused_ce_bwd_dx.launches, fused_ce_bwd_dw.launches) == tuple(
-        n + 1 for n in before)
+    assert count() == tuple(n + 1 for n in before)
     for got, want in zip(runs["cuda"], runs["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     assert (runs["cuda"][0].reshape(-1)[::9] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CE_SWEEP))
+def test_fused_ce_bwd_routes_agree_and_repeat_bit_equal(cuda, case):
+    """Every chip_smoke CE case in bf16: dx and dW on the tensor cores,
+    within CE_TOL of the plain version, within CE_SIMT_TOL of the CUDA-core
+    kernels forced on the same inputs, and a second launch gives equal bits."""
+    N, V, D, kw = CE_SWEEP[case]
+    x, w, t, g, eps, denom = _ce_case(cuda, N, V, D, torch.bfloat16, kw, seed=2)
+    for name, (_, ok, detail) in _ce_compare(x, w, t, g, eps, denom).items():
+        assert ok, (name, detail)
+        if name != "fused_ce_fwd":
+            assert detail.startswith("route wgmma"), (name, detail)
+
+
+@pytest.mark.cuda
+def test_fused_ce_bwd_tensor_core_route_refuses_what_it_cannot_run(cuda, monkeypatch):
+    """Forced onto the tensor cores, fp16 and fp32 operands (and a D that is
+    not a multiple of 8) are refused by the kernel's entry and the wrapper
+    raises: no route stands in for the other."""
+    monkeypatch.setattr(ce_mod, "_route", lambda *a: "wgmma")
+    for dtype, D in ((torch.float16, 64), (torch.float32, 64), (torch.bfloat16, 12)):
+        x = torch.zeros(64, D, device=cuda, dtype=dtype)
+        w = torch.zeros(100, D, device=cuda, dtype=dtype)
+        t = torch.zeros(64, dtype=torch.long, device=cuda)
+        lse = g = torch.zeros(64, device=cuda)
+        with pytest.raises(RuntimeError, match="wgmma"):
+            fused_ce_bwd_dx(x, w, t, lse, g)
+        with pytest.raises(RuntimeError, match="wgmma"):
+            fused_ce_bwd_dw(x, w, t, lse, g)
 
 
 @pytest.mark.cuda

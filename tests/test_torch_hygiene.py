@@ -33,7 +33,7 @@ def _imports(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted([*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]),
+@pytest.mark.parametrize("path", sorted([*PORT.rglob("*.py"), ROOT / "chip_smoke.py", ROOT / "ce_bwd_ablation.py"]),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
