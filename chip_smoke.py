@@ -79,31 +79,35 @@ csrc`` (one nvcc per source, all started together), then:
      main paths' shapes and over a feature sweep, within stated tolerances;
      the ids-mode kernels on phase R's ring pairs (each rank's diagonal and
      off-diagonal step, key padding, dropout with a head remap) and a sweep.
-     ``matmul_bias``, ``matmul_fp8``, the flash backward (plain and ids
-     mode) and the fused-CE backward print the route each case took (tensor
-     cores or CUDA cores), which must be their ``_route``'s: the flash
-     backward takes the tensor cores for fp16 and bf16 at hd 64, the CE
-     backward for bf16, where each is also held against its CUDA-core kernel
-     forced on the same inputs and a repeat launch must give equal bits;
-     ``matmul_bias`` runs its sweep in fp32, bf16 and fp16, the flash
-     backward FP16_BWD_CASES in fp16.
+     Every kernel with two routes (``matmul_bias``, ``matmul_fp8``, the
+     flash forward and backward in plain and ids mode, the fused-CE forward
+     and backward) prints the route each case took (tensor cores or CUDA
+     cores), which must be its ``_route``'s: the flash kernels take the
+     tensor cores for fp16 and bf16 at hd 64, the CE forward for fp16 and
+     bf16, the CE backward for bf16; there each is also held against its
+     CUDA-core kernel forced on the same inputs (a bound stated beside its
+     tolerance) and a repeat launch must give equal bits. ``matmul_bias``
+     runs its sweep in fp32, bf16 and fp16, the flash kernels FP16_CASES in
+     fp16, the CE forward every case in fp16.
   C. times: kernel, plain version and the one PyTorch library call that
-     computes the same function, with CUDA events; and the bound (the least
-     time the card could take for the same work; the ids-mode kernels against
-     SDPA with the mask built from the ids). ``matmul_bias``, ``matmul_fp8``
-     and the flash backward (tens of microseconds, less than the host needs
-     to launch one from Python) are timed by CUDA-graph replay: the wrapper
-     the path calls (``ms``), the matrix products' bare kernel launch
-     (``kernel_ms``) and the CUDA-core kernel (``simt_ms``); with the flash
-     backward also its plain version and SDPA's backward, captured on the
-     stream its forward ran on. The fused-CE kernels are
-     also held against their plain versions on the timed inputs, the
-     capacity path's N = 32768 included, and the CE backward's wrappers are
-     timed on their route and forced onto the CUDA cores in the same call.
+     computes the same function; and the bound (the least time the card
+     could take for the same work; the ids-mode kernels against SDPA with
+     the mask built from the ids). Kernels of tens of microseconds, less
+     than the host needs to launch one from Python (``matmul_bias``,
+     ``matmul_fp8``, ``bias_gelu``, the flash forward and backward), are
+     timed by CUDA-graph replay, their plain versions and library calls too:
+     the wrapper the path calls (``ms``), the matrix products' bare kernel
+     launch (``kernel_ms``) and the CUDA-core kernel (``simt_ms``); a
+     library backward is captured on the stream its forward ran on. The
+     fused-CE kernels (milliseconds) by CUDA events, each also held against
+     its plain version on the timed inputs, the capacity path's N = 32768
+     included. Every kernel with two routes is timed on its route and forced
+     onto the CUDA cores in the same call, with its TFLOP/s.
   N. (on request, on a machine with two cards) phase R with the ranks on
      cuda:0 and cuda:1, which then talk over NCCL.
   P. (on request) torch.profiler breakdowns of a generate, a training step,
-     a capacity step and the smp.nn path's fused, unfused and fp8 steps:
+     a capacity step (fused and materialized) and the smp.nn path's fused,
+     unfused and fp8 steps:
      device time by kernel and the device's idle share.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
@@ -187,26 +191,34 @@ def cuda_graph_time_ms(fn, iters=20, replays=5, stream=None):
     return start.elapsed_time(end) / (iters * replays)
 
 
-def sdpa_bwd_ms(q, k, v, do, **sdpa_kw):
-    """Device ms of the backward of one ``scaled_dot_product_attention``
-    (dq, dk and dv together) on [B, L, H, hd] q, k, v and dO, by graph
-    replay: its forward runs on a side stream, where autograd then runs the
+def library_bwd_ms(forward, inputs, grad):
+    """Device ms of the autograd backward of ``forward(*inputs)`` (the
+    gradients of every input) for the output gradient ``grad``, by graph
+    replay: the forward runs on a side stream, where autograd then runs the
     backward, so the capture holds only the backward's kernels."""
-    import torch.nn.functional as F
-
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
-        dot = do.transpose(1, 2)
-    return cuda_graph_time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), stream=side)
+        xs = [x.detach().requires_grad_() for x in inputs]
+        out = forward(*xs)
+    return cuda_graph_time_ms(lambda: torch.autograd.grad(out, xs, grad, retain_graph=True), stream=side)
 
 
-def bwd_times(kernel, plain, args, kw):
-    """Device ms by graph replay of a backward wrapper on its route (``ms``),
-    forced onto the CUDA-core route (``simt_ms``), and its plain version
-    (``plain_ms``; fewer calls a graph: it materializes [B, H, T, S])."""
+def sdpa_bwd_ms(q, k, v, do, **sdpa_kw):
+    """Device ms of the backward of one ``scaled_dot_product_attention``
+    (dq, dk and dv together) on [B, L, H, hd] q, k, v and dO, by graph
+    replay (``library_bwd_ms``)."""
+    import torch.nn.functional as F
+
+    return library_bwd_ms(lambda *x: F.scaled_dot_product_attention(*x, **sdpa_kw),
+                          [x.transpose(1, 2) for x in (q, k, v)], do.transpose(1, 2))
+
+
+def flash_times(kernel, plain, args, kw):
+    """Device ms by graph replay of a flash wrapper (forward or backward) on
+    its route (``ms``), forced onto the CUDA-core route (``simt_ms``), and
+    its plain version (``plain_ms``; fewer calls a graph: it materializes
+    [B, H, T, S])."""
     from smdistributed_modelparallel_tpu_torch.ops import flash_attention as fa
 
     ms = cuda_graph_time_ms(lambda: kernel(*args, **kw))
@@ -287,12 +299,12 @@ def phase_a():
     # Warm-up (cuBLAS handles, allocator), not counted.
     smp.generate(model, prompts, 2)
 
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention.simt_launches = 0
     _, prefill_ms = timed(lambda: smp.generate(model, prompts, 1))
     greedy, greedy_ms = timed(lambda: smp.generate(model, prompts, NEW))
     sampled, sampled_ms = timed(lambda: smp.generate(
         model, prompts, NEW, rng=torch.Generator(device="cuda").manual_seed(SEED), **sample_kw))
-    launches = {"flash_fwd": flash_attention.launches}
+    launches = {"flash_fwd": flash_attention.launches, "flash_fwd_simt": flash_attention.simt_launches}
     n_prefills = 3
 
     decode_ms_per_token = (greedy_ms - prefill_ms) / (NEW - 1)
@@ -304,7 +316,9 @@ def phase_a():
     log(f"[A] launches on the main path: {launches} over {n_prefills} prefills of {n_layers} layers")
 
     if launches["flash_fwd"] < n_layers * n_prefills:
-        raise RuntimeError(f"flash_fwd launched {launches['flash_fwd']} times, expected >= {n_layers * n_prefills}")
+        raise RuntimeError(f"flash_fwd launched {launches['flash_fwd']} times on the tensor cores, expected >= "
+                           f"{n_layers * n_prefills}")
+    _check_route("serving path", launches)
     for name, out in (("greedy", greedy), ("sampled", sampled)):
         if out.shape != (B, T + NEW):
             raise RuntimeError(f"{name} output shape {tuple(out.shape)}")
@@ -401,7 +415,7 @@ def phase_t():
         optimizer.step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = {**_flash_counters(), **_bwd_simt_counters()}
+    counters = {**_flash_counters(), **_flash_simt_counters()}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -420,11 +434,11 @@ def phase_t():
     log(f"[T] loss: first {losses[0]:.4f}, last {losses[-1]:.4f} over {len(losses)} steps")
     log(f"[T] launches on the main path: {launches} over {TRAIN_STEPS} steps "
         f"(expected {per_step} each per step: {n_layers} layers x {TRAIN_MB} microbatches)")
-    for name in _flash_counters():  # .launches: the backward's counts are its tensor-core route's
+    for name in _flash_counters():  # .launches: the tensor-core route's counts
         if launches[name] != per_step * TRAIN_STEPS:
             raise RuntimeError(f"{name} launched {launches[name]} times in {TRAIN_STEPS} steps, "
                                f"expected {per_step * TRAIN_STEPS}")
-    _check_bwd_route("training path", launches)
+    _check_route("training path", launches)
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise RuntimeError(f"training loss did not fall or is not finite: {losses}")
 
@@ -472,11 +486,10 @@ def _ce_counters():
 
 
 def _ce_simt_counters():
-    """The CUDA-core routes of the fused-CE backward (dx, dW): the capacity
-    path's bf16 shapes take the tensor cores and launch none of them."""
-    from smdistributed_modelparallel_tpu_torch.ops.fused_ce import fused_ce_bwd_dw, fused_ce_bwd_dx
-
-    return {"fused_ce_bwd_dx_simt": _SimtCounter(fused_ce_bwd_dx), "fused_ce_bwd_dw_simt": _SimtCounter(fused_ce_bwd_dw)}
+    """The CUDA-core routes of the fused-CE kernels (forward, dx, dW): the
+    capacity path's bf16 shapes take the tensor cores and launch none of
+    them."""
+    return {k + "_simt": _SimtCounter(fn) for k, fn in _ce_counters().items()}
 
 
 def _flash_counters():
@@ -497,7 +510,7 @@ def _capacity_run(init, ids, **cfg):
     for _ in range(CAP_WARMUP):
         losses.append(float(train_step(model, ids).reduce_mean()))
         optimizer.step()
-    counters = {**_flash_counters(), **_ce_counters(), **_ce_simt_counters(), **_bwd_simt_counters()}
+    counters = {**_flash_counters(), **_ce_counters(), **_ce_simt_counters(), **_flash_simt_counters()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -550,9 +563,9 @@ def phase_f():
             f"peak device memory {run['peak_gib']:.2f} GiB; losses {run['losses']}")
     launches = fused["launches"]
     log(f"[F] launches on the capacity path: {launches} over {CAP_STEPS} steps (expected per step: "
-        f"{n_layers} of each flash kernel, 1 of each CE kernel, the CE and flash backward on tensor cores)")
+        f"{n_layers} of each flash kernel, 1 of each CE kernel, all on the tensor cores)")
     want = {**{k: n_layers * CAP_STEPS for k in _flash_counters()}, **{k: CAP_STEPS for k in _ce_counters()},
-            **{k: 0 for k in {**_ce_simt_counters(), **_bwd_simt_counters()}}}  # the backward on tensor cores only
+            **{k: 0 for k in {**_ce_simt_counters(), **_flash_simt_counters()}}}  # all on the tensor cores
     if launches != want:
         raise RuntimeError(f"capacity path launches {launches}, expected {want}")
     if any(materialized["launches"][k] for k in _ce_counters()):
@@ -592,10 +605,10 @@ def phase_f():
     log(f"[F] fp32 small model (d 128, 2 layers, seq 128), fused_ce: True, 3 steps, card (CE kernels, launches "
         f"{runs['cuda'][1]}) vs CPU (materialized): losses {runs['cuda'][0]} vs {runs['cpu'][0]}, max rel diff "
         f"{loss_rel:.3e} (limit 1e-4)")
-    # fp32 throughout; only the summation order differs. fp32 dx and dW run
-    # on the CUDA cores: 12 launches each there, none on the tensor cores.
-    want_small = {"fused_ce_fwd": 12, "fused_ce_bwd_dx": 0, "fused_ce_bwd_dw": 0, "fused_ce_bwd_dx_simt": 12,
-                  "fused_ce_bwd_dw_simt": 12}
+    # fp32 throughout; only the summation order differs. fp32 runs all three
+    # CE kernels on the CUDA cores: 12 launches each there, none on the
+    # tensor cores.
+    want_small = {k: 12 if k.endswith("_simt") else 0 for k in ce}
     if loss_rel > 1e-4 or runs["cuda"][1] != want_small:
         raise RuntimeError("the card's fp32 fused-CE training disagrees with the CPU's")
     smp.reset()
@@ -706,10 +719,18 @@ class _SimtCounter:
 
 def _simt_counters():
     """The CUDA-core routes of ``matmul_bias``, ``matmul_fp8`` and the flash
-    backward kernels (plain and ids mode): the main paths' shapes must take
-    the tensor cores and launch none of them."""
-    wrappers = (*_new_counters().items(), *_fp8_counters().items(), *_bwd_counters().items())
+    kernels (forward and backward, plain and ids mode): the main paths'
+    shapes must take the tensor cores and launch none of them."""
+    wrappers = (*_new_counters().items(), *_fp8_counters().items(), *_flash_route_counters().items())
     return {k + "_simt": _SimtCounter(fn) for k, fn in wrappers if hasattr(fn, "simt_launches")}
+
+
+def _flash_route_counters():
+    """The flash wrappers, forward and backward, plain and ids mode (two
+    routes each)."""
+    from smdistributed_modelparallel_tpu_torch.ops.flash_attention import flash_attention, flash_fwd_with_ids
+
+    return {"flash_fwd": flash_attention, "flash_fwd_ids": flash_fwd_with_ids, **_bwd_counters()}
 
 
 def _bwd_counters():
@@ -725,18 +746,19 @@ def _bwd_counters():
             "flash_bwd_dkv_ids": flash_bwd_dkv_ids}
 
 
-def _bwd_simt_counters():
-    """The flash backward wrappers' CUDA-core routes: every main path's
-    flash backward runs on the tensor cores, so these stay at 0."""
-    return {k: c for k, c in _simt_counters().items() if k.startswith("flash_bwd")}
+def _flash_simt_counters():
+    """The flash wrappers' CUDA-core routes (forward and backward, plain and
+    ids mode): every main path's flash kernels run on the tensor cores, so
+    these stay at 0."""
+    return {k: c for k, c in _simt_counters().items() if k.startswith("flash_")}
 
 
-def _check_bwd_route(label, launches):
-    """Raise unless ``launches`` (counts by name) holds no CUDA-core flash
-    backward launch."""
-    simt = {k: n for k, n in launches.items() if k.startswith("flash_bwd") and k.endswith("_simt") and n}
+def _check_route(label, launches):
+    """Raise unless ``launches`` (counts by name) holds no CUDA-core launch
+    (no ``*_simt`` count above 0)."""
+    simt = {k: n for k, n in launches.items() if k.endswith("_simt") and n}
     if simt:
-        raise RuntimeError(f"{label}: flash backward launches on the CUDA-core route: {simt}")
+        raise RuntimeError(f"{label}: launches on the CUDA-core route: {simt}")
 
 
 def _route_taken(fn, before):
@@ -1031,23 +1053,79 @@ CASES = [
 # fp32: identical arithmetic, only the summation order and the online vs
 # one-pass softmax differ (~1e-6 relative). bf16: the kernel rounds P to
 # bf16 against its running row max, the plain version against the final
-# max, so O differs by a few bf16 ulps; LSE stays fp32.
-TOL = {torch.float32: dict(o=1e-4, lse=1e-4), torch.bfloat16: dict(o=2e-2, lse=1e-3)}
+# max, so O differs by a few bf16 ulps; LSE stays fp32. fp16 (FP16_CASES;
+# the forward takes the tensor cores in fp16 too): the same flips move O by
+# fp16 ulps, 2**-11 against bf16's 2**-8, so the bf16 limit over 8.
+TOL = {torch.float32: dict(o=1e-4, lse=1e-4), torch.bfloat16: dict(o=2e-2, lse=1e-3),
+       torch.float16: dict(o=2.5e-3, lse=1e-3)}
+# The forward's tensor-core route against its CUDA-core route on the same
+# inputs. Both walk the same 64-column tiles, so their running maxima agree,
+# and both round p to the operand dtype at the same point; only the fp32
+# scores' summation order differs (a 64-term dot product), which can flip the
+# rounding of a p by one ulp of p (2**-7 of it in bf16, 2**-10 in fp16). A
+# flip moves o by that ulp times |v| / l, all of them together by at most one
+# ulp of max|v| (sum p / l <= 1), times 1 / (1 - rate) under dropout; o's own
+# rounding to the dtype adds one more. So o within 2 ulps of max|v| / (1 -
+# rate): FWD_SIMT_ULP[dtype] * 2 * max|v| / (1 - rate). lse: the row max
+# moves with the scores' order (~64 * 2**-24 * sum |q_d k_d| * scale, ~2e-5
+# here) and l, a sum of up to S fp32 terms, by at most S * 2**-24 of itself
+# (2.4e-4 at S 4096): 1e-3.
+FWD_SIMT_ULP = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
+FWD_SIMT_LSE = 1e-3
 # Backward, as a share of the largest |grad| of the plain version. fp32: the
 # same arithmetic in another summation order (~1e-6). bf16: ds and p are
 # rounded to bf16 after fp32 products summed in another order, so a rounding
-# flip moves a grad by a bf16 ulp of its scale. fp16 (FP16_BWD_CASES, the
-# backward alone): the same flips move it by an fp16 ulp, 2**-11 against
-# bf16's 2**-8, so the bf16 limit over 8.
+# flip moves a grad by a bf16 ulp of its scale. fp16 (FP16_CASES): the same
+# flips move it by an fp16 ulp, 2**-11 against bf16's 2**-8, so the bf16
+# limit over 8.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2.5e-3}
 MAIN_CASES = ("main_path_causal", "train_path_causal")  # bf16 only
-FP16_BWD_CASES = ("train_path_causal", "hd128")
+# Also in fp16, forward and backward: the training shape, T != S, a window,
+# fully-masked rows, dropout and a head dim the tensor cores do not take.
+FP16_CASES = ("train_path_causal", "t_lt_s_causal", "causal_window", "kpad_fully_padded_rows", "dropout_head_remap",
+              "hd128")
 
 
-def bwd_route(dtype, hd):
-    """The backward route ``ops.flash_attention._route`` gives contiguous
-    q, k, v and dO: the tensor cores for fp16 and bf16 at hd 64."""
+def flash_route(dtype, hd):
+    """The route ``ops.flash_attention._route`` gives contiguous q, k, v
+    (and dO): the tensor cores for fp16 and bf16 at hd 64."""
     return "wgmma" if dtype in (torch.bfloat16, torch.float16) and hd == 64 else "simt"
+
+
+def fwd_check(run, want, wrapper, route, dtype, tol, v_max, rate=0.0):
+    """A forward wrapper (``run()`` gives (o, lse) through ``wrapper``,
+    ``flash_attention`` or ``flash_fwd_with_ids``) against the plain
+    version's ``want``: o in its dtype, o and lse within ``tol``, on
+    ``route``. On the
+    tensor-core route also against the CUDA-core route forced on the same
+    inputs (o within FWD_SIMT_ULP[dtype] * 2 * v_max / (1 - rate), lse within
+    FWD_SIMT_LSE) and a second launch for equal bits. Returns (max |error|
+    of o against the plain version, ok, detail)."""
+    from smdistributed_modelparallel_tpu_torch.ops import flash_attention as fa
+
+    before = (wrapper.launches, wrapper.simt_launches)
+    o, lse = run()
+    torch.cuda.synchronize()
+    taken = _route_taken(wrapper, before)
+    err_o = float((o.float() - want[0].float()).abs().max())
+    err_lse = float((lse - want[1]).abs().max())
+    ok = (taken == route and o.dtype == want[0].dtype and bool(torch.isfinite(o).all()) and err_o <= tol["o"]
+          and err_lse <= tol["lse"])
+    detail = (f"route {taken}; max|dO| {err_o:.2e} (tol {tol['o']:.1e}) max|dLSE| {err_lse:.2e} "
+              f"(tol {tol['lse']:.1e}) against the plain version")
+    if route == "wgmma":
+        again = run()
+        with mock.patch.object(fa, "_route", lambda *a: "simt"):
+            simt = run()
+        torch.cuda.synchronize()
+        equal = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        lim = FWD_SIMT_ULP[dtype] * 2 * v_max / (1.0 - rate)
+        e_o = float((o.float() - simt[0].float()).abs().max())
+        e_lse = float((lse - simt[1]).abs().max())
+        ok = ok and equal and e_o <= lim and e_lse <= FWD_SIMT_LSE
+        detail += (f"; {e_o:.2e} (tol {lim:.1e}), {e_lse:.2e} (tol {FWD_SIMT_LSE:.0e}) against the CUDA-core route, "
+                   f"repeat {'bit-equal' if equal else 'DIFFERS'}")
+    return err_o, ok, detail
 
 
 def bwd_check(run, want, wrappers, route, tol, per_output=False):
@@ -1091,11 +1169,11 @@ def bwd_check(run, want, wrappers, route, tol, per_output=False):
 
 
 def phase_b():
-    """Every kernel against its plain version: the forward on every case,
-    then the dq and dk/dv kernels on the same inputs, fed the plain
-    forward's O and LSE and a random output gradient (bwd_check: the route
-    each case takes, and on the tensor cores the CUDA-core route and a
-    repeat launch); the backward alone in fp16 on FP16_BWD_CASES."""
+    """Every kernel against its plain version: the forward on every case
+    (fwd_check), then the dq and dk/dv kernels on the same inputs, fed the
+    plain forward's O and LSE and a random output gradient (bwd_check): the
+    route each case takes, and on the tensor cores the CUDA-core route and a
+    repeat launch; both also in fp16 on FP16_CASES."""
     from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
         attention_delta,
         flash_attention,
@@ -1106,12 +1184,12 @@ def phase_b():
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    counters = {"flash_fwd": flash_attention, **_bwd_counters(), **_bwd_simt_counters()}
+    counters = {**_flash_route_counters(), **_flash_simt_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
     main_err, bwd_main_err, failures = None, {}, []
     for name, B, T, S, H, hd, kw in CASES:
         dtypes = [torch.bfloat16] if name in MAIN_CASES else [torch.float32, torch.bfloat16]
-        if name in FP16_BWD_CASES:
+        if name in FP16_CASES:
             dtypes.append(torch.float16)
         for dtype in dtypes:
             q, k, v = _inputs(B, T, S, H, hd, dtype, gen)
@@ -1124,19 +1202,14 @@ def phase_b():
                 del kw["kpad"]
             tag = str(dtype).removeprefix("torch.")
             o_ref, lse_ref = flash_attention_reference(q, k, v, **kw)
-            if dtype != torch.float16:  # fp16: the backward alone
-                o, lse = flash_attention(q, k, v, **kw)
-                torch.cuda.synchronize()
-                err_o = float((o.float() - o_ref.float()).abs().max())
-                err_lse = float((lse - lse_ref).abs().max())
-                tol = TOL[dtype]
-                ok = err_o <= tol["o"] and err_lse <= tol["lse"] and bool(torch.isfinite(o).all())
-                log(f"[B] flash_fwd {name:32s} {tag:9s} max|dO| {err_o:.2e} (tol {tol['o']:.0e}) "
-                    f"max|dLSE| {err_lse:.2e} (tol {tol['lse']:.0e}) {'ok' if ok else 'FAIL'}")
-                if name == "main_path_causal":
-                    main_err = err_o
-                if not ok:
-                    failures.append(f"flash_fwd/{name}/{tag}")
+            err_o, ok, detail = fwd_check(lambda: flash_attention(q, k, v, **kw), (o_ref, lse_ref), flash_attention,
+                                          flash_route(dtype, hd), dtype, TOL[dtype], float(v.float().abs().max()),
+                                          kw.get("dropout_rate", 0.0))
+            log(f"[B] flash_fwd {name:32s} {tag:9s} {detail} {'ok' if ok else 'FAIL'}")
+            if name == "main_path_causal":
+                main_err = err_o
+            if not ok:
+                failures.append(f"flash_fwd/{name}/{tag}")
 
             do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
             delta = attention_delta(o_ref, do)
@@ -1144,7 +1217,7 @@ def phase_b():
             errs, ok, detail = bwd_check(
                 lambda: (flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw),) + flash_bwd_dkv(q, k, v, do, lse_ref, delta,
                                                                                            **kw),
-                want, (flash_bwd_dq, flash_bwd_dkv), bwd_route(dtype, hd), BWD_TOL[dtype])
+                want, (flash_bwd_dq, flash_bwd_dkv), flash_route(dtype, hd), BWD_TOL[dtype])
             log(f"[B] flash_bwd dq, dk/dv {name:32s} {tag:9s} {detail} {'ok' if ok else 'FAIL'}")
             if name == "train_path_causal" and dtype == torch.bfloat16:
                 bwd_main_err = errs
@@ -1173,10 +1246,13 @@ CE_CASES = [
     ("d64_oob_gzeros", 1000, 50257, 64, dict(oob=True, gzeros=True)),
     ("n2048_d1600_denom_gzeros", 2048, 50257, 1600, dict(smoothing=0.1, smooth_denom=50304, gzeros=True)),
 ]
-# The forward statistics are fp32 in both dtypes (bf16 products are exact in
-# fp32; only the summation order differs): 1e-4 of the largest value. dx and
-# dW: fp32 1e-4; bf16 2e-2 of the largest value (they come back rounded to
-# bf16 after fp32 sums in another order).
+# The forward statistics are fp32 in every dtype (bf16 and fp16 products are
+# exact in fp32; only the summation order differs): CE_FWD_TOL, 1e-4 of the
+# largest value (at least 1), against the plain version and, on the tensor
+# cores, against the CUDA-core route on the same inputs. dx and dW: fp32
+# 1e-4; bf16 2e-2 of the largest value (they come back rounded to bf16 after
+# fp32 sums in another order).
+CE_FWD_TOL = 1e-4
 CE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # The CE backward's tensor-core route against its CUDA-core route on the same
 # inputs: both round an fp32 sum once to bf16, so one bf16 ulp at the largest
@@ -1189,6 +1265,12 @@ def ce_route(dtype, D):
     """The backward route ``ops.fused_ce._route`` gives contiguous x and w:
     the tensor cores for bf16 with D a multiple of 8 up to 2048."""
     return "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 and 0 < D <= 2048 else "simt"
+
+
+def ce_fwd_route(dtype, D):
+    """The forward route ``ops.fused_ce._fwd_route`` gives contiguous x and
+    w: the tensor cores for bf16 and fp16 with D a multiple of 8."""
+    return "wgmma" if dtype in (torch.bfloat16, torch.float16) and D % 8 == 0 else "simt"
 
 
 def ce_inputs(N, V, D, dtype, gen, kw):
@@ -1206,26 +1288,47 @@ def ce_inputs(N, V, D, dtype, gen, kw):
     return x, w, t, g
 
 
-def _ce_compare(x, w, t, g, eps=0.0, denom=None):
+def _ce_stat_errs(got, want):
+    """{statistic: (max |error|, CE_FWD_TOL of the largest |value|, at least
+    1)} of the forward's (lse, tgt, logit_sum or None)."""
+    return {k: (float((a - b).abs().max()), CE_FWD_TOL * max(1.0, float(b.abs().max())))
+            for k, a, b in zip(("lse", "tgt", "logit_sum"), got, want) if b is not None}
+
+
+def _ce_compare(x, w, t, g, eps=0.0, denom=None, backward=True):
     """Each fused-CE kernel against its plain version on one input (dx and
-    dW from the plain forward's lse): {kernel name: (max abs error, ok,
-    detail)}. Tolerances as CE_TOL states. dx and dW must take ``ce_route``'s
-    route; on the tensor cores each is also held against its CUDA-core
-    kernel forced on the same inputs (CE_SIMT_TOL) and a second launch must
-    give equal bits."""
+    dW from the plain forward's lse; ``backward=False``: the forward alone):
+    {kernel name: (max abs error, ok, detail)}. Tolerances as CE_FWD_TOL and
+    CE_TOL state. Each kernel must take its route (``ce_fwd_route``,
+    ``ce_route``); on the tensor cores each is also held against its
+    CUDA-core kernel forced on the same inputs (CE_FWD_TOL, CE_SIMT_TOL) and
+    a second launch must give equal bits."""
     from smdistributed_modelparallel_tpu_torch.ops import fused_ce as fc
 
-    got = fc.fused_ce_fwd(x, w, t, eps)
+    fwd = fc.fused_ce_fwd
+    before = (fwd.launches, fwd.simt_launches)
+    got = fwd(x, w, t, eps)
     torch.cuda.synchronize()
+    taken = _route_taken(fwd, before)
     want = fc.fused_ce_fwd_reference(x, w, t, eps)
-    errs = {}
-    for sname, a, b in zip(("lse", "tgt", "logit_sum"), got, want):
-        if b is not None:
-            errs[sname] = (float((a - b).abs().max()), 1e-4 * max(1.0, float(b.abs().max())))
+    errs = _ce_stat_errs(got, want)
     finite = all(bool(torch.isfinite(a).all()) for a in got if a is not None)
-    keys = [k for k in ("lse", "tgt", "logit_sum") if k in errs]
-    out = {"fused_ce_fwd": (max(errs[k][0] for k in keys), finite and all(errs[k][0] <= errs[k][1] for k in keys),
-                            ", ".join(f"max|d{k}| {errs[k][0]:.2e} (tol {errs[k][1]:.1e})" for k in keys))}
+    route = ce_fwd_route(x.dtype, x.shape[1])
+    ok = finite and taken == route and all(e <= tol for e, tol in errs.values())
+    detail = f"route {taken}; " + ", ".join(f"max|d{k}| {e:.2e} (tol {tol:.1e})" for k, (e, tol) in errs.items())
+    if route == "wgmma":
+        again = fwd(x, w, t, eps)
+        with mock.patch.object(fc, "_fwd_route", lambda *a_: "simt"):
+            simt = fwd(x, w, t, eps)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+        errs_simt = _ce_stat_errs(got, simt)
+        ok = ok and equal and all(e <= tol for e, tol in errs_simt.values())
+        detail += (", against the CUDA-core route " + ", ".join(f"{e:.2e}" for e, _ in errs_simt.values())
+                   + f", repeat {'bit-equal' if equal else 'DIFFERS'}")
+    out = {"fused_ce_fwd": (max(e for e, _ in errs.values()), ok, detail)}
+    if not backward:
+        return out
     lse = want[0]
     route = ce_route(x.dtype, x.shape[1])
     for kname, fn, plain in (("fused_ce_bwd_dx", fc.fused_ce_bwd_dx, fc.fused_ce_bwd_dx_reference),
@@ -1255,17 +1358,17 @@ def _ce_compare(x, w, t, g, eps=0.0, denom=None):
 
 def _phase_b_ce(failures):
     """The three fused-CE kernels against their plain versions over
-    CE_CASES, in fp32 (the backward on the CUDA cores) and bf16 (on the
-    tensor cores)."""
+    CE_CASES, in fp32 (all on the CUDA cores) and bf16 (all on the tensor
+    cores), and the forward alone in fp16 (on the tensor cores)."""
     counters = {**_ce_counters(), **_ce_simt_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for name, N, V, D, kw in CE_CASES:
         eps, denom = float(kw.get("smoothing", 0.0)), kw.get("smooth_denom")
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             tag = str(dtype).removeprefix("torch.")
             x, w, t, g = ce_inputs(N, V, D, dtype, gen, kw)
-            for kname, (_, ok, detail) in _ce_compare(x, w, t, g, eps, denom).items():
+            for kname, (_, ok, detail) in _ce_compare(x, w, t, g, eps, denom, dtype != torch.float16).items():
                 log(f"[B] {kname:15s} {name:26s} N={N} V={V} D={D} {tag:9s} {detail} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     failures.append(f"{kname}/{name}/{tag}")
@@ -1539,6 +1642,9 @@ IDS_CASES = [
     ("ragged_tl200_contiguous", 1, 200, 3, 64, 2, 1, 0, dict(contiguous=True)),
 ]
 IDS_PATH_CASES = ("r0_diag", "r0_off", "r1_diag", "r1_off", "r0_diag_kpad", "r1_off_dropout_head_remap")
+# Also in fp16 (TOL, BWD_TOL): a diagonal pair, key padding, dropout and a
+# ragged contiguous block.
+IDS_FP16_CASES = ("r0_diag", "r0_diag_kpad", "r1_off_dropout_head_remap", "ragged_tl200_contiguous")
 
 
 def ids_inputs(B, Tl, H, hd, n, me, src, dtype, gen, kw):
@@ -1560,9 +1666,10 @@ def ids_inputs(B, Tl, H, hd, n, me, src, dtype, gen, kw):
 
 
 def ids_compare(q, k, v, do, kpad, qi, ki, kw):
-    """Each ids-mode kernel against its plain version on one pair; the
-    backward fed the plain forward's o (as the global output) and lse.
-    Returns ({kernel: error}, ok, detail)."""
+    """Each ids-mode kernel against its plain version on one pair (the
+    forward by fwd_check, the backward by bwd_check: routes, the CUDA-core
+    route and a repeat launch); the backward fed the plain forward's o (as
+    the global output) and lse. Returns ({kernel: error}, ok, detail)."""
     from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
         attention_delta,
         flash_bwd_dkv_ids,
@@ -1574,11 +1681,10 @@ def ids_compare(q, k, v, do, kpad, qi, ki, kw):
     )
 
     dtype = q.dtype
-    o, lse = flash_fwd_with_ids(q, k, v, kpad, qi, ki, **kw)
-    torch.cuda.synchronize()
-    o_ref, lse_ref = flash_fwd_with_ids_reference(q, k, v, kpad, qi, ki, **kw)
-    err_o = float((o - o_ref).abs().max())
-    err_lse = float((lse - lse_ref).abs().max())
+    o_ref, lse_ref = flash_fwd_with_ids_reference(q, k, v, kpad, qi, ki, **kw)  # o in fp32, as the ring merges it
+    err_o, ok_fwd, detail_fwd = fwd_check(lambda: flash_fwd_with_ids(q, k, v, kpad, qi, ki, **kw), (o_ref, lse_ref),
+                                          flash_fwd_with_ids, flash_route(dtype, q.shape[-1]), dtype, TOL[dtype],
+                                          float(v.float().abs().max()), kw.get("dropout_rate", 0.0))
     o_in = o_ref.to(dtype)
     delta = attention_delta(o_in, do)
     args = (q, k, v, do, lse_ref, delta, kpad, qi, ki)
@@ -1589,12 +1695,10 @@ def ids_compare(q, k, v, do, kpad, qi, ki, kw):
         outs[:] = (flash_bwd_dq_ids(*args, **kw),) + flash_bwd_dkv_ids(*args, **kw)
         return tuple(outs)
 
-    errs, ok_bwd, detail_bwd = bwd_check(run, want, (flash_bwd_dq_ids, flash_bwd_dkv_ids), bwd_route(dtype, q.shape[-1]),
+    errs, ok_bwd, detail_bwd = bwd_check(run, want, (flash_bwd_dq_ids, flash_bwd_dkv_ids), flash_route(dtype, q.shape[-1]),
                                          BWD_TOL[dtype], per_output=True)
-    ok = (ok_bwd and all(x.dtype == torch.float32 and bool(torch.isfinite(x).all()) for x in (o, *outs))
-          and err_o <= TOL[dtype]["o"] and err_lse <= TOL[dtype]["lse"])
-    detail = (f"max|dO| {err_o:.2e} max|dLSE| {err_lse:.2e} (tol {TOL[dtype]['o']:.0e}, {TOL[dtype]['lse']:.0e}); "
-              f"dq, dk, dv: {detail_bwd}")
+    ok = ok_fwd and ok_bwd and all(x.dtype == torch.float32 and bool(torch.isfinite(x).all()) for x in outs)
+    detail = f"o, lse: {detail_fwd}; dq, dk, dv: {detail_bwd}"
     return {"flash_fwd_ids": err_o, **errs}, ok, detail
 
 
@@ -1611,14 +1715,17 @@ def _ids_counters():
 
 def _phase_b_ids(failures):
     """The ids-mode kernels against their plain versions over IDS_CASES:
-    phase R's pairs in bf16, the others in fp32 and bf16. Returns the
-    largest error over phase R's four plain ring pairs (bf16)."""
-    counters = {**_ids_counters(), **_bwd_simt_counters()}
+    phase R's pairs in bf16, the others in fp32 and bf16, IDS_FP16_CASES
+    also in fp16. Returns the largest error over phase R's four plain ring
+    pairs (bf16)."""
+    counters = {**_ids_counters(), **_flash_simt_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     path_err = {k: 0.0 for k in _ids_counters()}
     for name, B, Tl, H, hd, n, me, src, kw in IDS_CASES:
         dtypes = [torch.bfloat16] if name in IDS_PATH_CASES else [torch.float32, torch.bfloat16]
+        if name in IDS_FP16_CASES:
+            dtypes.append(torch.float16)
         for dtype in dtypes:
             tag = str(dtype).removeprefix("torch.")
             errs, ok, detail = ids_compare(*ids_inputs(B, Tl, H, hd, n, me, src, dtype, gen, kw))
@@ -1644,10 +1751,10 @@ def _phase_c_ids():
     off-diagonal pair): kernel, plain version and the one library call that
     computes the same function, SDPA with the boolean mask built from the
     ids; the bound from the kept pairs' products and the bytes each input
-    and output moves once. The forward by CUDA events; the backward by
-    CUDA-graph replay (bwd_times: on its route and forced onto the CUDA
-    cores), against SDPA's backward (dq, dk and dv together) timed once per
-    ring step."""
+    and output moves once. All by CUDA-graph replay: the forward
+    and the backward on their route (flash_times) and forced onto
+    the CUDA cores, against SDPA's forward and backward (dq, dk and dv
+    together, timed once per ring step)."""
     import torch.nn.functional as F
 
     from smdistributed_modelparallel_tpu_torch.ops import flash_attention as fa
@@ -1661,14 +1768,12 @@ def _phase_c_ids():
         flash_fwd_with_ids_reference,
     )
 
-    counters = {**_ids_counters(), **_bwd_simt_counters()}
+    counters = {**_ids_counters(), **_flash_simt_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     B, Tl, H, hd, n = 2, CP_T // CP_N, 12, 64, CP_N
     dtype, esz = torch.bfloat16, 2
-    acc = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0) for k in _ids_counters()}
-    for k in ("flash_bwd_dq_ids", "flash_bwd_dkv_ids"):
-        acc[k]["simt_ms"] = 0.0
+    acc = {k: dict(ms=0.0, simt_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0) for k in _ids_counters()}
     bound_by, route = {}, None
     for src in range(n):
         q, k, v, do, kpad, qi, ki, kw = ids_inputs(B, Tl, H, hd, n, 0, src, dtype, gen, {})
@@ -1679,9 +1784,8 @@ def _phase_c_ids():
         mask = ki[None, :] <= qi[:, None]
         route = fa._route(q, k, v, do)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        fwd = dict(ms=cuda_time_ms(lambda: flash_fwd_with_ids(q, k, v, None, qi, ki, **kw)),
-                   plain_ms=cuda_time_ms(lambda: flash_fwd_with_ids_reference(q, k, v, None, qi, ki, **kw), iters=5),
-                   library_ms=cuda_time_ms(
+        fwd = dict(flash_times(flash_fwd_with_ids, flash_fwd_with_ids_reference, (q, k, v, None, qi, ki), kw),
+                   library_ms=cuda_graph_time_ms(
                        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=kw["scale"])))
         lib_bwd_ms = sdpa_bwd_ms(q, k, v, do, attn_mask=mask, scale=kw["scale"])
         pairs = _kept_pairs(qi, ki)
@@ -1690,18 +1794,18 @@ def _phase_c_ids():
         rows = (
             ("flash_fwd_ids", fwd, 2 * product,
              3 * B * Tl * H * hd * esz + 2 * Tl * 4 + B * Tl * H * hd * 4 + B * H * Tl * 4),
-            ("flash_bwd_dq_ids", dict(bwd_times(flash_bwd_dq_ids, flash_bwd_dq_ids_reference, args, kw),
+            ("flash_bwd_dq_ids", dict(flash_times(flash_bwd_dq_ids, flash_bwd_dq_ids_reference, args, kw),
                                       library_ms=lib_bwd_ms),
              3 * product, in_bytes + 2 * B * H * Tl * 4 + B * Tl * H * hd * 4),
-            ("flash_bwd_dkv_ids", dict(bwd_times(flash_bwd_dkv_ids, flash_bwd_dkv_ids_reference, args, kw),
+            ("flash_bwd_dkv_ids", dict(flash_times(flash_bwd_dkv_ids, flash_bwd_dkv_ids_reference, args, kw),
                                        library_ms=lib_bwd_ms),
              4 * product, in_bytes + 2 * B * H * Tl * 4 + 2 * B * Tl * H * hd * 4),
         )
         for name, t, flops, nbytes in rows:
             bound_ms, bound_by[name] = _bound(nbytes, flops, dtype)
             t = dict(t, bound_ms=bound_ms)
-            how = ("CUDA events" if name == "flash_fwd_ids" else
-                   f"CUDA-graph replay: the wrapper ({route}); CUDA-core kernel {t['simt_ms']:.4f} ms")
+            how = (f"CUDA-graph replay: the wrapper ({route}); CUDA-core kernel {t['simt_ms']:.4f} ms "
+                   f"({flops / t['simt_ms'] / 1e9:.2f} TFLOP/s)")
             log(f"[C] {name} ring step {src} of rank 0 (B={B} Tl={Tl} H={H} hd={hd} bf16, {pairs} kept pairs of "
                 f"{Tl * Tl}; {how}): kernel {t['ms']:.4f} ms ({flops / t['ms'] / 1e9:.2f} TFLOP/s), plain "
                 f"{t['plain_ms']:.4f} ms, library (SDPA with the ids mask{'' if name == 'flash_fwd_ids' else ', its backward'}) "
@@ -1713,10 +1817,7 @@ def _phase_c_ids():
             f"backward with the ids mask {lib_bwd_ms:.4f} ms")
     for key, fn in counters.items():
         fn.launches = saved[key]  # timing launches do not count
-    out = {name: dict(acc[name], bound_by=bound_by[name]) for name in acc}
-    for name in ("flash_bwd_dq_ids", "flash_bwd_dkv_ids"):
-        out[name]["path_route"] = route
-    return out
+    return {name: dict(acc[name], bound_by=bound_by[name], path_route=route) for name in acc}
 
 
 # ----------------------------------------------------------------------
@@ -1760,7 +1861,7 @@ def _cp_train(cfg, device, steps):
         model.backward(loss, num_tokens=count)
         return loss
 
-    counters = {**_flash_counters(), **_ids_counters(), **_bwd_simt_counters()}
+    counters = {**_flash_counters(), **_ids_counters(), **_flash_simt_counters()}
     for fn in counters.values():
         fn.launches = 0
     losses, ms = [], []
@@ -1930,8 +2031,8 @@ def phase_r(device="cuda:0"):
             f"{u_gap:.3e}; {u_ms[0]:.2f} ms; launches {u_counts}")
         if u_counts["flash_fwd"] != n_layers * CP_MB or u_counts["flash_fwd_ids"] != 0:
             raise RuntimeError(f"rank {rank}: Ulysses launches {u_counts}")
-        _check_bwd_route(f"rank {rank} ring", counts)
-        _check_bwd_route(f"rank {rank} ulysses", u_counts)
+        _check_route(f"rank {rank} ring", counts)
+        _check_route(f"rank {rank} ulysses", u_counts)
     for rank in range(CP_N):
         bd = results[rank]["breakdown"]
         log(f"[R] rank {rank} breakdown: one layer's ring attention, forward and backward with its exchanges, "
@@ -1941,7 +2042,7 @@ def phase_r(device="cuda:0"):
     one_ms = sum(base_ms[1:]) / (CP_STEPS - 1)
     log(f"[R] ms/step (mean of steps 2-{CP_STEPS}): cp = 2 {cp_ms:.2f}, cp = 1 {one_ms:.2f}; "
         f"cp = 1 launches {base_launches}")
-    _check_bwd_route("cp = 1", base_launches)
+    _check_route("cp = 1", base_launches)
     if worst > CP_LOSS_TOL or not all(math.isfinite(x) for x in base_losses):
         raise RuntimeError(f"cp = 2 losses differ from cp = 1 by {worst:.3e} (limit {CP_LOSS_TOL})")
     return launches, dict(cp_ms=cp_ms, one_ms=one_ms, gap=worst, transport=transport)
@@ -1961,8 +2062,9 @@ def _causal_pairs(T, S):
 
 def phase_c():
     """Kernel, plain and library times at the main paths' shapes: the
-    forward at the serving prefill's (B=4, T=512), the backward at the
-    training microbatch's (B=2, T=1024)."""
+    forward at the serving prefill's (B=4, T=512; the kernels line) and the
+    training microbatch's (B=2, T=1024), the backward at the training
+    microbatch's."""
     import torch.nn.functional as F
 
     from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
@@ -1977,26 +2079,35 @@ def phase_c():
 
     from smdistributed_modelparallel_tpu_torch.ops import flash_attention as fa
 
-    counters = {"flash_fwd": flash_attention, **_bwd_counters(), **_bwd_simt_counters()}
+    counters = {**_flash_route_counters(), **_flash_simt_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dtype = torch.bfloat16
     esz = torch.finfo(dtype).bits // 8
     out = {}
 
-    B, T, S, H, hd = 4, 512, 512, 12, 64
-    q, k, v = _inputs(B, T, S, H, hd, dtype, gen)
-    ms = cuda_time_ms(lambda: flash_attention(q, k, v))
-    plain_ms = cuda_time_ms(lambda: flash_attention_reference(q, k, v))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    nbytes = 2 * B * T * H * hd * esz + 2 * B * S * H * hd * esz + B * H * T * 4  # q, o, k, v, lse
-    flops = 4 * B * H * _causal_pairs(T, S) * hd  # two products of 2 flops per (pair, d)
-    bound_ms, bound_by = _bound(nbytes, flops, dtype)
-    out["flash_fwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-    log(f"[C] flash_fwd B={B} T=S={T} H={H} hd={hd} bf16 causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA {library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    # The forward by CUDA-graph replay in one call: the wrapper on its route
+    # and forced onto the CUDA-core route, the plain version and SDPA's
+    # forward, at the prefill's shape and at the training microbatch's.
+    for label, B, T in (("prefill", 4, 512), ("training microbatch", 2, 1024)):
+        S, H, hd = T, 12, 64
+        q, k, v = _inputs(B, T, S, H, hd, dtype, gen)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        t = dict(flash_times(flash_attention, flash_attention_reference, (q, k, v), {}),
+                 library_ms=cuda_graph_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)))
+        nbytes = 2 * B * T * H * hd * esz + 2 * B * S * H * hd * esz + B * H * T * 4  # q, o, k, v, lse
+        flops = 4 * B * H * _causal_pairs(T, S) * hd  # two products of 2 flops per (pair, d)
+        bound_ms, bound_by = _bound(nbytes, flops, dtype)
+        route = fa._route(q, k, v)
+        log(f"[C] flash_fwd {label} B={B} T=S={T} H={H} hd={hd} bf16 causal, device times by CUDA-graph replay: "
+            f"the wrapper ({route}) {t['ms']:.4f} ms ({flops / t['ms'] / 1e9:.2f} TFLOP/s), CUDA-core kernel "
+            f"{t['simt_ms']:.4f} ms ({flops / t['simt_ms'] / 1e9:.2f} TFLOP/s), plain {t['plain_ms']:.4f} ms, SDPA "
+            f"{t['library_ms']:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP)")
+        if label == "prefill":  # the kernels line's shape
+            out["flash_fwd"] = dict(t, bound_ms=bound_ms, bound_by=bound_by, path_route=route)
+        else:
+            out["flash_fwd"].update({"train_" + key: val for key, val in dict(t, bound_ms=bound_ms).items()})
 
     B, T, S, H, hd = 2, 1024, 1024, 12, 64
     q, k, v = _inputs(B, T, S, H, hd, dtype, gen)
@@ -2017,7 +2128,7 @@ def phase_c():
         ("flash_bwd_dq", flash_bwd_dq, flash_bwd_dq_reference, 3, B * T * H * hd * esz),      # s, dp, dq
         ("flash_bwd_dkv", flash_bwd_dkv, flash_bwd_dkv_reference, 4, 2 * B * S * H * hd * esz),  # s, dp, dv, dk
     ):
-        t = bwd_times(kernel, plain, args, {})
+        t = flash_times(kernel, plain, args, {})
         bound_ms, bound_by = _bound(in_bytes + out_bytes, n_products * product, dtype)
         out[name] = dict(t, bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_ms, path_route=route)
         log(f"[C] {name} B={B} T=S={T} H={H} hd={hd} bf16 causal, device times by CUDA-graph replay: the wrapper "
@@ -2080,8 +2191,10 @@ def _phase_c_new():
     and the bias_gelu kernels at its MLP epilogue ([2048, 3072]), bf16:
     kernel, plain version and one library call computing the same function
     (``torch.addmm``; ``F.gelu(x + b, approximate="tanh")`` and its autograd
-    backward), which the port never calls; the bound from the bytes each
-    input and output moves once and the operations at their type's peak."""
+    backward), which the port never calls, all by CUDA-graph replay (the
+    library backward captured on its forward's stream); the bound from the
+    bytes each input and output moves once and the operations at their
+    type's peak."""
     import torch.nn.functional as F
 
     from smdistributed_modelparallel_tpu_torch.ops.bias_gelu import (
@@ -2127,28 +2240,32 @@ def _phase_c_new():
 
     N, Fo = 2048, 3072
     x, b, g = gelu_inputs(N, Fo, dtype, gen, {})
-    xr, br = x.detach().clone().requires_grad_(), b.detach().clone().requires_grad_()
-    lib_out = F.gelu(xr + br, approximate="tanh")
+
+    def gelu(x_, b_):
+        return F.gelu(x_ + b_, approximate="tanh")
+
     # Operations per element, as the kernels do them in fp32: the forward's
     # add, cube (3), add, scale, tanh (counted as 1), add, 2 multiplies; the
     # backward's add, inner (5), tanh, sech2 (2), dinner (4), left (2),
     # right (3), sum and the product with g.
     rows = (
         ("bias_gelu_fwd", lambda: bias_gelu_fwd(x, b), lambda: reference_bias_gelu(x, b),
-         lambda: F.gelu(x + b, approximate="tanh"), 2 * N * Fo * esz + Fo * esz, 10 * N * Fo,
+         cuda_graph_time_ms(lambda: gelu(x, b)), 2 * N * Fo * esz + Fo * esz, 10 * N * Fo,
          "F.gelu(x + b, approximate='tanh')"),
         ("bias_gelu_bwd", lambda: bias_gelu_bwd(x, b, g), lambda: reference_bias_gelu_bwd(x, b, g),
-         lambda: torch.autograd.grad(lib_out, (xr, br), g, retain_graph=True),
-         N * Fo * (2 * esz + 4) + Fo * esz, 20 * N * Fo, "its autograd backward, dx and db"),
+         library_bwd_ms(gelu, (x, b), g), N * Fo * (2 * esz + 4) + Fo * esz, 20 * N * Fo,
+         "its autograd backward, dx and db"),
     )
-    for name, kernel, plain, library, nbytes, flops, what in rows:
-        ms = cuda_time_ms(kernel)
-        plain_ms = cuda_time_ms(plain)
-        library_ms = cuda_time_ms(library)
+    for name, kernel, plain, library_ms, nbytes, flops, what in rows:
+        ms = cuda_graph_time_ms(kernel)
+        plain_ms = cuda_graph_time_ms(plain)
+        eager_ms = cuda_time_ms(kernel)
         bound_ms, bound_by = _bound(nbytes, flops, torch.float32)  # the operations are fp32
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-        log(f"[C] {name} N={N} F={Fo} bf16: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain "
-            f"{plain_ms:.4f} ms, library ({what}) {library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                         eager_ms=eager_ms)
+        log(f"[C] {name} N={N} F={Fo} bf16, device times by CUDA-graph replay: kernel {ms:.4f} ms "
+            f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, library ({what}) {library_ms:.4f} ms; the "
+            f"wrapper eager {eager_ms:.4f} ms (CUDA events); bound {bound_ms:.4f} ms by {bound_by} "
             f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
     for k, fn in counters.items():
         fn.launches = saved[k]  # timing launches do not count
@@ -2165,9 +2282,9 @@ def _phase_c_ce():
     tolerances; the capacity shape's error goes into the kernels line), then
     kernel, plain version and the library yardstick, two PyTorch calls (the
     logits GEMM and ``F.cross_entropy``; for dx and dW together, their
-    autograd backward), since no single call computes this function. The
-    backward's wrappers run on their route (the tensor cores) and forced
-    onto the CUDA cores in the same call."""
+    autograd backward), since no single call computes this function. Each
+    wrapper runs on its route (the tensor cores) and forced onto the CUDA
+    cores in the same call."""
     import torch.nn.functional as F
 
     from smdistributed_modelparallel_tpu_torch.ops import fused_ce as fc
@@ -2218,15 +2335,15 @@ def _phase_c_ce():
             plain_ms = cuda_time_ms(plain, iters, warmup)
             bound_ms, bound_by = _bound(nbytes, flops, dtype)
             timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-            line = f"kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s)"
-            if name != "fused_ce_fwd":  # the backward: its route, and the CUDA-core kernel forced
-                with mock.patch.object(fc, "_route", lambda *a: "simt"):
-                    timing["simt_ms"] = cuda_time_ms(kernel, iters, warmup)
-                timing["path_route"] = fc._route(x, w)
-                # The tensor-core kernel issues 3 products of 2 N V D (z, dlog's hi and lo parts).
-                line = (f"wrapper ({timing['path_route']}) {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s of the "
-                        f"function's, {1.5 * flops / ms / 1e9:.2f} issued), CUDA-core kernel "
-                        f"{timing['simt_ms']:.4f} ms ({flops / timing['simt_ms'] / 1e9:.2f} TFLOP/s)")
+            seam = "_fwd_route" if name == "fused_ce_fwd" else "_route"  # its route, and the CUDA-core kernel forced
+            with mock.patch.object(fc, seam, lambda *a: "simt"):
+                timing["simt_ms"] = cuda_time_ms(kernel, iters, warmup)
+            timing["path_route"] = getattr(fc, seam)(x, w)
+            # The tensor-core backward issues 3 products of 2 N V D (z, dlog's hi and lo parts).
+            issued = "" if name == "fused_ce_fwd" else f", {1.5 * flops / ms / 1e9:.2f} issued"
+            line = (f"wrapper ({timing['path_route']}) {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s of the "
+                    f"function's{issued}), CUDA-core kernel {timing['simt_ms']:.4f} ms "
+                    f"({flops / timing['simt_ms'] / 1e9:.2f} TFLOP/s)")
             log(f"[C] {name} N={N} V={V} D={D} bf16: {line}, plain {plain_ms:.4f} ms, library ({what}) "
                 f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
                 f"{flops / 1e9:.1f} GFLOP)")
@@ -2251,9 +2368,10 @@ def _profile_report(label, prof, wall_ms, top):
 
 
 def phase_p():
-    """Where one greedy ``generate``, one training step and one capacity
-    step spend their time, by torch.profiler: device time by kernel and the device's idle
-    share of the wall time."""
+    """Where one greedy ``generate``, one training step, one capacity step
+    (fused CE and materialized logits) and the smp.nn path's steps spend
+    their time, by torch.profiler: device time by kernel and the device's
+    idle share of the wall time."""
     import smdistributed_modelparallel_tpu_torch as smp
     from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m, init_gpt2_weights_
     from torch.profiler import ProfilerActivity, profile
@@ -2292,15 +2410,20 @@ def phase_p():
     _profile_report(f"training step batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MB} microbatches", prof, wall_ms, 14)
     del model, optimizer, train_step
 
-    # The capacity step, under the default policy (fused CE kernels).
-    model, optimizer, train_step = _train_setup(init_gpt2_weights_(gpt2_124m(device="cuda"), g), 1, True, "cuda")
+    # The capacity step, under the default policy (fused CE kernels) and with
+    # materialized logits (its yardstick), from the same weights.
+    cap_init = init_gpt2_weights_(gpt2_124m(device="cuda"), g)
     ids = torch.randint(0, 50257, (CAP_BATCH, CAP_SEQ), generator=g, device="cuda")
-    for _ in range(CAP_WARMUP):
-        train_step(model, ids)
-        optimizer.step()
-    prof, wall_ms = profiled(one_step)
-    _profile_report(f"capacity step batch {CAP_BATCH} x {CAP_SEQ}, 1 microbatch", prof, wall_ms, 14)
-    del model, optimizer, train_step
+    for label, cfg in (("fused CE", {}), ("materialized, fused_ce: False", {"fused_ce": False})):
+        model, optimizer, train_step = _train_setup(copy.deepcopy(cap_init), 1, True, "cuda", **cfg)
+        for _ in range(CAP_WARMUP):
+            train_step(model, ids)
+            optimizer.step()
+        prof, wall_ms = profiled(one_step)
+        _profile_report(f"capacity step batch {CAP_BATCH} x {CAP_SEQ}, 1 microbatch, {label}", prof, wall_ms, 14)
+        del model, optimizer, train_step
+        torch.cuda.empty_cache()
+    del cap_init
 
     # The smp.nn path's step, fused and unfused, from the same weights.
     from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_

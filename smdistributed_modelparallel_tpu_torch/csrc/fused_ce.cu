@@ -1,7 +1,9 @@
 // Fused LM-head cross-entropy for Hopper (sm_90a), bound to Python with ctypes.
 //
 // Replaces: smdistributed_modelparallel_tpu/ops/pallas_ce.py
-//   _fwd_kernel    :46  -> fused_ce_fwd_kernel + fused_ce_fwd_merge (CUDA cores)
+//   _fwd_kernel    :46  -> fused_ce_fwd_wgmma_kernel<E, SMOOTH> (tensor cores,
+//                          bf16 and fp16) and fused_ce_fwd_kernel<E> (CUDA
+//                          cores), each + fused_ce_fwd_merge
 //   _bwd_dx_kernel :95  -> fused_ce_bwd_wgmma_kernel<false> (tensor cores, bf16)
 //                          and fused_ce_bwd_kernel<E, false> (CUDA cores)
 //   _bwd_dw_kernel :130 -> fused_ce_bwd_wgmma_kernel<true> and
@@ -10,9 +12,11 @@
 // launched by _fused_ce_fwd_impl / _fused_ce_bwd_impl through pl.pallas_call,
 // the forward and backward of fused_lm_head_ce's custom_vjp. Python wrappers
 // and plain PyTorch versions: smdistributed_modelparallel_tpu_torch/ops/fused_ce.py,
-// whose _route picks the backward's kernel by the operands alone: bf16 with D
-// a multiple of 8 up to 2048 on 16-byte aligned bases takes the tensor cores,
-// the rest (fp32, fp16, other D) the CUDA cores. Neither stands in for the other.
+// whose _fwd_route and _route pick the kernel by the operands alone: the
+// forward takes the tensor cores for bf16 and fp16 with D a multiple of 8, the
+// backward for bf16 with D a multiple of 8 up to 2048, both on 16-byte aligned
+// bases; the rest (fp32; fp16 in the backward; other D) the CUDA cores.
+// Neither stands in for the other.
 //
 // What they compute, for x [N, D], w [V, D] (one dtype: fp32, fp16 or bf16),
 // int32 targets t [N], logits z = x w^T in fp32 (never stored):
@@ -34,6 +38,34 @@
 // at 989 TFLOP/s), dx and dW two each (the recompute and the contraction:
 // 0.32 ms each at N = 2048, 5.1 ms at N = 32768). They read and write 80-210
 // MB (0.02-0.06 ms at 3.35 TB/s), so all three are operation-bound.
+//
+// Tensor-core forward (fused_ce_fwd_wgmma_kernel<E, SMOOTH>; csrc/tma_wgmma.cuh's
+// pieces): matmul_bias.cu's NT mainloop with an online-softmax epilogue in
+// place of its store. Products of 16-bit values are exact in fp32, so only the
+// summation order changes (fp16 too: the forward has no dlog to underflow).
+//   - CTA tiles of 128 x rows by 256 vocab columns: two consumer warpgroups of
+//     64 rows, each with the 64 x 256 fp32 z of its rows in registers (wgmma
+//     m64n256k16, both operands K-major: 128 registers a thread). One producer
+//     thread streams D in 64-wide k-blocks (an x box [128, 64] and a w box
+//     [256, 64], 48 KB a stage, 128-byte swizzle) through 4 stages; the ring
+//     runs on across the vocab tiles, so the next tile's loads overlap a
+//     tile's epilogue.
+//   - The epilogue works on the accumulator fragments: a row's 256 columns
+//     lie in one quad of threads, so the row max and the sums take two
+//     shuffles. Columns >= V (w rows TMA reads as zeros, z = 0) are -1e30 and
+//     out of the logit sum; the target logit is a masked sum over the tile.
+//     Smoothing's logit sum is a template parameter.
+//   - Grid (row blocks, vocab chunks), row blocks fastest: co-resident CTAs
+//     walk the same w tiles at about the same time, so w is read through L2
+//     and not from HBM for each row block. Where the row blocks alone do not
+//     fill the SMs (N 2048: 16 of them), the wrapper splits the vocabulary
+//     into chunks (_fwd_chunks); fused_ce_fwd_merge merges the chunks'
+//     partials in order. No atomics: two launches give equal bits.
+//   At N 32768 (D 768, V 50257) the product is 2.53 TFLOP, 2.56 ms at the
+//   bf16 peak. Not yet used: ping-pong consumers (one warpgroup's epilogue
+//   beside the other's products) or a second accumulator, so the tensor cores
+//   idle while both warpgroups run the epilogue's 2 x 64 expf a thread and
+//   tile; TMA multicast of the w tiles across a cluster.
 //
 // Tensor-core backward (fused_ce_bwd_wgmma_kernel<DW>, bf16; csrc/tma_wgmma.cuh's
 // pieces). dx owns x rows and walks the vocab (w rows); dW owns w rows and
@@ -95,7 +127,8 @@
 //   contraction that reads dlog from shared memory, which would let it run
 //   behind the next tile's dlog but needs 32-64 KB more shared memory.
 //
-// CUDA-core kernels, in their simplest right form (as csrc/flash_*.cu):
+// CUDA-core kernels, in their simplest right form (as csrc/flash_*.cu), for
+// what the tensor-core kernels do not take:
 //   - one CTA of 256 threads (16 x 16) per 64 x 64 tile of z; each thread
 //     owns rows ty + 16i and columns tx + 16j (i, j < 4). The product streams
 //     D through shared memory 32 columns at a time, as a GEMM's K loop does,
@@ -115,14 +148,14 @@
 //     sums the chunks in a fixed order and casts, so runs repeat bit for bit
 //     (no atomics). The wrapper picks the chunk count so the grid fills the
 //     card (vocab chunks at small N; one chunk at 32k tokens).
-// The forward and the fp32/fp16 backward run on the CUDA cores, far from
-// their bound; moving the forward onto the tensor cores is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tma_wgmma.cuh"
 
@@ -791,6 +824,203 @@ fused_ce_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap m_own, const __gri
   }
 }
 
+// ------------------------------------------------ tensor-core forward
+
+namespace fwd {
+
+constexpr int ROWS = 128;               // x rows a CTA: two consumer warpgroups of 64
+constexpr int COLS = 256;               // vocab columns a tile: wgmma n = 256
+constexpr int X_BOX = ROWS * 128;       // bytes of an x box [128 rows, 64 of D]
+constexpr int W_BOX = COLS * 128;       // bytes of a w box [256 rows, 64 of D]
+constexpr int STAGE = X_BOX + W_BOX;    // 48 KB
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;            // two consumer warpgroups and a producer warpgroup
+// One CTA an SM (its ring takes 192 KB): after setmaxnreg the consumers have
+// 232 registers (128 of them a tile's fp32 z) and the producer 40.
+constexpr int CONSUMER_REGS = 232, PRODUCER_REGS = 40;
+constexpr int SMEM_BYTES = 1024 + STAGES * STAGE + 8 * 2 * STAGES;
+
+#define SMP_Z8(i)                                                                                             \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
+      "+f"(d[i + 7])
+#define SMP_Z128                                                                                               \
+  SMP_Z8(0), SMP_Z8(8), SMP_Z8(16), SMP_Z8(24), SMP_Z8(32), SMP_Z8(40), SMP_Z8(48), SMP_Z8(56), SMP_Z8(64),  \
+      SMP_Z8(72), SMP_Z8(80), SMP_Z8(88), SMP_Z8(96), SMP_Z8(104), SMP_Z8(112), SMP_Z8(120)
+#define SMP_Z128_STR                                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "   \
+  "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "    \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, "    \
+  "%65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "    \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "  \
+  "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "       \
+  "%123, %124, %125, %126, %127}"
+
+// d[64 x 256] (+)= A[64 x 16] B[256 x 16]^T, both K-major in shared memory
+// (128-byte swizzle); scale_d = 0 overwrites d. E: __nv_bfloat16 or __half.
+template <typename E> __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_n256<__nv_bfloat16>(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SMP_Z128_STR ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : SMP_Z128
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_n256<__half>(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 " SMP_Z128_STR ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : SMP_Z128
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef SMP_Z8
+#undef SMP_Z128
+#undef SMP_Z128_STR
+
+// The sum, and the largest, over the four threads of a quad (which hold the
+// columns of the same two rows).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+}  // namespace fwd
+
+// The forward on the tensor cores, fp16 or bf16; SMOOTH: the logit sum under
+// smoothing. Grid (row blocks of 128, vocab chunks): a CTA walks the 256-wide
+// vocab tiles of its chunk; for each, z = x w^T over D streamed in 64-wide
+// k-blocks (x [128, 64] and w [256, 64] boxes by TMA, 128-byte swizzle, a ring
+// of 4 stages that runs on across tiles), then the online update of each row's
+// (m, l, tgt, sum) on the fp32 accumulators in registers. Writes the same
+// partials part[q][chunk][row], q < 4, as fused_ce_fwd_kernel; columns >= V
+// (w rows TMA reads as zeros) count as -1e30 and not in the sum.
+template <typename E, bool SMOOTH>
+__global__ void __launch_bounds__(fwd::THREADS, 1)
+fused_ce_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
+                          const Params p) {
+  using namespace smp_tc;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1k(smem_raw);
+  const uint32_t st = smem_u32(smem), full = st + fwd::STAGES * fwd::STAGE, empty = full + 8 * fwd::STAGES;
+  const int r0 = blockIdx.x * fwd::ROWS, chunk = blockIdx.y;
+  const int v_tiles = (p.V + fwd::COLS - 1) / fwd::COLS;
+  const int tile0 = chunk * p.chunk_tiles, tile1 = min(tile0 + p.chunk_tiles, v_tiles);
+  const int kblocks = (p.D + 63) / 64;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < fwd::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {  // producer warpgroup: one thread issues every load
+    setmaxnreg_dec<fwd::PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      int it = 0;  // k-blocks issued so far: stage it % STAGES, round it / STAGES
+      for (int tile = tile0; tile < tile1; ++tile)
+        for (int kb = 0; kb < kblocks; ++kb, ++it) {
+          const int s = it % fwd::STAGES;
+          mbar_wait(empty + 8 * s, ((it / fwd::STAGES) & 1) ^ 1);  // the first round finds every stage free
+          mbar_arrive_expect_tx(full + 8 * s, fwd::STAGE);
+          tma_load_2d(st + s * fwd::STAGE, &mx, full + 8 * s, 64 * kb, r0);
+          tma_load_2d(st + s * fwd::STAGE + fwd::X_BOX, &mw, full + 8 * s, 64 * kb, tile * fwd::COLS);
+        }
+    }
+    return;
+  }
+
+  // Consumer warpgroups: rows r0 + 64 wg .. r0 + 64 wg + 63.
+  setmaxnreg_inc<fwd::CONSUMER_REGS>();
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31, qd = lane & 3;
+  int row[2], tgt[2];  // the thread's two rows (accumulator rows lane / 4 and + 8 of its warp's 16)
+  float m[2], l[2], tg[2], sm[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    row[hh] = r0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * hh;
+    const int tt = row[hh] < p.N ? p.t[row[hh]] : -1;
+    tgt[hh] = tt >= 0 && tt < p.V ? tt : -1;  // a target outside [0, V) never hits
+    m[hh] = NEG_INF;
+    l[hh] = tg[hh] = sm[hh] = 0.f;
+  }
+  int it = 0;  // k-blocks consumed so far, as the producer counts them
+  for (int tile = tile0; tile < tile1; ++tile) {
+    float z[128];  // columns n0 + 8j + 2(lane % 4) + e of rows row[hh]: z[4j + 2hh + e]
+    for (int kb = 0; kb < kblocks; ++kb, ++it) {
+      const int s = it % fwd::STAGES;
+      mbar_wait(full + 8 * s, (it / fwd::STAGES) & 1);
+      const uint32_t a = st + s * fwd::STAGE + wg * 64 * 128, bw = st + s * fwd::STAGE + fwd::X_BOX;
+      fence_regs(z);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fwd::wgmma_n256<E>(z, desc_sw128(a + 32 * kk), desc_sw128(bw + 32 * kk), kb | kk);
+      wgmma_commit();
+      wgmma_wait<1>();  // k-block kb - 1 is done: release its stage while kb runs
+      fence_regs(z);
+      if (kb > 0) mbar_arrive(empty + 8 * ((it - 1) % fwd::STAGES));
+    }
+    wgmma_wait<0>();
+    fence_regs(z);
+    mbar_arrive(empty + 8 * ((it - 1) % fwd::STAGES));  // the producer loads the next tile meanwhile
+
+    // The online update, in fused_ce_fwd_kernel's order: columns >= V (only
+    // in the last tile: masked) at -1e30, the tile's row max, then l, the
+    // target logit and the logit sum.
+    const int n0 = tile * fwd::COLS;
+    auto update = [&](auto masked) {
+      constexpr bool M = decltype(masked)::value;
+      float mx[2] = {NEG_INF, NEG_INF}, hit[2] = {0.f, 0.f}, vs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * hh + e, c = n0 + 8 * j + 2 * qd + e;
+            float v = z[i];
+            if (M && c >= p.V) v = NEG_INF;
+            else if (SMOOTH) vs[hh] += v;
+            if (c == tgt[hh]) hit[hh] += v;
+            mx[hh] = fmaxf(mx[hh], v);
+            z[i] = v;
+          }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float m_new = fmaxf(m[hh], fwd::quad_max(mx[hh]));
+        float ex = 0.f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) ex += expf(z[4 * j + 2 * hh] - m_new) + expf(z[4 * j + 2 * hh + 1] - m_new);
+        l[hh] = l[hh] * expf(m[hh] - m_new) + fwd::quad_sum(ex);
+        m[hh] = m_new;
+        tg[hh] += fwd::quad_sum(hit[hh]);
+        if (SMOOTH) sm[hh] += fwd::quad_sum(vs[hh]);
+      }
+    };
+    if (n0 + fwd::COLS > p.V) update(std::true_type());
+    else update(std::false_type());
+  }
+
+  if (qd == 0) {
+    const long long plane = static_cast<long long>(gridDim.y) * p.N;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (row[hh] >= p.N) continue;
+      const long long o = static_cast<long long>(chunk) * p.N + row[hh];
+      p.part[o] = m[hh];
+      p.part[plane + o] = l[hh];
+      p.part[2 * plane + o] = tg[hh];
+      p.part[3 * plane + o] = sm[hh];
+    }
+  }
+}
+
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 template <typename E>
@@ -798,6 +1028,25 @@ cudaError_t launch_fwd(const Params& p, float* lse, float* tgt, float* lsum, cud
   const int chunks = ceil_div(ceil_div(p.V, BT), p.chunk_tiles);
   fused_ce_fwd_kernel<E><<<dim3(ceil_div(p.N, BT), chunks), NT, 0, s>>>(p);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fused_ce_fwd_merge<<<ceil_div(p.N, 256), 256, 0, s>>>(p.part, chunks, p.N, lse, tgt, lsum);
+  return cudaGetLastError();
+}
+
+template <typename E, bool SMOOTH>
+cudaError_t launch_fwd_wgmma(const Params& p, CUtensorMapDataType type, float* lse, float* tgt, float* lsum,
+                             cudaStream_t s) {
+  CUtensorMap mx, mw;
+  if (!smp_tc::encode_rows(&mx, type, 2, p.x, p.N, p.D, fwd::ROWS) ||
+      !smp_tc::encode_rows(&mw, type, 2, p.w, p.V, p.D, fwd::COLS))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(fused_ce_fwd_wgmma_kernel<E, SMOOTH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, fwd::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const int chunks = ceil_div(ceil_div(p.V, fwd::COLS), p.chunk_tiles);
+  fused_ce_fwd_wgmma_kernel<E, SMOOTH>
+      <<<dim3(ceil_div(p.N, fwd::ROWS), chunks), fwd::THREADS, fwd::SMEM_BYTES, s>>>(mx, mw, p);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   fused_ce_fwd_merge<<<ceil_div(p.N, 256), 256, 0, s>>>(p.part, chunks, p.N, lse, tgt, lsum);
   return cudaGetLastError();
@@ -893,6 +1142,32 @@ int smp_fused_ce_fwd(int dtype, const void* x, const void* w, const int* t, int 
     case 0: return (int)launch_fwd<float>(p, lse, tgt, lsum, s);
     case 1: return (int)launch_fwd<__half>(p, lse, tgt, lsum, s);
     case 2: return (int)launch_fwd<__nv_bfloat16>(p, lse, tgt, lsum, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tensor-core route of the forward: dtype 1 (fp16) or 2 (bf16), x and w
+// 16-byte aligned and D a positive multiple of 8 (anything else is refused,
+// never sent to the other kernel); chunk_tiles counts 256-wide vocab tiles,
+// part holds 4 * chunks * N floats; the rest as above.
+int smp_fused_ce_fwd_wgmma(int dtype, const void* x, const void* w, const int* t, int N, int V, int D,
+                           int smoothing, int chunk_tiles, float* part, float* lse, float* tgt, float* lsum,
+                           void* stream) {
+  if (N < 1 || V < 1 || D <= 0 || D % 8 != 0 || chunk_tiles < 1 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  p.x = x; p.w = w; p.t = t; p.part = part;
+  p.N = N; p.V = V; p.D = D; p.smoothing = smoothing; p.chunk_tiles = chunk_tiles;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr CUtensorMapDataType f16 = CU_TENSOR_MAP_DATA_TYPE_FLOAT16, bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  switch (dtype) {
+    case 1:
+      return (int)(smoothing ? launch_fwd_wgmma<__half, true>(p, f16, lse, tgt, lsum, s)
+                             : launch_fwd_wgmma<__half, false>(p, f16, lse, tgt, lsum, s));
+    case 2:
+      return (int)(smoothing ? launch_fwd_wgmma<__nv_bfloat16, true>(p, bf16, lse, tgt, lsum, s)
+                             : launch_fwd_wgmma<__nv_bfloat16, false>(p, bf16, lse, tgt, lsum, s));
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,15 +10,15 @@ together by a ``torch.autograd.Function``, and their ids mode
 pair of a context-parallel ring step, section below). Each kernel's wrapper
 (``flash_attention``'s forward, ``flash_bwd_dq``, ``flash_bwd_dkv``) runs
 its plain PyTorch version for tensors on the CPU and its kernel for CUDA
-tensors; it never falls back from one to the other, and counts its kernel's
-launches in ``.launches``.
+tensors; it never falls back from one to the other.
 
-The backward has two kernels for each pass, one contract, and ``_route``
-picks by the operands alone: ``"wgmma"`` (tensor cores fed by TMA) for fp16
-and bf16 with hd 64 on TMA-ready strides, ``"simt"`` (the CUDA cores) for
-the rest. A route never gives way to the other when a build or a launch
-fails. The backward wrappers (plain and ids mode) count tensor-core
-launches in ``.launches`` and CUDA-core launches in ``.simt_launches``.
+Every kernel (the forward and each backward pass, plain and ids mode) has
+two forms, one contract, and ``_route`` picks by the operands alone:
+``"wgmma"`` (tensor cores fed by TMA) for fp16 and bf16 with hd 64 on
+TMA-ready strides, ``"simt"`` (the CUDA cores) for the rest. A route never
+gives way to the other when a build or a launch fails. Each wrapper counts
+tensor-core launches in ``.launches`` and CUDA-core launches in
+``.simt_launches``.
 
 Both reproduce the TPU kernel's conventions, so they agree with it bit for
 bit in the dropout mask and to rounding elsewhere:
@@ -263,8 +263,8 @@ def _kpad_arg(kpad_bias, device):
 def _flash_fwd(q, k, v, kpad_bias, seed, head0, scale, causal, window,
                dropout_rate, block_q, block_k, head_total, counter_len):
     """The forward kernel's wrapper: the plain version for CPU tensors,
-    ``csrc/flash_fwd.cu`` for CUDA tensors (bf16, fp16 or fp32; hd <= 256),
-    else it raises."""
+    ``csrc/flash_fwd.cu`` on ``_route``'s route for CUDA tensors (bf16, fp16
+    or fp32; hd <= 256), else it raises."""
     if q.device.type == "cpu":
         return flash_attention_reference(
             q, k, v, kpad_bias, seed, head0, scale, causal, window,
@@ -279,26 +279,21 @@ def _flash_fwd(q, k, v, kpad_bias, seed, head0, scale, causal, window,
         raise ValueError(f"block_q must be a multiple of {_KERNEL_BLOCK_Q}, got {bq}")
     q, k, v = _unit_stride(q, k, v)
     kpad, kpad_sb = _kpad_arg(kpad_bias, q.device)
-    has_dropout, seed_u, threshold, s_total, inv_keep = _dropout_args(seed, dropout_rate, counter_len, s_pad)
     o = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    lib = _kernel()
-    with torch.cuda.device(q.device):  # the launch goes to the current device
-        err = lib.smp_flash_fwd(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            kpad.data_ptr() if kpad is not None else None, None, None, o.data_ptr(), lse.data_ptr(),
-            B, T, S, H, hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], kpad_sb,
-            float(scale), int(bool(causal)), int(window or 0), has_dropout, seed_u,
-            threshold, s_total, inv_keep,
-            0 if head0 is None else int(head0),
-            H if head0 is None else int(head_total or H),
-            bq, bk, s_pad,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: {lib.smp_cuda_error_string(err).decode()}")
-    flash_attention.launches += 1
+    route = _route(q, k, v)
+    _launch(route, "flash_fwd", q.device, (
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kpad.data_ptr() if kpad is not None else None, None, None, o.data_ptr(), lse.data_ptr(),
+        B, T, S, H, hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], kpad_sb,
+        float(scale), int(bool(causal)), int(window or 0),
+        *_dropout_args(seed, dropout_rate, counter_len, s_pad),
+        0 if head0 is None else int(head0),
+        H if head0 is None else int(head_total or H),
+        bq, bk, s_pad,
+    ))
+    _count(flash_attention, route)
     return o, lse
 
 
@@ -343,8 +338,8 @@ def flash_attention(q, k, v, kpad_bias=None, seed=None, head0=None,
 
     CPU tensors run the plain versions (``flash_attention_reference``,
     ``flash_attention_bwd_reference``); CUDA tensors launch
-    ``csrc/flash_fwd.cu`` and, in the backward, ``csrc/flash_bwd.cu``
-    (bf16, fp16 or fp32; hd <= 256), or raise.
+    ``csrc/flash_fwd.cu`` and, in the backward, ``csrc/flash_bwd.cu``, each
+    on ``_route``'s route (bf16, fp16 or fp32; hd <= 256), or raise.
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -355,7 +350,8 @@ def flash_attention(q, k, v, kpad_bias=None, seed=None, head0=None,
     )
 
 
-flash_attention.launches = 0  # launches of csrc/flash_fwd.cu
+flash_attention.launches = 0  # launches of the tensor-core forward kernel
+flash_attention.simt_launches = 0  # launches of the CUDA-core forward kernel
 
 
 # ----------------------------------------------------------------------
@@ -452,24 +448,27 @@ def flash_attention_bwd_reference(q, k, v, o, do, lse, kpad_bias=None,
     return (_dq_from(ds, q, k),) + _dkv_from(ds, p_drop, q, k, v, do)
 
 
-_TC_HEAD_DIM = 64  # the head dim the tensor-core backward kernels take
+_TC_HEAD_DIM = 64  # the head dim the tensor-core kernels take
 
 
-def _route(q, k, v, do):
-    """The backward kernel that takes q, k, v and dO (each with a unit
-    head-dim stride): ``"wgmma"`` (tensor cores fed by TMA) for fp16 or bf16
-    with hd 64, 16-byte aligned bases and batch, row and head strides that
-    are positive multiples of 16 bytes, which are TMA's rules (q, k and v may
-    be views into a fused QKV output); else ``"simt"`` (the CUDA cores): fp32
-    (the tensor cores give fp32 only as TF32, which the contract excludes)
-    and every other head dim. hd 128 stays on the CUDA cores: at n = 128
-    the dk and dv accumulators (64 registers a thread each) with the score
-    tiles and A fragments (96) exceed the 216 registers a consumer thread
-    has in this design."""
+def _route(*operands):
+    """The kernel that takes the attention operands (q, k, v for the
+    forward; q, k, v and dO for the backward; each with a unit head-dim
+    stride): ``"wgmma"`` (tensor cores fed by TMA) for fp16 or bf16 with hd
+    64, 16-byte aligned bases and batch, row and head strides that are
+    positive multiples of 16 bytes, which are TMA's rules (q, k and v may be
+    views into a fused QKV output); else ``"simt"`` (the CUDA cores): fp32
+    (the tensor cores give fp32 only as TF32, which the contract excludes),
+    every other head dim, and empty operands. hd 128 stays on the CUDA
+    cores: at n = 128 the backward's dk and dv accumulators (64 registers a
+    thread each) with the score tiles and A fragments (96) exceed the 216
+    registers a consumer thread has in this design; the forward's would fit,
+    but its tests and timings are later work."""
+    q = operands[0]
     if q.dtype not in (torch.bfloat16, torch.float16) or q.shape[-1] != _TC_HEAD_DIM:
         return "simt"
-    for x in (q, k, v, do):
-        if x.data_ptr() % 16 or any(st <= 0 or st % 8 for st in x.stride()[:3]):
+    for x in operands:
+        if x.numel() == 0 or x.data_ptr() % 16 or any(st <= 0 or st % 8 for st in x.stride()[:3]):
             return "simt"
     return "wgmma"
 
@@ -513,9 +512,10 @@ def _bwd_launch(kernel, q, k, v, do, lse, delta, kpad_bias, dq, dk, dv, seed,
 
 
 def _launch(route, kernel, device, args):
-    """Call ``smp_<kernel>`` with ``route``'s kernel on ``device``'s current
+    """Call ``smp_<kernel>`` (``flash_fwd``, ``flash_bwd_dq`` or
+    ``flash_bwd_dkv``) with ``route``'s kernel on ``device``'s current
     stream; raise if the launch was refused."""
-    lib = _bwd_kernel()
+    lib = _kernel() if kernel == "flash_fwd" else _bwd_kernel()
     with torch.cuda.device(device):
         err = getattr(lib, f"smp_{kernel}")(int(route == "wgmma"), *args,
                                             torch.cuda.current_stream(device).cuda_stream)
@@ -753,8 +753,8 @@ def flash_fwd_with_ids(q, k, v, kpad_bias, q_ids, kv_ids, *, scale, causal, seed
     """One blockwise forward over a (q block, kv block) pair with global
     ids: ``(o [B, T, H, hd] fp32, lse [B, H, T] fp32 with the 1e30
     sentinel)``. The plain version for CPU tensors, ``csrc/flash_fwd.cu`` in
-    ids mode for CUDA tensors (bf16, fp16 or fp32; hd <= 256), else it
-    raises."""
+    ids mode on ``_route``'s route for CUDA tensors (bf16, fp16 or fp32; hd
+    <= 256), else it raises."""
     if q.device.type == "cpu":
         return flash_fwd_with_ids_reference(
             q, k, v, kpad_bias, q_ids, kv_ids, scale=scale, causal=causal, seed=seed,
@@ -771,25 +771,20 @@ def flash_fwd_with_ids(q, k, v, kpad_bias, q_ids, kv_ids, *, scale, causal, seed
     q, k, v = _unit_stride(q, k, v)
     kpad, kpad_sb = _kpad_arg(kpad_bias, q.device)
     qi, ki = _ids_arg(q_ids, q.device), _ids_arg(kv_ids, q.device)
-    has_dropout, seed_u, threshold, s_total, inv_keep = _dropout_args(seed, dropout_rate, counter_len, s_pad)
     o = torch.empty((B, T, H, hd), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    lib = _kernel()
-    with torch.cuda.device(q.device):
-        err = lib.smp_flash_fwd(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            kpad.data_ptr() if kpad is not None else None, qi.data_ptr(), ki.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), B, T, S, H, hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], kpad_sb,
-            float(scale), int(bool(causal)), 0, has_dropout, seed_u, threshold, s_total, inv_keep,
-            0 if head0 is None else int(head0),
-            H if head0 is None else int(head_total or H),
-            bq, bk, s_pad,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd (ids) launch failed: {lib.smp_cuda_error_string(err).decode()}")
-    flash_fwd_with_ids.launches += 1
+    route = _route(q, k, v)
+    _launch(route, "flash_fwd", q.device, (
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kpad.data_ptr() if kpad is not None else None, qi.data_ptr(), ki.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), B, T, S, H, hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], kpad_sb,
+        float(scale), int(bool(causal)), 0, *_dropout_args(seed, dropout_rate, counter_len, s_pad),
+        0 if head0 is None else int(head0),
+        H if head0 is None else int(head_total or H),
+        bq, bk, s_pad,
+    ))
+    _count(flash_fwd_with_ids, route)
     return o, lse
 
 
@@ -826,7 +821,8 @@ def flash_bwd_dkv_ids(q, k, v, do, lse, delta, kpad_bias, q_ids, kv_ids, *, scal
     return dk, dv
 
 
-flash_fwd_with_ids.launches = 0  # launches of csrc/flash_fwd.cu in ids mode
+flash_fwd_with_ids.launches = 0  # tensor-core launches, as flash_attention's
+flash_fwd_with_ids.simt_launches = 0
 flash_bwd_dq_ids.launches = 0  # tensor-core launches, as flash_bwd_dq's
 flash_bwd_dq_ids.simt_launches = 0
 flash_bwd_dkv_ids.launches = 0
@@ -870,7 +866,7 @@ def _kernel():
             ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
         )
         lib.smp_flash_fwd.argtypes = (
-            [c_int] + [c_ptr] * 8 + [c_int] * 5 + [c_ll] * 13
+            [c_int, c_int] + [c_ptr] * 8 + [c_int] * 5 + [c_ll] * 13
             + [c_float, c_int, c_int, c_int, c_uint, c_uint, c_uint, c_float]
             + [c_int] * 5 + [c_ptr]
         )

@@ -8,7 +8,7 @@ Here they are the three kernels of ``csrc/fused_ce.cu``, wired together by
 a ``torch.autograd.Function``. Each kernel's wrapper (``fused_ce_fwd``,
 ``fused_ce_bwd_dx``, ``fused_ce_bwd_dw``) runs its plain PyTorch version for
 tensors on the CPU and its kernel for CUDA tensors; it never falls back from
-one to the other, and counts its kernel's launches in ``.launches``.
+one to the other.
 
 The CE of ``x @ w^T`` (x [N, D], w [V, D], the tied head's layout) never
 materializes the [N, V] logits. Both versions reproduce the TPU kernels'
@@ -27,9 +27,13 @@ coordinates only: ``block_v`` sets the plain versions' vocab chunks (their
 memory is O(N * block_v)); the CUDA kernels' own tiles are stated in
 ``csrc/fused_ce.cu``.
 
-The forward has one kernel, on the CUDA cores (64 x 64 tiles of z, D
-streamed 32 columns at a time, so every D runs). The backward has two for
-each of dx and dW, one contract, and ``_route`` picks by the operands alone:
+Each kernel has two forms, one contract, picked by the operands alone. The
+forward's ``_fwd_route``: ``"wgmma"`` (tensor cores fed by TMA: 128 x 256
+tiles of z in registers, D streamed, an online-softmax epilogue) for bf16 or
+fp16 x and w, contiguous, D a multiple of 8 on 16-byte aligned bases;
+``"simt"`` (the CUDA cores: 64 x 64 tiles of z, D streamed 32 columns at a
+time, so every D runs) for the rest. The backward's ``_route``, for each of
+dx and dW:
 ``"wgmma"`` (tensor cores fed by TMA: a cluster of ceil(D / 256) CTAs splits
 D, each holds its 256 columns of the fp32 sum of 128 owned rows in
 registers, and fp32 dlog enters the products as a bf16 hi/lo pair) for bf16
@@ -37,9 +41,9 @@ x and w, contiguous, D a multiple of 8 up to 2048 on 16-byte aligned bases;
 ``"simt"`` (the CUDA cores, 64 x 64 tiles, D streamed) for the rest. fp32
 has no tensor-core form in the contract (TF32 keeps 11 bits), and fp16
 would flush dlog (~p / N, often below 6e-5) into its subnormals. A route
-never gives way to the other when a build or a launch fails.
-``fused_ce_bwd_dx.launches`` / ``fused_ce_bwd_dw.launches`` count the
-tensor-core launches, ``.simt_launches`` the CUDA-core ones.
+never gives way to the other when a build or a launch fails. Each wrapper's
+``.launches`` counts the tensor-core launches, ``.simt_launches`` the
+CUDA-core ones.
 """
 
 import ctypes
@@ -54,6 +58,7 @@ _KERNEL_TILE = 64  # rows and vocab columns of a tile of csrc/fused_ce.cu
 _MAX_CHUNKS = 16   # bounds the fp32 partial buffers: chunks x rows x D
 _TC_OWNED = 128    # owned rows of a tensor-core cluster
 _TC_MAX_D = 2048   # 256 columns a CTA, 8 CTAs a cluster (the portable limit)
+_TC_FWD_ROWS, _TC_FWD_COLS = 128, 256  # a tensor-core forward CTA's rows, and the vocab columns of its tiles
 
 
 def _chunks(width, lo, hi):
@@ -178,16 +183,12 @@ def _chunk_tiles(owned, walked, device):
     return per, -(-walked_tiles // per)
 
 
-def _cluster_chunks(owned, walked, max_clusters):
-    """(tiles per chunk, chunks) of the walked dimension for the tensor-core
-    backward, whose grid is one cluster per (128 owned rows, chunk) and of
-    which ``max_clusters`` fit the card at once: the fewest chunks (at most
-    ``_MAX_CHUNKS``) whose clusters fill at least 85% of the card's last
-    wave, else the chunk count that fills it best. One chunk needs no fp32
-    partial buffer."""
-    blocks = -(-owned // _TC_OWNED)
-    walked_tiles = -(-walked // _KERNEL_TILE)
-    mc = max(1, max_clusters)
+def _fill_chunks(blocks, walked_tiles, slots):
+    """(tiles per chunk, chunks) of a walk of ``walked_tiles`` tiles split
+    over a grid of ``blocks`` x chunks, of which ``slots`` run at once: the
+    fewest chunks (at most ``_MAX_CHUNKS``) that fill at least 85% of the
+    card's last wave, else the chunk count that fills it best."""
+    mc = max(1, slots)
 
     def fill(c):
         return blocks * c / (-(-blocks * c // mc) * mc)
@@ -198,6 +199,22 @@ def _cluster_chunks(owned, walked, max_clusters):
         chunks = max(candidates, key=lambda c: (fill(c), -c))
     per = -(-walked_tiles // chunks)
     return per, -(-walked_tiles // per)
+
+
+def _cluster_chunks(owned, walked, max_clusters):
+    """(tiles per chunk, chunks) of the walked dimension for the tensor-core
+    backward, whose grid is one cluster per (128 owned rows, chunk) and of
+    which ``max_clusters`` fit the card at once (``_fill_chunks``). One chunk
+    needs no fp32 partial buffer."""
+    return _fill_chunks(-(-owned // _TC_OWNED), -(-walked // _KERNEL_TILE), max_clusters)
+
+
+def _fwd_chunks(N, V, sms):
+    """(256-wide vocab tiles per chunk, chunks) for the tensor-core forward,
+    whose grid is one CTA per (128 rows, chunk), one CTA an SM (its ring
+    takes 192 KB of shared memory), so ``sms`` run at once
+    (``_fill_chunks``)."""
+    return _fill_chunks(-(-N // _TC_FWD_ROWS), -(-V // _TC_FWD_COLS), sms)
 
 
 _MAX_CLUSTERS = {}  # (device index, dw, D) -> cudaOccupancyMaxActiveClusters
@@ -231,34 +248,73 @@ def _route(x, w):
     return "wgmma" if x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 else "simt"
 
 
+def _fwd_route(x, w):
+    """The forward kernel that takes x [N, D] and w [V, D]: ``"wgmma"`` for
+    bf16 or fp16, both of one dtype, contiguous, D a multiple of 8 on
+    16-byte aligned bases (D has no upper bound: it is the K loop); else
+    ``"simt"``: fp32 (no TF32 in the contract), ragged or misaligned
+    operands."""
+    if x.dtype not in (torch.bfloat16, torch.float16) or w.dtype != x.dtype:
+        return "simt"
+    D = x.shape[-1]
+    if not (D > 0 and D % 8 == 0 and x.is_contiguous() and w.is_contiguous()):
+        return "simt"
+    return "wgmma" if x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 else "simt"
+
+
 def _args(x, w, targets):
     return x.contiguous(), w.contiguous(), targets.to(torch.int32).contiguous()
 
 
+def _count(fn, route):
+    """One launch of ``fn``'s kernel: ``.launches`` counts the tensor-core
+    route, ``.simt_launches`` the CUDA-core route."""
+    if route == "wgmma":
+        fn.launches += 1
+    else:
+        fn.simt_launches += 1
+
+
 def fused_ce_fwd(x, w, targets, smoothing=0.0, block_v=1024):
     """Forward statistics ``(lse, tgt, logit_sum or None)``, fp32 [N]: the
-    plain version for CPU tensors, ``csrc/fused_ce.cu``'s forward kernel
-    (``_fwd_kernel``'s counterpart) for CUDA tensors, else it raises."""
+    plain version for CPU tensors, one of ``csrc/fused_ce.cu``'s forward
+    kernels (``_fwd_kernel``'s counterparts; ``_fwd_route`` picks) for CUDA
+    tensors, else it raises."""
     if not _is_cuda(x):
         return fused_ce_fwd_reference(x, w, targets, smoothing, block_v)
     _check_cuda("fused_ce_fwd", x, w, targets)
+    route = _fwd_route(x, w)
     x, w, t = _args(x, w, targets)
-    (N, D), V = x.shape, w.shape[0]
-    per, chunks = _chunk_tiles(N, V, x.device)
-    part = torch.empty((4, chunks, N), dtype=torch.float32, device=x.device)
+    N = x.shape[0]
     lse, tgt = (torch.empty(N, dtype=torch.float32, device=x.device) for _ in range(2))
     lsum = torch.empty(N, dtype=torch.float32, device=x.device) if smoothing else None
+    _fwd_launch(route, x, w, t, lse, tgt, lsum)
+    _count(fused_ce_fwd, route)
+    return lse, tgt, lsum
+
+
+def _fwd_launch(route, x, w, t, lse, tgt, lsum):
+    """Launch ``route``'s forward kernel of ``csrc/fused_ce.cu`` and the
+    merge of its chunks into lse, tgt and lsum (the logit sum, or None
+    without smoothing) on x's device and current stream; raise if the launch
+    was refused."""
+    (N, D), V = x.shape, w.shape[0]
     lib = _kernel()
+    if route == "wgmma":
+        per, chunks = _fwd_chunks(N, V, torch.cuda.get_device_properties(x.device).multi_processor_count)
+        entry = lib.smp_fused_ce_fwd_wgmma
+    else:
+        per, chunks = _chunk_tiles(N, V, x.device)
+        entry = lib.smp_fused_ce_fwd
+    part = torch.empty((4, chunks, N), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.smp_fused_ce_fwd(
+        err = entry(
             _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), t.data_ptr(), N, V, D,
-            int(bool(smoothing)), per, part.data_ptr(), lse.data_ptr(), tgt.data_ptr(),
+            int(lsum is not None), per, part.data_ptr(), lse.data_ptr(), tgt.data_ptr(),
             None if lsum is None else lsum.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"fused_ce_fwd launch failed: {lib.smp_cuda_error_string(err).decode()}")
-    fused_ce_fwd.launches += 1
-    return lse, tgt, lsum
+        raise RuntimeError(f"fused_ce_fwd ({route}) launch failed: {lib.smp_cuda_error_string(err).decode()}")
 
 
 def _bwd_launch(fn, dw, x, w, targets, lse, g, smoothing, smooth_denom):
@@ -274,10 +330,7 @@ def _bwd_launch(fn, dw, x, w, targets, lse, g, smoothing, smooth_denom):
     out = torch.empty((w.shape[0] if dw else x.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
     eps = float(smoothing)
     _launch(route, dw, x, w, t, lse, g, eps, eps / (smooth_denom or w.shape[0]) if eps else 0.0, out)
-    if route == "wgmma":
-        fn.launches += 1
-    else:
-        fn.simt_launches += 1
+    _count(fn, route)
     return out
 
 
@@ -330,7 +383,8 @@ def fused_ce_bwd_dw(x, w, targets, lse, g, smoothing=0.0, smooth_denom=None,
     return _bwd_launch(fused_ce_bwd_dw, True, x, w, targets, lse, g, smoothing, smooth_denom)
 
 
-fused_ce_fwd.launches = 0          # launches of csrc/fused_ce.cu's forward
+fused_ce_fwd.launches = 0          # launches of csrc/fused_ce.cu's tensor-core forward
+fused_ce_fwd.simt_launches = 0     # ... of its CUDA-core forward
 fused_ce_bwd_dx.launches = 0       # ... of its tensor-core dx kernel
 fused_ce_bwd_dx.simt_launches = 0  # ... of its CUDA-core dx kernel
 fused_ce_bwd_dw.launches = 0       # ... of its tensor-core dW kernel
@@ -377,8 +431,8 @@ def fused_lm_head_ce(x, w, targets, block_n=256, block_v=1024, label_smoothing=0
     the plain versions nor the kernels tile rows by it.
 
     CPU tensors run the plain versions; CUDA tensors launch
-    ``csrc/fused_ce.cu`` (fp32, fp16 or bf16; any D; the backward on the
-    tensor cores where ``_route`` allows), or raise. x and w of
+    ``csrc/fused_ce.cu`` (fp32, fp16 or bf16; any D; on the tensor cores
+    where ``_fwd_route`` and ``_route`` allow), or raise. x and w of
     different dtypes meet in the wider one (both kernels compute in fp32)."""
     if x.dtype != w.dtype:
         dtype = torch.promote_types(x.dtype, w.dtype)
@@ -426,8 +480,9 @@ def _kernel():
 
         lib = _build.load("fused_ce")
         c_int, c_float, c_ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-        lib.smp_fused_ce_fwd.argtypes = [c_int] + [c_ptr] * 3 + [c_int] * 5 + [c_ptr] * 5
-        lib.smp_fused_ce_fwd.restype = c_int
+        for entry in (lib.smp_fused_ce_fwd, lib.smp_fused_ce_fwd_wgmma):
+            entry.argtypes = [c_int] + [c_ptr] * 3 + [c_int] * 5 + [c_ptr] * 5
+            entry.restype = c_int
         for entry in (lib.smp_fused_ce_bwd, lib.smp_fused_ce_bwd_wgmma):
             entry.argtypes = [c_int, c_int] + [c_ptr] * 5 + [c_int] * 4 + [c_float, c_float, c_int] + [c_ptr] * 3
             entry.restype = c_int

@@ -10,6 +10,12 @@ Each kernel is held against its plain PyTorch version, which the CPU tests
 hold against the JAX package. Tolerances: fp32 runs the same arithmetic,
 summation order and online softmax aside, so 1e-4; bf16 rounds P to bf16
 against different row maxima, so O to 2e-2 while LSE (fp32) stays 1e-3.
+The flash forward has a tensor-core kernel (fp16 and bf16 at hd 64) and a
+CUDA-core kernel, in plain and ids mode: on chip_smoke's cases, ragged
+lengths and fused-QKV views the tensor cores agree with the plain version
+(chip_smoke's ``TOL``), with the CUDA-core kernel forced on the same inputs
+and with a repeat launch (``fwd_check``). So does the CE forward, in bf16
+and fp16 (``_ce_compare``).
 The backward kernels: fp32 1e-4 and bf16 2e-2 of the largest gradient
 (ds and p are rounded to bf16 after fp32 products summed in another order).
 The fused cross-entropy kernels: the forward statistics (fp32 in both
@@ -50,6 +56,7 @@ from chip_smoke import (
     CASES as SMOKE_CASES,
     CE_CASES,
     CE_TOL,
+    TOL as SMOKE_TOL,
     _ce_compare,
     FP8_CASES,
     GELU_CASES,
@@ -63,7 +70,8 @@ from chip_smoke import (
     gelu_compare,
     gelu_inputs,
     bwd_check,
-    bwd_route,
+    flash_route,
+    fwd_check,
     ids_compare,
     ids_inputs,
     mb_compare,
@@ -143,10 +151,11 @@ def test_flash_fwd_matches_plain_version(cuda, case, dtype):
         kpad[1, :50] = -1e30  # left padding: rows < 50 see only pad keys
         kpad[2, :] = -1e30    # a fully padded sequence
         kw["kpad_bias"] = kpad
-    before = flash_attention.launches
+    counter = "launches" if flash_route(dtype, hd) == "wgmma" else "simt_launches"  # the route's count
+    before = getattr(flash_attention, counter)
     o, lse = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert getattr(flash_attention, counter) == before + 1
     o_ref, lse_ref = flash_attention_reference(q, k, v, **kw)
     tol_o, tol_lse = TOL[dtype]
     torch.testing.assert_close(o.float(), o_ref.float(), rtol=0, atol=tol_o)
@@ -163,6 +172,80 @@ def test_flash_fwd_rejects_what_it_cannot_run(cuda):
         flash_attention(q, q, q)
 
 
+def _fwd_case(name, dtype, cuda):
+    """chip_smoke.CASES' case: (run, want, route, v_max, rate) for fwd_check."""
+    _, B, T, S, H, hd, kw = next(c for c in SMOKE_CASES if c[0] == name)
+    kw = dict(kw)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(B, L, H, hd, generator=gen, device=cuda).to(dtype) for L in (T, S, S))
+    if kw.pop("kpad", None):
+        kpad = torch.zeros(B, S, device=cuda)
+        kpad[1, :50] = -1e30  # left padding: rows < 50 see only pad keys
+        kpad[2, :] = -1e30    # a fully padded sequence
+        kw["kpad_bias"] = kpad
+    want = flash_attention_reference(q, k, v, **kw)
+    return (lambda: flash_attention(q, k, v, **kw)), want, flash_route(dtype, hd), float(v.float().abs().max()), \
+        kw.get("dropout_rate", 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("case", [c[0] for c in SMOKE_CASES])
+def test_flash_fwd_routes_agree_and_repeat_bit_equal(cuda, case, dtype):
+    """Every chip_smoke case in bf16 and fp16 on ``_route``'s route: the
+    tensor cores at hd 64 (fully-masked rows, windows, dropout, T != S and
+    ragged lengths included), where the kernel agrees with the CUDA-core
+    kernel forced on the same inputs (FWD_SIMT_ULP, FWD_SIMT_LSE) and a
+    second launch gives equal bits; the CUDA cores elsewhere. Both against
+    the plain version (chip_smoke.TOL)."""
+    run, want, route, v_max, rate = _fwd_case(case, dtype, cuda)
+    _, ok, detail = fwd_check(run, want, flash_attention, route, dtype, SMOKE_TOL[dtype], v_max, rate)
+    assert ok, detail
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("case", ["t1000", "t77_s130", "t65_s63", "t1_s200"])
+def test_flash_fwd_tensor_cores_on_ragged_lengths(cuda, case, causal):
+    """Partial first and last tiles on the tensor cores: T above and below S,
+    one row past a tile, one row; K/V rows past S arrive from TMA as zeros
+    and must not be visited."""
+    B, T, S, H = RAGGED_BWD[case]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(B, L, H, 64, generator=gen, device=cuda).to(torch.bfloat16) for L in (T, S, S))
+    want = flash_attention_reference(q, k, v, causal=causal)
+    _, ok, detail = fwd_check(lambda: flash_attention(q, k, v, causal=causal), want, flash_attention, "wgmma",
+                              torch.bfloat16, SMOKE_TOL[torch.bfloat16], float(v.float().abs().max()))
+    assert ok, detail
+
+
+@pytest.mark.cuda
+def test_flash_fwd_tensor_cores_read_fused_qkv_views(cuda):
+    """q, k and v as views into one [B * T, 3 * H * 64] fused QKV output (rows
+    3 H 64 apart, k and v offset into the row) take the tensor cores as they
+    lie and agree with the plain version on contiguous copies."""
+    B, T, H = 2, 300, 12
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn(B * T, 3 * H * 64, generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = (qkv[:, i * H * 64:(i + 1) * H * 64].view(B, T, H, 64) for i in range(3))
+    assert fa_mod._route(q, k, v) == "wgmma" and not q.is_contiguous()
+    want = flash_attention_reference(*(x.contiguous() for x in (q, k, v)))
+    _, ok, detail = fwd_check(lambda: flash_attention(q, k, v), want, flash_attention, "wgmma", torch.bfloat16,
+                              SMOKE_TOL[torch.bfloat16], float(v.float().abs().max()))
+    assert ok, detail
+
+
+@pytest.mark.cuda
+def test_flash_fwd_tensor_core_route_refuses_what_it_cannot_run(cuda, monkeypatch):
+    """Forced onto the tensor cores, fp32 and hd 128 are refused by the
+    kernel's entry and the wrapper raises: no route stands in for the other."""
+    monkeypatch.setattr(fa_mod, "_route", lambda *a: "wgmma")
+    for dtype, hd in ((torch.float32, 64), (torch.bfloat16, 128)):
+        q = torch.zeros(1, 128, 2, hd, device=cuda, dtype=dtype)
+        with pytest.raises(RuntimeError, match="wgmma"):
+            flash_attention(q, q, q)
+
+
 @pytest.mark.cuda
 def test_generate_on_card_matches_cpu(cuda):
     """fp32 greedy generation: the card (flash kernel in the prefill) and the
@@ -175,9 +258,9 @@ def test_generate_on_card_matches_cpu(cuda):
     ids = torch.randint(0, 97, (2, 160), generator=torch.Generator().manual_seed(1))
     want = smp_torch.generate(module, ids, 8, params=module.state_dict())
     gpu = smp_torch.DistributedModel(module, device=cuda)
-    before = flash_attention.launches
+    before = flash_attention.simt_launches
     got = smp_torch.generate(gpu, ids, 8).cpu()
-    assert flash_attention.launches == before + 2  # one per layer, prefill only
+    assert flash_attention.simt_launches == before + 2  # one per layer, prefill only; fp32: the CUDA cores
     assert torch.equal(got, want)
 
 
@@ -201,7 +284,7 @@ def test_flash_bwd_matches_plain_version(cuda, case, dtype):
         kw["kpad_bias"] = kpad
     o, lse = flash_attention_reference(q, k, v, **kw)
     delta = attention_delta(o, do)
-    counter = "launches" if bwd_route(dtype, hd) == "wgmma" else "simt_launches"  # the route's count
+    counter = "launches" if flash_route(dtype, hd) == "wgmma" else "simt_launches"  # the route's count
     before = (getattr(flash_bwd_dq, counter), getattr(flash_bwd_dkv, counter))
     dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
@@ -232,7 +315,7 @@ def _bwd_case(name, dtype, cuda):
     def run():
         return (flash_bwd_dq(q, k, v, do, lse, delta, **kw),) + flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
 
-    return run, want, bwd_route(dtype, hd), SMOKE_BWD_TOL[dtype]
+    return run, want, flash_route(dtype, hd), SMOKE_BWD_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -300,8 +383,8 @@ def test_attention_core_grad_through_kernels_matches_cpu(cuda):
         (out.float() ** 2).sum().backward()
         return lin.weight.grad.cpu()
 
-    def count():  # fp32: the backward takes the CUDA-core route
-        return (flash_attention.launches, flash_bwd_dq.simt_launches, flash_bwd_dkv.simt_launches)
+    def count():  # fp32: the forward and the backward take the CUDA-core route
+        return (flash_attention.simt_launches, flash_bwd_dq.simt_launches, flash_bwd_dkv.simt_launches)
 
     launches = count()
     got = grad(cuda)
@@ -374,12 +457,12 @@ def _ce_case(device, N, V, D, dtype, kw, seed=0):
 def test_fused_ce_kernels_match_plain_versions(cuda, case, dtype):
     N, V, D, kw = CE_SWEEP[case]
     x, w, t, g, eps, denom = _ce_case(cuda, N, V, D, dtype, kw)
-    # The backward's launches count on its route's counter: bf16 the tensor
-    # cores (.launches), fp32 the CUDA cores (.simt_launches).
+    # The launches count on their route's counter: bf16 the tensor cores
+    # (.launches), fp32 the CUDA cores (.simt_launches).
     counter = "launches" if dtype == torch.bfloat16 else "simt_launches"
 
     def count():
-        return (fused_ce_fwd.launches, getattr(fused_ce_bwd_dx, counter), getattr(fused_ce_bwd_dw, counter))
+        return tuple(getattr(fn, counter) for fn in (fused_ce_fwd, fused_ce_bwd_dx, fused_ce_bwd_dw))
 
     before = count()
     stats = fused_ce_fwd(x, w, t, eps)
@@ -430,8 +513,8 @@ def test_fused_ce_grads_through_kernels_match_cpu(cuda, label_smoothing):
     t[::9] = -100
     runs = {}
 
-    def count():  # fp32: the backward takes the CUDA-core route
-        return (fused_ce_fwd.launches, fused_ce_bwd_dx.simt_launches, fused_ce_bwd_dw.simt_launches)
+    def count():  # fp32: every kernel takes the CUDA-core route
+        return (fused_ce_fwd.simt_launches, fused_ce_bwd_dx.simt_launches, fused_ce_bwd_dw.simt_launches)
 
     before = count()
     for device in (cuda, "cpu"):
@@ -459,6 +542,34 @@ def test_fused_ce_bwd_routes_agree_and_repeat_bit_equal(cuda, case):
         assert ok, (name, detail)
         if name != "fused_ce_fwd":
             assert detail.startswith("route wgmma"), (name, detail)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("case", sorted(CE_SWEEP))
+def test_fused_ce_fwd_routes_agree_and_repeat_bit_equal(cuda, case, dtype):
+    """Every chip_smoke CE case (ragged N and V, smoothing, targets outside
+    [0, V)) in bf16 and fp16: the forward on the tensor cores, within
+    CE_FWD_TOL of the plain version and of the CUDA-core kernel forced on
+    the same inputs, and a second launch gives equal bits."""
+    N, V, D, kw = CE_SWEEP[case]
+    x, w, t, g, eps, denom = _ce_case(cuda, N, V, D, dtype, kw, seed=3)
+    (_, ok, detail), = _ce_compare(x, w, t, g, eps, denom, backward=False).values()
+    assert ok, detail
+    assert detail.startswith("route wgmma"), detail
+
+
+@pytest.mark.cuda
+def test_fused_ce_fwd_tensor_core_route_refuses_what_it_cannot_run(cuda, monkeypatch):
+    """Forced onto the tensor cores, fp32 operands and a D that is not a
+    multiple of 8 are refused by the kernel's entry and the wrapper raises."""
+    monkeypatch.setattr(ce_mod, "_fwd_route", lambda *a: "wgmma")
+    for dtype, D in ((torch.float32, 64), (torch.bfloat16, 12)):
+        x = torch.zeros(64, D, device=cuda, dtype=dtype)
+        w = torch.zeros(100, D, device=cuda, dtype=dtype)
+        t = torch.zeros(64, dtype=torch.long, device=cuda)
+        with pytest.raises(RuntimeError, match="wgmma"):
+            fused_ce_fwd(x, w, t)
 
 
 @pytest.mark.cuda
@@ -763,9 +874,11 @@ IDS_SWEEP = {c[0]: c[1:] for c in IDS_CASES}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("case", sorted(IDS_SWEEP))
 def test_flash_ids_kernels_match_plain_versions(cuda, case, dtype):
+    """Each ids-mode kernel on its route against its plain version (and on
+    the tensor cores against the CUDA-core route and a repeat launch)."""
     B, Tl, H, hd, n, me, src, kw = IDS_SWEEP[case]
     gen = torch.Generator(device=cuda).manual_seed(0)
     errs, ok, detail = ids_compare(*ids_inputs(B, Tl, H, hd, n, me, src, dtype, gen, kw))
@@ -796,11 +909,11 @@ def _cp_card_worker(rank, world):
     for impl in ("ring", "ulysses"):
         smp.init({"context_parallel_degree": world, "ddp": True, "context_parallel_impl": impl}, device="cuda:0")
         ql, kl, vl = (x[:, sl].cuda().requires_grad_() for x in (q, k, v))
-        flash_fwd_with_ids.launches = 0
+        flash_fwd_with_ids.simt_launches = 0  # fp32: the CUDA-core route
         o = cp_attention(ql, kl, vl, scale=0.125, causal=True)
         (o * g[:, sl].cuda()).sum().backward()
         out[impl] = [x.detach().cpu().numpy() for x in (o, ql.grad, kl.grad, vl.grad)]
-        out[impl + "_launches"] = flash_fwd_with_ids.launches
+        out[impl + "_launches"] = flash_fwd_with_ids.simt_launches
     return out
 
 
