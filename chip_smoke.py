@@ -45,7 +45,8 @@ csrc`` (one nvcc per source, all started together), then:
      bf16, 8 x 1024 tokens in 4 microbatches, AdamW; warm-up steps, then
      timed steps whose launches are counted (48 ``matmul_bias`` launches a
      step on its tensor-core route and none on its CUDA-core route, 48
-     ``bias_gelu_fwd`` and ``bias_gelu_bwd``, and 48 of each flash kernel).
+     ``bias_gelu_fwd`` and ``bias_gelu_bwd`` on their "vec" route and none
+     on "simt", and 48 of each flash kernel).
      The loss must fall and stay finite. Its unfused twin (``fused_qkv:
      False``, ``fused_bias_gelu=False``) from the same weights
      launches none of the three, and its losses and one step's qkv and fc
@@ -81,14 +82,17 @@ csrc`` (one nvcc per source, all started together), then:
      off-diagonal step, key padding, dropout with a head remap) and a sweep.
      Every kernel with two routes (``matmul_bias``, ``matmul_fp8``, the
      flash forward and backward in plain and ids mode, the fused-CE forward
-     and backward) prints the route each case took (tensor cores or CUDA
-     cores), which must be its ``_route``'s: the flash kernels take the
+     and backward, the bias-GELU forward and backward: "vec" or "simt")
+     prints the route each case took (tensor cores or CUDA cores), which must
+     be its ``_route``'s: the flash kernels take the
      tensor cores for fp16 and bf16 at hd 64, the CE forward for fp16 and
      bf16, the CE backward for bf16; there each is also held against its
      CUDA-core kernel forced on the same inputs (a bound stated beside its
      tolerance) and a repeat launch must give equal bits. ``matmul_bias``
      runs its sweep in fp32, bf16 and fp16, the flash kernels FP16_CASES in
-     fp16, the CE forward every case in fp16.
+     fp16, the CE forward every case in fp16. The bias-GELU wrappers run
+     GELU_CASES in fp32, bf16 and fp16: y and dx within GELU_TOL, db within
+     the fp32 summation-order bound (``gelu_db_tol``), repeats bit-equal.
   C. times: kernel, plain version and the one PyTorch library call that
      computes the same function; and the bound (the least time the card
      could take for the same work; the ids-mode kernels against SDPA with
@@ -191,17 +195,41 @@ def cuda_graph_time_ms(fn, iters=20, replays=5, stream=None):
     return start.elapsed_time(end) / (iters * replays)
 
 
-def library_bwd_ms(forward, inputs, grad):
+def rotating(fn, sets):
+    """A call of ``fn`` on each argument tuple of ``sets`` in turn, one a
+    call. With copies of the inputs that together exceed the card's 50 MB
+    L2, each call finds its inputs cold, as the path finds a tensor it wrote
+    long before (replaying one set would time reads from L2)."""
+    turn = [0]
+
+    def call():
+        turn[0] += 1
+        return fn(*sets[turn[0] % len(sets)])
+
+    return call
+
+
+def copies_of(tensors, n):
+    """``n`` argument tuples: ``tensors`` and ``n - 1`` clones of them."""
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+
+
+def library_bwd_ms(forward, inputs, grad, copies=1):
     """Device ms of the autograd backward of ``forward(*inputs)`` (the
     gradients of every input) for the output gradient ``grad``, by graph
     replay: the forward runs on a side stream, where autograd then runs the
-    backward, so the capture holds only the backward's kernels."""
+    backward, so the capture holds only the backward's kernels. ``copies``
+    > 1: as many forwards on copies of the inputs, their backwards in turn
+    (``rotating``)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
+    runs = []
     with torch.cuda.stream(side):
-        xs = [x.detach().requires_grad_() for x in inputs]
-        out = forward(*xs)
-    return cuda_graph_time_ms(lambda: torch.autograd.grad(out, xs, grad, retain_graph=True), stream=side)
+        for args in copies_of([*inputs, grad], copies):
+            xs = [x.detach().requires_grad_() for x in args[:-1]]
+            runs.append((forward(*xs), xs, args[-1]))
+    return cuda_graph_time_ms(rotating(lambda out, xs, g: torch.autograd.grad(out, xs, g, retain_graph=True), runs),
+                              stream=side)
 
 
 def sdpa_bwd_ms(q, k, v, do, **sdpa_kw):
@@ -761,11 +789,12 @@ def _check_route(label, launches):
         raise RuntimeError(f"{label}: launches on the CUDA-core route: {simt}")
 
 
-def _route_taken(fn, before):
-    """Which route ``fn`` (a wrapper with ``.launches`` and
-    ``.simt_launches``) launched since its counts were ``before``."""
+def _route_taken(fn, before, fast="wgmma"):
+    """Which route ``fn`` (a wrapper with ``.launches``, counting its route
+    ``fast``, and ``.simt_launches``) launched since its counts were
+    ``before``."""
     moved = (fn.launches - before[0], fn.simt_launches - before[1])
-    return {(1, 0): "wgmma", (0, 1): "simt"}.get(moved, f"launches moved by {moved}")
+    return {(1, 0): fast, (0, 1): "simt"}.get(moved, f"launches moved by {moved}")
 
 
 def _lm_setup(init_state, fused, device, cfg=LM_CFG, microbatches=TRAIN_MB, bf16=True, **smp_cfg):
@@ -884,7 +913,8 @@ def phase_l():
     small_state = small.state_dict()
     ids_s = torch.randint(0, 97, (4, 128), generator=torch.Generator().manual_seed(SEED))
     runs = {}
-    new = {**_new_counters(), "matmul_bias_simt": _simt_counters()["matmul_bias_simt"]}
+    new = {**_new_counters(),
+           **{k: c for k, c in _simt_counters().items() if k.startswith(("matmul_bias", "bias_gelu"))}}
     for device in ("cuda", "cpu"):
         before = {k: fn.launches for k, fn in new.items()}
         m, opt, step_fn = _lm_setup(small_state, True, device, small_cfg, microbatches=2, bf16=False)
@@ -902,8 +932,9 @@ def phase_l():
     # fp32 throughout; only the summation order differs. AdamW moves a
     # parameter whose gradient is zero but for rounding (the key bias) by up
     # to ~lr a step in a direction the rounding picks: 3 steps, 2 lr each.
-    # fp32 operands take matmul_bias's CUDA-core route (no TF32).
-    want_small = {k: 0 if k == "matmul_bias" else 3 * 2 * 2 for k in new}
+    # fp32 operands take matmul_bias's CUDA-core route (no TF32); the
+    # bias-GELU kernels their "vec" route (rows of 2048 bytes).
+    want_small = {k: 3 * 2 * 2 if k in ("matmul_bias_simt", "bias_gelu_fwd", "bias_gelu_bwd") else 0 for k in new}
     if loss_rel > 1e-4 or param_err > 1e-3 or runs["cuda"][2] != want_small or any(runs["cpu"][2].values()):
         raise RuntimeError("the card's fp32 smp.nn training disagrees with the CPU's")
     smp.reset()
@@ -1392,26 +1423,34 @@ MB_CASES = [
     ("qkv_path_n2047", 2047, 768, 2304, {}),
 ]
 # (name, N, F, kwargs) of the bias_gelu kernels: the MLP epilogue of the
-# smp.nn path, few rows, ragged N and F, GPT-2 1.5B's intermediate width, and
-# b and g with zeros.
+# smp.nn path, few rows, ragged N and F (F % 8 != 0: the "simt" route),
+# GPT-2 1.5B's intermediate width, b and g with zeros, x a view one element
+# off a 16-byte base ("simt"), N not a multiple of the backward's band of
+# rows, and an fp32 bias beside x of each dtype.
 GELU_CASES = [
     ("mlp_path", 2048, 3072, {}),
     ("few_rows_n8", 8, 3072, {}),
     ("ragged_1000x17", 1000, 17, {}),
     ("d1600_f6400", 512, 6400, {}),
     ("b_g_zeros", 300, 96, dict(zeros=True)),
+    ("x_offset_1", 1000, 3072, dict(offset=1)),
+    ("n2047_band_tail", 2047, 3072, {}),
+    ("fp32_bias", 2048, 3072, dict(b_dtype=torch.float32)),
 ]
+GELU_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+GELU_COPIES = 6  # input sets timed in turn at the path's shape: 151 MB of x, b and g, 3x the L2
 # matmul_bias, as a share of the plain version's largest |y|: fp32 1e-5 (the
 # same fp32 sum in another order); bf16 1e-2 (both round that sum to bf16, so
 # a rounding flip moves one element by a bf16 ulp, 2**-8 of its size); fp16
 # 1e-3 (the same with an fp16 ulp, at most 2**-10 of an element's size: one
 # flip passes, an operand rounded to bf16 on the way, ~2**-9 of each product,
 # does not).
-# bias_gelu, per element against |y|: the forward fp32 1e-5 + 1e-5 |y| (tanhf
-# against torch's tanh, an ulp or two), bf16 2**-7 |y| + 1e-5 (one rounding to
-# bf16 flipped); the backward's dpre is fp32 in both dtypes, 1e-5 + 1e-5 |y|.
+# bias_gelu's y and dx, per element against the plain version's |value|, in
+# x's dtype: fp32 1e-5 + 1e-5 |y| (tanhf against torch's tanh, an ulp or two),
+# bf16 1e-5 + 2**-7 |y| (one rounding to bf16 flipped), fp16 1e-5 + 2**-10 |y|
+# (one rounding to fp16 flipped). db: gelu_db_tol.
 MB_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-3}
-GELU_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2**-7)}  # (abs, rel)
+GELU_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 2**-7), torch.float16: (1e-5, 2**-10)}  # (abs, rel)
 
 
 def mb_inputs(N, D, F, dtype, gen, kw):
@@ -1429,9 +1468,11 @@ def mb_inputs(N, D, F, dtype, gen, kw):
 
 def gelu_inputs(N, F, dtype, gen, kw):
     """(x [N, F], b [F], g [N, F]) of a GELU_CASES case on ``gen``'s device,
-    in ``dtype``."""
-    x = (2.0 * torch.randn(N, F, generator=gen, device=gen.device)).to(dtype)
-    b = torch.randn(F, generator=gen, device=gen.device).to(dtype)
+    in ``dtype`` (b in ``kw["b_dtype"]`` if given; x a contiguous view
+    ``kw["offset"]`` elements into its storage if given)."""
+    off = kw.get("offset", 0)
+    x = (2.0 * torch.randn(N * F + off, generator=gen, device=gen.device)).to(dtype)[off:].view(N, F)
+    b = torch.randn(F, generator=gen, device=gen.device).to(kw.get("b_dtype", dtype))
     g = torch.randn(N, F, generator=gen, device=gen.device).to(dtype)
     if kw.get("zeros"):
         b[::3] = 0
@@ -1457,35 +1498,67 @@ def mb_compare(x, w, b):
                      f"(tol {MB_TOL[x.dtype]:.0e} of it)")
 
 
-def gelu_compare(x, b, g):
-    """The two bias_gelu kernels against their plain versions: {kernel name:
-    (max abs error, ok, detail)}."""
-    from smdistributed_modelparallel_tpu_torch.ops.bias_gelu import (
-        bias_gelu_bwd,
-        bias_gelu_fwd,
-        reference_bias_gelu,
-        reference_bias_gelu_bwd,
-    )
+def gelu_db_tol(dpre, db_ref):
+    """Per-column bound on |db - db_ref| for db summed from the same fp32
+    dpre [..., F] in another order: each fp32 sum of N terms lies within
+    (N - 1) 2**-24 sum|dpre| of the exact one whatever its order, so two orders
+    within 2 N 2**-24 sum|dpre|; each then rounds once to db's dtype, which
+    may flip one ulp of it (GELU_TOL's terms; none for fp32). The kernel's
+    dpre equals the plain version's element for element (the same fp32
+    operations in the same order), so only the order differs."""
+    d = dpre.reshape(-1, dpre.shape[-1]).float()
+    tol = 2 * d.shape[0] * 2**-24 * d.abs().sum(0)
+    if db_ref.dtype != torch.float32:
+        atol, rtol = GELU_TOL[db_ref.dtype]
+        tol = tol + atol + rtol * db_ref.float().abs()
+    return tol
 
-    y = bias_gelu_fwd(x, b)
-    torch.cuda.synchronize()
-    dpre = bias_gelu_bwd(x, b, g)
-    torch.cuda.synchronize()
+
+def gelu_compare(x, b, g):
+    """The two bias_gelu wrappers against their plain versions on one input:
+    {kernel name: (max abs error, ok, detail)}. y and dx within GELU_TOL of
+    x's dtype, db within gelu_db_tol; each wrapper must take ``_route``'s
+    route and give equal bits on a repeat."""
+    from smdistributed_modelparallel_tpu_torch.ops import bias_gelu as bg
+
+    F = x.shape[-1]
     out = {}
-    for name, got, ref, (atol, rtol) in (
-        ("bias_gelu_fwd", y, reference_bias_gelu(x, b), GELU_TOL[x.dtype]),
-        ("bias_gelu_bwd", dpre, reference_bias_gelu_bwd(x, b, g), GELU_TOL[torch.float32]),
+    for name, fn, args, route in (
+        ("bias_gelu_fwd", bg.bias_gelu_fwd, (x, b), bg._route(x.dtype, F, x.data_ptr())),
+        ("bias_gelu_bwd", bg.bias_gelu_bwd, (x, b, g), bg._route(x.dtype, F, x.data_ptr(), g.data_ptr())),
     ):
-        d = (got.float() - ref.float()).abs()
-        ok = got.dtype == ref.dtype and bool(torch.isfinite(got).all()) and bool(
-            (d <= atol + rtol * ref.float().abs()).all())
-        out[name] = (float(d.max()), ok, f"max|d| {float(d.max()):.2e} (tol {atol:.0e} + {rtol:.1e} |y|)")
+        before = (fn.launches, fn.simt_launches)
+        got = fn(*args)
+        torch.cuda.synchronize()
+        taken = _route_taken(fn, before, "vec")
+        again = fn(*args)
+        torch.cuda.synchronize()
+        if name == "bias_gelu_fwd":
+            got, again = (got,), (again,)
+            want = (bg.reference_bias_gelu(x, b),)
+            tols = (GELU_TOL[x.dtype],)
+        else:
+            want = bg.reference_bias_gelu_grads(x, b, g)
+            tols = (GELU_TOL[x.dtype], None)
+        equal = all(torch.equal(a, c) for a, c in zip(got, again))
+        ok, errs, parts = taken == route and equal, [], []
+        for label, a, w, tol in zip(("y",) if len(got) == 1 else ("dx", "db"), got, want, tols):
+            d = (a.float() - w.float()).abs()
+            bound = (gelu_db_tol(bg.reference_bias_gelu_bwd(x, b, g), w) if tol is None
+                     else tol[0] + tol[1] * w.float().abs())
+            ok = ok and a.dtype == w.dtype and a.shape == w.shape and bool(torch.isfinite(a).all()) and bool(
+                (d <= bound).all())
+            errs.append(float(d.max()))
+            share = float((d / bound.clamp_min(torch.finfo(torch.float32).tiny)).max())
+            parts.append(f"max|d{label}| {float(d.max()):.2e} (worst share of tol {share:.2f})")
+        out[name] = (max(errs), ok, f"route {taken:4s} (_route: {route}) " + ", ".join(parts)
+                     + f", repeat {'bit-equal' if equal else 'DIFFERS'}")
     return out
 
 
 def _phase_b_new(failures):
     """matmul_bias and the bias_gelu kernels against their plain versions
-    over MB_CASES (fp32, bf16, fp16) and GELU_CASES (fp32, bf16). Returns the
+    over MB_CASES (fp32, bf16, fp16) and GELU_CASES (GELU_DTYPES). Returns the
     errors at the smp.nn path's shapes in bf16."""
     counters = {**_new_counters(), **_simt_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
@@ -1501,7 +1574,7 @@ def _phase_b_new(failures):
             if not ok:
                 failures.append(f"matmul_bias/{name}/{tag}")
     for name, N, F, kw in GELU_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in GELU_DTYPES:
             tag = str(dtype).removeprefix("torch.")
             for kname, (err, ok, detail) in gelu_compare(*gelu_inputs(N, F, dtype, gen, kw)).items():
                 log(f"[B] {kname:15s} {name:20s} N={N} F={F} {tag:9s} {detail} {'ok' if ok else 'FAIL'}")
@@ -2188,21 +2261,16 @@ def _phase_c_fp8():
 
 def _phase_c_new():
     """matmul_bias at the smp.nn path's fused QKV (N 2048, D 768, F 2304)
-    and the bias_gelu kernels at its MLP epilogue ([2048, 3072]), bf16:
-    kernel, plain version and one library call computing the same function
-    (``torch.addmm``; ``F.gelu(x + b, approximate="tanh")`` and its autograd
-    backward), which the port never calls, all by CUDA-graph replay (the
-    library backward captured on its forward's stream); the bound from the
-    bytes each input and output moves once and the operations at their
-    type's peak."""
+    and the bias_gelu wrappers at its MLP epilogue ([2048, 3072]), bf16:
+    kernel on its route and forced onto the CUDA-core one, plain version and
+    one library call computing the same function (``torch.addmm``;
+    ``F.gelu(x + b, approximate="tanh")`` and its autograd backward, dx and
+    db), which the port never calls, all by CUDA-graph replay (the library
+    backward captured on its forward's stream); the bound from the bytes each
+    input and output moves once and the operations at their type's peak."""
     import torch.nn.functional as F
 
-    from smdistributed_modelparallel_tpu_torch.ops.bias_gelu import (
-        bias_gelu_bwd,
-        bias_gelu_fwd,
-        reference_bias_gelu,
-        reference_bias_gelu_bwd,
-    )
+    from smdistributed_modelparallel_tpu_torch.ops import bias_gelu as bg
     from smdistributed_modelparallel_tpu_torch.ops import matmul_bias as mb
     from smdistributed_modelparallel_tpu_torch.ops.matmul_bias import matmul_bias_fwd, reference_matmul_bias
 
@@ -2238,8 +2306,18 @@ def _phase_c_new():
         f"{eager_ms:.4f} ms (CUDA events); bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
         f"{flops / 1e9:.3f} GFLOP)")
 
+    # bias_gelu at the MLP epilogue, bf16 x, g and b as the path passes them:
+    # each wrapper on its route ("vec") and forced onto "simt" (the backward
+    # there is the dpre kernel, the b widening, the cast and the row sum), the
+    # simt dpre kernel alone, the plain version and the library call. Bounds:
+    # the forward reads x (and b) and writes y; the whole backward reads x, g
+    # (and b) and writes dx (and db). Replaying one input set reads it from
+    # L2 (x and g are 25 MB of its 50), so the wrappers and the library are
+    # also timed cold, over GELU_COPIES copies of the inputs in turn.
     N, Fo = 2048, 3072
     x, b, g = gelu_inputs(N, Fo, dtype, gen, {})
+    dpre = torch.empty((N, Fo), device="cuda")
+    sets = copies_of((x, b, g), GELU_COPIES)
 
     def gelu(x_, b_):
         return F.gelu(x_ + b_, approximate="tanh")
@@ -2247,26 +2325,37 @@ def _phase_c_new():
     # Operations per element, as the kernels do them in fp32: the forward's
     # add, cube (3), add, scale, tanh (counted as 1), add, 2 multiplies; the
     # backward's add, inner (5), tanh, sech2 (2), dinner (4), left (2),
-    # right (3), sum and the product with g.
+    # right (3), sum, the product with g and db's add.
     rows = (
-        ("bias_gelu_fwd", lambda: bias_gelu_fwd(x, b), lambda: reference_bias_gelu(x, b),
-         cuda_graph_time_ms(lambda: gelu(x, b)), 2 * N * Fo * esz + Fo * esz, 10 * N * Fo,
-         "F.gelu(x + b, approximate='tanh')"),
-        ("bias_gelu_bwd", lambda: bias_gelu_bwd(x, b, g), lambda: reference_bias_gelu_bwd(x, b, g),
-         library_bwd_ms(gelu, (x, b), g), N * Fo * (2 * esz + 4) + Fo * esz, 20 * N * Fo,
-         "its autograd backward, dx and db"),
+        ("bias_gelu_fwd", bg.bias_gelu_fwd, (x, b), bg.reference_bias_gelu, 2 * N * Fo * esz + Fo * esz,
+         10 * N * Fo, "F.gelu(x + b, approximate='tanh')", bg._route(dtype, Fo, x.data_ptr()),
+         cuda_graph_time_ms(lambda: gelu(x, b)), cuda_graph_time_ms(rotating(lambda x_, b_, g_: gelu(x_, b_), sets))),
+        ("bias_gelu_bwd", bg.bias_gelu_bwd, (x, b, g), bg.reference_bias_gelu_grads, 3 * N * Fo * esz + 2 * Fo * esz,
+         21 * N * Fo, "its autograd backward, dx and db", bg._route(dtype, Fo, x.data_ptr(), g.data_ptr()),
+         library_bwd_ms(gelu, (x, b), g), library_bwd_ms(gelu, (x, b), g, GELU_COPIES)),
     )
-    for name, kernel, plain, library_ms, nbytes, flops, what in rows:
-        ms = cuda_graph_time_ms(kernel)
-        plain_ms = cuda_graph_time_ms(plain)
-        eager_ms = cuda_time_ms(kernel)
+    for name, wrapper, args, plain, nbytes, flops, what, route, library_ms, library_cold_ms in rows:
+        n_args = len(args)
+        ms = cuda_graph_time_ms(lambda: wrapper(*args))
+        cold_ms = cuda_graph_time_ms(rotating(lambda *a: wrapper(*a[:n_args]), sets))
+        with mock.patch.object(bg, "_route", lambda *a: "simt"):
+            simt_ms = cuda_graph_time_ms(lambda: wrapper(*args))
+            simt_cold_ms = cuda_graph_time_ms(rotating(lambda *a: wrapper(*a[:n_args]), sets))
+        plain_ms = cuda_graph_time_ms(lambda: plain(*args))
+        eager_ms = cuda_time_ms(lambda: wrapper(*args))
         bound_ms, bound_by = _bound(nbytes, flops, torch.float32)  # the operations are fp32
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                         eager_ms=eager_ms)
-        log(f"[C] {name} N={N} F={Fo} bf16, device times by CUDA-graph replay: kernel {ms:.4f} ms "
-            f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, library ({what}) {library_ms:.4f} ms; the "
-            f"wrapper eager {eager_ms:.4f} ms (CUDA events); bound {bound_ms:.4f} ms by {bound_by} "
-            f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+        out[name] = dict(ms=ms, simt_ms=simt_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms, path_route=route, eager_ms=eager_ms, cold_ms=cold_ms,
+                         simt_cold_ms=simt_cold_ms, library_cold_ms=library_cold_ms)
+        extra = ""
+        if name == "bias_gelu_bwd":
+            out[name]["simt_kernel_ms"] = cuda_graph_time_ms(lambda: bg._launch("simt", x, b, g, dpre))
+            extra = f" (its dpre kernel alone {out[name]['simt_kernel_ms']:.4f})"
+        log(f"[C] {name} N={N} F={Fo} bf16, device ms by CUDA-graph replay, inputs in L2 / cold: the wrapper "
+            f"({route}) {ms:.4f} / {cold_ms:.4f} ({bound_ms / cold_ms:.1%} of the bound cold), forced onto simt "
+            f"{simt_ms:.4f} / {simt_cold_ms:.4f}{extra}, library ({what}) {library_ms:.4f} / {library_cold_ms:.4f}; "
+            f"plain {plain_ms:.4f}; the wrapper eager {eager_ms:.4f} (CUDA events); bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
     for k, fn in counters.items():
         fn.launches = saved[k]  # timing launches do not count
     return out

@@ -27,11 +27,17 @@ from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
 
 def vocab_parallel_cross_entropy(logits, targets, label_smoothing=0.0):
     """Per-token cross-entropy: logits [..., vocab], targets [...] int ->
-    [...] fp32 losses."""
+    [...] fp32 losses. A target outside [0, vocab) has target logit 0 (and
+    no gradient through it), so its loss is the row's lse, as the JAX
+    package's one-hot contraction gives."""
+    V = logits.shape[-1]
     logits_f = logits.float()
     m = logits_f.amax(dim=-1, keepdim=True).detach()
     lse = torch.log(torch.exp(logits_f - m).sum(dim=-1)) + m[..., 0]
-    target_logit = logits_f.gather(-1, targets[..., None].long())[..., 0]
+    t = targets.long()
+    valid = (t >= 0) & (t < V)
+    hit = logits_f.gather(-1, t.clamp(0, V - 1)[..., None])[..., 0]
+    target_logit = torch.where(valid, hit, 0.0)
     loss = lse - target_logit
     if label_smoothing > 0.0:
         # mean over vocab of -log_softmax == lse - mean(logits)

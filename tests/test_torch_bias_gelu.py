@@ -9,7 +9,8 @@ with zeros in b and g:
     operations in the same order, tanh aside); bf16 within one bf16 ulp
     (rtol 2**-7), since an ulp of difference in fp32 can flip the one
     rounding to bf16;
-  - the backward kernel's fp32 dpre: 1e-5 in both dtypes (fp32 out);
+  - the backward kernel's fp32 dpre (``reference_bias_gelu_bwd``): 1e-5 in
+    both dtypes (fp32 out);
   - dx and db through ``_BiasGeluFn`` against ``jax.vjp`` of the
     ``custom_vjp``: fp32 1e-5 (as test_tp_overlap's grads; db, a sum over
     up to 300 rows in another order, also 1e-5 relative); bf16 dx within one
@@ -80,7 +81,7 @@ def test_plain_dpre_matches_pallas_kernel(case, dtype):
     (jx, jb, jg), (tx, tb, tg) = _inputs(lead, F, 3 * F, *DTYPES[dtype], zeros=zeros)
     want = pallas_gelu._call_rowwise(pallas_gelu._bwd_kernel, jnp.float32, True, jx.reshape(-1, F), jb,
                                      jg.reshape(-1, F))
-    got = bg.bias_gelu_bwd(tx, tb, tg)
+    got = bg.reference_bias_gelu_bwd(tx, tb, tg)  # the plain version of _bwd_kernel
     assert got.dtype == torch.float32 and got.shape == tx.shape
     np.testing.assert_allclose(_np(got).reshape(-1, F), _np(want), rtol=1e-5, atol=1e-5)
     if zeros:
@@ -128,11 +129,16 @@ def test_bias_gelu_ok_contract(monkeypatch):
         assert not bg.bias_gelu_ok(act, x)
 
 
+def _counts():
+    return [getattr(fn, k) for fn in (bg.bias_gelu_fwd, bg.bias_gelu_bwd) for k in ("launches", "simt_launches")]
+
+
 def test_wrappers_count_only_kernel_launches():
-    _, (tx, tb, tg) = _inputs((4,), 19, 0, jnp.float32, torch.float32)
-    before = (bg.bias_gelu_fwd.launches, bg.bias_gelu_bwd.launches)
-    bg.bias_gelu_fwd(tx, tb)
-    bg.bias_gelu_bwd(tx, tb, tg)
-    bg.bias_gelu(tx.requires_grad_(), tb).sum().backward()
-    assert (bg.bias_gelu_fwd.launches, bg.bias_gelu_bwd.launches) == before
+    for dtype in sorted(DTYPES):  # CPU tensors, on rows of either route's size
+        _, (tx, tb, tg) = _inputs((4,), 16 if dtype == "bf16" else 19, 0, *DTYPES[dtype])
+        before = _counts()
+        bg.bias_gelu_fwd(tx, tb)
+        bg.bias_gelu_bwd(tx, tb, tg)
+        bg.bias_gelu(tx.requires_grad_(), tb).sum().backward()
+        assert _counts() == before
     assert bg._LIB is None  # nothing is built for CPU tensors

@@ -26,8 +26,11 @@ a tensor-core kernel (bf16) and a CUDA-core kernel for each of dx and dW:
 in bf16 every case runs on the tensor cores, agrees with the CUDA-core
 kernels forced on the same inputs (``CE_SIMT_TOL``) and repeats bit for bit
 (``_ce_compare``). So are those of
-``matmul_bias`` and the two ``bias_gelu`` kernels (``MB_CASES``,
-``GELU_CASES``, ``mb_compare``, ``gelu_compare``; tolerances stated there)
+``matmul_bias`` and the two ``bias_gelu`` wrappers (``MB_CASES``,
+``GELU_CASES``, ``mb_compare``, ``gelu_compare``; tolerances stated there;
+the bias-GELU pair on its "vec" route or, for a ragged row or an unaligned
+base, "simt", y and dx per element and db within ``gelu_db_tol``, repeats
+bit-equal; an out-of-range target on the materialized head)
 and of ``matmul_fp8`` (``FP8_CASES``, ``fp8_inputs``, ``fp8_compare``: each
 element within the fp32 summation-order bound of its own). Both matrix
 products have a tensor-core and a CUDA-core kernel; the comparisons hold
@@ -68,6 +71,7 @@ from chip_smoke import (
     fp8_compare,
     fp8_inputs,
     gelu_compare,
+    gelu_db_tol,
     gelu_inputs,
     bwd_check,
     flash_route,
@@ -531,6 +535,28 @@ def test_fused_ce_grads_through_kernels_match_cpu(cuda, label_smoothing):
 
 
 @pytest.mark.cuda
+def test_materialized_head_takes_out_of_range_targets(cuda):
+    """Targets -100, -5 and V on CUDA tensors through the materialized head
+    (fused_ce: False): no device-side assert; the losses and gradients are
+    the CPU's (an out-of-range target's loss is its row's lse)."""
+    smp_torch.init({"fused_ce": False})
+    N, V, D = 64, 1000, 32
+    x, w, t, _, _, _ = _ce_case("cpu", N, V, D, torch.float32, {})
+    t[1], t[3], t[5] = -100, -5, V
+    runs = {}
+    for device in (cuda, "cpu"):
+        h = x.clone().to(device).requires_grad_()
+        table = w.clone().to(device).requires_grad_()
+        per = port_ce.fused_lm_head_cross_entropy(h, table, t.to(device), ignore_index=-5)
+        per.sum().backward()
+        torch.cuda.synchronize()
+        runs[str(device)] = (per.detach().cpu(), h.grad.cpu(), table.grad.cpu())
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert runs["cuda"][0][3] == 0 and runs["cuda"][0][1] > 0 and runs["cuda"][0][5] > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CE_SWEEP))
 def test_fused_ce_bwd_routes_agree_and_repeat_bit_equal(cuda, case):
     """Every chip_smoke CE case in bf16: dx and dW on the tensor cores,
@@ -619,17 +645,59 @@ def test_matmul_bias_kernel_matches_plain_version(cuda, case, dtype):
     assert ok, detail
 
 
+# The bias_gelu cases that take the "simt" route: a row of 17 elements, a
+# base one element off 16 bytes.
+GELU_SIMT = {"ragged_1000x17", "x_offset_1"}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=["fp32", "bf16", "fp16"])
 @pytest.mark.parametrize("case", sorted(GELU_SWEEP))
 def test_bias_gelu_kernels_match_plain_versions(cuda, case, dtype):
+    """Both wrappers against their plain versions (y and dx within GELU_TOL,
+    db within chip_smoke's gelu_db_tol), on the route the case must take,
+    each launched twice with equal bits."""
     N, F, kw = GELU_SWEEP[case]
     x, b, g = gelu_inputs(N, F, dtype, torch.Generator(device=cuda).manual_seed(1), kw)
-    before = (bias_gelu_fwd.launches, bias_gelu_bwd.launches)
+    want = "simt" if case in GELU_SIMT else "vec"
+    assert bg_mod._route(dtype, F, x.data_ptr(), g.data_ptr()) == bg_mod._route(dtype, F, x.data_ptr()) == want
+    before = [fn.launches + fn.simt_launches for fn in (bias_gelu_fwd, bias_gelu_bwd)]
     results = gelu_compare(x, b, g)
-    assert (bias_gelu_fwd.launches, bias_gelu_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert [fn.launches + fn.simt_launches for fn in (bias_gelu_fwd, bias_gelu_bwd)] == [n + 2 for n in before]
     for name, (_, ok, detail) in results.items():
         assert ok, (name, detail)
+        assert detail.startswith(f"route {want}"), (name, detail)
+
+
+@pytest.mark.cuda
+def test_bias_gelu_vec_route_refuses_what_it_cannot_run(cuda, monkeypatch):
+    """Forced onto "vec", a row of other bytes and a base off 16 bytes are
+    refused by the kernels' entry and the wrapper raises: no route stands in
+    for the other."""
+    monkeypatch.setattr(bg_mod, "_route", lambda *a: "vec")
+    ragged = torch.zeros(8, 17, device=cuda, dtype=torch.bfloat16)
+    off = torch.zeros(8 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(8, 64)
+    for x in (ragged, off):
+        b = torch.zeros(x.shape[-1], device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(RuntimeError, match="vec"):
+            bias_gelu_fwd(x, b)
+        with pytest.raises(RuntimeError, match="vec"):
+            bias_gelu_bwd(x, b, torch.zeros_like(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [0, 1, 33, 4096])
+def test_bias_gelu_bwd_db_of_any_row_count(cuda, N):
+    """db over 0 rows is zeros; over a few rows or more bands than one
+    batch of the band sum, the plain version's within gelu_db_tol."""
+    x, b, g = gelu_inputs(max(N, 1), 256, torch.bfloat16, torch.Generator(device=cuda).manual_seed(3), {})
+    x, g = x[:N], g[:N]
+    dx, db = bias_gelu_bwd(x, b, g)
+    want_dx, want_db = bg_mod.reference_bias_gelu_grads(x, b, g)
+    assert dx.shape == x.shape and db.dtype == b.dtype
+    torch.testing.assert_close(dx, want_dx, rtol=0, atol=0)
+    tol = gelu_db_tol(bg_mod.reference_bias_gelu_bwd(x, b, g), want_db)
+    assert ((db.float() - want_db.float()).abs() <= tol).all()
 
 
 @pytest.mark.cuda
@@ -649,6 +717,11 @@ def test_matmul_bias_and_bias_gelu_reject_what_they_cannot_run(cuda):
         bias_gelu_fwd(x.float(), torch.zeros(15, device=cuda))
     with pytest.raises(ValueError):
         bias_gelu_bwd(x.float(), torch.zeros(16, device=cuda), torch.zeros(8, 15, device=cuda))
+    # The kernels read b in its own dtype: fp32, fp16 or bf16, and no other.
+    with pytest.raises(TypeError, match="float32.*float16.*bfloat16"):
+        bias_gelu_fwd(x.float(), torch.zeros(16, device=cuda, dtype=torch.float64))
+    with pytest.raises(TypeError, match="float32.*float16.*bfloat16"):
+        bias_gelu_bwd(x.float(), torch.zeros(16, device=cuda, dtype=torch.float64), x.float())
 
 
 @pytest.mark.cuda
