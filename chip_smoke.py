@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases L # the smp.nn path (fused QKV, fused bias-GELU) only
     python3 chip_smoke.py --phases Q # the smp.nn path under matmul_precision: fp8 only
     python3 chip_smoke.py --phases R # context-parallel training (two ranks on one card) only
+    python3 chip_smoke.py --phases K # checkpoints and the data loader on the smp.nn path only
     python3 chip_smoke.py --phases N # the same with the ranks on two cards (NCCL); needs two cards
 
 Builds the port's CUDA kernels from ``smdistributed_modelparallel_tpu_torch/
@@ -76,6 +77,26 @@ csrc`` (one nvcc per source, all started together), then:
      ids-mode kernel (the ring's forward, dq and dk/dv) 24 times a step (12
      layers x 2 ring steps); the Ulysses step launches the plain flash
      kernels instead.
+  K. checkpoints and the data loader: phase L's model, widths and weights
+     (fused knobs, bf16, 8 x 1024 tokens in 4 microbatches, AdamW) fed by
+     ``smp.dataloader`` over a seeded host stream of token batches; 3 steps,
+     then ``smp.save_checkpoint`` partial (with ``user_content``) and full,
+     then 3 more steps (the uninterrupted run). A fresh interpreter
+     (``--k-child``) runs ``smp.init``, ``resume_from_checkpoint`` before the
+     model exists, builds the model from another seed and trains the same 3
+     steps: its losses must equal the uninterrupted run's bit for bit, its
+     ``user_content`` and ``step_count`` come back, and each of its launches
+     is counted as phase L counts them (48 a step of each flash,
+     ``matmul_bias`` and bias-GELU kernel, on the tensor-core or "vec"
+     route). The full checkpoint resumes here to the same losses. A
+     ``blocking=False`` save followed at once by a step (which updates the
+     weights in place) must hold the submission's bits after
+     ``wait_for_checkpoints()``. Prints the checkpoint's bytes, save and
+     restore seconds and GB/s, and phase L's step time with and without
+     ``smp.dataloader`` prefetch, each with its device idle share
+     (torch.profiler), stamped with the card's name and power limit. The
+     checkpoints go to ``chip_smoke_ckpt/`` beside this script and are
+     removed at the end.
   B. every kernel against its plain PyTorch version on the card, at the
      main paths' shapes and over a feature sweep, within stated tolerances;
      the ids-mode kernels on phase R's ring pairs (each rank's diagonal and
@@ -123,6 +144,7 @@ fails.
 import argparse
 import contextlib
 import copy
+import importlib
 import json
 import math
 import multiprocessing as mp
@@ -142,7 +164,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12, torch.float8_e4m3fn: 1979e12}
 
 KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8"]
-DEFAULT_PHASES = "ATFLQRBC"
+DEFAULT_PHASES = "ATFLQRKBC"
 SEED = 1234
 
 
@@ -804,12 +826,35 @@ def _lm_setup(init_state, fused, device, cfg=LM_CFG, microbatches=TRAIN_MB, bf16
     smp.nn training step of bench.py:653-660 (logits mode, mean CE of the
     shifted tokens)."""
     import smdistributed_modelparallel_tpu_torch as smp
-    from smdistributed_modelparallel_tpu_torch.nn import vocab_parallel_cross_entropy
 
-    smp.init({"microbatches": microbatches, "bf16": bf16, "fused_qkv": fused, **smp_cfg})
+    _lm_init(fused, microbatches, bf16, **smp_cfg)
     module = smp.nn.DistributedTransformerLMHead(**cfg, fused_bias_gelu=fused, device="meta")
     module.load_state_dict({k: v.clone() for k, v in init_state.items()}, assign=True)
+    return _lm_train(module, device)
+
+
+def _lm_init(fused, microbatches=TRAIN_MB, bf16=True, **smp_cfg):
+    """``smp.init`` of the smp.nn path."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    smp.init({"microbatches": microbatches, "bf16": bf16, "fused_qkv": fused, **smp_cfg})
+
+
+def _lm_train(module, device):
+    """``module`` as a ``DistributedModel`` on ``device``, its AdamW and the
+    smp.nn training step; ``smp.init`` has run."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
     model = smp.DistributedModel(module, device=device)
+    return (model, *_lm_optimizer_step(model))
+
+
+def _lm_optimizer_step(model):
+    """AdamW (optax.adamw's defaults) over ``model`` and the smp.nn
+    training step."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn import vocab_parallel_cross_entropy
+
     optimizer = smp.DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), model)
 
@@ -820,7 +865,7 @@ def _lm_setup(init_state, fused, device, cfg=LM_CFG, microbatches=TRAIN_MB, bf16
         model.backward(loss)
         return loss
 
-    return model, optimizer, train_step
+    return optimizer, train_step
 
 
 def _lm_run(init_state, ids, fused, **smp_cfg):
@@ -1055,6 +1100,260 @@ def phase_q():
         raise RuntimeError("the card's fp32 fp8 training disagrees with the CPU's")
     smp.reset()
     return fp8["launches"], dict(fp8=fp8, bf16=base)
+
+
+# Phase K: checkpoints and the data loader on the smp.nn path.
+CKPT_STEPS = 3  # steps before the save; the uninterrupted run and each resume take as many after it
+K_SEED = 4321  # the host stream of token batches
+K_TIMED, K_PROFILED = 6, 3  # steps timed, and profiled, with and without prefetch
+K_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_ckpt")
+K_USER = {"phase": "K", "batches_seen": CKPT_STEPS}
+
+
+def _host_batches(start, stop, seed=K_SEED):
+    """Batches ``start`` to ``stop`` of phase K's seeded host stream: numpy
+    int64 token ids [TRAIN_BATCH, TRAIN_SEQ], as a loader reading them from
+    host memory gives them."""
+    rng = np.random.default_rng(seed)
+    for i in range(stop):
+        ids = rng.integers(0, LM_CFG["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ))
+        if i >= start:
+            yield ids
+
+
+def _k_counters():
+    return {**_flash_counters(), **_new_counters(), **_fp8_counters(), **_simt_counters()}
+
+
+def _k_want(steps):
+    """Launches of ``steps`` smp.nn fused steps: 48 a step of each flash,
+    matmul_bias and bias-GELU kernel, on the tensor-core or "vec" route;
+    none of matmul_fp8 or of any CUDA-core route."""
+    per_step = LM_CFG["num_layers"] * TRAIN_MB
+    return {k: (per_step * steps if k in {**_flash_counters(), **_new_counters()} else 0) for k in _k_counters()}
+
+
+def _k_train(model, optimizer, train_step, feed):
+    """Train on ``feed`` (a loader's batches); the losses, and the launches
+    counted from 0 over these steps."""
+    counters = _k_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    losses = []
+    for ids in feed:
+        losses.append(float(train_step(model, ids).reduce_mean()))
+        optimizer.step()
+    return losses, {k: fn.launches for k, fn in counters.items()}
+
+
+def _k_check_launches(label, launches, steps):
+    want = _k_want(steps)
+    if launches != want:
+        raise RuntimeError(f"phase K {label}: launches {launches}, expected {want}")
+
+
+def _k_other_model(seed):
+    """GPT-2 124M smp.nn weights from another seed, on the card: what a
+    resume must overwrite."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    module = smp.nn.DistributedTransformerLMHead(**LM_CFG, fused_bias_gelu=True, device="cuda")
+    return init_weights_(module, LM_CFG["initializer_range"], g)
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def phase_k_child(root):
+    """The resumed run, in a fresh interpreter: ``smp.init``, then
+    ``resume_from_checkpoint`` before the model exists (the deferred path),
+    then the model from another seed, then the same steps as the
+    uninterrupted run. Prints one ``K_CHILD {json}`` line."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # torch.optim imports torch._dynamo at its first load_state_dict or
+    # step, seconds in a fresh process whatever the checkpoint: not restore.
+    t0 = time.perf_counter()
+    importlib.import_module("torch._dynamo")
+    import_s = time.perf_counter() - t0
+    _lm_init(True)
+    t0 = time.perf_counter()
+    user = smp.resume_from_checkpoint(root, tag="k")
+    resume_s = time.perf_counter() - t0
+    step_count = smp.state.step_count
+    module = _k_other_model(SEED + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = smp.DistributedModel(module, device="cuda")  # applies the stashed model state
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    optimizer, train_step = _lm_optimizer_step(model)  # and the optimizer's
+    torch.cuda.synchronize()
+    model_s, opt_s = t1 - t0, time.perf_counter() - t1
+    losses, launches = _k_train(model, optimizer, train_step,
+                                smp.dataloader(_host_batches(CKPT_STEPS, 2 * CKPT_STEPS)))
+    print("K_CHILD " + json.dumps(dict(losses=losses, launches=launches, user=user, step_count=step_count,
+                                       resume_s=resume_s, model_s=model_s, opt_s=opt_s, import_s=import_s)),
+          flush=True)
+
+
+def _k_step_times(model, optimizer, train_step, smi):
+    """Phase L's step fed from the host stream, by ``@smp.step``'s own copy
+    (the batch's ``.to(device)``) and through ``smp.dataloader``: ms/step,
+    the mean of two blocks of K_TIMED steps each (interleaved A B B A), and
+    the device's idle share of K_PROFILED profiled steps. Returns {mode:
+    (ms, idle share)}."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from torch.profiler import ProfilerActivity, profile
+
+    feeds = {"without prefetch (the step copies each host batch)":
+             lambda n: (torch.from_numpy(b) for b in _host_batches(0, n, seed=K_SEED + 1)),
+             "with smp.dataloader prefetch": lambda n: smp.dataloader(_host_batches(0, n, seed=K_SEED + 1))}
+
+    def run(feed, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for ids in feed(n):
+            train_step(model, ids)
+            optimizer.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for feed in feeds.values():
+        run(feed, 1)  # warm-up: the loader's thread and pinned pool
+    # Interleaved (A B B A), host time drifts within a call; then profiled.
+    labels = list(feeds)
+    blocks = {label: [] for label in labels}
+    for label in labels + labels[::-1]:
+        blocks[label].append(run(feeds[label], K_TIMED) / K_TIMED)
+    out = {}
+    for label in labels:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_ms = run(feeds[label], K_PROFILED)
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        ms = sum(blocks[label]) / len(blocks[label])
+        out[label] = (ms, 1 - busy_ms / wall_ms)
+        log(f"[K] smp.nn GPT-2 124M bf16 step, batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MB} microbatches, {label}: "
+            f"{ms:.2f} ms/step (blocks of {K_TIMED} steps: {', '.join(f'{b:.2f}' for b in blocks[label])}); profiled "
+            f"{K_PROFILED} steps: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
+            f"{1 - busy_ms / wall_ms:.3f}; {smi}")
+    return out
+
+
+def phase_k(smi):
+    """Checkpoints and the data loader on the smp.nn path: phase L's model,
+    widths and weights fed by ``smp.dataloader`` over a seeded host stream;
+    a partial and a full checkpoint after CKPT_STEPS steps, resumed (the
+    partial one in a fresh interpreter) into a model from another seed; a
+    non-blocking save's snapshot; and the step with and without prefetch."""
+    import shutil
+
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+    from smdistributed_modelparallel_tpu_torch.shard_io import ShardCatalog
+
+    shutil.rmtree(K_DIR, ignore_errors=True)
+    try:
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        init = init_weights_(smp.nn.DistributedTransformerLMHead(**LM_CFG, device="cuda"),
+                             LM_CFG["initializer_range"], g)
+        init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+        del init
+        model, optimizer, train_step = _lm_setup(init_state, True, "cuda")
+        del init_state
+        before, launches = _k_train(model, optimizer, train_step, smp.dataloader(_host_batches(0, CKPT_STEPS)))
+        _k_check_launches("steps before the save", launches, CKPT_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        smp.save_checkpoint(K_DIR, tag="k", partial=True, user_content=K_USER)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        smp.save_checkpoint(K_DIR, tag="k_full", partial=False, user_content=K_USER)
+        full_save_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(os.path.join(K_DIR, "k_partial"))
+        full_bytes = os.path.getsize(os.path.join(K_DIR, "k_full"))
+        want, after = _k_train(model, optimizer, train_step,
+                               smp.dataloader(_host_batches(CKPT_STEPS, 2 * CKPT_STEPS)))
+        _k_check_launches("uninterrupted steps", after, CKPT_STEPS)
+        log(f"[K] uninterrupted run: losses {before} | {want}")
+
+        # A non-blocking save, then at once a step that updates the
+        # parameters and moments in place: the files hold the submission's.
+        snap = {k: v.detach().clone() for k, v in model.module.state_dict().items()}
+        t0 = time.perf_counter()
+        smp.save_checkpoint(K_DIR, tag="k_async", blocking=False)
+        submit_s = time.perf_counter() - t0
+        _k_train(model, optimizer, train_step, smp.dataloader(_host_batches(0, 1, seed=K_SEED + 2)))
+        smp.wait_for_checkpoints()
+        moved = sum(not torch.equal(v, model.module.state_dict()[k]) for k, v in snap.items())
+        cat = ShardCatalog(os.path.join(K_DIR, "k_async_partial"), "model")
+        saved = cat.load_tree(model._to_reference(snap))
+        cat.close()
+        want_ref = model._to_reference(snap)
+        torn = [k for k, v in want_ref.items() if saved[k].numpy().tobytes() != v.tobytes()]
+        count = int(np.load(os.path.join(K_DIR, "k_async_partial", "optimizer_shards_p0.npz"))["0/count|[]"])
+        log(f"[K] blocking=False save: returned after {submit_s:.3f} s; a step then changed {moved} of {len(snap)} "
+            f"tensors in place; the files hold the submission's bits for {len(want_ref) - len(torn)} of "
+            f"{len(want_ref)} leaves, optimizer count {count} (expected {2 * CKPT_STEPS})")
+        if torn or moved == 0 or count != 2 * CKPT_STEPS:
+            raise RuntimeError(f"phase K: the non-blocking save is not the submission's snapshot: {torn[:5]}")
+
+        times = _k_step_times(model, optimizer, train_step, smi)
+        del model, optimizer, train_step, snap, saved
+        smp.reset()
+        torch.cuda.empty_cache()
+
+        # The partial checkpoint, resumed in a fresh interpreter.
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--k-child", K_DIR], capture_output=True,
+                             text=True, timeout=900)
+        child_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise RuntimeError(f"phase K child exited {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        child = json.loads(next(ln for ln in res.stdout.splitlines() if ln.startswith("K_CHILD "))[8:])
+        _k_check_launches("resumed child", child["launches"], CKPT_STEPS)
+        restore_s = child["resume_s"] + child["model_s"] + child["opt_s"]
+        log(f"[K] resumed child ({child_s:.1f} s in all): losses {child['losses']}, user_content {child['user']}, "
+            f"step_count {child['step_count']}")
+
+        # The full checkpoint, resumed here.
+        _lm_init(True)
+        user_full = smp.resume_from_checkpoint(K_DIR, tag="k_full", partial=False)
+        model, optimizer, train_step = _lm_train(_k_other_model(SEED + 2), "cuda")
+        full, full_launches = _k_train(model, optimizer, train_step,
+                                       smp.dataloader(_host_batches(CKPT_STEPS, 2 * CKPT_STEPS)))
+        _k_check_launches("full-checkpoint resume", full_launches, CKPT_STEPS)
+        log(f"[K] full checkpoint resumed: losses {full}, user_content {user_full}")
+        del model, optimizer, train_step
+        smp.reset()
+        torch.cuda.empty_cache()
+
+        log(f"[K] partial checkpoint of GPT-2 124M (smp.nn, fp32 master weights and AdamW moments): {nbytes} bytes; "
+            f"save {save_s:.3f} s ({nbytes / save_s / 1e9:.3f} GB/s; blocking=False returned after {submit_s:.3f} s); "
+            f"restore {restore_s:.3f} s in a fresh process (resume {child['resume_s']:.3f} s + model apply "
+            f"{child['model_s']:.3f} s + optimizer apply {child['opt_s']:.3f} s; {nbytes / restore_s / 1e9:.3f} GB/s; "
+            f"torch._dynamo's import before it, {child['import_s']:.3f} s, not counted); "
+            f"full checkpoint {full_bytes} bytes, save {full_save_s:.3f} s; {smi}")
+        bad = []
+        if child["losses"] != want:
+            bad.append(f"resumed losses {child['losses']} != uninterrupted {want}")
+        if full != want:
+            bad.append(f"full-checkpoint losses {full} != uninterrupted {want}")
+        if child["user"] != K_USER or user_full != K_USER or child["step_count"] != CKPT_STEPS:
+            bad.append(f"user_content {child['user']} / {user_full}, step_count {child['step_count']}")
+        if bad:
+            raise RuntimeError("phase K: " + "; ".join(bad))
+        launches = {k: launches[k] + after[k] + child["launches"][k] + full_launches[k] for k in launches}
+        return launches, dict(want=want, child=child, full=full, times=times, nbytes=nbytes, save_s=save_s,
+                              restore_s=restore_s)
+    finally:
+        shutil.rmtree(K_DIR, ignore_errors=True)
 
 
 def _inputs(B, T, S, H, hd, dtype, gen):
@@ -2537,14 +2836,19 @@ def phase_p():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, T, F, L, Q, R, B, C (the default, all eight), P (profiles) and N (phase R's "
-             "ranks on two cards, over NCCL)")
+                        help="phases to run: A, T, F, L, Q, R, K, B, C (the default, all nine), P (profiles) and N "
+             "(phase R's ranks on two cards, over NCCL)")
+    parser.add_argument("--k-child", metavar="DIR", help=argparse.SUPPRESS)  # phase K's resumed run
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on an H100.", file=sys.stderr)
         return 2
     import smdistributed_modelparallel_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    if args.k_child:
+        phase_k_child(args.k_child)
+        return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2554,6 +2858,7 @@ def main():
 
     build()
     serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches = {}, {}, {}, {}, {}, {}
+    k_launches = {}
     errs = timing = None
     if "A" in args.phases:
         serve_launches = phase_a()
@@ -2569,6 +2874,8 @@ def main():
         cp_launches, _ = phase_r()
     if "N" in args.phases:
         phase_r(device=None)
+    if "K" in args.phases:
+        k_launches, _ = phase_k(smi)
     if "B" in args.phases:
         errs = phase_b()
     if "C" in args.phases:
@@ -2581,11 +2888,12 @@ def main():
     fwd_err, bwd_err, new_err = errs
     # Launches on the main paths: serving's prefills (A), training (T), the
     # capacity path (F), the smp.nn path (L), its fp8 run (Q) and the
-    # context-parallel run (R: both ranks and the cp = 1 run), each counted
-    # from 0 just before it.
-    paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches)
+    # context-parallel run (R: both ranks and the cp = 1 run) and the
+    # checkpointed run (K: before and after the save, the resumed child and
+    # the full-checkpoint resume), each counted from 0 just before it.
+    paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches, k_launches)
     launches = {k: sum(p.get(k, 0) for p in paths)
-                for k in {**cap_launches, **lm_launches, **q_launches, **cp_launches}}
+                for k in {**cap_launches, **lm_launches, **q_launches, **cp_launches, **k_launches}}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"
     tpu_ce = "smdistributed_modelparallel_tpu/ops/pallas_ce.py:"

@@ -15,6 +15,14 @@ variables), each on its sequence shard, through the ring (whose per-step
 flash calls are the kernels' ids mode) or Ulysses. Entry points run on
 ``cuda`` unless the caller names another device.
 
+It saves and resumes training runs in the JAX package's on-disk format
+(``smp.save_checkpoint``, ``smp.resume_from_checkpoint``, ``smp.save`` /
+``smp.load``; ``checkpoint.py``), so a run moves between the two packages in
+either direction: the model's tensors in the JAX package's keys and layout,
+``torch.optim.AdamW`` / ``torch.optim.Adam`` state as ``optax.adamw`` /
+``optax.adam`` state (``optimizer.py``). ``smp.dataloader`` feeds the step
+with batches staged on the device ahead of it (``utils/data.py``).
+
     import torch
     import smdistributed_modelparallel_tpu_torch as smp
     from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m
@@ -30,9 +38,15 @@ flash calls are the kernels' ids mode) or Ulysses. Entry points run on
         model.backward(loss)
         return loss
 
-    loss = train_step(model, ids, targets).reduce_mean()
-    optimizer.step()
+    for ids, targets in smp.dataloader(batches):
+        loss = train_step(model, ids, targets).reduce_mean()
+        optimizer.step()
+    smp.save_checkpoint("/path/to/ckpt", partial=True, user_content={"epoch": 1})
     out = smp.generate(model, prompt_ids, max_new_tokens=32)
+
+    # Resume, in this package or the JAX one: smp.init, then
+    # smp.resume_from_checkpoint("/path/to/ckpt") before or after the model
+    # and optimizer are built.
 """
 
 from smdistributed_modelparallel_tpu_torch import amp, nn, quant
@@ -40,10 +54,18 @@ from smdistributed_modelparallel_tpu_torch.backend.config import ModelParallelCo
 from smdistributed_modelparallel_tpu_torch.backend.split import StepOutput
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS
+from smdistributed_modelparallel_tpu_torch.checkpoint import (
+    load,
+    resume_from_checkpoint,
+    save,
+    save_checkpoint,
+    wait_for_checkpoints,
+)
 from smdistributed_modelparallel_tpu_torch.generation import generate
 from smdistributed_modelparallel_tpu_torch.model import DistributedModel
 from smdistributed_modelparallel_tpu_torch.optimizer import DistributedOptimizer
 from smdistributed_modelparallel_tpu_torch.step import step
+from smdistributed_modelparallel_tpu_torch.utils.data import dataloader, prefetch_to_device, shard_batches
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     SMPRuntimeError,
     SMPValidationError,
@@ -106,8 +128,8 @@ def get_cp_group():
 
 
 def reset():
-    """Drop the config, device, model, optimizer, loss scaler and quant
-    state."""
+    """Drop the config, device, model, optimizer, loss scaler, quant
+    state, step count and any checkpoint state waiting to be applied."""
     state.reset()
 
 
@@ -122,15 +144,23 @@ __all__ = [
     "amp",
     "cp_rank",
     "cp_size",
+    "dataloader",
     "generate",
     "get_cp_group",
     "init",
     "is_initialized",
-    "nn",
-    "quant",
+    "load",
     "local_rank",
+    "nn",
+    "prefetch_to_device",
+    "quant",
     "rank",
     "reset",
+    "resume_from_checkpoint",
+    "save",
+    "save_checkpoint",
+    "shard_batches",
     "size",
     "step",
+    "wait_for_checkpoints",
 ]

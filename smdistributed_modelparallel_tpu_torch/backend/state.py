@@ -22,6 +22,13 @@ launcher (``LOCAL_RANK`` or ``WORLD_SIZE`` set), the device is
 ``cuda:LOCAL_RANK`` and ``smp.init`` refuses a ``LOCAL_RANK`` the card count
 cannot hold; with no launcher it is left to the model (``cuda``).
 
+Checkpoints. ``step_count`` counts the ``@smp.step`` calls since
+``smp.init`` (the step edge a checkpoint records, and the default tag
+``step_{n}``). ``loaded_model_state`` and ``loaded_optimizer_state`` hold
+what ``smp.resume_from_checkpoint`` read before the model or the optimizer
+existed; ``DistributedModel`` and ``DistributedOptimizer`` apply them when
+they are built.
+
 ``cp_sharded`` is True while an ``@smp.step`` runs its microbatches on the
 rank's contiguous sequence shard under context parallelism: attention then
 runs the cp ring (or Ulysses) and positions are offset by the shard's start.
@@ -94,6 +101,9 @@ class ModelParallelState:
         self.optimizer = None
         self.loss_scaler = None
         self.quant_state = None
+        self.step_count = 0
+        self.loaded_model_state = None
+        self.loaded_optimizer_state = None
         self.world_size, self.rank, self.local_rank = 1, 0, 0
         self.topology = None
         self.groups = {}

@@ -24,10 +24,74 @@ transposed, and their biases flattened. A leaf it does not know raises.
 
 ``quant_state_from_jax`` carries the fp8 delayed-scaling state
 (``QuantState.state_dict()``) across.
+
+``params_to_jax`` and ``lm_head_params_to_jax`` are the exact inverses: a
+port ``state_dict`` (or any ``{torch name: tensor}`` of the same names, such
+as AdamW's moments) becomes the '/'-joined flat dict of numpy arrays that the
+JAX package's ``DistributedModel.state_dict()`` gives, layers stacked on the
+leading scan axis, kernels transposed back to [in, out] and the multi-axis
+kernels reshaped back to [D, 3, H, hd] and [H, hd, D]. A round trip through
+both directions gives the same bits. This is the layout of the checkpoints
+both packages write (``checkpoint.py``).
+
+bf16 leaves. numpy has no bf16 of its own: ``to_numpy`` gives
+``ml_dtypes.bfloat16`` arrays where ``ml_dtypes`` is installed and raw
+2-byte ``|V2`` arrays where it is not; either way an ``.npz`` stores ``|V2``,
+as the JAX package's files do. ``to_torch`` reads both back as
+``torch.bfloat16``, bit for bit.
 """
 
 import numpy as np
 import torch
+
+try:
+    import ml_dtypes
+
+    _BF16 = np.dtype(ml_dtypes.bfloat16)
+except ImportError:  # numpy then holds bf16 as raw 2-byte records
+    _BF16 = np.dtype("V2")
+
+
+def is_bf16(dtype):
+    """True for the numpy dtypes that hold bf16: ``ml_dtypes.bfloat16`` and
+    the ``|V2`` that an ``.npz`` stores it as."""
+    dtype = np.dtype(dtype)
+    return dtype.name == "bfloat16" or (dtype.kind == "V" and dtype.itemsize == 2 and dtype.fields is None)
+
+
+def numpy_dtype(dtype):
+    """The numpy dtype that holds a torch dtype's values."""
+    if dtype == torch.bfloat16:
+        return _BF16
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def to_numpy(value, copy=False):
+    """Host numpy array of a tensor (or array-like); bf16 as ``_BF16``.
+    ``copy``: the array owns its memory (a later in-place update of the
+    tensor cannot reach it)."""
+    if isinstance(value, torch.Tensor):
+        t = value.detach()
+        t = t.to("cpu", copy=True) if copy else t.cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16)
+        return t.numpy()
+    arr = np.asarray(value)
+    return arr.copy() if copy else arr
+
+
+def to_torch(value):
+    """CPU tensor of a numpy array, sharing its memory (a read-only array is
+    copied first); bf16 and ``|V2`` arrays become ``torch.bfloat16``.
+    Tensors pass through."""
+    if isinstance(value, torch.Tensor):
+        return value
+    arr = np.asarray(value)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    if is_bf16(arr.dtype):
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _flatten(tree, prefix=""):
@@ -40,28 +104,29 @@ def _flatten(tree, prefix=""):
 
 
 def _leaf(path, value):
-    """(torch name suffix, tensor) for one flax leaf."""
+    """(torch name suffix, tensor) for one flax leaf (a tensor)."""
     *mods, kind = path.split("/")
-    arr = np.asarray(value)
     if kind == "kernel":
-        name, arr = "weight", arr.T
+        name, value = "weight", value.T
     elif kind in ("scale", "embedding"):
         name = "weight"
     elif kind == "bias":
         name = "bias"
     else:
         raise KeyError(f"unexpected flax leaf {path!r}")
-    return ".".join(mods + [name]), torch.tensor(arr)
+    return ".".join(mods + [name]), value.contiguous()
 
 
 def params_from_jax(params):
-    """flax params (nested dict or '/'-joined flat dict of arrays) ->
-    ``state_dict`` of the port's ``TransformerLM``."""
+    """flax params (nested dict or '/'-joined flat dict of arrays or
+    tensors) -> ``state_dict`` of the port's ``TransformerLM``, on the
+    tensors' device (the CPU for arrays)."""
     out = {}
     for path, value in _flatten(params).items():
+        value = to_torch(value)
         if path.startswith("layers/block/"):
             rest = path.removeprefix("layers/block/")
-            stacked = np.asarray(value)
+            stacked = value
             for i in range(stacked.shape[0]):
                 name, t = _leaf(rest, stacked[i])
                 out[f"layers.{i}.{name}"] = t
@@ -95,9 +160,9 @@ _LAYER_PREFIX = "transformer/seq_layers/layer/"
 
 def _lm_head_leaf(path, value):
     """(torch name, tensor) for one leaf of DistributedTransformerLMHead's
-    tree (the layer axis already taken off)."""
+    tree (a tensor; the layer axis already taken off)."""
     mod, kind = path.rsplit("/", 1)
-    arr = np.asarray(value)
+    arr = value
     if kind == "kernel" and mod in _LMHEAD_KERNELS:
         n_in = _LMHEAD_KERNELS[mod]
         arr = arr.reshape(int(np.prod(arr.shape[:n_in])), -1).T
@@ -110,17 +175,19 @@ def _lm_head_leaf(path, value):
         name = "weight"
     else:
         raise KeyError(f"unexpected DistributedTransformerLMHead leaf {path!r}")
-    return f"{mod.replace('/', '.')}.{name}", torch.tensor(np.ascontiguousarray(arr))
+    return f"{mod.replace('/', '.')}.{name}", arr.contiguous()
 
 
 def lm_head_params_from_jax(params):
     """flax params of ``DistributedTransformerLMHead`` (nested dict or
-    '/'-joined flat dict of arrays) -> ``state_dict`` of the port's
-    ``DistributedTransformerLMHead``."""
+    '/'-joined flat dict of arrays or tensors) -> ``state_dict`` of the
+    port's ``DistributedTransformerLMHead``, on the tensors' device (the CPU
+    for arrays)."""
     out = {}
     for path, value in _flatten(params).items():
+        value = to_torch(value)
         if path.startswith(_LAYER_PREFIX):
-            stacked = np.asarray(value)
+            stacked = value
             for i in range(stacked.shape[0]):
                 name, t = _lm_head_leaf(path.removeprefix(_LAYER_PREFIX), stacked[i])
                 out[f"transformer.seq_layers.{i}.{name}"] = t
@@ -128,6 +195,105 @@ def lm_head_params_from_jax(params):
             name, t = _lm_head_leaf(path, value)
             out[name] = t
     return out
+
+
+def _to_jax_arrays(out, layers, what):
+    """The flat dict of host arrays: ``out``'s tensors (views of the input
+    are copied) and ``{flax key: {layer index: tensor}}`` stacked on a
+    leading axis on their device, each copied to the host once."""
+    flat = {key: to_numpy(t.contiguous(), copy=t.is_contiguous()) for key, t in out.items()}
+    for key, per in layers.items():
+        if sorted(per) != list(range(len(per))):
+            raise KeyError(f"{what} {key!r}: layers {sorted(per)} are not 0..{len(per) - 1}")
+        flat[key] = to_numpy(torch.stack([per[i] for i in range(len(per))]))
+    return flat
+
+
+def _leaf_to_jax(name, value):
+    """(flax path, tensor view) for one ``TransformerLM`` tensor (no layer
+    index)."""
+    *mods, kind = name.split(".")
+    arr = value.detach()
+    if kind == "bias":
+        flax_kind = "bias"
+    elif kind != "weight":
+        raise KeyError(f"unexpected TransformerLM tensor {name!r}")
+    elif mods[-1].startswith("ln"):
+        flax_kind = "scale"
+    elif mods[-1] in ("wte", "wpe"):
+        flax_kind = "embedding"
+    else:
+        flax_kind, arr = "kernel", arr.T
+    return "/".join(mods + [flax_kind]), arr
+
+
+def params_to_jax(state_dict):
+    """``state_dict`` of the port's ``TransformerLM`` (or tensors of the
+    same names) -> the JAX package's flat '/'-keyed dict of numpy arrays;
+    the inverse of ``params_from_jax``."""
+    out, layers = {}, {}
+    for name, value in state_dict.items():
+        if name.startswith("layers."):
+            i, rest = name.removeprefix("layers.").split(".", 1)
+            key, arr = _leaf_to_jax(rest, value)
+            layers.setdefault("layers/block/" + key, {})[int(i)] = arr
+        else:
+            key, arr = _leaf_to_jax(name, value)
+            out[key] = arr
+    return _to_jax_arrays(out, layers, "TransformerLM tensor")
+
+
+def _lm_head_kernel_shape(mod, n_in, n_out, H):
+    """The flax kernel shape of an ``nn.Linear`` [out, in] (transposed)."""
+    return {
+        "attention/qkv": (n_in, 3, H, -1),
+        "attention/dense": (H, -1, n_out),
+        "crossattention/query": (n_in, H, -1),
+        "crossattention/key_value": (n_in, 2, H, -1),
+        "crossattention/dense": (H, -1, n_out),
+    }.get(mod, (n_in, n_out))
+
+
+def _lm_head_leaf_to_jax(name, value, H):
+    """(flax path, tensor) for one ``DistributedTransformerLMHead`` tensor
+    (no layer index); ``H`` is the number of attention heads."""
+    mod, kind = name.rsplit(".", 1)
+    mod = mod.replace(".", "/")
+    arr = value.detach()
+    if kind == "weight" and mod in _LMHEAD_KERNELS:
+        n_out, n_in = arr.shape
+        arr, flax_kind = arr.T.reshape(_lm_head_kernel_shape(mod, n_in, n_out, H)), "kernel"
+    elif kind == "bias" and mod in _LMHEAD_KERNELS:
+        shape = _lm_head_kernel_shape(mod, 0, arr.shape[0], H)[_LMHEAD_KERNELS[mod]:]
+        arr, flax_kind = arr.reshape(shape), "bias"
+    elif kind == "bias" and mod in _LMHEAD_NORMS:
+        flax_kind = "bias"
+    elif kind == "weight" and mod in _LMHEAD_NORMS:
+        flax_kind = "scale"
+    elif kind == "weight" and mod in _LMHEAD_EMBEDDINGS:
+        flax_kind = "embedding"
+    else:
+        raise KeyError(f"unexpected DistributedTransformerLMHead tensor {name!r}")
+    return f"{mod}/{flax_kind}", arr
+
+
+def lm_head_params_to_jax(state_dict, num_attention_heads):
+    """``state_dict`` of the port's ``DistributedTransformerLMHead`` (or
+    tensors of the same names) -> the JAX package's flat '/'-keyed dict of
+    numpy arrays; the inverse of ``lm_head_params_from_jax``.
+    ``num_attention_heads`` splits the qkv and output-projection kernels
+    back into their head axes."""
+    out, layers = {}, {}
+    prefix = _LAYER_PREFIX.replace("/layer/", "/").replace("/", ".")
+    for name, value in state_dict.items():
+        if name.startswith(prefix):
+            i, rest = name.removeprefix(prefix).split(".", 1)
+            key, arr = _lm_head_leaf_to_jax(rest, value, num_attention_heads)
+            layers.setdefault(_LAYER_PREFIX + key, {})[int(i)] = arr
+        else:
+            key, arr = _lm_head_leaf_to_jax(name, value, num_attention_heads)
+            out[key] = arr
+    return _to_jax_arrays(out, layers, "DistributedTransformerLMHead tensor")
 
 
 def quant_state_from_jax(sd):

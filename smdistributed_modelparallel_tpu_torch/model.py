@@ -9,10 +9,25 @@ a step, ``model(...)`` runs the module on the parameters the step engine
 bound for the microbatch (half casts of the fp32 master parameters under
 bf16/fp16), and ``model.backward(loss)`` marks the loss that the engine
 differentiates. Pipeline and tensor parallelism arrive with later slices.
+
+Checkpoints. ``state_dict()`` is torch's own. The checkpoint files hold the
+JAX package's layout instead, so that either package resumes the other's
+runs: ``reference_state_dict()`` is the flat '/'-keyed dict of numpy arrays
+that the JAX package's ``DistributedModel.state_dict()`` gives for the same
+model (``convert.params_to_jax`` for the zoo's ``TransformerLM``,
+``convert.lm_head_params_to_jax`` for ``smp.nn.DistributedTransformerLMHead``;
+any other module keeps its torch names), and ``local_state_dict()`` the same
+as a shard payload (``shard_io``). ``load_state_dict`` takes any of the three,
+and ``load_sharded`` a ``shard_io`` catalog. A checkpoint that
+``smp.resume_from_checkpoint`` read before the model existed is applied when
+the model is built, before any ``register_post_partition_hook`` hook runs.
 """
+
+import functools
 
 import torch
 
+from smdistributed_modelparallel_tpu_torch import convert
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
@@ -20,6 +35,9 @@ from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     SMPValidationError,
     StepUsageError,
 )
+from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
+
+logger = get_logger()
 
 
 def resolve_device(device):
@@ -59,7 +77,17 @@ class DistributedModel:
         self._param_version = 0     # bumped whenever the parameters change
         self._params_at_step = None
         self._dropped_updates = 0
+        self._to_reference, self._from_reference = _reference_layout(self.module)
         state.model = self
+        if state.loaded_model_state is not None:
+            from smdistributed_modelparallel_tpu_torch.shard_io import ShardCatalog
+
+            logger.info("Applying deferred checkpoint state to model.")
+            payload, state.loaded_model_state = state.loaded_model_state, None
+            if isinstance(payload, ShardCatalog):
+                self.load_sharded(payload)
+            else:
+                self.load_state_dict(payload)
 
     def __call__(self, *args, **kwargs):
         if self._bound is not None:
@@ -116,11 +144,56 @@ class DistributedModel:
     def num_parameters(self):
         return sum(p.numel() for p in self.module.parameters())
 
+    def register_post_partition_hook(self, hook):
+        """Run ``hook(model)`` once, after the parameters exist and any
+        deferred checkpoint state has been applied. Both happen when the
+        model is built (the port has no partitioning pass to wait for), so
+        the hook runs now."""
+        hook(self)
+        return hook
+
     def state_dict(self):
+        """torch's ``state_dict`` of the module."""
         return self.module.state_dict()
 
+    def reference_state_dict(self):
+        """Host copy of the parameters in the JAX package's layout: a flat
+        '/'-keyed dict of numpy arrays (the ``model`` entry of a full
+        checkpoint)."""
+        return self._to_reference(self.module.state_dict())
+
+    def local_state_dict(self):
+        """This rank's shard payload of ``reference_state_dict()``
+        (``"key|bounds"`` entries, every leaf whole), round-trippable
+        through ``load_state_dict``."""
+        from smdistributed_modelparallel_tpu_torch.shard_io import shard_payload
+
+        return shard_payload(self.reference_state_dict(), dedupe_global=False)
+
     def load_state_dict(self, state_dict):
+        """Load torch's ``state_dict``, a reference-keyed flat dict
+        (``reference_state_dict``, the JAX package's ``state_dict()``) or a
+        shard payload (``local_state_dict``)."""
+        from smdistributed_modelparallel_tpu_torch.shard_io import InMemoryCatalog, is_shard_payload
+
+        if is_shard_payload(state_dict):
+            self.load_sharded(InMemoryCatalog(state_dict))
+            return
+        if state_dict and not set(state_dict) & set(self.module.state_dict()):
+            state_dict = self._from_reference(state_dict)
         self.module.load_state_dict(state_dict)
+        self._param_version += 1
+
+    def load_sharded(self, catalog):
+        """Load a ``shard_io`` catalog: each leaf of the reference layout is
+        assembled whole from the pieces that cover it (a checkpoint the JAX
+        package wrote at tp or pp > 1 splits them), moved to the device and
+        mapped to the module's names there."""
+        try:
+            loaded = catalog.load_tree(device=self.device)
+        finally:
+            catalog.close()
+        self.module.load_state_dict(self._from_reference(loaded))
         self._param_version += 1
 
     def generate(self, input_ids, max_new_tokens, **kwargs):
@@ -141,3 +214,24 @@ class DistributedModel:
     @property
     def training(self):
         return self.module.training
+
+
+def _reference_layout(module):
+    """``(to_reference, from_reference)``: the maps between the module's
+    ``state_dict`` names and the JAX package's flat keys for the same
+    model. A module the JAX package has no counterpart for keeps its torch
+    names."""
+    from smdistributed_modelparallel_tpu_torch.models.transformer_lm import TransformerLM
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import (
+        DistributedAttentionLayer,
+        DistributedTransformerLMHead,
+    )
+
+    if isinstance(module, TransformerLM):
+        return convert.params_to_jax, convert.params_from_jax
+    if isinstance(module, DistributedTransformerLMHead):
+        heads = [m.num_attention_heads for m in module.modules() if isinstance(m, DistributedAttentionLayer)]
+        to_ref = functools.partial(convert.lm_head_params_to_jax, num_attention_heads=heads[0] if heads else 1)
+        return to_ref, convert.lm_head_params_from_jax
+    return (lambda sd: {k: convert.to_numpy(v, copy=True) for k, v in sd.items()},
+            lambda flat: {k: convert.to_torch(v) for k, v in flat.items()})

@@ -13,15 +13,71 @@ the wrapped optimizer.
 Parity note: ``optax.adamw`` defaults to ``weight_decay=1e-4`` and
 ``torch.optim.AdamW`` to ``1e-2``; pass ``weight_decay=1e-4, eps=1e-8`` to
 train as the JAX package's ``optax.adamw(lr)`` does.
+
+Checkpoints. ``state_dict()`` is torch's own. The checkpoint files hold the
+JAX package's optax layout instead, so that either package resumes the
+other's runs; two torch optimizers have a map to it:
+  - ``torch.optim.AdamW`` <-> ``optax.adamw``;
+  - ``torch.optim.Adam`` with ``weight_decay=0`` <-> ``optax.adam``;
+each with ``amsgrad=False`` and ``maximize=False``. Both optax chains start
+with ``scale_by_adam``, whose state is ``ScaleByAdamState(count, mu, nu)``;
+the rest of the chain holds no array. So the layout is ``0/count`` (int32,
+torch's per-parameter ``step``, equal for every parameter), ``0/mu/<key>``
+(``exp_avg``) and ``0/nu/<key>`` (``exp_avg_sq``), the moments in the
+model's reference layout (``DistributedModel.reference_state_dict``: layers
+stacked, kernels [in, out]). The hyperparameters are not part of optax's
+state: a resumed run builds its optimizer with the same ones.
+``reference_state_dict()`` gives that flat dict, ``local_state_dict()`` it
+as a shard payload, and ``load_state_dict`` takes torch's dict, a
+reference-keyed flat dict or a shard payload. Another optimizer trains, but
+saving or loading it in that layout raises ``SMPValidationError``. A
+checkpoint that ``smp.resume_from_checkpoint`` read before the optimizer
+existed is applied when it is built.
 """
 
+import collections
+
+import numpy as np
 import torch
 
 from smdistributed_modelparallel_tpu_torch.backend.state import state
+from smdistributed_modelparallel_tpu_torch.convert import to_numpy
+from smdistributed_modelparallel_tpu_torch.module_manager import path_key, tree_flatten_with_path
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     SMPValidationError,
     StepUsageError,
 )
+from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
+
+logger = get_logger()
+
+# optax's scale_by_adam state (optax.ScaleByAdamState): the field order is
+# the order of its checkpoint keys.
+_AdamState = collections.namedtuple("ScaleByAdamState", ["count", "mu", "nu"])
+_MAPPED = "torch.optim.AdamW (optax.adamw), torch.optim.Adam with weight_decay=0 (optax.adam)"
+
+
+def _maps_to_optax(optimizer):
+    """True for ``torch.optim.AdamW`` and for ``torch.optim.Adam`` without
+    weight decay, neither with ``amsgrad`` or ``maximize``."""
+    groups = optimizer.param_groups
+    if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)) or any(
+            g.get("amsgrad") or g.get("maximize") for g in groups):
+        return False
+    return isinstance(optimizer, torch.optim.AdamW) or all(
+        g.get("decoupled_weight_decay") or g.get("weight_decay", 0) == 0 for g in groups)
+
+
+def _adam_prefix(keys):
+    """The path of the scale_by_adam state among reference keys (``"0/"``
+    in an optax chain)."""
+    keys = list(keys)
+    for k in keys:
+        if k.endswith("count"):
+            prefix = k[: -len("count")]
+            if any(x.startswith(prefix + "mu/") for x in keys):
+                return prefix
+    raise SMPValidationError("The optimizer state holds no optax scale_by_adam state (count, mu, nu).")
 
 
 class DistributedOptimizer:
@@ -43,6 +99,15 @@ class DistributedOptimizer:
             raise SMPValidationError("Create smp.DistributedModel before the optimizer.")
         self.grad_clip_norm = grad_clip_norm
         state.optimizer = self
+        if state.loaded_optimizer_state is not None:
+            from smdistributed_modelparallel_tpu_torch.shard_io import ShardCatalog
+
+            logger.info("Applying deferred checkpoint state to optimizer.")
+            payload, state.loaded_optimizer_state = state.loaded_optimizer_state, None
+            if isinstance(payload, ShardCatalog):
+                self.load_sharded(payload)
+            else:
+                self.load_state_dict(payload)
 
     def step(self):
         """Apply the gradients of the last ``@smp.step`` call."""
@@ -83,7 +148,89 @@ class DistributedOptimizer:
         self.optimizer.zero_grad(set_to_none=True)
 
     def state_dict(self):
+        """torch's ``state_dict`` of the wrapped optimizer."""
         return self.optimizer.state_dict()
 
+    @property
+    def has_state(self):
+        """True once the wrapped optimizer holds state (after its first
+        step or a load)."""
+        return bool(self.optimizer.state)
+
+    def _check_mapped(self):
+        if not _maps_to_optax(self.optimizer):
+            raise SMPValidationError(
+                f"{type(self.optimizer).__name__} has no map to the JAX package's optax state; the "
+                f"optimizers that have one: {_MAPPED}, each with amsgrad=False and maximize=False."
+            )
+
+    def reference_state_dict(self):
+        """Host copy of the state in the JAX package's optax layout: a flat
+        dict with ``0/count``, ``0/mu/<key>`` and ``0/nu/<key>`` (the
+        ``optimizer`` entry of a full checkpoint). A parameter without state
+        yet has zero moments."""
+        self._check_mapped()
+        count, mu, nu = 0, {}, {}
+        for name, p in self.model.named_parameters():
+            st = self.optimizer.state.get(p, {})
+            if "exp_avg" in st:
+                mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
+                count = max(count, int(st["step"]))
+            else:
+                mu[name] = nu[name] = torch.zeros_like(p)
+        to_ref = self.model._to_reference
+        tree = (_AdamState(np.asarray(count, np.int32), to_ref(mu), to_ref(nu)),)  # optax's chain: 0/...
+        return {path_key(path): leaf for path, leaf in tree_flatten_with_path(tree)}
+
+    def local_state_dict(self):
+        """This rank's shard payload of ``reference_state_dict()``,
+        round-trippable through ``load_state_dict``."""
+        from smdistributed_modelparallel_tpu_torch.shard_io import shard_payload
+
+        return shard_payload(self.reference_state_dict(), dedupe_global=False)
+
     def load_state_dict(self, state_dict):
-        self.optimizer.load_state_dict(state_dict)
+        """Load torch's ``state_dict``, a reference-keyed flat dict or a
+        shard payload."""
+        from smdistributed_modelparallel_tpu_torch.shard_io import InMemoryCatalog, is_shard_payload
+
+        if is_shard_payload(state_dict):
+            self.load_sharded(InMemoryCatalog(state_dict))
+        elif "state" in state_dict and "param_groups" in state_dict:
+            self.optimizer.load_state_dict(state_dict)
+        else:
+            self._load_reference(state_dict)
+
+    def load_sharded(self, catalog):
+        """Load a ``shard_io`` catalog of the optax layout."""
+        try:
+            self._check_mapped()
+            loaded = catalog.load_tree(device=self.model.device)
+        finally:
+            catalog.close()
+        self._load_reference(loaded)
+
+    def _load_reference(self, flat):
+        """Install optax's (count, mu, nu) from a reference-keyed flat dict
+        as the wrapped optimizer's (step, exp_avg, exp_avg_sq): the moments
+        are copied into tensors laid out as their parameters, then go
+        through torch's own ``load_state_dict`` (which places ``step`` as the
+        optimizer keeps it). A parameter the dict lacks keeps its state."""
+        self._check_mapped()
+        prefix = _adam_prefix(flat)
+        count = float(to_numpy(flat[prefix + "count"]))
+        moments = {}
+        for m in ("mu", "nu"):
+            start = f"{prefix}{m}/"
+            moments[m] = self.model._from_reference({k[len(start):]: v for k, v in flat.items()
+                                                    if k.startswith(start)})
+        names = {p: n for n, p in self.model.named_parameters()}
+        sd = self.optimizer.state_dict()
+        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        for idx, p in enumerate(params):
+            name = names.get(p)
+            if name in moments["mu"] and name in moments["nu"]:
+                sd["state"][idx] = {"step": torch.tensor(count, dtype=torch.float32),
+                                    **{k: torch.empty_like(p).copy_(moments[m][name])
+                                       for k, m in (("exp_avg", "mu"), ("exp_avg_sq", "nu"))}}
+        self.optimizer.load_state_dict(sd)

@@ -21,7 +21,8 @@ into one compiled program; here the same numbers come from an eager loop:
   gradients are checked for overflow; ``DistributedOptimizer.step`` skips
   the update and backs the scale off when they are not finite;
 - the outputs are stacked along a leading [microbatches] axis into a
-  ``StepOutput``.
+  ``StepOutput``, and ``state.step_count`` advances by one (the step edge a
+  checkpoint records).
 
 ``fused_optimizer_step`` and ``fused_step_donation`` fuse the optimizer
 update into the JAX package's compiled step program (and donate its
@@ -374,7 +375,9 @@ class StepFunction:
                 all(bool(torch.isfinite(g).all()) for g in model._grads.values())
                 if cfg.fp16 else None
             )
-        return StepOutput(_combine_over_cp(_stack_outputs(outs), group, torch.tensor(weights)))
+        out = StepOutput(_combine_over_cp(_stack_outputs(outs), group, torch.tensor(weights)))
+        state.step_count += 1
+        return out
 
 
 def step(fn=None, *, non_split_inputs=None, input_split_axes=None):

@@ -1007,3 +1007,82 @@ def test_cp2_attention_on_card_matches_full_attention_on_cpu(cuda):
         for a, b in zip(got, want):
             assert float(np.abs(a - b).max()) <= 1e-4 * max(float(np.abs(b).max()), 1.0), impl
     assert [r["ring_launches"] for r in per_rank] == [2, 2]
+
+
+_CKPT_CFG = dict(num_layers=2, num_attention_heads=4, attention_head_size=16, hidden_size=64, intermediate_size=256,
+                 vocab_size=97, num_positions=128, causal_mask_size=128, pre_layernorm=True, post_layernorm=False,
+                 final_layernorm=True, attention_dropout_prob=0.0, hidden_dropout_prob=0.0,
+                 embedding_dropout_prob=0.0, fused_bias_gelu=True)
+
+
+def _ckpt_run(cuda, seed, steps, ids, resume=None):
+    """bf16 smp.nn training on the card (the fused knobs, AdamW):
+    ``resume`` a checkpoint before the model exists; the losses and the
+    model."""
+    smp_torch.reset()
+    smp_torch.init({"microbatches": 2, "bf16": True, "fused_qkv": True}, device=cuda)
+    if resume is not None:
+        smp_torch.resume_from_checkpoint(resume, tag="c")
+    module = init_weights_(DistributedTransformerLMHead(**_CKPT_CFG), 0.02, torch.Generator().manual_seed(seed))
+    model = smp_torch.DistributedModel(module)
+    opt = smp_torch.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4, eps=1e-8), model)
+
+    @smp_torch.step
+    def train_step(model, batch):
+        loss = vocab_parallel_cross_entropy(model(batch)[:, :-1], batch[:, 1:]).mean()
+        model.backward(loss)
+        return loss
+
+    losses = []
+    for _ in range(steps):
+        losses.append(float(train_step(model, ids).reduce_mean()))
+        opt.step()
+    return losses, model, opt, train_step
+
+
+@pytest.mark.cuda
+def test_checkpoint_save_and_resume_on_card(cuda, tmp_path):
+    """A partial checkpoint of CUDA tensors resumes (deferred, into a model
+    from another seed) to the uninterrupted run's losses and parameters, bit
+    for bit; a ``blocking=False`` save followed at once by an in-place
+    ``optimizer.step()`` holds the submission's bits."""
+    ids = torch.randint(0, 97, (4, 128), generator=torch.Generator().manual_seed(1)).to(cuda)
+    _, model, opt, train_step = _ckpt_run(cuda, 0, 2, ids)
+    smp_torch.save_checkpoint(str(tmp_path), tag="c")
+    want_sd = model.reference_state_dict()
+    smp_torch.save_checkpoint(str(tmp_path), tag="a", blocking=False)
+    want = []
+    for _ in range(2):
+        want.append(float(train_step(model, ids).reduce_mean()))
+        opt.step()
+    smp_torch.wait_for_checkpoints()
+    final = model.reference_state_dict()
+    files = np.load(tmp_path / "a_partial" / "model_shards_p0.npz")
+    for k, v in want_sd.items():
+        assert files[f"{k}|[{', '.join(f'[0, {d}]' for d in v.shape)}]"].tobytes() == v.tobytes(), k
+    got, model2, _, _ = _ckpt_run(cuda, 5, 2, ids, resume=str(tmp_path))
+    assert got == want
+    for k, v in model2.reference_state_dict().items():
+        assert v.tobytes() == final[k].tobytes(), k
+    assert all(p.is_cuda for p in model2.parameters())
+
+
+@pytest.mark.cuda
+def test_prefetch_batches_equal_host_batches(cuda):
+    """``smp.dataloader`` stages every array leaf on the card, bit-equal to
+    the host batch, so the step's ``.to(device)`` returns it as it is."""
+    smp_torch.reset()
+    smp_torch.init({}, device=cuda)
+    rng = np.random.default_rng(0)
+    host = [{"ids": rng.integers(0, 50257, (8, 1024)), "w": rng.random((8,), np.float32),
+             "t": torch.arange(6, dtype=torch.bfloat16), "n": 3} for _ in range(5)]
+    got = list(smp_torch.dataloader(iter(host), size=2))
+    torch.cuda.synchronize()
+    assert len(got) == 5
+    for g, h in zip(got, host):
+        for k in ("ids", "w"):
+            assert g[k].is_cuda and g[k].dtype == torch.from_numpy(h[k]).dtype
+            assert np.array_equal(g[k].cpu().numpy(), h[k])
+        assert g["t"].is_cuda and torch.equal(g["t"].cpu(), h["t"]) and g["n"] == 3
+        assert g["ids"].to(torch.device(cuda)) is g["ids"]
