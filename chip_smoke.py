@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases T # the training path only
     python3 chip_smoke.py --phases F # the capacity path (fused cross-entropy) only
     python3 chip_smoke.py --phases L # the smp.nn path (fused QKV, fused bias-GELU) only
+    python3 chip_smoke.py --phases D # the smp.nn path with GPT-2's dropouts 0.1 only
     python3 chip_smoke.py --phases Q # the smp.nn path under matmul_precision: fp8 only
     python3 chip_smoke.py --phases R # context-parallel training (two ranks on one card) only
     python3 chip_smoke.py --phases K # checkpoints and the data loader on the smp.nn path only
@@ -17,9 +18,13 @@ csrc`` (one nvcc per source, all started together), then:
   A. the main path: ``smp.generate`` on GPT-2 124M at full width (d 768,
      12 layers, 12 heads, vocab 50257) with random GPT-2-style weights from
      a seed, bf16, 4 prompts of 512 tokens, 32 new tokens, greedy and
-     sampled; each kernel's launch count is set to 0 just before and read
-     just after, and must show one launch per layer per prefill. A small
-     fp32 model is also held against the same weights run on the CPU.
+     sampled (temperature 0.8, top-k 50, top-p 0.95, a key from the seed);
+     each kernel's launch count is set to 0 just before and read just after,
+     and must show one flash launch per layer per prefill and one
+     ``threefry_bits`` launch (the Gumbel draw over [4, 50257]) per sampled
+     token. A repeat with the same key gives the same tokens, and the
+     Gumbel bits equal the plain version's. A small fp32 model is also held
+     against the same weights run on the CPU.
   T. the training path: ``@smp.step`` + ``smp.DistributedOptimizer`` on
      GPT-2 124M at full width with random weights from a seed, bf16, batch
      8 x 1024 tokens in 4 microbatches, AdamW(1e-4), loss mode,
@@ -54,6 +59,26 @@ csrc`` (one nvcc per source, all started together), then:
      gradients must agree; a small fp32 model under both knobs trains 3
      steps on the card (kernels) and on the CPU (the unfused path, the same
      function in fp32), losses agreeing.
+  D. the ``smp.nn`` path with dropout: phase L's model, weights and batch
+     (fused knobs, bf16, 8 x 1024 tokens in 4 microbatches, AdamW) with
+     attention, hidden and embedding dropout 0.1 (GPT-2's published
+     ``attn_pdrop``, ``resid_pdrop`` and ``embd_pdrop``), against the
+     dropout-0 step from the same weights, 2 warm-up steps each, then 12
+     timed steps each in interleaved blocks of 6 (dropout, dropout 0,
+     dropout 0, dropout). Each step of the dropout run launches the flash
+     kernels 48 times each on the tensor cores with their dropout hash, and
+     ``dropout_fwd`` and ``dropout_bwd`` 100 times each (the embedding's and
+     each layer's attention-output and MLP-output dropout, 25 sites, in 4
+     microbatches); the dropout-0 run none of them. The kept share of one
+     embedding mask and one hidden mask lies within 0.9 +- 0.002; the
+     losses are finite and fall; two 3-step runs from the same weights and
+     ``tensor_parallel_seed`` give equal losses, another seed other losses.
+     A small fp32 model (2 layers, T 64: attention on the plain path, its
+     dropout through the kernel over the probabilities) with all three
+     dropouts takes one step on the card and on the CPU from the same
+     weights and seed: losses within rtol 2e-4 / atol 2e-5 and gradients
+     within rtol 2e-3 / atol 2e-4 (``tests/test_torch_step.py``'s fp32
+     tolerances).
   Q. fp8 delayed-scaling training: phase L's model, weights and batch under
      ``matmul_precision: "fp8"`` with both fused knobs; warm-up steps, then
      timed steps whose launches are counted (48 ``matmul_fp8`` launches a
@@ -114,6 +139,11 @@ csrc`` (one nvcc per source, all started together), then:
      fp16, the CE forward every case in fp16. The bias-GELU wrappers run
      GELU_CASES in fp32, bf16 and fp16: y and dx within GELU_TOL, db within
      the fp32 summation-order bound (``gelu_db_tol``), repeats bit-equal.
+     ``threefry_bits`` gives the plain version's bits exactly, at the path's
+     mask size, odd sizes, offsets past 2**32 and keys from ``split`` and
+     ``fold_in``; the dropout forward and backward give the plain version's
+     bits exactly in fp32, bf16 and fp16 at rates 0.1, 0.5 and 0; the flash kernels run the
+     training shape with the seeds phase D's first step derives.
   C. times: kernel, plain version and the one PyTorch library call that
      computes the same function; and the bound (the least time the card
      could take for the same work; the ids-mode kernels against SDPA with
@@ -127,12 +157,17 @@ csrc`` (one nvcc per source, all started together), then:
      fused-CE kernels (milliseconds) by CUDA events, each also held against
      its plain version on the timed inputs, the capacity path's N = 32768
      included. Every kernel with two routes is timed on its route and forced
-     onto the CUDA cores in the same call, with its TFLOP/s.
+     onto the CUDA cores in the same call, with its TFLOP/s. The dropout
+     kernels at [2048, 768] bf16 by graph replay: forward, backward, the
+     plain versions and ``F.dropout`` (Philox: other bits, the same bytes);
+     ``threefry_bits`` at phase A's Gumbel draw. Their bound takes the
+     instructions of each kernel's compiled loop (cuobjdump) on its busiest
+     pipe (PIPE_LANES).
   N. (on request, on a machine with two cards) phase R with the ranks on
      cuda:0 and cuda:1, which then talk over NCCL.
   P. (on request) torch.profiler breakdowns of a generate, a training step,
      a capacity step (fused and materialized) and the smp.nn path's fused,
-     unfused and fp8 steps:
+     unfused, fp8 and dropout steps:
      device time by kernel and the device's idle share.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
@@ -163,8 +198,23 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12, torch.float8_e4m3fn: 1979e12}
 
-KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8"]
-DEFAULT_PHASES = "ATFLQRKBC"
+# Instruction issue of an H100 SXM, for kernels bound by integer work: 132
+# SMs at the 1.98 GHz boost clock of the fp32 peak above (132 x 128 lanes x 2
+# x 1.98e9 = 67e12). Results an SM per clock, by pipe (CUDA C Programming
+# Guide, throughput of arithmetic instructions, compute capability 9.0): the
+# integer ALU (IADD3, LOP3, SHF, ISETP, LEA, SEL, PRMT) 64; IMAD (and its
+# IMAD.IADD / IMAD.MOV forms) on the FMA pipe's heavy half, 64; the FMA pipe
+# as a whole (IMAD with FFMA, FADD, FMUL) 128; MUFU 16; and any instruction,
+# 4 warps x 32 threads = 128 an SM per clock of issue. Counts come from the
+# compiled loop of each kernel (``sass_loop_counts``).
+H100_SMS = 132
+H100_CLOCK_HZ = 67e12 / (H100_SMS * 128 * 2)
+PIPE_LANES = {"alu": 64, "imad": 64, "fma": 128, "mufu": 16, "issue": 128}
+_ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "PRMT")
+_FP32_OPS = ("FFMA", "FADD", "FMUL")
+
+KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8", "dropout"]
+DEFAULT_PHASES = "ATFLDQRKBC"
 SEED = 1234
 
 
@@ -328,7 +378,9 @@ def phase_a():
     """The main path through the public entry points."""
     import smdistributed_modelparallel_tpu_torch as smp
     from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2, gpt2_124m, init_gpt2_weights_
+    from smdistributed_modelparallel_tpu_torch.ops.dropout import reference_threefry_bits, threefry_bits
     from smdistributed_modelparallel_tpu_torch.ops.flash_attention import flash_attention
+    from smdistributed_modelparallel_tpu_torch.utils import random
 
     B, T, NEW = 4, 512, 32
     smp.init({"bf16": True})
@@ -349,12 +401,12 @@ def phase_a():
     # Warm-up (cuBLAS handles, allocator), not counted.
     smp.generate(model, prompts, 2)
 
-    flash_attention.launches = flash_attention.simt_launches = 0
+    flash_attention.launches = flash_attention.simt_launches = threefry_bits.launches = 0
     _, prefill_ms = timed(lambda: smp.generate(model, prompts, 1))
     greedy, greedy_ms = timed(lambda: smp.generate(model, prompts, NEW))
-    sampled, sampled_ms = timed(lambda: smp.generate(
-        model, prompts, NEW, rng=torch.Generator(device="cuda").manual_seed(SEED), **sample_kw))
-    launches = {"flash_fwd": flash_attention.launches, "flash_fwd_simt": flash_attention.simt_launches}
+    sampled, sampled_ms = timed(lambda: smp.generate(model, prompts, NEW, rng=random.key(SEED), **sample_kw))
+    launches = {"flash_fwd": flash_attention.launches, "flash_fwd_simt": flash_attention.simt_launches,
+                "threefry_bits": threefry_bits.launches}
     n_prefills = 3
 
     decode_ms_per_token = (greedy_ms - prefill_ms) / (NEW - 1)
@@ -362,12 +414,15 @@ def phase_a():
     log(f"[A] prefill (generate, 1 new token) {prefill_ms:.2f} ms  B={B} T={T}")
     log(f"[A] greedy generate {NEW} tokens {greedy_ms:.2f} ms; decode {decode_ms_per_token:.3f} ms/token; "
         f"{tokens_per_s:.1f} tokens/s")
-    log(f"[A] sampled generate {NEW} tokens {sampled_ms:.2f} ms")
+    log(f"[A] sampled generate {NEW} tokens {sampled_ms:.2f} ms; decode {(sampled_ms - prefill_ms) / (NEW - 1):.3f} "
+        f"ms/token")
     log(f"[A] launches on the main path: {launches} over {n_prefills} prefills of {n_layers} layers")
 
     if launches["flash_fwd"] < n_layers * n_prefills:
         raise RuntimeError(f"flash_fwd launched {launches['flash_fwd']} times on the tensor cores, expected >= "
                            f"{n_layers * n_prefills}")
+    if launches["threefry_bits"] != NEW:  # the Gumbel draw of each sampled token
+        raise RuntimeError(f"threefry_bits launched {launches['threefry_bits']} times, expected {NEW}")
     _check_route("serving path", launches)
     for name, out in (("greedy", greedy), ("sampled", sampled)):
         if out.shape != (B, T + NEW):
@@ -376,9 +431,17 @@ def phase_a():
             raise RuntimeError(f"{name} output does not start with the prompts")
         if int(out.min()) < 0 or int(out.max()) >= module.vocab_size:
             raise RuntimeError(f"{name} tokens out of range")
-    again = smp.generate(model, prompts, NEW, rng=torch.Generator(device="cuda").manual_seed(SEED), **sample_kw)
+    again = smp.generate(model, prompts, NEW, rng=random.key(SEED), **sample_kw)
     if not torch.equal(again, sampled):
-        raise RuntimeError("sampled generation is not reproducible from its seed")
+        raise RuntimeError("sampled generation is not reproducible from its key")
+    # The first token's Gumbel bits over [B, V], kernel against plain version.
+    gkey = random.split(random.key(SEED), NEW)[0]
+    n = B * module.vocab_size
+    gumbel_equal = torch.equal(threefry_bits(gkey, n, device="cuda"), reference_threefry_bits(gkey, n, device="cuda"))
+    log(f"[A] sampled tokens repeat with the same key: True; Gumbel bits [{B}, {module.vocab_size}] equal to the "
+        f"plain version's: {gumbel_equal}")
+    if not gumbel_equal:
+        raise RuntimeError("threefry_bits disagrees with its plain version at the Gumbel draw")
 
     # Full-width prefill logits: kernel path vs the plain attention path.
     with torch.inference_mode():
@@ -986,6 +1049,231 @@ def phase_l():
     return fused["launches"], dict(fused=fused, unfused=unfused)
 
 
+# Phase L's model with GPT-2's published dropouts (attn_pdrop, resid_pdrop,
+# embd_pdrop = 0.1), which config_to_smp maps onto these three keys.
+LM_DROP_CFG = dict(LM_CFG, attention_dropout_prob=0.1, hidden_dropout_prob=0.1, embedding_dropout_prob=0.1)
+# Dropout sites a microbatch: the embedding's, and each layer's attention
+# output and MLP output (the attention probabilities' dropout is the flash
+# kernels' hash).
+DROP_SITES = 1 + 2 * LM_CFG["num_layers"]
+# The kept share of a mask of 2048 x 768 = 1.57M draws of p = 0.9: its
+# standard deviation is sqrt(0.9 * 0.1 / 1.57M) = 2.4e-4, so 0.002 is ~8 of
+# them.
+DROP_KEPT_TOL = 0.002
+D_SEEDS = (11, 11, 12)  # tensor_parallel_seed of the three 3-step repeat runs
+
+
+def _dropout_counters():
+    from smdistributed_modelparallel_tpu_torch.ops.dropout import dropout_bwd, dropout_fwd, threefry_bits
+
+    return {"dropout_fwd": dropout_fwd, "dropout_bwd": dropout_bwd, "threefry_bits": threefry_bits}
+
+
+def _d_short_run(init_state, ids, seed):
+    """Losses of 3 steps of the dropout model from ``init_state`` under
+    ``tensor_parallel_seed`` = ``seed``."""
+    model, optimizer, train_step = _lm_setup(init_state, True, "cuda", LM_DROP_CFG, tensor_parallel_seed=seed)
+    losses = []
+    for _ in range(3):
+        losses.append(float(train_step(model, ids).reduce_mean()))
+        optimizer.step()
+    del model, optimizer, train_step
+    return losses
+
+
+def _d_small_card_vs_cpu():
+    """One step of a small fp32 model with all three dropouts, on the card
+    and on the CPU from the same weights and seed: (loss, grads, dropout
+    launches) by device."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+
+    cfg = dict(LM_DROP_CFG, num_layers=2, num_attention_heads=4, attention_head_size=32, hidden_size=128,
+               intermediate_size=512, vocab_size=97, num_positions=64, causal_mask_size=64)
+    state = init_weights_(smp.nn.DistributedTransformerLMHead(**cfg), 0.02, torch.Generator().manual_seed(SEED))
+    state = state.state_dict()
+    ids = torch.randint(0, 97, (4, 64), generator=torch.Generator().manual_seed(SEED))
+    counters = _dropout_counters()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model, _, train_step = _lm_setup(state, False, device, cfg, microbatches=2, bf16=False)
+        for c in counters.values():
+            c.launches = 0
+        loss = float(train_step(model, ids).reduce_mean())
+        runs[device] = (loss, {k: g.detach().float().cpu() for k, g in model.grads.items()},
+                        {k: c.launches for k, c in counters.items()})
+    return runs
+
+
+def _d_host_split(run, ids, drop_ms, plain_ms, n=3):
+    """Where the dropout step's extra host time goes: ``n`` more steps of
+    the dropout run with a wall-clock timer around each host-side function
+    the dropout path adds (the scope keys, the attention seeds, the step's
+    key schedule, the dropout op's forward and backward and their ctypes
+    launches), in ms a step, against the gap between the dropout and
+    dropout-0 steps measured in the timed blocks. The forward and backward
+    include their launches; the rest do not nest."""
+    from smdistributed_modelparallel_tpu_torch import model as model_mod
+    from smdistributed_modelparallel_tpu_torch.ops import dropout as dr
+    from smdistributed_modelparallel_tpu_torch.utils import random
+
+    targets = {"scope keys (DistributedModel.make_rng)": (model_mod.DistributedModel, "make_rng"),
+               "attention seeds (utils.random.bits32)": (random, "bits32"),
+               "step key schedule (utils.random.split)": (random, "split"),
+               "dropout forward (ops.dropout.dropout, with its launch)": (dr, "dropout"),
+               "dropout backward (ops.dropout._DropoutFn.backward, with its launch)": (dr._DropoutFn, "backward"),
+               "ctypes launches (ops.dropout._launch)": (dr, "_launch")}
+    secs = dict.fromkeys(targets, 0.0)
+    calls = dict.fromkeys(targets, 0)
+
+    def timer(name, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                secs[name] += time.perf_counter() - t0
+                calls[name] += 1
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        for name, (owner, attr) in targets.items():
+            fn = timer(name, getattr(owner, attr))  # autograd reads a Function's backward at each call
+            stack.enter_context(mock.patch.object(owner, attr, staticmethod(fn) if attr == "backward" else fn))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run["step"](run["model"], ids)
+            run["optimizer"].step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    split = {name: secs[name] * 1e3 / n for name in targets}
+    log(f"[D] host split of the dropout step ({n} steps with timers, {wall_ms:.2f} ms/step; the timed blocks' gap "
+        f"{drop_ms - plain_ms:.2f} ms/step):")
+    for name in targets:
+        log(f"[D]   {name}: {split[name]:.3f} ms/step, {calls[name] // n} calls a step")
+    return dict(wall_ms=wall_ms, gap_ms=drop_ms - plain_ms, ms=split, calls={k: v // n for k, v in calls.items()})
+
+
+def phase_d():
+    """The smp.nn path with GPT-2's dropouts: phase L's model and step with
+    attention, hidden and embedding dropout 0.1, against the dropout-0 step
+    from the same weights in interleaved blocks; launches by route, kept
+    shares, repeats, and a small fp32 model on the card and on the CPU."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+    from smdistributed_modelparallel_tpu_torch.ops import dropout as dr
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    init = init_weights_(smp.nn.DistributedTransformerLMHead(**LM_CFG, device="cuda"), LM_CFG["initializer_range"], g)
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    ids = torch.randint(0, LM_CFG["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
+
+    # Both models in one session (one step key stream, as two models in one
+    # JAX session share it), each with its AdamW.
+    _lm_init(True)
+    runs = {}
+    for label, cfg in (("dropout 0.1", LM_DROP_CFG), ("dropout 0", LM_CFG)):
+        module = smp.nn.DistributedTransformerLMHead(**cfg, fused_bias_gelu=True, device="meta")
+        module.load_state_dict({k: v.clone() for k, v in init_state.items()}, assign=True)
+        model, optimizer, train_step = _lm_train(module, "cuda")
+        runs[label] = dict(model=model, optimizer=optimizer, step=train_step, losses=[], block_ms=[], launches={})
+    counters = {**_flash_counters(), **_new_counters(), **_dropout_counters(), **_simt_counters()}
+
+    def steps(label, n, timed):
+        run = runs[label]
+        if timed:
+            for c in counters.values():
+                c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run["losses"].append(run["step"](run["model"], ids).reduce_mean())
+            run["optimizer"].step()
+        torch.cuda.synchronize()
+        if timed:
+            run["block_ms"].append((time.perf_counter() - t0) * 1e3 / n)
+            for k, c in counters.items():
+                run["launches"][k] = run["launches"].get(k, 0) + c.launches
+
+    for label in runs:
+        steps(label, TRAIN_WARMUP, False)
+    for label in ("dropout 0.1", "dropout 0", "dropout 0", "dropout 0.1"):  # A B B A
+        steps(label, TRAIN_STEPS // 2, True)
+    out = {}
+    for label, run in runs.items():
+        ms = sum(run["block_ms"]) / len(run["block_ms"])
+        run["losses"] = [float(x) for x in run["losses"]]
+        out[label] = dict(ms=ms, block_ms=run["block_ms"], tokens_per_s=ids.numel() / ms * 1e3,
+                          losses=run["losses"], launches=run["launches"])
+        log(f"[D] smp.nn GPT-2 124M bf16 training, batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MB} "
+            f"microbatches, fused knobs, {label}: {ms:.2f} ms/step (blocks {', '.join(f'{b:.2f}' for b in run['block_ms'])}),"
+            f" {out[label]['tokens_per_s']:.1f} tokens/s (mean of {TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up, "
+            f"blocks A B B A)")
+        log(f"[D]   losses {run['losses']}")
+        log(f"[D]   launches over {TRAIN_STEPS} steps: {run['launches']}")
+
+    per_step = LM_CFG["num_layers"] * TRAIN_MB
+    want = {**{k: per_step * TRAIN_STEPS for k in {**_flash_counters(), **_new_counters()}},
+            "dropout_fwd": DROP_SITES * TRAIN_MB * TRAIN_STEPS, "dropout_bwd": DROP_SITES * TRAIN_MB * TRAIN_STEPS,
+            "threefry_bits": 0, **{k: 0 for k in _simt_counters()}}
+    got = {k: runs["dropout 0.1"]["launches"][k] for k in want}
+    if got != want:
+        raise RuntimeError(f"dropout path launches {got}, expected {want}")
+    if any(runs["dropout 0"]["launches"][k] for k in _dropout_counters()):
+        raise RuntimeError(f"the dropout-0 run launched dropout kernels: {runs['dropout 0']['launches']}")
+    losses = runs["dropout 0.1"]["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"dropout training loss did not fall or is not finite: {losses}")
+
+    # The kept share of the first microbatch's embedding mask and its first
+    # hidden mask (layer 0's attention output): one more step records the
+    # first two sites' inputs and keys, then their masks are drawn again.
+    drawn = []
+    real = dr.dropout
+
+    def spy(x, rate, key):
+        if len(drawn) < 2:
+            drawn.append((x.detach(), rate, key))
+        return real(x, rate, key)
+
+    run = runs["dropout 0.1"]
+    with mock.patch.object(dr, "dropout", spy):
+        run["step"](run["model"], ids)
+    masks = [dr.dropout_fwd(*args)[1] for args in drawn]
+    kept = {name: float(mask.float().mean()) for name, mask in zip(("embedding", "layer 0 attention output"), masks)}
+    log(f"[D] kept share of one mask of {masks[0].numel()} draws: " +
+        ", ".join(f"{k} {v:.5f}" for k, v in kept.items()) + f" (0.9 +- {DROP_KEPT_TOL})")
+    if any(abs(v - 0.9) > DROP_KEPT_TOL for v in kept.values()):
+        raise RuntimeError(f"kept shares {kept} outside 0.9 +- {DROP_KEPT_TOL}")
+    host = _d_host_split(run, ids, out["dropout 0.1"]["ms"], out["dropout 0"]["ms"])
+    launches = runs["dropout 0.1"]["launches"]
+    del runs, run
+    torch.cuda.empty_cache()
+
+    # The same weights and seed give the same losses; another seed others.
+    repeats = [_d_short_run(init_state, ids, s) for s in D_SEEDS]
+    log(f"[D] 3 steps from the same weights, tensor_parallel_seed {D_SEEDS[0]} twice then {D_SEEDS[2]}: {repeats}")
+    if repeats[0] != repeats[1] or repeats[0][0] == repeats[2][0]:
+        raise RuntimeError("the dropout run is not reproducible from its seed, or ignores it")
+
+    small = _d_small_card_vs_cpu()
+    (l_gpu, g_gpu, n_gpu), (l_cpu, g_cpu, n_cpu) = small["cuda"], small["cpu"]
+    loss_ok = abs(l_gpu - l_cpu) <= 2e-5 + 2e-4 * abs(l_cpu)
+    grad_err = max(float(((g_gpu[k] - v).abs() / (2e-4 + 2e-3 * v.abs())).max()) for k, v in g_cpu.items())
+    want_small = 2 * (1 + 3 * 2)  # 2 microbatches x (the embedding + 2 layers x 3 sites), each way
+    log(f"[D] fp32 small smp.nn model (d 128, 2 layers, seq 64), all three dropouts 0.1, one step, card (launches "
+        f"{n_gpu}) vs CPU: loss {l_gpu!r} vs {l_cpu!r}; gradients' largest |diff| / (atol + rtol |grad|) "
+        f"{grad_err:.3f} (limit 1; rtol 2e-3, atol 2e-4)")
+    if not loss_ok or grad_err > 1 or n_gpu != {"dropout_fwd": want_small, "dropout_bwd": want_small,
+                                                "threefry_bits": 0}:
+        raise RuntimeError("the card's fp32 dropout step disagrees with the CPU's")
+    smp.reset()
+    out.update(kept=kept, repeats=repeats, small=(l_gpu, l_cpu, grad_err), host=host)
+    return launches, out
+
+
 # The 11 slots the smp.nn path observes under fp8 (SITE_SLOTS less the
 # linear_* and ring_* seams of the tensor-parallel layers).
 FP8_LIVE_SLOTS = {"qkv.x", "qkv.w", "attn_proj.x", "attn_proj.w", "mlp_fc.x", "mlp_fc.w", "mlp_proj.x",
@@ -1517,8 +1805,13 @@ def phase_b():
     counters = {**_flash_route_counters(), **_flash_simt_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
     main_err, bwd_main_err, failures = None, {}, []
-    for name, B, T, S, H, hd, kw in CASES:
-        dtypes = [torch.bfloat16] if name in MAIN_CASES else [torch.float32, torch.bfloat16]
+    seeds = _d_seeds()
+    d_cases = [(f"phase_d_seed_layer{i}", TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ, TRAIN_SEQ, LM_CFG["num_attention_heads"],
+                LM_CFG["attention_head_size"], dict(dropout_rate=0.1, seed=seeds[i])) for i in (0, len(seeds) - 1)]
+    log(f"[B] phase D's first step derives the attention seeds {seeds} (microbatch 0, layers 0-{len(seeds) - 1})")
+    for name, B, T, S, H, hd, kw in CASES + d_cases:
+        dtypes = [torch.bfloat16] if name in MAIN_CASES or name.startswith("phase_d") else [torch.float32,
+                                                                                            torch.bfloat16]
         if name in FP16_CASES:
             dtypes.append(torch.float16)
         for dtype in dtypes:
@@ -1559,9 +1852,109 @@ def phase_b():
     new_err = _phase_b_new(failures)
     new_err["matmul_fp8"] = _phase_b_fp8(failures)
     new_err.update(_phase_b_ids(failures))
+    new_err.update(_phase_b_dropout(failures))
     if failures:
         raise RuntimeError(f"kernel disagrees with its plain version: {failures}")
     return main_err, bwd_main_err, new_err
+
+
+def _d_seeds():
+    """The int32 seeds phase D's first dropout step hands the flash kernels
+    for microbatch 0, by layer. The keys depend on the seed, the step, the
+    microbatch and the layer, not on the widths or the length, so a
+    12-layer copy of width 8 takes a forward-only step of 16 tokens on the
+    CPU (tensor_parallel_seed 0, TRAIN_MB microbatches) with the flash route
+    forced there (its plain version), and the seeds are read off its
+    calls."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.ops import attention as att
+
+    cfg = dict(LM_DROP_CFG, num_attention_heads=1, attention_head_size=8, hidden_size=8, intermediate_size=8,
+               vocab_size=97)
+    seeds = []
+    real = att.flash_attention
+
+    def spy(*a, **kw):
+        seeds.append(kw["seed"])
+        return real(*a, **kw)
+
+    _lm_init(False, bf16=False)
+    model = smp.DistributedModel(smp.nn.DistributedTransformerLMHead(**cfg), device="cpu")
+
+    @smp.step
+    def forward(model, ids):
+        return model(ids)
+
+    with mock.patch.object(att, "_kernel_ok", lambda q, k, v: True), mock.patch.object(att, "flash_attention", spy):
+        forward(model, torch.zeros((TRAIN_MB, 16), dtype=torch.long))
+    smp.reset()
+    return seeds[:cfg["num_layers"]]
+
+
+# threefry_bits against its plain version: (case, n, offset).
+BITS_CASES = (("path mask [2048, 768]", 2048 * 768, 0), ("one element", 1, 0), ("odd size and offset", 1000003, 5),
+              ("offset past 2**32", 1000, 2**32 - 100), ("Gumbel draw [4, 50257]", 4 * 50257, 0))
+DROP_RATES = (0.1, 0.5, 0.0)
+DROP_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+DROP_SHAPES = ((2048, 768), (3, 1001))  # the path's, and an odd one
+
+
+def _bit_view(t):
+    """A float tensor's bit patterns, for comparisons that tell -0 from +0."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def _phase_b_dropout(failures):
+    """``threefry_bits`` and the dropout pair against their plain versions,
+    bit for bit: the bits under keys from ``key``, ``fold_in`` and ``split``
+    (and one with both words' high bits set) over BITS_CASES; the forward's
+    y and mask and the backward's dx in fp32, bf16 and fp16 at DROP_RATES
+    over DROP_SHAPES. Returns the
+    largest |difference| of each kernel (0.0 when every bit agrees)."""
+    from smdistributed_modelparallel_tpu_torch.ops import dropout as dr
+    from smdistributed_modelparallel_tpu_torch.utils import random
+
+    counters = _dropout_counters()
+    saved = {k: fn.launches for k, fn in counters.items()}
+    base = random.key(SEED)
+    keys = {"key(SEED)": base, "fold_in(., crc32('dropout'))": random.fold_in(base, random._stream_id("dropout")),
+            "split(., 7)[3]": random.split(base, 7)[3], "[0xDEADBEEF, 0x89ABCDEF]": [0xDEADBEEF, 0x89ABCDEF]}
+    errs = {"threefry_bits": 0.0, "dropout_fwd": 0.0, "dropout_bwd": 0.0}
+    for kname, k in keys.items():
+        for case, n, offset in BITS_CASES:
+            got = dr.threefry_bits(k, n, offset=offset, device="cuda")
+            want = dr.reference_threefry_bits(k, n, offset=offset, device="cuda")
+            ok = torch.equal(got, want)
+            errs["threefry_bits"] = max(errs["threefry_bits"],
+                                        float((got.long() - want.long()).abs().max()) if n else 0.0)
+            log(f"[B] threefry_bits {case:24s} key {kname:28s} equal: {ok} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"threefry_bits/{case}/{kname}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    k = keys["split(., 7)[3]"]
+    for dtype in DROP_DTYPES:
+        for rate in DROP_RATES:
+            for shape in DROP_SHAPES:
+                x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                y, mask = dr.dropout_fwd(x, rate, k)
+                y_ref, keep = dr.reference_dropout_fwd(x, rate, k)
+                dx = dr.dropout_bwd(dy, mask, rate)
+                dx_ref = dr.reference_dropout_bwd(dy, keep, rate)
+                fwd_ok = torch.equal(_bit_view(y), _bit_view(y_ref)) and torch.equal(mask.bool(), keep)
+                bwd_ok = torch.equal(_bit_view(dx), _bit_view(dx_ref))
+                errs["dropout_fwd"] = max(errs["dropout_fwd"], float((y.float() - y_ref.float()).abs().max()))
+                errs["dropout_bwd"] = max(errs["dropout_bwd"], float((dx.float() - dx_ref.float()).abs().max()))
+                tag = f"{str(dtype).removeprefix('torch.'):9s} rate {rate} {list(shape)}"
+                log(f"[B] dropout_fwd {tag}: y and mask bit-equal {fwd_ok}, kept {float(keep.float().mean()):.4f}; "
+                    f"dropout_bwd bit-equal {bwd_ok} {'ok' if fwd_ok and bwd_ok else 'FAIL'}")
+                if not fwd_ok:
+                    failures.append(f"dropout_fwd/{tag}")
+                if not bwd_ok:
+                    failures.append(f"dropout_bwd/{tag}")
+    for key, fn in counters.items():
+        fn.launches = saved[key]  # comparison launches do not count
+    return errs
 
 
 # (name, N, V, D, kwargs) of the fused cross-entropy kernels. D 1600 (GPT-2
@@ -2518,6 +2911,122 @@ def phase_c():
     out.update(_phase_c_new())
     out.update(_phase_c_fp8())
     out.update(_phase_c_ids())
+    out.update(_phase_c_dropout())
+    return out
+
+
+def sass_loop_counts(sass, kernel, stores):
+    """Instructions of ``kernel``'s grid-stride loop in ``cuobjdump -sass``
+    text, by pipe (PIPE_LANES): the instructions from the loop's head to its
+    back edge that every iteration issues, leaving out those a conditional
+    forward branch can jump over (the division that a dropped element skips,
+    its slow-path call), so the counts are a floor. ``kernel`` is a substring
+    of the mangled name; the loop must hold ``stores`` global stores, one
+    element's (an unrolled loop would hold more, and raises)."""
+    section = next(sec for sec in sass.split("Function : ")[1:] if kernel in sec.splitlines()[0])
+    code = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(r"/\*([0-9a-f]{4})\*/\s+([^;]*);", section)]
+    back = [(at, int(m.group(1), 16)) for at, ins in code
+            if (m := re.search(r"BRA (?:!?U?P\d, )?0x([0-9a-f]+)", ins)) and int(m.group(1), 16) < at]
+    if len(back) != 1:
+        raise RuntimeError(f"{kernel}: expected one loop, found back edges {back}")
+    end, head = back[0]
+    skipped = set()
+    for at, ins in code:
+        m = re.match(r"@!?U?P\d+ BRA (?:!?U?P\d, )?0x([0-9a-f]+)", ins)
+        if m and head <= at < end and at < int(m.group(1), 16) <= end:
+            skipped.update(range(at + 16, int(m.group(1), 16), 16))
+    body = [re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0] for at, ins in code if head <= at <= end and at not in skipped]
+    if sum(op.startswith("STG") for op in body) != stores:
+        raise RuntimeError(f"{kernel}: the loop does not store {stores} value(s) an iteration: {body}")
+    counts = {"alu": sum(op.startswith(_ALU_OPS) for op in body), "imad": sum(op.startswith("IMAD") for op in body),
+              "mufu": sum(op.startswith("MUFU") for op in body), "issue": len(body)}
+    counts["fma"] = counts["imad"] + sum(op.startswith(_FP32_OPS) for op in body)
+    return counts
+
+
+def _issue_bound(nbytes, counts, n):
+    """(bound ms, what bounds it, the binding pipe) of a kernel moving
+    ``nbytes`` and issuing ``counts`` (``sass_loop_counts``) for each of its
+    ``n`` elements: the larger of the bytes at PEAK_BYTES_PER_S and the
+    busiest pipe at its PIPE_LANES on every SM."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    pipe = max(counts, key=lambda k: counts[k] / PIPE_LANES[k])
+    t_ops = n * counts[pipe] / (PIPE_LANES[pipe] * H100_SMS * H100_CLOCK_HZ) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), pipe
+
+
+def _sass(name):
+    """``cuobjdump -sass`` of the built library ``name`` (csrc/<name>.cu)."""
+    from smdistributed_modelparallel_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", str(_build._target(name)[1])], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def _phase_c_dropout():
+    """The dropout kernels at the smp.nn path's hidden activation ([2048,
+    768] bf16, rate 0.1) and ``threefry_bits`` at phase A's Gumbel draw ([4,
+    50257]) and at [2048, 768], all by CUDA-graph replay in one call: the
+    wrapper as the path calls it, the plain versions and the library call
+    ``F.dropout`` (Philox: other bits, the same bytes; its autograd
+    backward), which the port never calls; no PyTorch call draws threefry
+    bits, so ``threefry_bits`` has none. Bounds: the bytes each input and
+    output moves once, and the instructions of each kernel's compiled loop
+    (``sass_loop_counts`` of this build) on its busiest pipe."""
+    import torch.nn.functional as F
+
+    from smdistributed_modelparallel_tpu_torch.ops import dropout as dr
+    from smdistributed_modelparallel_tpu_torch.utils import random
+
+    sass = _sass("dropout")
+    sass_counts = {"dropout_fwd": sass_loop_counts(sass, "dropout_fwd_kernelI13__nv_bfloat16", 2),
+                   "dropout_bwd": sass_loop_counts(sass, "dropout_bwd_kernelI13__nv_bfloat16", 1),
+                   "threefry_bits": sass_loop_counts(sass, "threefry_bits_kernel", 1)}
+    for name, c in sass_counts.items():
+        log(f"[C] {name} (bf16) compiled loop, instructions an element (cuobjdump, always issued): {c}")
+    counters = _dropout_counters()
+    saved = {k: fn.launches for k, fn in counters.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    k = random.key(SEED)
+    N, D, rate = TRAIN_BATCH // TRAIN_MB * TRAIN_SEQ, LM_CFG["hidden_size"], 0.1
+    n = N * D
+    x = torch.randn((N, D), generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn((N, D), generator=gen, device="cuda").to(torch.bfloat16)
+    y, mask = dr.dropout_fwd(x, rate, k)
+    _, keep = dr.reference_dropout_fwd(x, rate, k)
+    out = {}
+    rows = (
+        ("dropout_fwd", lambda: dr.dropout_fwd(x, rate, k), lambda: dr.reference_dropout_fwd(x, rate, k),
+         cuda_graph_time_ms(lambda: F.dropout(x, rate, training=True)), n * (2 + 2 + 1)),
+        ("dropout_bwd", lambda: dr.dropout_bwd(dy, mask, rate), lambda: dr.reference_dropout_bwd(dy, keep, rate),
+         library_bwd_ms(lambda t: F.dropout(t, rate, training=True), (x,), dy), n * (2 + 1 + 2)),
+    )
+    for name, kernel, plain, library_ms, nbytes in rows:
+        ms = cuda_graph_time_ms(kernel)
+        plain_ms = cuda_graph_time_ms(plain, iters=5, replays=2)
+        bound_ms, bound_by, pipe = _issue_bound(nbytes, sass_counts[name], n)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         eager_ms=cuda_time_ms(kernel))
+        log(f"[C] {name} [{N}, {D}] bf16 rate {rate}, device ms by CUDA-graph replay: the wrapper {ms:.4f} "
+            f"({bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f}, library (F.dropout, Philox) {library_ms:.4f}; "
+            f"the wrapper eager {out[name]['eager_ms']:.4f} (CUDA events); bound {bound_ms:.4f} ms by {bound_by} "
+            f"({nbytes / 1e6:.2f} MB; busiest pipe {pipe}, {sass_counts[name][pipe]} an element)")
+
+    for label, n_bits in (("Gumbel draw [4, 50257]", 4 * 50257), (f"[{N}, {D}]", n)):
+        ms = cuda_graph_time_ms(lambda: dr.threefry_bits(k, n_bits, device="cuda"))
+        plain_ms = cuda_graph_time_ms(lambda: dr.reference_threefry_bits(k, n_bits, device="cuda"), iters=5, replays=2)
+        bound_ms, bound_by, pipe = _issue_bound(n_bits * 4, sass_counts["threefry_bits"], n_bits)
+        log(f"[C] threefry_bits {label} ({n_bits} elements), device ms by CUDA-graph replay: the wrapper {ms:.4f} "
+            f"({bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f}; bound {bound_ms:.4f} ms by {bound_by} "
+            f"(busiest pipe {pipe})")
+        if "threefry_bits" not in out:  # the kernels line takes the main path's shape
+            out["threefry_bits"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                                        bound_by=bound_by)
+        else:
+            out["threefry_bits"].update(path_mask_ms=ms, path_mask_bound_ms=bound_ms)
+    for key, fn in counters.items():
+        fn.launches = saved[key]  # timing launches do not count
     return out
 
 
@@ -2757,9 +3266,9 @@ def _profile_report(label, prof, wall_ms, top):
 
 def phase_p():
     """Where one greedy ``generate``, one training step, one capacity step
-    (fused CE and materialized logits) and the smp.nn path's steps spend
-    their time, by torch.profiler: device time by kernel and the device's
-    idle share of the wall time."""
+    (fused CE and materialized logits) and the smp.nn path's steps (fused,
+    unfused, fp8 and with dropout) spend their time, by torch.profiler:
+    device time by kernel and the device's idle share of the wall time."""
     import smdistributed_modelparallel_tpu_torch as smp
     from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m, init_gpt2_weights_
     from torch.profiler import ProfilerActivity, profile
@@ -2820,9 +3329,10 @@ def phase_p():
     lm_state = {k: v.detach().clone() for k, v in lm.state_dict().items()}
     del lm
     ids = torch.randint(0, 50257, (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
-    for label, fused, smp_cfg in (("fused", True, {}), ("unfused", False, {}),
-                                  ("fused, matmul_precision: fp8", True, {"matmul_precision": "fp8"})):
-        model, optimizer, train_step = _lm_setup(lm_state, fused, "cuda", **smp_cfg)
+    for label, fused, cfg, smp_cfg in (("fused", True, LM_CFG, {}), ("unfused", False, LM_CFG, {}),
+                                       ("fused, matmul_precision: fp8", True, LM_CFG, {"matmul_precision": "fp8"}),
+                                       ("fused, dropout 0.1", True, LM_DROP_CFG, {})):
+        model, optimizer, train_step = _lm_setup(lm_state, fused, "cuda", cfg, **smp_cfg)
         for _ in range(TRAIN_WARMUP):
             train_step(model, ids)
             optimizer.step()
@@ -2836,7 +3346,7 @@ def phase_p():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, T, F, L, Q, R, K, B, C (the default, all nine), P (profiles) and N "
+                        help="phases to run: A, T, F, L, D, Q, R, K, B, C (the default, all ten), P (profiles) and N "
              "(phase R's ranks on two cards, over NCCL)")
     parser.add_argument("--k-child", metavar="DIR", help=argparse.SUPPRESS)  # phase K's resumed run
     args = parser.parse_args()
@@ -2858,7 +3368,7 @@ def main():
 
     build()
     serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches = {}, {}, {}, {}, {}, {}
-    k_launches = {}
+    k_launches, d_launches = {}, {}
     errs = timing = None
     if "A" in args.phases:
         serve_launches = phase_a()
@@ -2868,6 +3378,8 @@ def main():
         cap_launches, _ = phase_f()
     if "L" in args.phases:
         lm_launches, _ = phase_l()
+    if "D" in args.phases:
+        d_launches, _ = phase_d()
     if "Q" in args.phases:
         q_launches, _ = phase_q()
     if "R" in args.phases:
@@ -2888,12 +3400,13 @@ def main():
     fwd_err, bwd_err, new_err = errs
     # Launches on the main paths: serving's prefills (A), training (T), the
     # capacity path (F), the smp.nn path (L), its fp8 run (Q) and the
-    # context-parallel run (R: both ranks and the cp = 1 run) and the
+    # context-parallel run (R: both ranks and the cp = 1 run), the
     # checkpointed run (K: before and after the save, the resumed child and
-    # the full-checkpoint resume), each counted from 0 just before it.
-    paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches, k_launches)
-    launches = {k: sum(p.get(k, 0) for p in paths)
-                for k in {**cap_launches, **lm_launches, **q_launches, **cp_launches, **k_launches}}
+    # the full-checkpoint resume) and the dropout run (D: its timed blocks),
+    # each counted from 0 just before it.
+    paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches, k_launches,
+             d_launches)
+    launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"
     tpu_ce = "smdistributed_modelparallel_tpu/ops/pallas_ce.py:"
@@ -2923,6 +3436,10 @@ def main():
         for name, source, line in (("flash_fwd_ids", "flash_fwd.cu", "796"),
                                    ("flash_bwd_dq_ids", "flash_bwd.cu", "821"),
                                    ("flash_bwd_dkv_ids", "flash_bwd.cu", "821"))
+    ] + [  # no Pallas kernel: XLA fuses jax.random's threefry into the select; max_abs_err over phase B's sweep
+        dict(name=name, route="cuda", source=src + "dropout.cu", replaces="XLA's threefry and select (no Pallas kernel)",
+             launches=launches[name], max_abs_err=new_err[name], **timing[name])
+        for name in ("threefry_bits", "dropout_fwd", "dropout_bwd")
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

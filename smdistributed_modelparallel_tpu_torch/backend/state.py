@@ -29,6 +29,14 @@ what ``smp.resume_from_checkpoint`` read before the model or the optimizer
 existed; ``DistributedModel`` and ``DistributedOptimizer`` apply them when
 they are built.
 
+Random keys. ``rng_manager`` is the ``utils/random.RngManager`` of the
+config's ``tensor_parallel_seed``, made by ``smp.init``; ``step_rng`` is the
+key the next ``@smp.step`` splits (None until the first step draws it from
+the "step" stream). ``smp.init`` and ``smp.reset`` clear both, as the JAX
+package's re-initialization does. ``calling_model`` is the
+``DistributedModel`` whose call is running: the one whose microbatch keys a
+module's ``nn/utils.make_rng`` reads.
+
 ``cp_sharded`` is True while an ``@smp.step`` runs its microbatches on the
 rank's contiguous sequence shard under context parallelism: attention then
 runs the cp ring (or Ulysses) and positions are offset by the shard's start.
@@ -39,6 +47,7 @@ sequences and computes as at cp = 1.
 import os
 
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import NotInitializedError, SMPValidationError
+from smdistributed_modelparallel_tpu_torch.utils.random import RngManager
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
 
 logger = get_logger()
@@ -86,6 +95,7 @@ class ModelParallelState:
         self.device = device
         self.world_size, self.rank, self.local_rank = world, rank, local_rank
         self.topology = topology
+        self.rng_manager = RngManager(cfg.tensor_parallel_seed)
         if world > 1:
             self.groups = _build_groups(topology, world, rank, device)
         logger.info("Initialized %s over %d rank(s); this is rank %d.", topology, world, rank)
@@ -98,10 +108,13 @@ class ModelParallelState:
         self.cfg = None
         self.device = None
         self.model = None
+        self.calling_model = None  # the DistributedModel whose call is running
         self.optimizer = None
         self.loss_scaler = None
         self.quant_state = None
         self.step_count = 0
+        self.rng_manager = None
+        self.step_rng = None
         self.loaded_model_state = None
         self.loaded_optimizer_state = None
         self.world_size, self.rank, self.local_rank = 1, 0, 0

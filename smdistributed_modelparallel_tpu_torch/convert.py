@@ -23,7 +23,10 @@ transposed, the output projection [H, hd, D] flattened to [H*hd, D] and
 transposed, and their biases flattened. A leaf it does not know raises.
 
 ``quant_state_from_jax`` carries the fp8 delayed-scaling state
-(``QuantState.state_dict()``) across.
+(``QuantState.state_dict()``) across, and ``key_from_jax``/``key_to_jax`` a
+random key: the port's key (``utils/random``) is the two uint32 words of
+``jax.random.key_data``, so the same key gives the same dropout masks and
+sampled tokens in both packages.
 
 ``params_to_jax`` and ``lm_head_params_to_jax`` are the exact inverses: a
 port ``state_dict`` (or any ``{torch name: tensor}`` of the same names, such
@@ -309,3 +312,19 @@ def quant_state_from_jax(sd):
         raise ValueError(f"malformed QuantState: amax_history {hist.shape}, scale {scale.shape}, "
                          f"{len(slots)} slots")
     return {"amax_history": hist, "scale": scale, "slots": slots}
+
+
+def key_from_jax(key_data):
+    """The port's key from a JAX key's data (``jax.random.key_data(k)``, or
+    a raw uint32 [2] ``PRNGKey``): a numpy uint32 array of shape (2,)."""
+    from smdistributed_modelparallel_tpu_torch.utils.random import as_key
+
+    return as_key(np.asarray(key_data))
+
+
+def key_to_jax(key):
+    """A port key as JAX key data: pass it to ``jax.random.wrap_key_data``
+    (or use it as a raw ``PRNGKey``)."""
+    from smdistributed_modelparallel_tpu_torch.utils.random import as_key
+
+    return as_key(key).copy()

@@ -5,7 +5,13 @@ decoder-only models. A prefill pass over the prompt (the flash-attention
 path when the prompt is long enough) is followed by single-token decode
 steps, with greedy / temperature / top-k / top-p sampling and per-row EOS
 freezing. The JAX package compiles the whole loop into one program; here it
-is a Python loop of eager steps. Beams, seq2seq models, padded prompts
+is a Python loop of eager steps. Sampling takes the JAX package's key
+schedule: ``rng`` is a key (``utils/random.key(seed)``, or a JAX key's data
+through ``convert.key_from_jax``), split once into one key a new token, and
+each token is ``categorical(key, logits)``: the argmax of the filtered
+logits plus a Gumbel draw, whose bits come from ``csrc/dropout.cu``'s
+threefry kernel on the card. With the same weights, prompt and key both
+packages sample the same tokens. Beams, seq2seq models, padded prompts
 (``attention_mask``), shape buckets and int8 decode weights arrive with
 later slices and raise ``NotImplementedError`` until then.
 """
@@ -16,6 +22,8 @@ import torch
 
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.nn.utils import half_cast
+from smdistributed_modelparallel_tpu_torch.ops.dropout import categorical
+from smdistributed_modelparallel_tpu_torch.utils import random
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
 
 
@@ -46,8 +54,7 @@ def _make_sampler(temperature, top_k, top_p):
             logits = _top_k_filter(logits, top_k)
         if top_p is not None:
             logits = _top_p_filter(logits, top_p)
-        probs = torch.softmax(logits, dim=-1).to(rng.device)
-        return torch.multinomial(probs, 1, generator=rng)[:, 0].to(logits.device)
+        return categorical(rng, logits, axis=-1)
 
     return sample
 
@@ -79,16 +86,17 @@ def _decode_clone(module, cache_len, half):
 def _decode_loop(decode_mod, ids, max_new_tokens, sampler, eos_token_id,
                  pad_token_id, rng):
     """Prefill, then sample-feed-sample: returns the [B, max_new_tokens]
-    generated ids."""
+    generated ids. Token t is sampled with ``split(rng, max_new_tokens)[t]``."""
+    rngs = random.split(rng, max_new_tokens)
     logits = decode_mod(ids)
-    tok = sampler(logits[:, -1].float(), rng)
+    tok = sampler(logits[:, -1].float(), rngs[0])
     done = torch.zeros_like(tok, dtype=torch.bool)
     if eos_token_id is not None:
         done = tok == eos_token_id
     out = [tok]
-    for _ in range(max_new_tokens - 1):
+    for step_rng in rngs[1:]:
         logits = decode_mod(tok[:, None])
-        nxt = sampler(logits[:, -1].float(), rng)
+        nxt = sampler(logits[:, -1].float(), step_rng)
         if eos_token_id is not None:
             nxt = torch.where(done, pad_token_id, nxt)
             done = done | (nxt == eos_token_id)
@@ -114,8 +122,10 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
       top_k / top_p: optional sampling filters (compose: k then p).
       eos_token_id: when set, rows that emit EOS are frozen and padded with
         ``pad_token_id`` for the remaining steps.
-      rng: ``torch.Generator`` for sampling (required when temperature > 0);
-        sampling runs on its device.
+      rng: a key for sampling (required when temperature > 0):
+        ``utils.random.key(seed)``, or ``convert.key_from_jax`` of a JAX key's
+        data to sample the JAX package's tokens. Sampling runs on the
+        model's device.
       params: state dict override (defaults to the model's).
     The other arguments keep the JAX package's surface; beams, seq2seq and
     ``attention_mask`` are not ported yet.
@@ -151,7 +161,12 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
             "would sample from the probability-inverted distribution."
         )
     if temperature > 0.0 and rng is None:
-        raise SMPValidationError("temperature > 0 requires rng=torch.Generator(...)")
+        raise SMPValidationError("temperature > 0 requires rng=utils.random.key(...)")
+    if isinstance(rng, torch.Generator):
+        raise SMPValidationError(
+            "rng is a key, as in the JAX package: utils.random.key(seed), or convert.key_from_jax("
+            "jax.random.key_data(k)); a torch.Generator draws other numbers than jax.random."
+        )
     if temperature == 0.0 and num_beams == 1 and (
         top_k is not None or top_p is not None
     ):
@@ -182,6 +197,7 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
     if os.environ.get("SMP_DECODE_WEIGHTS", "").strip().lower() == "int8":
         raise _not_ported("int8 decode weights (SMP_DECODE_WEIGHTS=int8)")
 
+    rng = random.key(0) if rng is None else random.as_key(rng)
     device = next(module.parameters()).device
     input_ids = torch.as_tensor(input_ids, device=device)
     B, T = input_ids.shape

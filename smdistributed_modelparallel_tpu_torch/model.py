@@ -10,6 +10,17 @@ bound for the microbatch (half casts of the fp32 master parameters under
 bf16/fp16), and ``model.backward(loss)`` marks the loss that the engine
 differentiates. Pipeline and tensor parallelism arrive with later slices.
 
+Random keys. ``rngs`` names the key streams the module draws from besides
+its parameters (``("dropout",)``, as in the JAX package). Inside a step the
+engine hands each microbatch one key a stream; ``make_rng`` (which
+``nn/utils.make_rng`` calls for the model being called) gives a module its
+flax scope key from it: the module's path in the flax tree (the
+torch attribute names, with a layer stack's ``ModuleList`` entry i read as
+the flax ``nn.scan`` body at split index i) and a per-call counter that
+restarts with each model call, as flax's ``apply`` does. Outside a step
+there is no key, and a module that draws one raises, as flax's
+``make_rng`` does in the JAX package.
+
 Checkpoints. ``state_dict()`` is torch's own. The checkpoint files hold the
 JAX package's layout instead, so that either package resumes the other's
 runs: ``reference_state_dict()`` is the flat '/'-keyed dict of numpy arrays
@@ -30,6 +41,7 @@ import torch
 from smdistributed_modelparallel_tpu_torch import convert
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS
+from smdistributed_modelparallel_tpu_torch.utils import random
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     SMPRuntimeError,
     SMPValidationError,
@@ -60,11 +72,16 @@ class DistributedModel:
       device: where it runs; ``None`` resolves as ``resolve_device`` says.
     """
 
-    def __init__(self, module, device=None):
+    def __init__(self, module, device=None, rngs=("dropout",)):
         if state.cfg is None:
             raise SMPValidationError("Call smp.init(config) before DistributedModel().")
         self.device = resolve_device(device)
         self.module = module.to(self.device)
+        self.rng_streams = tuple(rngs)
+        self._rngs = None           # {stream: key} of the current microbatch
+        self._rng_counts = {}       # make_rng calls of this model call, by (layer, scope path)
+        self._layer_keys = {}       # (stream, layer) -> the stream key split for that layer
+        self._rng_scopes = _rng_scopes(self.module)
         group = state.group(CP_AXIS)
         if group is not None:
             # Parameters are replicated over cp: every rank starts from the
@@ -90,9 +107,14 @@ class DistributedModel:
                 self.load_state_dict(payload)
 
     def __call__(self, *args, **kwargs):
-        if self._bound is not None:
-            return torch.func.functional_call(self.module, self._bound, args, kwargs)
-        return self.module(*args, **kwargs)
+        self._rng_counts = {}  # each call is a fresh flax apply
+        outer, state.calling_model = state.calling_model, self  # whose keys make_rng reads
+        try:
+            if self._bound is not None:
+                return torch.func.functional_call(self.module, self._bound, args, kwargs)
+            return self.module(*args, **kwargs)
+        finally:
+            state.calling_model = outer
 
     def backward(self, loss, num_tokens=None):
         """Mark the scalar to differentiate for this microbatch; the step
@@ -114,8 +136,10 @@ class DistributedModel:
 
     # -- step-engine hooks ----------------------------------------------
 
-    def _begin_microbatch(self, bound):
+    def _begin_microbatch(self, bound, rngs=None):
         self._bound = bound
+        self._rngs = rngs
+        self._layer_keys = {}
         self._backward_loss = None
         self._num_tokens = None
 
@@ -123,9 +147,41 @@ class DistributedModel:
         """(the marked loss, its ``num_tokens``)."""
         loss, num_tokens = self._backward_loss, self._num_tokens
         self._bound = None
+        self._rngs = None
         self._backward_loss = None
         self._num_tokens = None
         return loss, num_tokens
+
+    def make_rng(self, module, name="dropout", child=None):
+        """The key flax's ``make_rng(name)`` gives ``module`` (or its child
+        scope ``child``) in this call: the microbatch's ``name`` key, split
+        per layer inside a layer stack (flax's ``nn.scan(split_rngs=...)``:
+        layer i takes ``split(key, L)[i]``, which is ``fold_in(key, i)``,
+        derived once a microbatch), then folded with the scope's path and its
+        per-call counter (``fold_in_static``). flax's ``nn.scan`` traces its
+        body twice and the scopes inside keep their counters from the first
+        trace, so a scanned scope that draws once a layer draws with counter
+        2. Raises where flax finds no such key: outside an ``@smp.step``."""
+        if self._rngs is None or name not in self._rngs:
+            raise SMPValidationError(
+                f"{type(module).__name__} needs PRNG for {name!r}: a module draws its {name} key inside an "
+                "@smp.step (call the model in eval mode, or set the rate to 0, to run without it)."
+            )
+        scope = self._rng_scopes.get(module)
+        if scope is None:
+            raise SMPValidationError(f"{type(module).__name__} is not a submodule of the DistributedModel's module.")
+        path, layer = scope
+        if child is not None:
+            path = path + (child,)
+        count = self._rng_counts.get((layer, path), 0) + 1
+        self._rng_counts[(layer, path)] = count
+        key = self._rngs[name]
+        if layer is not None:
+            key = self._layer_keys.get((name, layer))
+            if key is None:
+                key = self._layer_keys[(name, layer)] = random.fold_in(self._rngs[name], layer)
+            count += _SCAN_TRACES - 1
+        return random.fold_in_static(key, path + (count,))
 
     # -- parameters and gradients ----------------------------------------
 
@@ -214,6 +270,32 @@ class DistributedModel:
     @property
     def training(self):
         return self.module.training
+
+
+# flax's nn.scan traces its body twice; its scopes keep their rng counters
+# from the first trace (make_rng).
+_SCAN_TRACES = 2
+
+
+def _rng_scopes(root):
+    """``{module: (flax scope path, layer index or None)}`` for every module
+    under ``root``: the torch attribute names, except that an entry i of a
+    layer stack (a ``ModuleList`` of a module that names its flax scan body
+    in ``_flax_scan_body``) is that body ("layer", "block") at layer i."""
+    scopes = {}
+
+    def walk(mod, path, layer):
+        scopes[mod] = (path, layer)
+        body = getattr(mod, "_flax_scan_body", None)
+        for name, child in mod.named_children():
+            if body is not None and isinstance(child, torch.nn.ModuleList):
+                for i, sub in enumerate(child):
+                    walk(sub, path + (name, body), i)
+            else:
+                walk(child, path + (name,), layer)
+
+    walk(root, (), None)
+    return scopes
 
 
 def _reference_layout(module):

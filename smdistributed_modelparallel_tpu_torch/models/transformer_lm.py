@@ -10,8 +10,11 @@ layer stack is an ``nn.ModuleList`` here.
 Supported: learned or no positions, a local-attention ``window``, parallel
 (GPT-J) blocks, pre/post LayerNorm, tied or untied head, loss mode
 (``model(ids, targets=...)`` -> per-token losses, with label smoothing),
-and the KV-cache decode clone that ``generate`` drives. Not yet ported:
-rotary positions, paged (serving) decoding and training-time dropout.
+the KV-cache decode clone that ``generate`` drives, and training-time
+dropout (``dropout > 0`` with ``deterministic=False``: the attention
+probabilities and each block's output, with the JAX package's keys, scopes
+"layers/block/attn" and "layers/block/Dropout_0"; ``nn/utils.make_rng``).
+Not yet ported: rotary positions and paged (serving) decoding.
 """
 
 from typing import Optional
@@ -25,7 +28,7 @@ from smdistributed_modelparallel_tpu_torch.nn.cross_entropy import (
     fused_lm_head_cross_entropy,
     masked_vocab_parallel_cross_entropy,
 )
-from smdistributed_modelparallel_tpu_torch.nn.utils import DecodeKVCache
+from smdistributed_modelparallel_tpu_torch.nn.utils import DecodeKVCache, dropout, make_rng
 from smdistributed_modelparallel_tpu_torch.ops.attention import attention_core
 
 
@@ -81,12 +84,17 @@ class CausalSelfAttention(nn.Module):
                     (B, self.decode_cache_len, H, hd), k.dtype, k.device
                 )
             k, v, decode_mask = self.cache.append(k, v, window=self.window)
+        drop_rng = None
+        if self.dropout > 0.0 and not self.deterministic:
+            drop_rng = make_rng(self, "dropout")
         out = attention_core(
             q, k, v,
             causal=decode_mask is None,
             window=self.window if decode_mask is None else None,
             mask=decode_mask,
             attention_in_fp32=self.attention_in_fp32,
+            dropout_rate=self.dropout if not self.deterministic else 0.0,
+            dropout_rng=drop_rng,
         ).reshape(B, T, D)
         return self.proj(out)
 
@@ -101,8 +109,8 @@ class TransformerLayer(nn.Module):
                  decode_cache_len=None, paged_blocks=None,
                  paged_block_tokens=None, device=None):
         super().__init__()
-        if dropout > 0.0 and not deterministic:
-            raise _not_ported("training-time dropout", "a later slice")
+        self.dropout = dropout
+        self.deterministic = deterministic
         self.parallel_block = parallel_block
         self.pre_layernorm = pre_layernorm
         self.post_layernorm = post_layernorm
@@ -127,20 +135,25 @@ class TransformerLayer(nn.Module):
     def forward(self, x):
         if self.parallel_block:
             h = self.ln1(x)
-            return x + self.attn(h) + self.mlp(h)
-        h = self.ln1(x) if self.pre_layernorm else x
-        x = x + self.attn(h)
-        if self.post_layernorm:
-            x = self.ln1_post(x)
-        h = self.ln2(x) if self.pre_layernorm else x
-        x = x + self.mlp(h)
-        if self.post_layernorm:
-            x = self.ln2_post(x)
+            x = x + self.attn(h) + self.mlp(h)
+        else:
+            h = self.ln1(x) if self.pre_layernorm else x
+            x = x + self.attn(h)
+            if self.post_layernorm:
+                x = self.ln1_post(x)
+            h = self.ln2(x) if self.pre_layernorm else x
+            x = x + self.mlp(h)
+            if self.post_layernorm:
+                x = self.ln2_post(x)
+        if self.dropout > 0.0 and not self.deterministic:
+            x = dropout(x, self.dropout, make_rng(self, "dropout", "Dropout_0"))
         return x
 
 
 class TransformerLM(nn.Module):
     """Embeddings + transformer stack + (tied) LM head."""
+
+    _flax_scan_body = "block"  # layers is flax's nn.scan over "block"
 
     def __init__(self, vocab_size, max_len, d_model, n_layers, n_heads,
                  d_ff=None, dropout=0.0, pos_type="learned", tie_weights=True,

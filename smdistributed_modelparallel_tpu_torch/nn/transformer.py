@@ -40,10 +40,20 @@ as in the JAX package.
 
 The config keys ``fused_qkv``, ``use_pallas_kernels`` and ``optimize`` are
 read through ``state.cfg``; ``use_pallas_kernels: False`` keeps every kernel
-off, the flash kernels included. Not ported yet, each raising
-``NotImplementedError``: MoE (``num_experts > 0``), activation checkpointing,
-``decode=True`` (generation through the LM head), training-time dropout, and
-tensor parallelism (``optimize="memory"`` included).
+off, the flash kernels included.
+
+Dropout in training mode (``deterministic`` None follows the
+``DistributedModel``'s ``train()``/``eval()``) at the JAX package's four
+sites, each with its flax scope key (``nn/utils.make_rng``): the attention
+probabilities (``attention_core``'s ``dropout_rng``, scope "attention"), the
+attention output and the MLP output (their inline ``nn.Dropout``,
+"attention/Dropout_0" and "output/Dropout_0"), and the embedding (the LM
+head's "Dropout_0"). Under context parallelism only the attention dropout
+runs (the ring hashes global positions); the other three raise.
+
+Not ported yet, each raising ``NotImplementedError``: MoE (``num_experts >
+0``), activation checkpointing, ``decode=True`` (generation through the LM
+head) and tensor parallelism (``optimize="memory"`` included).
 """
 
 import math
@@ -62,7 +72,9 @@ from smdistributed_modelparallel_tpu_torch.nn.cross_entropy import (
 from smdistributed_modelparallel_tpu_torch.nn.embedding import DistributedEmbedding
 from smdistributed_modelparallel_tpu_torch.nn.layer_norm import DistributedLayerNorm
 from smdistributed_modelparallel_tpu_torch.nn.utils import (
+    dropout,
     fused_bias_gelu,
+    make_rng,
     resolve_deterministic,
     shard_activation,
     tp_size,
@@ -100,9 +112,13 @@ def _check_tp():
         raise _not_ported(f"tensor_parallel_degree > 1{memory} in the smp.nn layers", "the tensor-parallel slice")
 
 
-def _check_dropout(rate, deterministic):
-    if rate > 0.0 and not resolve_deterministic(deterministic):
-        raise _not_ported("training-time dropout in the smp.nn layers", "a later slice")
+def _dropout(module, x, rate):
+    """The inline ``nn.Dropout(rate, deterministic=False)`` of ``module``'s
+    flax body ("Dropout_0" in its scope), when its rate is above 0 and the
+    model trains."""
+    if rate > 0.0 and not resolve_deterministic(module.deterministic):
+        return dropout(x, rate, make_rng(module, "dropout", "Dropout_0"))
+    return x
 
 
 @torch.no_grad()
@@ -282,7 +298,11 @@ class DistributedAttentionLayer(nn.Module):
         if self.query_key_layer_scaling and layer_idx is not None:
             # Numerics only: q pre-divided, the fp32 scores multiplied back.
             qk_compensation = layer_idx + 1.0
-        _check_dropout(self.attention_dropout_prob, self.deterministic)
+        dropout_rng = (
+            None
+            if resolve_deterministic(self.deterministic) or self.attention_dropout_prob == 0.0
+            else make_rng(self, "dropout")
+        )
         if quant.fp8_trace_active():
             # The score operands round to the e4m3 grid with their slots'
             # delayed scales (straight-through gradient); the attention then
@@ -300,11 +320,12 @@ class DistributedAttentionLayer(nn.Module):
             mask=attention_mask,
             mask_value=self.mask_value,
             attention_in_fp32=self.attention_in_fp32,
+            dropout_rate=self.attention_dropout_prob,
+            dropout_rng=dropout_rng,
             use_pallas=_cfg("use_pallas_kernels", True),
         )
         out = _linear(ctx.reshape(B, T, -1), self.dense.weight, self.dense.bias, site="attn_proj")
-        _check_dropout(self.hidden_dropout_prob, self.deterministic)
-        return out
+        return _dropout(self, out, self.hidden_dropout_prob)
 
 
 class DistributedTransformerOutputLayer(nn.Module):
@@ -353,8 +374,7 @@ class DistributedTransformerOutputLayer(nn.Module):
             act = _ACTIVATIONS[self.activation]
             h = act(_linear(hidden, self.gate.weight, site="mlp_fc")) * h if self.gated_mlp else act(h)
         out = _linear(h, self.proj.weight, self.proj.bias, site="mlp_proj")
-        _check_dropout(self.hidden_dropout_prob, self.deterministic)
-        return out
+        return _dropout(self, out, self.hidden_dropout_prob)
 
 
 class DistributedTransformerLayer(nn.Module):
@@ -476,6 +496,8 @@ class DistributedTransformer(nn.Module):
     """The layer stack ``seq_layers`` of ``DistributedTransformerLayer``;
     ``attention_layers_type`` ("local"/"global" per layer, GPT-Neo) selects
     the window band per layer. Takes the layer's keyword arguments too."""
+
+    _flax_scan_body = "layer"  # seq_layers is flax's nn.scan over "layer"
 
     def __init__(self, num_layers=12, num_attention_heads=32, attention_head_size=32, hidden_size=1024,
                  intermediate_size=4096, attention_layers_type=None, activation_checkpointing=False,
@@ -609,7 +631,7 @@ class DistributedTransformerLMHead(nn.Module):
             x = x + self.token_type_embedding(token_type_ids)
         if self.use_embedding_layernorm:
             x = self.embedding_layernorm(x)
-        _check_dropout(self.embedding_dropout_prob, self.deterministic)
+        x = _dropout(self, x, self.embedding_dropout_prob)
         return shard_activation(x), None, attention_mask
 
     def _tied_logits(self, x):

@@ -1,18 +1,22 @@
 """Helpers of the ``smp.nn`` layers: the tp queries, activation sharding,
-the dropout switch, the fused bias-GELU dispatch, parameter casting and the
-decode KV cache.
+the dropout switch, a module's dropout key and the dropout dispatch, the
+fused bias-GELU dispatch, parameter casting and the decode KV cache.
 
 Counterparts on one device of ``smdistributed_modelparallel_tpu/nn/
 utils.py``: ``tp_size``/``tp_enabled``, ``tp_ring_active`` (False until the
 tensor-parallel slice), ``shard_activation`` (the identity: there is no mesh
 to constrain over), ``resolve_deterministic``, ``fused_bias_gelu`` (its
 tp = 1 branch, with the fp8 epilogue input), ``half_cast`` and ``DecodeKVCache``.
+``make_rng`` is flax's ``Module.make_rng`` for the port's modules and
+``dropout`` flax's ``nn.Dropout`` (``ops/dropout.py``).
 """
 
 import torch
 
 from smdistributed_modelparallel_tpu_torch import quant
 from smdistributed_modelparallel_tpu_torch.backend.state import state
+from smdistributed_modelparallel_tpu_torch.ops import dropout as dropout_op
+from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
 
 
 def tp_size():
@@ -48,6 +52,34 @@ def resolve_deterministic(explicit):
     if model is not None:
         return not model.training
     return True
+
+
+def make_rng(module, name="dropout", child=None):
+    """The key flax's ``make_rng(name)`` gives ``module`` (or its child scope
+    ``child``, e.g. an inline ``nn.Dropout``'s auto-name "Dropout_0") in the
+    current model call: ``DistributedModel.make_rng`` of the model being
+    called. Raises where flax finds no such key: outside an ``@smp.step``."""
+    model = state.calling_model or state.model
+    if model is None:
+        raise SMPValidationError(
+            f"{type(module).__name__} needs PRNG for {name!r}: a module draws its {name} key inside an "
+            "@smp.step of a DistributedModel."
+        )
+    return model.make_rng(module, name, child)
+
+
+def dropout(x, rate, key):
+    """flax's ``nn.Dropout(rate, deterministic=False)(x)`` with ``key``
+    (``ops/dropout.dropout``: the kernel on the card). Under context
+    parallelism a rank holds a sequence shard of the activation, whose part
+    of the global mask is not drawn yet, so it raises."""
+    if state.cp_sharded:
+        raise NotImplementedError(
+            "hidden and embedding dropout under context parallelism (each rank's part of the global mask, "
+            "drawn at its shard's offset) is not ported to PyTorch yet (ROADMAP Queue 1 item 6: what context "
+            "parallelism left behind); attention dropout is."
+        )
+    return dropout_op.dropout(x, rate, key)
 
 
 def fused_bias_gelu(h, b):

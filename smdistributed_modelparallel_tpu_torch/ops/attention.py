@@ -8,13 +8,18 @@ dispatch:
      ``_pallas_ok`` (so both packages send the same calls to their kernel);
   2. otherwise plain PyTorch that reproduces the JAX package's jnp body.
 The kernel path is differentiable through the flash backward kernels
-(``flash_attention``'s ``autograd.Function``) and takes attention dropout
-with the kernels' counter hash. The ``smp.nn`` layers' per-layer arguments
+(``flash_attention``'s ``autograd.Function``). Attention dropout takes a key
+(``dropout_rng``) and the JAX entry point's two routes: the kernel path (and
+the cp ring) draws its int32 seed from the key as ``_fold_scale_and_seed``
+does, ``bits(key, ())`` bitcast to int32, for the kernels' counter hash; the
+plain path draws ``bernoulli(key, 1 - rate)`` over the [B, H, T, S]
+probabilities (``ops/dropout.py``). So, as in the JAX package, a step on the
+card and one on the CPU draw different attention masks from the same key.
+The ``smp.nn`` layers' per-layer arguments
 (``extra_scale``, ``qk_compensation``, ``local_select``) and the
 ``use_pallas_kernels`` switch (``use_pallas``) take the JAX entry point's
 semantics; the layers pass them as Python numbers, which the plain path
-rounds to fp32 where the JAX package's traced fp32 scalars are. The plain
-path's dropout arrives with the slice that uses it.
+rounds to fp32 where the JAX package's traced fp32 scalars are.
 
 Context parallelism. While an ``@smp.step`` runs on the rank's sequence shard
 (``state.cp_sharded``), attention goes to the cp ring or Ulysses
@@ -33,7 +38,9 @@ from typing import Optional
 import torch
 
 from smdistributed_modelparallel_tpu_torch.backend.state import state
+from smdistributed_modelparallel_tpu_torch.ops.dropout import dropout
 from smdistributed_modelparallel_tpu_torch.ops.flash_attention import flash_attention
+from smdistributed_modelparallel_tpu_torch.utils import random
 
 
 def causal_window_mask(T, S, window=None, device=None):
@@ -98,8 +105,7 @@ def _cp_dispatch(q, k, v, causal, window, local_select, scale, bias, mask, mask_
             f"context parallelism (cp = {state.topology.cp_size}) does not cover {', '.join(uncovered)}: the "
             "JAX package attends over the global sequence there, and this rank holds only its shard."
         )
-    return cp_attention(q, k, v, scale=float(scale), causal=causal, kpad=kpad, dropout_rate=rate,
-                        seed=seed if rate > 0.0 else None)
+    return cp_attention(q, k, v, scale=float(scale), causal=causal, kpad=kpad, dropout_rate=rate, seed=seed)
 
 
 def _f32(x):
@@ -123,7 +129,7 @@ def attention_core(
     mask_value: float = -1e4,
     attention_in_fp32: bool = False,
     dropout_rate: float = 0.0,
-    seed: Optional[int] = None,
+    dropout_rng=None,
     use_pallas: bool = True,
 ):
     """Multi-head attention over [B, T, H, hd] q and [B, S, H, hd] k/v.
@@ -149,11 +155,11 @@ def attention_core(
       mask_value: additive value for masked positions (default -1e4).
       attention_in_fp32: run the plain path's score product in fp32 (the
         kernel's score math is always fp32).
-      dropout_rate/seed: attention-probability dropout, active when
-        ``dropout_rate > 0`` and ``seed`` (an int the caller draws from an
-        explicit ``torch.Generator``) is given; the JAX package's
-        ``_fold_scale_and_seed`` draws its int32 seed the same way from its
-        rng. Only the kernel path takes it.
+      dropout_rate/dropout_rng: attention-probability dropout, active when
+        ``dropout_rate > 0`` and ``dropout_rng`` (a key,
+        ``utils/random``) is given: the kernels hash the seed
+        ``bits(dropout_rng, ())`` (as int32), the plain path draws
+        ``bernoulli(dropout_rng, 1 - rate)`` over the probabilities.
       use_pallas: False keeps the call off the flash kernels (the config's
         ``use_pallas_kernels``).
     Returns: [B, T, H, hd].
@@ -163,23 +169,18 @@ def attention_core(
         scale = 1.0 / math.sqrt(hd)
     if extra_scale is not None:
         scale = _f32(_f32(scale) * _f32(extra_scale))
-    rate = float(dropout_rate) if seed is not None else 0.0
+    rate = float(dropout_rate) if dropout_rng is not None else 0.0
+    # _fold_scale_and_seed's int32 seed for the kernels' counter hash.
+    seed = random.to_int32(random.bits32(dropout_rng)) if rate > 0.0 else None
     if state.cp_sharded:
         return _cp_dispatch(q, k, v, causal, window, local_select, scale, bias, mask, mask_value, rate,
                             seed, use_pallas)
     use_kernel = use_pallas and bias is None and local_select is None and _kernel_ok(q, k, v)
     kpad = _as_key_padding_bias(mask, mask_value) if use_kernel else None
     if use_kernel and (mask is None or kpad is not None):
-        o, _ = flash_attention(q, k, v, kpad, seed=seed if rate > 0.0 else None,
-                               scale=float(scale), causal=causal, window=window,
+        o, _ = flash_attention(q, k, v, kpad, seed=seed, scale=float(scale), causal=causal, window=window,
                                dropout_rate=rate)
         return o
-    if rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout on the plain attention path (the JAX package's "
-            "jnp dropout in ops/attention.py) is not ported to PyTorch yet; "
-            "only the flash kernel path (CUDA, 128 <= T, S <= 8192) takes it."
-        )
 
     T, S = q.shape[1], k.shape[1]
     compute_dtype = torch.float32 if attention_in_fp32 else q.dtype
@@ -211,5 +212,7 @@ def attention_core(
             scores = scores + mask.float()
     if bias is not None:
         scores = scores + bias.float()
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhts,bshd->bthd", probs, v)
+    probs = torch.softmax(scores, dim=-1)
+    if rate > 0.0:
+        probs = dropout(probs, rate, dropout_rng)
+    return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)

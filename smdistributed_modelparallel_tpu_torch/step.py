@@ -33,6 +33,17 @@ one draw the "NOT learning" warning. (Under ``fused_step_donation`` the JAX
 package installs the update at the step itself; a loop that calls
 ``optimizer.step()`` after every step sees the same parameters in both.)
 
+Random keys, as the JAX step program derives them: the step takes
+``state.step_rng`` (on the first step, ``rng_manager.next_key("step")``),
+splits it into the key it uses and the next step's (``split(rng)``), splits
+the first into one key a microbatch (``split(use, microbatches)``) and folds
+the index of each of the model's ``rng_streams`` into the microbatch's key
+(``fold_in(key, h)``): the keys ``model(...)`` draws from inside the
+microbatch (``nn/utils.make_rng``). The JAX package's first step also runs
+an init pass that draws ``init_dropout`` keys; the port has no init pass,
+and that stream's counter is apart from "step"'s, so the step keys agree
+from the first step on.
+
 Under ``matmul_precision: fp8`` the step installs ``quant.step_trace`` around
 the whole microbatch loop (every forward and every ``autograd.grad``): every
 microbatch quantizes with the scales the step started with, the seams fold
@@ -99,6 +110,7 @@ from smdistributed_modelparallel_tpu_torch.backend.split import (
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS
 from smdistributed_modelparallel_tpu_torch.model import DistributedModel
+from smdistributed_modelparallel_tpu_torch.utils import random
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError, StepUsageError
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
 
@@ -307,6 +319,9 @@ class StepFunction:
                 t = t.to(half)
             bound[name] = t.requires_grad_() if t.is_floating_point() else t
         loss_scale = state.loss_scaler.loss_scale if state.loss_scaler is not None else 1.0
+        rng = state.step_rng if state.step_rng is not None else state.rng_manager.next_key("step")
+        use_rng, next_rng = random.split(rng)
+        mb_keys = random.split(use_rng, num_mb)
         names = [n for n, t in bound.items() if t.requires_grad]
         acc = None
         outs = []
@@ -319,7 +334,8 @@ class StepFunction:
                     lambda x: x.to(model.device) if isinstance(x, torch.Tensor) else x,
                     (microbatch_slice(stacked_args, mb), microbatch_slice(stacked_kwargs, mb)),
                 )
-                model._begin_microbatch(bound)
+                model._begin_microbatch(bound, {s: random.fold_in(mb_keys[mb], h)
+                                                for h, s in enumerate(model.rng_streams)})
                 try:
                     with torch.enable_grad() if self._has_backward is not False else torch.no_grad():
                         out = self.fn(*mb_args, **mb_kwargs)
@@ -354,6 +370,7 @@ class StepFunction:
                     else x, out))
             if qs is not None:
                 qs.absorb(quant.finalize(qs))
+        state.step_rng = next_rng
 
         if self._has_backward:
             if stale:

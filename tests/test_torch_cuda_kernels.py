@@ -399,13 +399,18 @@ def test_attention_core_grad_through_kernels_matches_cpu(cuda):
 
 @pytest.mark.cuda
 def test_attention_dropout_on_card_replays_in_backward(cuda):
-    """attention_core's dropout reaches the kernels: with the same seed the
-    forward and the gradient agree with the plain versions."""
+    """attention_core's dropout reaches the kernels: with the seed its key
+    gives (``bits(key, ())`` as int32) the forward and the gradient agree
+    with the plain versions."""
+    from smdistributed_modelparallel_tpu_torch.utils import random
+
     gen = torch.Generator(device=cuda).manual_seed(2)
     q, k, v = (torch.randn(2, 256, 4, 64, generator=gen, device=cuda).requires_grad_() for _ in range(3))
-    out = attention_core(q, k, v, dropout_rate=0.1, seed=1234)
+    key = random.key(1234)
+    seed = random.to_int32(random.bits32(key))
+    out = attention_core(q, k, v, dropout_rate=0.1, dropout_rng=key)
     out.sum().backward()
-    o_ref, _ = flash_attention_reference(q.detach(), k.detach(), v.detach(), seed=1234, dropout_rate=0.1)
+    o_ref, _ = flash_attention_reference(q.detach(), k.detach(), v.detach(), seed=seed, dropout_rate=0.1)
     torch.testing.assert_close(out.detach(), o_ref, rtol=0, atol=1e-4)
     assert torch.isfinite(q.grad).all() and q.grad.abs().max() > 0
 
@@ -1086,3 +1091,32 @@ def test_prefetch_batches_equal_host_batches(cuda):
             assert np.array_equal(g[k].cpu().numpy(), h[k])
         assert g["t"].is_cuda and torch.equal(g["t"].cpu(), h["t"]) and g["n"] == 3
         assert g["ids"].to(torch.device(cuda)) is g["ids"]
+
+
+@pytest.mark.cuda
+def test_dropout_kernels_match_plain_versions_bit_for_bit(cuda):
+    """chip_smoke's phase-B sweep of ``csrc/dropout.cu``: threefry bits under
+    keys from ``key``, ``fold_in`` and ``split`` at the path's size, odd
+    sizes and offsets past 2**32; the dropout forward (y and mask) and
+    backward in fp32, bf16 and fp16 at rates 0.1, 0.5 and 0: every bit equal
+    to the plain version's."""
+    from chip_smoke import _phase_b_dropout
+
+    failures = []
+    errs = _phase_b_dropout(failures)
+    assert failures == [] and errs == {"threefry_bits": 0.0, "dropout_fwd": 0.0, "dropout_bwd": 0.0}
+
+
+@pytest.mark.cuda
+def test_dropout_step_on_card_matches_cpu(cuda):
+    """One fp32 step of a small smp.nn model with all three dropouts, card
+    against CPU from the same weights and seed (chip_smoke's phase-D check):
+    losses rtol 2e-4 / atol 2e-5, gradients rtol 2e-3 / atol 2e-4."""
+    from chip_smoke import _d_small_card_vs_cpu
+
+    runs = _d_small_card_vs_cpu()
+    (l_gpu, g_gpu, n_gpu), (l_cpu, g_cpu, _) = runs["cuda"], runs["cpu"]
+    assert abs(l_gpu - l_cpu) <= 2e-5 + 2e-4 * abs(l_cpu)
+    for name, want in g_cpu.items():
+        torch.testing.assert_close(g_gpu[name], want, rtol=2e-3, atol=2e-4)
+    assert n_gpu["dropout_fwd"] == n_gpu["dropout_bwd"] == 14

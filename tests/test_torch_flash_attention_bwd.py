@@ -210,12 +210,37 @@ def test_backward_matches_autograd_of_plain_forward_on_live_rows():
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
-def test_attention_core_dropout_needs_the_kernel():
-    """Dropout reaches the kernel path only; the plain path does not port
-    the JAX package's jnp dropout and says so."""
-    q = torch.zeros(1, 8, 2, 4)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        port_attention.attention_core(q, q, q, dropout_rate=0.1, seed=3)
-    # rate 0 or no seed: no dropout, the plain path runs.
-    port_attention.attention_core(q, q, q, dropout_rate=0.1, seed=None)
-    port_attention.attention_core(q, q, q, dropout_rate=0.0, seed=3)
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_attention_core_plain_dropout_matches_jax(rate):
+    """The plain path's attention dropout (T < 128, or any CPU tensor):
+    ``bernoulli(key, 1 - rate)`` over the [B, H, T, S] probabilities, as the
+    JAX package's jnp path draws it, with the same key on both sides: the
+    output and its gradients agree in fp32 (summation order only)."""
+    import smdistributed_modelparallel_tpu as jax_smp
+    from smdistributed_modelparallel_tpu.ops import attention as jax_attention
+    from smdistributed_modelparallel_tpu_torch.utils import random
+
+    q, k, v, do = _inputs(17, 2, 40, 40, 2, 16)
+    jkey = jax.random.fold_in(jax.random.key(5), 3)
+
+    def jax_fn(q_, k_, v_):
+        return jax_attention.attention_core(q_, k_, v_, dropout_rate=rate, dropout_rng=jkey)
+
+    jax_smp.init({})  # a default session: no cp left over from another test
+    try:
+        want, vjp = jax.vjp(jax_fn, *(jnp.asarray(a) for a in (q, k, v)))
+        want_grads = vjp(jnp.asarray(do))
+    finally:
+        jax_smp.reset()
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = port_attention.attention_core(*ts, dropout_rate=rate,
+                                        dropout_rng=random.as_key(np.asarray(jax.random.key_data(jkey))))
+    got.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=FP32_TOL)
+    for t, w in zip(ts, want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=0, atol=FP32_TOL)
+    # Without the key, or at rate 0, there is no dropout.
+    plain = port_attention.attention_core(*(t.detach() for t in ts))
+    for kw in (dict(dropout_rate=rate), dict(dropout_rate=0.0, dropout_rng=random.key(1))):
+        torch.testing.assert_close(port_attention.attention_core(*(t.detach() for t in ts), **kw), plain,
+                                   rtol=0, atol=0)

@@ -3,9 +3,10 @@
 Same weights (JAX init carried across by ``convert.params_from_jax``), same
 numpy prompts, fp32 on both sides: greedy tokens must be equal, and the
 port's KV-cache decode logits must match the JAX model's full forward to
-1e-4 (fp32; summation order only). Sampling cannot match JAX bit for bit
-(``torch.Generator`` and ``jax.random`` draw different numbers), so it is
-held to its filters, its seed and its support instead.
+1e-4 (fp32; summation order only). Sampling takes the same key on both
+sides (``convert.key_from_jax``) and must give the same tokens, with and
+without the top-k and top-p filters; it is also held to its filters, its
+key and its support.
 """
 
 import numpy as np
@@ -23,10 +24,11 @@ from smdistributed_modelparallel_tpu.models.transformer_lm import (
 )
 import smdistributed_modelparallel_tpu_torch as smp_torch
 from smdistributed_modelparallel_tpu_torch import generation as port_generation
-from smdistributed_modelparallel_tpu_torch.convert import params_from_jax
+from smdistributed_modelparallel_tpu_torch.convert import key_from_jax, params_from_jax
 from smdistributed_modelparallel_tpu_torch.models.gpt2 import init_gpt2_weights_
 from smdistributed_modelparallel_tpu_torch.models.transformer_lm import TransformerLM
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
+from smdistributed_modelparallel_tpu_torch.utils.random import key
 
 SMALL = dict(vocab_size=97, max_len=256, d_model=32, n_layers=2, n_heads=4)
 
@@ -116,9 +118,25 @@ def test_top_p_keeps_while_mass_before_is_below_p():
     np.testing.assert_array_equal(torch.isfinite(out)[0].numpy(), [True, True, False, False])
 
 
+@pytest.mark.parametrize("filters", [{}, dict(top_k=5), dict(top_p=0.8), dict(top_k=7, top_p=0.9)],
+                         ids=["plain", "top_k", "top_p", "top_k_top_p"])
+def test_sampled_tokens_equal_jax(greedy_pair, filters):
+    """The same key on both sides: the same sampled tokens (the port
+    sampled with ``torch.multinomial`` from a ``torch.Generator`` before)."""
+    jmod, params, tmod, ids, _ = greedy_pair
+    jkey = jax.random.key(21)
+    smp_jax.init({})
+    want = np.asarray(smp_jax.generate(jmod, jnp.asarray(ids), 8, params=params, temperature=0.7, rng=jkey,
+                                       **filters))
+    smp_jax.reset()
+    got = smp_torch.generate(tmod, torch.from_numpy(ids).long(), 8, params=tmod.state_dict(), temperature=0.7,
+                             rng=key_from_jax(jax.random.key_data(jkey)), **filters).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(want[:, ids.shape[1]:], greedy_pair[4][:, ids.shape[1]:])  # it did sample
+
+
 def _sample(tmod, ids, seed, **kw):
-    g = torch.Generator().manual_seed(seed)
-    return smp_torch.generate(tmod, ids, 10, params=tmod.state_dict(), rng=g, **kw)
+    return smp_torch.generate(tmod, ids, 10, params=tmod.state_dict(), rng=key(seed), **kw)
 
 
 @pytest.mark.parametrize("filters", [dict(top_k=4), dict(top_p=0.6), dict(top_k=6, top_p=0.8)])
@@ -165,14 +183,15 @@ def test_eos_freezes_rows():
     (dict(max_new_tokens=300), SMPValidationError, "position limit"),
     (dict(num_beams=2), NotImplementedError, "beam search"),
     (dict(attention_mask=np.ones((2, 12))), NotImplementedError, "attention_mask"),
+    (dict(temperature=1.0, rng=torch.Generator()), SMPValidationError, "rng is a key"),
 ])
 def test_validation_errors(kwargs, error, match):
     tmod = _port_lm()
     smp_torch.init({})
     model = smp_torch.DistributedModel(tmod, device="cpu")
     kwargs = dict(kwargs)
-    if kwargs.get("rng") == "g":
-        kwargs["rng"] = torch.Generator().manual_seed(0)
+    if isinstance(kwargs.get("rng"), str):
+        kwargs["rng"] = key(0)
     max_new = kwargs.pop("max_new_tokens", 4)
     with pytest.raises(error, match=match):
         smp_torch.generate(model, torch.zeros((2, 12), dtype=torch.long), max_new, **kwargs)

@@ -43,6 +43,7 @@ from smdistributed_modelparallel_tpu_torch.nn.cross_entropy import vocab_paralle
 from smdistributed_modelparallel_tpu_torch.ops import attention as port_attention
 from smdistributed_modelparallel_tpu_torch.ops import bias_gelu as bg
 from smdistributed_modelparallel_tpu_torch.ops import matmul_bias as mb
+from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
 
 TINY = dict(
     num_layers=2, num_attention_heads=4, attention_head_size=8,
@@ -363,11 +364,14 @@ def test_left_out_features_raise(kw, what):
 
 
 def test_training_dropout_and_tp_raise(monkeypatch):
+    """Training-mode dropout outside an ``@smp.step`` has no key and raises,
+    as flax's ``make_rng`` does in the JAX package (inside a step it runs:
+    ``tests/test_torch_dropout_step.py``); tensor parallelism is not ported."""
     mod = port_tr.DistributedTransformerLMHead(**dict(TINY, attention_dropout_prob=0.1))
     ids = torch.from_numpy(_ids()).long()
     smp_torch.init({}, device="cpu")
     model = smp_torch.DistributedModel(mod)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(SMPValidationError, match="needs PRNG for 'dropout'"):
         model(ids)
     model.eval()
     assert torch.isfinite(model(ids)).all()

@@ -108,10 +108,9 @@ def test_unported_features_raise():
         TransformerLM(**SMALL, pos_type="rotary")
     with pytest.raises(NotImplementedError, match="paged"):
         TransformerLM(**SMALL, paged_blocks=8, paged_block_tokens=16)
-    # Loss mode is ported (tests/test_torch_cross_entropy.py); training-time
-    # dropout is not.
-    with pytest.raises(NotImplementedError, match="dropout"):
-        TransformerLM(**SMALL, dropout=0.1, deterministic=False)
+    # Loss mode (tests/test_torch_cross_entropy.py) and training-time dropout
+    # (tests/test_torch_dropout_step.py) are ported.
+    TransformerLM(**SMALL, dropout=0.1, deterministic=False)
 
 
 def test_clone_shares_parameters():
