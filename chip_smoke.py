@@ -7,10 +7,12 @@
     python3 chip_smoke.py --phases F # the capacity path (fused cross-entropy) only
     python3 chip_smoke.py --phases L # the smp.nn path (fused QKV, fused bias-GELU) only
     python3 chip_smoke.py --phases D # the smp.nn path with GPT-2's dropouts 0.1 only
+    python3 chip_smoke.py --phases M # activation checkpointing (GPT-2 124M and 1.5B) only
     python3 chip_smoke.py --phases Q # the smp.nn path under matmul_precision: fp8 only
     python3 chip_smoke.py --phases R # context-parallel training (two ranks on one card) only
     python3 chip_smoke.py --phases K # checkpoints and the data loader on the smp.nn path only
     python3 chip_smoke.py --phases N # the same with the ranks on two cards (NCCL); needs two cards
+    python3 chip_smoke.py --phases X # GPT-2 1.5B at 16 x 1024 with checkpointing off (its peak or OOM)
 
 Builds the port's CUDA kernels from ``smdistributed_modelparallel_tpu_torch/
 csrc`` (one nvcc per source, all started together), then:
@@ -79,6 +81,32 @@ csrc`` (one nvcc per source, all started together), then:
      weights and seed: losses within rtol 2e-4 / atol 2e-5 and gradients
      within rtol 2e-3 / atol 2e-4 (``tests/test_torch_step.py``'s fp32
      tolerances).
+  M. activation checkpointing (``activation_checkpointing=True`` on the LM
+     head; ``recompute`` and ``offload_activations`` from the config), with
+     phase L's AdamW, step and fused knobs, bf16. (a) Phase L's model,
+     weights and batch: at dropout 0, checkpointing off against ``full``;
+     with GPT-2's dropouts 0.1, the five modes (off, full, stash_weight,
+     stash_all, offload) in interleaved blocks A B C D E E D C B A, each a
+     fresh ``smp.init`` and model from the same weights, 2 warm-up and 3
+     timed steps. Step 1's gradients of every parameter agree with full's to
+     1e-6 of each tensor's largest value (bit-equality is printed) and every
+     layer parameter has one; a recompute drawing other masks fails here.
+     Launches a step under full (and stash_weight, offload): 96 flash
+     forwards, 48 dq and dk/dv, 96 ``matmul_bias`` and ``bias_gelu_fwd``, 48
+     ``bias_gelu_bwd``, 196 ``dropout_fwd`` (4 embedding + 96 + 96
+     recomputed), 100 ``dropout_bwd``; off and stash_all launch each forward
+     kernel once a layer. ms/step, tokens/s and peak memory of each mode.
+     One fp8 step on and off: equal finalized quant state (1e-6). (b) GPT-2
+     1.5B (48 layers, 25 heads, d 1600, vocab 50257, GPT-2 XL's dropouts
+     0.1) as ``smp.nn.DistributedTransformerLMHead``, one microbatch: at 4 x
+     1024, off, stash_all and full (2 AdamW steps each; step 1's gradients
+     as in (a); peaks over step 2); at 16 x 1024, full and offload (1
+     warm-up and 3 timed steps: ms/step, tokens/s, peak, losses finite and
+     falling, offload's peak lower at the same losses and its layer inputs
+     moved to pinned host memory); every 1.5B run launches what ``_m_want``
+     counts each step, none on a CUDA-core route; the off case at 16 x 1024
+     is not run, its peak is predicted from the per-token slopes (phase X
+     runs it).
   Q. fp8 delayed-scaling training: phase L's model, weights and batch under
      ``matmul_precision: "fp8"`` with both fused knobs; warm-up steps, then
      timed steps whose launches are counted (48 ``matmul_fp8`` launches a
@@ -143,7 +171,10 @@ csrc`` (one nvcc per source, all started together), then:
      mask size, odd sizes, offsets past 2**32 and keys from ``split`` and
      ``fold_in``; the dropout forward and backward give the plain version's
      bits exactly in fp32, bf16 and fp16 at rates 0.1, 0.5 and 0; the flash kernels run the
-     training shape with the seeds phase D's first step derives.
+     training shape with the seeds phase D's first step derives. Phase M's
+     GPT-2 1.5B microbatches (4 and 16 x 1024) have their own cases: flash
+     at 25 heads of 64 with dropout 0.1, ``matmul_bias`` at N 4096 and 16384
+     (D 1600, F 4800), bias-GELU at [N, 6400], dropout at [N, 1600].
   C. times: kernel, plain version and the one PyTorch library call that
      computes the same function; and the bound (the least time the card
      could take for the same work; the ids-mode kernels against SDPA with
@@ -167,8 +198,10 @@ csrc`` (one nvcc per source, all started together), then:
      cuda:0 and cuda:1, which then talk over NCCL.
   P. (on request) torch.profiler breakdowns of a generate, a training step,
      a capacity step (fused and materialized) and the smp.nn path's fused,
-     unfused, fp8 and dropout steps:
+     unfused, fp8, dropout and checkpointed dropout steps:
      device time by kernel and the device's idle share.
+  X. (on request) GPT-2 1.5B at 16 x 1024 with checkpointing off, phase M's
+     model and step: its peak, or the allocation that fails.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -179,6 +212,7 @@ fails.
 import argparse
 import contextlib
 import copy
+import gc
 import importlib
 import json
 import math
@@ -214,7 +248,7 @@ _ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "PRMT")
 _FP32_OPS = ("FFMA", "FADD", "FMUL")
 
 KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8", "dropout"]
-DEFAULT_PHASES = "ATFLDQRKBC"
+DEFAULT_PHASES = "ATFLDMQRKBC"
 SEED = 1234
 
 
@@ -1274,6 +1308,421 @@ def phase_d():
     return launches, out
 
 
+# Phase M: activation checkpointing. The modes a run compares: no
+# checkpointing, and the checkpointed stack under each recompute policy and
+# under offload_activations.
+M_MODES = ("off", "full", "stash_weight", "stash_all", "offload")
+# Gradients of two modes from the same weights and keys: the recompute runs
+# the same kernels on the same inputs, so they should agree bit for bit; the
+# gate allows 1e-6 of each tensor's largest value.
+M_GRAD_TOL = 1e-6
+M_BLOCK_WARMUP, M_BLOCK_STEPS = 2, 3  # each timed block: fresh model, warm-up steps, timed steps
+# GPT-2 1.5B (GPT-2 XL's published widths and dropouts; the JAX package's
+# models/gpt2.py gpt2_1p5b) as smp.nn.DistributedTransformerLMHead.
+XL_CFG = dict(LM_DROP_CFG, num_layers=48, num_attention_heads=25, hidden_size=1600, intermediate_size=6400)
+XL_GRADS = [f"transformer.seq_layers.{i}.{m}.{p}" for i in (0, 47) for m in ("attention.qkv", "output.fc")
+            for p in ("weight", "bias")]
+XL_SMALL_BATCH, XL_BATCH = 4, 16  # x 1024 tokens, one microbatch
+XL_DROP_SITES = 1 + 2 * XL_CFG["num_layers"]
+XL_WARMUP, XL_STEPS = 1, 3
+
+
+def _m_smp_cfg(mode):
+    """The ``smp.init`` keys of a mode."""
+    if mode == "offload":
+        return {"offload_activations": True}
+    return {} if mode == "off" else {"recompute": mode}
+
+
+def _m_counters():
+    return {**_flash_counters(), **_new_counters(), **_dropout_counters(), **_simt_counters()}
+
+
+def _m_want(layers, microbatches, dropout_sites, mode):
+    """Launches a step of the smp.nn path with dropout: each forward kernel
+    once a layer and microbatch, twice when the layer is recomputed."""
+    fwd = layers * microbatches * (1 if mode in ("off", "stash_all") else 2)
+    bwd = layers * microbatches
+    return {"flash_fwd": fwd, "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd, "matmul_bias": fwd,
+            "bias_gelu_fwd": fwd, "bias_gelu_bwd": bwd,
+            "dropout_fwd": microbatches + 2 * fwd, "dropout_bwd": microbatches * dropout_sites,
+            "threefry_bits": 0, **{k: 0 for k in _simt_counters()}}
+
+
+def _m_grad_err(got, want):
+    """{name: max |got - want| / max |want|} over every gradient."""
+    return {n: float((got[n].cuda() - w.cuda()).abs().max() / w.cuda().abs().max()) for n, w in want.items()}
+
+
+def _m_check_grads(label, got, want, layer_prefix="transformer.seq_layers."):
+    """Raise unless every gradient agrees within M_GRAD_TOL and every layer
+    parameter has one; returns (largest error, bit-equal)."""
+    err = _m_grad_err(got, want)
+    missing = [n for n, g in got.items() if n.startswith(layer_prefix) and not float(g.abs().max()) > 0]
+    worst = max(err, key=err.get)
+    equal = all(e == 0.0 for e in err.values())
+    log(f"[M] {label}: step-1 gradients of {len(err)} tensors, largest max |d| / max |grad| {err[worst]:.3e} "
+        f"({worst}; limit {M_GRAD_TOL:.0e}); bit for bit: {equal}; layer parameters without a gradient: "
+        f"{len(missing)}")
+    if err[worst] > M_GRAD_TOL or missing or set(got) != set(want):
+        raise RuntimeError(f"{label}: gradients disagree or are missing ({missing[:4]})")
+    return err[worst], equal
+
+
+def _m_step(model, optimizer, train_step, ids):
+    """One step, timed and measured: (loss, ms, the resident bytes before it,
+    the peak during ``train_step``, the peak during ``optimizer.step``, the
+    bytes allocated when a microbatch's forward ends: at its
+    ``model.backward(loss)``, the most over the microbatches)."""
+    from smdistributed_modelparallel_tpu_torch.model import DistributedModel
+
+    marks = []
+    real_backward = DistributedModel.backward
+
+    def backward(self, loss, num_tokens=None):
+        marks.append(torch.cuda.memory_allocated())
+        return real_backward(self, loss, num_tokens)
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(DistributedModel, "backward", backward):
+        loss = train_step(model, ids).reduce_mean()
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    optimizer.step()
+    torch.cuda.synchronize()
+    return (loss, (time.perf_counter() - t0) * 1e3, resident, step_peak, torch.cuda.max_memory_allocated(),
+            max(marks))
+
+
+def _m_memory(steps):
+    """Memory in GiB over ``_m_step`` results: the whole step's peak, the
+    ``train_step`` part's and the optimizer's, and what a microbatch's
+    forward leaves allocated above the resident bytes (the step's half
+    casts, the activations its graph keeps, its logits)."""
+    gib = 2 ** 30
+    step_peak = max(r[3] for r in steps) / gib
+    opt_peak = max(r[4] for r in steps) / gib
+    return dict(peak_gib=max(step_peak, opt_peak), step_peak_gib=step_peak, opt_peak_gib=opt_peak,
+                forward_gib=max(r[5] - r[2] for r in steps) / gib, resident_gib=max(r[2] for r in steps) / gib)
+
+
+def _m_block(init_state, ids, mode, cfg=LM_DROP_CFG, smp_cfg=None):
+    """A fresh ``smp.init`` and model in ``mode`` from ``init_state``:
+    step 1's gradients, then M_BLOCK_WARMUP - 1 more warm-up steps and
+    M_BLOCK_STEPS timed steps (``_m_step``) whose launches are counted from
+    0."""
+    model, optimizer, train_step = _lm_setup(init_state, True, "cuda", dict(cfg, activation_checkpointing=mode != "off"),
+                                             **_m_smp_cfg(mode), **(smp_cfg or {}))
+    losses = [float(train_step(model, ids).reduce_mean())]
+    grads = {n: g.detach().to("cpu") for n, g in model.grads.items()}  # on the host: later blocks' memory
+    optimizer.step()
+    for _ in range(M_BLOCK_WARMUP - 1):
+        losses.append(float(train_step(model, ids).reduce_mean()))
+        optimizer.step()
+    counters = _m_counters()
+    for c in counters.values():
+        c.launches = 0
+    steps = [_m_step(model, optimizer, train_step, ids) for _ in range(M_BLOCK_STEPS)]
+    out = dict(ms=sum(r[1] for r in steps) / M_BLOCK_STEPS, losses=losses + [float(r[0]) for r in steps],
+               grads=grads, launches={k: c.launches for k, c in counters.items()}, **_m_memory(steps))
+    del model, optimizer, train_step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _m_host_split(init_state, ids, n=3):
+    """Where the checkpointed step's extra host time goes: ``n`` steps of
+    phase M's 124M model (dropout 0.1) off and under full, with wall-clock
+    timers around the layers' forward (``DistributedTransformerLayer.forward``:
+    in the regions and again in their recomputes), the checkpointed regions'
+    forward (``memory.run_checkpointed``, with the layer), the recomputes
+    (``memory._Replay.recompute``'s block, with the layer) and the
+    backward (``torch.autograd.grad``, with the recomputes). In ms a step."""
+    from smdistributed_modelparallel_tpu_torch.nn import transformer as tr
+    from smdistributed_modelparallel_tpu_torch.parallel import memory
+
+    secs, calls = {}, {}
+
+    def timer(name, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+                calls[name] = calls.get(name, 0) + 1
+        return wrapped
+
+    real_recompute = memory._Replay.recompute
+
+    @contextlib.contextmanager
+    def timed_recompute(self):
+        t0 = time.perf_counter()
+        try:
+            with real_recompute(self):
+                yield
+        finally:  # torch stops a recompute early by raising out of it
+            secs["recomputes"] = secs.get("recomputes", 0.0) + time.perf_counter() - t0
+            calls["recomputes"] = calls.get("recomputes", 0) + 1
+
+    out = {}
+    for mode in ("off", "full"):
+        model, optimizer, train_step = _lm_setup(init_state, True, "cuda",
+                                                 dict(LM_DROP_CFG, activation_checkpointing=mode != "off"),
+                                                 **_m_smp_cfg(mode))
+        for _ in range(M_BLOCK_WARMUP):
+            train_step(model, ids)
+            optimizer.step()
+        secs.clear()
+        calls.clear()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(tr.DistributedTransformerLayer, "forward",
+                                                  timer("layers' forward", tr.DistributedTransformerLayer.forward)))
+            stack.enter_context(mock.patch.object(memory, "run_checkpointed",
+                                                  timer("regions' forward", memory.run_checkpointed)))
+            stack.enter_context(mock.patch.object(memory._Replay, "recompute", timed_recompute))
+            stack.enter_context(mock.patch.object(torch.autograd, "grad", timer("backward", torch.autograd.grad)))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                train_step(model, ids)
+                optimizer.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        out[mode] = dict(wall_ms=wall, ms={k: v * 1e3 / n for k, v in secs.items()},
+                          calls={k: v // n for k, v in calls.items()})
+        log(f"[M] host split, 124M dropout 0.1, {mode}: {wall:.2f} ms/step with timers; "
+            + ", ".join(f"{k} {v * 1e3 / n:.2f} ms ({calls[k] // n} calls)" for k, v in secs.items()))
+        del model, optimizer, train_step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _xl_run(mode, batch, steps, keep_grads=False):
+    """GPT-2 1.5B in ``mode`` from the seed's weights, ``steps`` AdamW
+    steps on a ``batch`` x 1024 microbatch: losses, the ms and memory of the
+    steps after the first (``_m_step``), step 1's gradients on the host
+    (``keep_grads``), the offloaded bytes a step and the launches, which
+    must be ``_m_want``'s every step, none on a CUDA-core route."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+    from smdistributed_modelparallel_tpu_torch.parallel import memory
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    _lm_init(True, microbatches=1, **_m_smp_cfg(mode))
+    module = smp.nn.DistributedTransformerLMHead(**XL_CFG, fused_bias_gelu=True, activation_checkpointing=mode != "off",
+                                                 device="cuda")
+    init_weights_(module, XL_CFG["initializer_range"], g)
+    ids = torch.randint(0, XL_CFG["vocab_size"], (batch, TRAIN_SEQ), generator=g, device="cuda")
+    model, optimizer, train_step = _lm_train(module, "cuda")
+    del module
+    counters = _m_counters()
+    for c in counters.values():
+        c.launches = 0
+    losses = [float(train_step(model, ids).reduce_mean())]
+    grads = {n: t.detach().to("cpu") for n, t in model.grads.items()} if keep_grads else None
+    optimizer.step()
+    moved = memory.offload_stats["to_host"]
+    timed = [_m_step(model, optimizer, train_step, ids) for _ in range(steps - 1)]
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {k: n * steps for k, n in _m_want(XL_CFG["num_layers"], 1, XL_DROP_SITES, mode).items()}
+    log(f"[M]   1.5B {mode}, {batch} x {TRAIN_SEQ}: launches in {steps} steps {launches}")
+    _check_route(f"1.5B {mode}", launches)
+    if {k: launches[k] for k in want} != want:
+        raise RuntimeError(f"1.5B {mode}: launches in {steps} steps {launches}, expected {want}")
+    out = dict(losses=losses + [float(r[0]) for r in timed], ms=[r[1] for r in timed], grads=grads,
+               offloaded_per_step=(memory.offload_stats["to_host"] - moved) / (steps - 1),
+               launches=launches, **_m_memory(timed))
+    del model, optimizer, train_step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _m_mem_text(run):
+    return (f"peak {run['peak_gib']:.2f} GiB (train_step {run['step_peak_gib']:.2f}, optimizer.step "
+            f"{run['opt_peak_gib']:.2f}; resident {run['resident_gib']:.2f}, a microbatch's forward leaves "
+            f"{run['forward_gib']:.3f} above it)")
+
+
+def phase_m():
+    """Activation checkpointing: (a) phase L's model with GPT-2's dropouts
+    in every mode (gradients, launches, fp8 state, time, memory and a host
+    split); (b) GPT-2 1.5B at 4 x 1024 (off, stash_all, full) and 16 x 1024
+    (full, offload) in one microbatch."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    init = init_weights_(smp.nn.DistributedTransformerLMHead(**LM_CFG, device="cuda"), LM_CFG["initializer_range"], g)
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    ids = torch.randint(0, LM_CFG["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
+    n_layers = LM_CFG["num_layers"]
+    launches_total = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            launches_total[k] = launches_total.get(k, 0) + n
+
+    # (a) Dropout 0: off against full.
+    plain = {mode: _m_block(init_state, ids, mode, LM_CFG) for mode in ("off", "full")}
+    for run in plain.values():
+        add(run["launches"])
+    out = {"dropout0": _m_check_grads("124M dropout 0, full against off", plain["full"]["grads"],
+                                      plain["off"]["grads"])}
+    del plain
+
+    # Dropout 0.1, every mode, in blocks A B C D E E D C B A; each block
+    # starts from the same weights, so its step 1 gives comparable gradients.
+    runs = {mode: [] for mode in M_MODES}
+    for mode in (*M_MODES, *reversed(M_MODES)):
+        runs[mode].append(_m_block(init_state, ids, mode))
+    step1 = {mode: blocks[0].pop("grads") for mode, blocks in runs.items()}
+    for blocks in runs.values():
+        blocks[1].pop("grads")
+    for mode in ("stash_all", "stash_weight", "offload", "off"):
+        out[f"dropout0.1 {mode}"] = _m_check_grads(f"124M dropout 0.1, {mode} against full", step1[mode],
+                                                   step1["full"])
+    del step1
+    timing = {}
+    for mode, blocks in runs.items():
+        ms = sum(b["ms"] for b in blocks) / len(blocks)
+        timing[mode] = dict(ms=ms, block_ms=[b["ms"] for b in blocks], tokens_per_s=ids.numel() / ms * 1e3,
+                            losses=blocks[0]["losses"],
+                            **{k: max(b[k] for b in blocks) for k in ("peak_gib", "step_peak_gib", "opt_peak_gib",
+                                                                      "forward_gib", "resident_gib")})
+        per_step = {k: sum(b["launches"][k] for b in blocks) // (len(blocks) * M_BLOCK_STEPS)
+                    for k in blocks[0]["launches"]}
+        want = _m_want(n_layers, TRAIN_MB, DROP_SITES, mode)
+        log(f"[M] smp.nn GPT-2 124M bf16, dropout 0.1, batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MB} microbatches, "
+            f"{mode}: {ms:.2f} ms/step (blocks {', '.join(f'{b:.2f}' for b in timing[mode]['block_ms'])}), "
+            f"{timing[mode]['tokens_per_s']:.1f} tokens/s, {_m_mem_text(timing[mode])} ({M_BLOCK_STEPS} timed steps "
+            f"a block after {M_BLOCK_WARMUP} warm-up, each ending in a synchronize)")
+        log(f"[M]   launches a step: {per_step}")
+        if {k: per_step[k] for k in want} != want:
+            raise RuntimeError(f"{mode}: launches a step {per_step}, expected {want}")
+        losses = blocks[0]["losses"]
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"{mode}: loss did not fall or is not finite: {losses}")
+        for b in blocks:
+            add(b["launches"])
+    out["timing"] = timing
+    del runs
+    out["host"] = _m_host_split(init_state, ids)
+
+    # fp8: one step with checkpointing on and off; the finalized quant state.
+    quant = {}
+    for mode in ("off", "full"):
+        model, optimizer, train_step = _lm_setup(init_state, True, "cuda",
+                                                 dict(LM_DROP_CFG, activation_checkpointing=mode != "off"),
+                                                 matmul_precision="fp8", **_m_smp_cfg(mode))
+        train_step(model, ids)
+        quant[mode] = smp.state.quant_state.state_dict()
+        del model, optimizer, train_step
+    q_err = max(float(np.abs(quant["full"][k] - quant["off"][k]).max()) for k in ("amax_history", "scale"))
+    log(f"[M] fp8 step, full against off: finalized quant state max |diff| {q_err:.3e} (limit 1e-6); "
+        f"observed slots {int((quant['full']['amax_history'][:, 0] > 0).sum())}")
+    if q_err > 1e-6 or not (quant["off"]["amax_history"][:, 0] > 0).any():
+        raise RuntimeError("the fp8 quant state differs with checkpointing")
+    out["fp8_state_err"] = q_err
+    torch.cuda.empty_cache()
+
+    # (b) GPT-2 1.5B. 4 x 1024: off, stash_all and full, 3 AdamW steps each;
+    # step 1's gradients, steps 2-3's time and memory (AdamW's state lives).
+    xl = {}
+    ref = None
+    for mode in ("off", "stash_all", "full"):
+        run = xl[mode] = _xl_run(mode, XL_SMALL_BATCH, 3, keep_grads=True)
+        add(run["launches"])
+        log(f"[M] GPT-2 1.5B bf16, dropout 0.1, {XL_SMALL_BATCH} x {TRAIN_SEQ} in one microbatch, {mode}: steps 2-3 "
+            f"{', '.join(f'{t:.2f}' for t in run['ms'])} ms, {_m_mem_text(run)}; losses {run['losses']}")
+        if ref is None:
+            ref = run.pop("grads")
+        else:
+            grads = run.pop("grads")
+            out[f"xl {mode}"] = _m_check_grads(f"1.5B {mode} against off", grads, ref)
+            del grads
+    del ref
+    # 16 x 1024 under full, then under offload: 1 warm-up and 3 timed steps.
+    for mode in ("full", "offload"):
+        run = xl[f"{mode} 16k"] = _xl_run(mode, XL_BATCH, XL_WARMUP + XL_STEPS)
+        add(run["launches"])
+        ms = sum(run["ms"]) / XL_STEPS
+        run.update(step_ms=ms, tokens_per_s=XL_BATCH * TRAIN_SEQ / ms * 1e3)
+        log(f"[M] GPT-2 1.5B bf16, dropout 0.1, {XL_BATCH} x {TRAIN_SEQ} in one microbatch, {mode}: {ms:.2f} ms/step "
+            f"(steps {', '.join(f'{t:.2f}' for t in run['ms'])} after {XL_WARMUP} warm-up), "
+            f"{run['tokens_per_s']:.1f} tokens/s, {_m_mem_text(run)}, layer inputs sent to host "
+            f"{run['offloaded_per_step'] / 2**30:.3f} GiB a step; losses {run['losses']}")
+        losses = run["losses"]
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise RuntimeError(f"1.5B {mode}: loss did not fall or is not finite: {losses}")
+    full, off16 = xl["full 16k"], xl["offload 16k"]
+    inputs = XL_CFG["num_layers"] * XL_BATCH * TRAIN_SEQ * XL_CFG["hidden_size"] * 2
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(off16["losses"], full["losses"]))
+    saved = full["forward_gib"] - off16["forward_gib"]
+    log(f"[M] offload against full at {XL_BATCH} x {TRAIN_SEQ}: the forward leaves {off16['forward_gib']:.3f} against "
+        f"{full['forward_gib']:.3f} GiB above the resident bytes ({saved:.3f} GiB less; the {XL_CFG['num_layers']} layer "
+        f"inputs are {inputs / 2**30:.3f} GiB); whole-step peak {off16['peak_gib']:.2f} against {full['peak_gib']:.2f} "
+        f"GiB (train_step {off16['step_peak_gib']:.2f} against {full['step_peak_gib']:.2f}); losses max rel diff "
+        f"{loss_rel:.3e} (limit 1e-5)")
+    if not off16["offloaded_per_step"] >= inputs or saved < 0.9 * inputs / 2**30 or loss_rel > 1e-5:
+        raise RuntimeError("offload did not move the layer inputs off the device, or changed the losses")
+    if not (off16["peak_gib"] < full["peak_gib"] and off16["step_peak_gib"] < full["step_peak_gib"]):
+        raise RuntimeError("offload did not lower the device's peak")
+    if not full["peak_gib"] < 80:
+        raise RuntimeError(f"1.5B at {XL_BATCH} x {TRAIN_SEQ} peaked at {full['peak_gib']:.2f} GiB")
+    # The off case at 16 x 1024, predicted (not run): what its forward leaves
+    # grows by full's per-token slope (4k to 16k) plus what off keeps more a
+    # token at 4k; its backward then also holds the bf16 gradients it
+    # returns (2 bytes a parameter): the predicted peak is their sum (phase
+    # X measures it).
+    tokens_small, tokens = XL_SMALL_BATCH * TRAIN_SEQ, XL_BATCH * TRAIN_SEQ
+    small_off, small_full = xl["off"], xl["full"]
+    slope_full = (full["forward_gib"] - small_full["forward_gib"]) / (tokens - tokens_small)
+    slope_off = slope_full + (small_off["forward_gib"] - small_full["forward_gib"]) / tokens_small
+    forward_off = small_off["forward_gib"] + slope_off * (tokens - tokens_small)
+    n_params = sum(p.numel() for p in smp.nn.DistributedTransformerLMHead(**XL_CFG, device="meta").parameters())
+    predicted = full["resident_gib"] + forward_off + 2 * n_params / 2**30
+    log(f"[M] what a 1.5B forward leaves a token: full {slope_full * 2**10:.4f} MiB, off {slope_off * 2**10:.4f} MiB; off "
+        f"at {XL_BATCH} x {TRAIN_SEQ} (not run): its forward would leave {forward_off:.2f} GiB above the resident "
+        f"{full['resident_gib']:.2f}, a predicted peak of {predicted:.2f} GiB with the backward's "
+        f"{2 * n_params / 2**30:.2f} GiB of bf16 gradients ({n_params} parameters)")
+    out["xl"] = {k: {kk: vv for kk, vv in v.items() if kk != "launches"} for k, v in xl.items()}
+    out["xl_off_16k_predicted_gib"] = predicted
+    smp.reset()
+    return launches_total, out
+
+
+def phase_x():
+    """(On request.) GPT-2 1.5B at 16 x 1024 in one microbatch with
+    checkpointing off, the case phase M predicts and does not run: two
+    AdamW steps and the second's peak, or the allocation that fails and the
+    allocator's peak until then."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        run = _xl_run("off", XL_BATCH, 2)
+    except torch.cuda.OutOfMemoryError as e:
+        log(f"[X] GPT-2 1.5B bf16, dropout 0.1, {XL_BATCH} x {TRAIN_SEQ} in one microbatch, off: out of memory, "
+            f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of the card's {total:.2f}; "
+            f"{str(e).splitlines()[0]}")
+        out = None
+    else:
+        log(f"[X] GPT-2 1.5B bf16, dropout 0.1, {XL_BATCH} x {TRAIN_SEQ} in one microbatch, off: step 2 "
+            f"{run['ms'][0]:.2f} ms, {_m_mem_text(run)} of the card's {total:.2f} GiB; losses {run['losses']}")
+        out = run["peak_gib"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    smp.reset()
+    return out
+
+
 # The 11 slots the smp.nn path observes under fp8 (SITE_SLOTS less the
 # linear_* and ring_* seams of the tensor-parallel layers).
 FP8_LIVE_SLOTS = {"qkv.x", "qkv.w", "attn_proj.x", "attn_proj.w", "mlp_fc.x", "mlp_fc.w", "mlp_proj.x",
@@ -1667,6 +2116,9 @@ CASES = [
     ("hd128", 2, 256, 256, 4, 128, {}),
     ("hd256_scale", 1, 128, 128, 2, 256, dict(scale=0.1)),
     ("ragged_t200", 2, 200, 200, 4, 48, {}),
+    # phase M's GPT-2 1.5B microbatches: 25 heads of 64, dropout 0.1
+    ("xl_b4_dropout", 4, 1024, 1024, 25, 64, dict(dropout_rate=0.1, seed=1234567)),
+    ("xl_b16_dropout", 16, 1024, 1024, 25, 64, dict(dropout_rate=0.1, seed=-7654321)),
 ]
 # fp32: identical arithmetic, only the summation order and the online vs
 # one-pass softmax differ (~1e-6 relative). bf16: the kernel rounds P to
@@ -1697,7 +2149,7 @@ FWD_SIMT_LSE = 1e-3
 # flips move it by an fp16 ulp, 2**-11 against bf16's 2**-8, so the bf16
 # limit over 8.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2.5e-3}
-MAIN_CASES = ("main_path_causal", "train_path_causal")  # bf16 only
+MAIN_CASES = ("main_path_causal", "train_path_causal", "xl_b4_dropout", "xl_b16_dropout")  # bf16 only
 # Also in fp16, forward and backward: the training shape, T != S, a window,
 # fully-masked rows, dropout and a head dim the tensor cores do not take.
 FP16_CASES = ("train_path_causal", "t_lt_s_causal", "causal_window", "kpad_fully_padded_rows", "dropout_head_remap",
@@ -1896,7 +2348,7 @@ BITS_CASES = (("path mask [2048, 768]", 2048 * 768, 0), ("one element", 1, 0), (
               ("offset past 2**32", 1000, 2**32 - 100), ("Gumbel draw [4, 50257]", 4 * 50257, 0))
 DROP_RATES = (0.1, 0.5, 0.0)
 DROP_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-DROP_SHAPES = ((2048, 768), (3, 1001))  # the path's, and an odd one
+DROP_SHAPES = ((2048, 768), (3, 1001), (4096, 1600), (16384, 1600))  # the paths' (124M, 1.5B), and an odd one
 
 
 def _bit_view(t):
@@ -2113,6 +2565,8 @@ MB_CASES = [
     ("bias_zeros", 300, 64, 96, dict(zeros=True)),
     ("ragged_1000x768x2300", 1000, 768, 2300, {}),
     ("qkv_path_n2047", 2047, 768, 2304, {}),
+    ("xl_qkv_n4096", 4096, 1600, 4800, {}),  # phase M's GPT-2 1.5B microbatches
+    ("xl_qkv_n16384", 16384, 1600, 4800, {}),
 ]
 # (name, N, F, kwargs) of the bias_gelu kernels: the MLP epilogue of the
 # smp.nn path, few rows, ragged N and F (F % 8 != 0: the "simt" route),
@@ -2128,6 +2582,8 @@ GELU_CASES = [
     ("x_offset_1", 1000, 3072, dict(offset=1)),
     ("n2047_band_tail", 2047, 3072, {}),
     ("fp32_bias", 2048, 3072, dict(b_dtype=torch.float32)),
+    ("xl_mlp_n4096", 4096, 6400, {}),  # phase M's GPT-2 1.5B microbatches
+    ("xl_mlp_n16384", 16384, 6400, {}),
 ]
 GELU_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 GELU_COPIES = 6  # input sets timed in turn at the path's shape: 151 MB of x, b and g, 3x the L2
@@ -3267,7 +3723,8 @@ def _profile_report(label, prof, wall_ms, top):
 def phase_p():
     """Where one greedy ``generate``, one training step, one capacity step
     (fused CE and materialized logits) and the smp.nn path's steps (fused,
-    unfused, fp8 and with dropout) spend their time, by torch.profiler:
+    unfused, fp8, with dropout, and with dropout and checkpointed layers)
+    spend their time, by torch.profiler:
     device time by kernel and the device's idle share of the wall time."""
     import smdistributed_modelparallel_tpu_torch as smp
     from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m, init_gpt2_weights_
@@ -3331,7 +3788,9 @@ def phase_p():
     ids = torch.randint(0, 50257, (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
     for label, fused, cfg, smp_cfg in (("fused", True, LM_CFG, {}), ("unfused", False, LM_CFG, {}),
                                        ("fused, matmul_precision: fp8", True, LM_CFG, {"matmul_precision": "fp8"}),
-                                       ("fused, dropout 0.1", True, LM_DROP_CFG, {})):
+                                       ("fused, dropout 0.1", True, LM_DROP_CFG, {}),
+                                       ("fused, dropout 0.1, activation checkpointing (recompute: full)", True,
+                                        dict(LM_DROP_CFG, activation_checkpointing=True), {})):
         model, optimizer, train_step = _lm_setup(lm_state, fused, "cuda", cfg, **smp_cfg)
         for _ in range(TRAIN_WARMUP):
             train_step(model, ids)
@@ -3346,8 +3805,8 @@ def phase_p():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, T, F, L, D, Q, R, K, B, C (the default, all ten), P (profiles) and N "
-             "(phase R's ranks on two cards, over NCCL)")
+                        help="phases to run: A, T, F, L, D, M, Q, R, K, B, C (the default, all eleven), P (profiles) and N "
+             "(phase R's ranks on two cards, over NCCL) and X (GPT-2 1.5B at 16 x 1024 with checkpointing off)")
     parser.add_argument("--k-child", metavar="DIR", help=argparse.SUPPRESS)  # phase K's resumed run
     args = parser.parse_args()
 
@@ -3366,9 +3825,11 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    started = time.perf_counter()
     build()
+    log(f"[time] build {time.perf_counter() - started:.1f} s")
     serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches = {}, {}, {}, {}, {}, {}
-    k_launches, d_launches = {}, {}
+    k_launches, d_launches, m_launches = {}, {}, {}
     errs = timing = None
     if "A" in args.phases:
         serve_launches = phase_a()
@@ -3380,6 +3841,10 @@ def main():
         lm_launches, _ = phase_l()
     if "D" in args.phases:
         d_launches, _ = phase_d()
+    if "M" in args.phases:
+        m_launches, _ = phase_m()
+    if "X" in args.phases:
+        phase_x()
     if "Q" in args.phases:
         q_launches, _ = phase_q()
     if "R" in args.phases:
@@ -3395,6 +3860,7 @@ def main():
     if "P" in args.phases:
         phase_p()
 
+    log(f"[time] all phases {time.perf_counter() - started:.1f} s")
     if not set(DEFAULT_PHASES) <= set(args.phases):
         return 0  # a partial run prints no result
     fwd_err, bwd_err, new_err = errs
@@ -3402,10 +3868,11 @@ def main():
     # capacity path (F), the smp.nn path (L), its fp8 run (Q) and the
     # context-parallel run (R: both ranks and the cp = 1 run), the
     # checkpointed run (K: before and after the save, the resumed child and
-    # the full-checkpoint resume) and the dropout run (D: its timed blocks),
-    # each counted from 0 just before it.
+    # the full-checkpoint resume), the dropout run (D: its timed blocks) and
+    # the checkpointed runs (M: every block and every 1.5B run), each counted
+    # from 0 just before it.
     paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches, k_launches,
-             d_launches)
+             d_launches, m_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"

@@ -22,6 +22,13 @@ either direction: the model's tensors in the JAX package's keys and layout,
 ``torch.optim.AdamW`` / ``torch.optim.Adam`` state as ``optax.adamw`` /
 ``optax.adam`` state (``optimizer.py``). ``smp.dataloader`` feeds the step
 with batches staged on the device ahead of it (``utils/data.py``).
+Activation checkpointing trades compute for memory: the smp.nn stack
+recomputes each layer in the backward (``DistributedTransformerLMHead(
+activation_checkpointing=True)``, or ``smp.set_activation_checkpointing``
+before the model is built; ``smp.checkpoint`` and
+``smp.checkpoint_sequential`` for any function), keeping what the
+``recompute`` config asks for, or sending the layer inputs to pinned host
+memory under ``offload_activations`` (``parallel/memory.py``).
 
     import torch
     import smdistributed_modelparallel_tpu_torch as smp
@@ -129,8 +136,45 @@ def get_cp_group():
 
 def reset():
     """Drop the config, device, model, optimizer, loss scaler, quant
-    state, step count and any checkpoint state waiting to be applied."""
+    state, step count, activation-checkpoint configs and any checkpoint
+    state waiting to be applied."""
     state.reset()
+
+
+def _module_manager():
+    from smdistributed_modelparallel_tpu_torch.module_manager import ModuleManager
+
+    if state.module_manager is None:
+        state.module_manager = ModuleManager()
+    return state.module_manager
+
+
+def set_activation_checkpointing(module_prefix, **config):
+    """Checkpoint the modules under ``module_prefix`` (a '/'-joined path of
+    torch attribute names, e.g. ``"transformer"``; ``""`` or ``"main"`` the
+    whole model): every module that has an ``activation_checkpointing`` flag
+    and that the prefix touches (itself, an ancestor or a descendant) turns
+    it on when the ``DistributedModel`` is built. Call it after
+    ``smp.init``."""
+    _module_manager().set_activation_checkpointing(module_prefix, **config)
+
+
+# Bound after the ``checkpoint`` submodule's import above, so that
+# ``smp.checkpoint`` is this function, as in the JAX package.
+def checkpoint(fn, *args, **kwargs):
+    """Run ``fn`` as a checkpointed region (``parallel/memory.checkpoint``):
+    ``smp.checkpoint(fn)(args...)`` or ``smp.checkpoint(fn, args...)``."""
+    from smdistributed_modelparallel_tpu_torch.parallel.memory import checkpoint as _checkpoint
+
+    return _checkpoint(fn, *args, **kwargs)
+
+
+def checkpoint_sequential(fns, input, strategy="each"):
+    """Apply ``fns`` in turn, each one ("each") or each group of N
+    ("group_N") a checkpointed region (``parallel/memory``)."""
+    from smdistributed_modelparallel_tpu_torch.parallel.memory import checkpoint_sequential as _checkpoint_sequential
+
+    return _checkpoint_sequential(fns, input, strategy)
 
 
 __all__ = [
@@ -142,6 +186,8 @@ __all__ = [
     "StepOutput",
     "StepUsageError",
     "amp",
+    "checkpoint",
+    "checkpoint_sequential",
     "cp_rank",
     "cp_size",
     "dataloader",
@@ -159,6 +205,7 @@ __all__ = [
     "resume_from_checkpoint",
     "save",
     "save_checkpoint",
+    "set_activation_checkpointing",
     "shard_batches",
     "size",
     "step",

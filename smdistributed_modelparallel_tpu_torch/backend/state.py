@@ -42,6 +42,10 @@ rank's contiguous sequence shard under context parallelism: attention then
 runs the cp ring (or Ulysses) and positions are offset by the shard's start.
 Outside a step (``smp.generate``, a bare model call) every rank holds whole
 sequences and computes as at cp = 1.
+
+``module_manager`` is the ``module_manager.ModuleManager`` that
+``smp.set_activation_checkpointing`` fills (after ``smp.init``, before the
+model is built); ``smp.init`` and ``smp.reset`` clear it.
 """
 
 import os
@@ -121,6 +125,7 @@ class ModelParallelState:
         self.topology = None
         self.groups = {}
         self.cp_sharded = False
+        self.module_manager = None  # smp.set_activation_checkpointing's registry (module_manager.py)
 
     def check(self):
         if self.cfg is None:

@@ -21,6 +21,14 @@ restarts with each model call, as flax's ``apply`` does. Outside a step
 there is no key, and a module that draws one raises, as flax's
 ``make_rng`` does in the JAX package.
 
+Activation checkpointing. A config registered with
+``smp.set_activation_checkpointing`` before the model is built turns on the
+``activation_checkpointing`` flag of every module it touches (the JAX
+package's rule, ``_ckpt_config_touches``). A checkpointed region
+(``parallel/memory``) records the keys ``make_rng`` gives in its forward and
+replays them in its recompute, which runs in the step's backward after the
+microbatch has ended.
+
 Checkpoints. ``state_dict()`` is torch's own. The checkpoint files hold the
 JAX package's layout instead, so that either package resumes the other's
 runs: ``reference_state_dict()`` is the flat '/'-keyed dict of numpy arrays
@@ -34,6 +42,7 @@ and ``load_sharded`` a ``shard_io`` catalog. A checkpoint that
 the model is built, before any ``register_post_partition_hook`` hook runs.
 """
 
+import contextlib
 import functools
 
 import torch
@@ -81,7 +90,10 @@ class DistributedModel:
         self._rngs = None           # {stream: key} of the current microbatch
         self._rng_counts = {}       # make_rng calls of this model call, by (layer, scope path)
         self._layer_keys = {}       # (stream, layer) -> the stream key split for that layer
+        self._key_tapes = []        # keys drawn are appended to each (checkpointed regions' forwards)
+        self._key_replay = None     # iterator of the keys a recompute draws instead
         self._rng_scopes = _rng_scopes(self.module)
+        _apply_checkpoint_configs(self.module, state.module_manager)
         group = state.group(CP_AXIS)
         if group is not None:
             # Parameters are replicated over cp: every rank starts from the
@@ -161,7 +173,22 @@ class DistributedModel:
         per-call counter (``fold_in_static``). flax's ``nn.scan`` traces its
         body twice and the scopes inside keep their counters from the first
         trace, so a scanned scope that draws once a layer draws with counter
-        2. Raises where flax finds no such key: outside an ``@smp.step``."""
+        2. flax's lifted remat (``nn.remat`` inside that ``nn.scan``) derives
+        the same keys, so a checkpointed layer draws these too. Raises where
+        flax finds no such key: outside an ``@smp.step``.
+
+        In a checkpointed region's recompute (``replaying_keys``) the keys of
+        its forward come back in order instead; the forward recorded them
+        (``recording_keys``)."""
+        if self._key_replay is not None:
+            key = next(self._key_replay)
+        else:
+            key = self._derive_key(module, name, child)
+        for tape in self._key_tapes:
+            tape.append(key)
+        return key
+
+    def _derive_key(self, module, name, child):
         if self._rngs is None or name not in self._rngs:
             raise SMPValidationError(
                 f"{type(module).__name__} needs PRNG for {name!r}: a module draws its {name} key inside an "
@@ -182,6 +209,24 @@ class DistributedModel:
                 key = self._layer_keys[(name, layer)] = random.fold_in(self._rngs[name], layer)
             count += _SCAN_TRACES - 1
         return random.fold_in_static(key, path + (count,))
+
+    @contextlib.contextmanager
+    def recording_keys(self, tape):
+        """Append every key ``make_rng`` gives inside the block to ``tape``."""
+        self._key_tapes.append(tape)
+        try:
+            yield
+        finally:
+            self._key_tapes.remove(tape)
+
+    @contextlib.contextmanager
+    def replaying_keys(self, tape):
+        """``make_rng`` gives ``tape``'s keys in order inside the block."""
+        outer, self._key_replay = self._key_replay, iter(tape)
+        try:
+            yield
+        finally:
+            self._key_replay = outer
 
     # -- parameters and gradients ----------------------------------------
 
@@ -296,6 +341,31 @@ def _rng_scopes(root):
 
     walk(root, (), None)
     return scopes
+
+
+def _apply_checkpoint_configs(root, mm):
+    """Turn on ``activation_checkpointing`` of every module under ``root``
+    that has the flag and that a config registered with
+    ``smp.set_activation_checkpointing`` touches: its path (the torch
+    attribute names joined by '/'), "" (every module), an ancestor or a
+    descendant, as the JAX package's ``_ckpt_config_touches``. The root's
+    path is "", so any config turns on the LM head's flag, which is its
+    stack's, as the flax field reaches the stack."""
+    if mm is None or not mm.checkpoint_configs:
+        return
+    for name, mod in root.named_modules():
+        if hasattr(mod, "activation_checkpointing") and _ckpt_config_touches(mm, name.replace(".", "/")):
+            mod.activation_checkpointing = True
+
+
+def _ckpt_config_touches(mm, path):
+    """True if any activation-checkpoint config targets ``path``, one of its
+    ancestors, or one of its descendants."""
+    for prefix in mm.checkpoint_configs:
+        if (prefix == path or prefix == "" or path == "" or path.startswith(prefix + "/")
+                or prefix.startswith(path + "/")):
+            return True
+    return False
 
 
 def _reference_layout(module):

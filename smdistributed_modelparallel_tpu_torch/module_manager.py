@@ -1,4 +1,5 @@
-"""Checkpoint key paths of the PyTorch port.
+"""Checkpoint key paths and the activation-checkpoint registry of the
+PyTorch port.
 
 Counterpart of the ``path_key`` of ``smdistributed_modelparallel_tpu/
 module_manager.py``: the single stringifier of checkpoint keys. The JAX
@@ -8,8 +9,15 @@ indices (the ``0/`` of an optax chain) and namedtuple fields (``mu``, ``nu``,
 ``count``). ``tree_flatten_with_path`` here walks the same containers in the
 same order (dict keys sorted, tuples and namedtuples in field order, ``None``
 and empty namedtuples holding no leaf), so the port writes and reads the same
-keys. The rest of the JAX module (annotations, sharding resolution) arrives
-with the tensor-parallel slice.
+keys.
+
+``ModuleManager`` holds the JAX module manager's activation-checkpoint
+registry (``set_activation_checkpointing``, ``checkpoint_config``,
+``checkpoint_configs``), keyed by '/'-joined module path prefixes (the torch
+attribute names; ``"main"``, ``""`` and ``"/"`` mean the whole model);
+``smp.set_activation_checkpointing`` fills it and ``DistributedModel`` reads
+it. The rest of the JAX module (partition assignments, tp marks, sharding
+resolution) arrives with the tensor- and pipeline-parallel slices.
 """
 
 
@@ -42,3 +50,26 @@ def tree_flatten_with_path(tree, path=()):
     if isinstance(tree, (tuple, list)):
         return [item for i, v in enumerate(tree) for item in tree_flatten_with_path(v, path + (i,))]
     return [(path, tree)]
+
+
+def _normalize_prefix(prefix):
+    if prefix in ("main", "", "/"):
+        return ""
+    return prefix.strip("/")
+
+
+class ModuleManager:
+    """The activation-checkpoint registry: module path prefix -> config."""
+
+    def __init__(self):
+        self._ckpt_configs = {}
+
+    def set_activation_checkpointing(self, prefix, **config):
+        self._ckpt_configs[_normalize_prefix(prefix)] = config
+
+    def checkpoint_config(self, prefix):
+        return self._ckpt_configs.get(_normalize_prefix(prefix))
+
+    @property
+    def checkpoint_configs(self):
+        return dict(self._ckpt_configs)

@@ -51,9 +51,17 @@ attention output and the MLP output (their inline ``nn.Dropout``,
 head's "Dropout_0"). Under context parallelism only the attention dropout
 runs (the ring hashes global positions); the other three raise.
 
+Activation checkpointing (``activation_checkpointing=True`` on the stack or
+the LM head, whose flag is its stack's, or ``smp.set_activation_checkpointing``
+before the ``DistributedModel`` is built): each layer of the stack is one
+checkpointed region under ``parallel/memory.remat_policy()`` (the JAX
+package's ``nn.remat`` of the scan body), recomputed in the backward on the
+parameter tensors and dropout keys of its forward.
+
 Not ported yet, each raising ``NotImplementedError``: MoE (``num_experts >
-0``), activation checkpointing, ``decode=True`` (generation through the LM
-head) and tensor parallelism (``optimize="memory"`` included).
+0``), ``decode=True`` (generation through the LM head), tensor parallelism
+(``optimize="memory"`` included) and activation checkpointing under context
+parallelism.
 """
 
 import math
@@ -82,6 +90,7 @@ from smdistributed_modelparallel_tpu_torch.nn.utils import (
 from smdistributed_modelparallel_tpu_torch.ops import bias_gelu as bg
 from smdistributed_modelparallel_tpu_torch.ops import matmul_bias as mb
 from smdistributed_modelparallel_tpu_torch.ops.attention import attention_core
+from smdistributed_modelparallel_tpu_torch.parallel import memory
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
 
 
@@ -495,7 +504,9 @@ class DistributedTransformerLayer(nn.Module):
 class DistributedTransformer(nn.Module):
     """The layer stack ``seq_layers`` of ``DistributedTransformerLayer``;
     ``attention_layers_type`` ("local"/"global" per layer, GPT-Neo) selects
-    the window band per layer. Takes the layer's keyword arguments too."""
+    the window band per layer; ``activation_checkpointing`` runs each layer
+    as a checkpointed region (``parallel/memory``). Takes the layer's keyword
+    arguments too."""
 
     _flax_scan_body = "layer"  # seq_layers is flax's nn.scan over "layer"
 
@@ -503,12 +514,10 @@ class DistributedTransformer(nn.Module):
                  intermediate_size=4096, attention_layers_type=None, activation_checkpointing=False,
                  device=None, **layer_kwargs):
         super().__init__()
-        if activation_checkpointing:
-            raise _not_ported("activation_checkpointing=True (per-layer remat)",
-                              "the parallel/memory.remat_policy slice")
         if attention_layers_type is not None and len(attention_layers_type) != num_layers:
             raise SMPValidationError("attention_layers_type must have num_layers entries.")
         self.attention_layers_type = attention_layers_type
+        self.activation_checkpointing = activation_checkpointing
         self.seq_layers = nn.ModuleList(
             DistributedTransformerLayer(num_attention_heads, attention_head_size, hidden_size, intermediate_size,
                                         device=device, **layer_kwargs)
@@ -517,10 +526,18 @@ class DistributedTransformer(nn.Module):
 
     def forward(self, hidden, cross_states=None, attention_mask=None):
         types = self.attention_layers_type
+        policy = offloader = None
+        if self.activation_checkpointing:
+            policy = memory.remat_policy()
+            if policy.kind == memory.OFFLOAD:
+                offloader = memory.Offloader(policy.horizon)  # one stack: the backward prefetches across it
         for i, layer in enumerate(self.seq_layers):
-            is_local = None if types is None else types[i] == "local"
-            hidden = layer(hidden, cross_states=cross_states, attention_mask=attention_mask, layer_idx=i,
-                           is_local=is_local)
+            kw = dict(cross_states=cross_states, attention_mask=attention_mask, layer_idx=i,
+                      is_local=None if types is None else types[i] == "local")
+            if policy is None:
+                hidden = layer(hidden, **kw)
+            else:
+                hidden = memory.run_checkpointed(layer, (hidden,), kw, policy, offloader)
         return hidden
 
 
@@ -603,6 +620,16 @@ class DistributedTransformerLMHead(nn.Module):
             self.lm_head = nn.Linear(D, vocab_size, bias=use_lm_head_bias, **kw)
             embeddings.append(self.lm_head)
         _normal_(embeddings, initializer_range)
+
+    @property
+    def activation_checkpointing(self):
+        """The flax field: whether the stack checkpoints its layers (the
+        stack's own flag, which the LM head hands it)."""
+        return self.transformer.activation_checkpointing
+
+    @activation_checkpointing.setter
+    def activation_checkpointing(self, on):
+        self.transformer.activation_checkpointing = on
 
     def embed(self, input_ids, token_type_ids=None, attention_mask=None):
         """Embeddings of ``input_ids``: ``(x, None, attention_mask)``, the

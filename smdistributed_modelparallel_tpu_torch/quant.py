@@ -25,6 +25,7 @@ writing ``quant_states.pt`` (the checkpoint slice), the ``linear_*`` and
 and weight-only decode).
 """
 
+import contextlib
 import threading
 
 import numpy as np
@@ -227,6 +228,23 @@ def fp8_trace_active():
     step engine installs one, and only under ``matmul_precision: fp8``).
     Generation and forwards outside a step see False and keep their paths."""
     return _ctx() is not None
+
+
+def current_trace():
+    """This thread's quant trace (None outside an fp8 step)."""
+    return _ctx()
+
+
+@contextlib.contextmanager
+def use_trace(trace):
+    """Install ``trace`` on this thread for the block: a checkpointed
+    region's recompute, which the autograd engine may run on another thread
+    than the step's, quantizes with the step's trace (``parallel/memory``)."""
+    outer, _TRACE.ctx = _ctx(), trace
+    try:
+        yield
+    finally:
+        _TRACE.ctx = outer
 
 
 def finalize(qs):

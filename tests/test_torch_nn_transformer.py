@@ -355,9 +355,8 @@ def test_fused_training_matches_jax(fused_branch):
 
 @pytest.mark.parametrize("kw, what", [
     (dict(num_experts=2), "MoE"),
-    (dict(activation_checkpointing=True), "remat"),
     (dict(decode=True, decode_cache_len=32), "decode=True"),
-], ids=["moe", "activation_checkpointing", "decode"])
+], ids=["moe", "decode"])
 def test_left_out_features_raise(kw, what):
     with pytest.raises(NotImplementedError, match=what):
         port_tr.DistributedTransformerLMHead(**dict(TINY, **kw))
