@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py --phases B # kernel-vs-plain comparisons only
+    python3 chip_smoke.py --phases S # the serving engine (continuous batching, paged KV cache) only
     python3 chip_smoke.py --phases T # the training path only
     python3 chip_smoke.py --phases F # the capacity path (fused cross-entropy) only
     python3 chip_smoke.py --phases L # the smp.nn path (fused QKV, fused bias-GELU) only
@@ -27,6 +28,25 @@ csrc`` (one nvcc per source, all started together), then:
      token. A repeat with the same key gives the same tokens, and the
      Gumbel bits equal the plain version's. A small fp32 model is also held
      against the same weights run on the CPU.
+  S. the serving engine: ``smp.serving.ServingEngine`` on phase A's model
+     and weights (GPT-2 124M, bf16) with 8 slots and a pool of 129 blocks of
+     16 tokens (a quarter of full provisioning, so admission waits for blocks
+     that finished streams release) serves 16 requests arriving at once
+     (prompts of 32-512 tokens and 16-128 new tokens drawn from the seed; 4
+     sampled with temperature 0.8, top-k 50, top-p 0.95, seeds 0-3),
+     ticked from outside: tokens/s and requests/s over the burst, TTFT
+     p50/p90/p99 and ITL p50/p99 from the slots' token times, mean decode-
+     step and prefill-chunk ms, peak blocks used and the ticks admission
+     waited on blocks, against the same requests through ``smp.generate``
+     one at a time (the yardstick). The burst launches no flash kernel (the
+     prefill mask varies along the chunk, decode has T = 1: the plain path,
+     as in the JAX package) and ``threefry_bits`` once a sampled token.
+     Gates: (a) every greedy token within 5e-2 of max |logit| of its row's
+     maximum in a teacher-forced bf16 forward on the plain attention path;
+     (b) a small fp32 model (phase A's, learned and rotary) serves 6 ragged
+     requests with the same tokens on the card, on the CPU and through the
+     card's ``smp.generate``; (c) the pool drained; (d) the sampled streams
+     repeat from their seeds; (e) admission waited on blocks in some tick.
   T. the training path: ``@smp.step`` + ``smp.DistributedOptimizer`` on
      GPT-2 124M at full width with random weights from a seed, bf16, batch
      8 x 1024 tokens in 4 microbatches, AdamW(1e-4), loss mode,
@@ -196,7 +216,7 @@ csrc`` (one nvcc per source, all started together), then:
      pipe (PIPE_LANES).
   N. (on request, on a machine with two cards) phase R with the ranks on
      cuda:0 and cuda:1, which then talk over NCCL.
-  P. (on request) torch.profiler breakdowns of a generate, a training step,
+  P. (on request) torch.profiler breakdowns of a generate, phase S's burst, a training step,
      a capacity step (fused and materialized) and the smp.nn path's fused,
      unfused, fp8, dropout and checkpointed dropout steps:
      device time by kernel and the device's idle share.
@@ -212,6 +232,7 @@ fails.
 import argparse
 import contextlib
 import copy
+import dataclasses
 import gc
 import importlib
 import json
@@ -248,7 +269,7 @@ _ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "PRMT")
 _FP32_OPS = ("FFMA", "FADD", "FMUL")
 
 KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8", "dropout"]
-DEFAULT_PHASES = "ATFLDMQRKBC"
+DEFAULT_PHASES = "ASTFLDMQRKBC"
 SEED = 1234
 
 
@@ -516,6 +537,239 @@ def phase_a():
     if err > 2e-5 or not torch.equal(toks_gpu, toks_cpu):
         raise RuntimeError("the card's fp32 forward disagrees with the CPU's")
 
+    smp.reset()
+    return launches
+
+
+# Phase S: the serving engine (smp.serving.ServingEngine) on GPT-2 124M.
+S_SLOTS, S_BLOCKS = 8, 129            # a quarter of full provisioning (1 + 8 x 64 blocks): the burst's
+                                      # first 8 requests reserve 168 blocks, so admission waits
+S_REQUESTS, S_SAMPLED = 16, 4
+S_PROMPT, S_NEW = (32, 512), (16, 128)
+S_SAMPLE_KW = dict(temperature=0.8, top_k=50, top_p=0.95)
+S_MARGIN = 5e-2                       # phase A's bf16 bound, of max |logit| of the row
+
+
+def s_requests(vocab, n=S_REQUESTS, n_sampled=S_SAMPLED, prompt=S_PROMPT, new=S_NEW, seed=SEED, prefix="r"):
+    """A burst of ragged requests drawn from ``seed``, ids ``prefix`` + i:
+    prompt lengths in ``prompt``, ``max_new_tokens`` in ``new``; every (n //
+    n_sampled)-th request is sampled (``S_SAMPLE_KW``, seeds 0, 1, ...), the
+    rest greedy."""
+    from smdistributed_modelparallel_tpu_torch.serving import ServeRequest
+
+    rng = np.random.default_rng(seed)
+    every = n // n_sampled
+    reqs = []
+    for i in range(n):
+        length, max_new = int(rng.integers(prompt[0], prompt[1] + 1)), int(rng.integers(new[0], new[1] + 1))
+        ids = [int(t) for t in rng.integers(0, vocab, length)]
+        kw = dict(S_SAMPLE_KW, seed=i // every) if i % every == every - 1 else {}
+        reqs.append(ServeRequest(f"{prefix}{i}", ids, max_new, **kw))
+    return reqs
+
+
+def s_burst(engine, reqs, sync=None):
+    """Submit ``reqs`` at once and tick ``engine.step()`` from outside until
+    they finish. Returns the results and what the ticks saw: each stream's
+    TTFT and inter-token gaps (its slot's ``t_first_token`` and successive
+    ``t_last_token``, on the engine's clock), the wall seconds, the peak pool
+    blocks used, the ticks in which admission waited on blocks (a free slot,
+    but the next request's worst case does not fit), and the mean ms of the
+    decode and prefill programs (``sync`` waits for the card after a prefill
+    chunk that samples nothing, which does not wait by itself)."""
+    times = {"decode": [], "prefill": []}
+
+    def timed(kind, prog):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = prog(*args, **kw)
+            if sync is not None and out is None:
+                sync()
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return call
+
+    saved = {kind: engine._program(kind) for kind in ("decode", "prefill")}
+    engine._programs = {kind: timed(kind, prog) for kind, prog in saved.items()}
+    slots, last, gaps = {}, {}, []
+    peak = waited = ticks = 0
+    stats0 = dict(engine.stats)
+    try:
+        t0 = time.perf_counter()
+        for req in reqs:
+            engine.submit(req)
+        while engine.busy:
+            front = engine._queue[0] if engine._queue else None
+            if front is not None and None in engine._slots and not engine.alloc.can_reserve(
+                    len(front.prompt) + front.max_new_tokens):
+                waited += 1
+            engine.step()
+            ticks += 1
+            peak = max(peak, engine.alloc.used_blocks)
+            for s in engine._slots:
+                if s is not None:
+                    slots.setdefault(s.sid, s)
+            for rid, s in slots.items():  # at most one new token a slot a tick
+                if s.t_last_token is not None and last.get(rid) != s.t_last_token:
+                    if rid in last:
+                        gaps.append(s.t_last_token - last[rid])
+                    last[rid] = s.t_last_token
+        wall = time.perf_counter() - t0
+    finally:
+        engine._programs = saved
+    return dict(results={r.request_id: engine.results[r.request_id] for r in reqs}, wall=wall, ticks=ticks,
+                peak=peak, waited=waited, stats={k: engine.stats[k] - stats0.get(k, 0) for k in engine.stats},
+                ttft=[s.t_first_token - s.t_arrival for s in slots.values()], itl=gaps,
+                decode_ms=float(np.mean(times["decode"])), prefill_ms=float(np.mean(times["prefill"])))
+
+
+def _pct(values, q):
+    return float(np.percentile(np.asarray(values) * 1e3, q))
+
+
+def s_generate(model, req):
+    """The port's ``smp.generate`` at batch 1 on ``req`` (its sampling and
+    key, as the engine's): the parity oracle and yardstick of a stream."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.utils import random
+
+    kw = {}
+    if req.temperature > 0:
+        kw = dict(temperature=req.temperature, top_k=req.top_k, top_p=req.top_p, rng=random.key(req.seed))
+    out = smp.generate(model, torch.tensor([list(req.prompt)], device=model.device), req.max_new_tokens, **kw)
+    return [int(t) for t in out[0, len(req.prompt):].cpu()]
+
+
+def _s_small_exact():
+    """Gate (b): a small fp32 zoo model (std 0.5, phase A's: vocab 97, 2
+    layers, d 64, 4 heads), learned and rotary, serves 6 ragged requests on
+    the card; the tokens must equal the CPU engine's and the card's
+    ``smp.generate``'s, greedy and sampled, token for token."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2, init_gpt2_weights_
+    from smdistributed_modelparallel_tpu_torch.serving import ServingEngine
+
+    smp.init({})
+    reqs = s_requests(97, n=6, n_sampled=3, prompt=(5, 60), new=(4, 20), seed=SEED + 1)
+    for pos_type in ("learned", "rotary"):
+        small = init_gpt2_weights_(gpt2("gpt2_124m", vocab_size=97, max_len=256, d_model=64, n_layers=2, n_heads=4,
+                                        pos_type=pos_type), torch.Generator().manual_seed(SEED), std=0.5)
+        engine_kw = dict(max_slots=3, num_blocks=25)
+        cpu = ServingEngine(small, params=small.state_dict(), device="cpu", **engine_kw).run(reqs)
+        gpu_model = smp.DistributedModel(small, device="cuda")
+        gpu = ServingEngine(gpu_model, device="cuda", **engine_kw).run(reqs)
+        gen = {r.request_id: s_generate(gpu_model, r) for r in reqs}
+        equal = all(gpu[r.request_id] == cpu[r.request_id] == gen[r.request_id] for r in reqs)
+        log(f"[S] (b) fp32 small model, {pos_type} positions, 6 requests ({sum(r.temperature > 0 for r in reqs)} "
+            f"sampled): card engine == CPU engine == card generate, token for token: {equal}")
+        if not equal:
+            raise RuntimeError(f"(b) the fp32 engine on the card disagrees ({pos_type}): card {gpu}, CPU {cpu}, "
+                               f"generate {gen}")
+
+
+def phase_s():
+    """The serving engine through its public entry points: a burst of ragged
+    requests on GPT-2 124M, against ``smp.generate`` one request at a time."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m, init_gpt2_weights_
+    from smdistributed_modelparallel_tpu_torch.ops.dropout import threefry_bits
+    from smdistributed_modelparallel_tpu_torch.ops.flash_attention import flash_attention
+    from smdistributed_modelparallel_tpu_torch.serving import ServingEngine
+
+    smp.init({"bf16": True})
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    module = init_gpt2_weights_(gpt2_124m(device="cuda"), g)
+    model = smp.DistributedModel(module, device="cuda")
+    engine = ServingEngine(model, max_slots=S_SLOTS, num_blocks=S_BLOCKS)
+    reqs = s_requests(module.vocab_size)
+    sampled = [r.request_id for r in reqs if r.temperature > 0]
+    pool_mib = engine.kv_block_bytes * S_BLOCKS / 2**20
+    log(f"[S] GPT-2 124M bf16, {S_SLOTS} slots, {S_BLOCKS} blocks of {engine.bt} tokens ({pool_mib:.4f} MiB of "
+        f"pools, {engine.kv_block_bytes / 2**20:.4f} MiB a block), chunk {engine.chunk}; {len(reqs)} requests at "
+        f"once, prompts {min(len(r.prompt) for r in reqs)}-{max(len(r.prompt) for r in reqs)}, max_new_tokens "
+        f"{min(r.max_new_tokens for r in reqs)}-{max(r.max_new_tokens for r in reqs)}, {len(sampled)} sampled")
+    # Warm-up (cuBLAS handles, allocator), not counted: two short streams.
+    engine.run(s_requests(module.vocab_size, n=2, n_sampled=1, prompt=(40, 40), new=(4, 4), seed=SEED + 2, prefix="warm"))
+
+    flash_attention.launches = flash_attention.simt_launches = threefry_bits.launches = 0
+    burst = s_burst(engine, reqs, sync=torch.cuda.synchronize)
+    launches = {"flash_fwd": flash_attention.launches, "flash_fwd_simt": flash_attention.simt_launches,
+                "threefry_bits": threefry_bits.launches}
+    results = burst["results"]
+    n_tokens = sum(len(v) for v in results.values())
+    sampled_tokens = sum(len(results[r]) for r in sampled)
+    log(f"[S] burst: {burst['wall'] * 1e3:.2f} ms, {burst['ticks']} ticks, {n_tokens} tokens generated: "
+        f"{n_tokens / burst['wall']:.1f} tokens/s, {len(reqs) / burst['wall']:.3f} requests/s; stats {burst['stats']}")
+    log(f"[S] TTFT p50 {_pct(burst['ttft'], 50):.2f} p90 {_pct(burst['ttft'], 90):.2f} p99 {_pct(burst['ttft'], 99):.2f}"
+        f" ms; ITL p50 {_pct(burst['itl'], 50):.3f} p99 {_pct(burst['itl'], 99):.3f} ms; decode step "
+        f"{burst['decode_ms']:.3f} ms, prefill chunk {burst['prefill_ms']:.3f} ms (means)")
+    log(f"[S] pool: peak {burst['peak']} of {S_BLOCKS - 1} blocks used; admission waited on blocks in "
+        f"{burst['waited']} ticks")
+    # (e) the burst ran the engine's block-gated admission.
+    if not burst["waited"]:
+        raise RuntimeError(f"admission never waited on blocks with {S_BLOCKS} blocks: the pool is not tight")
+    log(f"[S] launches over the burst: {launches}; tokens the {len(sampled)} sampled streams drew: {sampled_tokens}")
+    if launches["flash_fwd"] or launches["flash_fwd_simt"]:
+        raise RuntimeError(f"the engine launched the flash kernel: {launches}")
+    if launches["threefry_bits"] != sampled_tokens:
+        raise RuntimeError(f"threefry_bits launched {launches['threefry_bits']} times, expected {sampled_tokens} "
+                           "(one Gumbel draw a sampled token)")
+    for r in reqs:
+        toks = results[r.request_id]
+        if len(toks) != r.max_new_tokens or min(toks) < 0 or max(toks) >= module.vocab_size:
+            raise RuntimeError(f"{r.request_id}: {len(toks)} tokens (want {r.max_new_tokens}) or out of range")
+
+    # (c) the pool drained.
+    log(f"[S] (c) after the burst: {engine.alloc.used_blocks} blocks used, audit {engine.alloc.check()}")
+    if engine.alloc.used_blocks or engine.alloc.check():
+        raise RuntimeError("the pool did not drain")
+    # (d) the sampled streams repeat from their seeds.
+    again = engine.run([dataclasses.replace(r, request_id=r.request_id + "_again") for r in reqs
+                        if r.request_id in sampled])
+    repeat = all(again[rid + "_again"] == results[rid] for rid in sampled)
+    log(f"[S] (d) sampled streams repeat from their seeds: {repeat}")
+    if not repeat:
+        raise RuntimeError("sampled streams are not reproducible from their seeds")
+
+    # The yardstick: the same requests through smp.generate one at a time.
+    s_generate(model, reqs[0])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = {r.request_id: s_generate(model, r) for r in reqs}
+    gen_s = time.perf_counter() - t0
+    n_gen = sum(len(v) for v in gen.values())
+    log(f"[S] yardstick: smp.generate one request at a time (batch 1): {gen_s * 1e3:.2f} ms, {n_gen / gen_s:.1f} "
+        f"tokens/s; the engine {n_tokens / burst['wall'] / (n_gen / gen_s):.2f}x")
+    greedy = [r for r in reqs if r.temperature == 0]
+    same = sum(results[r.request_id] == gen[r.request_id] for r in greedy)
+    log(f"[S] greedy streams equal to smp.generate's token for token: {same} of {len(greedy)}; sampled: "
+        f"{sum(results[r] == gen[r] for r in sampled)} of {len(sampled)}")
+
+    # (a) every greedy token is within the bf16 margin of its row's maximum,
+    # in one teacher-forced forward on the plain attention path.
+    worst = 0.0
+    with torch.inference_mode():
+        bf16_module = copy.deepcopy(module).to(torch.bfloat16)
+        os.environ["SMP_DISABLE_PALLAS_ATTN"] = "1"
+        try:
+            for r in greedy:
+                toks = results[r.request_id]
+                ids = torch.tensor([list(r.prompt) + toks[:-1]], device="cuda")
+                rows = bf16_module(ids)[0, len(r.prompt) - 1:].float()
+                picked = rows.gather(1, torch.tensor(toks, device="cuda")[:, None])[:, 0]
+                gap = (rows.amax(dim=1) - picked) / rows.abs().amax(dim=1)
+                worst = max(worst, float(gap.max()))
+        finally:
+            del os.environ["SMP_DISABLE_PALLAS_ATTN"]
+    log(f"[S] (a) greedy tokens against a teacher-forced bf16 forward (plain attention): largest gap to the row's "
+        f"maximum {worst:.3e} of max |logit| (limit {S_MARGIN})")
+    if worst > S_MARGIN:
+        raise RuntimeError("a greedy token of the engine lies outside the bf16 margin of its row's maximum")
+    del engine, model, module, bf16_module
+    torch.cuda.empty_cache()
+
+    _s_small_exact()
     smp.reset()
     return launches
 
@@ -2345,7 +2599,8 @@ def _d_seeds():
 
 # threefry_bits against its plain version: (case, n, offset).
 BITS_CASES = (("path mask [2048, 768]", 2048 * 768, 0), ("one element", 1, 0), ("odd size and offset", 1000003, 5),
-              ("offset past 2**32", 1000, 2**32 - 100), ("Gumbel draw [4, 50257]", 4 * 50257, 0))
+              ("offset past 2**32", 1000, 2**32 - 100), ("Gumbel draw [4, 50257]", 4 * 50257, 0),
+              ("serving draw [1, 50257]", 50257, 0))
 DROP_RATES = (0.1, 0.5, 0.0)
 DROP_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 DROP_SHAPES = ((2048, 768), (3, 1001), (4096, 1600), (16384, 1600))  # the paths' (124M, 1.5B), and an odd one
@@ -2359,18 +2614,22 @@ def _bit_view(t):
 def _phase_b_dropout(failures):
     """``threefry_bits`` and the dropout pair against their plain versions,
     bit for bit: the bits under keys from ``key``, ``fold_in`` and ``split``
-    (and one with both words' high bits set) over BITS_CASES; the forward's
+    (and one with both words' high bits set), and under a serving stream's
+    key (``ServingEngine._rng_schedule``), over BITS_CASES; the forward's
     y and mask and the backward's dx in fp32, bf16 and fp16 at DROP_RATES
     over DROP_SHAPES. Returns the
     largest |difference| of each kernel (0.0 when every bit agrees)."""
     from smdistributed_modelparallel_tpu_torch.ops import dropout as dr
+    from smdistributed_modelparallel_tpu_torch.serving import ServeRequest, ServingEngine
     from smdistributed_modelparallel_tpu_torch.utils import random
 
     counters = _dropout_counters()
     saved = {k: fn.launches for k, fn in counters.items()}
     base = random.key(SEED)
     keys = {"key(SEED)": base, "fold_in(., crc32('dropout'))": random.fold_in(base, random._stream_id("dropout")),
-            "split(., 7)[3]": random.split(base, 7)[3], "[0xDEADBEEF, 0x89ABCDEF]": [0xDEADBEEF, 0x89ABCDEF]}
+            "split(., 7)[3]": random.split(base, 7)[3], "[0xDEADBEEF, 0x89ABCDEF]": [0xDEADBEEF, 0x89ABCDEF],
+            # The key of a sampled stream's 6th token (seed 3, 128 new tokens).
+            "serving schedule[5]": ServingEngine._rng_schedule(ServeRequest("k", [0], 128, seed=3))[5]}
     errs = {"threefry_bits": 0.0, "dropout_fwd": 0.0, "dropout_bwd": 0.0}
     for kname, k in keys.items():
         for case, n, offset in BITS_CASES:
@@ -3721,7 +3980,7 @@ def _profile_report(label, prof, wall_ms, top):
 
 
 def phase_p():
-    """Where one greedy ``generate``, one training step, one capacity step
+    """Where one greedy ``generate``, phase S's serving burst, one training step, one capacity step
     (fused CE and materialized logits) and the smp.nn path's steps (fused,
     unfused, fp8, with dropout, and with dropout and checkpointed layers)
     spend their time, by torch.profiler:
@@ -3748,6 +4007,16 @@ def phase_p():
     for new in (1, NEW):
         prof, wall_ms = profiled(lambda: smp.generate(model, prompts, new))
         _profile_report(f"generate B={B} T={T} new={new}", prof, wall_ms, 8)
+
+    from smdistributed_modelparallel_tpu_torch.serving import ServingEngine
+
+    engine = ServingEngine(model, max_slots=S_SLOTS, num_blocks=S_BLOCKS)
+    engine.run(s_requests(50257, n=2, n_sampled=1, prompt=(40, 40), new=(4, 4), seed=SEED + 2, prefix="warm"))  # warm-up
+    reqs = s_requests(50257)
+    prof, wall_ms = profiled(lambda: engine.run(reqs))
+    _profile_report(f"serving engine burst ({len(reqs)} requests, {S_SLOTS} slots, {S_BLOCKS} blocks; phase S)", prof,
+                    wall_ms, 12)
+    del engine
 
     model, optimizer, train_step = _train_setup(init_gpt2_weights_(gpt2_124m(device="cuda"), g),
                                                 TRAIN_MB, True, "cuda")
@@ -3805,7 +4074,7 @@ def phase_p():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, T, F, L, D, M, Q, R, K, B, C (the default, all eleven), P (profiles) and N "
+                        help="phases to run: A, S, T, F, L, D, M, Q, R, K, B, C (the default, all twelve), P (profiles) and N "
              "(phase R's ranks on two cards, over NCCL) and X (GPT-2 1.5B at 16 x 1024 with checkpointing off)")
     parser.add_argument("--k-child", metavar="DIR", help=argparse.SUPPRESS)  # phase K's resumed run
     args = parser.parse_args()
@@ -3829,10 +4098,12 @@ def main():
     build()
     log(f"[time] build {time.perf_counter() - started:.1f} s")
     serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches = {}, {}, {}, {}, {}, {}
-    k_launches, d_launches, m_launches = {}, {}, {}
+    k_launches, d_launches, m_launches, s_launches = {}, {}, {}, {}
     errs = timing = None
     if "A" in args.phases:
         serve_launches = phase_a()
+    if "S" in args.phases:
+        s_launches = phase_s()
     if "T" in args.phases:
         train_launches, _ = phase_t()
     if "F" in args.phases:
@@ -3869,10 +4140,10 @@ def main():
     # context-parallel run (R: both ranks and the cp = 1 run), the
     # checkpointed run (K: before and after the save, the resumed child and
     # the full-checkpoint resume), the dropout run (D: its timed blocks) and
-    # the checkpointed runs (M: every block and every 1.5B run), each counted
-    # from 0 just before it.
+    # the checkpointed runs (M: every block and every 1.5B run) and the
+    # serving engine's burst (S), each counted from 0 just before it.
     paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches, k_launches,
-             d_launches, m_launches)
+             d_launches, m_launches, s_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"

@@ -29,6 +29,8 @@ before the model is built; ``smp.checkpoint`` and
 ``smp.checkpoint_sequential`` for any function), keeping what the
 ``recompute`` config asks for, or sending the layer inputs to pinned host
 memory under ``offload_activations`` (``parallel/memory.py``).
+``smp.serving.ServingEngine`` serves a stream of ragged requests from the
+zoo by continuous batching over a paged KV cache (``serving/``).
 
     import torch
     import smdistributed_modelparallel_tpu_torch as smp
@@ -56,7 +58,7 @@ memory under ``offload_activations`` (``parallel/memory.py``).
     # and optimizer are built.
 """
 
-from smdistributed_modelparallel_tpu_torch import amp, nn, quant
+from smdistributed_modelparallel_tpu_torch import amp, nn, quant, serving
 from smdistributed_modelparallel_tpu_torch.backend.config import ModelParallelConfig
 from smdistributed_modelparallel_tpu_torch.backend.split import StepOutput
 from smdistributed_modelparallel_tpu_torch.backend.state import state
@@ -205,6 +207,7 @@ __all__ = [
     "resume_from_checkpoint",
     "save",
     "save_checkpoint",
+    "serving",
     "set_activation_checkpointing",
     "shard_batches",
     "size",

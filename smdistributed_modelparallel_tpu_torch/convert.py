@@ -28,6 +28,13 @@ random key: the port's key (``utils/random``) is the two uint32 words of
 ``jax.random.key_data``, so the same key gives the same dropout masks and
 sampled tokens in both packages.
 
+``kv_pools_from_jax`` and ``kv_pools_to_jax`` carry the serving engine's
+paged KV pools both ways: the JAX engine's cache tree
+``{"layers": {"block": {"attn": {"pool_key", "pool_value"}}}}``, each leaf
+[n_layers, num_blocks, block_tokens, H, hd] (flax ``nn.scan`` stacks the
+layers), against the port's per-layer ``(key, value)`` pools
+(``ServingEngine.kv_pools()``), bit for bit.
+
 ``params_to_jax`` and ``lm_head_params_to_jax`` are the exact inverses: a
 port ``state_dict`` (or any ``{torch name: tensor}`` of the same names, such
 as AdamW's moments) becomes the '/'-joined flat dict of numpy arrays that the
@@ -297,6 +304,26 @@ def lm_head_params_to_jax(state_dict, num_attention_heads):
             key, arr = _lm_head_leaf_to_jax(name, value, num_attention_heads)
             out[key] = arr
     return _to_jax_arrays(out, layers, "DistributedTransformerLMHead tensor")
+
+
+def kv_pools_from_jax(cache):
+    """The JAX serving engine's cache tree (numpy or JAX arrays) -> a list of
+    ``(key, value)`` CPU tensors, one pair a layer, each [num_blocks,
+    block_tokens, H, hd]."""
+    attn = cache["layers"]["block"]["attn"]
+    keys, values = to_torch(attn["pool_key"]), to_torch(attn["pool_value"])
+    if keys.shape != values.shape or keys.dim() != 5:
+        raise ValueError(f"malformed paged KV cache: pool_key {tuple(keys.shape)}, pool_value {tuple(values.shape)}")
+    return [(keys[i].clone(), values[i].clone()) for i in range(keys.shape[0])]
+
+
+def kv_pools_to_jax(pools):
+    """Per-layer ``(key, value)`` pools -> the JAX serving engine's cache tree
+    of numpy arrays, layers stacked on the leading axis; the inverse of
+    ``kv_pools_from_jax``."""
+    keys = to_numpy(torch.stack([k.detach() for k, _ in pools]))
+    values = to_numpy(torch.stack([v.detach() for _, v in pools]))
+    return {"layers": {"block": {"attn": {"pool_key": keys, "pool_value": values}}}}
 
 
 def quant_state_from_jax(sd):

@@ -49,7 +49,9 @@ def _make_sampler(temperature, top_k, top_p):
         return lambda logits, rng: torch.argmax(logits, dim=-1)
 
     def sample(logits, rng):
-        logits = logits / temperature
+        # A true division, as the JAX package's and the serving engine's: a
+        # Python divisor would multiply by its reciprocal on the card.
+        logits = logits / torch.full((1,), temperature, dtype=logits.dtype, device=logits.device)
         if top_k is not None:
             logits = _top_k_filter(logits, top_k)
         if top_p is not None:

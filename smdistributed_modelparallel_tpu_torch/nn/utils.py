@@ -1,15 +1,19 @@
 """Helpers of the ``smp.nn`` layers: the tp queries, activation sharding,
 the dropout switch, a module's dropout key and the dropout dispatch, the
-fused bias-GELU dispatch, parameter casting and the decode KV cache.
+fused bias-GELU dispatch, parameter casting, the decode KV cache and the
+paged KV cache of the serving engine.
 
 Counterparts on one device of ``smdistributed_modelparallel_tpu/nn/
 utils.py``: ``tp_size``/``tp_enabled``, ``tp_ring_active`` (False until the
 tensor-parallel slice), ``shard_activation`` (the identity: there is no mesh
 to constrain over), ``resolve_deterministic``, ``fused_bias_gelu`` (its
-tp = 1 branch, with the fp8 epilogue input), ``half_cast`` and ``DecodeKVCache``.
+tp = 1 branch, with the fp8 epilogue input), ``half_cast``, ``DecodeKVCache``
+and ``PagedKVCache``.
 ``make_rng`` is flax's ``Module.make_rng`` for the port's modules and
 ``dropout`` flax's ``nn.Dropout`` (``ops/dropout.py``).
 """
+
+import os
 
 import torch
 
@@ -167,3 +171,79 @@ class DecodeKVCache:
         if window is not None:
             keep = keep & (i - cols < window)
         return self.key, self.value, keep[None, None, None, :]
+
+
+class PagedKVCache:
+    """Block-pooled K/V cache of one attention layer, for the serving engine.
+
+    Where ``DecodeKVCache`` gives every sequence a private [B, cache_len, H,
+    hd] buffer, this holds ONE pool of ``num_blocks`` token blocks
+    (``key``/``value``, each [num_blocks, block_tokens, H, hd], in the
+    activation dtype on the model's device) shared by every sequence in
+    flight. The host-side allocator (``serving/kv_cache.BlockAllocator``)
+    hands out blocks and builds each sequence's block table (logical block j
+    lives at pool block ``table[j]``). Pool block 0 is the TRASH block:
+    unused table entries point at it, so inactive decode slots and padded
+    prefill tails write there, and the position-derived mask never attends
+    it.
+
+    Call protocol (the engine's two programs):
+    - decode step: k/v [S, 1, H, hd], one token a slot at ``positions[b]``;
+    - prefill chunk: k/v [B, C, H, hd] written at ``positions[b] + t``;
+      rows ``t >= valid[b]`` are padding and write to the trash block.
+    Both return the gathered table [B, max_blocks * block_tokens, H, hd] and
+    the mask ``col <= positions[b] + t`` ([B, 1, T, S] bool), as the JAX
+    package's ``PagedKVCache.append`` does, so attention takes the plain
+    path there and here.
+    """
+
+    def __init__(self, num_blocks, block_tokens, heads, head_dim, dtype, device):
+        if os.environ.get("SMP_KV_QUANT", "none").strip().lower() == "int8":
+            raise NotImplementedError(
+                "SMP_KV_QUANT=int8 (int8 paged KV pools with per-block scales: quant.kv_pool_dtype, "
+                "kv_quantize_append) is not ported to PyTorch yet (slice 8b)."
+            )
+        shape = (num_blocks, block_tokens, heads, head_dim)
+        self.key = torch.zeros(shape, dtype=dtype, device=device)
+        self.value = torch.zeros(shape, dtype=dtype, device=device)
+        self.num_blocks = num_blocks
+        self.block_tokens = block_tokens
+
+    def append(self, k, v, block_tables, positions, valid=None, window=None):
+        """Write chunk K/V into the pools, in place, and return ``(k_all,
+        v_all, mask)``.
+
+        Args:
+          k, v: [B, T, H, hd] chunk K/V (T = 1 decode, T = chunk prefill).
+          block_tables: [B, max_blocks] integer pool-block ids in sequence
+            order; unused entries 0 (the trash block).
+          positions: [B] absolute position of the chunk's first token.
+          valid: optional [B]; rows ``t >= valid[b]`` are padding.
+          window: optional local-attention band width.
+        """
+        B, T, H, hd = k.shape
+        bt = self.block_tokens
+        max_blocks = block_tables.shape[1]
+        tables = block_tables.long()
+        t = torch.arange(T, device=k.device)
+        pos = positions.long()[:, None] + t[None, :]                        # [B, T]
+        blk = torch.gather(tables, 1, (pos // bt).clamp(0, max_blocks - 1))
+        dest = blk * bt + pos % bt
+        if valid is not None:
+            # Padded chunk tail: into the trash block, at offset t so that a
+            # chunk no wider than a block never writes one slot twice.
+            dest = torch.where(t[None, :] < valid.long()[:, None], dest, (t % bt)[None, :])
+        flat = dest.reshape(-1)
+        pk = self.key.view(self.num_blocks * bt, H, hd)
+        pv = self.value.view(self.num_blocks * bt, H, hd)
+        pk.index_copy_(0, flat, k.reshape(B * T, H, hd))
+        pv.index_copy_(0, flat, v.reshape(B * T, H, hd))
+        # Gather every table slot: the logical position of column j is j.
+        slots = (tables[:, :, None] * bt + torch.arange(bt, device=k.device)[None, None, :]).reshape(B, max_blocks * bt)
+        k_all = pk[slots]                                                   # [B, S, H, hd]
+        v_all = pv[slots]
+        cols = torch.arange(max_blocks * bt, device=k.device)
+        keep = cols[None, None, :] <= pos[:, :, None]                       # [B, T, S]
+        if window is not None:
+            keep = keep & (pos[:, :, None] - cols[None, None, :] < window)
+        return k_all, v_all, keep[:, None, :, :]

@@ -9,7 +9,8 @@ gradients and the final parameters, fp32. The configurations:
   - the zoo ``TransformerLM`` (learned positions, so the shard's position
     offset shows), ring, 2 microbatches, a masked-mean loss whose count
     the ranks weigh (``model.backward(loss, num_tokens=...)``);
-  - the same at 1 microbatch with a plain mean (equal weights);
+  - the same at 1 microbatch with a plain mean (equal weights), and with
+    rotary positions (each rank rotates its shard at the shard's offset);
   - the same as the first under Ulysses;
   - the ``smp.nn`` ``DistributedTransformerLMHead``, ring, 2 microbatches.
 Tolerances: losses 2e-5 relative, gradients 1e-4 of each leaf's largest and
@@ -55,6 +56,7 @@ STEPS, LR = 3, 0.1
 RUNS = [
     ("zoo_ring_mb2_masked", "zoo", "ring", 2, "masked"),
     ("zoo_ring_mb1_mean", "zoo", "ring", 1, "mean"),
+    ("zoo_rotary_ring_mb1_mean", "zoo_rotary", "ring", 1, "mean"),
     ("zoo_ulysses_mb2_masked", "zoo", "ulysses", 2, "masked"),
     ("lmhead_ring_mb2_masked", "lmhead", "ring", 2, "masked"),
 ]
@@ -70,12 +72,14 @@ def _batch():
 
 
 def _jax_module(family):
-    return JaxTransformerLM(**ZOO) if family == "zoo" else jax_tr.DistributedTransformerLMHead(**LMHEAD)
+    if family == "lmhead":
+        return jax_tr.DistributedTransformerLMHead(**LMHEAD)
+    return JaxTransformerLM(**ZOO, pos_type="rotary" if family == "zoo_rotary" else "learned")
 
 
 def _to_port(family, params):
     flat = jax.tree_util.tree_map(np.asarray, jax.device_get(params))
-    return params_from_jax(flat) if family == "zoo" else lm_head_params_from_jax(flat)
+    return lm_head_params_from_jax(flat) if family == "lmhead" else params_from_jax(flat)
 
 
 def _jax_run(family, impl, mb, loss_kind):
@@ -117,7 +121,9 @@ def _port_module(family):
     from smdistributed_modelparallel_tpu_torch.models.transformer_lm import TransformerLM
     from smdistributed_modelparallel_tpu_torch.nn.transformer import DistributedTransformerLMHead
 
-    return TransformerLM(**ZOO) if family == "zoo" else DistributedTransformerLMHead(**LMHEAD)
+    if family == "lmhead":
+        return DistributedTransformerLMHead(**LMHEAD)
+    return TransformerLM(**ZOO, pos_type="rotary" if family == "zoo_rotary" else "learned")
 
 
 def _train_worker(rank, world, runs, inits):

@@ -32,6 +32,8 @@ VARIANTS = {
     "parallel_block": dict(parallel_block=True),
     "untied_head": dict(tie_weights=False),
     "d_ff_ln_eps": dict(d_ff=48, ln_eps=1e-6),
+    "rotary": dict(pos_type="rotary"),
+    "rotary_partial_window": dict(pos_type="rotary", rotary_dim=4, window=5),
 }
 
 
@@ -104,13 +106,13 @@ def test_gpt2_zoo_matches_jax_zoo():
 
 
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError, match="rotary"):
-        TransformerLM(**SMALL, pos_type="rotary")
-    with pytest.raises(NotImplementedError, match="paged"):
-        TransformerLM(**SMALL, paged_blocks=8, paged_block_tokens=16)
-    # Loss mode (tests/test_torch_cross_entropy.py) and training-time dropout
-    # (tests/test_torch_dropout_step.py) are ported.
+    with pytest.raises(ValueError, match="pos_type"):
+        TransformerLM(**SMALL, pos_type="alibi")
+    # Loss mode (tests/test_torch_cross_entropy.py), training-time dropout
+    # (tests/test_torch_dropout_step.py), rotary positions (above) and the
+    # paged clone (tests/test_torch_paged_cache.py) are ported.
     TransformerLM(**SMALL, dropout=0.1, deterministic=False)
+    TransformerLM(**SMALL, pos_type="rotary", paged_blocks=8, paged_block_tokens=16)
 
 
 def test_clone_shares_parameters():
@@ -118,3 +120,15 @@ def test_clone_shares_parameters():
     clone = tmod.clone(decode=True, decode_cache_len=16)
     assert clone.decode and not tmod.decode
     assert clone.wte.weight.data_ptr() == tmod.wte.weight.data_ptr()
+
+
+@pytest.mark.parametrize("variant", ["learned", "rotary"])
+def test_forward_is_trunk_then_head(variant):
+    """``forward`` is ``head(trunk(ids))``: the serving engine's prefill runs
+    the trunk alone on a chunk that samples nothing."""
+    _, _, tmod = _pair(variant)
+    ids = torch.from_numpy(_ids(2, 9)).long()
+    with torch.inference_mode():
+        hidden = tmod.trunk(ids)
+        assert hidden.shape == (2, 9, SMALL["d_model"])
+        torch.testing.assert_close(tmod.head(hidden), tmod(ids), rtol=0, atol=0)
