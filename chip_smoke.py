@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py --phases B # kernel-vs-plain comparisons only
     python3 chip_smoke.py --phases S # the serving engine (continuous batching, paged KV cache) only
+    python3 chip_smoke.py --phases G # generation through the smp.nn LM head and int8 serving only
     python3 chip_smoke.py --phases T # the training path only
     python3 chip_smoke.py --phases F # the capacity path (fused cross-entropy) only
     python3 chip_smoke.py --phases L # the smp.nn path (fused QKV, fused bias-GELU) only
@@ -47,6 +48,32 @@ csrc`` (one nvcc per source, all started together), then:
      requests with the same tokens on the card, on the CPU and through the
      card's ``smp.generate``; (c) the pool drained; (d) the sampled streams
      repeat from their seeds; (e) admission waited on blocks in some tick.
+  G. generation through ``smp.nn.DistributedTransformerLMHead`` (GPT-2 124M
+     widths as phase L, ``fused_bias_gelu=True``, ``fused_qkv: True``, bf16,
+     random weights from the seed): G1, 4 prompts of 64-512 tokens drawn from
+     the seed, left-padded with ``attention_mask``, 32 new tokens greedy and
+     sampled (phase A's filters, a key from the seed): prefill ms, decode
+     ms/token, tokens/s, and 12 ``flash_fwd`` launches a prefill (the key-
+     padding bias), 12 ``matmul_bias`` and 12 ``bias_gelu_fwd`` a forward call
+     (decode steps at N = 4 rows); G2, 2 prompts of 128 tokens, 4 beams, 2
+     returned, 32 new tokens, without EOS and with the EOS-free beams' most
+     frequent token as EOS: ms/token and each returned beam's teacher-forced fp32
+     log-prob sum beside the greedy continuation's (reported); G3, G1's
+     prompts under ``SMP_SHAPE_BUCKETS="seq:64,128,256,512"`` with 20 new
+     tokens (64 steps run); G4, G1's greedy under ``SMP_DECODE_WEIGHTS=int8``,
+     then phase S's burst through the zoo engine under both int8 knobs:
+     tokens/s, TTFT and ITL beside phase S's bf16 burst of the same call, the
+     pools' MiB, the greedy tokens' agreement with the bf16 burst. Gates: (a)
+     every greedy token of G1, G3 and the int8 runs within 5e-2 of max |logit|
+     of its row's maximum in a teacher-forced forward on the plain attention
+     path (fake-quantized weights for int8; for the burst a one-slot paged
+     forward through the int8 pools); (b) small fp32 smp.nn heads (learned and
+     NeoX rotary, std 0.5) give the CPU's tokens with padded prompts, beams
+     with and without EOS, buckets and int8 weights, a padded row its prompt's
+     alone, the small zoo engine under int8 weights ``smp.generate``'s tokens
+     under them and under both int8 knobs the CPU engine's (its agreement with
+     generate reported: the int8 pools round K and V); (c) sampled G1 and the
+     beams repeat; (d) no launch of G1-G4 on a CUDA-core route.
   T. the training path: ``@smp.step`` + ``smp.DistributedOptimizer`` on
      GPT-2 124M at full width with random weights from a seed, bf16, batch
      8 x 1024 tokens in 4 microbatches, AdamW(1e-4), loss mode,
@@ -194,7 +221,9 @@ csrc`` (one nvcc per source, all started together), then:
      training shape with the seeds phase D's first step derives. Phase M's
      GPT-2 1.5B microbatches (4 and 16 x 1024) have their own cases: flash
      at 25 heads of 64 with dropout 0.1, ``matmul_bias`` at N 4096 and 16384
-     (D 1600, F 4800), bias-GELU at [N, 6400], dropout at [N, 1600].
+     (D 1600, F 4800), bias-GELU at [N, 6400], dropout at [N, 1600]; phase
+     G's decode step too: ``matmul_bias`` at N 4 and 8 (D 768, F 2304) and
+     bias-GELU at [4, 3072] and [8, 3072].
   C. times: kernel, plain version and the one PyTorch library call that
      computes the same function; and the bound (the least time the card
      could take for the same work; the ids-mode kernels against SDPA with
@@ -213,12 +242,15 @@ csrc`` (one nvcc per source, all started together), then:
      plain versions and ``F.dropout`` (Philox: other bits, the same bytes);
      ``threefry_bits`` at phase A's Gumbel draw. Their bound takes the
      instructions of each kernel's compiled loop (cuobjdump) on its busiest
-     pipe (PIPE_LANES).
+     pipe (PIPE_LANES). ``matmul_bias`` and ``bias_gelu_fwd`` also at phase
+     G's decode shapes (N 4 and 8), with ``torch.addmm`` and ``F.gelu(x +
+     b)`` (the kernels line's ``decode_n4``/``decode_n8``).
   N. (on request, on a machine with two cards) phase R with the ranks on
      cuda:0 and cuda:1, which then talk over NCCL.
   P. (on request) torch.profiler breakdowns of a generate, phase S's burst, a training step,
-     a capacity step (fused and materialized) and the smp.nn path's fused,
-     unfused, fp8, dropout and checkpointed dropout steps:
+     a capacity step (fused and materialized), the smp.nn path's fused,
+     unfused, fp8, dropout and checkpointed dropout steps and phase G's smp.nn
+     generate (prefill and 32 new tokens):
      device time by kernel and the device's idle share.
   X. (on request) GPT-2 1.5B at 16 x 1024 with checkpointing off, phase M's
      model and step: its peak, or the allocation that fails.
@@ -269,7 +301,7 @@ _ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "PRMT")
 _FP32_OPS = ("FFMA", "FADD", "FMUL")
 
 KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8", "dropout"]
-DEFAULT_PHASES = "ASTFLDMQRKBC"
+DEFAULT_PHASES = "ASGTFLDMQRKBC"
 SEED = 1234
 
 
@@ -697,6 +729,7 @@ def phase_s():
     launches = {"flash_fwd": flash_attention.launches, "flash_fwd_simt": flash_attention.simt_launches,
                 "threefry_bits": threefry_bits.launches}
     results = burst["results"]
+    _S_BF16.update(numbers=_g_burst_numbers(burst, len(reqs)), results=results, pool_mib=pool_mib)  # for phase G
     n_tokens = sum(len(v) for v in results.values())
     sampled_tokens = sum(len(results[r]) for r in sampled)
     log(f"[S] burst: {burst['wall'] * 1e3:.2f} ms, {burst['ticks']} ticks, {n_tokens} tokens generated: "
@@ -772,6 +805,379 @@ def phase_s():
     _s_small_exact()
     smp.reset()
     return launches
+
+
+# Phase G: generation through the smp.nn LM head (padded prompts, beams,
+# decode-length buckets, int8 weights) and the int8 serving engine.
+G_B, G_PROMPT, G_NEW = 4, (64, 512), 32
+G_SAMPLE_KW = dict(temperature=0.8, top_k=50, top_p=0.95)
+G_BEAM_B, G_BEAM_T, G_BEAMS, G_RETURN = 2, 128, 4, 2
+G_BUCKETS, G_BUCKET_NEW = "seq:64,128,256,512", 20
+G_SMALL = dict(num_layers=2, num_attention_heads=4, attention_head_size=16, hidden_size=64, intermediate_size=256,
+               vocab_size=97, num_positions=256, causal_mask_size=256, attention_dropout_prob=0.0,
+               hidden_dropout_prob=0.0, embedding_dropout_prob=0.0)
+G_SMALL_ROTARY = dict(use_positional_embedding=False, rotary_dim=16, gpt_neox_type_rotary=True, pre_layernorm=True,
+                      post_layernorm=False, final_layernorm=True)
+_S_BF16 = {}  # phase S's bf16 burst (its numbers and tokens), for phase G's int8 burst in the same call
+
+
+def _timed(fn):
+    """(fn(), wall ms) with the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Environment variables set (or, None, unset) for the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def g_prompts(vocab, n=G_B, lengths=G_PROMPT, seed=SEED, device="cuda"):
+    """``n`` prompts of lengths drawn from ``lengths`` by ``seed``, LEFT-padded
+    with 0 to the longest: (ids [n, T], mask [n, T] int, the unpadded prompts
+    as lists)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lengths[0], lengths[1] + 1, n)
+    rows = [[int(t) for t in rng.integers(1, vocab, int(L))] for L in lens]
+    T = int(max(lens))
+    ids = torch.tensor([[0] * (T - len(r)) + r for r in rows], device=device)
+    mask = torch.tensor([[0] * (T - len(r)) + [1] * len(r) for r in rows], device=device)
+    return ids, mask, rows
+
+
+def _g_counters():
+    return {**{"flash_fwd": _flash_counters()["flash_fwd"]}, **_new_counters(), **_simt_counters()}
+
+
+def _g_launches(counters):
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def _g_margin(forward, rows):
+    """Largest gap of a greedy token to its row's maximum, as a share of the
+    row's max |logit|, in teacher-forced logits: ``forward(ids [1, L])`` ->
+    [L, V] on each unpadded prompt + its tokens."""
+    worst = 0.0
+    with torch.inference_mode(), _env(SMP_DISABLE_PALLAS_ATTN="1"):
+        for prompt, toks in rows:
+            ids = torch.tensor([list(prompt) + list(toks[:-1])], device="cuda")
+            logits = forward(ids)[len(prompt) - 1:].float()
+            picked = logits.gather(1, torch.tensor(list(toks), device="cuda")[:, None])[:, 0]
+            worst = max(worst, float(((logits.amax(dim=1) - picked) / logits.abs().amax(dim=1)).max()))
+    return worst
+
+
+def _g_rows(prompts, out, T, new):
+    return [(p, [int(t) for t in out[i, T:T + new].tolist()]) for i, p in enumerate(prompts)]
+
+
+def _g_logprob(module32, prompt, toks, eos):
+    """Teacher-forced fp32 log-prob sum of ``toks`` after ``prompt`` (up to
+    and including the first EOS)."""
+    toks = list(toks)
+    if eos is not None and eos in toks:
+        toks = toks[:toks.index(eos) + 1]
+    ids = torch.tensor([list(prompt) + toks[:-1]], device="cuda")
+    with torch.inference_mode():
+        lp = torch.log_softmax(module32(ids)[0, len(prompt) - 1:].float(), dim=-1)
+    return float(lp.gather(1, torch.tensor(toks, device="cuda")[:, None]).sum())
+
+
+def _g_engine_margin(model, results, reqs):
+    """Gate (a) for the int8 burst: each greedy stream teacher-forced through
+    a one-slot paged engine under both knobs (int8 weights dequantized, its
+    K/V through the int8 pools, one chunk, the plain attention path)."""
+    from smdistributed_modelparallel_tpu_torch.serving import ServingEngine
+
+    yard = ServingEngine(model, max_slots=1, num_blocks=1 + 64)
+    mb = yard.max_blocks_per_seq
+
+    def forward(ids):
+        L = ids.shape[1]
+        yard._init_cache()
+        nblk = -(-L // yard.bt)
+        table = torch.zeros((1, mb), dtype=torch.long, device="cuda")
+        table[0, :nblk] = torch.arange(1, nblk + 1, device="cuda")
+        paged = {"block_tables": table, "positions": torch.zeros(1, dtype=torch.long, device="cuda"),
+                 "valid": torch.full((1,), L, dtype=torch.long, device="cuda")}
+        return yard._run(ids, paged)[0]
+
+    return _g_margin(forward, [(r.prompt, results[r.request_id]) for r in reqs if r.temperature == 0])
+
+
+def _g_small_exact():
+    """Gate (b): small fp32 smp.nn heads (std 0.5, learned and NeoX rotary)
+    generate the same tokens on the card as on the CPU with padded prompts,
+    beams (with and without EOS), buckets and int8 weights; a padded row
+    equals its unpadded prompt alone; the small zoo engine under int8 weights
+    gives ``smp.generate``'s tokens under them, and under both int8 knobs the
+    CPU engine's."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2, init_gpt2_weights_
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+    from smdistributed_modelparallel_tpu_torch.serving import ServingEngine
+
+    smp.init({})
+    ids, mask, rows = g_prompts(97, n=3, lengths=(12, 60), seed=SEED + 3, device="cpu")
+    T = ids.shape[1]
+    failures = []
+    for pos, extra in (("learned", {}), ("neox", G_SMALL_ROTARY)):
+        small = init_weights_(smp.nn.DistributedTransformerLMHead(**G_SMALL, **extra), 0.5,
+                              torch.Generator().manual_seed(SEED))
+        cpu = smp.DistributedModel(copy.deepcopy(small), device="cpu")
+        gpu = smp.DistributedModel(small, device="cuda")
+        eos = int(smp.generate(cpu, ids, 8, attention_mask=mask)[0, T + 2])
+        runs = {
+            "padded": dict(attention_mask=mask),
+            "beams": dict(attention_mask=mask, num_beams=4, num_return_sequences=2),
+            "beams_eos": dict(attention_mask=mask, num_beams=4, num_return_sequences=2, eos_token_id=eos,
+                              length_penalty=0.6),
+        }
+        for name, kw in runs.items():
+            a, b = smp.generate(gpu, ids.cuda(), 8, **kw).cpu(), smp.generate(cpu, ids, 8, **kw)
+            log(f"[G] (b) fp32 small head, {pos}, {name}: card == CPU {torch.equal(a, b)}")
+            if not torch.equal(a, b):
+                failures.append(f"{pos}/{name}")
+        for name, env in (("buckets", dict(SMP_SHAPE_BUCKETS="seq:16,32,64")), ("int8", dict(SMP_DECODE_WEIGHTS="int8"))):
+            with _env(**env):
+                a, b = smp.generate(gpu, ids.cuda(), 10, attention_mask=mask).cpu(), smp.generate(
+                    cpu, ids, 10, attention_mask=mask)
+            log(f"[G] (b) fp32 small head, {pos}, {name}: card == CPU {torch.equal(a, b)}")
+            if not torch.equal(a, b):
+                failures.append(f"{pos}/{name}")
+        padded = smp.generate(gpu, ids.cuda(), 8, attention_mask=mask).cpu()
+        alone = [smp.generate(gpu, torch.tensor([r], device="cuda"), 8).cpu()[0, len(r):] for r in rows]
+        same = all(torch.equal(padded[i, T:], alone[i]) for i in range(len(rows)))
+        log(f"[G] (b) fp32 small head, {pos}: each padded row equals its prompt generated alone: {same}")
+        if not same:
+            failures.append(f"{pos}/padded_row")
+    # The small zoo engine: under int8 weights it runs generate's values, so
+    # its greedy streams equal smp.generate's under the knob; under both knobs
+    # the int8 pools round K and V (generate keeps them exact), so the card's
+    # engine is held to the CPU's and its agreement with generate reported.
+    zoo = init_gpt2_weights_(gpt2("gpt2_124m", vocab_size=97, max_len=256, d_model=64, n_layers=2, n_heads=4),
+                             torch.Generator().manual_seed(SEED), std=0.5)
+    cpu_zoo = smp.DistributedModel(copy.deepcopy(zoo), device="cpu")
+    gpu_zoo = smp.DistributedModel(zoo, device="cuda")
+    reqs = [r for r in s_requests(97, n=6, n_sampled=3, prompt=(5, 60), new=(4, 20), seed=SEED + 1)
+            if r.temperature == 0]
+    with _env(SMP_DECODE_WEIGHTS="int8"):
+        served = ServingEngine(gpu_zoo, max_slots=3, num_blocks=25).run(reqs)
+        gen = {r.request_id: s_generate(gpu_zoo, r) for r in reqs}
+    same = all(served[r.request_id] == gen[r.request_id] for r in reqs)
+    with _env(SMP_DECODE_WEIGHTS="int8", SMP_KV_QUANT="int8"):
+        both = ServingEngine(gpu_zoo, max_slots=3, num_blocks=25).run(reqs)
+        both_cpu = ServingEngine(cpu_zoo, max_slots=3, num_blocks=25, device="cpu").run(reqs)
+    card_cpu = both == both_cpu
+    agree = sum(both[r.request_id] == gen[r.request_id] for r in reqs)
+    log(f"[G] (b) small zoo engine, {len(reqs)} greedy requests: under SMP_DECODE_WEIGHTS=int8 equal to smp.generate "
+        f"under it: {same}; under both int8 knobs card == CPU: {card_cpu}, streams equal to generate's (reported: "
+        f"the int8 pools round K and V): {agree} of {len(reqs)}")
+    if not same:
+        failures.append("zoo_engine_int8_weights")
+    if not card_cpu:
+        failures.append("zoo_engine_int8_kv")
+    if failures:
+        raise RuntimeError(f"(b) the card disagrees with the CPU (or the engine with generate): {failures}")
+
+
+def _g_burst_numbers(burst, n_reqs):
+    results = burst["results"]
+    n_tokens = sum(len(v) for v in results.values())
+    return dict(tokens_per_s=n_tokens / burst["wall"], requests_per_s=n_reqs / burst["wall"], wall_ms=burst["wall"] * 1e3,
+                ttft_p50=_pct(burst["ttft"], 50), ttft_p99=_pct(burst["ttft"], 99), itl_p50=_pct(burst["itl"], 50),
+                itl_p99=_pct(burst["itl"], 99), decode_ms=burst["decode_ms"], prefill_ms=burst["prefill_ms"])
+
+
+def _g_fmt(n):
+    return (f"{n['tokens_per_s']:.1f} tokens/s, {n['requests_per_s']:.3f} requests/s, TTFT p50 {n['ttft_p50']:.2f} p99 "
+            f"{n['ttft_p99']:.2f} ms, ITL p50 {n['itl_p50']:.3f} p99 {n['itl_p99']:.3f} ms, decode step "
+            f"{n['decode_ms']:.3f} ms, prefill chunk {n['prefill_ms']:.3f} ms")
+
+
+def phase_g():
+    """Generation through the smp.nn LM head on the card: GPT-2 124M at full
+    width, padded prompts (G1), beams (G2), decode-length buckets (G3) and
+    int8 weights, then phase S's burst through the engine under both int8
+    knobs (G4); gates (a) to (d)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch import quant
+    from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m, init_gpt2_weights_
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+    from smdistributed_modelparallel_tpu_torch.nn.utils import half_cast
+    from smdistributed_modelparallel_tpu_torch.serving import ServingEngine
+    from smdistributed_modelparallel_tpu_torch.utils import random
+
+    smp.init({"bf16": True, "fused_qkv": True})
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    module = init_weights_(smp.nn.DistributedTransformerLMHead(**LM_CFG, fused_bias_gelu=True, device="cuda"),
+                           LM_CFG["initializer_range"], g)
+    model = smp.DistributedModel(module, device="cuda")
+    V = LM_CFG["vocab_size"]
+    ids, mask, prompts = g_prompts(V)
+    B, T = ids.shape
+    n_layers = LM_CFG["num_layers"]
+    log(f"[G] smp.nn GPT-2 124M bf16 (fused_qkv, fused_bias_gelu), {B} prompts of {[len(p) for p in prompts]} tokens "
+        f"left-padded to {T}, {G_NEW} new tokens")
+    smp.generate(model, ids, 2, attention_mask=mask)  # warm-up, not counted
+    counters = _g_counters()
+    for fn in counters.values():
+        fn.launches = 0
+
+    # G1: the padded batch, greedy then sampled.
+    _, prefill_ms = _timed(lambda: smp.generate(model, ids, 1, attention_mask=mask))
+    greedy, greedy_ms = _timed(lambda: smp.generate(model, ids, G_NEW, attention_mask=mask))
+    key = random.key(SEED)
+    sampled, sampled_ms = _timed(lambda: smp.generate(model, ids, G_NEW, attention_mask=mask, rng=key, **G_SAMPLE_KW))
+    g1 = _g_launches(counters)
+    decode_ms = (greedy_ms - prefill_ms) / (G_NEW - 1)
+    log(f"[G] G1 prefill (1 new token) {prefill_ms:.2f} ms; greedy {G_NEW} tokens {greedy_ms:.2f} ms: decode "
+        f"{decode_ms:.3f} ms/token, {B * G_NEW / greedy_ms * 1e3:.1f} tokens/s; sampled {sampled_ms:.2f} ms "
+        f"({(sampled_ms - prefill_ms) / (G_NEW - 1):.3f} ms/token)")
+    forwards = 1 + 2 * G_NEW  # forward calls of the three generates
+    log(f"[G] G1 launches over 3 prefills and {forwards} forward calls: {g1}")
+    want = {"flash_fwd": 3 * n_layers, "matmul_bias": forwards * n_layers, "bias_gelu_fwd": forwards * n_layers}
+    if any(g1[k] != n for k, n in want.items()):
+        raise RuntimeError(f"G1 launched {g1}, expected {want}")
+    again = smp.generate(model, ids, G_NEW, attention_mask=mask, rng=key, **G_SAMPLE_KW)
+    repeat_sampled = torch.equal(again, sampled)
+    for name, out in (("greedy", greedy), ("sampled", sampled)):
+        if out.shape != (B, T + G_NEW) or not torch.equal(out[:, :T], ids) or int(out.min()) < 0 or int(
+                out.max()) >= V:
+            raise RuntimeError(f"G1 {name} output malformed: {tuple(out.shape)}")
+
+    # G2: beams, without EOS, then with an EOS the beams emit, so that the
+    # finished store fills: the most frequent token of the EOS-free beams
+    # (with random weights G1's most frequent greedy token need not show in
+    # them at all). Each run twice: the repeat gate.
+    bids = torch.tensor(np.random.default_rng(SEED + 7).integers(1, V, (G_BEAM_B, G_BEAM_T)), device="cuda")
+    beam_kw = dict(num_beams=G_BEAMS, num_return_sequences=G_RETURN, length_penalty=1.0)
+    smp.generate(model, bids, 2, **beam_kw)  # warm-up
+    for fn in counters.values():
+        fn.launches = 0
+    beams, beam_ms = _timed(lambda: smp.generate(model, bids, G_NEW, **beam_kw))
+    eos = int(torch.bincount(beams[..., G_BEAM_T:].reshape(-1).cpu()).argmax())
+    beams_eos, beam_eos_ms = _timed(lambda: smp.generate(model, bids, G_NEW, eos_token_id=eos, **beam_kw))
+    g2 = _g_launches(counters)
+    repeat_beams = torch.equal(smp.generate(model, bids, G_NEW, **beam_kw), beams)
+    repeat_beams = repeat_beams and torch.equal(smp.generate(model, bids, G_NEW, eos_token_id=eos, **beam_kw),
+                                                beams_eos)
+    finished = int((beams_eos[..., G_BEAM_T:] == eos).any(dim=-1).sum())
+    log(f"[G] G2 beams ({G_BEAM_B} prompts of {G_BEAM_T}, {G_BEAMS} beams, {G_RETURN} returned, {G_NEW} new): "
+        f"{beam_ms / G_NEW:.3f} ms/token without EOS, {beam_eos_ms / G_NEW:.3f} with EOS {eos} ({finished} of "
+        f"{G_BEAM_B * G_RETURN} returned hypotheses end in it); launches {g2}")
+    module32 = copy.deepcopy(module)
+    bgreedy = smp.generate(model, bids, G_NEW)
+    for label, out, e in (("no EOS", beams, None), ("EOS", beams_eos, eos)):
+        for b in range(G_BEAM_B):
+            p = bids[b].tolist()
+            scores = [_g_logprob(module32, p, out[b, r, G_BEAM_T:].tolist(), e) for r in range(G_RETURN)]
+            ref = _g_logprob(module32, p, bgreedy[b, G_BEAM_T:].tolist(), None)
+            log(f"[G] G2 {label}, prompt {b}: returned beams' fp32 log-prob sums "
+                f"{', '.join(f'{s:.4f}' for s in scores)}; greedy {ref:.4f}")
+    del module32
+
+    # G3: decode-length buckets on G1's prompts.
+    for fn in counters.values():
+        fn.launches = 0
+    with _env(SMP_SHAPE_BUCKETS=G_BUCKETS):
+        smp.generate(model, ids, G_BUCKET_NEW, attention_mask=mask)  # warm-up at the bucketed shapes
+        bucketed, bucket_ms = _timed(lambda: smp.generate(model, ids, G_BUCKET_NEW, attention_mask=mask))
+    g3 = _g_launches(counters)
+    n = min(G_NEW, G_BUCKET_NEW)
+    agree = float((bucketed[:, T:T + n] == greedy[:, T:T + n]).float().mean())
+    log(f"[G] G3 SMP_SHAPE_BUCKETS={G_BUCKETS!r}, max_new_tokens {G_BUCKET_NEW} (runs 64 steps on prompts left-padded "
+        f"to 512): {bucket_ms:.2f} ms a generate (2 of them: {g3}); tokens equal to G1's greedy: {agree:.3f}")
+
+    # G4: G1's greedy under int8 weights.
+    for fn in counters.values():
+        fn.launches = 0
+    with _env(SMP_DECODE_WEIGHTS="int8"):
+        int8_out, int8_ms = _timed(lambda: smp.generate(model, ids, G_NEW, attention_mask=mask))
+    g4 = _g_launches(counters)
+    agree8 = float((int8_out[:, T:] == greedy[:, T:]).float().mean())
+    log(f"[G] G4 SMP_DECODE_WEIGHTS=int8 greedy: {int8_ms:.2f} ms (the fake-quant of the weights included); tokens "
+        f"equal to bf16's: {agree8:.3f}; launches {g4}")
+
+    # (a) the bf16 margin on G1's, G3's and the int8 greedy tokens.
+    bf16_module = copy.deepcopy(module).to(torch.bfloat16)
+    margins = {"G1": _g_margin(lambda x: bf16_module(x)[0], _g_rows(prompts, greedy, T, G_NEW)),
+               "G3": _g_margin(lambda x: bf16_module(x)[0], _g_rows(prompts, bucketed, T, G_BUCKET_NEW))}
+    fq = half_cast(quant.fake_quant_decode_params(module.state_dict(), module), torch.bfloat16)
+    bf16_module.load_state_dict(fq)
+    margins["G4 int8 weights"] = _g_margin(lambda x: bf16_module(x)[0], _g_rows(prompts, int8_out, T, G_NEW))
+    del bf16_module, model, module
+    torch.cuda.empty_cache()
+
+    # G4: phase S's burst through the zoo engine under both int8 knobs.
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    zoo = smp.DistributedModel(init_gpt2_weights_(gpt2_124m(device="cuda"), g), device="cuda")
+    reqs = s_requests(zoo.module.vocab_size)
+    warm = s_requests(zoo.module.vocab_size, n=2, n_sampled=1, prompt=(40, 40), new=(4, 4), seed=SEED + 2, prefix="warm")
+    if not _S_BF16:  # phase S did not run in this call: its bf16 burst here
+        engine = ServingEngine(zoo, max_slots=S_SLOTS, num_blocks=S_BLOCKS)
+        engine.run(warm)
+        burst = s_burst(engine, reqs, sync=torch.cuda.synchronize)
+        _S_BF16.update(numbers=_g_burst_numbers(burst, len(reqs)), results=burst["results"],
+                       pool_mib=engine.kv_block_bytes * S_BLOCKS / 2**20)
+        del engine
+    with _env(SMP_DECODE_WEIGHTS="int8", SMP_KV_QUANT="int8"):
+        engine = ServingEngine(zoo, max_slots=S_SLOTS, num_blocks=S_BLOCKS)
+        engine.run(warm)
+        for fn in counters.values():
+            fn.launches = 0
+        burst = s_burst(engine, reqs, sync=torch.cuda.synchronize)
+        g4_burst = _g_launches(counters)
+        numbers = _g_burst_numbers(burst, len(reqs))
+        pool_mib = engine.kv_block_bytes * S_BLOCKS / 2**20
+        greedy_reqs = [r for r in reqs if r.temperature == 0]
+        pairs = [(a, b) for r in greedy_reqs for a, b in zip(burst["results"][r.request_id],
+                                                           _S_BF16["results"][r.request_id])]
+        agree_burst = sum(a == b for a, b in pairs) / len(pairs)
+        streams = sum(burst["results"][r.request_id] == _S_BF16["results"][r.request_id] for r in greedy_reqs)
+        del engine
+        torch.cuda.empty_cache()
+        margins["G4 int8 burst"] = _g_engine_margin(zoo, burst["results"], reqs)
+    log(f"[G] G4 burst, {len(reqs)} requests, {S_SLOTS} slots, {S_BLOCKS} blocks, both int8 knobs: {_g_fmt(numbers)}")
+    log(f"[G] G4 burst, bf16 (phase S's, this call):                 {_g_fmt(_S_BF16['numbers'])}")
+    log(f"[G] G4 pools {pool_mib:.4f} MiB int8 with scales against {_S_BF16['pool_mib']:.4f} MiB bf16; greedy tokens "
+        f"equal to the bf16 burst's: {agree_burst:.3f} of {len(pairs)} ({streams} of {len(greedy_reqs)} streams); "
+        f"launches over the burst {g4_burst}")
+    log(f"[G] (a) largest gap of a greedy token to its row's maximum, of max |logit|: "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in margins.items())} (limit {S_MARGIN})")
+    if any(v > S_MARGIN for v in margins.values()):
+        raise RuntimeError(f"(a) a greedy token lies outside the bf16 margin: {margins}")
+
+    # (c) repeats; (d) no CUDA-core route anywhere in G1-G4.
+    log(f"[G] (c) sampled G1 repeats from its key: {repeat_sampled}; beams repeat: {repeat_beams}")
+    if not (repeat_sampled and repeat_beams):
+        raise RuntimeError("(c) sampled tokens or beams do not repeat from the same inputs")
+    total = {k: g1[k] + g2[k] + g3[k] + g4[k] + g4_burst[k] for k in g1}
+    _check_route("(d) phase G", total)
+    log(f"[G] (d) launches over G1-G4, none on a CUDA-core route: {total}")
+    del zoo
+    torch.cuda.empty_cache()
+
+    _g_small_exact()
+    smp.reset()
+    return total
 
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB = 8, 1024, 4
@@ -2826,6 +3232,7 @@ MB_CASES = [
     ("qkv_path_n2047", 2047, 768, 2304, {}),
     ("xl_qkv_n4096", 4096, 1600, 4800, {}),  # phase M's GPT-2 1.5B microbatches
     ("xl_qkv_n16384", 16384, 1600, 4800, {}),
+    ("decode_n4", 4, 768, 2304, {}),  # phase G's decode step (few_rows_n8: 8 rows)
 ]
 # (name, N, F, kwargs) of the bias_gelu kernels: the MLP epilogue of the
 # smp.nn path, few rows, ragged N and F (F % 8 != 0: the "simt" route),
@@ -2843,6 +3250,7 @@ GELU_CASES = [
     ("fp32_bias", 2048, 3072, dict(b_dtype=torch.float32)),
     ("xl_mlp_n4096", 4096, 6400, {}),  # phase M's GPT-2 1.5B microbatches
     ("xl_mlp_n16384", 16384, 6400, {}),
+    ("decode_n4", 4, 3072, {}),  # phase G's decode step (few_rows_n8: 8 rows)
 ]
 GELU_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 GELU_COPIES = 6  # input sets timed in turn at the path's shape: 151 MB of x, b and g, 3x the L2
@@ -3879,6 +4287,31 @@ def _phase_c_new():
             f"{simt_ms:.4f} / {simt_cold_ms:.4f}{extra}, library ({what}) {library_ms:.4f} / {library_cold_ms:.4f}; "
             f"plain {plain_ms:.4f}; the wrapper eager {eager_ms:.4f} (CUDA events); bound {bound_ms:.4f} ms by "
             f"{bound_by} ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+    # Phase G's decode step: the fused QKV and the MLP epilogue at N = 4 (its
+    # batch) and 8 rows, bf16, the wrapper, its plain version and the library
+    # call by graph replay. The bound is the bytes' (the weight dominates).
+    for N in (4, 8):
+        D, Fo = 768, 2304
+        x, w, b = mb_inputs(N, D, Fo, dtype, gen, {})
+        nbytes, flops = (N * D + Fo * D + Fo + N * Fo) * esz, 2 * N * D * Fo
+        bound_ms, bound_by = _bound(nbytes, flops, dtype)
+        mbt = dict(ms=cuda_graph_time_ms(lambda: matmul_bias_fwd(x, w, b)),
+                   plain_ms=cuda_graph_time_ms(lambda: reference_matmul_bias(x, w, b)),
+                   library_ms=cuda_graph_time_ms(lambda: torch.addmm(b, x, w.t())), bound_ms=bound_ms,
+                   bound_by=bound_by, route=mb._route(dtype, D, x.data_ptr(), w.data_ptr()))
+        out["matmul_bias"][f"decode_n{N}"] = mbt
+        Fo = 3072
+        xg, bgl, _ = gelu_inputs(N, Fo, dtype, gen, {})
+        bound_ms, bound_by = _bound(2 * N * Fo * esz + Fo * esz, 10 * N * Fo, torch.float32)
+        bgt = dict(ms=cuda_graph_time_ms(lambda: bg.bias_gelu_fwd(xg, bgl)),
+                   plain_ms=cuda_graph_time_ms(lambda: bg.reference_bias_gelu(xg, bgl)),
+                   library_ms=cuda_graph_time_ms(lambda: gelu(xg, bgl)), bound_ms=bound_ms, bound_by=bound_by,
+                   route=bg._route(dtype, Fo, xg.data_ptr()))
+        out["bias_gelu_fwd"][f"decode_n{N}"] = bgt
+        for name, t, shape in (("matmul_bias", mbt, f"N={N} D=768 F=2304"), ("bias_gelu_fwd", bgt, f"[{N}, 3072]")):
+            log(f"[C] {name} at phase G's decode shape {shape} bf16, graph replay: the wrapper ({t['route']}) "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}; bound {t['bound_ms']:.6f} "
+                f"ms by {t['bound_by']}")
     for k, fn in counters.items():
         fn.launches = saved[k]  # timing launches do not count
     return out
@@ -3981,9 +4414,9 @@ def _profile_report(label, prof, wall_ms, top):
 
 def phase_p():
     """Where one greedy ``generate``, phase S's serving burst, one training step, one capacity step
-    (fused CE and materialized logits) and the smp.nn path's steps (fused,
-    unfused, fp8, with dropout, and with dropout and checkpointed layers)
-    spend their time, by torch.profiler:
+    (fused CE and materialized logits), the smp.nn path's steps (fused,
+    unfused, fp8, with dropout, and with dropout and checkpointed layers) and
+    phase G's smp.nn generate spend their time, by torch.profiler:
     device time by kernel and the device's idle share of the wall time."""
     import smdistributed_modelparallel_tpu_torch as smp
     from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m, init_gpt2_weights_
@@ -4068,13 +4501,24 @@ def phase_p():
         _profile_report(f"smp.nn step batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MB} microbatches, {label}", prof,
                         wall_ms, 16)
         del model, optimizer, train_step
+
+    # The smp.nn generate of phase G's G1 (padded prompts, the fused knobs).
+    smp.init({"bf16": True, "fused_qkv": True})
+    lm = smp.nn.DistributedTransformerLMHead(**LM_CFG, fused_bias_gelu=True, device="meta")
+    lm.load_state_dict(lm_state, assign=True)
+    model = smp.DistributedModel(lm, device="cuda")
+    ids, mask, _ = g_prompts(LM_CFG["vocab_size"])
+    smp.generate(model, ids, 2, attention_mask=mask)
+    for new in (1, G_NEW):
+        prof, wall_ms = profiled(lambda: smp.generate(model, ids, new, attention_mask=mask))
+        _profile_report(f"smp.nn generate, phase G's padded batch {tuple(ids.shape)}, new={new}", prof, wall_ms, 10)
     smp.reset()
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, S, T, F, L, D, M, Q, R, K, B, C (the default, all twelve), P (profiles) and N "
+                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, K, B, C (the default, all thirteen), P (profiles) and N "
              "(phase R's ranks on two cards, over NCCL) and X (GPT-2 1.5B at 16 x 1024 with checkpointing off)")
     parser.add_argument("--k-child", metavar="DIR", help=argparse.SUPPRESS)  # phase K's resumed run
     args = parser.parse_args()
@@ -4098,12 +4542,14 @@ def main():
     build()
     log(f"[time] build {time.perf_counter() - started:.1f} s")
     serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches = {}, {}, {}, {}, {}, {}
-    k_launches, d_launches, m_launches, s_launches = {}, {}, {}, {}
+    k_launches, d_launches, m_launches, s_launches, g_launches = {}, {}, {}, {}, {}
     errs = timing = None
     if "A" in args.phases:
         serve_launches = phase_a()
     if "S" in args.phases:
         s_launches = phase_s()
+    if "G" in args.phases:
+        g_launches = phase_g()
     if "T" in args.phases:
         train_launches, _ = phase_t()
     if "F" in args.phases:
@@ -4140,10 +4586,11 @@ def main():
     # context-parallel run (R: both ranks and the cp = 1 run), the
     # checkpointed run (K: before and after the save, the resumed child and
     # the full-checkpoint resume), the dropout run (D: its timed blocks) and
-    # the checkpointed runs (M: every block and every 1.5B run) and the
-    # serving engine's burst (S), each counted from 0 just before it.
+    # the checkpointed runs (M: every block and every 1.5B run), the serving
+    # engine's burst (S) and generation through the smp.nn LM head (G: G1-G4),
+    # each counted from 0 just before it.
     paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches, k_launches,
-             d_launches, m_launches, s_launches)
+             d_launches, m_launches, s_launches, g_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"

@@ -32,8 +32,9 @@ sampled tokens in both packages.
 paged KV pools both ways: the JAX engine's cache tree
 ``{"layers": {"block": {"attn": {"pool_key", "pool_value"}}}}``, each leaf
 [n_layers, num_blocks, block_tokens, H, hd] (flax ``nn.scan`` stacks the
-layers), against the port's per-layer ``(key, value)`` pools
-(``ServingEngine.kv_pools()``), bit for bit.
+layers), under ``SMP_KV_QUANT=int8`` with ``scale_key``/``scale_value``
+[n_layers, num_blocks, H] beside the int8 pools, against the port's
+per-layer pools (``ServingEngine.kv_pools()``), bit for bit.
 
 ``params_to_jax`` and ``lm_head_params_to_jax`` are the exact inverses: a
 port ``state_dict`` (or any ``{torch name: tensor}`` of the same names, such
@@ -207,15 +208,17 @@ def lm_head_params_from_jax(params):
     return out
 
 
-def _to_jax_arrays(out, layers, what):
+def _to_jax_arrays(out, layers, what, host=True):
     """The flat dict of host arrays: ``out``'s tensors (views of the input
     are copied) and ``{flax key: {layer index: tensor}}`` stacked on a
-    leading axis on their device, each copied to the host once."""
-    flat = {key: to_numpy(t.contiguous(), copy=t.is_contiguous()) for key, t in out.items()}
+    leading axis on their device, each copied to the host once. With
+    ``host=False`` the tensors stay on their device (``out``'s as views)."""
+    flat = {key: to_numpy(t.contiguous(), copy=t.is_contiguous()) if host else t for key, t in out.items()}
     for key, per in layers.items():
         if sorted(per) != list(range(len(per))):
             raise KeyError(f"{what} {key!r}: layers {sorted(per)} are not 0..{len(per) - 1}")
-        flat[key] = to_numpy(torch.stack([per[i] for i in range(len(per))]))
+        stacked = torch.stack([per[i] for i in range(len(per))])
+        flat[key] = to_numpy(stacked) if host else stacked
     return flat
 
 
@@ -237,10 +240,11 @@ def _leaf_to_jax(name, value):
     return "/".join(mods + [flax_kind]), arr
 
 
-def params_to_jax(state_dict):
+def params_to_jax(state_dict, host=True):
     """``state_dict`` of the port's ``TransformerLM`` (or tensors of the
     same names) -> the JAX package's flat '/'-keyed dict of numpy arrays;
-    the inverse of ``params_from_jax``."""
+    the inverse of ``params_from_jax``. ``host=False``: tensors on their
+    device instead (``quant.py`` quantizes in this layout)."""
     out, layers = {}, {}
     for name, value in state_dict.items():
         if name.startswith("layers."):
@@ -250,7 +254,7 @@ def params_to_jax(state_dict):
         else:
             key, arr = _leaf_to_jax(name, value)
             out[key] = arr
-    return _to_jax_arrays(out, layers, "TransformerLM tensor")
+    return _to_jax_arrays(out, layers, "TransformerLM tensor", host)
 
 
 def _lm_head_kernel_shape(mod, n_in, n_out, H):
@@ -287,12 +291,13 @@ def _lm_head_leaf_to_jax(name, value, H):
     return f"{mod}/{flax_kind}", arr
 
 
-def lm_head_params_to_jax(state_dict, num_attention_heads):
+def lm_head_params_to_jax(state_dict, num_attention_heads, host=True):
     """``state_dict`` of the port's ``DistributedTransformerLMHead`` (or
     tensors of the same names) -> the JAX package's flat '/'-keyed dict of
     numpy arrays; the inverse of ``lm_head_params_from_jax``.
     ``num_attention_heads`` splits the qkv and output-projection kernels
-    back into their head axes."""
+    back into their head axes. ``host=False``: tensors on their device
+    instead."""
     out, layers = {}, {}
     prefix = _LAYER_PREFIX.replace("/layer/", "/").replace("/", ".")
     for name, value in state_dict.items():
@@ -303,27 +308,34 @@ def lm_head_params_to_jax(state_dict, num_attention_heads):
         else:
             key, arr = _lm_head_leaf_to_jax(name, value, num_attention_heads)
             out[key] = arr
-    return _to_jax_arrays(out, layers, "DistributedTransformerLMHead tensor")
+    return _to_jax_arrays(out, layers, "DistributedTransformerLMHead tensor", host)
+
+
+_KV_LEAVES = ("pool_key", "pool_value", "scale_key", "scale_value")
 
 
 def kv_pools_from_jax(cache):
     """The JAX serving engine's cache tree (numpy or JAX arrays) -> a list of
-    ``(key, value)`` CPU tensors, one pair a layer, each [num_blocks,
-    block_tokens, H, hd]."""
+    CPU tensors, one tuple a layer: ``(key, value)``, each [num_blocks,
+    block_tokens, H, hd], and under ``SMP_KV_QUANT=int8`` (int8 pools) also
+    ``scale_key`` and ``scale_value``, each [num_blocks, H] fp32."""
     attn = cache["layers"]["block"]["attn"]
-    keys, values = to_torch(attn["pool_key"]), to_torch(attn["pool_value"])
-    if keys.shape != values.shape or keys.dim() != 5:
-        raise ValueError(f"malformed paged KV cache: pool_key {tuple(keys.shape)}, pool_value {tuple(values.shape)}")
-    return [(keys[i].clone(), values[i].clone()) for i in range(keys.shape[0])]
+    leaves = [to_torch(attn[name]) for name in _KV_LEAVES if name in attn]
+    keys, values = leaves[:2]
+    if keys.shape != values.shape or keys.dim() != 5 or len(leaves) not in (2, 4):
+        raise ValueError(f"malformed paged KV cache: pool_key {tuple(keys.shape)}, pool_value {tuple(values.shape)}"
+                         f", {len(leaves)} leaves")
+    return [tuple(t[i].clone() for t in leaves) for i in range(keys.shape[0])]
 
 
 def kv_pools_to_jax(pools):
-    """Per-layer ``(key, value)`` pools -> the JAX serving engine's cache tree
-    of numpy arrays, layers stacked on the leading axis; the inverse of
+    """Per-layer pools (``(key, value)`` or, int8, ``(key, value, scale_key,
+    scale_value)``) -> the JAX serving engine's cache tree of numpy arrays,
+    layers stacked on the leading axis; the inverse of
     ``kv_pools_from_jax``."""
-    keys = to_numpy(torch.stack([k.detach() for k, _ in pools]))
-    values = to_numpy(torch.stack([v.detach() for _, v in pools]))
-    return {"layers": {"block": {"attn": {"pool_key": keys, "pool_value": values}}}}
+    n = len(pools[0])
+    attn = {name: to_numpy(torch.stack([p[j].detach() for p in pools])) for j, name in enumerate(_KV_LEAVES[:n])}
+    return {"layers": {"block": {"attn": attn}}}
 
 
 def quant_state_from_jax(sd):

@@ -1,29 +1,41 @@
 """Autoregressive generation with KV caches: ``smp.generate``.
 
 Counterpart of ``smdistributed_modelparallel_tpu/generation.py`` for
-decoder-only models. A prefill pass over the prompt (the flash-attention
-path when the prompt is long enough) is followed by single-token decode
-steps, with greedy / temperature / top-k / top-p sampling and per-row EOS
-freezing. The JAX package compiles the whole loop into one program; here it
-is a Python loop of eager steps. Sampling takes the JAX package's key
-schedule: ``rng`` is a key (``utils/random.key(seed)``, or a JAX key's data
-through ``convert.key_from_jax``), split once into one key a new token, and
-each token is ``categorical(key, logits)``: the argmax of the filtered
-logits plus a Gumbel draw, whose bits come from ``csrc/dropout.cu``'s
-threefry kernel on the card. With the same weights, prompt and key both
-packages sample the same tokens. Beams, seq2seq models, padded prompts
-(``attention_mask``), shape buckets and int8 decode weights arrive with
-later slices and raise ``NotImplementedError`` until then.
+decoder-only models (the zoo ``TransformerLM`` and ``smp.nn``'s
+``DistributedTransformerLMHead``). A prefill pass over the prompt (the
+flash-attention path when the prompt is long enough) is followed by
+single-token decode steps, with greedy / temperature / top-k / top-p
+sampling and per-row EOS freezing, or with beam search. The JAX package
+compiles the whole loop into one program; here it is a Python loop of eager
+steps. Sampling takes the JAX package's key schedule: ``rng`` is a key
+(``utils/random.key(seed)``, or a JAX key's data through
+``convert.key_from_jax``), split once into one key a new token, and each
+token is ``categorical(key, logits)``: the argmax of the filtered logits plus
+a Gumbel draw, whose bits come from ``csrc/dropout.cu``'s threefry kernel on
+the card. With the same weights, prompt and key both packages sample the
+same tokens.
+
+Also as in the JAX package: LEFT-padded prompts (``attention_mask``, for a
+module whose ``forward`` takes one: each row's positions shift back by its
+pad count and pads are never attended), beam search (beams folded into the
+batch, HF scoring), decode-length buckets (``SMP_SHAPE_BUCKETS`` "seq"
+sizes: the decode length rounds up and a mask-capable module's prompt is
+left-padded to a bucket; the extra columns are sliced off) and
+``SMP_DECODE_WEIGHTS=int8`` (the weights round-trip through the serving
+engine's per-channel int8 grid before the half cast). Seq2seq models and
+pipeline parallelism raise ``NotImplementedError``.
 """
 
-import os
+import inspect
 
+import numpy as np
 import torch
 
+from smdistributed_modelparallel_tpu_torch import quant
 from smdistributed_modelparallel_tpu_torch.backend.state import state
-from smdistributed_modelparallel_tpu_torch.nn.utils import half_cast
+from smdistributed_modelparallel_tpu_torch.nn.utils import DecodeKVCache, half_cast
 from smdistributed_modelparallel_tpu_torch.ops.dropout import categorical
-from smdistributed_modelparallel_tpu_torch.utils import random
+from smdistributed_modelparallel_tpu_torch.utils import exec_cache, random
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
 
 
@@ -67,9 +79,24 @@ def _not_ported(what):
     )
 
 
+def _decode_params(module, half):
+    """The decode copy's parameters, or None when ``module``'s own serve:
+    under ``SMP_DECODE_WEIGHTS=int8`` the weights round-trip through the
+    serving engine's int8 grid first (``quant.fake_quant_decode_params``),
+    then the half cast of the training step's compute dtype, as the JAX
+    package's ``_half_cast`` does."""
+    int8 = quant.decode_weights_mode() == "int8"
+    if half is None and not int8:
+        return None
+    params = module.state_dict()
+    if int8:
+        params = quant.fake_quant_decode_params(params, module)
+    return half_cast(params, half)
+
+
 def _decode_clone(module, cache_len, half):
-    """The decode-mode copy of ``module`` on half-cast parameters (shared,
-    not copied, when no cast applies)."""
+    """The decode-mode copy of ``module`` on its decode parameters (shared,
+    not copied, when neither int8 nor a half cast applies)."""
     try:
         decode_mod = module.clone(
             decode=True, decode_cache_len=cache_len, deterministic=True
@@ -78,26 +105,45 @@ def _decode_clone(module, cache_len, half):
         raise SMPValidationError(
             f"{type(module).__name__} does not support KV-cache decoding "
             "(needs clone() with decode/decode_cache_len/deterministic — the "
-            "TransformerLM zoo family does)."
+            "TransformerLM zoo family and smp.nn DistributedTransformerLMHead do)."
         ) from e
-    if half is not None:
-        decode_mod.load_state_dict(half_cast(module.state_dict(), half), assign=True)
+    params = _decode_params(module, half)
+    if params is not None:
+        decode_mod.load_state_dict(params, assign=True)
     return decode_mod
 
 
+def _step_masks(mask, max_new_tokens):
+    """(prefill [B, 1, 1, T], step [B, 1, 1, T + max_new]) boolean masks from
+    a [B, T] LEFT-padded prompt mask; the generated columns are kept."""
+    mask = mask.bool()
+    step = torch.cat([mask, mask.new_ones((mask.shape[0], max_new_tokens))], dim=1)
+    return mask[:, None, None, :], step[:, None, None, :]
+
+
+def _mask_kwargs(mask, max_new_tokens):
+    """The prefill's and the steps' keyword arguments for ``mask`` (none
+    without one)."""
+    if mask is None:
+        return {}, {}
+    pre, step = _step_masks(mask, max_new_tokens)
+    return {"attention_mask": pre}, {"attention_mask": step}
+
+
 def _decode_loop(decode_mod, ids, max_new_tokens, sampler, eos_token_id,
-                 pad_token_id, rng):
+                 pad_token_id, rng, mask=None):
     """Prefill, then sample-feed-sample: returns the [B, max_new_tokens]
     generated ids. Token t is sampled with ``split(rng, max_new_tokens)[t]``."""
+    pre_kw, step_kw = _mask_kwargs(mask, max_new_tokens)
     rngs = random.split(rng, max_new_tokens)
-    logits = decode_mod(ids)
+    logits = decode_mod(ids, **pre_kw)
     tok = sampler(logits[:, -1].float(), rngs[0])
     done = torch.zeros_like(tok, dtype=torch.bool)
     if eos_token_id is not None:
         done = tok == eos_token_id
     out = [tok]
     for step_rng in rngs[1:]:
-        logits = decode_mod(tok[:, None])
+        logits = decode_mod(tok[:, None], **step_kw)
         nxt = sampler(logits[:, -1].float(), step_rng)
         if eos_token_id is not None:
             nxt = torch.where(done, pad_token_id, nxt)
@@ -105,6 +151,141 @@ def _decode_loop(decode_mod, ids, max_new_tokens, sampler, eos_token_id,
         out.append(nxt)
         tok = nxt
     return torch.stack(out, dim=1)
+
+
+# ----------------------------------------------------------------------
+# Beam search (greedy beams, HF-compatible scoring: length_penalty
+# normalization at EOS time, early_stopping=True semantics)
+# ----------------------------------------------------------------------
+
+_NEG = -1e9
+
+
+def _top_k(x, k):
+    """``jax.lax.top_k`` over the last axis: the k largest values and their
+    indices, equal values in index order."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _length_norm(scores, length, length_penalty, constant):
+    """``scores / float32(length) ** length_penalty`` as the JAX program
+    computes it: XLA folds a division by a constant into a multiply by the
+    reciprocal (``constant``), and divides by a traced length."""
+    d = np.float32(length) ** np.float32(length_penalty)
+    if constant:
+        return scores * float(np.float32(1.0) / d)
+    return scores / torch.full((1,), float(d), dtype=scores.dtype, device=scores.device)
+
+
+def _reorder_caches(decode_mod, parent_flat):
+    """Gather every decode cache of ``decode_mod`` along the folded [B*N]
+    beam axis to the surviving parents."""
+    for m in decode_mod.modules():
+        cache = getattr(m, "cache", None)
+        if isinstance(cache, DecodeKVCache):
+            cache.reorder(parent_flat)
+
+
+def _beam_search(decode_mod, ids, mask, max_new_tokens, num_beams, eos_token_id,
+                 pad_token_id, length_penalty, num_return_sequences):
+    """The JAX package's ``_build_beam_generator`` for decoder-only models:
+    returns the [B, max_new] (or, R > 1, [B, R, max_new]) generated ids.
+
+    Beams fold into the batch (the prompt repeats N times before the
+    prefill); each step takes the top 2N candidates over [N x V] fp32
+    log-softmaxes, routes EOS candidates ranked within the top N into a
+    best-N finished store (scores over ``(step + 1) ** length_penalty``),
+    continues the top N others and gathers the caches to their parents."""
+    N = num_beams
+    B = ids.shape[0]
+    dev = ids.device
+    pre_kw, step_kw = _mask_kwargs(None if mask is None else mask.repeat_interleave(N, dim=0), max_new_tokens)
+    logits = decode_mod(ids.repeat_interleave(N, dim=0), **pre_kw)
+    rows = torch.arange(B, device=dev)[:, None]
+    # Step 0: the N beams of a row are clones, so only beam 0 proposes (HF
+    # seeds the beam scores [0, -inf, ...]).
+    beam_scores = torch.full((B, N), _NEG, device=dev)
+    beam_scores[:, 0] = 0.0
+    seqs = torch.zeros((B, N, max_new_tokens), dtype=torch.long, device=dev)
+    fin_scores = torch.full((B, N), _NEG, device=dev)
+    fin_seqs = torch.zeros_like(seqs)
+    fin_len = torch.zeros((B, N), dtype=torch.long, device=dev)
+    stopped = torch.zeros((B,), dtype=torch.bool, device=dev)
+    in_top_n = torch.arange(2 * N, device=dev)[None, :] < N
+    for step in range(max_new_tokens):
+        if step:
+            logits = decode_mod(tok[:, None], **step_kw)
+        logprobs = torch.log_softmax(logits[:, -1].float(), dim=-1)
+        V = logprobs.shape[-1]
+        cand = beam_scores[:, :, None] + logprobs.reshape(B, N, V)
+        s2, i2 = _top_k(cand.reshape(B, N * V), 2 * N)
+        tok2, par2 = i2 % V, i2 // V
+        if eos_token_id is not None:
+            # The finished store: this step's EOS candidates (the parent's
+            # sequence without the EOS) merge with the kept hypotheses; the
+            # best N stay. Frozen rows (N finished) add nothing.
+            eos2 = tok2 == eos_token_id
+            norm = _length_norm(s2, step + 1, length_penalty, constant=step == 0)
+            cand_fin = torch.where(eos2 & in_top_n & ~stopped[:, None], norm, _NEG)
+            all_scores = torch.cat([fin_scores, cand_fin], dim=1)
+            all_seqs = torch.cat([fin_seqs, seqs[rows, par2]], dim=1)
+            all_len = torch.cat([fin_len, torch.full((B, 2 * N), step, dtype=torch.long, device=dev)], dim=1)
+            fin_scores, fidx = _top_k(all_scores, N)
+            fin_seqs = torch.take_along_dim(all_seqs, fidx[:, :, None], dim=1)
+            fin_len = torch.take_along_dim(all_len, fidx, dim=1)
+            stopped = stopped | ((fin_scores > _NEG / 2).sum(dim=1) >= N)
+            s2 = torch.where(eos2, _NEG, s2)
+        beam_scores, pos = _top_k(s2, N)
+        tokN, parN = torch.gather(tok2, 1, pos), torch.gather(par2, 1, pos)
+        seqs = seqs[rows, parN]
+        seqs[:, :, step] = tokN
+        if step + 1 < max_new_tokens:
+            _reorder_caches(decode_mod, (rows * N + parN).reshape(-1))
+        tok = tokN.reshape(-1)
+
+    # HF's finalize: rows not stopped also offer their live beams, over the
+    # full generated length; the best hypotheses win, as hyp + EOS + pad.
+    final_norm = _length_norm(beam_scores, max_new_tokens, length_penalty, constant=True)
+    live = final_norm if eos_token_id is None else torch.where(~stopped[:, None], final_norm, _NEG)
+    all_scores = torch.cat([fin_scores, live], dim=1)
+    all_seqs = torch.cat([fin_seqs, seqs], dim=1)
+    all_len = torch.cat([fin_len, torch.full((B, N), max_new_tokens, dtype=torch.long, device=dev)], dim=1)
+    _, best = _top_k(all_scores, num_return_sequences)
+    seq = torch.take_along_dim(all_seqs, best[:, :, None], dim=1)
+    length = torch.take_along_dim(all_len, best, dim=1)[:, :, None]
+    cols = torch.arange(max_new_tokens, device=dev)[None, None, :]
+    eos_fill = eos_token_id if eos_token_id is not None else pad_token_id
+    out = torch.where(cols < length, seq, torch.where(cols == length, eos_fill, pad_token_id))
+    return out[:, 0] if num_return_sequences == 1 else out
+
+
+def _takes_mask(module):
+    return "attention_mask" in inspect.signature(type(module).forward).parameters
+
+
+def _bucket(module, input_ids, attention_mask, max_new_tokens, pad_token_id, limit):
+    """Decode-length buckets (``SMP_SHAPE_BUCKETS`` "seq" sizes), as the JAX
+    package applies them: ``max_new_tokens`` rounds up to a bucket, and a
+    mask-capable module's prompt is left-padded to one; a bucket never
+    pushes the request past ``limit``. Returns the (possibly padded) ids,
+    mask and decode length."""
+    sizes = (exec_cache.bucket_policy() or {}).get("seq")
+    if not sizes:
+        return input_ids, attention_mask, max_new_tokens
+    B, T = input_ids.shape
+    new_b = exec_cache.bucket_for(max_new_tokens, sizes)
+    if new_b is not None and not (limit is not None and T + new_b > limit):
+        max_new_tokens = new_b
+    t_b = exec_cache.bucket_for(T, sizes)
+    if t_b is not None and limit is not None and t_b + max_new_tokens > limit:
+        t_b = None
+    if t_b is not None and t_b != T and _takes_mask(module):
+        pad_w = t_b - T
+        input_ids = torch.cat([input_ids.new_full((B, pad_w), pad_token_id), input_ids], dim=1)
+        keep = attention_mask.int() if attention_mask is not None else input_ids.new_ones((B, T), dtype=torch.int32)
+        attention_mask = torch.cat([keep.new_zeros((B, pad_w)), keep], dim=1)
+    return input_ids, attention_mask, max_new_tokens
 
 
 def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
@@ -116,9 +297,12 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
 
     Args:
       model: a ``DistributedModel`` wrapping a decode-capable LM (the
-        ``TransformerLM`` zoo family), or such a module directly (then
-        ``params``, a state dict, is required).
-      input_ids: [B, T] int prompt tokens (unpadded).
+        ``TransformerLM`` zoo family or ``smp.nn.DistributedTransformerLMHead``),
+        or such a module directly (then ``params``, a state dict, is
+        required).
+      input_ids: [B, T] int prompt tokens. Prompts of different true lengths
+        are LEFT-padded, with ``attention_mask`` marking the real tokens;
+        without a mask they are taken as unpadded.
       max_new_tokens: number of tokens to append.
       temperature: 0.0 = greedy argmax (default); > 0 samples.
       top_k / top_p: optional sampling filters (compose: k then p).
@@ -129,10 +313,19 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
         data to sample the JAX package's tokens. Sampling runs on the
         model's device.
       params: state dict override (defaults to the model's).
-    The other arguments keep the JAX package's surface; beams, seq2seq and
-    ``attention_mask`` are not ported yet.
+      attention_mask: [B, T] LEFT-padded prompt mask (1/True = real token),
+        for a module whose ``forward`` takes one (the smp.nn family).
+      num_beams: > 1 switches to beam search (greedy beams; temperature 0).
+        Hypothesis scores are sum-logprob / (length ** length_penalty) with
+        ``early_stopping=True`` semantics.
+      num_return_sequences: beams only: the top R hypotheses a row, as a
+        [B, R, L] tensor.
+    The seq2seq arguments (``encoder_mask``, ``decoder_start_token_id``)
+    keep the JAX package's surface; seq2seq models are not ported yet.
 
-    Returns: [B, T + max_new_tokens] — prompts with continuations.
+    Returns: [B, T + max_new_tokens] — prompts with continuations ([B, R, T +
+    max_new_tokens] for R > 1); with beams, a finished hypothesis is
+    "hypothesis + EOS + pad".
     """
     # Under context parallelism every rank decodes whole sequences, as the
     # JAX package's program computes them on the global arrays: the same
@@ -155,8 +348,27 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
         raise SMPValidationError(
             "decoder-only models take attention_mask, not encoder_mask."
         )
+    device = next(module.parameters()).device
+    input_ids = torch.as_tensor(input_ids, device=device)
     if attention_mask is not None:
-        raise _not_ported("padded prompts (attention_mask)")
+        if not _takes_mask(module):
+            raise SMPValidationError(
+                f"{type(module).__name__} does not accept attention_mask; padded-prompt generation needs the "
+                "smp.nn DistributedTransformerLMHead family."
+            )
+        attention_mask = torch.as_tensor(attention_mask, device=device)
+        if attention_mask.shape != input_ids.shape:
+            raise SMPValidationError(
+                f"attention_mask shape {tuple(attention_mask.shape)} != prompt shape {tuple(input_ids.shape)}."
+            )
+        # A right-padded mask would sample the first continuation from a
+        # masked pad position's logits.
+        m = attention_mask.bool()
+        if not bool((m[:, 1:] >= m[:, :-1]).all() and m[:, -1].all()):
+            raise SMPValidationError(
+                "attention_mask must be LEFT-padded (rows 0..0 1..1 with the last column kept); right-padded "
+                "prompts would generate from a pad position."
+            )
     if temperature < 0.0:
         raise SMPValidationError(
             "temperature must be >= 0 (0 = greedy); a negative value "
@@ -191,20 +403,19 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
         raise SMPValidationError(
             "num_return_sequences must be in [1, num_beams]."
         )
-    if num_beams > 1:
-        raise _not_ported("beam search")
-    if any(part.partition(":")[0].strip() == "seq"
-           for part in os.environ.get("SMP_SHAPE_BUCKETS", "").split(";")):
-        raise _not_ported("decode-length shape buckets (SMP_SHAPE_BUCKETS)")
-    if os.environ.get("SMP_DECODE_WEIGHTS", "").strip().lower() == "int8":
-        raise _not_ported("int8 decode weights (SMP_DECODE_WEIGHTS=int8)")
+    # The quant knobs are validated here as the JAX package's program key
+    # reads them; SMP_KV_QUANT concerns only the serving engine's pools.
+    quant.serving_key_suffix()
 
     rng = random.key(0) if rng is None else random.as_key(rng)
-    device = next(module.parameters()).device
-    input_ids = torch.as_tensor(input_ids, device=device)
+    limit = getattr(module, "max_len", None) or getattr(module, "num_positions", None)
+    orig_ids, orig_new = input_ids, max_new_tokens
+    if num_beams == 1:
+        # Beam scores normalize by max_new_tokens: beams never bucket.
+        input_ids, attention_mask, max_new_tokens = _bucket(module, input_ids, attention_mask, max_new_tokens,
+                                                            pad_token_id, limit)
     B, T = input_ids.shape
     cache_len = T + max_new_tokens
-    limit = getattr(module, "max_len", None)
     if limit is not None and cache_len > limit:
         raise SMPValidationError(
             f"prompt + max_new_tokens ({cache_len}) exceeds the model's "
@@ -217,9 +428,18 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
             module = module.clone()
             module.load_state_dict(params, assign=True)
         decode_mod = _decode_clone(module, cache_len, half)
+        if num_beams > 1:
+            new_tokens = _beam_search(decode_mod, input_ids, attention_mask, max_new_tokens, num_beams,
+                                      eos_token_id, pad_token_id, float(length_penalty), num_return_sequences)
+            new_tokens = new_tokens.to(input_ids.dtype)
+            if num_return_sequences > 1:
+                prompts = input_ids[:, None].expand(B, num_return_sequences, T)
+                return torch.cat([prompts, new_tokens], dim=2)
+            return torch.cat([input_ids, new_tokens], dim=1)
         sampler = _make_sampler(float(temperature), top_k, top_p)
         new_tokens = _decode_loop(
             decode_mod, input_ids, max_new_tokens, sampler, eos_token_id,
-            pad_token_id, rng,
+            pad_token_id, rng, attention_mask,
         ).to(input_ids.dtype)
-        return torch.cat([input_ids, new_tokens], dim=1)
+        # A bucketed run: the caller sees exactly the (prompt, max_new) asked.
+        return torch.cat([orig_ids, new_tokens[:, :orig_new]], dim=1)

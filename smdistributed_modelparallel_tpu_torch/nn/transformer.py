@@ -58,10 +58,17 @@ checkpointed region under ``parallel/memory.remat_policy()`` (the JAX
 package's ``nn.remat`` of the scan body), recomputed in the backward on the
 parameter tensors and dropout keys of its forward.
 
+``decode=True`` (``smp.generate``'s copy, ``DistributedTransformerLMHead.clone``):
+each self-attention layer keeps a ``nn/utils.DecodeKVCache`` (post-rotary K),
+the first call on it (the prefill) attends causally over its chunk, later
+single-token calls over the cache under ``col <= index`` combined with the
+caller's mask; a left-padded prompt's mask shifts each row's rotary and
+learned positions back by its pad count (``nn/utils.pad_row_offset``).
+
 Not ported yet, each raising ``NotImplementedError``: MoE (``num_experts >
-0``), ``decode=True`` (generation through the LM head), tensor parallelism
-(``optimize="memory"`` included) and activation checkpointing under context
-parallelism.
+0``), cross-attention under ``decode`` (the encoder-decoder), tensor
+parallelism (``optimize="memory"`` included) and activation checkpointing
+under context parallelism.
 """
 
 import math
@@ -80,9 +87,11 @@ from smdistributed_modelparallel_tpu_torch.nn.cross_entropy import (
 from smdistributed_modelparallel_tpu_torch.nn.embedding import DistributedEmbedding
 from smdistributed_modelparallel_tpu_torch.nn.layer_norm import DistributedLayerNorm
 from smdistributed_modelparallel_tpu_torch.nn.utils import (
+    DecodeKVCache,
     dropout,
     fused_bias_gelu,
     make_rng,
+    pad_row_offset,
     resolve_deterministic,
     shard_activation,
     tp_size,
@@ -213,8 +222,9 @@ class DistributedAttentionLayer(nn.Module):
                  window_size=None, decode=False, decode_cache_len=None, deterministic=None, dtype=None,
                  device=None):
         super().__init__()
-        if decode:
-            raise _not_ported("decode=True (generation through the smp.nn layers)", "a later slice")
+        if decode and cross_attention:
+            raise _not_ported("cross-attention under decode=True (the encoder-decoder's cached encoder K/V)",
+                              "ROADMAP Queue 1 item 3")
         H, hd, D = num_attention_heads, attention_head_size, hidden_size
         self.num_attention_heads = H
         self.attention_head_size = hd
@@ -231,7 +241,10 @@ class DistributedAttentionLayer(nn.Module):
         self.rotary_emb_base = rotary_emb_base
         self.gpt_neox_type_rotary = gpt_neox_type_rotary
         self.window_size = window_size
+        self.decode = decode
+        self.decode_cache_len = decode_cache_len
         self.deterministic = deterministic
+        self.cache = None  # the DecodeKVCache of a decode module, made at its first call
         kw = dict(dtype=dtype, device=device)
         if cross_attention:
             self.query = nn.Linear(D, H * hd, bias=use_qkv_bias, **kw)
@@ -294,9 +307,42 @@ class DistributedAttentionLayer(nn.Module):
         else:
             q, k, v = self._self_qkv(hidden)
         q, k, v = (shard_activation(t) for t in (q, k, v))
+        # Under context parallelism a step holds the rank's shard of each
+        # sequence, which starts at cp_rank * T (0 outside a step).
+        pos_offset = state.sequence_offset(T)
+        cache = None
+        if self.decode and not self.cross_attention:
+            if self.causal_mask_size is None:
+                raise SMPValidationError(
+                    "decode=True requires causal self-attention (causal_mask_size set); BERT-family encoders do "
+                    "not decode."
+                )
+            if self.cache is None:
+                self.cache = DecodeKVCache((B, self.decode_cache_len, self.num_attention_heads,
+                                            self.attention_head_size), k.dtype, k.device)
+            cache = self.cache
+            # Left-padded prompts: each row's absolute positions shift back
+            # by its pad count (nn/utils.pad_row_offset).
+            row_off = pad_row_offset(attention_mask)
+            pos_offset = cache.index if row_off is None else cache.index + row_off
         if self.rotary_dim is not None and not self.cross_attention:
+            # The cache stores post-rotary K: a chunk rotates once, at its
+            # absolute (cache-slot) positions.
             q, k = apply_rotary(q, k, self.rotary_dim, base=self.rotary_emb_base or 10000.0,
-                                neox_style=self.gpt_neox_type_rotary, offset=state.sequence_offset(T))
+                                neox_style=self.gpt_neox_type_rotary, offset=pos_offset)
+        decode_mask = None
+        if cache is not None:
+            k, v, decode_mask = cache.append(k, v, window=self.window_size)
+            if decode_mask is not None:
+                # A decode step attends over the cache; the caller's mask
+                # (the padded prompt's, generated columns kept) still applies.
+                if attention_mask is None:
+                    attention_mask = decode_mask
+                elif attention_mask.dtype == torch.bool:
+                    attention_mask = attention_mask & decode_mask
+                else:
+                    attention_mask = attention_mask + torch.where(decode_mask, 0.0, self.mask_value).to(
+                        attention_mask.dtype)
 
         hd = self.attention_head_size
         scale = 1.0 / math.sqrt(hd) if self.scale_attention_scores else 1.0
@@ -320,8 +366,9 @@ class DistributedAttentionLayer(nn.Module):
             k = quant.fake_quant(k, "attn_k.x")
         ctx = attention_core(
             q, k, v,
-            causal=self.causal_mask_size is not None and not self.cross_attention,
-            window=self.window_size,
+            # A decode step replaces causal and window with the cache mask.
+            causal=self.causal_mask_size is not None and not self.cross_attention and decode_mask is None,
+            window=self.window_size if decode_mask is None else None,
             local_select=is_local,
             scale=scale,
             extra_scale=extra_scale,
@@ -566,10 +613,18 @@ class DistributedTransformerLMHead(nn.Module):
                  activation_checkpointing=False, use_embedding_layernorm=False, num_experts=0, moe_top_k=2,
                  moe_capacity_factor=1.25, label_smoothing=0.0, decode=False, decode_cache_len=None,
                  deterministic=None, dtype=None, device=None):
+        config = {k: v for k, v in locals().items() if k not in ("self", "__class__", "device")}
         super().__init__()
-        if decode:
-            raise _not_ported("decode=True (smp.generate through DistributedTransformerLMHead)", "a later slice")
+        # The constructor's arguments, for clone().
+        self.config = config
         D = hidden_size
+        self.num_attention_heads = num_attention_heads
+        self.num_positions = num_positions
+        self.decode = decode
+        # Under decode: the absolute position of the next token, which learned
+        # positions need before the layer stack (the JAX module's cache
+        # variable "position_index").
+        self.position_index = 0
         self.embedding_dropout_prob = embedding_dropout_prob
         self.use_positional_embedding = use_positional_embedding
         self.position_ids_from_padding = position_ids_from_padding
@@ -612,7 +667,7 @@ class DistributedTransformerLMHead(nn.Module):
             gpt_neox_type_rotary=gpt_neox_type_rotary, window_size=window_size,
             parallel_attn_output=parallel_attn_output, causal_mask_size=causal_mask_size,
             num_experts=num_experts, moe_top_k=moe_top_k, moe_capacity_factor=moe_capacity_factor,
-            deterministic=deterministic, **kw,
+            decode=decode, decode_cache_len=decode_cache_len, deterministic=deterministic, **kw,
         )
         if final_layernorm or pre_layernorm:
             self.ln_f = DistributedLayerNorm(D, epsilon=layernorm_epsilon, **kw)
@@ -631,6 +686,16 @@ class DistributedTransformerLMHead(nn.Module):
     def activation_checkpointing(self, on):
         self.transformer.activation_checkpointing = on
 
+    def clone(self, **overrides):
+        """A module of this config with ``overrides``, sharing (not copying)
+        this module's parameters: the counterpart of flax ``Module.clone``,
+        which ``smp.generate`` calls for its decode copy (``decode=True,
+        decode_cache_len=..., deterministic=True``)."""
+        config = dict(self.config, activation_checkpointing=self.activation_checkpointing)
+        new = type(self)(**{**config, **overrides}, device="meta")
+        new.load_state_dict(self.state_dict(), assign=True)
+        return new
+
     def embed(self, input_ids, token_type_ids=None, attention_mask=None):
         """Embeddings of ``input_ids``: ``(x, None, attention_mask)``, the
         JAX package's carry."""
@@ -638,6 +703,10 @@ class DistributedTransformerLMHead(nn.Module):
         if self.use_positional_embedding:
             pad = self.position_ids_from_padding
             T = input_ids.shape[-1]
+            if pad is not None and self.decode:
+                raise SMPValidationError(
+                    "decode=True is unsupported with position_ids_from_padding (RoBERTa-style pad-aware positions)."
+                )
             if pad is not None:
                 if state.cp_sharded:
                     raise NotImplementedError(
@@ -649,6 +718,15 @@ class DistributedTransformerLMHead(nn.Module):
                 # create_position_ids_from_input_ids).
                 ne = (input_ids != pad).long()
                 pos = torch.cumsum(ne, dim=-1) * ne + pad
+            elif self.decode:
+                # The absolute offset of this chunk; left-padded prompts shift
+                # each row back by its pad count, as the attention layers'
+                # rotary offsets do.
+                idx = self.position_index
+                self.position_index = idx + T
+                row_off = pad_row_offset(attention_mask)
+                start = idx if row_off is None else (idx + row_off)[:, None]
+                pos = (start + torch.arange(T, device=input_ids.device)[None, :]).clamp_min(0)
             else:
                 # Under context parallelism the shard starts at cp_rank * T.
                 start = state.sequence_offset(T)

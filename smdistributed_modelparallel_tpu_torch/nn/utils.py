@@ -1,19 +1,18 @@
 """Helpers of the ``smp.nn`` layers: the tp queries, activation sharding,
 the dropout switch, a module's dropout key and the dropout dispatch, the
-fused bias-GELU dispatch, parameter casting, the decode KV cache and the
-paged KV cache of the serving engine.
+fused bias-GELU dispatch, parameter casting, the attention-mask helpers of
+padded prompts, the decode KV cache and the paged KV cache of the serving
+engine.
 
 Counterparts on one device of ``smdistributed_modelparallel_tpu/nn/
 utils.py``: ``tp_size``/``tp_enabled``, ``tp_ring_active`` (False until the
 tensor-parallel slice), ``shard_activation`` (the identity: there is no mesh
 to constrain over), ``resolve_deterministic``, ``fused_bias_gelu`` (its
-tp = 1 branch, with the fp8 epilogue input), ``half_cast``, ``DecodeKVCache``
-and ``PagedKVCache``.
+tp = 1 branch, with the fp8 epilogue input), ``half_cast``, ``mask_keep_2d``,
+``pad_row_offset``, ``DecodeKVCache`` and ``PagedKVCache``.
 ``make_rng`` is flax's ``Module.make_rng`` for the port's modules and
 ``dropout`` flax's ``nn.Dropout`` (``ops/dropout.py``).
 """
-
-import os
 
 import torch
 
@@ -106,6 +105,37 @@ def fused_bias_gelu(h, b):
     return bias_gelu(h, b)
 
 
+def mask_keep_2d(mask):
+    """Boolean [B, T] keep flags from an attention mask in any accepted form
+    ([B, T] or [B, 1, 1, T]; bool, 0/1 integer or additive float: "keep" is
+    ``> -1.0``), or None when absent or not reducible to per-key flags."""
+    if mask is None:
+        return None
+    if mask.dim() == 4 and mask.shape[1] == 1 and mask.shape[2] == 1:
+        mask = mask[:, 0, 0, :]
+    if mask.dim() != 2:
+        return None
+    if mask.dtype == torch.bool:
+        return mask
+    if not torch.is_floating_point(mask):
+        return mask != 0
+    return mask > -1.0  # additive: 0 keep, large negative drop
+
+
+def pad_row_offset(mask):
+    """The [B] position offset (int, at most 0) of LEFT-padded rows, or None
+    when no mask applies: ``sum(keep) - width``, from the prompt mask at the
+    prefill and from the [B, 1, 1, C] step mask (generated columns kept)
+    alike. A row whose keep flags are not a left-pad shape (0..0 1..1) gets
+    0: a mask that only blocks keys must not shift positions."""
+    keep = mask_keep_2d(mask)
+    if keep is None:
+        return None
+    is_leftpad = (keep[:, 1:] >= keep[:, :-1]).all(dim=1)
+    off = keep.sum(dim=1) - keep.shape[1]
+    return torch.where(is_leftpad, off, torch.zeros_like(off))
+
+
 def half_cast(state_dict, half):
     """Cast every floating tensor of a state dict to ``half`` (None = no-op).
 
@@ -172,6 +202,14 @@ class DecodeKVCache:
             keep = keep & (i - cols < window)
         return self.key, self.value, keep[None, None, None, :]
 
+    def reorder(self, index):
+        """Gather the buffers along the batch axis (beam search: each row
+        takes its surviving parent's K/V), as the JAX package's
+        ``_reorder_beam_cache`` gathers ``cached_key``/``cached_value``. The
+        index and the protocol state stay."""
+        self.key = self.key.index_select(0, index)
+        self.value = self.value.index_select(0, index)
+
 
 class PagedKVCache:
     """Block-pooled K/V cache of one attention layer, for the serving engine.
@@ -195,19 +233,34 @@ class PagedKVCache:
     the mask ``col <= positions[b] + t`` ([B, 1, T, S] bool), as the JAX
     package's ``PagedKVCache.append`` does, so attention takes the plain
     path there and here.
+
+    Under ``SMP_KV_QUANT=int8`` (read at construction) the pools are int8
+    with ``scale_key``/``scale_value`` [num_blocks, H] fp32 beside them
+    (running block maxima that only grow): an append grows the touched
+    blocks' scales, requantizes them and writes its tokens quantized
+    (``quant.kv_quantize_append``); the gathered table is dequantized to
+    the activation dtype (``quant.kv_dequantize_gather``).
     """
 
     def __init__(self, num_blocks, block_tokens, heads, head_dim, dtype, device):
-        if os.environ.get("SMP_KV_QUANT", "none").strip().lower() == "int8":
-            raise NotImplementedError(
-                "SMP_KV_QUANT=int8 (int8 paged KV pools with per-block scales: quant.kv_pool_dtype, "
-                "kv_quantize_append) is not ported to PyTorch yet (slice 8b)."
-            )
+        self.quantized = quant.kv_quant_mode() == "int8"
+        self.dtype = dtype
         shape = (num_blocks, block_tokens, heads, head_dim)
-        self.key = torch.zeros(shape, dtype=dtype, device=device)
-        self.value = torch.zeros(shape, dtype=dtype, device=device)
+        pool_dtype = quant.kv_pool_dtype(dtype)
+        self.key = torch.zeros(shape, dtype=pool_dtype, device=device)
+        self.value = torch.zeros(shape, dtype=pool_dtype, device=device)
+        if self.quantized:
+            self.scale_key = torch.zeros((num_blocks, heads), dtype=torch.float32, device=device)
+            self.scale_value = torch.zeros((num_blocks, heads), dtype=torch.float32, device=device)
         self.num_blocks = num_blocks
         self.block_tokens = block_tokens
+
+    def pools(self):
+        """The pool tensors: ``(key, value)``, and under int8 ``(key, value,
+        scale_key, scale_value)``."""
+        if self.quantized:
+            return self.key, self.value, self.scale_key, self.scale_value
+        return self.key, self.value
 
     def append(self, k, v, block_tables, positions, valid=None, window=None):
         """Write chunk K/V into the pools, in place, and return ``(k_all,
@@ -234,14 +287,25 @@ class PagedKVCache:
             # chunk no wider than a block never writes one slot twice.
             dest = torch.where(t[None, :] < valid.long()[:, None], dest, (t % bt)[None, :])
         flat = dest.reshape(-1)
+        k, v = k.reshape(B * T, H, hd), v.reshape(B * T, H, hd)
+        if self.quantized:
+            # Grow the touched blocks' scales, requantize the pools on them,
+            # then write the tokens quantized last (one rounding, not two).
+            blk_flat = flat // bt
+            self.key, self.scale_key, k = quant.kv_quantize_append(self.key, self.scale_key, k, blk_flat)
+            self.value, self.scale_value, v = quant.kv_quantize_append(self.value, self.scale_value, v, blk_flat)
         pk = self.key.view(self.num_blocks * bt, H, hd)
         pv = self.value.view(self.num_blocks * bt, H, hd)
-        pk.index_copy_(0, flat, k.reshape(B * T, H, hd))
-        pv.index_copy_(0, flat, v.reshape(B * T, H, hd))
+        pk.index_copy_(0, flat, k)
+        pv.index_copy_(0, flat, v)
         # Gather every table slot: the logical position of column j is j.
         slots = (tables[:, :, None] * bt + torch.arange(bt, device=k.device)[None, None, :]).reshape(B, max_blocks * bt)
         k_all = pk[slots]                                                   # [B, S, H, hd]
         v_all = pv[slots]
+        if self.quantized:
+            slot_blocks = slots // bt
+            k_all = quant.kv_dequantize_gather(k_all, self.scale_key, slot_blocks, self.dtype)
+            v_all = quant.kv_dequantize_gather(v_all, self.scale_value, slot_blocks, self.dtype)
         cols = torch.arange(max_blocks * bt, device=k.device)
         keep = cols[None, None, :] <= pos[:, :, None]                       # [B, T, S]
         if window is not None:

@@ -1,6 +1,6 @@
-"""fp8 delayed-scaling training matmuls: the training half of ``smp.quant``.
+"""fp8 delayed-scaling training matmuls and int8 serving: ``smp.quant``.
 
-Counterpart of ``smdistributed_modelparallel_tpu/quant.py`` (``:1-608``).
+Counterpart of ``smdistributed_modelparallel_tpu/quant.py``.
 ``matmul_precision: fp8`` (env ``SMP_MATMUL_PRECISION``) sends the
 ``smp.nn`` transformer seams through fp8: e4m3 forward operands with DELAYED
 scaling, e5m2 gradients with current scaling. Each quantization slot
@@ -18,14 +18,23 @@ step. Every microbatch quantizes with the scales the step started with. The
 observations, history and scales stay device tensors, so a step adds no host
 sync; ``QuantState.state_dict`` is what brings numpy.
 
+The serving half (``quant.py:110-150``, ``:608-736``): the knobs
+``SMP_KV_QUANT`` and ``SMP_DECODE_WEIGHTS`` (``kv_quant_mode``,
+``decode_weights_mode``, ``serving_key_suffix``), weight-only int8
+(``quantize_decode_params``, ``dequantize_decode_params``,
+``fake_quant_decode_params``) and the int8 paged KV (``kv_quantize_append``,
+``kv_dequantize_gather``). Weights quantize in the JAX tree's layout, so the
+scales are the JAX package's: one a last-axis channel over every layer of the
+stack (see ``_weight_leaf``).
+
 Not ported yet: the telemetry gauges and dispatch counters
 (``record_quant_state``, ``record_quant_dispatch``; the operations slice),
-writing ``quant_states.pt`` (the checkpoint slice), the ``linear_*`` and
-``ring_*`` seams (the tensor-parallel slice), and the serving half (int8 KV
-and weight-only decode).
+writing ``quant_states.pt`` (the checkpoint slice), and the ``linear_*`` and
+``ring_*`` seams (the tensor-parallel slice).
 """
 
 import contextlib
+import os
 import threading
 
 import numpy as np
@@ -382,3 +391,178 @@ def fake_quant(x, slot):
     epilogue input and the attention score operands. Records the amax."""
     _record_amax(x, slot)
     return _FakeQuant.apply(x, slot)
+
+
+# ----------------------------------------------------------------------
+# Serving: the int8 knobs
+# ----------------------------------------------------------------------
+
+
+def kv_quant_mode():
+    """Serving paged-KV pool precision: ``SMP_KV_QUANT`` (default "none";
+    "int8" stores the pools int8 with per-block, per-head scales)."""
+    v = os.environ.get("SMP_KV_QUANT", "none").strip().lower() or "none"
+    if v in ("", "0", "none", "off", "bf16"):
+        return "none"
+    if v != "int8":
+        raise ValueError(f"SMP_KV_QUANT={v!r}: expected 'int8' or unset/none.")
+    return "int8"
+
+
+def decode_weights_mode():
+    """Serving and decode weight precision: ``SMP_DECODE_WEIGHTS`` (default
+    "none"; "int8" = weight-only int8 with per-output-channel scales,
+    quantized once where the weights are loaded)."""
+    v = os.environ.get("SMP_DECODE_WEIGHTS", "none").strip().lower() or "none"
+    if v in ("", "0", "none", "off", "bf16"):
+        return "none"
+    if v != "int8":
+        raise ValueError(f"SMP_DECODE_WEIGHTS={v!r}: expected 'int8' or unset/none.")
+    return "int8"
+
+
+def serving_key_suffix():
+    """The quant knobs as the JAX package appends them to its serving
+    programs' cache keys: nothing at the defaults, one fact a knob that is
+    on."""
+    suffix = ()
+    if kv_quant_mode() != "none":
+        suffix += (("kv_quant", kv_quant_mode()),)
+    if decode_weights_mode() != "none":
+        suffix += (("decode_weights", decode_weights_mode()),)
+    return suffix
+
+
+# ----------------------------------------------------------------------
+# Serving: weight-only int8 (per-output-channel scales)
+# ----------------------------------------------------------------------
+
+# Inside a compiled JAX program XLA folds ``x / 127.0`` into ``x * (1 /
+# 127)``, the reciprocal rounded to fp32 (a true division outside one, as in
+# the JAX engine's eager quantization at load).
+_INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _divide(x, c):
+    """``x / c`` as a true division on any device: torch multiplies by the
+    reciprocal of a Python divisor on the card."""
+    return x / torch.full((1,), c, dtype=x.dtype, device=x.device)
+
+
+def _jax_layout(module):
+    """``(to_jax, from_jax)`` between ``module``'s state dict and the JAX
+    package's flat parameter tree, on the tensors' device: the
+    ``DistributedTransformerLMHead`` layout or the zoo ``TransformerLM``'s."""
+    from smdistributed_modelparallel_tpu_torch import convert
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import DistributedTransformerLMHead
+
+    if isinstance(module, DistributedTransformerLMHead):
+        heads = module.num_attention_heads
+        return (lambda sd: convert.lm_head_params_to_jax(sd, heads, host=False)), convert.lm_head_params_from_jax
+    return (lambda sd: convert.params_to_jax(sd, host=False)), convert.params_from_jax
+
+
+def _weight_leaf(leaf):
+    """Weight-only int8 eligibility, the JAX package's: a floating leaf of
+    the JAX tree with at least two axes. The JAX layers are stacked on a
+    leading layer axis (flax ``nn.scan``), so the stack's biases and
+    LayerNorm vectors ([L, D]) are eligible too, and one scale spans a
+    channel in every layer."""
+    return torch.is_floating_point(leaf) and leaf.dim() >= 2
+
+
+def _quantize_flat(flat, compiled):
+    """``{"q", "s"}`` over a flat JAX-layout dict: an eligible leaf becomes
+    int8 with an fp32 scale a last-axis channel (amax over every other axis,
+    / 127, at least 1e-12); the rest rides unchanged with a 0-d zero scale.
+    ``compiled``: the scale divides as the JAX package's compiled programs
+    do (a multiply by the reciprocal), else truly, as its eager code does."""
+    q, s = {}, {}
+    for key, leaf in flat.items():
+        if not _weight_leaf(leaf):
+            q[key], s[key] = leaf, torch.zeros((), dtype=torch.float32, device=leaf.device)
+            continue
+        x = leaf.float()
+        amax = x.abs().amax(dim=tuple(range(x.dim() - 1)))
+        scale = (amax * _INV127 if compiled else _divide(amax, 127.0)).clamp_min(1e-12)
+        q[key] = torch.round(x / scale).clamp_(-127, 127).to(torch.int8)
+        s[key] = scale
+    return {"q": q, "s": s}
+
+
+def quantize_decode_params(params, module):
+    """One-shot weight-only int8 of ``params`` (``module``'s state dict), as
+    the JAX package's ``quantize_decode_params`` quantizes the same weights:
+    in the JAX tree's layout (``convert.params_to_jax`` /
+    ``lm_head_params_to_jax`` on the device), one scale a last-axis channel
+    of each eligible leaf. Returns ``{"q": {flax key: tensor}, "s": {flax
+    key: fp32 scale}}``."""
+    to_jax, _ = _jax_layout(module)
+    return _quantize_flat(to_jax(params), compiled=False)
+
+
+def dequantize_decode_params(qparams, module, dtype=None):
+    """Invert ``quantize_decode_params`` into ``module``'s state dict: int8
+    leaves dequantize per channel to ``dtype`` (default fp32); the others
+    return unchanged."""
+    _, from_jax = _jax_layout(module)
+    tgt = dtype or torch.float32
+    flat = {key: (q.float() * qparams["s"][key]).to(tgt) if q.dtype == torch.int8 else q
+            for key, q in qparams["q"].items()}
+    return from_jax(flat)
+
+
+def fake_quant_decode_params(params, module):
+    """``smp.generate``'s side of ``SMP_DECODE_WEIGHTS=int8``: every eligible
+    weight round-trips through the int8 grid (quantize, then dequantize to
+    its own dtype), as the JAX package's generate program does, so generate
+    and the serving engine run on the same values under the knob."""
+    to_jax, from_jax = _jax_layout(module)
+    flat = to_jax(params)
+    qp = _quantize_flat(flat, compiled=True)
+    return from_jax({key: (q.float() * qp["s"][key]).to(flat[key].dtype) if q.dtype == torch.int8 else flat[key]
+                     for key, q in qp["q"].items()})
+
+
+# ----------------------------------------------------------------------
+# Serving: int8 paged KV (per-block, per-head scales)
+# ----------------------------------------------------------------------
+
+
+def kv_pool_dtype(requested):
+    """The pools' dtype: int8 under ``SMP_KV_QUANT=int8``, else
+    ``requested``."""
+    return torch.int8 if kv_quant_mode() == "int8" else requested
+
+
+def kv_quantize_append(pool_i8, scale, k, blk_flat):
+    """One paged append under int8, as the JAX engine's compiled program
+    does it: fold the incoming tokens' per-head amax / 127 into the touched
+    blocks' scales (a scatter-max: scales only grow; at least 1e-12),
+    requantize the pool by ``old / new`` (exact where a scale did not move),
+    and quantize the new tokens last, on the grown scales, clipped to
+    +-127.
+
+    Args:
+      pool_i8: [nb, bt, H, hd] int8 pool.
+      scale: [nb, H] fp32 scales.
+      k: [N, H, hd] incoming tokens.
+      blk_flat: [N] destination block of each token.
+    Returns (requantized pool, new scale, tokens int8 [N, H, hd]).
+    """
+    tok_amax = k.float().abs().amax(dim=2)                                       # [N, H]
+    idx = blk_flat.long()[:, None].expand_as(tok_amax)
+    grown = scale.scatter_reduce(0, idx, tok_amax * _INV127, reduce="amax")
+    new_scale = grown.clamp_min(1e-12)
+    ratio = scale / new_scale                                                    # <= 1
+    requant = torch.round(pool_i8.float() * ratio[:, None, :, None]).to(torch.int8)
+    d = new_scale[blk_flat.long()]                                               # [N, H]
+    q_tok = torch.round(k.float() / d[:, :, None]).clamp_(-127, 127).to(torch.int8)
+    return requant, new_scale, q_tok
+
+
+def kv_dequantize_gather(vals_i8, scale, slot_blocks, dtype):
+    """Dequantize gathered KV columns: ``vals_i8`` [B, S, H, hd] int8,
+    ``slot_blocks`` [B, S] the pool block of each column."""
+    d = scale[slot_blocks.long()]                                                # [B, S, H]
+    return (vals_i8.float() * d[..., None]).to(dtype)

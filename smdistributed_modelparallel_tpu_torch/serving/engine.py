@@ -34,11 +34,18 @@ Sampling parity: a request served here gives token for token what
 max_new_tokens)``), the same filters (temperature, then top-k, then top-p),
 the same greedy argmax; and with the same weights, the JAX engine's tokens.
 
+**int8.** ``SMP_DECODE_WEIGHTS=int8`` keeps the resident weights as int8
+with per-channel scales in the JAX layout (``quant.quantize_decode_params``,
+at construction and at ``adopt_params``); each program dequantizes them to
+fp32 on the way in and half-casts, as the JAX engine does.
+``SMP_KV_QUANT=int8`` stores the pools int8 with per-block, per-head scales
+(``nn/utils.PagedKVCache``); ``kv_block_bytes`` counts the scales too.
+
 Left out, each refused at construction: the telemetry, chaos, fleet and
 time-series seams and the environment variables that arm them (the
-operations slice), int8 decode weights and int8 KV pools (slice 8b), and more
-than one rank (tp, pp or cp > 1; ``replica.py``, ``router.py`` and
-``controller.py`` come with slice 3).
+operations slice; the int8 knobs' ``record_quant_dispatch`` counts with
+them), and more than one rank (tp, pp or cp > 1; ``replica.py``,
+``router.py`` and ``controller.py`` come with slice 3).
 """
 
 import collections
@@ -50,6 +57,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from smdistributed_modelparallel_tpu_torch import quant
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.model import resolve_device
 from smdistributed_modelparallel_tpu_torch.nn.utils import PagedKVCache, half_cast
@@ -243,6 +251,18 @@ def _sample_rows(logits, temps, top_ks, top_ps, key_data):
     return greedy.index_copy(0, torch.as_tensor(rows, device=dev), drawn)
 
 
+class _Trunk(torch.nn.Module):
+    """The serving clone's ``trunk`` as a module's forward (its parameters
+    under "lm."), for ``torch.func.functional_call``."""
+
+    def __init__(self, lm):
+        super().__init__()
+        self.lm = lm
+
+    def forward(self, ids, paged):
+        return self.lm.trunk(ids, paged=paged)
+
+
 class ServingEngine:
     """Continuous-batching serving engine over a paged KV cache.
 
@@ -294,18 +314,31 @@ class ServingEngine:
             int(num_blocks), self.bt, self.max_blocks_per_seq
         )
         self.half = state.cfg.half_dtype if state.cfg is not None else None
-        self._param_avals = self._avals(params)
-        # The serving clone owns its (half-cast) tensors, so adopt_params
-        # copies into them without touching the caller's model.
         self.decode_mod = module.clone(
             paged_blocks=int(num_blocks), paged_block_tokens=self.bt,
             deterministic=True, decode=False, decode_cache_len=None,
         )
-        self.decode_mod.load_state_dict(
-            {k: v.detach().to(self.device, copy=True) for k, v in half_cast(params, self.half).items()},
-            assign=True,
-        )
         self.decode_mod.eval()
+        self._trunk = _Trunk(self.decode_mod)
+        # SMP_KV_QUANT is read by each layer's PagedKVCache (_init_cache).
+        quant.kv_quant_mode()
+        # SMP_DECODE_WEIGHTS=int8: weight-only int8, quantized once here (and
+        # at adopt_params): the resident tree is int8 plus per-channel scales
+        # in the JAX layout, which every program dequantizes on the way in.
+        self.qparams = None
+        if quant.decode_weights_mode() == "int8":
+            self.qparams = self._quantize(params)
+            self._param_avals = self._avals(self._flat(self.qparams))
+            self.act_dtype = self.half or torch.float32
+        else:
+            # The serving clone owns its (half-cast) tensors, so adopt_params
+            # copies into them without touching the caller's model.
+            self._param_avals = self._avals(params)
+            self.decode_mod.load_state_dict(
+                {k: v.detach().to(self.device, copy=True) for k, v in half_cast(params, self.half).items()},
+                assign=True,
+            )
+            self.act_dtype = self.decode_mod.wte.weight.dtype
         self._slots = [None] * self.slots_n
         self._queue = collections.deque()
         self._prefill_rr = 0
@@ -322,8 +355,9 @@ class ServingEngine:
         self._t0 = None
         self._init_cache()
         nb = self.alloc.num_blocks
+        # The pools' bytes a block, the int8 scales included.
         self.kv_block_bytes = sum(
-            t.numel() * t.element_size() for pair in self.kv_pools() for t in pair
+            t.numel() * t.element_size() for pools in self.kv_pools() for t in pools
         ) // nb
 
     @staticmethod
@@ -334,11 +368,6 @@ class ServingEngine:
                     f"smp.serving: {what} ({env}={os.environ.get(env)!r}) is not ported to PyTorch yet "
                     "(the operations slice)."
                 )
-        if os.environ.get("SMP_DECODE_WEIGHTS", "").strip().lower() == "int8":
-            raise NotImplementedError(
-                "smp.serving: int8 decode weights (SMP_DECODE_WEIGHTS=int8) are not ported to PyTorch yet "
-                "(slice 8b)."
-            )
         cfg = state.cfg
         if cfg is not None:
             degrees = {
@@ -356,6 +385,28 @@ class ServingEngine:
     @staticmethod
     def _avals(params):
         return {k: (tuple(v.shape), v.dtype) for k, v in params.items()}
+
+    @staticmethod
+    def _flat(qparams):
+        return {f"{part}/{k}": v for part in ("q", "s") for k, v in qparams[part].items()}
+
+    def _quantize(self, params):
+        # Copies: a leaf that stays float must not alias the caller's tensor.
+        return quant.quantize_decode_params({k: v.detach().to(self.device, copy=True) for k, v in params.items()},
+                                            self.module)
+
+    def _run(self, ids, paged, head=True):
+        """The serving clone's forward (``head``: logits) or its trunk on
+        ``ids``: on its half-cast weights, or under int8 weights on the
+        resident tree dequantized to fp32 and then half-cast, as the JAX
+        engine's ``_deq_params`` and ``_half_params`` do."""
+        mod = self.decode_mod if head else self._trunk
+        if self.qparams is None:
+            return mod(ids, paged=paged)
+        params = half_cast(quant.dequantize_decode_params(self.qparams, self.module), self.half)
+        if not head:
+            params = {"lm." + k: v for k, v in params.items()}
+        return torch.func.functional_call(mod, params, (ids,), {"paged": paged})
 
     def close(self):
         """Stop admitting. Idempotent; the engine remains usable for draining.
@@ -436,13 +487,19 @@ class ServingEngine:
                 "idle first."
             )
         t0 = time.perf_counter()
+        if self.qparams is not None:
+            # Quantized before the comparison, as in the JAX engine: the
+            # resident tree is the int8 layout.
+            params = self._flat(self._quantize(params))
+            target = self._flat(self.qparams)
+        else:
+            target = self.decode_mod.state_dict()
         if self._avals(params) != self._param_avals:
             raise SMPValidationError(
                 "adopt_params: the new checkpoint's tree does not match "
                 "the serving programs' parameter avals (structure/shape/"
                 "dtype); load the checkpoint for this model instead."
             )
-        target = self.decode_mod.state_dict()
         with torch.no_grad():
             for name, value in params.items():
                 target[name].copy_(value)
@@ -455,19 +512,20 @@ class ServingEngine:
 
     def _init_cache(self):
         """One ``PagedKVCache`` a layer, in the clone's activation dtype on
-        the serving device."""
-        dtype = self.decode_mod.wte.weight.dtype
+        the serving device (int8 pools under ``SMP_KV_QUANT=int8``)."""
         for layer in self.decode_mod.layers:
             attn = layer.attn
             attn.cache = PagedKVCache(
-                self.alloc.num_blocks, self.bt, attn.n_heads, attn.d_model // attn.n_heads, dtype, self.device
+                self.alloc.num_blocks, self.bt, attn.n_heads, attn.d_model // attn.n_heads, self.act_dtype,
+                self.device,
             )
 
     def kv_pools(self):
-        """The pools, one ``(key, value)`` pair a layer, each [num_blocks,
-        block_tokens, H, hd] (``convert.kv_pools_to_jax`` gives the JAX
-        engine's cache tree)."""
-        return [(layer.attn.cache.key, layer.attn.cache.value) for layer in self.decode_mod.layers]
+        """The pools, one tuple a layer: ``(key, value)``, each [num_blocks,
+        block_tokens, H, hd], and under int8 also ``scale_key`` and
+        ``scale_value`` [num_blocks, H] (``convert.kv_pools_to_jax`` gives the
+        JAX engine's cache tree)."""
+        return [layer.attn.cache.pools() for layer in self.decode_mod.layers]
 
     # -- the two programs -----------------------------------------------
 
@@ -481,7 +539,7 @@ class ServingEngine:
         if prog is not None:
             return prog
         S, MB, C = self.slots_n, self.max_blocks_per_seq, self.chunk
-        mod, dev = self.decode_mod, self.device
+        dev = self.device
 
         if kind == "decode":
             def prog(toks, positions, tables, temps, top_ks, top_ps, key_data):
@@ -490,7 +548,7 @@ class ServingEngine:
                                        device=dev).long()
                 with torch.inference_mode():
                     paged = {"block_tables": ints[:, 2:], "positions": ints[:, 1]}
-                    logits = mod(ints[:, :1], paged=paged)
+                    logits = self._run(ints[:, :1], paged)
                     nxt = _sample_rows(logits[:, -1].float(), temps, top_ks, top_ps, key_data)
                 return nxt.cpu().numpy()
         elif kind == "prefill":
@@ -501,9 +559,9 @@ class ServingEngine:
                     paged = {"block_tables": ints[:, C:C + MB], "positions": ints[:, -2], "valid": ints[:, -1]}
                     ids = ints[:, :C]
                     if not sample:
-                        mod.trunk(ids, paged=paged)  # fills the cache; no head, no sample
+                        self._run(ids, paged, head=False)  # fills the cache; no head, no sample
                         return None
-                    logits = mod(ids, paged=paged)
+                    logits = self._run(ids, paged)
                     last = logits[torch.arange(ids.shape[0], device=dev), ints[:, -1] - 1].float()
                     tok = _sample_rows(last, temps, top_ks, top_ps, key_data)
                 return tok.cpu().numpy()

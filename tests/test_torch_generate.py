@@ -181,8 +181,8 @@ def test_eos_freezes_rows():
     (dict(num_return_sequences=2), SMPValidationError, "num_return_sequences"),
     (dict(encoder_mask=np.ones((2, 12))), SMPValidationError, "encoder_mask"),
     (dict(max_new_tokens=300), SMPValidationError, "position limit"),
-    (dict(num_beams=2), NotImplementedError, "beam search"),
-    (dict(attention_mask=np.ones((2, 12))), NotImplementedError, "attention_mask"),
+    (dict(num_beams=2, num_return_sequences=3), SMPValidationError, "num_return_sequences"),
+    (dict(attention_mask=np.ones((2, 12))), SMPValidationError, "does not accept attention_mask"),
     (dict(temperature=1.0, rng=torch.Generator()), SMPValidationError, "rng is a key"),
 ])
 def test_validation_errors(kwargs, error, match):
@@ -199,11 +199,22 @@ def test_validation_errors(kwargs, error, match):
 
 @pytest.mark.parametrize("env", ["SMP_SHAPE_BUCKETS=seq:64,128", "SMP_DECODE_WEIGHTS=int8"])
 def test_unported_env_knobs_raise(monkeypatch, env):
+    """The two knobs that raised before they were ported now run, and give
+    the JAX package's tokens under the same setting (greedy; sampled under
+    buckets, which draw from the bucketed key schedule)."""
     name, _, value = env.partition("=")
     monkeypatch.setenv(name, value)
-    tmod = _port_lm()
-    with pytest.raises(NotImplementedError, match=name):
-        smp_torch.generate(tmod, torch.zeros((1, 4), dtype=torch.long), 2, params=tmod.state_dict())
+    jmod, params, tmod = _pair(seed=2)
+    ids = _prompts(B=2, T=5, seed=6)
+    kw = dict(temperature=0.8) if name == "SMP_SHAPE_BUCKETS" else {}
+    jkey = jax.random.key(3)
+    smp_jax.init({})
+    want = np.asarray(smp_jax.generate(jmod, jnp.asarray(ids), 3, params=params, rng=jkey, **kw))
+    smp_jax.reset()
+    got = smp_torch.generate(tmod, torch.from_numpy(ids).long(), 3, params=tmod.state_dict(),
+                             rng=key_from_jax(jax.random.key_data(jkey)), **kw).numpy()
+    assert got.shape == (2, 8)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_module_without_params_is_rejected():

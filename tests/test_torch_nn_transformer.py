@@ -353,13 +353,35 @@ def test_fused_training_matches_jax(fused_branch):
 # ----------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kw, what", [
-    (dict(num_experts=2), "MoE"),
-    (dict(decode=True, decode_cache_len=32), "decode=True"),
+@pytest.mark.parametrize("build, what", [
+    (lambda: port_tr.DistributedTransformerLMHead(**dict(TINY, num_experts=2)), "MoE"),
+    # Self-attention decodes now (test_decode_clone_matches_jax_forward);
+    # the encoder-decoder's cross-attention under decode does not yet.
+    (lambda: port_tr.DistributedAttentionLayer(4, 8, 32, cross_attention=True, decode=True, decode_cache_len=32),
+     "cross-attention under decode"),
 ], ids=["moe", "decode"])
-def test_left_out_features_raise(kw, what):
+def test_left_out_features_raise(build, what):
     with pytest.raises(NotImplementedError, match=what):
-        port_tr.DistributedTransformerLMHead(**dict(TINY, **kw))
+        build()
+
+
+def test_decode_clone_matches_jax_forward():
+    """``clone(decode=True)`` of ``TINY`` (pre-LN, learned positions): a
+    prefill and single-token steps through the KV caches give the JAX
+    module's cacheless logits at every position (fp32, 1e-5), and the clone
+    shares the module's parameters."""
+    jmod = jax_tr.DistributedTransformerLMHead(**TINY)
+    ids = _ids(seed=4)
+    params = _perturbed(jmod.init(jax.random.key(0), jnp.asarray(ids))["params"], seed=5)
+    want = np.asarray(jmod.apply({"params": params}, jnp.asarray(ids)))
+    mod = _port_lm_head(TINY, params)
+    dec = mod.clone(decode=True, decode_cache_len=T, deterministic=True)
+    assert dec.decode and dec.word_embedding.weight.data_ptr() == mod.word_embedding.weight.data_ptr()
+    x = torch.from_numpy(ids).long()
+    with torch.inference_mode():
+        got = torch.cat([dec(x[:, :5])] + [dec(x[:, t:t + 1]) for t in range(5, T)], dim=1).numpy()
+    assert dec.position_index == T
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
 def test_training_dropout_and_tp_raise(monkeypatch):

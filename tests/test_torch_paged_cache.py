@@ -3,7 +3,9 @@ JAX package's, on identical numpy inputs.
 
 ``append`` moves data only, so its pools, gathered K/V and mask must equal
 the JAX function's bit for bit: a decode step (one slot empty, on trash
-tables), a padded prefill chunk and a local window. The paged zoo's logits
+tables), a padded prefill chunk and a local window; under
+``SMP_KV_QUANT=int8`` (quantize, requantize, dequantize) as well, against
+the JAX append compiled as the JAX engine compiles it. The paged zoo's logits
 for a prefill chunk and then a decode step are held to 1e-5 of max |logit|
 in fp32 (the two packages sum in other orders), with learned and rotary
 positions.
@@ -90,9 +92,40 @@ def test_append_matches_jax_bit_for_bit(name):
 
 
 def test_kv_quant_int8_refused(monkeypatch):
+    """Under ``SMP_KV_QUANT=int8`` (once refused, now ported) the int8 append
+    equals the JAX one bit for bit, as the JAX engine's compiled program
+    runs it: int8 pools and fp32 scales (some blocks fresh at 0, the rest
+    grown before), gathered K/V dequantized to fp32, the mask, over the
+    three cases."""
     monkeypatch.setenv("SMP_KV_QUANT", "int8")
-    with pytest.raises(NotImplementedError, match="slice 8b"):
-        PagedKVCache(NB, BT, H, HD, torch.float32, "cpu")
+    for name in ("decode", "padded_prefill", "window"):
+        (k, v, tables, positions, valid, window), _ = _case(name)
+        rng = np.random.default_rng(7)
+        pk, pv = (rng.integers(-127, 128, (NB, BT, H, HD)).astype(np.int8) for _ in range(2))
+        sk, sv = (np.where(rng.random((NB, H)) < 0.5, 0.0, rng.random((NB, H)) * 0.02).astype(np.float32)
+                  for _ in range(2))
+
+        @jax.jit
+        def jax_append(cache, k, v, tables, positions, valid):
+            return _JaxPool(window=window).apply(cache, k, v, tables, positions, valid, mutable=["cache"])
+
+        cache = {"cache": {"pool_key": pk, "pool_value": pv, "scale_key": sk, "scale_value": sv}}
+        (jk, jv, jmask), mut = jax_append(cache, k, v, tables, positions, valid)
+        pool = PagedKVCache(NB, BT, H, HD, torch.float32, "cpu")
+        assert pool.key.dtype == torch.int8 and pool.scale_key.shape == (NB, H)
+        for t, a in zip(pool.pools(), (pk, pv, sk, sv)):
+            t.copy_(torch.from_numpy(a))
+        tk, tv, tmask = pool.append(
+            torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(tables), torch.from_numpy(positions),
+            valid=None if valid is None else torch.from_numpy(valid), window=window,
+        )
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk), err_msg=name)
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv), err_msg=name)
+        np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask), err_msg=name)
+        for t, leaf in zip(pool.pools(), ("pool_key", "pool_value", "scale_key", "scale_value")):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(mut["cache"][leaf]), err_msg=f"{name} {leaf}")
+        # The scales grew where the tokens landed.
+        assert (pool.scale_key.numpy() >= sk).all() and (pool.scale_key.numpy() > sk).any()
 
 
 SMALL = dict(vocab_size=97, max_len=32, d_model=32, n_layers=2, n_heads=4)

@@ -10,7 +10,8 @@ must give the JAX engine's tokens token for token, the same ``stats`` and
 the pools cannot be bit-equal; the conversion itself round-trips bit for
 bit). Each stream must also equal the port's ``smp.generate`` at batch 1.
 The rest holds the engine's protocol (validation, idempotency, resumed
-requests, drain, live weight adoption) and every refusal.
+requests, drain, live weight adoption) and every refusal. The int8 knobs
+run in ``tests/test_torch_int8_serving.py``.
 """
 
 import jax
@@ -308,13 +309,20 @@ def test_adopt_params_refusals_and_zero_cost_adoption():
 @pytest.mark.parametrize("env,value", [
     ("SMP_TIMESERIES_INTERVAL", "1.0"), ("SMP_FLEET_INTERVAL", "0.5"), ("SMP_CHAOS", "kill@decode=2"),
     ("SMP_TELEMETRY_PATH", "telemetry.json"), ("SMP_EXEC_CACHE", "on"), ("SMP_HLO_AUDIT", "on"),
-    ("SMP_AUTOSCALE", "on"), ("SMP_DECODE_WEIGHTS", "int8"), ("SMP_KV_QUANT", "int8"),
+    ("SMP_AUTOSCALE", "on"), ("SMP_DECODE_WEIGHTS", "int4"), ("SMP_KV_QUANT", "fp4"),
     # A value the JAX package would warn about and ignore is refused too.
     ("SMP_TIMESERIES_INTERVAL", "5s"), ("SMP_FLEET_INTERVAL", "fast"), ("SMP_AUTOSCALE", "yes"),
 ])
 def test_refused_env_vars(monkeypatch, env, value):
+    """Each variable that arms a left-out subsystem is refused; a bad value of
+    an int8 knob raises the JAX package's ``ValueError``
+    (``quant.kv_quant_mode`` / ``decode_weights_mode``)."""
     model, kw = _port_engine()
     monkeypatch.setenv(env, value)
+    if env in ("SMP_DECODE_WEIGHTS", "SMP_KV_QUANT"):
+        with pytest.raises(ValueError, match=f"{env}={value!r}: expected 'int8'"):
+            ServingEngine(model, **kw)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         ServingEngine(model, **kw)
 
