@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases Q # the smp.nn path under matmul_precision: fp8 only
     python3 chip_smoke.py --phases R # context-parallel training (two ranks on one card) only
     python3 chip_smoke.py --phases K # checkpoints and the data loader on the smp.nn path only
+    python3 chip_smoke.py --phases H # HuggingFace models through smp.from_hf only
     python3 chip_smoke.py --phases N # the same with the ranks on two cards (NCCL); needs two cards
     python3 chip_smoke.py --phases X # GPT-2 1.5B at 16 x 1024 with checkpointing off (its peak or OOM)
 
@@ -197,6 +198,32 @@ csrc`` (one nvcc per source, all started together), then:
      (torch.profiler), stamped with the card's name and power limit. The
      checkpoints go to ``chip_smoke_ckpt/`` beside this script and are
      removed at the end.
+  H. HuggingFace models through ``smp.from_hf``, each an ``HFModel`` (the
+     source's config.json fields and HF-named tensors made from a random
+     normal(0, 0.02) init by the port's own ``translate_state_dict_to_hf``;
+     the card's machine has no ``transformers``), whose weights translated
+     back must equal the source's bit for bit. H1: GPT-2 124M
+     (openai-community/gpt2, dropouts 0.1) under bf16, ``fused_qkv`` and
+     ``fused_bias_gelu``: (a) its fp32 logits on 2 x 512 tokens within atol
+     2e-4, rtol 2e-3 of an independent plain fp32 GPT-2 forward over the HF
+     dict; (b) 1 + 3 AdamW steps of 8 x 1024 tokens in 4 microbatches
+     (logits mode): ms/step, tokens/s, losses finite and falling, 48 launches
+     a step of each flash, ``matmul_bias`` and bias-GELU kernel on the
+     tensor-core or "vec" route and 100 ``dropout_fwd``; (c) greedy
+     ``smp.generate`` of 32 tokens after 4 prompts of 512: prefill ms, decode
+     ms/token, each token within S_MARGIN of its row's maximum in a
+     teacher-forced bf16 forward; (d) ``smp.save_checkpoint(partial=False)``:
+     its ``model`` dict has exactly the source's HF keys and shapes, and a
+     second ``from_hf`` over it gives bit-equal fp32 logits. H2: GPT-Neo
+     125M, Pythia-160M (GPT-NeoX), GPT-J 6B (2 of its 28 layers), BERT base,
+     RoBERTa base (4 right-padded rows of 128 to 512 tokens) and the ViT-B/16
+     encoder (4 x 197 hidden states) at their published widths, one bf16
+     forward each against fp32: decoders' argmax within S_MARGIN of the fp32
+     row maximum, encoders' relative error within H_ENCODER_TOL; ms and flash
+     launches by route (GPT-J's hd 256 on the CUDA cores; none for GPT-Neo,
+     whose local/global switch keeps the plain path, as in the JAX package);
+     the flash forward at GPT-J's shape against its plain version. (e) each family at the tiny widths of the CPU tests, fp32,
+     card against CPU within 1e-5.
   B. every kernel against its plain PyTorch version on the card, at the
      main paths' shapes and over a feature sweep, within stated tolerances;
      the ids-mode kernels on phase R's ring pairs (each rank's diagonal and
@@ -249,8 +276,9 @@ csrc`` (one nvcc per source, all started together), then:
      cuda:0 and cuda:1, which then talk over NCCL.
   P. (on request) torch.profiler breakdowns of a generate, phase S's burst, a training step,
      a capacity step (fused and materialized), the smp.nn path's fused,
-     unfused, fp8, dropout and checkpointed dropout steps and phase G's smp.nn
-     generate (prefill and 32 new tokens):
+     unfused, fp8, dropout and checkpointed dropout steps, phase G's smp.nn
+     generate (prefill and 32 new tokens) and phase H's ``from_hf`` GPT-2
+     step:
      device time by kernel and the device's idle share.
   X. (on request) GPT-2 1.5B at 16 x 1024 with checkpointing off, phase M's
      model and step: its peak, or the allocation that fails.
@@ -276,6 +304,7 @@ import socket
 import subprocess
 import sys
 import time
+import types
 from unittest import mock
 
 import numpy as np
@@ -301,7 +330,7 @@ _ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "PRMT")
 _FP32_OPS = ("FFMA", "FADD", "FMUL")
 
 KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8", "dropout"]
-DEFAULT_PHASES = "ASGTFLDMQRKBC"
+DEFAULT_PHASES = "ASGTFLDMQRKHBC"
 SEED = 1234
 
 
@@ -2753,6 +2782,369 @@ def phase_k(smi):
         shutil.rmtree(K_DIR, ignore_errors=True)
 
 
+# Phase H: HuggingFace models through smp.from_hf. Each source's config.json
+# fields that config_to_smp and the translators read ("architectures" and
+# "model_type" name the family); the card's machine has no transformers, so
+# each model is an HFModel of such a config and HF-named tensors.
+HF_CONFIGS = {
+    "gpt2": dict(architectures=["GPT2LMHeadModel"], model_type="gpt2", n_embd=768, n_layer=12, n_head=12,
+                 vocab_size=50257, n_positions=1024, activation_function="gelu_new", n_inner=None, attn_pdrop=0.1,
+                 resid_pdrop=0.1, embd_pdrop=0.1, layer_norm_epsilon=1e-5, initializer_range=0.02,
+                 scale_attn_weights=True, scale_attn_by_inverse_layer_idx=False, reorder_and_upcast_attn=False),
+    "gptneo": dict(architectures=["GPTNeoForCausalLM"], model_type="gpt_neo", hidden_size=768, num_layers=12,
+                   num_heads=12, vocab_size=50257, max_position_embeddings=2048,
+                   attention_types=[[["global", "local"], 6]], window_size=256, intermediate_size=None,
+                   activation_function="gelu_new", attention_dropout=0.0, resid_dropout=0.0, embed_dropout=0.0,
+                   layer_norm_epsilon=1e-5, initializer_range=0.02),
+    "gptneox": dict(architectures=["GPTNeoXForCausalLM"], model_type="gpt_neox", hidden_size=768,
+                    num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072, vocab_size=50304,
+                    max_position_embeddings=2048, rotary_pct=0.25, rotary_emb_base=10000, use_parallel_residual=True,
+                    tie_word_embeddings=False, hidden_act="gelu", layer_norm_eps=1e-5, initializer_range=0.02),
+    "gptj": dict(architectures=["GPTJForCausalLM"], model_type="gptj", n_embd=4096, n_layer=28, n_head=16,
+                 rotary_dim=64, vocab_size=50400, n_positions=2048, activation_function="gelu_new", n_inner=None,
+                 attn_pdrop=0.0, resid_pdrop=0.0, embd_pdrop=0.0, layer_norm_epsilon=1e-5, initializer_range=0.02,
+                 tie_word_embeddings=False, scale_attn_weights=True),
+    "bert": dict(architectures=["BertForMaskedLM"], model_type="bert", hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072, vocab_size=30522, max_position_embeddings=512,
+                 type_vocab_size=2, hidden_act="gelu", hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
+                 layer_norm_eps=1e-12, initializer_range=0.02, pad_token_id=0),
+    "roberta": dict(architectures=["RobertaForMaskedLM"], model_type="roberta", hidden_size=768, num_hidden_layers=12,
+                    num_attention_heads=12, intermediate_size=3072, vocab_size=50265, max_position_embeddings=514,
+                    type_vocab_size=1, hidden_act="gelu", hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
+                    layer_norm_eps=1e-5, initializer_range=0.02, pad_token_id=1),
+    "vit": dict(architectures=["ViTForImageClassification"], model_type="vit", hidden_size=768, num_hidden_layers=12,
+                num_attention_heads=12, intermediate_size=3072, hidden_act="gelu", qkv_bias=True, layer_norm_eps=1e-12,
+                hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0, initializer_range=0.02, image_size=224,
+                patch_size=16),
+}
+HF_SOURCES = {"gpt2": "openai-community/gpt2", "gptneo": "EleutherAI/gpt-neo-125M",
+              "gptneox": "EleutherAI/pythia-160m", "gptj": "EleutherAI/gpt-j-6b",
+              "bert": "google-bert/bert-base-uncased", "roberta": "FacebookAI/roberta-base",
+              "vit": "google/vit-base-patch16-224"}
+# GPT-J's depth cut from 28 to 2 layers to hold the phase's time (depth only).
+HF_REDUCED = {"gptj": dict(n_layer=2)}
+# The tiny widths of tests/test_huggingface.py's configs, for (e).
+HF_TINY = {
+    "gpt2": dict(n_embd=32, n_layer=2, n_head=2, vocab_size=64, n_positions=32, attn_pdrop=0.0, resid_pdrop=0.0,
+                 embd_pdrop=0.0),
+    "gptj": dict(n_embd=32, n_layer=2, n_head=2, vocab_size=64, n_positions=32, rotary_dim=8),
+    "gptneox": dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2, intermediate_size=64, vocab_size=64,
+                    max_position_embeddings=32, rotary_pct=0.5),
+    "bert": dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2, intermediate_size=64, vocab_size=64,
+                 max_position_embeddings=32, attention_probs_dropout_prob=0.0, hidden_dropout_prob=0.0),
+    "gptneo": dict(hidden_size=32, num_layers=2, num_heads=2, vocab_size=64, max_position_embeddings=32,
+                   intermediate_size=64, attention_types=[[["global", "local"], 1]], window_size=8),
+    "roberta": dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2, intermediate_size=64, vocab_size=64,
+                    max_position_embeddings=36, attention_probs_dropout_prob=0.0, hidden_dropout_prob=0.0),
+    "vit": dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2, intermediate_size=64, image_size=8,
+                patch_size=4),
+}
+H_DECODERS = ("gptneo", "gptneox", "gptj")
+H_ENCODER_TOL = 3e-2  # |bf16 - fp32| / |fp32| of the real rows' hidden states (BERT, RoBERTa, ViT)
+H_B, H_T, H_NEW = 4, 512, 32
+H_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_hf_ckpt")
+
+
+class HFModel:
+    """What ``smp.from_hf`` reads of a HuggingFace model: ``config`` (the
+    config.json fields as attributes) and ``state_dict()`` (HF-named
+    tensors)."""
+
+    def __init__(self, config, state_dict):
+        self.config = types.SimpleNamespace(**copy.deepcopy(config))
+        self._state_dict = state_dict
+
+    def state_dict(self):
+        return dict(self._state_dict)
+
+
+def hf_model(config, std=0.02, generator=None, device="cuda"):
+    """An ``HFModel`` of ``config`` whose tensors are the port's random init
+    (normal(0, ``std``) from ``generator``, unit layernorms) in the family's HF
+    names, made by the port's own ``translate_state_dict_to_hf``; on the
+    CPU."""
+    from smdistributed_modelparallel_tpu_torch import convert
+    from smdistributed_modelparallel_tpu_torch.nn.huggingface import family_for, translate_model
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+
+    shell = HFModel(config, {})
+    fam = family_for(shell)
+    module, _, _ = translate_model(shell.config, device=device)
+    init_weights_(module, std, generator)
+    H = module.num_attention_heads if fam.target == "lmhead" else config["num_attention_heads"]
+    to_jax = convert.lm_head_params_to_jax if fam.target == "lmhead" else convert.transformer_params_to_jax
+    flat = to_jax(module.state_dict(), H)
+    del module
+    sd = fam.translate_to_hf(flat, config=shell.config)
+    return HFModel(config, {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()})
+
+
+def _h_round_trip(model, hf):
+    """Keys of ``hf``'s state dict that ``model``'s weights, translated back
+    to HF names, do not give bit for bit (any key missing or extra included)."""
+    to_hf = model._translate_functions[0]
+    back = to_hf(model.reference_state_dict())
+    src = hf.state_dict()
+    bad = sorted(set(back) ^ set(src))
+    bad += [k for k in sorted(set(back) & set(src)) if not np.array_equal(np.asarray(back[k]), src[k].numpy())]
+    return bad
+
+
+def plain_gpt2_logits(sd, ids, n_head, eps):
+    """fp32 GPT-2 logits of ``ids`` from the HF-named state dict ``sd``
+    (tensors on ids' device), written from the HF model's definition and
+    using none of the port: Conv1D products (x @ W + b), gelu_new, a causal
+    softmax and the head tied to ``wte``."""
+    import torch.nn.functional as F
+
+    w = lambda k: sd[k].float()  # noqa: E731
+    B, T = ids.shape
+    x = w("transformer.wte.weight")[ids] + w("transformer.wpe.weight")[:T]
+    D = x.shape[-1]
+    hd = D // n_head
+    causal = torch.ones(T, T, dtype=torch.bool, device=ids.device).tril()
+    i = 0
+    while f"transformer.h.{i}.ln_1.weight" in sd:
+        p = f"transformer.h.{i}."
+        h = F.layer_norm(x, (D,), w(p + "ln_1.weight"), w(p + "ln_1.bias"), eps)
+        q, k, v = (h @ w(p + "attn.c_attn.weight") + w(p + "attn.c_attn.bias")).split(D, dim=-1)
+        q, k, v = (t.reshape(B, T, n_head, hd).transpose(1, 2) for t in (q, k, v))
+        s = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
+        a = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1) @ v
+        x = x + a.transpose(1, 2).reshape(B, T, D) @ w(p + "attn.c_proj.weight") + w(p + "attn.c_proj.bias")
+        h = F.layer_norm(x, (D,), w(p + "ln_2.weight"), w(p + "ln_2.bias"), eps)
+        h = F.gelu(h @ w(p + "mlp.c_fc.weight") + w(p + "mlp.c_fc.bias"), approximate="tanh")
+        x = x + h @ w(p + "mlp.c_proj.weight") + w(p + "mlp.c_proj.bias")
+        i += 1
+    x = F.layer_norm(x, (D,), w("transformer.ln_f.weight"), w("transformer.ln_f.bias"), eps)
+    return x @ w("lm_head.weight").t()
+
+
+def h_inputs(name, config, B, T, gen, device="cuda"):
+    """Phase H's input of a family: ``(args, kwargs, real)`` of the model
+    call and a bool [B, T] of its real rows. Decoders: [B, T] ids. BERT and
+    RoBERTa: B rows of lengths in [T / 4, T] drawn from ``gen``, right-padded
+    with the pad id under a key-padding mask ([B, 1, 1, T] bool, True keeps),
+    token types 0. ViT: [B, T, D] hidden states."""
+    if name == "vit":
+        x = torch.randn(B, T, config["hidden_size"], generator=gen, device=device)
+        return (x,), {}, torch.ones(B, T, dtype=torch.bool, device=device)
+    V = config["vocab_size"]
+    ids = torch.randint(2, V, (B, T), generator=gen, device=device)
+    if name not in ("bert", "roberta"):
+        return (ids,), {}, torch.ones(B, T, dtype=torch.bool, device=device)
+    lens = torch.randint(T // 4, T + 1, (B,), generator=gen, device=device)
+    real = torch.arange(T, device=device)[None, :] < lens[:, None]
+    ids = torch.where(real, ids, config["pad_token_id"])
+    return (ids,), dict(token_type_ids=torch.zeros_like(ids), attention_mask=real[:, None, None, :]), real
+
+
+def _h_tiny_exact():
+    """(e): each family at the tiny widths, fp32, on the card and on the CPU
+    from the same weights: the largest |difference| of the outputs."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    smp.init({})
+    errs = {}
+    for name, tiny in HF_TINY.items():
+        config = dict(HF_CONFIGS[name], **tiny)
+        hf = hf_model(config, 0.02, torch.Generator().manual_seed(SEED), device="cpu")
+        T = 5 if name == "vit" else 16
+        args, kw, _ = h_inputs(name, config, 2, T, torch.Generator().manual_seed(SEED), device="cpu")
+        outs = []
+        for device in ("cpu", "cuda"):
+            model = smp.from_hf(hf, device=device).eval()
+            with torch.no_grad():
+                out = model(*(a.to(device) for a in args), **{k: v.to(device) for k, v in kw.items()})
+            outs.append(out.cpu())
+        errs[name] = float((outs[0] - outs[1]).abs().max())
+    smp.reset()
+    return errs
+
+
+def _h_counters():
+    return {**_flash_counters(), **_new_counters(), **_dropout_counters(), **_simt_counters()}
+
+
+def phase_h():
+    """HuggingFace models through ``smp.from_hf``: GPT-2 124M logits against
+    an independent plain forward, training, generation and the HF-named
+    save (H1); six more families' bf16 forwards against fp32 (H2); every
+    family at tiny widths on the card against the CPU (e)."""
+    import pickle
+    import shutil
+
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+
+    failures = []
+    tiny = _h_tiny_exact()
+    log(f"[H] (e) fp32, tiny widths, card vs CPU, max |diff|: {tiny} (limit 1e-5)")
+    if max(tiny.values()) > 1e-5:
+        failures.append("(e)")
+
+    # H1: GPT-2 124M through smp.from_hf.
+    smp.init({"bf16": True, "fused_qkv": True, "microbatches": TRAIN_MB})
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    cfg = HF_CONFIGS["gpt2"]
+    hf = hf_model(cfg, 0.02, g)
+    model = smp.from_hf(hf, fused_bias_gelu=True)
+    bad = _h_round_trip(model, hf)
+    if bad:
+        failures.append(f"H1 round trip {bad[:4]}")
+    model.eval()
+    ids_a = torch.randint(0, cfg["vocab_size"], (2, H_T), generator=g, device="cuda")
+    with torch.no_grad():
+        ours = model(ids_a)
+        ref = plain_gpt2_logits({k: v.cuda() for k, v in hf.state_dict().items()}, ids_a, cfg["n_head"],
+                                cfg["layer_norm_epsilon"])
+    err_a = float((ours - ref).abs().max())
+    ok_a = bool(torch.allclose(ours, ref, atol=2e-4, rtol=2e-3))
+    log(f"[H] H1 (a) GPT-2 124M ({HF_SOURCES['gpt2']}) via smp.from_hf, fp32 logits on 2 x {H_T} tokens against the "
+        f"plain HF-named forward: max |diff| {err_a:.3e}, max |logit| {float(ref.abs().max()):.3f} (atol 2e-4, rtol "
+        f"2e-3) {'ok' if ok_a else 'FAIL'}; round trip to HF names bit-equal: {not bad}")
+    if not ok_a:
+        failures.append("H1 (a)")
+    del ours, ref
+
+    # (b) training: GPT-2's dropouts 0.1, logits mode, AdamW.
+    model.train()
+    optimizer, train_step = _lm_optimizer_step(model)
+    ids = torch.randint(0, cfg["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
+    counters = _h_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    losses = [float(train_step(model, ids).reduce_mean())]
+    optimizer.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        losses.append(train_step(model, ids).reduce_mean())
+        optimizer.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 3
+    losses = [float(x) for x in losses]
+    train = {k: fn.launches for k, fn in counters.items()}
+    log(f"[H] H1 (b) training, batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MB} microbatches, dropouts 0.1, "
+        f"fused_qkv + fused_bias_gelu: {step_ms:.2f} ms/step, {ids.numel() / step_ms * 1e3:.1f} tokens/s (mean of 3 "
+        f"steps after 1 warm-up); losses {losses}")
+    log(f"[H] H1 (b) launches over 4 steps: {train}")
+    per_step = cfg["n_layer"] * TRAIN_MB
+    want = {**{k: 4 * per_step for k in {**_flash_counters(), **_new_counters()}},
+            "dropout_fwd": 4 * (1 + 2 * cfg["n_layer"]) * TRAIN_MB}
+    if any(train[k] != n for k, n in want.items()):
+        failures.append(f"H1 (b) launches {train}, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        failures.append(f"H1 (b) losses {losses}")
+
+    # (c) generation, greedy; the teacher-forced yardstick runs without dropout.
+    model.eval()
+    prompts = torch.randint(0, cfg["vocab_size"], (H_B, H_T), generator=g, device="cuda")
+    smp.generate(model, prompts, 2)  # warm-up, not counted
+    for fn in counters.values():
+        fn.launches = 0
+    _, prefill_ms = _timed(lambda: smp.generate(model, prompts, 1))
+    greedy, greedy_ms = _timed(lambda: smp.generate(model, prompts, H_NEW))
+    gen = {k: fn.launches for k, fn in counters.items()}
+    forwards = 1 + H_NEW
+    want = {"flash_fwd": 2 * cfg["n_layer"], "matmul_bias": forwards * cfg["n_layer"],
+            "bias_gelu_fwd": forwards * cfg["n_layer"]}
+    if any(gen[k] != n for k, n in want.items()):
+        failures.append(f"H1 (c) launches {gen}, expected {want}")
+    bf16_module = copy.deepcopy(model.module).to(torch.bfloat16).eval()
+    margin = _g_margin(lambda x: bf16_module(x)[0], _g_rows([p.tolist() for p in prompts], greedy, H_T, H_NEW))
+    del bf16_module
+    log(f"[H] H1 (c) smp.generate, {H_B} prompts of {H_T}, {H_NEW} new tokens, greedy: prefill {prefill_ms:.2f} ms, "
+        f"decode {(greedy_ms - prefill_ms) / (H_NEW - 1):.3f} ms/token; worst greedy token {margin:.3e} of its row's "
+        f"max |logit| below the row's maximum (limit {S_MARGIN:.0e}); launches {gen}")
+    if margin > S_MARGIN or greedy.shape != (H_B, H_T + H_NEW):
+        failures.append("H1 (c)")
+
+    # (d) the full checkpoint in HF names, and a second from_hf over it.
+    try:
+        t0 = time.perf_counter()
+        smp.save_checkpoint(H_DIR, tag="hf", partial=False)
+        save_s = time.perf_counter() - t0
+        with open(os.path.join(H_DIR, "hf"), "rb") as fh:
+            saved = pickle.load(fh)["model"]
+    finally:
+        shutil.rmtree(H_DIR, ignore_errors=True)
+    src = hf.state_dict()
+    shapes_ok = set(saved) == set(src) and all(tuple(np.shape(saved[k])) == tuple(src[k].shape) for k in src)
+    again = smp.from_hf(HFModel(cfg, {k: torch.from_numpy(np.array(v)) for k, v in saved.items()}),
+                        fused_bias_gelu=True).eval()
+    with torch.no_grad():
+        same = torch.equal(model(ids_a), again(ids_a))
+    log(f"[H] H1 (d) smp.save_checkpoint(partial=False) after training: {save_s:.2f} s; its model dict has the source's "
+        f"{len(src)} HF keys and shapes: {shapes_ok}; a second from_hf over it gives bit-equal fp32 logits: {same}")
+    if not (shapes_ok and same):
+        failures.append("H1 (d)")
+    launches = {k: train[k] + gen[k] for k in train}
+    del model, again, optimizer, train_step, hf
+    smp.reset()
+    torch.cuda.empty_cache()
+
+    # H2: the other families, bf16 against fp32, one forward each.
+    smp.init({})
+    for name in ("gptneo", "gptneox", "gptj", "bert", "roberta", "vit"):
+        cfg = dict(HF_CONFIGS[name], **HF_REDUCED.get(name, {}))
+        hf = hf_model(cfg, 0.02, g)
+        model = smp.from_hf(hf).eval()
+        bad = _h_round_trip(model, hf)
+        del hf
+        T = 197 if name == "vit" else H_T
+        args, kw, real = h_inputs(name, cfg, H_B, T, g)
+        with torch.no_grad():
+            out32 = model(*args, **kw).float()
+            model.module.to(torch.bfloat16)
+            args = tuple(a.to(torch.bfloat16) if a.is_floating_point() else a for a in args)
+            model(*args, **kw)  # warm-up
+            for fn in counters.values():
+                fn.launches = 0
+            out16, ms = _timed(lambda: model(*args, **kw))
+        fwd = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        launches = {k: launches.get(k, 0) + fwd.get(k, 0) for k in set(launches) | set(fwd)}
+        out16 = out16.float()
+        if name in H_DECODERS:
+            pick = out32.gather(-1, out16.argmax(-1, keepdim=True))[..., 0]
+            err = float(((out32.amax(-1) - pick) / out32.abs().amax(-1)).max())
+            lim, what = S_MARGIN, "worst bf16 argmax below the fp32 row maximum, of max |logit|"
+        else:
+            err = float((out16[real] - out32[real]).norm() / out32[real].norm())
+            lim, what = H_ENCODER_TOL, "|bf16 - fp32| / |fp32| over the real rows"
+        # GPT-Neo's per-layer local/global switch keeps every layer on the plain
+        # path, as the JAX package's gate does (ops/attention.py, local_select).
+        n_flash = 0 if name == "gptneo" else len(
+            model.module.seq_layers if name == "vit" else model.module.transformer.seq_layers)
+        route = "simt" if name == "gptj" else "wgmma"
+        got = {"wgmma": fwd.get("flash_fwd", 0), "simt": fwd.get("flash_fwd_simt", 0)}
+        ok = err <= lim and not bad and got == {r: n_flash if r == route else 0 for r in got}
+        log(f"[H] H2 {name} ({HF_SOURCES[name]}{', ' + str(HF_REDUCED[name]) if name in HF_REDUCED else ''}), "
+            f"{tuple(args[0].shape)}: bf16 forward {ms:.2f} ms; {what} {err:.3e} (limit {lim:.0e}); flash_fwd "
+            f"launches by route {got} (expected {n_flash} on {route}); round trip bit-equal: {not bad} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"H2 {name}")
+        del model, out32, out16, args, kw
+        torch.cuda.empty_cache()
+
+    # GPT-J's flash forward at its shape (hd 256) against the plain version.
+    saved_counts = {k: fn.launches for k, fn in counters.items()}
+    q, k, v = _inputs(H_B, H_T, H_T, 16, 256, torch.bfloat16, g)
+    err, ok, detail = fwd_check(lambda: flash_attention(q, k, v), flash_attention_reference(q, k, v), flash_attention,
+                                "simt", torch.bfloat16, TOL[torch.bfloat16], float(v.float().abs().max()))
+    for key, fn in counters.items():
+        fn.launches = saved_counts[key]  # comparison launches do not count
+    log(f"[H] flash_fwd at GPT-J's shape B {H_B} T {H_T} H 16 hd 256 bf16 causal: {detail} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("flash_fwd hd 256")
+    smp.reset()
+    _check_route("phase H (H1)", {k: train[k] + gen[k] for k in train})
+    if failures:
+        raise RuntimeError(f"phase H: {failures}")
+    return launches
+
+
 def _inputs(B, T, S, H, hd, dtype, gen):
     q = torch.randn(B, T, H, hd, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
@@ -4512,13 +4904,26 @@ def phase_p():
     for new in (1, G_NEW):
         prof, wall_ms = profiled(lambda: smp.generate(model, ids, new, attention_mask=mask))
         _profile_report(f"smp.nn generate, phase G's padded batch {tuple(ids.shape)}, new={new}", prof, wall_ms, 10)
+    del model, lm
+
+    # Phase H1's training step: GPT-2 124M from smp.from_hf, dropouts 0.1.
+    smp.init({"bf16": True, "fused_qkv": True, "microbatches": TRAIN_MB})
+    model = smp.from_hf(hf_model(HF_CONFIGS["gpt2"], 0.02, g), fused_bias_gelu=True)
+    optimizer, train_step = _lm_optimizer_step(model)
+    ids = torch.randint(0, 50257, (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
+    for _ in range(TRAIN_WARMUP):
+        train_step(model, ids)
+        optimizer.step()
+    prof, wall_ms = profiled(one_step)
+    _profile_report(f"smp.from_hf GPT-2 step batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MB} microbatches, fused, "
+                    "dropout 0.1 (phase H1)", prof, wall_ms, 16)
     smp.reset()
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, K, B, C (the default, all thirteen), P (profiles) and N "
+                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, K, H, B, C (the default, all fourteen), P (profiles) and N "
              "(phase R's ranks on two cards, over NCCL) and X (GPT-2 1.5B at 16 x 1024 with checkpointing off)")
     parser.add_argument("--k-child", metavar="DIR", help=argparse.SUPPRESS)  # phase K's resumed run
     args = parser.parse_args()
@@ -4542,7 +4947,7 @@ def main():
     build()
     log(f"[time] build {time.perf_counter() - started:.1f} s")
     serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches = {}, {}, {}, {}, {}, {}
-    k_launches, d_launches, m_launches, s_launches, g_launches = {}, {}, {}, {}, {}
+    k_launches, d_launches, m_launches, s_launches, g_launches, h_launches = {}, {}, {}, {}, {}, {}
     errs = timing = None
     if "A" in args.phases:
         serve_launches = phase_a()
@@ -4570,6 +4975,8 @@ def main():
         phase_r(device=None)
     if "K" in args.phases:
         k_launches, _ = phase_k(smi)
+    if "H" in args.phases:
+        h_launches = phase_h()
     if "B" in args.phases:
         errs = phase_b()
     if "C" in args.phases:
@@ -4587,10 +4994,11 @@ def main():
     # checkpointed run (K: before and after the save, the resumed child and
     # the full-checkpoint resume), the dropout run (D: its timed blocks) and
     # the checkpointed runs (M: every block and every 1.5B run), the serving
-    # engine's burst (S) and generation through the smp.nn LM head (G: G1-G4),
-    # each counted from 0 just before it.
+    # engine's burst (S), generation through the smp.nn LM head (G: G1-G4) and
+    # the HF models through smp.from_hf (H: H1's training and generation, H2's
+    # bf16 forwards), each counted from 0 just before it.
     paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches, k_launches,
-             d_launches, m_launches, s_launches, g_launches)
+             d_launches, m_launches, s_launches, g_launches, h_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"

@@ -31,6 +31,14 @@ before the model is built; ``smp.checkpoint`` and
 memory under ``offload_activations`` (``parallel/memory.py``).
 ``smp.serving.ServingEngine`` serves a stream of ragged requests from the
 zoo by continuous batching over a paged KV cache (``serving/``).
+``smp.from_hf`` takes a HuggingFace GPT-2, GPT-J, GPT-Neo, GPT-NeoX, BERT,
+RoBERTa or ViT model (or any object with its ``config`` and ``state_dict()``;
+``transformers`` is optional) onto the ``smp.nn`` modules, and its full
+checkpoints save back to HF names (``nn/huggingface``). Modules built inside
+``smp.tensor_parallelism()`` (or marked by ``smp.set_tensor_parallelism``)
+are swapped for their registered ``smp.nn`` counterparts when the
+``DistributedModel`` is built (``nn/auto_distribute.py``, ``smp.tp_register``);
+at tp = 1 they compute what the originals do.
 
     import torch
     import smdistributed_modelparallel_tpu_torch as smp
@@ -56,7 +64,15 @@ zoo by continuous batching over a paged KV cache (``serving/``).
     # Resume, in this package or the JAX one: smp.init, then
     # smp.resume_from_checkpoint("/path/to/ckpt") before or after the model
     # and optimizer are built.
+
+    # An HF model: train it, save it back to HF names.
+    model = smp.from_hf(hf_model, fused_bias_gelu=True)
+    smp.save_checkpoint("/path/to/ckpt", partial=False)  # its "model" dict loads into hf_model
 """
+
+from contextlib import contextmanager
+
+import torch
 
 from smdistributed_modelparallel_tpu_torch import amp, nn, quant, serving
 from smdistributed_modelparallel_tpu_torch.backend.config import ModelParallelConfig
@@ -72,11 +88,15 @@ from smdistributed_modelparallel_tpu_torch.checkpoint import (
 )
 from smdistributed_modelparallel_tpu_torch.generation import generate
 from smdistributed_modelparallel_tpu_torch.model import DistributedModel
+from smdistributed_modelparallel_tpu_torch.nn.huggingface import from_hf
+from smdistributed_modelparallel_tpu_torch.nn.tp_registry import tp_register, tp_register_with_module
 from smdistributed_modelparallel_tpu_torch.optimizer import DistributedOptimizer
 from smdistributed_modelparallel_tpu_torch.step import step
 from smdistributed_modelparallel_tpu_torch.utils.data import dataloader, prefetch_to_device, shard_batches
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
+    NotInitializedError,
     SMPRuntimeError,
+    SMPUnsupportedError,
     SMPValidationError,
     StepUsageError,
 )
@@ -138,8 +158,9 @@ def get_cp_group():
 
 def reset():
     """Drop the config, device, model, optimizer, loss scaler, quant
-    state, step count, activation-checkpoint configs and any checkpoint
-    state waiting to be applied."""
+    state, step count, the module annotations (activation-checkpoint
+    configs, tp marks, partitions), the tp registry and any checkpoint state
+    waiting to be applied."""
     state.reset()
 
 
@@ -159,6 +180,95 @@ def set_activation_checkpointing(module_prefix, **config):
     it on when the ``DistributedModel`` is built. Call it after
     ``smp.init``."""
     _module_manager().set_activation_checkpointing(module_prefix, **config)
+
+
+def partition(stage):
+    """Context: registered modules built inside are assigned to pipeline
+    stage ``stage`` (recorded when the ``DistributedModel`` is built; at
+    pp = 1 only stage 0 exists)."""
+    return _module_manager().partition(stage)
+
+
+def set_partition(module_prefix, stage):
+    """Assign the modules under ``module_prefix`` to pipeline stage
+    ``stage``."""
+    _module_manager().set_partition(module_prefix, stage)
+
+
+def get_partition(module_prefix):
+    """The pipeline stage that runs ``module_prefix`` (a '/'-joined path)."""
+    from smdistributed_modelparallel_tpu_torch.module_manager import _normalize_prefix
+
+    if not isinstance(module_prefix, str):
+        raise SMPValidationError(
+            f"get_partition expects a '/'-joined module path string (got {type(module_prefix).__name__})."
+        )
+    return _module_manager().stage_of(_normalize_prefix(module_prefix))
+
+
+def set_tensor_parallelism(module_prefix, enabled=True, **tp_config):
+    """Mark (or, ``enabled=False``, unmark) the module at ``module_prefix``
+    for distribution with ``tp_config``."""
+    _module_manager().set_tensor_parallelism(module_prefix, enabled, **tp_config)
+
+
+@contextmanager
+def tensor_parallelism(enabled=True, **tp_config):
+    """Context: registered modules built inside are marked for distribution
+    with ``tp_config`` (``enabled=False`` leaves them unmarked), and swapped
+    for their registered ``smp.nn`` counterparts when the
+    ``DistributedModel`` is built."""
+    from smdistributed_modelparallel_tpu_torch.nn.huggingface import register_predefined_hooks
+
+    if state.tp_registry is not None:
+        register_predefined_hooks(state.tp_registry)  # transformers may have been imported since smp.init
+    mm = _module_manager()
+    prev, mm._active_tp = mm._active_tp, {"enabled": enabled, **tp_config}
+    try:
+        yield
+    finally:
+        mm._active_tp = prev
+
+
+@contextmanager
+def delay_param_initialization(enabled=True):
+    """Context: modules built inside create their parameters on the model's
+    device (``smp.init``'s, else cuda), so no host copy of the full model is
+    made; the JAX package gets the same by initializing lazily into the
+    device shardings. ``enabled=False`` raises, as in the JAX package."""
+    if not enabled:
+        raise SMPUnsupportedError(
+            "delay_param_initialization(enabled=False) is not supported: parameters are always created on "
+            "the model's device."
+        )
+    from smdistributed_modelparallel_tpu_torch.model import resolve_device
+
+    with resolve_device(None):
+        yield
+
+
+@contextmanager
+def model_creation(tensor_parallelism=False, dtype=None, **tensor_parallel_config):
+    """Context for building a model: ``tensor_parallelism`` marks the
+    registered modules built inside (``smp.tensor_parallelism``), and their
+    parameters are created on the device (``delay_param_initialization``).
+    ``dtype`` must be float32 or the configured half dtype (the step casts
+    the fp32 master parameters to it); a conflict raises."""
+    if dtype is not None:
+        # The live config only: after smp.reset() there is none to agree with.
+        if not state.initialized:
+            raise NotInitializedError("smp.model_creation(dtype=...)")
+        half = state.cfg.half_dtype
+        if dtype not in (torch.float32, half):
+            raise SMPValidationError(
+                f"model_creation(dtype={dtype}) conflicts with the configured compute dtype ({half or 'float32'}); "
+                "set the bf16/fp16 config key instead of a per-model dtype."
+            )
+    # The parameter shadows the context of the same name (the reference's
+    # signature names both).
+    tp_ctx = globals()["tensor_parallelism"]
+    with tp_ctx(enabled=tensor_parallelism, **tensor_parallel_config), delay_param_initialization():
+        yield
 
 
 # Bound after the ``checkpoint`` submodule's import above, so that
@@ -193,13 +303,18 @@ __all__ = [
     "cp_rank",
     "cp_size",
     "dataloader",
+    "delay_param_initialization",
+    "from_hf",
     "generate",
     "get_cp_group",
+    "get_partition",
     "init",
     "is_initialized",
     "load",
     "local_rank",
+    "model_creation",
     "nn",
+    "partition",
     "prefetch_to_device",
     "quant",
     "rank",
@@ -209,8 +324,13 @@ __all__ = [
     "save_checkpoint",
     "serving",
     "set_activation_checkpointing",
+    "set_partition",
+    "set_tensor_parallelism",
     "shard_batches",
     "size",
     "step",
+    "tensor_parallelism",
+    "tp_register",
+    "tp_register_with_module",
     "wait_for_checkpoints",
 ]

@@ -44,8 +44,16 @@ Outside a step (``smp.generate``, a bare model call) every rank holds whole
 sequences and computes as at cp = 1.
 
 ``module_manager`` is the ``module_manager.ModuleManager`` that
-``smp.set_activation_checkpointing`` fills (after ``smp.init``, before the
+``smp.set_activation_checkpointing``, ``smp.set_tensor_parallelism``,
+``smp.set_partition`` and their contexts fill (after ``smp.init``, before the
 model is built); ``smp.init`` and ``smp.reset`` clear it.
+
+``tp_registry`` is the ``nn/tp_registry.TensorParallelismRegistry`` that
+``DistributedModel`` distributes tp-marked modules from: ``smp.init`` keeps
+the one ``smp.tp_register`` may have made before it, or makes one, and
+registers the built-ins (``nn.Linear``, ``nn.Embedding``) and, where
+``transformers`` has been imported, the HF families' classes. ``smp.reset``
+drops it.
 """
 
 import os
@@ -84,7 +92,11 @@ class ModelParallelState:
 
     def initialize(self, cfg, device=None):
         from smdistributed_modelparallel_tpu_torch.backend.topology import DeviceTopology
+        from smdistributed_modelparallel_tpu_torch.nn.auto_distribute import register_builtins
+        from smdistributed_modelparallel_tpu_torch.nn.huggingface import register_predefined_hooks
+        from smdistributed_modelparallel_tpu_torch.nn.tp_registry import TensorParallelismRegistry
 
+        registry = self.tp_registry
         self.reset()
         launched = "WORLD_SIZE" in os.environ or "LOCAL_RANK" in os.environ
         world = _env_int("WORLD_SIZE", 1)
@@ -100,6 +112,9 @@ class ModelParallelState:
         self.world_size, self.rank, self.local_rank = world, rank, local_rank
         self.topology = topology
         self.rng_manager = RngManager(cfg.tensor_parallel_seed)
+        self.tp_registry = registry or TensorParallelismRegistry()
+        register_builtins(self.tp_registry)
+        register_predefined_hooks(self.tp_registry)
         if world > 1:
             self.groups = _build_groups(topology, world, rank, device)
         logger.info("Initialized %s over %d rank(s); this is rank %d.", topology, world, rank)
@@ -125,7 +140,8 @@ class ModelParallelState:
         self.topology = None
         self.groups = {}
         self.cp_sharded = False
-        self.module_manager = None  # smp.set_activation_checkpointing's registry (module_manager.py)
+        self.module_manager = None  # the module annotations (module_manager.py)
+        self.tp_registry = None
 
     def check(self):
         if self.cfg is None:

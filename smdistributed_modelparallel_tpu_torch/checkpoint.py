@@ -19,7 +19,12 @@ packages in either direction:
   directories and sweeps interrupted ones;
 - ``save_checkpoint(partial=False)``: one pickle ``{path}/{tag}`` whose
   ``model`` and ``optimizer`` entries are the same reference-keyed dicts, so
-  the JAX package loads them;
+  the JAX package loads them; under ``translate_if_full`` (the default) the
+  ``model`` dict goes through the model's ``to_hf`` translator where it has
+  one (``smp.from_hf`` gives it the family's, which emits the source's HF
+  names; else the tp registry's entry for the module's class): a dict the HF
+  class loads. A translator that raises is logged and the dict saved as it
+  is, as the JAX package does;
 - ``blocking=False``: the tensors are copied to the host before the call
   returns (torch updates parameters and moments in place, so a copy still in
   flight at the next ``optimizer.step()`` would save half-updated weights);
@@ -33,13 +38,10 @@ packages in either direction:
   (``resilience/elastic.py``): each leaf is reassembled whole from its pieces.
 
 Ranks are ``torch.distributed`` ranks (``backend/state.py``). Left out until
-their slices: the goodput ``ckpt_save``/``ckpt_restore`` scopes, the
-executable cache's warm-start note, and translation of full checkpoints to
-HF layout: ``translate_if_full`` is accepted and the dict saved as it is, as
-the JAX package does while no tp registry holds a translate function.
-Unlike the JAX package, whose recovery supervisor restores the step edge,
-``resume_from_checkpoint`` sets ``state.step_count`` from the checkpoint
-itself.
+their slices: the goodput ``ckpt_save``/``ckpt_restore`` scopes and the
+executable cache's warm-start note. Unlike the JAX package, whose recovery
+supervisor restores the step edge, ``resume_from_checkpoint`` sets
+``state.step_count`` from the checkpoint itself.
 """
 
 import glob
@@ -272,6 +274,8 @@ def save_checkpoint(path, tag=None, model=None, optimizer=None,
             _commit_checkpoint(path, ckpt_dir, tag, num_kept_partial_checkpoints, seq, me, world)
     else:
         sd = model.reference_state_dict() if model is not None else {}
+        if translate_if_full:
+            sd = _maybe_translate_to_hf(model, sd)
         payload = {
             "model": sd,
             "user_content": user_content,
@@ -297,6 +301,25 @@ def save_checkpoint(path, tag=None, model=None, optimizer=None,
 
 
 _SAVE_SEQ = 0
+
+
+def _maybe_translate_to_hf(model, sd):
+    """``sd`` through the model's ``to_hf`` translator (its own
+    ``translate_functions``, else the tp registry's for its module's class),
+    or as it is when it has none or the translator raises."""
+    if model is None:
+        return sd
+    fns = getattr(model, "_translate_functions", None)
+    if fns is None and state.tp_registry is not None:
+        fns = state.tp_registry.translate_functions(type(model.module))
+    if fns is None:
+        return sd
+    to_hf = fns[0] if isinstance(fns, (tuple, list)) else fns
+    try:
+        return to_hf(sd)
+    except Exception:  # a user translator: log it and keep the untranslated dict
+        logger.warning("HF state-dict translation failed; saving the untranslated dict.", exc_info=True)
+        return sd
 
 
 def _commit_timeout():

@@ -36,6 +36,11 @@ layers), under ``SMP_KV_QUANT=int8`` with ``scale_key``/``scale_value``
 [n_layers, num_blocks, H] beside the int8 pools, against the port's
 per-layer pools (``ServingEngine.kv_pools()``), bit for bit.
 
+``transformer_params_from_jax`` and ``transformer_params_to_jax`` do the
+same for a bare ``DistributedTransformer`` (the ViT encoder's module), whose
+flax leaves sit under ``seq_layers/layer/``: the LM head's map of its
+``transformer`` subtree.
+
 ``params_to_jax`` and ``lm_head_params_to_jax`` are the exact inverses: a
 port ``state_dict`` (or any ``{torch name: tensor}`` of the same names, such
 as AdamW's moments) becomes the '/'-joined flat dict of numpy arrays that the
@@ -309,6 +314,23 @@ def lm_head_params_to_jax(state_dict, num_attention_heads, host=True):
             key, arr = _lm_head_leaf_to_jax(name, value, num_attention_heads)
             out[key] = arr
     return _to_jax_arrays(out, layers, "DistributedTransformerLMHead tensor", host)
+
+
+def transformer_params_from_jax(params):
+    """flax params of a bare ``DistributedTransformer`` (the layer stack, its
+    leaves under ``seq_layers/layer/``) -> ``state_dict`` of the port's
+    ``DistributedTransformer``: the LM head's map of its ``transformer``
+    subtree."""
+    sd = lm_head_params_from_jax({"transformer/" + k: v for k, v in _flatten(params).items()})
+    return {k.removeprefix("transformer."): v for k, v in sd.items()}
+
+
+def transformer_params_to_jax(state_dict, num_attention_heads, host=True):
+    """``state_dict`` of the port's ``DistributedTransformer`` -> the JAX
+    package's flat dict (keys under ``seq_layers/layer/``); the inverse of
+    ``transformer_params_from_jax``."""
+    flat = lm_head_params_to_jax({"transformer." + k: v for k, v in state_dict.items()}, num_attention_heads, host)
+    return {k.removeprefix("transformer/"): v for k, v in flat.items()}
 
 
 _KV_LEAVES = ("pool_key", "pool_value", "scale_key", "scale_value")

@@ -21,10 +21,16 @@ restarts with each model call, as flax's ``apply`` does. Outside a step
 there is no key, and a module that draws one raises, as flax's
 ``make_rng`` does in the JAX package.
 
-Activation checkpointing. A config registered with
-``smp.set_activation_checkpointing`` before the model is built turns on the
-``activation_checkpointing`` flag of every module it touches (the JAX
-package's rule, ``_ckpt_config_touches``). A checkpointed region
+Distribution. Before the module moves to its device, ``nn/auto_distribute.
+distribute_tree`` swaps its tp-marked modules (``smp.tensor_parallelism()``,
+``smp.set_tensor_parallelism``) for their registered ``smp.nn`` counterparts
+(``_tp_replaced`` lists their paths), records ``smp.partition`` stamps in the
+module manager (``module_manager``), and turns on the
+``activation_checkpointing`` flag of every module that a config registered
+with ``smp.set_activation_checkpointing`` touches (the JAX package's rule,
+``_ckpt_config_touches``). A module whose parameters are on the meta device
+(``smp.from_hf`` builds one) is placed empty on the device and filled from
+the state ``smp.from_hf`` or a resume staged. A checkpointed region
 (``parallel/memory``) records the keys ``make_rng`` gives in its forward and
 replays them in its recompute, which runs in the step's backward after the
 microbatch has ended.
@@ -34,7 +40,8 @@ JAX package's layout instead, so that either package resumes the other's
 runs: ``reference_state_dict()`` is the flat '/'-keyed dict of numpy arrays
 that the JAX package's ``DistributedModel.state_dict()`` gives for the same
 model (``convert.params_to_jax`` for the zoo's ``TransformerLM``,
-``convert.lm_head_params_to_jax`` for ``smp.nn.DistributedTransformerLMHead``;
+``convert.lm_head_params_to_jax`` for ``smp.nn.DistributedTransformerLMHead``,
+``convert.transformer_params_to_jax`` for a bare ``DistributedTransformer``;
 any other module keeps its torch names), and ``local_state_dict()`` the same
 as a shard payload (``shard_io``). ``load_state_dict`` takes any of the three,
 and ``load_sharded`` a ``shard_io`` catalog. A checkpoint that
@@ -79,13 +86,31 @@ class DistributedModel:
     Args:
       module: the model, e.g. a ``TransformerLM`` from the zoo.
       device: where it runs; ``None`` resolves as ``resolve_device`` says.
+      rngs: the key streams the module draws from.
+      translate_functions: ``(to_hf, from_hf)`` state-dict translators of
+        this model (``smp.from_hf`` sets them); a full checkpoint saved with
+        ``translate_if_full`` goes through ``to_hf``.
     """
 
-    def __init__(self, module, device=None, rngs=("dropout",)):
+    def __init__(self, module, device=None, rngs=("dropout",), translate_functions=None):
+        from smdistributed_modelparallel_tpu_torch.module_manager import ModuleManager
+        from smdistributed_modelparallel_tpu_torch.nn.auto_distribute import distribute_tree
+
         if state.cfg is None:
             raise SMPValidationError("Call smp.init(config) before DistributedModel().")
         self.device = resolve_device(device)
-        self.module = module.to(self.device)
+        self._translate_functions = translate_functions
+        # Annotations made before the model (smp.set_tensor_parallelism, ...)
+        # live in the manager smp.* created.
+        self.module_manager = state.module_manager = state.module_manager or ModuleManager()
+        module, self._tp_replaced = distribute_tree(module, self.module_manager, state.tp_registry)
+        if any(p.is_meta for p in module.parameters()):
+            if state.loaded_model_state is None:
+                raise SMPValidationError("The module's parameters are on the meta device and no state is staged to "
+                                         "fill them (smp.from_hf or smp.resume_from_checkpoint stages one).")
+            self.module = module.to_empty(device=self.device)
+        else:
+            self.module = module.to(self.device)
         self.rng_streams = tuple(rngs)
         self._rngs = None           # {stream: key} of the current microbatch
         self._rng_counts = {}       # make_rng calls of this model call, by (layer, scope path)
@@ -93,7 +118,6 @@ class DistributedModel:
         self._key_tapes = []        # keys drawn are appended to each (checkpointed regions' forwards)
         self._key_replay = None     # iterator of the keys a recompute draws instead
         self._rng_scopes = _rng_scopes(self.module)
-        _apply_checkpoint_configs(self.module, state.module_manager)
         group = state.group(CP_AXIS)
         if group is not None:
             # Parameters are replicated over cp: every rank starts from the
@@ -343,31 +367,6 @@ def _rng_scopes(root):
     return scopes
 
 
-def _apply_checkpoint_configs(root, mm):
-    """Turn on ``activation_checkpointing`` of every module under ``root``
-    that has the flag and that a config registered with
-    ``smp.set_activation_checkpointing`` touches: its path (the torch
-    attribute names joined by '/'), "" (every module), an ancestor or a
-    descendant, as the JAX package's ``_ckpt_config_touches``. The root's
-    path is "", so any config turns on the LM head's flag, which is its
-    stack's, as the flax field reaches the stack."""
-    if mm is None or not mm.checkpoint_configs:
-        return
-    for name, mod in root.named_modules():
-        if hasattr(mod, "activation_checkpointing") and _ckpt_config_touches(mm, name.replace(".", "/")):
-            mod.activation_checkpointing = True
-
-
-def _ckpt_config_touches(mm, path):
-    """True if any activation-checkpoint config targets ``path``, one of its
-    ancestors, or one of its descendants."""
-    for prefix in mm.checkpoint_configs:
-        if (prefix == path or prefix == "" or path == "" or path.startswith(prefix + "/")
-                or prefix.startswith(path + "/")):
-            return True
-    return False
-
-
 def _reference_layout(module):
     """``(to_reference, from_reference)``: the maps between the module's
     ``state_dict`` names and the JAX package's flat keys for the same
@@ -376,14 +375,17 @@ def _reference_layout(module):
     from smdistributed_modelparallel_tpu_torch.models.transformer_lm import TransformerLM
     from smdistributed_modelparallel_tpu_torch.nn.transformer import (
         DistributedAttentionLayer,
+        DistributedTransformer,
         DistributedTransformerLMHead,
     )
 
     if isinstance(module, TransformerLM):
         return convert.params_to_jax, convert.params_from_jax
-    if isinstance(module, DistributedTransformerLMHead):
-        heads = [m.num_attention_heads for m in module.modules() if isinstance(m, DistributedAttentionLayer)]
-        to_ref = functools.partial(convert.lm_head_params_to_jax, num_attention_heads=heads[0] if heads else 1)
-        return to_ref, convert.lm_head_params_from_jax
+    for cls, to_ref, from_ref in (
+            (DistributedTransformerLMHead, convert.lm_head_params_to_jax, convert.lm_head_params_from_jax),
+            (DistributedTransformer, convert.transformer_params_to_jax, convert.transformer_params_from_jax)):
+        if isinstance(module, cls):
+            heads = [m.num_attention_heads for m in module.modules() if isinstance(m, DistributedAttentionLayer)]
+            return functools.partial(to_ref, num_attention_heads=heads[0] if heads else 1), from_ref
     return (lambda sd: {k: convert.to_numpy(v, copy=True) for k, v in sd.items()},
             lambda flat: {k: convert.to_torch(v) for k, v in flat.items()})

@@ -11,14 +11,29 @@ same order (dict keys sorted, tuples and namedtuples in field order, ``None``
 and empty namedtuples holding no leaf), so the port writes and reads the same
 keys.
 
-``ModuleManager`` holds the JAX module manager's activation-checkpoint
-registry (``set_activation_checkpointing``, ``checkpoint_config``,
-``checkpoint_configs``), keyed by '/'-joined module path prefixes (the torch
-attribute names; ``"main"``, ``""`` and ``"/"`` mean the whole model);
-``smp.set_activation_checkpointing`` fills it and ``DistributedModel`` reads
-it. The rest of the JAX module (partition assignments, tp marks, sharding
-resolution) arrives with the tensor- and pipeline-parallel slices.
+``ModuleManager`` holds the JAX module manager's annotations, keyed by
+'/'-joined module path prefixes (the torch attribute names; ``"main"``,
+``""`` and ``"/"`` mean the whole model):
+
+- the activation-checkpoint registry (``set_activation_checkpointing``,
+  ``checkpoint_config``, ``checkpoint_configs``);
+- the tensor-parallel marks (``set_tensor_parallelism``, ``tp_marked``,
+  ``tp_config``, ``tp_marks``) and the ``smp.tensor_parallelism()`` context
+  (``_active_tp``), which ``nn/auto_distribute.distribute_tree`` reads when
+  ``DistributedModel`` is built;
+- the pipeline stages (the ``partition(stage)`` context, ``set_partition``,
+  ``get_manual_partitions``, ``stage_of``). The port runs at pp = 1, where a
+  stage is only recorded, as in the JAX package; smp.init refuses pp > 1.
+
+``smp.set_activation_checkpointing``, ``smp.set_tensor_parallelism`` and
+``smp.set_partition`` fill it after ``smp.init``; ``smp.init`` and
+``smp.reset`` clear it. The JAX module's sharding resolution arrives with the
+tensor- and pipeline-parallel slices.
 """
+
+from contextlib import contextmanager
+
+from smdistributed_modelparallel_tpu_torch.utils.exceptions import PartitionError
 
 
 def path_key(path):
@@ -59,10 +74,17 @@ def _normalize_prefix(prefix):
 
 
 class ModuleManager:
-    """The activation-checkpoint registry: module path prefix -> config."""
+    """Module path prefix -> activation-checkpoint config, tp mark and
+    pipeline stage."""
 
     def __init__(self):
         self._ckpt_configs = {}
+        self._tp_marks = {}               # path prefix -> tp_config dict
+        self._manual_partitions = {}      # path prefix -> stage
+        self._active_tp = None            # the smp.tensor_parallelism() context's config
+        self._active_partition = None     # the smp.partition() context's stage
+
+    # -- activation checkpointing -----------------------------------------
 
     def set_activation_checkpointing(self, prefix, **config):
         self._ckpt_configs[_normalize_prefix(prefix)] = config
@@ -73,3 +95,51 @@ class ModuleManager:
     @property
     def checkpoint_configs(self):
         return dict(self._ckpt_configs)
+
+    # -- pipeline stages ----------------------------------------------------
+
+    @contextmanager
+    def partition(self, stage):
+        """Registered modules built inside are assigned to pipeline stage
+        ``stage`` (stamped at construction, recorded when the
+        ``DistributedModel`` is built)."""
+        prev, self._active_partition = self._active_partition, stage
+        try:
+            yield
+        finally:
+            self._active_partition = prev
+
+    def set_partition(self, prefix, stage):
+        from smdistributed_modelparallel_tpu_torch.backend.state import state
+
+        pp = state.cfg.pipeline_parallel_degree if state.cfg is not None else 1
+        if not 0 <= stage < pp:
+            raise PartitionError(f"Partition {stage} out of range [0, {pp}).")
+        self._manual_partitions[_normalize_prefix(prefix)] = stage
+
+    def get_manual_partitions(self):
+        return dict(self._manual_partitions)
+
+    def stage_of(self, path):
+        """The pipeline stage that runs ``path``: 0, the only stage at pp = 1.
+        (The manual partitions feed the pipeline partitioner, which arrives
+        with the pipeline-parallel slice.)"""
+        return 0
+
+    # -- tensor parallelism -------------------------------------------------
+
+    def set_tensor_parallelism(self, prefix, enabled=True, **tp_config):
+        if enabled:
+            self._tp_marks[_normalize_prefix(prefix)] = tp_config
+        else:
+            self._tp_marks.pop(_normalize_prefix(prefix), None)
+
+    def tp_marked(self, prefix):
+        return _normalize_prefix(prefix) in self._tp_marks
+
+    def tp_config(self, prefix):
+        return self._tp_marks.get(_normalize_prefix(prefix), {})
+
+    @property
+    def tp_marks(self):
+        return dict(self._tp_marks)
