@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases R # context-parallel training (two ranks on one card) only
     python3 chip_smoke.py --phases K # checkpoints and the data loader on the smp.nn path only
     python3 chip_smoke.py --phases H # HuggingFace models through smp.from_hf only
+    python3 chip_smoke.py --phases E # the encoder-decoder, T5 through smp.from_hf and MoE only
     python3 chip_smoke.py --phases N # the same with the ranks on two cards (NCCL); needs two cards
     python3 chip_smoke.py --phases X # GPT-2 1.5B at 16 x 1024 with checkpointing off (its peak or OOM)
 
@@ -224,6 +225,43 @@ csrc`` (one nvcc per source, all started together), then:
      whose local/global switch keeps the plain path, as in the JAX package);
      the flash forward at GPT-J's shape against its plain version. (e) each family at the tiny widths of the CPU tests, fp32,
      card against CPU within 1e-5.
+  E. the encoder-decoder and MoE, bf16, ``fused_qkv``, 4 microbatches,
+     random normal(0, 0.02) weights from the seed. E1: ``t5_style()`` (the
+     default dialect at T5-small's widths: d 512, 6 + 6 layers, 8 heads,
+     d_kv 64, d_ff 2048, vocab 32128): (a) 1 + 3 AdamW steps on 16 encoder
+     rows of 512 (right-padded to lengths in 128-512, a 2-D mask) and 16
+     decoder rows of 128: ms/step, encoder and decoder tokens/s, peak, 18
+     launches of each flash kernel (encoder, decoder self- and cross-
+     attention) and 12 ``matmul_bias`` a microbatch, all on the tensor cores;
+     (b) seq2seq ``smp.generate`` on 4 of those rows, 32 new tokens, greedy,
+     sampled (a key from the seed; phase A's filters, which must repeat) and
+     4 beams returning 2: each greedy token within S_MARGIN of its row's
+     maximum in a teacher-forced bf16 forward; (c) the step of (a) under
+     ``activation_checkpointing=True`` (ms/step, peak, the forward kernels
+     launched twice), and a small fp32 copy's step-1 gradients equal to the
+     unchecked ones within E_GRAD_TOL. E2: HF T5 through ``smp.from_hf``
+     (an ``HFModel`` of the published config, as in phase H): t5-small (a)
+     fp32 logits on 2 x (512, 128) within atol 2e-4 / rtol 2e-3 of an
+     independent plain T5 forward over the HF dict (``plain_t5_logits``);
+     (b) 1 + 3 steps of E1's batch with T5's dropouts 0.1 (flash in the
+     cross-attention only: the relative bias keeps self-attention on the
+     plain path); (c) generation as E1 (b); (d) the full checkpoint in HF
+     names and a second ``from_hf`` over it with bit-equal fp32 logits;
+     flan-T5-base (gated-gelu, untied): fp32 logits against the plain T5
+     forward as in (a), a bf16 forward against fp32 (argmax within
+     E_FLAN_MARGIN, and its drift from fp32 within E_FLAN_DRIFT times the
+     plain forward's own in bf16) and greedy generation. E3: phase L's model
+     with 4 experts a layer (top-2, capacity 1.25) beside the dense model:
+     (a) 1 + 3 AdamW steps of 8 x 1024 tokens: ms/step, tokens/s, peak, each
+     microbatch's folded aux, 48 launches of each flash kernel and of
+     ``matmul_bias`` and none of the bias-GELU kernels a step; (b) a tiny
+     fp32 MoE head, top-1 and top-2, card against CPU: logits and two steps'
+     losses within E_SMALL_TOL, greedy tokens equal; (c) greedy generation of
+     32 tokens after 4 prompts of 512, repeated equal. E4: ``t5_style_3b``
+     at 2 + 2 layers (depth cut from 24 + 24): a bf16 forward on 4 x (512,
+     128) against fp32 (argmax within S_MARGIN), its hd-128 flash launches
+     on the CUDA cores, and that kernel at the encoder's shape against its
+     plain version.
   B. every kernel against its plain PyTorch version on the card, at the
      main paths' shapes and over a feature sweep, within stated tolerances;
      the ids-mode kernels on phase R's ring pairs (each rank's diagonal and
@@ -330,7 +368,7 @@ _ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "PRMT")
 _FP32_OPS = ("FFMA", "FADD", "FMUL")
 
 KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8", "dropout"]
-DEFAULT_PHASES = "ASGTFLDMQRKHBC"
+DEFAULT_PHASES = "ASGTFLDMQRKHEBC"
 SEED = 1234
 
 
@@ -2871,9 +2909,7 @@ def hf_model(config, std=0.02, generator=None, device="cuda"):
     fam = family_for(shell)
     module, _, _ = translate_model(shell.config, device=device)
     init_weights_(module, std, generator)
-    H = module.num_attention_heads if fam.target == "lmhead" else config["num_attention_heads"]
-    to_jax = convert.lm_head_params_to_jax if fam.target == "lmhead" else convert.transformer_params_to_jax
-    flat = to_jax(module.state_dict(), H)
+    flat = convert.jax_layout(module)[0](module.state_dict())
     del module
     sd = fam.translate_to_hf(flat, config=shell.config)
     return HFModel(config, {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()})
@@ -3145,6 +3181,639 @@ def phase_h():
     return launches
 
 
+# Phase E: the encoder-decoder, seq2seq generation, T5 through smp.from_hf
+# and MoE on GPT-2 124M's widths.
+E_B, E_S, E_T, E_NEW, E_GEN_B = 16, 512, 128, 32, 4   # encoder rows, their width, decoder width, new tokens
+E_ENC_LENS = (128, 512)                               # right-padded encoder lengths drawn from SEED
+E_WARMUP, E_STEPS = 1, 3
+E_BEAMS, E_RETURN = 4, 2
+E_GRAD_TOL = 1e-6                                     # (c): checkpointed step-1 gradients, of max |grad|, fp32
+E_SMALL_TOL = 1e-5                                    # E3 (b): card vs CPU, fp32, of max |logit| / |loss|
+# flan-T5-base's bf16 argmax against its fp32 row maximum, of max |logit|. At
+# random normal(0, 0.02) weights the bf16 roundings of 24 gated, unscaled T5
+# v1.1 layers move the encoder's output by 12% of its norm, in the JAX package
+# as in the port (0.1220 and 0.1218 on the CPU), so the argmax falls up to
+# 0.11 below the row maximum (0.1126 on the card, 0.1117 on the CPU's plain
+# path); S_MARGIN (5e-2) holds the 6- and 12-layer models.
+E_FLAN_MARGIN = 0.15
+# So the argmax gate alone passes a wrong bf16 path. The drift of the bf16
+# logits from fp32 (relative Frobenius norm) is held to that of the plain T5
+# forward run in bf16 on the same weights: a layer that computes something
+# else moves the logits by their own size, a correct one by about as much as
+# any other bf16 T5.
+E_FLAN_DRIFT = 2.0
+T5_SMALL = dict(architectures=["T5ForConditionalGeneration"], model_type="t5", d_model=512, num_layers=6,
+                num_decoder_layers=6, num_heads=8, d_kv=64, d_ff=2048, feed_forward_proj="relu",
+                dense_act_fn="relu", is_gated_act=False, tie_word_embeddings=True, vocab_size=32128,
+                relative_attention_num_buckets=32, relative_attention_max_distance=128, layer_norm_epsilon=1e-6,
+                dropout_rate=0.1, initializer_factor=1.0, n_positions=512, decoder_start_token_id=0,
+                is_encoder_decoder=True)
+FLAN_T5_BASE = dict(T5_SMALL, d_model=768, num_layers=12, num_decoder_layers=12, num_heads=12, d_ff=2048,
+                    feed_forward_proj="gated-gelu", dense_act_fn="gelu_new", is_gated_act=True,
+                    tie_word_embeddings=False)
+E_HF_SOURCES = {"t5": "google-t5/t5-small", "flan": "google/flan-t5-base"}
+E_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_t5_ckpt")
+# GPT-2 124M's widths (phase L's model) with the repo's expert settings
+# (__graft_entry__.py, examples/long_context_moe.py): 4 experts, top-2.
+E_MOE_CFG = dict(LM_CFG, num_experts=4, moe_top_k=2, moe_capacity_factor=1.25)
+E_MOE_SMALL = dict(LM_CFG, num_layers=2, num_attention_heads=4, attention_head_size=16, hidden_size=64,
+                   intermediate_size=256, vocab_size=97, num_positions=64, causal_mask_size=64, num_experts=4)
+E4_LAYERS = dict(enc_layers=2, dec_layers=2)           # T5-3B's widths, depth cut from 24 + 24
+
+
+def _e_counters():
+    return {**_flash_counters(), **_new_counters(), **_dropout_counters(), **_simt_counters()}
+
+
+def _e_zero(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _e_batch(vocab, gen, rows=E_B):
+    """Encoder ids [rows, E_S] right-padded (pad 0) to lengths drawn from
+    ``gen`` in E_ENC_LENS, their 2-D int mask, and decoder ids [rows, E_T]."""
+    lens = torch.randint(E_ENC_LENS[0], E_ENC_LENS[1] + 1, (rows,), generator=gen, device="cuda")
+    mask = (torch.arange(E_S, device="cuda")[None, :] < lens[:, None]).long()
+    enc = torch.randint(2, vocab, (rows, E_S), generator=gen, device="cuda") * mask
+    dec = torch.randint(2, vocab, (rows, E_T), generator=gen, device="cuda")
+    return enc, mask, dec
+
+
+def _e_seq2seq_step(model):
+    """AdamW (optax.adamw's defaults) and the seq2seq training step: mean CE
+    of the decoder's shifted tokens (logits mode)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn import vocab_parallel_cross_entropy
+
+    optimizer = smp.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), model)
+
+    @smp.step
+    def train_step(model, enc, dec, mask):
+        logits = model(enc, dec, mask)
+        loss = vocab_parallel_cross_entropy(logits[:, :-1], dec[:, 1:]).mean()
+        model.backward(loss)
+        return loss
+
+    return optimizer, train_step
+
+
+def _e_train(model, optimizer, train_step, args, counters=None):
+    """E_WARMUP + E_STEPS steps: (losses, ms/step of the timed steps, peak
+    GiB over them, launches of the timed steps)."""
+    losses = []
+    for _ in range(E_WARMUP):
+        losses.append(float(train_step(model, *args).reduce_mean()))
+        optimizer.step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if counters:
+        _e_zero(counters)
+    t0 = time.perf_counter()
+    for _ in range(E_STEPS):
+        losses.append(train_step(model, *args).reduce_mean())
+        optimizer.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / E_STEPS
+    launches = {k: fn.launches for k, fn in (counters or {}).items()}
+    return [float(x) for x in losses], ms, torch.cuda.max_memory_allocated() / 2**30, launches
+
+
+def _e_finite_falling(losses):
+    return all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+
+
+def _e_margin(module, enc, mask, out):
+    """Largest gap of a greedy token to its row's maximum, as a share of the
+    row's max |logit|, in a teacher-forced forward of ``module`` on the plain
+    attention path: each row's encoder ids and mask, and the decoder ids
+    ``out[:, :-1]`` (start token first)."""
+    with torch.inference_mode(), _env(SMP_DISABLE_PALLAS_ATTN="1"):
+        logits = module(enc, out[:, :-1], mask).float()
+    picked = logits.gather(-1, out[:, 1:, None])[..., 0]
+    return float(((logits.amax(-1) - picked) / logits.abs().amax(-1)).max())
+
+
+def _e_generate(model, enc, mask, label, tag, failures):
+    """Greedy, sampled and beam ``smp.generate`` on ``enc``: ms, the greedy
+    margin, the sampled repeat. Returns the launches of the generate calls;
+    the margin's teacher-forced forward is not counted."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.utils import random
+
+    B = enc.shape[0]
+    counters = _e_counters()
+    _e_zero(counters)
+    smp.generate(model, enc, 2, encoder_mask=mask)  # warm-up
+    _, first_ms = _timed(lambda: smp.generate(model, enc, 1, encoder_mask=mask))
+    greedy, greedy_ms = _timed(lambda: smp.generate(model, enc, E_NEW, encoder_mask=mask))
+    sampled, sampled_ms = _timed(lambda: smp.generate(model, enc, E_NEW, encoder_mask=mask, rng=random.key(SEED),
+                                                      **G_SAMPLE_KW))
+    again = smp.generate(model, enc, E_NEW, encoder_mask=mask, rng=random.key(SEED), **G_SAMPLE_KW)
+    beams, beam_ms = _timed(lambda: smp.generate(model, enc, E_NEW, encoder_mask=mask, num_beams=E_BEAMS,
+                                                 num_return_sequences=E_RETURN))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    half = copy.deepcopy(model.module).to(torch.bfloat16).eval()
+    margin = _e_margin(half, enc, mask, greedy)
+    del half
+    for k, fn in counters.items():
+        fn.launches = launches[k]
+    decode = (greedy_ms - first_ms) / (E_NEW - 1)
+    ok = (margin <= S_MARGIN and torch.equal(sampled, again) and greedy.shape == (B, 1 + E_NEW)
+          and beams.shape == (B, E_RETURN, 1 + E_NEW) and bool((greedy[:, 0] == 0).all()))
+    log(f"[E] {tag} smp.generate {label}, {B} encoder rows of {enc.shape[1]}, {E_NEW} new tokens: encoder + "
+        f"first step {first_ms:.2f} ms, decode {decode:.3f} ms/token, {B * E_NEW / greedy_ms * 1e3:.1f} tokens/s "
+        f"greedy; sampled {sampled_ms:.2f} ms ({(sampled_ms - first_ms) / (E_NEW - 1):.3f} ms/token), repeat "
+        f"equal: {torch.equal(sampled, again)}; {E_BEAMS} beams returning {E_RETURN} {beam_ms:.2f} ms; worst "
+        f"greedy token {margin:.3e} of its row's max |logit| below the row's maximum (limit {S_MARGIN:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(tag)
+    return launches
+
+
+def plain_t5_logits(sd, enc, dec, cfg, enc_mask=None, dtype=torch.float32):
+    """T5 logits of ``enc`` -> ``dec`` from the HF-named state dict ``sd``
+    (tensors on the ids' device), written from the HF model's definition and
+    using none of the port: RMSNorm without a mean, the bucketed relative
+    bias of block 0 of each stack (bidirectional in the encoder, causal in
+    the decoder, none in cross-attention), unscaled attention, the relu or
+    gated-gelu FFN and the head tied to ``shared`` (rescaled by d_model **
+    -0.5) or untied. Weights and activations in ``dtype``; as in HF, the
+    norms' variance and the softmax (with the bias and mask) in fp32."""
+    import torch.nn.functional as F
+
+    w = lambda k: sd[k].to(dtype)  # noqa: E731
+    eps, H, dk = cfg["layer_norm_epsilon"], cfg["num_heads"], cfg["d_kv"]
+    nb, md = cfg["relative_attention_num_buckets"], cfg["relative_attention_max_distance"]
+    neg = torch.finfo(torch.float32).min
+
+    def rms(x, key):
+        x32 = x.float()
+        return w(key) * (x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + eps)).to(dtype)
+
+    def bucket(rel, bidirectional):
+        n, out = nb, torch.zeros_like(rel)
+        if bidirectional:
+            n //= 2
+            out = out + (rel > 0).long() * n
+            rel = rel.abs()
+        else:
+            rel = -torch.min(rel, torch.zeros_like(rel))
+        exact = n // 2
+        large = exact + (torch.log(rel.float() / exact) / math.log(md / exact) * (n - exact)).long()
+        return out + torch.where(rel < exact, rel, torch.clamp_max(large, n - 1))
+
+    def rel_bias(key, T, S, bidirectional):
+        pos = torch.arange(S, device=enc.device)[None, :] - torch.arange(T, device=enc.device)[:, None]
+        return w(key)[bucket(pos, bidirectional)].permute(2, 0, 1)[None].float()  # [1, H, T, S]
+
+    def attn(x, kv, p, bias):
+        B, T, S = x.shape[0], x.shape[1], kv.shape[1]
+        q = (x @ w(p + "q.weight").t()).reshape(B, T, H, dk).transpose(1, 2)
+        k = (kv @ w(p + "k.weight").t()).reshape(B, S, H, dk).transpose(1, 2)
+        v = (kv @ w(p + "v.weight").t()).reshape(B, S, H, dk).transpose(1, 2)
+        a = torch.softmax((q @ k.transpose(-1, -2)).float() + bias, dim=-1).to(dtype) @ v
+        return a.transpose(1, 2).reshape(B, T, H * dk) @ w(p + "o.weight").t()
+
+    def ffn(x, p):
+        if cfg["is_gated_act"]:
+            h = F.gelu(x @ w(p + "wi_0.weight").t(), approximate="tanh") * (x @ w(p + "wi_1.weight").t())
+        else:
+            h = F.relu(x @ w(p + "wi.weight").t())
+        return h @ w(p + "wo.weight").t()
+
+    S, T = enc.shape[1], dec.shape[1]
+    pad = torch.zeros(enc.shape, device=enc.device) if enc_mask is None else (1.0 - enc_mask.float()) * neg
+    pad = pad[:, None, None, :]
+    x = w("shared.weight")[enc]
+    bias = rel_bias("encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight", S, S, True) + pad
+    for i in range(cfg["num_layers"]):
+        p = f"encoder.block.{i}.layer."
+        x = x + attn(rms(x, p + "0.layer_norm.weight"), rms(x, p + "0.layer_norm.weight"), p + "0.SelfAttention.",
+                     bias)
+        x = x + ffn(rms(x, p + "1.layer_norm.weight"), p + "1.DenseReluDense.")
+    h_e = rms(x, "encoder.final_layer_norm.weight")
+    y = w("shared.weight")[dec]
+    causal = torch.ones(T, T, dtype=torch.bool, device=enc.device).tril()
+    bias = rel_bias("decoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight", T, T, False)
+    bias = bias.masked_fill(~causal, neg)
+    for i in range(cfg["num_decoder_layers"]):
+        p = f"decoder.block.{i}.layer."
+        h = rms(y, p + "0.layer_norm.weight")
+        y = y + attn(h, h, p + "0.SelfAttention.", bias)
+        y = y + attn(rms(y, p + "1.layer_norm.weight"), h_e, p + "1.EncDecAttention.", pad)
+        y = y + ffn(rms(y, p + "2.layer_norm.weight"), p + "2.DenseReluDense.")
+    y = rms(y, "decoder.final_layer_norm.weight")
+    if cfg["tie_word_embeddings"]:
+        return ((y * cfg["d_model"] ** -0.5) @ w("shared.weight").t()).float()
+    return (y @ w("lm_head.weight").t()).float()
+
+
+def _e1(g, failures):
+    """E1: t5_style() (the default dialect) at T5-small's widths: (a)
+    training, (b) seq2seq generation, (c) activation checkpointing."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.models import t5_style
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+
+    init = init_weights_(t5_style(device="cuda"), 0.02, g)
+    state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    n_enc, n_dec = len(init.encoder.seq_layers), len(init.decoder.seq_layers)
+    vocab = init.vocab_size
+    del init
+    enc, mask, dec = _e_batch(vocab, g)
+    counters = _e_counters()
+    runs = {}
+    for ckpt in (False, True):
+        smp.init({"bf16": True, "fused_qkv": True, "microbatches": TRAIN_MB})
+        module = t5_style(device="meta", activation_checkpointing=ckpt)
+        module.load_state_dict({k: v.clone() for k, v in state.items()}, assign=True)
+        model = smp.DistributedModel(module)
+        optimizer, train_step = _e_seq2seq_step(model)
+        runs[ckpt] = _e_train(model, optimizer, train_step, (enc, dec, mask), counters)
+        if not ckpt:
+            # (b) generation, on the trained model.
+            model.eval()
+            gen = _e_generate(model, enc[:E_GEN_B], mask[:E_GEN_B], "greedy, sampled (a key from the seed) and beams",
+                              "E1 (b)", failures)
+            launches = {k: runs[ckpt][3][k] + gen[k] for k in gen}
+        del model, optimizer, train_step, module
+        smp.reset()
+        torch.cuda.empty_cache()
+    losses, ms, peak, train = runs[False]
+    real = int(mask.sum())
+    per_mb = {"flash": n_enc + 2 * n_dec, "matmul_bias": n_enc + n_dec}
+    want = {"flash_fwd": per_mb["flash"], "flash_bwd_dq": per_mb["flash"], "flash_bwd_dkv": per_mb["flash"],
+            "matmul_bias": per_mb["matmul_bias"]}
+    want = {k: n * TRAIN_MB * E_STEPS for k, n in want.items()}
+    got = {k: train[k] for k in want}
+    simt = {k: n for k, n in train.items() if k.endswith("_simt") and n}
+    ok = got == want and not simt and _e_finite_falling(losses)
+    log(f"[E] E1 (a) t5_style() (T5-small widths: d 512, 6 + 6 layers, 8 heads, d_kv 64, d_ff 2048, vocab 32128) "
+        f"bf16 training, {E_B} encoder rows of {E_S} (right-padded, {real} real tokens) and {E_B} decoder rows of "
+        f"{E_T} in {TRAIN_MB} microbatches, fused_qkv, AdamW: {ms:.2f} ms/step (mean of {E_STEPS} after "
+        f"{E_WARMUP} warm-up), {real / ms * 1e3:.1f} real encoder tokens/s ({enc.numel() / ms * 1e3:.1f} counting "
+        f"the padding) and {dec.numel() / ms * 1e3:.1f} decoder tokens/s; peak {peak:.2f} GiB; losses {losses}")
+    log(f"[E] E1 (a) launches over {E_STEPS} steps: {train} (expected {want} on the tensor cores: per microbatch "
+        f"{n_enc} encoder, {n_dec} decoder self- and {n_dec} cross-attention flash launches, {per_mb['matmul_bias']} "
+        f"fused QKV) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("E1 (a)")
+    losses_c, ms_c, peak_c, train_c = runs[True]
+    # Full recompute: each layer's forward kernels run twice a microbatch.
+    want_c = {k: n * (1 if k.startswith("flash_bwd") else 2) for k, n in want.items()}
+    got_c = {k: train_c[k] for k in want_c}
+    ok = got_c == want_c and _e_finite_falling(losses_c)
+    log(f"[E] E1 (c) the same step under activation_checkpointing=True: {ms_c:.2f} ms/step, peak {peak_c:.2f} GiB "
+        f"(off: {ms:.2f} ms, {peak:.2f} GiB); losses {losses_c}; launches {got_c} (expected {want_c}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("E1 (c)")
+    launches = {k: launches[k] + train_c[k] for k in launches}
+
+    # (c) gradients: a small fp32 copy, step 1 with and without checkpointing.
+    small = dict(d_model=128, enc_layers=2, dec_layers=2, n_heads=4, d_kv=32, d_ff=256, vocab_size=97,
+                 max_len=256, dropout=0.1)
+    st = init_weights_(t5_style(**small, device="cuda"), 0.02, torch.Generator(device="cuda").manual_seed(SEED))
+    st = {k: v.detach().clone() for k, v in st.state_dict().items()}
+    e, m, d = (t[:4, :256] if t.shape[1] >= 256 else t[:4] for t in (enc % 97, mask, dec % 97))
+    grads = {}
+    for ckpt in (False, True):
+        smp.init({"microbatches": 2, "tensor_parallel_seed": SEED})
+        module = t5_style(**small, device="meta", activation_checkpointing=ckpt)
+        module.load_state_dict({k: v.clone() for k, v in st.items()}, assign=True)
+        model = smp.DistributedModel(module)
+        _, train_step = _e_seq2seq_step(model)
+        train_step(model, e, d, m)
+        grads[ckpt] = {k: v.detach().clone() for k, v in model.grads.items()}
+        smp.reset()
+    err = max(float((grads[True][k] - g0).abs().max()) / max(float(g0.abs().max()), 1e-30)
+              for k, g0 in grads[False].items())
+    equal = all(torch.equal(grads[True][k], g0) for k, g0 in grads[False].items())
+    enc_grad = float(grads[True]["encoder.seq_layers.0.attention.qkv.weight"].abs().max())
+    ok = err <= E_GRAD_TOL and enc_grad > 0
+    log(f"[E] E1 (c) fp32 copy (d 128, 2 + 2 layers, dropout 0.1), step-1 gradients checkpointed vs not: max "
+        f"|diff| / max |grad| {err:.3e} (limit {E_GRAD_TOL:.0e}), bit-equal {equal}; encoder layer 0 qkv gradient "
+        f"max {enc_grad:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("E1 (c) gradients")
+    return launches
+
+
+def _e2(g, failures):
+    """E2: T5 through ``smp.from_hf``: t5-small (a)-(d), flan-T5-base."""
+    import pickle
+    import shutil
+
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    counters = _e_counters()
+    cfg = T5_SMALL
+    smp.init({"bf16": True, "fused_qkv": True, "microbatches": TRAIN_MB})
+    hf = hf_model(cfg, 0.02, g)
+    model = smp.from_hf(hf)
+    bad = _h_round_trip(model, hf)
+    model.eval()
+    enc, mask, dec = _e_batch(cfg["vocab_size"], g, rows=2)
+    with torch.no_grad():
+        ours = model(enc, dec, mask)
+        ref = plain_t5_logits({k: v.to(enc.device) for k, v in hf.state_dict().items()}, enc, dec, cfg, mask)
+    err = float((ours - ref).abs().max())
+    ok = bool(torch.allclose(ours, ref, atol=2e-4, rtol=2e-3)) and not bad
+    log(f"[E] E2 (a) T5-small ({E_HF_SOURCES['t5']}) via smp.from_hf, fp32 logits on 2 x ({E_S}, {E_T}) tokens "
+        f"against the plain HF-named T5 forward: max |diff| {err:.3e}, max |logit| {float(ref.abs().max()):.3f} "
+        f"(atol 2e-4, rtol 2e-3); round trip to HF names bit-equal: {not bad} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("E2 (a)")
+    ids_a = (enc, dec, mask)
+    del ours, ref
+
+    # (b) training with T5's dropout 0.1.
+    model.train()
+    optimizer, train_step = _e_seq2seq_step(model)
+    enc, mask, dec = _e_batch(cfg["vocab_size"], g)
+    losses, ms, peak, train = _e_train(model, optimizer, train_step, (enc, dec, mask), counters)
+    n_enc, n_dec = cfg["num_layers"], cfg["num_decoder_layers"]
+    # The relative bias keeps self-attention on the plain path, as the JAX
+    # gate does; the decoder's cross-attention (key padding only) takes the
+    # flash kernels. The fused QKV (no bias) serves every self-attention.
+    # Dropout: each layer's attention output, cross-attention output and MLP
+    # output (2 + 3 sites), and the probabilities of the self-attention on
+    # the plain path (the flash kernels hash theirs).
+    want = {**{k: n_dec for k in _flash_counters()}, "matmul_bias": n_enc + n_dec,
+            "dropout_fwd": 2 * n_enc + 3 * n_dec + n_enc + n_dec}
+    want = {k: n * TRAIN_MB * E_STEPS for k, n in want.items()}
+    got = {k: train[k] for k in want}
+    simt = {k: n for k, n in train.items() if k.endswith("_simt") and n}
+    ok = got == want and not simt and _e_finite_falling(losses)
+    real = int(mask.sum())
+    log(f"[E] E2 (b) T5-small training, dropouts 0.1, {E_B} x ({E_S}, {E_T}) in {TRAIN_MB} microbatches ({real} real "
+        f"encoder tokens), fused_qkv: {ms:.2f} ms/step, {real / ms * 1e3:.1f} real encoder tokens/s "
+        f"({enc.numel() / ms * 1e3:.1f} counting the padding) and {dec.numel() / ms * 1e3:.1f} decoder tokens/s; "
+        f"peak {peak:.2f} GiB; losses {losses}; launches over {E_STEPS} steps {train} (expected {want}: flash in the "
+        f"cross-attention only) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("E2 (b)")
+
+    # (c) generation on 4 x 512, as E1 (b).
+    model.eval()
+    gen = _e_generate(model, enc[:E_GEN_B], mask[:E_GEN_B], "T5-small, greedy, sampled and beams", "E2 (c)",
+                      failures)
+
+    # (d) the full checkpoint in HF names, and a second from_hf over it.
+    try:
+        t0 = time.perf_counter()
+        smp.save_checkpoint(E_DIR, tag="hf", partial=False)
+        save_s = time.perf_counter() - t0
+        with open(os.path.join(E_DIR, "hf"), "rb") as fh:
+            saved = pickle.load(fh)["model"]
+    finally:
+        shutil.rmtree(E_DIR, ignore_errors=True)
+    src = hf.state_dict()
+    shapes_ok = set(saved) == set(src) and all(tuple(np.shape(saved[k])) == tuple(src[k].shape) for k in src)
+    again = smp.from_hf(HFModel(cfg, {k: torch.from_numpy(np.array(v)) for k, v in saved.items()})).eval()
+    with torch.no_grad():
+        same = torch.equal(model(*ids_a), again(*ids_a))
+    log(f"[E] E2 (d) smp.save_checkpoint(partial=False) after training: {save_s:.2f} s; its model dict has the "
+        f"source's {len(src)} HF keys and shapes: {shapes_ok}; a second from_hf over it gives bit-equal fp32 "
+        f"logits: {same}")
+    if not (shapes_ok and same):
+        failures.append("E2 (d)")
+    launches = {k: train[k] + gen[k] for k in gen}
+    del model, again, optimizer, train_step, hf
+    smp.reset()
+    torch.cuda.empty_cache()
+
+    # flan-T5-base: fp32 logits against the plain forward, one bf16 forward
+    # against fp32 (the plain forward's own bf16 drift beside it), and greedy
+    # generation.
+    cfg = FLAN_T5_BASE
+    smp.init({"bf16": True})
+    hf = hf_model(cfg, 0.02, g)
+    model = smp.from_hf(hf).eval()
+    bad = _h_round_trip(model, hf)
+    sd = {k: v.to("cuda") for k, v in hf.state_dict().items()}
+    del hf
+    enc, mask, dec = _e_batch(cfg["vocab_size"], g, rows=E_GEN_B)
+    with torch.no_grad():
+        out32 = model(enc, dec, mask).float()
+        ref32 = plain_t5_logits(sd, enc, dec, cfg, mask)
+        ref16 = plain_t5_logits(sd, enc, dec, cfg, mask, dtype=torch.bfloat16)
+        greedy, gen_ms = _timed(lambda: smp.generate(model, enc, E_NEW, encoder_mask=mask))
+        model.module.to(torch.bfloat16)
+        model(enc, dec, mask)  # warm-up
+        out16, fwd_ms = _timed(lambda: model(enc, dec, mask))
+    del sd
+
+    def gap(lo):  # the worst argmax of ``lo`` below its row's fp32 maximum, of max |logit|
+        pick = out32.gather(-1, lo.float().argmax(-1, keepdim=True))[..., 0]
+        return float(((out32.amax(-1) - pick) / out32.abs().amax(-1)).max())
+
+    def drift(lo, hi):
+        return float((lo.float() - hi).norm() / hi.norm())
+
+    err32 = float((out32 - ref32).abs().max())
+    err, err_ref = gap(out16), gap(ref16)
+    ours, plain = drift(out16, out32), drift(ref16, ref32)
+    ok = (bool(torch.allclose(out32, ref32, atol=2e-4, rtol=2e-3)) and err <= E_FLAN_MARGIN
+          and ours <= E_FLAN_DRIFT * plain and not bad and greedy.shape == (E_GEN_B, 1 + E_NEW))
+    log(f"[E] E2 flan-T5-base ({E_HF_SOURCES['flan']}: d 768, 12 + 12 layers, gated-gelu, untied) via smp.from_hf, "
+        f"{E_GEN_B} x ({E_S}, {E_T}): fp32 logits {err32:.3e} from the plain T5 forward (max |logit| "
+        f"{float(ref32.abs().max()):.3f}; atol 2e-4, rtol 2e-3); bf16 forward {fwd_ms:.2f} ms; worst bf16 argmax "
+        f"{err:.3e} of max |logit| below the fp32 row maximum (limit {E_FLAN_MARGIN:.2f}; the plain forward in bf16: "
+        f"{err_ref:.3e}); bf16 logits' drift from fp32 {ours:.4f} (the plain forward's {plain:.4f}, limit "
+        f"{E_FLAN_DRIFT:.1f}x); greedy smp.generate of {E_NEW} tokens {gen_ms:.2f} ms; round trip bit-equal: "
+        f"{not bad} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("E2 flan-T5-base")
+    del model, out32, out16, ref32, ref16
+    smp.reset()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _e3(g, failures):
+    """E3: MoE at GPT-2 124M's widths: (a) training beside the dense step,
+    (b) a tiny fp32 MoE head card vs CPU, (c) greedy decoding."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+
+    counters = _e_counters()
+    ids = torch.randint(0, LM_CFG["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
+    out = {}
+    for name, cfg in (("dense", LM_CFG), ("moe", E_MOE_CFG)):
+        init = init_weights_(smp.nn.DistributedTransformerLMHead(**cfg, device="cuda"), cfg["initializer_range"],
+                             torch.Generator(device="cuda").manual_seed(SEED))
+        state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+        n_params = sum(p.numel() for p in init.parameters())
+        del init
+        model, optimizer, train_step = _lm_setup(state, True, "cuda", cfg)
+        auxes = []
+        if name == "moe":
+            real = model._end_microbatch
+
+            def spy():  # the folded aux of each microbatch, read after the steps
+                loss, n, diff = real()
+                auxes.append(None if loss is None else (diff - loss).detach())
+                return loss, n, diff
+
+            model._end_microbatch = spy
+        losses, ms, peak, launches = _e_train(model, optimizer, train_step, (ids,), counters)
+        model.__dict__.pop("_end_microbatch", None)
+        out[name] = dict(ms=ms, losses=losses, peak=peak, launches=launches, params=n_params,
+                         auxes=[None if a is None else round(float(a), 4) for a in auxes],
+                         model=model if name == "moe" else None)
+        del optimizer, train_step, model
+        if name == "dense":
+            smp.reset()
+        torch.cuda.empty_cache()
+    moe = out["moe"]
+    per = LM_CFG["num_layers"] * TRAIN_MB * E_STEPS
+    want = {**{k: per for k in (*_flash_counters(), "matmul_bias")}, "bias_gelu_fwd": 0, "bias_gelu_bwd": 0}
+    got = {k: moe["launches"][k] for k in want}
+    simt = {k: n for k, n in moe["launches"].items() if k.endswith("_simt") and n}
+    ok = got == want and not simt and _e_finite_falling(moe["losses"]) and all(
+        a is not None and math.isfinite(a) for a in moe["auxes"])
+    for name in ("dense", "moe"):
+        r = out[name]
+        kind = "with 4 experts a layer (top-2, capacity 1.25)" if name == "moe" else "dense (phase L)"
+        log(f"[E] E3 (a) GPT-2 124M widths {kind}, {r['params'] / 1e6:.1f}M parameters, bf16 training, "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MB} microbatches, logits mode, fused_qkv, AdamW: {r['ms']:.2f} "
+            f"ms/step (mean of {E_STEPS} after {E_WARMUP} warm-up), {ids.numel() / r['ms'] * 1e3:.1f} tokens/s; peak {r['peak']:.2f} GiB; losses {r['losses']}")
+    log(f"[E] E3 (a) MoE folded aux a microbatch over the {E_WARMUP + E_STEPS} steps (the sum over "
+        f"{LM_CFG['num_layers']} layers, coefficient 0.01, weight 1.0): {moe['auxes']}; launches over {E_STEPS} "
+        f"timed steps {moe['launches']} (expected {want}, none on the CUDA cores) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("E3 (a)")
+    launches = dict(moe["launches"])
+
+    # (c) greedy decoding at full width.
+    model = moe["model"]
+    model.eval()
+    prompts = torch.randint(0, LM_CFG["vocab_size"], (E_GEN_B, E_S), generator=g, device="cuda")
+    smp.generate(model, prompts, 2)
+    _e_zero(counters)
+    _, first_ms = _timed(lambda: smp.generate(model, prompts, 1))
+    greedy, greedy_ms = _timed(lambda: smp.generate(model, prompts, E_NEW))
+    gen = {k: fn.launches for k, fn in counters.items()}
+    again = smp.generate(model, prompts, E_NEW)
+    ok = torch.equal(greedy, again) and greedy.shape == (E_GEN_B, E_S + E_NEW)
+    log(f"[E] E3 (c) MoE greedy smp.generate, {E_GEN_B} prompts of {E_S}, {E_NEW} new tokens: prefill {first_ms:.2f} "
+        f"ms, decode {(greedy_ms - first_ms) / (E_NEW - 1):.3f} ms/token; repeat equal {torch.equal(greedy, again)}; "
+        f"launches {gen} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("E3 (c)")
+    launches = {k: launches[k] + gen[k] for k in launches}
+    del model, moe["model"]
+    smp.reset()
+    torch.cuda.empty_cache()
+
+    # (b) a tiny fp32 MoE head, top-1 and top-2, on the card and on the CPU.
+    worst = {}
+    for k in (1, 2):
+        cfg = dict(E_MOE_SMALL, moe_top_k=k)
+        init = init_weights_(smp.nn.DistributedTransformerLMHead(**cfg), 0.02, torch.Generator().manual_seed(SEED))
+        st = init.state_dict()
+        ids_s = torch.randint(0, 97, (4, 64), generator=torch.Generator().manual_seed(SEED))
+        res = {}
+        for device in ("cuda", "cpu"):
+            m, opt, step_fn = _lm_setup(st, False, device, cfg, microbatches=2, bf16=False)
+            m.eval()
+            with torch.no_grad():
+                logits = m(ids_s.to(device)).cpu()
+            toks = smp.generate(m, ids_s[:, :16].to(device), 8).cpu()
+            m.train()
+            ls = []
+            for _ in range(2):
+                ls.append(float(step_fn(m, ids_s.to(device)).reduce_mean()))
+                opt.step()
+            res[device] = (logits, toks, ls)
+            smp.reset()
+        lg = float((res["cuda"][0] - res["cpu"][0]).abs().max() / res["cpu"][0].abs().max())
+        ls = max(abs(a - b) / abs(b) for a, b in zip(res["cuda"][2], res["cpu"][2]))
+        worst[k] = dict(logits=lg, losses=ls, tokens_equal=torch.equal(res["cuda"][1], res["cpu"][1]))
+    ok = all(v["logits"] <= E_SMALL_TOL and v["losses"] <= E_SMALL_TOL and v["tokens_equal"] for v in worst.values())
+    log(f"[E] E3 (b) fp32 MoE head (2 layers, d 64, 4 experts), card vs CPU by top-k: {worst} (logits and the two "
+        f"steps' losses within {E_SMALL_TOL:.0e} relative, greedy tokens equal) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("E3 (b)")
+    return launches
+
+
+def _e4(g, failures):
+    """E4: T5-3B's widths at 2 + 2 layers: a bf16 forward against fp32, and
+    its hd-128 flash forward against the plain version."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.models import t5_style_3b
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+    from smdistributed_modelparallel_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+
+    counters = _e_counters()
+    smp.init({})
+    module = init_weights_(t5_style_3b(**E4_LAYERS, device="cuda"), 0.02, g)
+    model = smp.DistributedModel(module).eval()
+    enc, mask, dec = _e_batch(module.vocab_size, g, rows=E_GEN_B)
+    with torch.no_grad():
+        out32 = model(enc, dec, mask).float()
+        model.module.to(torch.bfloat16)
+        model(enc, dec, mask)
+        _e_zero(counters)
+        out16, ms = _timed(lambda: model(enc, dec, mask))
+    fwd = {k: fn.launches for k, fn in counters.items()}
+    pick = out32.gather(-1, out16.float().argmax(-1, keepdim=True))[..., 0]
+    err = float(((out32.amax(-1) - pick) / out32.abs().amax(-1)).max())
+    n_flash = E4_LAYERS["enc_layers"] + 2 * E4_LAYERS["dec_layers"]  # encoder, decoder self- and cross-attention
+    got = {"wgmma": fwd["flash_fwd"], "simt": fwd["flash_fwd_simt"]}
+    ok = err <= S_MARGIN and got == {"wgmma": 0, "simt": n_flash}
+    log(f"[E] E4 t5_style_3b (d 1024, 32 heads, d_kv 128, d_ff 16384; {E4_LAYERS}) bf16 forward, {E_GEN_B} x ({E_S}, "
+        f"{E_T}): {ms:.2f} ms; worst bf16 argmax {err:.3e} of max |logit| below the fp32 row maximum (limit "
+        f"{S_MARGIN:.0e}); flash_fwd by route {got} (expected {n_flash} on simt: hd 128) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("E4 forward")
+    del model, module, out32, out16
+    smp.reset()
+    torch.cuda.empty_cache()
+    # The encoder's flash forward at E4's shape against the plain version.
+    saved = {k: fn.launches for k, fn in counters.items()}
+    q, k, v = _inputs(E_GEN_B, E_S, E_S, 32, 128, torch.bfloat16, g)
+    kpad = torch.where(mask.bool(), 0.0, -1e9).float()
+    err, ok, detail = fwd_check(lambda: flash_attention(q, k, v, kpad, causal=False),
+                                flash_attention_reference(q, k, v, kpad, causal=False), flash_attention, "simt",
+                                torch.bfloat16, TOL[torch.bfloat16], float(v.float().abs().max()))
+    for key, fn in counters.items():
+        fn.launches = saved[key]  # comparison launches do not count
+    log(f"[E] E4 flash_fwd at its encoder shape B {E_GEN_B} T {E_S} H 32 hd 128 bf16, key padding: {detail} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("E4 flash_fwd hd 128")
+    return fwd
+
+
+def phase_e():
+    """The encoder-decoder (E1), T5 through smp.from_hf (E2), MoE on GPT-2
+    124M's widths (E3) and T5-3B's widths at 2 + 2 layers (E4)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    failures = []
+    t0 = time.perf_counter()
+    l1 = _e1(g, failures)
+    t1 = time.perf_counter()
+    l2 = _e2(g, failures)
+    t2 = time.perf_counter()
+    l3 = _e3(g, failures)
+    t3 = time.perf_counter()
+    l4 = _e4(g, failures)
+    t4 = time.perf_counter()
+    log(f"[E] seconds: E1 {t1 - t0:.1f}, E2 {t2 - t1:.1f}, E3 {t3 - t2:.1f}, E4 {t4 - t3:.1f}")
+    launches = {k: sum(d.get(k, 0) for d in (l1, l2, l3, l4)) for k in set(l1) | set(l2) | set(l3) | set(l4)}
+    log(f"[E] launches on phase E's paths (E1 (a)-(c), E2 (b) and (c), E3 (a) and (c), E4): {launches}")
+    _check_route("phase E (E1-E3)", {k: l1.get(k, 0) + l2.get(k, 0) + l3.get(k, 0) for k in l1})
+    if failures:
+        raise RuntimeError(f"phase E: {failures}")
+    return launches
+
+
 def _inputs(B, T, S, H, hd, dtype, gen):
     q = torch.randn(B, T, H, hd, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
@@ -3162,11 +3831,16 @@ CASES = [
     ("causal_window", 2, 384, 384, 4, 64, dict(window=100, block_q=128, block_k=128)),
     ("symmetric_window", 2, 256, 320, 4, 64, dict(causal=False, window=70, block_q=128, block_k=128)),
     ("kpad_fully_padded_rows", 3, 160, 160, 4, 64, dict(kpad="left_and_full")),
+    # phase E's cross-attention (T5-small widths): 128 decoder rows against
+    # 512 right-padded encoder keys, a fully padded row among them
+    ("cross_kpad", 4, 128, 512, 8, 64, dict(causal=False, kpad="right_and_full")),
     ("dropout_0.1", 2, 256, 256, 4, 64, dict(dropout_rate=0.1, seed=-123456789)),
     ("dropout_head_remap", 2, 256, 256, 4, 64, dict(dropout_rate=0.1, seed=77, head0=4, head_total=12,
                                                      counter_len=1000)),
     ("hd128", 2, 256, 256, 4, 128, {}),
     ("hd256_scale", 1, 128, 128, 2, 256, dict(scale=0.1)),
+    # phase E4's encoder (T5-3B's widths: 32 heads of 128)
+    ("hd128_t5_3b", 4, 512, 512, 32, 128, dict(causal=False)),
     ("ragged_t200", 2, 200, 200, 4, 48, {}),
     # phase M's GPT-2 1.5B microbatches: 25 heads of 64, dropout 0.1
     ("xl_b4_dropout", 4, 1024, 1024, 25, 64, dict(dropout_rate=0.1, seed=1234567)),
@@ -3205,7 +3879,7 @@ MAIN_CASES = ("main_path_causal", "train_path_causal", "xl_b4_dropout", "xl_b16_
 # Also in fp16, forward and backward: the training shape, T != S, a window,
 # fully-masked rows, dropout and a head dim the tensor cores do not take.
 FP16_CASES = ("train_path_causal", "t_lt_s_causal", "causal_window", "kpad_fully_padded_rows", "dropout_head_remap",
-              "hd128")
+              "hd128", "cross_kpad")
 
 
 def flash_route(dtype, hd):
@@ -3325,6 +3999,15 @@ def phase_b():
                 kpad = torch.zeros(B, S, device="cuda")
                 kpad[1, :50] = -1e30   # left padding: rows < 50 see only pad keys
                 kpad[2, :] = -1e30     # a fully padded sequence
+                kw["kpad_bias"] = kpad
+                del kw["kpad"]
+            elif kw.get("kpad") == "right_and_full":
+                # EncoderDecoderLM's encoder padding (additive -1e9): rows of
+                # 200, 0 (fully padded) and 400 real keys, and a full row.
+                kpad = torch.zeros(B, S, device="cuda")
+                kpad[0, 200:] = -1e9
+                kpad[1, :] = -1e9
+                kpad[2, 400:] = -1e9
                 kw["kpad_bias"] = kpad
                 del kw["kpad"]
             tag = str(dtype).removeprefix("torch.")
@@ -4923,7 +5606,7 @@ def phase_p():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, K, H, B, C (the default, all fourteen), P (profiles) and N "
+                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, K, H, E, B, C (the default, all fifteen), P (profiles) and N "
              "(phase R's ranks on two cards, over NCCL) and X (GPT-2 1.5B at 16 x 1024 with checkpointing off)")
     parser.add_argument("--k-child", metavar="DIR", help=argparse.SUPPRESS)  # phase K's resumed run
     args = parser.parse_args()
@@ -4948,6 +5631,7 @@ def main():
     log(f"[time] build {time.perf_counter() - started:.1f} s")
     serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches = {}, {}, {}, {}, {}, {}
     k_launches, d_launches, m_launches, s_launches, g_launches, h_launches = {}, {}, {}, {}, {}, {}
+    e_launches = {}
     errs = timing = None
     if "A" in args.phases:
         serve_launches = phase_a()
@@ -4977,6 +5661,8 @@ def main():
         k_launches, _ = phase_k(smi)
     if "H" in args.phases:
         h_launches = phase_h()
+    if "E" in args.phases:
+        e_launches = phase_e()
     if "B" in args.phases:
         errs = phase_b()
     if "C" in args.phases:
@@ -4994,11 +5680,13 @@ def main():
     # checkpointed run (K: before and after the save, the resumed child and
     # the full-checkpoint resume), the dropout run (D: its timed blocks) and
     # the checkpointed runs (M: every block and every 1.5B run), the serving
-    # engine's burst (S), generation through the smp.nn LM head (G: G1-G4) and
+    # engine's burst (S), generation through the smp.nn LM head (G: G1-G4),
     # the HF models through smp.from_hf (H: H1's training and generation, H2's
-    # bf16 forwards), each counted from 0 just before it.
+    # bf16 forwards) and the encoder-decoder and MoE paths (E: E1's training,
+    # generation and checkpointed steps, E2's T5 training, E3's MoE training
+    # and decoding, E4's forward), each counted from 0 just before it.
     paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches, k_launches,
-             d_launches, m_launches, s_launches, g_launches, h_launches)
+             d_launches, m_launches, s_launches, g_launches, h_launches, e_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"

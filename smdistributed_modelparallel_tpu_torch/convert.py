@@ -1,5 +1,5 @@
-"""Carry ``TransformerLM`` and ``DistributedTransformerLMHead`` weights from
-the JAX package to this one.
+"""Carry ``TransformerLM``, ``DistributedTransformerLMHead`` and
+``EncoderDecoderLM`` weights between the JAX package and this one.
 
 ``params_from_jax`` maps the flax parameter tree of
 ``smdistributed_modelparallel_tpu.models.transformer_lm.TransformerLM``
@@ -36,6 +36,18 @@ layers), under ``SMP_KV_QUANT=int8`` with ``scale_key``/``scale_value``
 [n_layers, num_blocks, H] beside the int8 pools, against the port's
 per-layer pools (``ServingEngine.kv_pools()``), bit for bit.
 
+A ``DistributedMoE`` in a layer (``num_experts > 0``) keeps the flax leaves
+as they are, both ways: ``output/router/kernel`` [D, E], ``output/fc/kernel``
+[E, D, F] and ``bias`` [E, F], ``output/proj/kernel`` [E, F, D] and ``bias``
+[E, D] become ``output.router.kernel``, ``output.fc.kernel``, ... .
+
+``encdec_params_from_jax`` and ``encdec_params_to_jax`` do the same for
+``models.encoder_decoder.EncoderDecoderLM``: its two stacks
+(``encoder/seq_layers/layer/``, ``decoder/seq_layers/layer/``, the latter
+with ``crossattention``), ``shared_embedding``, the relative-bias tables
+(``enc_rel_bias``, ``dec_rel_bias``) or position tables, ``encoder_ln``,
+``decoder_ln`` and an untied ``lm_head``.
+
 ``transformer_params_from_jax`` and ``transformer_params_to_jax`` do the
 same for a bare ``DistributedTransformer`` (the ViT encoder's module), whose
 flax leaves sit under ``seq_layers/layer/``: the LM head's map of its
@@ -56,6 +68,8 @@ bf16 leaves. numpy has no bf16 of its own: ``to_numpy`` gives
 as the JAX package's files do. ``to_torch`` reads both back as
 ``torch.bfloat16``, bit for bit.
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -168,10 +182,26 @@ _LMHEAD_KERNELS = {
 _LMHEAD_NORMS = {
     "attention/layernorm", "attention/post_layernorm", "crossattention/layernorm",
     "crossattention/post_layernorm", "output/layernorm", "output/post_layernorm", "ln_f",
-    "embedding_layernorm",
+    "embedding_layernorm", "encoder_ln", "decoder_ln",
 }
-_LMHEAD_EMBEDDINGS = {"word_embedding", "position_embedding", "token_type_embedding"}
+_LMHEAD_EMBEDDINGS = {"word_embedding", "position_embedding", "token_type_embedding", "shared_embedding",
+                      "enc_rel_bias", "dec_rel_bias", "enc_position_embedding", "dec_position_embedding"}
 _LAYER_PREFIX = "transformer/seq_layers/layer/"
+# EncoderDecoderLM's two stacks.
+_ENCDEC_PREFIXES = ("encoder/seq_layers/layer/", "decoder/seq_layers/layer/")
+# A DistributedMoE in a layer's "output" slot: its leaves keep the flax
+# names and shapes (router [D, E], fc [E, D, F] + [E, F], proj [E, F, D] +
+# [E, D]), kernels as ``kernel`` in torch too.
+_MOE_MODS = {"output/router", "output/fc", "output/proj"}
+
+
+def _is_moe_leaf(mod, kind, arr):
+    """Whether a leaf (a flax path's module and kind, or a torch name's, the
+    layer axis taken off) is a DistributedMoE's: the router, or an expert
+    kernel (3-D; torch calls it ``kernel`` too) or bias (2-D)."""
+    if mod not in _MOE_MODS:
+        return False
+    return mod == "output/router" or (kind == "kernel" and arr.dim() == 3) or (kind == "bias" and arr.dim() == 2)
 
 
 def _lm_head_leaf(path, value):
@@ -179,7 +209,9 @@ def _lm_head_leaf(path, value):
     tree (a tensor; the layer axis already taken off)."""
     mod, kind = path.rsplit("/", 1)
     arr = value
-    if kind == "kernel" and mod in _LMHEAD_KERNELS:
+    if _is_moe_leaf(mod, kind, arr):
+        name = kind
+    elif kind == "kernel" and mod in _LMHEAD_KERNELS:
         n_in = _LMHEAD_KERNELS[mod]
         arr = arr.reshape(int(np.prod(arr.shape[:n_in])), -1).T
         name = "weight"
@@ -194,23 +226,41 @@ def _lm_head_leaf(path, value):
     return f"{mod.replace('/', '.')}.{name}", arr.contiguous()
 
 
+def _stacks_from_jax(params, prefixes):
+    """flax params whose layer stacks sit under ``prefixes`` (each
+    ``<stack>/seq_layers/layer/``) -> the port's ``state_dict`` names
+    (``<stack>.seq_layers.<i>....``)."""
+    out = {}
+    for path, value in _flatten(params).items():
+        value = to_torch(value)
+        prefix = next((p for p in prefixes if path.startswith(p)), None)
+        if prefix is not None:
+            stack = prefix.removesuffix("/layer/").replace("/", ".")
+            for i in range(value.shape[0]):
+                name, t = _lm_head_leaf(path.removeprefix(prefix), value[i])
+                out[f"{stack}.{i}.{name}"] = t
+        else:
+            name, t = _lm_head_leaf(path, value)
+            out[name] = t
+    return out
+
+
 def lm_head_params_from_jax(params):
     """flax params of ``DistributedTransformerLMHead`` (nested dict or
     '/'-joined flat dict of arrays or tensors) -> ``state_dict`` of the
     port's ``DistributedTransformerLMHead``, on the tensors' device (the CPU
     for arrays)."""
-    out = {}
-    for path, value in _flatten(params).items():
-        value = to_torch(value)
-        if path.startswith(_LAYER_PREFIX):
-            stacked = value
-            for i in range(stacked.shape[0]):
-                name, t = _lm_head_leaf(path.removeprefix(_LAYER_PREFIX), stacked[i])
-                out[f"transformer.seq_layers.{i}.{name}"] = t
-        else:
-            name, t = _lm_head_leaf(path, value)
-            out[name] = t
-    return out
+    return _stacks_from_jax(params, (_LAYER_PREFIX,))
+
+
+def encdec_params_from_jax(params):
+    """flax params of ``models.encoder_decoder.EncoderDecoderLM`` ->
+    ``state_dict`` of the port's ``EncoderDecoderLM``: the LM head's leaf map
+    over its two stacks (``encoder/seq_layers/layer/``,
+    ``decoder/seq_layers/layer/`` with its ``crossattention``), the shared
+    embedding, the position tables or relative-bias tables, the final norms
+    and an untied ``lm_head``."""
+    return _stacks_from_jax(params, _ENCDEC_PREFIXES)
 
 
 def _to_jax_arrays(out, layers, what, host=True):
@@ -279,7 +329,9 @@ def _lm_head_leaf_to_jax(name, value, H):
     mod, kind = name.rsplit(".", 1)
     mod = mod.replace(".", "/")
     arr = value.detach()
-    if kind == "weight" and mod in _LMHEAD_KERNELS:
+    if _is_moe_leaf(mod, kind, arr):
+        flax_kind = kind
+    elif kind == "weight" and mod in _LMHEAD_KERNELS:
         n_out, n_in = arr.shape
         arr, flax_kind = arr.T.reshape(_lm_head_kernel_shape(mod, n_in, n_out, H)), "kernel"
     elif kind == "bias" and mod in _LMHEAD_KERNELS:
@@ -296,6 +348,22 @@ def _lm_head_leaf_to_jax(name, value, H):
     return f"{mod}/{flax_kind}", arr
 
 
+def _stacks_to_jax(state_dict, num_attention_heads, prefixes, what, host):
+    """The inverse of ``_stacks_from_jax``."""
+    out, layers = {}, {}
+    torch_prefixes = [(p.replace("/layer/", "/").replace("/", "."), p) for p in prefixes]
+    for name, value in state_dict.items():
+        hit = next(((tp, fp) for tp, fp in torch_prefixes if name.startswith(tp)), None)
+        if hit is not None:
+            i, rest = name.removeprefix(hit[0]).split(".", 1)
+            key, arr = _lm_head_leaf_to_jax(rest, value, num_attention_heads)
+            layers.setdefault(hit[1] + key, {})[int(i)] = arr
+        else:
+            key, arr = _lm_head_leaf_to_jax(name, value, num_attention_heads)
+            out[key] = arr
+    return _to_jax_arrays(out, layers, what, host)
+
+
 def lm_head_params_to_jax(state_dict, num_attention_heads, host=True):
     """``state_dict`` of the port's ``DistributedTransformerLMHead`` (or
     tensors of the same names) -> the JAX package's flat '/'-keyed dict of
@@ -303,17 +371,14 @@ def lm_head_params_to_jax(state_dict, num_attention_heads, host=True):
     ``num_attention_heads`` splits the qkv and output-projection kernels
     back into their head axes. ``host=False``: tensors on their device
     instead."""
-    out, layers = {}, {}
-    prefix = _LAYER_PREFIX.replace("/layer/", "/").replace("/", ".")
-    for name, value in state_dict.items():
-        if name.startswith(prefix):
-            i, rest = name.removeprefix(prefix).split(".", 1)
-            key, arr = _lm_head_leaf_to_jax(rest, value, num_attention_heads)
-            layers.setdefault(_LAYER_PREFIX + key, {})[int(i)] = arr
-        else:
-            key, arr = _lm_head_leaf_to_jax(name, value, num_attention_heads)
-            out[key] = arr
-    return _to_jax_arrays(out, layers, "DistributedTransformerLMHead tensor", host)
+    return _stacks_to_jax(state_dict, num_attention_heads, (_LAYER_PREFIX,), "DistributedTransformerLMHead tensor",
+                          host)
+
+
+def encdec_params_to_jax(state_dict, num_attention_heads, host=True):
+    """``state_dict`` of the port's ``EncoderDecoderLM`` -> the JAX package's
+    flat dict; the inverse of ``encdec_params_from_jax``."""
+    return _stacks_to_jax(state_dict, num_attention_heads, _ENCDEC_PREFIXES, "EncoderDecoderLM tensor", host)
 
 
 def transformer_params_from_jax(params):
@@ -331,6 +396,33 @@ def transformer_params_to_jax(state_dict, num_attention_heads, host=True):
     ``transformer_params_from_jax``."""
     flat = lm_head_params_to_jax({"transformer." + k: v for k, v in state_dict.items()}, num_attention_heads, host)
     return {k.removeprefix("transformer/"): v for k, v in flat.items()}
+
+
+def jax_layout(module, host=True):
+    """``(to_jax, from_jax)``: the maps between ``module``'s ``state_dict``
+    and the JAX package's flat keys for the same model, by its class (the
+    zoo's ``TransformerLM`` and ``EncoderDecoderLM``,
+    ``DistributedTransformerLMHead``, a bare ``DistributedTransformer``);
+    ``host`` as for ``params_to_jax``. None for a module the JAX package has
+    no counterpart for."""
+    from smdistributed_modelparallel_tpu_torch.models.encoder_decoder import EncoderDecoderLM
+    from smdistributed_modelparallel_tpu_torch.models.transformer_lm import TransformerLM
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import (
+        DistributedAttentionLayer,
+        DistributedTransformer,
+        DistributedTransformerLMHead,
+    )
+
+    if isinstance(module, TransformerLM):
+        return functools.partial(params_to_jax, host=host), params_from_jax
+    for cls, to_jax, from_jax in (
+            (DistributedTransformerLMHead, lm_head_params_to_jax, lm_head_params_from_jax),
+            (EncoderDecoderLM, encdec_params_to_jax, encdec_params_from_jax),
+            (DistributedTransformer, transformer_params_to_jax, transformer_params_from_jax)):
+        if isinstance(module, cls):
+            heads = [m.num_attention_heads for m in module.modules() if isinstance(m, DistributedAttentionLayer)]
+            return functools.partial(to_jax, num_attention_heads=heads[0] if heads else 1, host=host), from_jax
+    return None
 
 
 _KV_LEAVES = ("pool_key", "pool_value", "scale_key", "scale_value")

@@ -2,8 +2,9 @@
 
 Counterpart of ``smdistributed_modelparallel_tpu/generation.py`` for
 decoder-only models (the zoo ``TransformerLM`` and ``smp.nn``'s
-``DistributedTransformerLMHead``). A prefill pass over the prompt (the
-flash-attention path when the prompt is long enough) is followed by
+``DistributedTransformerLMHead``) and the zoo's seq2seq ``EncoderDecoderLM``.
+A prefill pass over the prompt (the flash-attention path when the prompt is
+long enough) is followed by
 single-token decode steps, with greedy / temperature / top-k / top-p
 sampling and per-row EOS freezing, or with beam search. The JAX package
 compiles the whole loop into one program; here it is a Python loop of eager
@@ -22,8 +23,15 @@ batch, HF scoring), decode-length buckets (``SMP_SHAPE_BUCKETS`` "seq"
 sizes: the decode length rounds up and a mask-capable module's prompt is
 left-padded to a bucket; the extra columns are sliced off) and
 ``SMP_DECODE_WEIGHTS=int8`` (the weights round-trip through the serving
-engine's per-channel int8 grid before the half cast). Seq2seq models and
-pipeline parallelism raise ``NotImplementedError``.
+engine's per-channel int8 grid before the half cast).
+
+Seq2seq models (``encode`` and ``decode_step``: the zoo's
+``EncoderDecoderLM``) run the JAX package's seq2seq branch: the encoder once
+(``encoder_mask`` for its padding), then ``decoder_start_token_id`` and each
+new token through the decoder's caches; the cross-attention K/V of the first
+step serve every later one, and the beams of a row share them. The output
+is the start token and the new ones. Pipeline parallelism raises
+``NotImplementedError``.
 """
 
 import inspect
@@ -105,7 +113,7 @@ def _decode_clone(module, cache_len, half):
         raise SMPValidationError(
             f"{type(module).__name__} does not support KV-cache decoding "
             "(needs clone() with decode/decode_cache_len/deterministic — the "
-            "TransformerLM zoo family and smp.nn DistributedTransformerLMHead do)."
+            "TransformerLM zoo family, smp.nn DistributedTransformerLMHead and EncoderDecoderLM do)."
         ) from e
     params = _decode_params(module, half)
     if params is not None:
@@ -130,20 +138,37 @@ def _mask_kwargs(mask, max_new_tokens):
     return {"attention_mask": pre}, {"attention_mask": step}
 
 
-def _decode_loop(decode_mod, ids, max_new_tokens, sampler, eos_token_id,
-                 pad_token_id, rng, mask=None):
-    """Prefill, then sample-feed-sample: returns the [B, max_new_tokens]
-    generated ids. Token t is sampled with ``split(rng, max_new_tokens)[t]``."""
+def _decoder_only(decode_mod, ids, mask, max_new_tokens):
+    """(first logits, step) of a decoder-only decode copy: the prefill over
+    the prompt, and ``step(tok)`` feeding one [B, 1] token chunk."""
     pre_kw, step_kw = _mask_kwargs(mask, max_new_tokens)
+    return decode_mod(ids, **pre_kw), lambda tok: decode_mod(tok, **step_kw)
+
+
+def _seq2seq(decode_mod, enc_ids, enc_mask, start, repeat):
+    """(first logits, step) of a seq2seq decode copy: the encoder runs once
+    (its states and mask repeated ``repeat`` times a row, for beams), then
+    the [B * repeat, 1] ``start`` tokens and every later token through
+    ``decode_step`` against the cached cross-attention K/V."""
+    h_e = decode_mod.encode(enc_ids, enc_mask).repeat_interleave(repeat, dim=0)
+    if enc_mask is not None:
+        enc_mask = enc_mask.repeat_interleave(repeat, dim=0)
+    return (decode_mod.decode_step(start, h_e, enc_mask),
+            lambda tok: decode_mod.decode_step(tok, h_e, enc_mask))
+
+
+def _decode_loop(first_logits, step, max_new_tokens, sampler, eos_token_id, pad_token_id, rng):
+    """Sample-feed-sample from the first logits: returns the [B,
+    max_new_tokens] generated ids. Token t is sampled with ``split(rng,
+    max_new_tokens)[t]``."""
     rngs = random.split(rng, max_new_tokens)
-    logits = decode_mod(ids, **pre_kw)
-    tok = sampler(logits[:, -1].float(), rngs[0])
+    tok = sampler(first_logits[:, -1].float(), rngs[0])
     done = torch.zeros_like(tok, dtype=torch.bool)
     if eos_token_id is not None:
         done = tok == eos_token_id
     out = [tok]
     for step_rng in rngs[1:]:
-        logits = decode_mod(tok[:, None], **step_kw)
+        logits = step(tok[:, None])
         nxt = sampler(logits[:, -1].float(), step_rng)
         if eos_token_id is not None:
             nxt = torch.where(done, pad_token_id, nxt)
@@ -187,21 +212,21 @@ def _reorder_caches(decode_mod, parent_flat):
             cache.reorder(parent_flat)
 
 
-def _beam_search(decode_mod, ids, mask, max_new_tokens, num_beams, eos_token_id,
+def _beam_search(decode_mod, first_logits, step_fn, B, max_new_tokens, num_beams, eos_token_id,
                  pad_token_id, length_penalty, num_return_sequences):
-    """The JAX package's ``_build_beam_generator`` for decoder-only models:
-    returns the [B, max_new] (or, R > 1, [B, R, max_new]) generated ids.
+    """The JAX package's ``_build_beam_generator``: returns the [B, max_new]
+    (or, R > 1, [B, R, max_new]) generated ids.
 
-    Beams fold into the batch (the prompt repeats N times before the
-    prefill); each step takes the top 2N candidates over [N x V] fp32
+    Beams fold into the batch (the caller repeats the prompt, or the
+    encoder's states, N times a row: ``first_logits`` and ``step_fn`` act on
+    [B * N] rows); each step takes the top 2N candidates over [N x V] fp32
     log-softmaxes, routes EOS candidates ranked within the top N into a
     best-N finished store (scores over ``(step + 1) ** length_penalty``),
-    continues the top N others and gathers the caches to their parents."""
+    continues the top N others and gathers the self-attention caches to
+    their parents (a row's beams share its encoder K/V)."""
     N = num_beams
-    B = ids.shape[0]
-    dev = ids.device
-    pre_kw, step_kw = _mask_kwargs(None if mask is None else mask.repeat_interleave(N, dim=0), max_new_tokens)
-    logits = decode_mod(ids.repeat_interleave(N, dim=0), **pre_kw)
+    logits = first_logits
+    dev = logits.device
     rows = torch.arange(B, device=dev)[:, None]
     # Step 0: the N beams of a row are clones, so only beam 0 proposes (HF
     # seeds the beam scores [0, -inf, ...]).
@@ -215,7 +240,7 @@ def _beam_search(decode_mod, ids, mask, max_new_tokens, num_beams, eos_token_id,
     in_top_n = torch.arange(2 * N, device=dev)[None, :] < N
     for step in range(max_new_tokens):
         if step:
-            logits = decode_mod(tok[:, None], **step_kw)
+            logits = step_fn(tok[:, None])
         logprobs = torch.log_softmax(logits[:, -1].float(), dim=-1)
         V = logprobs.shape[-1]
         cand = beam_scores[:, :, None] + logprobs.reshape(B, N, V)
@@ -297,11 +322,13 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
 
     Args:
       model: a ``DistributedModel`` wrapping a decode-capable LM (the
-        ``TransformerLM`` zoo family or ``smp.nn.DistributedTransformerLMHead``),
-        or such a module directly (then ``params``, a state dict, is
-        required).
-      input_ids: [B, T] int prompt tokens. Prompts of different true lengths
-        are LEFT-padded, with ``attention_mask`` marking the real tokens;
+        ``TransformerLM`` zoo family, ``smp.nn.DistributedTransformerLMHead``
+        or the zoo's seq2seq ``EncoderDecoderLM``, ``smp.from_hf`` models
+        included), or such a module directly (then ``params``, a state dict,
+        is required).
+      input_ids: [B, T] int prompt tokens; the ENCODER input of a seq2seq
+        model. Decoder-only prompts of different true lengths are
+        LEFT-padded, with ``attention_mask`` marking the real tokens;
         without a mask they are taken as unpadded.
       max_new_tokens: number of tokens to append.
       temperature: 0.0 = greedy argmax (default); > 0 samples.
@@ -313,19 +340,23 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
         data to sample the JAX package's tokens. Sampling runs on the
         model's device.
       params: state dict override (defaults to the model's).
-      attention_mask: [B, T] LEFT-padded prompt mask (1/True = real token),
-        for a module whose ``forward`` takes one (the smp.nn family).
+      encoder_mask: seq2seq only: [B, T] encoder padding mask (1/True =
+        keep; a float mask is additive), for the encoder and the
+        cross-attention.
+      attention_mask: decoder-only: [B, T] LEFT-padded prompt mask (1/True =
+        real token), for a module whose ``forward`` takes one (the smp.nn
+        family).
+      decoder_start_token_id: seq2seq only: the decoder's first token.
       num_beams: > 1 switches to beam search (greedy beams; temperature 0).
         Hypothesis scores are sum-logprob / (length ** length_penalty) with
         ``early_stopping=True`` semantics.
       num_return_sequences: beams only: the top R hypotheses a row, as a
         [B, R, L] tensor.
-    The seq2seq arguments (``encoder_mask``, ``decoder_start_token_id``)
-    keep the JAX package's surface; seq2seq models are not ported yet.
 
-    Returns: [B, T + max_new_tokens] — prompts with continuations ([B, R, T +
-    max_new_tokens] for R > 1); with beams, a finished hypothesis is
-    "hypothesis + EOS + pad".
+    Returns: decoder-only, [B, T + max_new_tokens]: prompts with
+    continuations; seq2seq, [B, 1 + max_new_tokens]: the start token and the
+    generated ids ([B, R, ...] for R > 1); with beams, a finished hypothesis
+    is "hypothesis + EOS + pad".
     """
     # Under context parallelism every rank decodes whole sequences, as the
     # JAX package's program computes them on the global arrays: the same
@@ -342,15 +373,16 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
             raise SMPValidationError(
                 "generate(module, ...) requires params=..."
             )
-    if hasattr(module, "encode") and hasattr(module, "decode_step"):
-        raise _not_ported("seq2seq generation")
-    if encoder_mask is not None:
+    seq2seq = hasattr(module, "encode") and hasattr(module, "decode_step")
+    if encoder_mask is not None and not seq2seq:
         raise SMPValidationError(
             "decoder-only models take attention_mask, not encoder_mask."
         )
     device = next(module.parameters()).device
     input_ids = torch.as_tensor(input_ids, device=device)
     if attention_mask is not None:
+        if seq2seq:
+            raise SMPValidationError("seq2seq models take encoder_mask, not attention_mask.")
         if not _takes_mask(module):
             raise SMPValidationError(
                 f"{type(module).__name__} does not accept attention_mask; padded-prompt generation needs the "
@@ -369,6 +401,8 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
                 "attention_mask must be LEFT-padded (rows 0..0 1..1 with the last column kept); right-padded "
                 "prompts would generate from a pad position."
             )
+    if encoder_mask is not None:
+        encoder_mask = torch.as_tensor(encoder_mask, device=device)
     if temperature < 0.0:
         raise SMPValidationError(
             "temperature must be >= 0 (0 = greedy); a negative value "
@@ -410,16 +444,21 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
     rng = random.key(0) if rng is None else random.as_key(rng)
     limit = getattr(module, "max_len", None) or getattr(module, "num_positions", None)
     orig_ids, orig_new = input_ids, max_new_tokens
-    if num_beams == 1:
+    if num_beams == 1 and not seq2seq:
         # Beam scores normalize by max_new_tokens: beams never bucket.
         input_ids, attention_mask, max_new_tokens = _bucket(module, input_ids, attention_mask, max_new_tokens,
                                                             pad_token_id, limit)
     B, T = input_ids.shape
-    cache_len = T + max_new_tokens
+    # A seq2seq decoder caches its start token and the generated ones.
+    cache_len = 1 + max_new_tokens if seq2seq else T + max_new_tokens
     if limit is not None and cache_len > limit:
         raise SMPValidationError(
-            f"prompt + max_new_tokens ({cache_len}) exceeds the model's "
-            f"position limit ({limit})."
+            f"{'decoder length' if seq2seq else 'prompt'} + max_new_tokens "
+            f"({cache_len}) exceeds the model's position limit ({limit})."
+        )
+    if limit is not None and seq2seq and T > limit:
+        raise SMPValidationError(
+            f"encoder prompt length ({T}) exceeds the model's position limit ({limit})."
         )
 
     half = state.cfg.half_dtype if state.cfg is not None else None
@@ -428,18 +467,27 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
             module = module.clone()
             module.load_state_dict(params, assign=True)
         decode_mod = _decode_clone(module, cache_len, half)
+        N = num_beams
+        if seq2seq:
+            start = input_ids.new_full((B * N, 1), decoder_start_token_id)
+            first, step = _seq2seq(decode_mod, input_ids, encoder_mask, start, repeat=N)
+            prompts = start[::N]
+        else:
+            mask = None if attention_mask is None else attention_mask.repeat_interleave(N, dim=0)
+            first, step = _decoder_only(decode_mod, input_ids.repeat_interleave(N, dim=0), mask, max_new_tokens)
+            prompts = input_ids
         if num_beams > 1:
-            new_tokens = _beam_search(decode_mod, input_ids, attention_mask, max_new_tokens, num_beams,
-                                      eos_token_id, pad_token_id, float(length_penalty), num_return_sequences)
+            new_tokens = _beam_search(decode_mod, first, step, B, max_new_tokens, num_beams, eos_token_id,
+                                      pad_token_id, float(length_penalty), num_return_sequences)
             new_tokens = new_tokens.to(input_ids.dtype)
             if num_return_sequences > 1:
-                prompts = input_ids[:, None].expand(B, num_return_sequences, T)
+                prompts = prompts[:, None].expand(B, num_return_sequences, prompts.shape[1])
                 return torch.cat([prompts, new_tokens], dim=2)
-            return torch.cat([input_ids, new_tokens], dim=1)
+            return torch.cat([prompts, new_tokens], dim=1)
         sampler = _make_sampler(float(temperature), top_k, top_p)
-        new_tokens = _decode_loop(
-            decode_mod, input_ids, max_new_tokens, sampler, eos_token_id,
-            pad_token_id, rng, attention_mask,
-        ).to(input_ids.dtype)
+        new_tokens = _decode_loop(first, step, max_new_tokens, sampler, eos_token_id, pad_token_id,
+                                  rng).to(input_ids.dtype)
+        if seq2seq:
+            return torch.cat([prompts, new_tokens], dim=1)
         # A bucketed run: the caller sees exactly the (prompt, max_new) asked.
         return torch.cat([orig_ids, new_tokens[:, :orig_new]], dim=1)

@@ -35,12 +35,19 @@ the state ``smp.from_hf`` or a resume staged. A checkpointed region
 replays them in its recompute, which runs in the step's backward after the
 microbatch has ended.
 
+Mixture of experts. Each ``DistributedMoE`` forward of a model call inside a
+step records its load-balancing loss here (``_sow_moe_aux``), as the JAX
+package's apply collects the sown ``moe_aux_loss``; ``_end_microbatch`` adds
+their sum times ``moe_aux_loss_weight`` to the loss the step differentiates,
+and the step returns the loss as marked. Outside a step nothing is recorded.
+
 Checkpoints. ``state_dict()`` is torch's own. The checkpoint files hold the
 JAX package's layout instead, so that either package resumes the other's
 runs: ``reference_state_dict()`` is the flat '/'-keyed dict of numpy arrays
 that the JAX package's ``DistributedModel.state_dict()`` gives for the same
 model (``convert.params_to_jax`` for the zoo's ``TransformerLM``,
 ``convert.lm_head_params_to_jax`` for ``smp.nn.DistributedTransformerLMHead``,
+``convert.encdec_params_to_jax`` for the zoo's ``EncoderDecoderLM``,
 ``convert.transformer_params_to_jax`` for a bare ``DistributedTransformer``;
 any other module keeps its torch names), and ``local_state_dict()`` the same
 as a shard payload (``shard_io``). ``load_state_dict`` takes any of the three,
@@ -50,7 +57,6 @@ the model is built, before any ``register_post_partition_hook`` hook runs.
 """
 
 import contextlib
-import functools
 
 import torch
 
@@ -127,6 +133,7 @@ class DistributedModel:
         self._grads_finite = None   # bool under fp16 loss scaling
         self._bound = None          # {name: tensor} bound for the current microbatch
         self._backward_loss = None
+        self._moe_aux = []          # MoE load-balancing losses of the current microbatch
         self._param_version = 0     # bumped whenever the parameters change
         self._params_at_step = None
         self._dropped_updates = 0
@@ -178,15 +185,35 @@ class DistributedModel:
         self._layer_keys = {}
         self._backward_loss = None
         self._num_tokens = None
+        self._moe_aux = []
 
     def _end_microbatch(self):
-        """(the marked loss, its ``num_tokens``)."""
-        loss, num_tokens = self._backward_loss, self._num_tokens
+        """(the marked loss, its ``num_tokens``, the loss to differentiate).
+
+        The last is the marked loss plus, when the microbatch's model calls
+        recorded MoE load-balancing losses, their sum times the config's
+        ``moe_aux_loss_weight`` (0 leaves it out), as the JAX package's
+        ``_end_step_trace`` folds them; the step returns the marked loss."""
+        loss, num_tokens, aux = self._backward_loss, self._num_tokens, self._moe_aux
         self._bound = None
         self._rngs = None
         self._backward_loss = None
         self._num_tokens = None
-        return loss, num_tokens
+        self._moe_aux = []
+        differentiated = loss
+        weight = float(getattr(state.cfg, "moe_aux_loss_weight", 1.0))
+        if loss is not None and aux and weight:
+            total = sum(aux[1:], aux[0])
+            differentiated = loss + torch.full((), weight, dtype=loss.dtype, device=loss.device) * total.to(loss.dtype)
+        return loss, num_tokens, differentiated
+
+    def _sow_moe_aux(self, aux):
+        """Record a ``DistributedMoE``'s load-balancing loss of this
+        microbatch: inside a step only, and not from a checkpointed region's
+        recompute (which replays its forward's keys), so each layer's loss
+        counts once."""
+        if self._bound is not None and self._key_replay is None:
+            self._moe_aux.append(aux)
 
     def make_rng(self, module, name="dropout", child=None):
         """The key flax's ``make_rng(name)`` gives ``module`` (or its child
@@ -370,22 +397,10 @@ def _rng_scopes(root):
 def _reference_layout(module):
     """``(to_reference, from_reference)``: the maps between the module's
     ``state_dict`` names and the JAX package's flat keys for the same
-    model. A module the JAX package has no counterpart for keeps its torch
-    names."""
-    from smdistributed_modelparallel_tpu_torch.models.transformer_lm import TransformerLM
-    from smdistributed_modelparallel_tpu_torch.nn.transformer import (
-        DistributedAttentionLayer,
-        DistributedTransformer,
-        DistributedTransformerLMHead,
-    )
-
-    if isinstance(module, TransformerLM):
-        return convert.params_to_jax, convert.params_from_jax
-    for cls, to_ref, from_ref in (
-            (DistributedTransformerLMHead, convert.lm_head_params_to_jax, convert.lm_head_params_from_jax),
-            (DistributedTransformer, convert.transformer_params_to_jax, convert.transformer_params_from_jax)):
-        if isinstance(module, cls):
-            heads = [m.num_attention_heads for m in module.modules() if isinstance(m, DistributedAttentionLayer)]
-            return functools.partial(to_ref, num_attention_heads=heads[0] if heads else 1), from_ref
+    model (``convert.jax_layout``). A module the JAX package has no
+    counterpart for keeps its torch names."""
+    layout = convert.jax_layout(module)
+    if layout is not None:
+        return layout
     return (lambda sd: {k: convert.to_numpy(v, copy=True) for k, v in sd.items()},
             lambda flat: {k: convert.to_torch(v) for k, v in flat.items()})

@@ -7,6 +7,7 @@ from smdistributed_modelparallel_tpu_torch.nn.embedding import DistributedEmbedd
 from smdistributed_modelparallel_tpu_torch.nn.gelu import bias_gelu, gelu
 from smdistributed_modelparallel_tpu_torch.nn.layer_norm import DistributedLayerNorm, FusedLayerNorm
 from smdistributed_modelparallel_tpu_torch.nn.linear import ColumnParallelLinear, DistributedLinear, RowParallelLinear
+from smdistributed_modelparallel_tpu_torch.nn.moe import DistributedMoE, moe_aux_losses
 from smdistributed_modelparallel_tpu_torch.nn.softmax import scaled_causal_masked_softmax, scaled_masked_softmax
 from smdistributed_modelparallel_tpu_torch.nn.tp_registry import (
     TensorParallelismRegistry,
@@ -28,6 +29,7 @@ __all__ = [
     "DistributedEmbedding",
     "DistributedLayerNorm",
     "DistributedLinear",
+    "DistributedMoE",
     "DistributedTransformer",
     "DistributedTransformerLMHead",
     "DistributedTransformerLayer",
@@ -38,6 +40,7 @@ __all__ = [
     "bias_gelu",
     "fused_lm_head_cross_entropy",
     "gelu",
+    "moe_aux_losses",
     "scaled_causal_masked_softmax",
     "scaled_masked_softmax",
     "tp_register",

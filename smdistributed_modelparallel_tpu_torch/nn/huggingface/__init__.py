@@ -2,12 +2,14 @@
 entries.
 
 Counterpart of ``smdistributed_modelparallel_tpu/nn/huggingface/__init__.py``
-with the same seven families (GPT-2, GPT-J, GPT-Neo, GPT-NeoX, BERT, RoBERTa,
-ViT): each maps an HF config onto ``smp.nn.DistributedTransformerLMHead``
-keyword arguments (ViT's encoder onto a bare ``DistributedTransformer``) and
+with the same eight families (GPT-2, GPT-J, GPT-Neo, GPT-NeoX, BERT, RoBERTa,
+ViT, T5): each maps an HF config onto ``smp.nn.DistributedTransformerLMHead``
+keyword arguments (ViT's encoder onto a bare ``DistributedTransformer``, T5
+onto the zoo's ``EncoderDecoderLM`` in its ``t5_compat`` dialect) and
 translates an HF state dict to and from the JAX package's flat layout, which
-``DistributedModel`` maps onto the port's torch names. The T5 family (the
-encoder-decoder) arrives with the encoder-decoder slice and raises until then.
+``DistributedModel`` maps onto the port's torch names. The registry also
+holds T5's layer-level hook (``T5Block`` -> ``DistributedTransformerLayer``,
+declining the block that holds the relative-attention bias).
 
 ``transformers`` is optional and never imported here: ``smp.from_hf`` takes
 any object with a ``config`` (its ``architectures`` or ``model_type`` name
@@ -41,13 +43,10 @@ class HFFamily:
     translate_from_hf: Optional[Callable]  # hf sd -> flat smp dict
     translate_to_hf: Optional[Callable]    # flat smp dict -> hf sd
     # The module the family maps onto: "lmhead" (the full model ->
-    # DistributedTransformerLMHead) or "transformer" (the encoder stack ->
-    # DistributedTransformer; ViT's scope).
+    # DistributedTransformerLMHead), "transformer" (the encoder stack ->
+    # DistributedTransformer; ViT's scope) or "encdec" (T5 ->
+    # models.encoder_decoder.EncoderDecoderLM).
     target: str = "lmhead"
-
-
-# Families of the JAX package that arrive with a later slice.
-_LATER = {"t5": (("T5ForConditionalGeneration", "T5Model"), "the encoder-decoder slice")}
 
 
 def _target_class(target):
@@ -56,11 +55,24 @@ def _target_class(target):
         DistributedTransformerLMHead,
     )
 
+    if target == "encdec":
+        from smdistributed_modelparallel_tpu_torch.models.encoder_decoder import EncoderDecoderLM
+
+        return EncoderDecoderLM
     return DistributedTransformer if target == "transformer" else DistributedTransformerLMHead
 
 
 def _families():
-    from smdistributed_modelparallel_tpu_torch.nn.huggingface import bert, gpt2, gptj, gptneo, gptneox, roberta, vit
+    from smdistributed_modelparallel_tpu_torch.nn.huggingface import (
+        bert,
+        gpt2,
+        gptj,
+        gptneo,
+        gptneox,
+        roberta,
+        t5,
+        vit,
+    )
 
     return {
         name: HFFamily(
@@ -72,7 +84,7 @@ def _families():
             target=getattr(mod, "TARGET", "lmhead"),
         )
         for name, mod in (("gpt2", gpt2), ("gptj", gptj), ("gptneo", gptneo), ("gptneox", gptneox),
-                          ("bert", bert), ("roberta", roberta), ("vit", vit))
+                          ("bert", bert), ("roberta", roberta), ("vit", vit), ("t5", t5))
     }
 
 
@@ -104,11 +116,6 @@ def family_for(config_or_model):
     for fam in families().values():
         if any(_matches(cand, fam.name, fam.architectures) for cand in candidates):
             return fam
-    for name, (architectures, where) in _LATER.items():
-        if any(_matches(cand, name, architectures) for cand in candidates):
-            from smdistributed_modelparallel_tpu_torch.nn.transformer import _not_ported
-
-            raise _not_ported(f"smp.from_hf of the HF {name} family", where)
     raise SMPValidationError(
         f"No HF translation registered for {candidates}; supported architectures: "
         f"{[a for f in families().values() for a in f.architectures]}"
@@ -239,6 +246,26 @@ def register_predefined_hooks(registry):
             # class, which the families share; smp.from_hf hands each model
             # its own.
             registry.register(hf_cls, target_cls, init_hook=_init_hook)
+
+    # T5's layer-level hook, beside the full-model family: T5Block ->
+    # DistributedTransformerLayer; the hook declines (returns None for) the
+    # block that holds the relative-attention bias, which stays as it is.
+    t5_block = getattr(getattr(getattr(getattr(transformers, "models", None), "t5", None), "modeling_t5", None),
+                       "T5Block", None)
+    if t5_block is not None:
+        from smdistributed_modelparallel_tpu_torch.nn.huggingface import t5
+        from smdistributed_modelparallel_tpu_torch.nn.transformer import DistributedTransformerLayer
+
+        def _t5_init_hook(config, has_relative_attention_bias=False, layer_idx=None, **kw):
+            # layer_idx: HF's T5Stack numbers its blocks; a stack hands the
+            # layer its index at call time instead.
+            out = t5.config_to_smp_layer(config, has_relative_attention_bias)
+            if out is None:
+                return None
+            out.update(kw)
+            return (), out
+
+        registry.register(t5_block, DistributedTransformerLayer, init_hook=_t5_init_hook)
 
 
 def from_hf(model_or_config, rngs=("dropout",), device=None, **overrides):

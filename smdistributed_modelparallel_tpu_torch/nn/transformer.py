@@ -65,10 +65,18 @@ single-token calls over the cache under ``col <= index`` combined with the
 caller's mask; a left-padded prompt's mask shifts each row's rotary and
 learned positions back by its pad count (``nn/utils.pad_row_offset``).
 
-Not ported yet, each raising ``NotImplementedError``: MoE (``num_experts >
-0``), cross-attention under ``decode`` (the encoder-decoder), tensor
-parallelism (``optimize="memory"`` included) and activation checkpointing
-under context parallelism.
+A cross-attention layer under ``decode`` (the encoder-decoder's decoder)
+computes the encoder K/V once, at its first call, and keeps them
+(``cross_kv``, the JAX module's ``cache/cross_kv``); later calls reuse them
+whatever ``cross_states`` they are given.
+
+``num_experts > 0`` makes a layer's MLP a ``nn/moe.DistributedMoE`` (named
+``output``, its layernorms attached to it as to the dense MLP), which records
+its load-balancing loss on the model being called.
+
+Not ported yet, each raising ``NotImplementedError``: tensor parallelism
+(``optimize="memory"`` included) and activation checkpointing under context
+parallelism.
 """
 
 import math
@@ -151,13 +159,18 @@ def _normal_(modules, std, generator=None):
 @torch.no_grad()
 def init_weights_(module, std=0.02, generator=None):
     """Redraw every weight of ``module`` as the JAX initializers give it:
-    normal(0, ``std``) kernels and embeddings, zero biases, unit layernorms;
+    normal(0, ``std``) kernels (the experts' too) and embeddings, zero
+    biases, unit layernorms;
     from ``generator`` (a ``torch.Generator`` on the module's device)."""
+    from smdistributed_modelparallel_tpu_torch.nn.moe import DistributedMoE
+
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Embedding, DistributedEmbedding)):
             _normal_([m], std, generator)
         elif isinstance(m, DistributedLayerNorm):
             m.reset_parameters()
+        elif isinstance(m, DistributedMoE):
+            m.reset_parameters(std, generator)
     return module
 
 
@@ -222,9 +235,6 @@ class DistributedAttentionLayer(nn.Module):
                  window_size=None, decode=False, decode_cache_len=None, deterministic=None, dtype=None,
                  device=None):
         super().__init__()
-        if decode and cross_attention:
-            raise _not_ported("cross-attention under decode=True (the encoder-decoder's cached encoder K/V)",
-                              "ROADMAP Queue 1 item 3")
         H, hd, D = num_attention_heads, attention_head_size, hidden_size
         self.num_attention_heads = H
         self.attention_head_size = hd
@@ -245,6 +255,7 @@ class DistributedAttentionLayer(nn.Module):
         self.decode_cache_len = decode_cache_len
         self.deterministic = deterministic
         self.cache = None  # the DecodeKVCache of a decode module, made at its first call
+        self.cross_kv = None  # a decode cross-attention's encoder (k, v), computed at its first call
         kw = dict(dtype=dtype, device=device)
         if cross_attention:
             self.query = nn.Linear(D, H * hd, bias=use_qkv_bias, **kw)
@@ -286,11 +297,14 @@ class DistributedAttentionLayer(nn.Module):
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
     def _cross_qkv(self, hidden, cross_states):
+        """(q, k, v) of cross-attention; q alone without ``cross_states``."""
         B, T = hidden.shape[:2]
         H, hd = self.num_attention_heads, self.attention_head_size
         q = _linear(hidden, self.query.weight, site="qkv").reshape(B, T, H, hd)
         if self.query.bias is not None:
             q = q + self.query.bias.reshape(H, hd).to(q.dtype)
+        if cross_states is None:
+            return q
         cs = cross_states.to(torch.promote_types(cross_states.dtype, hidden.dtype))
         kv = F.linear(cs, self.key_value.weight.to(cs.dtype)).reshape(B, cs.shape[1], 2, H, hd)
         if self.key_value.bias is not None:
@@ -303,7 +317,14 @@ class DistributedAttentionLayer(nn.Module):
         if self.cross_attention:
             if cross_states is None:
                 raise SMPValidationError("cross_attention=True requires cross_states input.")
-            q, k, v = self._cross_qkv(hidden, cross_states)
+            if self.decode and self.cross_kv is not None:
+                # The encoder K/V of the first decode call serve every later one.
+                q = self._cross_qkv(hidden, None)
+                k, v = self.cross_kv
+            else:
+                q, k, v = self._cross_qkv(hidden, cross_states)
+                if self.decode:
+                    self.cross_kv = (k, v)
         else:
             q, k, v = self._self_qkv(hidden)
         q, k, v = (shard_activation(t) for t in (q, k, v))
@@ -449,8 +470,6 @@ class DistributedTransformerLayer(nn.Module):
                  gated_mlp=False, num_experts=0, moe_top_k=2, moe_capacity_factor=1.25, decode=False,
                  decode_cache_len=None, deterministic=None, dtype=None, device=None):
         super().__init__()
-        if num_experts > 0:
-            raise _not_ported("num_experts > 0 (DistributedMoE)", "the MoE slice")
         self.pre_layernorm = pre_layernorm
         self.post_layernorm = post_layernorm
         self.single_pre_layernorm = single_pre_layernorm
@@ -471,12 +490,22 @@ class DistributedTransformerLayer(nn.Module):
             rotary_emb_base=rotary_emb_base, gpt_neox_type_rotary=gpt_neox_type_rotary,
             window_size=window_size, decode=decode, decode_cache_len=decode_cache_len, **attn_kw,
         )
-        self.output = DistributedTransformerOutputLayer(
-            hidden_size=hidden_size, intermediate_size=intermediate_size, hidden_dropout_prob=hidden_dropout_prob,
-            activation=activation, initializer_range=initializer_range, fused_bias_gelu=fused_bias_gelu,
-            use_mlp_bias=use_mlp_bias, gated_mlp=gated_mlp, deterministic=deterministic, dtype=dtype,
-            device=device,
-        )
+        if num_experts > 0:
+            from smdistributed_modelparallel_tpu_torch.nn.moe import DistributedMoE
+
+            self.output = DistributedMoE(
+                hidden_size=hidden_size, intermediate_size=intermediate_size, num_experts=num_experts,
+                top_k=moe_top_k, capacity_factor=moe_capacity_factor, hidden_dropout_prob=hidden_dropout_prob,
+                activation=activation, initializer_range=initializer_range, deterministic=deterministic,
+                dtype=dtype, device=device,
+            )
+        else:
+            self.output = DistributedTransformerOutputLayer(
+                hidden_size=hidden_size, intermediate_size=intermediate_size, hidden_dropout_prob=hidden_dropout_prob,
+                activation=activation, initializer_range=initializer_range, fused_bias_gelu=fused_bias_gelu,
+                use_mlp_bias=use_mlp_bias, gated_mlp=gated_mlp, deterministic=deterministic, dtype=dtype,
+                device=device,
+            )
         rms = layernorm_type == "rms"
 
         def ln():

@@ -38,7 +38,11 @@ and replays them), the fp8 trace and, for a module, the parameter tensors it
 ran on. The recompute therefore draws the forward's dropout masks and
 quantizes with the step's scales; its amax observations fold into the step's
 running max again with the same values, so the finalized quant state is
-unchanged.
+unchanged. A ``DistributedMoE`` in the region records its load-balancing loss
+in the forward only: the model takes none while keys replay
+(``DistributedModel._sow_moe_aux``). A decoder layer's ``cross_states`` reach
+the region as a keyword argument, so the recompute reads the same tensor and
+the gradient reaches the encoder through every layer.
 
 Not ported yet: the pipeline executors' ring plans (``zero_bubble_ring_plan``,
 ``recompute_ring_plan``; the pipeline slice).

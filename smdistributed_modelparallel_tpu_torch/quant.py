@@ -34,6 +34,7 @@ writing ``quant_states.pt`` (the checkpoint slice), and the ``linear_*`` and
 """
 
 import contextlib
+import functools
 import os
 import threading
 
@@ -451,15 +452,13 @@ def _divide(x, c):
 
 def _jax_layout(module):
     """``(to_jax, from_jax)`` between ``module``'s state dict and the JAX
-    package's flat parameter tree, on the tensors' device: the
-    ``DistributedTransformerLMHead`` layout or the zoo ``TransformerLM``'s."""
+    package's flat parameter tree, on the tensors' device
+    (``convert.jax_layout``); the zoo ``TransformerLM``'s for a module of
+    another class."""
     from smdistributed_modelparallel_tpu_torch import convert
-    from smdistributed_modelparallel_tpu_torch.nn.transformer import DistributedTransformerLMHead
 
-    if isinstance(module, DistributedTransformerLMHead):
-        heads = module.num_attention_heads
-        return (lambda sd: convert.lm_head_params_to_jax(sd, heads, host=False)), convert.lm_head_params_from_jax
-    return (lambda sd: convert.params_to_jax(sd, host=False)), convert.params_from_jax
+    return convert.jax_layout(module, host=False) or (
+        functools.partial(convert.params_to_jax, host=False), convert.params_from_jax)
 
 
 def _weight_leaf(leaf):

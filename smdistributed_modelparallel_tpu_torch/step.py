@@ -15,6 +15,10 @@ into one compiled program; here the same numbers come from an eager loop:
   package's gradient w.r.t. its half-cast parameters is) and accumulated
   in the master dtype (fp32, also when ``_fp32_grad_accumulation`` asks
   for it);
+- a microbatch whose model calls ran ``DistributedMoE`` layers
+  differentiates its marked loss plus their load-balancing losses times
+  ``moe_aux_loss_weight`` (``DistributedModel._end_microbatch``), as the JAX
+  package folds its sown ``moe_aux_loss``; the outputs keep the marked loss;
 - the sum is divided by ``microbatches * loss_scale`` and cast to each
   parameter's dtype: the mean over microbatches. Under fp16 the loss is
   scaled by the ``DynamicLossScaler`` before differentiation and the
@@ -158,7 +162,8 @@ def _check_supported(cfg):
         )
     if cfg.expert_parallel_degree > 1:
         raise NotImplementedError(
-            "@smp.step: expert_parallel_degree > 1 is not ported to PyTorch yet (the MoE slice)."
+            "@smp.step: expert_parallel_degree > 1 (experts sharded over the ep axis) is not ported to PyTorch "
+            "yet (the data-parallel slice)."
         )
     if cfg.context_parallel_degree > 1:
         if cfg.fp16:
@@ -340,7 +345,7 @@ class StepFunction:
                     with torch.enable_grad() if self._has_backward is not False else torch.no_grad():
                         out = self.fn(*mb_args, **mb_kwargs)
                 finally:
-                    loss, num_tokens = model._end_microbatch()
+                    loss, num_tokens, differentiated = model._end_microbatch()
                 weights.append(_loss_weight(group, num_tokens))
                 if self._has_backward is None:
                     self._has_backward = loss is not None
@@ -351,8 +356,10 @@ class StepFunction:
                     # the backward: the ring carries its cotangents to the
                     # other ranks' k/v, whose gradients land there.
                     scale = loss_scale * weights[-1] * (group.size if group is not None else 1)
+                    # The MoE load-balancing losses of this microbatch enter
+                    # its gradient (differentiated), not the returned loss.
                     grads = torch.autograd.grad(
-                        loss * scale if scale != 1.0 else loss,
+                        differentiated * scale if scale != 1.0 else differentiated,
                         [bound[n] for n in names], allow_unused=True,
                     )
                     if acc is None:

@@ -11,7 +11,9 @@ the port's KV-cache decode logits must match the JAX model's cacheless
 forward to 1e-5 of their largest value (summation order only). Left-padded
 prompts must give the JAX package's tokens, and a padded row the tokens of
 its unpadded prompt alone; sampled tokens under a key the JAX package's.
-BERT-family heads and pad-aware positions refuse to decode in both.
+BERT-family heads and pad-aware positions refuse to decode in both; a
+cross-attention layer decodes on the encoder K/V of its first call and
+refuses tensor parallelism.
 """
 
 import numpy as np
@@ -249,6 +251,17 @@ def test_mask_validation(mask, match):
         port_generate(tmod, prompts(length=4), 2, attention_mask=mask)
 
 
-def test_cross_attention_decode_still_refused():
-    with pytest.raises(NotImplementedError, match="cross-attention under decode"):
-        port_tr.DistributedAttentionLayer(4, 8, 32, cross_attention=True, decode=True, decode_cache_len=8)
+def test_cross_attention_decode_still_refused(monkeypatch):
+    """Cross-attention decodes now (``tests/test_torch_generate_seq2seq.py``):
+    its first call computes the encoder K/V, later calls reuse them. Under
+    tensor parallelism it is still refused."""
+    layer = port_tr.DistributedAttentionLayer(4, 8, 32, cross_attention=True, decode=True, decode_cache_len=8)
+    x, enc = torch.randn(2, 1, 32), torch.randn(2, 5, 32)
+    first = layer(x, cross_states=enc)
+    k, v = layer.cross_kv
+    assert k.shape == v.shape == (2, 5, 4, 8)
+    torch.testing.assert_close(layer(x, cross_states=2 * enc), first, rtol=0, atol=0)
+    assert layer.cross_kv[0] is k
+    monkeypatch.setattr(port_tr, "tp_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="tensor_parallel_degree"):
+        layer(x, cross_states=enc)

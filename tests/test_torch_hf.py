@@ -24,7 +24,8 @@ JAX package's and HuggingFace ``transformers``, on the CPU in fp32.
   - a full checkpoint with ``translate_if_full``: its ``model`` dict equals
     the JAX package's for the same weights and loads into
     ``transformers.GPT2LMHeadModel`` with the same logits;
-  - a T5 model raises, naming the encoder-decoder slice.
+  - a T5 config builds the encoder-decoder, whose pipeline decomposition
+    raises, naming the pipeline slice.
 """
 
 import dataclasses
@@ -416,7 +417,14 @@ def test_full_checkpoint_translates_to_hf(tmp_path):
 
 
 def test_t5_names_its_slice():
+    """T5 builds now (the zoo's ``EncoderDecoderLM`` in its t5_compat
+    dialect; ``tests/test_torch_hf_t5.py``); its pipeline decomposition
+    names the pipeline slice."""
+    from smdistributed_modelparallel_tpu_torch.models import EncoderDecoderLM
+
     config = transformers.T5Config(vocab_size=64, d_model=32, d_kv=8, num_heads=4, num_layers=2, d_ff=64)
     smp.init({}, device="cpu")
-    with pytest.raises(NotImplementedError, match="encoder-decoder slice"):
-        smp.from_hf(config)
+    model = smp.from_hf(config, device="cpu")
+    assert isinstance(model.module, EncoderDecoderLM) and model.module.t5_compat
+    with pytest.raises(NotImplementedError, match="pipeline slice"):
+        model.module.pipeline_spec()

@@ -38,6 +38,7 @@ from smdistributed_modelparallel_tpu.ops import attention as jax_attention
 from smdistributed_modelparallel_tpu.ops import pallas_gelu, pallas_qkv
 import smdistributed_modelparallel_tpu_torch as smp_torch
 from smdistributed_modelparallel_tpu_torch.convert import lm_head_params_from_jax
+from smdistributed_modelparallel_tpu_torch.nn import moe as port_moe
 from smdistributed_modelparallel_tpu_torch.nn import transformer as port_tr
 from smdistributed_modelparallel_tpu_torch.nn.cross_entropy import vocab_parallel_cross_entropy
 from smdistributed_modelparallel_tpu_torch.ops import attention as port_attention
@@ -354,13 +355,15 @@ def test_fused_training_matches_jax(fused_branch):
 
 
 @pytest.mark.parametrize("build, what", [
-    (lambda: port_tr.DistributedTransformerLMHead(**dict(TINY, num_experts=2)), "MoE"),
-    # Self-attention decodes now (test_decode_clone_matches_jax_forward);
-    # the encoder-decoder's cross-attention under decode does not yet.
-    (lambda: port_tr.DistributedAttentionLayer(4, 8, 32, cross_attention=True, decode=True, decode_cache_len=32),
-     "cross-attention under decode"),
+    # MoE (tests/test_torch_moe.py) and cross-attention under decode
+    # (tests/test_torch_generate_seq2seq.py) run now; under tensor
+    # parallelism they do not yet.
+    (lambda: port_moe.DistributedMoE(32, 64, 2)(torch.zeros(1, 4, 32)), "tensor_parallel_degree"),
+    (lambda: port_tr.DistributedAttentionLayer(4, 8, 32, cross_attention=True, decode=True, decode_cache_len=32)(
+        torch.zeros(1, 1, 32), cross_states=torch.zeros(1, 3, 32)), "tensor_parallel_degree"),
 ], ids=["moe", "decode"])
-def test_left_out_features_raise(build, what):
+def test_left_out_features_raise(build, what, monkeypatch):
+    monkeypatch.setattr(port_tr, "tp_size", lambda: 2)
     with pytest.raises(NotImplementedError, match=what):
         build()
 

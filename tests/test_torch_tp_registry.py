@@ -481,12 +481,12 @@ def test_tp_register_decorator_and_a_declining_init_hook():
 
 
 def test_public_names_match_the_jax_package():
-    """``smp.nn`` exports every name of the JAX package's but the MoE pair
-    (the MoE slice), and ``smp`` the slice's ten entry points."""
+    """``smp.nn`` exports every name of the JAX package's (the MoE pair
+    included), and ``smp`` the slice's ten entry points."""
     import smdistributed_modelparallel_tpu.nn as jax_nn
 
     jax_names = {n for n in vars(jax_nn) if not n.startswith("_") and not isinstance(getattr(jax_nn, n), type(jax_nn))}
-    assert jax_names - set(vars(smp.nn)) == {"DistributedMoE", "moe_aux_losses"}
+    assert jax_names - set(vars(smp.nn)) == set()
     for name in ("from_hf", "tp_register", "tp_register_with_module", "tensor_parallelism",
                  "set_tensor_parallelism", "partition", "set_partition", "get_partition",
                  "delay_param_initialization", "model_creation"):
