@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases K # checkpoints and the data loader on the smp.nn path only
     python3 chip_smoke.py --phases H # HuggingFace models through smp.from_hf only
     python3 chip_smoke.py --phases E # the encoder-decoder, T5 through smp.from_hf and MoE only
+    python3 chip_smoke.py --phases O # observability (telemetry, timeline, goodput, profiling, time series) only
     python3 chip_smoke.py --phases N # the same with the ranks on two cards (NCCL); needs two cards
     python3 chip_smoke.py --phases X # GPT-2 1.5B at 16 x 1024 with checkpointing off (its peak or OOM)
 
@@ -262,6 +263,33 @@ csrc`` (one nvcc per source, all started together), then:
      128) against fp32 (argmax within S_MARGIN), its hd-128 flash launches
      on the CUDA cores, and that kernel at the encoder's shape against its
      plain version.
+  O. observability, each run in a child process of its own (``--o-child``),
+     so env vars, singletons and at-exit dumps stay apart. O1: phase L's
+     model, weights and batch (``fused_qkv``, ``fused_bias_gelu``) trains 20
+     steps with every observability variable off, then with
+     ``SMP_TELEMETRY_PATH``, ``SMP_TIMELINE_PATH``,
+     ``SMP_FLIGHT_RECORDER_PATH``, ``SMP_WRITE_STEP_MEMORY_METRICS=1``,
+     ``SMP_GOODPUT=1``, ``SMP_PROFILE=steps=10:11`` and
+     ``SMP_WATCHDOG_TIMEOUT=300``, then ``smp.shutdown()``. Holds: (a) the
+     20 losses bit-equal to the off run's; (b) ``smp_step_total`` 20; (c) the
+     peak-memory gauge equal to ``torch.cuda.max_memory_allocated()``; (d)
+     the goodput states sum to the ledger's wall time; (e) the
+     ``torch.profiler`` trace of steps 10-11 names the six kernels of the
+     path as often as their wrappers counted launches there; (f) ``smp_mfu``
+     in (0, 1] and the roofline's FLOPs within 2% of
+     ``torch.utils.flop_counter``'s count of one plain-path step; (g)
+     ``scripts/telemetry_report.py``, ``trace_fuse.py`` and ``perf_ledger.py``
+     exit 0 on the dumps. Prints ms/step off and on (steps 2-9), and the
+     overhead measured in one process (the off child then runs blocks of 8
+     steps with the variables off, on, on, off, each after its own
+     ``smp.init``), the goodput fractions and the region split of the
+     captured steps (host regions, then device time by kernel). O2: phase S's burst with
+     ``SMP_TIMESERIES_INTERVAL=0.5``, ``SMP_TIMESERIES_PATH``, ``SMP_SLO``
+     and ``SMP_TELEMETRY_PATH``, and with them off (phase S's burst when it
+     ran in the call, else a child of its own): the same tokens, the
+     windows' generated-token deltas summing to the tokens served, and
+     ``scripts/slo_report.py`` exiting 0 on the JSONL; prints the windows'
+     rates and SLO verdicts.
   B. every kernel against its plain PyTorch version on the card, at the
      main paths' shapes and over a feature sweep, within stated tolerances;
      the ids-mode kernels on phase R's ring pairs (each rank's diagonal and
@@ -368,7 +396,7 @@ _ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "PRMT")
 _FP32_OPS = ("FFMA", "FADD", "FMUL")
 
 KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8", "dropout"]
-DEFAULT_PHASES = "ASGTFLDMQRKHEBC"
+DEFAULT_PHASES = "ASGTFLDMQRKHEOBC"
 SEED = 1234
 
 
@@ -5478,6 +5506,354 @@ def _phase_c_ce():
     return out
 
 
+# Phase O: observability (telemetry, flight recorder, timeline, memory
+# metrics, goodput, profiling, the serving time series), each run in a child
+# process so env vars, singletons and at-exit dumps stay apart.
+O_STEPS = 20
+O_PROFILE = (10, 11)                  # SMP_PROFILE's window
+O_TIMED = (2, 10)                     # ms/step over steps 2-9, before the capture
+O_BLOCKS = ("off", "on", "on", "off")  # the in-process alternation of the overhead blocks
+O_BLOCK_STEPS = (2, 8)                # a block's warm-up and timed steps
+O_FLOP_TOL = 0.02                     # roofline FLOPs against torch's flop counter
+O_SLO = "ttft_p99_ms=5000,itl_p99_ms=100"
+O_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel", "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
+             "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel", "bias_gelu_fwd": "bias_gelu_fwd_vec_kernel",
+             "bias_gelu_bwd": "bias_gelu_bwd_vec_kernel", "matmul_bias": "matmul_bias_wgmma_kernel"}
+O_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_obs")
+
+
+def _o_env(kind, out):
+    """The observability variables of an "on" child of ``kind``."""
+    if kind == "train":
+        return {"SMP_TELEMETRY_PATH": os.path.join(out, "telemetry.json"),
+                "SMP_TIMELINE_PATH": os.path.join(out, "timeline.json"),
+                "SMP_FLIGHT_RECORDER_PATH": os.path.join(out, "ring.jsonl"),
+                "SMP_WRITE_STEP_MEMORY_METRICS": "1",
+                "SMP_STEP_MEMORY_METRICS_PATH": os.path.join(out, "memory.jsonl"),
+                "SMP_GOODPUT": "1", "SMP_PROFILE": f"steps={O_PROFILE[0]}:{O_PROFILE[1]}",
+                "SMP_PROFILE_PATH": os.path.join(out, "profile"), "SMP_WATCHDOG_TIMEOUT": "300",
+                "SMP_WATCHDOG_PATH": os.path.join(out, "watchdog.json")}
+    return {"SMP_TIMESERIES_INTERVAL": "0.5", "SMP_TIMESERIES_PATH": os.path.join(out, "windows.jsonl"),
+            "SMP_SLO": O_SLO, "SMP_TELEMETRY_PATH": os.path.join(out, "telemetry.json")}
+
+
+_O_VARS = set(_o_env("train", "")) | set(_o_env("serve", ""))
+
+
+def _o_flops_plain(init_state, ids):
+    """``torch.utils.flop_counter``'s count of one step of phase L's model on
+    the plain path (``use_pallas_kernels: False``: every product an aten op
+    the counter sees), forward and backward."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from torch.utils.flop_counter import FlopCounterMode
+
+    model, optimizer, train_step = _lm_setup(init_state, False, "cuda", use_pallas_kernels=False)
+    with FlopCounterMode(display=False) as counter:
+        train_step(model, ids)
+    torch.cuda.synchronize()
+    del model, optimizer, train_step
+    smp.reset()
+    torch.cuda.empty_cache()
+    return counter.get_total_flops()
+
+
+def _o_overhead(module, ids):
+    """The observability overhead in one process: blocks of phase L's step
+    of ``module`` with every O1 variable but the capture's off and on, in
+    turns (``O_BLOCKS``), each its own ``smp.init``, ``DistributedModel`` and
+    AdamW, so the host's speed holds for both sides. Returns each block's
+    ms/step, by side."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    on_env = {k: v for k, v in _o_env("train", os.path.join(O_DIR, "train", "overhead")).items()
+              if not k.startswith("SMP_PROFILE")}
+    times = {"off": [], "on": []}
+    for side in O_BLOCKS:
+        with _env(**{k: v if side == "on" else None for k, v in on_env.items()}):
+            _lm_init(True)
+            model = smp.DistributedModel(module, device="cuda")
+            optimizer, train_step = _lm_optimizer_step(model)
+            for n in range(sum(O_BLOCK_STEPS)):
+                if n == O_BLOCK_STEPS[0]:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                train_step(model, ids)
+                optimizer.step()
+            torch.cuda.synchronize()
+            times[side].append((time.perf_counter() - t0) * 1e3 / O_BLOCK_STEPS[1])
+            del model, optimizer, train_step
+            smp.shutdown()
+    return times
+
+
+def phase_o_child_train(on):
+    """O1's run: 20 steps of phase L's fused path; prints ``O_CHILD {json}``."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    init = init_weights_(smp.nn.DistributedTransformerLMHead(**LM_CFG, device="cuda"), LM_CFG["initializer_range"], g)
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    ids = torch.randint(0, LM_CFG["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
+    # _lm_setup's parts, timed apart: the goodput ledger's "startup" runs
+    # from smp.init to the first step.
+    marks = [time.perf_counter()]
+    _lm_init(True)
+    marks.append(time.perf_counter())
+    module = smp.nn.DistributedTransformerLMHead(**LM_CFG, fused_bias_gelu=True, device="meta")
+    module.load_state_dict({k: v.clone() for k, v in init_state.items()}, assign=True)
+    marks.append(time.perf_counter())
+    model = smp.DistributedModel(module, device="cuda")
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    optimizer, train_step = _lm_optimizer_step(model)
+    marks.append(time.perf_counter())
+    t_setup, setup_s = marks[0], marks[-1] - marks[0]
+    setup_split = dict(zip(("init", "module", "model", "optimizer"), np.diff(marks).tolist()))
+    counters = {**_flash_counters(), **_new_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    losses, window, timed = [], None, {}
+    for n in range(O_STEPS):
+        if n == O_TIMED[0]:
+            torch.cuda.synchronize()
+            timed["t0"] = time.perf_counter()
+        if n == O_TIMED[1]:
+            torch.cuda.synchronize()
+            timed["t1"] = time.perf_counter()
+        if n == O_PROFILE[0]:
+            window = {k: fn.launches for k, fn in counters.items()}
+        losses.append(train_step(model, ids).reduce_mean())
+        if n == O_PROFILE[1]:
+            window = {k: fn.launches - window[k] for k, fn in counters.items()}
+        if n == O_STEPS - 1:
+            peak = torch.cuda.max_memory_allocated()  # what the step's end edge just read
+        optimizer.step()
+    torch.cuda.synchronize()
+    out = dict(losses=[float(x) for x in losses], peak=peak, window=window, setup_s=setup_s, setup_split=setup_split,
+               steps_s=time.perf_counter() - t_setup - setup_s,
+               launches={k: fn.launches for k, fn in counters.items()},
+               ms=(timed["t1"] - timed["t0"]) * 1e3 / (O_TIMED[1] - O_TIMED[0]))
+    if on:
+        led = smp.goodput.ledger
+        now = led._clock()
+        secs, wall = led.seconds(now), led.wall_seconds(now)
+        out.update(goodput=dict(seconds=secs, wall=wall, fraction=led.goodput_fraction(now)),
+                   trace=smp.profiling.capture.last_trace)
+    del model, optimizer, train_step
+    t0 = time.perf_counter()
+    smp.shutdown()
+    out["shutdown_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    if not on:
+        t0 = time.perf_counter()
+        out["plain_flops"] = _o_flops_plain(init_state, ids)
+        out["flops_s"] = time.perf_counter() - t0
+        os.makedirs(os.path.join(O_DIR, "train", "overhead"), exist_ok=True)
+        t0 = time.perf_counter()
+        out["blocks"] = _o_overhead(module, ids)
+        out["blocks_s"] = time.perf_counter() - t0
+    print("O_CHILD " + json.dumps(out), flush=True)
+
+
+def phase_o_child_serve(on):
+    """O2's run: phase S's burst on GPT-2 124M; prints ``O_CHILD {json}``."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m, init_gpt2_weights_
+    from smdistributed_modelparallel_tpu_torch.serving import ServingEngine
+
+    smp.init({"bf16": True})
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    module = init_gpt2_weights_(gpt2_124m(device="cuda"), g)
+    model = smp.DistributedModel(module, device="cuda")
+    engine = ServingEngine(model, max_slots=S_SLOTS, num_blocks=S_BLOCKS)
+    engine.run(s_requests(module.vocab_size, n=2, n_sampled=1, prompt=(40, 40), new=(4, 4), seed=SEED + 2,
+                          prefix="warm"))
+    reqs = s_requests(module.vocab_size)
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    wall = time.perf_counter() - t0
+    served = sum(len(v) for v in engine.results.values())  # the warm-up's streams included
+    if on:
+        engine.timeseries.sample()  # the last, partial window
+    engine.close()
+    smp.shutdown()
+    print("O_CHILD " + json.dumps(dict(results={r.request_id: results[r.request_id] for r in reqs}, wall=wall,
+                                       served=served)), flush=True)
+
+
+def _o_child(kind, on, out):
+    """Run one O child (``--o-child kind:on|off``) with its variables set
+    (on) or unset (off); return its result."""
+    env = {k: v for k, v in os.environ.items() if k not in _O_VARS}
+    if on:
+        env.update(_o_env(kind, out))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--o-child", f"{kind}:{'on' if on else 'off'}"],
+                         capture_output=True, text=True, timeout=600, env=env)
+    if res.returncode != 0:
+        raise RuntimeError(f"phase O {kind} child ({'on' if on else 'off'}) exited {res.returncode}:\n"
+                           f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    child = json.loads(next(ln for ln in res.stdout.splitlines() if ln.startswith("O_CHILD "))[8:])
+    child["child_s"] = time.perf_counter() - t0
+    return child
+
+
+def _o_metric(doc, name, **labels):
+    for s in doc["metrics"].get(name, {}).get("series", []):
+        if all(s["labels"].get(k) == v for k, v in labels.items()):
+            return s.get("value", s.get("count"))
+    return None
+
+
+def _o_script(name, *args):
+    res = subprocess.run([sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", name),
+                          *map(str, args)], capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"scripts/{name} exited {res.returncode} on phase O's dumps:\n{res.stderr[-3000:]}")
+    return res.stdout
+
+
+def _o_trace_split(path, steps):
+    """Host time by ``smp_phase/*`` region and device time by kernel in the
+    Chrome trace ``path`` of ``steps`` steps, each a mean a step (ms), and
+    each kernel's count over the trace."""
+    events = json.loads(open(path).read())["traceEvents"]
+    host, device, counts = {}, {}, {}
+    for e in events:
+        name, dur = e.get("name", ""), e.get("dur", 0) / 1e3
+        if e.get("cat") in ("user_annotation", "cpu_op", "python_function") and name.startswith("smp_phase/"):
+            host[name] = host.get(name, 0.0) + dur / steps
+        elif e.get("cat") == "kernel":
+            device[name] = device.get(name, 0.0) + dur / steps
+            counts[name] = counts.get(name, 0) + 1
+    return host, device, counts
+
+
+def phase_o():
+    """O1 and O2 (see the module docstring); returns O1's on-run launches
+    (its 20 steps, counted from 0 just before the first)."""
+    import shutil
+
+    shutil.rmtree(O_DIR, ignore_errors=True)
+    os.makedirs(O_DIR)
+    try:
+        return _phase_o()
+    finally:
+        shutil.rmtree(O_DIR, ignore_errors=True)
+
+
+def _phase_o():
+    t_phase = time.perf_counter()
+    train_dir, serve_dir = os.path.join(O_DIR, "train"), os.path.join(O_DIR, "serve")
+    os.makedirs(train_dir)
+    os.makedirs(serve_dir)
+    off = _o_child("train", False, train_dir)
+    on = _o_child("train", True, train_dir)
+    log(f"[O1] smp.nn GPT-2 124M, {O_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MB} microbatches, "
+        f"fused: observability off {off['ms']:.2f} ms/step, on {on['ms']:.2f} ms/step (steps {O_TIMED[0]}-"
+        f"{O_TIMED[1] - 1}, before the capture), on/off {on['ms'] / off['ms']:.4f}; children {off['child_s']:.1f} s "
+        f"and {on['child_s']:.1f} s (model set-up {off['setup_s']:.1f} / {on['setup_s']:.1f} s, 20 steps "
+        f"{off['steps_s']:.1f} / {on['steps_s']:.1f} s, shutdown {off['shutdown_s']:.2f} / {on['shutdown_s']:.2f} s, "
+        f"the flop count {off['flops_s']:.1f} s); on's set-up: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in on["setup_split"].items()))
+    blocks = off["blocks"]
+    ratio = np.mean(blocks["on"]) / np.mean(blocks["off"])
+    log(f"[O1] overhead in one process ({O_BLOCK_STEPS[1]} timed steps a block after {O_BLOCK_STEPS[0]}, blocks "
+        f"{' '.join(O_BLOCKS)}, the capture off; {off['blocks_s']:.1f} s): off "
+        + ", ".join(f"{t:.2f}" for t in blocks["off"]) + " ms/step, on " + ", ".join(f"{t:.2f}" for t in blocks["on"])
+        + f" ms/step; on/off {ratio:.4f}")
+    failures = []
+    # (a) observability reads and never alters.
+    if on["losses"] != off["losses"]:
+        failures.append(f"(a) losses differ: on {on['losses']} off {off['losses']}")
+    log(f"[O1] (a) 20 losses bit-equal on and off: {on['losses'] == off['losses']}; last {on['losses'][-1]:.6f}")
+    doc = json.loads(open(os.path.join(train_dir, "telemetry.json")).read())
+    # (b)
+    steps = _o_metric(doc, "smp_step_total")
+    if steps != O_STEPS:
+        failures.append(f"(b) smp_step_total {steps}, expected {O_STEPS}")
+    # (c) the peak-memory gauge is the allocator's peak.
+    gauge = _o_metric(doc, "smp_device_peak_hbm_bytes", device="cuda:0")
+    log(f"[O1] (b) smp_step_total {steps}; (c) smp_device_peak_hbm_bytes{{device=cuda:0}} {gauge} against "
+        f"torch.cuda.max_memory_allocated() {on['peak']} ({on['peak'] / 2**30:.3f} GiB)")
+    if gauge != on["peak"]:
+        failures.append(f"(c) peak gauge {gauge} != max_memory_allocated {on['peak']}")
+    # (d) every second of the ledger's wall lands in one state.
+    gp = on["goodput"]
+    total = sum(gp["seconds"].values())
+    log(f"[O1] (d) goodput: wall {gp['wall']:.3f} s, states sum {total:.3f} s, fraction {gp['fraction']:.4f}; "
+        + ", ".join(f"{k} {v / gp['wall']:.4f}" for k, v in sorted(gp["seconds"].items(), key=lambda kv: -kv[1])))
+    if abs(total - gp["wall"]) > 1e-6 * max(gp["wall"], 1.0):
+        failures.append(f"(d) goodput states sum to {total}, the ledger's wall is {gp['wall']}")
+    # (e) the capture names the path's kernels as often as they were launched.
+    n_win = O_PROFILE[1] - O_PROFILE[0] + 1
+    host, device, counts = _o_trace_split(on["trace"], n_win)
+    traced = {k: sum(c for name, c in counts.items() if kernel in name) for k, kernel in O_KERNELS.items()}
+    log(f"[O1] (e) trace {os.path.relpath(on['trace'], O_DIR)}: kernel counts {traced}; launch counters over steps "
+        f"{O_PROFILE[0]}-{O_PROFILE[1]} {on['window']}")
+    if traced != on["window"] or not all(traced.values()):
+        failures.append(f"(e) traced kernels {traced} != launches {on['window']}")
+    busy = sum(device.values())
+    log(f"[O1] region split, mean of the {n_win} captured steps: host "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(host.items(), key=lambda kv: -kv[1]))
+        + f"; device busy {busy:.2f} ms")
+    for name, ms in sorted(device.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"[O1]   {ms:9.3f} ms  x{counts[name] // n_win:<4d} {name[:90]}")
+    # (f) the sampled roofline.
+    mfu = _o_metric(doc, "smp_mfu", step="step")
+    flops = _o_metric(doc, "smp_roofline_flops", step="step")
+    rel = abs(flops - off["plain_flops"]) / off["plain_flops"] if flops else float("inf")
+    log(f"[O1] (f) smp_mfu {mfu} (last sampled step; peaks {_o_metric(doc, 'smp_roofline_peak_flops_per_s', step='step')} "
+        f"FLOP/s), roofline FLOPs {flops} against torch.utils.flop_counter's {off['plain_flops']} over one plain-path "
+        f"step: rel diff {rel:.3e} (limit {O_FLOP_TOL})")
+    if not (mfu is not None and 0 < mfu <= 1) or rel > O_FLOP_TOL:
+        failures.append(f"(f) smp_mfu {mfu}, FLOPs rel diff {rel}")
+    # (g) the stdlib scripts read the dumps.
+    report = _o_script("telemetry_report.py", os.path.join(train_dir, "telemetry.json"))
+    _o_script("trace_fuse.py", "-o", os.path.join(train_dir, "fused.json"), os.path.join(train_dir, "timeline.json"),
+              os.path.join(train_dir, "ring.jsonl"), os.path.join(train_dir, "telemetry.json"))
+    _o_script("perf_ledger.py", "--repo", train_dir)
+    for line in report.splitlines():
+        if any(w in line for w in ("steps:", "MFU", "peak HBM", "goodput")):
+            log(f"[O1] (g) telemetry_report: {line.strip()}")
+    launches = {**{k: 0 for k in _flash_counters()}, **on["launches"]}
+    want = O_STEPS * LM_CFG["num_layers"] * TRAIN_MB
+    if any(n != want for n in on["launches"].values()):
+        failures.append(f"launches over the {O_STEPS} steps {on['launches']}, expected {want} each")
+
+    # The burst with every variable off is phase S's when it ran in this call
+    # (the same model, weights and requests), else a child of its own.
+    if _S_BF16:
+        s_off = dict(results=_S_BF16["results"], wall=_S_BF16["numbers"]["wall_ms"] / 1e3, child_s=0.0, src="phase S")
+    else:
+        s_off = dict(_o_child("serve", False, serve_dir), src="a child")
+    s_on = _o_child("serve", True, serve_dir)
+    windows = [json.loads(ln) for ln in open(os.path.join(serve_dir, "windows.jsonl"))]
+    gen = sum(w["tokens_generated"] for w in windows)
+    log(f"[O2] phase S's burst: {sum(len(v) for v in s_on['results'].values())} tokens; off ({s_off['src']}) "
+        f"{s_off['wall'] * 1e3:.1f} ms, on {s_on['wall'] * 1e3:.1f} ms; tokens equal: "
+        f"{s_on['results'] == s_off['results']}; {len(windows)} windows, generated deltas sum {gen} against "
+        f"{s_on['served']} served (warm-up included); children {s_off['child_s']:.1f} s and {s_on['child_s']:.1f} s")
+    for w in windows:
+        slo = w.get("slo", {})
+        log(f"[O2]   window {w['seq']}: {w['window_s']:.3f} s, {w['tokens_per_s']:.1f} tokens/s, "
+            f"{w['requests_per_s']:.2f} requests/s, ttft p99 {w.get('ttft_p99_ms', float('nan')):.1f} ms, itl p99 "
+            f"{w.get('itl_p99_ms', float('nan')):.2f} ms, SLO ok {slo.get('ok')} {sorted(slo.get('violations', {}))}")
+    if s_on["results"] != s_off["results"]:
+        failures.append("O2: the burst's tokens differ with the time series on")
+    if gen != s_on["served"]:
+        failures.append(f"O2: windows' generated deltas sum to {gen}, {s_on['served']} tokens served")
+    slo = _o_script("slo_report.py", os.path.join(serve_dir, "windows.jsonl"))
+    for line in slo.splitlines()[-4:]:
+        log(f"[O2] slo_report: {line.strip()}")
+    log(f"[O] phase O {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise RuntimeError("phase O: " + "; ".join(failures))
+    return launches
+
+
 def _profile_report(label, prof, wall_ms, top):
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -5606,9 +5982,10 @@ def phase_p():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, K, H, E, B, C (the default, all fifteen), P (profiles) and N "
-             "(phase R's ranks on two cards, over NCCL) and X (GPT-2 1.5B at 16 x 1024 with checkpointing off)")
+                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, K, H, E, O, B, C (the default, all sixteen), "
+             "P (profiles) and N (phase R's ranks on two cards, over NCCL) and X (GPT-2 1.5B at 16 x 1024 with checkpointing off)")
     parser.add_argument("--k-child", metavar="DIR", help=argparse.SUPPRESS)  # phase K's resumed run
+    parser.add_argument("--o-child", metavar="KIND:ON", help=argparse.SUPPRESS)  # phase O's runs
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -5618,6 +5995,12 @@ def main():
 
     if args.k_child:
         phase_k_child(args.k_child)
+        return 0
+    if args.o_child:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kind, state = args.o_child.split(":")
+        (phase_o_child_train if kind == "train" else phase_o_child_serve)(state == "on")
         return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5631,7 +6014,7 @@ def main():
     log(f"[time] build {time.perf_counter() - started:.1f} s")
     serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches = {}, {}, {}, {}, {}, {}
     k_launches, d_launches, m_launches, s_launches, g_launches, h_launches = {}, {}, {}, {}, {}, {}
-    e_launches = {}
+    e_launches, o_launches = {}, {}
     errs = timing = None
     if "A" in args.phases:
         serve_launches = phase_a()
@@ -5663,6 +6046,8 @@ def main():
         h_launches = phase_h()
     if "E" in args.phases:
         e_launches = phase_e()
+    if "O" in args.phases:
+        o_launches = phase_o()
     if "B" in args.phases:
         errs = phase_b()
     if "C" in args.phases:
@@ -5684,9 +6069,10 @@ def main():
     # the HF models through smp.from_hf (H: H1's training and generation, H2's
     # bf16 forwards) and the encoder-decoder and MoE paths (E: E1's training,
     # generation and checkpointed steps, E2's T5 training, E3's MoE training
-    # and decoding, E4's forward), each counted from 0 just before it.
+    # and decoding, E4's forward) and the observability runs (O: O1's 20
+    # steps with every variable on), each counted from 0 just before it.
     paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches, k_launches,
-             d_launches, m_launches, s_launches, g_launches, h_launches, e_launches)
+             d_launches, m_launches, s_launches, g_launches, h_launches, e_launches, o_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"

@@ -40,6 +40,14 @@ are swapped for their registered ``smp.nn`` counterparts when the
 ``DistributedModel`` is built (``nn/auto_distribute.py``, ``smp.tp_register``);
 at tp = 1 they compute what the originals do.
 
+Observability, as in the JAX package (``utils/``): ``smp.telemetry`` (the
+metrics registry: ``report()``, ``render_prometheus()``, the JSON dump to
+``SMP_TELEMETRY_PATH``), ``smp.watchdog``, ``smp.flight_recorder``,
+``smp.goodput`` (wall-clock attribution), ``smp.profiling`` (named regions,
+``SMP_PROFILE`` capture with ``torch.profiler``, the roofline), the session
+timeline (``SMP_TIMELINE_PATH``), the serving time series
+(``SMP_TIMESERIES_INTERVAL``), and ``smp.shutdown()``, which writes the dumps.
+
     import torch
     import smdistributed_modelparallel_tpu_torch as smp
     from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m
@@ -92,6 +100,7 @@ from smdistributed_modelparallel_tpu_torch.nn.huggingface import from_hf
 from smdistributed_modelparallel_tpu_torch.nn.tp_registry import tp_register, tp_register_with_module
 from smdistributed_modelparallel_tpu_torch.optimizer import DistributedOptimizer
 from smdistributed_modelparallel_tpu_torch.step import step
+from smdistributed_modelparallel_tpu_torch.utils import profiling
 from smdistributed_modelparallel_tpu_torch.utils.data import dataloader, prefetch_to_device, shard_batches
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     NotInitializedError,
@@ -100,6 +109,9 @@ from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     SMPValidationError,
     StepUsageError,
 )
+from smdistributed_modelparallel_tpu_torch.utils.flight_recorder import flight_recorder
+from smdistributed_modelparallel_tpu_torch.utils.goodput import goodput
+from smdistributed_modelparallel_tpu_torch.utils.telemetry import telemetry, watchdog
 
 
 def init(config=None, device=None):
@@ -156,11 +168,25 @@ def get_cp_group():
     return state.topology.axis_group(state.rank, CP_AXIS)
 
 
+def shutdown():
+    """End the session: stop the goodput ledger, close an open profiler
+    capture, flush the timeline, dump the telemetry and the flight recorder
+    (where their paths are set), then reset. Also runs at interpreter exit
+    while the framework is initialized (without the reset)."""
+    state.shutdown()
+    state.reset()
+
+
 def reset():
     """Drop the config, device, model, optimizer, loss scaler, quant
     state, step count, the module annotations (activation-checkpoint
     configs, tp marks, partitions), the tp registry and any checkpoint state
-    waiting to be applied."""
+    waiting to be applied, and clear the telemetry registry, the flight
+    recorder, the goodput ledger, the profiler capture and the generate
+    program keys."""
+    from smdistributed_modelparallel_tpu_torch.generation import _PROGRAMS
+
+    _PROGRAMS.clear()
     state.reset()
 
 
@@ -304,10 +330,12 @@ __all__ = [
     "cp_size",
     "dataloader",
     "delay_param_initialization",
+    "flight_recorder",
     "from_hf",
     "generate",
     "get_cp_group",
     "get_partition",
+    "goodput",
     "init",
     "is_initialized",
     "load",
@@ -316,6 +344,7 @@ __all__ = [
     "nn",
     "partition",
     "prefetch_to_device",
+    "profiling",
     "quant",
     "rank",
     "reset",
@@ -327,10 +356,13 @@ __all__ = [
     "set_partition",
     "set_tensor_parallelism",
     "shard_batches",
+    "shutdown",
     "size",
     "step",
+    "telemetry",
     "tensor_parallelism",
     "tp_register",
     "tp_register_with_module",
     "wait_for_checkpoints",
+    "watchdog",
 ]

@@ -48,6 +48,18 @@ sequences and computes as at cp = 1.
 ``smp.set_partition`` and their contexts fill (after ``smp.init``, before the
 model is built); ``smp.init`` and ``smp.reset`` clear it.
 
+Observability. ``smp.init`` walks the telemetry phases of the JAX package's
+core (``init/distributed``, ``init/topology`` under the watchdog's guard,
+``initialized``), gives the registry this rank and the world size (the dump
+paths are rank-qualified when the world is larger than one), builds the
+session ``timeline`` (``SMP_TIMELINE_PATH``) and ``memory_metrics``
+(``SMP_WRITE_STEP_MEMORY_METRICS``), arms the goodput ledger (``SMP_GOODPUT``
+and friends) and the ``SIGUSR2`` profiler trigger, installs the exit hook and
+registers ``shutdown`` at exit. ``shutdown`` (``smp.shutdown``) stops the
+ledger, closes an open profiler capture, flushes the timeline and dumps the
+telemetry and the flight recorder; ``smp.reset`` clears the registry, the
+ring, the ledger and the capture.
+
 ``tp_registry`` is the ``nn/tp_registry.TensorParallelismRegistry`` that
 ``DistributedModel`` distributes tp-marked modules from: ``smp.init`` keeps
 the one ``smp.tp_register`` may have made before it, or makes one, and
@@ -56,11 +68,16 @@ registers the built-ins (``nn.Linear``, ``nn.Embedding``) and, where
 drops it.
 """
 
+import atexit
 import os
 
+from smdistributed_modelparallel_tpu_torch.utils import profiling
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import NotInitializedError, SMPValidationError
+from smdistributed_modelparallel_tpu_torch.utils.flight_recorder import flight_recorder
+from smdistributed_modelparallel_tpu_torch.utils.goodput import goodput
 from smdistributed_modelparallel_tpu_torch.utils.random import RngManager
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
+from smdistributed_modelparallel_tpu_torch.utils.telemetry import telemetry, watchdog
 
 logger = get_logger()
 
@@ -84,7 +101,9 @@ def _launcher_device(local_rank):
 
 class ModelParallelState:
     def __init__(self):
-        self.reset()
+        self.exit_hook = None
+        self._atexit_registered = False
+        self._clear()
 
     @property
     def initialized(self):
@@ -97,16 +116,23 @@ class ModelParallelState:
         from smdistributed_modelparallel_tpu_torch.nn.tp_registry import TensorParallelismRegistry
 
         registry = self.tp_registry
-        self.reset()
+        self._clear()
+        telemetry.set_phase("init/distributed")
         launched = "WORLD_SIZE" in os.environ or "LOCAL_RANK" in os.environ
         world = _env_int("WORLD_SIZE", 1)
         rank = _env_int("RANK", 0)
         local_rank = _env_int("LOCAL_RANK", 0)
-        topology = DeviceTopology(cfg, world)
-        if not 0 <= rank < topology.size:
-            raise SMPValidationError(f"RANK={rank} lies outside the {topology.size} device(s) of the topology.")
-        if device is None and launched:
-            device = _launcher_device(local_rank)
+        telemetry.set_phase("init/topology")
+        with watchdog.guard("init/topology"):
+            telemetry.process_index = rank
+            telemetry.process_count = world
+            topology = DeviceTopology(cfg, world)
+            if not 0 <= rank < topology.size:
+                raise SMPValidationError(f"RANK={rank} lies outside the {topology.size} device(s) of the topology.")
+            if device is None and launched:
+                device = _launcher_device(local_rank)
+            groups = _build_groups(topology, world, rank, device) if world > 1 else {}
+        telemetry.set_phase("initialized")
         self.cfg = cfg
         self.device = device
         self.world_size, self.rank, self.local_rank = world, rank, local_rank
@@ -115,15 +141,82 @@ class ModelParallelState:
         self.tp_registry = registry or TensorParallelismRegistry()
         register_builtins(self.tp_registry)
         register_predefined_hooks(self.tp_registry)
-        if world > 1:
-            self.groups = _build_groups(topology, world, rank, device)
+        self.groups = groups
         logger.info("Initialized %s over %d rank(s); this is rank %d.", topology, world, rank)
         if cfg.fp16:
             from smdistributed_modelparallel_tpu_torch.fp16.loss_scaler import DynamicLossScaler
 
             self.loss_scaler = DynamicLossScaler()
+        self._start_observability()
+
+    def _start_observability(self):
+        from smdistributed_modelparallel_tpu_torch.utils.exit_hook import ExitHook
+        from smdistributed_modelparallel_tpu_torch.utils.metrics import StepMemoryMetricsCollector
+        from smdistributed_modelparallel_tpu_torch.utils.timeline import Timeline
+
+        if self.exit_hook is None:
+            self.exit_hook = ExitHook()
+        self.exit_hook.hook()
+        if not self._atexit_registered:
+            atexit.register(self.shutdown)
+            self._atexit_registered = True
+        self.timeline = Timeline()
+        self.memory_metrics = StepMemoryMetricsCollector()
+        # Wall-clock attribution ledger (SMP_GOODPUT and friends): chains
+        # onto the set_phase listener, so it arms after telemetry exists.
+        goodput.start()
+        # SIGUSR2 arms a one-step profiler capture on a live run; the
+        # SMP_PROFILE window is read lazily at the first step edge.
+        profiling.capture.install_signal()
+
+    def exit_status(self):
+        """True when this process is shutting down cleanly."""
+        return self.exit_hook.success if self.exit_hook is not None else True
+
+    def shutdown(self):
+        """End the session's observability, as the JAX package's core
+        shutdown does at world size 1: stop the goodput ledger (its final
+        publish), derive the exit status, wait for pending checkpoint
+        saves, close an open profiler capture, flush the timeline, set the
+        ``shutdown`` phase and dump the telemetry (``SMP_TELEMETRY_PATH``)
+        and the flight recorder (``SMP_FLIGHT_RECORDER_PATH``). A no-op
+        when the framework is not initialized."""
+        if self.cfg is None:
+            return
+        try:
+            goodput.stop()
+        except Exception as e:
+            logger.warning("goodput ledger stop failed: %s", e)
+        if not self.exit_status():
+            logger.error(
+                "process %d shutting down after failure (exit_code=%r, exception=%r)",
+                self.rank, self.exit_hook.exit_code, self.exit_hook.exception,
+            )
+        from smdistributed_modelparallel_tpu_torch.checkpoint import wait_for_checkpoints
+
+        try:
+            wait_for_checkpoints()
+        except Exception as e:
+            logger.error("pending async checkpoint save failed during shutdown: %s", e)
+        profiling.capture.stop_if_active()
+        if self.timeline is not None:
+            self.timeline.flush()
+        telemetry.set_phase("shutdown")
+        telemetry.dump()  # no-op unless SMP_TELEMETRY_PATH is set
+        flight_recorder.dump()  # no-op unless SMP_FLIGHT_RECORDER_PATH is set
+        self.cfg = None
 
     def reset(self):
+        """Drop the session and clear the observability state: the
+        registry, the flight recorder's ring, the goodput ledger and the
+        profiler capture."""
+        goodput.reset()
+        telemetry.reset()
+        flight_recorder.clear()
+        profiling.capture.reset()
+        self._clear()
+
+    def _clear(self):
         self.cfg = None
         self.device = None
         self.model = None
@@ -142,6 +235,8 @@ class ModelParallelState:
         self.cp_sharded = False
         self.module_manager = None  # the module annotations (module_manager.py)
         self.tp_registry = None
+        self.timeline = None  # utils/timeline.Timeline (SMP_TIMELINE_PATH)
+        self.memory_metrics = None  # utils/metrics.StepMemoryMetricsCollector
 
     def check(self):
         if self.cfg is None:

@@ -37,9 +37,10 @@ packages in either direction:
   A checkpoint saved under another degree layout resumes with ``elastic=True``
   (``resilience/elastic.py``): each leaf is reassembled whole from its pieces.
 
-Ranks are ``torch.distributed`` ranks (``backend/state.py``). Left out until
-their slices: the goodput ``ckpt_save``/``ckpt_restore`` scopes and the
-executable cache's warm-start note. Unlike the JAX package, whose recovery
+Ranks are ``torch.distributed`` ranks (``backend/state.py``). A blocking save
+and a resume are attributed ``ckpt_save`` / ``ckpt_restore`` by the goodput
+ledger (``utils/goodput.py``), as in the JAX package; the executable cache's
+warm-start note waits for the executable cache (the AOT store). Unlike the JAX package, whose recovery
 supervisor restores the step edge, ``resume_from_checkpoint`` sets
 ``state.step_count`` from the checkpoint itself.
 """
@@ -52,6 +53,7 @@ import time
 
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPRuntimeError, SMPValidationError
+from smdistributed_modelparallel_tpu_torch.utils.goodput import goodput
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
 
 logger = get_logger()
@@ -290,12 +292,16 @@ def save_checkpoint(path, tag=None, model=None, optimizer=None,
             _finish_checkpoint(path, tag, partial, num_kept_partial_checkpoints)
 
     if blocking:
-        if _SAVER is not None:
-            # Behind any in-flight async saves: running inline would race
-            # the writer thread on `newest` and retention GC.
-            _saver_executor().submit(job).result()
-        else:
-            job()
+        # The calling thread waits for the whole serialize+IO+commit:
+        # badput, attributed ckpt_save by the goodput ledger. The async
+        # path records nothing: its work overlaps training.
+        with goodput.scope("ckpt_save"):
+            if _SAVER is not None:
+                # Behind any in-flight async saves: running inline would race
+                # the writer thread on `newest` and retention GC.
+                _saver_executor().submit(job).result()
+            else:
+                job()
     else:
         _PENDING_SAVES.append(_saver_executor().submit(job))
 
@@ -498,6 +504,13 @@ def resume_from_checkpoint(path, tag=None, partial=True, strict=True,
     now, or stashed until the model / optimizer is built. A saved layout
     that differs from the live config resumes with ``elastic=True`` and
     raises ``SMPValidationError`` with ``elastic=False``."""
+    # The restore blocks training end to end: badput (ckpt_restore) in the
+    # goodput ledger. One attribute test while disarmed.
+    with goodput.scope("ckpt_restore"):
+        return _resume_from_checkpoint(path, tag, partial, strict, load_optimizer, elastic)
+
+
+def _resume_from_checkpoint(path, tag, partial, strict, load_optimizer, elastic):
     if tag is None:
         newest = os.path.join(path, "newest")
         if not os.path.exists(newest):

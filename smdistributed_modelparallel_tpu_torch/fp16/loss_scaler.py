@@ -4,10 +4,13 @@ Counterpart of ``smdistributed_modelparallel_tpu/fp16/loss_scaler.py``:
 ``LossScaler`` (static) and ``DynamicLossScaler`` (overflow-driven backoff
 and growth), with the same scale arithmetic, defaults and ``state_dict``
 keys. On one device the overflow flag is one value, so no agreement across
-ranks is needed.
+ranks is needed. Each overflow and growth is a telemetry event
+(``record_loss_scale``: the events counter, the scale gauge and a
+flight-recorder health entry), as in the JAX package.
 """
 
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
+from smdistributed_modelparallel_tpu_torch.utils.telemetry import record_loss_scale
 
 logger = get_logger()
 
@@ -24,6 +27,7 @@ class LossScaler:
 
     def update(self, found_overflow):
         if found_overflow:
+            record_loss_scale("static_overflow", self._scale)
             logger.warning(
                 "Gradient overflow with static loss scale %.1f; step skipped.",
                 self._scale,
@@ -68,6 +72,7 @@ class DynamicLossScaler(LossScaler):
             else:
                 self.cur_hysteresis -= 1
             self._good_steps = 0
+            record_loss_scale("overflow", self._scale)
         else:
             if self.consecutive_hysteresis:
                 self.cur_hysteresis = self.delayed_shift
@@ -77,6 +82,7 @@ class DynamicLossScaler(LossScaler):
                     self.cur_hysteresis = self.delayed_shift
                 self._scale *= self.scale_factor
                 logger.info("Loss scale grown -> %.1f", self._scale)
+                record_loss_scale("growth", self._scale)
 
     def state_dict(self):
         return {

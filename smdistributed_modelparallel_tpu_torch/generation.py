@@ -32,8 +32,20 @@ new token through the decoder's caches; the cross-attention K/V of the first
 step serve every later one, and the beams of a row share them. The output
 is the start token and the new ones. Pipeline parallelism raises
 ``NotImplementedError``.
+
+Telemetry: each bucketed call counts its outcome (``smp_shape_bucket_total``),
+and the layers' fused-kernel dispatch decisions
+(``smp_fused_kernel_dispatch_total``) are counted as the JAX package counts
+them while it traces a new generate program: on the first call of each
+program key (``_program_key``, the JAX cache key's fields; at most
+``_PROGRAMS_CAP`` remembered, least recently used dropped), each decision
+ticks ``2 * model._SCAN_TRACES`` times a layer stack (the prefill apply and the
+decode step's, each a traced ``nn.scan``), a seq2seq encoder's
+``model._SCAN_TRACES`` (it runs once).
 """
 
+import collections
+import contextlib
 import inspect
 
 import numpy as np
@@ -41,7 +53,13 @@ import torch
 
 from smdistributed_modelparallel_tpu_torch import quant
 from smdistributed_modelparallel_tpu_torch.backend.state import state
-from smdistributed_modelparallel_tpu_torch.nn.utils import DecodeKVCache, half_cast
+from smdistributed_modelparallel_tpu_torch.model import replay_program_ticks
+from smdistributed_modelparallel_tpu_torch.nn.utils import (
+    DecodeKVCache,
+    collect_program_ticks,
+    half_cast,
+    program_scope,
+)
 from smdistributed_modelparallel_tpu_torch.ops.dropout import categorical
 from smdistributed_modelparallel_tpu_torch.utils import exec_cache, random
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
@@ -150,7 +168,8 @@ def _seq2seq(decode_mod, enc_ids, enc_mask, start, repeat):
     (its states and mask repeated ``repeat`` times a row, for beams), then
     the [B * repeat, 1] ``start`` tokens and every later token through
     ``decode_step`` against the cached cross-attention K/V."""
-    h_e = decode_mod.encode(enc_ids, enc_mask).repeat_interleave(repeat, dim=0)
+    with program_scope("phase", "encode"):
+        h_e = decode_mod.encode(enc_ids, enc_mask).repeat_interleave(repeat, dim=0)
     if enc_mask is not None:
         enc_mask = enc_mask.repeat_interleave(repeat, dim=0)
     return (decode_mod.decode_step(start, h_e, enc_mask),
@@ -285,6 +304,39 @@ def _beam_search(decode_mod, first_logits, step_fn, B, max_new_tokens, num_beams
     return out[:, 0] if num_return_sequences == 1 else out
 
 
+# The program keys generate has seen, as the JAX package's compiled-program
+# LRU (generation._COMPILED, capped at 32) holds them.
+_PROGRAMS_CAP = 32
+_PROGRAMS = collections.OrderedDict()
+
+
+def _program_key(module, *fields):
+    """The JAX package's generate cache key: the module (a flax module
+    hashes by its fields; here its class and constructor config) and the
+    call's shapes and settings."""
+    cfg = getattr(module, "config", None)
+    ident = (type(module).__name__, repr(sorted(cfg.items()))) if isinstance(cfg, dict) else id(module)
+    return (ident, *fields) + quant.serving_key_suffix()
+
+
+@contextlib.contextmanager
+def _program_ticks(key):
+    """Collect the fused-kernel dispatch decisions of a call whose
+    ``key`` is new and tick them as the JAX package's trace of the generate
+    program does; a known key ticks nothing."""
+    if key in _PROGRAMS:
+        _PROGRAMS.move_to_end(key)
+        yield
+        return
+    with collect_program_ticks() as notes:
+        yield
+    _PROGRAMS[key] = None
+    while len(_PROGRAMS) > _PROGRAMS_CAP:
+        _PROGRAMS.popitem(last=False)
+    # A stack is traced twice (the prefill and the decode step), an encoder once.
+    replay_program_ticks(notes, lambda kind, phase: 1 if phase == "encode" else 2)
+
+
 def _takes_mask(module):
     return "attention_mask" in inspect.signature(type(module).forward).parameters
 
@@ -293,23 +345,37 @@ def _bucket(module, input_ids, attention_mask, max_new_tokens, pad_token_id, lim
     """Decode-length buckets (``SMP_SHAPE_BUCKETS`` "seq" sizes), as the JAX
     package applies them: ``max_new_tokens`` rounds up to a bucket, and a
     mask-capable module's prompt is left-padded to one; a bucket never
-    pushes the request past ``limit``. Returns the (possibly padded) ids,
-    mask and decode length."""
+    pushes the request past ``limit``. Each bucketed call counts its
+    outcome (``smp_shape_bucket_total``: "padded" when either dimension
+    was padded, else "unbucketable" when one fits no bucket, else "exact").
+    Returns the (possibly padded) ids, mask and decode length."""
     sizes = (exec_cache.bucket_policy() or {}).get("seq")
     if not sizes:
         return input_ids, attention_mask, max_new_tokens
     B, T = input_ids.shape
+    padded = unbucketable = False
     new_b = exec_cache.bucket_for(max_new_tokens, sizes)
-    if new_b is not None and not (limit is not None and T + new_b > limit):
-        max_new_tokens = new_b
+    if new_b is not None and limit is not None and T + new_b > limit:
+        new_b = None  # a bucket never pushes a fitting request past the limit
+    if new_b is None:
+        unbucketable = True
+    elif new_b != max_new_tokens:
+        max_new_tokens, padded = new_b, True
     t_b = exec_cache.bucket_for(T, sizes)
     if t_b is not None and limit is not None and t_b + max_new_tokens > limit:
         t_b = None
-    if t_b is not None and t_b != T and _takes_mask(module):
-        pad_w = t_b - T
-        input_ids = torch.cat([input_ids.new_full((B, pad_w), pad_token_id), input_ids], dim=1)
-        keep = attention_mask.int() if attention_mask is not None else input_ids.new_ones((B, T), dtype=torch.int32)
-        attention_mask = torch.cat([keep.new_zeros((B, pad_w)), keep], dim=1)
+    if t_b is not None and t_b != T:
+        if _takes_mask(module):
+            pad_w = t_b - T
+            input_ids = torch.cat([input_ids.new_full((B, pad_w), pad_token_id), input_ids], dim=1)
+            keep = attention_mask.int() if attention_mask is not None else input_ids.new_ones((B, T), dtype=torch.int32)
+            attention_mask = torch.cat([keep.new_zeros((B, pad_w)), keep], dim=1)
+            padded = True
+        else:
+            unbucketable = True
+    elif t_b is None:
+        unbucketable = True
+    exec_cache.record_bucket("padded" if padded else ("unbucketable" if unbucketable else "exact"))
     return input_ids, attention_mask, max_new_tokens
 
 
@@ -462,7 +528,11 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
         )
 
     half = state.cfg.half_dtype if state.cfg is not None else None
-    with torch.inference_mode():
+    key = _program_key(
+        module, B, T, max_new_tokens, float(temperature), top_k, top_p, eos_token_id, pad_token_id,
+        decoder_start_token_id, encoder_mask is not None, attention_mask is not None, num_beams,
+        float(length_penalty), num_return_sequences, str(half))
+    with torch.inference_mode(), _program_ticks(key):
         if params is not None:
             module = module.clone()
             module.load_state_dict(params, assign=True)

@@ -54,6 +54,14 @@ as a shard payload (``shard_io``). ``load_state_dict`` takes any of the three,
 and ``load_sharded`` a ``shard_io`` catalog. A checkpoint that
 ``smp.resume_from_checkpoint`` read before the model existed is applied when
 the model is built, before any ``register_post_partition_hook`` hook runs.
+
+Dispatch counters. The JAX package counts the layers' fused-kernel and fp8
+dispatch decisions while it traces (``smp_fused_kernel_dispatch_total``,
+``smp_quant_dispatch_total``); the port notes them as it runs
+(``nn/utils.program_tick``) and ``replay_program_ticks`` ticks them as often
+as the JAX package's traces would. A call outside a step is an eager flax
+apply there, traced anew every call: each noted decision ticks once a trace,
+and the model's first use (a lazy init, then the apply) traces twice.
 """
 
 import contextlib
@@ -63,6 +71,7 @@ import torch
 from smdistributed_modelparallel_tpu_torch import convert
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS
+from smdistributed_modelparallel_tpu_torch.nn.utils import collect_program_ticks
 from smdistributed_modelparallel_tpu_torch.utils import random
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     SMPRuntimeError,
@@ -137,6 +146,7 @@ class DistributedModel:
         self._param_version = 0     # bumped whenever the parameters change
         self._params_at_step = None
         self._dropped_updates = 0
+        self._program_ticked = False  # the JAX package's lazy init has been traced (replay_program_ticks)
         self._to_reference, self._from_reference = _reference_layout(self.module)
         state.model = self
         if state.loaded_model_state is not None:
@@ -155,9 +165,19 @@ class DistributedModel:
         try:
             if self._bound is not None:
                 return torch.func.functional_call(self.module, self._bound, args, kwargs)
-            return self.module(*args, **kwargs)
+            with collect_program_ticks() as notes:
+                out = self.module(*args, **kwargs)
+            first = self._first_program()
+            replay_program_ticks(notes, lambda kind, phase: 2 if first else 1)
+            return out
         finally:
             state.calling_model = outer
+
+    def _first_program(self):
+        """Whether the JAX package would initialize this model (lazily, at
+        its first traced use) in the program about to be counted."""
+        first, self._program_ticked = not self._program_ticked, True
+        return first
 
     def backward(self, loss, num_tokens=None):
         """Mark the scalar to differentiate for this microbatch; the step
@@ -371,6 +391,22 @@ class DistributedModel:
 # flax's nn.scan traces its body twice; its scopes keep their rng counters
 # from the first trace (make_rng).
 _SCAN_TRACES = 2
+
+
+def replay_program_ticks(notes, passes):
+    """Tick each dispatch decision ``collect_program_ticks`` noted as the
+    JAX package's traces of one program do: ``passes(kind, phase)`` traced
+    passes, each ``_SCAN_TRACES`` ticks for a note made in a layer stack (a
+    flax ``nn.scan``) and one outside a stack."""
+    from smdistributed_modelparallel_tpu_torch.utils.telemetry import (
+        record_fused_kernel_dispatch,
+        record_quant_dispatch,
+    )
+
+    for kind, label, path, stack, phase in notes:
+        record = record_fused_kernel_dispatch if kind == "fused" else record_quant_dispatch
+        for _ in range(passes(kind, phase) * (_SCAN_TRACES if stack is not None else 1)):
+            record(label, path)
 
 
 def _rng_scopes(root):

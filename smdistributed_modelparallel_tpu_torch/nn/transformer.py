@@ -40,7 +40,11 @@ as in the JAX package.
 
 The config keys ``fused_qkv``, ``use_pallas_kernels`` and ``optimize`` are
 read through ``state.cfg``; ``use_pallas_kernels: False`` keeps every kernel
-off, the flash kernels included.
+off, the flash kernels included. The dispatch decisions are counted as the
+JAX package counts them while it traces (``smp_fused_kernel_dispatch_total``
+for the fused QKV and bias-GELU, ``smp_quant_dispatch_total`` for the fp8
+seams): noted through ``nn/utils.program_tick`` and replayed as the JAX
+package's traces count them (``model.replay_program_ticks``).
 
 Dropout in training mode (``deterministic`` None follows the
 ``DistributedModel``'s ``train()``/``eval()``) at the JAX package's four
@@ -100,6 +104,8 @@ from smdistributed_modelparallel_tpu_torch.nn.utils import (
     fused_bias_gelu,
     make_rng,
     pad_row_offset,
+    program_scope,
+    program_tick,
     resolve_deterministic,
     shard_activation,
     tp_size,
@@ -180,6 +186,7 @@ def _linear(x, weight, bias=None, site=None):
     fp8 step the product of a named seam (``site``) is ``quant.fp8_matmul``'s,
     as the JAX layers' ``_fp8_mm`` seams are."""
     if site is not None and quant.fp8_trace_active():
+        program_tick("quant", site, "fp8")
         y = quant.fp8_matmul(x, weight.to(x.dtype), site)
     else:
         y = F.linear(x, weight.to(x.dtype))
@@ -279,13 +286,17 @@ class DistributedAttentionLayer(nn.Module):
         H, hd = self.num_attention_heads, self.attention_head_size
         w = self.qkv.weight.to(hidden.dtype)
         b = None if self.qkv.bias is None else self.qkv.bias.to(hidden.dtype)
-        if self._fused_qkv_wanted(hidden):
+        fused = self._fused_qkv_wanted(hidden)
+        if _cfg("fused_qkv", False) and _cfg("use_pallas_kernels", True):
+            program_tick("fused", "qkv", "pallas" if fused else "fallback")
+        if fused:
             # One kernel against the [3*H*hd, D] weight, bias in the epilogue
             # (rounded to the activation dtype first, as the JAX call site's
             # qkv_bias.astype(hidden.dtype) does). Under an fp8 step, the fp8
             # rung: e4m3 operands through ops/matmul_fp8, dequant and bias in
             # the epilogue.
             if quant.fp8_trace_active():
+                program_tick("quant", "qkv", "fp8")
                 qkv = quant.fp8_matmul(hidden.reshape(-1, D), w, "qkv", bias=b, use_pallas=True)
             else:
                 qkv = mb.matmul_bias(hidden.reshape(-1, D), w, b)
@@ -437,7 +448,9 @@ class DistributedTransformerOutputLayer(nn.Module):
             return False
         if not _cfg("use_pallas_kernels", True):
             return False
-        return bg.bias_gelu_ok(self.activation, hidden)
+        ok = bg.bias_gelu_ok(self.activation, hidden)
+        program_tick("fused", "bias_gelu", "pallas" if ok else "fallback")
+        return ok
 
     def forward(self, hidden):
         _check_tp()
@@ -607,13 +620,14 @@ class DistributedTransformer(nn.Module):
             policy = memory.remat_policy()
             if policy.kind == memory.OFFLOAD:
                 offloader = memory.Offloader(policy.horizon)  # one stack: the backward prefetches across it
-        for i, layer in enumerate(self.seq_layers):
-            kw = dict(cross_states=cross_states, attention_mask=attention_mask, layer_idx=i,
-                      is_local=None if types is None else types[i] == "local")
-            if policy is None:
-                hidden = layer(hidden, **kw)
-            else:
-                hidden = memory.run_checkpointed(layer, (hidden,), kw, policy, offloader)
+        with program_scope("stack", id(self)):
+            for i, layer in enumerate(self.seq_layers):
+                kw = dict(cross_states=cross_states, attention_mask=attention_mask, layer_idx=i,
+                          is_local=None if types is None else types[i] == "local")
+                if policy is None:
+                    hidden = layer(hidden, **kw)
+                else:
+                    hidden = memory.run_checkpointed(layer, (hidden,), kw, policy, offloader)
         return hidden
 
 

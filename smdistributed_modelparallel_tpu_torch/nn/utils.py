@@ -11,8 +11,13 @@ to constrain over), ``resolve_deterministic``, ``fused_bias_gelu`` (its
 tp = 1 branch, with the fp8 epilogue input), ``half_cast``, ``mask_keep_2d``,
 ``pad_row_offset``, ``DecodeKVCache`` and ``PagedKVCache``.
 ``make_rng`` is flax's ``Module.make_rng`` for the port's modules and
-``dropout`` flax's ``nn.Dropout`` (``ops/dropout.py``).
+``dropout`` flax's ``nn.Dropout`` (``ops/dropout.py``). ``program_tick``
+notes the dispatch decisions that the JAX package counts while it traces
+(``collect_program_ticks``; ``model.replay_program_ticks`` ticks them).
 """
+
+import contextlib
+import threading
 
 import torch
 
@@ -57,6 +62,57 @@ def resolve_deterministic(explicit):
     return True
 
 
+class _ProgramTicks(threading.local):
+    notes = None  # the open collection: {note: None}, in first-seen order
+    stack = None  # id of the running DistributedTransformer (a flax nn.scan in the JAX package)
+    phase = None  # generate's "encode" pass, else None
+
+
+_program_ticks = _ProgramTicks()
+
+
+def program_tick(kind, *labels):
+    """One dispatch decision of a layer that the JAX package counts while it
+    traces a program, so once per compiled program, not per call:
+    ``("fused", kernel, path)`` for ``record_fused_kernel_dispatch`` and
+    ``("quant", site, path)`` for ``record_quant_dispatch``. Inside
+    ``collect_program_ticks`` it is noted once per layer stack (and
+    generate pass), whatever the number of layers and microbatches that make
+    it, as ``(kind, *labels, stack, phase)``; elsewhere it is dropped
+    (``model.replay_program_ticks`` ticks the notes)."""
+    t = _program_ticks
+    if t.notes is not None:
+        t.notes.setdefault((kind, *labels, t.stack, t.phase))
+
+
+@contextlib.contextmanager
+def collect_program_ticks():
+    """Collect the ``program_tick`` decisions made inside, in first-seen
+    order (a dict of keys)."""
+    prev = _program_ticks.notes
+    _program_ticks.notes = notes = {}
+    try:
+        yield notes
+    finally:
+        _program_ticks.notes = prev
+
+
+@contextlib.contextmanager
+def program_scope(attr, value):
+    """Set ``stack`` or ``phase`` of the notes made inside (a no-op cost
+    when nothing collects)."""
+    t = _program_ticks
+    if t.notes is None:
+        yield
+        return
+    prev = getattr(t, attr)
+    setattr(t, attr, value)
+    try:
+        yield
+    finally:
+        setattr(t, attr, prev)
+
+
 def make_rng(module, name="dropout", child=None):
     """The key flax's ``make_rng(name)`` gives ``module`` (or its child scope
     ``child``, e.g. an inline ``nn.Dropout``'s auto-name "Dropout_0") in the
@@ -96,6 +152,7 @@ def fused_bias_gelu(h, b):
     from smdistributed_modelparallel_tpu_torch.ops.bias_gelu import bias_gelu
 
     if quant.fp8_trace_active():
+        program_tick("quant", "gelu_in", "fp8")
         h = quant.fake_quant(h, "gelu_in.x")
     if tp_enabled():
         raise NotImplementedError(

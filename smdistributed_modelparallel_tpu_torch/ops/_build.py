@@ -6,6 +6,13 @@ in ``.gitignore``), named by a hash of its source, the shared headers
 (``csrc/*.cuh``) and the flags so an edited source is rebuilt, and loaded
 with ``ctypes``. Nothing is built when the package is imported, and nothing
 falls back when a build fails: the error carries nvcc's output.
+
+A first load in a process is the port's compile: it runs under the telemetry
+phase ``compile/<name>`` (the goodput ledger's ``compile_fresh``), then the
+phase it interrupted comes back. The flight recorder and the ledger get its
+seconds: ``nvcc`` for a build (fresh), ``load`` for a library already on
+disk (the ledger moves those seconds to ``compile_cache``, as it does for the
+JAX package's disk-cache hits).
 """
 
 import ctypes
@@ -14,7 +21,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from smdistributed_modelparallel_tpu_torch.utils.flight_recorder import flight_recorder
+from smdistributed_modelparallel_tpu_torch.utils.goodput import goodput
+from smdistributed_modelparallel_tpu_torch.utils.telemetry import telemetry
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -89,7 +101,16 @@ def load(name):
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            proc, out = start_build(name)
-            finish_build(proc, out)
-            lib = _LOADED[name] = ctypes.CDLL(str(out))
+            resumed = telemetry.phase
+            telemetry.set_phase(f"compile/{name}")
+            t0 = time.perf_counter()
+            try:
+                proc, out = start_build(name)
+                finish_build(proc, out)
+                lib = _LOADED[name] = ctypes.CDLL(str(out))
+            finally:
+                telemetry.set_phase(resumed)
+            seconds = time.perf_counter() - t0
+            flight_recorder.record_compile("nvcc" if proc is not None else "load", name, seconds)
+            goodput.note_compile("fresh" if proc is not None else "disk_cache", seconds)
         return lib

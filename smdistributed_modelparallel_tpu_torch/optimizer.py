@@ -48,6 +48,7 @@ from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     StepUsageError,
 )
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
+from smdistributed_modelparallel_tpu_torch.utils import profiling
 
 logger = get_logger()
 
@@ -110,7 +111,12 @@ class DistributedOptimizer:
                 self.load_state_dict(payload)
 
     def step(self):
-        """Apply the gradients of the last ``@smp.step`` call."""
+        """Apply the gradients of the last ``@smp.step`` call (the profiler
+        region ``optimizer/step``)."""
+        with profiling.region("optimizer/step"):
+            self._step_impl()
+
+    def _step_impl(self):
         model = self.model
         grads = model._grads
         if grads is None:

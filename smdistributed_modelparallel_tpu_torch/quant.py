@@ -27,10 +27,17 @@ The serving half (``quant.py:110-150``, ``:608-736``): the knobs
 scales are the JAX package's: one a last-axis channel over every layer of the
 stack (see ``_weight_leaf``).
 
-Not ported yet: the telemetry gauges and dispatch counters
-(``record_quant_state``, ``record_quant_dispatch``; the operations slice),
-writing ``quant_states.pt`` (the checkpoint slice), and the ``linear_*`` and
-``ring_*`` seams (the tensor-parallel slice).
+Telemetry, as in the JAX package: ``QuantState.absorb`` publishes the
+latest amax and the scale in force per slot (``record_quant_state``, the
+``smp_quant_amax`` / ``smp_quant_scale`` gauges; reading them copies them to
+the host once a step); the dispatch counter ``smp_quant_dispatch_total``
+ticks at the layers' fp8 seams, ``linear_*`` included
+(``nn/utils.program_tick``), and at the serving engine's construction
+(``decode_weights``, ``kv_cache``).
+
+Not ported yet: writing ``quant_states.pt`` (the checkpoint slice), and the
+``ring_*`` seams (the tensor-parallel slice), whose fp8 dispatch counts come
+with them.
 """
 
 import contextlib
@@ -149,9 +156,14 @@ class QuantState:
         return self
 
     def absorb(self, out):
-        """Install a step's rolled state (``finalize``'s result)."""
+        """Install a step's rolled state (``finalize``'s result) and publish
+        the telemetry gauges (``smp_quant_amax`` / ``smp_quant_scale``,
+        latest per slot)."""
+        from smdistributed_modelparallel_tpu_torch.utils.telemetry import record_quant_state
+
         self.amax_history = out["amax_history"]
         self.scale = out["scale"]
+        record_quant_state(SITE_SLOTS, self.amax_history[:, 0].tolist(), self.scale.tolist())
 
     def state_dict(self):
         return {

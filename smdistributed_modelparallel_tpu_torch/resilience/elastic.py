@@ -15,6 +15,7 @@ slices.
 
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
+from smdistributed_modelparallel_tpu_torch.utils.telemetry import record_elastic_resume
 
 logger = get_logger()
 
@@ -102,4 +103,5 @@ def begin_elastic_resume(saved_cfg, current_cfg, shard_format, what=""):
             "verified, not resharded — make sure this is intended): %s",
             other,
         )
+    record_elastic_resume(len(layout), len(soft), detail=f"layout={layout} soft={soft}")
     return layout, soft

@@ -41,11 +41,23 @@ fp32 on the way in and half-casts, as the JAX engine does.
 ``SMP_KV_QUANT=int8`` stores the pools int8 with per-block, per-head scales
 (``nn/utils.PagedKVCache``); ``kv_block_bytes`` counts the scales too.
 
-Left out, each refused at construction: the telemetry, chaos, fleet and
-time-series seams and the environment variables that arm them (the
-operations slice; the int8 knobs' ``record_quant_dispatch`` counts with
-them), and more than one rank (tp, pp or cp > 1; ``replica.py``,
-``router.py`` and ``controller.py`` come with slice 3).
+**Observability**, as in the JAX engine: request lifecycle counts
+(``record_serve_request``), the latency histograms (queue wait, TTFT, prefill,
+inter-token, decode step; ``record_serve_latency``), token counts, the
+occupancy gauges, one flight-recorder span edge per request event
+(``record_serve_trace``), the program count, the int8 knobs'
+``record_quant_dispatch`` at construction, the profiler regions
+``serve/decode_step``, ``serve/prefill_chunk`` and ``serve/compile_<kind>``,
+and the metrics time series (``SMP_TIMESERIES_INTERVAL`` > 0:
+``utils/timeseries.MetricsTimeSeries``, polled from every tick, with a daemon
+thread for idle gaps that ``close()`` stops).
+
+Left out, each refused at construction: the chaos harness, the fleet metrics
+plane, the executable cache, the compiled-program audit and the serving
+control plane, and the environment variables that arm them (the fleet and
+chaos come with slice 9b, the others with their own slices), and more than
+one rank (tp, pp or cp > 1; ``replica.py``, ``router.py`` and
+``controller.py`` come with slice 3).
 """
 
 import collections
@@ -70,9 +82,20 @@ from smdistributed_modelparallel_tpu_torch.serving.kv_cache import (
     serve_slots,
 )
 from smdistributed_modelparallel_tpu_torch.step import _env_on, _env_set
-from smdistributed_modelparallel_tpu_torch.utils import random
+from smdistributed_modelparallel_tpu_torch.utils import profiling, random
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
+from smdistributed_modelparallel_tpu_torch.utils.telemetry import (
+    record_quant_dispatch,
+    record_serve_latency,
+    record_serve_occupancy,
+    record_serve_programs,
+    record_serve_request,
+    record_serve_tokens,
+    record_serve_trace,
+    record_weight_update,
+)
+from smdistributed_modelparallel_tpu_torch.utils.timeseries import MetricsTimeSeries
 
 logger = get_logger()
 
@@ -95,10 +118,8 @@ def _env_truthy(name):
 
 # (environment variable, what it arms in the JAX package's engine, whether it asks).
 _LEFT_OUT_ENV = (
-    ("SMP_TIMESERIES_INTERVAL", "the metrics time series", _env_positive),
     ("SMP_FLEET_INTERVAL", "the fleet metrics plane", _env_positive),
     ("SMP_CHAOS", "the chaos harness", _env_set),
-    ("SMP_TELEMETRY_PATH", "the telemetry dump", _env_set),
     ("SMP_EXEC_CACHE", "the executable cache", _env_on),
     ("SMP_HLO_AUDIT", "the compiled-program audit", _env_on),
     ("SMP_AUTOSCALE", "the serving control plane", _env_truthy),
@@ -321,13 +342,15 @@ class ServingEngine:
         self.decode_mod.eval()
         self._trunk = _Trunk(self.decode_mod)
         # SMP_KV_QUANT is read by each layer's PagedKVCache (_init_cache).
-        quant.kv_quant_mode()
+        if quant.kv_quant_mode() == "int8":
+            record_quant_dispatch("kv_cache", "int8")
         # SMP_DECODE_WEIGHTS=int8: weight-only int8, quantized once here (and
         # at adopt_params): the resident tree is int8 plus per-channel scales
         # in the JAX layout, which every program dequantizes on the way in.
         self.qparams = None
         if quant.decode_weights_mode() == "int8":
             self.qparams = self._quantize(params)
+            record_quant_dispatch("decode_weights", "int8")
             self._param_avals = self._avals(self._flat(self.qparams))
             self.act_dtype = self.half or torch.float32
         else:
@@ -342,6 +365,7 @@ class ServingEngine:
         self._slots = [None] * self.slots_n
         self._queue = collections.deque()
         self._prefill_rr = 0
+        self._occupancy_snap = None
         self.results = {}
         self.finished = set()
         self._arrival_s = {}     # rid -> effective arrival (engine clock)
@@ -359,6 +383,14 @@ class ServingEngine:
         self.kv_block_bytes = sum(
             t.numel() * t.element_size() for pools in self.kv_pools() for t in pools
         ) // nb
+        # Metrics time-series snapshotter (the autoscaler feed):
+        # SMP_TIMESERIES_INTERVAL=0 (the default) constructs NOTHING — no
+        # ring, no thread. When armed, the engine also polls it from the
+        # tick path so window edges stay sharp while the loop is busy; the
+        # thread only covers idle gaps. One device: one chip.
+        self.timeseries = MetricsTimeSeries.from_env(chips=1)
+        if self.timeseries is not None:
+            self.timeseries.start()
 
     @staticmethod
     def _check_supported():
@@ -409,11 +441,14 @@ class ServingEngine:
         return torch.func.functional_call(mod, params, (ids,), {"paged": paged})
 
     def close(self):
-        """Stop admitting. Idempotent; the engine remains usable for draining.
+        """Stop the time-series snapshotter thread, if armed, and stop
+        admitting. Idempotent; the engine remains usable for draining
+        (sampling continues through tick polling).
 
         A close with work still queued or in flight does not abandon it
         silently: every unfinished request's restartable record is marked
-        dirty again, so the next ``drain_dirty`` hands it on."""
+        dirty again, so the next ``drain_dirty`` hands it on, and the
+        abandonment is counted (``smp_serve_requests_total{event="abandoned"}``)."""
         self.quiesce()
         abandoned = [q.request_id for q in self._queue] + [
             s.sid for s in self._slots if s is not None
@@ -421,12 +456,16 @@ class ServingEngine:
         for rid in abandoned:
             if rid in self.mirror_log:
                 self._dirty.add(rid)
+            record_serve_trace("abandoned", rid, detail="close")
         if abandoned:
+            record_serve_request("abandoned", len(abandoned))
             logger.warning(
                 "[serving] close() with %d unfinished request(s); their "
                 "restartable records are mirror-logged for re-admission "
                 "elsewhere.", len(abandoned),
             )
+        if self.timeseries is not None:
+            self.timeseries.stop()
 
     # -- drain protocol (scale-down / weight adoption / clean close) ----
 
@@ -439,11 +478,15 @@ class ServingEngine:
         """Stop admission: queued requests stay queued, in-flight streams
         keep decoding. ``submit`` refuses new work while quiesced.
         Idempotent."""
-        self._admitting = False
+        if self._admitting:
+            self._admitting = False
+            record_serve_trace("quiesce", "-", detail="admission stopped")
 
     def resume_admission(self):
         """Reopen admission after a quiesce or drain."""
-        self._admitting = True
+        if not self._admitting:
+            self._admitting = True
+            record_serve_trace("resume_admission", "-")
 
     def drain(self, timeout_s=120.0):
         """Stop admitting, finish every IN-FLIGHT stream, and hand back the
@@ -458,6 +501,9 @@ class ServingEngine:
             rec = self.mirror_log[req.request_id]  # submit mirrors every queued request
             stragglers.append(dict(rec, tokens=list(rec["tokens"])))
             self._dirty.add(req.request_id)
+            record_serve_trace("drained_straggler", req.request_id, trace=req.trace_id)
+        if stragglers:
+            record_serve_request("drained_straggler", len(stragglers))
         deadline = time.monotonic() + timeout_s
         while self.in_flight:
             if time.monotonic() > deadline:
@@ -468,6 +514,7 @@ class ServingEngine:
             self.step()
             if not self.last_tick_worked:
                 time.sleep(0.001)
+        record_serve_trace("drained", "-", detail=f"stragglers={len(stragglers)}")
         return stragglers
 
     def adopt_params(self, params, *, version=None):
@@ -505,6 +552,9 @@ class ServingEngine:
                 target[name].copy_(value)
         self.weights_version = int(version) if version is not None else self.weights_version + 1
         seconds = time.perf_counter() - t0
+        # No program is rebuilt: no fresh compile, ever (the zero-recompile
+        # contract the JAX engine counts).
+        record_weight_update(seconds, self.weights_version, fresh=0)
         logger.info("[serving] adopted weights version %s in %.3fs", self.weights_version, seconds)
         return seconds
 
@@ -538,6 +588,17 @@ class ServingEngine:
         prog = self._programs.get(kind)
         if prog is not None:
             return prog
+        with profiling.region(f"serve/compile_{kind}"):
+            prog = self._build_program(kind)
+        self._programs[kind] = prog
+        record_serve_programs(len(self._programs))
+        logger.info(
+            "[serving] %s program ready: slots=%d chunk=%d block_tokens=%d pool_blocks=%d",
+            kind, self.slots_n, self.chunk, self.bt, self.alloc.num_blocks,
+        )
+        return prog
+
+    def _build_program(self, kind):
         S, MB, C = self.slots_n, self.max_blocks_per_seq, self.chunk
         dev = self.device
 
@@ -567,11 +628,6 @@ class ServingEngine:
                 return tok.cpu().numpy()
         else:  # pragma: no cover - internal misuse
             raise ValueError(kind)
-        self._programs[kind] = prog
-        logger.info(
-            "[serving] %s program ready: slots=%d chunk=%d block_tokens=%d pool_blocks=%d",
-            kind, S, C, self.bt, self.alloc.num_blocks,
-        )
         return prog
 
     # -- request intake -------------------------------------------------
@@ -608,6 +664,12 @@ class ServingEngine:
             self.results[req.request_id] = list(req.resume_tokens)
             self.finished.add(req.request_id)
             self._mirror(req, list(req.resume_tokens), done=True)
+            record_serve_request("finished")
+            record_serve_trace("queued", req.request_id, trace=req.trace_id)
+            record_serve_trace(
+                "finished", req.request_id, trace=req.trace_id,
+                pos=len(req.resume_tokens), detail="fully_resumed",
+            )
             return True
         self._queue.append(req)
         # A live submission arrives NOW; a synthetic trace may place the
@@ -617,6 +679,7 @@ class ServingEngine:
         )
         # Mirrored from submit time, so queued requests are restartable too.
         self._mirror(req, list(req.resume_tokens), done=False)
+        record_serve_trace("queued", req.request_id, trace=req.trace_id)
         return True
 
     @staticmethod
@@ -692,6 +755,13 @@ class ServingEngine:
             )
             self._slots[idx] = slot
             self._mirror(req, slot.all_tokens, done=False)
+            record_serve_request("admitted")
+            record_serve_latency("queue_wait", max(now - arrival, 0.0))
+            record_serve_trace(
+                "readmitted" if slot.resume_len else "admitted",
+                req.request_id, trace=req.trace_id, slot=idx,
+                pos=slot.resume_len,
+            )
             self.stats["admitted"] += 1
             admitted += 1
         return admitted
@@ -705,7 +775,7 @@ class ServingEngine:
             float(req.top_p if req.top_p is not None else 1.0),
         )
 
-    def _finish(self, idx):
+    def _finish(self, idx, now):
         slot = self._slots[idx]
         rid = slot.sid
         self.results[rid] = slot.all_tokens
@@ -713,13 +783,29 @@ class ServingEngine:
         self._slots[idx] = None
         self.alloc.release(rid)
         self._mirror(slot.req, slot.all_tokens, done=True)
+        record_serve_request("finished")
+        if slot.req.deadline_s is not None and now - slot.t_arrival > slot.req.deadline_s:
+            record_serve_request("deadline_miss")
         self.stats["finished"] += 1
+        record_serve_trace(
+            "finished", rid, trace=slot.req.trace_id, slot=slot.idx,
+            pos=len(slot.all_tokens),
+        )
 
     def _on_token(self, slot, tok, now):
         if slot.t_first_token is None:
             slot.t_first_token = now
+            record_serve_latency("ttft", now - slot.t_arrival)
+            record_serve_latency("prefill", now - slot.t_admit)
+            record_serve_trace(
+                "first_token", slot.sid, trace=slot.req.trace_id,
+                slot=slot.idx, pos=slot.sample_index,
+            )
+        else:
+            record_serve_latency("itl", now - slot.t_last_token)
         slot.t_last_token = now
         slot.new_tokens.append(int(tok))
+        record_serve_tokens("generated", 1)
         self._mirror(slot.req, slot.all_tokens, done=False)
         req = slot.req
         return (
@@ -751,15 +837,20 @@ class ServingEngine:
             tables[i] = self.alloc.table(slot.sid)
             temps[i], top_ks[i], top_ps[i] = self._sampling_row(slot)
             kd[i] = slot.rng_data[slot.sample_index]
-        sampled = self._program("decode")(toks, positions, tables, temps, top_ks, top_ps, kd)
+        program = self._program("decode")
+        t_dispatch = self._now()
+        with profiling.region("serve/decode_step"):
+            sampled = program(toks, positions, tables, temps, top_ks, top_ps, kd)
         self.stats["decode_steps"] += 1
         # Token times are read after the device call returns (the copy of
-        # the sampled tokens to the host is the step's sync point).
+        # the sampled tokens to the host is the step's sync point; no other
+        # synchronize is issued on this path).
         now = self._now()
+        record_serve_latency("decode_step", max(now - t_dispatch, 0.0))
         for i, slot in active:
             slot.pos += 1
             if self._on_token(slot, sampled[i], now):
-                self._finish(i)
+                self._finish(i, now)
         return True
 
     def _prefill_tick(self):
@@ -783,21 +874,49 @@ class ServingEngine:
         temps, top_ks, top_ps = self._sampling_row(slot)
         kd = slot.rng_data[slot.sample_index][None, :]
         last = slot.pos + valid >= P
-        tok = self._program("prefill")(
-            chunk, table, np.asarray([slot.pos], np.int32), np.asarray([valid], np.int32),
-            np.asarray([temps], np.float32), np.asarray([top_ks], np.int32), np.asarray([top_ps], np.float32),
-            kd.astype(np.uint32), sample=last,
-        )
+        program = self._program("prefill")
+        with profiling.region("serve/prefill_chunk"):
+            tok = program(
+                chunk, table, np.asarray([slot.pos], np.int32), np.asarray([valid], np.int32),
+                np.asarray([temps], np.float32), np.asarray([top_ks], np.int32), np.asarray([top_ps], np.float32),
+                kd.astype(np.uint32), sample=last,
+            )
         slot.pos += valid
         self.stats["prefill_chunks"] += 1
+        record_serve_tokens("prompt", valid)
+        record_serve_trace(
+            "prefill_chunk", slot.sid, trace=slot.req.trace_id,
+            slot=slot.idx, pos=slot.pos, detail=f"valid={valid}",
+        )
         if last:
             # Prompt fully cached: the sample from its last position is the
             # stream's first token.
             slot.state = "decode"
             now = self._now()
             if self._on_token(slot, int(tok[0]), now):
-                self._finish(i)
+                self._finish(i, now)
         return True
+
+    def _publish_occupancy(self):
+        snap = (
+            len(self._queue),
+            sum(1 for s in self._slots if s is not None),
+            self.alloc.used_blocks,
+            self.alloc.reserved_unallocated,
+        )
+        if snap == self._occupancy_snap:
+            return  # idle ticks must not spam the gauge registry
+        self._occupancy_snap = snap
+        record_serve_occupancy(
+            queue_depth=snap[0],
+            active_slots=snap[1],
+            total_slots=self.slots_n,
+            kv_used=snap[2],
+            kv_free=self.alloc.free_blocks,
+            kv_reserved=snap[3],
+            kv_total=self.alloc.num_blocks,
+            block_bytes=self.kv_block_bytes,
+        )
 
     def step(self):
         """One engine tick: admit arrivals into free slots, run one batched
@@ -808,6 +927,9 @@ class ServingEngine:
         worked = bool(self._admit(now))
         worked = self._decode_step() or worked
         worked = self._prefill_tick() or worked
+        self._publish_occupancy()
+        if self.timeseries is not None:
+            self.timeseries.maybe_sample()
         self.last_tick_worked = worked
         return self.busy
 

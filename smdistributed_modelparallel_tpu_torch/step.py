@@ -86,19 +86,37 @@ data-parallel slice), fp16 (the loss scaler's overflow flag would have to
 agree across ranks) and ``matmul_precision: fp8`` (amax would need a
 cross-rank max).
 
+Observability, at the step's edges as in the JAX step engine: the phase
+``step_<n>`` (``telemetry.set_phase``, which also drives the goodput ledger),
+the flight recorder's step ``begin``/``end``, the ``SMP_PROFILE`` capture's
+step hooks, ``smp_step_total``, ``smp_step_tokens_total``, the step-time
+histograms, the goodput tick, the memory gauges and the
+``SMP_WRITE_STEP_MEMORY_METRICS`` file, and ``state.timeline`` spans
+(``SMP_TIMELINE_PATH``). Launches are asynchronous, so the step's wall time
+is a lower bound; on the sampled steps (``profiling.should_sample_step``:
+the first, then every 16th) the step synchronizes the device under the
+``step/fetch`` region, and only those exact times feed the roofline
+(``smp_mfu``, FLOPs from ``profiling.lm_step_flops``). The fused-kernel and
+fp8 dispatch counters the JAX package ticks while it traces are replayed on
+the first run of each step function and input shapes
+(``model.replay_program_ticks``).
+
 Not ported yet, each raising ``NotImplementedError`` when asked for:
 pipeline parallelism, tensor parallelism, data parallelism (rdp > 1),
 expert parallelism, ZeRO-3 (``sharded_params``), shape
-buckets (``SMP_SHAPE_BUCKETS``), the health sentinel (``SMP_HEALTH_CHECK``),
-the executable cache (``SMP_EXEC_CACHE``), the compiled-program audit
-(``SMP_HLO_AUDIT``), and the telemetry, chaos, preemption and supervisor
-hooks of the step edge.
+buckets (``SMP_SHAPE_BUCKETS``), the executable cache (``SMP_EXEC_CACHE``)
+and the compiled-program audit (``SMP_HLO_AUDIT``), and the resilience hooks
+of the step edge, which come with slice 9b: the health sentinel
+(``SMP_HEALTH_CHECK``, which rides inside the JAX step program), the chaos
+harness (``SMP_CHAOS``), preemption handling (``SMP_PREEMPTION_FILE``) and
+the failure-recovery supervisor (``SMP_SUPERVISOR``).
 """
 
 import contextlib
 import functools
 import inspect
 import os
+import time
 
 import torch
 
@@ -113,10 +131,15 @@ from smdistributed_modelparallel_tpu_torch.backend.split import (
 )
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS
-from smdistributed_modelparallel_tpu_torch.model import DistributedModel
-from smdistributed_modelparallel_tpu_torch.utils import random
+from smdistributed_modelparallel_tpu_torch.model import DistributedModel, replay_program_ticks
+from smdistributed_modelparallel_tpu_torch.nn.utils import collect_program_ticks
+from smdistributed_modelparallel_tpu_torch.utils import profiling, random
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError, StepUsageError
+from smdistributed_modelparallel_tpu_torch.utils.flight_recorder import flight_recorder
+from smdistributed_modelparallel_tpu_torch.utils.goodput import goodput
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
+from smdistributed_modelparallel_tpu_torch.utils.metrics import record_device_memory_telemetry
+from smdistributed_modelparallel_tpu_torch.utils.telemetry import record_step_time, telemetry
 
 logger = get_logger()
 
@@ -139,7 +162,6 @@ _LEFT_OUT_ENV = (
     ("SMP_HEALTH_CHECK", "the health sentinel", _health_on),
     ("SMP_EXEC_CACHE", "the executable cache", _env_on),
     ("SMP_HLO_AUDIT", "the compiled-program audit", _env_on),
-    ("SMP_TELEMETRY_PATH", "the telemetry dump", _env_set),
     ("SMP_CHAOS", "the chaos harness", _env_set),
     ("SMP_PREEMPTION_FILE", "preemption handling", _env_set),
     ("SMP_SUPERVISOR", "the failure-recovery supervisor", _env_on),
@@ -287,12 +309,54 @@ def _stack_outputs(outs):
     return torch.stack([torch.as_tensor(o) for o in outs])
 
 
+def _split_leaves(stacked):
+    """The ``DeferredSplit`` and ``NonSplit`` leaves of a stacked tree."""
+    leaves = []
+    tree_map(leaves.append, stacked, is_leaf=lambda x: isinstance(x, (NonSplit, DeferredSplit)))
+    return [x for x in leaves if isinstance(x, (NonSplit, DeferredSplit))]
+
+
+def _count_tokens(stacked):
+    """``(tokens, (batch, seq))`` of the step's batch for the throughput
+    counter and the FLOP count: the JAX step's ``_count_tokens``, the
+    batch x sequence dims of the FIRST split input with at least two
+    dimensions (a pre-stacked input's [num_mb, mb] count as its batch);
+    ``(0, None)`` when there is none."""
+    for leaf in _split_leaves(stacked):
+        shape = tuple(getattr(leaf.value, "shape", ()))
+        if not isinstance(leaf, DeferredSplit) or len(shape) < 2:
+            continue
+        if leaf.stacked:
+            if len(shape) < 3:
+                return shape[0] * shape[1], None
+            return shape[0] * shape[1] * shape[2], (shape[0] * shape[1], shape[2])
+        return shape[0] * shape[1], (shape[0], shape[1])
+    return 0, None
+
+
+def _program_key(stacked, model):
+    """What the JAX package keys its compiled step program on, as far as the
+    port can see it: the shapes and dtypes of the tensor inputs and the
+    model's train/eval mode."""
+    return tuple((tuple(x.value.shape), x.value.dtype) for x in _split_leaves(stacked)
+                 if isinstance(x.value, torch.Tensor)), model.training
+
+
+def _synchronize(device):
+    """Wait for ``device``'s queued work (a CUDA device; the CPU runs
+    synchronously)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class StepFunction:
     def __init__(self, fn, non_split_inputs=None, input_split_axes=None):
         self.fn = fn
         self.non_split_inputs = non_split_inputs
         self.input_split_axes = input_split_axes
         self._has_backward = None  # learned from the first microbatch run
+        self._programs = {}  # _program_key -> the step's counted FLOPs
         functools.update_wrapper(self, fn)
 
     def __call__(self, *args, **kwargs):
@@ -303,11 +367,70 @@ class StepFunction:
         model = next((a for a in (*args, *kwargs.values()) if isinstance(a, DistributedModel)), state.model)
         if model is None:
             raise StepUsageError("Create smp.DistributedModel before invoking an @smp.step function.")
+        splitter = TensorSplitter(cfg.microbatches, self.non_split_inputs, self.input_split_axes)
+        stacked = splitter.stack_microbatches(args, kwargs, _positional_names(self.fn, len(args)))
+        n = state.step_count
+        key = _program_key(stacked, model)
+        new_program = key not in self._programs
+        tokens, batch_seq = _count_tokens(stacked)
+        if tokens:
+            telemetry.counter("smp_step_tokens_total", "input tokens consumed by step invocations").inc(tokens)
+        tl = state.timeline
+        timeline_on = tl is not None and tl.enabled
+        telemetry.set_phase(f"step_{n}")
+        flight_recorder.record_step("begin", n)
+        # On-demand profiler capture (SMP_PROFILE=steps=N:M / SIGUSR2):
+        # starts exactly at this step's begin edge when armed; a single
+        # attribute test otherwise.
+        profiling.capture.on_step_begin(n)
+        t_step = time.perf_counter()
+        if timeline_on:
+            tl.start_step(n)
+        exact_time = profiling.should_sample_step(n)
+        with (collect_program_ticks() if new_program else contextlib.nullcontext()) as notes, \
+                (tl.span(f"step_{n}") if timeline_on else contextlib.nullcontext()):
+            with profiling.region("step/dispatch"):
+                out = self._run(model, cfg, *stacked)
+            if exact_time:
+                # Roofline sample: wait for the device so the measured time
+                # covers the step's kernels. Without it the launch time is a
+                # lower bound and smp_mfu would overreport (possibly > 1).
+                with profiling.region("step/fetch"):
+                    _synchronize(model.device)
+        if timeline_on:
+            tl.end_step(n)
+            tl.flush()
+        # Wall time: exact on a sampled step, otherwise a lower bound
+        # (launches return before the device finishes).
+        t_step = time.perf_counter() - t_step
+        telemetry.histogram("smp_step_dispatch_seconds", "host wall time per step dispatch").observe(t_step)
+        record_step_time(t_step)
+        if new_program:
+            self._programs[key] = profiling.lm_step_flops(model.module, *batch_seq, backward=self._has_backward) \
+                if batch_seq else None
+            # The JAX package traces a new step program once; on the model's
+            # first use also its lazy init (flax's init and an eager apply),
+            # where the fused-kernel gates run but no fp8 seam does.
+            first = model._first_program()
+            replay_program_ticks(notes, lambda kind, phase: 3 if first and kind == "fused" else 1)
+        # Goodput ledger tick (publish + sentinel window at most once per
+        # tick interval): one attribute test while disarmed.
+        goodput.on_step_edge(n)
+        profiling.capture.on_step_end(n)
+        if exact_time:
+            profiling.record_step_roofline("step", t_step, self._programs[key])
+        flight_recorder.record_step("end", n)
+        telemetry.counter("smp_step_total", "step invocations").inc()
+        if state.memory_metrics is not None:
+            state.memory_metrics.record_step(n)
+        record_device_memory_telemetry()
+        state.step_count += 1
+        return out
+
+    def _run(self, model, cfg, stacked_args, stacked_kwargs):
+        """The microbatch loop: forward, backward and gradient accumulation
+        of every microbatch; returns the step's ``StepOutput``."""
         num_mb = cfg.microbatches
-        splitter = TensorSplitter(num_mb, self.non_split_inputs, self.input_split_axes)
-        stacked_args, stacked_kwargs = splitter.stack_microbatches(
-            args, kwargs, _positional_names(self.fn, len(args))
-        )
         group = state.group(CP_AXIS)
         if group is not None:
             stacked_args, stacked_kwargs = _shard_sequence((stacked_args, stacked_kwargs), group.index, group.size)
@@ -401,9 +524,7 @@ class StepFunction:
                 all(bool(torch.isfinite(g).all()) for g in model._grads.values())
                 if cfg.fp16 else None
             )
-        out = StepOutput(_combine_over_cp(_stack_outputs(outs), group, torch.tensor(weights)))
-        state.step_count += 1
-        return out
+        return StepOutput(_combine_over_cp(_stack_outputs(outs), group, torch.tensor(weights)))
 
 
 def step(fn=None, *, non_split_inputs=None, input_split_axes=None):

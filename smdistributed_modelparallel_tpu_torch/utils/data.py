@@ -16,7 +16,9 @@ Counterpart of ``smdistributed_modelparallel_tpu/utils/data.py``:
   (``record_stream``), so the caching allocator cannot hand its memory to
   the side stream again while a step still reads it. The step's
   ``.to(model.device)`` then moves nothing. A CPU device gets the batches
-  as CPU tensors; nothing else is placed on the CPU.
+  as CPU tensors; nothing else is placed on the CPU. A step that finds the
+  queue empty waits for its batch; the goodput ledger attributes that wait
+  to ``data_wait``.
 - ``dataloader(it)`` composes both.
 
 Batches are trees of dicts, lists and tuples; numpy arrays and tensors are
@@ -32,6 +34,7 @@ import torch
 from smdistributed_modelparallel_tpu_torch.backend.split import tree_map
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
+from smdistributed_modelparallel_tpu_torch.utils.goodput import goodput
 
 
 def _is_array(leaf):
@@ -144,7 +147,15 @@ class prefetch_to_device:
     def __next__(self):
         if self._terminal is not None:
             raise self._terminal
-        item = self._q.get()
+        led = goodput.ledger
+        if led is not None and self._q.empty():
+            # The input pipeline is BEHIND (the prefetch queue ran dry):
+            # the blocked wait attributes to data_wait in the goodput
+            # ledger. A ready batch skips the scope entirely.
+            with led.scope("data_wait"):
+                item = self._q.get()
+        else:
+            item = self._q.get()
         if item is self._DONE:
             self._terminal = StopIteration()
             raise StopIteration

@@ -7,13 +7,15 @@ compiled program; ``smp.generate`` reads the "seq" sizes to round the decode
 length up (and, for a module that takes ``attention_mask``, to left-pad the
 prompt). The port compiles nothing, but it keeps the policy so that a bucketed
 run gives the JAX package's tokens: sampling draws from the bucketed key
-schedule. The executable cache itself and the outcome counter
-``smp_shape_bucket_total`` (``record_bucket``) wait for the operations slice.
+schedule. ``record_bucket`` counts each bucketing outcome
+(``smp_shape_bucket_total``). The executable cache itself (the AOT store)
+waits for its own slice.
 """
 
 import os
 
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
+from smdistributed_modelparallel_tpu_torch.utils.telemetry import telemetry
 
 logger = get_logger()
 
@@ -67,3 +69,11 @@ def bucket_for(n, sizes):
         if s >= int(n):
             return int(s)
     return None
+
+
+def record_bucket(result):
+    telemetry.counter(
+        "smp_shape_bucket_total",
+        "shape-bucketing decisions by outcome "
+        "(exact / padded / unbucketable)",
+    ).labels(result=result).inc()

@@ -1,0 +1,951 @@
+"""Process-wide telemetry registry + hang watchdog (``smp.telemetry``,
+``smp.watchdog``).
+
+Counterpart of ``smdistributed_modelparallel_tpu/utils/telemetry.py``, with
+the same metric names, label keys, env vars and dump format, so the stdlib
+scripts (``scripts/telemetry_report.py``, ``slo_report.py``, ``trace_fuse.py``,
+``perf_ledger.py``) read either package's dumps. A thread-safe registry of
+counters, gauges and histograms (all with optional labels) that the layers of
+the port feed:
+
+- ``step.py`` / ``utils/metrics.py``: step counts and times, the sampled
+  roofline, per-step peak device memory (``torch.cuda.memory_stats``);
+- ``serving/engine.py``: request lifecycle counts, latency histograms,
+  occupancy gauges, per-request flight-recorder spans;
+- ``nn/transformer.py`` / ``nn/utils.py`` / ``quant.py``: fused-kernel and
+  low-precision dispatch decisions and the fp8 scaling state;
+- ``generation.py``: shape-bucket outcomes; ``fp16/loss_scaler.py``: the
+  loss-scale events; ``resilience/elastic.py``: elastic resumes.
+
+Exports: ``smp.telemetry.report()`` (plain dict), ``render_prometheus()``
+(text exposition format), and a JSON dump — written on demand, at
+``smp.shutdown``, and from an ``atexit`` hook — to ``SMP_TELEMETRY_PATH``.
+``scripts/telemetry_report.py`` pretty-prints the dump. The JAX package's
+recorders of the subsystems not ported yet (the collectives' accounting, the
+pipeline schedules, health, chaos, preemption, the supervisor, the
+executable cache, the serving controller) come with them.
+
+The **watchdog** (``SMP_WATCHDOG_TIMEOUT`` seconds; unset/0 = off) turns
+silent wedges into actionable dumps: when a guarded operation overruns the
+timeout, the full registry state, the per-rank last-known phase, and every
+thread's stack are written to stderr and to ``SMP_WATCHDOG_PATH`` (default
+``smp_watchdog_dump.json``). Pollable waits additionally *raise*
+``SMPWatchdogTimeout`` instead of blocking forever; non-interruptible waits
+dump from a timer thread and keep waiting — the dump is the diagnostic.
+
+Import-hygiene contract: this module must import nothing that initializes
+an accelerator backend (stdlib + the package logger/exceptions only).
+"""
+
+import atexit
+import copy
+import json
+import os
+import sys
+import threading
+import time
+import traceback
+
+from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPWatchdogTimeout
+from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
+
+logger = get_logger()
+
+TELEMETRY_PATH_ENV = "SMP_TELEMETRY_PATH"
+WATCHDOG_TIMEOUT_ENV = "SMP_WATCHDOG_TIMEOUT"
+WATCHDOG_PATH_ENV = "SMP_WATCHDOG_PATH"
+
+# Powers-of-4 seconds-scale buckets: host control-plane operations span
+# ~1ms (local bus delivery) to minutes (kernel builds, long steps).
+DEFAULT_BUCKETS = (
+    0.001, 0.004, 0.016, 0.064, 0.25, 1.0, 4.0, 16.0, 64.0, 256.0,
+)
+
+
+def _geometric_buckets(lo, hi, growth):
+    """Geometric bucket boundaries ``lo * growth**i`` up to the first
+    boundary >= ``hi``. Deterministic (the same tuple in every process),
+    which is what makes per-rank histogram dumps mergeable by
+    element-wise count addition."""
+    out = []
+    b = float(lo)
+    while b < hi:
+        out.append(round(b, 9))
+        b *= growth
+    out.append(round(b, 9))
+    return tuple(out)
+
+
+# Log-spaced buckets behind the streaming percentile histograms:
+# 0.5 ms .. ~4 min at 1.3x growth (~50 buckets — fixed memory however
+# many samples stream through). Serving latencies (queue wait, TTFT,
+# ITL, prefill, decode step) and training step times all live in this
+# range; the relative quantile error is bounded by the growth factor.
+LATENCY_BUCKETS = _geometric_buckets(5e-4, 240.0, 1.3)
+
+#: Serving latency distributions the engine feeds (the ``kind`` label of
+#: ``smp_serve_latency_seconds`` and the stem of the per-kind gauges).
+SERVE_LATENCY_KINDS = ("ttft", "itl", "queue_wait", "prefill",
+                       "decode_step")
+
+
+def quantile_from_counts(buckets, counts, q):
+    """Estimate the q-quantile (0..1) of a bucketed distribution.
+
+    Log-interpolates inside geometric buckets (linearly inside the first
+    bucket, which starts at 0); the overflow bucket clamps to the last
+    boundary. Returns None for an empty histogram. Operates on the
+    (buckets, counts) lists a histogram snapshot/dump carries, so report
+    scripts can compute percentiles of cross-rank MERGED counts with the
+    same arithmetic (``scripts/telemetry_report.py`` keeps a stdlib
+    copy)."""
+    total = sum(counts)
+    if total <= 0:
+        return None
+    target = min(max(float(q), 0.0), 1.0) * total
+    acc = 0.0
+    for i, c in enumerate(counts):
+        if c > 0 and acc + c >= target:
+            if i >= len(buckets):
+                return float(buckets[-1])
+            lo = buckets[i - 1] if i > 0 else 0.0
+            hi = buckets[i]
+            f = (target - acc) / c
+            if lo > 0.0:
+                return float(lo * (hi / lo) ** f)
+            return float(lo + (hi - lo) * f)
+        acc += c
+    return float(buckets[-1])
+
+
+def merge_metric_reports(reports):
+    """Merge per-rank telemetry reports into ONE fleet-level report:
+    counters and histogram series summed element-wise across ranks
+    (bucket-count addition — every rank shares the same deterministic
+    bucket tuples, so merged percentiles via ``quantile_from_counts``
+    are exact), gauges maxed (peak device memory keeps the worst device). Series
+    are matched by (metric, label-set).
+
+    This is the single cross-rank merge: the live fleet aggregator
+    (``utils/fleet.py``), ``scripts/telemetry_report.py --dir`` and
+    ``scripts/slo_report.py --fleet`` all call it, so an offline merge
+    of per-rank dumps is bit-equal to the on-fleet live view.
+
+    ``reports`` is either ``{rank: report}`` or an iterable of reports
+    (ranks then come from each report's own meta, falling back to load
+    order). Inputs are not mutated.
+    """
+    if isinstance(reports, dict):
+        items = [(r, reports[r]) for r in sorted(reports)]
+    else:
+        items = [
+            (rep.get("meta", {}).get("rank", i) if isinstance(rep, dict)
+             else i, rep)
+            for i, rep in enumerate(reports)
+        ]
+    out = {"meta": {"ranks": [r for r, _ in items]}, "metrics": {}}
+    for _, report in items:
+        for name, fam in report.get("metrics", {}).items():
+            ofam = out["metrics"].setdefault(
+                name, {"kind": fam["kind"], "help": fam.get("help", ""),
+                       "series": []},
+            )
+            for series in fam.get("series", []):
+                key = _label_key(series.get("labels", {}))
+                dst = None
+                for s in ofam["series"]:
+                    if _label_key(s.get("labels", {})) == key:
+                        dst = s
+                        break
+                if dst is None:
+                    ofam["series"].append(copy.deepcopy(series))
+                    continue
+                if fam["kind"] == "histogram":
+                    dst["sum"] = dst.get("sum", 0.0) + series.get("sum", 0.0)
+                    dst["count"] = dst.get("count", 0) + series.get("count", 0)
+                    if dst.get("buckets") == series.get("buckets"):
+                        dst["counts"] = [
+                            a + b for a, b in zip(dst["counts"],
+                                                  series["counts"])
+                        ]
+                    else:
+                        # Mixed-build dumps: sum/count merge fine, the
+                        # per-bucket distribution cannot — say so rather
+                        # than render a distribution that doesn't add up.
+                        logger.warning(
+                            "histogram %s has differing buckets across "
+                            "ranks; merged bucket counts reflect only "
+                            "the first rank", name,
+                        )
+                elif fam["kind"] == "counter":
+                    dst["value"] = dst.get("value", 0) + series.get("value", 0)
+                else:  # gauge: keep the worst rank
+                    dst["value"] = max(dst.get("value", 0),
+                                       series.get("value", 0))
+    return out
+
+
+def render_prometheus_report(report):
+    """Prometheus text exposition of a report dict — the live registry's
+    ``report()`` or a ``merge_metric_reports`` fleet view (the fleet
+    scrape endpoint renders merged metrics through this same path)."""
+    out = []
+    for name, fam in sorted(report.get("metrics", {}).items()):
+        if fam.get("help"):
+            out.append(f"# HELP {name} {fam['help']}")
+        out.append(f"# TYPE {name} {fam['kind']}")
+        for series in fam["series"]:
+            lab = ",".join(
+                f'{k}="{v}"' for k, v in sorted(series["labels"].items())
+            )
+            if fam["kind"] == "histogram":
+                acc = 0
+                for b, c in zip(
+                    list(series["buckets"]) + ["+Inf"], series["counts"]
+                ):
+                    acc += c
+                    ble = (lab + "," if lab else "") + f'le="{b}"'
+                    out.append(f"{name}_bucket{{{ble}}} {acc}")
+                sfx = f"{{{lab}}}" if lab else ""
+                out.append(f"{name}_sum{sfx} {series['sum']}")
+                out.append(f"{name}_count{sfx} {series['count']}")
+            else:
+                sfx = f"{{{lab}}}" if lab else ""
+                out.append(f"{name}{sfx} {series['value']}")
+    return "\n".join(out) + "\n"
+
+
+def _label_key(labels):
+    return tuple(sorted(labels.items()))
+
+
+def _atomic_json_dump(payload, path, what):
+    """Temp-file + rename so a reader (or a concurrent writer) never sees a
+    torn JSON. Returns the path written, or None on failure."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "w") as f:
+            json.dump(payload, f, indent=1)
+        os.replace(tmp, path)
+        return path
+    except OSError as e:
+        logger.warning("%s to %s failed: %s", what, path, e)
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        return None
+
+
+class _Child:
+    """One (metric, label-set) time series. Thread-safe."""
+
+    def __init__(self, kind, labels, buckets=None):
+        self._kind = kind
+        self._labels = dict(labels)
+        self._lock = threading.Lock()
+        self._value = 0.0
+        if kind == "histogram":
+            self._buckets = tuple(buckets or DEFAULT_BUCKETS)
+            self._counts = [0] * (len(self._buckets) + 1)
+            self._sum = 0.0
+            self._count = 0
+
+    # -- counter / gauge --
+
+    def inc(self, value=1):
+        if self._kind == "counter" and value < 0:
+            raise ValueError("counters only go up")
+        with self._lock:
+            self._value += value
+
+    def dec(self, value=1):
+        if self._kind != "gauge":
+            raise ValueError("dec() is gauge-only")
+        with self._lock:
+            self._value -= value
+
+    def set(self, value):
+        if self._kind != "gauge":
+            raise ValueError("set() is gauge-only")
+        with self._lock:
+            self._value = float(value)
+
+    @property
+    def value(self):
+        with self._lock:
+            return self._value
+
+    # -- histogram --
+
+    def observe(self, value):
+        if self._kind != "histogram":
+            raise ValueError("observe() is histogram-only")
+        v = float(value)
+        with self._lock:
+            i = 0
+            while i < len(self._buckets) and v > self._buckets[i]:
+                i += 1
+            self._counts[i] += 1
+            self._sum += v
+            self._count += 1
+
+    def _snapshot(self):
+        with self._lock:
+            if self._kind == "histogram":
+                return {
+                    "labels": self._labels,
+                    "buckets": list(self._buckets),
+                    "counts": list(self._counts),
+                    "sum": self._sum,
+                    "count": self._count,
+                }
+            return {"labels": self._labels, "value": self._value}
+
+
+class _Family:
+    """A named metric; ``labels(**kw)`` returns the per-label-set child.
+
+    Label-less metrics proxy inc/dec/set/observe/value straight to their
+    single default child, so ``registry.counter("x").inc()`` works.
+    """
+
+    def __init__(self, name, kind, help="", buckets=None):
+        self.name = name
+        self.kind = kind
+        self.help = help
+        self._buckets = buckets
+        self._lock = threading.Lock()
+        self._children = {}
+
+    def labels(self, **kw):
+        key = _label_key(kw)
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                child = _Child(self.kind, kw, self._buckets)
+                self._children[key] = child
+            return child
+
+    def _default(self):
+        return self.labels()
+
+    def inc(self, value=1):
+        self._default().inc(value)
+
+    def dec(self, value=1):
+        self._default().dec(value)
+
+    def set(self, value):
+        self._default().set(value)
+
+    def observe(self, value):
+        self._default().observe(value)
+
+    @property
+    def value(self):
+        return self._default().value
+
+    def _snapshot(self):
+        with self._lock:
+            children = list(self._children.values())
+        return {
+            "kind": self.kind,
+            "help": self.help,
+            "series": [c._snapshot() for c in children],
+        }
+
+
+class TelemetryRegistry:
+    """Process-wide metric registry. All methods are thread-safe;
+    registration is idempotent (same name -> same family) but re-registering
+    a name under a different kind is a bug and raises."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._families = {}
+        self._phase = "startup"
+        self._phase_ts = time.time()
+        self._phase_history = []
+        self._created = time.time()
+        # Set by backend/state.py at smp.init (asking the backend at dump
+        # time could itself hang on a wedged device at exit).
+        self.process_index = None
+        self.process_count = 1
+        # Installed by utils/flight_recorder.py at import: phase
+        # transitions flow into the flight-recorder ring without this
+        # module importing it (telemetry must stay the leaf of the
+        # observability import graph).
+        self._phase_listener = None
+
+    # -- registration ---------------------------------------------------
+
+    def _family(self, name, kind, help, buckets=None):
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is None:
+                fam = _Family(name, kind, help, buckets)
+                self._families[name] = fam
+            elif fam.kind != kind:
+                raise ValueError(
+                    f"metric {name!r} already registered as {fam.kind}, "
+                    f"requested {kind}"
+                )
+            return fam
+
+    def counter(self, name, help=""):
+        return self._family(name, "counter", help)
+
+    def gauge(self, name, help=""):
+        return self._family(name, "gauge", help)
+
+    def histogram(self, name, help="", buckets=None):
+        return self._family(name, "histogram", help, buckets)
+
+    # -- phase tracking (consumed by the watchdog dump) -----------------
+
+    def set_phase(self, phase):
+        """Record the process's last-known phase (e.g. "step_3/compile").
+        Bounded history so a wedged run's dump shows how it got there."""
+        with self._lock:
+            self._phase = phase
+            self._phase_ts = time.time()
+            self._phase_history.append((phase, self._phase_ts))
+            if len(self._phase_history) > 64:
+                del self._phase_history[:-64]
+        listener = self._phase_listener
+        if listener is not None:
+            listener(phase)
+
+    @property
+    def phase(self):
+        with self._lock:
+            return self._phase
+
+    # -- export ---------------------------------------------------------
+
+    def report(self):
+        """Plain-dict snapshot of every metric plus phase metadata."""
+        with self._lock:
+            families = dict(self._families)
+            meta = {
+                "pid": os.getpid(),
+                "rank": self.process_index,
+                "world": self.process_count,
+                "created": self._created,
+                "exported": time.time(),
+                "phase": self._phase,
+                "phase_age_seconds": time.time() - self._phase_ts,
+                "phase_history": [
+                    {"phase": p, "time": t} for p, t in self._phase_history
+                ],
+            }
+        return {
+            "meta": meta,
+            "metrics": {n: f._snapshot() for n, f in families.items()},
+        }
+
+    def render_prometheus(self):
+        """Prometheus text exposition format (for scraping or eyeballing)."""
+        return render_prometheus_report(self.report())
+
+    def _rank_path(self, path):
+        """Multi-process runs write per-rank files: N processes dumping the
+        one SMP_TELEMETRY_PATH (shared filesystem) would clobber each other."""
+        if self.process_count > 1 and self.process_index is not None:
+            return f"{path}.rank{self.process_index}"
+        return path
+
+    def dump(self, path=None):
+        """Write the JSON report (atomically; rank-suffixed under
+        multi-process). Explicit ``path`` wins; otherwise
+        ``SMP_TELEMETRY_PATH`` (no-op when neither is set). Returns the
+        path written, or None."""
+        path = path or os.environ.get(TELEMETRY_PATH_ENV)
+        if not path:
+            return None
+        path = self._rank_path(path)
+        return _atomic_json_dump(self.report(), path, "telemetry dump")
+
+    def reset(self):
+        """Testing hook: drop every metric and the phase history."""
+        with self._lock:
+            self._families.clear()
+            self._phase = "startup"
+            self._phase_ts = time.time()
+            self._phase_history.clear()
+
+
+class Watchdog:
+    """Stall detector for blocking control-plane operations.
+
+    The timeout is read from ``SMP_WATCHDOG_TIMEOUT`` at *call* time (not
+    import time), so tests and long-running jobs can arm/disarm it without
+    reimporting. Two usage shapes:
+
+    - ``with watchdog.guard("barrier/step"):`` — a timer thread dumps the
+      diagnostics if the block outlives the timeout (the block itself keeps
+      waiting: device syncs are not interruptible from Python);
+    - ``watchdog.wait(poll_fn, "recv/peer3")`` — polls until ``poll_fn()``
+      is truthy; on timeout dumps AND raises ``SMPWatchdogTimeout``.
+
+    """
+
+    def __init__(self, registry):
+        self._registry = registry
+        self._dump_lock = threading.Lock()
+
+    # -- configuration --------------------------------------------------
+
+    def timeout(self):
+        """Configured timeout in seconds, or None when disabled."""
+        raw = os.environ.get(WATCHDOG_TIMEOUT_ENV, "")
+        if not raw:
+            return None
+        try:
+            t = float(raw)
+        except ValueError:
+            logger.warning(
+                "invalid %s=%r (want seconds); watchdog disabled.",
+                WATCHDOG_TIMEOUT_ENV, raw,
+            )
+            return None
+        return t if t > 0 else None
+
+    @property
+    def enabled(self):
+        return self.timeout() is not None
+
+    # -- diagnostics ----------------------------------------------------
+
+    def dump(self, reason, phase=None):
+        """Snapshot registry + phase + all thread stacks to stderr and the
+        SMP_WATCHDOG_PATH JSON file. Never raises (a broken dump must not
+        mask the stall it is reporting). Returns the dump dict."""
+        with self._dump_lock:
+            try:
+                # Mark the stall in the ring first: the snapshot below then
+                # carries it, and later dumps show this one as history.
+                try:
+                    _flight().record_watchdog(reason)
+                except Exception:
+                    pass
+                stacks = {}
+                frames = sys._current_frames()
+                names = {t.ident: t.name for t in threading.enumerate()}
+                for tid, frame in frames.items():
+                    stacks[f"{names.get(tid, '?')}:{tid}"] = (
+                        traceback.format_stack(frame)
+                    )
+                payload = {
+                    "reason": reason,
+                    "phase": phase or self._registry.phase,
+                    "time": time.time(),
+                    "pid": os.getpid(),
+                    "threads": stacks,
+                    "telemetry": self._registry.report(),
+                    # The last ~N structured events (collectives with seq
+                    # numbers, schedule slots, phases): what this rank was
+                    # DOING, not just where its threads are parked.
+                    "flight_recorder": _flight_snapshot(),
+                    # Wall-clock attribution at the stall: the current
+                    # goodput state, per-state seconds, and the last N
+                    # state TRANSITIONS — strictly more than the phase
+                    # string (the 64-entry _phase_history only shows
+                    # phases, not where the seconds went). None when the
+                    # ledger is disarmed. Marking the stall first means
+                    # the wedged seconds start accruing from the dump.
+                    "goodput": _goodput_snapshot(reason),
+                }
+                path = self._registry._rank_path(
+                    os.environ.get(WATCHDOG_PATH_ENV, "smp_watchdog_dump.json")
+                )
+                path = _atomic_json_dump(payload, path, "watchdog dump")
+                sys.stderr.write(
+                    "\n=== SMP WATCHDOG: %s (phase=%s) ===\n"
+                    "full dump: %s\n" % (reason, payload["phase"], path)
+                )
+                for tname, stack in stacks.items():
+                    sys.stderr.write(f"--- thread {tname} ---\n")
+                    sys.stderr.write("".join(stack[-6:]))
+                sys.stderr.flush()
+                return payload
+            except Exception:  # pragma: no cover - diagnostics must not throw
+                return None
+
+    # -- guards ---------------------------------------------------------
+
+    class _Guard:
+        def __init__(self, watchdog, phase, timeout):
+            self._watchdog = watchdog
+            self._phase = phase
+            self._timeout = timeout
+            self._timer = None
+            self.fired = False
+
+        def __enter__(self):
+            if self._timeout is not None:
+                self._timer = threading.Timer(self._timeout, self._on_stall)
+                self._timer.daemon = True
+                self._timer.start()
+            return self
+
+        def _on_stall(self):
+            self.fired = True
+            self._watchdog.dump(
+                f"operation exceeded {self._timeout}s", phase=self._phase
+            )
+
+        def __exit__(self, *exc):
+            if self._timer is not None:
+                self._timer.cancel()
+            return False
+
+    def guard(self, phase):
+        """Context manager: dump diagnostics if the body outlives the
+        configured timeout. No-op (no timer thread) when disabled."""
+        return self._Guard(self, phase, self.timeout())
+
+    def wait(self, poll, phase, interval=0.05, timeout=None):
+        """Poll ``poll()`` until truthy. On watchdog timeout: dump + raise
+        ``SMPWatchdogTimeout``. With the watchdog disabled (and no explicit
+        ``timeout``), polls forever — matching the unguarded behavior."""
+        limit = timeout if timeout is not None else self.timeout()
+        deadline = None if limit is None else time.monotonic() + limit
+        while True:
+            result = poll()
+            if result:
+                return result
+            if deadline is not None and time.monotonic() >= deadline:
+                self.dump(f"wait exceeded {limit}s", phase=phase)
+                raise SMPWatchdogTimeout(
+                    f"watchdog: {phase} stalled for more than {limit}s "
+                    "(diagnostics dumped; see stderr / "
+                    f"{os.environ.get(WATCHDOG_PATH_ENV, 'smp_watchdog_dump.json')})."
+                )
+            time.sleep(interval)
+
+
+# ----------------------------------------------------------------------
+# Singletons + convenience recorders
+# ----------------------------------------------------------------------
+
+telemetry = TelemetryRegistry()
+watchdog = Watchdog(telemetry)
+
+# Lazy seam to utils/flight_recorder.py (it imports THIS module for
+# _rank_path, so the reverse edge must not exist at import time). The
+# recorder-disabled case stays near-free: one module-attr lookup + the
+# recorder's own `enabled` test.
+_flight_mod = None
+
+
+def _flight():
+    global _flight_mod
+    if _flight_mod is None:
+        from smdistributed_modelparallel_tpu_torch.utils import flight_recorder
+
+        _flight_mod = flight_recorder
+    return _flight_mod.flight_recorder
+
+
+def _flight_snapshot():
+    try:
+        fr = _flight()
+        return {"meta": fr._meta(), "events": fr.snapshot()}
+    except Exception:  # pragma: no cover - diagnostics must not throw
+        return None
+
+
+def _goodput_snapshot(reason):
+    """The goodput-ledger block for a watchdog stall dump, or None when
+    the ledger is disarmed. Lazy import: telemetry stays the leaf of the
+    observability import graph."""
+    try:
+        from smdistributed_modelparallel_tpu_torch.utils.goodput import goodput
+
+        if goodput.ledger is None:
+            return None
+        # From the dump on, the stalled seconds accrue to `wedged`.
+        goodput.mark_stalled(reason)
+        return goodput.snapshot()
+    except Exception:  # pragma: no cover - diagnostics must not throw
+        return None
+
+
+def record_loss_scale(event, scale):
+    """One fp16 loss-scale event ("overflow" | "growth" | "static_overflow"):
+    counter + current-scale gauge + a flight-recorder health event — the
+    scaler's backoff history becomes part of every post-mortem."""
+    telemetry.counter(
+        "smp_loss_scale_events_total", "fp16 loss-scale events by kind"
+    ).labels(event=event).inc()
+    telemetry.gauge(
+        "smp_loss_scale", "current fp16 loss scale"
+    ).set(float(scale))
+    _flight().record_health("loss_scale", event, value=float(scale))
+
+
+def record_elastic_resume(n_layout, n_soft, detail=""):
+    """One elastic (topology-mismatched) checkpoint resume
+    (resilience/elastic.py): counts of layout-relevant and soft config
+    mismatches that were downgraded from fatal to a reshard."""
+    telemetry.counter(
+        "smp_elastic_resume_total", "elastic reshard-on-resume events"
+    ).inc()
+    telemetry.gauge(
+        "smp_elastic_resume_mismatches",
+        "config mismatches downgraded by the last elastic resume",
+    ).labels(kind="layout").set(n_layout)
+    telemetry.gauge(
+        "smp_elastic_resume_mismatches",
+        "config mismatches downgraded by the last elastic resume",
+    ).labels(kind="soft").set(n_soft)
+    _flight().record_preempt("elastic_resume", detail=detail)
+
+
+def record_fused_kernel_dispatch(kernel, path):
+    """One fused-kernel dispatch decision (``qkv`` / ``bias_gelu``; path
+    ``pallas`` — the hand-written kernel — or ``fallback``), the hit
+    counters the tp-overlap report section renders. Counted as the JAX
+    package counts its trace-time decisions: per compiled program, not per
+    executed step (``model.replay_program_ticks``)."""
+    telemetry.counter(
+        "smp_fused_kernel_dispatch_total",
+        "fused-kernel dispatch decisions at trace time by kernel and "
+        "chosen path",
+    ).labels(kernel=kernel, path=path).inc()
+
+
+def record_serve_request(event, n=1):
+    """One serving-request lifecycle event (serving/engine.py):
+    ``admitted`` / ``finished`` / ``readmitted`` (failover re-admission of
+    a dead replica's in-flight request) / ``deadline_miss``."""
+    telemetry.counter(
+        "smp_serve_requests_total", "serving requests by lifecycle event"
+    ).labels(event=event).inc(n)
+
+
+def record_serve_tokens(kind, n):
+    """Serving token throughput counter: ``kind`` is prompt (prefilled)
+    or generated (sampled)."""
+    if n:
+        telemetry.counter(
+            "smp_serve_tokens_total", "serving tokens by kind"
+        ).labels(kind=kind).inc(int(n))
+
+
+_SERVE_LATENCY_HELP = {
+    "ttft": "time to first token (arrival -> first sampled token)",
+    "itl": "inter-token latency of decode streams",
+    "queue_wait": "queue wait (arrival -> decode-slot admission)",
+    "prefill": "prompt prefill wall (admission -> first token sampled)",
+    "decode_step": "batched decode-step dispatch wall",
+}
+
+
+def record_serve_latency(kind, seconds):
+    """One serving latency sample, ``kind`` in SERVE_LATENCY_KINDS.
+
+    Feeds the streaming log-bucketed histogram
+    ``smp_serve_latency_seconds{kind=...}`` (fixed memory, mergeable
+    across ranks — ``scripts/telemetry_report.py`` sums bucket counts
+    element-wise because every rank uses the same LATENCY_BUCKETS tuple)
+    and derives the per-kind gauge family
+    ``smp_serve_<kind>_seconds{stat=last|mean|p50|p90|p99}``. The
+    ``last``/``mean`` stats keep the pre-histogram names and meanings
+    (mean is the histogram's lifetime sum/count), so existing dashboards
+    keep reading the same series."""
+    v = float(seconds)
+    child = telemetry.histogram(
+        "smp_serve_latency_seconds",
+        "serving latency distributions by kind (the log-bucketed "
+        "streaming histogram behind the percentile gauges)",
+        buckets=LATENCY_BUCKETS,
+    ).labels(kind=kind)
+    child.observe(v)
+    snap = child._snapshot()
+    g = telemetry.gauge(
+        f"smp_serve_{kind}_seconds",
+        _SERVE_LATENCY_HELP.get(kind, "serving latency"),
+    )
+    g.labels(stat="last").set(v)
+    g.labels(stat="mean").set(snap["sum"] / max(snap["count"], 1))
+    for stat, q in (("p50", 0.50), ("p90", 0.90), ("p99", 0.99)):
+        est = quantile_from_counts(snap["buckets"], snap["counts"], q)
+        if est is not None:
+            g.labels(stat=stat).set(est)
+
+
+def serve_latency_summary(kind, qs=(0.5, 0.9, 0.99)):
+    """``{"count", "mean_s", "quantiles_s": {q: seconds}}`` of one
+    serving latency distribution, or None before its first sample
+    (bench.py stamps the serve probe's percentile columns from this)."""
+    with telemetry._lock:
+        fam = telemetry._families.get("smp_serve_latency_seconds")
+    if fam is None:
+        return None
+    snap = fam.labels(kind=kind)._snapshot()
+    if not snap["count"]:
+        return None
+    return {
+        "count": snap["count"],
+        "mean_s": snap["sum"] / snap["count"],
+        "quantiles_s": {
+            q: quantile_from_counts(snap["buckets"], snap["counts"], q)
+            for q in qs
+        },
+    }
+
+
+def record_step_time(seconds):
+    """One training-step wall-time sample into the log-bucketed step-time
+    histogram ``smp_step_time_seconds`` plus p50/p90/p99 gauges — the
+    training-path counterpart of the serving latency distributions (a
+    p99 step blowup is invisible in the dispatch-seconds mean)."""
+    v = float(seconds)
+    child = telemetry.histogram(
+        "smp_step_time_seconds",
+        "per-step dispatch wall-time distribution (log-bucketed)",
+        buckets=LATENCY_BUCKETS,
+    ).labels()
+    child.observe(v)
+    snap = child._snapshot()
+    g = telemetry.gauge(
+        "smp_step_time_quantile_seconds",
+        "step wall-time percentiles from the streaming histogram",
+    )
+    for stat, q in (("p50", 0.50), ("p90", 0.90), ("p99", 0.99)):
+        est = quantile_from_counts(snap["buckets"], snap["counts"], q)
+        if est is not None:
+            g.labels(stat=stat).set(est)
+
+
+def record_serve_trace(event, rid, trace=None, slot=-1, pos=-1, detail=""):
+    """One per-request serving span edge (``queued`` / ``admitted`` /
+    ``readmitted`` / ``prefill_chunk`` / ``first_token`` / ``finished``)
+    into the flight-recorder ring. Host-side timestamps only — recording
+    costs one perf_counter read and a deque append, and a disabled ring
+    (``SMP_FLIGHT_RECORDER_SIZE=0``) short-circuits to an attribute
+    test. ``scripts/trace_fuse.py`` pairs the edges into one Perfetto
+    span lane per decode slot; the trace id rides the failover mirror
+    log, so a re-admitted request continues its original trace on the
+    surviving replica."""
+    _flight().record_serve(
+        event, rid, trace=trace, slot=slot, pos=pos, detail=detail
+    )
+
+
+def record_serve_occupancy(queue_depth, active_slots, total_slots,
+                           kv_used, kv_free, kv_reserved, kv_total,
+                           block_bytes=None):
+    """Continuous-batching occupancy gauges: request queue depth, decode
+    slots in use, and KV-pool block accounting (used / free / promised-
+    but-unallocated reservations / total). ``block_bytes`` (bytes per
+    pool block AT THE POOL DTYPE, scale sidecars included) additionally
+    publishes the block counts as ``smp_serve_kv_bytes`` — the gauge
+    that makes the int8-KV halving claim checkable against the bf16
+    pool rather than inferred from dtype names."""
+    telemetry.gauge(
+        "smp_serve_queue_depth", "requests waiting for a decode slot"
+    ).set(int(queue_depth))
+    g_slots = telemetry.gauge(
+        "smp_serve_slots", "decode slots by state"
+    )
+    g_slots.labels(state="active").set(int(active_slots))
+    g_slots.labels(state="total").set(int(total_slots))
+    g_kv = telemetry.gauge(
+        "smp_serve_kv_blocks", "paged KV-pool blocks by state"
+    )
+    g_kv.labels(state="used").set(int(kv_used))
+    g_kv.labels(state="free").set(int(kv_free))
+    g_kv.labels(state="reserved").set(int(kv_reserved))
+    g_kv.labels(state="total").set(int(kv_total))
+    if block_bytes is not None:
+        g_b = telemetry.gauge(
+            "smp_serve_kv_bytes",
+            "paged KV-pool bytes by state (blocks x bytes per block at "
+            "the pool dtype, including quantization-scale sidecars)",
+        )
+        g_b.labels(state="used").set(int(kv_used) * int(block_bytes))
+        g_b.labels(state="free").set(int(kv_free) * int(block_bytes))
+        g_b.labels(state="reserved").set(
+            int(kv_reserved) * int(block_bytes)
+        )
+        g_b.labels(state="total").set(int(kv_total) * int(block_bytes))
+
+
+def record_quant_state(slots, amax, scale):
+    """Latest delayed-scaling statistics per quantization slot
+    (``quant.QuantState.absorb`` after each fp8 step): the newest amax
+    observation and the dequantization scale now in force."""
+    g_a = telemetry.gauge(
+        "smp_quant_amax",
+        "latest per-slot amax observation of the fp8 delayed-scaling "
+        "recipe",
+    )
+    g_s = telemetry.gauge(
+        "smp_quant_scale",
+        "per-slot fp8 dequantization scale currently in force",
+    )
+    for slot, a, s in zip(slots, amax, scale):
+        g_a.labels(site=slot).set(float(a))
+        g_s.labels(site=slot).set(float(s))
+
+
+def record_quant_dispatch(site, path):
+    """One low-precision dispatch decision at trace/setup time: a seam
+    routed through fp8 (``path=fp8``), a knob canonicalized back to
+    bf16 (``path=bf16_fallback``), the KV pool went int8
+    (``site=kv_cache``), or decode weights were repacked
+    (``site=decode_weights``). Counts are per-trace, not per-step —
+    the signal is WHICH paths engaged, mirroring the fused-kernel
+    dispatch counter."""
+    telemetry.counter(
+        "smp_quant_dispatch_total",
+        "low-precision dispatch decisions by seam and path",
+    ).labels(site=site, path=path).inc()
+
+
+def record_serve_programs(n):
+    telemetry.gauge(
+        "smp_serve_programs",
+        "compiled serving programs (the engine holds exactly two: "
+        "prefill-chunk and decode-step)",
+    ).set(int(n))
+
+
+def record_weight_update(seconds, version, fresh=0):
+    """One live weight adoption (serving/engine.py ``adopt_params``):
+    ``seconds`` is the full swap wall, ``fresh`` the number of fresh
+    program compiles it caused — the zero-recompile contract holds
+    when it stays 0 (exec-cache keys are weight-free)."""
+    telemetry.gauge(
+        "smp_weight_update_seconds",
+        "wall seconds of the last live weight adoption (zero-recompile "
+        "contract: no compile_fresh events inside this window)",
+    ).set(float(seconds))
+    telemetry.counter(
+        "smp_weight_updates_total", "live weight adoptions by outcome"
+    ).labels(outcome="adopted" if not fresh else "recompiled").inc()
+    telemetry.gauge(
+        "smp_controller_weights_version",
+        "weights version this engine currently serves",
+    ).set(int(version))
+    _flight().record_controller(
+        "weight_update",
+        detail=f"version={version} seconds={seconds:.3f} fresh={fresh}",
+    )
+
+
+def _atexit_dump():  # pragma: no cover - exercised via subprocess test
+    try:
+        # An empty registry must not clobber the dump smp.shutdown already
+        # wrote (shutdown resets the registry after dumping).
+        if telemetry._families:
+            telemetry.dump()
+    except Exception:
+        pass
+
+
+atexit.register(_atexit_dump)

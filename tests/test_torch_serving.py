@@ -313,12 +313,23 @@ def test_adopt_params_refusals_and_zero_cost_adoption():
     # A value the JAX package would warn about and ignore is refused too.
     ("SMP_TIMESERIES_INTERVAL", "5s"), ("SMP_FLEET_INTERVAL", "fast"), ("SMP_AUTOSCALE", "yes"),
 ])
-def test_refused_env_vars(monkeypatch, env, value):
+def test_refused_env_vars(monkeypatch, env, value, tmp_path):
     """Each variable that arms a left-out subsystem is refused; a bad value of
     an int8 knob raises the JAX package's ``ValueError``
-    (``quant.kv_quant_mode`` / ``decode_weights_mode``)."""
+    (``quant.kv_quant_mode`` / ``decode_weights_mode``). The time series and
+    the telemetry dump are ported now (``tests/test_torch_serve_observability.py``):
+    their variables build the engine, and an interval that is not a number
+    leaves the time series off with a warning, as in the JAX package."""
     model, kw = _port_engine()
+    monkeypatch.chdir(tmp_path)
     monkeypatch.setenv(env, value)
+    if env in ("SMP_TIMESERIES_INTERVAL", "SMP_TELEMETRY_PATH"):
+        engine = ServingEngine(model, **kw)
+        try:
+            assert (engine.timeseries is not None) == (env == "SMP_TIMESERIES_INTERVAL" and value == "1.0")
+        finally:
+            engine.close()
+        return
     if env in ("SMP_DECODE_WEIGHTS", "SMP_KV_QUANT"):
         with pytest.raises(ValueError, match=f"{env}={value!r}: expected 'int8'"):
             ServingEngine(model, **kw)
