@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phases H # HuggingFace models through smp.from_hf only
     python3 chip_smoke.py --phases E # the encoder-decoder, T5 through smp.from_hf and MoE only
     python3 chip_smoke.py --phases O # observability (telemetry, timeline, goodput, profiling, time series) only
+    python3 chip_smoke.py --phases V # resilience (sentinel, OOM post-mortem, preemption, chaos, fleet) only
     python3 chip_smoke.py --phases N # the same with the ranks on two cards (NCCL); needs two cards
     python3 chip_smoke.py --phases X # GPT-2 1.5B at 16 x 1024 with checkpointing off (its peak or OOM)
 
@@ -290,6 +291,41 @@ csrc`` (one nvcc per source, all started together), then:
      windows' generated-token deltas summing to the tokens served, and
      ``scripts/slo_report.py`` exiting 0 on the JSONL; prints the windows'
      rates and SLO verdicts.
+  V. resilience on phase L's model (GPT-2 124M smp.nn, fused, bf16, 8 x
+     1024 tokens in 4 microbatches, AdamW, dropout 0, weights from the seed)
+     and phase S's burst. V1, the health sentinel: in one process, blocks of
+     2 warm-up and 8 timed steps with ``SMP_HEALTH_CHECK`` off, cheap, cheap,
+     off (each its own ``smp.init``, model and AdamW from the same weights),
+     then 4 steps under full: (a) every block's losses bit-equal to the off
+     block's; (b) cheap decodes one step behind, full at once; (c) the tags
+     loss, outputs, grads (and params under full), none bad; (d) with
+     ``torch.cuda.set_sync_debug_mode("warn")``, no cheap block makes more
+     synchronizing calls than an off block; (e) one ``health_reduce`` launch a
+     step. Prints ms/step off and cheap, the kernel's time on the last step's
+     entries beside the plain version's, and the bytes the bisector keeps.
+     V2: after a clean step, layer 5's MLP weight gets a NaN and one step
+     runs under cheap; ``smp.shutdown``'s flush trips the sentinel and bisects:
+     the ``SMP_HEALTH_PATH`` dump's attribution names microbatch 0 and the
+     scanned stack's output (the CPU parity test's path), the telemetry dump
+     ``smp_health_fault_total`` 1, the ring its health events; again with a
+     NaN input row in microbatch 2 (``input:0/2``). V3: a step that allocates
+     twice the free memory: the ``torch.OutOfMemoryError`` reaches the caller,
+     the post-mortem names cuda:0's ``bytes_limit`` and the live tensors,
+     ``smp_oom_total`` is 1. V4: ``wedge@step=2:ms=500`` puts 500 ms into the
+     third step's dispatch region in the timeline (that region less 500 ms
+     within 10% of the other steps'; the goodput ledger's ``wedged`` 500 ms); child
+     processes (``--v-child``): ``SMP_CHAOS=sigterm@step=3`` (with
+     ``SMP_SUPERVISOR=on``) writes the emergency checkpoint at step edge 3 and
+     exits 0, a second child resumes it and its losses equal the
+     uninterrupted run's calls 3-5 bit for bit; a third child saves when the
+     phase touches its ``SMP_PREEMPTION_FILE``; ``resilience_probe.py`` reads
+     both checkpoints; phase S's burst under ``SMP_FLEET_INTERVAL=0.5`` and
+     ``SMP_METRICS_PORT=0`` gives phase S's tokens, its ``/metrics``,
+     ``/metrics.json`` and ``/fleet`` answer 200 during the burst, the fleet
+     report's TTFT and ITL percentiles equal ``telemetry_report.py``'s offline
+     merge of the rank's dump, and ``corrupt_weights@version=1`` on an
+     ``adopt_params`` of the same weights leaves every float leaf at x * 1.01
+     + 0.01. Its files go to ``chip_smoke_resilience/`` (removed at the end).
   B. every kernel against its plain PyTorch version on the card, at the
      main paths' shapes and over a feature sweep, within stated tolerances;
      the ids-mode kernels on phase R's ring pairs (each rank's diagonal and
@@ -310,7 +346,8 @@ csrc`` (one nvcc per source, all started together), then:
      ``threefry_bits`` gives the plain version's bits exactly, at the path's
      mask size, odd sizes, offsets past 2**32 and keys from ``split`` and
      ``fold_in``; the dropout forward and backward give the plain version's
-     bits exactly in fp32, bf16 and fp16 at rates 0.1, 0.5 and 0; the flash kernels run the
+     bits exactly in fp32, bf16 and fp16 at rates 0.1, 0.5 and 0; ``health_reduce``
+     gives the plain version's health word exactly (``_phase_b_health``); the flash kernels run the
      training shape with the seeds phase D's first step derives. Phase M's
      GPT-2 1.5B microbatches (4 and 16 x 1024) have their own cases: flash
      at 25 heads of 64 with dropout 0.1, ``matmul_bias`` at N 4096 and 16384
@@ -337,7 +374,10 @@ csrc`` (one nvcc per source, all started together), then:
      instructions of each kernel's compiled loop (cuobjdump) on its busiest
      pipe (PIPE_LANES). ``matmul_bias`` and ``bias_gelu_fwd`` also at phase
      G's decode shapes (N 4 and 8), with ``torch.addmm`` and ``F.gelu(x +
-     b)`` (the kernels line's ``decode_n4``/``decode_n8``).
+     b)`` (the kernels line's ``decode_n4``/``decode_n8``). ``health_reduce``
+     at V1's step (GPT-2 124M's 148 fp32 gradients, the losses and outputs;
+     with the parameters under full) by graph replay, beside its plain
+     version and the bytes it reads.
   N. (on request, on a machine with two cards) phase R with the ranks on
      cuda:0 and cuda:1, which then talk over NCCL.
   P. (on request) torch.profiler breakdowns of a generate, phase S's burst, a training step,
@@ -395,8 +435,9 @@ PIPE_LANES = {"alu": 64, "imad": 64, "fma": 128, "mufu": 16, "issue": 128}
 _ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL", "PRMT")
 _FP32_OPS = ("FFMA", "FADD", "FMUL")
 
-KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8", "dropout"]
-DEFAULT_PHASES = "ASGTFLDMQRKHEOBC"
+KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8", "dropout",
+                  "health_reduce"]
+DEFAULT_PHASES = "ASGTFLDMQRKHEOVBC"
 SEED = 1234
 
 
@@ -4068,6 +4109,7 @@ def phase_b():
     new_err["matmul_fp8"] = _phase_b_fp8(failures)
     new_err.update(_phase_b_ids(failures))
     new_err.update(_phase_b_dropout(failures))
+    new_err.update(_phase_b_health(failures))
     if failures:
         raise RuntimeError(f"kernel disagrees with its plain version: {failures}")
     return main_err, bwd_main_err, new_err
@@ -4175,6 +4217,116 @@ def _phase_b_dropout(failures):
     for key, fn in counters.items():
         fn.launches = saved[key]  # comparison launches do not count
     return errs
+
+
+def _health_leaf(n, dtype, gen, bad=(), device="cuda"):
+    """A [n] tensor of ``dtype`` from ``gen`` (magnitudes to ~3e4, bf16 and
+    fp16 finite), with ``bad`` = ((index, value), ...) written in."""
+    x = (torch.randn(n, generator=gen, device=device) * 300.0).to(dtype)
+    for i, v in bad:
+        x[i] = v
+    return x
+
+
+def _phase_b_health(failures):
+    """``health_reduce`` against its plain version, bit for bit (counts,
+    abs-max and first microbatch of every row): fp32, bf16 and fp16 leaves
+    spanning three chunks with NaN, +inf or -inf at the first, a middle or
+    the last element beside a clean leaf; a one-element leaf; a leaf whose
+    base is not 16-byte aligned; 300 leaves of mixed sizes and dtypes; a
+    stacked entry (a [4, ...] tensor and per-microbatch pieces) whose first
+    bad microbatch is 2 of 4; grouped pieces; and GPT-2 124M's 148 gradient
+    tensors (fp32) with one inf. One launch a call. Returns the largest
+    |difference| (0.0 when every word is equal)."""
+    from smdistributed_modelparallel_tpu_torch.ops.health_reduce import health_reduce, reference_health_reduce
+
+    saved = health_reduce.launches
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    err = 0.0
+    n = 2 * 16384 + 4099  # three chunks, the last ragged
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for value in (float("nan"), float("inf"), float("-inf")):
+            for where in (0, n // 2 + 1, n - 1):
+                cases.append((f"{str(dtype).removeprefix('torch.')} {value} at {where}",
+                              [("grads", [_health_leaf(n, dtype, gen, ((where, value),)),
+                                          _health_leaf(257, dtype, gen)], None)]))
+    cases.append(("one element", [("a", [torch.tensor([float("nan")], device="cuda")], None),
+                                  ("b", [torch.tensor([2.5], device="cuda")], None)]))
+    cases.append(("unaligned base", [("a", [_health_leaf(4103, torch.bfloat16, gen, ((7, float("inf")),))[1:]],
+                                      None)]))
+    sizes = torch.randint(1, 5000, (300,), generator=torch.Generator().manual_seed(SEED)).tolist()
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    many = [_health_leaf(s, dtypes[i % 3], gen, ((s // 2, float("nan")),) if i % 37 == 5 else ())
+            for i, s in enumerate(sizes)]
+    cases.append(("300 leaves", [("grads", many, None)]))
+    stacked = _health_leaf(4 * 1000 * 7, torch.float32, gen, ((2 * 7000 + 11, float("nan")),
+                                                              (3 * 7000, float("-inf")))).reshape(4, 1000, 7)
+    pieces = [_health_leaf(33, torch.bfloat16, gen, ((5, float("inf")),) if mb >= 2 else ()) for mb in range(4)]
+    cases.append(("stacked, first bad microbatch 2 of 4", [("outputs", [stacked], 4), ("loss", [pieces], 4),
+                                                           ("grouped", [[many[0], many[1]], many[2]], None)]))
+    shapes = [p.shape for p in _lm_param_shapes()]
+    grads = [torch.randn(s, generator=gen, device="cuda") * 1e-3 for s in shapes]
+    grads[7].view(-1)[grads[7].numel() // 2] = float("inf")
+    cases.append((f"GPT-2 124M gradients ({len(grads)} fp32 tensors)", [("grads", grads, None)]))
+    for label, entries in cases:
+        before = health_reduce.launches
+        got = health_reduce(entries)
+        want = reference_health_reduce(entries)
+        torch.cuda.synchronize()
+        ok = health_reduce.launches == before + 1 and torch.equal(got, want)
+        err = max(err, float((got - want).abs().max()))
+        log(f"[B] health_reduce {label:40s}: word {got.tolist() if got.shape[0] <= 3 else got.shape}, "
+            f"equal {torch.equal(got, want)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"health_reduce/{label}")
+    health_reduce.launches = saved  # comparison launches do not count
+    return {"health_reduce": err}
+
+
+def _lm_param_shapes():
+    """Phase L's parameters (GPT-2 124M's smp.nn LM head) on the meta device."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    return list(smp.nn.DistributedTransformerLMHead(**LM_CFG, fused_bias_gelu=True, device="meta").parameters())
+
+
+def _phase_c_health():
+    """``health_reduce`` at V1's step: GPT-2 124M's 148 fp32 gradient tensors,
+    the 4 microbatch losses and the stacked loss output (``cheap``), and the
+    same with the 148 fp32 parameters (``full``), by CUDA-graph replay, beside
+    the plain version and the bound: the bytes read once (no PyTorch call
+    computes the function, so no library time)."""
+    from smdistributed_modelparallel_tpu_torch.ops.health_reduce import health_reduce, reference_health_reduce
+
+    saved = health_reduce.launches
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = [torch.randn(p.shape, generator=gen, device="cuda") * 1e-3 for p in _lm_param_shapes()]
+    params = [torch.randn(p.shape, generator=gen, device="cuda") * 2e-2 for p in _lm_param_shapes()]
+    losses = [torch.rand((), generator=gen, device="cuda") + 10.0 for _ in range(TRAIN_MB)]
+    cheap = [("loss", [losses], TRAIN_MB), ("outputs", [torch.stack(losses)], TRAIN_MB), ("grads", grads, None)]
+    full = [("params", params, None)] + cheap
+    out = {}
+    for label, entries in (("cheap", cheap), ("full", full)):
+        nbytes = sum(p.numel() * p.element_size() for _, leaves, _ in entries for leaf in leaves
+                     for p in (leaf if isinstance(leaf, list) else [leaf]))
+        nelem = nbytes // 4
+        bound_ms, bound_by = _bound(nbytes, 3 * nelem, torch.float32)  # isfinite, abs, max an element
+        ms = cuda_graph_time_ms(lambda: health_reduce(entries))
+        eager_ms = cuda_time_ms(lambda: health_reduce(entries))
+        plain_ms = cuda_graph_time_ms(lambda: reference_health_reduce(entries), iters=5, replays=2)
+        log(f"[C] health_reduce {label} ({len(grads)} gradient tensors{' + parameters' if label == 'full' else ''}, "
+            f"{nbytes / 1e6:.1f} MB fp32): the wrapper {ms:.4f} ms by CUDA-graph replay ({bound_ms / ms:.1%} of the "
+            f"bound), eager {eager_ms:.4f} ms (CUDA events, the host's launch included), plain {plain_ms:.4f} ms; "
+            f"bound {bound_ms:.4f} ms by {bound_by}")
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                   eager_ms=eager_ms)
+        if label == "cheap":
+            out["health_reduce"] = row
+        else:
+            out["health_reduce"].update({"full_" + k: v for k, v in row.items() if k != "library_ms"})
+    health_reduce.launches = saved  # timing launches do not count
+    return out
 
 
 # (name, N, V, D, kwargs) of the fused cross-entropy kernels. D 1600 (GPT-2
@@ -5138,6 +5290,7 @@ def phase_c():
     out.update(_phase_c_fp8())
     out.update(_phase_c_ids())
     out.update(_phase_c_dropout())
+    out.update(_phase_c_health())
     return out
 
 
@@ -5854,6 +6007,571 @@ def _phase_o():
     return launches
 
 
+# ----------------------------------------------------------------------
+# Phase V: resilience (the health sentinel, OOM post-mortem, preemption,
+# chaos, supervisor, fleet) on phase L's model and phase S's burst
+# ----------------------------------------------------------------------
+
+V_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_resilience")
+V_BLOCKS = ("off", "cheap", "cheap", "off")  # V1's in-process alternation
+V_BLOCK_STEPS = (2, 8)                      # a block's warm-up and timed steps
+V_FULL_STEPS = 4
+V_POISON = ("transformer.seq_layers.5.output.fc.weight", (0, 0))  # layer 5's MLP weight, one element
+V_LAYER_FAULT = "transformer/seq_layers/__call__/0/0/0"  # the scanned stack's output (the CPU parity test's kind)
+V_BAD_ROW = (4, 7)                          # a row of microbatch 2 of 4 (rows 4-5 of 8)
+V_CALLS = 6                                 # the uninterrupted run; the preempted run saves at its third call
+V_WEDGE_MS = 500
+V_FLEET_INTERVAL = "0.5"
+
+
+def _v_init():
+    """Phase L's weights and batch from the seed (as O1's child draws them)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    init = init_weights_(smp.nn.DistributedTransformerLMHead(**LM_CFG, device="cuda"), LM_CFG["initializer_range"], g)
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    ids = torch.randint(0, LM_CFG["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
+    return init_state, ids
+
+
+def _v_calls(model, optimizer, train_step, ids, n, out=None):
+    """``n`` calls of the step and the optimizer; the losses as Python floats,
+    each also printed (``V_LOSS``) when ``out`` is a child's stdout."""
+    losses = []
+    for _ in range(n):
+        losses.append(float(train_step(model, ids).reduce_mean()))
+        optimizer.step()
+        if out is not None:
+            print(f"V_LOSS {losses[-1]!r}", file=out, flush=True)
+    return losses
+
+
+def phase_v_child(spec):
+    """V4's children (``--v-child KIND:DIR``): ``preempt`` trains under the
+    parent's ``SMP_CHAOS=sigterm@step=3`` (the emergency save exits the
+    process), ``file`` trains until the parent touches ``SMP_PREEMPTION_FILE``
+    (after its second call), ``resume`` resumes DIR's newest checkpoint and
+    trains three calls."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    ckpt_mod = importlib.import_module("smdistributed_modelparallel_tpu_torch.checkpoint")  # smp.checkpoint is remat
+    kind, root = spec.split(":", 1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_state, ids = _v_init()
+    save = ckpt_mod.save_checkpoint
+
+    def timed_save(*args, **kw):  # the emergency save, timed; the process exits right after it
+        t0 = time.perf_counter()
+        out = save(*args, **kw)
+        print("V_SAVE " + json.dumps(dict(seconds=time.perf_counter() - t0, tag=kw.get("tag"),
+                                          user=kw.get("user_content"))), flush=True)
+        return out
+
+    ckpt_mod.save_checkpoint = timed_save
+    if kind == "resume":
+        _lm_init(True)
+        user = smp.resume_from_checkpoint(root)
+        step_count = smp.state.step_count
+        model = smp.DistributedModel(_k_other_model(SEED + 1), device="cuda")  # the stashed state overwrites it
+        optimizer, train_step = _lm_optimizer_step(model)
+        losses = _v_calls(model, optimizer, train_step, ids, 3)
+        print("V_CHILD " + json.dumps(dict(user=user, step_count=step_count, losses=losses)), flush=True)
+        return 0
+    model, optimizer, train_step = _lm_setup(init_state, True, "cuda")
+    if kind == "file":
+        _v_calls(model, optimizer, train_step, ids, 2, out=sys.stdout)
+        print("V_READY", flush=True)
+        deadline = time.monotonic() + 120
+        while not os.path.exists(os.environ["SMP_PREEMPTION_FILE"]) and time.monotonic() < deadline:
+            time.sleep(0.05)
+    _v_calls(model, optimizer, train_step, ids, V_CALLS, out=sys.stdout)
+    print("V_NOT_PREEMPTED", flush=True)  # reached only if no emergency save exited the process
+    return 3
+
+
+def _v_child(kind, root, env, ready=None):
+    """Run one V4 child with ``env`` added; when it prints ``V_READY``, call
+    ``ready()``. Returns (exit code, its stdout lines, its wall seconds)."""
+    t0 = time.perf_counter()
+    err_path = os.path.join(V_DIR, f"{kind}.stderr")
+    with open(err_path, "w") as err_file:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--v-child", f"{kind}:{root}"],
+                                stdout=subprocess.PIPE, stderr=err_file, text=True, env={**os.environ, **env})
+        lines = []
+        try:
+            for line in proc.stdout:
+                lines.append(line.rstrip("\n"))
+                if line.startswith("V_READY") and ready is not None:
+                    ready()
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    err = open(err_path).read()
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase V {kind} child exited {proc.returncode}:\n" + "\n".join(lines[-20:])
+                           + f"\n{err[-4000:]}")
+    return lines, time.perf_counter() - t0
+
+
+def _v_tagged(lines, tag):
+    return [ln[len(tag) + 1:] for ln in lines if ln.startswith(tag + " ")]
+
+
+def _v1_block(init_state, ids, mode, steps, spy=None):
+    """One V1 block: its own ``smp.init``, model and AdamW from the same
+    weights, ``steps`` calls under ``SMP_HEALTH_CHECK=mode``, counted
+    with ``torch.cuda.set_sync_debug_mode("warn")`` on."""
+    import warnings
+
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.ops.health_reduce import health_reduce
+    from smdistributed_modelparallel_tpu_torch.utils import health
+
+    with _env(SMP_HEALTH_CHECK=None if mode == "off" else mode), \
+            (mock.patch.object(health.HealthCollector, "pack", spy) if spy else contextlib.nullcontext()):
+        model, optimizer, train_step = _lm_setup(init_state, True, "cuda")
+        health_reduce.launches = 0
+        losses, t0 = [], None
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for n in range(steps):
+                    if n == V_BLOCK_STEPS[0]:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                    losses.append(train_step(model, ids).reduce_mean())
+                    optimizer.step()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        # torch's warning at each synchronizing tensor operation (.item(),
+        # a copy to the host, ...); not the mode's one-time "prototype" notice.
+        syncs = [str(w.message).splitlines()[0] for w in caught
+                 if "synchroniz" in str(w.message) and "prototype" not in str(w.message)]
+        mon = health.monitor
+        out = dict(losses=[float(x) for x in losses], syncs=len(syncs), sync_kinds=sorted(set(syncs)),
+                   launches=health_reduce.launches, checked=list(mon.checked_steps), pending=mon.pending_step,
+                   last=mon.last_check, ms=(t1 - t0) * 1e3 / (steps - V_BLOCK_STEPS[0]) if t0 else None,
+                   kept_bytes=sum(p.numel() * 2 for p in model.parameters()))
+        del model, optimizer, train_step
+        smp.reset()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _v1(init_state, ids, failures):
+    """The sentinel: blocks off, cheap, cheap, off, then full (V1)."""
+    from smdistributed_modelparallel_tpu_torch.ops.health_reduce import health_reduce, reference_health_reduce
+    from smdistributed_modelparallel_tpu_torch.utils import health
+
+    steps = sum(V_BLOCK_STEPS)
+    captured = []
+    pack = health.HealthCollector.pack
+
+    def spy(self):  # the last step's entries, for the kernel's time a step
+        captured[:] = [list(self.entries)]
+        return pack(self)
+
+    blocks = [_v1_block(init_state, ids, mode, steps, spy=spy if i == 2 else None) for i, mode in enumerate(V_BLOCKS)]
+    full = _v1_block(init_state, ids, "full", V_FULL_STEPS)
+    off = [b for b, m in zip(blocks, V_BLOCKS) if m == "off"]
+    cheap = [b for b, m in zip(blocks, V_BLOCKS) if m == "cheap"]
+    ms_off, ms_cheap = np.mean([b["ms"] for b in off]), np.mean([b["ms"] for b in cheap])
+    log(f"[V1] smp.nn GPT-2 124M, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MB} microbatches, fused, bf16: "
+        f"{V_BLOCK_STEPS[1]} timed steps a block after {V_BLOCK_STEPS[0]}, blocks {' '.join(V_BLOCKS)}: off "
+        + ", ".join(f"{b['ms']:.2f}" for b in off) + " ms/step, cheap " + ", ".join(f"{b['ms']:.2f}" for b in cheap)
+        + f" ms/step; cheap/off {ms_cheap / ms_off:.4f}")
+    # (a) the sentinel only reads.
+    for b, mode in zip(blocks + [full], V_BLOCKS + ("full",)):
+        want = off[0]["losses"][:len(b["losses"])]
+        if b["losses"] != want:
+            failures.append(f"V1 (a) {mode} losses {b['losses']} != off {want}")
+    log(f"[V1] (a) losses bit-equal across blocks and full: "
+        f"{all(b['losses'] == off[0]['losses'][:len(b['losses'])] for b in blocks + [full])}; last "
+        f"{off[0]['losses'][-1]:.6f}")
+    # (b) one step behind in cheap, synchronous in full; (c) the tags; (e) one launch a step.
+    for b in cheap:
+        if b["checked"] != list(range(steps - 1)) or b["pending"] != steps - 1:
+            failures.append(f"V1 (b) cheap checked {b['checked']} pending {b['pending']}")
+    if full["checked"] != list(range(V_FULL_STEPS)) or full["pending"] is not None:
+        failures.append(f"V1 (b) full checked {full['checked']} pending {full['pending']}")
+    for b, want in ((cheap[-1], {"loss", "outputs", "grads"}), (full, {"loss", "outputs", "grads", "params"})):
+        tags = b["last"]["tags"]
+        if set(tags) != want or any(d["bad"] != 0 for d in tags.values()):
+            failures.append(f"V1 (c) tags {tags}")
+    log(f"[V1] (b) cheap checked steps {cheap[-1]['checked']} (pending {cheap[-1]['pending']}), full "
+        f"{full['checked']} (pending {full['pending']}); (c) cheap tags "
+        + ", ".join(f"{k} bad {d['bad']:g} absmax {d['absmax']:.6g}" for k, d in cheap[-1]["last"]["tags"].items())
+        + "; full adds params absmax " + f"{full['last']['tags']['params']['absmax']:.6g}")
+    # (d) no synchronizing call the off blocks do not make.
+    worst_cheap, least_off = max(b["syncs"] for b in cheap), min(b["syncs"] for b in off)
+    log(f"[V1] (d) synchronizing calls a block (sync debug mode 'warn', {steps} steps): off "
+        f"{[b['syncs'] for b in off]} {off[0]['sync_kinds']}, cheap {[b['syncs'] for b in cheap]} "
+        f"{cheap[0]['sync_kinds']}, full {full['syncs']}")
+    if worst_cheap > least_off:
+        failures.append(f"V1 (d) cheap blocks made {worst_cheap} synchronizing calls, off {least_off}")
+    launches = [b["launches"] for b in cheap] + [full["launches"]]
+    log(f"[V1] (e) health_reduce launches: cheap blocks {launches[:-1]}, full {launches[-1]}, off "
+        f"{[b['launches'] for b in off]}")
+    if launches != [steps, steps, V_FULL_STEPS] or any(b["launches"] for b in off):
+        failures.append(f"V1 (e) health_reduce launches {launches}, off {[b['launches'] for b in off]}")
+    entries = captured[0]
+    kernel_ms = cuda_graph_time_ms(lambda: health_reduce(entries))
+    plain_ms = cuda_graph_time_ms(lambda: reference_health_reduce(entries), iters=5, replays=2)
+    nbytes = sum(p.numel() * p.element_size() for _, leaves, _ in entries for leaf in leaves
+                 for p in (leaf if isinstance(leaf, list) else [leaf]))
+    log(f"[V1] the sentinel's reduce a step ({len(entries)} entries, "
+        f"{sum(len(leaves) for _, leaves, _ in entries)} leaves, {nbytes / 1e6:.1f} MB): health_reduce "
+        f"{kernel_ms:.4f} ms, plain version {plain_ms:.4f} ms (CUDA-graph replay); the bisector keeps the step's "
+        f"bf16 parameter casts one step longer: {cheap[0]['kept_bytes'] / 2**20:.1f} MiB (no clone under bf16)")
+    return {"health_reduce": steps * len(cheap) + V_FULL_STEPS}, dict(ms_off=ms_off, ms_cheap=ms_cheap,
+                                                                       kernel_ms=kernel_ms, plain_ms=plain_ms)
+
+
+def _v_weighted_session(init_state):
+    """Phase L's model with a step whose loss weighs each token by a float
+    input ``w`` [B, T - 1] (the sentinel's ``input:`` case needs one)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn import vocab_parallel_cross_entropy
+
+    _lm_init(True)
+    module = smp.nn.DistributedTransformerLMHead(**LM_CFG, fused_bias_gelu=True, device="meta")
+    module.load_state_dict({k: v.clone() for k, v in init_state.items()}, assign=True)
+    model = smp.DistributedModel(module, device="cuda")
+    optimizer, _ = _lm_optimizer_step(model)
+
+    @smp.step
+    def weighted(model, ids, w):
+        loss = (vocab_parallel_cross_entropy(model(ids)[:, :-1], ids[:, 1:]) * w).mean()
+        model.backward(loss)
+        return loss
+
+    return model, optimizer, weighted
+
+
+def _v2(init_state, ids, failures):
+    """A trip and its attribution, twice: layer 5's MLP weight poisoned, and
+    a NaN input row in microbatch 2 (V2)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    out = {}
+    for case, want in (("layer", (V_LAYER_FAULT, 0)), ("input", ("input:0/2", 2))):
+        d = os.path.join(V_DIR, f"trip_{case}")
+        os.makedirs(d)
+        paths = {k: os.path.join(d, f) for k, f in (("SMP_HEALTH_PATH", "health.json"),
+                                                    ("SMP_TELEMETRY_PATH", "telemetry.json"),
+                                                    ("SMP_FLIGHT_RECORDER_PATH", "ring.jsonl"))}
+        with _env(SMP_HEALTH_CHECK="cheap", **paths):
+            model, optimizer, weighted = _v_weighted_session(init_state)
+            w = torch.ones(TRAIN_BATCH, TRAIN_SEQ - 1, device="cuda")
+            weighted(model, ids, w)
+            optimizer.step()
+            if case == "layer":
+                name, idx = V_POISON
+                with torch.no_grad():
+                    dict(model.module.named_parameters())[name][idx] = float("nan")
+            else:
+                w[V_BAD_ROW] = float("nan")
+            weighted(model, ids, w)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            smp.shutdown()  # the flush decodes the faulting step's word: trip, bisection, dumps
+        dump = json.loads(open(paths["SMP_HEALTH_PATH"]).read())
+        trip = dump["trips"][-1] if dump.get("trips") else {}
+        att = trip.get("attribution") or {}
+        tel = json.loads(open(paths["SMP_TELEMETRY_PATH"]).read())
+        faults = [s for s in tel["metrics"].get("smp_health_fault_total", {}).get("series", [])]
+        ring = [json.loads(x) for x in open(paths["SMP_FLIGHT_RECORDER_PATH"]).read().splitlines()[1:]]
+        health_events = sorted({e.get("event") for e in ring if e.get("kind") == "health"})
+        seconds = trip.get("time", t0) - t0
+        out[case] = seconds
+        log(f"[V2] {case}: trip at step {trip.get('step')}, tags "
+            + ", ".join(f"{k} bad {v['bad']:g} mb {v['microbatch']}" for k, v in trip.get("tags", {}).items())
+            + f"; attribution {att}; smp_health_fault_total {[(s['labels'], s['value']) for s in faults]}; ring "
+            f"health events {health_events}; flush with bisection {seconds:.3f} s")
+        if (att.get("layer"), att.get("microbatch")) != want or att.get("params_source") != "dispatch":
+            failures.append(f"V2 {case}: attribution {att}, expected layer/microbatch {want}")
+        if case == "layer" and att.get("param") != "transformer/seq_layers/layer/output/fc/kernel":
+            failures.append(f"V2 layer: param {att.get('param')}")
+        if [s["value"] for s in faults] != [1.0] or not {"trip", "fault"} <= set(health_events):
+            failures.append(f"V2 {case}: fault counter {faults}, ring health events {health_events}")
+        smp.reset()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _v3(failures):
+    """The OOM post-mortem: a step that asks for twice the card's free
+    memory (V3)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    path = os.path.join(V_DIR, "oom.json")
+    with _env(SMP_HEALTH_PATH=path):
+        smp.init({})
+        model = smp.DistributedModel(torch.nn.Linear(8, 8), device="cuda")
+        free, total = torch.cuda.mem_get_info()
+
+        @smp.step
+        def hog(model, x):
+            big = torch.empty(2 * free, dtype=torch.uint8, device="cuda")
+            loss = model(x).sum() + big[:1].float().sum()
+            model.backward(loss)
+            return loss
+
+        caught = None
+        try:
+            hog(model, torch.zeros(2, 8, device="cuda"))
+        except torch.OutOfMemoryError as e:
+            caught = e
+        oom = [(s["labels"], s["value"]) for s in smp.telemetry.report()["metrics"]
+               .get("smp_oom_total", {}).get("series", [])]
+        smp.reset()
+    dump = json.loads(open(path).read()) if os.path.exists(path) else {}
+    dev = (dump.get("device_memory_stats") or {}).get("cuda:0", {})
+    live = dump.get("live_buffers") or {}
+    log(f"[V3] a step allocating {2 * free / 2**30:.2f} GiB ({free / 2**30:.2f} GiB free of {total / 2**30:.2f}): "
+        f"{type(caught).__name__ if caught else 'no error'} reached the caller; dump keys {sorted(dump)}; "
+        f"device_memory_stats[cuda:0] {dev}; live tensors {live.get('count')} ({live.get('total_bytes')} bytes); "
+        f"smp_oom_total {oom}")
+    if caught is None:
+        failures.append("V3: no torch.OutOfMemoryError reached the caller")
+    if dev.get("bytes_limit") != total or not live.get("top_by_bytes") or dump.get("memory_analysis", 0) is not None:
+        failures.append(f"V3: dump {dump}")
+    if oom != [({"step": "step"}, 1.0)]:
+        failures.append(f"V3: smp_oom_total {oom}")
+
+
+def _v4_wedge(init_state, ids, failures):
+    """``wedge@step=2:ms=500`` (V4). The stall lands inside the third call's
+    ``step/dispatch`` region: that region less 500 ms lies within 10% of the
+    other steps' regions (their own spread is tens of ms, so a fixed "500 ms
+    over the median" would test the host's noise), and the goodput ledger
+    attributes 500 ms (to 50 ms) to ``wedged``."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    timeline = os.path.join(V_DIR, "wedge_timeline.json")
+    with _env(SMP_CHAOS=f"wedge@step=2:ms={V_WEDGE_MS}", SMP_TIMELINE_PATH=timeline, SMP_GOODPUT="1"):
+        model, optimizer, train_step = _lm_setup(init_state, True, "cuda")
+        _v_calls(model, optimizer, train_step, ids, 4)
+        injected = [(s["labels"], s["value"]) for s in smp.telemetry.report()["metrics"]
+                    .get("smp_chaos_injected_total", {}).get("series", [])]
+        led = smp.goodput.ledger
+        wedged_ms = led.seconds(led._clock()).get("wedged", 0.0) * 1e3
+        del model, optimizer, train_step
+        smp.shutdown()
+    events = json.loads(open(timeline).read())["traceEvents"]
+    dispatch = [e["dur"] / 1e3 for e in events if e.get("name") == "smp_phase/step/dispatch" and "dur" in e]
+    others = [ms for i, ms in enumerate(dispatch) if i != 2]
+    log(f"[V4] wedge@step=2:ms={V_WEDGE_MS}: step/dispatch regions {[round(x, 2) for x in dispatch]} ms (the third "
+        f"less {V_WEDGE_MS}: {dispatch[2] - V_WEDGE_MS if len(dispatch) == 4 else None}); goodput `wedged` "
+        f"{wedged_ms:.1f} ms; smp_chaos_injected_total {injected}")
+    if len(dispatch) != 4 or not 0.9 * min(others) <= dispatch[2] - V_WEDGE_MS <= 1.1 * max(others) \
+            or not V_WEDGE_MS <= wedged_ms <= V_WEDGE_MS + 50 or injected != [({"fault": "wedge"}, 1.0)]:
+        failures.append(f"V4 wedge: dispatch {dispatch} ms, wedged {wedged_ms} ms, injected {injected}")
+
+
+def _v4_preemption(init_state, ids, failures):
+    """The preemption pair, the sentinel file (V4)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    model, optimizer, train_step = _lm_setup(init_state, True, "cuda")
+    want = _v_calls(model, optimizer, train_step, ids, V_CALLS)
+    del model, optimizer, train_step
+    smp.reset()
+    torch.cuda.empty_cache()
+    out = {}
+    for kind, env in (("preempt", {"SMP_CHAOS": "sigterm@step=3", "SMP_SUPERVISOR": "on"}),
+                      ("file", {"SMP_PREEMPTION_FILE": os.path.join(V_DIR, "preempt_now")})):
+        root = os.path.join(V_DIR, f"emergency_{kind}")
+        touch = (lambda: open(env["SMP_PREEMPTION_FILE"], "w").close()) if kind == "file" else None
+        lines, wall = _v_child(kind, root, {**env, "SMP_EMERGENCY_CKPT_PATH": root}, ready=touch)
+        losses = [float(x) for x in _v_tagged(lines, "V_LOSS")]
+        saves = [json.loads(x) for x in _v_tagged(lines, "V_SAVE")]
+        newest = open(os.path.join(root, "newest")).read().strip() if os.path.exists(
+            os.path.join(root, "newest")) else None
+        ckpt_dir = os.path.join(root, f"{newest}_partial")
+        committed = newest is not None and os.path.exists(os.path.join(ckpt_dir, ".committed"))
+        nbytes = _dir_bytes(ckpt_dir) if committed else 0
+        out[kind] = dict(seconds=saves[-1]["seconds"] if saves else None, bytes=nbytes)
+        log(f"[V4] {kind}: exit 0 after {len(losses)} printed losses (bit-equal to the uninterrupted run's "
+            f"first ones: {losses == want[:len(losses)]}); emergency checkpoint {newest} committed {committed}, "
+            f"{nbytes / 2**20:.1f} MiB, saved in {out[kind]['seconds']} s, user_content "
+            f"{saves[-1]['user'] if saves else None}; child {wall:.1f} s")
+        reason = "sigterm" if kind == "preempt" else "sentinel_file"
+        if newest != "preempt_step_3" or not committed or losses != want[:2] or not saves \
+                or saves[-1]["user"] != {"preemption_reason": reason, "step_count": 3}:
+            failures.append(f"V4 {kind}: newest {newest}, committed {committed}, losses {losses}, saves {saves}")
+        probe = subprocess.run([sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                                             "resilience_probe.py"), root],
+                               capture_output=True, text=True, timeout=120)
+        log(f"[V4] resilience_probe.py {os.path.basename(root)}: exit {probe.returncode}; "
+            + " | ".join(ln.strip() for ln in probe.stdout.splitlines()[:3]))
+        if probe.returncode != 0:
+            failures.append(f"V4 {kind}: resilience_probe.py exit {probe.returncode}: {probe.stdout[-500:]}")
+    lines, wall = _v_child("resume", os.path.join(V_DIR, "emergency_preempt"), {})
+    res = json.loads(_v_tagged(lines, "V_CHILD")[-1])
+    log(f"[V4] resume: user_content {res['user']}, step_count {res['step_count']}, losses {res['losses']} against "
+        f"the uninterrupted run's calls 3-5 {want[2:5]} (the third call's update was not applied before the save, "
+        f"so the resumed run repeats it): bit-equal {res['losses'] == want[2:5]}; child {wall:.1f} s")
+    if res["losses"] != want[2:5] or res["step_count"] != 3:
+        failures.append(f"V4 resume: losses {res['losses']} != {want[2:5]}, step_count {res['step_count']}")
+    return out
+
+
+def _v4_burst(failures):
+    """Phase S's burst with the fleet plane on, its scrape endpoint fetched
+    during the burst; then ``corrupt_weights`` on an ``adopt_params`` (V4)."""
+    import threading
+    import urllib.request
+
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m, init_gpt2_weights_
+    from smdistributed_modelparallel_tpu_torch.serving import ServingEngine
+    from smdistributed_modelparallel_tpu_torch.utils.fleet import fleet
+
+    def engine_of():
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        module = init_gpt2_weights_(gpt2_124m(device="cuda"), g)
+        engine = ServingEngine(smp.DistributedModel(module, device="cuda"), max_slots=S_SLOTS, num_blocks=S_BLOCKS)
+        engine.run(s_requests(module.vocab_size, n=2, n_sampled=1, prompt=(40, 40), new=(4, 4), seed=SEED + 2,
+                              prefix="warm"))
+        return engine, module
+
+    reqs = None
+    if _S_BF16:
+        off, src = _S_BF16["results"], "phase S"
+    else:
+        smp.init({"bf16": True})
+        engine, module = engine_of()
+        reqs = s_requests(module.vocab_size)
+        off, src = engine.run(reqs), "an off run"
+        del engine, module
+        smp.reset()
+    serve_dir = os.path.join(V_DIR, "serve")
+    os.makedirs(serve_dir)
+    fleet_path = os.path.join(V_DIR, "fleet.jsonl")
+    with _env(SMP_FLEET_INTERVAL=V_FLEET_INTERVAL, SMP_METRICS_PORT="0", SMP_FLEET_PATH=fleet_path,
+              SMP_TELEMETRY_PATH=os.path.join(serve_dir, "telemetry.json")):
+        smp.init({"bf16": True})
+        engine, module = engine_of()
+        reqs = reqs or s_requests(module.vocab_size)
+        port = fleet.plane.bound_port
+        scraped = {}
+
+        def scrape():  # once the burst is under way
+            deadline = time.monotonic() + 60
+            while not engine.busy and time.monotonic() < deadline:
+                time.sleep(0.002)
+            for route in ("/metrics", "/metrics.json", "/fleet"):
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=30) as resp:
+                    scraped[route] = (resp.status, engine.busy)
+
+        fetcher = threading.Thread(target=scrape)
+        t0 = time.perf_counter()
+        fetcher.start()
+        results = engine.run(reqs)
+        wall = time.perf_counter() - t0
+        fetcher.join(timeout=60)
+        time.sleep(float(V_FLEET_INTERVAL) + 0.05)
+        fleet.tick()  # a window past the burst: the report holds every observation
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/fleet", timeout=30) as resp:
+            report = json.loads(resp.read())
+        # corrupt_weights on an adoption of the same weights.
+        sd = {k: v.detach().clone() for k, v in module.state_dict().items()}
+        with _env(SMP_CHAOS="corrupt_weights@version=1"):
+            engine.adopt_params(sd, version=1)
+        adopted = engine.decode_mod.state_dict()
+        bad = [k for k, v in sd.items() if v.is_floating_point() and not torch.equal(
+            adopted[k], (v * 1.01 + 0.01).to(adopted[k].dtype))]
+        injected = [(s["labels"], s["value"]) for s in smp.telemetry.report()["metrics"]
+                    .get("smp_chaos_injected_total", {}).get("series", [])]
+        engine.close()
+        smp.shutdown()
+    windows = [json.loads(x) for x in open(fleet_path).read().splitlines()]
+    equal = {r.request_id: results[r.request_id] for r in reqs} == {r.request_id: off[r.request_id] for r in reqs}
+    log(f"[V4] burst with the fleet plane on ({V_FLEET_INTERVAL} s, port {port}): {wall * 1e3:.1f} ms, "
+        f"{sum(len(v) for v in results.values())} tokens; tokens equal to {src}'s: {equal}; scraped during the "
+        f"burst (status, engine busy): {scraped}; {len(windows)} fleet windows (seq "
+        f"{[w['seq'] for w in windows]}, resync {[w['resync'] for w in windows]})")
+    if not equal or set(scraped) != {"/metrics", "/metrics.json", "/fleet"} or any(
+            st != 200 or not busy for st, busy in scraped.values()) or not windows:
+        failures.append(f"V4 burst: tokens equal {equal}, scraped {scraped}, windows {len(windows)}")
+    # The fleet report's percentiles against telemetry_report.py's offline merge of the rank's dump.
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    offline = subprocess.run(
+        [sys.executable, "-c",
+         "import json, sys; sys.path.insert(0, sys.argv[1]); import telemetry_report as t\n"
+         "m = t._merge_fallback(t.load_rank_dumps(sys.argv[2]))\n"
+         "out = {}\n"
+         "for s in m['metrics']['smp_serve_latency_seconds']['series']:\n"
+         "    out[s['labels']['kind']] = {f'p{int(q * 100)}_s': t._quantile_from_counts(s['buckets'], s['counts'], q)"
+         " for q in (0.5, 0.9, 0.99)}\n"
+         "print(json.dumps(out))", scripts, serve_dir], capture_output=True, text=True, timeout=120)
+    cli = subprocess.run([sys.executable, os.path.join(scripts, "telemetry_report.py"), serve_dir],
+                         capture_output=True, text=True, timeout=120)
+    merged = json.loads(offline.stdout) if offline.returncode == 0 else {}
+    fleet_pct = {k: {s: v[s] for s in ("p50_s", "p90_s", "p99_s")} for k, v in report["percentiles"].items()
+                 if k in ("ttft", "itl")}
+    log(f"[V4] fleet report percentiles {fleet_pct}; telemetry_report.py --dir merge "
+        f"{ {k: merged.get(k) for k in fleet_pct} }; telemetry_report.py exit {cli.returncode}")
+    if not fleet_pct or any(merged.get(k) != v for k, v in fleet_pct.items()) or cli.returncode != 0:
+        failures.append(f"V4 burst: fleet percentiles {fleet_pct} vs offline {merged}, report exit {cli.returncode}")
+    log(f"[V4] corrupt_weights@version=1 on adopt_params: every float leaf x * 1.01 + 0.01: {not bad}; "
+        f"smp_chaos_injected_total {injected}")
+    if bad or injected != [({"fault": "corrupt_weights"}, 1.0)]:
+        failures.append(f"V4 corrupt_weights: {bad[:5]}, {injected}")
+
+
+def phase_v():
+    """V1-V4 (see the module docstring); returns V1's launches of the
+    sentinel's kernel and the numbers PERF.md keeps."""
+    import shutil
+
+    shutil.rmtree(V_DIR, ignore_errors=True)
+    os.makedirs(V_DIR)
+    try:
+        return _phase_v()
+    finally:
+        shutil.rmtree(V_DIR, ignore_errors=True)
+
+
+def _phase_v():
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    t_phase = time.perf_counter()
+    smp.reset()  # a clean monitor, registry and listener
+    failures = []
+    init_state, ids = _v_init()
+    t = time.perf_counter()
+    launches, numbers = _v1(init_state, ids, failures)
+    log(f"[V] V1 {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    numbers["bisect_s"] = _v2(init_state, ids, failures)
+    log(f"[V] V2 {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _v3(failures)
+    log(f"[V] V3 {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _v4_wedge(init_state, ids, failures)
+    numbers["save"] = _v4_preemption(init_state, ids, failures)
+    log(f"[V] V4 preemption and wedge {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _v4_burst(failures)
+    log(f"[V] V4 burst {time.perf_counter() - t:.1f} s")
+    log(f"[V] phase V {time.perf_counter() - t_phase:.1f} s; numbers {json.dumps(numbers)}")
+    if failures:
+        raise RuntimeError("phase V: " + "; ".join(failures))
+    return launches
+
+
 def _profile_report(label, prof, wall_ms, top):
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -5982,10 +6700,12 @@ def phase_p():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, K, H, E, O, B, C (the default, all sixteen), "
+                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, K, H, E, O, V, B, C (the default, all "
+             "seventeen), "
              "P (profiles) and N (phase R's ranks on two cards, over NCCL) and X (GPT-2 1.5B at 16 x 1024 with checkpointing off)")
     parser.add_argument("--k-child", metavar="DIR", help=argparse.SUPPRESS)  # phase K's resumed run
     parser.add_argument("--o-child", metavar="KIND:ON", help=argparse.SUPPRESS)  # phase O's runs
+    parser.add_argument("--v-child", metavar="KIND:DIR", help=argparse.SUPPRESS)  # phase V's runs
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -5996,6 +6716,8 @@ def main():
     if args.k_child:
         phase_k_child(args.k_child)
         return 0
+    if args.v_child:
+        return phase_v_child(args.v_child)
     if args.o_child:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -6014,7 +6736,7 @@ def main():
     log(f"[time] build {time.perf_counter() - started:.1f} s")
     serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches = {}, {}, {}, {}, {}, {}
     k_launches, d_launches, m_launches, s_launches, g_launches, h_launches = {}, {}, {}, {}, {}, {}
-    e_launches, o_launches = {}, {}
+    e_launches, o_launches, v_launches = {}, {}, {}
     errs = timing = None
     if "A" in args.phases:
         serve_launches = phase_a()
@@ -6048,6 +6770,8 @@ def main():
         e_launches = phase_e()
     if "O" in args.phases:
         o_launches = phase_o()
+    if "V" in args.phases:
+        v_launches = phase_v()
     if "B" in args.phases:
         errs = phase_b()
     if "C" in args.phases:
@@ -6069,10 +6793,11 @@ def main():
     # the HF models through smp.from_hf (H: H1's training and generation, H2's
     # bf16 forwards) and the encoder-decoder and MoE paths (E: E1's training,
     # generation and checkpointed steps, E2's T5 training, E3's MoE training
-    # and decoding, E4's forward) and the observability runs (O: O1's 20
-    # steps with every variable on), each counted from 0 just before it.
+    # and decoding, E4's forward), the observability runs (O: O1's 20
+    # steps with every variable on) and the sentinel's runs (V: V1's cheap
+    # and full blocks), each counted from 0 just before it.
     paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches, k_launches,
-             d_launches, m_launches, s_launches, g_launches, h_launches, e_launches, o_launches)
+             d_launches, m_launches, s_launches, g_launches, h_launches, e_launches, o_launches, v_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"
@@ -6107,6 +6832,10 @@ def main():
         dict(name=name, route="cuda", source=src + "dropout.cu", replaces="XLA's threefry and select (no Pallas kernel)",
              launches=launches[name], max_abs_err=new_err[name], **timing[name])
         for name in ("threefry_bits", "dropout_fwd", "dropout_bwd")
+    ] + [  # no Pallas kernel: XLA fuses the sentinel's reduces into the step program; phase B's sweep, times at V1's step
+        dict(name="health_reduce", route="cuda", source=src + "health_reduce.cu",
+             replaces="XLA's fused sentinel reduce (no Pallas kernel)", launches=launches["health_reduce"],
+             max_abs_err=new_err["health_reduce"], **timing["health_reduce"])
     ]
     log(smi)
     log(json.dumps({"kernels": kernels}))

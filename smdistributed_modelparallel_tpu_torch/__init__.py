@@ -46,7 +46,14 @@ metrics registry: ``report()``, ``render_prometheus()``, the JSON dump to
 ``smp.goodput`` (wall-clock attribution), ``smp.profiling`` (named regions,
 ``SMP_PROFILE`` capture with ``torch.profiler``, the roofline), the session
 timeline (``SMP_TIMELINE_PATH``), the serving time series
-(``SMP_TIMESERIES_INTERVAL``), and ``smp.shutdown()``, which writes the dumps.
+(``SMP_TIMESERIES_INTERVAL``), ``smp.fleet`` (the fleet metrics plane and its
+scrape endpoint, ``SMP_FLEET_INTERVAL``), and ``smp.shutdown()``, which
+writes the dumps. Resilience: ``smp.health`` (the numerics sentinel,
+``SMP_HEALTH_CHECK``, whose reduction is the ``csrc/health_reduce.cu`` kernel,
+and the OOM post-mortem), ``smp.resilience`` (preemption's emergency
+checkpoint on SIGTERM or ``SMP_PREEMPTION_FILE``, the ``SMP_CHAOS`` fault
+injector) and ``smp.supervisor`` (``SMP_SUPERVISOR``; at one rank it arms no
+detector).
 
     import torch
     import smdistributed_modelparallel_tpu_torch as smp
@@ -100,7 +107,10 @@ from smdistributed_modelparallel_tpu_torch.nn.huggingface import from_hf
 from smdistributed_modelparallel_tpu_torch.nn.tp_registry import tp_register, tp_register_with_module
 from smdistributed_modelparallel_tpu_torch.optimizer import DistributedOptimizer
 from smdistributed_modelparallel_tpu_torch.step import step
-from smdistributed_modelparallel_tpu_torch.utils import profiling
+from smdistributed_modelparallel_tpu_torch import resilience
+from smdistributed_modelparallel_tpu_torch.resilience.supervisor import supervisor
+from smdistributed_modelparallel_tpu_torch.utils import health, profiling
+from smdistributed_modelparallel_tpu_torch.utils.fleet import fleet
 from smdistributed_modelparallel_tpu_torch.utils.data import dataloader, prefetch_to_device, shard_batches
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     NotInitializedError,
@@ -111,7 +121,10 @@ from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
 )
 from smdistributed_modelparallel_tpu_torch.utils.flight_recorder import flight_recorder
 from smdistributed_modelparallel_tpu_torch.utils.goodput import goodput
+from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
 from smdistributed_modelparallel_tpu_torch.utils.telemetry import telemetry, watchdog
+
+logger = get_logger()
 
 
 def init(config=None, device=None):
@@ -169,10 +182,17 @@ def get_cp_group():
 
 
 def shutdown():
-    """End the session: stop the goodput ledger, close an open profiler
-    capture, flush the timeline, dump the telemetry and the flight recorder
-    (where their paths are set), then reset. Also runs at interpreter exit
-    while the framework is initialized (without the reset)."""
+    """End the session: decode the health sentinel's pending word, stop the
+    goodput ledger and the fleet plane, close an open profiler capture,
+    flush the timeline, dump the telemetry and the flight recorder (where
+    their paths are set), then reset. Also runs at interpreter exit while
+    the framework is initialized (without the reset)."""
+    # Cheap mode decodes one step behind: a run whose final step went
+    # non-finite still says so (utils/health.py).
+    try:
+        health.monitor.flush()
+    except Exception as e:
+        logger.warning("health monitor flush failed: %s", e)
     state.shutdown()
     state.reset()
 
@@ -335,7 +355,9 @@ __all__ = [
     "generate",
     "get_cp_group",
     "get_partition",
+    "fleet",
     "goodput",
+    "health",
     "init",
     "is_initialized",
     "load",
@@ -348,6 +370,7 @@ __all__ = [
     "quant",
     "rank",
     "reset",
+    "resilience",
     "resume_from_checkpoint",
     "save",
     "save_checkpoint",
@@ -359,6 +382,7 @@ __all__ = [
     "shutdown",
     "size",
     "step",
+    "supervisor",
     "telemetry",
     "tensor_parallelism",
     "tp_register",

@@ -48,6 +48,14 @@ sequences and computes as at cp = 1.
 ``smp.set_partition`` and their contexts fill (after ``smp.init``, before the
 model is built); ``smp.init`` and ``smp.reset`` clear it.
 
+Resilience. ``smp.init`` installs the preemption listener (SIGTERM, on the
+main thread), starts the supervisor and the fleet metrics plane; ``shutdown``
+stops the plane after the goodput ledger's final publish; ``smp.reset`` puts
+SIGTERM's previous handler back and clears the health monitor, the chaos
+rules and the supervisor (``resilience/``, ``utils/health.py``,
+``utils/fleet.py``). ``bus`` is the multi-process host bus they talk over,
+None until the native bus of ROADMAP item 5.
+
 Observability. ``smp.init`` walks the telemetry phases of the JAX package's
 core (``init/distributed``, ``init/topology`` under the watchdog's guard,
 ``initialized``), gives the registry this rank and the world size (the dump
@@ -162,6 +170,7 @@ class ModelParallelState:
             self._atexit_registered = True
         self.timeline = Timeline()
         self.memory_metrics = StepMemoryMetricsCollector()
+        _start_resilience()
         # Wall-clock attribution ledger (SMP_GOODPUT and friends): chains
         # onto the set_phase listener, so it arms after telemetry exists.
         goodput.start()
@@ -187,6 +196,14 @@ class ModelParallelState:
             goodput.stop()
         except Exception as e:
             logger.warning("goodput ledger stop failed: %s", e)
+        from smdistributed_modelparallel_tpu_torch.utils.fleet import fleet
+
+        # The fleet plane's final window comes after the goodput ledger's
+        # final publish, and its scrape server is gone before the dumps.
+        try:
+            fleet.stop()
+        except Exception as e:
+            logger.warning("fleet metrics plane stop failed: %s", e)
         if not self.exit_status():
             logger.error(
                 "process %d shutting down after failure (exit_code=%r, exception=%r)",
@@ -207,13 +224,22 @@ class ModelParallelState:
         self.cfg = None
 
     def reset(self):
-        """Drop the session and clear the observability state: the
-        registry, the flight recorder's ring, the goodput ledger and the
-        profiler capture."""
+        """Drop the session and clear the observability and resilience
+        state: the registry, the flight recorder's ring, the goodput ledger,
+        the fleet plane, the health monitor, the profiler capture, the
+        preemption listener (SIGTERM gets its previous handler back), the
+        supervisor and the chaos rules."""
+        from smdistributed_modelparallel_tpu_torch.resilience import reset as resilience_reset
+        from smdistributed_modelparallel_tpu_torch.utils import health
+        from smdistributed_modelparallel_tpu_torch.utils.fleet import fleet
+
         goodput.reset()
+        fleet.reset()
         telemetry.reset()
         flight_recorder.clear()
+        health.reset()
         profiling.capture.reset()
+        resilience_reset()
         self._clear()
 
     def _clear(self):
@@ -237,6 +263,10 @@ class ModelParallelState:
         self.tp_registry = None
         self.timeline = None  # utils/timeline.Timeline (SMP_TIMELINE_PATH)
         self.memory_metrics = None  # utils/metrics.StepMemoryMetricsCollector
+        # The multi-process host bus the resilience modules and the fleet
+        # plane talk over (poll/send_bytes/recv_bytes/barrier, ...): the
+        # native bus of ROADMAP item 5. None: one process, or no bus yet.
+        self.bus = None
 
     def check(self):
         if self.cfg is None:
@@ -253,6 +283,20 @@ class ModelParallelState:
         if not self.cp_sharded:
             return 0
         return self.topology.cp_rank(self.rank) * local_len
+
+
+def _start_resilience():
+    """``smp.init``'s resilience bring-up, in the JAX package's order: the
+    SIGTERM listener (main thread only), the failure-recovery supervisor
+    (``SMP_SUPERVISOR``) and the fleet metrics plane (``SMP_FLEET_INTERVAL``),
+    which reads the supervisor's liveness verdicts."""
+    from smdistributed_modelparallel_tpu_torch.resilience.preemption import preemption
+    from smdistributed_modelparallel_tpu_torch.resilience.supervisor import supervisor
+    from smdistributed_modelparallel_tpu_torch.utils.fleet import fleet
+
+    preemption.install()
+    supervisor.start()
+    fleet.start()
 
 
 def _build_groups(topology, world, rank, device):

@@ -42,7 +42,10 @@ and a resume are attributed ``ckpt_save`` / ``ckpt_restore`` by the goodput
 ledger (``utils/goodput.py``), as in the JAX package; the executable cache's
 warm-start note waits for the executable cache (the AOT store). Unlike the JAX package, whose recovery
 supervisor restores the step edge, ``resume_from_checkpoint`` sets
-``state.step_count`` from the checkpoint itself.
+``state.step_count`` from the checkpoint itself. The JAX package's elastic
+resume consults ``supervisor._recovering`` only to leave that warm-start
+note to a recovery; with no executable cache the port has nothing to count
+there, at a recovery or not.
 """
 
 import glob

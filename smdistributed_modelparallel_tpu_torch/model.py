@@ -147,6 +147,7 @@ class DistributedModel:
         self._params_at_step = None
         self._dropped_updates = 0
         self._program_ticked = False  # the JAX package's lazy init has been traced (replay_program_ticks)
+        self._health_leaf_groups = None  # the sentinel's JAX leaves (health.jax_leaf_groups)
         self._to_reference, self._from_reference = _reference_layout(self.module)
         state.model = self
         if state.loaded_model_state is not None:

@@ -33,6 +33,12 @@ reference-keyed flat dict or a shard payload. Another optimizer trains, but
 saving or loading it in that layout raises ``SMPValidationError``. A
 checkpoint that ``smp.resume_from_checkpoint`` read before the optimizer
 existed is applied when it is built.
+
+Under ``SMP_HEALTH_CHECK`` a step that updates records the gradient,
+parameter and update norm gauges (``health.record_update_stats``; every 16th
+step in ``cheap``, with an asynchronous readback, every step in ``full``).
+The update norm needs the parameters from before the in-place update: on
+those steps only, a copy of them is kept across the update.
 """
 
 import collections
@@ -48,7 +54,7 @@ from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     StepUsageError,
 )
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
-from smdistributed_modelparallel_tpu_torch.utils import profiling
+from smdistributed_modelparallel_tpu_torch.utils import health, profiling
 
 logger = get_logger()
 
@@ -135,17 +141,28 @@ class DistributedOptimizer:
             if scaler is not None:
                 scaler.update(True)
             return
+        consumed = grads
         if self.grad_clip_norm is not None:
             gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
             scale = torch.clamp(self.grad_clip_norm / (gnorm + 1e-6), max=1.0)
             grads = {n: g * scale.to(g.dtype) for n, g in grads.items()}
         params = dict(model.module.named_parameters())
+        # The update-ratio gauge needs the pre-update parameters, which the
+        # in-place update overwrites: a snapshot on the sampled steps only,
+        # as the JAX package's fused step retains its input tree (not under
+        # fused_step_donation, which donates it).
+        old = None
+        if health.enabled() and health.update_stats_due() and state.cfg.fused_optimizer_step \
+                and not state.cfg.fused_step_donation:
+            old = [p.detach().clone() for p in params.values()]
         for name, g in grads.items():
             params[name].grad = g
         self.optimizer.step()
         for name in grads:
             params[name].grad = None
         model._param_version += 1
+        if health.enabled():
+            health.record_update_stats(model, old, list(params.values()), grads=list(consumed.values()))
         if scaler is not None:
             scaler.update(False)
 

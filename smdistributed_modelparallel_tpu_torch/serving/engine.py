@@ -52,12 +52,17 @@ and the metrics time series (``SMP_TIMESERIES_INTERVAL`` > 0:
 ``utils/timeseries.MetricsTimeSeries``, polled from every tick, with a daemon
 thread for idle gaps that ``close()`` stops).
 
-Left out, each refused at construction: the chaos harness, the fleet metrics
-plane, the executable cache, the compiled-program audit and the serving
-control plane, and the environment variables that arm them (the fleet and
-chaos come with slice 9b, the others with their own slices), and more than
-one rank (tp, pp or cp > 1; ``replica.py``, ``router.py`` and
-``controller.py`` come with slice 3).
+**Resilience**, as in the JAX engine: the chaos harness's serving seams
+(``SMP_CHAOS``: ``chaos.on_serve_decode`` at every tick's decode boundary,
+``chaos.on_weight_update`` in ``adopt_params``) and the fleet metrics plane's
+inline tick (``fleet.tick()`` every tick; ``smp.init`` starts the plane
+under ``SMP_FLEET_INTERVAL`` > 0).
+
+Left out, each refused at construction: the executable cache, the
+compiled-program audit and the serving control plane, and the environment
+variables that arm them (each with its own slice), and more than one rank
+(tp, pp or cp > 1; ``replica.py``, ``router.py`` and ``controller.py`` come
+with slice 3).
 """
 
 import collections
@@ -81,9 +86,11 @@ from smdistributed_modelparallel_tpu_torch.serving.kv_cache import (
     prefill_chunk_tokens,
     serve_slots,
 )
-from smdistributed_modelparallel_tpu_torch.step import _env_on, _env_set
+from smdistributed_modelparallel_tpu_torch.resilience.chaos import chaos
+from smdistributed_modelparallel_tpu_torch.step import _env_on
 from smdistributed_modelparallel_tpu_torch.utils import profiling, random
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
+from smdistributed_modelparallel_tpu_torch.utils.fleet import fleet
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
 from smdistributed_modelparallel_tpu_torch.utils.telemetry import (
     record_quant_dispatch,
@@ -100,16 +107,6 @@ from smdistributed_modelparallel_tpu_torch.utils.timeseries import MetricsTimeSe
 logger = get_logger()
 
 
-def _env_positive(name):
-    """An interval variable asks for its subsystem when it is > 0. A value
-    that is not a number also counts as asking, so it is refused rather than
-    read and ignored (the JAX package warns and leaves the subsystem off)."""
-    try:
-        return float(os.environ.get(name, "") or 0.0) > 0.0
-    except ValueError:
-        return True
-
-
 def _env_truthy(name):
     # The JAX controller's arming set (``serving/controller._TRUTHY``), which
     # takes "yes" where ``step._env_on`` does not.
@@ -118,8 +115,6 @@ def _env_truthy(name):
 
 # (environment variable, what it arms in the JAX package's engine, whether it asks).
 _LEFT_OUT_ENV = (
-    ("SMP_FLEET_INTERVAL", "the fleet metrics plane", _env_positive),
-    ("SMP_CHAOS", "the chaos harness", _env_set),
     ("SMP_EXEC_CACHE", "the executable cache", _env_on),
     ("SMP_HLO_AUDIT", "the compiled-program audit", _env_on),
     ("SMP_AUTOSCALE", "the serving control plane", _env_truthy),
@@ -368,6 +363,7 @@ class ServingEngine:
         self._occupancy_snap = None
         self.results = {}
         self.finished = set()
+        self._admit_order = []   # rids in admission order (chaos seam)
         self._arrival_s = {}     # rid -> effective arrival (engine clock)
         self.last_tick_worked = True
         self.mirror_log = {}     # rid -> restartable record
@@ -534,6 +530,8 @@ class ServingEngine:
                 "idle first."
             )
         t0 = time.perf_counter()
+        new_version = int(version) if version is not None else self.weights_version + 1
+        params = chaos.on_weight_update(new_version, params)
         if self.qparams is not None:
             # Quantized before the comparison, as in the JAX engine: the
             # resident tree is the int8 layout.
@@ -550,7 +548,7 @@ class ServingEngine:
         with torch.no_grad():
             for name, value in params.items():
                 target[name].copy_(value)
-        self.weights_version = int(version) if version is not None else self.weights_version + 1
+        self.weights_version = new_version
         seconds = time.perf_counter() - t0
         # No program is rebuilt: no fresh compile, ever (the zero-recompile
         # contract the JAX engine counts).
@@ -754,6 +752,7 @@ class ServingEngine:
                 t_arrival=arrival, t_admit=now, idx=idx,
             )
             self._slots[idx] = slot
+            self._admit_order.append(req.request_id)
             self._mirror(req, slot.all_tokens, done=False)
             record_serve_request("admitted")
             record_serve_latency("queue_wait", max(now - arrival, 0.0))
@@ -918,6 +917,19 @@ class ServingEngine:
             block_bytes=self.kv_block_bytes,
         )
 
+    def _progress_of_admitted(self, n):
+        """Chaos probe: (tokens emitted, finished?) of the n-th admitted
+        request (1-based), or None when fewer than n were admitted."""
+        if n < 1 or n > len(self._admit_order):
+            return None
+        rid = self._admit_order[n - 1]
+        if rid in self.finished:
+            return (len(self.results[rid]), True)
+        for s in self._slots:
+            if s is not None and s.sid == rid:
+                return (len(s.all_tokens), False)
+        return (0, False)
+
     def step(self):
         """One engine tick: admit arrivals into free slots, run one batched
         decode step, run one prefill chunk. Returns True while work remains;
@@ -926,10 +938,15 @@ class ServingEngine:
         now = self._now()
         worked = bool(self._admit(now))
         worked = self._decode_step() or worked
+        chaos.on_serve_decode(self._progress_of_admitted)
         worked = self._prefill_tick() or worked
         self._publish_occupancy()
         if self.timeseries is not None:
             self.timeseries.maybe_sample()
+        # The fleet publisher/aggregator ticks inline too, so a busy decode
+        # loop keeps the fleet feed fresh (a no-op while SMP_FLEET_INTERVAL
+        # is off).
+        fleet.tick()
         self.last_tick_worked = worked
         return self.busy
 

@@ -101,15 +101,29 @@ fp8 dispatch counters the JAX package ticks while it traces are replayed on
 the first run of each step function and input shapes
 (``model.replay_program_ticks``).
 
+Resilience, as in the JAX step engine at world size 1:
+- the health sentinel (``SMP_HEALTH_CHECK``, ``utils/health.py``): the step
+  collects what the JAX step program tags (``params`` under ``full`` at the
+  step's start, ``loss`` and ``outputs`` a microbatch, ``grads`` after the
+  division), reduces them in one launch of the ``health_reduce`` kernel and
+  submits the word to ``health.monitor`` with a bisector over the step's
+  microbatch inputs, keys and dispatch-time parameters (the half casts the
+  step made, or under fp32 a clone of the parameters, which the optimizer
+  updates in place; held one step, while the sentinel is on). Under fp16 the
+  gradients' finiteness comes from the same kernel's count, one readback;
+- the OOM post-mortem: an out-of-memory error of the dispatch writes
+  ``health.oom_postmortem``'s dump and reaches the caller unchanged;
+- at the step edge, after the observability hooks and in the JAX package's
+  order: ``chaos.on_step_edge`` (``SMP_CHAOS``),
+  ``preemption.maybe_emergency_save`` (SIGTERM, ``SMP_PREEMPTION_FILE``) and,
+  when active, ``supervisor.on_step_edge`` (``SMP_SUPERVISOR``);
+  ``chaos.on_step_dispatch`` runs inside ``step/dispatch``.
+
 Not ported yet, each raising ``NotImplementedError`` when asked for:
 pipeline parallelism, tensor parallelism, data parallelism (rdp > 1),
 expert parallelism, ZeRO-3 (``sharded_params``), shape
 buckets (``SMP_SHAPE_BUCKETS``), the executable cache (``SMP_EXEC_CACHE``)
-and the compiled-program audit (``SMP_HLO_AUDIT``), and the resilience hooks
-of the step edge, which come with slice 9b: the health sentinel
-(``SMP_HEALTH_CHECK``, which rides inside the JAX step program), the chaos
-harness (``SMP_CHAOS``), preemption handling (``SMP_PREEMPTION_FILE``) and
-the failure-recovery supervisor (``SMP_SUPERVISOR``).
+and the compiled-program audit (``SMP_HLO_AUDIT``).
 """
 
 import contextlib
@@ -133,7 +147,10 @@ from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS
 from smdistributed_modelparallel_tpu_torch.model import DistributedModel, replay_program_ticks
 from smdistributed_modelparallel_tpu_torch.nn.utils import collect_program_ticks
-from smdistributed_modelparallel_tpu_torch.utils import profiling, random
+from smdistributed_modelparallel_tpu_torch.resilience.chaos import chaos
+from smdistributed_modelparallel_tpu_torch.resilience.preemption import preemption
+from smdistributed_modelparallel_tpu_torch.resilience.supervisor import supervisor
+from smdistributed_modelparallel_tpu_torch.utils import health, profiling, random
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError, StepUsageError
 from smdistributed_modelparallel_tpu_torch.utils.flight_recorder import flight_recorder
 from smdistributed_modelparallel_tpu_torch.utils.goodput import goodput
@@ -152,19 +169,11 @@ def _env_set(name):
     return bool(os.environ.get(name, "").strip())
 
 
-def _health_on(name):
-    return os.environ.get(name, "").strip().lower() not in ("", "0", "false", "off", "no", "none")
-
-
 # (environment variable, what it arms in the JAX package, whether it asks).
 _LEFT_OUT_ENV = (
     ("SMP_SHAPE_BUCKETS", "shape buckets", _env_set),
-    ("SMP_HEALTH_CHECK", "the health sentinel", _health_on),
     ("SMP_EXEC_CACHE", "the executable cache", _env_on),
     ("SMP_HLO_AUDIT", "the compiled-program audit", _env_on),
-    ("SMP_CHAOS", "the chaos harness", _env_set),
-    ("SMP_PREEMPTION_FILE", "preemption handling", _env_set),
-    ("SMP_SUPERVISOR", "the failure-recovery supervisor", _env_on),
 )
 
 
@@ -350,6 +359,16 @@ def _synchronize(device):
         torch.cuda.synchronize(device)
 
 
+def _jax_leaves(model, tensors):
+    """``tensors`` ({parameter name: tensor}) as the sentinel's leaves: one
+    ``health.Leaf`` a JAX leaf (a layer stack's per-layer tensors of one
+    flax parameter together), in the JAX package's sorted key order."""
+    groups = model._health_leaf_groups
+    if groups is None or set(tensors) - set(groups[1]):
+        groups = model._health_leaf_groups = health.jax_leaf_groups(model, list(tensors))
+    return [health.Leaf(tensors[n] for n in names if n in tensors) for names in groups[0]]
+
+
 class StepFunction:
     def __init__(self, fn, non_split_inputs=None, input_split_axes=None):
         self.fn = fn
@@ -389,8 +408,18 @@ class StepFunction:
         exact_time = profiling.should_sample_step(n)
         with (collect_program_ticks() if new_program else contextlib.nullcontext()) as notes, \
                 (tl.span(f"step_{n}") if timeline_on else contextlib.nullcontext()):
-            with profiling.region("step/dispatch"):
-                out = self._run(model, cfg, *stacked)
+            try:
+                with profiling.region("step/dispatch"):
+                    # Chaos seam: `wedge@step=N:ms=M` hangs here, inside the
+                    # dispatch region, before the microbatches run.
+                    chaos.on_step_dispatch(n)
+                    out = self._run(model, cfg, *stacked)
+            except RuntimeError as e:  # torch.OutOfMemoryError among them
+                # Out of memory: dump the live tensors, the allocator's
+                # statistics and the memory config before the error
+                # reaches the caller (utils/health.py).
+                health.maybe_oom_postmortem("step", None, e)
+                raise
             if exact_time:
                 # Roofline sample: wait for the device so the measured time
                 # covers the step's kernels. Without it the launch time is a
@@ -425,6 +454,14 @@ class StepFunction:
             state.memory_metrics.record_step(n)
         record_device_memory_telemetry()
         state.step_count += 1
+        # Step edge, in the JAX package's order: chaos faults land here, a
+        # pending preemption (SIGTERM, sentinel file) becomes the emergency
+        # checkpoint, and the supervisor's hook is one attribute test while
+        # SMP_SUPERVISOR is off.
+        chaos.on_step_edge(state.step_count)
+        preemption.maybe_emergency_save()
+        if supervisor.active:
+            supervisor.on_step_edge()
         return out
 
     def _run(self, model, cfg, stacked_args, stacked_kwargs):
@@ -440,6 +477,7 @@ class StepFunction:
 
         params = dict(model.module.named_parameters())
         half = cfg.half_dtype
+        hmode = health.mode()
         bound = {}
         for name, p in params.items():
             t = p.detach()
@@ -453,78 +491,128 @@ class StepFunction:
         names = [n for n, t in bound.items() if t.requires_grad]
         acc = None
         outs = []
+        losses = []  # the differentiated loss of each microbatch (the sentinel's "loss")
         weights = []  # this rank's share of each microbatch's loss over the cp group
         qs = quant.ensure_state(model.device) if quant.matmul_precision_mode(cfg) == "fp8" else None
         state.cp_sharded = group is not None
-        with quant.step_trace(qs), _cp_sharded_off():
-            for mb in range(num_mb):
-                mb_args, mb_kwargs = tree_map(
-                    lambda x: x.to(model.device) if isinstance(x, torch.Tensor) else x,
-                    (microbatch_slice(stacked_args, mb), microbatch_slice(stacked_kwargs, mb)),
-                )
-                model._begin_microbatch(bound, {s: random.fold_in(mb_keys[mb], h)
-                                                for h, s in enumerate(model.rng_streams)})
-                try:
-                    with torch.enable_grad() if self._has_backward is not False else torch.no_grad():
-                        out = self.fn(*mb_args, **mb_kwargs)
-                finally:
-                    loss, num_tokens, differentiated = model._end_microbatch()
-                weights.append(_loss_weight(group, num_tokens))
-                if self._has_backward is None:
-                    self._has_backward = loss is not None
-                if self._has_backward:
-                    if loss is None:
-                        raise StepUsageError("model.backward(loss) was not called in the step function.")
-                    # Under cp the loss is scaled by this rank's share before
-                    # the backward: the ring carries its cotangents to the
-                    # other ranks' k/v, whose gradients land there.
-                    scale = loss_scale * weights[-1] * (group.size if group is not None else 1)
-                    # The MoE load-balancing losses of this microbatch enter
-                    # its gradient (differentiated), not the returned loss.
-                    grads = torch.autograd.grad(
-                        differentiated * scale if scale != 1.0 else differentiated,
-                        [bound[n] for n in names], allow_unused=True,
+        with health.collecting(hmode) as hc:
+            with quant.step_trace(qs), _cp_sharded_off():
+                if hc is not None and hmode == "full":
+                    hc.add_tree("params", _jax_leaves(model, {n: p.detach() for n, p in params.items()}))
+                for mb in range(num_mb):
+                    mb_args, mb_kwargs = tree_map(
+                        lambda x: x.to(model.device) if isinstance(x, torch.Tensor) else x,
+                        (microbatch_slice(stacked_args, mb), microbatch_slice(stacked_kwargs, mb)),
                     )
-                    if acc is None:
-                        acc = {n: torch.zeros(params[n].shape, dtype=_acc_dtype(params[n].dtype, cfg),
-                                              device=params[n].device) for n in names}
-                    for n, g in zip(names, grads):
-                        if g is not None:
-                            acc[n].add_(g)
-                elif loss is not None:
-                    raise StepUsageError(
-                        "model.backward() called in a step function whose first run did not call it."
-                    )
-                outs.append(tree_map(
-                    lambda x: (_LossLeaf(x.detach()) if x is loss else x.detach()) if isinstance(x, torch.Tensor)
-                    else x, out))
-            if qs is not None:
-                qs.absorb(quant.finalize(qs))
+                    model._begin_microbatch(bound, {s: random.fold_in(mb_keys[mb], h)
+                                                    for h, s in enumerate(model.rng_streams)})
+                    try:
+                        with torch.enable_grad() if self._has_backward is not False else torch.no_grad():
+                            out = self.fn(*mb_args, **mb_kwargs)
+                    finally:
+                        loss, num_tokens, differentiated = model._end_microbatch()
+                    weights.append(_loss_weight(group, num_tokens))
+                    if self._has_backward is None:
+                        self._has_backward = loss is not None
+                    if self._has_backward:
+                        if loss is None:
+                            raise StepUsageError("model.backward(loss) was not called in the step function.")
+                        if hc is not None:
+                            # The JAX step's per-microbatch loss: the scaled
+                            # loss it differentiates, over the scale.
+                            d = differentiated.detach()
+                            losses.append(d * loss_scale / loss_scale if loss_scale != 1.0 else d)
+                        # Under cp the loss is scaled by this rank's share before
+                        # the backward: the ring carries its cotangents to the
+                        # other ranks' k/v, whose gradients land there.
+                        scale = loss_scale * weights[-1] * (group.size if group is not None else 1)
+                        # The MoE load-balancing losses of this microbatch enter
+                        # its gradient (differentiated), not the returned loss.
+                        grads = torch.autograd.grad(
+                            differentiated * scale if scale != 1.0 else differentiated,
+                            [bound[n] for n in names], allow_unused=True,
+                        )
+                        if acc is None:
+                            acc = {n: torch.zeros(params[n].shape, dtype=_acc_dtype(params[n].dtype, cfg),
+                                                  device=params[n].device) for n in names}
+                        for n, g in zip(names, grads):
+                            if g is not None:
+                                acc[n].add_(g)
+                    elif loss is not None:
+                        raise StepUsageError(
+                            "model.backward() called in a step function whose first run did not call it."
+                        )
+                    outs.append(tree_map(
+                        lambda x: (_LossLeaf(x.detach()) if x is loss else x.detach()) if isinstance(x, torch.Tensor)
+                        else x, out))
+                if qs is not None:
+                    qs.absorb(quant.finalize(qs))
+            stacked = _combine_over_cp(_stack_outputs(outs), group, torch.tensor(weights))
+            if hc is not None:
+                if losses:
+                    hc.add_stacked("loss", health.Leaf(losses), num_mb)
+                hc.add_stacked("outputs", tree_map(lambda x: x.value if isinstance(x, _LossLeaf) else x, stacked,
+                                                   is_leaf=lambda x: isinstance(x, _LossLeaf)), num_mb)
+            step_grads = self._finish_grads(model, cfg, group, params, names, acc, num_mb, loss_scale, stale) \
+                if self._has_backward else None
+            word = None
+            if hc is not None:
+                if step_grads is not None:
+                    hc.add_tree("grads", _jax_leaves(model, step_grads))
+                word, schema = hc.pack()
         state.step_rng = next_rng
+        if step_grads is not None and cfg.fp16:
+            # The overflow flag from the sentinel kernel's count: one launch
+            # (shared with the sentinel when it is on) and one readback.
+            if word is None or "grads" not in schema:
+                overflow = health.HealthCollector("cheap")
+                overflow.add_tree("grads", _jax_leaves(model, step_grads))
+                word, schema = overflow.pack()
+            model._grads_finite = word[schema.index("grads"), 0].item() == 0.0
+        if hc is not None and word is not None:
+            health.monitor.submit(state.step_count, word, schema, hmode,
+                                  self._bisector(model, cfg, bound, params, stacked_args, stacked_kwargs, rng)
+                                  if group is None else None)
+        return StepOutput(stacked)
 
-        if self._has_backward:
-            if stale:
-                model._dropped_updates += 1
-                if model._dropped_updates == 3:
-                    logger.warning(
-                        "3 training steps ran without optimizer.step(): "
-                        "parameter updates are computed and then "
-                        "discarded, so the model is NOT learning. Call "
-                        "optimizer.step() after each step."
-                    )
-            model._params_at_step = model._param_version
-            divisor = float(num_mb * loss_scale)
-            if group is not None:
-                group.flat_(group.all_reduce, [acc[n] for n in names])
-                divisor *= group.size
-            # In place: the accumulators become the gradients, so the step's end
-            # holds no second parameter-sized copy (GPT-2 1.5B: 5.8 GiB).
-            model._grads = {n: acc[n].div_(divisor).to(params[n].dtype) for n in names}
-            model._grads_finite = (
-                all(bool(torch.isfinite(g).all()) for g in model._grads.values())
-                if cfg.fp16 else None
-            )
-        return StepOutput(_combine_over_cp(_stack_outputs(outs), group, torch.tensor(weights)))
+    def _bisector(self, model, cfg, bound, params, stacked_args, stacked_kwargs, rng):
+        """The trip bisector of this step: its microbatch inputs, keys and
+        dispatch-time parameters (the half casts it made; under fp32 ``bound``
+        aliases the parameters the optimizer updates in place, so a clone)."""
+        if cfg.half_dtype is None:
+            bound = {n: t.detach().clone() for n, t in bound.items()}
+        else:
+            bound = {n: t.detach() for n, t in bound.items()}
+
+        def mb_args(mb):
+            return tree_map(lambda x: x.to(model.device) if isinstance(x, torch.Tensor) else x,
+                            (microbatch_slice(stacked_args, mb), microbatch_slice(stacked_kwargs, mb)))
+
+        return health.make_bisector(model, self.fn, mb_args, cfg.microbatches, rng, self._has_backward,
+                                    step_params=bound)
+
+    def _finish_grads(self, model, cfg, group, params, names, acc, num_mb, loss_scale, stale):
+        """The step's gradients: the microbatch sum over ``num_mb *
+        loss_scale`` (and the cp group), in the parameters' dtypes."""
+        if stale:
+            model._dropped_updates += 1
+            if model._dropped_updates == 3:
+                logger.warning(
+                    "3 training steps ran without optimizer.step(): "
+                    "parameter updates are computed and then "
+                    "discarded, so the model is NOT learning. Call "
+                    "optimizer.step() after each step."
+                )
+        model._params_at_step = model._param_version
+        divisor = float(num_mb * loss_scale)
+        if group is not None:
+            group.flat_(group.all_reduce, [acc[n] for n in names])
+            divisor *= group.size
+        # In place: the accumulators become the gradients, so the step's end
+        # holds no second parameter-sized copy (GPT-2 1.5B: 5.8 GiB).
+        model._grads = {n: acc[n].div_(divisor).to(params[n].dtype) for n in names}
+        model._grads_finite = None
+        return model._grads
 
 
 def step(fn=None, *, non_split_inputs=None, input_split_axes=None):

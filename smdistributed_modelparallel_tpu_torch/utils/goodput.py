@@ -30,9 +30,10 @@ state                   meaning
 
 The ledger is driven from seams — the telemetry ``set_phase`` listener
 (chained after the flight-recorder's), the step engine's edge hook, the
-kernel builds' compile events, and explicit scopes in ``checkpoint.py`` and
-``utils/data.py`` (the resilience scopes come with their slice) — and
-maintains
+kernel builds' compile events, and explicit scopes in ``checkpoint.py``,
+``utils/data.py`` and ``resilience/`` (``preempt_drain`` around an emergency
+save, ``wedged`` around an injected wedge, the supervisor's ``recovery_*``)
+— and maintains
 the invariant (tested under a fake clock) that attributed seconds sum
 to wall clock. It publishes ``smp_goodput_fraction`` plus the
 ``smp_goodput_seconds_total`` / ``smp_badput_seconds_total{state=}``

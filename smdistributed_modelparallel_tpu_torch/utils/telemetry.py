@@ -20,10 +20,13 @@ the port feed:
 Exports: ``smp.telemetry.report()`` (plain dict), ``render_prometheus()``
 (text exposition format), and a JSON dump — written on demand, at
 ``smp.shutdown``, and from an ``atexit`` hook — to ``SMP_TELEMETRY_PATH``.
-``scripts/telemetry_report.py`` pretty-prints the dump. The JAX package's
-recorders of the subsystems not ported yet (the collectives' accounting, the
-pipeline schedules, health, chaos, preemption, the supervisor, the
-executable cache, the serving controller) come with them.
+``scripts/telemetry_report.py`` pretty-prints the dump. The resilience
+recorders (``record_health_check``/``_trip``/``_fault``,
+``record_update_stats``, ``record_oom``, ``record_chaos``,
+``record_preemption``, ``record_failure_detected``, ``record_recovery``) are
+the JAX package's; those of the subsystems not ported yet (the collectives'
+accounting, the pipeline schedules, the executable cache, the serving
+controller) come with them.
 
 The **watchdog** (``SMP_WATCHDOG_TIMEOUT`` seconds; unset/0 = off) turns
 silent wedges into actionable dumps: when a guarded operation overruns the
@@ -684,6 +687,137 @@ def record_loss_scale(event, scale):
         "smp_loss_scale", "current fp16 loss scale"
     ).set(float(scale))
     _flight().record_health("loss_scale", event, value=float(scale))
+
+
+def record_update_stats(grad_norm, param_norm, update_norm):
+    """Optimizer-step norm gauges (health modes only; see utils/health.py).
+    ``update_ratio`` is ||new - old|| / ||new|| — the classic silent-LR
+    pathology signal (~1e-3 healthy; ~1 = divergence, ~0 = frozen)."""
+    if grad_norm is not None:
+        telemetry.gauge(
+            "smp_grad_norm", "global L2 norm of the last consumed gradients"
+        ).set(grad_norm)
+    telemetry.gauge(
+        "smp_param_norm", "global L2 norm of the parameters after the update"
+    ).set(param_norm)
+    if update_norm is not None:
+        telemetry.gauge(
+            "smp_update_norm", "global L2 norm of the last parameter update"
+        ).set(update_norm)
+        telemetry.gauge(
+            "smp_update_ratio",
+            "update-to-parameter norm ratio of the last optimizer step",
+        ).set(update_norm / (param_norm + 1e-12))
+
+
+def record_health_check(step, tags):
+    """One decoded health word: per-tag gauges + the checks counter."""
+    telemetry.counter(
+        "smp_health_checks_total", "health words decoded"
+    ).inc()
+    telemetry.gauge(
+        "smp_health_last_checked_step", "most recent step whose word was read"
+    ).set(step)
+    for name, d in tags.items():
+        telemetry.gauge(
+            "smp_health_bad_count", "non-finite elements per sentinel tag"
+        ).labels(tag=name).set(d["bad"])
+        telemetry.gauge(
+            "smp_health_absmax", "largest finite magnitude per sentinel tag"
+        ).labels(tag=name).set(d["absmax"])
+        telemetry.gauge(
+            "smp_health_first_microbatch",
+            "first microbatch with a non-finite value (-1 = none)",
+        ).labels(tag=name).set(d["microbatch"])
+
+
+def record_health_trip(tag, step, bad, absmax, microbatch):
+    telemetry.counter(
+        "smp_health_trips_total", "tripped sentinel tags"
+    ).labels(tag=tag).inc()
+    telemetry.gauge(
+        "smp_health_last_trip_step", "step of the most recent sentinel trip"
+    ).set(step)
+    _flight().record_health(
+        "trip", tag, step=step, value=bad, microbatch=microbatch
+    )
+
+
+def record_health_fault(layer, microbatch, tag, step):
+    """Bisection attribution: the first non-finite value's layer."""
+    telemetry.counter(
+        "smp_health_fault_total",
+        "bisection fault attributions (layer of the first non-finite value)",
+    ).labels(layer=str(layer), microbatch=str(microbatch), tag=tag).inc()
+    _flight().record_health(
+        "fault", str(layer), step=step, microbatch=microbatch
+    )
+
+
+def record_oom(name):
+    telemetry.counter(
+        "smp_oom_total", "RESOURCE_EXHAUSTED failures with a post-mortem dump"
+    ).labels(step=str(name)).inc()
+    _flight().record_health("oom", str(name))
+
+
+def record_preemption(event, step=-1, detail=""):
+    """Preemption lifecycle (resilience/preemption.py): ``requested`` when
+    the signal/sentinel fires, ``rendezvous``/``saved``/``failed`` along
+    the emergency-checkpoint path."""
+    telemetry.counter(
+        "smp_preemption_total", "preemption lifecycle events"
+    ).labels(event=event).inc()
+    _flight().record_preempt(event, step=step, detail=detail)
+
+
+def record_chaos(fault, detail=""):
+    """One injected fault (resilience/chaos.py) — counted and ring-recorded
+    so a post-mortem always shows which failures were synthetic."""
+    telemetry.counter(
+        "smp_chaos_injected_total", "chaos faults injected"
+    ).labels(fault=fault).inc()
+    _flight().record_chaos(fault, detail)
+
+
+def record_failure_detected(kind, peer, detail=""):
+    """One failure-detector classification (resilience/supervisor.py):
+    ``kind`` is dead / wedged / preempted (or flap_cleared when a peer
+    marked dead resumed beating before recovery began)."""
+    telemetry.counter(
+        "smp_failures_detected_total",
+        "peer failures classified by the heartbeat detector",
+    ).labels(kind=kind).inc()
+    _flight().record_supervisor(f"detect_{kind}", peer=peer, detail=detail)
+
+
+def record_recovery(mttr_s, phases=None, survivors=-1):
+    """One completed in-job recovery (resilience/supervisor.py):
+    ``mttr_s`` spans detection to the first trained step in the shrunken
+    world; ``phases`` optionally breaks it down (detect / rendezvous /
+    reshard_load / first_step seconds)."""
+    telemetry.counter(
+        "smp_recoveries_total", "completed in-job shrink-to-survivors recoveries"
+    ).inc()
+    telemetry.gauge(
+        "smp_recovery_seconds",
+        "MTTR of the last recovery (detection -> first step trained)",
+    ).set(float(mttr_s))
+    if survivors >= 0:
+        telemetry.gauge(
+            "smp_recovery_survivors", "world size after the last recovery"
+        ).set(int(survivors))
+    for phase, secs in (phases or {}).items():
+        telemetry.gauge(
+            "smp_recovery_phase_seconds",
+            "per-phase breakdown of the last recovery",
+        ).labels(phase=phase).set(float(secs))
+    _flight().record_supervisor(
+        "recovery_done",
+        detail=f"mttr={mttr_s:.3f}s " + " ".join(
+            f"{k}={v:.3f}" for k, v in (phases or {}).items()
+        ),
+    )
 
 
 def record_elastic_resume(n_layout, n_soft, detail=""):

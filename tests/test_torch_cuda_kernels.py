@@ -1120,3 +1120,17 @@ def test_dropout_step_on_card_matches_cpu(cuda):
     for name, want in g_cpu.items():
         torch.testing.assert_close(g_gpu[name], want, rtol=2e-3, atol=2e-4)
     assert n_gpu["dropout_fwd"] == n_gpu["dropout_bwd"] == 14
+
+
+@pytest.mark.cuda
+def test_health_reduce_matches_plain_version_bit_for_bit(cuda):
+    """chip_smoke's phase-B sweep of ``csrc/health_reduce.cu``: fp32, bf16
+    and fp16 leaves with NaN, +inf and -inf at the first, a middle and the
+    last element, a one-element leaf, 300 leaves, a stacked entry whose first
+    bad microbatch is 2 of 4, per-microbatch pieces and grouped leaves: the
+    word (counts, abs-max, first microbatch) equal to the plain version's,
+    and one launch a call."""
+    from chip_smoke import _phase_b_health
+
+    failures = []
+    assert _phase_b_health(failures) == {"health_reduce": 0.0} and failures == []

@@ -323,6 +323,12 @@ def test_refused_env_vars(monkeypatch, env, value, tmp_path):
     model, kw = _port_engine()
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv(env, value)
+    if env in ("SMP_FLEET_INTERVAL", "SMP_CHAOS"):
+        # Ported since (slice 9b): the engine ticks the fleet plane (which
+        # smp.init starts; a value that is not a number leaves it off) and
+        # calls the chaos seams (a rule without its step never fires).
+        assert ServingEngine(model, **kw).run([ServeRequest("a", [1, 2, 3], 2)])["a"]
+        return
     if env in ("SMP_TIMESERIES_INTERVAL", "SMP_TELEMETRY_PATH"):
         engine = ServingEngine(model, **kw)
         try:

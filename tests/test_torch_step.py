@@ -293,6 +293,54 @@ def test_fp16_overflow_skips_update_and_backs_off_as_jax():
     assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
+def test_fp16_inf_gradient_skips_update_and_backs_off_as_jax():
+    """An inf in one input row makes the step's fp16 gradients non-finite at a
+    loss scale that otherwise fits (2**8): the overflow flag, taken from the
+    sentinel kernel's count (``health_reduce``, one launch and one
+    readback), is False, ``optimizer.step()`` skips the update and halves
+    the scale, and the clean steps around it update, in both packages."""
+    x, y = _mlp_data()
+    x_bad = x.copy()
+    x_bad[5, 2] = np.inf
+    inputs = (x, x_bad, x)
+    jax_smp.init({"microbatches": 2, "fp16": True})
+    jax_state.loss_scaler = JaxDynamicLossScaler(init_scale=2.0 ** 8)
+    jmodel = jax_smp.DistributedModel(MLP())
+    jopt = jax_smp.DistributedOptimizer(optax.sgd(0.1), jmodel)
+
+    @jax_smp.step
+    def jax_step(model, xb, yb):
+        loss = jnp.mean(softmax_xent(model(xb), yb))
+        model.backward(loss)
+        return loss
+
+    want, init = [], None
+    for xb in inputs:
+        jax_step(jmodel, jnp.asarray(xb), jnp.asarray(y))
+        if init is None:
+            init = jax.tree_util.tree_map(np.asarray, jax.device_get(jmodel.params))
+        finite = bool(jmodel._grads_finite)
+        jopt.step()
+        want.append((finite, jax_state.loss_scaler.state_dict(),
+                     jax.tree_util.tree_map(np.asarray, jax.device_get(jmodel.params))))
+    model, optimizer, train_step = _port_mlp(init, {"microbatches": 2, "fp16": True})
+    state.loss_scaler = DynamicLossScaler(init_scale=2.0 ** 8)
+    for xb, (finite, scaler, params) in zip(inputs, want):
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        train_step(model, torch.from_numpy(xb), torch.from_numpy(y))
+        assert model._grads_finite is finite
+        optimizer.step()
+        assert state.loss_scaler.state_dict() == scaler
+        for k, v in _mlp_state_dict(params).items():
+            got = model.state_dict()[k]
+            if finite:
+                assert not torch.equal(got, before[k]), k
+                torch.testing.assert_close(got, v.float(), rtol=0, atol=1e-2)  # fp16 gradients, sgd 0.1
+            else:
+                assert torch.equal(got, before[k]), k  # update skipped
+    assert [f for f, _, _ in want] == [True, False, True]
+
+
 @pytest.mark.parametrize("make", [
     lambda m: (m.DynamicLossScaler(init_scale=2.0 ** 8, scale_window=3),),
     lambda m: (m.DynamicLossScaler(init_scale=4.0, scale_window=2, delayed_shift=2, min_scale=2.0),),
@@ -491,6 +539,12 @@ def test_left_out_features_raise(monkeypatch, cfg, env):
     else:
         smp.init(cfg, device="cpu")
     model = smp.DistributedModel(TorchMLP())
+    if env is not None and env[0] in ("SMP_HEALTH_CHECK", "SMP_CHAOS", "SMP_SUPERVISOR"):
+        # Ported since (slice 9b, tests/test_torch_health.py and friends):
+        # the step trains; the sentinel holds its word, the chaos rule fires
+        # at step 3 only, and the supervisor arms nothing at one rank.
+        _train_step()(model, *_xy())
+        return
     if cfg.get("matmul_precision") == "fp8":
         # Ported since (quant.py): the step trains under fp8. This MLP has no
         # fp8 seam, so its delayed-scaling state stays fresh, as in the JAX
