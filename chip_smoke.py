@@ -18,6 +18,8 @@
     python3 chip_smoke.py --phases O # observability (telemetry, timeline, goodput, profiling, time series) only
     python3 chip_smoke.py --phases V # resilience (sentinel, OOM post-mortem, preemption, chaos, fleet) only
     python3 chip_smoke.py --phases N # the same with the ranks on two cards (NCCL); needs two cards
+    python3 chip_smoke.py --phases W # data parallelism at rdp = 2 (two ranks on one card) only
+    python3 chip_smoke.py --phases Y # the same with the ranks on two cards (NCCL); needs two cards
     python3 chip_smoke.py --phases X # GPT-2 1.5B at 16 x 1024 with checkpointing off (its peak or OOM)
 
 Builds the port's CUDA kernels from ``smdistributed_modelparallel_tpu_torch/
@@ -181,6 +183,30 @@ csrc`` (one nvcc per source, all started together), then:
      ids-mode kernel (the ring's forward, dq and dk/dv) 24 times a step (12
      layers x 2 ring steps); the Ulysses step launches the plain flash
      kernels instead.
+  W. data parallelism at rdp = 2: two ranks spawned on cuda:0 (gloo with
+     pinned host copies, as in phase R; the native host bus built from
+     ``native/src`` into ``_build/``) train GPT-2 124M (bf16, AdamW, phase
+     T's global batch of 8 x 1024 in 4 microbatches: 4 x 1024 a rank, 1 x
+     1024 a microbatch), against this process's rdp = 1 run of the same
+     weights and batch. In one two-rank world: (a) the control plane
+     (ordered ``smp.send``/``recv_from``, a 1 MB ``smp.broadcast``,
+     ``smp.allgather``, the barriers, the rank queries; the round trip and
+     the broadcast timed); (b) 6 steps whose losses agree with rdp = 1
+     within 1e-2, the replicas' parameter fingerprints equal after every
+     step and their bits equal at the end, 48 launches of each flash kernel
+     a step and rank, all on ``wgmma``, the step's and the gradient
+     all-reduce's times, and a 2-layer fp32 model at rdp = 2 on the card
+     against the CPU within 1e-5; (c) a checkpoint after step 3 (timed,
+     sized); (d) SIGTERM to rank 1 at step edge 3: both save
+     ``preempt_step_3`` and exit, rank 0 on rank 1's notice; (e) the fleet
+     plane's merged ``smp_step_total`` against both registries; (f) the
+     exit relay at ``smp.shutdown``. Here: the one-process elastic resume
+     of (c)'s checkpoint. In a second two-rank world: (c) and (d)'s
+     checkpoints resume and repeat (b)'s losses bit for bit, then (g) under
+     ``SMP_SUPERVISOR=on`` rank 1 drops two heartbeats (classifying
+     nothing) and is SIGKILLed at step edge 3; rank 0 classifies it dead,
+     agrees on the newest committed checkpoint, re-forms a world of one and
+     trains on within 1e-2 of rdp = 1 (MTTR and its phases printed).
   K. checkpoints and the data loader: phase L's model, widths and weights
      (fused knobs, bf16, 8 x 1024 tokens in 4 microbatches, AdamW) fed by
      ``smp.dataloader`` over a seeded host stream of token batches; 3 steps,
@@ -406,6 +432,7 @@ import math
 import multiprocessing as mp
 import os
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -437,7 +464,7 @@ _FP32_OPS = ("FFMA", "FADD", "FMUL")
 
 KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8", "dropout",
                   "health_reduce"]
-DEFAULT_PHASES = "ASGTFLDMQRKHEOVBC"
+DEFAULT_PHASES = "ASGTFLDMQRWKHEOVBC"
 SEED = 1234
 
 
@@ -5048,31 +5075,35 @@ def _rank_main(rank, world, port, fn, args, queue):
             dist.destroy_process_group()
 
 
-def run_ranks(world, fn, *args, timeout=600):
+def run_ranks(world, fn, *args, timeout=600, killed=()):
     """Run ``fn(rank, world, *args)`` in ``world`` processes started with
     the spawn method (a forked child must not inherit a CUDA context), each
     holding the launcher variables of one torch.distributed world
-    (``LOCAL_RANK`` = rank); return the results by rank. Raises if a rank
-    raised, died or did not exit."""
+    (``LOCAL_RANK`` = rank); return the results by rank (None for the ranks
+    in ``killed``, which must die by SIGKILL). Raises if a rank raised,
+    died otherwise or did not exit."""
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=_rank_main, args=(r, world, port, fn, args, queue)) for r in range(world)]
     for p in procs:
         p.start()
-    results, errors = {}, []
+    results, errors = {r: None for r in killed}, []
     try:
-        for _ in procs:
+        for _ in range(world - len(killed)):
             rank, res, err = queue.get(timeout=timeout)
             results[rank] = res
             if err:
                 errors.append(f"rank {rank}:\n{err}")
     finally:
-        for p in procs:
+        for r, p in enumerate(procs):
             p.join(timeout=60)
             if p.is_alive():
                 p.kill()
                 errors.append(f"rank process {p.pid} did not exit")
+            elif r in killed:
+                if p.exitcode != -signal.SIGKILL:
+                    errors.append(f"rank {r} (process {p.pid}) exited with {p.exitcode}, not by SIGKILL")
             elif p.exitcode != 0:
                 errors.append(f"rank process {p.pid} exited with {p.exitcode}")
     if errors:
@@ -5189,6 +5220,474 @@ def phase_r(device="cuda:0"):
     if worst > CP_LOSS_TOL or not all(math.isfinite(x) for x in base_losses):
         raise RuntimeError(f"cp = 2 losses differ from cp = 1 by {worst:.3e} (limit {CP_LOSS_TOL})")
     return launches, dict(cp_ms=cp_ms, one_ms=one_ms, gap=worst, transport=transport)
+
+
+W_STEPS, W_SAVE_AT, W_LOSS_TOL, W_SMALL_TOL = 6, 3, 1e-2, 1e-5
+W_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_dp")
+W_ENV = {"SMP_HEARTBEAT_INTERVAL": "0.1", "SMP_HEARTBEAT_MISS_BUDGET": "5", "SMP_COLLECTIVE_TIMEOUT": "60",
+         "SMP_CKPT_COMMIT_TIMEOUT": "120"}
+
+
+def _w_setup(device, small=False, init=True, resume=None):
+    """Phase W's model (GPT-2 124M bf16, or the 2-layer fp32 model), AdamW and
+    the loss-mode step (phase T's loss) through the public entry points; the
+    weights from SEED, so every rank and the rdp = 1 run start equal.
+    ``init=False`` keeps the live session (a recovery's), ``resume=(root,
+    tag)`` resumes that checkpoint before the model is built."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2, gpt2_124m, init_gpt2_weights_
+
+    if init:
+        smp.init({"microbatches": TRAIN_MB, "bf16": not small, "ddp": True}, device=device)
+    if resume is not None:
+        smp.resume_from_checkpoint(*resume)  # applied when the model and optimizer are built
+    if small:
+        module = init_gpt2_weights_(gpt2("gpt2_124m", max_len=128, d_model=128, n_layers=2, n_heads=4),
+                                    torch.Generator().manual_seed(SEED)).to(device)
+    else:
+        module = init_gpt2_weights_(gpt2_124m(device=device), torch.Generator(device=device).manual_seed(SEED))
+    model = smp.DistributedModel(module, device=device)
+    optimizer = smp.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), model)
+
+    @smp.step
+    def train_step(model, batch_ids):
+        tgt = torch.cat([batch_ids[:, 1:], torch.full_like(batch_ids[:, :1], -100)], dim=1)
+        per = model(batch_ids, targets=tgt)
+        loss = per.sum() / (per.shape[0] * (per.shape[1] - 1))
+        model.backward(loss)
+        return loss
+
+    return model, optimizer, train_step
+
+
+def _w_batch(device, small=False):
+    """The global batch (phase T's, 8 x 1024; the small model's 8 x 128)."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    return torch.randint(0, 50257, (TRAIN_BATCH, 128 if small else TRAIN_SEQ), generator=g).to(device)
+
+
+def _w_rows(ids):
+    """This rank's rows of the global batch at the live rdp (the per-process
+    contract of ``shard_batches``)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    r, n = (smp.rdp_rank(), smp.rdp_size()) if smp.is_initialized() else (0, 1)
+    per = ids.shape[0] // n
+    return ids[r * per:(r + 1) * per]
+
+
+def _w_fingerprint(model):
+    """Two int64 sums of the parameters' bit patterns (plain and position
+    weighted): equal on two replicas whose bits agree."""
+    plain = torch.zeros((), dtype=torch.int64, device=next(model.module.parameters()).device)
+    weighted = plain.clone()
+    for p in model.module.parameters():
+        bits = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        plain += bits.sum()
+        weighted += (bits * (torch.arange(bits.numel(), device=bits.device) % 65521 + 1)).sum()
+    return int(plain), int(weighted)
+
+
+def _w_steps(model, optimizer, train_step, ids, steps, prints=None, counters=None, ms=None):
+    losses = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(train_step(model, _w_rows(ids)).reduce_mean()))
+        optimizer.step()
+        torch.cuda.synchronize()
+        if ms is not None:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if prints is not None:
+            prints.append(_w_fingerprint(model))
+    return losses
+
+
+def _w_control_plane(rank, world):
+    """Hold (a): the bus, ordered P2P, a 1 MB broadcast, allgather, the
+    barriers and the rank queries; time a small round trip and the
+    broadcast."""
+    import hashlib
+
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.backend import native
+    from smdistributed_modelparallel_tpu_torch.backend.state import state
+
+    peer = 1 - rank
+    out = {"bus": state.bus is not None and state.bus.world == world, "lib": str(native.LIB_PATH),
+           "lib_built": native.LIB_PATH.exists() and native.LIB_PATH.parent.name == "_build"}
+    for i in range(5):
+        smp.send(("seq", rank, i), dest=peer)
+    out["ordered"] = [smp.recv_from(peer) for _ in range(5)] == [("seq", peer, i) for i in range(5)]
+    smp.barrier()
+    n = 200
+    t0 = time.perf_counter()
+    for i in range(n):
+        if rank == 0:
+            smp.send(i, dest=1)
+            assert smp.recv_from(1) == i
+        else:
+            smp.send(smp.recv_from(0), dest=0)
+    out["round_trip_us"] = (time.perf_counter() - t0) * 1e6 / n
+    blob = os.urandom(1 << 20) if rank == 0 else None
+    smp.barrier()
+    t0 = time.perf_counter()
+    got = smp.broadcast(blob, src=0)
+    out["broadcast_ms"] = (time.perf_counter() - t0) * 1e3
+    out["broadcast_ok"] = smp.allgather(hashlib.sha256(got).hexdigest())[0] == hashlib.sha256(got).hexdigest()
+    out["allgather"] = smp.allgather(f"proc{rank}") == ["proc0", "proc1"]
+    for barrier in (smp.barrier, smp.dp_barrier, smp.rdp_barrier):
+        barrier()
+    out["queries"] = (smp.rank(), smp.size(), smp.rdp_rank(), smp.rdp_size(), smp.dp_rank(), smp.dp_size(),
+                      smp.get_rdp_group(), smp.get_dp_group(), smp.rdp_rank_to_rank(1 - rank), smp.tp_size(),
+                      smp.pp_size(), dict(smp.get_mesh().shape))
+    return out
+
+
+def _w_train(model, optimizer, train_step, root=None):
+    """Hold (b) on this rank: 6 steps at rdp = 2 (with (c)'s checkpoint
+    after step 3 when ``root`` is given), the flash launches, the replicas'
+    fingerprints after every step and their bits at the end, and the
+    gradient all-reduce alone."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.backend.state import state
+
+    out = {}
+    ids = _w_batch(state.device)
+    counters = {**_flash_counters(), **_flash_simt_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    prints, ms = [], []
+    losses = _w_steps(model, optimizer, train_step, ids, W_SAVE_AT, prints, ms=ms)
+    if root is not None:
+        smp.barrier()
+        t0 = time.perf_counter()
+        smp.save_checkpoint(root, tag="w3", partial=True)
+        smp.barrier()
+        out["save_s"] = time.perf_counter() - t0
+    out["print_at_save"] = prints[-1]
+    losses += _w_steps(model, optimizer, train_step, ids, W_STEPS - W_SAVE_AT, prints, ms=ms)
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    out.update(losses=losses, prints=prints, ms=ms)
+    # The replicas' parameters, bit for bit, once at the end: rank 0's
+    # broadcast against this rank's own.
+    group = state.group("rdp")
+    flat = torch.cat([p.detach().reshape(-1).float() for p in model.module.parameters()])
+    theirs = group.broadcast(flat.clone(), src=0)
+    out["bit_equal"] = bool(torch.equal(flat.view(torch.int32), theirs.view(torch.int32)))
+    # The gradient all-reduce alone: the step's flat fp32 buffer.
+    grads = torch.zeros(flat.numel(), device=state.device)
+    del flat, theirs
+    group.all_reduce(grads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        group.all_reduce(grads)
+    torch.cuda.synchronize()
+    out.update(all_reduce_ms=(time.perf_counter() - t0) * 1e3 / 3, n_params=grads.numel(), transport=group.transport)
+    return out
+
+
+def _w_rank_y(rank, world):
+    """Phase Y's rank: hold (b) on cuda:<rank> (named, so that the weights
+    come from a CUDA generator as the rdp = 1 run's do)."""
+    model, optimizer, train_step = _w_setup(f"cuda:{rank}")
+    return _w_train(model, optimizer, train_step)
+
+
+def _w_world1(rank, world, device, root):
+    """Holds (a)-(f) in one two-rank world: the control plane, 6 steps at
+    rdp = 2 with the fleet plane on and a checkpoint after step 3, the
+    all-reduce's time, the small fp32 model, the preemption run, the exit
+    relay."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.backend import core
+    from smdistributed_modelparallel_tpu_torch.backend.state import state
+    from smdistributed_modelparallel_tpu_torch.resilience.preemption import preemption
+    from smdistributed_modelparallel_tpu_torch.utils.fleet import fleet
+    from smdistributed_modelparallel_tpu_torch.utils.telemetry import telemetry
+
+    os.environ.update(W_ENV, SMP_FLEET_INTERVAL="0.5")
+    model, optimizer, train_step = _w_setup(device)
+    out = {"control": _w_control_plane(rank, world)}
+    out.update(_w_train(model, optimizer, train_step, root))
+    ids = _w_batch(state.device)
+    del model, optimizer
+    # (e) The fleet plane: rank 0 aggregates both registries.
+    totals = smp.allgather(_w_counter(telemetry.report(), "smp_step_total"))
+    merged = None
+    if rank == 0:
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            merged = _w_counter(fleet.plane.fleet_report()["merged"], "smp_step_total")
+            if merged == sum(totals):
+                break
+            time.sleep(0.1)
+    out["fleet"] = (merged, totals)
+    smp.barrier()
+    # The small fp32 model at rdp = 2: 3 steps on the card, then the same on the CPU.
+    small = {}
+    for dev in (device, "cpu"):
+        m, opt, step_fn = _w_setup(dev, small=True)
+        small[dev] = _w_steps(m, opt, step_fn, _w_batch(dev, small=True), 3)
+        del m, opt
+    out["small"] = (small[device], small["cpu"])
+    torch.cuda.empty_cache()
+    # (d) SIGTERM to rank 1 at step edge 3: both ranks save and exit.
+    os.environ.update(SMP_CHAOS=f"sigterm@step={W_SAVE_AT}:rank=1", SMP_EMERGENCY_CKPT_PATH=root)
+    model, optimizer, train_step = _w_setup(device)
+    try:
+        _w_steps(model, optimizer, train_step, ids, W_STEPS)
+        out["preempt"] = None
+    except SystemExit as e:
+        out["preempt"] = (e.code, preemption._requested, preemption.emergency_saved, state.step_count)
+    os.environ.pop("SMP_CHAOS")
+    del model, optimizer
+    # (f) The exit relay at shutdown.
+    smp.shutdown()
+    out["exit_report"] = core.last_exit_report
+    return out
+
+
+def _w_counter(report, name):
+    fam = report.get("metrics", {}).get(name, {"series": []})
+    return sum(s.get("value", 0) for s in fam["series"])
+
+
+def _w_world2(rank, world, device, root, kill_root):
+    """A fresh two-rank world: (c) the resume of "w3" and (d) of
+    "preempt_step_3", then (g) the supervised kill of rank 1."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.backend.state import state
+    from smdistributed_modelparallel_tpu_torch.utils.telemetry import telemetry
+
+    os.environ.update(W_ENV)
+    out = {}
+    ids = _w_batch(device)
+    for tag, steps in (("w3", W_STEPS - W_SAVE_AT), (f"preempt_step_{W_SAVE_AT}", 3)):
+        t0 = time.perf_counter()
+        model, optimizer, train_step = _w_setup(device, resume=(root, tag))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        out[tag] = (_w_steps(model, optimizer, train_step, _w_batch(state.device), steps), restore_s)
+        del model, optimizer
+        smp.reset()
+    torch.cuda.empty_cache()
+    # (g) SMP_SUPERVISOR=on; two heartbeats of rank 1 dropped (below the
+    # budget of 5), then rank 1 SIGKILLed at step edge 3.
+    os.environ.update(SMP_SUPERVISOR="on", SMP_CHAOS=f"heartbeat_drop@count=2:rank=1,kill@step={W_SAVE_AT}:rank=1")
+    model, optimizer, train_step = _w_setup(device)
+    losses, replay, report, t_error = {}, {}, None, None
+    while state.step_count < W_STEPS:
+        sc = state.step_count
+        try:
+            loss = float(train_step(model, _w_rows(ids)).reduce_mean())
+            optimizer.step()
+        except Exception as e:
+            if report is not None:
+                raise
+            t_error = time.monotonic()
+            out["error"] = type(e).__name__
+            report = smp.supervisor.recover(error=e, ckpt_path=kill_root, grace=60)
+            del model, optimizer
+            model, optimizer, train_step = _w_setup(device, init=False)  # the recovery's session and state
+            continue
+        (replay if report else losses)[sc] = loss
+        if report is None and sc <= 1:
+            smp.save_checkpoint(kill_root, partial=True, blocking=True)
+    rep = telemetry.report()["metrics"]
+    out.update(losses=losses, replay=replay, t_error=t_error, world_after=(smp.size(), smp.rdp_size()),
+               report={k: v for k, v in report.items() if k != "phases"},
+               phases=dict(smp.supervisor.last_report["phases"]),
+               mttr=rep["smp_recovery_seconds"]["series"][0]["value"],
+               kinds={s["labels"]["kind"]: s["value"] for s in rep["smp_failures_detected_total"]["series"]})
+    os.environ.pop("SMP_CHAOS")
+    smp.shutdown()
+    return out
+
+
+def _w_rdp1():
+    """This process's rdp = 1 run of phase W's weights and global batch:
+    (losses, ms a step, launches)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    model, optimizer, train_step = _w_setup("cuda")
+    counters = {**_flash_counters(), **_flash_simt_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    ms = []
+    losses = _w_steps(model, optimizer, train_step, _w_batch("cuda"), W_STEPS, ms=ms)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    del model, optimizer
+    smp.reset()
+    return losses, ms, launches
+
+
+def phase_y():
+    """Hold (b) of phase W with the two ranks on cuda:0 and cuda:1 (the
+    gradient all-reduce over NCCL; a machine with two cards)."""
+    if torch.cuda.device_count() < 2:
+        raise RuntimeError(f"rdp ranks on separate cards need 2 cards, found {torch.cuda.device_count()}")
+    ranks = run_ranks(2, _w_rank_y)
+    base, base_ms, _ = _w_rdp1()
+    l0, l1 = ranks[0]["losses"], ranks[1]["losses"]
+    gap = max(abs(a - b) for a, b in zip(l0, base))
+    ms = sum(ranks[0]["ms"][1:]) / (W_STEPS - 1)
+    one_ms = sum(base_ms[1:]) / (W_STEPS - 1)
+    log(f"[Y] rdp = 2 on cuda:0-1, all-reduce transport {ranks[0]['transport']}: losses {l0}, rdp = 1 {base}, largest "
+        f"difference {gap:.3e}; ms/step {ms:.2f} (rdp = 1 {one_ms:.2f}), global tokens/s "
+        f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f}; the gradient all-reduce alone {ranks[0]['all_reduce_ms']:.2f} ms; "
+        f"fingerprints equal every step {ranks[0]['prints'] == ranks[1]['prints']}, bits equal at the end "
+        f"{ranks[0]['bit_equal'] and ranks[1]['bit_equal']}; launches {ranks[0]['launches']}")
+    if l0 != l1 or ranks[0]["prints"] != ranks[1]["prints"] or not (ranks[0]["bit_equal"] and ranks[1]["bit_equal"]):
+        raise RuntimeError("phase Y: the replicas differ")
+    if gap > W_LOSS_TOL:
+        raise RuntimeError(f"phase Y: rdp = 2 losses differ from rdp = 1 by {gap:.3e}")
+
+
+def phase_w(device="cuda:0"):
+    """Data parallelism at rdp = 2: two ranks on ``device`` (gloo with
+    pinned host copies). Holds (a)-(g) of the data-parallel slice against
+    this process's rdp = 1 run of the same weights and global batch."""
+    import shutil
+
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    shutil.rmtree(W_DIR, ignore_errors=True)
+    root, kill_root = os.path.join(W_DIR, "ckpt"), os.path.join(W_DIR, "kill")
+    try:
+        t0 = time.perf_counter()
+        r1 = run_ranks(2, _w_world1, device, root)
+        world1_s = time.perf_counter() - t0
+        # This process: rdp = 1 on the same weights and the whole batch.
+        base, base_ms, base_launches = _w_rdp1()
+        # The one-process elastic resume of the rdp = 2 checkpoint.
+        t1 = time.perf_counter()
+        model, _, _ = _w_setup("cuda", resume=(root, "w3"))
+        elastic = (_w_fingerprint(model), time.perf_counter() - t1)
+        del model
+        smp.reset()
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(os.path.join(root, "w3_partial"))
+                         for f in fs)
+        t0 = time.perf_counter()
+        r2 = run_ranks(2, _w_world2, device, root, kill_root, killed=(1,))
+        world2_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(W_DIR, ignore_errors=True)
+    return _w_report(r1, r2, base, base_ms, base_launches, elastic, ckpt_bytes, world1_s, world2_s, device)
+
+
+def _w_report(r1, r2, base, base_ms, base_launches, elastic, ckpt_bytes, world1_s, world2_s, device):
+    """Print phase W's numbers and raise on every hold that fails."""
+    failures = []
+
+    def hold(ok, what):
+        if not ok:
+            failures.append(what)
+
+    n_layers, per_step = 12, 12 * TRAIN_MB
+    where = f"2 ranks on {device}"
+    c0, c1 = r1[0]["control"], r1[1]["control"]
+    log(f"[W] GPT-2 124M bf16 at rdp = 2, {where}, global batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MB} "
+        f"microbatches ({TRAIN_BATCH // 2} x {TRAIN_SEQ} a rank, 1 x {TRAIN_SEQ} a microbatch), AdamW; "
+        f"world 1 took {world1_s:.1f} s, world 2 {world2_s:.1f} s with start-up")
+    # (a)
+    for rank, c in enumerate((c0, c1)):
+        hold(c["bus"] and c["lib_built"], f"(a) rank {rank}: the bus is not up from _build/ ({c['lib']})")
+        hold(c["ordered"] and c["broadcast_ok"] and c["allgather"], f"(a) rank {rank}: the control plane")
+        want = (rank, 2, rank, 2, rank, 2, [0, 1], [0, 1], 1 - rank, 1, 1,
+                {"rdp": 2, "ep": 1, "cp": 1, "pp": 1, "tp": 1})
+        hold(c["queries"] == want, f"(a) rank {rank}: rank queries {c['queries']} != {want}")
+    log(f"[W] (a) control plane: bus from {c0['lib']}; small-object round trip {c0['round_trip_us']:.1f} us "
+        f"(smp.send/recv_from, 200 pings), 1 MB smp.broadcast {c0['broadcast_ms']:.2f} ms (rank 0) / "
+        f"{c1['broadcast_ms']:.2f} ms (rank 1); ordered P2P, allgather, barrier/dp_barrier/rdp_barrier, rank "
+        f"queries {c0['queries']}")
+    # (b)
+    l0, l1 = r1[0]["losses"], r1[1]["losses"]
+    gap = max(abs(a - b) for a, b in zip(l0, base))
+    hold(l0 == l1, "(b) the ranks' losses differ")
+    hold(r1[0]["prints"] == r1[1]["prints"], "(b) the replicas' parameter fingerprints differ after some step")
+    hold(r1[0]["bit_equal"] and r1[1]["bit_equal"], "(b) the replicas' parameters are not bit-equal at the end")
+    hold(gap <= W_LOSS_TOL and all(math.isfinite(x) for x in base), f"(b) losses differ from rdp = 1 by {gap:.3e}")
+    for rank in range(2):
+        counts = r1[rank]["launches"]
+        for k in _flash_counters():
+            hold(counts[k] == per_step * W_STEPS,
+                 f"(b) rank {rank}: {k} launched {counts[k]} times in {W_STEPS} steps, expected {per_step * W_STEPS}")
+        simt = {k: n for k, n in counts.items() if k.endswith("_simt") and n}
+        hold(not simt, f"(b) rank {rank}: CUDA-core launches {simt}")
+    ms = sum(r1[0]["ms"][1:]) / (W_STEPS - 1)
+    one_ms = sum(base_ms[1:]) / (W_STEPS - 1)
+    small_card, small_cpu = r1[0]["small"]
+    small_gap = max(abs(a - b) for a, b in zip(small_card, small_cpu))
+    hold(small_gap <= W_SMALL_TOL, f"(b) the small fp32 model at rdp = 2: card vs CPU {small_gap:.3e}")
+    log(f"[W] (b) rdp = 2 losses {l0}; rdp = 1 {base}; largest difference {gap:.3e} (limit {W_LOSS_TOL:.0e}); "
+        f"parameter fingerprints equal on both ranks after every step: {r1[0]['prints'] == r1[1]['prints']}; "
+        f"bit-equal at the end: {r1[0]['bit_equal'] and r1[1]['bit_equal']}")
+    log(f"[W] (b) ms/step (mean of steps 2-{W_STEPS}): rdp = 2 {ms:.2f} (rank 0; per step {[round(x, 2) for x in r1[0]['ms']]}), "
+        f"rdp = 1 {one_ms:.2f}; global tokens/s rdp = 2 {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f}, rdp = 1 "
+        f"{TRAIN_BATCH * TRAIN_SEQ / one_ms * 1e3:.1f}; the gradient all-reduce alone ({r1[0]['n_params']} fp32, "
+        f"{r1[0]['n_params'] * 4 / 1e6:.1f} MB, gloo over pinned host copies) {r1[0]['all_reduce_ms']:.2f} ms "
+        f"(rank 0) / {r1[1]['all_reduce_ms']:.2f} ms (rank 1)")
+    log(f"[W] (b) launches a rank: {r1[0]['launches']} / {r1[1]['launches']} in {W_STEPS} steps (expected "
+        f"{per_step} each a step: {n_layers} layers x {TRAIN_MB} microbatches); rdp = 1 {base_launches}")
+    log(f"[W] (b) fp32 2-layer model at rdp = 2, 3 steps: card {small_card}, CPU {small_cpu}, largest difference "
+        f"{small_gap:.3e} (limit {W_SMALL_TOL:.0e})")
+    # (c)
+    resumed, restore_s = r2[0]["w3"]
+    hold(resumed == l0[W_SAVE_AT:], f"(c) the resumed losses {resumed} != {l0[W_SAVE_AT:]}")
+    hold(elastic[0] == r1[0]["print_at_save"], "(c) the one-process elastic resume's parameters differ")
+    log(f"[W] (c) checkpoint after step {W_SAVE_AT}: {ckpt_bytes / 1e9:.3f} GB (parameters and AdamW moments, fp32, "
+        f"replica 0's shards), save {r1[0]['save_s']:.2f} s; a fresh two-rank world restores it in {restore_s:.2f} s "
+        f"and repeats steps {W_SAVE_AT + 1}-{W_STEPS} bit for bit ({resumed}); the one-process elastic resume "
+        f"(rdp = 1) in {elastic[1]:.2f} s, parameter fingerprint equal: {elastic[0] == r1[0]['print_at_save']}")
+    # (d)
+    p0, p1 = r1[0]["preempt"], r1[1]["preempt"]
+    tag = f"preempt_step_{W_SAVE_AT}"
+    for rank, p in enumerate((p0, p1)):
+        hold(p is not None and p[0] in (0, None) and p[2] is not None and p[2][1] == tag and p[3] == W_SAVE_AT,
+             f"(d) rank {rank}: {p}")
+    hold(p0 is not None and p0[1] == "peer_notice" and p1 is not None and p1[1] == "sigterm",
+         f"(d) reasons {p0 and p0[1]}, {p1 and p1[1]}")
+    pre = r2[0][tag][0]
+    hold(pre == l0[W_SAVE_AT - 1:W_SAVE_AT + 2], f"(d) the resumed losses {pre} != {l0[W_SAVE_AT - 1:W_SAVE_AT + 2]}")
+    log(f"[W] (d) SIGTERM to rank 1 at step edge {W_SAVE_AT}: rank 0 {p0}, rank 1 {p1} (exit code, reason, "
+        f"checkpoint, step edge); the resume repeats (b)'s steps {W_SAVE_AT}-{W_SAVE_AT + 2} bit for bit: {pre}")
+    # (e)
+    merged, totals = r1[0]["fleet"]
+    hold(merged == sum(totals), f"(e) the fleet's smp_step_total {merged} != the ranks' {totals}")
+    log(f"[W] (e) fleet plane: rank 0's merged smp_step_total {merged}, the ranks' registries {totals}")
+    # (f)
+    hold(r1[0]["exit_report"] == {"failed": [], "silent": []}, f"(f) exit relay {r1[0]['exit_report']}")
+    log(f"[W] (f) smp.shutdown's exit relay at rank 0: {r1[0]['exit_report']}")
+    # (g)
+    g = r2[0]
+    det = g["report"]["t_detect"]  # when the detector classified rank 1 (monotonic clock)
+    hold(g["error"] == "SMPPeerLost", f"(g) rank 0 caught {g['error']}")
+    hold(g["report"]["failures"] == {1: "dead"} and g["report"]["survivors"] == 1 and g["report"]["tag"] == "step_2",
+         f"(g) report {g['report']}")
+    hold(g["kinds"] == {"dead": 1}, f"(g) classifications {g['kinds']}: the dropped heartbeats classified something")
+    budget_s = float(W_ENV["SMP_HEARTBEAT_INTERVAL"]) * float(W_ENV["SMP_HEARTBEAT_MISS_BUDGET"])
+    hold(det - g["t_error"] <= budget_s + 1.0,
+         f"(g) rank 1 classified dead at {det} against the failure at {g['t_error']}")
+    hold(g["world_after"] == (1, 1) and {3, 4, 5} <= set(g["replay"]), f"(g) {g['world_after']} {g['replay']}")
+    g_gap = max(abs(v - base[k]) for k, v in g["replay"].items())
+    hold(g_gap <= W_LOSS_TOL, f"(g) the re-formed run's losses differ from rdp = 1 by {g_gap:.3e}")
+    log(f"[W] (g) supervised kill of rank 1 at step edge {W_SAVE_AT}: rank 0 caught {g['error']}, classified "
+        f"{g['report']['failures']} {det - g['t_error']:+.3f} s from it (budget "
+        f"{budget_s:.1f} s), agreed on {g['report']['tag']}, re-formed a world of {g['world_after'][0]}; MTTR "
+        f"{g['mttr']:.2f} s, phases { {k: round(v, 3) for k, v in g['phases'].items()} }; losses before {g['losses']}, "
+        f"after {g['replay']} (rdp = 1 {base}; largest difference {g_gap:.3e}); classifications {g['kinds']}")
+    if failures:
+        raise RuntimeError("phase W: " + "; ".join(failures))
+    launches = dict(base_launches)
+    for rank in range(2):
+        for k, n in r1[rank]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return launches, dict(ms=ms, one_ms=one_ms, all_reduce_ms=r1[0]["all_reduce_ms"],
+                          round_trip_us=c0["round_trip_us"], broadcast_ms=c0["broadcast_ms"],
+                          save_s=r1[0]["save_s"], restore_s=restore_s, mttr=g["mttr"])
 
 
 def _bound(nbytes, flops, dtype):
@@ -6700,9 +7199,10 @@ def phase_p():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, K, H, E, O, V, B, C (the default, all "
-             "seventeen), "
-             "P (profiles) and N (phase R's ranks on two cards, over NCCL) and X (GPT-2 1.5B at 16 x 1024 with checkpointing off)")
+                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, W, K, H, E, O, V, B, C (the default, all "
+             "eighteen), "
+             "P (profiles), N (phase R's ranks on two cards, over NCCL), Y (phase W's ranks on two cards, over "
+             "NCCL) and X (GPT-2 1.5B at 16 x 1024 with checkpointing off)")
     parser.add_argument("--k-child", metavar="DIR", help=argparse.SUPPRESS)  # phase K's resumed run
     parser.add_argument("--o-child", metavar="KIND:ON", help=argparse.SUPPRESS)  # phase O's runs
     parser.add_argument("--v-child", metavar="KIND:DIR", help=argparse.SUPPRESS)  # phase V's runs
@@ -6736,7 +7236,7 @@ def main():
     log(f"[time] build {time.perf_counter() - started:.1f} s")
     serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches = {}, {}, {}, {}, {}, {}
     k_launches, d_launches, m_launches, s_launches, g_launches, h_launches = {}, {}, {}, {}, {}, {}
-    e_launches, o_launches, v_launches = {}, {}, {}
+    e_launches, o_launches, v_launches, w_launches = {}, {}, {}, {}
     errs = timing = None
     if "A" in args.phases:
         serve_launches = phase_a()
@@ -6762,6 +7262,10 @@ def main():
         cp_launches, _ = phase_r()
     if "N" in args.phases:
         phase_r(device=None)
+    if "W" in args.phases:
+        w_launches, _ = phase_w()
+    if "Y" in args.phases:
+        phase_y()
     if "K" in args.phases:
         k_launches, _ = phase_k(smi)
     if "H" in args.phases:
@@ -6794,10 +7298,12 @@ def main():
     # bf16 forwards) and the encoder-decoder and MoE paths (E: E1's training,
     # generation and checkpointed steps, E2's T5 training, E3's MoE training
     # and decoding, E4's forward), the observability runs (O: O1's 20
-    # steps with every variable on) and the sentinel's runs (V: V1's cheap
-    # and full blocks), each counted from 0 just before it.
+    # steps with every variable on), the sentinel's runs (V: V1's cheap
+    # and full blocks) and the data-parallel run (W: both ranks' 6 steps
+    # and the rdp = 1 run), each counted from 0 just before it.
     paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches, k_launches,
-             d_launches, m_launches, s_launches, g_launches, h_launches, e_launches, o_launches, v_launches)
+             d_launches, m_launches, s_launches, g_launches, h_launches, e_launches, o_launches, v_launches,
+             w_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"

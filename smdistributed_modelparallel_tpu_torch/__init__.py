@@ -12,7 +12,13 @@ family at tp = 1, whose fused QKV and bias-GELU are kernels too
 fp8 product is ``csrc/matmul_fp8.cu``). Under ``context_parallel_degree`` > 1
 it trains with one process per rank (``torch.distributed``, from the launcher
 variables), each on its sequence shard, through the ring (whose per-step
-flash calls are the kernels' ids mode) or Ulysses. Entry points run on
+flash calls are the kernels' ids mode) or Ulysses; under data parallelism
+(rdp > 1) each rank trains a replica on its own rows and the step sums the
+gradients over the rdp group. At world > 1 ``smp.init`` also brings up the
+native host bus (the JAX package's ``native/src`` built into ``_build/``),
+over which the control plane runs: ``smp.send``/``recv_from``,
+``broadcast``, ``allgather``, the barriers, preemption across ranks and the
+recovery supervisor's in-process reform (``backend/``). Entry points run on
 ``cuda`` unless the caller names another device.
 
 It saves and resumes training runs in the JAX package's on-disk format
@@ -90,10 +96,11 @@ from contextlib import contextmanager
 import torch
 
 from smdistributed_modelparallel_tpu_torch import amp, nn, quant, serving
+from smdistributed_modelparallel_tpu_torch.backend import core
+from smdistributed_modelparallel_tpu_torch.backend.collectives import CollectiveCommunicator, CommGroup, RankType
 from smdistributed_modelparallel_tpu_torch.backend.config import ModelParallelConfig
-from smdistributed_modelparallel_tpu_torch.backend.split import StepOutput
+from smdistributed_modelparallel_tpu_torch.backend.split import StepOutput, TensorSplitter
 from smdistributed_modelparallel_tpu_torch.backend.state import state
-from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS
 from smdistributed_modelparallel_tpu_torch.checkpoint import (
     load,
     resume_from_checkpoint,
@@ -112,8 +119,10 @@ from smdistributed_modelparallel_tpu_torch.resilience.supervisor import supervis
 from smdistributed_modelparallel_tpu_torch.utils import health, profiling
 from smdistributed_modelparallel_tpu_torch.utils.fleet import fleet
 from smdistributed_modelparallel_tpu_torch.utils.data import dataloader, prefetch_to_device, shard_batches
+from smdistributed_modelparallel_tpu_torch.utils import exceptions
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     NotInitializedError,
+    SMPError,
     SMPRuntimeError,
     SMPUnsupportedError,
     SMPValidationError,
@@ -125,6 +134,13 @@ from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
 from smdistributed_modelparallel_tpu_torch.utils.telemetry import telemetry, watchdog
 
 logger = get_logger()
+
+WORLD = CommGroup.WORLD
+PP_GROUP = CommGroup.PP_GROUP
+TP_GROUP = CommGroup.TP_GROUP
+DP_GROUP = CommGroup.DP_GROUP
+RDP_GROUP = CommGroup.RDP_GROUP
+MP_GROUP = CommGroup.MP_GROUP
 
 
 def init(config=None, device=None):
@@ -144,41 +160,229 @@ def is_initialized():
     return state.initialized
 
 
+# -- rank, size and group queries (backend/core.py) ----------------------
+# One process a device: each answers for this process.
+
 def rank():
     """This process's global rank (one device per rank)."""
-    state.check()
-    return state.rank
+    return core.rank()
 
 
 def size():
     """The number of devices of the topology (the world, or
     ``_device_count_override``)."""
-    state.check()
-    return state.topology.size
+    return core.size()
 
 
 def local_rank():
     """This process's rank on its host (``LOCAL_RANK``)."""
-    state.check()
-    return state.local_rank
+    return core.local_rank()
+
+
+def local_size():
+    """The number of ranks on this process's host."""
+    return core.local_size()
+
+
+def pp_rank():
+    return core.pp_rank()
+
+
+def tp_rank():
+    return core.tp_rank()
+
+
+def rdp_rank():
+    return core.rdp_rank()
+
+
+def dp_rank():
+    return core.dp_rank()
+
+
+def mp_rank():
+    return core.mp_rank()
 
 
 def cp_rank():
     """This rank's coordinate on the context-parallel axis."""
-    state.check()
-    return state.topology.cp_rank(state.rank)
+    return core.cp_rank()
+
+
+def pp_size():
+    return core.pp_size()
+
+
+def tp_size():
+    return core.tp_size()
+
+
+def rdp_size():
+    """The reference's D dimension: rdp x cp x ep."""
+    return core.rdp_size()
+
+
+def dp_size():
+    return core.dp_size()
+
+
+def mp_size():
+    return core.mp_size()
 
 
 def cp_size():
-    state.check()
-    return state.topology.cp_size
+    return core.cp_size()
+
+
+def num_microbatches():
+    return state.cfg.microbatches if state.cfg else 1
+
+
+def get_pp_group():
+    return core.get_pp_group()
+
+
+def get_tp_group():
+    return core.get_tp_group()
+
+
+def get_dp_group():
+    return core.get_dp_group()
+
+
+def get_rdp_group():
+    return core.get_rdp_group()
+
+
+def get_mp_group():
+    return core.get_mp_group()
 
 
 def get_cp_group():
     """The global ranks of this rank's context-parallel group, in axis
     order."""
+    return core.get_cp_group()
+
+
+def get_world_group():
+    return core.get_world_group()
+
+
+# The reference's names for the same groups.
+get_pp_process_group = get_pp_group
+get_tp_process_group = get_tp_group
+get_dp_process_group = get_dp_group
+get_rdp_process_group = get_rdp_group
+get_mp_process_group = get_mp_group
+get_world_process_group = get_world_group
+
+
+def get_mesh():
+    """The rank grid of the topology (``DeviceMesh``): ``dict(get_mesh().shape)``
+    is the JAX package's ``{axis: size}`` of its mesh."""
     state.check()
-    return state.topology.axis_group(state.rank, CP_AXIS)
+    return state.topology.mesh
+
+
+def pp_rank_to_rank(pp_rank):
+    """World rank of pipeline stage ``pp_rank`` in this rank's tp x rdp
+    coordinates."""
+    return core.pp_rank_to_rank(pp_rank)
+
+
+def tp_rank_to_rank(tp_rank):
+    return core.tp_rank_to_rank(tp_rank)
+
+
+def rdp_rank_to_rank(rdp_rank):
+    return core.rdp_rank_to_rank(rdp_rank)
+
+
+def dp_rank_to_rank(dp_rank):
+    return core.dp_rank_to_rank(dp_rank)
+
+
+def mp_rank_to_rank(mp_rank):
+    return core.mp_rank_to_rank(mp_rank)
+
+
+def process_index():
+    """This process's index (its rank: one process a device)."""
+    state.check()
+    return state.rank
+
+
+def process_count():
+    state.check()
+    return state.world_size
+
+
+def instance_id(rank=None):
+    """The host of device ``rank`` (default: this process's)."""
+    return core.instance_id(rank)
+
+
+def is_in_same_instance(rank):
+    """Whether device ``rank`` is on this process's host."""
+    return core.is_in_same_instance(rank)
+
+
+def is_multi_node():
+    return core.is_multi_node()
+
+
+def is_tracing():
+    """True inside the JAX package's first-step trace pass. The port runs
+    its steps eagerly and has no such pass: always False."""
+    return False
+
+
+# -- the host control plane (backend/collectives.py, over the native bus) --
+
+def barrier(group=CommGroup.WORLD):
+    """Barrier over the processes of ``group``."""
+    state.comm.barrier(group=group)
+
+
+def mp_barrier():
+    barrier(CommGroup.MP_GROUP)
+
+
+def pp_barrier():
+    barrier(CommGroup.PP_GROUP)
+
+
+def dp_barrier():
+    barrier(CommGroup.DP_GROUP)
+
+
+def tp_barrier():
+    barrier(CommGroup.TP_GROUP)
+
+
+def rdp_barrier():
+    barrier(CommGroup.RDP_GROUP)
+
+
+def broadcast(obj, group=CommGroup.WORLD, src=0):
+    """Member ``src``'s picklable ``obj`` on every process of ``group``."""
+    return state.comm.broadcast(obj, group=group, src=src)
+
+
+def allgather(obj, group=CommGroup.WORLD):
+    """Every process of ``group``'s picklable ``obj``, in group order."""
+    return state.comm.allgather(obj, group=group)
+
+
+def send(obj, dest, group=CommGroup.WORLD):
+    """Send a picklable object to process ``dest`` of ``group`` (queued;
+    returns at once)."""
+    state.comm.send(obj, dest, group=group)
+
+
+def recv_from(src, group=CommGroup.WORLD):
+    """The next object, in order, from process ``src`` of ``group``."""
+    return state.comm.recv_from(src, group=group)
 
 
 def shutdown():

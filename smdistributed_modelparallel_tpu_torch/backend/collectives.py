@@ -26,15 +26,60 @@ whatever reads it). Otherwise the group uses NCCL on the card's tensors
 directly. NCCL refuses two ranks on one card, which is why one H100 runs two
 cp ranks over gloo.
 
-The host object collectives of the JAX package (``broadcast``,
-``allgather``, ``barrier``, ``send``/``recv_from`` over its C++ bus) belong
-to the data-parallel slice and are not here.
+Host object collectives (``CollectiveCommunicator``, ``state.comm``): the
+JAX package's control plane between processes, over the native message bus
+(``backend/native.py``). ``smp.send``/``smp.recv_from`` are in-order
+per-pair object streams (tx ``2*seq + 1``); ``broadcast``/``allgather`` over
+a group go through its first member (framework tx ``2*seq``); ``barrier`` is
+the bus's group barrier. Objects travel pickled, in the JAX package's frames,
+so a frame one package sends is one the other decodes. The JAX package runs
+its full-world broadcast, allgather and barrier as device collectives; the
+port has one process a device, so every group, the world included, rides the
+bus. The one exchange that cannot, the bus endpoints themselves, runs over
+the default ``torch.distributed`` group at ``smp.init``
+(``initialize_bus``). ``SMP_COLLECTIVE_TIMEOUT`` bounds each bus wait of a
+collective (a typed ``SMPCollectiveTimeout``), and the default group's gloo
+timeout (``backend/state.py``).
 """
 
+import atexit
+import os
+import pickle
+import socket
+import time
 from enum import Enum
 
 import torch
 import torch.distributed as dist
+
+from smdistributed_modelparallel_tpu_torch.resilience.chaos import chaos
+from smdistributed_modelparallel_tpu_torch.resilience.supervisor import _collective_timeout
+from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
+    SMPCollectiveTimeout,
+    SMPRuntimeError,
+    SMPWatchdogTimeout,
+)
+from smdistributed_modelparallel_tpu_torch.utils import profiling
+from smdistributed_modelparallel_tpu_torch.utils.flight_recorder import flight_recorder
+from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
+from smdistributed_modelparallel_tpu_torch.utils.telemetry import record_comm, record_sync_mark, telemetry, watchdog
+
+logger = get_logger()
+
+def _payload_size(obj):
+    """Bytes of ``obj`` for the comm-volume counters where nothing is
+    pickled: buffers, arrays and tensors by their size, anything else by
+    one pickle (0 when it does not pickle)."""
+    if isinstance(obj, (bytes, bytearray, memoryview)):
+        return len(obj)
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if hasattr(obj, "nbytes"):
+        return int(obj.nbytes)
+    try:
+        return len(pickle.dumps(obj))
+    except Exception:
+        return 0
 
 
 class CommGroup(Enum):
@@ -47,6 +92,36 @@ class CommGroup(Enum):
     RDP_GROUP = 4
     MP_GROUP = 5
     CP_GROUP = 6  # TPU extension
+
+
+class RankType(Enum):
+    WORLD_RANK = 0
+    PP_RANK = 1
+    TP_RANK = 2
+    DP_RANK = 3
+    RDP_RANK = 4
+    MP_RANK = 5
+
+
+def _local_ip():
+    """This host's address for peer connections: ``SMP_BUS_HOST``; the
+    loopback when the job's master (``MASTER_ADDR``) is on this host; else
+    the address of the interface the route to the master takes (a UDP
+    socket's connect sends nothing)."""
+    override = os.environ.get("SMP_BUS_HOST")
+    if override:
+        return override
+    master = os.environ.get("MASTER_ADDR", "").strip()
+    if not master or master in ("localhost", "127.0.0.1", "::1"):
+        return "127.0.0.1"
+    try:
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s.connect((master, 1))
+        ip = s.getsockname()[0]
+        s.close()
+        return ip
+    except OSError:
+        return "127.0.0.1"
 
 
 def device_key(device):
@@ -181,3 +256,294 @@ class TensorGroup:
             flat = op(torch.cat([t.reshape(-1) for t in ts]))
             for t, part in zip(ts, flat.split([t.numel() for t in ts])):
                 t.copy_(part.view_as(t))
+
+
+class CollectiveCommunicator:
+    """Object broadcast, allgather, barrier and point-to-point streams
+    between the processes of the job (``state.comm``). ``dest``/``src`` and
+    ``src`` of a broadcast are indices within the group's process list;
+    the port runs one process a device, so a group's processes are its
+    ranks."""
+
+    def __init__(self):
+        self._bus = None
+        self._bus_failed = False
+        self._send_seq = {}
+        self._recv_seq = {}
+        # Barrier ordinals of the sync marks, per group: apart from the
+        # flight recorder's sequence, which goes away with the ring.
+        self._barrier_seq = {}
+        # Framework streams (even tx ids), apart from the user API's (odd).
+        self._int_send_seq = {}
+        self._int_recv_seq = {}
+
+    @staticmethod
+    def _world():
+        from smdistributed_modelparallel_tpu_torch.backend.state import state
+
+        return state.world_size if state.initialized else 1
+
+    @staticmethod
+    def _me():
+        from smdistributed_modelparallel_tpu_torch.backend.state import state
+
+        return state.rank if state.initialized else 0
+
+    @property
+    def bus(self):
+        return self._bus
+
+    # -- bus lifecycle --------------------------------------------------
+
+    def initialize_bus(self, rank=None, world=None):
+        """Bring the native bus up: listen locally, then one exchange of
+        the endpoints over the default ``torch.distributed`` group that
+        every rank enters whatever happened locally, so that a failed
+        local bring-up (no library, a bind error) disables the bus on every
+        rank alike. One process needs no exchange. Returns the bus, or None
+        when the library is unavailable somewhere."""
+        if self._bus is not None:
+            return self._bus
+        from smdistributed_modelparallel_tpu_torch.backend import native
+
+        rank = self._me() if rank is None else rank
+        world = self._world() if world is None else world
+        lib = native.load()
+        bus, endpoint = None, None
+        if lib is not None:
+            bus = native.MessageBus(lib)
+            try:
+                endpoint = f"{_local_ip()}:{bus.listen(0)}"
+            except OSError as e:
+                logger.warning("native bus listener failed: %s", e)
+                bus.shutdown()
+                bus = None
+        if world == 1:
+            if bus is None:
+                self._bus_failed = True
+                return None
+            bus.connect(0, 1, [endpoint])
+            # A multi-process bus is closed by the exit-status relay
+            # (state.shutdown), which must run first; one process has none.
+            atexit.register(self.shutdown)
+        else:
+            endpoints = [None] * world
+            dist.all_gather_object(endpoints, endpoint)
+            if any(e is None for e in endpoints):
+                if bus is not None:
+                    bus.shutdown()
+                logger.warning("native message bus disabled: unavailable on at least one peer process.")
+                self._bus_failed = True
+                return None
+            bus.connect(rank, world, endpoints)
+        self._bus_failed = False
+        self._bus = bus
+        logger.debug("native message bus up at %s", endpoint)
+        return bus
+
+    def _get_bus(self, required_by):
+        if self._bus is not None:
+            return self._bus
+        if self._world() == 1 and not self._bus_failed:
+            bus = self.initialize_bus()
+            if bus is not None:
+                return bus
+        raise SMPRuntimeError(
+            f"{required_by} needs the native message bus (native/src/*.cc built into the port's _build/), which "
+            "is not up: it failed to build or load, or SMP_DISABLE_NATIVE=1."
+        )
+
+    def shutdown(self):
+        if self._bus is not None:
+            self._bus.shutdown()
+            self._bus = None
+        self._send_seq.clear()
+        self._recv_seq.clear()
+        self._int_send_seq.clear()
+        self._int_recv_seq.clear()
+        self._barrier_seq.clear()
+
+    # -- group -> processes ---------------------------------------------
+
+    def group_processes(self, group=CommGroup.WORLD):
+        """The processes of this process's ``group``, in group order. WORLD
+        (and one process) is every process."""
+        from smdistributed_modelparallel_tpu_torch.backend import core
+
+        world = list(range(self._world()))
+        if group in (None, CommGroup.WORLD) or len(world) == 1:
+            return world
+        getter = {
+            CommGroup.PP_GROUP: core.get_pp_group,
+            CommGroup.TP_GROUP: core.get_tp_group,
+            CommGroup.DP_GROUP: core.get_dp_group,
+            CommGroup.RDP_GROUP: core.get_rdp_group,
+            CommGroup.MP_GROUP: core.get_mp_group,
+            CommGroup.CP_GROUP: core.get_cp_group,
+        }.get(group)
+        return (list(getter()) or world) if getter is not None else world
+
+    # -- collectives ----------------------------------------------------
+
+    def broadcast(self, obj, group=CommGroup.WORLD, src=0):
+        """Member ``src``'s picklable ``obj``, on every member of ``group``."""
+        chaos.on_collective("broadcast", getattr(group, "name", group))
+        procs = self.group_processes(group)
+        if len(procs) == 1:
+            record_comm("broadcast", group, _payload_size(obj), 1)
+            return obj
+        with watchdog.guard(f"broadcast/{getattr(group, 'name', group)}"), \
+                profiling.region("collective/broadcast", track="host"):
+            out, nbytes = self._bus_broadcast(obj, procs, src, group)
+        record_comm("broadcast", group, nbytes, len(procs))
+        return out
+
+    def allgather(self, obj, group=CommGroup.WORLD):
+        """Every member's picklable ``obj``, as a list in group order."""
+        chaos.on_collective("allgather", getattr(group, "name", group))
+        procs = self.group_processes(group)
+        if len(procs) == 1:
+            record_comm("allgather", group, _payload_size(obj), 1)
+            return [obj]
+        with watchdog.guard(f"allgather/{getattr(group, 'name', group)}"), \
+                profiling.region("collective/allgather", track="host"):
+            out, nbytes = self._bus_allgather(obj, procs, group)
+        record_comm("allgather", group, nbytes, len(procs))
+        return out
+
+    def _member(self, procs, group, what):
+        me = self._me()
+        if me not in procs:
+            raise SMPRuntimeError(f"{what} over {group} called from process {me}, which is not a member of that group.")
+        return me
+
+    def _bus_broadcast(self, obj, procs, src, group):
+        me = self._member(procs, group, "broadcast")
+        if src < 0 or src >= len(procs):
+            raise SMPRuntimeError(f"broadcast src {src} out of range for group {group} ({len(procs)} processes).")
+        root = procs[src]
+        if me == root:
+            payload = pickle.dumps(obj)
+            for p in procs:
+                if p != me:
+                    self._int_send_bytes(p, payload)
+            return obj, len(payload)
+        return self._int_recv(root, group=group, phase="broadcast")
+
+    def _bus_allgather(self, obj, procs, group):
+        me = self._member(procs, group, "allgather")
+        root = procs[0]
+        if me == root:
+            gathered, nbytes = [], 0
+            for p in procs:
+                if p == me:
+                    gathered.append(obj)
+                else:
+                    o, n = self._int_recv(p, group=group, phase="allgather")
+                    gathered.append(o)
+                    nbytes += n
+            payload = pickle.dumps(gathered)
+            for p in procs:
+                if p != me:
+                    self._int_send_bytes(p, payload)
+            return gathered, nbytes + len(payload)
+        self._int_send_bytes(root, pickle.dumps(obj))
+        return self._int_recv(root, group=group, phase="allgather")
+
+    def _int_send_bytes(self, dest, payload):
+        bus = self._get_bus("framework collective")
+        seq = self._int_send_seq.get(dest, 0)
+        bus.send_bytes(dest, payload, 2 * seq)
+        self._int_send_seq[dest] = seq + 1
+        return len(payload)
+
+    def _int_recv(self, src, timeout_ms=-1, group=None, phase="recv"):
+        bus = self._get_bus("framework collective")
+        seq = self._int_recv_seq.get(src, 0)
+        ct = _collective_timeout()
+        if timeout_ms < 0 and ct is not None:
+            timeout_ms = max(int(ct * 1000), 1)
+        try:
+            payload = bus.recv_bytes(src, 2 * seq, timeout_ms)
+        except TimeoutError:
+            g = getattr(group, "name", None) or str(group)
+            raise SMPCollectiveTimeout(g, phase, flight_recorder.last_seq(g)) from None
+        self._int_recv_seq[src] = seq + 1
+        return pickle.loads(payload), len(payload)
+
+    def barrier(self, name="smp_ccl_barrier", group=CommGroup.WORLD):
+        """Barrier over the processes of ``group``, on the bus; then the
+        group's sync mark (the cross-rank clock alignment point)."""
+        procs = self.group_processes(group)
+        gname = getattr(group, "name", None) or str(group)
+        chaos.on_collective("barrier", gname)
+        record_comm("barrier", group, 0, len(procs))
+        seq = self._barrier_seq.get(gname, 0)
+        self._barrier_seq[gname] = seq + 1
+        if len(procs) > 1:
+            self._member(procs, group, "barrier")
+            ct = _collective_timeout()
+            t0 = time.monotonic()
+            if len(procs) == self._world():
+                telemetry.set_phase(f"barrier/{name}")
+            with profiling.region(f"collective/barrier/{gname}", track="host"), watchdog.guard(f"barrier/{gname}"):
+                bus = self._get_bus(f"smp.barrier({group})")
+                try:
+                    if ct is None:
+                        bus.barrier(procs)
+                    else:
+                        bus.barrier(procs, timeout_ms=max(int(ct * 1000), 1))
+                except (OSError, SMPWatchdogTimeout) as e:
+                    # Only a wait that used the configured deadline is a
+                    # typed collective timeout; a bus that is down stays
+                    # OSError.
+                    if ct is not None and time.monotonic() - t0 >= 0.9 * ct:
+                        raise SMPCollectiveTimeout(gname, "barrier", flight_recorder.last_seq(gname)) from e
+                    raise
+        self._record_sync(name, gname, seq)
+
+    @staticmethod
+    def _record_sync(name, gname, seq):
+        from smdistributed_modelparallel_tpu_torch.backend.state import state
+
+        record_sync_mark(name, gname, seq)
+        tl = state.timeline
+        if tl is not None and tl.enabled:
+            tl.sync_mark(name, gname, seq)
+
+    # -- point to point ---------------------------------------------------
+
+    def send(self, obj, dest, group=CommGroup.WORLD):
+        """Send a picklable object to process ``dest`` of ``group``; returns
+        once it is queued (the bus's sender thread delivers it)."""
+        gdest = self._resolve_peer(dest, group, "send dest")
+        bus = self._get_bus("smp.send")
+        seq = self._send_seq.get(gdest, 0)
+        payload = pickle.dumps(obj)
+        bus.send_bytes(gdest, payload, 2 * seq + 1)
+        self._send_seq[gdest] = seq + 1  # only after the enqueue: a failed send may be retried
+        record_comm("send", group, len(payload), 2)
+
+    def recv_from(self, src, group=CommGroup.WORLD, timeout_ms=-1):
+        """The next object, in order, that process ``src`` of ``group`` sent
+        to this one."""
+        gsrc = self._resolve_peer(src, group, "recv_from src")
+        bus = self._get_bus("smp.recv_from")
+        seq = self._recv_seq.get(gsrc, 0)
+        telemetry.set_phase(f"recv_from/{gsrc}")
+        payload = bus.recv_bytes(gsrc, 2 * seq + 1, timeout_ms)
+        self._recv_seq[gsrc] = seq + 1
+        record_comm("recv_from", group, len(payload), 2)
+        return pickle.loads(payload)
+
+    def poll(self, src, group=CommGroup.WORLD):
+        """True when the next object from ``src`` has arrived."""
+        gsrc = self._resolve_peer(src, group, "poll src")
+        bus = self._get_bus("smp.poll")
+        return bus.poll(gsrc, 2 * self._recv_seq.get(gsrc, 0) + 1)
+
+    def _resolve_peer(self, idx, group, what):
+        procs = self.group_processes(group)
+        if idx < 0 or idx >= len(procs):
+            raise SMPRuntimeError(f"{what} {idx} out of range for group {group} ({len(procs)} processes).")
+        return procs[idx]

@@ -13,9 +13,16 @@ one process per device. ``smp.init`` reads the usual launcher variables
 without them the world is one process, as before. It builds the
 ``DeviceTopology`` (whose degree check refuses what the device count cannot
 hold) and, for a world of more than one, starts ``torch.distributed`` (a gloo
-default group at ``tcp://MASTER_ADDR:MASTER_PORT``) and creates one
-``TensorGroup`` for every mesh axis of size > 1, its transport chosen once
-from the members' devices (``backend/collectives.py``).
+default group at ``tcp://MASTER_ADDR:MASTER_PORT``, whose timeout is
+``SMP_COLLECTIVE_TIMEOUT`` when it is set, so that a collective with a dead
+peer raises instead of waiting for ever), brings the native host bus up
+(``comm``, the ``backend/collectives.CollectiveCommunicator``, under the
+telemetry phase ``init/distributed``), gathers every rank's host name
+(``hosts``) and creates one ``TensorGroup`` for every mesh axis of size > 1
+(at rdp = 2, ``group("rdp")`` is the data-parallel group), its transport
+chosen once from the members' devices (``backend/collectives.py``). The
+recovery supervisor re-initializes a shrunken world in-process: it starts
+the new default group itself and passes the survivors' ``(rank, world)``.
 
 Device. An explicit ``smp.init(device=...)`` wins. Otherwise, under a
 launcher (``LOCAL_RANK`` or ``WORLD_SIZE`` set), the device is
@@ -41,7 +48,8 @@ module's ``nn/utils.make_rng`` reads.
 rank's contiguous sequence shard under context parallelism: attention then
 runs the cp ring (or Ulysses) and positions are offset by the shard's start.
 Outside a step (``smp.generate``, a bare model call) every rank holds whole
-sequences and computes as at cp = 1.
+sequences and computes as at cp = 1. ``rdp_sharded`` is True while a step
+runs this rank's rows under data parallelism (rdp > 1).
 
 ``module_manager`` is the ``module_manager.ModuleManager`` that
 ``smp.set_activation_checkpointing``, ``smp.set_tensor_parallelism``,
@@ -53,8 +61,11 @@ main thread), starts the supervisor and the fleet metrics plane; ``shutdown``
 stops the plane after the goodput ledger's final publish; ``smp.reset`` puts
 SIGTERM's previous handler back and clears the health monitor, the chaos
 rules and the supervisor (``resilience/``, ``utils/health.py``,
-``utils/fleet.py``). ``bus`` is the multi-process host bus they talk over,
-None until the native bus of ROADMAP item 5.
+``utils/fleet.py``). ``bus`` is the native host bus they talk over
+(``comm.bus``): None at one rank until something asks for it, and after
+``shutdown``, which relays the exit status to rank 0 over it first and then
+closes it. ``smp.reset`` keeps it, as the JAX package keeps its
+communicator.
 
 Observability. ``smp.init`` walks the telemetry phases of the JAX package's
 core (``init/distributed``, ``init/topology`` under the watchdog's guard,
@@ -78,6 +89,7 @@ drops it.
 
 import atexit
 import os
+import socket
 
 from smdistributed_modelparallel_tpu_torch.utils import profiling
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import NotInitializedError, SMPValidationError
@@ -111,13 +123,30 @@ class ModelParallelState:
     def __init__(self):
         self.exit_hook = None
         self._atexit_registered = False
+        self._comm = None
         self._clear()
 
     @property
     def initialized(self):
         return self.cfg is not None
 
-    def initialize(self, cfg, device=None):
+    @property
+    def comm(self):
+        """The host control-plane communicator (made at first use)."""
+        if self._comm is None:
+            from smdistributed_modelparallel_tpu_torch.backend.collectives import CollectiveCommunicator
+
+            self._comm = CollectiveCommunicator()
+        return self._comm
+
+    @property
+    def bus(self):
+        """The native host bus (``poll``/``send_bytes``/``recv_bytes``/
+        ``barrier``/``peer_down``/``rank``/``world`` ...), None when it is
+        not up."""
+        return self._comm.bus if self._comm is not None else None
+
+    def initialize(self, cfg, device=None, world=None):
         from smdistributed_modelparallel_tpu_torch.backend.topology import DeviceTopology
         from smdistributed_modelparallel_tpu_torch.nn.auto_distribute import register_builtins
         from smdistributed_modelparallel_tpu_torch.nn.huggingface import register_predefined_hooks
@@ -127,9 +156,21 @@ class ModelParallelState:
         self._clear()
         telemetry.set_phase("init/distributed")
         launched = "WORLD_SIZE" in os.environ or "LOCAL_RANK" in os.environ
-        world = _env_int("WORLD_SIZE", 1)
-        rank = _env_int("RANK", 0)
+        if world is None:
+            rank, world = _env_int("RANK", 0), _env_int("WORLD_SIZE", 1)
+        else:
+            rank, world = world
         local_rank = _env_int("LOCAL_RANK", 0)
+        if device is None and launched:
+            device = _launcher_device(local_rank)
+        hosts = [socket.gethostname()]
+        if world > 1:
+            keys = _start_distributed(world, rank, device)
+            hosts = [h for h, _ in keys]
+            with watchdog.guard("init/distributed"):
+                if self.comm.initialize_bus(rank, world) is None:
+                    logger.warning("the native host bus is not up: smp.send/recv_from, the group barriers and the "
+                                   "multi-rank resilience paths will raise.")
         telemetry.set_phase("init/topology")
         with watchdog.guard("init/topology"):
             telemetry.process_index = rank
@@ -137,9 +178,7 @@ class ModelParallelState:
             topology = DeviceTopology(cfg, world)
             if not 0 <= rank < topology.size:
                 raise SMPValidationError(f"RANK={rank} lies outside the {topology.size} device(s) of the topology.")
-            if device is None and launched:
-                device = _launcher_device(local_rank)
-            groups = _build_groups(topology, world, rank, device) if world > 1 else {}
+            groups = _build_groups(topology, rank, device, [k for _, k in keys]) if world > 1 else {}
         telemetry.set_phase("initialized")
         self.cfg = cfg
         self.device = device
@@ -150,6 +189,7 @@ class ModelParallelState:
         register_builtins(self.tp_registry)
         register_predefined_hooks(self.tp_registry)
         self.groups = groups
+        self.hosts = hosts
         logger.info("Initialized %s over %d rank(s); this is rank %d.", topology, world, rank)
         if cfg.fp16:
             from smdistributed_modelparallel_tpu_torch.fp16.loss_scaler import DynamicLossScaler
@@ -204,12 +244,17 @@ class ModelParallelState:
             fleet.stop()
         except Exception as e:
             logger.warning("fleet metrics plane stop failed: %s", e)
-        if not self.exit_status():
+        success = self.exit_status()
+        if not success:
             logger.error(
                 "process %d shutting down after failure (exit_code=%r, exception=%r)",
                 self.rank, self.exit_hook.exit_code, self.exit_hook.exception,
             )
+        from smdistributed_modelparallel_tpu_torch.backend.core import relay_exit_status
         from smdistributed_modelparallel_tpu_torch.checkpoint import wait_for_checkpoints
+
+        # Before the bus closes (it closes it): the exit status to rank 0.
+        relay_exit_status(success)
 
         try:
             wait_for_checkpoints()
@@ -256,17 +301,18 @@ class ModelParallelState:
         self.loaded_model_state = None
         self.loaded_optimizer_state = None
         self.world_size, self.rank, self.local_rank = 1, 0, 0
+        self.hosts = None  # every rank's host name, by rank
         self.topology = None
         self.groups = {}
         self.cp_sharded = False
+        self.rdp_sharded = False  # a data-parallel step runs this rank's rows
         self.module_manager = None  # the module annotations (module_manager.py)
         self.tp_registry = None
         self.timeline = None  # utils/timeline.Timeline (SMP_TIMELINE_PATH)
         self.memory_metrics = None  # utils/metrics.StepMemoryMetricsCollector
-        # The multi-process host bus the resilience modules and the fleet
-        # plane talk over (poll/send_bytes/recv_bytes/barrier, ...): the
-        # native bus of ROADMAP item 5. None: one process, or no bus yet.
-        self.bus = None
+        if self._comm is not None:
+            # Barrier ordinals restart with the session on every rank alike.
+            self._comm._barrier_seq.clear()
 
     def check(self):
         if self.cfg is None:
@@ -299,25 +345,26 @@ def _start_resilience():
     fleet.start()
 
 
-def _build_groups(topology, world, rank, device):
-    """Start ``torch.distributed`` (gloo) if the caller has not, and create
-    every group of every mesh axis of size > 1 (all ranks create all groups,
-    in one order); return ``{axis: this rank's TensorGroup}``."""
+def _start_distributed(world, rank, device):
+    """Start ``torch.distributed`` (gloo, the default group's timeout
+    ``SMP_COLLECTIVE_TIMEOUT``) if the caller has not, and gather every
+    rank's ``(host name, device key)``."""
+    import datetime
+
     import torch
     import torch.distributed as dist
 
-    from smdistributed_modelparallel_tpu_torch.backend.collectives import (
-        TensorGroup,
-        choose_transport,
-        device_key,
-    )
+    from smdistributed_modelparallel_tpu_torch.backend.collectives import device_key
+    from smdistributed_modelparallel_tpu_torch.resilience.supervisor import _collective_timeout
 
     if not dist.is_initialized():
         port = os.environ.get("MASTER_PORT", "").strip()
         if not port:
             raise SMPValidationError("WORLD_SIZE > 1 needs MASTER_ADDR and MASTER_PORT to start torch.distributed.")
         addr = os.environ.get("MASTER_ADDR", "localhost").strip() or "localhost"
-        dist.init_process_group("gloo", init_method=f"tcp://{addr}:{port}", world_size=world, rank=rank)
+        timeout = _collective_timeout()
+        kw = {"timeout": datetime.timedelta(seconds=timeout)} if timeout else {}
+        dist.init_process_group("gloo", init_method=f"tcp://{addr}:{port}", world_size=world, rank=rank, **kw)
     elif dist.get_world_size() != world or dist.get_rank() != rank:
         raise SMPValidationError(
             f"torch.distributed runs rank {dist.get_rank()} of {dist.get_world_size()}, but the launcher "
@@ -326,7 +373,18 @@ def _build_groups(topology, world, rank, device):
     if device is not None and torch.device(device).type == "cuda" and torch.device(device).index is not None:
         torch.cuda.set_device(torch.device(device))  # NCCL works on the current device
     keys = [None] * world
-    dist.all_gather_object(keys, device_key(device or "cuda"))
+    dist.all_gather_object(keys, (socket.gethostname(), device_key(device or "cuda")))
+    return keys
+
+
+def _build_groups(topology, rank, device, keys):
+    """Create every group of every mesh axis of size > 1 (all ranks create
+    all groups, in one order; ``keys`` are the ranks' device keys); return
+    ``{axis: this rank's TensorGroup}``."""
+    import torch.distributed as dist
+
+    from smdistributed_modelparallel_tpu_torch.backend.collectives import TensorGroup, choose_transport
+
     groups = {}
     for axis, size in zip(topology.axis_names, topology.axis_sizes):
         if size == 1:

@@ -3,7 +3,7 @@
 Counterpart of ``smdistributed_modelparallel_tpu/backend/topology.py``
 (``DeviceTopology``) without a ``jax.sharding.Mesh``: each rank of the
 ``torch.distributed`` world is one device, and the mesh is the rank grid in
-placement order. The same degree check refuses a configuration the device
+placement order (``DeviceMesh``, whose ``shape`` is the JAX mesh's). The same degree check refuses a configuration the device
 count cannot hold (``DeviceCountError``), the same axis names and order give
 each rank its coordinates (``coords``, ``cp_rank``), and ``axis_group`` lists
 the ranks that share a rank's coordinates off one axis, in axis order.
@@ -31,6 +31,23 @@ def _letter_axes(letter):
     if letter == "T":
         return [TP_AXIS]
     return [RDP_AXIS, EP_AXIS, CP_AXIS]
+
+
+class DeviceMesh:
+    """The rank grid in place of a ``jax.sharding.Mesh``: ``shape`` is the
+    same ``{axis: size}`` mapping (in mesh order), ``axis_names`` the axes
+    and ``devices`` the grid of global ranks."""
+
+    def __init__(self, axis_names, axis_sizes):
+        import numpy as np
+
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(axis_names, axis_sizes))
+        self.devices = np.arange(int(np.prod(axis_sizes))).reshape(axis_sizes)
+        self.size = self.devices.size
+
+    def __repr__(self):
+        return f"DeviceMesh({self.shape})"
 
 
 class DeviceTopology:
@@ -66,6 +83,7 @@ class DeviceTopology:
                 axis_sizes.append(getattr(self, f"{ax}_size"))
         self.axis_names = tuple(axis_names)
         self.axis_sizes = tuple(axis_sizes)
+        self.mesh = DeviceMesh(self.axis_names, self.axis_sizes)
 
     def coords(self, rank):
         """Dict of mesh-axis name -> coordinate for a global rank index."""

@@ -8,7 +8,11 @@ after it, ``parameters``/``num_parameters`` and ``train``/``eval``. Inside
 a step, ``model(...)`` runs the module on the parameters the step engine
 bound for the microbatch (half casts of the fp32 master parameters under
 bf16/fp16), and ``model.backward(loss)`` marks the loss that the engine
-differentiates. Pipeline and tensor parallelism arrive with later slices.
+differentiates. Under context or data parallelism (cp or rdp > 1) the
+parameters and buffers are broadcast from the group's first rank at build,
+and inside a data-parallel step a key drawn for a module raises (each rank
+would need its rows' part of the global mask). Pipeline and tensor
+parallelism arrive with later slices.
 
 Random keys. ``rngs`` names the key streams the module draws from besides
 its parameters (``("dropout",)``, as in the JAX package). Inside a step the
@@ -70,7 +74,7 @@ import torch
 
 from smdistributed_modelparallel_tpu_torch import convert
 from smdistributed_modelparallel_tpu_torch.backend.state import state
-from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS
+from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS, RDP_AXIS
 from smdistributed_modelparallel_tpu_torch.nn.utils import collect_program_ticks
 from smdistributed_modelparallel_tpu_torch.utils import random
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
@@ -133,11 +137,12 @@ class DistributedModel:
         self._key_tapes = []        # keys drawn are appended to each (checkpointed regions' forwards)
         self._key_replay = None     # iterator of the keys a recompute draws instead
         self._rng_scopes = _rng_scopes(self.module)
-        group = state.group(CP_AXIS)
-        if group is not None:
-            # Parameters are replicated over cp: every rank starts from the
-            # group's first rank's.
-            group.flat_(group.broadcast, [*self.module.parameters(), *self.module.buffers()])
+        for axis in (CP_AXIS, RDP_AXIS):
+            group = state.group(axis)
+            if group is not None:
+                # Parameters are replicated over cp and rdp: every rank
+                # starts from the group's first rank's.
+                group.flat_(group.broadcast, [*self.module.parameters(), *self.module.buffers()])
         self._grads = None          # {name: grad} of the last training step
         self._grads_finite = None   # bool under fp16 loss scaling
         self._bound = None          # {name: tensor} bound for the current microbatch
@@ -255,6 +260,12 @@ class DistributedModel:
         if self._key_replay is not None:
             key = next(self._key_replay)
         else:
+            if state.rdp_sharded:
+                raise NotImplementedError(
+                    f"{type(module).__name__} draws a {name!r} key inside a data-parallel step (rdp = "
+                    f"{state.topology.rdp_size}): each rank would have to draw its rows' part of the global mask at "
+                    "its row offset, which is not ported to PyTorch yet (ROADMAP Queue 1 item 6)."
+                )
             key = self._derive_key(module, name, child)
         for tape in self._key_tapes:
             tape.append(key)
@@ -346,7 +357,10 @@ class DistributedModel:
     def load_state_dict(self, state_dict):
         """Load torch's ``state_dict``, a reference-keyed flat dict
         (``reference_state_dict``, the JAX package's ``state_dict()``) or a
-        shard payload (``local_state_dict``)."""
+        shard payload (``local_state_dict``). As in the JAX package, only
+        the entries the module has are taken (a translator's ``lm_head``
+        entries for a model whose head is tied to its embedding are not),
+        and an entry the module has but the dict lacks raises."""
         from smdistributed_modelparallel_tpu_torch.shard_io import InMemoryCatalog, is_shard_payload
 
         if is_shard_payload(state_dict):
@@ -354,7 +368,15 @@ class DistributedModel:
             return
         if state_dict and not set(state_dict) & set(self.module.state_dict()):
             state_dict = self._from_reference(state_dict)
-        self.module.load_state_dict(state_dict)
+        self._load_own(state_dict)
+
+    def _load_own(self, state_dict):
+        """Load the module's own entries of a torch-named dict."""
+        own = self.module.state_dict()
+        missing = [k for k in own if k not in state_dict]
+        if missing:
+            raise SMPValidationError(f"Missing parameter '{missing[0]}' in state dict.")
+        self.module.load_state_dict({k: state_dict[k] for k in own})
         self._param_version += 1
 
     def load_sharded(self, catalog):
@@ -366,8 +388,7 @@ class DistributedModel:
             loaded = catalog.load_tree(device=self.device)
         finally:
             catalog.close()
-        self.module.load_state_dict(self._from_reference(loaded))
-        self._param_version += 1
+        self._load_own(self._from_reference(loaded))
 
     def generate(self, input_ids, max_new_tokens, **kwargs):
         """Autoregressive sampling through the KV-cache decode path; see

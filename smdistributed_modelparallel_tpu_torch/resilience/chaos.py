@@ -1,13 +1,15 @@
 """Deterministic chaos / fault-injection harness of the PyTorch port.
 
 Counterpart of ``smdistributed_modelparallel_tpu/resilience/chaos.py``, with
-the same grammar, faults, metric and ring events. At world size 1 the step
-edge (``on_step_edge``), the step's dispatch (``on_step_dispatch``), the
-serving engine's decode tick (``on_serve_decode``) and its ``adopt_params``
-(``on_weight_update``) call it. ``on_heartbeat``, ``on_bus_send``,
-``on_collective`` and ``on_scale_event`` have no caller in the port yet: the
-native bus, the host collectives' seam and the serving controller come with
-later slices.
+the same grammar, faults, metric and ring events. The step edge
+(``on_step_edge``), the step's dispatch (``on_step_dispatch``), the serving
+engine's decode tick (``on_serve_decode``) and its ``adopt_params``
+(``on_weight_update``) call it, and, where the JAX package calls them, the
+native bus's sends (``on_bus_send``, ``backend/native.py``), the host
+collectives (``on_collective``, ``backend/collectives.py``) and the failure
+detector's heartbeats (``on_heartbeat``, ``resilience/supervisor.py``).
+``on_scale_event`` has no caller yet: the serving controller comes with ROADMAP
+item 5b.
 
 Production resilience claims are worthless untested: "we recover from a
 preempted rank" has to be demonstrated against an *actual* preempted rank.

@@ -3,10 +3,13 @@
 Counterpart of ``smdistributed_modelparallel_tpu/resilience/preemption.py``,
 with the same env vars, reserved tx ids, metric and ring events. At world
 size 1 there is no peer bus (``_peer_bus()`` is None), so the notice, the
-rendezvous and the step exchange are skipped, as in the JAX package; their
-code stays here over the abstract bus ``state.bus`` (``poll``, ``send_bytes``,
-``recv_bytes``, ``barrier``, ``rank``, ``world``), which the native bus of a
-later slice fills. The emergency save goes through the port's
+rendezvous and the step exchange are skipped, as in the JAX package. At world
+> 1 they run over ``state.bus``, the native bus ``smp.init`` brings up
+(``poll``, ``send_bytes``, ``recv_bytes``, ``barrier``, ``rank``, ``world``),
+and the step edge first agrees over the default group whether any rank was
+preempted (``agree_at_edge``: the port's step runs its collectives eagerly,
+and a rank must not enter the next step's all-reduce while a peer waits in
+the rendezvous). The emergency save goes through the port's
 ``save_checkpoint``.
 
 Cloud GPU instances get maintenance events and spot preemptions as a matter
@@ -310,6 +313,35 @@ class PreemptionListener:
         except Exception as e:
             logger.error("preemption bus rendezvous failed: %s", e)
             return None
+
+    def agree_at_edge(self):
+        """At world > 1, the step edge's agreement, before
+        ``maybe_emergency_save``: one all-reduce (max) of a flag over the
+        default ``torch.distributed`` group (gloo, a host integer), so that a
+        preemption any rank saw (its SIGTERM, its sentinel file, a peer's
+        notice) stops every rank at this same edge. Without it a rank that
+        waits in the bus rendezvous and a rank that already waits in the next
+        step's gradient all-reduce would wait on each other. A rank that
+        learns of a peer's preemption here takes the peer's notice off the
+        bus (tx -2; the peer posts it as its save starts), so its reason is
+        ``peer_notice`` as in the JAX package."""
+        import torch
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_world_size() <= 1:
+            return
+        if self._save_at_step is not None or self.emergency_saved:
+            return
+        local = self.check() is not None
+        flag = torch.tensor([int(local)], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        if not flag.item() or local:
+            return
+        deadline = time.monotonic() + min(grace_seconds(), 10.0)
+        while not self._poll_peers() and self._peer_bus() is not None and time.monotonic() < deadline:
+            time.sleep(0.002)
+        self._requested = "peer_notice"
+        self._requested_at = time.monotonic()
 
     def maybe_emergency_save(self):
         """Step-engine edge hook: no-op until a preemption trigger fires,

@@ -26,19 +26,28 @@ on every survivor (``_agree_checkpoint``, ``latest_committed_checkpoint``),
 send evicted-but-alive peers a notice (tx ``-5``), then reform the world at
 the survivors and ``resume_from_checkpoint(elastic=True)``.
 
-What runs at world size 1. The host bus is ``state.bus`` (``poll``,
-``send_bytes``, ``send_raw``, ``recv_bytes``, ``drain_bytes``, ``barrier``,
-``peer_down``, ``rank``, ``world``); the port has none yet (the native bus
-of ROADMAP item 5), so ``start()`` arms no detector and, under
-``SMP_SUPERVISOR=on``, sets ``active`` for the step-edge hook, as the JAX
-package does on a one-process world; ``recover(error)`` re-raises the
-caller's error untouched. The detector, the rendezvous and the agreement
-are ported whole and run over any object with that interface (the tests
-hold them on a fake bus). Re-forming the world (``initialize_distributed``,
-``_teardown_world``, ``_abandon_distributed``, ``_clear_runtime``,
-``_reinit_framework``) needs that bus and a ``torch.distributed`` world that
-can be rebuilt in-process; each raises ``SMPUnsupportedError`` naming item 5,
-and at world size 1 nothing reaches them.
+The host bus is ``state.bus``, the native bus (``backend/native.py``) that
+``smp.init`` brings up at world > 1 (the detector, the rendezvous and the
+agreement run over any object with its ``poll``/``send_bytes``/``send_raw``/
+``recv_bytes``/``drain_bytes``/``barrier``/``peer_down``/``rank``/``world``,
+and the tests also hold them on a fake bus). At one rank ``start()`` arms no
+detector and, under ``SMP_SUPERVISOR=on``, sets ``active`` for the step-edge
+hook, as the JAX package does on a one-process world; ``recover(error)``
+re-raises the caller's error untouched.
+
+Re-forming the world, in-process: ``_teardown_world`` closes the old bus;
+``_abandon_distributed`` drops the old ``torch.distributed`` world without a
+collective on it (gloo's ``destroy_process_group`` returns at once with a
+dead peer); ``initialize_distributed`` starts a new default group at the
+coordinator endpoint the lowest survivor published in the rendezvous, at the
+survivors' world size (none for a world of one); ``_reinit_framework`` runs
+``smp.init`` there (the old config, or plain data parallelism when it does
+not fit), which brings a new bus up and re-arms the detector; then
+``resume_from_checkpoint(elastic=True)``. A collective in flight when a peer
+dies raises at the socket's EOF (gloo) or at ``SMP_COLLECTIVE_TIMEOUT``, and
+the step turns it into the ``SMPPeerLost`` that ``recover`` accepts. A
+supervised job may start its world with ``initialize_distributed`` or with
+the launcher variables.
 
 Detections land in ``smp_failures_detected_total{kind=}`` and the flight
 recorder (``supervisor`` events); a recovery in ``smp_recoveries_total``,
@@ -63,7 +72,6 @@ from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     SMPEvicted,
     SMPPeerLost,
     SMPRecoveryError,
-    SMPUnsupportedError,
     SMPWatchdogTimeout,
 )
 from smdistributed_modelparallel_tpu_torch.utils.flight_recorder import (
@@ -354,6 +362,7 @@ class Supervisor:
         self._await_first_step = None   # pending MTTR closure
         self._recover_ckpt_path = None  # set per recover() call
         self.last_report = None
+        self._world = None  # (rank, world) of the next smp.init, set by a supervised bring-up
 
     # -- lifecycle (state.initialize / smp.shutdown) --------------------
 
@@ -476,21 +485,35 @@ class Supervisor:
     def failures(self):
         return dict(self.detector.failures()) if self.detector else {}
 
-    # -- re-forming the world (ROADMAP item 5) ---------------------------
-
-    @staticmethod
-    def _needs_bus(what):
-        return SMPUnsupportedError(
-            f"smp.supervisor: {what} needs the native host bus and an in-process rebuild of the "
-            "torch.distributed world, which the PyTorch port does not have yet (ROADMAP item 5)."
-        )
+    # -- the supervised world --------------------------------------------
 
     def initialize_distributed(self, coordinator_address, num_processes,
                                process_id, init_timeout=120):
-        """Bring up the distributed runtime for a supervised job (the JAX
-        package's ``jax.distributed`` bring-up without the coordination
-        service's own failure handling). Not ported: ROADMAP item 5."""
-        raise self._needs_bus("initialize_distributed")
+        """Start the ``torch.distributed`` default group (gloo) of a
+        supervised world at ``coordinator_address`` ("host:port", hosted by
+        process 0), with the ``SMP_COLLECTIVE_TIMEOUT`` timeout (else
+        ``init_timeout`` seconds) so that a collective with a dead peer
+        raises. The heartbeats, not the store, detect failures, and a failed
+        world is abandoned without a collective (``_abandon_distributed``).
+        ``smp.init`` then runs in the world this starts."""
+        import datetime
+
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            raise SMPRecoveryError(
+                "torch.distributed is already initialized; a supervised bring-up must come before any other "
+                "init_process_group call."
+            )
+        timeout = _collective_timeout() or float(init_timeout)
+        dist.init_process_group("gloo", init_method=f"tcp://{coordinator_address}", world_size=num_processes,
+                                rank=process_id, timeout=datetime.timedelta(seconds=timeout))
+        self._world = (process_id, num_processes)
+        # A later smp.init (and the launcher-variable readers) see this world.
+        host, port = coordinator_address.rsplit(":", 1)
+        os.environ.update(RANK=str(process_id), WORLD_SIZE=str(num_processes), MASTER_ADDR=host, MASTER_PORT=port)
+        logger.info("supervised torch.distributed world up: %s (%d/%d).", coordinator_address, process_id,
+                    num_processes)
 
     # -- recovery -------------------------------------------------------
 
@@ -834,25 +857,70 @@ class Supervisor:
                 pass
 
     def _teardown_world(self, state):
-        """Close the failed world's bus and drop what lives on it. Not
-        ported: ROADMAP item 5."""
-        raise self._needs_bus("_teardown_world")
+        """Drain pending saves, close the old bus (no relay: the dead peer
+        would never answer) and drop what the failed world built: the model
+        and optimizer (the caller rebuilds them), the step key and any
+        staged checkpoint state."""
+        from smdistributed_modelparallel_tpu_torch.checkpoint import wait_for_checkpoints
+
+        try:
+            wait_for_checkpoints()
+        except Exception as e:
+            logger.error("pending async save failed pre-recovery: %s", e)
+        comm = state._comm
+        if comm is not None:
+            try:
+                comm.shutdown()
+            except Exception as e:
+                logger.warning("bus shutdown during recovery failed: %s", e)
+        state.model = None
+        state.optimizer = None
+        state.module_manager = None
+        state.step_rng = None
+        state.loaded_model_state = None
+        state.loaded_optimizer_state = None
 
     def _abandon_distributed(self):
-        """Leave the failed world's distributed runtime behind without its
-        shutdown barrier. Not ported: ROADMAP item 5."""
-        raise self._needs_bus("_abandon_distributed")
+        """Drop the failed ``torch.distributed`` world without a collective
+        on it. gloo's ``destroy_process_group`` only releases the groups'
+        pairs and store (it returns at once with a dead peer, measured on
+        the CPU), so the world is destroyed, not leaked."""
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        self._world = None
+        os.environ.update(RANK="0", WORLD_SIZE="1")  # until a new world is started
 
     def _clear_runtime(self, new_world):
-        """Drop everything cached against the failed world's devices (the
-        JAX package's ``_clear_jax_runtime``). Not ported: ROADMAP item 5."""
-        raise self._needs_bus("_clear_runtime")
+        """Forget the old world's groups; the port keeps no compiled
+        program bound to a device set (the JAX package clears its backends
+        and caches here)."""
+        from smdistributed_modelparallel_tpu_torch.backend.state import state
+
+        state.groups = {}
 
     def _reinit_framework(self, state, new_config):
-        """``state.initialize`` at the survivors' world, falling back to
-        plain data parallelism when the config does not fit. Not ported:
-        ROADMAP item 5."""
-        raise self._needs_bus("_reinit_framework")
+        """``smp.init`` again at the survivors' world, on this rank's device:
+        ``new_config``, else the old config, else (when that does not fit
+        the survivors) plain data parallelism with its microbatches."""
+        from smdistributed_modelparallel_tpu_torch.backend.config import ModelParallelConfig
+        from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
+
+        device, world = state.device, self._world or (0, 1)
+        if new_config is not None:
+            cfg = new_config if isinstance(new_config, ModelParallelConfig) else ModelParallelConfig(new_config)
+            state.initialize(cfg, device=device, world=world)
+            return
+        cfg = state.cfg
+        try:
+            state.initialize(cfg, device=device, world=world)
+            return
+        except SMPValidationError as e:
+            logger.warning("previous config does not fit the %d survivor(s) (%s); falling back to plain data "
+                           "parallelism.", world[1], e)
+        state.initialize(ModelParallelConfig({"ddp": True, "microbatches": cfg.microbatches}), device=device,
+                         world=world)
 
     # -- misc -----------------------------------------------------------
 
@@ -866,9 +934,9 @@ class Supervisor:
 
     @staticmethod
     def _local_ip():
-        """The address peers reach this host at: ``SMP_BUS_HOST``, else the
-        loopback address (the port's ranks share one host)."""
-        return os.environ.get("SMP_BUS_HOST") or "127.0.0.1"
+        from smdistributed_modelparallel_tpu_torch.backend.collectives import _local_ip
+
+        return _local_ip()
 
     def _abort(self, reason):
         """Unrecoverable: dump the detector state + flight ring before the

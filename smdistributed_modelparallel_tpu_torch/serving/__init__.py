@@ -14,7 +14,7 @@ chunked prefill, and restartable requests (``serving/engine.py``,
 
 The multi-process tier (``ReplicatedServingEngine``, the request router, the
 serving control plane) needs processes and the message bus; its names raise
-``NotImplementedError`` until slice 3 ports them.
+``NotImplementedError`` until slice 3b (ROADMAP item 5b) ports them.
 """
 
 from smdistributed_modelparallel_tpu_torch.serving.engine import (
@@ -42,7 +42,7 @@ def __getattr__(name):
     if name in _SLICE_3:
         raise NotImplementedError(
             f"smp.serving.{name} (replica failover, request routing, the serving control plane) needs "
-            "processes and the message bus; it is not ported to PyTorch yet (slice 3)."
+            "processes and the message bus; it is not ported to PyTorch yet (slice 3b, ROADMAP item 5b)."
         )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 

@@ -62,7 +62,7 @@ Left out, each refused at construction: the executable cache, the
 compiled-program audit and the serving control plane, and the environment
 variables that arm them (each with its own slice), and more than one rank
 (tp, pp or cp > 1; ``replica.py``, ``router.py`` and ``controller.py`` come
-with slice 3).
+with slice 3b, ROADMAP item 5b).
 """
 
 import collections
@@ -407,7 +407,7 @@ class ServingEngine:
             if over:
                 raise NotImplementedError(
                     f"smp.serving: {', '.join(over)} is not ported to PyTorch yet; the engine serves one device "
-                    "(replicas, the router and the controller come with slice 3)."
+                    "(replicas, the router and the controller come with slice 3b, ROADMAP item 5b)."
                 )
 
     @staticmethod

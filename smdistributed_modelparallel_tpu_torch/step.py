@@ -81,10 +81,39 @@ flat buffer, so that they are the gradient of the global-mean loss:
     shard predicts the first of the next. Under cp the step takes the
     ``(ids, targets)`` form, with targets shifted by the caller before the
     step, as loss mode (``model(ids, targets=...)``) does.
-Under cp the step refuses data parallelism beside cp (rdp > 1, the
-data-parallel slice), fp16 (the loss scaler's overflow flag would have to
-agree across ranks) and ``matmul_precision: fp8`` (amax would need a
-cross-rank max).
+Under cp the step refuses data parallelism beside cp (rdp > 1, ROADMAP item
+5b), fp16 (the loss scaler's overflow flag would have to agree across ranks)
+and ``matmul_precision: fp8`` (amax would need a cross-rank max).
+
+Data parallelism (rdp > 1, at tp = cp = ep = 1: one replica a rank). The port
+follows the JAX package's per-process contract (``utils/data.shard_batches``):
+each rank is handed its own rows, rows ``[r*B/R, (r+1)*B/R)`` of the global
+stream at rdp rank r, and splits them into its microbatches; microbatch m of
+the step is the union over the ranks of their microbatch m. The parameters
+are replicated (``DistributedModel`` broadcasts them from the group's first
+rank at build), each rank runs its microbatches, and after the last one the
+fp32 accumulators are summed over the rdp group in one flat all-reduce and
+divided by ``microbatches * rdp``; the loss weights and the ``StepOutput``
+combine as under cp (a marked loss weighted by ``num_tokens`` over the
+group's total, or equally; values of at most one dimension per microbatch
+averaged), except that values of two or more dimensions are per-row and are
+gathered along the rows (dimension 1 of the stacked leaf), in rank order. The
+JAX package's single-process step groups microbatch m as rows ``[m*B/M,
+(m+1)*B/M)`` of the batch it is handed and shards each over rdp; the two agree
+on a global batch laid out microbatch-major (row ``m*B/M + r*b + i`` of the
+JAX batch is row ``r*B/R + m*b + i`` of the stream, ``b = B/(M*R)``), which
+is how the tests hold them. (The JAX package's step takes whatever a process
+passes as the global batch, so its own ``shard_batches`` contract and its
+step disagree across processes: ROADMAP Queue 3.) Replicas stay bit-equal:
+every rank applies the same reduced gradients. At rdp > 1 the step refuses,
+naming the ROADMAP item: rdp beside cp (item 5b), random draws inside the step
+(dropout, router jitter: each rank would have to draw its rows' part of the
+global mask at its row offset, item 6), fp16 and ``matmul_precision: fp8``
+(the overflow flag and the amax would have to agree over the group, item 6)
+and the health sentinel (its word would have to be the group's, item 6). A
+collective that fails because a peer died (gloo's error at the socket's EOF,
+or ``SMP_COLLECTIVE_TIMEOUT``) reaches the caller as ``SMPPeerLost`` naming
+the peer whose bus link is down, which ``smp.supervisor.recover`` takes.
 
 Observability, at the step's edges as in the JAX step engine: the phase
 ``step_<n>`` (``telemetry.set_phase``, which also drives the goodput ledger),
@@ -115,13 +144,14 @@ Resilience, as in the JAX step engine at world size 1:
   ``health.oom_postmortem``'s dump and reaches the caller unchanged;
 - at the step edge, after the observability hooks and in the JAX package's
   order: ``chaos.on_step_edge`` (``SMP_CHAOS``),
-  ``preemption.maybe_emergency_save`` (SIGTERM, ``SMP_PREEMPTION_FILE``) and,
-  when active, ``supervisor.on_step_edge`` (``SMP_SUPERVISOR``);
+  ``preemption.maybe_emergency_save`` (SIGTERM, ``SMP_PREEMPTION_FILE``;
+  at world > 1 after ``preemption.agree_at_edge``, one flag all-reduce that
+  stops every rank at the edge where any was preempted) and, when active,
+  ``supervisor.on_step_edge`` (``SMP_SUPERVISOR``);
   ``chaos.on_step_dispatch`` runs inside ``step/dispatch``.
 
 Not ported yet, each raising ``NotImplementedError`` when asked for:
-pipeline parallelism, tensor parallelism, data parallelism (rdp > 1),
-expert parallelism, ZeRO-3 (``sharded_params``), shape
+pipeline parallelism, tensor parallelism, expert parallelism, ZeRO-3 (``sharded_params``), shape
 buckets (``SMP_SHAPE_BUCKETS``), the executable cache (``SMP_EXEC_CACHE``)
 and the compiled-program audit (``SMP_HLO_AUDIT``).
 """
@@ -144,7 +174,7 @@ from smdistributed_modelparallel_tpu_torch.backend.split import (
     tree_map,
 )
 from smdistributed_modelparallel_tpu_torch.backend.state import state
-from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS
+from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS, RDP_AXIS
 from smdistributed_modelparallel_tpu_torch.model import DistributedModel, replay_program_ticks
 from smdistributed_modelparallel_tpu_torch.nn.utils import collect_program_ticks
 from smdistributed_modelparallel_tpu_torch.resilience.chaos import chaos
@@ -187,14 +217,24 @@ def _check_supported(cfg):
     if cfg.tensor_parallel_degree > 1:
         raise _not_ported("tensor_parallel_degree > 1")
     if state.topology.rdp_size > 1:
-        raise NotImplementedError(
-            f"@smp.step: data parallelism (rdp = {state.topology.rdp_size} replicas) is not ported to "
-            "PyTorch yet (the data-parallel slice)."
-        )
+        rdp = state.topology.rdp_size
+        if cfg.context_parallel_degree > 1:
+            raise NotImplementedError(
+                f"@smp.step: data parallelism (rdp = {rdp}) beside context parallelism is not ported to PyTorch "
+                "yet (ROADMAP item 5b)."
+            )
+        for asks, what in ((cfg.fp16, "fp16 (the loss scaler's overflow flag)"),
+                           (quant.matmul_precision_mode(cfg) == "fp8", "matmul_precision: fp8 (the amax)"),
+                           (health.mode() != "off", "SMP_HEALTH_CHECK (the sentinel's word)")):
+            if asks:
+                raise NotImplementedError(
+                    f"@smp.step: {what} under data parallelism (rdp = {rdp}) would have to agree over the rdp "
+                    "group, which is not ported to PyTorch yet (ROADMAP Queue 1 item 6)."
+                )
     if cfg.expert_parallel_degree > 1:
         raise NotImplementedError(
             "@smp.step: expert_parallel_degree > 1 (experts sharded over the ep axis) is not ported to PyTorch "
-            "yet (the data-parallel slice)."
+            "yet (ROADMAP item 5b)."
         )
     if cfg.context_parallel_degree > 1:
         if cfg.fp16:
@@ -259,19 +299,20 @@ class _LossLeaf:
         self.value = value
 
 
-def _combine_over_cp(stacked, group, weights):
-    """The cp group's view of the per-rank [num_mb, ...] outputs: the marked
+def _combine(stacked, group, weights, gather_dim):
+    """The group's view of the per-rank [num_mb, ...] outputs: the marked
     loss weighted by this rank's ``weights`` [num_mb] and summed, other
-    values of at most one dimension per microbatch averaged, per-token
-    values gathered along the sequence."""
+    values of at most one dimension per microbatch averaged, and the rest
+    gathered along ``gather_dim`` (the sequence under cp, the rows under
+    rdp)."""
 
     def combine(x):
         loss = isinstance(x, _LossLeaf)
         x = x.value if loss else x
         if group is None or not isinstance(x, torch.Tensor) or not x.is_floating_point():
             return x
-        if x.dim() >= 3:
-            return group.all_gather(x, dim=2)
+        if x.dim() > gather_dim:
+            return group.all_gather(x, dim=gather_dim)
         if loss:
             w = weights.to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
             return group.all_reduce(x.float() * w).to(x.dtype)
@@ -280,13 +321,49 @@ def _combine_over_cp(stacked, group, weights):
     return tree_map(combine, stacked, is_leaf=lambda x: isinstance(x, _LossLeaf))
 
 
+def _typed_peer_loss(fn):
+    """Run ``fn`` (a collective); a failure caused by a dead peer raises
+    ``SMPPeerLost`` instead."""
+    try:
+        return fn()
+    except RuntimeError as e:
+        lost = _peer_lost(e)
+        if lost is not None:
+            raise lost from e
+        raise
+
+
+def _peer_lost(error):
+    """``SMPPeerLost`` for a collective that failed because a peer died:
+    the first peer whose host-bus link is marked down within a few seconds
+    (the bus sees the dead process's sockets close), or the supervisor's
+    classification; None when no peer is down (the error is the caller's)."""
+    from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPPeerLost
+
+    bus = state.bus
+    if bus is None or bus.world <= 1:
+        return None
+    deadline = time.monotonic() + 5.0
+    while True:
+        failures = supervisor.failures()
+        down = [p for p in range(bus.world) if p != bus.rank and bus.peer_down(p)] or sorted(failures)
+        if down:
+            return SMPPeerLost(down[0], f"@smp.step: a collective failed and process {down[0]} is unreachable "
+                                        f"({type(error).__name__}: {error}); smp.supervisor.recover() re-forms the "
+                                        "world from the survivors.")
+        if time.monotonic() > deadline:
+            return None
+        time.sleep(0.1)
+
+
 @contextlib.contextmanager
 def _cp_sharded_off():
-    """Clear ``state.cp_sharded`` when the microbatch loop ends."""
+    """Clear ``state.cp_sharded`` and ``state.rdp_sharded`` when the
+    microbatch loop ends."""
     try:
         yield
     finally:
-        state.cp_sharded = False
+        state.cp_sharded = state.rdp_sharded = False
 
 
 def _loss_weight(group, num_tokens):
@@ -300,7 +377,7 @@ def _loss_weight(group, num_tokens):
     mine = torch.as_tensor(num_tokens, dtype=torch.float64).reshape(1).cpu()
     total = float(group.all_reduce(mine.clone())[0])
     if total <= 0:
-        raise SMPValidationError("model.backward(num_tokens=...) counts no token on any cp rank.")
+        raise SMPValidationError("model.backward(num_tokens=...) counts no token on any rank of the group.")
     return float(mine[0]) / total
 
 
@@ -419,6 +496,10 @@ class StepFunction:
                 # statistics and the memory config before the error
                 # reaches the caller (utils/health.py).
                 health.maybe_oom_postmortem("step", None, e)
+                # A collective with a dead peer: typed, for the supervisor.
+                lost = _peer_lost(e) if state.groups and not isinstance(e, torch.OutOfMemoryError) else None
+                if lost is not None:
+                    raise lost from e
                 raise
             if exact_time:
                 # Roofline sample: wait for the device so the measured time
@@ -459,6 +540,8 @@ class StepFunction:
         # checkpoint, and the supervisor's hook is one attribute test while
         # SMP_SUPERVISOR is off.
         chaos.on_step_edge(state.step_count)
+        if state.world_size > 1:
+            _typed_peer_loss(preemption.agree_at_edge)
         preemption.maybe_emergency_save()
         if supervisor.active:
             supervisor.on_step_edge()
@@ -469,8 +552,12 @@ class StepFunction:
         of every microbatch; returns the step's ``StepOutput``."""
         num_mb = cfg.microbatches
         group = state.group(CP_AXIS)
+        gather_dim = 2  # per-token outputs: along the sequence
         if group is not None:
             stacked_args, stacked_kwargs = _shard_sequence((stacked_args, stacked_kwargs), group.index, group.size)
+        else:
+            group = state.group(RDP_AXIS)  # this rank's rows of each microbatch
+            gather_dim = 1  # per-row outputs: along the rows
         # Forgot-optimizer.step() detector: unconsumed grads with the
         # parameters untouched since the previous training step.
         stale = model._grads is not None and model._params_at_step == model._param_version
@@ -494,7 +581,8 @@ class StepFunction:
         losses = []  # the differentiated loss of each microbatch (the sentinel's "loss")
         weights = []  # this rank's share of each microbatch's loss over the cp group
         qs = quant.ensure_state(model.device) if quant.matmul_precision_mode(cfg) == "fp8" else None
-        state.cp_sharded = group is not None
+        state.cp_sharded = group is not None and gather_dim == 2
+        state.rdp_sharded = group is not None and gather_dim == 1
         with health.collecting(hmode) as hc:
             with quant.step_trace(qs), _cp_sharded_off():
                 if hc is not None and hmode == "full":
@@ -522,9 +610,11 @@ class StepFunction:
                             # loss it differentiates, over the scale.
                             d = differentiated.detach()
                             losses.append(d * loss_scale / loss_scale if loss_scale != 1.0 else d)
-                        # Under cp the loss is scaled by this rank's share before
-                        # the backward: the ring carries its cotangents to the
-                        # other ranks' k/v, whose gradients land there.
+                        # Under cp or rdp the loss is scaled by this rank's share
+                        # before the backward (under cp the ring carries its
+                        # cotangents to the other ranks' k/v, whose gradients
+                        # land there); the group's sum over its size is then
+                        # the gradient of the group's loss.
                         scale = loss_scale * weights[-1] * (group.size if group is not None else 1)
                         # The MoE load-balancing losses of this microbatch enter
                         # its gradient (differentiated), not the returned loss.
@@ -547,7 +637,7 @@ class StepFunction:
                         else x, out))
                 if qs is not None:
                     qs.absorb(quant.finalize(qs))
-            stacked = _combine_over_cp(_stack_outputs(outs), group, torch.tensor(weights))
+            stacked = _combine(_stack_outputs(outs), group, torch.tensor(weights), gather_dim)
             if hc is not None:
                 if losses:
                     hc.add_stacked("loss", health.Leaf(losses), num_mb)
@@ -593,7 +683,8 @@ class StepFunction:
 
     def _finish_grads(self, model, cfg, group, params, names, acc, num_mb, loss_scale, stale):
         """The step's gradients: the microbatch sum over ``num_mb *
-        loss_scale`` (and the cp group), in the parameters' dtypes."""
+        loss_scale`` (and the cp or rdp group: one flat all-reduce of the
+        accumulators), in the parameters' dtypes."""
         if stale:
             model._dropped_updates += 1
             if model._dropped_updates == 3:

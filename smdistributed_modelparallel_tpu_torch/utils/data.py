@@ -6,8 +6,8 @@ Counterpart of ``smdistributed_modelparallel_tpu/utils/data.py``:
   data-parallel batch. The JAX package slices by process, because there one
   process feeds one host; here a process is a rank, and the ranks of a
   context-parallel group share one batch (the step slices the sequence). So
-  the slice is over the data-parallel degree (rdp), which is 1 until the
-  data-parallel slice: batches pass through.
+  the slice is over the data-parallel degree (rdp; at 1 batches pass
+  through), which is what the step expects at rdp > 1 (``step.py``).
 - ``prefetch_to_device(it, size=2)`` stages up to ``size`` upcoming batches
   on the model's device from a background thread, so a batch's copy to the
   device overlaps the step before it. On a CUDA device each array leaf is

@@ -4,10 +4,10 @@ fleet-level view of the N per-rank telemetry registries.
 Counterpart of ``smdistributed_modelparallel_tpu/utils/fleet.py``, with the
 same env vars, reserved tx id, metric names, JSONL records and scrape routes.
 At world size 1 the plane runs with ``bus=None, world=1``: the rank
-aggregates itself and sends nothing. Publishing to peers needs the host bus
-``state.bus`` (the native bus of ROADMAP item 5), which the port does not
-have yet; the code that does it is here and runs over any object with the
-bus's ``send_raw``/``drain_bytes``/``peer_down`` interface.
+aggregates itself and sends nothing. At world > 1 it publishes over the host
+bus ``state.bus`` (the native bus ``smp.init`` brings up), and runs over any
+object with that bus's ``send_raw``/``drain_bytes``/``peer_down``
+interface.
 
 Three moving parts, all off by default:
 

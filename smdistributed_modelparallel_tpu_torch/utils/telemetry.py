@@ -771,6 +771,35 @@ def record_preemption(event, step=-1, detail=""):
     _flight().record_preempt(event, step=step, detail=detail)
 
 
+def record_sync_mark(name, group, seq):
+    """One barrier-exit sync mark: the flight recorder's cross-rank clock
+    alignment point (``scripts/trace_fuse.py``) and the skew gauges. The
+    members of a group leave a barrier within network jitter of each
+    other, so ``smp_sync_last_unix_seconds`` at one ``smp_sync_seq``
+    compared across the ranks' dumps measures their wall-clock skew."""
+    _flight().record_sync(name, group, seq)
+    telemetry.counter("smp_sync_marks_total", "barrier sync marks recorded").labels(group=group).inc()
+    telemetry.gauge("smp_sync_seq", "per-group barrier ordinal of the last sync mark").labels(group=group).set(seq)
+    telemetry.gauge(
+        "smp_sync_last_unix_seconds", "wall-clock time of the last barrier exit (cross-rank skew probe)",
+    ).labels(group=group).set(time.time())
+
+
+def record_comm(op, group, nbytes, group_size):
+    """One host-collective record: op count, payload bytes, group size.
+    Symmetric ops (broadcast, allgather, barrier) take the group's ring
+    sequence number; point-to-point streams are recorded unsequenced."""
+    g = getattr(group, "name", None) or str(group)
+    _flight().record_collective(op, g, nbytes, group_size, sequenced=op in ("broadcast", "allgather", "barrier"))
+    telemetry.counter("smp_comm_ops_total", "host collective operations").labels(op=op, group=g).inc()
+    if nbytes:
+        telemetry.counter("smp_comm_bytes_total", "host collective payload bytes").labels(op=op, group=g).inc(
+            int(nbytes))
+    telemetry.gauge(
+        "smp_comm_group_size", "process count of the last collective per op/group",
+    ).labels(op=op, group=g).set(int(group_size))
+
+
 def record_chaos(fault, detail=""):
     """One injected fault (resilience/chaos.py) — counted and ring-recorded
     so a post-mortem always shows which failures were synthetic."""

@@ -7,8 +7,11 @@ bracket host-side phases (the step's microbatches, the optimizer, serving
 ticks) and per-step execution, and the JSON file loads in chrome://tracing or
 Perfetto beside a ``torch.profiler`` trace.
 
-The recorder is the JAX package's pure-Python backend (a list append), whose
-output is byte-compatible with its native one.
+Recording backend, as in the JAX package: the native C++ recorder
+(``native/src/timeline.cc`` through ``backend/native.NativeTimeline``:
+interned strings, a preallocated arena, C-side JSON) when the port's build of
+the native library loads; a list append otherwise. Same API and the same
+output either way.
 
 Multi-rank discipline:
 
@@ -49,26 +52,45 @@ class Timeline:
         # with the monotonic origin.
         self._wall0_us = int(time.time() * 1e6)
         self._t0 = time.perf_counter()
+        self._native = None
         if self.enabled:
+            from smdistributed_modelparallel_tpu_torch.backend import native
+
+            lib = native.load()
+            if lib is not None:
+                # The native recorder writes to the path it was created
+                # with: the tmp name, which flush() installs atomically.
+                self._native = native.NativeTimeline(lib, self._tmp_path())
             rank = telemetry.process_index
             name = (f"smp_clock_anchor/{self._wall0_us}/"
                     f"{0 if rank is None else rank}")
             # The anchor instant carries ts=0 EXACTLY: _wall0_us is the
-            # wall time of the monotonic origin.
-            self._events.append(
-                {"name": name, "ph": "i", "ts": 0.0, "pid": 0,
-                 "tid": "sync", "s": "g"}
-            )
+            # wall time of the monotonic origin (the library load above may
+            # have taken a while).
+            if self._native is not None:
+                self._native.record_instant(name, 0.0, "sync")
+            else:
+                self._events.append(
+                    {"name": name, "ph": "i", "ts": 0.0, "pid": 0,
+                     "tid": "sync", "s": "g"}
+                )
+
+    def _tmp_path(self):
+        return f"{self.path}.tmp.{os.getpid()}"
 
     def _now_us(self):
         return (time.perf_counter() - self._t0) * 1e6
 
     def start_step(self, step):
         self._step = step
+        if self._native is not None:
+            self._native.start_step(step)
         self.record_instant(f"step_{step}_begin")
 
     def end_step(self, step):
         self.record_instant(f"step_{step}_end")
+        if self._native is not None:
+            self._native.end_step(step)
 
     def sync_mark(self, name, group, seq):
         """Barrier-exit alignment instant (see module docstring)."""
@@ -76,6 +98,9 @@ class Timeline:
 
     def record_event(self, name, begin_us, end_us, microbatch=None, track="pipeline"):
         if not self.enabled:
+            return
+        if self._native is not None:
+            self._native.record_event(name, begin_us, end_us, microbatch, track)
             return
         args = {"step": self._step}
         if microbatch is not None:
@@ -88,6 +113,9 @@ class Timeline:
 
     def record_instant(self, name, track="pipeline"):
         if not self.enabled:
+            return
+        if self._native is not None:
+            self._native.record_instant(name, self._now_us(), track)
             return
         with self._lock:
             self._events.append(
@@ -115,6 +143,16 @@ class Timeline:
 
     def flush(self):
         if not self.enabled:
+            return
+        if self._native is not None:
+            # C-side serialization lands in the tmp name; atomic install.
+            self._native.flush(pid=os.getpid())
+            try:
+                os.replace(self._tmp_path(), self.path)
+            except OSError as e:
+                from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
+
+                get_logger().warning("timeline flush to %s failed: %s", self.path, e)
             return
         if not self._events:
             return

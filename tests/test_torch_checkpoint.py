@@ -77,6 +77,17 @@ LOSS_TOL = dict(rtol=2e-4, atol=2e-5)
 PARAM_TOL = dict(rtol=2e-3, atol=2e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: this file's tensors are small, so torch's thread
+    pool costs more than it gives (8 threads took 25x longer than one for
+    the dropout hash), and the test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _reset():
     yield
@@ -360,7 +371,7 @@ def test_convert_gives_the_jax_layout():
 
     for family in ("nn", "zoo"):
         module = JaxLMHead(**TINY) if family == "nn" else JaxTransformerLM(**ZOO)
-        params = module.init(jax.random.key(0), jnp.zeros((1, 8), jnp.int32))["params"]
+        params = jax.jit(module.init)(jax.random.key(0), jnp.zeros((1, 8), jnp.int32))["params"]  # one compile
         flat = {jax_path_key(p): np.asarray(v)
                 for p, v in jax.tree_util.tree_flatten_with_path(meta.unbox(params))[0]}
         if family == "nn":

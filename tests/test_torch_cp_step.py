@@ -23,8 +23,8 @@ move by +-lr in a direction the rounding picks.
 
 Also held, from the same spawned ranks: ``smp.generate`` at cp = 2 gives the
 JAX package's tokens (both compute whole sequences on every rank); the
-step's refusals (fp16 and fp8 under cp, data parallelism beside it, expert
-parallelism, ``context_parallel_impl: allgather``); and the attention
+step's refusals (fp16 and fp8 under cp, fp16 under data parallelism at rdp =
+2, expert parallelism, ``context_parallel_impl: allgather``); and the attention
 dispatch's refusal of every case the ring and Ulysses do not cover, where
 attending over the local shard alone would be wrong.
 """
@@ -245,7 +245,7 @@ def _refusal_worker(rank, world, init, prompts):
 
     out["fp16"] = step_with({"context_parallel_degree": 2, "fp16": True})
     out["fp8"] = step_with({"context_parallel_degree": 2, "matmul_precision": "fp8"})
-    out["rdp"] = step_with({})
+    out["rdp"] = step_with({"fp16": True})  # rdp = 2: fp16 stays refused under data parallelism
     out["ep"] = step_with({"expert_parallel_degree": 2})
     out["allgather"] = step_with({"context_parallel_degree": 2, "context_parallel_impl": "allgather"})
     out["window"] = step_with({"context_parallel_degree": 2}, dict(window=8))

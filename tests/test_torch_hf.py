@@ -140,6 +140,32 @@ def test_from_hf_matches_jax_and_hf(name):
     np.testing.assert_allclose(want, ref, atol=2e-4, rtol=2e-3)
 
 
+@pytest.mark.parametrize("name", ["gptneox", "gptj"])
+def test_tied_from_hf_matches_jax(name):
+    """A tied GPT-NeoX or GPT-J loads: the translator's ``lm_head`` entries
+    have no place in the tied module and are not taken, as in the JAX
+    package. GPT-J's JAX logits drop the HF head bias under a tied head
+    (ROADMAP Queue 3), and the port gives the JAX package's."""
+    config = _tiny_configs()[name]  # a fresh config
+    config.tie_word_embeddings = True
+    torch.manual_seed(0)
+    hf = getattr(transformers, HF_CLASSES[name])(config).eval()
+    ids = _ids()
+    got, want = _port_out(name, hf, ids), _jax_out(name, hf, ids)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_missing_parameter_raises_as_jax():
+    from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
+
+    smp.init({}, device="cpu")
+    model = smp.from_hf(_hf_model("gpt2"), device="cpu")
+    flat = model.reference_state_dict()
+    flat.pop(sorted(flat)[0])
+    with pytest.raises(SMPValidationError, match="Missing parameter"):
+        model.load_state_dict(flat)
+
+
 def test_vit_encoder_matches_jax_and_hf():
     hf = _hf_model("vit")
     hidden = np.random.RandomState(0).randn(2, 5, 32).astype(np.float32)

@@ -195,7 +195,10 @@ def _timeline_events(tl):
 
 
 def test_timeline_matches_jax_pure_python_backend(monkeypatch, tmp_path):
+    from smdistributed_modelparallel_tpu_torch.backend import native as port_native
+
     monkeypatch.setattr(jax_native, "load", lambda *a, **k: None)
+    monkeypatch.setattr(port_native, "load", lambda *a, **k: None)
     texts = []
     for mod in (jax_timeline, port_timeline):
         _frozen(monkeypatch)

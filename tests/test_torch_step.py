@@ -46,6 +46,17 @@ from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
 from tests.models import MLP, softmax_xent
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: this file's tensors are small, so torch's thread
+    pool costs more than it gives (8 threads took 25x longer than one for
+    the dropout hash), and the test workers share the machine's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _reset():
     yield

@@ -11,8 +11,9 @@ survivors, agreed checkpoints and ``SMPEvicted``; and
 ``latest_committed_checkpoint`` reads the same directories the same way.
 At world size 1 (no bus) the port's supervisor arms no detector, sets
 ``active`` under ``SMP_SUPERVISOR=on``, and ``recover(e)`` re-raises ``e``;
-re-forming the world refuses with ``SMPUnsupportedError`` naming ROADMAP
-item 5.
+the world's rebuild primitives run there too (a one-process supervised
+world started and abandoned, ``smp.init`` again at the same config). The
+multi-rank recoveries are in ``tests/test_torch_dp_resilience.py``.
 """
 
 import importlib
@@ -24,7 +25,6 @@ import time
 import pytest
 
 import smdistributed_modelparallel_tpu_torch as smp_torch
-from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPUnsupportedError
 
 PKGS = {"jax": "smdistributed_modelparallel_tpu", "port": "smdistributed_modelparallel_tpu_torch"}
 
@@ -299,10 +299,29 @@ def test_world_size_one_under_smp_init(monkeypatch):
     with pytest.raises(RuntimeError) as ei:
         supervisor.recover(err)
     assert ei.value is err
-    for name, args in (("initialize_distributed", ("127.0.0.1:1", 2, 0)), ("_teardown_world", (None,)),
-                       ("_abandon_distributed", ()), ("_clear_runtime", (1,)), ("_reinit_framework", (None, None))):
-        with pytest.raises(SMPUnsupportedError, match="ROADMAP item 5"):
-            getattr(supervisor, name)(*args)
+    import socket
+
+    import torch.distributed as dist
+
+    from smdistributed_modelparallel_tpu_torch.backend.state import state
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.setenv(name, os.environ.get(name, "x"))  # restored after the test
+    cfg, device = state.cfg, state.device
+    supervisor._teardown_world(state)
+    supervisor._abandon_distributed()
+    supervisor.initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    assert dist.is_initialized() and dist.get_world_size() == 1 and os.environ["WORLD_SIZE"] == "1"
+    supervisor._abandon_distributed()
+    assert not dist.is_initialized()
+    supervisor._clear_runtime(1)
+    supervisor._reinit_framework(state, None)
+    assert state.cfg is cfg and state.device == device and state.world_size == 1 and state.topology.size == 1
+    smp_torch.reset()
 
 
 def test_pending_recovery_closes_at_the_first_step_as_jax():
