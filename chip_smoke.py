@@ -20,6 +20,9 @@
     python3 chip_smoke.py --phases N # the same with the ranks on two cards (NCCL); needs two cards
     python3 chip_smoke.py --phases W # data parallelism at rdp = 2 (two ranks on one card) only
     python3 chip_smoke.py --phases Y # the same with the ranks on two cards (NCCL); needs two cards
+    python3 chip_smoke.py --phases U # expert parallelism at ep = 2 (two ranks on one card) only
+    python3 chip_smoke.py --phases Z # the same with the ranks on two cards (NCCL); needs two cards
+    python3 chip_smoke.py --phases J # serving replicas, the router and the controller (two processes) only
     python3 chip_smoke.py --phases X # GPT-2 1.5B at 16 x 1024 with checkpointing off (its peak or OOM)
 
 Builds the port's CUDA kernels from ``smdistributed_modelparallel_tpu_torch/
@@ -182,7 +185,24 @@ csrc`` (one nvcc per source, all started together), then:
      agree within 1e-2 at every step, and each rank must launch each
      ids-mode kernel (the ring's forward, dq and dk/dv) 24 times a step (12
      layers x 2 ring steps); the Ulysses step launches the plain flash
-     kernels instead.
+     kernels instead. Then rdp 2 x cp 2: four ranks on cuda:0, each handed
+     its rdp coordinate's row (``smp.shard_batches``), 2 ring steps at full
+     depth against the same cp = 1 losses within 1e-2, the four replicas'
+     parameter fingerprints equal after every step, 24 launches of each
+     ids-mode kernel a step and rank, all on ``wgmma``.
+  U. expert parallelism at ep = 2: two ranks spawned on cuda:0 (gloo with
+     pinned host copies) train phase E3's MoE model (GPT-2 124M widths, 4
+     experts a layer, top-2, capacity 1.25, bf16, ``fused_qkv``, phase T's
+     global batch of 8 x 1024 in 4 microbatches, 4 rows a rank, AdamW) for 3
+     steps, each rank holding two experts of every layer, against this
+     process's ep = 1 run of the same weights and batch (laid out so that
+     each microbatch holds the same rows). Holds: the losses within 1e-2 of
+     ep = 1; the dense parameters bit-equal across the ranks after every
+     step; 48 launches a step of each flash kernel and of ``matmul_bias``
+     per rank, all on ``wgmma``; a 2-layer fp32 MoE (capacity 0.5, so
+     assignments drop) at ep = 2 on the card against the CPU within 1e-5.
+     Prints ms/step, global tokens/s, the all-to-alls' and the gradient
+     all-reduce's host ms a step and the peak a rank.
   W. data parallelism at rdp = 2: two ranks spawned on cuda:0 (gloo with
      pinned host copies, as in phase R; the native host bus built from
      ``native/src`` into ``_build/``) train GPT-2 124M (bf16, AdamW, phase
@@ -207,6 +227,21 @@ csrc`` (one nvcc per source, all started together), then:
      nothing) and is SIGKILLed at step edge 3; rank 0 classifies it dead,
      agrees on the newest committed checkpoint, re-forms a world of one and
      trains on within 1e-2 of rdp = 1 (MTTR and its phases printed).
+  J. serving replicas: two processes on cuda:0 over the native host bus,
+     each with a GPT-2 124M ``ServingEngine`` (4 slots, 65 blocks). World 1
+     (bf16): (c) ``SMP_AUTOSCALE``: 12 requests on rank 0's replica breach a
+     queue depth of 2, the controller activates rank 1's parked
+     ``ReplicaServer`` (its warm start loads the threefry library from disk:
+     no ``nvcc`` build), routes the rest there and drains it back; every
+     request finishes once with all its tokens; (a) phase S's 16-request
+     burst through ``RequestRouter`` over both replicas, every greedy token
+     within 5e-2 of its row's max |logit|; (d) on rank 0 a canary with
+     unchanged weights promotes and one with perturbed weights rolls back.
+     World 2 (fp32, so that tokens compare exactly across batch
+     compositions): (b) ``SMP_CHAOS=kill_replica@request=2:rank=1``: rank 1
+     dies mid-decode, rank 0 re-admits its requests from the mirror shadow
+     and finishes all six (two sampled) with the tokens of a never-killed
+     engine; MTTR and its phases printed.
   K. checkpoints and the data loader: phase L's model, widths and weights
      (fused knobs, bf16, 8 x 1024 tokens in 4 microbatches, AdamW) fed by
      ``smp.dataloader`` over a seeded host stream of token batches; 3 steps,
@@ -406,6 +441,8 @@ csrc`` (one nvcc per source, all started together), then:
      version and the bytes it reads.
   N. (on request, on a machine with two cards) phase R with the ranks on
      cuda:0 and cuda:1, which then talk over NCCL.
+  Z. (on request, on a machine with two cards) phase U's steps with the ep
+     ranks on cuda:0 and cuda:1 (the all-to-alls over NCCL) against ep = 1.
   P. (on request) torch.profiler breakdowns of a generate, phase S's burst, a training step,
      a capacity step (fused and materialized), the smp.nn path's fused,
      unfused, fp8, dropout and checkpointed dropout steps, phase G's smp.nn
@@ -464,7 +501,7 @@ _FP32_OPS = ("FFMA", "FADD", "FMUL")
 
 KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8", "dropout",
                   "health_reduce"]
-DEFAULT_PHASES = "ASGTFLDMQRWKHEOVBC"
+DEFAULT_PHASES = "ASGTFLDMQRUWJKHEOVBC"
 SEED = 1234
 
 
@@ -5219,6 +5256,10 @@ def phase_r(device="cuda:0"):
     _check_route("cp = 1", base_launches)
     if worst > CP_LOSS_TOL or not all(math.isfinite(x) for x in base_losses):
         raise RuntimeError(f"cp = 2 losses differ from cp = 1 by {worst:.3e} (limit {CP_LOSS_TOL})")
+    if device is not None:
+        # rdp 2 x cp 2 on the same card, against the same cp = 1 losses.
+        for k, n in _phase_rc(device, base_losses).items():
+            launches[k] = launches.get(k, 0) + n
     return launches, dict(cp_ms=cp_ms, one_ms=one_ms, gap=worst, transport=transport)
 
 
@@ -5277,12 +5318,15 @@ def _w_rows(ids):
     return ids[r * per:(r + 1) * per]
 
 
-def _w_fingerprint(model):
+def _w_fingerprint(model, skip=frozenset()):
     """Two int64 sums of the parameters' bit patterns (plain and position
-    weighted): equal on two replicas whose bits agree."""
+    weighted), those named in ``skip`` left out: equal on two replicas whose
+    bits agree."""
     plain = torch.zeros((), dtype=torch.int64, device=next(model.module.parameters()).device)
     weighted = plain.clone()
-    for p in model.module.parameters():
+    for name, p in model.module.named_parameters():
+        if name in skip:
+            continue
         bits = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
         plain += bits.sum()
         weighted += (bits * (torch.arange(bits.numel(), device=bits.device) % 65521 + 1)).sum()
@@ -5688,6 +5732,574 @@ def _w_report(r1, r2, base, base_ms, base_launches, elastic, ckpt_bytes, world1_
     return launches, dict(ms=ms, one_ms=one_ms, all_reduce_ms=r1[0]["all_reduce_ms"],
                           round_trip_us=c0["round_trip_us"], broadcast_ms=c0["broadcast_ms"],
                           save_s=r1[0]["save_s"], restore_s=restore_s, mttr=g["mttr"])
+
+
+# ----------------------------------------------------------------------
+# Phase U: expert parallelism at ep = 2, two ranks on one card
+# ----------------------------------------------------------------------
+
+# E3's MoE model (GPT-2 124M widths, 4 experts, top-2, capacity 1.25), bf16,
+# fused_qkv, 8 x 1024 tokens in 4 microbatches, AdamW; losses against ep = 1
+# on the same weights and global batch. The small fp32 model runs 2 layers
+# with capacity 0.5 (assignments drop) on the card and the CPU.
+U_STEPS, U_LOSS_TOL, U_SMALL_TOL = 3, 1e-2, 1e-5
+U_SMALL = dict(E_MOE_SMALL, moe_capacity_factor=0.5)
+U_SMALL_B, U_SMALL_T, U_SMALL_MB, U_SMALL_STEPS = 8, 32, 2, 2
+
+
+def _u_rows(n_rows, ep, microbatches):
+    """The ep = 1 batch laid out so that its microbatch m holds the rows the
+    ep ranks' microbatch m holds (rank r's rows are [r*B/ep, (r+1)*B/ep) of
+    the stream; the JAX package's microbatch-major grouping)."""
+    b = n_rows // (ep * microbatches)
+    return [r * (n_rows // ep) + m * b + i for m in range(microbatches) for r in range(ep) for i in range(b)]
+
+
+def _u_setup(cfg, device, ep, bf16, microbatches=TRAIN_MB, init_device=None):
+    """``smp.init`` at ``ep``, the MoE LM head from SEED (E3's init, drawn
+    whole on ``init_device``, by default ``device``: an ep rank keeps its
+    experts) and E3's AdamW and step."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+
+    smp.init({"microbatches": microbatches, "bf16": bf16, "fused_qkv": True, "ddp": True,
+              "expert_parallel_degree": ep}, device=device)
+    init_device = init_device or device
+    init = init_weights_(smp.nn.DistributedTransformerLMHead(**cfg, device=init_device), cfg["initializer_range"],
+                         torch.Generator(device=torch.device(init_device).type).manual_seed(SEED))
+    return _lm_train(init, device)
+
+
+def _u_train(cfg, device, ep, ids, steps, counters):
+    """``steps`` bf16 steps on ``ids`` (this rank's rows): losses, ms a step,
+    dense fingerprints a step, launches, peak GiB, the host ms of the MoE
+    exchanges and of the gradient all-reduce a step."""
+    from smdistributed_modelparallel_tpu_torch.backend.state import state
+    from smdistributed_modelparallel_tpu_torch.backend.topology import DATA_AXES
+
+    model, optimizer, train_step = _u_setup(cfg, device, ep, True)
+    spent = {"exchange": 0.0, "all_reduce": 0.0, "exchanges": 0}
+
+    def timed(group, name, key):
+        if group is None:
+            return
+        real = getattr(group, name)
+
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                spent[key] += (time.perf_counter() - t0) * 1e3
+                spent["exchanges"] += key == "exchange"
+
+        setattr(group, name, call)
+
+    timed(state.group("ep"), "all_to_all", "exchange")
+    timed(state.group(DATA_AXES), "all_reduce", "all_reduce")
+    _e_zero(counters)
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, ms, prints, per_step = [], [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize(device)
+        before = dict(spent)
+        t0 = time.perf_counter()
+        losses.append(float(train_step(model, ids).reduce_mean()))
+        optimizer.step()
+        torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: spent[k] - before[k] for k in spent})
+        prints.append(_w_fingerprint(model, skip=model._expert_params))
+    out = dict(losses=losses, ms=ms, prints=prints, exchanges=per_step,
+               launches={k: fn.launches for k, fn in counters.items()},
+               peak=torch.cuda.max_memory_allocated(device) / 2**30)
+    return out, model
+
+
+def _u_small(rank, world, device):
+    """The small fp32 MoE at ep = ``world``, weights drawn on the CPU: the
+    losses and the first step's MoE gradients on ``device``, then on the
+    CPU."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    g = torch.Generator().manual_seed(SEED + 3)
+    ids = torch.randint(0, U_SMALL["vocab_size"], (U_SMALL_B, U_SMALL_T), generator=g)
+    per = U_SMALL_B // world
+    out = {}
+    for dev in (device, "cpu"):
+        model, optimizer, train_step = _u_setup(U_SMALL, dev, world, False, U_SMALL_MB, init_device="cpu")
+        mine = ids[rank * per:(rank + 1) * per].to(dev)
+        losses, grads = [], None
+        for _ in range(U_SMALL_STEPS):
+            losses.append(float(train_step(model, mine).reduce_mean()))
+            if grads is None:  # numpy: a tensor in a rank's result would be shared by a file descriptor
+                grads = {n: g.detach().float().cpu().numpy() for n, g in model.grads.items() if "output" in n}
+            optimizer.step()
+        out[dev] = (losses, grads)
+        del model, optimizer
+        smp.reset()
+    return out["cpu"], out[device]
+
+
+def _u_rank(rank, world, device, small=True):
+    """One ep rank on ``device`` (None: cuda:LOCAL_RANK): the MoE model's
+    steps on its rows, then the small fp32 model on the card and the CPU."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.backend.state import state
+
+    device = device or f"cuda:{rank}"
+    ids = _w_batch("cpu")
+    rows = ids[rank * TRAIN_BATCH // world:(rank + 1) * TRAIN_BATCH // world].to(device)
+    counters = {**_flash_counters(), "matmul_bias": _new_counters()["matmul_bias"], **_simt_counters()}
+    out, model = _u_train(E_MOE_CFG, device, world, rows, U_STEPS, counters)
+    out["transport"] = state.group("ep").transport
+    out["experts"] = next(m.expert_range for m in model.module.modules() if hasattr(m, "expert_range"))
+    del model
+    smp.reset()
+    torch.cuda.empty_cache()
+    if small:
+        out["small"] = _u_small(rank, world, device)
+    return out
+
+
+def _u_base():
+    """ep = 1 in this process: the same weights, the global batch in the ep
+    ranks' microbatch grouping."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    ids = _w_batch("cpu")[_u_rows(TRAIN_BATCH, 2, TRAIN_MB)].to("cuda")
+    counters = {**_flash_counters(), "matmul_bias": _new_counters()["matmul_bias"], **_simt_counters()}
+    out, model = _u_train(E_MOE_CFG, "cuda", 1, ids, U_STEPS, counters)
+    del model
+    smp.reset()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_u(device="cuda:0"):
+    """Expert parallelism at ep = 2: two ranks on ``device`` (gloo with
+    pinned host copies), E3's MoE model against ep = 1 in this process."""
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, _u_rank, device)
+    ranks_s = time.perf_counter() - t0
+    base = _u_base()
+    failures = []
+    per = LM_CFG["num_layers"] * TRAIN_MB * U_STEPS
+    want = {k: per for k in (*_flash_counters(), "matmul_bias")}
+    log(f"[U] GPT-2 124M widths with 4 experts a layer (top-2, capacity 1.25), bf16, fused_qkv, ep = 2: 2 ranks on "
+        f"{device}, transport {ranks[0]['transport']} (host copies of CUDA tensors); global batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} in {TRAIN_MB} microbatches ({TRAIN_BATCH // 2} rows a rank), AdamW; ranks took {ranks_s:.1f} s "
+        f"with start-up; experts a rank {[r['experts'] for r in ranks]}")
+    gap = max(abs(a - b) for r in ranks for a, b in zip(r["losses"], base["losses"]))
+    for rank, r in enumerate(ranks):
+        ms = sum(r["ms"][1:]) / (U_STEPS - 1)
+        ex = sum(s["exchange"] for s in r["exchanges"][1:]) / (U_STEPS - 1)
+        ar = sum(s["all_reduce"] for s in r["exchanges"][1:]) / (U_STEPS - 1)
+        log(f"[U] rank {rank}: losses {r['losses']}; ms/step {ms:.2f} (steps 2-{U_STEPS}; per step "
+            f"{[round(x, 2) for x in r['ms']]}), global tokens/s {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f}; the MoE "
+            f"all-to-alls {ex:.2f} ms a step (host wall, {r['exchanges'][-1]['exchanges']} a step), the data "
+            f"group's all-reduces {ar:.2f} ms a step; peak {r['peak']:.2f} GiB; launches {r['launches']}")
+        got = {k: r["launches"][k] for k in want}
+        if got != want:
+            failures.append(f"rank {rank} launches {got}, expected {want}")
+        try:
+            _check_route(f"[U] rank {rank}", r["launches"])
+        except RuntimeError as e:
+            failures.append(str(e))
+    base_ms = sum(base["ms"][1:]) / (U_STEPS - 1)
+    log(f"[U] ep = 1 in one process: losses {base['losses']}; ms/step {base_ms:.2f}, tokens/s "
+        f"{TRAIN_BATCH * TRAIN_SEQ / base_ms * 1e3:.1f}; peak {base['peak']:.2f} GiB; largest loss difference "
+        f"{gap:.3e} (limit {U_LOSS_TOL})")
+    if not gap <= U_LOSS_TOL or not all(math.isfinite(x) for x in base["losses"]):
+        failures.append(f"ep = 2 losses differ from ep = 1 by {gap:.3e}")
+    same = ranks[0]["prints"] == ranks[1]["prints"] and ranks[0]["losses"] == ranks[1]["losses"]
+    log(f"[U] dense parameters bit-equal across the ranks after every step: {same}")
+    if not same:
+        failures.append("the dense parameters differ across the ep ranks")
+    for rank, r in enumerate(ranks):
+        cpu, card = r["small"]
+        lerr = max(abs(a - b) for a, b in zip(card[0], cpu[0]))
+        gerr = max(float(np.abs(card[1][n] - cpu[1][n]).max() / max(np.abs(cpu[1][n]).max(), 1e-12))
+                   for n in cpu[1])
+        log(f"[U] rank {rank} small fp32 MoE (2 layers, capacity 0.5) at ep = 2, card vs CPU: losses {card[0]} vs "
+            f"{cpu[0]}, largest difference {lerr:.3e}; the MoE gradients' largest difference {gerr:.3e} of their "
+            f"largest value (limit {U_SMALL_TOL})")
+        if not (lerr <= U_SMALL_TOL and gerr <= U_SMALL_TOL):
+            failures.append(f"rank {rank}: the small fp32 MoE on the card disagrees with the CPU")
+    if failures:
+        raise RuntimeError("phase U: " + "; ".join(failures))
+    launches = {k: base["launches"][k] + sum(r["launches"][k] for r in ranks) for k in base["launches"]}
+    return launches, dict(ms=sum(ranks[0]["ms"][1:]) / (U_STEPS - 1), base_ms=base_ms, gap=gap)
+
+
+def _u_rank_z(rank, world):
+    return _u_rank(rank, world, None, small=False)
+
+
+def phase_z():
+    """Hold (a) of phase U with the two ep ranks on cuda:0 and cuda:1 (the
+    exchanges over NCCL; a machine with two cards)."""
+    if torch.cuda.device_count() < 2:
+        raise RuntimeError(f"ep ranks on separate cards need 2 cards, found {torch.cuda.device_count()}")
+    ranks = run_ranks(2, _u_rank_z)
+    base = _u_base()
+    gap = max(abs(a - b) for r in ranks for a, b in zip(r["losses"], base["losses"]))
+    ms = sum(ranks[0]["ms"][1:]) / (U_STEPS - 1)
+    ex = sum(s["exchange"] for s in ranks[0]["exchanges"][1:]) / (U_STEPS - 1)
+    log(f"[Z] ep = 2 on cuda:0-1, transport {ranks[0]['transport']}: losses {ranks[0]['losses']}, ep = 1 "
+        f"{base['losses']}, largest difference {gap:.3e}; ms/step {ms:.2f}, global tokens/s "
+        f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f}; the MoE all-to-alls {ex:.2f} ms a step; dense parameters "
+        f"bit-equal {ranks[0]['prints'] == ranks[1]['prints']}")
+    if gap > U_LOSS_TOL or ranks[0]["prints"] != ranks[1]["prints"]:
+        raise RuntimeError(f"phase Z: ep = 2 over NCCL differs (loss gap {gap:.3e})")
+
+
+# ----------------------------------------------------------------------
+# Phase R's extension: rdp = 2 beside cp = 2, four ranks on one card
+# ----------------------------------------------------------------------
+
+RC_STEPS, RC_LAYERS = 2, 12
+
+
+def _rc_rank(rank, world, device):
+    """One rank of rdp 2 x cp 2 on ``device``: phase R's model and batch,
+    this rank's rows (the rdp coordinate's), the ring within its cp group."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    from smdistributed_modelparallel_tpu_torch.backend.state import state
+
+    smp.init({"microbatches": CP_MB, "bf16": True, "context_parallel_degree": 2, "ddp": True}, device=device)
+    module, ids, tgt = _cp_model_and_batch(state.device)
+    ids, tgt = next(smp.shard_batches(iter([(ids, tgt)])))
+    model = smp.DistributedModel(module)
+    optimizer = smp.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), model)
+
+    @smp.step
+    def train_step(model, ids_, tgt_):
+        count = (tgt_ != -100).sum()
+        loss = model(ids_, targets=tgt_).sum() / count
+        model.backward(loss, num_tokens=count)
+        return loss
+
+    counters = {**_ids_counters(), **_flash_simt_counters()}
+    _e_zero(counters)
+    losses, ms, prints = [], [], []
+    for _ in range(RC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(train_step(model, ids, tgt).reduce_mean()))
+        optimizer.step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        prints.append(_w_fingerprint(model))
+    out = dict(losses=losses, ms=ms, prints=prints, launches={k: fn.launches for k, fn in counters.items()},
+               coords=(state.topology.coords(state.rank)["rdp"], smp.cp_rank()), rows=int(ids.shape[0]))
+    smp.reset()
+    return out
+
+
+def _phase_rc(device, base_losses):
+    """rdp 2 x cp 2 against phase R's cp = 1 losses (the same weights and
+    batch); returns the launches of the four ranks."""
+    t0 = time.perf_counter()
+    ranks = run_ranks(4, _rc_rank, device)
+    took = time.perf_counter() - t0
+    per_step = RC_LAYERS * 2 * CP_MB  # layers x ring steps x microbatches
+    gap = max(abs(a - b) for r in ranks for a, b in zip(r["losses"], base_losses))
+    ms = sum(ranks[0]["ms"][1:]) / max(RC_STEPS - 1, 1)
+    log(f"[R] rdp 2 x cp 2: 4 ranks on {device}, rows a rank {[r['rows'] for r in ranks]}, (rdp, cp) coordinates "
+        f"{[r['coords'] for r in ranks]}; {RC_STEPS} steps (depth {RC_LAYERS} layers, none cut); ranks took "
+        f"{took:.1f} s with start-up; losses {ranks[0]['losses']}, cp = 1 {base_losses[:RC_STEPS]}, largest "
+        f"difference {gap:.3e} (limit {CP_LOSS_TOL:.0e}); ms/step {ms:.2f} (rank 0, per step "
+        f"{[round(x, 2) for x in ranks[0]['ms']]}); launches {[r['launches'] for r in ranks]}")
+    failures = []
+    if not gap <= CP_LOSS_TOL:
+        failures.append(f"losses differ from cp = 1 by {gap:.3e}")
+    if any(r["prints"] != ranks[0]["prints"] or r["losses"] != ranks[0]["losses"] for r in ranks):
+        failures.append("the replicas differ")
+    for rank, r in enumerate(ranks):
+        for k in _ids_counters():
+            if r["launches"][k] != per_step * RC_STEPS:
+                failures.append(f"rank {rank}: {k} launched {r['launches'][k]} times, expected {per_step * RC_STEPS}")
+        try:
+            _check_route(f"rank {rank} rdp x cp", r["launches"])
+        except RuntimeError as e:
+            failures.append(str(e))
+    log(f"[R] rdp 2 x cp 2 replicas bit-equal after every step: {not any('replicas' in f for f in failures)}")
+    if failures:
+        raise RuntimeError("phase R (rdp x cp): " + "; ".join(failures))
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
+# ----------------------------------------------------------------------
+# Phase J: serving replicas over the native bus, two processes on one card
+# ----------------------------------------------------------------------
+
+J_ENV = {"SMP_SUPERVISOR": "on", "SMP_HEARTBEAT_INTERVAL": "0.2", "SMP_HEARTBEAT_MISS_BUDGET": "5",
+         "SMP_COLLECTIVE_TIMEOUT": "120"}
+J_SCALE = dict(n=12, n_sampled=3, prompt=(32, 128), new=(24, 24), seed=SEED + 8, prefix="c")
+J_FAIL = dict(n=6, n_sampled=2, prompt=(32, 128), new=(24, 48), seed=SEED + 7, prefix="f")
+J_PINNED = dict(n=2, n_sampled=1, prompt=(64, 64), new=(16, 16), seed=SEED + 9, prefix="pin")
+J_SLOTS, J_BLOCKS = 4, 65
+J_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_serving")
+
+
+def _j_factory(warm=True):
+    """A factory of GPT-2 124M serving engines from SEED (in the dtype
+    ``smp.init`` named), and its module. With ``warm`` the engine's first
+    request samples a token: a standby's warm start loads the threefry
+    kernel's library (built by this call's first process, so from disk)."""
+    from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m, init_gpt2_weights_
+    from smdistributed_modelparallel_tpu_torch.serving import ServeRequest, ServingEngine
+
+    module = init_gpt2_weights_(gpt2_124m(device="cuda"), torch.Generator(device="cuda").manual_seed(SEED))
+
+    def factory():
+        engine = ServingEngine(module, params=module.state_dict(), max_slots=J_SLOTS, num_blocks=J_BLOCKS,
+                               device="cuda")
+        if warm:
+            engine.run([ServeRequest("warm", list(range(8)), 2, temperature=1.0, seed=0)])
+        return engine
+
+    return factory, module
+
+
+def _j_margin(module, reqs, results):
+    """Largest gap of a greedy token to its row's maximum in a teacher-forced
+    bf16 forward on the plain attention path, as a share of the row's max
+    |logit| (phase S's check)."""
+    worst = 0.0
+    with torch.inference_mode(), _env(SMP_DISABLE_PALLAS_ATTN="1"):
+        bf16_module = copy.deepcopy(module).to(torch.bfloat16)
+        for r in reqs:
+            if r.temperature > 0:
+                continue
+            toks = results[r.request_id]
+            ids = torch.tensor([list(r.prompt) + toks[:-1]], device="cuda")
+            rows = bf16_module(ids)[0, len(r.prompt) - 1:].float()
+            picked = rows.gather(1, torch.tensor(toks, device="cuda")[:, None])[:, 0]
+            worst = max(worst, float(((rows.amax(dim=1) - picked) / rows.abs().amax(dim=1)).max()))
+    return worst
+
+
+def _j_serve_world(rank, world, feed):
+    """World 1 (bf16): (c) the autoscale burst, (a) phase S's burst through
+    the router over two live replicas, (d) the canary on rank 0. Rank 1
+    parks as a ``ReplicaServer`` for (c) and (a)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.backend.state import state
+    from smdistributed_modelparallel_tpu_torch.ops.dropout import threefry_bits
+    from smdistributed_modelparallel_tpu_torch.serving import (
+        AutoscalePolicy,
+        LocalReplicaHandle,
+        RemoteReplicaHandle,
+        ReplicaServer,
+        RequestRouter,
+        ServingController,
+    )
+
+    os.environ.update(J_ENV)
+    smp.init({"bf16": True, "ddp": True}, device="cuda:0")
+    factory, module = _j_factory()
+    threefry_bits.launches = 0
+    if rank == 1:
+        served = [sorted(ReplicaServer(factory, state.bus, controller_rank=0).serve(timeout_s=600.0))
+                  for _ in ("c", "a")]
+        smp.barrier()
+        out = dict(served=served, threefry=threefry_bits.launches)
+        smp.reset()
+        return out
+
+    out = {}
+    # (c) the autoscale burst: one replica, a standby on rank 1.
+    os.environ.update(SMP_AUTOSCALE="on", SMP_SLO="queue_depth=2", SMP_AUTOSCALE_COOLDOWN="0.5",
+                      SMP_AUTOSCALE_MIN="1", SMP_AUTOSCALE_MAX="2", SMP_AUTOSCALE_HYSTERESIS="2",
+                      SMP_CONTROLLER_PATH=feed)
+    eng0 = factory()
+    router = RequestRouter()
+    seq = [0]
+
+    def window():
+        seq[0] += 1
+        return {"seq": seq[0], "t_wall": time.time(),
+                "queue_depth": max((h.load() for h in router.live_handles()), default=0)}
+
+    ctl = ServingController.from_env(router=router, window_source=window)
+    ctl.register_live(LocalReplicaHandle("replica0", eng0, version=0))
+    remote = RemoteReplicaHandle("replica1", state.bus, peer=1, version=0)
+
+    def activate():
+        remote.activate(timeout_s=300.0)
+        return remote
+
+    ctl.add_standby("replica1", activate)
+    reqs = s_requests(module.vocab_size, **J_SCALE)
+    t0 = time.perf_counter()
+    for req in reqs[:8]:
+        router.dispatch(req)
+    sent, deadline = 8, time.monotonic() + 300
+    while time.monotonic() < deadline:
+        if sent < len(reqs) and ctl.replicas == 2:
+            router.dispatch(reqs[sent])
+            sent += 1
+        busy = router.step_all()
+        ctl.tick()
+        if sent == len(reqs) and not busy and all(r.request_id in ctl.results() for r in reqs):
+            break
+    burst_s = time.perf_counter() - t0
+    down_deadline = time.monotonic() + 60
+    while ctl.replicas > 1 and time.monotonic() < down_deadline:
+        router.step_all()
+        ctl.tick()
+        time.sleep(0.01)
+    results = ctl.results()
+    out["c"] = dict(events=[{k: v for k, v in e.items() if k != "t_wall"} for e in ctl.scale_events],
+                    results={r.request_id: list(results.get(r.request_id, ())) for r in reqs},
+                    want={r.request_id: r.max_new_tokens for r in reqs}, routed=dict(router.routed), sent=sent,
+                    burst_s=burst_s, margin=_j_margin(module, reqs, results))
+    ctl.stop()
+    for k in ("SMP_AUTOSCALE", "SMP_CONTROLLER_PATH"):
+        os.environ.pop(k)
+
+    # (a) phase S's burst through the router over two live replicas.
+    remote = RemoteReplicaHandle("replica1", state.bus, peer=1, version=0)
+    remote.activate(timeout_s=300.0)
+    local = LocalReplicaHandle("replica0", eng0, version=0)
+    router = RequestRouter()
+    router.attach(local)
+    router.attach(remote)
+    reqs = s_requests(module.vocab_size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = [router.dispatch(r) for r in reqs]
+    while not all(r.request_id in router.results() for r in reqs):
+        if not router.step_all():
+            time.sleep(0.001)
+    wall = time.perf_counter() - t0
+    results = router.results()
+    out["a"] = dict(placed=placed, wall=wall, tokens=sum(len(results[r.request_id]) for r in reqs),
+                    results={r.request_id: list(results[r.request_id]) for r in reqs},
+                    want={r.request_id: r.max_new_tokens for r in reqs}, margin=_j_margin(module, reqs, results),
+                    routed=dict(router.routed))
+    remote.deactivate()
+
+    # (d) the canary on rank 0's replica: unchanged weights promote,
+    # perturbed ones roll back.
+    wins = []
+    ctl = ServingController(router=RequestRouter(), policy=AutoscalePolicy({"queue_depth": 50.0}),
+                            window_source=lambda: wins.pop(0) if wins else None, canary_windows=1)
+    ctl.register_live(LocalReplicaHandle("primary", eng0, version=0))
+    pinned = s_requests(module.vocab_size, **J_PINNED)
+    params = {k: v.detach().clone() for k, v in module.state_dict().items()}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    perturbed = {k: v + 0.02 * torch.randn(v.shape, generator=g, device=v.device) if v.is_floating_point() else v
+                 for k, v in params.items()}
+    promoted = ctl.start_canary(params, version=1, pinned=pinned)
+    wins.append({"seq": 1, "queue_depth": 0.0})
+    ctl.tick()
+    rolled = ctl.start_canary(perturbed, version=2, pinned=pinned)
+    out["d"] = dict(first=promoted, promotions=ctl.promotions, second=rolled, rollbacks=ctl.rollbacks,
+                    version=eng0.weights_version)
+    ctl.stop()
+    eng0.close()
+    smp.barrier()
+    out["threefry"] = threefry_bits.launches
+    smp.reset()
+    return out
+
+
+def _j_fail_world(rank, world):
+    """World 2 (fp32): (b) replica failover. Rank 1 is SIGKILLed mid-decode
+    by ``kill_replica@request=2:rank=1``; rank 0 re-admits its requests and
+    finishes all six, against a never-killed engine's tokens."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.serving import ReplicatedServingEngine
+    from smdistributed_modelparallel_tpu_torch.utils.telemetry import telemetry
+
+    os.environ.update(J_ENV, SMP_CHAOS="kill_replica@request=2:rank=1")
+    smp.init({"ddp": True}, device="cuda:0")
+    factory, module = _j_factory(warm=False)
+    reqs = s_requests(module.vocab_size, **J_FAIL)
+    rep = ReplicatedServingEngine(factory())
+    mine = [r for i, r in enumerate(reqs) if i % world == rank]
+    results = rep.run(mine, timeout_s=300.0, linger_s=60.0 if rank == 0 else 0.0)
+    # The never-killed run, after the failover so that its detection is timed
+    # while rank 0 serves.
+    reference = factory().run(reqs)
+    report = telemetry.report()["metrics"]
+    phases = {s["labels"]["phase"]: s["value"] for s in report.get("smp_recovery_phase_seconds", {"series": []})["series"]}
+    events = {s["labels"]["event"]: s["value"] for s in report["smp_serve_requests_total"]["series"]}
+    out = dict(results={r.request_id: list(results.get(r.request_id, ())) for r in reqs},
+               reference={k: list(v) for k, v in reference.items()},
+               mttr=report["smp_recovery_seconds"]["series"][0]["value"], phases=phases, events=events,
+               sampled=[r.request_id for r in reqs if r.temperature > 0])
+    smp.reset()
+    return out
+
+
+def phase_j():
+    """Serving replicas: two processes on cuda:0 over the native bus (gloo
+    for their start only), GPT-2 124M engines. Holds (a)-(d)."""
+    import shutil
+
+    failures = []
+    feed = os.path.join(J_DIR, "controller.jsonl")
+    os.makedirs(J_DIR, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        s0, s1 = run_ranks(2, _j_serve_world, feed)
+        serve_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        f0, _ = run_ranks(2, _j_fail_world, killed=(1,))
+        fail_s = time.perf_counter() - t0
+        feed_kinds = [json.loads(line)["kind"] for line in open(feed)]
+    finally:
+        shutil.rmtree(J_DIR, ignore_errors=True)
+    log(f"[J] GPT-2 124M engines ({J_SLOTS} slots, {J_BLOCKS} blocks), two processes on cuda:0 over the native "
+        f"bus; world 1 (bf16: (c), (a), (d)) took {serve_s:.1f} s, world 2 (fp32: (b)) {fail_s:.1f} s with start-up")
+    # (c)
+    c = s0["c"]
+    up, down = (c["events"] + [None, None])[:2]
+    whole = all(len(c["results"][rid]) == n for rid, n in c["want"].items())
+    log(f"[J] (c) SMP_AUTOSCALE burst of {len(c['want'])} requests ({c['sent']} dispatched) in {c['burst_s']:.2f} s: "
+        f"events {[(e['direction'], round(e['seconds'], 3), {k: round(v, 3) for k, v in e['phases'].items()}) for e in c['events']]}; "
+        f"warm start {up and up.get('warm')}; routed {c['routed']}; every request finished once with its tokens "
+        f"{whole}; greedy margin {c['margin']:.3e} (limit {S_MARGIN}); feed {feed_kinds}; rank 1 served "
+        f"{[len(x) for x in s1['served']]}")
+    if not (up and up["direction"] == "up" and down and down["direction"] == "down" and len(c["events"]) == 2):
+        failures.append(f"(c) scale events {c['events']}")
+    elif up["warm"].get("fresh", 0) != 0 or up["warm"].get("disk_cache", 0) < 1:
+        failures.append(f"(c) the standby's warm start {up['warm']}: wanted no nvcc build and a load from disk")
+    if not whole or c["routed"].get("replica1", 0) < 1 or c["margin"] > S_MARGIN:
+        failures.append("(c) a request was dropped, cut or duplicated, or never reached the standby")
+    # (a)
+    a = s0["a"]
+    whole = all(len(a["results"][rid]) == n for rid, n in a["want"].items())
+    log(f"[J] (a) phase S's burst ({len(a['want'])} requests) through RequestRouter over two live replicas: "
+        f"{a['wall'] * 1e3:.2f} ms, {a['tokens']} tokens, {a['tokens'] / a['wall']:.1f} tokens/s; routed "
+        f"{a['routed']}; every request whole {whole}; greedy margin {a['margin']:.3e} (limit {S_MARGIN})")
+    if not whole or a["margin"] > S_MARGIN or min(a["routed"].values()) < 1:
+        failures.append("(a) the router's burst")
+    # (d)
+    d = s0["d"]
+    log(f"[J] (d) canary: unchanged weights {'promoted' if d['first'] and d['promotions'] == 1 else 'NOT promoted'}, "
+        f"perturbed weights {'rolled back' if d['second'] is False and d['rollbacks'] == 1 else 'NOT rolled back'}; "
+        f"serving version {d['version']}")
+    if not (d["first"] and d["promotions"] == 1 and d["second"] is False and d["rollbacks"] == 1
+            and d["version"] == 1):
+        failures.append(f"(d) canary {d}")
+    # (b)
+    equal = all(f0["results"][rid] == f0["reference"][rid] for rid in f0["reference"])
+    log(f"[J] (b) kill_replica@request=2:rank=1 (fp32 engines): the survivor finished "
+        f"{sum(1 for v in f0['results'].values() if v)} of {len(f0['reference'])} requests, tokens equal to the "
+        f"never-killed engine's (sampled {f0['sampled']} included) {equal}; MTTR {f0['mttr']:.3f} s, phases "
+        f"{ {k: round(v, 3) for k, v in f0['phases'].items()} }; serve events {f0['events']}")
+    if not equal or set(f0["phases"]) != {"detect", "readmit", "first_token"}:
+        failures.append("(b) the failover")
+    if failures:
+        raise RuntimeError("phase J: " + "; ".join(failures))
+    return {"threefry_bits": s0["threefry"] + s1["threefry"]}
 
 
 def _bound(nbytes, flops, dtype):
@@ -6850,11 +7462,15 @@ def _v3(failures):
 
 def _v4_wedge(init_state, ids, failures):
     """``wedge@step=2:ms=500`` (V4). The stall lands inside the third call's
-    ``step/dispatch`` region: that region less 500 ms lies within 10% of the
-    other steps' regions (their own spread is tens of ms, so a fixed "500 ms
-    over the median" would test the host's noise), and the goodput ledger
-    attributes 500 ms (to 50 ms) to ``wedged``."""
+    ``step/dispatch`` region: the chaos event's time in the flight recorder
+    (one ``perf_counter`` with the timeline's spans, each from its own origin)
+    and the 500 ms after it lie inside that region and in no other, and the
+    goodput ledger attributes 500 ms (to 50 ms) to ``wedged``. The region's
+    length less 500 ms is printed, not held: it is the step's host dispatch
+    time, which swings by a third between calls on a shared host."""
     import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.backend.state import state
+    from smdistributed_modelparallel_tpu_torch.utils.flight_recorder import flight_recorder
 
     timeline = os.path.join(V_DIR, "wedge_timeline.json")
     with _env(SMP_CHAOS=f"wedge@step=2:ms={V_WEDGE_MS}", SMP_TIMELINE_PATH=timeline, SMP_GOODPUT="1"):
@@ -6864,17 +7480,28 @@ def _v4_wedge(init_state, ids, failures):
                     .get("smp_chaos_injected_total", {}).get("series", [])]
         led = smp.goodput.ledger
         wedged_ms = led.seconds(led._clock()).get("wedged", 0.0) * 1e3
+        # The ring's microseconds on the timeline's clock.
+        shift_us = (flight_recorder._t0 - state.timeline._t0) * 1e6
+        wedge_at = [e["ts_us"] + shift_us for e in flight_recorder.snapshot()
+                    if e["kind"] == "chaos" and e.get("fault") == "wedge"]
         del model, optimizer, train_step
         smp.shutdown()
     events = json.loads(open(timeline).read())["traceEvents"]
-    dispatch = [e["dur"] / 1e3 for e in events if e.get("name") == "smp_phase/step/dispatch" and "dur" in e]
-    others = [ms for i, ms in enumerate(dispatch) if i != 2]
+    regions = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("name") == "smp_phase/step/dispatch" and "dur" in e]
+    dispatch = [(end - begin) / 1e3 for begin, end in regions]
+    # The ring rounds its times to 0.1 us.
+    holding = [i for i, (begin, end) in enumerate(regions)
+               for t in wedge_at if begin - 0.1 <= t and t + wedged_ms * 1e3 <= end + 0.1]
     log(f"[V4] wedge@step=2:ms={V_WEDGE_MS}: step/dispatch regions {[round(x, 2) for x in dispatch]} ms (the third "
-        f"less {V_WEDGE_MS}: {dispatch[2] - V_WEDGE_MS if len(dispatch) == 4 else None}); goodput `wedged` "
-        f"{wedged_ms:.1f} ms; smp_chaos_injected_total {injected}")
-    if len(dispatch) != 4 or not 0.9 * min(others) <= dispatch[2] - V_WEDGE_MS <= 1.1 * max(others) \
+        f"less {V_WEDGE_MS}: {dispatch[2] - V_WEDGE_MS if len(dispatch) == 4 else None}); the wedge at "
+        f"{[round(t / 1e3, 3) for t in wedge_at]} ms on the timeline, inside region(s) {holding} "
+        f"{[(round(b / 1e3, 3), round(e / 1e3, 3)) for b, e in regions]}; goodput `wedged` {wedged_ms:.1f} ms; "
+        f"smp_chaos_injected_total {injected}")
+    if len(dispatch) != 4 or len(wedge_at) != 1 or holding != [2] \
             or not V_WEDGE_MS <= wedged_ms <= V_WEDGE_MS + 50 or injected != [({"fault": "wedge"}, 1.0)]:
-        failures.append(f"V4 wedge: dispatch {dispatch} ms, wedged {wedged_ms} ms, injected {injected}")
+        failures.append(f"V4 wedge: dispatch {dispatch} ms, wedge at {wedge_at} us inside regions {holding}, "
+                        f"wedged {wedged_ms} ms, injected {injected}")
 
 
 def _v4_preemption(init_state, ids, failures):
@@ -7199,10 +7826,11 @@ def phase_p():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, W, K, H, E, O, V, B, C (the default, all "
-             "eighteen), "
+                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, U, W, J, K, H, E, O, V, B, C (the default, "
+             "all twenty), "
              "P (profiles), N (phase R's ranks on two cards, over NCCL), Y (phase W's ranks on two cards, over "
-             "NCCL) and X (GPT-2 1.5B at 16 x 1024 with checkpointing off)")
+             "NCCL), Z (phase U's ranks on two cards, over NCCL) and X (GPT-2 1.5B at 16 x 1024 with checkpointing "
+             "off)")
     parser.add_argument("--k-child", metavar="DIR", help=argparse.SUPPRESS)  # phase K's resumed run
     parser.add_argument("--o-child", metavar="KIND:ON", help=argparse.SUPPRESS)  # phase O's runs
     parser.add_argument("--v-child", metavar="KIND:DIR", help=argparse.SUPPRESS)  # phase V's runs
@@ -7236,7 +7864,7 @@ def main():
     log(f"[time] build {time.perf_counter() - started:.1f} s")
     serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches = {}, {}, {}, {}, {}, {}
     k_launches, d_launches, m_launches, s_launches, g_launches, h_launches = {}, {}, {}, {}, {}, {}
-    e_launches, o_launches, v_launches, w_launches = {}, {}, {}, {}
+    e_launches, o_launches, v_launches, w_launches, u_launches, j_launches = {}, {}, {}, {}, {}, {}
     errs = timing = None
     if "A" in args.phases:
         serve_launches = phase_a()
@@ -7262,10 +7890,16 @@ def main():
         cp_launches, _ = phase_r()
     if "N" in args.phases:
         phase_r(device=None)
+    if "U" in args.phases:
+        u_launches, _ = phase_u()
+    if "Z" in args.phases:
+        phase_z()
     if "W" in args.phases:
         w_launches, _ = phase_w()
     if "Y" in args.phases:
         phase_y()
+    if "J" in args.phases:
+        j_launches = phase_j()
     if "K" in args.phases:
         k_launches, _ = phase_k(smi)
     if "H" in args.phases:
@@ -7299,11 +7933,14 @@ def main():
     # generation and checkpointed steps, E2's T5 training, E3's MoE training
     # and decoding, E4's forward), the observability runs (O: O1's 20
     # steps with every variable on), the sentinel's runs (V: V1's cheap
-    # and full blocks) and the data-parallel run (W: both ranks' 6 steps
-    # and the rdp = 1 run), each counted from 0 just before it.
+    # and full blocks), the data-parallel run (W: both ranks' 6 steps
+    # and the rdp = 1 run), the expert-parallel run (U: both ranks' steps
+    # and the ep = 1 run), phase R's rdp x cp run (its four ranks' steps,
+    # in R's count) and the serving replicas (J: world 1's sampled streams),
+    # each counted from 0 just before it.
     paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches, k_launches,
              d_launches, m_launches, s_launches, g_launches, h_launches, e_launches, o_launches, v_launches,
-             w_launches)
+             w_launches, u_launches, j_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"

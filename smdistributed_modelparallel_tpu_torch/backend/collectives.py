@@ -14,7 +14,11 @@ of size > 1, with the same semantics:
 - ``all_to_all(x, split_dim, concat_dim)``: ``lax.all_to_all(...,
   tiled=True)``: chunk i of ``split_dim`` goes to member i, and the chunks
   received are concatenated along ``concat_dim`` in member order.
-- ``all_gather(x, dim)`` (tiled) and ``all_reduce(x)`` (sum, in place).
+- ``all_gather(x, dim)`` (tiled; any dtype, the MoE's int32 routing choices
+  among them) and ``all_reduce(x)`` (sum, in place).
+
+``all_to_all`` is the differentiable exchange (its backward is the inverse
+exchange) that Ulysses attention and the MoE's expert dispatch share.
 
 The transport is decided once, when ``smp.init`` builds the groups, never
 after a failure. Every rank all-gathers its device's UUID over the default
@@ -256,6 +260,28 @@ class TensorGroup:
             flat = op(torch.cat([t.reshape(-1) for t in ts]))
             for t, part in zip(ts, flat.split([t.numel() for t in ts])):
                 t.copy_(part.view_as(t))
+
+
+class _AllToAll(torch.autograd.Function):
+    """``TensorGroup.all_to_all``, differentiable: the backward is the
+    inverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return group.all_to_all(x, split_dim, concat_dim)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return ctx.group.all_to_all(g.contiguous(), concat_dim, split_dim), None, None, None
+
+
+def all_to_all(x, group, split_dim, concat_dim):
+    """``lax.all_to_all(x, split_axis=split_dim, concat_axis=concat_dim,
+    tiled=True)`` over ``group``, differentiable."""
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
 
 
 class CollectiveCommunicator:

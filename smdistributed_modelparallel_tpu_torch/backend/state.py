@@ -49,7 +49,10 @@ rank's contiguous sequence shard under context parallelism: attention then
 runs the cp ring (or Ulysses) and positions are offset by the shard's start.
 Outside a step (``smp.generate``, a bare model call) every rank holds whole
 sequences and computes as at cp = 1. ``rdp_sharded`` is True while a step
-runs this rank's rows under data parallelism (rdp > 1).
+runs this rank's rows under data or expert parallelism (rdp or ep > 1). The
+groups over several data axes (``topology.DATA_AXES``,
+``EXPERT_REPLICA_AXES``, ``ROW_AXES``) sit in ``groups`` beside the mesh
+axes' (``group(axes)``).
 
 ``module_manager`` is the ``module_manager.ModuleManager`` that
 ``smp.set_activation_checkpointing``, ``smp.set_tensor_parallelism``,
@@ -224,7 +227,8 @@ class ModelParallelState:
 
     def shutdown(self):
         """End the session's observability, as the JAX package's core
-        shutdown does at world size 1: stop the goodput ledger (its final
+        shutdown does at world size 1: close the armed serving controllers'
+        open scale events, stop the goodput ledger (its final
         publish), derive the exit status, wait for pending checkpoint
         saves, close an open profiler capture, flush the timeline, set the
         ``shutdown`` phase and dump the telemetry (``SMP_TELEMETRY_PATH``)
@@ -232,6 +236,14 @@ class ModelParallelState:
         when the framework is not initialized."""
         if self.cfg is None:
             return
+        # The serving controller closes its open scale events before the
+        # fleet plane (its window source) goes away.
+        try:
+            from smdistributed_modelparallel_tpu_torch.serving import controller as serving_controller
+
+            serving_controller.shutdown_all()
+        except Exception as e:
+            logger.warning("serving controller stop failed: %s", e)
         try:
             goodput.stop()
         except Exception as e:
@@ -270,14 +282,16 @@ class ModelParallelState:
 
     def reset(self):
         """Drop the session and clear the observability and resilience
-        state: the registry, the flight recorder's ring, the goodput ledger,
-        the fleet plane, the health monitor, the profiler capture, the
+        state: the armed serving controllers, the registry, the flight
+        recorder's ring, the goodput ledger, the fleet plane, the health monitor, the profiler capture, the
         preemption listener (SIGTERM gets its previous handler back), the
         supervisor and the chaos rules."""
         from smdistributed_modelparallel_tpu_torch.resilience import reset as resilience_reset
+        from smdistributed_modelparallel_tpu_torch.serving import controller as serving_controller
         from smdistributed_modelparallel_tpu_torch.utils import health
         from smdistributed_modelparallel_tpu_torch.utils.fleet import fleet
 
+        serving_controller.reset_all()
         goodput.reset()
         fleet.reset()
         telemetry.reset()
@@ -319,7 +333,8 @@ class ModelParallelState:
             raise NotInitializedError()
 
     def group(self, axis):
-        """This rank's ``TensorGroup`` along ``axis`` (None at size 1)."""
+        """This rank's ``TensorGroup`` along ``axis``, a mesh axis or one of
+        ``topology``'s tuples of data axes (None at size 1)."""
         return self.groups.get(axis)
 
     def sequence_offset(self, local_len):
@@ -385,6 +400,8 @@ def _build_groups(topology, rank, device, keys):
 
     from smdistributed_modelparallel_tpu_torch.backend.collectives import TensorGroup, choose_transport
 
+    from smdistributed_modelparallel_tpu_torch.backend.topology import DATA_AXES, EXPERT_REPLICA_AXES, ROW_AXES
+
     groups = {}
     for axis, size in zip(topology.axis_names, topology.axis_sizes):
         if size == 1:
@@ -396,6 +413,19 @@ def _build_groups(topology, rank, device, keys):
                 groups[axis] = TensorGroup(ranks, pg, transport, rank, device)
                 note = " (host copies of CUDA tensors)" if transport == "gloo" and keys[rank] != "cpu" else ""
                 logger.info("%s group %s: transport %s%s", axis, ranks, transport, note)
+    # The groups over several data axes. One with a single axis of size > 1
+    # is that axis's group; the others get process groups of their own.
+    for axes in (DATA_AXES, EXPERT_REPLICA_AXES, ROW_AXES):
+        wide = [a for a in axes if topology.axes_size((a,)) > 1]
+        if len(wide) == 1:
+            groups[axes] = groups[wide[0]]
+        elif wide:
+            for ranks in topology.axis_groups(axes):
+                transport = choose_transport([keys[r] for r in ranks])
+                pg = dist.new_group(ranks, backend=transport)
+                if rank in ranks:
+                    groups[axes] = TensorGroup(ranks, pg, transport, rank, device)
+                    logger.info("%s group %s: transport %s", "x".join(axes), ranks, transport)
     return groups
 
 

@@ -7,6 +7,10 @@ placement order (``DeviceMesh``, whose ``shape`` is the JAX mesh's). The same de
 count cannot hold (``DeviceCountError``), the same axis names and order give
 each rank its coordinates (``coords``, ``cp_rank``), and ``axis_group`` lists
 the ranks that share a rank's coordinates off one axis, in axis order.
+``axes_group`` does the same off several axes: the data group (``DATA_AXES``,
+every rank that holds other tokens of one microbatch), the expert replicas
+(``EXPERT_REPLICA_AXES``, the ranks that hold the same experts) and the row
+group (``ROW_AXES``, the ranks that hold other rows of one sequence shard).
 
 The device count is ``_device_count_override`` when set (tests use it to
 shrink the world), else the world size. The override may not exceed the
@@ -23,6 +27,12 @@ TP_AXIS = "tp"
 RDP_AXIS = "rdp"
 EP_AXIS = "ep"
 CP_AXIS = "cp"
+
+# Groups over several data axes (mesh order): every data rank, the ranks
+# that hold the same experts, and the ranks that hold the same sequence shard.
+DATA_AXES = (RDP_AXIS, EP_AXIS, CP_AXIS)
+EXPERT_REPLICA_AXES = (RDP_AXIS, CP_AXIS)
+ROW_AXES = (RDP_AXIS, EP_AXIS)
 
 
 def _letter_axes(letter):
@@ -101,20 +111,34 @@ class DeviceTopology:
     def axis_group(self, rank, axis):
         """Ranks sharing ``rank``'s coordinates on every mesh axis except
         ``axis`` (its group along that axis), in axis order."""
+        return self.axes_group(rank, (axis,))
+
+    def axes_group(self, rank, axes):
+        """Ranks sharing ``rank``'s coordinates on every mesh axis not in
+        ``axes``, in rank order: mesh order over ``axes``, the last fastest."""
         mine = self.coords(rank)
         group = []
         for r in range(self.size):
             c = self.coords(r)
-            if all(c[a] == mine[a] for a in self.axis_names if a != axis):
+            if all(c[a] == mine[a] for a in self.axis_names if a not in axes):
                 group.append(r)
         return group
 
+    def axes_size(self, axes):
+        """The size of a group over ``axes``."""
+        n = 1
+        for a in axes:
+            n *= getattr(self, f"{a}_size")
+        return n
+
     def axis_groups(self, axis):
-        """Every group along ``axis``, each once, in rank order of its first
-        member: the order in which every rank creates them."""
+        """Every group along ``axis`` (an axis name or a tuple of them), each
+        once, in rank order of its first member: the order in which every
+        rank creates them."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
         seen, groups = set(), []
         for r in range(self.size):
-            g = tuple(self.axis_group(r, axis))
+            g = tuple(self.axes_group(r, axes))
             if g not in seen:
                 seen.add(g)
                 groups.append(list(g))

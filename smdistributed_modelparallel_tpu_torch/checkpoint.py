@@ -187,6 +187,11 @@ def save_checkpoint(path, tag=None, model=None, optimizer=None,
     ``step_{step_count}``. ``blocking=False`` returns once every tensor is
     copied to the host and ``user_content`` deep-copied; the rest runs on a
     background thread (``wait_for_checkpoints``)."""
+    if state.topology is not None and state.topology.ep_size > 1:
+        raise NotImplementedError(
+            "smp.save_checkpoint: expert_parallel_degree > 1 (each ep rank holds a slice of the experts, sharded "
+            "state) is not ported to PyTorch yet (ROADMAP item 9)."
+        )
     model = model if model is not None else state.model
     optimizer = optimizer if optimizer is not None else state.optimizer
     tag = tag if tag is not None else f"step_{state.step_count}"

@@ -22,6 +22,11 @@ kernel [D, 3, H, hd] is flattened to [D, 3*H*hd] (columns (c, h, k)) and
 transposed, the output projection [H, hd, D] flattened to [H*hd, D] and
 transposed, and their biases flattened. A leaf it does not know raises.
 
+``shard_experts`` slices the MoE's [E, ...] expert leaves (``fc``/``proj``
+kernels and biases, as ``lm_head_params_from_jax`` gives them) to an ep
+rank's experts: at expert parallelism each rank holds ``[j*E/ep,
+(j+1)*E/ep)`` (``DistributedMoE`` applies it to whatever it loads).
+
 ``quant_state_from_jax`` carries the fp8 delayed-scaling state
 (``QuantState.state_dict()``) across, and ``key_from_jax``/``key_to_jax`` a
 random key: the port's key (``utils/random``) is the two uint32 words of
@@ -465,6 +470,14 @@ def quant_state_from_jax(sd):
         raise ValueError(f"malformed QuantState: amax_history {hist.shape}, scale {scale.shape}, "
                          f"{len(slots)} slots")
     return {"amax_history": hist, "scale": scale, "slots": slots}
+
+
+def shard_experts(leaves, num_experts, expert_range):
+    """``leaves`` ({name: [E, ...] array or tensor}) cut to the experts
+    ``expert_range`` = (lo, hi) of an ep rank; a leaf that is not [E, ...]
+    (a slice already) passes as it is."""
+    lo, hi = expert_range
+    return {k: (v[lo:hi] if v.shape[0] == num_experts else v) for k, v in leaves.items()}
 
 
 def key_from_jax(key_data):

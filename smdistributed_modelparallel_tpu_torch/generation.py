@@ -429,6 +429,11 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
     # tokens on every rank (only a step shards the sequence).
     if state.cfg is not None and state.cfg.pipeline_parallel_degree > 1:
         raise _not_ported("pipeline_parallel_degree > 1")
+    if state.cfg is not None and state.cfg.expert_parallel_degree > 1:
+        raise NotImplementedError(
+            "smp.generate: expert_parallel_degree > 1 (the experts sharded over the ep ranks) is not ported to "
+            "PyTorch yet (ROADMAP item 5b)."
+        )
     if max_new_tokens < 1:
         raise SMPValidationError("max_new_tokens must be >= 1.")
     if hasattr(model, "module"):  # DistributedModel

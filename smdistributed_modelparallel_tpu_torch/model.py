@@ -8,11 +8,15 @@ after it, ``parameters``/``num_parameters`` and ``train``/``eval``. Inside
 a step, ``model(...)`` runs the module on the parameters the step engine
 bound for the microbatch (half casts of the fp32 master parameters under
 bf16/fp16), and ``model.backward(loss)`` marks the loss that the engine
-differentiates. Under context or data parallelism (cp or rdp > 1) the
-parameters and buffers are broadcast from the group's first rank at build,
-and inside a data-parallel step a key drawn for a module raises (each rank
-would need its rows' part of the global mask). Pipeline and tensor
-parallelism arrive with later slices.
+differentiates. Under context, data or expert parallelism (cp, rdp or ep >
+1) the parameters and buffers are broadcast from the first rank of the data
+group (``topology.DATA_AXES``) at build, and inside a step that runs this
+rank's rows (rdp or ep > 1) a key drawn for a module raises (each rank would
+need its rows' part of the global mask). At ep > 1 every ``DistributedMoE``
+keeps the ep rank's experts (``shard_experts``), which are broadcast only over
+the ranks that hold the same experts (``EXPERT_REPLICA_AXES``, rdp x cp);
+``_expert_params`` names them for the step's gradient reduction. Pipeline and
+tensor parallelism arrive with later slices.
 
 Random keys. ``rngs`` names the key streams the module draws from besides
 its parameters (``("dropout",)``, as in the JAX package). Inside a step the
@@ -44,6 +48,10 @@ step records its load-balancing loss here (``_sow_moe_aux``), as the JAX
 package's apply collects the sown ``moe_aux_loss``; ``_end_microbatch`` adds
 their sum times ``moe_aux_loss_weight`` to the loss the step differentiates,
 and the step returns the loss as marked. Outside a step nothing is recorded.
+The folded term is also kept apart (``_aux_term``): over several data ranks
+each rank's aux is its part of the JAX package's global sum (``nn/moe.py``),
+and the step weighs it by the data degree rather than by the rank's share of
+the loss.
 
 Checkpoints. ``state_dict()`` is torch's own. The checkpoint files hold the
 JAX package's layout instead, so that either package resumes the other's
@@ -74,7 +82,7 @@ import torch
 
 from smdistributed_modelparallel_tpu_torch import convert
 from smdistributed_modelparallel_tpu_torch.backend.state import state
-from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS, RDP_AXIS
+from smdistributed_modelparallel_tpu_torch.backend.topology import DATA_AXES, EP_AXIS, EXPERT_REPLICA_AXES
 from smdistributed_modelparallel_tpu_torch.nn.utils import collect_program_ticks
 from smdistributed_modelparallel_tpu_torch.utils import random
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
@@ -123,6 +131,7 @@ class DistributedModel:
         # live in the manager smp.* created.
         self.module_manager = state.module_manager = state.module_manager or ModuleManager()
         module, self._tp_replaced = distribute_tree(module, self.module_manager, state.tp_registry)
+        self._expert_params = _shard_experts(module)
         if any(p.is_meta for p in module.parameters()):
             if state.loaded_model_state is None:
                 raise SMPValidationError("The module's parameters are on the meta device and no state is staged to "
@@ -137,17 +146,22 @@ class DistributedModel:
         self._key_tapes = []        # keys drawn are appended to each (checkpointed regions' forwards)
         self._key_replay = None     # iterator of the keys a recompute draws instead
         self._rng_scopes = _rng_scopes(self.module)
-        for axis in (CP_AXIS, RDP_AXIS):
-            group = state.group(axis)
-            if group is not None:
-                # Parameters are replicated over cp and rdp: every rank
-                # starts from the group's first rank's.
-                group.flat_(group.broadcast, [*self.module.parameters(), *self.module.buffers()])
+        # Parameters are replicated over the data ranks (an ep rank's experts
+        # over the ranks that hold the same ones): every rank starts from its
+        # group's first rank's.
+        params = dict(self.module.named_parameters())
+        for axes, tensors in ((DATA_AXES, [p for n, p in params.items() if n not in self._expert_params]
+                               + list(self.module.buffers())),
+                              (EXPERT_REPLICA_AXES, [params[n] for n in sorted(self._expert_params)])):
+            group = state.group(axes)
+            if group is not None and tensors:
+                group.flat_(group.broadcast, tensors)
         self._grads = None          # {name: grad} of the last training step
         self._grads_finite = None   # bool under fp16 loss scaling
         self._bound = None          # {name: tensor} bound for the current microbatch
         self._backward_loss = None
         self._moe_aux = []          # MoE load-balancing losses of the current microbatch
+        self._aux_term = None       # their folded term in the last _end_microbatch's loss
         self._param_version = 0     # bumped whenever the parameters change
         self._params_at_step = None
         self._dropped_updates = 0
@@ -228,9 +242,11 @@ class DistributedModel:
         self._moe_aux = []
         differentiated = loss
         weight = float(getattr(state.cfg, "moe_aux_loss_weight", 1.0))
+        self._aux_term = None
         if loss is not None and aux and weight:
             total = sum(aux[1:], aux[0])
-            differentiated = loss + torch.full((), weight, dtype=loss.dtype, device=loss.device) * total.to(loss.dtype)
+            self._aux_term = torch.full((), weight, dtype=loss.dtype, device=loss.device) * total.to(loss.dtype)
+            differentiated = loss + self._aux_term
         return loss, num_tokens, differentiated
 
     def _sow_moe_aux(self, aux):
@@ -261,10 +277,12 @@ class DistributedModel:
             key = next(self._key_replay)
         else:
             if state.rdp_sharded:
+                topo = state.topology
                 raise NotImplementedError(
                     f"{type(module).__name__} draws a {name!r} key inside a data-parallel step (rdp = "
-                    f"{state.topology.rdp_size}): each rank would have to draw its rows' part of the global mask at "
-                    "its row offset, which is not ported to PyTorch yet (ROADMAP Queue 1 item 6)."
+                    f"{topo.rdp_size}, expert_parallel_degree = {topo.ep_size}): each rank would have to draw its "
+                    "rows' part of the global mask at its row offset, which is not ported to PyTorch yet (ROADMAP "
+                    "Queue 1 item 6)."
                 )
             key = self._derive_key(module, name, child)
         for tape in self._key_tapes:
@@ -450,6 +468,24 @@ def _rng_scopes(root):
 
     walk(root, (), None)
     return scopes
+
+
+def _shard_experts(module):
+    """At ep > 1, keep the ep rank's experts in every ``DistributedMoE`` of
+    ``module``; return the names of the parameters sliced so (empty at ep =
+    1, where the experts are replicated like every other parameter)."""
+    from smdistributed_modelparallel_tpu_torch.nn.moe import DistributedMoE
+
+    topo = state.topology
+    if topo is None or topo.ep_size == 1:
+        return frozenset()
+    index = topo.coords(state.rank)[EP_AXIS]
+    names = set()
+    for path, mod in module.named_modules():
+        if isinstance(mod, DistributedMoE):
+            mod.shard_experts(topo.ep_size, index)
+            names.update(f"{path}.{n}" if path else n for n in mod.expert_parameter_names())
+    return frozenset(names)
 
 
 def _reference_layout(module):

@@ -1,9 +1,8 @@
 """Mixture-of-Experts: ``DistributedMoE``, ``collect_moe_aux`` and
 ``moe_aux_losses``.
 
-Counterpart of ``smdistributed_modelparallel_tpu/nn/moe.py`` at expert
-degree 1, where every expert lives on the one device. The body is the JAX
-package's dense-dispatch formulation, step for step:
+Counterpart of ``smdistributed_modelparallel_tpu/nn/moe.py``. The body is the
+JAX package's dense-dispatch formulation, step for step:
 
 - the router in fp32 (``x.float() @ router.kernel``; in training,
   ``router_jitter`` > 0 scales the logits by ``uniform[1 - j, 1 + j)`` drawn
@@ -25,19 +24,57 @@ package's dense-dispatch formulation, step for step:
 - the expert FFNs as batched products over [E, C, D] (``torch.bmm``), the
   combine, and the hidden dropout at the flax scope ``output/Dropout_0``.
 
+Global routing. The JAX package routes the *global* microbatch under jit: N
+is every token of every data rank, the slot positions come from one cumsum
+over all of them, and the aux takes global means. Inside a step whose
+microbatch is spread over data ranks (rdp, ep or cp > 1: ``state.rdp_sharded``
+or ``state.cp_sharded``) each rank routes its own tokens, then all-gathers
+every data rank's ``expert_idx`` ([N_local, K] int32) over the data group
+(``topology.DATA_AXES``) and lays them out in the JAX package's token order:
+row-major over the microbatch, the rows sharded over (rdp, ep) in mesh order
+and each row's sequence over cp in contiguous shards (the step's layout; the
+ring's zigzag stays inside the attention). From the global choices every
+rank computes the global capacity and the k-major positions exactly as the
+JAX package does, and keeps its own tokens' slots. The aux becomes a sum over
+the data ranks: ``frac_routed`` is the global top-1 fraction (a constant),
+and the rank's ``mean_gate`` is its own gates' sum over the global N, so its
+gradient reaches only the rank's gates and the ranks' auxes add up to the
+JAX package's. ``DistributedModel._end_microbatch`` keeps the folded term
+apart (``_aux_term``) so that the step weighs it by the data degree, not by
+the rank's loss weight (``step.py``).
+
+Expert parallelism (ep > 1). ``DistributedModel`` keeps the ep rank's experts
+``[j*E/ep, (j+1)*E/ep)`` of ``fc`` and ``proj`` (``shard_experts``; a full
+[E, ...] leaf loaded later is sliced the same way). Each rank builds its
+partial ``expert_in`` [E, C, D], in which only its own tokens' slots are
+nonzero. An all-to-all over the ep group and a sum over the pieces received
+(a reduce-scatter along E) give the ep rank its experts' [E/ep, C, D]; the
+FFNs run on them; an all-to-all back (an all-gather along E) gives every rank
+``y`` [E, C, D] for its combine. Each exchange's backward is its transpose
+(``backend.collectives.all_to_all``). A slot holds one token globally, so the
+sums add exact zeros. The FFN acts on each slot's row alone, so the ranks
+that hold the same experts in other rdp or cp coordinates need none of this
+ep group's rows: the exchange stays within the ep group, and nothing is
+summed over rdp x cp in the forward (the expert gradients are, in the step).
+At ep > 1 the module runs inside an ``@smp.step`` only (ROADMAP item 5b: a
+bare call, ``smp.generate`` and the serving engine are refused).
+
 The one-hot einsums and the expert products are plain products that the JAX
 package leaves to XLA too, outside any Pallas kernel.
 
 Parameters keep the JAX names and shapes as ``kernel``/``bias`` tensors of
 three holder modules: ``router.kernel`` [D, E] (fp32), ``fc.kernel`` [E, D,
-F], ``fc.bias`` [E, F], ``proj.kernel`` [E, F, D] and ``proj.bias`` [E, D],
-in ``dtype`` (default fp32, the dtype the JAX package's init sees).
+F], ``fc.bias`` [E, F], ``proj.kernel`` [E, F, D] and ``proj.bias`` [E, D]
+(E/ep rows on an ep rank), in ``dtype`` (default fp32, the dtype the JAX
+package's init sees).
 """
 
 import torch
 from torch import nn
 
+from smdistributed_modelparallel_tpu_torch.backend.collectives import all_to_all
 from smdistributed_modelparallel_tpu_torch.backend.state import state
+from smdistributed_modelparallel_tpu_torch.backend.topology import DATA_AXES, EP_AXIS
 from smdistributed_modelparallel_tpu_torch.nn.transformer import _ACTIVATIONS, _check_tp, _dropout
 from smdistributed_modelparallel_tpu_torch.nn.utils import make_rng, resolve_deterministic
 from smdistributed_modelparallel_tpu_torch.ops import dropout as dropout_op
@@ -84,7 +121,33 @@ class DistributedMoE(nn.Module):
         self.router = _Leaves(kernel=torch.empty(D, E, dtype=torch.float32, device=device))
         self.fc = _Leaves(kernel=torch.empty(E, D, F, **kw), bias=torch.empty(E, F, **kw))
         self.proj = _Leaves(kernel=torch.empty(E, F, D, **kw), bias=torch.empty(E, D, **kw))
+        self.expert_range = (0, E)  # the experts this rank holds (shard_experts)
         self.reset_parameters()
+        self.register_load_state_dict_pre_hook(_slice_full_experts)
+
+    @torch.no_grad()
+    def shard_experts(self, size, index):
+        """Keep experts ``[index*E/size, (index+1)*E/size)`` of ``fc`` and
+        ``proj``: ep rank ``index`` of ``size``. A module sharded already is
+        left as it is."""
+        E = self.num_experts
+        if size == 1 or self.expert_range != (0, E):
+            return
+        if E % size:
+            raise SMPValidationError(
+                f"num_experts ({E}) must be divisible by expert_parallel_degree ({size}) so experts shard evenly "
+                "over the ep mesh axis."
+            )
+        lo, hi = index * E // size, (index + 1) * E // size
+        for leaves in (self.fc, self.proj):
+            for name in ("kernel", "bias"):
+                setattr(leaves, name, nn.Parameter(getattr(leaves, name)[lo:hi].clone()))
+        self.expert_range = (lo, hi)
+
+    def expert_parameter_names(self):
+        """The names (in this module) of the parameters an ep rank holds a
+        slice of."""
+        return [f"{h}.{n}" for h in ("fc", "proj") for n in ("kernel", "bias")]
 
     @torch.no_grad()
     def reset_parameters(self, std=None, generator=None):
@@ -112,6 +175,29 @@ class DistributedMoE(nn.Module):
         if model is not None:
             model._sow_moe_aux(aux)
 
+    def _exchange_groups(self):
+        """``(data group, ep group)`` of this forward: the data group when a
+        step spreads the microbatch over data ranks (global routing), the ep
+        group when this rank holds a slice of the experts."""
+        sharded = self.expert_range != (0, self.num_experts)
+        inside = state.rdp_sharded or state.cp_sharded
+        if sharded and not inside:
+            raise NotImplementedError(
+                "DistributedMoE at expert_parallel_degree > 1 runs inside an @smp.step only: a bare model call, "
+                "smp.generate and the serving engine are not ported to PyTorch at ep > 1 yet (ROADMAP item 5b)."
+            )
+        return (state.group(DATA_AXES) if inside else None), (state.group(EP_AXIS) if sharded else None)
+
+    def _global_choices(self, expert_idx, B, T, group):
+        """Every data rank's choices [N_global, K] in the JAX package's token
+        order, and this rank's (row block, sequence shard) in it."""
+        K = self.top_k
+        cp = state.topology.cp_size if state.cp_sharded else 1
+        rows = group.size // cp
+        got = group.all_gather(expert_idx.to(torch.int32).reshape(1, B, T, K), dim=0)  # [G, B, T, K]
+        got = got.reshape(rows, cp, B, T, K).permute(0, 2, 1, 3, 4).reshape(rows * B * cp * T, K)
+        return got, divmod(group.index, cp), cp
+
     def forward(self, hidden):
         _check_tp()
         self._check_ep()
@@ -119,6 +205,7 @@ class DistributedMoE(nn.Module):
         B, T = hidden.shape[:2]
         N = B * T
         x = hidden.reshape(N, D)
+        group, ep_group = self._exchange_groups()
 
         # The router, in fp32 for a stable softmax.
         logits = x.float() @ self.router.kernel.float()
@@ -132,36 +219,71 @@ class DistributedMoE(nn.Module):
         if K > 1:
             gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
 
-        capacity = int(max(K, -(-K * N * self.capacity_factor // E)))
+        # The choices the capacity and the slots are counted over: this
+        # rank's, or every data rank's in the JAX package's token order.
+        if group is None:
+            idx_all, n_all = expert_idx, N
+        else:
+            idx_all, (block, shard), cp = self._global_choices(expert_idx, B, T, group)
+            n_all = idx_all.shape[0]
+        capacity = int(max(K, -(-K * n_all * self.capacity_factor // E)))
         # Slot of each assignment in its expert, k-major then token-major, in
         # int32 as the JAX package counts it.
-        sel = _one_hot(expert_idx, E)                                         # [N, K, E]
-        sel_i = sel.to(torch.int32)
-        sel_km = sel_i.transpose(0, 1).reshape(K * N, E)
+        sel_all = _one_hot(idx_all, E)                                        # [N_all, K, E]
+        sel_i = sel_all.to(torch.int32)
+        sel_km = sel_i.transpose(0, 1).reshape(K * n_all, E)
         pos_km = torch.cumsum(sel_km, dim=0, dtype=torch.int32) - sel_km
-        pos = pos_km.reshape(K, N, E).transpose(0, 1)                         # [N, K, E]
-        pos_k = (pos * sel_i).sum(dim=-1, dtype=torch.int32)                  # [N, K]
+        pos = pos_km.reshape(K, n_all, E).transpose(0, 1)                     # [N_all, K, E]
+        pos_k = (pos * sel_i).sum(dim=-1, dtype=torch.int32)                  # [N_all, K]
+        if group is None:
+            sel = sel_all
+        else:
+            # This rank's tokens: row block `block`, sequence shard `shard`.
+            pos_k = pos_k.reshape(n_all // (T * cp), T * cp, K)[block * B:(block + 1) * B, shard * T:(shard + 1) * T]
+            pos_k = pos_k.reshape(N, K)
+            sel = _one_hot(expert_idx, E)
         keep = (pos_k < capacity).float()
         pos_oh = _one_hot(pos_k, capacity)                                    # [N, K, C]
         combine = torch.einsum("nk,nke,nkc->nec", gate_vals * keep, sel, pos_oh)
         dispatch = torch.einsum("nk,nke,nkc->nec", keep, sel, pos_oh)
 
-        # Switch's load-balancing loss (eq. 4) on the first choices.
-        frac_routed = sel[:, 0, :].mean(dim=0)
-        mean_gate = gates.mean(dim=0)
+        # Switch's load-balancing loss (eq. 4) on the first choices, over the
+        # global microbatch: this rank's part of the JAX package's sum.
+        frac_routed = sel_all[:, 0, :].mean(dim=0)
+        mean_gate = gates.mean(dim=0) if group is None else gates.sum(dim=0) / n_all
         aux = (frac_routed * mean_gate).sum() * float(E)
         self._sow(aux * self.aux_loss_coef)
 
-        # The expert FFNs, batched over the expert axis.
+        # The expert FFNs, batched over the (local) expert axis.
         dt = hidden.dtype
         C = capacity
         expert_in = (dispatch.to(dt).reshape(N, E * C).t() @ x).reshape(E, C, D)
+        if ep_group is not None:
+            # Reduce-scatter along E: piece j goes to ep rank j, which sums
+            # what every ep rank sent it (exact: one token a slot).
+            n = ep_group.size
+            expert_in = all_to_all(expert_in.reshape(n, E // n, C, D), ep_group, 0, 0).sum(dim=0)
         h = torch.bmm(expert_in, self.fc.kernel.to(dt))
         h = _ACTIVATIONS[self.activation](h + self.fc.bias[:, None].to(h.dtype))
         y = torch.bmm(h, self.proj.kernel.to(h.dtype))
         y = y + self.proj.bias[:, None].to(y.dtype)
+        if ep_group is not None:
+            # All-gather along E: every rank gets every expert's outputs.
+            y = all_to_all(y.expand(ep_group.size, *y.shape), ep_group, 0, 0).reshape(E, C, D)
         out = (combine.to(y.dtype).reshape(N, E * C) @ y.reshape(E * C, D)).reshape(B, T, D)
         return _dropout(self, out, self.hidden_dropout_prob)
+
+
+def _slice_full_experts(module, state_dict, prefix, *args):
+    """Load hook: a full [E, ...] expert leaf loads into an ep rank's slice
+    (``convert.shard_experts``)."""
+    from smdistributed_modelparallel_tpu_torch.convert import shard_experts
+
+    if module.expert_range == (0, module.num_experts):
+        return
+    names = [prefix + n for n in module.expert_parameter_names()]
+    state_dict.update(shard_experts({k: state_dict[k] for k in names if k in state_dict},
+                                    module.num_experts, module.expert_range))
 
 
 def _walk(tree, under_aux=False):

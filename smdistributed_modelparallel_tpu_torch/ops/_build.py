@@ -12,7 +12,10 @@ phase ``compile/<name>`` (the goodput ledger's ``compile_fresh``), then the
 phase it interrupted comes back. The flight recorder and the ledger get its
 seconds: ``nvcc`` for a build (fresh), ``load`` for a library already on
 disk (the ledger moves those seconds to ``compile_cache``, as it does for the
-JAX package's disk-cache hits).
+JAX package's disk-cache hits). ``COMPILE_EVENTS`` lists every first load of
+the process as ``{"source": "fresh" | "disk_cache", "name", "seconds"}``,
+the JAX package's compile-event sources: what a serving replica's warm start
+reports (``utils/exec_cache.compile_events_since``).
 """
 
 import ctypes
@@ -38,6 +41,7 @@ NVCC_FLAGS = (
 
 _LOADED = {}
 _LOCK = threading.Lock()
+COMPILE_EVENTS = []  # every first load of this process, in order
 
 
 def _nvcc():
@@ -111,6 +115,8 @@ def load(name):
             finally:
                 telemetry.set_phase(resumed)
             seconds = time.perf_counter() - t0
+            source = "fresh" if proc is not None else "disk_cache"
             flight_recorder.record_compile("nvcc" if proc is not None else "load", name, seconds)
-            goodput.note_compile("fresh" if proc is not None else "disk_cache", seconds)
+            goodput.note_compile(source, seconds)
+            COMPILE_EVENTS.append({"source": source, "name": name, "seconds": seconds})
         return lib

@@ -40,6 +40,7 @@ Ulysses drop the same probabilities, as in the JAX package.
 
 import torch
 
+from smdistributed_modelparallel_tpu_torch.backend.collectives import all_to_all
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS
 from smdistributed_modelparallel_tpu_torch.ops.flash_attention import (
@@ -199,22 +200,6 @@ class _RingFlashFn(torch.autograd.Function):
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None, None, None
 
 
-class _AllToAll(torch.autograd.Function):
-    """``lax.all_to_all`` (tiled) over a group, differentiable: the
-    backward is the inverse exchange."""
-
-    @staticmethod
-    def forward(ctx, x, group, split_dim, concat_dim):
-        ctx.group, ctx.dims = group, (split_dim, concat_dim)
-        return group.all_to_all(x, split_dim, concat_dim)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        split_dim, concat_dim = ctx.dims
-        return ctx.group.all_to_all(g.contiguous(), concat_dim, split_dim), None, None, None
-
-
 def ring_attention(q, k, v, kpad, seed, *, scale, causal, dropout_rate, group):
     """Ring attention over the local shards [B, Tl, H, hd] of ``group``'s
     ranks (``ring_attention_local_flash`` at n_sub = 1)."""
@@ -229,7 +214,7 @@ def ulysses_attention(q, k, v, kpad, seed, *, scale, causal, dropout_rate, group
     n, H = group.size, q.shape[2]
     if H % n != 0:
         raise SMPValidationError(f"Ulysses context parallelism needs heads ({H}) divisible by cp degree ({n}).")
-    qg, kg, vg = (_AllToAll.apply(x, group, 2, 1) for x in (q, k, v))  # [B, T, H/cp, hd]
+    qg, kg, vg = (all_to_all(x, group, 2, 1) for x in (q, k, v))  # [B, T, H/cp, hd]
     T = qg.shape[1]
     kp_full = group.all_gather(kpad, dim=1) if kpad is not None else None
     use_drop = dropout_rate > 0.0 and seed is not None
@@ -239,7 +224,7 @@ def ulysses_attention(q, k, v, kpad, seed, *, scale, causal, dropout_rate, group
         dropout_rate=dropout_rate if use_drop else 0.0, block_q=256, block_k=256, head_total=H,
         counter_len=T,
     )
-    return _AllToAll.apply(out.to(q.dtype), group, 1, 2)
+    return all_to_all(out.to(q.dtype), group, 1, 2)
 
 
 def cp_attention(q, k, v, *, scale, causal, impl=None, kpad=None, dropout_rate=0.0, seed=None, group=None):

@@ -143,7 +143,7 @@ class DistributedOptimizer:
             return
         consumed = grads
         if self.grad_clip_norm is not None:
-            gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+            gnorm = _global_norm(model, grads)
             scale = torch.clamp(self.grad_clip_norm / (gnorm + 1e-6), max=1.0)
             grads = {n: g * scale.to(g.dtype) for n, g in grads.items()}
         params = dict(model.module.named_parameters())
@@ -257,3 +257,19 @@ class DistributedOptimizer:
                                     **{k: torch.empty_like(p).copy_(moments[m][name])
                                        for k, m in (("exp_avg", "mu"), ("exp_avg_sq", "nu"))}}
         self.optimizer.load_state_dict(sd)
+
+
+def _global_norm(model, grads):
+    """The L2 norm of the step's gradients over the whole model: at ep > 1
+    an ep rank holds a slice of the experts, so their squares are summed
+    over the ep group (each shard counted once) before the root."""
+    experts = model._expert_params
+    if not experts:
+        return torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+    from smdistributed_modelparallel_tpu_torch.backend.topology import EP_AXIS
+
+    zero = torch.zeros((), device=next(iter(grads.values())).device)
+    dense = sum(((g.float() ** 2).sum() for n, g in grads.items() if n not in experts), zero)
+    shards = sum(((g.float() ** 2).sum() for n, g in grads.items() if n in experts), zero).reshape(1)
+    state.group(EP_AXIS).all_reduce(shards)
+    return torch.sqrt(dense + shards[0])

@@ -1,4 +1,4 @@
-"""``smp.serving``: the continuous-batching serving engine on one device.
+"""``smp.serving``: the continuous-batching serving engine and its control plane.
 
 Counterpart of ``smdistributed_modelparallel_tpu/serving``: a paged KV cache
 shared by every sequence in flight, a continuous-batching scheduler with
@@ -12,11 +12,19 @@ chunked prefill, and restartable requests (``serving/engine.py``,
                                  temperature=0.8, top_p=0.9, seed=7),
     ])
 
-The multi-process tier (``ReplicatedServingEngine``, the request router, the
-serving control plane) needs processes and the message bus; its names raise
-``NotImplementedError`` until slice 3b (ROADMAP item 5b) ports them.
+Multi-process deployments wrap the engine in ``ReplicatedServingEngine`` for
+mirror-log failover. The serving control plane lives in
+``smp.serving.controller`` / ``smp.serving.router``: SLO-driven autoscaling
+with hysteresis and cooldown, least-loaded request routing with per-version
+traffic splits, the drain protocol, and canaried live weight updates with
+rollback. ``SMP_AUTOSCALE`` arms it (``ServingController.from_env()``
+returns None when unset). Each is the JAX package's module of the same name,
+over the native host bus (``serving/replica.py``, ``router.py``,
+``controller.py``).
 """
 
+from smdistributed_modelparallel_tpu_torch.serving import controller, router
+from smdistributed_modelparallel_tpu_torch.serving.controller import AutoscalePolicy, ServingController
 from smdistributed_modelparallel_tpu_torch.serving.engine import (
     ServeRequest,
     ServingEngine,
@@ -29,30 +37,32 @@ from smdistributed_modelparallel_tpu_torch.serving.kv_cache import (
     prefill_chunk_tokens,
     serve_slots,
 )
-
-# The JAX package's replica.py, router.py and controller.py.
-_SLICE_3 = frozenset({
-    "AutoscalePolicy", "LocalReplicaHandle", "ROUTER_TX", "RemoteReplicaHandle", "ReplicaServer",
-    "ReplicatedServingEngine", "RequestRouter", "SERVE_MIRROR_TX", "ServingController", "controller",
-    "replica", "router",
-})
-
-
-def __getattr__(name):
-    if name in _SLICE_3:
-        raise NotImplementedError(
-            f"smp.serving.{name} (replica failover, request routing, the serving control plane) needs "
-            "processes and the message bus; it is not ported to PyTorch yet (slice 3b, ROADMAP item 5b)."
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
+from smdistributed_modelparallel_tpu_torch.serving.replica import SERVE_MIRROR_TX, ReplicatedServingEngine
+from smdistributed_modelparallel_tpu_torch.serving.router import (
+    ROUTER_TX,
+    LocalReplicaHandle,
+    RemoteReplicaHandle,
+    ReplicaServer,
+    RequestRouter,
+)
 
 __all__ = [
+    "AutoscalePolicy",
     "BlockAllocator",
+    "LocalReplicaHandle",
+    "ROUTER_TX",
+    "RemoteReplicaHandle",
+    "ReplicaServer",
+    "ReplicatedServingEngine",
+    "RequestRouter",
+    "SERVE_MIRROR_TX",
     "ServeRequest",
+    "ServingController",
     "ServingEngine",
     "block_tokens",
+    "controller",
     "prefill_chunk_tokens",
+    "router",
     "serve_request_from_record",
     "serve_request_to_record",
     "serve_slots",

@@ -107,17 +107,10 @@ from smdistributed_modelparallel_tpu_torch.utils.timeseries import MetricsTimeSe
 logger = get_logger()
 
 
-def _env_truthy(name):
-    # The JAX controller's arming set (``serving/controller._TRUTHY``), which
-    # takes "yes" where ``step._env_on`` does not.
-    return os.environ.get(name, "").strip().lower() in ("1", "on", "true", "yes")
-
-
 # (environment variable, what it arms in the JAX package's engine, whether it asks).
 _LEFT_OUT_ENV = (
     ("SMP_EXEC_CACHE", "the executable cache", _env_on),
     ("SMP_HLO_AUDIT", "the compiled-program audit", _env_on),
-    ("SMP_AUTOSCALE", "the serving control plane", _env_truthy),
 )
 
 
@@ -318,6 +311,7 @@ class ServingEngine:
                 "families keep smp.generate)."
             )
         self.module = module
+        self.params = params  # the weights last adopted, as passed (the controller's rollback point)
         self.device = resolve_device(device)
         self.max_len = int(module.max_len)
         self.bt = int(block_tokens_override or block_tokens())
@@ -402,12 +396,14 @@ class ServingEngine:
                 "tensor_parallel_degree": cfg.tensor_parallel_degree,
                 "pipeline_parallel_degree": cfg.pipeline_parallel_degree,
                 "context_parallel_degree": cfg.context_parallel_degree,
+                "expert_parallel_degree": cfg.expert_parallel_degree,
             }
             over = [f"{k} = {v}" for k, v in degrees.items() if v > 1]
             if over:
                 raise NotImplementedError(
-                    f"smp.serving: {', '.join(over)} is not ported to PyTorch yet; the engine serves one device "
-                    "(replicas, the router and the controller come with slice 3b, ROADMAP item 5b)."
+                    f"smp.serving: {', '.join(over)} is not ported to PyTorch yet; the engine serves one device, "
+                    "and a deployment of several is replicas of it (ReplicatedServingEngine, the router and the "
+                    "controller; sharded serving is ROADMAP item 5b)."
                 )
 
     @staticmethod
@@ -531,7 +527,7 @@ class ServingEngine:
             )
         t0 = time.perf_counter()
         new_version = int(version) if version is not None else self.weights_version + 1
-        params = chaos.on_weight_update(new_version, params)
+        params = adopted = chaos.on_weight_update(new_version, params)
         if self.qparams is not None:
             # Quantized before the comparison, as in the JAX engine: the
             # resident tree is the int8 layout.
@@ -549,6 +545,7 @@ class ServingEngine:
             for name, value in params.items():
                 target[name].copy_(value)
         self.weights_version = new_version
+        self.params = adopted
         seconds = time.perf_counter() - t0
         # No program is rebuilt: no fresh compile, ever (the zero-recompile
         # contract the JAX engine counts).

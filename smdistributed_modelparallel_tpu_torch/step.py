@@ -81,11 +81,11 @@ flat buffer, so that they are the gradient of the global-mean loss:
     shard predicts the first of the next. Under cp the step takes the
     ``(ids, targets)`` form, with targets shifted by the caller before the
     step, as loss mode (``model(ids, targets=...)``) does.
-Under cp the step refuses data parallelism beside cp (rdp > 1, ROADMAP item
-5b), fp16 (the loss scaler's overflow flag would have to agree across ranks)
-and ``matmul_precision: fp8`` (amax would need a cross-rank max).
+Under cp the step refuses fp16 (the loss scaler's overflow flag would have to
+agree across ranks) and ``matmul_precision: fp8`` (amax would need a
+cross-rank max).
 
-Data parallelism (rdp > 1, at tp = cp = ep = 1: one replica a rank). The port
+Data parallelism (rdp > 1, at tp = 1: one replica a rank). The port
 follows the JAX package's per-process contract (``utils/data.shard_batches``):
 each rank is handed its own rows, rows ``[r*B/R, (r+1)*B/R)`` of the global
 stream at rdp rank r, and splits them into its microbatches; microbatch m of
@@ -114,6 +114,31 @@ and the health sentinel (its word would have to be the group's, item 6). A
 collective that fails because a peer died (gloo's error at the socket's EOF,
 or ``SMP_COLLECTIVE_TIMEOUT``) reaches the caller as ``SMPPeerLost`` naming
 the peer whose bus link is down, which ``smp.supervisor.recover`` takes.
+
+Data parallelism beside context parallelism (rdp > 1 and cp > 1). Every cp
+rank of an rdp group is handed the same rows: the rdp coordinate's rows of
+the per-process contract above (``shard_batches`` cuts by the row coordinate
+and ignores cp). The step cuts the rank's sequence shard out of them, as at cp
+alone, and the ring (or Ulysses) runs within each cp group. The loss weights,
+the ``StepOutput`` means and the gradients go over the data group (every
+rank: rdp x cp, ``topology.DATA_AXES``), whose size is the divisor; per-token
+outputs are gathered along the sequence within the cp group, then along the
+rows within the row group (``ROW_AXES``). The JAX package's single-process
+step at ``context_parallel_degree`` 2 and rdp 2 is the oracle
+(``tests/test_torch_dp_cp_step.py``).
+
+Expert parallelism (ep > 1). The ep axis is a data axis: ep ranks are handed
+other rows, as rdp ranks are (row coordinate ``r * ep + e`` in mesh order),
+and each holds E/ep of every ``DistributedMoE``'s experts (``nn/moe.py``: the
+routing is global over the data group, the tokens reach their experts by
+all-to-alls over the ep group). The dense gradients are all-reduced over the
+data group; the expert gradients over the ranks that hold the same experts
+(``EXPERT_REPLICA_AXES``, rdp x cp) only; both are divided by ``microbatches x
+data degree``. The MoE's folded load-balancing term (``model._aux_term``) is
+each rank's part of the JAX package's global sum, so the step scales it by
+the data degree (as a sum) where it scales the loss by the rank's share (as a
+weighted mean). The refusals of rdp > 1 hold at ep > 1 too; so does
+``smp.save_checkpoint`` (sharded state, ROADMAP item 9).
 
 Observability, at the step's edges as in the JAX step engine: the phase
 ``step_<n>`` (``telemetry.set_phase``, which also drives the goodput ledger),
@@ -151,7 +176,7 @@ Resilience, as in the JAX step engine at world size 1:
   ``chaos.on_step_dispatch`` runs inside ``step/dispatch``.
 
 Not ported yet, each raising ``NotImplementedError`` when asked for:
-pipeline parallelism, tensor parallelism, expert parallelism, ZeRO-3 (``sharded_params``), shape
+pipeline parallelism, tensor parallelism, ZeRO-3 (``sharded_params``), shape
 buckets (``SMP_SHAPE_BUCKETS``), the executable cache (``SMP_EXEC_CACHE``)
 and the compiled-program audit (``SMP_HLO_AUDIT``).
 """
@@ -174,7 +199,7 @@ from smdistributed_modelparallel_tpu_torch.backend.split import (
     tree_map,
 )
 from smdistributed_modelparallel_tpu_torch.backend.state import state
-from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS, RDP_AXIS
+from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS, DATA_AXES, EXPERT_REPLICA_AXES, ROW_AXES
 from smdistributed_modelparallel_tpu_torch.model import DistributedModel, replay_program_ticks
 from smdistributed_modelparallel_tpu_torch.nn.utils import collect_program_ticks
 from smdistributed_modelparallel_tpu_torch.resilience.chaos import chaos
@@ -216,26 +241,17 @@ def _check_supported(cfg):
         raise _not_ported("pipeline_parallel_degree > 1")
     if cfg.tensor_parallel_degree > 1:
         raise _not_ported("tensor_parallel_degree > 1")
-    if state.topology.rdp_size > 1:
-        rdp = state.topology.rdp_size
-        if cfg.context_parallel_degree > 1:
-            raise NotImplementedError(
-                f"@smp.step: data parallelism (rdp = {rdp}) beside context parallelism is not ported to PyTorch "
-                "yet (ROADMAP item 5b)."
-            )
+    topo = state.topology
+    if topo.rdp_size * topo.ep_size > 1:
         for asks, what in ((cfg.fp16, "fp16 (the loss scaler's overflow flag)"),
                            (quant.matmul_precision_mode(cfg) == "fp8", "matmul_precision: fp8 (the amax)"),
                            (health.mode() != "off", "SMP_HEALTH_CHECK (the sentinel's word)")):
             if asks:
                 raise NotImplementedError(
-                    f"@smp.step: {what} under data parallelism (rdp = {rdp}) would have to agree over the rdp "
-                    "group, which is not ported to PyTorch yet (ROADMAP Queue 1 item 6)."
+                    f"@smp.step: {what} under data parallelism (rdp = {topo.rdp_size}, expert_parallel_degree = "
+                    f"{topo.ep_size}) would have to agree over the data group, which is not ported to PyTorch yet "
+                    "(ROADMAP Queue 1 item 6)."
                 )
-    if cfg.expert_parallel_degree > 1:
-        raise NotImplementedError(
-            "@smp.step: expert_parallel_degree > 1 (experts sharded over the ep axis) is not ported to PyTorch "
-            "yet (ROADMAP item 5b)."
-        )
     if cfg.context_parallel_degree > 1:
         if cfg.fp16:
             raise NotImplementedError(
@@ -299,24 +315,32 @@ class _LossLeaf:
         self.value = value
 
 
-def _combine(stacked, group, weights, gather_dim):
-    """The group's view of the per-rank [num_mb, ...] outputs: the marked
-    loss weighted by this rank's ``weights`` [num_mb] and summed, other
-    values of at most one dimension per microbatch averaged, and the rest
-    gathered along ``gather_dim`` (the sequence under cp, the rows under
-    rdp)."""
+def _mean(group, x):
+    return group.all_reduce(x.float()).div_(group.size).to(x.dtype)
+
+
+def _combine(stacked, group, weights, cp, rows):
+    """The data group's view of the per-rank [num_mb, ...] outputs: the
+    marked loss weighted by this rank's ``weights`` [num_mb] and summed over
+    ``group``, other values of at most one dimension per microbatch averaged
+    over it, and the rest per-row: per-token values (three or more
+    dimensions) gathered along the sequence over the ``cp`` group, per-row
+    ones of two averaged over it, then all gathered along the rows over the
+    ``rows`` group."""
 
     def combine(x):
         loss = isinstance(x, _LossLeaf)
         x = x.value if loss else x
         if group is None or not isinstance(x, torch.Tensor) or not x.is_floating_point():
             return x
-        if x.dim() > gather_dim:
-            return group.all_gather(x, dim=gather_dim)
-        if loss:
+        if loss and x.dim() <= 1 + (rows is None):
             w = weights.to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
             return group.all_reduce(x.float() * w).to(x.dtype)
-        return group.all_reduce(x.float()).div_(group.size).to(x.dtype)
+        if x.dim() <= 1:
+            return _mean(group, x)
+        if cp is not None:
+            x = cp.all_gather(x, dim=2) if x.dim() > 2 else _mean(cp, x)
+        return rows.all_gather(x, dim=1) if rows is not None else x
 
     return tree_map(combine, stacked, is_leaf=lambda x: isinstance(x, _LossLeaf))
 
@@ -551,13 +575,10 @@ class StepFunction:
         """The microbatch loop: forward, backward and gradient accumulation
         of every microbatch; returns the step's ``StepOutput``."""
         num_mb = cfg.microbatches
-        group = state.group(CP_AXIS)
-        gather_dim = 2  # per-token outputs: along the sequence
-        if group is not None:
-            stacked_args, stacked_kwargs = _shard_sequence((stacked_args, stacked_kwargs), group.index, group.size)
-        else:
-            group = state.group(RDP_AXIS)  # this rank's rows of each microbatch
-            gather_dim = 1  # per-row outputs: along the rows
+        group = state.group(DATA_AXES)  # every rank that holds tokens of the microbatch
+        cp, rows = state.group(CP_AXIS), state.group(ROW_AXES)
+        if cp is not None:
+            stacked_args, stacked_kwargs = _shard_sequence((stacked_args, stacked_kwargs), cp.index, cp.size)
         # Forgot-optimizer.step() detector: unconsumed grads with the
         # parameters untouched since the previous training step.
         stale = model._grads is not None and model._params_at_step == model._param_version
@@ -579,10 +600,10 @@ class StepFunction:
         acc = None
         outs = []
         losses = []  # the differentiated loss of each microbatch (the sentinel's "loss")
-        weights = []  # this rank's share of each microbatch's loss over the cp group
+        weights = []  # this rank's share of each microbatch's loss over the data group
         qs = quant.ensure_state(model.device) if quant.matmul_precision_mode(cfg) == "fp8" else None
-        state.cp_sharded = group is not None and gather_dim == 2
-        state.rdp_sharded = group is not None and gather_dim == 1
+        state.cp_sharded = cp is not None
+        state.rdp_sharded = rows is not None
         with health.collecting(hmode) as hc:
             with quant.step_trace(qs), _cp_sharded_off():
                 if hc is not None and hmode == "full":
@@ -618,10 +639,13 @@ class StepFunction:
                         scale = loss_scale * weights[-1] * (group.size if group is not None else 1)
                         # The MoE load-balancing losses of this microbatch enter
                         # its gradient (differentiated), not the returned loss.
-                        grads = torch.autograd.grad(
-                            differentiated * scale if scale != 1.0 else differentiated,
-                            [bound[n] for n in names], allow_unused=True,
-                        )
+                        # Over several data ranks each rank's is its part of a
+                        # global sum: scaled by the group's size, not its share.
+                        if group is not None and model._aux_term is not None:
+                            objective = loss * scale + model._aux_term * (loss_scale * group.size)
+                        else:
+                            objective = differentiated * scale if scale != 1.0 else differentiated
+                        grads = torch.autograd.grad(objective, [bound[n] for n in names], allow_unused=True)
                         if acc is None:
                             acc = {n: torch.zeros(params[n].shape, dtype=_acc_dtype(params[n].dtype, cfg),
                                                   device=params[n].device) for n in names}
@@ -637,7 +661,7 @@ class StepFunction:
                         else x, out))
                 if qs is not None:
                     qs.absorb(quant.finalize(qs))
-            stacked = _combine(_stack_outputs(outs), group, torch.tensor(weights), gather_dim)
+            stacked = _combine(_stack_outputs(outs), group, torch.tensor(weights), cp, rows)
             if hc is not None:
                 if losses:
                     hc.add_stacked("loss", health.Leaf(losses), num_mb)
@@ -683,8 +707,9 @@ class StepFunction:
 
     def _finish_grads(self, model, cfg, group, params, names, acc, num_mb, loss_scale, stale):
         """The step's gradients: the microbatch sum over ``num_mb *
-        loss_scale`` (and the cp or rdp group: one flat all-reduce of the
-        accumulators), in the parameters' dtypes."""
+        loss_scale`` (and the data group: one flat all-reduce of the
+        accumulators, an ep rank's experts' over the ranks that hold the
+        same experts), in the parameters' dtypes."""
         if stale:
             model._dropped_updates += 1
             if model._dropped_updates == 3:
@@ -697,7 +722,11 @@ class StepFunction:
         model._params_at_step = model._param_version
         divisor = float(num_mb * loss_scale)
         if group is not None:
-            group.flat_(group.all_reduce, [acc[n] for n in names])
+            experts = model._expert_params
+            group.flat_(group.all_reduce, [acc[n] for n in names if n not in experts])
+            replicas = state.group(EXPERT_REPLICA_AXES)
+            if replicas is not None:
+                replicas.flat_(replicas.all_reduce, [acc[n] for n in names if n in experts])
             divisor *= group.size
         # In place: the accumulators become the gradients, so the step's end
         # holds no second parameter-sized copy (GPT-2 1.5B: 5.8 GiB).

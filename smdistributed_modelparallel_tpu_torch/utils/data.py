@@ -6,8 +6,8 @@ Counterpart of ``smdistributed_modelparallel_tpu/utils/data.py``:
   data-parallel batch. The JAX package slices by process, because there one
   process feeds one host; here a process is a rank, and the ranks of a
   context-parallel group share one batch (the step slices the sequence). So
-  the slice is over the data-parallel degree (rdp; at 1 batches pass
-  through), which is what the step expects at rdp > 1 (``step.py``).
+  the slice is over the row degree (rdp x ep; at 1 batches pass through),
+  which is what the step expects at rdp or ep > 1 (``step.py``).
 - ``prefetch_to_device(it, size=2)`` stages up to ``size`` upcoming batches
   on the model's device from a background thread, so a batch's copy to the
   device overlaps the step before it. On a CUDA device each array leaf is
@@ -44,13 +44,17 @@ def _is_array(leaf):
 def shard_batches(iterator, batch_axis=0):
     """Slice each batch down to this rank's data-parallel share.
 
-    Every rank must iterate the same global stream; the rank at
-    data-parallel coordinate r of R keeps rows [r*B/R, (r+1)*B/R) of each
-    array leaf's ``batch_axis``. Leaves without that axis pass through, as
-    do whole batches when R is 1."""
+    Every rank must iterate the same global stream; the rank at row
+    coordinate r of R keeps rows [r*B/R, (r+1)*B/R) of each array leaf's
+    ``batch_axis``. The rows are sharded over (rdp, ep) in mesh order: r =
+    rdp coordinate * ep + ep coordinate, R = rdp * ep (the cp ranks of one
+    row coordinate keep the same rows; the step cuts their sequence
+    shards). Leaves without that axis pass through, as do whole batches when
+    R is 1."""
     topo = state.topology
-    R = topo.rdp_size if topo is not None else 1
-    me = topo.coords(state.rank).get("rdp", 0) if topo is not None else 0
+    R = topo.rdp_size * topo.ep_size if topo is not None else 1
+    coords = topo.coords(state.rank) if topo is not None else {}
+    me = coords.get("rdp", 0) * (topo.ep_size if topo is not None else 1) + coords.get("ep", 0)
     for batch in iterator:
         if R == 1:
             yield batch

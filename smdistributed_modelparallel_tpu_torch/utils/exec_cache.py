@@ -10,6 +10,12 @@ run gives the JAX package's tokens: sampling draws from the bucketed key
 schedule. ``record_bucket`` counts each bucketing outcome
 (``smp_shape_bucket_total``). The executable cache itself (the AOT store)
 waits for its own slice.
+
+``compile_event_mark`` / ``compile_events_since`` keep the JAX package's
+compile-event ledger interface over the port's compiles: the first load of a
+kernel library in the process (``ops/_build.load``), ``"fresh"`` when ``nvcc``
+built it, ``"disk_cache"`` when it was on disk. The serving control plane
+reads them to show a warm scale-up (``fresh == 0``).
 """
 
 import os
@@ -77,3 +83,18 @@ def record_bucket(result):
         "shape-bucketing decisions by outcome "
         "(exact / padded / unbucketable)",
     ).labels(result=result).inc()
+
+
+def compile_event_mark():
+    """A position in the process's compile-event ledger."""
+    from smdistributed_modelparallel_tpu_torch.ops._build import COMPILE_EVENTS
+
+    return len(COMPILE_EVENTS)
+
+
+def compile_events_since(mark):
+    """The compile events (``{"source", "name", "seconds"}``) recorded
+    after ``mark``."""
+    from smdistributed_modelparallel_tpu_torch.ops._build import COMPILE_EVENTS
+
+    return list(COMPILE_EVENTS[mark:])

@@ -23,10 +23,11 @@ Exports: ``smp.telemetry.report()`` (plain dict), ``render_prometheus()``
 ``scripts/telemetry_report.py`` pretty-prints the dump. The resilience
 recorders (``record_health_check``/``_trip``/``_fault``,
 ``record_update_stats``, ``record_oom``, ``record_chaos``,
-``record_preemption``, ``record_failure_detected``, ``record_recovery``) are
-the JAX package's; those of the subsystems not ported yet (the collectives'
-accounting, the pipeline schedules, the executable cache, the serving
-controller) come with them.
+``record_preemption``, ``record_failure_detected``, ``record_recovery``) and
+the serving control plane's (``record_scale_event``,
+``record_controller_replicas``, ``record_route``, ``record_drain_stragglers``,
+``record_canary``) are the JAX package's; those of the subsystems not ported
+yet (the pipeline schedules, the executable cache) come with them.
 
 The **watchdog** (``SMP_WATCHDOG_TIMEOUT`` seconds; unset/0 = off) turns
 silent wedges into actionable dumps: when a guarded operation overruns the
@@ -1076,6 +1077,94 @@ def record_serve_programs(n):
         "compiled serving programs (the engine holds exactly two: "
         "prefill-chunk and decode-step)",
     ).set(int(n))
+
+
+def record_scale_event(direction, seconds, phases=None, replicas=None):
+    """One completed autoscale event (serving/controller.py): ``up``
+    grew the replica set (rendezvous + exec-cache warm start),
+    ``down`` shrank it through the drain protocol. ``phases`` breaks
+    the wall down like a recovery MTTR (trigger / rendezvous /
+    warm_start / first_token for up; drain / reroute for down)."""
+    telemetry.counter(
+        "smp_autoscale_events_total",
+        "completed autoscale events by direction",
+    ).labels(direction=direction).inc()
+    telemetry.gauge(
+        "smp_autoscale_last_scale_seconds",
+        "wall seconds of the last autoscale event (trigger -> serving)",
+    ).set(float(seconds))
+    for phase, secs in (phases or {}).items():
+        telemetry.gauge(
+            "smp_autoscale_phase_seconds",
+            "per-phase breakdown of the last autoscale event",
+        ).labels(phase=phase).set(float(secs))
+    if replicas is not None:
+        telemetry.gauge(
+            "smp_controller_replicas",
+            "live serving replicas the controller routes to",
+        ).set(int(replicas))
+    _flight().record_controller(
+        f"scale_{direction}",
+        detail=f"seconds={seconds:.3f} " + " ".join(
+            f"{k}={v:.3f}" for k, v in (phases or {}).items()
+        ),
+    )
+
+
+def record_controller_replicas(n):
+    """Live replica-count gauge outside a scale event (controller
+    construction, replica death absorbed by failover, shutdown)."""
+    telemetry.gauge(
+        "smp_controller_replicas",
+        "live serving replicas the controller routes to",
+    ).set(int(n))
+
+
+def record_route(version, n=1):
+    """One request dispatched by the front-door router
+    (serving/router.py), labelled with the weights version of the
+    replica it landed on (the blue/green traffic-split evidence)."""
+    telemetry.counter(
+        "smp_controller_routed_total",
+        "requests dispatched by the router, by weights version",
+    ).labels(version=str(version)).inc(n)
+
+
+def record_drain_stragglers(n):
+    """Queued-but-never-admitted requests handed back by a draining
+    replica and re-routed elsewhere (zero dropped tokens: every
+    straggler is re-admitted from its restartable record)."""
+    if n:
+        telemetry.counter(
+            "smp_controller_drain_stragglers_total",
+            "requests re-routed off draining replicas",
+        ).inc(int(n))
+
+
+def record_canary(verdict, version, detail=""):
+    """A blue/green canary verdict (serving/controller.py):
+    ``promoted`` (token parity held and the SLO-window comparison
+    passed — every replica adopts), ``rolled_back`` (parity mismatch or
+    SLO regression — traffic snaps back, the counter latches), or
+    ``started``."""
+    if verdict == "promoted":
+        telemetry.counter(
+            "smp_canary_promotions_total",
+            "canary versions promoted to the full replica set",
+        ).inc()
+    elif verdict == "rolled_back":
+        telemetry.counter(
+            "smp_canary_rollback_total",
+            "canary versions rolled back (token-parity mismatch or "
+            "SLO regression)",
+        ).inc()
+    telemetry.gauge(
+        "smp_canary_active",
+        "1 while a canary version is taking split traffic",
+    ).set(1 if verdict == "started" else 0)
+    _flight().record_controller(
+        f"canary_{verdict}", detail=f"version={version} {detail}".strip()
+    )
 
 
 def record_weight_update(seconds, version, fresh=0):

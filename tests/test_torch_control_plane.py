@@ -8,8 +8,8 @@ Spawned gloo worlds on the CPU, one per module fixture, each rank running
     broadcast of a small and of a 1 MB object, ``smp.allgather``, the world
     and group barriers, and the exit-status relay at ``smp.shutdown``;
   - four ranks (tp 2 x rdp 2), ``_worker_subgroup``'s subgroup collectives:
-    broadcast, allgather and barrier over proper subgroups, and the step's
-    refusal of rdp beside cp (cp 2 x rdp 2).
+    broadcast, allgather and barrier over proper subgroups, and a step at
+    rdp beside cp (cp 2 x rdp 2) with its fp16 refusal.
 In both worlds every rank answers the rank and group queries of ``smp`` for
 several configurations, held against the JAX package's ``state.core`` for
 the same configuration and device index (``_device_count_override``; the
@@ -148,20 +148,22 @@ def _four_rank_worker(rank, world):
     out["instance"] = (smp.instance_id(), [smp.is_in_same_instance(r) for r in range(world)], smp.is_multi_node(),
                        smp.local_size())
 
-    smp.init({"context_parallel_degree": 2, "ddp": True}, device="cpu")
-    model = smp.DistributedModel(TransformerLM(vocab_size=64, max_len=16, d_model=32, n_layers=1, n_heads=4))
+    out["rdp_beside_cp"] = {}
+    for cfg in ({}, {"fp16": True}):
+        smp.init({"context_parallel_degree": 2, "ddp": True, **cfg}, device="cpu")
+        model = smp.DistributedModel(TransformerLM(vocab_size=64, max_len=16, d_model=32, n_layers=1, n_heads=4))
 
-    @smp.step
-    def train_step(model, ids):
-        loss = model(ids, targets=ids).mean()
-        model.backward(loss)
-        return loss
+        @smp.step
+        def train_step(model, ids):
+            loss = model(ids, targets=ids).mean()
+            model.backward(loss)
+            return loss
 
-    try:
-        train_step(model, torch.zeros(2, 16, dtype=torch.long))
-        out["rdp_beside_cp"] = None
-    except NotImplementedError as e:
-        out["rdp_beside_cp"] = str(e)
+        try:
+            got = float(train_step(model, torch.zeros(2, 16, dtype=torch.long)).reduce_mean())
+        except NotImplementedError as e:
+            got = str(e)
+        out["rdp_beside_cp"]["fp16" if cfg else "plain"] = got
     smp.shutdown()
     return out
 
@@ -219,8 +221,14 @@ def test_subgroup_collectives_four_ranks(four_ranks):
 
 
 def test_rdp_beside_cp_refused(four_ranks):
+    """rdp beside cp trains now (its parity: ``tests/test_torch_dp_cp_step.py``):
+    every rank reports the same global loss. What stays refused there, fp16,
+    names its ROADMAP item."""
+    plain = [r["rdp_beside_cp"]["plain"] for r in four_ranks]
+    assert all(isinstance(v, float) and v == plain[0] for v in plain), plain
     for r in four_ranks:
-        assert r["rdp_beside_cp"] is not None and "ROADMAP item 5b" in r["rdp_beside_cp"], r["rdp_beside_cp"]
+        got = r["rdp_beside_cp"]["fp16"]
+        assert isinstance(got, str) and "ROADMAP Queue 1 item 6" in got, got
 
 
 @pytest.mark.parametrize("world,index", [(w, i) for w in CONFIGS for i in range(len(CONFIGS[w]))])

@@ -246,7 +246,9 @@ def _refusal_worker(rank, world, init, prompts):
     out["fp16"] = step_with({"context_parallel_degree": 2, "fp16": True})
     out["fp8"] = step_with({"context_parallel_degree": 2, "matmul_precision": "fp8"})
     out["rdp"] = step_with({"fp16": True})  # rdp = 2: fp16 stays refused under data parallelism
-    out["ep"] = step_with({"expert_parallel_degree": 2})
+    # ep = 2 trains now (tests/test_torch_moe_ep.py); a key drawn inside its
+    # step (dropout) stays refused.
+    out["ep"] = step_with({"expert_parallel_degree": 2}, dict(dropout=0.1, deterministic=False))
     out["allgather"] = step_with({"context_parallel_degree": 2, "context_parallel_impl": "allgather"})
     out["window"] = step_with({"context_parallel_degree": 2}, dict(window=8))
 

@@ -45,9 +45,11 @@ def _init(cfg=None):
 
 
 class _Rdp2:
-    """A topology stand-in: data-parallel degree 2, this rank at rdp 1."""
+    """A topology stand-in: data-parallel degree 2, this rank at rdp 1 (ep 1:
+    ``shard_batches`` cuts by the row coordinate over rdp x ep)."""
 
     rdp_size = 2
+    ep_size = 1
 
     def coords(self, rank):
         return {"rdp": 1, "cp": 0, "ep": 0, "pp": 0, "tp": 0}

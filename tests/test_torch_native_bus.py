@@ -185,6 +185,7 @@ def _dead_peer_victim(rank, world, ports, conn):
     bus.connect(rank, world, [f"127.0.0.1:{p}" for p in ports])
     try:
         assert bus.recv_bytes(1, 500, timeout_ms=30000) == b"hello"
+        bus.send_bytes(1, b"ack", 502)  # rank 1 dies only once its frame is here
         t0 = time.monotonic()
         with_peer = []
         for wait in (lambda: bus.recv_bytes(1, 501, timeout_ms=30000),
@@ -205,7 +206,9 @@ def _dead_peer_victim(rank, world, ports, conn):
 
 
 def _dead_peer_casualty(rank, world, ports, conn):
-    """Rank 1: one frame, then a hard exit with no bus shutdown."""
+    """Rank 1: one frame, then, once rank 0 has it, a hard exit with no bus
+    shutdown. (Exiting a fixed time after the send loses the frame when rank
+    0 starts slowly: the sender thread had not connected yet.)"""
     import os
     import time
 
@@ -215,6 +218,7 @@ def _dead_peer_casualty(rank, world, ports, conn):
     bus.listen(ports[rank])
     bus.connect(rank, world, [f"127.0.0.1:{p}" for p in ports])
     bus.send_bytes(0, b"hello", 500)
+    bus.recv_bytes(0, 502, timeout_ms=60000)
     time.sleep(1.0)
     conn.send(("ok", rank))
     os._exit(0)

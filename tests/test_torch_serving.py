@@ -323,11 +323,17 @@ def test_refused_env_vars(monkeypatch, env, value, tmp_path):
     model, kw = _port_engine()
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv(env, value)
-    if env in ("SMP_FLEET_INTERVAL", "SMP_CHAOS"):
+    if env in ("SMP_FLEET_INTERVAL", "SMP_CHAOS", "SMP_AUTOSCALE"):
         # Ported since (slice 9b): the engine ticks the fleet plane (which
         # smp.init starts; a value that is not a number leaves it off) and
-        # calls the chaos seams (a rule without its step never fires).
+        # calls the chaos seams (a rule without its step never fires). And
+        # since slice 3b: SMP_AUTOSCALE arms the serving controller
+        # (ServingController.from_env), never the engine, which serves.
         assert ServingEngine(model, **kw).run([ServeRequest("a", [1, 2, 3], 2)])["a"]
+        if env == "SMP_AUTOSCALE":
+            controller = serving.ServingController.from_env()
+            assert controller is not None
+            controller.stop()
         return
     if env in ("SMP_TIMESERIES_INTERVAL", "SMP_TELEMETRY_PATH"):
         engine = ServingEngine(model, **kw)
@@ -367,8 +373,12 @@ def test_more_than_one_rank_refused(monkeypatch, degree):
 @pytest.mark.parametrize("name", ["ReplicatedServingEngine", "RequestRouter", "ServingController",
                                   "AutoscalePolicy", "LocalReplicaHandle", "router", "controller"])
 def test_multi_process_tier_refused(name):
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        getattr(serving, name)
+    """The multi-process tier is ported now (slice 3b): its names are the
+    JAX package's, and a name neither package has still raises."""
+    from smdistributed_modelparallel_tpu import serving as jax_serving
+
+    assert name in serving.__all__ and name in jax_serving.__all__
+    assert getattr(serving, name).__name__.rsplit(".", 1)[-1] == getattr(jax_serving, name).__name__.rsplit(".", 1)[-1]
     with pytest.raises(AttributeError):
         getattr(serving, "NoSuchThing")
 
