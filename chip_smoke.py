@@ -17,11 +17,13 @@
     python3 chip_smoke.py --phases E # the encoder-decoder, T5 through smp.from_hf and MoE only
     python3 chip_smoke.py --phases O # observability (telemetry, timeline, goodput, profiling, time series) only
     python3 chip_smoke.py --phases V # resilience (sentinel, OOM post-mortem, preemption, chaos, fleet) only
-    python3 chip_smoke.py --phases N # the same with the ranks on two cards (NCCL); needs two cards
+    python3 chip_smoke.py --phases r # phase R with the ranks on two cards (NCCL); needs two cards
     python3 chip_smoke.py --phases W # data parallelism at rdp = 2 (two ranks on one card) only
     python3 chip_smoke.py --phases Y # the same with the ranks on two cards (NCCL); needs two cards
     python3 chip_smoke.py --phases U # expert parallelism at ep = 2 (two ranks on one card) only
     python3 chip_smoke.py --phases Z # the same with the ranks on two cards (NCCL); needs two cards
+    python3 chip_smoke.py --phases N # tensor parallelism at tp = 2 (two ranks on one card) only
+    python3 chip_smoke.py --phases I # phase N (a) with the ranks on two cards (NCCL); needs two cards
     python3 chip_smoke.py --phases J # serving replicas, the router and the controller (two processes) only
     python3 chip_smoke.py --phases X # GPT-2 1.5B at 16 x 1024 with checkpointing off (its peak or OOM)
 
@@ -227,6 +229,30 @@ csrc`` (one nvcc per source, all started together), then:
      nothing) and is SIGKILLed at step edge 3; rank 0 classifies it dead,
      agrees on the newest committed checkpoint, re-forms a world of one and
      trains on within 1e-2 of rdp = 1 (MTTR and its phases printed).
+  N. tensor parallelism at tp = 2: two ranks spawned on cuda:0 (gloo with
+     pinned host copies), each handed the whole batch, against tp = 1 of
+     the same weights and batch in this process. (a) phase L's model (GPT-2
+     124M widths, ``fused_qkv`` and ``fused_bias_gelu``, bf16, 8 x 1024 in 4
+     microbatches, AdamW) 3 steps in Megatron's layout (``optimize:
+     "speed"``): losses within 1e-2 of tp = 1, the replicated parameters
+     bit-equal across the ranks after every step, 48 launches a step and
+     rank of each flash kernel (6 heads a rank) on ``wgmma`` and of each
+     bias-GELU kernel on ``vec``, none of ``matmul_bias`` (the fused QKV is
+     inert at tp > 1, as in the JAX package); (b) the same under ``optimize:
+     "memory"`` (sequence-parallel residual stream); (c) a 2-layer fp32 model
+     at tp = 2 in both layouts, card against CPU within 1e-5 (losses and the
+     first step's gradients); (d) vocab 50304 (nanoGPT's padded GPT-2
+     vocabulary), loss mode, 8 x 1024 tokens in one microbatch, ``fused_ce:
+     True`` (the vocab-parallel fused CE: one launch a step and rank of each
+     fused-CE kernel on ``wgmma``) against ``False``, losses within 1e-2,
+     ms/step and peak of both; (e) ``smp.generate`` on phase G1's padded
+     batch, 32 new tokens greedy: every token within 5e-2 of max |logit| of
+     its row's maximum in a tp = 1 forward, the ranks' tokens equal, a small
+     fp32 model's tokens equal on card and CPU, prefill ms and decode
+     ms/token; (f) (a)'s partial checkpoint after step 2, resumed in a fresh
+     pair of processes: step 3's loss bit-equal. Prints ms/step and global
+     tokens/s of (a) and (b), the tp regions' host ms a step and the peak a
+     rank.
   J. serving replicas: two processes on cuda:0 over the native host bus,
      each with a GPT-2 124M ``ServingEngine`` (4 slots, 65 blocks). World 1
      (bf16): (c) ``SMP_AUTOSCALE``: 12 requests on rank 0's replica breach a
@@ -439,8 +465,10 @@ csrc`` (one nvcc per source, all started together), then:
      at V1's step (GPT-2 124M's 148 fp32 gradients, the losses and outputs;
      with the parameters under full) by graph replay, beside its plain
      version and the bytes it reads.
-  N. (on request, on a machine with two cards) phase R with the ranks on
+  r. (on request, on a machine with two cards) phase R with the ranks on
      cuda:0 and cuda:1, which then talk over NCCL.
+  I. (on request, on a machine with two cards) phase N (a) with the tp
+     ranks on cuda:0 and cuda:1 (the tp regions over NCCL) against tp = 1.
   Z. (on request, on a machine with two cards) phase U's steps with the ep
      ranks on cuda:0 and cuda:1 (the all-to-alls over NCCL) against ep = 1.
   P. (on request) torch.profiler breakdowns of a generate, phase S's burst, a training step,
@@ -501,7 +529,7 @@ _FP32_OPS = ("FFMA", "FADD", "FMUL")
 
 KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8", "dropout",
                   "health_reduce"]
-DEFAULT_PHASES = "ASGTFLDMQRUWJKHEOVBC"
+DEFAULT_PHASES = "ASGTFLDMQRUWNJKHEOVBC"
 SEED = 1234
 
 
@@ -5199,7 +5227,7 @@ def _cp_breakdown(world, device):
 def phase_r(device="cuda:0"):
     """Context-parallel training: two spawned cp ranks on ``device`` (one
     card, gloo with host copies between them), or with ``device=None`` on
-    cuda:0 and cuda:1 (NCCL; phase N, on a machine with two cards), train
+    cuda:0 and cuda:1 (NCCL; phase r, on a machine with two cards), train
     GPT-2 124M at 4096 tokens (B 2, Tl 2048 a rank) for CP_STEPS AdamW steps
     on the ring, then one step under Ulysses; this process runs the same
     weights and batch at cp = 1. The losses must agree within CP_LOSS_TOL
@@ -5952,6 +5980,378 @@ def phase_z():
         f"bit-equal {ranks[0]['prints'] == ranks[1]['prints']}")
     if gap > U_LOSS_TOL or ranks[0]["prints"] != ranks[1]["prints"]:
         raise RuntimeError(f"phase Z: ep = 2 over NCCL differs (loss gap {gap:.3e})")
+
+
+# ----------------------------------------------------------------------
+# Phase N: tensor parallelism at tp = 2, two ranks on one card
+# ----------------------------------------------------------------------
+
+N_STEPS, N_SAVE_AT, N_LOSS_TOL, N_SMALL_TOL, N_CE_TOL = 3, 2, 1e-2, 1e-5, 1e-2
+# karpathy/nanoGPT's model.py pads GPT-2's vocabulary of 50257 up to 50304 (a
+# multiple of 64), which tp = 2 divides: the vocab-parallel fused CE runs.
+N_VOCAB = 50304
+N_CE_SEQ = TRAIN_SEQ + 1  # rows of 1025 ids: 1024 inputs and their next tokens
+N_SMALL = dict(G_SMALL, pre_layernorm=True, post_layernorm=False, final_layernorm=True)
+N_SMALL_B, N_SMALL_T = 4, 64
+N_GEN_SMALL = dict(n=3, lengths=(5, 24))  # the small fp32 model's padded prompts
+N_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_tp")
+
+
+def _n_init(device, layout="speed", microbatches=TRAIN_MB, bf16=True, **cfg):
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    smp.init({"microbatches": microbatches, "bf16": bf16, "fused_qkv": True, "ddp": True, "optimize": layout,
+              **cfg}, device=device)
+
+
+def _n_module(cfg, device, seed=SEED, std=None, init_device=None):
+    """The smp.nn head of ``cfg`` with ``fused_bias_gelu``, its weights drawn
+    whole from ``seed`` on ``init_device`` (default ``device``): at tp = 2 a
+    rank keeps its slices of the same draw."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import init_weights_
+
+    init_device = init_device or device
+    module = smp.nn.DistributedTransformerLMHead(**cfg, fused_bias_gelu=True, device=init_device)
+    return init_weights_(module, cfg.get("initializer_range", 0.02) if std is None else std,
+                         torch.Generator(device=torch.device(init_device).type).manual_seed(seed))
+
+
+def _n_train(device, ids, tp, layout="speed", steps=N_STEPS, root=None):
+    """``steps`` bf16 steps of phase L's model and step at ``tp`` on ``ids``
+    (the whole batch on every tp rank): losses, ms a step, the replicated
+    parameters' fingerprint a step, launches, peak GiB, the tp regions' host
+    ms a step; a partial checkpoint under ``root`` after step N_SAVE_AT."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.backend.collectives import tp_comm_stats
+    from smdistributed_modelparallel_tpu_torch.backend.state import state
+
+    _n_init(device, layout, tensor_parallel_degree=tp)
+    model, optimizer, train_step = _lm_train(_n_module(LM_CFG, device), device)
+    counters = {**_flash_counters(), **_new_counters(), **_simt_counters()}
+    _e_zero(counters)
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, ms, prints, comm = [], [], [], []
+    for step in range(steps):
+        torch.cuda.synchronize(device)
+        before = tp_comm_stats["seconds"]
+        t0 = time.perf_counter()
+        losses.append(float(train_step(model, ids).reduce_mean()))
+        optimizer.step()
+        torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        comm.append((tp_comm_stats["seconds"] - before) * 1e3)
+        prints.append(_w_fingerprint(model, skip=model._tp_specs))
+        if root is not None and step + 1 == N_SAVE_AT:
+            smp.save_checkpoint(root, tag="n2")
+            smp.barrier()
+    out = dict(losses=losses, ms=ms, prints=prints, comm=comm, sequence_parallel=model._seq_parallel_ran,
+               transport=getattr(state.group("tp"), "transport", None),
+               launches={k: fn.launches for k, fn in counters.items()},
+               peak=torch.cuda.max_memory_allocated(device) / 2**30)
+    del model, optimizer, train_step
+    smp.reset()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _n_small(device):
+    """(c) The 2-layer fp32 model at tp = 2 in both layouts, weights drawn
+    on the CPU: 2 steps on ``device``, then on the CPU; the losses and the
+    first step's gradients (this rank's shards)."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    g = torch.Generator().manual_seed(SEED + 5)
+    ids = torch.randint(0, N_SMALL["vocab_size"], (N_SMALL_B, N_SMALL_T), generator=g)
+    out = {}
+    for layout in ("speed", "memory"):
+        for dev in (device, "cpu"):
+            _n_init(dev, layout, microbatches=2, bf16=False, tensor_parallel_degree=2)
+            model, optimizer, train_step = _lm_train(_n_module(N_SMALL, dev, init_device="cpu"), dev)
+            losses, grads = [], None
+            for _ in range(2):
+                losses.append(float(train_step(model, ids.to(dev)).reduce_mean()))
+                if grads is None:  # numpy: a tensor in a rank's result would be shared by a file descriptor
+                    grads = {n: g_.detach().float().cpu().numpy() for n, g_ in model.grads.items()}
+                optimizer.step()
+            out[(layout, dev)] = (losses, grads)
+            del model, optimizer
+            smp.reset()
+    return {layout: (out[(layout, device)], out[(layout, "cpu")]) for layout in ("speed", "memory")}
+
+
+def _n_ce(device):
+    """(d) The vocab-parallel fused CE: phase L's model at vocab 50304 in loss
+    mode, 8 x 1024 tokens in one microbatch, ``fused_ce: True`` then
+    ``False``: losses, ms a step (after the first), peak, launches."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    g = torch.Generator().manual_seed(SEED + 6)
+    ids = torch.randint(0, N_VOCAB, (TRAIN_BATCH, N_CE_SEQ), generator=g).to(device)
+    cfg = dict(LM_CFG, vocab_size=N_VOCAB)
+    out = {}
+    for fused in (True, False):
+        _n_init(device, microbatches=1, tensor_parallel_degree=2, fused_ce=fused)
+        model = smp.DistributedModel(_n_module(cfg, device), device=device)
+        optimizer = smp.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), model)
+
+        @smp.step
+        def train_step(model, ids):
+            loss = model(ids[:, :-1], targets=ids[:, 1:]).mean()
+            model.backward(loss)
+            return loss
+
+        counters = {**_ce_counters(), **_ce_simt_counters()}
+        _e_zero(counters)
+        torch.cuda.reset_peak_memory_stats(device)
+        losses, ms = [], []
+        for _ in range(N_STEPS):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            losses.append(float(train_step(model, ids).reduce_mean()))
+            optimizer.step()
+            torch.cuda.synchronize(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[fused] = dict(losses=losses, ms=ms, launches={k: fn.launches for k, fn in counters.items()},
+                          peak=torch.cuda.max_memory_allocated(device) / 2**30)
+        del model, optimizer, train_step
+        smp.reset()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _n_generate(device):
+    """(e) ``smp.generate`` at tp = 2 on phase G1's padded batch (bf16, the
+    fused knobs, 32 new tokens, greedy): the tokens, prefill ms, decode
+    ms/token and launches; then the small fp32 model's padded greedy tokens
+    on the card and on the CPU."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    _n_init(device, tensor_parallel_degree=2)
+    model = smp.DistributedModel(_n_module(LM_CFG, device), device=device)
+    ids, mask, _ = g_prompts(LM_CFG["vocab_size"], device=device)
+    smp.generate(model, ids, 2, attention_mask=mask)  # warm-up, not counted
+    counters = _g_counters()
+    _e_zero(counters)
+    _, prefill_ms = _timed(lambda: smp.generate(model, ids, 1, attention_mask=mask))
+    greedy, greedy_ms = _timed(lambda: smp.generate(model, ids, G_NEW, attention_mask=mask))
+    out = dict(tokens=greedy.cpu().numpy(), prefill_ms=prefill_ms, decode_ms=(greedy_ms - prefill_ms) / (G_NEW - 1),
+               launches=_g_launches(counters), heads=model.module.transformer.seq_layers[0].attention.tp_heads)
+    del model
+    smp.reset()
+    torch.cuda.empty_cache()
+    small = {}
+    for dev in (device, "cpu"):
+        _n_init(dev, bf16=False, tensor_parallel_degree=2)
+        model = smp.DistributedModel(_n_module(N_SMALL, dev, std=0.5, init_device="cpu"), device=dev)
+        sids, smask, _ = g_prompts(N_SMALL["vocab_size"], **N_GEN_SMALL, device=dev)
+        small[dev] = smp.generate(model, sids, 12, attention_mask=smask).cpu().numpy()
+        del model
+        smp.reset()
+    out["small"] = (small[device], small["cpu"])
+    return out
+
+
+def _n_rank(rank, world, device, root):
+    """One tp rank on ``device`` (None: cuda:LOCAL_RANK): (a) the speed layout
+    with its checkpoint, (b) the memory layout, (c) the small fp32 model, (d)
+    the fused CE, (e) generation."""
+    device = device or f"cuda:{rank}"
+    ids = _w_batch(device)
+    out = {"speed": _n_train(device, ids, 2, "speed", root=root)}
+    out["memory"] = _n_train(device, ids, 2, "memory")
+    out["small"] = _n_small(device)
+    out["ce"] = _n_ce(device)
+    out["generate"] = _n_generate(device)
+    return out
+
+
+def _n_resume(rank, world, device, root):
+    """(f) A fresh pair: phase L's model from another seed, the step-2
+    checkpoint resumed into it, then step 3: its loss."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    _n_init(device, tensor_parallel_degree=2)
+    model, optimizer, train_step = _lm_train(_n_module(LM_CFG, device, seed=SEED + 11), device)
+    t0 = time.perf_counter()
+    smp.resume_from_checkpoint(root, tag="n2")
+    resume_s = time.perf_counter() - t0
+    loss = float(train_step(model, _w_batch(device)).reduce_mean())
+    optimizer.step()
+    smp.shutdown()
+    return dict(loss=loss, resume_s=resume_s)
+
+
+def _n_base():
+    """tp = 1 in this process: the same weights and batch (the yardstick)."""
+    return _n_train("cuda", _w_batch("cuda"), 1)
+
+
+def _n_margin(tokens):
+    """(e) The tp = 2 greedy tokens' largest gap to their row's maximum, as a
+    share of its max |logit|, in a tp = 1 bf16 forward of the same weights."""
+    import smdistributed_modelparallel_tpu_torch as smp
+
+    _n_init("cuda", tensor_parallel_degree=1)
+    module = _n_module(LM_CFG, "cuda").to(torch.bfloat16)
+    ids, _, prompts = g_prompts(LM_CFG["vocab_size"])
+    T = ids.shape[1]
+    margin = _g_margin(lambda x: module(x)[0], _g_rows(prompts, torch.from_numpy(tokens), T, G_NEW))
+    del module
+    smp.reset()
+    torch.cuda.empty_cache()
+    return margin
+
+
+def phase_n(device="cuda:0"):
+    """Tensor parallelism at tp = 2: two ranks on ``device`` (gloo with pinned
+    host copies); holds (a)-(f) against tp = 1 in this process."""
+    import shutil
+
+    shutil.rmtree(N_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks(2, _n_rank, device, N_DIR)
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = run_ranks(2, _n_resume, device, N_DIR)
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(N_DIR, ignore_errors=True)
+    base = _n_base()
+    margins = [_n_margin(r["generate"]["tokens"]) for r in ranks]
+    return _n_report(ranks, resumed, base, margins, ranks_s, resume_s, device)
+
+
+def _n_steps_ms(run):
+    """ms a step over steps 2.., and the tp regions' host ms a step."""
+    return sum(run["ms"][1:]) / (len(run["ms"]) - 1), sum(run["comm"][1:]) / (len(run["comm"]) - 1)
+
+
+def _n_report(ranks, resumed, base, margins, ranks_s, resume_s, device):
+    failures = []
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    per = LM_CFG["num_layers"] * TRAIN_MB * N_STEPS
+    want = {"flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per, "bias_gelu_fwd": per, "bias_gelu_bwd": per,
+            "matmul_bias": 0}
+    base_ms, _ = _n_steps_ms(base)
+    log(f"[N] tp = 2: 2 ranks on {device}, transport {ranks[0]['speed']['transport']} (host copies of CUDA tensors); "
+        f"ranks "
+        f"took {ranks_s:.1f} s with start-up, the resumed pair {resume_s:.1f} s")
+    log(f"[N] tp = 1 in one process: losses {base['losses']}; ms/step {base_ms:.2f} (steps 2-{N_STEPS}), tokens/s "
+        f"{tokens / base_ms * 1e3:.1f}; peak {base['peak']:.2f} GiB")
+    for layout, label in (("speed", "(a)"), ("memory", "(b)")):
+        for rank, r in enumerate(ranks):
+            run = r[layout]
+            ms, comm = _n_steps_ms(run)
+            gap = max(abs(a - b) for a, b in zip(run["losses"], base["losses"]))
+            log(f"[N] {label} {layout}, rank {rank}: losses {run['losses']}, largest difference to tp = 1 {gap:.3e} "
+                f"(limit {N_LOSS_TOL}); ms/step {ms:.2f} (per step {[round(x, 2) for x in run['ms']]}), global "
+                f"tokens/s {tokens / ms * 1e3:.1f}; the tp regions' host ms a step {comm:.2f}; peak {run['peak']:.2f} "
+                f"GiB; sequence-parallel {run['sequence_parallel']}; launches {run['launches']}")
+            if not (gap <= N_LOSS_TOL and all(math.isfinite(x) for x in run["losses"])):
+                failures.append(f"{label} rank {rank}: losses differ from tp = 1 by {gap:.3e}")
+            got = {k: run["launches"][k] for k in want}
+            if got != want:
+                failures.append(f"{label} rank {rank}: launches {got}, expected {want}")
+            try:
+                _check_route(f"[N] {label} rank {rank}", run["launches"])
+            except RuntimeError as e:
+                failures.append(str(e))
+            if run["sequence_parallel"] != (layout == "memory"):
+                failures.append(f"{label} rank {rank}: sequence-parallel {run['sequence_parallel']}")
+        same = ranks[0][layout]["prints"] == ranks[1][layout]["prints"]
+        same = same and ranks[0][layout]["losses"] == ranks[1][layout]["losses"]
+        log(f"[N] {label} replicated parameters bit-equal across the ranks after every step: {same}")
+        if not same:
+            failures.append(f"{label}: the replicated parameters differ across the tp ranks")
+    for rank, r in enumerate(ranks):
+        for layout in ("speed", "memory"):
+            (card_l, card_g), (cpu_l, cpu_g) = r["small"][layout]
+            lerr = max(abs(a - b) for a, b in zip(card_l, cpu_l))
+            gerr = max(float(np.abs(card_g[n] - cpu_g[n]).max() / max(np.abs(cpu_g[n]).max(), 1e-12)) for n in cpu_g)
+            log(f"[N] (c) rank {rank} small fp32 model (2 layers) at tp = 2, {layout}, card vs CPU: losses {card_l} vs "
+                f"{cpu_l}, largest difference {lerr:.3e}; first-step gradients' largest difference {gerr:.3e} of "
+                f"their largest value (limit {N_SMALL_TOL})")
+            if not (lerr <= N_SMALL_TOL and gerr <= N_SMALL_TOL):
+                failures.append(f"(c) rank {rank} {layout}: the small fp32 model on the card disagrees with the CPU")
+    ce_want = {"fused_ce_fwd": N_STEPS, "fused_ce_bwd_dx": N_STEPS, "fused_ce_bwd_dw": N_STEPS}
+    for rank, r in enumerate(ranks):
+        fused, plain = r["ce"][True], r["ce"][False]
+        gap = max(abs(a - b) for a, b in zip(fused["losses"], plain["losses"]))
+        fms, pms = (sum(x["ms"][1:]) / (N_STEPS - 1) for x in (fused, plain))
+        log(f"[N] (d) rank {rank} vocab {N_VOCAB}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in one microbatch: fused CE "
+            f"losses {fused['losses']}, {fms:.2f} ms/step, peak {fused['peak']:.2f} GiB, launches {fused['launches']}; "
+            f"materialized losses {plain['losses']}, {pms:.2f} ms/step, peak {plain['peak']:.2f} GiB; largest "
+            f"difference {gap:.3e} (limit {N_CE_TOL})")
+        if not (gap <= N_CE_TOL and all(math.isfinite(x) for x in fused["losses"] + plain["losses"])):
+            failures.append(f"(d) rank {rank}: fused and materialized losses differ by {gap:.3e}")
+        if {k: fused["launches"][k] for k in ce_want} != ce_want or any(
+                plain["launches"][k] for k in ce_want):
+            failures.append(f"(d) rank {rank}: launches {fused['launches']} / {plain['launches']}, expected {ce_want}")
+        try:
+            _check_route(f"[N] (d) rank {rank}", fused["launches"])
+        except RuntimeError as e:
+            failures.append(str(e))
+    for rank, (r, margin) in enumerate(zip(ranks, margins)):
+        gen = r["generate"]
+        card, cpu = gen["small"]
+        log(f"[N] (e) rank {rank} generate at tp = 2 ({gen['heads']} heads a rank in each layer's cache): prefill "
+            f"{gen['prefill_ms']:.2f} ms, decode {gen['decode_ms']:.3f} ms/token; greedy tokens' largest gap to their "
+            f"row's maximum in a tp = 1 bf16 forward {margin:.3e} of max |logit| (limit {S_MARGIN}); launches "
+            f"{gen['launches']}; the small fp32 model's tokens card == CPU {np.array_equal(card, cpu)}")
+        if not margin <= S_MARGIN:
+            failures.append(f"(e) rank {rank}: a greedy token {margin:.3e} below its row's maximum")
+        if not np.array_equal(card, cpu):
+            failures.append(f"(e) rank {rank}: the small fp32 model's tokens differ on the card and the CPU")
+        if gen["launches"]["flash_fwd"] != 2 * LM_CFG["num_layers"] or gen["launches"]["matmul_bias"]:
+            failures.append(f"(e) rank {rank}: launches {gen['launches']}")
+        try:
+            _check_route(f"[N] (e) rank {rank}", gen["launches"])
+        except RuntimeError as e:
+            failures.append(str(e))
+    if not np.array_equal(ranks[0]["generate"]["tokens"], ranks[1]["generate"]["tokens"]):
+        failures.append("(e) the tp ranks generated different tokens")
+    step3 = ranks[0]["speed"]["losses"][N_SAVE_AT]
+    got = [r["loss"] for r in resumed]
+    log(f"[N] (f) the step-{N_SAVE_AT} partial checkpoint resumed by a fresh pair ({resumed[0]['resume_s']:.2f} s): "
+        f"step {N_SAVE_AT + 1}'s loss {got} against {step3}: bit-equal {all(x == step3 for x in got)}")
+    if not all(x == step3 for x in got):
+        failures.append(f"(f) the resumed step's loss {got} differs from {step3}")
+    if failures:
+        raise RuntimeError("phase N: " + "; ".join(failures))
+    launches = {}
+    for runs in ([base] + [r[k] for r in ranks for k in ("speed", "memory")],
+                 [r["ce"][True] for r in ranks], [r["generate"] for r in ranks]):
+        for run in runs:
+            for k, n in run["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    return launches, dict(base_ms=base_ms, ms=_n_steps_ms(ranks[0]["speed"])[0])
+
+
+def _n_rank_i(rank, world):
+    """Phase I's rank: (a) with the ranks on cuda:0 and cuda:1."""
+    device = f"cuda:{rank}"
+    return _n_train(device, _w_batch(device), 2)
+
+
+def phase_i():
+    """Hold (a) of phase N with the two tp ranks on cuda:0 and cuda:1 (the tp
+    regions over NCCL; a machine with two cards)."""
+    if torch.cuda.device_count() < 2:
+        raise RuntimeError(f"tp ranks on separate cards need 2 cards, found {torch.cuda.device_count()}")
+    ranks = run_ranks(2, _n_rank_i)
+    base = _n_base()
+    gap = max(abs(a - b) for r in ranks for a, b in zip(r["losses"], base["losses"]))
+    ms, comm = _n_steps_ms(ranks[0])
+    same = ranks[0]["prints"] == ranks[1]["prints"]
+    log(f"[I] tp = 2 on cuda:0-1, transport {ranks[0]['transport']}: losses {ranks[0]['losses']}, tp = 1 "
+        f"{base['losses']}, largest difference {gap:.3e}; ms/step {ms:.2f} (tp = 1 {_n_steps_ms(base)[0]:.2f}), "
+        f"global tokens/s {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f}; the tp regions' host ms a step {comm:.2f}; "
+        f"replicated parameters bit-equal {same}; launches {ranks[0]['launches']}")
+    if gap > N_LOSS_TOL or not same:
+        raise RuntimeError(f"phase I: tp = 2 over NCCL differs (loss gap {gap:.3e}, bit-equal {same})")
 
 
 # ----------------------------------------------------------------------
@@ -7826,11 +8226,11 @@ def phase_p():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, U, W, J, K, H, E, O, V, B, C (the default, "
-             "all twenty), "
-             "P (profiles), N (phase R's ranks on two cards, over NCCL), Y (phase W's ranks on two cards, over "
-             "NCCL), Z (phase U's ranks on two cards, over NCCL) and X (GPT-2 1.5B at 16 x 1024 with checkpointing "
-             "off)")
+                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, U, W, N, J, K, H, E, O, V, B, C (the "
+             "default, all twenty-one), "
+             "P (profiles), r (phase R's ranks on two cards, over NCCL), Y (phase W's ranks on two cards, over "
+             "NCCL), Z (phase U's ranks on two cards, over NCCL), I (phase N (a)'s ranks on two cards, over NCCL) "
+             "and X (GPT-2 1.5B at 16 x 1024 with checkpointing off)")
     parser.add_argument("--k-child", metavar="DIR", help=argparse.SUPPRESS)  # phase K's resumed run
     parser.add_argument("--o-child", metavar="KIND:ON", help=argparse.SUPPRESS)  # phase O's runs
     parser.add_argument("--v-child", metavar="KIND:DIR", help=argparse.SUPPRESS)  # phase V's runs
@@ -7865,6 +8265,7 @@ def main():
     serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches = {}, {}, {}, {}, {}, {}
     k_launches, d_launches, m_launches, s_launches, g_launches, h_launches = {}, {}, {}, {}, {}, {}
     e_launches, o_launches, v_launches, w_launches, u_launches, j_launches = {}, {}, {}, {}, {}, {}
+    n_launches = {}
     errs = timing = None
     if "A" in args.phases:
         serve_launches = phase_a()
@@ -7888,7 +8289,7 @@ def main():
         q_launches, _ = phase_q()
     if "R" in args.phases:
         cp_launches, _ = phase_r()
-    if "N" in args.phases:
+    if "r" in args.phases:
         phase_r(device=None)
     if "U" in args.phases:
         u_launches, _ = phase_u()
@@ -7898,6 +8299,10 @@ def main():
         w_launches, _ = phase_w()
     if "Y" in args.phases:
         phase_y()
+    if "N" in args.phases:
+        n_launches, _ = phase_n()
+    if "I" in args.phases:
+        phase_i()
     if "J" in args.phases:
         j_launches = phase_j()
     if "K" in args.phases:
@@ -7936,11 +8341,13 @@ def main():
     # and full blocks), the data-parallel run (W: both ranks' 6 steps
     # and the rdp = 1 run), the expert-parallel run (U: both ranks' steps
     # and the ep = 1 run), phase R's rdp x cp run (its four ranks' steps,
-    # in R's count) and the serving replicas (J: world 1's sampled streams),
-    # each counted from 0 just before it.
+    # in R's count), the serving replicas (J: world 1's sampled streams) and
+    # the tensor-parallel run (N: both ranks' steps in both layouts, their
+    # fused-CE steps and generates, and the tp = 1 run), each counted from 0
+    # just before it.
     paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches, k_launches,
              d_launches, m_launches, s_launches, g_launches, h_launches, e_launches, o_launches, v_launches,
-             w_launches, u_launches, j_launches)
+             w_launches, u_launches, j_launches, n_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"

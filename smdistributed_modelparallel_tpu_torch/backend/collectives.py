@@ -15,10 +15,16 @@ of size > 1, with the same semantics:
   tiled=True)``: chunk i of ``split_dim`` goes to member i, and the chunks
   received are concatenated along ``concat_dim`` in member order.
 - ``all_gather(x, dim)`` (tiled; any dtype, the MoE's int32 routing choices
-  among them) and ``all_reduce(x)`` (sum, in place).
+  among them), ``all_reduce(x)`` (sum or ``op``, in place), ``reduced(x)``
+  (the same into a new tensor) and ``reduce_scatter(x, dim)`` (under gloo an
+  all-reduce, then the member's chunk).
 
 ``all_to_all`` is the differentiable exchange (its backward is the inverse
-exchange) that Ulysses attention and the MoE's expert dispatch share.
+exchange) that Ulysses attention and the MoE's expert dispatch share. The
+tensor-parallel layers use Megatron's differentiable regions over the tp
+group (``copy_to_tp``, ``reduce_from_tp``, ``gather_from_tp``,
+``reduce_scatter_to_tp``, ``scatter_to_tp``; at the end of this module).
+bf16 and fp16 travel as they are: gloo sums them as well as NCCL does.
 
 The transport is decided once, when ``smp.init`` builds the groups, never
 after a failure. Every rank all-gathers its device's UUID over the default
@@ -232,13 +238,35 @@ class TensorGroup:
         dist.all_gather(parts, send, group=self.pg)
         return self._home(torch.cat(parts, dim=dim), x)
 
-    def all_reduce(self, x):
-        """Sum ``x`` over the group, in place; returns ``x``."""
+    def all_reduce(self, x, op=dist.ReduceOp.SUM):
+        """Sum (or ``op``) ``x`` over the group, in place; returns ``x``."""
         wire = self._wire(x)
-        dist.all_reduce(wire, group=self.pg)
+        dist.all_reduce(wire, op=op, group=self.pg)
         if wire is not x:
             x.copy_(wire)
         return x
+
+    def reduced(self, x, op=dist.ReduceOp.SUM):
+        """A new tensor: ``x`` summed (or ``op``) over the group; ``x`` is
+        left as it is."""
+        wire = self._wire(x)
+        if wire.data_ptr() == x.data_ptr():
+            wire = wire.clone()
+        dist.all_reduce(wire, op=op, group=self.pg)
+        return self._home(wire, x)
+
+    def reduce_scatter(self, x, dim):
+        """``x`` summed over the group, this member's chunk of ``dim`` kept
+        (``dim`` must split evenly). Under gloo an all-reduce, then the chunk."""
+        if x.shape[dim] % self.size:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not split {self.size} ways")
+        if self.transport == "nccl":
+            send = self._wire(x.movedim(dim, 0))
+            out = torch.empty((send.shape[0] // self.size,) + tuple(send.shape[1:]), dtype=send.dtype,
+                              device=send.device)
+            dist.reduce_scatter_tensor(out, send, group=self.pg)
+            return out.movedim(0, dim).contiguous()
+        return self.reduced(x).chunk(self.size, dim)[self.index].contiguous()
 
     def broadcast(self, x, src=0):
         """Overwrite ``x`` with member ``src``'s, in place; returns ``x``."""
@@ -282,6 +310,160 @@ def all_to_all(x, group, split_dim, concat_dim):
     """``lax.all_to_all(x, split_axis=split_dim, concat_axis=concat_dim,
     tiled=True)`` over ``group``, differentiable."""
     return _AllToAll.apply(x, group, split_dim, concat_dim)
+
+
+# -- the tensor-parallel regions ------------------------------------------
+#
+# Megatron's explicit, differentiable regions over the tp group, where the
+# JAX package's sharding constraints let GSPMD place the collectives. Each
+# takes ``group`` (the tp ``TensorGroup``; None at tp = 1, where every region
+# is the identity). The host wall time of their exchanges (the pinned copies
+# included) adds up in ``tp_comm_stats``.
+
+tp_comm_stats = {"calls": 0, "seconds": 0.0}
+
+
+def _timed(fn, *args):
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        tp_comm_stats["calls"] += 1
+        tp_comm_stats["seconds"] += time.perf_counter() - t0
+
+
+def _gather(group, x, dim, sizes):
+    """``x`` gathered along ``dim`` over ``group``; ``sizes`` (each member's
+    length of ``dim``, None when equal) lets the members differ: each pads
+    to the longest, and the padding is dropped after the exchange."""
+    if sizes is None or len(set(sizes)) == 1:
+        return group.all_gather(x, dim)
+    most = max(sizes)
+    pad = list(x.shape)
+    pad[dim] = most - x.shape[dim]
+    full = group.all_gather(torch.cat([x, x.new_zeros(pad)], dim=dim), dim)
+    keep = torch.cat([torch.arange(i * most, i * most + n, device=full.device) for i, n in enumerate(sizes)])
+    return full.index_select(dim, keep)
+
+
+def _chunk(group, x, dim, sizes):
+    """This member's part of ``dim`` (``sizes`` as for ``_gather``)."""
+    if sizes is None:
+        return x.chunk(group.size, dim)[group.index].contiguous()
+    lo = sum(sizes[:group.index])
+    return x.narrow(dim, lo, sizes[group.index]).contiguous()
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward, all-reduce backward: a replicated input entering
+    per-rank partial work (a column-parallel product)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return _timed(ctx.group.reduced, g.contiguous()), None
+
+
+class _AllReduceTP(torch.autograd.Function):
+    """All-reduce forward; backward the identity (``grad="identity"``: the
+    sum feeds replicated work, a row-parallel output) or an all-reduce
+    (``grad="sum"``: it feeds each rank's own shard, as a sharded
+    LayerNorm's moments do)."""
+
+    @staticmethod
+    def forward(ctx, x, group, sum_grad):
+        ctx.group, ctx.sum_grad = group, sum_grad
+        return _timed(group.reduced, x.contiguous())
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return (_timed(ctx.group.reduced, g.contiguous()) if ctx.sum_grad else g), None, None
+
+
+class _AllGatherTP(torch.autograd.Function):
+    """All-gather along ``dim`` forward; backward a reduce-scatter along it
+    (``split=False``: per-rank partial work follows, as QKV and fc after the
+    sequence-parallel gather) or this rank's chunk of the gradient
+    (``split=True``: replicated work follows, every rank holding the same
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, split, sizes):
+        ctx.group, ctx.dim, ctx.split, ctx.sizes = group, dim, split, sizes
+        return _timed(_gather, group, x.contiguous(), dim, sizes)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        if ctx.split:
+            return _chunk(ctx.group, g, ctx.dim, ctx.sizes), None, None, None, None
+        if ctx.sizes is not None:  # uneven parts: the whole sum, then this rank's part
+            return _chunk(ctx.group, _timed(ctx.group.reduced, g.contiguous()), ctx.dim, ctx.sizes), None, None, \
+                None, None
+        return _timed(ctx.group.reduce_scatter, g.contiguous(), ctx.dim), None, None, None, None
+
+
+class _ReduceScatterTP(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward, all-gather along it backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _timed(group.reduce_scatter, x.contiguous(), dim)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return _timed(ctx.group.all_gather, g.contiguous(), ctx.dim), None, None
+
+
+class _ScatterTP(torch.autograd.Function):
+    """This rank's chunk of ``dim`` forward (a replicated tensor entering
+    sharded work), all-gather along it backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, sizes):
+        ctx.group, ctx.dim, ctx.sizes = group, dim, sizes
+        return _chunk(group, x, dim, sizes)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return _timed(_gather, ctx.group, g.contiguous(), ctx.dim, ctx.sizes), None, None, None
+
+
+def copy_to_tp(x, group):
+    """Megatron's copy-to-tp region: identity forward, all-reduce backward."""
+    return x if group is None else _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x, group, sum_grad=False):
+    """Megatron's reduce-from-tp region: all-reduce forward, identity
+    backward (``sum_grad``: all-reduce backward too)."""
+    return x if group is None else _AllReduceTP.apply(x, group, sum_grad)
+
+
+def gather_from_tp(x, group, dim, split_grad=False, sizes=None):
+    """All-gather along ``dim`` (the sequence under sequence parallelism,
+    the last dim for ``split="dim"``); backward a reduce-scatter along it,
+    or this rank's chunk with ``split_grad``. ``sizes``: uneven parts."""
+    return x if group is None else _AllGatherTP.apply(x, group, dim, split_grad, sizes)
+
+
+def reduce_scatter_to_tp(x, group, dim):
+    """Reduce-scatter along ``dim`` forward, all-gather backward."""
+    return x if group is None else _ReduceScatterTP.apply(x, group, dim)
+
+
+def scatter_to_tp(x, group, dim, sizes=None):
+    """This rank's chunk of ``dim`` forward, all-gather backward."""
+    return x if group is None else _ScatterTP.apply(x, group, dim, sizes)
 
 
 class CollectiveCommunicator:

@@ -13,13 +13,15 @@ packages in either direction:
   ``reference_state_dict`` and the optimizer's optax layout),
   ``fp16_states.pt`` and ``quant_states.pt`` (per rank coordinates),
   ``user_content.pt`` and ``smp_config.pt`` (the config, the writer census
-  ``num_processes`` and ``step_count``), committed by the ``.inflight_s{seq}``
+  ``num_processes`` and ``step_count``); at tp > 1 each tp rank writes its
+  region of every tp-sharded leaf (``DistributedModel.tp_pieces``) and tp
+  rank 0 the replicated ones, committed by the ``.inflight_s{seq}``
   / ``.done_p{rank}`` / ``.committed`` protocol before the ``newest`` pointer
   moves; ``num_kept_partial_checkpoints`` keeps the newest committed
   directories and sweeps interrupted ones;
 - ``save_checkpoint(partial=False)``: one pickle ``{path}/{tag}`` whose
-  ``model`` and ``optimizer`` entries are the same reference-keyed dicts, so
-  the JAX package loads them; under ``translate_if_full`` (the default) the
+  ``model`` and ``optimizer`` entries are the same reference-keyed dicts
+  (gathered whole over tp), so the JAX package loads them; under ``translate_if_full`` (the default) the
   ``model`` dict goes through the model's ``to_hf`` translator where it has
   one (``smp.from_hf`` gives it the family's, which emits the source's HF
   names; else the tp registry's entry for the module's class): a dict the HF
@@ -209,8 +211,12 @@ def save_checkpoint(path, tag=None, model=None, optimizer=None,
     if partial:
         from smdistributed_modelparallel_tpu_torch.shard_io import shard_payload
 
-        model_payload = shard_payload(model.reference_state_dict()) if model is not None else None
-        opt_payload = shard_payload(optimizer.reference_state_dict()) if with_opt else None
+        # At tp > 1 the reference dicts are gathered whole (a collective over
+        # tp); each tp rank writes its region of the sharded leaves.
+        pieces = model.tp_pieces() if model is not None and model._tp_specs else None
+        model_payload = shard_payload(model.reference_state_dict(), tp_pieces=pieces) if model is not None else None
+        opt_pieces = {f"0/{m}/{k}": b for k, b in pieces.items() for m in ("mu", "nu")} if pieces else None
+        opt_payload = shard_payload(optimizer.reference_state_dict(), tp_pieces=opt_pieces) if with_opt else None
         scaler_sd = state.loss_scaler.state_dict() if state.loss_scaler is not None else None
         quant_sd = state.quant_state.state_dict() if state.quant_state is not None else None
         cfg_snapshot = _smp_config_snapshot()

@@ -27,6 +27,15 @@ kernels and biases, as ``lm_head_params_from_jax`` gives them) to an ep
 rank's experts: at expert parallelism each rank holds ``[j*E/ep,
 (j+1)*E/ep)`` (``DistributedMoE`` applies it to whatever it loads).
 
+``tp_shard`` cuts whole tensors (what ``lm_head_params_from_jax`` gives from
+the JAX package's unsharded arrays) to a tp rank's part, by the ``TPSpec``
+each sharded parameter carries (``nn/utils.tp_param_specs``): the axes that
+``partitioned(...)`` names in the JAX modules, read in the torch layout (the
+QKV rows by head, ``fc`` rows, ``proj`` and the output projection's columns,
+a vocab-split table's rows). ``DistributedModel`` applies it to whatever it
+loads at tp > 1, and gathers the shards back over tp before ``params_to_jax``
+/ ``lm_head_params_to_jax`` write the JAX layout.
+
 ``quant_state_from_jax`` carries the fp8 delayed-scaling state
 (``QuantState.state_dict()``) across, and ``key_from_jax``/``key_to_jax`` a
 random key: the port's key (``utils/random``) is the two uint32 words of
@@ -470,6 +479,19 @@ def quant_state_from_jax(sd):
         raise ValueError(f"malformed QuantState: amax_history {hist.shape}, scale {scale.shape}, "
                          f"{len(slots)} slots")
     return {"amax_history": hist, "scale": scale, "slots": slots}
+
+
+def tp_shard(state_dict, specs, index, size, local_shapes):
+    """``state_dict`` with each whole tensor that ``specs`` ({name: TPSpec})
+    names cut to tp rank ``index`` of ``size``; a tensor already of its
+    ``local_shapes`` entry (a shard) passes as it is."""
+    out = {}
+    for k, v in state_dict.items():
+        spec = specs.get(k)
+        if spec is not None and tuple(v.shape) != tuple(local_shapes[k]) and v.shape[spec.dim] == spec.size:
+            v = spec.local(to_torch(v), index, size)
+        out[k] = v
+    return out
 
 
 def shard_experts(leaves, num_experts, expert_range):

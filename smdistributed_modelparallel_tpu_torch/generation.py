@@ -33,6 +33,13 @@ step serve every later one, and the beams of a row share them. The output
 is the start token and the new ones. Pipeline parallelism raises
 ``NotImplementedError``.
 
+Tensor parallelism (tp > 1): every tp rank runs the same generate on the
+same prompts. Each ``smp.nn`` attention layer's ``DecodeKVCache`` holds the
+rank's H/tp heads, and the head's logits are whole on every rank (a
+vocab-split table's are gathered), so every rank samples the same token
+from the same key. ``SMP_DECODE_WEIGHTS=int8`` (its per-channel grid over
+whole tensors) and seq2seq models raise there (ROADMAP item 7b).
+
 Telemetry: each bucketed call counts its outcome (``smp_shape_bucket_total``),
 and the layers' fused-kernel dispatch decisions
 (``smp_fused_kernel_dispatch_total``) are counted as the JAX package counts
@@ -112,6 +119,10 @@ def _decode_params(module, half):
     then the half cast of the training step's compute dtype, as the JAX
     package's ``_half_cast`` does."""
     int8 = quant.decode_weights_mode() == "int8"
+    if int8:
+        from smdistributed_modelparallel_tpu_torch.nn.transformer import refuse_tp
+
+        refuse_tp("SMP_DECODE_WEIGHTS=int8 in smp.generate")
     if half is None and not int8:
         return None
     params = module.state_dict()

@@ -15,8 +15,26 @@ rank's rows (rdp or ep > 1) a key drawn for a module raises (each rank would
 need its rows' part of the global mask). At ep > 1 every ``DistributedMoE``
 keeps the ep rank's experts (``shard_experts``), which are broadcast only over
 the ranks that hold the same experts (``EXPERT_REPLICA_AXES``, rdp x cp);
-``_expert_params`` names them for the step's gradient reduction. Pipeline and
-tensor parallelism arrive with later slices.
+``_expert_params`` names them for the step's gradient reduction. Pipeline
+parallelism arrives with a later slice.
+
+Tensor parallelism (tp > 1). The ``smp.nn`` layers cut their tp-sharded
+parameters to the rank's part when they are built (``nn/utils.
+shard_parameters_``); ``_tp_specs`` names them with their ``TPSpec``. The
+data-group broadcast leaves the tp ranks' shards as they are (tp is not a
+data axis), and replicated parameters start equal on every tp rank because
+every rank draws the same full model. The reference layout stays the
+unsharded one: ``reference_state_dict()`` (and the optimizer's) gathers the
+shards over tp first, and every load (``load_state_dict`` with torch's,
+the reference's or a shard payload, a resume, ``load_sharded``) takes whole
+tensors and keeps the rank's part, so a tp = 1 model's state loads at tp = 2
+and back. ``tp_pieces()`` gives, for a partial checkpoint, the region of each
+reference leaf this tp rank writes. Under ``optimize: "memory"`` a layer
+stack that runs its residual stream sharded along T notes it
+(``_note_sequence_parallel``): its replicated parameters (``_stack_replicated``,
+the layernorms and row-parallel biases) then saw this rank's tokens only, and
+the step sums their gradients over tp. A key drawn inside a step at tp > 1
+raises (ROADMAP item 7b).
 
 Random keys. ``rngs`` names the key streams the module draws from besides
 its parameters (``("dropout",)``, as in the JAX package). Inside a step the
@@ -83,7 +101,7 @@ import torch
 from smdistributed_modelparallel_tpu_torch import convert
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.backend.topology import DATA_AXES, EP_AXIS, EXPERT_REPLICA_AXES
-from smdistributed_modelparallel_tpu_torch.nn.utils import collect_program_ticks
+from smdistributed_modelparallel_tpu_torch.nn.utils import collect_program_ticks, tp_group, tp_param_specs, tp_rank
 from smdistributed_modelparallel_tpu_torch.utils import random
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import (
     SMPRuntimeError,
@@ -167,7 +185,13 @@ class DistributedModel:
         self._dropped_updates = 0
         self._program_ticked = False  # the JAX package's lazy init has been traced (replay_program_ticks)
         self._health_leaf_groups = None  # the sentinel's JAX leaves (health.jax_leaf_groups)
+        self._tp_specs = tp_param_specs(self.module)
+        self._stack_replicated = _stack_replicated(self.module, self._tp_specs)
+        self._seq_parallel_ran = False  # a layer stack ran sequence-parallel in this step
+        self._tp_pieces = None  # tp_pieces(), computed at the first partial save
         self._to_reference, self._from_reference = _reference_layout(self.module)
+        if self._tp_specs:
+            self._to_reference, self._from_reference = self._tp_layout(self._to_reference, self._from_reference)
         state.model = self
         if state.loaded_model_state is not None:
             from smdistributed_modelparallel_tpu_torch.shard_io import ShardCatalog
@@ -276,6 +300,12 @@ class DistributedModel:
         if self._key_replay is not None:
             key = next(self._key_replay)
         else:
+            if self._rngs is not None and tp_group() is not None:
+                raise NotImplementedError(
+                    f"{type(module).__name__} draws a {name!r} key inside a step at tensor_parallel_degree > 1 "
+                    "(dropout: each tp rank's part of the mask), which is not ported to PyTorch yet (ROADMAP item "
+                    "7b)."
+                )
             if state.rdp_sharded:
                 topo = state.topology
                 raise NotImplementedError(
@@ -389,13 +419,69 @@ class DistributedModel:
         self._load_own(state_dict)
 
     def _load_own(self, state_dict):
-        """Load the module's own entries of a torch-named dict."""
+        """Load the module's own entries of a torch-named dict (whole tensors
+        of tp-sharded parameters are cut to this rank's part)."""
         own = self.module.state_dict()
         missing = [k for k in own if k not in state_dict]
         if missing:
             raise SMPValidationError(f"Missing parameter '{missing[0]}' in state dict.")
-        self.module.load_state_dict({k: state_dict[k] for k in own})
+        self.module.load_state_dict(self._localize({k: state_dict[k] for k in own}))
         self._param_version += 1
+
+    # -- tensor parallelism ----------------------------------------------
+
+    def _localize(self, sd):
+        """``sd`` with each whole tensor of a tp-sharded parameter cut to
+        this rank's part (tensors already cut pass as they are)."""
+        if not self._tp_specs:
+            return sd
+        shapes = {n: p.shape for n, p in self.module.named_parameters()}
+        return convert.tp_shard(sd, self._tp_specs, tp_rank(), tp_group().size, shapes)
+
+    def _gather_tp(self, sd):
+        """``sd`` (torch names) with every tp-sharded tensor gathered whole:
+        a collective over the tp group."""
+        group = tp_group()
+        return {k: (self._tp_specs[k].gather(v.detach(), group) if k in self._tp_specs else v) for k, v in sd.items()}
+
+    def _tp_layout(self, to_ref, from_ref):
+        """The reference maps at tp > 1: whole tensors in the reference
+        layout both ways."""
+        return (lambda sd: to_ref(self._gather_tp(sd))), (lambda flat: self._localize(from_ref(flat)))
+
+    def tp_pieces(self):
+        """``{reference key: [[start, stop], ...]}``: the region of each
+        tp-sharded leaf of ``reference_state_dict()`` that this tp rank holds
+        (empty at tp = 1). Found by mapping a tensor that holds each element's
+        owning rank through the reference layout, once."""
+        if self._tp_pieces is None:
+            import numpy as np
+
+            tp, me = tp_group().size if self._tp_specs else 1, tp_rank()
+            params = dict(self.module.named_parameters())
+            owners = {}
+            for name, spec in self._tp_specs.items():
+                full = torch.empty(spec.full_shape(params[name].shape), dtype=torch.int8)
+                view = spec._view(full)
+                for r, (lo, hi) in enumerate(spec.parts(tp)):
+                    view.narrow(spec.dim + 1, lo, hi - lo).fill_(r)
+                owners[name] = full
+            to_ref = _reference_layout(self.module)[0]
+            pieces = {}
+            for key, owner in (to_ref(owners) if owners else {}).items():
+                hit = np.nonzero(np.asarray(owner) == me)
+                bounds = [[int(ax.min()), int(ax.max()) + 1] for ax in hit]
+                if int(np.prod([b - a for a, b in bounds])) != len(hit[0]):
+                    raise SMPRuntimeError(f"tp rank {me}'s part of {key!r} is not one rectangular region.")
+                pieces[key] = bounds
+            self._tp_pieces = pieces
+        return self._tp_pieces
+
+    def _note_sequence_parallel(self):
+        """A layer stack ran its residual stream sharded along T inside
+        this step (``optimize: "memory"``)."""
+        if self._bound is not None:
+            self._seq_parallel_ran = True
 
     def load_sharded(self, catalog):
         """Load a ``shard_io`` catalog: each leaf of the reference layout is
@@ -485,6 +571,20 @@ def _shard_experts(module):
         if isinstance(mod, DistributedMoE):
             mod.shard_experts(topo.ep_size, index)
             names.update(f"{path}.{n}" if path else n for n in mod.expert_parameter_names())
+    return frozenset(names)
+
+
+def _stack_replicated(module, specs):
+    """The names of the replicated (not tp-sharded) parameters of every
+    ``DistributedTransformer`` layer stack under ``module``: what sees this
+    rank's tokens only when the stack runs sequence-parallel."""
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import DistributedTransformer
+
+    names = set()
+    for path, mod in module.named_modules():
+        if isinstance(mod, DistributedTransformer):
+            names.update(n for n in (f"{path}.{p}" if path else p for p, _ in mod.named_parameters())
+                         if n not in specs)
     return frozenset(names)
 
 

@@ -31,8 +31,8 @@ K/V of their first call, and ``decoder_position`` counts the decoder tokens
 seen (the JAX module's ``cache/decoder_position``).
 
 Not ported yet: ``pipeline_spec`` (the decoder stack as pipeline stages; the
-pipeline slice) and tensor parallelism (``distribute_embedding`` runs at
-tp = 1).
+pipeline slice) and tensor parallelism (``forward`` and ``encode`` raise at
+tp > 1, ROADMAP item 7b).
 """
 
 from typing import Optional
@@ -47,6 +47,7 @@ from smdistributed_modelparallel_tpu_torch.nn.transformer import (
     _linear,
     _normal_,
     _not_ported,
+    refuse_tp,
 )
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
 
@@ -222,6 +223,7 @@ class EncoderDecoderLM(nn.Module):
         return torch.nn.functional.linear(h_d.to(dtype), w.to(dtype))
 
     def forward(self, encoder_ids, decoder_ids, encoder_mask=None):
+        refuse_tp("the encoder-decoder")
         h_d, h_e, masks = self.embed(encoder_ids, decoder_ids, encoder_mask)
         h_d = self.decoder(h_d, cross_states=h_e, attention_mask=masks)
         return self.head(h_d)
@@ -230,6 +232,7 @@ class EncoderDecoderLM(nn.Module):
 
     def encode(self, encoder_ids, encoder_mask=None):
         """The encoder alone: run once a generation."""
+        refuse_tp("the encoder-decoder")
         pad = self._pad4d(encoder_mask)
         S = encoder_ids.shape[-1]
         dev = encoder_ids.device

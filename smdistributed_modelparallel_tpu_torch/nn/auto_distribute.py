@@ -104,6 +104,8 @@ def distribute_tree(module, mm=None, registry=None):
     """``(module, replaced paths)``: ``module`` with its tp-marked registered
     modules distributed (the root included, as ``"<root>"``), partition
     stamps recorded in ``mm`` and its activation-checkpoint configs applied."""
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import refuse_tp
+
     replaced = []
 
     def walk(mod, path):
@@ -112,6 +114,8 @@ def distribute_tree(module, mm=None, registry=None):
             mm.set_partition(path, part)
         cfg = _tp_config(mod, path, mm)
         if cfg is not None and registry is not None and registry.is_supported(type(mod)):
+            refuse_tp("a module marked for tensor parallelism (smp.tensor_parallelism, "
+                      "smp.set_tensor_parallelism; the tp config and _match_weights against sharded weights)")
             ctor = mod.__dict__.get(_CTOR)
             if ctor is None:
                 raise TensorParallelismError(

@@ -277,7 +277,9 @@ def from_hf(model_or_config, rngs=("dropout",), device=None, **overrides):
     ``fused_bias_gelu=True``)."""
     from smdistributed_modelparallel_tpu_torch.backend.state import state
     from smdistributed_modelparallel_tpu_torch.model import DistributedModel
+    from smdistributed_modelparallel_tpu_torch.nn.transformer import refuse_tp
 
+    refuse_tp("smp.from_hf")
     module, flat, fam = translate_model(model_or_config, **overrides)
     if flat is not None:
         if state.loaded_model_state is not None:

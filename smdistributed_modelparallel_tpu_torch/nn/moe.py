@@ -75,7 +75,7 @@ from torch import nn
 from smdistributed_modelparallel_tpu_torch.backend.collectives import all_to_all
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.backend.topology import DATA_AXES, EP_AXIS
-from smdistributed_modelparallel_tpu_torch.nn.transformer import _ACTIVATIONS, _check_tp, _dropout
+from smdistributed_modelparallel_tpu_torch.nn.transformer import _ACTIVATIONS, _dropout, refuse_tp
 from smdistributed_modelparallel_tpu_torch.nn.utils import make_rng, resolve_deterministic
 from smdistributed_modelparallel_tpu_torch.ops import dropout as dropout_op
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
@@ -199,7 +199,7 @@ class DistributedMoE(nn.Module):
         return got, divmod(group.index, cp), cp
 
     def forward(self, hidden):
-        _check_tp()
+        refuse_tp("DistributedMoE (its F axis over tp)")
         self._check_ep()
         D, E, K = self.hidden_size, self.num_experts, self.top_k
         B, T = hidden.shape[:2]

@@ -1,7 +1,7 @@
 """The ``smp.nn`` transformer family.
 
-Counterpart of ``smdistributed_modelparallel_tpu/nn/transformer.py`` on one
-device (pp = tp = dp = 1), as ``torch.nn`` modules:
+Counterpart of ``smdistributed_modelparallel_tpu/nn/transformer.py`` at pp =
+1, as ``torch.nn`` modules:
 
 - ``DistributedAttentionLayer``: self- or cross-attention; the fused QKV
   projection (``fused_qkv`` in the config) through ``ops/matmul_bias.py``
@@ -78,9 +78,34 @@ whatever ``cross_states`` they are given.
 ``output``, its layernorms attached to it as to the dense MLP), which records
 its load-balancing loss on the model being called.
 
-Not ported yet, each raising ``NotImplementedError``: tensor parallelism
-(``optimize="memory"`` included) and activation checkpointing under context
-parallelism.
+Tensor parallelism (tp > 1), the JAX module's two layouts (``optimize``),
+written as Megatron's explicit regions over the tp group
+(``backend/collectives.py``) where GSPMD places the collectives there:
+- ``"speed"``: self-attention holds H/tp heads (the QKV weight's rows (c, h,
+  k) and bias by head, the output projection's input columns; ``tp_heads``),
+  its input enters by copy-to-tp and its output projection's partial sums
+  are all-reduced before the replicated bias; the MLP likewise, ``fc`` (and
+  ``gate``) column-parallel over F, ``proj`` row-parallel, the fused
+  bias-GELU on the rank's [.., F/tp] block. The residual stream, the
+  layernorms and the row-parallel biases are replicated;
+- ``"memory"``: the stack scatters its input along T, each sublayer gathers
+  T before its column-parallel product and reduce-scatters T after its
+  row-parallel one, the stack gathers its output (a replicated result), and
+  the layernorms and residual adds run on the rank's T shard; the step sums
+  the replicated parameters' gradients of such a stack over tp
+  (``DistributedModel._stack_replicated``). Where tp does not divide T the
+  speed layout runs (the JAX package's ``shard_activation`` drops the axis).
+The weights are drawn whole, then cut (``nn/utils.shard_parameters_``); the
+heads and the MLP width must divide over tp (``SMPValidationError``). The
+tied head's logits are whole on every rank (a vocab-split table's gathered);
+its loss goes through the vocab-parallel CE (``nn/cross_entropy.py``). The
+fused QKV kernel is inert at tp > 1 (``matmul_bias.fused_qkv_ok``), as in the
+JAX package without the ring. Refused at tp > 1 (``refuse_tp``, ROADMAP item
+7b): cross-attention (the encoder-decoder), ``DistributedMoE``, activation
+checkpointing, ``tp_overlap: "ring"`` and key draws inside a step.
+
+Not ported yet, raising ``NotImplementedError``: activation checkpointing
+under context parallelism.
 """
 
 import math
@@ -91,6 +116,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from smdistributed_modelparallel_tpu_torch import quant
+from smdistributed_modelparallel_tpu_torch.backend.collectives import (
+    copy_to_tp,
+    gather_from_tp,
+    reduce_from_tp,
+    reduce_scatter_to_tp,
+    scatter_to_tp,
+)
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.nn.cross_entropy import (
     fused_lm_head_cross_entropy,
@@ -100,14 +132,21 @@ from smdistributed_modelparallel_tpu_torch.nn.embedding import DistributedEmbedd
 from smdistributed_modelparallel_tpu_torch.nn.layer_norm import DistributedLayerNorm
 from smdistributed_modelparallel_tpu_torch.nn.utils import (
     DecodeKVCache,
+    TPSpec,
+    divisible_by_tp,
     dropout,
     fused_bias_gelu,
     make_rng,
+    normal_weight_,
     pad_row_offset,
     program_scope,
     program_tick,
     resolve_deterministic,
+    sequence_parallel,
     shard_activation,
+    shard_parameters_,
+    tp_group,
+    tp_ring_active,
     tp_size,
 )
 from smdistributed_modelparallel_tpu_torch.ops import bias_gelu as bg
@@ -138,10 +177,28 @@ def _not_ported(what, where):
     return NotImplementedError(f"{what} is not ported to PyTorch yet ({where}).")
 
 
-def _check_tp():
+def refuse_tp(what):
+    """Raise for a feature that stays refused at tensor_parallel_degree > 1."""
     if tp_size() > 1:
-        memory = " under optimize='memory'" if _cfg("optimize", "speed") == "memory" else ""
-        raise _not_ported(f"tensor_parallel_degree > 1{memory} in the smp.nn layers", "the tensor-parallel slice")
+        raise NotImplementedError(
+            f"{what} at tensor_parallel_degree > 1 is not ported to PyTorch yet (ROADMAP item 7b)."
+        )
+
+
+def _tp_in(hidden, seq_sharded):
+    """The full activation a layer's column-parallel products read: the
+    sequence-parallel shard gathered along T (backward: reduce-scatter), or
+    the replicated input entering the tp region (backward: all-reduce)."""
+    tp_ring_active()
+    group = tp_group()
+    return gather_from_tp(hidden, group, 1) if seq_sharded else copy_to_tp(hidden, group)
+
+
+def _tp_out(partial, seq_sharded):
+    """The row-parallel product's partial sums reduced over tp: scattered
+    along T under sequence parallelism, else all-reduced."""
+    group = tp_group()
+    return reduce_scatter_to_tp(partial, group, 1) if seq_sharded else reduce_from_tp(partial, group)
 
 
 def _dropout(module, x, rate):
@@ -155,9 +212,10 @@ def _dropout(module, x, rate):
 
 @torch.no_grad()
 def _normal_(modules, std, generator=None):
-    """The JAX initializers: normal(0, std) weights and zero biases."""
+    """The JAX initializers: normal(0, std) weights (a tp shard's slice of
+    a whole draw) and zero biases."""
     for m in modules:
-        m.weight.normal_(0.0, std, generator=generator)
+        normal_weight_(m, std, generator)
         if getattr(m, "bias", None) is not None:
             m.bias.zero_()
 
@@ -273,6 +331,14 @@ class DistributedAttentionLayer(nn.Module):
             projections = [self.qkv]
         self.dense = nn.Linear(H * hd, D, bias=use_attn_dense_bias, **kw)
         _normal_(projections + [self.dense], initializer_range)
+        # Under tensor parallelism self-attention holds H/tp heads: the qkv
+        # rows and the output projection's input columns of its heads.
+        self.tp_heads = H
+        if not cross_attention:
+            divisible_by_tp(H, "num_attention_heads")
+            qkv = TPSpec(0, 3 * H * hd, 3, hd)
+            shard_parameters_(self, {"qkv.weight": qkv, "qkv.bias": qkv, "dense.weight": TPSpec(1, H * hd, 1, hd)})
+            self.tp_heads = self.qkv.weight.shape[0] // (3 * hd)
 
     def _fused_qkv_wanted(self, hidden):
         """Whether the fused QKV kernel runs: the config knob, the generic
@@ -283,7 +349,7 @@ class DistributedAttentionLayer(nn.Module):
 
     def _self_qkv(self, hidden):
         B, T, D = hidden.shape
-        H, hd = self.num_attention_heads, self.attention_head_size
+        H, hd = self.tp_heads, self.attention_head_size
         w = self.qkv.weight.to(hidden.dtype)
         b = None if self.qkv.bias is None else self.qkv.bias.to(hidden.dtype)
         fused = self._fused_qkv_wanted(hidden)
@@ -322,8 +388,14 @@ class DistributedAttentionLayer(nn.Module):
             kv = kv + self.key_value.bias.reshape(2, H, hd).to(kv.dtype)
         return q, kv[:, :, 0], kv[:, :, 1]
 
-    def forward(self, hidden, cross_states=None, attention_mask=None, layer_idx=None, is_local=None):
-        _check_tp()
+    def forward(self, hidden, cross_states=None, attention_mask=None, layer_idx=None, is_local=None,
+                seq_sharded=False):
+        """``seq_sharded``: ``hidden`` is this rank's T shard of the sequence-
+        parallel residual stream (``optimize: "memory"``), and so is the
+        output."""
+        if self.cross_attention:
+            refuse_tp("cross-attention (the encoder-decoder)")
+        hidden = _tp_in(hidden, seq_sharded)
         B, T = hidden.shape[:2]
         if self.cross_attention:
             if cross_states is None:
@@ -350,8 +422,8 @@ class DistributedAttentionLayer(nn.Module):
                     "not decode."
                 )
             if self.cache is None:
-                self.cache = DecodeKVCache((B, self.decode_cache_len, self.num_attention_heads,
-                                            self.attention_head_size), k.dtype, k.device)
+                self.cache = DecodeKVCache((B, self.decode_cache_len, self.tp_heads, self.attention_head_size),
+                                           k.dtype, k.device)
             cache = self.cache
             # Left-padded prompts: each row's absolute positions shift back
             # by its pad count (nn/utils.pad_row_offset).
@@ -412,7 +484,9 @@ class DistributedAttentionLayer(nn.Module):
             dropout_rng=dropout_rng,
             use_pallas=_cfg("use_pallas_kernels", True),
         )
-        out = _linear(ctx.reshape(B, T, -1), self.dense.weight, self.dense.bias, site="attn_proj")
+        out = _tp_out(_linear(ctx.reshape(B, T, -1), self.dense.weight, site="attn_proj"), seq_sharded)
+        if self.dense.bias is not None:
+            out = out + self.dense.bias.to(out.dtype)
         return _dropout(self, out, self.hidden_dropout_prob)
 
 
@@ -439,6 +513,14 @@ class DistributedTransformerOutputLayer(nn.Module):
             linears.append(self.gate)
         self.proj = nn.Linear(Fd, D, bias=use_mlp_bias, **kw)
         _normal_(linears + [self.proj], initializer_range)
+        # Under tensor parallelism: fc (and gate) column-parallel over F, proj
+        # row-parallel; the proj bias is replicated.
+        divisible_by_tp(Fd, "intermediate_size")
+        cols = TPSpec(0, Fd)
+        specs = {"fc.weight": cols, "fc.bias": cols, "proj.weight": TPSpec(1, Fd)}
+        if gated_mlp:
+            specs["gate.weight"] = cols
+        shard_parameters_(self, specs)
 
     def _fused_gelu_wanted(self, hidden):
         """Whether the fused bias+GELU kernels run: the module's flag, a bias
@@ -452,8 +534,9 @@ class DistributedTransformerOutputLayer(nn.Module):
         program_tick("fused", "bias_gelu", "pallas" if ok else "fallback")
         return ok
 
-    def forward(self, hidden):
-        _check_tp()
+    def forward(self, hidden, seq_sharded=False):
+        """``seq_sharded`` as for ``DistributedAttentionLayer``."""
+        hidden = _tp_in(hidden, seq_sharded)
         if self._fused_gelu_wanted(hidden):
             h = _linear(hidden, self.fc.weight, site="mlp_fc")
             # The bias rounded to the activation dtype first, as the JAX call
@@ -463,7 +546,9 @@ class DistributedTransformerOutputLayer(nn.Module):
             h = _linear(hidden, self.fc.weight, self.fc.bias, site="mlp_fc")
             act = _ACTIVATIONS[self.activation]
             h = act(_linear(hidden, self.gate.weight, site="mlp_fc")) * h if self.gated_mlp else act(h)
-        out = _linear(h, self.proj.weight, self.proj.bias, site="mlp_proj")
+        out = _tp_out(_linear(h, self.proj.weight, site="mlp_proj"), seq_sharded)
+        if self.proj.bias is not None:
+            out = out + self.proj.bias.to(out.dtype)
         return _dropout(self, out, self.hidden_dropout_prob)
 
 
@@ -547,9 +632,12 @@ class DistributedTransformerLayer(nn.Module):
             if post_layernorm:
                 self.crossattention.post_layernorm = ln()
 
-    def forward(self, hidden, cross_states=None, attention_mask=None, layer_idx=None, is_local=None):
+    def forward(self, hidden, cross_states=None, attention_mask=None, layer_idx=None, is_local=None,
+                seq_sharded=False):
         # attention_mask may be a (self_mask, cross_mask) pair, as in the JAX
-        # stack's carry.
+        # stack's carry. seq_sharded: hidden is this rank's T shard of the
+        # sequence-parallel residual stream; the layernorms and residual adds
+        # run on it, the sublayers gather and scatter T.
         cross_attention_mask = None
         if isinstance(attention_mask, tuple):
             attention_mask, cross_attention_mask = attention_mask
@@ -562,17 +650,18 @@ class DistributedTransformerLayer(nn.Module):
                 out = out + t.to(res_dtype)
             return out.to(hidden.dtype)
 
+        sp = {"seq_sharded": True} if seq_sharded else {}
         x = hidden
         if self.parallel_attn_output:
             # GPT-J shares one LN (single_pre_layernorm); GPT-NeoX
             # (pre_layernorm, two LNs) feeds the MLP from its own.
             h = attn.layernorm(x)
             h_mlp = mlp.layernorm(x) if hasattr(mlp, "layernorm") else h
-            return add(x, attn(h, attention_mask=attention_mask, layer_idx=layer_idx, is_local=is_local),
-                       mlp(h_mlp))
+            return add(x, attn(h, attention_mask=attention_mask, layer_idx=layer_idx, is_local=is_local, **sp),
+                       mlp(h_mlp, **sp))
 
         h = attn.layernorm(x) if self.pre_layernorm or self.single_pre_layernorm else x
-        x = add(x, attn(h, attention_mask=attention_mask, layer_idx=layer_idx, is_local=is_local))
+        x = add(x, attn(h, attention_mask=attention_mask, layer_idx=layer_idx, is_local=is_local, **sp))
         if self.post_layernorm:
             x = attn.post_layernorm(x)
 
@@ -584,7 +673,7 @@ class DistributedTransformerLayer(nn.Module):
                 x = cross.post_layernorm(x)
 
         h = mlp.layernorm(x) if self.pre_layernorm and not self.single_pre_layernorm else x
-        x = add(x, mlp(h))
+        x = add(x, mlp(h, **sp))
         if self.post_layernorm:
             x = mlp.post_layernorm(x)
         return x
@@ -620,14 +709,28 @@ class DistributedTransformer(nn.Module):
             policy = memory.remat_policy()
             if policy.kind == memory.OFFLOAD:
                 offloader = memory.Offloader(policy.horizon)  # one stack: the backward prefetches across it
+        # optimize="memory": the residual stream between the layers is
+        # sharded along T over tp (Megatron's sequence parallelism). The stack
+        # takes a replicated input and gives a replicated output, so what is
+        # around it (embeddings, head) is as in the speed layout.
+        seq_sharded = sequence_parallel(hidden.shape[1])
+        if seq_sharded:
+            hidden = scatter_to_tp(hidden, tp_group(), 1)
+            model = state.calling_model
+            if model is not None:
+                model._note_sequence_parallel()
         with program_scope("stack", id(self)):
             for i, layer in enumerate(self.seq_layers):
                 kw = dict(cross_states=cross_states, attention_mask=attention_mask, layer_idx=i,
                           is_local=None if types is None else types[i] == "local")
+                if seq_sharded:
+                    kw["seq_sharded"] = True
                 if policy is None:
                     hidden = layer(hidden, **kw)
                 else:
                     hidden = memory.run_checkpointed(layer, (hidden,), kw, policy, offloader)
+        if seq_sharded:
+            hidden = gather_from_tp(hidden, tp_group(), 1, split_grad=True)
         return hidden
 
 
@@ -785,7 +888,9 @@ class DistributedTransformerLMHead(nn.Module):
     def _tied_logits(self, x):
         w = self.word_embedding.weight
         if isinstance(self.word_embedding, DistributedEmbedding):
-            return self.word_embedding.attend(x)
+            # A vocab-split table gives this rank's vocab shard: gathered, so
+            # the head's logits are whole on every tp rank.
+            return self.word_embedding.gather_logits(self.word_embedding.attend(x))
         dtype = torch.promote_types(x.dtype, w.dtype)  # flax Embed.attend promotes
         return F.linear(x.to(dtype), w.to(dtype))
 
@@ -795,11 +900,14 @@ class DistributedTransformerLMHead(nn.Module):
             x = self.ln_f(x)
         if not self.add_lm_head:
             return x
-        if targets is not None and self.tie_input_output_embedding:
+        emb = self.word_embedding
+        dim_split = isinstance(emb, DistributedEmbedding) and emb.split == "dim" and tp_size() > 1
+        if targets is not None and self.tie_input_output_embedding and not dim_split:
             # Tied head in loss mode: the fused-CE dispatch decides whether
-            # the logits materialize.
-            return fused_lm_head_cross_entropy(x, self.word_embedding.weight, targets,
-                                               label_smoothing=self.label_smoothing)
+            # the logits materialize (per vocab shard under tp).
+            vocab_sharded = isinstance(emb, DistributedEmbedding) and emb.vocab_sharded
+            return fused_lm_head_cross_entropy(x, emb.weight, targets, label_smoothing=self.label_smoothing,
+                                               vocab_size=emb.num_embeddings if vocab_sharded else None)
         if self.tie_input_output_embedding:
             logits = self._tied_logits(x)
         else:

@@ -5,17 +5,22 @@ padded prompts, the decode KV cache and the paged KV cache of the serving
 engine.
 
 Counterparts on one device of ``smdistributed_modelparallel_tpu/nn/
-utils.py``: ``tp_size``/``tp_enabled``, ``tp_ring_active`` (False until the
-tensor-parallel slice), ``shard_activation`` (the identity: there is no mesh
-to constrain over), ``resolve_deterministic``, ``fused_bias_gelu`` (its
-tp = 1 branch, with the fp8 epilogue input), ``half_cast``, ``mask_keep_2d``,
-``pad_row_offset``, ``DecodeKVCache`` and ``PagedKVCache``.
+utils.py``: ``tp_size``/``tp_enabled``, ``tp_ring_active`` (the ring raises:
+ROADMAP item 7b), ``shard_activation`` (the identity: the layers call the tp
+regions of ``backend/collectives.py`` instead), ``resolve_deterministic``,
+``fused_bias_gelu`` (the kernel on the rank's block, with the fp8 epilogue
+input), ``half_cast``, ``mask_keep_2d``, ``pad_row_offset``,
+``DecodeKVCache`` and ``PagedKVCache``. The tp helpers of the port's own:
+``tp_group``/``tp_rank``, ``sequence_parallel`` (the memory layout's
+decision), ``TPSpec`` with ``shard_parameters_`` and ``tp_param_specs``
+(how a layer holds its part of a parameter) and ``divisible_by_tp``.
 ``make_rng`` is flax's ``Module.make_rng`` for the port's modules and
 ``dropout`` flax's ``nn.Dropout`` (``ops/dropout.py``). ``program_tick``
 notes the dispatch decisions that the JAX package counts while it traces
 (``collect_program_ticks``; ``model.replay_program_ticks`` ticks them).
 """
 
+import collections
 import contextlib
 import threading
 
@@ -23,6 +28,7 @@ import torch
 
 from smdistributed_modelparallel_tpu_torch import quant
 from smdistributed_modelparallel_tpu_torch.backend.state import state
+from smdistributed_modelparallel_tpu_torch.backend.topology import TP_AXIS
 from smdistributed_modelparallel_tpu_torch.ops import dropout as dropout_op
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError
 
@@ -37,17 +43,155 @@ def tp_enabled():
     return tp_size() > 1
 
 
+def tp_group():
+    """This rank's tp ``TensorGroup``, None at tp = 1 (every tp region is
+    then the identity)."""
+    return state.group(TP_AXIS) if tp_enabled() else None
+
+
+def tp_rank():
+    """This rank's tp coordinate (0 at tp = 1)."""
+    if not tp_enabled() or state.topology is None:
+        return 0
+    return state.topology.coords(state.rank)[TP_AXIS]
+
+
 def tp_ring_active():
-    """Whether the overlapped-tp ring path applies: never yet (the ring,
-    ``ops/collective_matmul.py``, arrives with the tensor-parallel slice)."""
+    """Whether the overlapped-tp ring path applies (``tp_overlap: "ring"`` at
+    tp > 1): the ring, ``ops/collective_matmul.py``, is ROADMAP item 7b, so
+    asking for it raises; otherwise False."""
+    if tp_enabled() and getattr(state.cfg, "tp_overlap", "off") == "ring":
+        raise NotImplementedError(
+            'tp_overlap: "ring" (the overlapped ring, ops/collective_matmul.py) at tensor_parallel_degree > 1 is '
+            "not ported to PyTorch yet (ROADMAP item 7b)."
+        )
     return False
 
 
 def shard_activation(x, *spec):
-    """Constrain an activation to a partition over the mesh. On one device
-    every axis has size 1, so this is the identity, as the JAX function is
-    for trivial axes."""
+    """Constrain an activation to a partition over the mesh: the identity.
+    The port's layers call the tp regions (``backend/collectives.py``)
+    where GSPMD would have placed the collectives."""
     return x
+
+
+def sequence_parallel(T):
+    """Whether a layer stack runs its residual stream sharded along T over
+    tp: ``optimize: "memory"`` at tp > 1, when tp divides T (else the JAX
+    package's ``shard_activation`` drops the axis, and the speed layout
+    runs)."""
+    return tp_enabled() and _cfg_optimize() == "memory" and T % tp_size() == 0
+
+
+def _cfg_optimize():
+    cfg = state.cfg
+    return getattr(cfg, "optimize", "speed") if cfg is not None and "optimize" in cfg else "speed"
+
+
+class TPSpec(collections.namedtuple("TPSpec", "dim size outer inner")):
+    """How a parameter is sharded over tp: dimension ``dim``, of full length
+    ``size``, read as [outer, n, inner] (n = size / (outer * inner)) and cut
+    along n into tp consecutive parts of ceil(n / tp) (the last one shorter
+    where tp does not divide n). The fused QKV weight's rows (c, h, k) are
+    ``TPSpec(0, 3*H*hd, 3, hd)``: heads over tp."""
+
+    def __new__(cls, dim, size, outer=1, inner=1):
+        return super().__new__(cls, dim, size, outer, inner)
+
+    @property
+    def n(self):
+        return self.size // (self.outer * self.inner)
+
+    def parts(self, tp):
+        """Each rank's [lo, hi) along n."""
+        per = -(-self.n // tp)
+        return [(min(r * per, self.n), min((r + 1) * per, self.n)) for r in range(tp)]
+
+    def _view(self, t):
+        shape = tuple(t.shape)
+        return t.reshape(shape[:self.dim] + (self.outer, -1, self.inner) + shape[self.dim + 1:])
+
+    def _unview(self, t, like_shape):
+        shape = tuple(like_shape)
+        return t.reshape(shape[:self.dim] + (-1,) + shape[self.dim + 1:])
+
+    def full_shape(self, local_shape):
+        shape = list(local_shape)
+        shape[self.dim] = self.size
+        return tuple(shape)
+
+    def local(self, full, index, tp):
+        """Rank ``index``'s shard of the full tensor."""
+        lo, hi = self.parts(tp)[index]
+        return self._unview(self._view(full).narrow(self.dim + 1, lo, hi - lo), full.shape)
+
+    def gather(self, local, group):
+        """The full tensor from every rank's shard (a collective over the tp
+        group)."""
+        from smdistributed_modelparallel_tpu_torch.backend.collectives import _gather
+
+        sizes = [hi - lo for lo, hi in self.parts(group.size)]
+        full = _gather(group, self._view(local).contiguous(), self.dim + 1, sizes)
+        return self._unview(full, local.shape)
+
+
+def shard_parameters_(module, specs):
+    """At tp > 1, replace each parameter ``specs`` names ({attribute path:
+    TPSpec}) by this rank's shard of it, a parameter of its own (not a view
+    into the full tensor), and record each spec on the module that owns the
+    parameter (``_tp_specs``, which ``tp_param_specs`` collects). The full
+    tensors were drawn first, so a tp = 2 model from seed s holds exact
+    slices of the tp = 1 model from seed s. A no-op at tp = 1."""
+    if not tp_enabled():
+        return module
+    index, tp = tp_rank(), tp_size()
+    for name, spec in specs.items():
+        owner, attr = module, name
+        if "." in name:
+            path, attr = name.rsplit(".", 1)
+            owner = module.get_submodule(path)
+        p = getattr(owner, attr)
+        if p is None:
+            continue
+        with torch.no_grad():
+            local = spec.local(p, index, tp).clone()
+        setattr(owner, attr, torch.nn.Parameter(local, requires_grad=p.requires_grad))
+        owner.__dict__.setdefault("_tp_specs", {})[attr] = spec
+    return module
+
+
+@torch.no_grad()
+def normal_weight_(module, std, generator=None):
+    """Draw ``module.weight`` from normal(0, ``std``); a tp-sharded weight
+    takes its slice of a whole draw, so every tp degree draws the same model
+    from one seed."""
+    spec = module.__dict__.get("_tp_specs", {}).get("weight")
+    w = module.weight
+    if spec is None:
+        w.normal_(0.0, std, generator=generator)
+        return
+    full = torch.empty(spec.full_shape(w.shape), dtype=w.dtype, device=w.device)
+    w.copy_(spec.local(full.normal_(0.0, std, generator=generator), tp_rank(), tp_size()))
+
+
+def tp_param_specs(root):
+    """``{parameter name: TPSpec}`` of every tp-sharded parameter under
+    ``root`` (names as ``root.named_parameters()`` gives them)."""
+    out = {}
+    for path, mod in root.named_modules():
+        for name, spec in mod.__dict__.get("_tp_specs", {}).items():
+            out[f"{path}.{name}" if path else name] = spec
+    return out
+
+
+def divisible_by_tp(n, what):
+    """Raise ``SMPValidationError`` unless tp divides ``n`` (the heads, the
+    MLP width, a linear's partitioned features)."""
+    tp = tp_size()
+    if tp > 1 and n % tp:
+        raise SMPValidationError(
+            f"{what} ({n}) must be divisible by tensor_parallel_degree ({tp}): each tp rank holds an equal part."
+        )
 
 
 def resolve_deterministic(explicit):
@@ -143,8 +287,11 @@ def dropout(x, rate, key):
 
 def fused_bias_gelu(h, b):
     """Dispatch ``gelu(h + b)`` to the fused kernels (``ops/bias_gelu.py``).
-    At tp = 1 it is a direct call. Callers guard with
-    ``bias_gelu.bias_gelu_ok``.
+    Callers guard with ``bias_gelu.bias_gelu_ok``. Under tensor parallelism
+    ``h`` is the rank's [..., F/tp] block of the column-parallel product and
+    ``b`` its own [F/tp] bias parameter (aligned as the ``vec`` route wants),
+    so the call is the JAX package's tp manual region: the kernel on the
+    local block.
 
     Under an fp8 step (``matmul_precision: fp8``) the epilogue INPUT rounds to
     the e4m3 grid with the ``gelu_in.x`` slot's delayed scale (straight-
@@ -154,11 +301,6 @@ def fused_bias_gelu(h, b):
     if quant.fp8_trace_active():
         program_tick("quant", "gelu_in", "fp8")
         h = quant.fake_quant(h, "gelu_in.x")
-    if tp_enabled():
-        raise NotImplementedError(
-            "fused_bias_gelu under tensor parallelism (the tp manual region) "
-            "is not ported to PyTorch yet (the tensor-parallel slice)."
-        )
     return bias_gelu(h, b)
 
 

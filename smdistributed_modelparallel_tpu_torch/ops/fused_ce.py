@@ -440,6 +440,57 @@ def fused_lm_head_ce(x, w, targets, block_n=256, block_v=1024, label_smoothing=0
     return _FusedCEFn.apply(x, w, targets, block_v, float(label_smoothing))
 
 
+class _VocabParallelFusedCEFn(torch.autograd.Function):
+    """The vocab-parallel composition of the three kernels
+    (``pallas_ce.make_vocab_parallel_fused_ce``): each tp rank runs them on
+    its [V/tp, D] slice with the targets shifted into its rows (a target
+    outside them never hits). Forward: the rank's (lse, target logit,
+    smoothing sum) merged over the group by a stable log-sum-exp (one
+    all-reduce max, one all-reduce sum); backward: dx and dW of the slice
+    against the global lse with the smoothing denominator the global V, dx
+    all-reduced in fp32, dW left on the rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, w, targets, lo, v_global, group, block_v, smoothing):
+        import torch.distributed as dist
+
+        t = targets.long() - lo
+        lse_l, tgt_l, sum_l = fused_ce_fwd(x, w, t, smoothing, block_v)
+        m = group.reduced(lse_l, op=dist.ReduceOp.MAX)
+        parts = [torch.exp(lse_l - m), tgt_l] + ([sum_l] if smoothing else [])
+        sums = group.reduced(torch.stack(parts))
+        lse = m + torch.log(torch.clamp(sums[0], min=1e-30))
+        ctx.save_for_backward(x, w, t, lse)
+        ctx.coords = (smoothing, block_v, v_global, group)
+        return _assemble_loss(lse, sums[1], sums[2] if smoothing else None, v_global, smoothing)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w, t, lse = ctx.saved_tensors
+        smoothing, block_v, v_global, group = ctx.coords
+        g = g.float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx_l = fused_ce_bwd_dx(x, w, t, lse, g, smoothing, v_global, block_v)
+            dx = group.reduced(dx_l.float()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = fused_ce_bwd_dw(x, w, t, lse, g, smoothing, v_global, block_v)
+        return dx, dw, None, None, None, None, None, None
+
+
+def vocab_parallel_fused_ce(x, w_local, targets, lo, v_global, group, block_v=1024, label_smoothing=0.0):
+    """Per-token CE of ``x @ w^T`` for a [V, D] table of which this tp rank
+    holds rows ``[lo, lo + w_local.shape[0])`` (``w_local``), merged over the
+    tp ``group``; fp32 [N] losses, the same on every rank. x: [N, D],
+    replicated; targets: [N] global ids."""
+    if x.dtype != w_local.dtype:
+        dtype = torch.promote_types(x.dtype, w_local.dtype)
+        x, w_local = x.to(dtype), w_local.to(dtype)
+    return _VocabParallelFusedCEFn.apply(x, w_local, targets, lo, v_global, group, block_v,
+                                         float(label_smoothing))
+
+
 def reference_lm_head_ce(x, w, targets):
     """Materialized-logits oracle of ``fused_lm_head_ce`` (no smoothing)."""
     logits = x.float() @ w.float().t()

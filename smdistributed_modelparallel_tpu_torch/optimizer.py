@@ -261,15 +261,19 @@ class DistributedOptimizer:
 
 def _global_norm(model, grads):
     """The L2 norm of the step's gradients over the whole model: at ep > 1
-    an ep rank holds a slice of the experts, so their squares are summed
-    over the ep group (each shard counted once) before the root."""
-    experts = model._expert_params
-    if not experts:
+    an ep rank holds a slice of the experts, at tp > 1 a slice of every
+    tp-sharded parameter, so their squares are summed over the ep (tp) group
+    (each shard counted once) before the root."""
+    experts, sharded = model._expert_params, model._tp_specs
+    if not experts and not sharded:
         return torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
-    from smdistributed_modelparallel_tpu_torch.backend.topology import EP_AXIS
+    from smdistributed_modelparallel_tpu_torch.backend.topology import EP_AXIS, TP_AXIS
 
     zero = torch.zeros((), device=next(iter(grads.values())).device)
-    dense = sum(((g.float() ** 2).sum() for n, g in grads.items() if n not in experts), zero)
-    shards = sum(((g.float() ** 2).sum() for n, g in grads.items() if n in experts), zero).reshape(1)
-    state.group(EP_AXIS).all_reduce(shards)
-    return torch.sqrt(dense + shards[0])
+    total = sum(((g.float() ** 2).sum() for n, g in grads.items() if n not in experts and n not in sharded), zero)
+    for names, axis in ((experts, EP_AXIS), (sharded, TP_AXIS)):
+        if names:
+            shards = sum(((g.float() ** 2).sum() for n, g in grads.items() if n in names), zero).reshape(1)
+            state.group(axis).all_reduce(shards)
+            total = total + shards[0]
+    return torch.sqrt(total)

@@ -287,6 +287,10 @@ def run_checkpointed(fn, args, kwargs=None, policy=None, offloader=None):
             "activation checkpointing under context parallelism is not ported to PyTorch yet (ROADMAP Queue 1 "
             "item 6: what context parallelism left behind)."
         )
+    if state.cfg is not None and state.cfg.tensor_parallel_degree > 1:
+        raise NotImplementedError(
+            "activation checkpointing at tensor_parallel_degree > 1 is not ported to PyTorch yet (ROADMAP item 7b)."
+        )
     replay = _Replay()
     run = functools.partial(torch_checkpoint.checkpoint, _bind(fn, replay), *args, use_reentrant=False,
                             context_fn=functools.partial(_contexts, policy, replay), **kwargs)

@@ -8,9 +8,9 @@ every piece by its logical path and global bounds, not by rank coordinates,
 so a resume under another layout reassembles each leaf from the pieces that
 cover it (``shard_io``). This module classifies the mismatches and logs the
 transition; ``resume_from_checkpoint`` calls it where ``verify_smp_config``
-would have raised. The port holds every leaf whole on one device, so it
-only ever gathers: tp and pp > 1 on the port's side arrive with their
-slices.
+would have raised. The port assembles every leaf whole and, at tp > 1, each
+rank keeps its part of it (``DistributedModel``); pp > 1 on the port's side
+arrives with its slice.
 """
 
 from smdistributed_modelparallel_tpu_torch.utils.exceptions import SMPValidationError

@@ -8,12 +8,15 @@ leaf's '/'-joined key (``module_manager.path_key``) and ``bounds`` the JSON
 scalar), or ``"{path}|full"`` for a whole leaf. Every global element is
 stored once across the files.
 
-The port holds every leaf whole on its device (pp = tp = 1), so a rank's
-payload is each leaf as one piece with full bounds, written by the rank that
-holds replica 0 (the rank at coordinate 0 of every axis that replicates the
-parameters: rdp, cp, ep); the other ranks write empty files. Reading still
-assembles a leaf from many pieces, because a checkpoint that the JAX package
-wrote at tp 2 or pp 2 splits its leaves.
+At tp = 1 the port holds every leaf whole on its device, so a rank's payload
+is each leaf as one piece with full bounds, written by the rank that holds
+replica 0 (the rank at coordinate 0 of every axis that replicates the
+parameters: rdp, cp, ep); the other ranks write empty files. At tp > 1 each
+tp rank of replica 0 writes its own region of every tp-sharded leaf (the
+``tp_pieces`` bounds, ``DistributedModel.tp_pieces``) and tp rank 0 the
+replicated leaves whole. Reading assembles a leaf from the pieces that cover
+it, whatever layout wrote them (the JAX package's tp 2 or pp 2 checkpoints
+split their leaves too).
 """
 
 import glob
@@ -45,7 +48,7 @@ def _holds_replica0():
     return all(coords.get(ax, 0) == 0 for ax in _REPLICA_AXES)
 
 
-def shard_payload(tree, dedupe_global=True):
+def shard_payload(tree, dedupe_global=True, tp_pieces=None):
     """This rank's pieces of ``tree`` (a flat ``{key: array}`` dict, or a
     tree of dicts, tuples and namedtuples whose paths ``path_key`` joins)
     as a flat ``{"key|bounds": np.ndarray}`` dict: the ``local_state_dict``
@@ -54,14 +57,26 @@ def shard_payload(tree, dedupe_global=True):
     ``dedupe_global=True`` (checkpoint files): only the rank holding
     replica 0 contributes, so each element is stored once across ranks.
     ``dedupe_global=False`` (``local_state_dict``): every rank's payload is
-    complete. Tensors are copied to the host, so a later in-place update
-    cannot reach the payload; numpy arrays are taken as they are."""
+    complete. ``tp_pieces`` ({key: [[start, stop], ...]}, at tp > 1): the
+    regions of the tp-sharded leaves this tp rank writes; the other leaves
+    come from tp rank 0 only. Tensors are copied to the host, so a later
+    in-place update cannot reach the payload; numpy arrays are taken as they
+    are."""
     if dedupe_global and not _holds_replica0():
         return {}
+    tp_index = state.topology.coords(state.rank).get("tp", 0) if tp_pieces and state.topology is not None else 0
     payload = {}
     for path, leaf in tree_flatten_with_path(tree):
-        arr = to_numpy(leaf, copy=isinstance(leaf, torch.Tensor))
-        payload[f"{path_key(path)}{_SEP}{_full_bounds(arr.shape)}"] = arr
+        key = path_key(path)
+        bounds = (tp_pieces or {}).get(key)
+        if bounds is None and tp_index:
+            continue
+        arr = to_numpy(leaf, copy=isinstance(leaf, torch.Tensor) and bounds is None)
+        if bounds is not None:
+            arr = np.ascontiguousarray(arr[tuple(slice(a, b) for a, b in bounds)])
+            payload[f"{key}{_SEP}{json.dumps(bounds)}"] = arr
+        else:
+            payload[f"{key}{_SEP}{_full_bounds(arr.shape)}"] = arr
     return payload
 
 

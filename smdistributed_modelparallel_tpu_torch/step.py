@@ -1,7 +1,7 @@
 """``@smp.step``: the training-step engine of the PyTorch port.
 
 Counterpart of ``smdistributed_modelparallel_tpu/step.py`` (``StepFunction``)
-for one device at pipeline degree 1. The JAX package traces the whole step
+at pipeline degree 1. The JAX package traces the whole step
 into one compiled program; here the same numbers come from an eager loop:
 
 - the step arguments are split into ``microbatches`` by the
@@ -175,10 +175,28 @@ Resilience, as in the JAX step engine at world size 1:
   ``supervisor.on_step_edge`` (``SMP_SUPERVISOR``);
   ``chaos.on_step_dispatch`` runs inside ``step/dispatch``.
 
+Tensor parallelism (tp > 1). The tp ranks of one data coordinate are
+handed the same rows (``shard_batches`` cuts by the row coordinate, rdp x
+ep, and ignores tp, as it ignores cp) and run the same microbatches: each
+holds its shards of the ``smp.nn`` layers (``nn/transformer.py``), the tp
+regions exchange inside the forward and backward, and every rank's outputs
+and loss are the whole ones. The gradients are all-reduced over the data
+group (``DATA_AXES``, which excludes tp) and divided as above; a shard's
+gradient stays on its rank, a replicated parameter's is the same on every tp
+rank. Under ``optimize: "memory"`` the layer stacks run their residual
+stream sharded along T, so the replicated parameters inside them (the
+layernorms and the row-parallel biases) are first summed over tp
+(``model._stack_replicated``), as GSPMD's transpose sums them in the JAX
+package. tp runs beside rdp. At tp > 1 the step refuses, naming ROADMAP item
+7b: ``tp_overlap: "ring"``, fp16, ``matmul_precision: fp8``,
+``SMP_HEALTH_CHECK``, tp beside cp or ep, and (where the model raises) any
+key drawn inside the step, activation checkpointing, ``DistributedMoE`` and
+the encoder-decoder.
+
 Not ported yet, each raising ``NotImplementedError`` when asked for:
-pipeline parallelism, tensor parallelism, ZeRO-3 (``sharded_params``), shape
-buckets (``SMP_SHAPE_BUCKETS``), the executable cache (``SMP_EXEC_CACHE``)
-and the compiled-program audit (``SMP_HLO_AUDIT``).
+pipeline parallelism, ZeRO-3 (``sharded_params``), shape buckets
+(``SMP_SHAPE_BUCKETS``), the executable cache (``SMP_EXEC_CACHE``) and the
+compiled-program audit (``SMP_HLO_AUDIT``).
 """
 
 import contextlib
@@ -199,7 +217,7 @@ from smdistributed_modelparallel_tpu_torch.backend.split import (
     tree_map,
 )
 from smdistributed_modelparallel_tpu_torch.backend.state import state
-from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS, DATA_AXES, EXPERT_REPLICA_AXES, ROW_AXES
+from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS, DATA_AXES, EXPERT_REPLICA_AXES, ROW_AXES, TP_AXIS
 from smdistributed_modelparallel_tpu_torch.model import DistributedModel, replay_program_ticks
 from smdistributed_modelparallel_tpu_torch.nn.utils import collect_program_ticks
 from smdistributed_modelparallel_tpu_torch.resilience.chaos import chaos
@@ -239,9 +257,19 @@ def _not_ported(what):
 def _check_supported(cfg):
     if cfg.pipeline_parallel_degree > 1:
         raise _not_ported("pipeline_parallel_degree > 1")
-    if cfg.tensor_parallel_degree > 1:
-        raise _not_ported("tensor_parallel_degree > 1")
     topo = state.topology
+    if cfg.tensor_parallel_degree > 1:
+        for asks, what in ((getattr(cfg, "tp_overlap", "off") == "ring",
+                            'tp_overlap: "ring" (the overlapped ring, ops/collective_matmul.py)'),
+                           (cfg.fp16, "fp16 (the loss scaler's overflow flag would have to agree over tp)"),
+                           (quant.matmul_precision_mode(cfg) == "fp8",
+                            "matmul_precision: fp8 (the fp8 seams and their amax over tp)"),
+                           (health.mode() != "off", "SMP_HEALTH_CHECK (the sentinel's word over tp)"),
+                           (topo.cp_size * topo.ep_size > 1, "tp beside context or expert parallelism")):
+            if asks:
+                raise NotImplementedError(
+                    f"@smp.step: {what} at tensor_parallel_degree > 1 is not ported to PyTorch yet (ROADMAP item 7b)."
+                )
     if topo.rdp_size * topo.ep_size > 1:
         for asks, what in ((cfg.fp16, "fp16 (the loss scaler's overflow flag)"),
                            (quant.matmul_precision_mode(cfg) == "fp8", "matmul_precision: fp8 (the amax)"),
@@ -604,6 +632,7 @@ class StepFunction:
         qs = quant.ensure_state(model.device) if quant.matmul_precision_mode(cfg) == "fp8" else None
         state.cp_sharded = cp is not None
         state.rdp_sharded = rows is not None
+        model._seq_parallel_ran = False
         with health.collecting(hmode) as hc:
             with quant.step_trace(qs), _cp_sharded_off():
                 if hc is not None and hmode == "full":
@@ -721,6 +750,11 @@ class StepFunction:
                 )
         model._params_at_step = model._param_version
         divisor = float(num_mb * loss_scale)
+        tp = state.group(TP_AXIS)
+        if tp is not None and model._seq_parallel_ran:
+            # Sequence parallelism: each tp rank's replicated layernorms and
+            # row-parallel biases saw its T shard only.
+            tp.flat_(tp.all_reduce, [acc[n] for n in names if n in model._stack_replicated])
         if group is not None:
             experts = model._expert_params
             group.flat_(group.all_reduce, [acc[n] for n in names if n not in experts])

@@ -390,7 +390,9 @@ def test_decode_clone_matches_jax_forward():
 def test_training_dropout_and_tp_raise(monkeypatch):
     """Training-mode dropout outside an ``@smp.step`` has no key and raises,
     as flax's ``make_rng`` does in the JAX package (inside a step it runs:
-    ``tests/test_torch_dropout_step.py``); tensor parallelism is not ported."""
+    ``tests/test_torch_dropout_step.py``). Tensor parallelism is ported
+    (``tests/test_torch_tp_*.py``): the head runs at tp = 2, and what stays
+    refused there (a MoE layer) raises naming ROADMAP item 7."""
     mod = port_tr.DistributedTransformerLMHead(**dict(TINY, attention_dropout_prob=0.1))
     ids = torch.from_numpy(_ids()).long()
     smp_torch.init({}, device="cpu")
@@ -400,5 +402,7 @@ def test_training_dropout_and_tp_raise(monkeypatch):
     model.eval()
     assert torch.isfinite(model(ids)).all()
     monkeypatch.setattr(port_tr, "tp_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="tensor_parallel_degree"):
-        model(ids)
+    assert torch.isfinite(model(ids)).all()
+    moe = smp_torch.DistributedModel(port_tr.DistributedTransformerLMHead(**dict(TINY, num_experts=2))).eval()
+    with pytest.raises(NotImplementedError, match="tensor_parallel_degree > 1 .*ROADMAP item 7"):
+        moe(ids)

@@ -564,6 +564,14 @@ def test_left_out_features_raise(monkeypatch, cfg, env):
         sd = smp.state.quant_state.state_dict()
         assert (sd["amax_history"] == 0).all() and (sd["scale"] == 1.0).all()
         return
+    if cfg.get("tensor_parallel_degree", 1) > 1:
+        # Ported since (slice 4b, tests/test_torch_tp_step.py): the step
+        # trains at tp = 2; the overlapped ring stays refused.
+        _train_step()(model, *_xy())
+        monkeypatch.setattr(state, "cfg", smp.ModelParallelConfig(dict(cfg, tp_overlap="ring")))
+        with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+            _train_step()(model, *_xy())
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         _train_step()(model, *_xy())
 

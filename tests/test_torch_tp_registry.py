@@ -156,10 +156,13 @@ def test_linear_matches_jax(name, bias):
 
 @pytest.mark.parametrize("name", sorted(LINEARS))
 def test_linear_refuses_tp2(monkeypatch, name):
+    """The partitions run at tp = 2 (``tests/test_torch_tp_layers.py``); what
+    stays refused there is the overlapped ring (ROADMAP item 7b)."""
     smp.init({}, device="cpu")
     layer = LINEARS[name][0](4, 4)
-    monkeypatch.setattr(state, "cfg", smp.ModelParallelConfig({"tensor_parallel_degree": 2, "ddp": True}))
-    with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
+    monkeypatch.setattr(state, "cfg", smp.ModelParallelConfig({"tensor_parallel_degree": 2, "ddp": True,
+                                                               "tp_overlap": "ring"}))
+    with pytest.raises(NotImplementedError, match='tp_overlap: "ring".*ROADMAP item 7'):
         layer(torch.ones(2, 4))
 
 
