@@ -23,7 +23,7 @@
     python3 chip_smoke.py --phases U # expert parallelism at ep = 2 (two ranks on one card) only
     python3 chip_smoke.py --phases Z # the same with the ranks on two cards (NCCL); needs two cards
     python3 chip_smoke.py --phases N # tensor parallelism at tp = 2 (two ranks on one card) only
-    python3 chip_smoke.py --phases I # phase N (a) with the ranks on two cards (NCCL); needs two cards
+    python3 chip_smoke.py --phases I # phase N (a) and (g) with the ranks on two cards (NCCL); needs two cards
     python3 chip_smoke.py --phases J # serving replicas, the router and the controller (two processes) only
     python3 chip_smoke.py --phases X # GPT-2 1.5B at 16 x 1024 with checkpointing off (its peak or OOM)
 
@@ -250,9 +250,26 @@ csrc`` (one nvcc per source, all started together), then:
      its row's maximum in a tp = 1 forward, the ranks' tokens equal, a small
      fp32 model's tokens equal on card and CPU, prefill ms and decode
      ms/token; (f) (a)'s partial checkpoint after step 2, resumed in a fresh
-     pair of processes: step 3's loss bit-equal. Prints ms/step and global
-     tokens/s of (a) and (b), the tp regions' host ms a step and the peak a
-     rank.
+     pair of processes: step 3's loss bit-equal. (g) ``tp_overlap: "ring"``
+     with the fused QKV, 2 steps in each layout: losses within 1e-2 of tp =
+     1, 96 ``wgmma`` launches of ``matmul_bias`` a step and rank (layers x
+     microbatches x tp: one a ring chunk); (h) GPT-2's dropouts 0.1 in the
+     memory layout under the ring, 2 steps: the first microbatch's keep masks
+     equal tp = 1's (the rank's T half where the activation is sharded, drawn
+     by the index-mapped ``dropout_fwd``), every attention call of it
+     hands the flash kernels the rank's global heads (head0 = rank x 6 of
+     12) and tp = 1's seed, losses within 1e-3; a control run whose flash
+     kernels hash the rank's local heads prints its loss gap; (i)
+     activation checkpointing of (a) and of (h): losses within 1e-6 of the
+     runs without it, the step's peak above what it found allocated below
+     theirs; (j) fp16 (loss scale from 4096) beside
+     ``SMP_HEALTH_CHECK=cheap``, and fp8, 2 steps each against tp = 1:
+     losses within 1e-2 (fp8: 2e-2 relative), the same overflow flags and
+     scales, the amax history within 5e-2 (the first step's weight slots
+     equal), the sentinel's words' counts equal and maxima within 5e-2.
+     Replicated parameters bit-equal after every step of every run. Prints
+     ms/step and global tokens/s of (a), (b) and (g), the tp regions' host
+     ms a step and the peak a rank.
   J. serving replicas: two processes on cuda:0 over the native host bus,
      each with a GPT-2 124M ``ServingEngine`` (4 slots, 65 blocks). World 1
      (bf16): (c) ``SMP_AUTOSCALE``: 12 requests on rank 0's replica breach a
@@ -433,7 +450,9 @@ csrc`` (one nvcc per source, all started together), then:
      ``threefry_bits`` gives the plain version's bits exactly, at the path's
      mask size, odd sizes, offsets past 2**32 and keys from ``split`` and
      ``fold_in``; the dropout forward and backward give the plain version's
-     bits exactly in fp32, bf16 and fp16 at rates 0.1, 0.5 and 0; ``health_reduce``
+     bits exactly in fp32, bf16 and fp16 at rates 0.1, 0.5 and 0, and under
+     the index map of phase N's tp shards (a rank's 6 heads of [2, 12, 1024,
+     1024], its T block of [2, 1024, 768]) in fp32 and bf16; ``health_reduce``
      gives the plain version's health word exactly (``_phase_b_health``); the flash kernels run the
      training shape with the seeds phase D's first step derives. Phase M's
      GPT-2 1.5B microbatches (4 and 16 x 1024) have their own cases: flash
@@ -457,18 +476,23 @@ csrc`` (one nvcc per source, all started together), then:
      onto the CUDA cores in the same call, with its TFLOP/s. The dropout
      kernels at [2048, 768] bf16 by graph replay: forward, backward, the
      plain versions and ``F.dropout`` (Philox: other bits, the same bytes);
-     ``threefry_bits`` at phase A's Gumbel draw. Their bound takes the
+     ``threefry_bits`` at phase A's Gumbel draw; the index-mapped forward at
+     a tp rank's T block [2, 512, 768] of [2, 1024, 768] (phase N (h)), with
+     ``F.dropout`` on the block. Their bound takes the
      instructions of each kernel's compiled loop (cuobjdump) on its busiest
      pipe (PIPE_LANES). ``matmul_bias`` and ``bias_gelu_fwd`` also at phase
      G's decode shapes (N 4 and 8), with ``torch.addmm`` and ``F.gelu(x +
-     b)`` (the kernels line's ``decode_n4``/``decode_n8``). ``health_reduce``
+     b)`` (the kernels line's ``decode_n4``/``decode_n8``), and
+     ``matmul_bias`` at the tp = 2 ring's QKV chunk ([1024, 768] x [768,
+     1152]) with ``torch.addmm``. ``health_reduce``
      at V1's step (GPT-2 124M's 148 fp32 gradients, the losses and outputs;
      with the parameters under full) by graph replay, beside its plain
      version and the bytes it reads.
   r. (on request, on a machine with two cards) phase R with the ranks on
      cuda:0 and cuda:1, which then talk over NCCL.
-  I. (on request, on a machine with two cards) phase N (a) with the tp
-     ranks on cuda:0 and cuda:1 (the tp regions over NCCL) against tp = 1.
+  I. (on request, on a machine with two cards) phase N (a) and (g) with the
+     tp ranks on cuda:0 and cuda:1 (the tp regions and the ring's hops over
+     NCCL) against tp = 1.
   Z. (on request, on a machine with two cards) phase U's steps with the ep
      ranks on cuda:0 and cuda:1 (the all-to-alls over NCCL) against ep = 1.
   P. (on request) torch.profiler breakdowns of a generate, phase S's burst, a training step,
@@ -1989,6 +2013,30 @@ def _dropout_counters():
     from smdistributed_modelparallel_tpu_torch.ops.dropout import dropout_bwd, dropout_fwd, threefry_bits
 
     return {"dropout_fwd": dropout_fwd, "dropout_bwd": dropout_bwd, "threefry_bits": threefry_bits}
+
+
+class _ShardCounter:
+    """A dropout wrapper's launches under an index map of several runs (a tp
+    shard's part of a mask; ``.shard_launches``), read and set as
+    ``.launches`` like the other counters."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.shard_launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.shard_launches = n
+
+
+def _shard_counters():
+    from smdistributed_modelparallel_tpu_torch.ops.dropout import dropout_fwd, threefry_bits
+
+    return {"dropout_fwd_index_map": _ShardCounter(dropout_fwd),
+            "threefry_bits_index_map": _ShardCounter(threefry_bits)}
 
 
 def _d_short_run(init_state, ids, seed):
@@ -4266,7 +4314,7 @@ def _phase_b_dropout(failures):
     from smdistributed_modelparallel_tpu_torch.serving import ServeRequest, ServingEngine
     from smdistributed_modelparallel_tpu_torch.utils import random
 
-    counters = _dropout_counters()
+    counters = {**_dropout_counters(), **_shard_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
     base = random.key(SEED)
     keys = {"key(SEED)": base, "fold_in(., crc32('dropout'))": random.fold_in(base, random._stream_id("dropout")),
@@ -4306,6 +4354,33 @@ def _phase_b_dropout(failures):
                     failures.append(f"dropout_fwd/{tag}")
                 if not bwd_ok:
                     failures.append(f"dropout_bwd/{tag}")
+    # The index map (nn/utils.shard_index) at the tp = 2 shards of phase N:
+    # a rank's 6 heads of [2, 12, 1024, 1024] attention probabilities and its
+    # T block of a [2, 1024, 768] hidden activation, each rank's part.
+    errs["dropout_fwd_index_map"] = 0.0
+    for whole, dim in (((2, 12, 1024, 1024), 1), ((2, 1024, 768), 1)):
+        for rank in range(2):
+            local = list(whole)
+            local[dim] //= 2
+            inner = int(np.prod(local[dim + 1:]))
+            index = (rank * local[dim] * inner, local[dim] * inner, whole[dim] * inner)
+            n = int(np.prod(local))
+            got = dr.threefry_bits(k, n, index[0], device="cuda", run=index[1], stride=index[2])
+            want = dr.reference_threefry_bits(k, n, index[0], "cuda", index[1], index[2])
+            bits_ok = torch.equal(got, want)
+            errs["threefry_bits"] = max(errs["threefry_bits"], float((got.long() - want.long()).abs().max()))
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(local, generator=gen, device="cuda").to(dtype)
+                y, mask = dr.dropout_fwd(x, 0.1, k, index)
+                y_ref, keep = dr.reference_dropout_fwd(x, 0.1, k, index)
+                ok = torch.equal(_bit_view(y), _bit_view(y_ref)) and torch.equal(mask.bool(), keep)
+                errs["dropout_fwd_index_map"] = max(errs["dropout_fwd_index_map"],
+                                                    float((y.float() - y_ref.float()).abs().max()))
+                tag = f"{str(dtype).removeprefix('torch.'):9s} rank {rank} of {list(whole)} cut on dim {dim}"
+                log(f"[B] index-mapped threefry_bits and dropout_fwd {tag}: bits bit-equal {bits_ok}, y and mask "
+                    f"bit-equal {ok}, kept {float(keep.float().mean()):.4f} {'ok' if ok and bits_ok else 'FAIL'}")
+                if not (ok and bits_ok):
+                    failures.append(f"index-mapped dropout/{tag}")
     for key, fn in counters.items():
         fn.launches = saved[key]  # comparison launches do not count
     return errs
@@ -4580,6 +4655,9 @@ MB_CASES = [
     ("xl_qkv_n4096", 4096, 1600, 4800, {}),  # phase M's GPT-2 1.5B microbatches
     ("xl_qkv_n16384", 16384, 1600, 4800, {}),
     ("decode_n4", 4, 768, 2304, {}),  # phase G's decode step (few_rows_n8: 8 rows)
+    # A tp = 2 ring chunk of the fused QKV (phase N (g)): a rank's 1024 rows
+    # against its 1152 output columns, a partial last column group.
+    ("ring_chunk", 1024, 768, 1152, {}),
 ]
 # (name, N, F, kwargs) of the bias_gelu kernels: the MLP epilogue of the
 # smp.nn path, few rows, ragged N and F (F % 8 != 0: the "simt" route),
@@ -4731,8 +4809,8 @@ def _phase_b_new(failures):
             tag = str(dtype).removeprefix("torch.")
             err, ok, detail = mb_compare(*mb_inputs(N, D, F, dtype, gen, kw))
             log(f"[B] matmul_bias     {name:20s} N={N} D={D} F={F} {tag:9s} {detail} {'ok' if ok else 'FAIL'}")
-            if name == "qkv_path" and dtype == torch.bfloat16:
-                path_err["matmul_bias"] = err
+            if name in ("qkv_path", "ring_chunk") and dtype == torch.bfloat16:
+                path_err["matmul_bias" + ("_ring_chunk" if name == "ring_chunk" else "")] = err
             if not ok:
                 failures.append(f"matmul_bias/{name}/{tag}")
     for name, N, F, kw in GELU_CASES:
@@ -5987,6 +6065,25 @@ def phase_z():
 # ----------------------------------------------------------------------
 
 N_STEPS, N_SAVE_AT, N_LOSS_TOL, N_SMALL_TOL, N_CE_TOL = 3, 2, 1e-2, 1e-5, 1e-2
+# (g)-(j): the training options at tp = 2. (g) the ring with the fused QKV;
+# (h) GPT-2's dropouts 0.1; (i) checkpointing, whose losses must equal the
+# same run's without it to N_CKPT_TOL; (j) fp16 (the loss scaler from
+# N_FP16_SCALE, where GPT-2 124M's first steps do not overflow), fp8 (losses
+# to phase Q's FP8_LOSS_TOL relative) and the sentinel. The fp8 amax history
+# and the sentinel's maxima are bf16 activations' and gradients' maxima,
+# held to N_STATE_TOL relative of tp = 1's (test_torch_fp8_step.py's bf16
+# bound); the weights' amax slots of the first step and the counts exactly.
+N_OPT_STEPS, N_FP16_SCALE, N_CKPT_TOL, N_STATE_TOL = 2, 2.0 ** 12, 1e-6, 5e-2
+# (h)'s loss bound: 16x the 6.1e-05 that tp = 2 with the dropouts measured
+# against tp = 1 on the H100. Attention dropout runs inside the flash
+# kernels, whose masks the run cannot read, so (h) also holds the heads each
+# rank hands them, and runs a control whose kernels hash the rank's local
+# heads (both ranks then draw the same mask) to show what the bound sees.
+N_DROP_TOL = 1e-3
+N_CONTROLS = {"dropout_local_heads"}  # runs left out of the path's launches and of the cross-rank holds
+N_RING = {"tp_overlap": "ring"}
+N_DROP = dict(attention_dropout_prob=0.1, hidden_dropout_prob=0.1, embedding_dropout_prob=0.1)
+N_CKPT = dict(activation_checkpointing=True)
 # karpathy/nanoGPT's model.py pads GPT-2's vocabulary of 50257 up to 50304 (a
 # multiple of 64), which tp = 2 divides: the vocab-parallel fused CE runs.
 N_VOCAB = 50304
@@ -6017,40 +6114,128 @@ def _n_module(cfg, device, seed=SEED, std=None, init_device=None):
                          torch.Generator(device=torch.device(init_device).type).manual_seed(seed))
 
 
-def _n_train(device, ids, tp, layout="speed", steps=N_STEPS, root=None):
+def _n_counters():
+    from smdistributed_modelparallel_tpu_torch.ops.health_reduce import health_reduce
+
+    return {**_flash_counters(), **_new_counters(), **_simt_counters(), **_dropout_counters(), **_shard_counters(),
+            **_fp8_counters(), "health_reduce": health_reduce}
+
+
+def _mask_print(mask):
+    """Two int64 sums of a keep mask (plain and position weighted): equal on
+    two masks whose elements agree."""
+    flat = mask.reshape(-1).to(torch.int64)
+    return int(flat.sum()), int((flat * (torch.arange(flat.numel(), device=flat.device) % 65521 + 1)).sum())
+
+
+class _Watched:
+    """A wrapper called through ``watch(*its outputs)``; its attributes (the
+    launch counts) are the wrapper's own."""
+
+    def __init__(self, fn, watch):
+        object.__setattr__(self, "fn", fn)
+        object.__setattr__(self, "watch", watch)
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        self.watch(*out)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.fn, name, value)
+
+
+def _n_train(device, ids, tp, layout="speed", steps=N_STEPS, root=None, head=None, env=None, scale=None,
+             local_heads=False, **cfg):
     """``steps`` bf16 steps of phase L's model and step at ``tp`` on ``ids``
-    (the whole batch on every tp rank): losses, ms a step, the replicated
-    parameters' fingerprint a step, launches, peak GiB, the tp regions' host
-    ms a step; a partial checkpoint under ``root`` after step N_SAVE_AT."""
+    (the whole batch on every tp rank), with ``head`` overrides, ``env`` and
+    ``cfg``'s config keys: losses, ms a step, the replicated parameters'
+    fingerprint a step, launches, peak GiB, the tp regions' host ms a step,
+    the fp16 scale and overflow flags, the fp8 state and the sentinel's word
+    after each step, the keep masks of the first step's first microbatch
+    (``_mask_print`` of each ``dropout_fwd``) and the (head0, head_total,
+    seed) its attention calls hand the flash kernels; a partial checkpoint
+    under ``root`` after step N_SAVE_AT. ``scale``: the fp16 loss scaler's
+    initial scale. ``local_heads``: the control of (h), the flash kernels
+    handed no head0/head_total (they hash the rank's own heads)."""
     import smdistributed_modelparallel_tpu_torch as smp
     from smdistributed_modelparallel_tpu_torch.backend.collectives import tp_comm_stats
     from smdistributed_modelparallel_tpu_torch.backend.state import state
+    from smdistributed_modelparallel_tpu_torch.fp16.loss_scaler import DynamicLossScaler
+    from smdistributed_modelparallel_tpu_torch.ops import attention as attn_op
+    from smdistributed_modelparallel_tpu_torch.ops import dropout as dr
+    from smdistributed_modelparallel_tpu_torch.utils import health
 
-    _n_init(device, layout, tensor_parallel_degree=tp)
-    model, optimizer, train_step = _lm_train(_n_module(LM_CFG, device), device)
-    counters = {**_flash_counters(), **_new_counters(), **_simt_counters()}
-    _e_zero(counters)
-    torch.cuda.reset_peak_memory_stats(device)
-    losses, ms, prints, comm = [], [], [], []
-    for step in range(steps):
-        torch.cuda.synchronize(device)
-        before = tp_comm_stats["seconds"]
-        t0 = time.perf_counter()
-        losses.append(float(train_step(model, ids).reduce_mean()))
-        optimizer.step()
-        torch.cuda.synchronize(device)
-        ms.append((time.perf_counter() - t0) * 1e3)
-        comm.append((tp_comm_stats["seconds"] - before) * 1e3)
-        prints.append(_w_fingerprint(model, skip=model._tp_specs))
-        if root is not None and step + 1 == N_SAVE_AT:
-            smp.save_checkpoint(root, tag="n2")
-            smp.barrier()
-    out = dict(losses=losses, ms=ms, prints=prints, comm=comm, sequence_parallel=model._seq_parallel_ran,
-               transport=getattr(state.group("tp"), "transport", None),
-               launches={k: fn.launches for k, fn in counters.items()},
-               peak=torch.cuda.max_memory_allocated(device) / 2**30)
-    del model, optimizer, train_step
-    smp.reset()
+    with _env(**(env or {})):
+        _n_init(device, layout, tensor_parallel_degree=tp, **cfg)
+        if scale is not None:
+            state.loss_scaler = DynamicLossScaler(init_scale=scale)
+        model, optimizer, train_step = _lm_train(_n_module(dict(LM_CFG, **(head or {})), device), device)
+        counters = _n_counters()
+        _e_zero(counters)
+        masks, real_fwd, masks_done = [], dr.dropout_fwd, [False]
+
+        def watch(y, mask):  # the first microbatch's masks (its launch counts as the path's)
+            if model._bound is not None and len(masks) < DROP_SITES and not masks_done[0]:
+                half = mask.shape[1] // 2  # a [B, T, D] mask's T halves: a tp = 2 rank's blocks
+                masks.append((tuple(mask.shape), _mask_print(mask),
+                              [_mask_print(mask[:, h * half:(h + 1) * half]) for h in range(2)]))
+
+        heads, real_flash = [], attn_op.flash_attention
+
+        def flash_spy(*args, **kw):  # the wrapper counts its launches itself
+            if model._bound is not None and not masks_done[0] and len(heads) < LM_CFG["num_layers"]:
+                seed = kw.get("seed")
+                heads.append((kw.get("head0"), kw.get("head_total"), None if seed is None else int(seed)))
+            if local_heads:
+                kw.update(head0=None, head_total=None)
+            return real_flash(*args, **kw)
+
+        dr.dropout_fwd = _Watched(real_fwd, watch)
+        attn_op.flash_attention = flash_spy
+        out = dict(losses=[], ms=[], prints=[], comm=[], scale=[], finite=[], quant=[], health=[], peak=0.0,
+                   step_peak=0.0)
+        try:
+            for step in range(steps):
+                torch.cuda.synchronize(device)
+                held = torch.cuda.memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                before = tp_comm_stats["seconds"]
+                t0 = time.perf_counter()
+                out["losses"].append(float(train_step(model, ids).reduce_mean()))
+                # The step's own peak above what it found allocated (the
+                # activations a checkpointed stack does not keep).
+                out["step_peak"] = max(out["step_peak"], (torch.cuda.max_memory_allocated(device) - held) / 2**30)
+                masks_done[0] = True
+                out["finite"].append(model._grads_finite)
+                optimizer.step()
+                torch.cuda.synchronize(device)
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
+                out["peak"] = max(out["peak"], torch.cuda.max_memory_allocated(device) / 2**30)
+                out["comm"].append((tp_comm_stats["seconds"] - before) * 1e3)
+                out["prints"].append(_w_fingerprint(model, skip=model._tp_specs))
+                if state.loss_scaler is not None:
+                    out["scale"].append(state.loss_scaler.loss_scale)
+                if state.quant_state is not None:
+                    out["quant"].append(state.quant_state.state_dict())
+                if health.mode() != "off":
+                    health.monitor.flush()
+                    out["health"].append(health.monitor.last_check["tags"])
+                if root is not None and step + 1 == N_SAVE_AT:
+                    smp.save_checkpoint(root, tag="n2")
+                    smp.barrier()
+        finally:
+            dr.dropout_fwd = real_fwd
+            attn_op.flash_attention = real_flash
+        out.update(masks=masks, heads=heads, sequence_parallel=model._seq_parallel_ran,
+                   transport=getattr(state.group("tp"), "transport", None),
+                   launches={k: fn.launches for k, fn in counters.items()})
+        del model, optimizer, train_step
+        smp.reset()
+    gc.collect()  # the model's reference cycles hold device tensors until a collection
     torch.cuda.empty_cache()
     return out
 
@@ -6153,14 +6338,39 @@ def _n_generate(device):
     return out
 
 
+def _n_options(device, ids, tp):
+    """(g)-(j) at ``tp`` (at tp = 1 the yardsticks of (h) and (j)): (g) the
+    ring with the fused QKV in both layouts; (h) dropouts 0.1 (the memory
+    layout under the ring; at tp > 1 also its local-heads control); (i) checkpointing, with and without those
+    dropouts; (j) fp16 beside the sentinel, and fp8."""
+    out = {}
+    if tp > 1:
+        for layout in ("speed", "memory"):
+            out["ring_" + layout] = _n_train(device, ids, tp, layout, N_OPT_STEPS, **N_RING)
+    ring = N_RING if tp > 1 else {}
+    out["dropout"] = _n_train(device, ids, tp, "memory", N_OPT_STEPS, head=N_DROP, **ring)
+    if tp > 1:
+        out["dropout_local_heads"] = _n_train(device, ids, tp, "memory", N_OPT_STEPS, head=N_DROP, local_heads=True,
+                                              **ring)
+        out["ckpt"] = _n_train(device, ids, tp, "speed", N_OPT_STEPS, head=N_CKPT)
+        out["ckpt_dropout"] = _n_train(device, ids, tp, "memory", N_OPT_STEPS, head=dict(N_DROP, **N_CKPT), **ring)
+    # fp16 beside the sentinel: one word a step feeds both the overflow flag
+    # and the sentinel.
+    out["fp16"] = _n_train(device, ids, tp, "speed", N_OPT_STEPS, env={"SMP_HEALTH_CHECK": "cheap"}, bf16=False,
+                           fp16=True, scale=N_FP16_SCALE)
+    out["fp8"] = _n_train(device, ids, tp, "speed", N_OPT_STEPS, matmul_precision="fp8")
+    return out
+
+
 def _n_rank(rank, world, device, root):
     """One tp rank on ``device`` (None: cuda:LOCAL_RANK): (a) the speed layout
-    with its checkpoint, (b) the memory layout, (c) the small fp32 model, (d)
-    the fused CE, (e) generation."""
+    with its checkpoint, (b) the memory layout, (g)-(j) the training options,
+    (c) the small fp32 model, (d) the fused CE, (e) generation."""
     device = device or f"cuda:{rank}"
     ids = _w_batch(device)
     out = {"speed": _n_train(device, ids, 2, "speed", root=root)}
     out["memory"] = _n_train(device, ids, 2, "memory")
+    out["options"] = _n_options(device, ids, 2)
     out["small"] = _n_small(device)
     out["ce"] = _n_ce(device)
     out["generate"] = _n_generate(device)
@@ -6184,8 +6394,10 @@ def _n_resume(rank, world, device, root):
 
 
 def _n_base():
-    """tp = 1 in this process: the same weights and batch (the yardstick)."""
-    return _n_train("cuda", _w_batch("cuda"), 1)
+    """tp = 1 in this process: the same weights and batch (the yardstick), and
+    the options' runs of (h) and (j)."""
+    ids = _w_batch("cuda")
+    return dict(_n_train("cuda", ids, 1), options=_n_options("cuda", ids, 1))
 
 
 def _n_margin(tokens):
@@ -6266,6 +6478,7 @@ def _n_report(ranks, resumed, base, margins, ranks_s, resume_s, device):
         log(f"[N] {label} replicated parameters bit-equal across the ranks after every step: {same}")
         if not same:
             failures.append(f"{label}: the replicated parameters differ across the tp ranks")
+    failures += _n_report_options(ranks, base)
     for rank, r in enumerate(ranks):
         for layout in ("speed", "memory"):
             (card_l, card_g), (cpu_l, cpu_g) = r["small"][layout]
@@ -6322,7 +6535,8 @@ def _n_report(ranks, resumed, base, margins, ranks_s, resume_s, device):
     if failures:
         raise RuntimeError("phase N: " + "; ".join(failures))
     launches = {}
-    for runs in ([base] + [r[k] for r in ranks for k in ("speed", "memory")],
+    for runs in ([base] + [r[k] for r in ranks for k in ("speed", "memory")], list(base["options"].values()),
+                 [run for r in ranks for name, run in r["options"].items() if name not in N_CONTROLS],
                  [r["ce"][True] for r in ranks], [r["generate"] for r in ranks]):
         for run in runs:
             for k, n in run["launches"].items():
@@ -6330,28 +6544,179 @@ def _n_report(ranks, resumed, base, margins, ranks_s, resume_s, device):
     return launches, dict(base_ms=base_ms, ms=_n_steps_ms(ranks[0]["speed"])[0])
 
 
+def _n_nonzero(run):
+    """A run's launches, the kernels it launched only."""
+    return {k: n for k, n in run["launches"].items() if n}
+
+
+def _n_gap(run, want, relative=False):
+    """The largest difference of ``run``'s losses to ``want``'s (the steps
+    both ran), relative to ``want``'s with ``relative``."""
+    return max(abs(a - b) / (abs(b) if relative else 1.0) for a, b in zip(run["losses"], want["losses"]))
+
+
+def _n_masks_equal(run, want, rank):
+    """Whether each of the tp rank's first-microbatch keep masks is its part
+    of the tp = 1 run's: the whole mask where its shape is the whole one's,
+    else the rank's T half."""
+    if len(run["masks"]) != len(want["masks"]) or not run["masks"]:
+        return False
+    return all(m[1] == (w[1] if m[0] == w[0] else w[2][rank]) for m, w in zip(run["masks"], want["masks"]))
+
+
+def _n_heads_ok(run, want, rank):
+    """Whether each first-microbatch attention call of the tp rank handed
+    the flash kernels the rank's global heads (head0 = rank x H/tp of H)
+    and the seed of the tp = 1 run's call (which hands no heads)."""
+    H = LM_CFG["num_attention_heads"]
+    return (len(run["heads"]) == len(want["heads"]) == LM_CFG["num_layers"] and
+            all(h == (rank * H // 2, H, w[2]) and w[:2] == (None, None) and w[2] is not None
+                for h, w in zip(run["heads"], want["heads"])))
+
+
+def _n_state_gap(got, want):
+    """The largest relative difference of two fp8 states' amax histories (0
+    where both are 0), and whether their live slots are the same."""
+    g, w = np.asarray(got["amax_history"], np.float64), np.asarray(want["amax_history"], np.float64)
+    gap = float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30) * (np.abs(w) > 0)))
+    return gap, (g[:, 0] > 0).tolist() == (w[:, 0] > 0).tolist()
+
+
+def _n_word_gap(got, want):
+    """The largest relative difference of two sentinel words' maxima, and
+    whether their tags, counts and first bad microbatches agree."""
+    same = got.keys() == want.keys() and all(got[t]["bad"] == want[t]["bad"] and
+                                              got[t]["microbatch"] == want[t]["microbatch"] for t in want)
+    gap = max(abs(got[t]["absmax"] - want[t]["absmax"]) / max(abs(want[t]["absmax"]), 1e-30) for t in want)
+    return gap, same
+
+
+def _n_report_options(ranks, base):
+    """(g)-(j): the log lines and the failures of the training options."""
+    failures = []
+    per = LM_CFG["num_layers"] * TRAIN_MB
+    bopt = base["options"]
+    for rank, r in enumerate(ranks):
+        opt = r["options"]
+        for layout in ("speed", "memory"):
+            run = opt["ring_" + layout]
+            gap = _n_gap(run, base)
+            chunks = run["launches"]["matmul_bias"]
+            log(f"[N] (g) ring + fused QKV, {layout}, rank {rank}: losses {run['losses']}, largest difference to "
+                f"tp = 1 {gap:.3e} (limit {N_LOSS_TOL}); ms/step {_n_steps_ms(run)[0]:.2f} (per step "
+                f"{[round(x, 2) for x in run['ms']]}); the tp regions' host ms a step {_n_steps_ms(run)[1]:.2f}; "
+                f"peak {run['peak']:.2f} GiB; matmul_bias launches {chunks} ({per * 2} a step: layers x microbatches "
+                f"x tp); launches {run['launches']}")
+            if not gap <= N_LOSS_TOL:
+                failures.append(f"(g) {layout} rank {rank}: losses differ from tp = 1 by {gap:.3e}")
+            if chunks != per * 2 * N_OPT_STEPS or run["sequence_parallel"] != (layout == "memory"):
+                failures.append(f"(g) {layout} rank {rank}: {chunks} matmul_bias launches, sequence-parallel "
+                                f"{run['sequence_parallel']}")
+        drop, want = opt["dropout"], bopt["dropout"]
+        gap, masks, heads = _n_gap(drop, want), _n_masks_equal(drop, want, rank), _n_heads_ok(drop, want, rank)
+        control = _n_gap(opt["dropout_local_heads"], want)
+        log(f"[N] (h) dropouts 0.1 at tp = 2 (memory layout, ring), rank {rank}: losses {drop['losses']} against tp = "
+            f"1's {want['losses']}, largest difference {gap:.3e} (limit {N_DROP_TOL}); the first microbatch's "
+            f"{len(drop['masks'])} masks equal tp = 1's (the rank's T half where sharded): {masks}; its "
+            f"{len(drop['heads'])} attention calls hand the flash kernels the rank's global heads and tp = 1's seeds: "
+            f"{heads} ({drop['heads'][:1]}); index-mapped dropout_fwd launches "
+            f"{drop['launches']['dropout_fwd_index_map']} of {drop['launches']['dropout_fwd']}; ms/step "
+            f"{_n_steps_ms(drop)[0]:.2f}; launches {_n_nonzero(drop)}")
+        log(f"[N] (h) control, rank {rank}: the flash kernels hashing the rank's local heads: losses "
+            f"{opt['dropout_local_heads']['losses']}, largest difference to tp = 1 {control:.3e}; (h)'s bound "
+            f"{N_DROP_TOL} catches it: {control > N_DROP_TOL}")
+        if not (gap <= N_DROP_TOL and masks and heads and drop["launches"]["dropout_fwd_index_map"] > 0):
+            failures.append(f"(h) rank {rank}: loss gap {gap:.3e}, masks equal {masks}, heads {heads}")
+        for name, ref, label in (("ckpt", r["speed"], "(a)"), ("ckpt_dropout", drop, "(h)")):
+            run = opt[name]
+            gap = _n_gap(run, ref)
+            log(f"[N] (i) checkpointing{' with the dropouts' if name != 'ckpt' else ''}, rank {rank}: losses "
+                f"{run['losses']}, largest difference to {label} without it {gap:.3e} (limit {N_CKPT_TOL}); the "
+                f"step's peak above what it found allocated {run['step_peak']:.3f} GiB against {ref['step_peak']:.3f}; "
+                f"the run's peak {run['peak']:.2f} GiB against {ref['peak']:.2f}; ms/step {_n_steps_ms(run)[0]:.2f} "
+                f"against {_n_steps_ms(ref)[0]:.2f}; launches {_n_nonzero(run)}")
+            if not (gap <= N_CKPT_TOL and run["step_peak"] < ref["step_peak"]):
+                failures.append(f"(i) {name} rank {rank}: loss gap {gap:.3e}, the step's peak {run['step_peak']:.3f} "
+                                f"GiB against {ref['step_peak']:.3f}")
+        fp16, w16 = opt["fp16"], bopt["fp16"]
+        gap = _n_gap(fp16, w16)
+        log(f"[N] (j) fp16, rank {rank}: losses {fp16['losses']} against tp = 1's {w16['losses']}, largest difference "
+            f"{gap:.3e} (limit {N_LOSS_TOL}); overflow-free steps {fp16['finite']} (tp = 1 {w16['finite']}); loss "
+            f"scale {fp16['scale']} (tp = 1 {w16['scale']}); ms/step {_n_steps_ms(fp16)[0]:.2f}; launches "
+            f"{_n_nonzero(fp16)}")
+        if not (gap <= N_LOSS_TOL and fp16["finite"] == w16["finite"] and fp16["scale"] == w16["scale"]):
+            failures.append(f"(j) fp16 rank {rank}: loss gap {gap:.3e}, flags {fp16['finite']}, scale {fp16['scale']}")
+        fp8, w8 = opt["fp8"], bopt["fp8"]
+        gap = _n_gap(fp8, w8, relative=True)
+        states = [_n_state_gap(g, w) for g, w in zip(fp8["quant"], w8["quant"])]
+        first_w = all(g["amax_history"][i][0] == w["amax_history"][i][0]
+                      for g, w in zip(fp8["quant"][:1], w8["quant"][:1])
+                      for i, slot in enumerate(w["slots"]) if slot.endswith(".w"))
+        state_gap = max(sg for sg, _ in states)
+        live = all(ok for _, ok in states)
+        log(f"[N] (j) fp8, rank {rank}: losses {fp8['losses']} against tp = 1's {w8['losses']}, largest relative "
+            f"difference {gap:.3e} (limit {FP8_LOSS_TOL}); amax history's largest relative difference {state_gap:.3e} "
+            f"(limit {N_STATE_TOL}), the same live slots {live}, the first step's weight slots equal {first_w}; "
+            f"ms/step {_n_steps_ms(fp8)[0]:.2f}; launches {_n_nonzero(fp8)}")
+        if not (gap <= FP8_LOSS_TOL and state_gap <= N_STATE_TOL and live and first_w):
+            failures.append(f"(j) fp8 rank {rank}: loss gap {gap:.3e}, state gap {state_gap:.3e}, live {live}, "
+                            f"weights {first_w}")
+        words = [_n_word_gap(g, w) for g, w in zip(fp16["health"], w16["health"])]
+        word_gap, same = max(x for x, _ in words), all(ok for _, ok in words) and len(words) == N_OPT_STEPS
+        log(f"[N] (j) SMP_HEALTH_CHECK=cheap beside fp16, rank {rank}: the words' tags, counts and first bad "
+            f"microbatches equal tp = 1's {same}, maxima within {word_gap:.3e} relative (limit {N_STATE_TOL}); words "
+            f"{fp16['health']}; health_reduce launches {fp16['launches']['health_reduce']} (one a step: the "
+            f"overflow flag's and the sentinel's)")
+        if not (same and word_gap <= N_STATE_TOL and fp16["launches"]["health_reduce"] == N_OPT_STEPS):
+            failures.append(f"(j) sentinel rank {rank}: words equal {same}, gap {word_gap:.3e}")
+        for name, run in opt.items():
+            try:
+                _check_route(f"[N] ({name}) rank {rank}", run["launches"])
+            except RuntimeError as e:
+                failures.append(str(e))
+    for name in set(ranks[0]["options"]) - N_CONTROLS:
+        same = (ranks[0]["options"][name]["prints"] == ranks[1]["options"][name]["prints"]
+                and ranks[0]["options"][name]["losses"] == ranks[1]["options"][name]["losses"])
+        if not same:
+            failures.append(f"({name}): the replicated parameters differ across the tp ranks")
+    log(f"[N] (g)-(j) replicated parameters bit-equal across the ranks after every step: "
+        f"{not any('replicated' in f for f in failures)}")
+    return failures
+
+
 def _n_rank_i(rank, world):
-    """Phase I's rank: (a) with the ranks on cuda:0 and cuda:1."""
+    """Phase I's rank: (a) and (g) (the ring in both layouts) with the ranks on
+    cuda:0 and cuda:1."""
     device = f"cuda:{rank}"
-    return _n_train(device, _w_batch(device), 2)
+    ids = _w_batch(device)
+    return {"speed": _n_train(device, ids, 2),
+            **{"ring_" + layout: _n_train(device, ids, 2, layout, **N_RING) for layout in ("speed", "memory")}}
 
 
 def phase_i():
-    """Hold (a) of phase N with the two tp ranks on cuda:0 and cuda:1 (the tp
-    regions over NCCL; a machine with two cards)."""
+    """Hold (a) and (g) of phase N with the two tp ranks on cuda:0 and cuda:1
+    (the tp regions and the ring's hops over NCCL; a machine with two
+    cards)."""
     if torch.cuda.device_count() < 2:
         raise RuntimeError(f"tp ranks on separate cards need 2 cards, found {torch.cuda.device_count()}")
     ranks = run_ranks(2, _n_rank_i)
-    base = _n_base()
-    gap = max(abs(a - b) for r in ranks for a, b in zip(r["losses"], base["losses"]))
-    ms, comm = _n_steps_ms(ranks[0])
-    same = ranks[0]["prints"] == ranks[1]["prints"]
-    log(f"[I] tp = 2 on cuda:0-1, transport {ranks[0]['transport']}: losses {ranks[0]['losses']}, tp = 1 "
-        f"{base['losses']}, largest difference {gap:.3e}; ms/step {ms:.2f} (tp = 1 {_n_steps_ms(base)[0]:.2f}), "
-        f"global tokens/s {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f}; the tp regions' host ms a step {comm:.2f}; "
-        f"replicated parameters bit-equal {same}; launches {ranks[0]['launches']}")
-    if gap > N_LOSS_TOL or not same:
-        raise RuntimeError(f"phase I: tp = 2 over NCCL differs (loss gap {gap:.3e}, bit-equal {same})")
+    base = _n_train("cuda", _w_batch("cuda"), 1)
+    failures = []
+    for name in ("speed", "ring_speed", "ring_memory"):
+        runs = [r[name] for r in ranks]
+        gap = max(_n_gap(run, base) for run in runs)
+        ms, comm = _n_steps_ms(runs[0])
+        same = runs[0]["prints"] == runs[1]["prints"]
+        log(f"[I] {name}: tp = 2 on cuda:0-1, transport {runs[0]['transport']}: losses {runs[0]['losses']}, tp = 1 "
+            f"{base['losses']}, largest difference {gap:.3e}; ms/step {ms:.2f} (tp = 1 {_n_steps_ms(base)[0]:.2f}), "
+            f"global tokens/s {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f}; the tp regions' host ms a step {comm:.2f}; "
+            f"replicated parameters bit-equal {same}; launches {runs[0]['launches']}")
+        if gap > N_LOSS_TOL or not same:
+            failures.append(f"{name}: loss gap {gap:.3e}, bit-equal {same}")
+        if name != "speed" and runs[0]["launches"]["matmul_bias"] != LM_CFG["num_layers"] * TRAIN_MB * 2 * N_STEPS:
+            failures.append(f"{name}: matmul_bias launches {runs[0]['launches']['matmul_bias']}")
+    if failures:
+        raise RuntimeError("phase I: tp = 2 over NCCL: " + "; ".join(failures))
 
 
 # ----------------------------------------------------------------------
@@ -6810,16 +7175,19 @@ def sass_loop_counts(sass, kernel, stores):
     text, by pipe (PIPE_LANES): the instructions from the loop's head to its
     back edge that every iteration issues, leaving out those a conditional
     forward branch can jump over (the division that a dropped element skips,
-    its slow-path call), so the counts are a floor. ``kernel`` is a substring
-    of the mangled name; the loop must hold ``stores`` global stores, one
-    element's (an unrolled loop would hold more, and raises)."""
+    its slow-path call), so the counts are a floor. Where loops nest (the
+    dropout kernels' runs of an index map around the loop along a run) the
+    innermost one, whose span holds no other back edge. ``kernel`` is a
+    substring of the mangled name; the loop must hold ``stores`` global
+    stores, one element's (an unrolled loop would hold more, and raises)."""
     section = next(sec for sec in sass.split("Function : ")[1:] if kernel in sec.splitlines()[0])
     code = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(r"/\*([0-9a-f]{4})\*/\s+([^;]*);", section)]
     back = [(at, int(m.group(1), 16)) for at, ins in code
             if (m := re.search(r"BRA (?:!?U?P\d, )?0x([0-9a-f]+)", ins)) and int(m.group(1), 16) < at]
-    if len(back) != 1:
-        raise RuntimeError(f"{kernel}: expected one loop, found back edges {back}")
-    end, head = back[0]
+    inner = [(e, h) for e, h in back if not any(h <= h2 and e2 <= e and (e2, h2) != (e, h) for e2, h2 in back)]
+    if len(inner) != 1:
+        raise RuntimeError(f"{kernel}: expected one innermost loop, found back edges {back}")
+    end, head = inner[0]
     skipped = set()
     for at, ins in code:
         m = re.match(r"@!?U?P\d+ BRA (?:!?U?P\d, )?0x([0-9a-f]+)", ins)
@@ -6870,12 +7238,13 @@ def _phase_c_dropout():
     from smdistributed_modelparallel_tpu_torch.utils import random
 
     sass = _sass("dropout")
-    sass_counts = {"dropout_fwd": sass_loop_counts(sass, "dropout_fwd_kernelI13__nv_bfloat16", 2),
+    sass_counts = {"dropout_fwd": sass_loop_counts(sass, "dropout_fwd_kernelI13__nv_bfloat16Lb0E", 2),
+                   "dropout_fwd_index_map": sass_loop_counts(sass, "dropout_fwd_kernelI13__nv_bfloat16Lb1E", 2),
                    "dropout_bwd": sass_loop_counts(sass, "dropout_bwd_kernelI13__nv_bfloat16", 1),
-                   "threefry_bits": sass_loop_counts(sass, "threefry_bits_kernel", 1)}
+                   "threefry_bits": sass_loop_counts(sass, "threefry_bits_kernelILb0E", 1)}
     for name, c in sass_counts.items():
         log(f"[C] {name} (bf16) compiled loop, instructions an element (cuobjdump, always issued): {c}")
-    counters = _dropout_counters()
+    counters = {**_dropout_counters(), **_shard_counters()}
     saved = {k: fn.launches for k, fn in counters.items()}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     k = random.key(SEED)
@@ -6902,6 +7271,24 @@ def _phase_c_dropout():
             f"({bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f}, library (F.dropout, Philox) {library_ms:.4f}; "
             f"the wrapper eager {out[name]['eager_ms']:.4f} (CUDA events); bound {bound_ms:.4f} ms by {bound_by} "
             f"({nbytes / 1e6:.2f} MB; busiest pipe {pipe}, {sass_counts[name][pipe]} an element)")
+
+    # The index-mapped forward at a tp = 2 rank's T block of a microbatch's [2,
+    # 1024, 768] hidden activation (phase N (h), the memory layout): 2 runs of
+    # 512 x 768 at stride 1024 x 768; its library call F.dropout on the block.
+    Bm, Tm = TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ
+    xs = torch.randn((Bm, Tm // 2, D), generator=gen, device="cuda").to(torch.bfloat16)
+    index = (Tm // 2 * D, Tm // 2 * D, Tm * D)
+    ns = xs.numel()
+    ms = cuda_graph_time_ms(lambda: dr.dropout_fwd(xs, rate, k, index))
+    plain_ms = cuda_graph_time_ms(lambda: dr.reference_dropout_fwd(xs, rate, k, index), iters=5, replays=2)
+    library_ms = cuda_graph_time_ms(lambda: F.dropout(xs, rate, training=True))
+    nbytes = ns * (2 + 2 + 1)
+    bound_ms, bound_by, pipe = _issue_bound(nbytes, sass_counts["dropout_fwd_index_map"], ns)
+    out["dropout_fwd_index_map"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                                        bound_by=bound_by)
+    log(f"[C] dropout_fwd with the index map, a tp rank's T block {list(xs.shape)} of [{Bm}, {Tm}, {D}] bf16 rate "
+        f"{rate}, by CUDA-graph replay: the wrapper {ms:.4f} ({bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f}, "
+        f"library (F.dropout, Philox) {library_ms:.4f}; bound {bound_ms:.4f} ms by {bound_by} (busiest pipe {pipe})")
 
     for label, n_bits in (("Gumbel draw [4, 50257]", 4 * 50257), (f"[{N}, {D}]", n)):
         ms = cuda_graph_time_ms(lambda: dr.threefry_bits(k, n_bits, device="cuda"))
@@ -7003,6 +7390,21 @@ def _phase_c_new():
         f"{simt_ms:.4f} ms, plain {plain_ms:.4f} ms, library (torch.addmm) {library_ms:.4f} ms; the wrapper eager "
         f"{eager_ms:.4f} ms (CUDA events); bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB, "
         f"{flops / 1e9:.3f} GFLOP)")
+    # The tp = 2 ring's QKV chunk (phase N (g)): a microbatch's sequence block
+    # of 2 x 512 rows against the rank's 6 heads, [1024, 768] x [768, 1152].
+    N, Fo = TRAIN_BATCH // TRAIN_MB * TRAIN_SEQ // 2, 3 * LM_CFG["hidden_size"] // 2
+    x, w, b = mb_inputs(N, D, Fo, dtype, gen, {})
+    route = mb._route(dtype, D, x.data_ptr(), w.data_ptr())
+    ms = cuda_graph_time_ms(lambda: matmul_bias_fwd(x, w, b))
+    plain_ms = cuda_graph_time_ms(lambda: reference_matmul_bias(x, w, b))
+    library_ms = cuda_graph_time_ms(lambda: torch.addmm(b, x, w.t()))
+    nbytes, flops = (N * D + Fo * D + Fo + N * Fo) * esz, 2 * N * D * Fo
+    bound_ms, bound_by = _bound(nbytes, flops, dtype)
+    out["matmul_bias"].update(ring_chunk_ms=ms, ring_chunk_plain_ms=plain_ms, ring_chunk_library_ms=library_ms,
+                              ring_chunk_bound_ms=bound_ms, ring_chunk_route=route)
+    log(f"[C] matmul_bias at the tp = 2 ring's QKV chunk N={N} D={D} F={Fo} bf16, by CUDA-graph replay: the wrapper "
+        f"({route}) {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, library (torch.addmm) "
+        f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
 
     # bias_gelu at the MLP epilogue, bf16 x, g and b as the path passes them:
     # each wrapper on its route ("vec") and forced onto "simt" (the backward
@@ -7687,9 +8089,9 @@ def _v1(init_state, ids, failures):
     captured = []
     pack = health.HealthCollector.pack
 
-    def spy(self):  # the last step's entries, for the kernel's time a step
+    def spy(self, group=None):  # the last step's entries, for the kernel's time a step
         captured[:] = [list(self.entries)]
-        return pack(self)
+        return pack(self, group)
 
     blocks = [_v1_block(init_state, ids, mode, steps, spy=spy if i == 2 else None) for i, mode in enumerate(V_BLOCKS)]
     full = _v1_block(init_state, ids, "full", V_FULL_STEPS)
@@ -8229,7 +8631,7 @@ def main():
                         help="phases to run: A, S, G, T, F, L, D, M, Q, R, U, W, N, J, K, H, E, O, V, B, C (the "
              "default, all twenty-one), "
              "P (profiles), r (phase R's ranks on two cards, over NCCL), Y (phase W's ranks on two cards, over "
-             "NCCL), Z (phase U's ranks on two cards, over NCCL), I (phase N (a)'s ranks on two cards, over NCCL) "
+             "NCCL), Z (phase U's ranks on two cards, over NCCL), I (phase N (a) and (g) on two cards, over NCCL) "
              "and X (GPT-2 1.5B at 16 x 1024 with checkpointing off)")
     parser.add_argument("--k-child", metavar="DIR", help=argparse.SUPPRESS)  # phase K's resumed run
     parser.add_argument("--o-child", metavar="KIND:ON", help=argparse.SUPPRESS)  # phase O's runs
@@ -8382,11 +8784,19 @@ def main():
         dict(name=name, route="cuda", source=src + "dropout.cu", replaces="XLA's threefry and select (no Pallas kernel)",
              launches=launches[name], max_abs_err=new_err[name], **timing[name])
         for name in ("threefry_bits", "dropout_fwd", "dropout_bwd")
+    ] + [  # the same forward kernel under the index map of a tp rank's shard (its launches on the path: phase N (h),
+           # (i)); max_abs_err over phase B's shard sweep, times at a rank's T block (C)
+        dict(name="dropout_fwd_index_map", route="cuda", source=src + "dropout.cu",
+             replaces="XLA's partitioned threefry and select over a tp shard (no Pallas kernel)",
+             launches=launches["dropout_fwd_index_map"], max_abs_err=new_err["dropout_fwd_index_map"],
+             **timing["dropout_fwd_index_map"])
     ] + [  # no Pallas kernel: XLA fuses the sentinel's reduces into the step program; phase B's sweep, times at V1's step
         dict(name="health_reduce", route="cuda", source=src + "health_reduce.cu",
              replaces="XLA's fused sentinel reduce (no Pallas kernel)", launches=launches["health_reduce"],
              max_abs_err=new_err["health_reduce"], **timing["health_reduce"])
     ]
+    kernels[[k["name"] for k in kernels].index("matmul_bias")]["ring_chunk_max_abs_err"] = (
+        new_err["matmul_bias_ring_chunk"])  # phase B's bf16 ring_chunk case, the tp = 2 ring's QKV chunk
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

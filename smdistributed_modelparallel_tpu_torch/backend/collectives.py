@@ -10,7 +10,9 @@ of size > 1, with the same semantics:
 - ``ppermute(xs, perm)``: every (src, dst) pair of group indices moves src's
   tensors to dst; a member that receives nothing gets zeros. All sends and
   receives of a call are posted together (``batch_isend_irecv``): a blocking
-  send and receive around a ring deadlocks.
+  send and receive around a ring deadlocks. ``ppermute_start`` posts them
+  and returns a ``PendingPermute`` to wait on later, so that a ring can
+  issue its next hop before the work it should hide under.
 - ``all_to_all(x, split_dim, concat_dim)``: ``lax.all_to_all(...,
   tiled=True)``: chunk i of ``split_dim`` goes to member i, and the chunks
   received are concatenated along ``concat_dim`` in member order.
@@ -201,10 +203,18 @@ class TensorGroup:
     def ppermute(self, xs, perm):
         """``lax.ppermute`` of a tensor or a list of tensors: for each
         (src, dst) in ``perm`` (group indices), dst receives src's tensors."""
+        return self.ppermute_start(xs, perm).wait()
+
+    def ppermute_start(self, xs, perm):
+        """``ppermute`` posted, not waited for: a ``PendingPermute`` whose
+        ``wait()`` gives what ``ppermute`` returns. Work issued between the
+        two runs while the transfer is in flight (the overlapped ring of
+        ``ops/collective_matmul.py`` posts hop k + 1 before the product on
+        hop k); the tensors sent must not change until ``wait()``."""
         single = isinstance(xs, torch.Tensor)
         xs = [xs] if single else list(xs)
         me = self.index
-        out, ops, sent = [torch.zeros_like(x) for x in xs], [], None
+        out, ops, sent = None, [], None
         for s, d in perm:
             if s == me and d == me:
                 out = list(xs)  # kept in place: nothing to move
@@ -215,11 +225,8 @@ class TensorGroup:
                 recv = [self._empty(x) for x in xs]
                 ops += [dist.P2POp(dist.irecv, t, self.ranks[s], group=self.pg) for t in recv]
                 out = recv
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
-        out = [self._home(r, x) for r, x in zip(out, xs)]
-        return out[0] if single else out
+        works = dist.batch_isend_irecv(ops) if ops else []
+        return PendingPermute(works, out, xs, single, sent)
 
     def all_to_all(self, x, split_dim, concat_dim):
         """``lax.all_to_all(x, split_axis=split_dim, concat_axis=concat_dim,
@@ -288,6 +295,26 @@ class TensorGroup:
             flat = op(torch.cat([t.reshape(-1) for t in ts]))
             for t, part in zip(ts, flat.split([t.numel() for t in ts])):
                 t.copy_(part.view_as(t))
+
+
+class PendingPermute:
+    """A posted ``TensorGroup.ppermute``: ``wait()`` waits for its sends
+    and receives once and returns the received tensors on their home
+    devices (zeros where this member receives nothing)."""
+
+    def __init__(self, works, received, xs, single, sent):
+        self._works, self._received, self._xs, self._single = works, received, xs, single
+        self._sent = sent  # the wire copies, alive until the sends complete
+        self._out = None
+
+    def wait(self):
+        if self._out is None:
+            for work in self._works:
+                work.wait()
+            received = self._received or [torch.zeros_like(x) for x in self._xs]
+            self._out = [TensorGroup._home(r, x) for r, x in zip(received, self._xs)]
+            self._works = self._sent = self._received = None
+        return self._out[0] if self._single else self._out
 
 
 class _AllToAll(torch.autograd.Function):

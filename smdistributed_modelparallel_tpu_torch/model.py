@@ -33,8 +33,9 @@ reference leaf this tp rank writes. Under ``optimize: "memory"`` a layer
 stack that runs its residual stream sharded along T notes it
 (``_note_sequence_parallel``): its replicated parameters (``_stack_replicated``,
 the layernorms and row-parallel biases) then saw this rank's tokens only, and
-the step sums their gradients over tp. A key drawn inside a step at tp > 1
-raises (ROADMAP item 7b).
+the step sums their gradients over tp. At tp > 1 every rank draws the keys
+a tp = 1 step draws, and a shard draws its part of each mask
+(``nn/utils.dropout``).
 
 Random keys. ``rngs`` names the key streams the module draws from besides
 its parameters (``("dropout",)``, as in the JAX package). Inside a step the
@@ -300,12 +301,6 @@ class DistributedModel:
         if self._key_replay is not None:
             key = next(self._key_replay)
         else:
-            if self._rngs is not None and tp_group() is not None:
-                raise NotImplementedError(
-                    f"{type(module).__name__} draws a {name!r} key inside a step at tensor_parallel_degree > 1 "
-                    "(dropout: each tp rank's part of the mask), which is not ported to PyTorch yet (ROADMAP item "
-                    "7b)."
-                )
             if state.rdp_sharded:
                 topo = state.topology
                 raise NotImplementedError(
@@ -529,7 +524,7 @@ def replay_program_ticks(notes, passes):
         record_quant_dispatch,
     )
 
-    for kind, label, path, stack, phase in notes:
+    for kind, label, path, stack, phase, _call in notes:
         record = record_fused_kernel_dispatch if kind == "fused" else record_quant_dispatch
         for _ in range(passes(kind, phase) * (_SCAN_TRACES if stack is not None else 1)):
             record(label, path)

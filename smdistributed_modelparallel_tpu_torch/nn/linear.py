@@ -16,8 +16,16 @@ full weight drawn, then cut; tp must divide the partitioned features):
     [..., in / tp] block, or the whole input (it keeps its block; backward
     all-gathers), all-reduces the partial products over tp and adds the bias
     once.
-The ``tp_overlap: "ring"`` decomposition is ROADMAP item 7b: at tp > 1 it
-raises.
+Under ``tp_overlap: "ring"`` at tp > 1 (an input of at least two dimensions
+whose second-to-last, the sequence, tp divides) the products are
+``ops/collective_matmul.py``'s rings: ``ColumnParallelLinear`` enters the
+all-gather ring with the rank's T block of its input, ``DistributedLinear``
+the reduce-scatter ring, whose T-sharded sum is gathered back. The JAX layer
+leaves the row-parallel ring's output sequence-sharded ("the logical value
+is identical; only the layout differs"); a port module holds its value as a
+tensor, so each layer returns what it returns without the ring (the whole
+output, or the rank's block): the ring changes how the value is computed,
+not what the module gives.
 
 The modules keep ``torch.nn.Linear``'s parameter names and layout (``weight``
 [out, in], ``bias`` [out]), so a ``nn.Linear`` that ``smp.tensor_parallelism``
@@ -28,7 +36,9 @@ it is rounded, as the flax layer does. Under ``matmul_precision: fp8``
 (inside an ``@smp.step``, where ``quant.fp8_trace_active()``) the product
 goes through ``quant.fp8_matmul`` at the JAX package's seams: slots
 ``linear_row`` (``DistributedLinear``, ``RowParallelLinear``) and
-``linear_col`` (``ColumnParallelLinear``).
+``linear_col`` (``ColumnParallelLinear``), also at tp > 1 (the amax then the
+tp group's, ``quant.finalize``); under the ring the operands round at the
+ring's boundary instead (slots ``ring_rs.*``, ``ring_ag.*``).
 """
 
 import torch
@@ -36,12 +46,12 @@ from torch import nn
 
 from smdistributed_modelparallel_tpu_torch.backend.collectives import copy_to_tp, reduce_from_tp, scatter_to_tp
 from smdistributed_modelparallel_tpu_torch.nn.transformer import _linear, _normal_
+from smdistributed_modelparallel_tpu_torch.ops import collective_matmul as cm
 from smdistributed_modelparallel_tpu_torch.nn.utils import (
     TPSpec,
     divisible_by_tp,
     shard_parameters_,
     tp_group,
-    tp_ring_active,
 )
 
 
@@ -71,13 +81,15 @@ class DistributedLinear(nn.Module):
         _normal_([self], self.init_scale, generator)
 
     def forward(self, x):
-        tp_ring_active()
         group = tp_group()
         if group is None:
             return _linear(x, self.weight, self.bias, self._site)
         if x.shape[-1] == self.in_features:
             x = scatter_to_tp(x, group, -1)
-        y = reduce_from_tp(_linear(x, self.weight, site=self._site), group)
+        if cm.ring_applies("rs", x):
+            y = cm.ring_rs_matmul(x, self.weight.to(x.dtype))
+        else:
+            y = reduce_from_tp(_linear(x, self.weight, site=self._site), group)
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
     def extra_repr(self):
@@ -96,8 +108,10 @@ class ColumnParallelLinear(DistributedLinear):
         shard_parameters_(self, {"weight": spec, "bias": spec})
 
     def forward(self, x):
-        tp_ring_active()
-        return _linear(copy_to_tp(x, tp_group()), self.weight, self.bias, self._site)
+        group = tp_group()
+        if cm.ring_applies("ag", x):
+            return cm.ring_ag_matmul(x, self.weight.to(x.dtype), None if self.bias is None else self.bias.to(x.dtype))
+        return _linear(copy_to_tp(x, group), self.weight, self.bias, self._site, col=True)
 
 
 class RowParallelLinear(DistributedLinear):

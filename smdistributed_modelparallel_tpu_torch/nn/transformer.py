@@ -53,7 +53,8 @@ probabilities (``attention_core``'s ``dropout_rng``, scope "attention"), the
 attention output and the MLP output (their inline ``nn.Dropout``,
 "attention/Dropout_0" and "output/Dropout_0"), and the embedding (the LM
 head's "Dropout_0"). Under context parallelism only the attention dropout
-runs (the ring hashes global positions); the other three raise.
+runs (the ring hashes global positions); the other three raise. At tp > 1
+each rank draws its part of the whole mask (below).
 
 Activation checkpointing (``activation_checkpointing=True`` on the stack or
 the LM head, whose flag is its stack's, or ``smp.set_activation_checkpointing``
@@ -98,11 +99,24 @@ written as Megatron's explicit regions over the tp group
 The weights are drawn whole, then cut (``nn/utils.shard_parameters_``); the
 heads and the MLP width must divide over tp (``SMPValidationError``). The
 tied head's logits are whole on every rank (a vocab-split table's gathered);
-its loss goes through the vocab-parallel CE (``nn/cross_entropy.py``). The
-fused QKV kernel is inert at tp > 1 (``matmul_bias.fused_qkv_ok``), as in the
-JAX package without the ring. Refused at tp > 1 (``refuse_tp``, ROADMAP item
-7b): cross-attention (the encoder-decoder), ``DistributedMoE``, activation
-checkpointing, ``tp_overlap: "ring"`` and key draws inside a step.
+its loss goes through the vocab-parallel CE (``nn/cross_entropy.py``).
+
+``tp_overlap: "ring"`` at tp > 1 (``ops/collective_matmul.py``): the QKV
+and MLP fc products are all-gather rings, the attention and MLP output
+projections reduce-scatter rings (the non-decode self-attention calls only;
+the bias of a row-parallel product added once after its ring). Under
+``"speed"`` the replicated residual enters a ring as the rank's T block and
+the row-parallel ring's T-sharded sum is gathered back; under ``"memory"``
+the residual already is the rank's T block. With ``fused_qkv`` each QKV
+ring chunk is one ``ops/matmul_bias`` launch; without the ring the fused
+QKV kernel is inert at tp > 1 (``matmul_bias.fused_qkv_ok``), as in the JAX
+package. Where tp does not divide T the ring warns once and the layer keeps
+its non-ring path. Dropout at tp > 1 draws the masks a tp = 1 model draws
+from the same keys: the attention probabilities of the rank's heads
+(``attention_core``'s ``head0``/``head_total``), the hidden dropout's whole
+mask on a replicated activation and the rank's T runs of it on a T block.
+Refused at tp > 1 (``refuse_tp``, ROADMAP item 7b): cross-attention (the
+encoder-decoder) and ``DistributedMoE``.
 
 Not ported yet, raising ``NotImplementedError``: activation checkpointing
 under context parallelism.
@@ -146,10 +160,11 @@ from smdistributed_modelparallel_tpu_torch.nn.utils import (
     shard_activation,
     shard_parameters_,
     tp_group,
-    tp_ring_active,
+    tp_rank as _tp_rank,
     tp_size,
 )
 from smdistributed_modelparallel_tpu_torch.ops import bias_gelu as bg
+from smdistributed_modelparallel_tpu_torch.ops import collective_matmul as cm
 from smdistributed_modelparallel_tpu_torch.ops import matmul_bias as mb
 from smdistributed_modelparallel_tpu_torch.ops.attention import attention_core
 from smdistributed_modelparallel_tpu_torch.parallel import memory
@@ -189,7 +204,6 @@ def _tp_in(hidden, seq_sharded):
     """The full activation a layer's column-parallel products read: the
     sequence-parallel shard gathered along T (backward: reduce-scatter), or
     the replicated input entering the tp region (backward: all-reduce)."""
-    tp_ring_active()
     group = tp_group()
     return gather_from_tp(hidden, group, 1) if seq_sharded else copy_to_tp(hidden, group)
 
@@ -201,12 +215,13 @@ def _tp_out(partial, seq_sharded):
     return reduce_scatter_to_tp(partial, group, 1) if seq_sharded else reduce_from_tp(partial, group)
 
 
-def _dropout(module, x, rate):
+def _dropout(module, x, rate, seq_sharded=False):
     """The inline ``nn.Dropout(rate, deterministic=False)`` of ``module``'s
     flax body ("Dropout_0" in its scope), when its rate is above 0 and the
-    model trains."""
+    model trains; ``seq_sharded``: x is the rank's T block, which draws its
+    part of the whole mask."""
     if rate > 0.0 and not resolve_deterministic(module.deterministic):
-        return dropout(x, rate, make_rng(module, "dropout", "Dropout_0"))
+        return dropout(x, rate, make_rng(module, "dropout", "Dropout_0"), seq_sharded=seq_sharded)
     return x
 
 
@@ -238,14 +253,16 @@ def init_weights_(module, std=0.02, generator=None):
     return module
 
 
-def _linear(x, weight, bias=None, site=None):
+def _linear(x, weight, bias=None, site=None, col=False):
     """``x @ weight^T`` in x's dtype, then ``+ bias`` in that dtype: the
     flax einsum with the bias added after the product is rounded. Under an
     fp8 step the product of a named seam (``site``) is ``quant.fp8_matmul``'s,
-    as the JAX layers' ``_fp8_mm`` seams are."""
+    as the JAX layers' ``_fp8_mm`` seams are; ``col``: a column-parallel
+    product, whose output at tp > 1 is the rank's block (the backward's
+    cotangent scale is then the tp group's)."""
     if site is not None and quant.fp8_trace_active():
         program_tick("quant", site, "fp8")
-        y = quant.fp8_matmul(x, weight.to(x.dtype), site)
+        y = quant.fp8_matmul(x, weight.to(x.dtype), site, grad_group=tp_group() if col else None)
     else:
         y = F.linear(x, weight.to(x.dtype))
     if bias is not None:
@@ -340,21 +357,38 @@ class DistributedAttentionLayer(nn.Module):
             shard_parameters_(self, {"qkv.weight": qkv, "qkv.bias": qkv, "dense.weight": TPSpec(1, H * hd, 1, hd)})
             self.tp_heads = self.qkv.weight.shape[0] // (3 * hd)
 
-    def _fused_qkv_wanted(self, hidden):
-        """Whether the fused QKV kernel runs: the config knob, the generic
-        kernel switch, and the kernel's own dispatch precondition."""
-        if not (_cfg("fused_qkv", False) and _cfg("use_pallas_kernels", True)):
+    def _fused_qkv_wanted(self, hidden, ring=False):
+        """Whether the fused QKV kernel runs: the config's knob as the step
+        reads it (``collective_matmul.fused_qkv_effective``: the generic
+        kernel switch, and at tp > 1 the ring) and the kernel's own dispatch
+        precondition (inside the ring it takes the chunk products)."""
+        if not cm.fused_qkv_effective():
             return False
-        return mb.fused_qkv_ok(hidden, ring=False, tp=tp_size())
+        return mb.fused_qkv_ok(hidden, ring=ring, tp=tp_size())
 
-    def _self_qkv(self, hidden):
-        B, T, D = hidden.shape
-        H, hd = self.tp_heads, self.attention_head_size
+    def _self_qkv(self, hidden, seq_sharded=False):
+        """(q, k, v), each [B, T, H/tp, hd]. ``hidden`` is what the layer
+        received: replicated, or the rank's T block under ``seq_sharded``.
+        Under ``tp_overlap: "ring"`` the column-parallel product is
+        ``ops/collective_matmul.ring_ag_matmul`` (the fused kernel a chunk
+        under ``fused_qkv``); else the input enters the tp region whole."""
         w = self.qkv.weight.to(hidden.dtype)
         b = None if self.qkv.bias is None else self.qkv.bias.to(hidden.dtype)
+        H, hd = self.tp_heads, self.attention_head_size
+        knob = _cfg("fused_qkv", False) and _cfg("use_pallas_kernels", True)
+        if not self.decode and cm.ring_applies("ag", hidden, seq_sharded):
+            fused = self._fused_qkv_wanted(hidden, ring=True)
+            qkv = cm.ring_ag_matmul(hidden, w, b, seq_sharded=seq_sharded, fused=fused, call="qkv")
+            if knob:
+                program_tick("fused", "qkv", "pallas" if fused else "fallback")
+            B, T = qkv.shape[:2]
+            qkv = qkv.reshape(B, T, 3, H, hd)
+            return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        hidden = _tp_in(hidden, seq_sharded)
         fused = self._fused_qkv_wanted(hidden)
-        if _cfg("fused_qkv", False) and _cfg("use_pallas_kernels", True):
+        if knob:
             program_tick("fused", "qkv", "pallas" if fused else "fallback")
+        B, T, D = hidden.shape
         if fused:
             # One kernel against the [3*H*hd, D] weight, bias in the epilogue
             # (rounded to the activation dtype first, as the JAX call site's
@@ -368,7 +402,7 @@ class DistributedAttentionLayer(nn.Module):
                 qkv = mb.matmul_bias(hidden.reshape(-1, D), w, b)
             qkv = qkv.reshape(B, T, 3, H, hd)
         else:
-            qkv = _linear(hidden, w, site="qkv").reshape(B, T, 3, H, hd)
+            qkv = _linear(hidden, w, site="qkv", col=True).reshape(B, T, 3, H, hd)
             if b is not None:
                 qkv = qkv + b.reshape(3, H, hd)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -395,9 +429,7 @@ class DistributedAttentionLayer(nn.Module):
         output."""
         if self.cross_attention:
             refuse_tp("cross-attention (the encoder-decoder)")
-        hidden = _tp_in(hidden, seq_sharded)
-        B, T = hidden.shape[:2]
-        if self.cross_attention:
+            hidden = _tp_in(hidden, seq_sharded)
             if cross_states is None:
                 raise SMPValidationError("cross_attention=True requires cross_states input.")
             if self.decode and self.cross_kv is not None:
@@ -409,7 +441,8 @@ class DistributedAttentionLayer(nn.Module):
                 if self.decode:
                     self.cross_kv = (k, v)
         else:
-            q, k, v = self._self_qkv(hidden)
+            q, k, v = self._self_qkv(hidden, seq_sharded)
+        B, T = q.shape[:2]
         q, k, v = (shard_activation(t) for t in (q, k, v))
         # Under context parallelism a step holds the rank's shard of each
         # sequence, which starts at cp_rank * T (0 outside a step).
@@ -483,11 +516,18 @@ class DistributedAttentionLayer(nn.Module):
             dropout_rate=self.attention_dropout_prob,
             dropout_rng=dropout_rng,
             use_pallas=_cfg("use_pallas_kernels", True),
+            # A tp rank's heads draw their part of the whole mask.
+            **({} if self.tp_heads == self.num_attention_heads else
+               dict(head0=_tp_rank() * self.tp_heads, head_total=self.num_attention_heads)),
         )
-        out = _tp_out(_linear(ctx.reshape(B, T, -1), self.dense.weight, site="attn_proj"), seq_sharded)
+        ctx = ctx.reshape(B, T, -1)
+        if not self.decode and not self.cross_attention and cm.ring_applies("rs", ctx):
+            out = cm.ring_rs_matmul(ctx, self.dense.weight.to(ctx.dtype), seq_sharded=seq_sharded, call="attn_proj")
+        else:
+            out = _tp_out(_linear(ctx, self.dense.weight, site="attn_proj"), seq_sharded)
         if self.dense.bias is not None:
             out = out + self.dense.bias.to(out.dtype)
-        return _dropout(self, out, self.hidden_dropout_prob)
+        return _dropout(self, out, self.hidden_dropout_prob, seq_sharded)
 
 
 class DistributedTransformerOutputLayer(nn.Module):
@@ -535,21 +575,36 @@ class DistributedTransformerOutputLayer(nn.Module):
         return ok
 
     def forward(self, hidden, seq_sharded=False):
-        """``seq_sharded`` as for ``DistributedAttentionLayer``."""
-        hidden = _tp_in(hidden, seq_sharded)
-        if self._fused_gelu_wanted(hidden):
-            h = _linear(hidden, self.fc.weight, site="mlp_fc")
+        """``seq_sharded`` as for ``DistributedAttentionLayer``. Under
+        ``tp_overlap: "ring"`` the column-parallel products are
+        ``ring_ag_matmul`` (bias-free before the fused bias-GELU) and the
+        row-parallel one ``ring_rs_matmul``."""
+        ring = cm.ring_applies("ag", hidden, seq_sharded)
+        full = hidden if ring else _tp_in(hidden, seq_sharded)
+
+        def col(weight, bias=None, call="mlp_fc"):
+            if ring:
+                return cm.ring_ag_matmul(hidden, weight.to(hidden.dtype),
+                                         None if bias is None else bias.to(hidden.dtype), seq_sharded=seq_sharded,
+                                         call=call)
+            return _linear(full, weight, bias, site="mlp_fc", col=True)
+
+        if self._fused_gelu_wanted(full):
+            h = col(self.fc.weight)
             # The bias rounded to the activation dtype first, as the JAX call
             # site's fc_bias.astype(h.dtype) does; the kernels widen it.
             h = fused_bias_gelu(h, self.fc.bias.to(h.dtype))
         else:
-            h = _linear(hidden, self.fc.weight, self.fc.bias, site="mlp_fc")
+            h = col(self.fc.weight, self.fc.bias)
             act = _ACTIVATIONS[self.activation]
-            h = act(_linear(hidden, self.gate.weight, site="mlp_fc")) * h if self.gated_mlp else act(h)
-        out = _tp_out(_linear(h, self.proj.weight, site="mlp_proj"), seq_sharded)
+            h = act(col(self.gate.weight, call="mlp_gate")) * h if self.gated_mlp else act(h)
+        if ring:
+            out = cm.ring_rs_matmul(h, self.proj.weight.to(h.dtype), seq_sharded=seq_sharded, call="mlp_proj")
+        else:
+            out = _tp_out(_linear(h, self.proj.weight, site="mlp_proj"), seq_sharded)
         if self.proj.bias is not None:
             out = out + self.proj.bias.to(out.dtype)
-        return _dropout(self, out, self.hidden_dropout_prob)
+        return _dropout(self, out, self.hidden_dropout_prob, seq_sharded)
 
 
 class DistributedTransformerLayer(nn.Module):

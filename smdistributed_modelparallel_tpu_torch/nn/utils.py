@@ -5,9 +5,10 @@ padded prompts, the decode KV cache and the paged KV cache of the serving
 engine.
 
 Counterparts on one device of ``smdistributed_modelparallel_tpu/nn/
-utils.py``: ``tp_size``/``tp_enabled``, ``tp_ring_active`` (the ring raises:
-ROADMAP item 7b), ``shard_activation`` (the identity: the layers call the tp
-regions of ``backend/collectives.py`` instead), ``resolve_deterministic``,
+utils.py``: ``tp_size``/``tp_enabled`` (its ``tp_ring_active`` is
+``ops/collective_matmul.tp_overlap_active``, which the layers call through
+``ring_applies``), ``shard_activation`` (the identity: the layers call the
+tp regions of ``backend/collectives.py`` instead), ``resolve_deterministic``,
 ``fused_bias_gelu`` (the kernel on the rank's block, with the fp8 epilogue
 input), ``half_cast``, ``mask_keep_2d``, ``pad_row_offset``,
 ``DecodeKVCache`` and ``PagedKVCache``. The tp helpers of the port's own:
@@ -15,7 +16,8 @@ input), ``half_cast``, ``mask_keep_2d``, ``pad_row_offset``,
 decision), ``TPSpec`` with ``shard_parameters_`` and ``tp_param_specs``
 (how a layer holds its part of a parameter) and ``divisible_by_tp``.
 ``make_rng`` is flax's ``Module.make_rng`` for the port's modules and
-``dropout`` flax's ``nn.Dropout`` (``ops/dropout.py``). ``program_tick``
+``dropout`` flax's ``nn.Dropout`` (``ops/dropout.py``; a tp rank's T block
+draws its part of the whole mask through ``shard_index``). ``program_tick``
 notes the dispatch decisions that the JAX package counts while it traces
 (``collect_program_ticks``; ``model.replay_program_ticks`` ticks them).
 """
@@ -54,18 +56,6 @@ def tp_rank():
     if not tp_enabled() or state.topology is None:
         return 0
     return state.topology.coords(state.rank)[TP_AXIS]
-
-
-def tp_ring_active():
-    """Whether the overlapped-tp ring path applies (``tp_overlap: "ring"`` at
-    tp > 1): the ring, ``ops/collective_matmul.py``, is ROADMAP item 7b, so
-    asking for it raises; otherwise False."""
-    if tp_enabled() and getattr(state.cfg, "tp_overlap", "off") == "ring":
-        raise NotImplementedError(
-            'tp_overlap: "ring" (the overlapped ring, ops/collective_matmul.py) at tensor_parallel_degree > 1 is '
-            "not ported to PyTorch yet (ROADMAP item 7b)."
-        )
-    return False
 
 
 def shard_activation(x, *spec):
@@ -215,18 +205,21 @@ class _ProgramTicks(threading.local):
 _program_ticks = _ProgramTicks()
 
 
-def program_tick(kind, *labels):
+def program_tick(kind, *labels, call=None):
     """One dispatch decision of a layer that the JAX package counts while it
     traces a program, so once per compiled program, not per call:
     ``("fused", kernel, path)`` for ``record_fused_kernel_dispatch`` and
     ``("quant", site, path)`` for ``record_quant_dispatch``. Inside
     ``collect_program_ticks`` it is noted once per layer stack (and
     generate pass), whatever the number of layers and microbatches that make
-    it, as ``(kind, *labels, stack, phase)``; elsewhere it is dropped
-    (``model.replay_program_ticks`` ticks the notes)."""
+    it, as ``(kind, *labels, stack, phase, call)``; elsewhere it is dropped
+    (``model.replay_program_ticks`` ticks the notes). ``call`` tells apart
+    two call sites of a layer that share a site label (the ring's QKV and fc
+    products are both ``ring_ag``), which the JAX package's trace counts
+    apart."""
     t = _program_ticks
     if t.notes is not None:
-        t.notes.setdefault((kind, *labels, t.stack, t.phase))
+        t.notes.setdefault((kind, *labels, t.stack, t.phase, call))
 
 
 @contextlib.contextmanager
@@ -271,17 +264,37 @@ def make_rng(module, name="dropout", child=None):
     return model.make_rng(module, name, child)
 
 
-def dropout(x, rate, key):
+def shard_index(shape, dim, index, parts):
+    """``(offset, run, stride)``: where the elements of a tensor of
+    ``shape`` lie in the flat row-major order of the whole one, when it is
+    part ``index`` of ``parts`` equal parts along ``dim`` (a tp rank's heads
+    of [B, H, T, S] probabilities, its T block of [B, T, D]): local element
+    i is whole element ``offset + (i // run) * stride + i % run``. The map
+    that ``ops/dropout.py``'s draws take, so a shard draws its part of the
+    whole tensor's mask."""
+    inner = 1
+    for n in shape[dim + 1:]:
+        inner *= int(n)
+    run = int(shape[dim]) * inner
+    return index * run, run, parts * run
+
+
+def dropout(x, rate, key, seq_sharded=False):
     """flax's ``nn.Dropout(rate, deterministic=False)(x)`` with ``key``
-    (``ops/dropout.dropout``: the kernel on the card). Under context
-    parallelism a rank holds a sequence shard of the activation, whose part
-    of the global mask is not drawn yet, so it raises."""
+    (``ops/dropout.dropout``: the kernel on the card). ``seq_sharded``: x is
+    this tp rank's T block of a [B, T, ...] activation (the memory layout's
+    residual stream), which draws the rank's runs of the whole tensor's
+    mask, as the JAX package's partitionable threefry does. Under context
+    parallelism a rank holds a sequence shard whose part of the global mask
+    is not drawn yet, so it raises."""
     if state.cp_sharded:
         raise NotImplementedError(
             "hidden and embedding dropout under context parallelism (each rank's part of the global mask, "
             "drawn at its shard's offset) is not ported to PyTorch yet (ROADMAP Queue 1 item 6: what context "
             "parallelism left behind); attention dropout is."
         )
+    if seq_sharded:
+        return dropout_op.dropout(x, rate, key, index=shard_index(x.shape, 1, tp_rank(), tp_size()))
     return dropout_op.dropout(x, rate, key)
 
 

@@ -131,6 +131,8 @@ def attention_core(
     dropout_rate: float = 0.0,
     dropout_rng=None,
     use_pallas: bool = True,
+    head0: Optional[int] = None,
+    head_total: Optional[int] = None,
 ):
     """Multi-head attention over [B, T, H, hd] q and [B, S, H, hd] k/v.
 
@@ -162,6 +164,10 @@ def attention_core(
         ``bernoulli(dropout_rng, 1 - rate)`` over the probabilities.
       use_pallas: False keeps the call off the flash kernels (the config's
         ``use_pallas_kernels``).
+      head0/head_total: q's heads are heads [head0, head0 + H) of
+        ``head_total`` (a tp rank's heads): the dropout mask is that part of
+        the whole [B, head_total, T, S] mask (the kernels hash the global
+        head index; the plain path draws the rank's runs of the bits).
     Returns: [B, T, H, hd].
     """
     hd = q.shape[-1]
@@ -179,7 +185,8 @@ def attention_core(
     kpad = _as_key_padding_bias(mask, mask_value) if use_kernel else None
     if use_kernel and (mask is None or kpad is not None):
         o, _ = flash_attention(q, k, v, kpad, seed=seed, scale=float(scale), causal=causal, window=window,
-                               dropout_rate=rate)
+                               dropout_rate=rate, head0=head0 if rate > 0.0 else None,
+                               head_total=head_total if rate > 0.0 else None)
         return o
 
     T, S = q.shape[1], k.shape[1]
@@ -213,6 +220,9 @@ def attention_core(
     if bias is not None:
         scores = scores + bias.float()
     probs = torch.softmax(scores, dim=-1)
-    if rate > 0.0:
+    if rate > 0.0 and head0 is not None:
+        run = probs.shape[1] * T * S  # B runs of this rank's heads
+        probs = dropout(probs, rate, dropout_rng, index=(head0 * T * S, run, head_total * T * S))
+    elif rate > 0.0:
         probs = dropout(probs, rate, dropout_rng)
     return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)

@@ -9,12 +9,16 @@ elementwise launches (``utils/random.threefry2x32``: 20 rounds of seven), so
 ``csrc/dropout.cu`` holds the one kernel family the dropout sites and the
 sampler run on the card:
 
-- ``threefry_bits(key, n, offset)``: the uint32 bits of elements ``[offset,
-  offset + n)`` of ``jax.random.bits(key, shape)`` (partitionable layout:
-  element i is threefry2x32(key, (i >> 32, i & 0xFFFFFFFF)), its two words
-  XORed), as int32 bit patterns. ``offset`` lets a shard draw its part of a
-  global array;
-- ``dropout_fwd(x, rate, key)``: flax's ``Dropout`` in one pass:
+- ``threefry_bits(key, n, offset, run, stride)``: the uint32 bits of n
+  elements of ``jax.random.bits(key, shape)`` (partitionable layout: element
+  i is threefry2x32(key, (i >> 32, i & 0xFFFFFFFF)), its two words XORed),
+  as int32 bit patterns: local element i is whole element ``offset + (i //
+  run) * stride + i % run`` (``run`` None: ``offset + i``). The index map
+  lets a shard draw its part of a global array: a flat range, or a tp rank's
+  heads of [B, H, T, S] (B runs of (H/tp)·T·S at stride H·T·S) or its T
+  block of [B, T, D] (B runs of (T/tp)·D at stride T·D);
+- ``dropout_fwd(x, rate, key, index)``: flax's ``Dropout`` in one pass, over
+  the elements ``index`` = (offset, run, stride) maps x onto:
   ``keep = uniform(bits) < fp32(1 - rate)`` and ``y = keep ? x / kp : 0``,
   ``kp`` = ``1 - rate`` rounded to x's dtype (JAX divides by the Python
   float as a weakly typed scalar, which rounds to x's dtype first: for bf16
@@ -25,7 +29,8 @@ sampler run on the card:
 
 Each wrapper runs its plain PyTorch version for tensors on the CPU and the
 kernel for CUDA tensors, and never falls back from one to the other;
-``.launches`` counts the kernel launches. ``dropout`` wires the pair into a
+``.launches`` counts the kernel launches, ``.shard_launches`` those of them
+whose index map has more than one run. ``dropout`` wires the pair into a
 ``torch.autograd.Function``. ``bits``, ``uniform``, ``bernoulli``,
 ``gumbel`` and ``categorical`` are ``jax.random``'s functions of the same
 names over ``threefry_bits`` (the keys themselves are ``utils/random``'s,
@@ -55,20 +60,43 @@ def _scale(rate, dtype):
     return _threshold(keep_prob), float(torch.tensor(keep_prob, dtype=dtype))
 
 
-def reference_threefry_bits(key, n, offset=0, device="cpu"):
+def _flat(n, index):
+    """``(offset, run, stride)`` of an index map, a flat range of n elements
+    as one run of n."""
+    offset, run, stride = (0, None, None) if index is None else index
+    if run is None or run >= n:
+        return int(offset), max(int(n), 1), max(int(n), 1)
+    if run <= 0 or stride < run or n % run:
+        raise ValueError(f"index map: run {run} and stride {stride} must satisfy 0 < run <= stride, run dividing "
+                         f"the {n} elements")
+    return int(offset), int(run), int(stride)
+
+
+def _global_index(n, index, device):
+    """The whole tensor's flat index of each of n local elements (int64)."""
+    offset, run, stride = _flat(n, index)
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    if run == n:
+        return i + offset
+    return offset + torch.div(i, run, rounding_mode="floor") * stride + i % run
+
+
+def reference_threefry_bits(key, n, offset=0, device="cpu", run=None, stride=None):
     """Plain PyTorch version of ``smp_threefry_bits``: int64 arithmetic masked
     to 32 bits, the result as int32 bit patterns."""
-    i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+    i = _global_index(n, (offset, run, stride), device)
     y0, y1 = threefry2x32(as_key(key), i >> 32, i & MASK32)
     b = y0 ^ y1
     return torch.where(b >= 1 << 31, b - (1 << 32), b).to(torch.int32)
 
 
-def reference_dropout_fwd(x, rate, key):
+def reference_dropout_fwd(x, rate, key, index=None):
     """Plain PyTorch version of ``smp_dropout_fwd``: ``(y, keep)``, keep a
     bool tensor of x's shape."""
     thresh, kp = _scale(rate, x.dtype)
-    keep = _uniform_from_bits(reference_threefry_bits(key, x.numel(), 0, x.device)).reshape(x.shape) < thresh
+    offset, run, stride = _flat(x.numel(), index)
+    bits = reference_threefry_bits(key, x.numel(), offset, x.device, run, stride)
+    keep = _uniform_from_bits(bits).reshape(x.shape) < thresh
     return torch.where(keep, x / _divisor(kp, x), 0.0), keep
 
 
@@ -100,21 +128,25 @@ def _launch(fn, *args, device):
         raise RuntimeError(f"{fn} launch failed: {lib.smp_cuda_error_string(err).decode()}")
 
 
-def threefry_bits(key, n, offset=0, device="cpu"):
-    """The uint32 bits of elements ``[offset, offset + n)`` of
-    ``jax.random.bits(key, shape)``, as an int32 tensor [n] of the same bit
-    patterns on ``device``: the plain version on the CPU, ``csrc/dropout.cu``
-    on a CUDA device."""
+def threefry_bits(key, n, offset=0, device="cpu", run=None, stride=None):
+    """The uint32 bits of n elements of ``jax.random.bits(key, shape)``,
+    local element i being element ``offset + (i // run) * stride + i % run``
+    (``run`` None: ``offset + i``), as an int32 tensor [n] of the same bit
+    patterns on ``device``: the plain version on the CPU,
+    ``csrc/dropout.cu`` on a CUDA device."""
     device = torch.device(device)
     key = as_key(key)
     if device.type == "cpu":
-        return reference_threefry_bits(key, n, offset, device)
+        return reference_threefry_bits(key, n, offset, device, run, stride)
     out = torch.empty(n, dtype=torch.int32, device=device)
     if not _is_cuda(out):
         raise ValueError(f"threefry_bits: device {device} is neither the CPU nor a CUDA device")
     if n:
-        _launch("smp_threefry_bits", out.data_ptr(), int(key[0]), int(key[1]), offset, n, device=device)
+        offset, run, stride = _flat(n, (offset, run, stride))
+        _launch("smp_threefry_bits", out.data_ptr(), int(key[0]), int(key[1]), offset, n, run, stride,
+                device=device)
         threefry_bits.launches += 1
+        threefry_bits.shard_launches += run < n
     return out
 
 
@@ -123,13 +155,15 @@ def _check(name, x):
         raise TypeError(f"{name} kernel takes fp32, fp16 or bf16; got {x.dtype}")
 
 
-def dropout_fwd(x, rate, key):
+def dropout_fwd(x, rate, key, index=None):
     """``(y, mask)`` of flax's ``Dropout(rate)`` on x with ``key`` (``0 <
-    rate < 1``): the plain version for CPU tensors (mask a bool tensor),
-    ``smp_dropout_fwd`` for CUDA tensors (mask uint8)."""
+    rate < 1``), x holding the elements of the whole tensor that ``index`` =
+    ``(offset, run, stride)`` maps it onto (None: all of it): the plain
+    version for CPU tensors (mask a bool tensor), ``smp_dropout_fwd`` for
+    CUDA tensors (mask uint8)."""
     key = as_key(key)
     if x.device.type == "cpu":
-        return reference_dropout_fwd(x, rate, key)
+        return reference_dropout_fwd(x, rate, key, index)
     if not _is_cuda(x):
         raise ValueError(f"dropout_fwd: x must lie on the CPU or a CUDA device, got {x.device}")
     _check("dropout_fwd", x)
@@ -138,9 +172,11 @@ def dropout_fwd(x, rate, key):
     mask = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     thresh, kp = _scale(rate, x.dtype)
     if x.numel():
+        offset, run, stride = _flat(x.numel(), index)
         _launch("smp_dropout_fwd", _DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(), mask.data_ptr(), int(key[0]),
-                int(key[1]), x.numel(), thresh, kp, device=x.device)
+                int(key[1]), x.numel(), offset, run, stride, thresh, kp, device=x.device)
         dropout_fwd.launches += 1
+        dropout_fwd.shard_launches += run < x.numel()
     return y, mask
 
 
@@ -167,6 +203,8 @@ def dropout_bwd(dy, mask, rate):
 
 threefry_bits.launches = 0
 dropout_fwd.launches = 0
+threefry_bits.shard_launches = 0  # of them, the launches over several runs of an index map (a tp shard)
+dropout_fwd.shard_launches = 0
 dropout_bwd.launches = 0
 
 
@@ -175,8 +213,8 @@ class _DropoutFn(torch.autograd.Function):
     one ``dropout_bwd`` that reads it."""
 
     @staticmethod
-    def forward(ctx, x, rate, key):
-        y, mask = dropout_fwd(x, rate, key)
+    def forward(ctx, x, rate, key, index):
+        y, mask = dropout_fwd(x, rate, key, index)
         ctx.rate = rate
         ctx.save_for_backward(mask)
         return y
@@ -185,19 +223,21 @@ class _DropoutFn(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy):
         (mask,) = ctx.saved_tensors
-        return dropout_bwd(dy, mask, ctx.rate), None, None
+        return dropout_bwd(dy, mask, ctx.rate), None, None, None
 
 
-def dropout(x, rate, key):
+def dropout(x, rate, key, index=None):
     """flax's ``nn.Dropout(rate)(x)`` in training mode with the key ``key``:
     x for rate 0, zeros for rate 1 (no draw), else ``select(bernoulli(key,
     1 - rate, x.shape), x / (1 - rate), 0)`` with the division in x's dtype.
+    ``index`` = ``(offset, run, stride)``: x is a shard, which takes its
+    elements of the whole tensor's mask (``threefry_bits``' map).
     Differentiable in x."""
     if rate == 0.0:
         return x
     if rate == 1.0:  # zeros whose gradient is zero (flax's zeros_like)
         return torch.where(torch.zeros((), dtype=torch.bool, device=x.device), x, 0.0)
-    return _DropoutFn.apply(x, float(rate), as_key(key))
+    return _DropoutFn.apply(x, float(rate), as_key(key), index)
 
 
 def bits(key, shape, device="cpu", offset=0):
@@ -262,9 +302,10 @@ def _kernel():
         lib = _build.load("dropout")
         c_int, c_ptr, c_u32, c_i64, c_f = ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_longlong, \
             ctypes.c_float
-        lib.smp_threefry_bits.argtypes = [c_ptr, c_u32, c_u32, c_i64, c_i64, c_ptr]
+        lib.smp_threefry_bits.argtypes = [c_ptr, c_u32, c_u32, c_i64, c_i64, c_i64, c_i64, c_ptr]
         lib.smp_threefry_bits.restype = c_int
-        lib.smp_dropout_fwd.argtypes = [c_int, c_ptr, c_ptr, c_ptr, c_u32, c_u32, c_i64, c_f, c_f, c_ptr]
+        lib.smp_dropout_fwd.argtypes = [c_int, c_ptr, c_ptr, c_ptr, c_u32, c_u32, c_i64, c_i64, c_i64, c_i64, c_f,
+                                        c_f, c_ptr]
         lib.smp_dropout_bwd.argtypes = [c_int, c_ptr, c_ptr, c_ptr, c_i64, c_f, c_ptr]
         for fn in (lib.smp_dropout_fwd, lib.smp_dropout_bwd):
             fn.restype = c_int

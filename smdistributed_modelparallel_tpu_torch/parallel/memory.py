@@ -44,6 +44,14 @@ in the forward only: the model takes none while keys replay
 the region as a keyword argument, so the recompute reads the same tensor and
 the gradient reaches the encoder through every layer.
 
+At tp > 1 a region's recompute replays the layer's tp regions and ring hops
+(``ops/collective_matmul.py``) in its forward's order. Every tp rank runs
+the same graph, so its autograd engine reaches each recompute at the same
+point of the backward (torch's early stop, where it cuts a recompute short,
+cuts every rank's at the same op): the collectives meet, on the autograd
+thread where the card's backward runs. The replayed keys draw the same
+shards of the masks (``nn/utils.dropout``'s index map).
+
 Not ported yet: the pipeline executors' ring plans (``zero_bubble_ring_plan``,
 ``recompute_ring_plan``; the pipeline slice).
 """
@@ -286,10 +294,6 @@ def run_checkpointed(fn, args, kwargs=None, policy=None, offloader=None):
         raise NotImplementedError(
             "activation checkpointing under context parallelism is not ported to PyTorch yet (ROADMAP Queue 1 "
             "item 6: what context parallelism left behind)."
-        )
-    if state.cfg is not None and state.cfg.tensor_parallel_degree > 1:
-        raise NotImplementedError(
-            "activation checkpointing at tensor_parallel_degree > 1 is not ported to PyTorch yet (ROADMAP item 7b)."
         )
     replay = _Replay()
     run = functools.partial(torch_checkpoint.checkpoint, _bind(fn, replay), *args, use_reentrant=False,

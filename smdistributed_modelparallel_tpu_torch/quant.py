@@ -47,6 +47,7 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed
 
 from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.ops.matmul_fp8 import matmul_fp8
@@ -269,14 +270,22 @@ def use_trace(trace):
         _TRACE.ctx = outer
 
 
-def finalize(qs):
+def finalize(qs, group=None):
     """The step's rolled state: each observed slot's history shifted by one
     (newest at column 0), unobserved slots untouched, and every scale
     refreshed from its history's running max (``max_amax / fmax`` once an
-    entry landed, 1.0 before)."""
+    entry landed, 1.0 before). ``group``: the ranks whose observations are
+    parts of one global tensor's (the tp group): each slot's amax is first
+    the max over the group, in one exchange, so that every rank rolls the
+    JAX package's global state (a replicated operand's max is its own)."""
     ctx = _ctx()
     hist = qs.amax_history
     observed = ctx.observed if ctx is not None else {}
+    if observed and group is not None:
+        slots = [slot for slot in SITE_SLOTS if slot in observed]
+        maxed = group.reduced(torch.stack([observed[slot].reshape(()).float() for slot in slots]),
+                              torch.distributed.ReduceOp.MAX)
+        observed = dict(zip(slots, maxed.unbind(0)))
     if observed:
         rows = []
         for i, slot in enumerate(SITE_SLOTS):
@@ -311,10 +320,15 @@ def _cast_f8(x, slot):
     return x8, d
 
 
-def _cast_e5m2_current(g):
+def _cast_e5m2_current(g, group=None):
     """(g8, scale): e5m2 cotangent with CURRENT scaling, ``amax(g) /
-    E5M2_MAX`` from the tensor itself (1.0 when g is all zero)."""
+    E5M2_MAX`` from the tensor itself (1.0 when g is all zero). ``group``:
+    g is this rank's shard of the whole cotangent (a column-parallel
+    product's output block at tp > 1), whose amax is the max over the
+    group's, as the JAX package's amax of the global array is."""
     ag = g.detach().abs().amax().float()
+    if group is not None:
+        ag = group.reduced(ag, torch.distributed.ReduceOp.MAX)
     # A 0-dim divisor on g's device: a true division, where a Python float
     # would be a multiplication by its (inexact) reciprocal on the card.
     d = torch.where(ag > 0.0, ag / torch.full((), E5M2_MAX, device=ag.device), 1.0)
@@ -340,7 +354,7 @@ class _Fp8Mm2d(torch.autograd.Function):
     fp32 row sum of g."""
 
     @staticmethod
-    def forward(ctx, x2, w2, b, site, use_pallas):
+    def forward(ctx, x2, w2, b, site, use_pallas, grad_group):
         x8, dx = _cast_f8(x2, site + ".x")
         w8, dw = _cast_f8(w2, site + ".w")
         if use_pallas:
@@ -351,6 +365,7 @@ class _Fp8Mm2d(torch.autograd.Function):
             y = y + b.float()
         ctx.save_for_backward(x8, dx, w8, dw)
         ctx.dtypes = (x2.dtype, w2.dtype, None if b is None else b.dtype)
+        ctx.grad_group = grad_group
         return y.to(x2.dtype)
 
     @staticmethod
@@ -358,7 +373,7 @@ class _Fp8Mm2d(torch.autograd.Function):
     def backward(ctx, g):
         x8, dx, w8, dw = ctx.saved_tensors
         x_dt, w_dt, b_dt = ctx.dtypes
-        g8, dg = _cast_e5m2_current(g)
+        g8, dg = _cast_e5m2_current(g, ctx.grad_group)
         gx = gw = gb = None
         if ctx.needs_input_grad[0]:
             gx = _f8_dot(g8, w8, dg * dw).to(x_dt)
@@ -366,24 +381,26 @@ class _Fp8Mm2d(torch.autograd.Function):
             gw = _f8_dot(g8.t(), x8, dx * dg).to(w_dt)
         if b_dt is not None and ctx.needs_input_grad[2]:
             gb = g.float().sum(0).to(b_dt)
-        return gx, gw, gb, None, None
+        return gx, gw, gb, None, None, None
 
 
-def fp8_matmul(x, w, site, *, bias=None, n_contract=1, use_pallas=False):
+def fp8_matmul(x, w, site, *, bias=None, n_contract=1, use_pallas=False, grad_group=None):
     """``x @ w^T (+ bias)`` through the fp8 delayed-scaling path: x's last
     ``n_contract`` dims contracted with the port's ``nn.Linear``-style weight
     w [F, K] (the JAX package's w [K..., F...] flattened and transposed).
     Returns [..., F] in x's dtype. ``use_pallas`` sends the forward product
     through ``ops/matmul_fp8`` (the fused QKV's rung); every other seam, and
     the backward, keeps the plain f8 product. Records the amax of x and w
-    that feeds the next step's scales."""
+    that feeds the next step's scales. ``grad_group``: the output is this
+    rank's block of a column-parallel product, so the backward's current
+    scale comes from the cotangent's amax over the group."""
     lead = x.shape[:x.dim() - n_contract]
     k = int(np.prod(x.shape[x.dim() - n_contract:], dtype=np.int64))
     x2 = x.reshape(-1, k)
     w2 = w.reshape(-1, k)
     _record_amax(x2, site + ".x")
     _record_amax(w2, site + ".w")
-    y = _Fp8Mm2d.apply(x2, w2, None if bias is None else bias.reshape(-1), site, use_pallas)
+    y = _Fp8Mm2d.apply(x2, w2, None if bias is None else bias.reshape(-1), site, use_pallas, grad_group)
     return y.reshape(*lead, w2.shape[0])
 
 

@@ -187,11 +187,21 @@ rank. Under ``optimize: "memory"`` the layer stacks run their residual
 stream sharded along T, so the replicated parameters inside them (the
 layernorms and the row-parallel biases) are first summed over tp
 (``model._stack_replicated``), as GSPMD's transpose sums them in the JAX
-package. tp runs beside rdp. At tp > 1 the step refuses, naming ROADMAP item
-7b: ``tp_overlap: "ring"``, fp16, ``matmul_precision: fp8``,
-``SMP_HEALTH_CHECK``, tp beside cp or ep, and (where the model raises) any
-key drawn inside the step, activation checkpointing, ``DistributedMoE`` and
-the encoder-decoder.
+package. tp runs beside rdp. Every single-card training option runs at tp >
+1 as it does in the JAX package:
+  - ``tp_overlap: "ring"`` (``ops/collective_matmul.py``; the fused QKV then
+    runs a ``matmul_bias`` launch a ring chunk);
+  - dropout: every tp rank draws the keys a tp = 1 step draws, and a shard
+    its part of the whole mask (``nn/utils.dropout``);
+  - activation checkpointing (``parallel/memory.py``);
+  - fp8: each slot's amax is the max over the tp group before
+    ``quant.finalize`` rolls it, so every rank's scales are the global ones;
+  - the sentinel and fp16's overflow flag: the health word is the tp group's
+    (``HealthCollector.pack``: shards counted on every rank, replicated
+    tensors on the first), so a shard that overflows makes every rank skip
+    the step and move the scale.
+At tp > 1 the step refuses tp beside cp or ep, and the model refuses
+``DistributedMoE`` and the encoder-decoder, each naming ROADMAP item 7b.
 
 Not ported yet, each raising ``NotImplementedError`` when asked for:
 pipeline parallelism, ZeRO-3 (``sharded_params``), shape buckets
@@ -220,6 +230,7 @@ from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.backend.topology import CP_AXIS, DATA_AXES, EXPERT_REPLICA_AXES, ROW_AXES, TP_AXIS
 from smdistributed_modelparallel_tpu_torch.model import DistributedModel, replay_program_ticks
 from smdistributed_modelparallel_tpu_torch.nn.utils import collect_program_ticks
+from smdistributed_modelparallel_tpu_torch.ops.collective_matmul import fused_qkv_effective, tp_overlap_mode
 from smdistributed_modelparallel_tpu_torch.resilience.chaos import chaos
 from smdistributed_modelparallel_tpu_torch.resilience.preemption import preemption
 from smdistributed_modelparallel_tpu_torch.resilience.supervisor import supervisor
@@ -258,18 +269,11 @@ def _check_supported(cfg):
     if cfg.pipeline_parallel_degree > 1:
         raise _not_ported("pipeline_parallel_degree > 1")
     topo = state.topology
-    if cfg.tensor_parallel_degree > 1:
-        for asks, what in ((getattr(cfg, "tp_overlap", "off") == "ring",
-                            'tp_overlap: "ring" (the overlapped ring, ops/collective_matmul.py)'),
-                           (cfg.fp16, "fp16 (the loss scaler's overflow flag would have to agree over tp)"),
-                           (quant.matmul_precision_mode(cfg) == "fp8",
-                            "matmul_precision: fp8 (the fp8 seams and their amax over tp)"),
-                           (health.mode() != "off", "SMP_HEALTH_CHECK (the sentinel's word over tp)"),
-                           (topo.cp_size * topo.ep_size > 1, "tp beside context or expert parallelism")):
-            if asks:
-                raise NotImplementedError(
-                    f"@smp.step: {what} at tensor_parallel_degree > 1 is not ported to PyTorch yet (ROADMAP item 7b)."
-                )
+    if cfg.tensor_parallel_degree > 1 and topo.cp_size * topo.ep_size > 1:
+        raise NotImplementedError(
+            "@smp.step: tp beside context or expert parallelism at tensor_parallel_degree > 1 is not ported to "
+            "PyTorch yet (ROADMAP item 7b)."
+        )
     if topo.rdp_size * topo.ep_size > 1:
         for asks, what in ((cfg.fp16, "fp16 (the loss scaler's overflow flag)"),
                            (quant.matmul_precision_mode(cfg) == "fp8", "matmul_precision: fp8 (the amax)"),
@@ -474,10 +478,11 @@ def _count_tokens(stacked):
 
 def _program_key(stacked, model):
     """What the JAX package keys its compiled step program on, as far as the
-    port can see it: the shapes and dtypes of the tensor inputs and the
-    model's train/eval mode."""
+    port can see it: the shapes and dtypes of the tensor inputs, the model's
+    train/eval mode and the overlapped-tp knobs as the JAX step canonicalizes
+    them (``tp_overlap_mode``, ``fused_qkv_effective``)."""
     return tuple((tuple(x.value.shape), x.value.dtype) for x in _split_leaves(stacked)
-                 if isinstance(x.value, torch.Tensor)), model.training
+                 if isinstance(x.value, torch.Tensor)), model.training, tp_overlap_mode(), fused_qkv_effective()
 
 
 def _synchronize(device):
@@ -495,7 +500,9 @@ def _jax_leaves(model, tensors):
     groups = model._health_leaf_groups
     if groups is None or set(tensors) - set(groups[1]):
         groups = model._health_leaf_groups = health.jax_leaf_groups(model, list(tensors))
-    return [health.Leaf(tensors[n] for n in names if n in tensors) for names in groups[0]]
+    specs = model._tp_specs
+    return [health.Leaf((tensors[n] for n in names if n in tensors), sharded=any(n in specs for n in names))
+            for names in groups[0]]
 
 
 class StepFunction:
@@ -604,7 +611,7 @@ class StepFunction:
         of every microbatch; returns the step's ``StepOutput``."""
         num_mb = cfg.microbatches
         group = state.group(DATA_AXES)  # every rank that holds tokens of the microbatch
-        cp, rows = state.group(CP_AXIS), state.group(ROW_AXES)
+        cp, rows, tp = state.group(CP_AXIS), state.group(ROW_AXES), state.group(TP_AXIS)
         if cp is not None:
             stacked_args, stacked_kwargs = _shard_sequence((stacked_args, stacked_kwargs), cp.index, cp.size)
         # Forgot-optimizer.step() detector: unconsumed grads with the
@@ -689,7 +696,7 @@ class StepFunction:
                         lambda x: (_LossLeaf(x.detach()) if x is loss else x.detach()) if isinstance(x, torch.Tensor)
                         else x, out))
                 if qs is not None:
-                    qs.absorb(quant.finalize(qs))
+                    qs.absorb(quant.finalize(qs, tp))
             stacked = _combine(_stack_outputs(outs), group, torch.tensor(weights), cp, rows)
             if hc is not None:
                 if losses:
@@ -702,7 +709,7 @@ class StepFunction:
             if hc is not None:
                 if step_grads is not None:
                     hc.add_tree("grads", _jax_leaves(model, step_grads))
-                word, schema = hc.pack()
+                word, schema = hc.pack(tp)
         state.step_rng = next_rng
         if step_grads is not None and cfg.fp16:
             # The overflow flag from the sentinel kernel's count: one launch
@@ -710,7 +717,7 @@ class StepFunction:
             if word is None or "grads" not in schema:
                 overflow = health.HealthCollector("cheap")
                 overflow.add_tree("grads", _jax_leaves(model, step_grads))
-                word, schema = overflow.pack()
+                word, schema = overflow.pack(tp)
             model._grads_finite = word[schema.index("grads"), 0].item() == 0.0
         if hc is not None and word is not None:
             health.monitor.submit(state.step_count, word, schema, hmode,

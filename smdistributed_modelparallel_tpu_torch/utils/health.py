@@ -129,19 +129,58 @@ class HealthCollector:
         n = (len(first) if isinstance(first, list) else int(first.shape[0])) if num_mb is None else int(num_mb)
         self.entries.append((str(name), leaves, n))
 
-    def pack(self):
-        """(word [K, 3] fp32, [name, ...]) or (None, None) when empty."""
+    def pack(self, group=None):
+        """(word [K, 3] fp32, [name, ...]) or (None, None) when empty.
+
+        ``group``: the ranks that each hold parts of the step's tensors (the
+        tp group), whose words combine into the word of the whole tensors,
+        the JAX package's: a ``Leaf`` marked ``sharded`` is the rank's shard
+        and counts on every rank; any other leaf is replicated and counts on
+        the group's first rank only. Counts are then summed over the group,
+        maxima max-ed and the first bad microbatch is the least, in one
+        all-gather of the words. Each rank reduces its own tensors
+        (``health_reduce``: one launch)."""
         if not self.entries:
             return None, None
-        from smdistributed_modelparallel_tpu_torch.ops.health_reduce import health_reduce
+        from smdistributed_modelparallel_tpu_torch.ops.health_reduce import _pieces, health_reduce
 
-        return health_reduce(self.entries), [name for name, _, _ in self.entries]
+        names = [name for name, _, _ in self.entries]
+        entries = self.entries
+        if group is not None and group.index != 0:
+            entries = [(name, [leaf for leaf in leaves if getattr(leaf, "sharded", False)], n)
+                       for name, leaves, n in entries]
+        live = [i for i, (_, leaves, _) in enumerate(entries) if leaves]
+        if len(live) == len(entries):
+            word = health_reduce(entries)
+        else:  # an entry left without leaves: no count, no maximum, no bad microbatch
+            device = next(_pieces(leaf)[0].device for _, leaves, _ in self.entries for leaf in leaves)
+            word = torch.tensor([[0.0, 0.0, -1.0]] * len(entries), dtype=torch.float32, device=device)
+            if live:
+                word[live] = health_reduce([entries[i] for i in live])
+        if group is not None:
+            word = _combine_words(group, word)
+        return word, names
+
+
+def _combine_words(group, word):
+    """The group's word from each rank's: counts summed, maxima max-ed, the
+    least first-bad microbatch (-1 where no rank has one)."""
+    words = group.all_gather(word[None], 0)
+    first = words[:, :, 2]
+    first = torch.where(first < 0, float("inf"), first).amin(dim=0)
+    return torch.stack([words[:, :, 0].sum(dim=0), words[:, :, 1].amax(dim=0),
+                        torch.where(torch.isinf(first), -1.0, first)], dim=1)
 
 
 class Leaf(list):
     """Tensors that count as ONE leaf of an entry: the pieces of one JAX
     leaf (a tree entry), or one leaf's per-microbatch rows (a stacked
-    entry)."""
+    entry). ``sharded``: the pieces are this tp rank's shards of the leaf
+    (``HealthCollector.pack``)."""
+
+    def __init__(self, pieces=(), sharded=False):
+        super().__init__(pieces)
+        self.sharded = sharded
 
 
 def _leaves_of(tree):
@@ -150,7 +189,7 @@ def _leaves_of(tree):
     pieces as one list."""
     if isinstance(tree, Leaf):
         pieces = [p for p in tree if isinstance(p, torch.Tensor) and p.is_floating_point()]
-        return [pieces] if pieces else []
+        return [Leaf(pieces, tree.sharded)] if pieces else []
     if isinstance(tree, torch.Tensor):
         return [tree] if tree.is_floating_point() else []
     if isinstance(tree, dict):

@@ -92,10 +92,10 @@ def test_wrappers_launch_and_count_on_a_card(meta_card):
     port_dropout.dropout_bwd(y, mask, 0.1)
     names = [c[0] for c in meta_card]
     assert names == ["smp_threefry_bits", "smp_dropout_fwd", "smp_dropout_bwd"]
-    assert meta_card[0][1][1:] == (0, 5, 4, 10)  # key words, offset, n
+    assert meta_card[0][1][1:] == (0, 5, 4, 10, 10, 10)  # key words, offset, n, one run of n
     fwd_args = meta_card[1][1]
-    assert fwd_args[0] == 2 and fwd_args[4:7] == (0, 5, 16)  # bf16; key, n
-    assert fwd_args[7] == float(np.float32(0.9)) and fwd_args[8] == 0.8984375  # threshold, kp in bf16
+    assert fwd_args[0] == 2 and fwd_args[4:10] == (0, 5, 16, 0, 16, 16)  # bf16; key, n; offset, run, stride
+    assert fwd_args[10] == float(np.float32(0.9)) and fwd_args[11] == 0.8984375  # threshold, kp in bf16
     assert meta_card[2][1][0] == 2 and meta_card[2][1][4:] == (16, 0.8984375)  # bf16; n, kp
     after = (port_dropout.threefry_bits.launches, port_dropout.dropout_fwd.launches,
              port_dropout.dropout_bwd.launches)

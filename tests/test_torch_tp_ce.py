@@ -101,6 +101,7 @@ def _jax_cases():
     finally:
         pc.FORCE_INTERPRET = old
         jax_smp.reset()
+        jax_smp.init({})  # a default session: one left at tp 2 boxes the next file's JAX parameters
     return out
 
 

@@ -91,6 +91,7 @@ def _jax_cases():
             tokens = smp_jax.generate(jmod, jnp.asarray(ids), NEW, params=params, **kw, **extra)
         finally:
             smp_jax.reset()
+            smp_jax.init({})  # a default session: one left at tp 2 boxes the next file's JAX parameters
         port = {k: v.numpy().copy() for k, v in lm_head_params_from_jax(params).items()}
         out[name] = (port, np.asarray(tokens))
     return out

@@ -99,6 +99,7 @@ def _jax_layers():
     finally:
         pallas_gelu.FORCE_INTERPRET = old
         jax_smp.reset()
+        jax_smp.init({})  # a default session: one left at tp 2 boxes the next file's JAX parameters
     return out
 
 

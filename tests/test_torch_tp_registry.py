@@ -156,14 +156,17 @@ def test_linear_matches_jax(name, bias):
 
 @pytest.mark.parametrize("name", sorted(LINEARS))
 def test_linear_refuses_tp2(monkeypatch, name):
-    """The partitions run at tp = 2 (``tests/test_torch_tp_layers.py``); what
-    stays refused there is the overlapped ring (ROADMAP item 7b)."""
+    """The partitions run at tp = 2 (``tests/test_torch_tp_layers.py``), and
+    under ``tp_overlap: "ring"`` too (``tests/test_torch_tp_ring.py``); what
+    a linear still refuses there is a partitioned feature count that tp does
+    not divide, when it is built."""
     smp.init({}, device="cpu")
-    layer = LINEARS[name][0](4, 4)
     monkeypatch.setattr(state, "cfg", smp.ModelParallelConfig({"tensor_parallel_degree": 2, "ddp": True,
                                                                "tp_overlap": "ring"}))
-    with pytest.raises(NotImplementedError, match='tp_overlap: "ring".*ROADMAP item 7'):
-        layer(torch.ones(2, 4))
+    what = "out_features" if name == "ColumnParallelLinear" else "in_features"
+    with pytest.raises(SMPValidationError, match=f"{name} {what} \\(3\\) must be divisible by "
+                                                 "tensor_parallel_degree \\(2\\)"):
+        LINEARS[name][0](3, 3)
 
 
 class JaxPair(fnn.Module):

@@ -18,8 +18,12 @@ Losses, first-step gradients (gathered whole over tp) and the parameters
 after the steps agree within 1e-5; the losses, gradients and parameters
 also agree with the port's own tp = 1 step within 1e-5, as
 ``tests/test_transformer.py``'s tp-parity test holds the JAX package. Replicated parameters stay bit-equal
-across the tp ranks after every step. Every part of the step left at tp > 1
-raises naming ROADMAP item 7.
+across the tp ranks after every step. What stays refused at tp > 1 (the MoE,
+the encoder-decoder, ``smp.from_hf``, the tp mark, int8 decode weights, tp
+beside cp or ep) raises naming ROADMAP item 7b. The ring, dropout,
+checkpointing, fp16, fp8 and the sentinel at tp = 2 are held against the JAX
+package in ``tests/test_torch_tp_ring.py`` and
+``tests/test_torch_tp_options.py``.
 """
 
 import numpy as np
@@ -108,7 +112,10 @@ def _jax_run(cfg, ranks, t, logits_mode):
             optimizer.step()
         return init, losses, grads, _to_port(model.params)
     finally:
+        # Leave a default session (tp 1): one left at tp 2 would box the next
+        # file's JAX parameters in this worker with partition names.
         jax_smp.reset()
+        jax_smp.init({})
 
 
 def _expect_raise(fn):
@@ -242,12 +249,6 @@ def _refusals(smp, world):
                 os.environ["SMP_DECODE_WEIGHTS"] = old
 
     return {
-        "ring": step_with({"tp_overlap": "ring"}),
-        "fp16": step_with({"fp16": True}),
-        "fp8": step_with({"matmul_precision": "fp8"}),
-        "health": step_with({}, env={"SMP_HEALTH_CHECK": "cheap"}),
-        "dropout": step_with({}, head=dict(hidden_dropout_prob=0.1, deterministic=False)),
-        "checkpointing": step_with({}, head=dict(activation_checkpointing=True)),
         "moe": step_with({}, head=dict(num_experts=4)),
         "encdec": _expect_raise(encdec),
         "from_hf": _expect_raise(from_hf),
@@ -335,8 +336,7 @@ def test_indivisible_widths_raise(runs, case, what):
         assert what in got[1] and "tensor_parallel_degree (2)" in got[1], got
 
 
-@pytest.mark.parametrize("case", ["ring", "fp16", "fp8", "health", "dropout", "checkpointing", "moe", "encdec",
-                                  "from_hf", "tp_mark", "int8_generate", "cp", "ep"])
+@pytest.mark.parametrize("case", ["moe", "encdec", "from_hf", "tp_mark", "int8_generate", "cp", "ep"])
 def test_refusals_at_tp2(runs, case):
     _, per_rank = runs
     world = 4 if case in ("cp", "ep") else 2
