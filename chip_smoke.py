@@ -24,6 +24,8 @@
     python3 chip_smoke.py --phases Z # the same with the ranks on two cards (NCCL); needs two cards
     python3 chip_smoke.py --phases N # tensor parallelism at tp = 2 (two ranks on one card) only
     python3 chip_smoke.py --phases I # phase N (a) and (g) with the ranks on two cards (NCCL); needs two cards
+    python3 chip_smoke.py --phases p # pipeline parallelism at pp = 2 (two stages on one card) only
+    python3 chip_smoke.py --phases t # phase p (a) with the stages on two cards (NCCL); needs two cards
     python3 chip_smoke.py --phases J # serving replicas, the router and the controller (two processes) only
     python3 chip_smoke.py --phases X # GPT-2 1.5B at 16 x 1024 with checkpointing off (its peak or OOM)
 
@@ -259,7 +261,7 @@ csrc`` (one nvcc per source, all started together), then:
      by the index-mapped ``dropout_fwd``), every attention call of it
      hands the flash kernels the rank's global heads (head0 = rank x 6 of
      12) and tp = 1's seed, losses within 1e-3; a control run whose flash
-     kernels hash the rank's local heads prints its loss gap; (i)
+     kernels hash the rank's local heads must land outside that bound; (i)
      activation checkpointing of (a) and of (h): losses within 1e-6 of the
      runs without it, the step's peak above what it found allocated below
      theirs; (j) fp16 (loss scale from 4096) beside
@@ -270,6 +272,24 @@ csrc`` (one nvcc per source, all started together), then:
      Replicated parameters bit-equal after every step of every run. Prints
      ms/step and global tokens/s of (a), (b) and (g), the tp regions' host
      ms a step and the peak a rank.
+  p. pipeline parallelism at pp = 2: two stages spawned on cuda:0 (gloo
+     with pinned host copies), 6 layers a stage, against pp = 1 of the same
+     weights and batch in this process, phase T's batch (8 x 1024 in 4
+     microbatches), bf16, AdamW, the loss from the logits. (a) GPT-2 124M, 3
+     steps under the default 1F1B schedule, then one forward-only step
+     (fill-drain); its control drops microbatch 0's backward (the last
+     stage seeds its loss with 0) and must land outside the loss bound; (b)
+     the same under ``pipeline: "simple"`` (fill-drain), 2 steps; (c) phase
+     L's smp.nn head (``fused_qkv``, ``fused_bias_gelu``), 3 steps; (d) a
+     2-layer fp32 GPT-2 at pp = 2, card against CPU within 1e-5. Gates:
+     losses within 1e-4 relative of pp = 1, both stages returning the same
+     losses, the replicated parameters bit-equal across the stages after
+     every step, each stage holding its 6 layers only, 24 launches a step
+     and stage of each flash kernel (and of ``matmul_bias`` and the bias-
+     GELU kernels for the head) on ``wgmma`` or ``vec``, and the bubble
+     gauges equal to ``schedule_occupancy`` of the grid. Prints ms/step and
+     global tokens/s, the P2P transfers' host ms a step, each stage's peak
+     and parameter bytes.
   J. serving replicas: two processes on cuda:0 over the native host bus,
      each with a GPT-2 124M ``ServingEngine`` (4 slots, 65 blocks). World 1
      (bf16): (c) ``SMP_AUTOSCALE``: 12 requests on rank 0's replica breach a
@@ -495,6 +515,8 @@ csrc`` (one nvcc per source, all started together), then:
      NCCL) against tp = 1.
   Z. (on request, on a machine with two cards) phase U's steps with the ep
      ranks on cuda:0 and cuda:1 (the all-to-alls over NCCL) against ep = 1.
+  t. (on request, on a machine with two cards) phase p's (a) with the
+     stages on cuda:0 and cuda:1 (the transfers over NCCL) against pp = 1.
   P. (on request) torch.profiler breakdowns of a generate, phase S's burst, a training step,
      a capacity step (fused and materialized), the smp.nn path's fused,
      unfused, fp8, dropout and checkpointed dropout steps, phase G's smp.nn
@@ -553,7 +575,7 @@ _FP32_OPS = ("FFMA", "FADD", "FMUL")
 
 KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "fused_ce", "matmul_bias", "bias_gelu", "matmul_fp8", "dropout",
                   "health_reduce"]
-DEFAULT_PHASES = "ASGTFLDMQRUWNJKHEOVBC"
+DEFAULT_PHASES = "ASGTFLDMQRUWNpJKHEOVBC"
 SEED = 1234
 
 
@@ -684,9 +706,17 @@ def build():
     # 16-bit operands, QGMMA: on fp8), where the toolkit has cuobjdump.
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if os.path.exists(cuobjdump):
-        for name in KERNEL_SOURCES:
-            sass = subprocess.run([cuobjdump, "-sass", str(_build._target(name)[1])], capture_output=True,
-                                  text=True).stdout
+        # One cuobjdump a library, all started together, each into a file.
+        import tempfile
+
+        outs = {name: tempfile.TemporaryFile(mode="w+") for name in KERNEL_SOURCES}
+        procs = {name: subprocess.Popen([cuobjdump, "-sass", str(_build._target(name)[1])], stdout=outs[name],
+                                        stderr=subprocess.DEVNULL) for name in KERNEL_SOURCES}
+        for name, proc in procs.items():
+            proc.wait()
+            outs[name].seek(0)
+            sass = outs[name].read()
+            outs[name].close()
             log(f"[build] {name}: {sass.count('HGMMA')} HGMMA, {sass.count('QGMMA')} QGMMA instructions (cuobjdump)")
             for section in sass.split("Function : ")[1:]:
                 if "GMMA" in section:
@@ -2252,7 +2282,7 @@ M_MODES = ("off", "full", "stash_weight", "stash_all", "offload")
 # the same kernels on the same inputs, so they should agree bit for bit; the
 # gate allows 1e-6 of each tensor's largest value.
 M_GRAD_TOL = 1e-6
-M_BLOCK_WARMUP, M_BLOCK_STEPS = 2, 3  # each timed block: fresh model, warm-up steps, timed steps
+M_BLOCK_WARMUP, M_BLOCK_STEPS = 2, 2  # each timed block: fresh model, warm-up steps, timed steps
 # GPT-2 1.5B (GPT-2 XL's published widths and dropouts; the JAX package's
 # models/gpt2.py gpt2_1p5b) as smp.nn.DistributedTransformerLMHead.
 XL_CFG = dict(LM_DROP_CFG, num_layers=48, num_attention_heads=25, hidden_size=1600, intermediate_size=6400)
@@ -5137,7 +5167,7 @@ def _phase_c_ids():
 # Phase R: context-parallel training, two ranks on one card
 # ----------------------------------------------------------------------
 
-CP_B, CP_T, CP_N, CP_MB, CP_STEPS = 2, 4096, 2, 1, 3
+CP_B, CP_T, CP_N, CP_MB, CP_STEPS = 2, 4096, 2, 1, 2
 CP_LOSS_TOL = 1e-2
 
 
@@ -5848,7 +5878,7 @@ def _w_report(r1, r2, base, base_ms, base_launches, elastic, ckpt_bytes, world1_
 # fused_qkv, 8 x 1024 tokens in 4 microbatches, AdamW; losses against ep = 1
 # on the same weights and global batch. The small fp32 model runs 2 layers
 # with capacity 0.5 (assignments drop) on the card and the CPU.
-U_STEPS, U_LOSS_TOL, U_SMALL_TOL = 3, 1e-2, 1e-5
+U_STEPS, U_LOSS_TOL, U_SMALL_TOL = 2, 1e-2, 1e-5
 U_SMALL = dict(E_MOE_SMALL, moe_capacity_factor=0.5)
 U_SMALL_B, U_SMALL_T, U_SMALL_MB, U_SMALL_STEPS = 8, 32, 2, 2
 
@@ -6627,6 +6657,9 @@ def _n_report_options(ranks, base):
             f"{N_DROP_TOL} catches it: {control > N_DROP_TOL}")
         if not (gap <= N_DROP_TOL and masks and heads and drop["launches"]["dropout_fwd_index_map"] > 0):
             failures.append(f"(h) rank {rank}: loss gap {gap:.3e}, masks equal {masks}, heads {heads}")
+        if not control > N_DROP_TOL:
+            failures.append(f"(h) control rank {rank}: the local-heads masks differ from tp = 1 by only {control:.3e}, "
+                            f"inside (h)'s bound {N_DROP_TOL}")
         for name, ref, label in (("ckpt", r["speed"], "(a)"), ("ckpt_dropout", drop, "(h)")):
             run = opt[name]
             gap = _n_gap(run, ref)
@@ -7001,6 +7034,280 @@ def _j_fail_world(rank, world):
                sampled=[r.request_id for r in reqs if r.temperature > 0])
     smp.reset()
     return out
+
+
+# ----------------------------------------------------------------------
+# Phase p: pipeline parallelism at pp = 2
+# ----------------------------------------------------------------------
+
+# P_LOSS_TOL: pp = 2's bf16 losses against pp = 1's, relative; 15x the
+# largest gap measured on the H100 (6.5e-06). A looser bound misses faults
+# that AdamW hides: its first update is about lr x sign(g), whatever the
+# gradient's scale. The control run drops microbatch 0's backward and must
+# land outside it.
+P_STEPS, P_LOSS_TOL, P_SMALL_TOL = 3, 1e-4, 1e-5
+P_SMALL_B, P_SMALL_T = 4, 64
+
+
+def _p_module(kind, device):
+    """The phase's models, their weights drawn from SEED: the zoo's GPT-2
+    124M ("gpt2"), phase L's smp.nn head with fused_bias_gelu ("head"), a
+    2-layer fp32 GPT-2 at d 128 drawn on the CPU ("small")."""
+    from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2, gpt2_124m, init_gpt2_weights_
+
+    if kind == "head":
+        return _n_module(LM_CFG, device)
+    if kind == "small":
+        return init_gpt2_weights_(gpt2("gpt2_124m", max_len=128, d_model=128, n_layers=2, n_heads=4),
+                                  torch.Generator().manual_seed(SEED + 7))
+    return init_gpt2_weights_(gpt2_124m(device=device), torch.Generator(device=device).manual_seed(SEED))
+
+
+def _p_gauges(schedule):
+    """The pipeline gauges of ``schedule``: {name or name/state: value}."""
+    from smdistributed_modelparallel_tpu_torch.utils.telemetry import telemetry
+
+    out = {}
+    for name, metric in telemetry.report()["metrics"].items():
+        for series in metric["series"] if name.startswith("smp_pipeline_") else ():
+            if series["labels"].get("schedule") == schedule:
+                state_ = series["labels"].get("state")
+                out[name + (f"/{state_}" if state_ else "")] = series["value"]
+    return out
+
+
+def _p_train(device, kind, pp, steps=P_STEPS, pipeline="interleaved", evaluate=False):
+    """``steps`` AdamW steps of ``kind`` at ``pp`` stages (bf16, but the
+    small model in fp32) on phase T's batch in 4 microbatches, the loss from
+    the logits (loss mode is refused at pp > 1, as in the JAX package):
+    losses, ms a step, the P2P transfers' host ms a step, the replicated
+    parameters' fingerprint a step, launches, the peak, the stage's parameter
+    bytes, the pipeline gauges and, with ``evaluate``, a forward-only step's
+    loss."""
+    import smdistributed_modelparallel_tpu_torch as smp
+    from smdistributed_modelparallel_tpu_torch.nn import vocab_parallel_cross_entropy
+
+    small = kind == "small"
+    on_card = torch.device(device).type == "cuda"
+    smp.init({"microbatches": TRAIN_MB, "bf16": not small, "fused_qkv": kind == "head", "ddp": True,
+              "pipeline_parallel_degree": pp, "pipeline": pipeline}, device=device)
+    module = _p_module(kind, "cpu" if small else device)
+    model = smp.DistributedModel(module, device=device)
+    optimizer = smp.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8), model)
+
+    @smp.step
+    def train_step(model, ids):
+        logits = model(ids)
+        loss = vocab_parallel_cross_entropy(logits[:, :-1], ids[:, 1:]).mean()
+        model.backward(loss)
+        return loss
+
+    @smp.step
+    def eval_step(model, ids):
+        logits = model(ids)
+        return vocab_parallel_cross_entropy(logits[:, :-1], ids[:, 1:]).mean()
+
+    if small:
+        ids = torch.randint(0, 50257, (P_SMALL_B, P_SMALL_T), generator=torch.Generator().manual_seed(SEED + 8))
+        ids = ids.to(device)
+    else:
+        ids = _w_batch(device)
+    counters = _n_counters()
+    _e_zero(counters)
+    out = dict(losses=[], ms=[], prints=[], comm=[], peak=0.0)
+    if on_card:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out["losses"].append(float(train_step(model, ids).reduce_mean()))
+        optimizer.step()
+        if on_card:
+            torch.cuda.synchronize(device)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["comm"].append(getattr(model, "_pp_comm_seconds", 0.0) * 1e3)
+        out["prints"].append(_w_fingerprint(model, skip=model._pp_layer_params))
+    if evaluate:
+        out["eval"] = float(eval_step(model, ids).reduce_mean())
+    if on_card:
+        out["peak"] = torch.cuda.max_memory_allocated(device) / 2**30
+    out.update(launches={k: fn.launches for k, fn in counters.items()},
+               param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+               layers=sorted({next(int(x) for x in n.split(".") if x.isdigit()) for n in model._pp_layer_params}),
+               gauges=_p_gauges("1f1b" if pipeline == "interleaved" else "fill_drain"),
+               eval_gauges=_p_gauges("fill_drain") if evaluate else {},
+               transport=getattr(smp.state.group("pp"), "transport", None))
+    del model, optimizer, train_step, eval_step
+    smp.reset()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _p_drop_microbatch0():
+    """The control's fault: the last stage seeds microbatch 0's loss with 0,
+    so that microbatch adds nothing to any stage's gradients (the cotangents
+    it sends back are zeros), as if its backward had been skipped."""
+    from smdistributed_modelparallel_tpu_torch.parallel.pipeline import StageExecutor
+
+    backward_step = StageExecutor.backward_step
+
+    def faulty(self, m, cot):
+        if not (self.last and m == 0):
+            return backward_step(self, m, cot)
+        seed, self.seed = self.seed, 0.0
+        try:
+            return backward_step(self, m, cot)
+        finally:
+            self.seed = seed
+
+    with mock.patch.object(StageExecutor, "backward_step", faulty):
+        yield
+
+
+def _p_rank(rank, world, device, full=True):
+    """One stage on ``device`` (None: cuda:LOCAL_RANK): (a) GPT-2 124M under
+    the default schedule and a forward-only step; with ``full``, its control
+    (microbatch 0's backward dropped), (b) the fill-drain schedule, (c) the
+    smp.nn head and (d) the small fp32 model on the card, then on the CPU."""
+    device = device or f"cuda:{rank}"
+    out = {"gpt2": _p_train(device, "gpt2", 2, evaluate=True)}
+    if full:
+        with _p_drop_microbatch0():
+            out["control"] = _p_train(device, "gpt2", 2, steps=2)
+        out["simple"] = _p_train(device, "gpt2", 2, steps=2, pipeline="simple")
+        out["head"] = _p_train(device, "head", 2)
+        out["small"] = {"card": _p_train(device, "small", 2, steps=2), "cpu": _p_train("cpu", "small", 2, steps=2)}
+    return out
+
+
+def _p_runs(device="cuda:0", full=True):
+    """Phase p's runs: the two stages on ``device`` (gloo with pinned host
+    copies), then pp = 1 of the same weights in this process."""
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, _p_rank, device, full)
+    ranks_s = time.perf_counter() - t0
+    base = {"gpt2": _p_train("cuda", "gpt2", 1, evaluate=True)}
+    if full:
+        base["head"] = _p_train("cuda", "head", 1)
+    return dict(ranks=ranks, base=base, ranks_s=ranks_s)
+
+
+def phase_pipe(device="cuda:0", full=True):
+    """Pipeline parallelism at pp = 2 against pp = 1: the stages on
+    ``device`` (None: cuda:0 and cuda:1)."""
+    runs = _p_runs(device, full)
+    return _p_report(runs["ranks"], runs["base"], runs["ranks_s"], full)
+
+
+def _p_expected(schedule):
+    """The gauges the grid of S 2, M 4 (window min(pp + 1, M) = 3) gives:
+    ``schedule_occupancy`` of ``build_1f1b_schedule``, or the fill-drain
+    count, and (pp - 1)/(M + pp - 1)."""
+    from smdistributed_modelparallel_tpu_torch.parallel.pipeline_1f1b import build_1f1b_schedule, schedule_occupancy
+
+    S, M = 2, TRAIN_MB
+    if schedule == "1f1b":
+        busy, total = schedule_occupancy(*build_1f1b_schedule(S, M, min(S + 1, M)))
+    else:
+        busy, total = M * S, (M + S - 1) * S
+    return {"smp_pipeline_bubble_fraction": 1.0 - busy / total,
+            "smp_pipeline_bubble_fraction_theoretical": (S - 1) / (M + S - 1),
+            "smp_pipeline_schedule_slots/busy": float(busy), "smp_pipeline_schedule_slots/total": float(total),
+            "smp_pipeline_stages": float(S), "smp_pipeline_microbatches": float(M),
+            "smp_pipeline_virtual_stages": 1.0}
+
+
+def _p_report(ranks, base, ranks_s, full):
+    failures = []
+    layers = 12 // 2
+    runs = ["gpt2"] + (["simple", "head"] if full else [])
+    launches = {}
+    for r in ranks:
+        for name in runs:
+            for k, n in r[name]["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    for run in base.values():
+        for k, n in run["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    _check_route("pipeline path", launches)
+    for name in runs:
+        steps = len(ranks[0][name]["losses"])
+        ms = [sum(r[name]["ms"][1:]) / (steps - 1) for r in ranks]
+        comm = [sum(r[name]["comm"][1:]) / (steps - 1) for r in ranks]
+        want = base["head" if name == "head" else "gpt2"]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(ranks[-1][name]["losses"], want["losses"]))
+        base_ms = sum(want["ms"][1:]) / (len(want["ms"]) - 1)
+        log(f"[p] ({name}) pp = 2 {'fill-drain' if name == 'simple' else '1F1B'}, "
+            f"{'smp.nn head' if name == 'head' else 'GPT-2 124M'}, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MB} "
+            f"microbatches, over {ranks[0][name]['transport']}: {max(ms):.2f} ms/step (steps 2-{steps}; stages "
+            f"{ms[0]:.2f} / {ms[1]:.2f}), {TRAIN_BATCH * TRAIN_SEQ / max(ms) * 1e3:.1f} global tokens/s; pp = 1: "
+            f"{base_ms:.2f} ms/step; P2P host ms a step {comm[0]:.2f} / {comm[1]:.2f}; peak "
+            f"{ranks[0][name]['peak']:.2f} / {ranks[1][name]['peak']:.2f} GiB (pp = 1 {want['peak']:.2f}); "
+            f"parameter bytes {ranks[0][name]['param_bytes']} / {ranks[1][name]['param_bytes']} (pp = 1 "
+            f"{want['param_bytes']}); layers {ranks[0][name]['layers'][0]}-{ranks[0][name]['layers'][-1]} / "
+            f"{ranks[1][name]['layers'][0]}-{ranks[1][name]['layers'][-1]}")
+        log(f"[p] ({name}) losses {ranks[-1][name]['losses']} against pp = 1's {want['losses'][:steps]}: max "
+            f"rel gap {gap:.3e} (limit {P_LOSS_TOL})")
+        if gap > P_LOSS_TOL or not all(math.isfinite(x) for x in ranks[-1][name]["losses"]):
+            failures.append(f"({name}) losses {gap:.3e} from pp = 1")
+        if ranks[0][name]["losses"] != ranks[1][name]["losses"]:
+            failures.append(f"({name}) the stages return different losses")
+        if ranks[0][name]["prints"] != ranks[1][name]["prints"]:
+            failures.append(f"({name}) replicated parameters differ across the stages")
+        if not all(r[name]["param_bytes"] < want["param_bytes"] for r in ranks):
+            failures.append(f"({name}) a stage holds the whole model's parameters")
+        if [r[name]["layers"] for r in ranks] != [list(range(layers)), list(range(layers, 12))]:
+            failures.append(f"({name}) stage layers {[r[name]['layers'] for r in ranks]}")
+        per_step = {k: [r[name]["launches"][k] / steps for r in ranks]
+                    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                    + (("matmul_bias", "bias_gelu_fwd", "bias_gelu_bwd") if name == "head" else ())}
+        if name == "gpt2":  # its forward-only step: one more forward a microbatch and layer
+            per_step["flash_fwd"] = [(r[name]["launches"]["flash_fwd"] - layers * TRAIN_MB) / steps for r in ranks]
+        log(f"[p] ({name}) launches a step and rank (expected {layers * TRAIN_MB}: {layers} layers x {TRAIN_MB} "
+            f"microbatches): {per_step}")
+        if any(n != layers * TRAIN_MB for v in per_step.values() for n in v):
+            failures.append(f"({name}) launches {per_step}")
+        schedule = "fill_drain" if name == "simple" else "1f1b"
+        expected = _p_expected(schedule)
+        for r in ranks:
+            if r[name]["gauges"] != expected:
+                failures.append(f"({name}) gauges {r[name]['gauges']} against {expected}")
+        log(f"[p] ({name}) gauges {ranks[0][name]['gauges']} (the grid's: equal)")
+    got, want = ranks[-1]["gpt2"]["eval"], base["gpt2"]["eval"]
+    log(f"[p] (b) forward-only step (fill-drain) after 3 steps: loss {got:.6f} against pp = 1's {want:.6f}")
+    if abs(got - want) / abs(want) > P_LOSS_TOL or ranks[0]["gpt2"]["eval"] != got:
+        failures.append(f"(b) forward-only loss {got} against {want}")
+    for r in ranks:
+        if r["gpt2"]["eval_gauges"] != _p_expected("fill_drain"):
+            failures.append(f"(b) forward-only gauges {r['gpt2']['eval_gauges']}")
+    if full:
+        ctl, want = ranks[-1]["control"]["losses"], base["gpt2"]["losses"]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(ctl, want))
+        log(f"[p] (a) control, microbatch 0's backward dropped (its loss seed 0 on the last stage): losses {ctl} "
+            f"against pp = 1's {want[:len(ctl)]}: max rel gap {gap:.3e}; caught by the bound {P_LOSS_TOL}: "
+            f"{gap > P_LOSS_TOL}, by 1e-2: {gap > 1e-2}")
+        if not gap > P_LOSS_TOL:
+            failures.append(f"(a) control: dropping microbatch 0's backward moved the losses by only {gap:.3e}")
+        card, cpu = ranks[-1]["small"]["card"], ranks[-1]["small"]["cpu"]
+        gap = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
+        log(f"[p] (d) 2-layer fp32 model at pp = 2, card against CPU: losses {card['losses']} vs {cpu['losses']}, "
+            f"max |gap| {gap:.3e} (limit {P_SMALL_TOL})")
+        if gap > P_SMALL_TOL:
+            failures.append(f"(d) fp32 card against CPU {gap:.3e}")
+    log(f"[p] ranks {ranks_s:.1f} s")
+    if failures:
+        raise RuntimeError("phase p: " + "; ".join(failures))
+    return launches, ranks
+
+
+def phase_pipe_nccl():
+    """Phase p's (a) on two cards (``--phases t``): the stages on cuda:0 and
+    cuda:1 over NCCL."""
+    return phase_pipe(device=None, full=False)
 
 
 def phase_j():
@@ -7575,11 +7882,11 @@ def _phase_c_ce():
 # Phase O: observability (telemetry, flight recorder, timeline, memory
 # metrics, goodput, profiling, the serving time series), each run in a child
 # process so env vars, singletons and at-exit dumps stay apart.
-O_STEPS = 20
+O_STEPS = 12
 O_PROFILE = (10, 11)                  # SMP_PROFILE's window
 O_TIMED = (2, 10)                     # ms/step over steps 2-9, before the capture
 O_BLOCKS = ("off", "on", "on", "off")  # the in-process alternation of the overhead blocks
-O_BLOCK_STEPS = (2, 8)                # a block's warm-up and timed steps
+O_BLOCK_STEPS = (2, 4)                # a block's warm-up and timed steps
 O_FLOP_TOL = 0.02                     # roofline FLOPs against torch's flop counter
 O_SLO = "ttft_p99_ms=5000,itl_p99_ms=100"
 O_KERNELS = {"flash_fwd": "flash_fwd_wgmma_kernel", "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
@@ -7927,7 +8234,7 @@ def _phase_o():
 
 V_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke_resilience")
 V_BLOCKS = ("off", "cheap", "cheap", "off")  # V1's in-process alternation
-V_BLOCK_STEPS = (2, 8)                      # a block's warm-up and timed steps
+V_BLOCK_STEPS = (2, 4)                      # a block's warm-up and timed steps
 V_FULL_STEPS = 4
 V_POISON = ("transformer.seq_layers.5.output.fc.weight", (0, 0))  # layer 5's MLP weight, one element
 V_LAYER_FAULT = "transformer/seq_layers/__call__/0/0/0"  # the scanned stack's output (the CPU parity test's kind)
@@ -8628,9 +8935,9 @@ def phase_p():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=DEFAULT_PHASES,
-                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, U, W, N, J, K, H, E, O, V, B, C (the "
-             "default, all twenty-one), "
-             "P (profiles), r (phase R's ranks on two cards, over NCCL), Y (phase W's ranks on two cards, over "
+                        help="phases to run: A, S, G, T, F, L, D, M, Q, R, U, W, N, p, J, K, H, E, O, V, B, C (the "
+             "default, all twenty-two), "
+             "P (profiles), t (phase p (a) on two cards, over NCCL), r (phase R's ranks on two cards, over NCCL), Y (phase W's ranks on two cards, over "
              "NCCL), Z (phase U's ranks on two cards, over NCCL), I (phase N (a) and (g) on two cards, over NCCL) "
              "and X (GPT-2 1.5B at 16 x 1024 with checkpointing off)")
     parser.add_argument("--k-child", metavar="DIR", help=argparse.SUPPRESS)  # phase K's resumed run
@@ -8667,62 +8974,102 @@ def main():
     serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches = {}, {}, {}, {}, {}, {}
     k_launches, d_launches, m_launches, s_launches, g_launches, h_launches = {}, {}, {}, {}, {}, {}
     e_launches, o_launches, v_launches, w_launches, u_launches, j_launches = {}, {}, {}, {}, {}, {}
-    n_launches = {}
+    n_launches, p_launches = {}, {}
     errs = timing = None
+    mark = [time.perf_counter()]
+
+    def timed(letter):
+        """Log the seconds since the last phase ended."""
+        now = time.perf_counter()
+        log(f"[time] phase {letter} {now - mark[0]:.1f} s")
+        mark[0] = now
     if "A" in args.phases:
         serve_launches = phase_a()
+        timed("A")
     if "S" in args.phases:
         s_launches = phase_s()
+        timed("S")
     if "G" in args.phases:
         g_launches = phase_g()
+        timed("G")
     if "T" in args.phases:
         train_launches, _ = phase_t()
+        timed("T")
     if "F" in args.phases:
         cap_launches, _ = phase_f()
+        timed("F")
     if "L" in args.phases:
         lm_launches, _ = phase_l()
+        timed("L")
     if "D" in args.phases:
         d_launches, _ = phase_d()
+        timed("D")
     if "M" in args.phases:
         m_launches, _ = phase_m()
+        timed("M")
     if "X" in args.phases:
         phase_x()
+        timed("X")
     if "Q" in args.phases:
         q_launches, _ = phase_q()
+        timed("Q")
     if "R" in args.phases:
         cp_launches, _ = phase_r()
+        timed("R")
     if "r" in args.phases:
         phase_r(device=None)
+        timed("r")
     if "U" in args.phases:
         u_launches, _ = phase_u()
+        timed("U")
     if "Z" in args.phases:
         phase_z()
+        timed("Z")
     if "W" in args.phases:
         w_launches, _ = phase_w()
+        timed("W")
     if "Y" in args.phases:
         phase_y()
+        timed("Y")
     if "N" in args.phases:
         n_launches, _ = phase_n()
+        timed("N")
     if "I" in args.phases:
         phase_i()
+        timed("I")
+    if "p" in args.phases:
+        p_launches, _ = phase_pipe()
+        timed("p")
+    if "t" in args.phases:
+        phase_pipe_nccl()
+        timed("t")
     if "J" in args.phases:
         j_launches = phase_j()
+        timed("J")
     if "K" in args.phases:
         k_launches, _ = phase_k(smi)
+        timed("K")
     if "H" in args.phases:
         h_launches = phase_h()
+        timed("H")
     if "E" in args.phases:
         e_launches = phase_e()
+        timed("E")
     if "O" in args.phases:
         o_launches = phase_o()
+        timed("O")
     if "V" in args.phases:
         v_launches = phase_v()
+        timed("V")
     if "B" in args.phases:
         errs = phase_b()
+        timed("B")
     if "C" in args.phases:
         timing = phase_c()
+        timed("C")
     if "P" in args.phases:
         phase_p()
+        timed("P")
 
     log(f"[time] all phases {time.perf_counter() - started:.1f} s")
     if not set(DEFAULT_PHASES) <= set(args.phases):
@@ -8749,7 +9096,7 @@ def main():
     # just before it.
     paths = (serve_launches, train_launches, cap_launches, lm_launches, q_launches, cp_launches, k_launches,
              d_launches, m_launches, s_launches, g_launches, h_launches, e_launches, o_launches, v_launches,
-             w_launches, u_launches, j_launches, n_launches)
+             w_launches, u_launches, j_launches, n_launches, p_launches)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     src = "smdistributed_modelparallel_tpu_torch/csrc/"
     tpu = "smdistributed_modelparallel_tpu/ops/pallas_attention.py:"

@@ -13,6 +13,17 @@ of size > 1, with the same semantics:
   send and receive around a ring deadlocks. ``ppermute_start`` posts them
   and returns a ``PendingPermute`` to wait on later, so that a ring can
   issue its next hop before the work it should hide under.
+- ``send(x, dst, tag)`` / ``recv(shape, dtype, src, tag, device)``: the
+  pipeline's point-to-point transfers to one neighbour. A send is posted
+  and returns a ``PendingSend`` (the stage goes on computing); a receive
+  blocks until the tensor sent under the same tag arrives. The forward
+  direction (``tag`` even) and the backward one (odd) travel over two
+  process groups, so that under NCCL, which matches a pair's transfers in
+  order, a stage's sends one way never wait behind its receives the other
+  way. ``send_status``/``recv_status`` move a small host header of each
+  transfer (whether the sender failed, and why) over a gloo group, and
+  ``all_gather_object`` gathers a picklable object over it: the pipeline's
+  step-end agreement, and the last stage's output tree;
 - ``all_to_all(x, split_dim, concat_dim)``: ``lax.all_to_all(...,
   tiled=True)``: chunk i of ``split_dim`` goes to member i, and the chunks
   received are concatenated along ``concat_dim`` in member order.
@@ -158,9 +169,11 @@ class TensorGroup:
     """The tensor collectives of one group of ranks (``ranks``, in axis
     order) over the process group ``pg``."""
 
-    def __init__(self, ranks, pg, transport, rank, device=None):
+    def __init__(self, ranks, pg, transport, rank, device=None, back_pg=None, host_pg=None):
         self.ranks = list(ranks)
         self.pg = pg
+        self.back_pg = back_pg or pg  # the backward direction of send/recv
+        self.host_pg = host_pg or pg  # gloo: the transfer headers and object collectives
         self.transport = transport
         self.device = torch.device(device or "cpu")  # this rank's device, where NCCL takes tensors
         self.size = len(self.ranks)
@@ -189,9 +202,14 @@ class TensorGroup:
     def _empty(self, x):
         """A receive buffer for ``x``'s shape and type, where the transport
         writes it."""
-        if self._on_host(x):
-            return torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        return torch.empty(x.shape, dtype=x.dtype, device=self.device if self.transport == "nccl" else x.device)
+        return self._buffer(x.shape, x.dtype, x.device)
+
+    def _buffer(self, shape, dtype, device):
+        """A receive buffer for a tensor of ``shape`` and ``dtype`` that
+        lands on ``device``, where the transport writes it."""
+        if self.transport == "gloo" and device.type == "cuda":
+            return torch.empty(shape, dtype=dtype, pin_memory=True)
+        return torch.empty(shape, dtype=dtype, device=self.device if self.transport == "nccl" else device)
 
     @staticmethod
     def _home(y, like):
@@ -227,6 +245,47 @@ class TensorGroup:
                 out = recv
         works = dist.batch_isend_irecv(ops) if ops else []
         return PendingPermute(works, out, xs, single, sent)
+
+    def _p2p_pg(self, tag):
+        return self.back_pg if tag & 1 else self.pg
+
+    def send(self, x, dst, tag):
+        """Post ``x`` to member ``dst`` under ``tag`` (odd: the backward
+        direction) without waiting for it: a ``PendingSend``. ``x`` may
+        change at once (the wire holds a copy under gloo, or ``x`` itself
+        under NCCL, kept alive by the ``PendingSend``)."""
+        wire = self._wire(x)
+        if wire is x and self.transport == "gloo":
+            wire = x.clone()  # gloo reads the buffer from its own thread
+        return PendingSend([dist.isend(wire, self.ranks[dst], group=self._p2p_pg(tag), tag=tag)], wire)
+
+    def recv(self, shape, dtype, src, tag, device):
+        """The tensor member ``src`` sent under ``tag``, on ``device``:
+        blocks until it has arrived (under NCCL, until the receive is queued
+        on the current stream)."""
+        like = torch.empty((0,), dtype=dtype, device=device)
+        buf = self._buffer(shape, dtype, like.device)
+        dist.recv(buf, self.ranks[src], group=self._p2p_pg(tag), tag=tag)
+        return self._home(buf, like)
+
+    def send_status(self, header, dst, tag):
+        """Post the int32 host tensor ``header`` to member ``dst`` over the
+        gloo group: a ``PendingSend``."""
+        return PendingSend([dist.isend(header, self.ranks[dst], group=self.host_pg, tag=tag)], header)
+
+    def recv_status(self, numel, src, tag):
+        """The int32 header of ``numel`` elements member ``src`` posted under
+        ``tag``; blocks until it arrives."""
+        header = torch.empty((numel,), dtype=torch.int32)
+        dist.recv(header, self.ranks[src], group=self.host_pg, tag=tag)
+        return header
+
+    def all_gather_object(self, obj):
+        """Every member's ``obj`` (picklable), in member order, over the
+        gloo group."""
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.host_pg)
+        return out
 
     def all_to_all(self, x, split_dim, concat_dim):
         """``lax.all_to_all(x, split_axis=split_dim, concat_axis=concat_dim,
@@ -315,6 +374,19 @@ class PendingPermute:
             self._out = [TensorGroup._home(r, x) for r, x in zip(received, self._xs)]
             self._works = self._sent = self._received = None
         return self._out[0] if self._single else self._out
+
+
+class PendingSend:
+    """A posted ``TensorGroup.send``: ``wait()`` waits for it once; the
+    buffer stays alive until then."""
+
+    def __init__(self, works, buffer):
+        self._works, self._buffer = works, buffer
+
+    def wait(self):
+        for work in self._works or ():
+            work.wait()
+        self._works = self._buffer = None
 
 
 class _AllToAll(torch.autograd.Function):

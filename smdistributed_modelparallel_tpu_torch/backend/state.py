@@ -400,7 +400,7 @@ def _build_groups(topology, rank, device, keys):
 
     from smdistributed_modelparallel_tpu_torch.backend.collectives import TensorGroup, choose_transport
 
-    from smdistributed_modelparallel_tpu_torch.backend.topology import DATA_AXES, EXPERT_REPLICA_AXES, ROW_AXES
+    from smdistributed_modelparallel_tpu_torch.backend.topology import DATA_AXES, EXPERT_REPLICA_AXES, PP_AXIS, ROW_AXES
 
     groups = {}
     for axis, size in zip(topology.axis_names, topology.axis_sizes):
@@ -409,8 +409,14 @@ def _build_groups(topology, rank, device, keys):
         for ranks in topology.axis_groups(axis):
             transport = choose_transport([keys[r] for r in ranks])
             pg = dist.new_group(ranks, backend=transport)
+            extra = {}
+            if axis == PP_AXIS and transport == "nccl":
+                # The pipeline's backward transfers get a communicator of
+                # their own, its transfer headers a gloo group.
+                extra = dict(back_pg=dist.new_group(ranks, backend="nccl"),
+                             host_pg=dist.new_group(ranks, backend="gloo"))
             if rank in ranks:
-                groups[axis] = TensorGroup(ranks, pg, transport, rank, device)
+                groups[axis] = TensorGroup(ranks, pg, transport, rank, device, **extra)
                 note = " (host copies of CUDA tensors)" if transport == "gloo" and keys[rank] != "cpu" else ""
                 logger.info("%s group %s: transport %s%s", axis, ranks, transport, note)
     # The groups over several data axes. One with a single axis of size > 1

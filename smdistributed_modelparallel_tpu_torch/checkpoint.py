@@ -189,6 +189,11 @@ def save_checkpoint(path, tag=None, model=None, optimizer=None,
     ``step_{step_count}``. ``blocking=False`` returns once every tensor is
     copied to the host and ``user_content`` deep-copied; the rest runs on a
     background thread (``wait_for_checkpoints``)."""
+    if state.topology is not None and state.topology.pp_size > 1:
+        raise NotImplementedError(
+            "smp.save_checkpoint: pipeline_parallel_degree > 1 (partial saves per stage, full gathers) is not "
+            "ported to PyTorch yet (ROADMAP item 8)."
+        )
     if state.topology is not None and state.topology.ep_size > 1:
         raise NotImplementedError(
             "smp.save_checkpoint: expert_parallel_degree > 1 (each ep rank holds a slice of the experts, sharded "
@@ -525,6 +530,11 @@ def resume_from_checkpoint(path, tag=None, partial=True, strict=True,
 
 
 def _resume_from_checkpoint(path, tag, partial, strict, load_optimizer, elastic):
+    if state.topology is not None and state.topology.pp_size > 1:
+        raise NotImplementedError(
+            "smp.resume_from_checkpoint: pipeline_parallel_degree > 1 (stage checkpoints, elastic pp 1 <-> 2) is "
+            "not ported to PyTorch yet (ROADMAP item 8)."
+        )
     if tag is None:
         newest = os.path.join(path, "newest")
         if not os.path.exists(newest):

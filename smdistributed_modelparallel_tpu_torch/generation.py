@@ -106,12 +106,6 @@ def _make_sampler(temperature, top_k, top_p):
     return sample
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        f"smp.generate: {what} is not ported to PyTorch yet (a later slice)."
-    )
-
-
 def _decode_params(module, half):
     """The decode copy's parameters, or None when ``module``'s own serve:
     under ``SMP_DECODE_WEIGHTS=int8`` the weights round-trip through the
@@ -439,7 +433,9 @@ def generate(model, input_ids, max_new_tokens, *, temperature=0.0,
     # JAX package's program computes them on the global arrays: the same
     # tokens on every rank (only a step shards the sequence).
     if state.cfg is not None and state.cfg.pipeline_parallel_degree > 1:
-        raise _not_ported("pipeline_parallel_degree > 1")
+        raise NotImplementedError(
+            "smp.generate: pipeline_parallel_degree > 1 is not ported to PyTorch yet (ROADMAP item 8)."
+        )
     if state.cfg is not None and state.cfg.expert_parallel_degree > 1:
         raise NotImplementedError(
             "smp.generate: expert_parallel_degree > 1 (the experts sharded over the ep ranks) is not ported to "

@@ -15,8 +15,25 @@ rank's rows (rdp or ep > 1) a key drawn for a module raises (each rank would
 need its rows' part of the global mask). At ep > 1 every ``DistributedMoE``
 keeps the ep rank's experts (``shard_experts``), which are broadcast only over
 the ranks that hold the same experts (``EXPERT_REPLICA_AXES``, rdp x cp);
-``_expert_params`` names them for the step's gradient reduction. Pipeline
-parallelism arrives with a later slice.
+``_expert_params`` names them for the step's gradient reduction.
+
+Pipeline parallelism (pp > 1). The model is partitioned when it is built
+(``parallel/partition.maybe_auto_partition``: the JAX package's cost model,
+manual pins made before, ``load_partition``/``partition_file``), after the
+refusals of ``parallel/pipeline.check_supported``. A rank keeps its stage's
+layers and the replicated parameters (the embeddings, the final norm, the
+head), which are broadcast from the first stage; the other stages' layers
+are dropped from the module (``OtherStageLayer`` placeholders, so their
+memory is freed). ``state_dict``, ``named_parameters``, ``grads`` and the
+optimizer's parameters are the stage's part (``_pp_layer_params`` names its
+layers' parameters); ``load_state_dict`` takes the whole model's state (torch
+names or the JAX package's stacked layout) and keeps the stage's rows, as
+``_localize`` keeps a tp shard. Inside ``@smp.step`` the step engine
+intercepts the one ``model(...)`` call of the step function (``_call_mode``:
+"capture" records its inputs and stops the function, "probe" and "force"
+return what the pipeline hands them); a second call raises
+``StepUsageError``, a key drawn inside a stage ``NotImplementedError`` (ROADMAP
+item 8). ``register_post_partition_hook`` hooks run after the partition.
 
 Tensor parallelism (tp > 1). The ``smp.nn`` layers cut their tp-sharded
 parameters to the rank's part when they are built (``nn/utils.
@@ -164,6 +181,13 @@ class DistributedModel:
         self._layer_keys = {}       # (stream, layer) -> the stream key split for that layer
         self._key_tapes = []        # keys drawn are appended to each (checkpointed regions' forwards)
         self._key_replay = None     # iterator of the keys a recompute draws instead
+        self._call_mode = None      # the step's interception of model(...) under pp
+        self._calls = 0
+        self._captured = None
+        self._pipeline_spec = None
+        self._pp_layer_params = frozenset()
+        if state.cfg.pipeline_parallel_degree > 1:
+            self._partition()
         self._rng_scopes = _rng_scopes(self.module)
         # Parameters are replicated over the data ranks (an ep rank's experts
         # over the ranks that hold the same ones): every rank starts from its
@@ -204,7 +228,32 @@ class DistributedModel:
             else:
                 self.load_state_dict(payload)
 
+    def _partition(self):
+        """pp > 1: assign the layers to stages, keep this rank's, broadcast
+        the replicated parameters from the first stage."""
+        from smdistributed_modelparallel_tpu_torch.backend.topology import PP_AXIS
+        from smdistributed_modelparallel_tpu_torch.parallel.partition import maybe_auto_partition
+        from smdistributed_modelparallel_tpu_torch.parallel.pipeline import OtherStageLayer, check_supported
+
+        check_supported(state.cfg)
+        maybe_auto_partition(self)
+        spec = self._pipeline_spec
+        group = state.group(PP_AXIS)
+        start, end = spec.boundaries[group.index if group is not None else 0]
+        layers = spec.layer_module
+        for i in range(len(layers)):
+            if not start <= i < end:
+                layers[i] = OtherStageLayer(i)
+        kept = {id(p) for p in layers.parameters()}
+        self._pp_layer_params = frozenset(n for n, p in self.module.named_parameters() if id(p) in kept)
+        check_supported(state.cfg, self)
+        if group is not None:
+            group.flat_(group.broadcast, [p for n, p in self.module.named_parameters()
+                                          if n not in self._pp_layer_params] + list(self.module.buffers()))
+
     def __call__(self, *args, **kwargs):
+        if self._call_mode is not None:
+            return self._intercept(args, kwargs)
         self._rng_counts = {}  # each call is a fresh flax apply
         outer, state.calling_model = state.calling_model, self  # whose keys make_rng reads
         try:
@@ -217,6 +266,21 @@ class DistributedModel:
             return out
         finally:
             state.calling_model = outer
+
+    def _intercept(self, args, kwargs):
+        """The step function's ``model(...)`` call inside a pipelined step:
+        "capture" records the inputs and stops the function (``CaptureStop``),
+        "probe" and "force" return ``value()``; a second call raises."""
+        kind, value = self._call_mode
+        self._calls += 1
+        if kind == "capture":
+            self._captured = (args, kwargs)
+            raise CaptureStop()
+        if self._calls > 1:
+            raise StepUsageError("pipeline_parallel_degree > 1 requires exactly one model(...) call per step "
+                                 f"function (got {self._calls}).")
+        self._rng_counts = {}
+        return value()
 
     def _first_program(self):
         """Whether the JAX package would initialize this model (lazily, at
@@ -301,6 +365,10 @@ class DistributedModel:
         if self._key_replay is not None:
             key = next(self._key_replay)
         else:
+            if self._pipeline_spec is not None:
+                from smdistributed_modelparallel_tpu_torch.parallel.pipeline import refuse_key
+
+                refuse_key(module, name)
             if state.rdp_sharded:
                 topo = state.topology
                 raise NotImplementedError(
@@ -372,10 +440,10 @@ class DistributedModel:
         return sum(p.numel() for p in self.module.parameters())
 
     def register_post_partition_hook(self, hook):
-        """Run ``hook(model)`` once, after the parameters exist and any
-        deferred checkpoint state has been applied. Both happen when the
-        model is built (the port has no partitioning pass to wait for), so
-        the hook runs now."""
+        """Run ``hook(model)`` once, after the parameters exist, the
+        pipeline partition (pp > 1) and any deferred checkpoint state has
+        been applied. All happen when the model is built, so the hook runs
+        now."""
         hook(self)
         return hook
 
@@ -387,6 +455,9 @@ class DistributedModel:
         """Host copy of the parameters in the JAX package's layout: a flat
         '/'-keyed dict of numpy arrays (the ``model`` entry of a full
         checkpoint)."""
+        if self._pipeline_spec is not None:
+            raise NotImplementedError("The reference layout of a stage's part (checkpoints) at "
+                                      "pipeline_parallel_degree > 1 is not ported to PyTorch yet (ROADMAP item 8).")
         return self._to_reference(self.module.state_dict())
 
     def local_state_dict(self):
@@ -507,6 +578,11 @@ class DistributedModel:
     @property
     def training(self):
         return self.module.training
+
+
+class CaptureStop(Exception):
+    """Stops the step function at its ``model(...)`` call once the pipeline
+    has captured the call's inputs."""
 
 
 # flax's nn.scan traces its body twice; its scopes keep their rng counters

@@ -278,7 +278,7 @@ class EncoderDecoderLM(nn.Module):
 
     def pipeline_spec(self):
         raise _not_ported("EncoderDecoderLM.pipeline_spec (the decoder stack as pipeline stages)",
-                          "the pipeline slice")
+                          "a later part of the pipeline slice, ROADMAP item 8")
 
 
 _CONFIGS = {

@@ -7,6 +7,9 @@ Counterpart of ``smdistributed_modelparallel_tpu/models/transformer_lm.py``
 ``convert.params_from_jax`` maps one onto the other; the flax ``nn.scan``
 layer stack is an ``nn.ModuleList`` here.
 
+``pipeline_spec()`` decomposes it for pipeline parallelism: ``embed``, the
+layers (``apply_layers`` runs a stage's range) and ``head``.
+
 Supported: learned, rotary (NeoX half-split, on the first ``rotary_dim``
 channels) or no positions, a local-attention ``window``, parallel (GPT-J)
 blocks, pre/post LayerNorm, tied or untied head, loss mode
@@ -297,4 +300,19 @@ class TransformerLM(nn.Module):
         for layer in self.layers:
             x = layer(x, paged=paged)
         return x
+
+    def apply_layers(self, x, start, end):
+        """Layers ``[start, end)`` on the hidden ``x``: a pipeline stage's
+        work (``pipeline_spec``)."""
+        for layer in self.layers[start:end]:
+            x = layer(x)
+        return x
+
+    def pipeline_spec(self):
+        """The JAX module's decomposition (``layer_path="layers/block"``):
+        ``embed``, the layer stack, ``head``."""
+        from smdistributed_modelparallel_tpu_torch.parallel.pipeline import PipelineSpec
+
+        return PipelineSpec(layer_path="layers/block", num_layers=len(self.layers), layer_module=self.layers,
+                            hidden_size=self.wte.embedding_dim, seq_len=self.max_len)
 

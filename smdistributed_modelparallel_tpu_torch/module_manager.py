@@ -22,8 +22,11 @@ keys.
   (``_active_tp``), which ``nn/auto_distribute.distribute_tree`` reads when
   ``DistributedModel`` is built;
 - the pipeline stages (the ``partition(stage)`` context, ``set_partition``,
-  ``get_manual_partitions``, ``stage_of``). The port runs at pp = 1, where a
-  stage is only recorded, as in the JAX package; smp.init refuses pp > 1.
+  ``get_manual_partitions``, ``stage_of``): the manual pins
+  (``"<layer_path>#<i>"``) feed the partitioner when a ``DistributedModel``
+  is built at pp > 1 (``parallel/partition.py``), which installs its
+  assignment (``set_partition_assignment``); ``stage_of`` reads it by the
+  longest matching prefix, as in the JAX package.
 
 ``smp.set_activation_checkpointing``, ``smp.set_tensor_parallelism`` and
 ``smp.set_partition`` fill it after ``smp.init``; ``smp.init`` and
@@ -83,6 +86,7 @@ class ModuleManager:
         self._manual_partitions = {}      # path prefix -> stage
         self._active_tp = None            # the smp.tensor_parallelism() context's config
         self._active_partition = None     # the smp.partition() context's stage
+        self._partition_assignment = None  # the partitioner's {prefix: stage}
 
     # -- activation checkpointing -----------------------------------------
 
@@ -120,11 +124,19 @@ class ModuleManager:
     def get_manual_partitions(self):
         return dict(self._manual_partitions)
 
+    def set_partition_assignment(self, assignment):
+        self._partition_assignment = {_normalize_prefix(k): v for k, v in assignment.items()}
+
     def stage_of(self, path):
-        """The pipeline stage that runs ``path``: 0, the only stage at pp = 1.
-        (The manual partitions feed the pipeline partitioner, which arrives
-        with the pipeline-parallel slice.)"""
-        return 0
+        """The pipeline stage that runs ``path``: the assignment's entry of
+        the longest prefix that matches it (0 before any partition)."""
+        if self._partition_assignment is None:
+            return 0
+        best, best_len = 0, -1
+        for prefix, stage in self._partition_assignment.items():
+            if (prefix == "" or path == prefix or path.startswith(prefix + "/")) and len(prefix) > best_len:
+                best, best_len = stage, len(prefix)
+        return best
 
     # -- tensor parallelism -------------------------------------------------
 

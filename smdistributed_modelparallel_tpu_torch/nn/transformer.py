@@ -1,7 +1,9 @@
 """The ``smp.nn`` transformer family.
 
-Counterpart of ``smdistributed_modelparallel_tpu/nn/transformer.py`` at pp =
-1, as ``torch.nn`` modules:
+Counterpart of ``smdistributed_modelparallel_tpu/nn/transformer.py``, as
+``torch.nn`` modules (the stack and the LM head give the JAX modules'
+``pipeline_spec()``: a tuple carry, the stacked ``layer_xs``, a stage's layer
+range through ``apply_layers``):
 
 - ``DistributedAttentionLayer``: self- or cross-attention; the fused QKV
   projection (``fused_qkv`` in the config) through ``ops/matmul_bias.py``
@@ -751,6 +753,7 @@ class DistributedTransformer(nn.Module):
             raise SMPValidationError("attention_layers_type must have num_layers entries.")
         self.attention_layers_type = attention_layers_type
         self.activation_checkpointing = activation_checkpointing
+        self.hidden_size = hidden_size
         self.seq_layers = nn.ModuleList(
             DistributedTransformerLayer(num_attention_heads, attention_head_size, hidden_size, intermediate_size,
                                         device=device, **layer_kwargs)
@@ -758,6 +761,44 @@ class DistributedTransformer(nn.Module):
         )
 
     def forward(self, hidden, cross_states=None, attention_mask=None):
+        return self.layer_range(hidden, cross_states, attention_mask, 0, len(self.seq_layers))
+
+    # -- pipeline decomposition: identity embed/head carrying the side
+    # inputs, as in the JAX module ---------------------------------------
+
+    def embed(self, hidden, cross_states=None, attention_mask=None):
+        return (hidden, cross_states, attention_mask)
+
+    def head(self, carry):
+        return carry[0] if isinstance(carry, tuple) else carry
+
+    def apply_layers(self, carry, start, end):
+        hidden, cross_states, attention_mask = carry
+        return (self.layer_range(hidden, cross_states, attention_mask, start, end), cross_states, attention_mask)
+
+    def layer_xs(self):
+        """The JAX stack's per-layer inputs, as numpy: ``layer_idx`` and,
+        with ``attention_layers_type``, ``is_local``."""
+        import numpy as np
+
+        xs = {"layer_idx": np.arange(len(self.seq_layers), dtype=np.int32)}
+        if self.attention_layers_type is not None:
+            xs["is_local"] = np.asarray([t == "local" for t in self.attention_layers_type], dtype=bool)
+        return xs
+
+    def pipeline_spec(self, layer_path="seq_layers/layer", root=None):
+        from smdistributed_modelparallel_tpu_torch.parallel.pipeline import PipelineSpec
+
+        layer = self.seq_layers[0]
+        return PipelineSpec(layer_path=layer_path, num_layers=len(self.seq_layers), layer_module=self.seq_layers,
+                            embed_method="embed" if root is not None else None,
+                            head_method="head" if root is not None else None,
+                            layer_xs=self.layer_xs(), carry_is_tuple=True,
+                            hidden_size=self.hidden_size, seq_len=layer.attention.causal_mask_size)
+
+    def layer_range(self, hidden, cross_states, attention_mask, start, end):
+        """Layers ``[start, end)`` of the stack, each with its global index
+        (the whole stack: ``forward``; a pipeline stage: its range)."""
         types = self.attention_layers_type
         policy = offloader = None
         if self.activation_checkpointing:
@@ -775,7 +816,8 @@ class DistributedTransformer(nn.Module):
             if model is not None:
                 model._note_sequence_parallel()
         with program_scope("stack", id(self)):
-            for i, layer in enumerate(self.seq_layers):
+            for i in range(start, end):
+                layer = self.seq_layers[i]
                 kw = dict(cross_states=cross_states, attention_mask=attention_mask, layer_idx=i,
                           is_local=None if types is None else types[i] == "local")
                 if seq_sharded:
@@ -971,6 +1013,19 @@ class DistributedTransformerLMHead(nn.Module):
         if targets is None:
             return logits
         return masked_vocab_parallel_cross_entropy(logits, targets, label_smoothing=self.label_smoothing)
+
+    def apply_layers(self, carry, start, end):
+        """Layers ``[start, end)`` of the stack on the carry ``(hidden,
+        cross_states, attention_mask)``: a pipeline stage's work."""
+        return self.transformer.apply_layers(carry, start, end)
+
+    def pipeline_spec(self):
+        """The JAX module's decomposition (``layer_path=
+        "transformer/seq_layers/layer"``, a tuple carry, the stacked
+        ``layer_xs``): ``embed``, the stack's layers, ``head``."""
+        spec = self.transformer.pipeline_spec("transformer/seq_layers/layer", root=self)
+        spec.seq_len = self.config["causal_mask_size"] or self.num_positions
+        return spec
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None, targets=None):
         if targets is not None and state.cfg is not None and state.cfg.pipeline_parallel_degree > 1:

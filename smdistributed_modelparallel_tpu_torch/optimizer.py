@@ -262,12 +262,20 @@ class DistributedOptimizer:
 def _global_norm(model, grads):
     """The L2 norm of the step's gradients over the whole model: at ep > 1
     an ep rank holds a slice of the experts, at tp > 1 a slice of every
-    tp-sharded parameter, so their squares are summed over the ep (tp) group
-    (each shard counted once) before the root."""
-    experts, sharded = model._expert_params, model._tp_specs
-    if not experts and not sharded:
+    tp-sharded parameter, at pp > 1 its stage's layers, so their squares are
+    summed over the ep (tp, pp) group (each shard counted once) before the
+    root; a replicated parameter counts once."""
+    experts, sharded, layers = model._expert_params, model._tp_specs, model._pp_layer_params
+    if not experts and not sharded and not layers:
         return torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
-    from smdistributed_modelparallel_tpu_torch.backend.topology import EP_AXIS, TP_AXIS
+    from smdistributed_modelparallel_tpu_torch.backend.topology import EP_AXIS, PP_AXIS, TP_AXIS
+
+    if layers:
+        zero = torch.zeros((), device=next(iter(grads.values())).device)
+        stage = sum(((g.float() ** 2).sum() for n, g in grads.items() if n in layers), zero).reshape(1)
+        state.group(PP_AXIS).all_reduce(stage)
+        return torch.sqrt(sum(((g.float() ** 2).sum() for n, g in grads.items() if n not in layers), zero)
+                          + stage[0])
 
     zero = torch.zeros((), device=next(iter(grads.values())).device)
     total = sum(((g.float() ** 2).sum() for n, g in grads.items() if n not in experts and n not in sharded), zero)

@@ -4,8 +4,9 @@ Counterpart of ``smdistributed_modelparallel_tpu/parallel/remat_plan.py``
 (``MODES``, ``ENV``, ``resolve``). The knob (config ``recompute``, env alias
 ``SMP_RECOMPUTE``) takes "full", "stash_weight", "stash_all" or "auto". In
 the JAX package a pipelined run plans which passes stash their residuals
-(``plan_pipeline``, ``RecomputePlan``); that planner arrives with the
-pipeline slice. Without a pipeline schedule the knob only chooses what a
+(``plan_pipeline``, ``RecomputePlan``); the port's pipeline keeps each
+in-flight microbatch's graph and refuses a plan other than "full" (ROADMAP
+item 8). Without a pipeline schedule the knob only chooses what a
 checkpointed layer keeps (``parallel/memory.remat_policy``), as it does in
 the JAX package at pp = 1.
 """

@@ -391,6 +391,11 @@ class ServingEngine:
                     "(the operations slice)."
                 )
         cfg = state.cfg
+        if cfg is not None and cfg.pipeline_parallel_degree > 1:
+            raise NotImplementedError(
+                f"smp.serving: pipeline_parallel_degree = {cfg.pipeline_parallel_degree} is not ported to PyTorch "
+                "yet (ROADMAP item 8); the engine serves one device."
+            )
         if cfg is not None:
             degrees = {
                 "tensor_parallel_degree": cfg.tensor_parallel_degree,

@@ -1,7 +1,7 @@
 """``@smp.step``: the training-step engine of the PyTorch port.
 
-Counterpart of ``smdistributed_modelparallel_tpu/step.py`` (``StepFunction``)
-at pipeline degree 1. The JAX package traces the whole step
+Counterpart of ``smdistributed_modelparallel_tpu/step.py`` (``StepFunction``).
+The JAX package traces the whole step
 into one compiled program; here the same numbers come from an eager loop:
 
 - the step arguments are split into ``microbatches`` by the
@@ -203,10 +203,17 @@ package. tp runs beside rdp. Every single-card training option runs at tp >
 At tp > 1 the step refuses tp beside cp or ep, and the model refuses
 ``DistributedMoE`` and the encoder-decoder, each naming ROADMAP item 7b.
 
+Pipeline parallelism (pp > 1): ``_run_pipeline`` runs this rank's stage of
+the pipelined step (``parallel/pipeline.py``, ``parallel/pipeline_1f1b.py``):
+1F1B for a training step under ``pipeline: "interleaved"`` at
+``virtual_pipeline_degree`` 1, fill-drain for ``"simple"`` and for a step
+without ``model.backward``. What stays refused at pp > 1 raises naming
+ROADMAP item 8 (``parallel/pipeline.check_supported``).
+
 Not ported yet, each raising ``NotImplementedError`` when asked for:
-pipeline parallelism, ZeRO-3 (``sharded_params``), shape buckets
-(``SMP_SHAPE_BUCKETS``), the executable cache (``SMP_EXEC_CACHE``) and the
-compiled-program audit (``SMP_HLO_AUDIT``).
+ZeRO-3 (``sharded_params``), shape buckets (``SMP_SHAPE_BUCKETS``), the
+executable cache (``SMP_EXEC_CACHE``) and the compiled-program audit
+(``SMP_HLO_AUDIT``).
 """
 
 import contextlib
@@ -224,6 +231,7 @@ from smdistributed_modelparallel_tpu_torch.backend.split import (
     StepOutput,
     TensorSplitter,
     microbatch_slice,
+    tree_leaves,
     tree_map,
 )
 from smdistributed_modelparallel_tpu_torch.backend.state import state
@@ -267,7 +275,9 @@ def _not_ported(what):
 
 def _check_supported(cfg):
     if cfg.pipeline_parallel_degree > 1:
-        raise _not_ported("pipeline_parallel_degree > 1")
+        from smdistributed_modelparallel_tpu_torch.parallel.pipeline import check_supported
+
+        check_supported(cfg)
     topo = state.topology
     if cfg.tensor_parallel_degree > 1 and topo.cp_size * topo.ep_size > 1:
         raise NotImplementedError(
@@ -609,6 +619,8 @@ class StepFunction:
     def _run(self, model, cfg, stacked_args, stacked_kwargs):
         """The microbatch loop: forward, backward and gradient accumulation
         of every microbatch; returns the step's ``StepOutput``."""
+        if cfg.pipeline_parallel_degree > 1:
+            return self._run_pipeline(model, cfg, stacked_args, stacked_kwargs)
         num_mb = cfg.microbatches
         group = state.group(DATA_AXES)  # every rank that holds tokens of the microbatch
         cp, rows, tp = state.group(CP_AXIS), state.group(ROW_AXES), state.group(TP_AXIS)
@@ -619,14 +631,8 @@ class StepFunction:
         stale = model._grads is not None and model._params_at_step == model._param_version
 
         params = dict(model.module.named_parameters())
-        half = cfg.half_dtype
         hmode = health.mode()
-        bound = {}
-        for name, p in params.items():
-            t = p.detach()
-            if half is not None and t.is_floating_point():
-                t = t.to(half)
-            bound[name] = t.requires_grad_() if t.is_floating_point() else t
+        bound = _bind_params(params, cfg.half_dtype)
         loss_scale = state.loss_scaler.loss_scale if state.loss_scaler is not None else 1.0
         rng = state.step_rng if state.step_rng is not None else state.rng_manager.next_key("step")
         use_rng, next_rng = random.split(rng)
@@ -725,6 +731,105 @@ class StepFunction:
                                   if group is None else None)
         return StepOutput(stacked)
 
+    def _run_pipeline(self, model, cfg, stacked_args, stacked_kwargs):
+        """pp > 1: this rank's stage of the pipelined step
+        (``parallel/pipeline.py``). The step function runs once a microbatch
+        up to its model call, whose inputs are captured; on the first run of
+        this function once more with the call answered by the head of the
+        embedding (``StageExecutor.probe``), which tells whether it calls
+        ``model.backward``; then the schedule: 1F1B (``pipeline:
+        "interleaved"``, ``parallel/pipeline_1f1b.py``) for a training step,
+        fill-drain (``"simple"``, and every step without a backward). The
+        last stage runs the function forced to its head output and seeds each
+        loss with 1 / microbatches. Afterwards the replicated
+        parameters' gradients are summed over the pp group (``wte`` feeds the
+        embedding on the first stage and the tied head on the last), and the
+        last stage's outputs are broadcast, so that every rank returns the
+        same ``StepOutput``."""
+        from smdistributed_modelparallel_tpu_torch.backend.topology import PP_AXIS
+        from smdistributed_modelparallel_tpu_torch.model import CaptureStop
+        from smdistributed_modelparallel_tpu_torch.parallel import pipeline as pl
+        from smdistributed_modelparallel_tpu_torch.parallel.pipeline_1f1b import pipeline_1f1b
+
+        num_mb = cfg.microbatches
+        stale = model._grads is not None and model._params_at_step == model._param_version
+        params = dict(model.module.named_parameters())
+        bound = _bind_params(params, cfg.half_dtype)
+        rng = state.step_rng if state.step_rng is not None else state.rng_manager.next_key("step")
+        use_rng, next_rng = random.split(rng)
+        mb_keys = random.split(use_rng, num_mb)
+        mbs = [tree_map(lambda x: x.to(model.device) if isinstance(x, torch.Tensor) else x,
+                        (microbatch_slice(stacked_args, m), microbatch_slice(stacked_kwargs, m)))
+               for m in range(num_mb)]
+        rngs = [{s: random.fold_in(mb_keys[m], h) for h, s in enumerate(model.rng_streams)} for m in range(num_mb)]
+
+        def call(m, mode, value=None):
+            """The step function of microbatch m with its model call in
+            ``mode``: (its output, the marked loss, the loss to differentiate)."""
+            args, kwargs = mbs[m]
+            model._begin_microbatch(bound, rngs[m])
+            model._call_mode, model._calls, model._captured = (mode, value), 0, None
+            try:
+                out = self.fn(*args, **kwargs)
+            except CaptureStop:
+                out = None
+            finally:
+                model._call_mode = None
+                loss, _, differentiated = model._end_microbatch()
+            if model._calls == 0:
+                raise StepUsageError("pipeline_parallel_degree > 1 requires exactly one model(...) call per step "
+                                     "function (got 0).")
+            return out, loss, differentiated
+
+        def capture(m):
+            with torch.no_grad():
+                call(m, "capture")
+            return model._captured
+
+        inputs = [capture(m) for m in range(num_mb)]
+
+        def loss_fn(m, head):
+            out, loss, differentiated = call(m, "force", head)
+            if ex.backward and loss is None:
+                raise StepUsageError("model.backward(loss) was not called in the step function.")
+            if not ex.backward and loss is not None:
+                raise StepUsageError("model.backward() called in a step function whose first run did not call it.")
+            return differentiated, tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor) else x, out)
+
+        # The seed is loss_scale / microbatches; the loss scale is 1 (fp16 is
+        # refused at pp > 1, ROADMAP item 8).
+        ex = pl.StageExecutor(model, bound, inputs, loss_fn, self._has_backward, 1.0 / num_mb)
+        if self._has_backward is None:
+            self._has_backward = ex.backward = ex.probe(lambda head: call(0, "probe", head)[1] is not None)
+        if ex.backward and cfg.pipeline != "simple":
+            error = pipeline_1f1b(ex)
+        else:
+            error = pl.pipeline_forward(ex)
+        stacked = meta = None
+        if ex.last and error is None:
+            try:
+                stacked = _stack_outputs([ex.outs[m] for m in range(num_mb)])
+                meta = tree_map(lambda x: _Meta(x) if isinstance(x, torch.Tensor) else x, stacked)
+            except Exception as e:  # noqa: BLE001 - every stage raises it in finish()
+                error = e
+        meta = ex.finish(error, meta)
+        group = state.group(PP_AXIS)
+        if not ex.last:
+            stacked = tree_map(lambda x: x.empty(model.device) if isinstance(x, _Meta) else x, meta)
+        leaves = [x for x in tree_leaves(stacked) if isinstance(x, torch.Tensor)]
+        if leaves:
+            group.flat_(functools.partial(group.broadcast, src=group.size - 1), leaves)
+        model._pp_comm_seconds = ex.comm_s
+        model._pp_transfers = ex.transfers
+        state.step_rng = next_rng
+        if ex.backward:
+            _note_stale(model, stale)
+            acc = ex.acc
+            group.flat_(group.all_reduce, [acc[n] for n in ex.names if n not in model._pp_layer_params])
+            model._grads = {n: acc[n].to(params[n].dtype) for n in ex.names}
+            model._grads_finite = None
+        return StepOutput(stacked)
+
     def _bisector(self, model, cfg, bound, params, stacked_args, stacked_kwargs, rng):
         """The trip bisector of this step: its microbatch inputs, keys and
         dispatch-time parameters (the half casts it made; under fp32 ``bound``
@@ -746,16 +851,7 @@ class StepFunction:
         loss_scale`` (and the data group: one flat all-reduce of the
         accumulators, an ep rank's experts' over the ranks that hold the
         same experts), in the parameters' dtypes."""
-        if stale:
-            model._dropped_updates += 1
-            if model._dropped_updates == 3:
-                logger.warning(
-                    "3 training steps ran without optimizer.step(): "
-                    "parameter updates are computed and then "
-                    "discarded, so the model is NOT learning. Call "
-                    "optimizer.step() after each step."
-                )
-        model._params_at_step = model._param_version
+        _note_stale(model, stale)
         divisor = float(num_mb * loss_scale)
         tp = state.group(TP_AXIS)
         if tp is not None and model._seq_parallel_ran:
@@ -774,6 +870,43 @@ class StepFunction:
         model._grads = {n: acc[n].div_(divisor).to(params[n].dtype) for n in names}
         model._grads_finite = None
         return model._grads
+
+
+def _note_stale(model, stale):
+    """Count a training step whose gradients replace ones no
+    ``optimizer.step()`` consumed; warn at the third."""
+    if stale:
+        model._dropped_updates += 1
+        if model._dropped_updates == 3:
+            logger.warning(
+                "3 training steps ran without optimizer.step(): "
+                "parameter updates are computed and then "
+                "discarded, so the model is NOT learning. Call "
+                "optimizer.step() after each step."
+            )
+    model._params_at_step = model._param_version
+
+
+def _bind_params(params, half):
+    """The step's compute parameters: each floating master parameter cast
+    to ``half`` (when set), detached and requiring grad."""
+    bound = {}
+    for name, p in params.items():
+        t = p.detach()
+        if half is not None and t.is_floating_point():
+            t = t.to(half)
+        bound[name] = t.requires_grad_() if t.is_floating_point() else t
+    return bound
+
+
+class _Meta:
+    """A tensor's shape and dtype, pickled to the other stages."""
+
+    def __init__(self, x):
+        self.shape, self.dtype = tuple(x.shape), x.dtype
+
+    def empty(self, device):
+        return torch.empty(self.shape, dtype=self.dtype, device=device)
 
 
 def step(fn=None, *, non_split_inputs=None, input_split_axes=None):

@@ -26,8 +26,8 @@ recorders (``record_health_check``/``_trip``/``_fault``,
 ``record_preemption``, ``record_failure_detected``, ``record_recovery``) and
 the serving control plane's (``record_scale_event``,
 ``record_controller_replicas``, ``record_route``, ``record_drain_stragglers``,
-``record_canary``) are the JAX package's; those of the subsystems not ported
-yet (the pipeline schedules, the executable cache) come with them.
+``record_canary``) and the pipeline schedules' (``record_pipeline_occupancy``)
+are the JAX package's; the executable cache's come with it.
 
 The **watchdog** (``SMP_WATCHDOG_TIMEOUT`` seconds; unset/0 = off) turns
 silent wedges into actionable dumps: when a guarded operation overruns the
@@ -675,6 +675,74 @@ def _goodput_snapshot(reason):
         return goodput.snapshot()
     except Exception:  # pragma: no cover - diagnostics must not throw
         return None
+
+
+def record_pipeline_occupancy(schedule, num_stages, num_microbatches,
+                              busy_slots, total_slots, virtual=1,
+                              passes=2, pass_ticks=None):
+    """Record measured schedule occupancy -> bubble fraction gauges.
+
+    ``busy_slots``/``total_slots`` count (tick, stage[, sub-step]) slots of
+    the static schedule the stage executors walk, tick by tick; the
+    theoretical bound is ``(pp-1)/(mb+pp-1)`` for the plain schedules and
+    the interleaved ``(pp-1)/(v*mb+pp-1)`` when ``virtual > 1`` (each rank
+    owns ``v`` model chunks, so a schedule slot is a chunk sub-step and
+    the fill/drain ramps shrink by ``v``). Zero-bubble schedules pass
+    ``passes=3`` (forward / input-grad / weight-grad sub-steps): a slot
+    is then a (chunk, microbatch, pass) unit and the bound drops to
+    ``2*(pp-1)/(3*v*mb + 2*(pp-1))`` — the deferred weight-grad pass
+    packs gapless, leaving only the F and B ramps as bubble. Gauges (not
+    counters): every step sets them again, to the same values.
+
+    ``pass_ticks`` (optional): {pass name: executed tick-span length}.
+    Emitted as ``smp_pipeline_phase_ticks{phase="executed", pass=...}``
+    — the per-pass denominators behind ``measured``, so the
+    measured-vs-theoretical gate can audit a 3-pass schedule's occupancy
+    accounting the same way the interleaved phase split is audited.
+    """
+    measured = 1.0 - (busy_slots / total_slots) if total_slots else 0.0
+    if passes >= 3:
+        denom = 3 * virtual * num_microbatches + 2 * (num_stages - 1)
+        theoretical = 2 * (num_stages - 1) / denom if denom > 0 else 0.0
+    else:
+        denom = virtual * num_microbatches + num_stages - 1
+        theoretical = (num_stages - 1) / denom if denom > 0 else 0.0
+    lab = dict(schedule=schedule)
+    if pass_ticks:
+        phase_gauge = telemetry.gauge(
+            "smp_pipeline_phase_ticks",
+            "ticks per schedule phase (warmup/steady/cooldown) or per "
+            "executed pass span (pass label)",
+        )
+        for pass_name, ticks in pass_ticks.items():
+            phase_gauge.labels(
+                phase="executed", schedule=schedule, **{"pass": pass_name}
+            ).set(ticks)
+    telemetry.gauge(
+        "smp_pipeline_bubble_fraction",
+        "measured idle fraction of pipeline schedule slots",
+    ).labels(**lab).set(measured)
+    telemetry.gauge(
+        "smp_pipeline_bubble_fraction_theoretical",
+        "schedule bound (pp-1)/(v*mb+pp-1); v=1 is the fill-drain bound",
+    ).labels(**lab).set(theoretical)
+    telemetry.gauge(
+        "smp_pipeline_virtual_stages",
+        "virtual pipeline chunks per stage (1 = no interleaving)",
+    ).labels(**lab).set(virtual)
+    telemetry.gauge(
+        "smp_pipeline_schedule_slots", "slots in the static schedule"
+    ).labels(state="busy", **lab).set(busy_slots)
+    telemetry.gauge(
+        "smp_pipeline_schedule_slots", "slots in the static schedule"
+    ).labels(state="total", **lab).set(total_slots)
+    telemetry.gauge(
+        "smp_pipeline_stages", "pipeline stage count"
+    ).labels(**lab).set(num_stages)
+    telemetry.gauge(
+        "smp_pipeline_microbatches", "microbatch count"
+    ).labels(**lab).set(num_microbatches)
+    return measured
 
 
 def record_loss_scale(event, scale):

@@ -41,7 +41,7 @@ from smdistributed_modelparallel_tpu_torch.backend.state import state
 from smdistributed_modelparallel_tpu_torch.convert import params_from_jax
 from smdistributed_modelparallel_tpu_torch.fp16.loss_scaler import DynamicLossScaler, LossScaler
 from smdistributed_modelparallel_tpu_torch.models.gpt2 import gpt2_124m
-from smdistributed_modelparallel_tpu_torch.utils.exceptions import DeviceCountError
+from smdistributed_modelparallel_tpu_torch.utils.exceptions import DeviceCountError, PartitionError
 from smdistributed_modelparallel_tpu_torch.utils.logger import get_logger
 from tests.models import MLP, softmax_xent
 
@@ -527,6 +527,7 @@ def test_step_before_init_raises():
 
 @pytest.mark.parametrize("cfg,env", [
     ({"pipeline_parallel_degree": 2, "microbatches": 2}, None),
+    ({"pipeline_parallel_degree": 2, "virtual_pipeline_degree": 2, "microbatches": 2}, None),
     ({"tensor_parallel_degree": 2, "ddp": True}, None),
     ({"matmul_precision": "fp8"}, None),
     ({}, ("SMP_SHAPE_BUCKETS", "batch:8,16")),
@@ -535,7 +536,7 @@ def test_step_before_init_raises():
     ({}, ("SMP_HLO_AUDIT", "on")),
     ({}, ("SMP_CHAOS", "sigterm@step=3")),
     ({}, ("SMP_SUPERVISOR", "on")),
-], ids=["pp2", "tp2", "fp8", "shape_buckets", "health", "exec_cache", "hlo_audit", "chaos", "supervisor"])
+], ids=["pp2", "vpp2", "tp2", "fp8", "shape_buckets", "health", "exec_cache", "hlo_audit", "chaos", "supervisor"])
 def test_left_out_features_raise(monkeypatch, cfg, env):
     if env is not None:
         monkeypatch.setenv(*env)
@@ -549,6 +550,18 @@ def test_left_out_features_raise(monkeypatch, cfg, env):
         monkeypatch.setattr(state, "cfg", smp.ModelParallelConfig(cfg))
     else:
         smp.init(cfg, device="cpu")
+    if cfg.get("virtual_pipeline_degree", 1) > 1:
+        # Stays refused at pp > 1 (ROADMAP item 8), when the model is built.
+        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+            smp.DistributedModel(TorchMLP())
+        return
+    if cfg.get("pipeline_parallel_degree", 1) > 1:
+        # Ported since (slice 5a, tests/test_torch_pp_step.py): the model is
+        # partitioned when it is built, and a module without pipeline_spec()
+        # raises what the JAX package raises for it.
+        with pytest.raises(PartitionError, match="requires a pipelineable model"):
+            smp.DistributedModel(TorchMLP())
+        return
     model = smp.DistributedModel(TorchMLP())
     if env is not None and env[0] in ("SMP_HEALTH_CHECK", "SMP_CHAOS", "SMP_SUPERVISOR"):
         # Ported since (slice 9b, tests/test_torch_health.py and friends):
